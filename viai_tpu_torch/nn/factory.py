@@ -1,0 +1,46 @@
+"""Network factories — the reference's `define_G` surface, in PyTorch.
+
+Port of `viai_tpu/nn/factory.py::define_G`, with the same defaults and
+a `device` (the card unless the caller asks for the CPU).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+from .generator import GeneratorConfig, UNetGenerator
+
+
+def define_G(
+    input_nc: int = 2,
+    output_nc: int = 1,
+    ngf: int = 64,
+    norm: str = "instance",
+    dtype: str = "float32",
+    fusion_channels: int = 0,
+    seed: int = 0,
+    upsample: str = "deconv",
+    init_type: str = "normal",
+    init_gain: float = 0.02,
+    dropout: float = 0.0,
+    bottleneck_dilation: tuple[int, ...] = (),
+    bottleneck_attn: int = 0,
+    attn_heads: int = 8,
+    gated: bool = False,
+    device: str | torch.device = "cuda",
+) -> UNetGenerator:
+    """A U-Net G with weights drawn from `seed` (on the CPU, so a seed
+    gives the same weights on every device), in eval mode on `device`."""
+    dev = resolve_device(device)
+    cfg = GeneratorConfig(
+        in_channels=input_nc, out_channels=output_nc, ngf=ngf,
+        norm=norm, dtype=dtype, upsample=upsample,
+        init_type=init_type, init_gain=init_gain, dropout=dropout,
+        bottleneck_dilation=tuple(bottleneck_dilation),
+        bottleneck_attn=bottleneck_attn, attn_heads=attn_heads,
+        gated=gated,
+    )
+    G = UNetGenerator(cfg, torch.Generator().manual_seed(seed),
+                      fusion_channels=fusion_channels)
+    return G.to(dev).eval()
