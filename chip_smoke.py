@@ -7,14 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      matmuls and cuDNN convolutions, so every product is full float32;
   2. build: nvcc builds the Griffin-Lim kernel from csrc/;
   3. the kernel against its plain PyTorch version at the serving
-     shapes (B = 8 clips of 2 s: F = 251 frames × 256 bins, 32000
-     samples);
+     shapes of both buckets, B = 8 and 32 clips of 2 s (F = 251 frames
+     × 256 bins, 32000 samples), which run different block tiles;
   4. the serving chain: InpaintService with the define_G() defaults
      (ngf 64, six levels) and GL×32, requests of 3, 8 and 21 clips and
      five streamed clips, with the kernel's launches counted; and the
      chain on the card against the chain on the CPU on a small input;
-  5. times, with CUDA events after warm-up, and the device time of one
-     bucket-32 request by kernel (torch.profiler).
+  5. times, with CUDA events after warm-up: GL×32 at B = 8, 32 and 128
+     through the wrapper, the kernel alone (the C entry point on
+     buffers prepared once), the plain version, and both bounds (3xTF32
+     on the tensor cores, the kernel's own; float32 SIMT, for history);
+     the chain per bucket;
+     and the device time of one bucket-32 request by kernel
+     (torch.profiler).
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
 kernels with their launches, errors and times.
@@ -33,16 +38,19 @@ import torch
 from viai_tpu_torch import (InpaintService, TrainConfig, define_G,
                             make_infer_fn)
 from viai_tpu_torch import _build
-from viai_tpu_torch.signal import griffin_lim, stft
+from viai_tpu_torch.signal import gl_cuda, griffin_lim, stft
 from viai_tpu_torch.signal.gl_cuda import griffin_lim_cuda
 
 SR, CLIP = 16000, 32000
 GAP_S = (0.8, 1.2)
 HOLE = (100, 131)            # hole frames of the kernel checks
-# Published float32 (non-tensor-core) peak and memory rate of an H100
-# SXM at its 700 W limit (NVIDIA data sheet).
+# Published float32 (non-tensor-core) and dense TF32 tensor-core peaks
+# and memory rate of an H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+GL_BATCHES = (8, 32, 128)    # the service's default buckets
+KERNEL_BATCHES = (8, 32)     # the slice's buckets, one per block tile
 
 
 def log(msg: str):
@@ -114,16 +122,20 @@ def gl_inputs(batch: int, dev, seed: int = 0):
 
 
 def gl_bound_ms(batch: int, n_frames: int, n_bins: int, n_fft: int,
-                n_iter: int, T: int) -> tuple[float, float]:
-    """Least time for GL×n_iter: (by operations, by bytes), in ms.
+                n_iter: int, T: int) -> dict:
+    """Least times for GL×n_iter, in ms: by float32 operations outside
+    the tensor cores (`ops`), by the same operations as 3xTF32 on the
+    tensor cores (`ops_tc`: three TF32 products per product), by bytes.
 
     Operations: per iteration 4 products of F×n_bins×n_fft
     multiply-adds (iDFT re/im, DFT cos/sin), plus the final iDFT.
     Bytes: mag, obs_re, obs_im, init_re, init_im read once, the
     waveform written once."""
-    macs = batch * n_frames * n_bins * n_fft * (4 * n_iter + 2)
+    flop = 2 * batch * n_frames * n_bins * n_fft * (4 * n_iter + 2)
     nbytes = 4 * (5 * batch * n_frames * n_bins + batch * T)
-    return 2 * macs / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ops": flop / PEAK_FP32 * 1e3,
+            "ops_tc": 3 * flop / PEAK_TF32 * 1e3,
+            "bytes": nbytes / PEAK_BYTES * 1e3}
 
 
 def phase_device() -> str:
@@ -150,36 +162,49 @@ def phase_build():
 
 
 def phase_kernel(dev) -> float:
-    """Kernel vs plain at the serving shapes; returns the max abs error
-    over the n_iter ≤ 4 cases."""
-    cfg, x, mag, obs = gl_inputs(8, dev)
-    n = x.shape[-1]
+    """Kernel vs plain at the serving shapes of the slice's buckets,
+    B = 8 and 32, which the kernel runs with different block tiles;
+    returns the max abs error over the n_iter ≤ 4 cases."""
     worst = 0.0
-    cases = [("zero", {}), ("observed", {"observed": obs}),
-             ("observed+extrapolate",
-              {"observed": obs, "phase_init": "extrapolate"})]
-    for n_iter in (0, 1, 4):
-        for name, kw in cases:
-            out = griffin_lim_cuda(mag, cfg, n_iter=n_iter, length=n, **kw)
-            ref = griffin_lim(mag, cfg, n_iter=n_iter, length=n, **kw)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            ok = bool(torch.allclose(out, ref, atol=1e-3, rtol=1e-3))
-            log(f"[kernel] GL×{n_iter} {name}: max|Δ| {err:.3e} "
-                f"(bound atol=rtol=1e-3) {'ok' if ok else 'FAIL'}")
-            require(ok, f"kernel disagrees with plain at n_iter={n_iter} {name}")
-            worst = max(worst, err)
-    kw = {"observed": obs, "phase_init": "extrapolate"}
-    out = griffin_lim_cuda(mag, cfg, n_iter=32, length=n, **kw)
-    ref = griffin_lim(mag, cfg, n_iter=32, length=n, **kw)
-    sl = observed_slices(HOLE, cfg.hop_length, cfg.n_fft, n)
-    e_obs = rel_err(out, ref, sl)
-    hole = slice(sl[0].stop, sl[1].start)
-    e_hole = rel_err(out, ref, [hole])
-    log(f"[kernel] GL×32 observed+extrapolate: observed-region rel err "
-        f"{e_obs:.3e} (bound 1e-3); hole rel err {e_hole:.3e} (GL is "
-        f"chaotic in the hole; not bounded)")
-    require(e_obs < 1e-3, "kernel disagrees with plain at GL×32 (observed)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = set()
+    for batch in KERNEL_BATCHES:
+        cfg, x, mag, obs = gl_inputs(batch, dev)
+        n = x.shape[-1]
+        tile = gl_cuda.pick_tile(batch * mag.shape[1],
+                                 gl_cuda.padded_width(cfg.n_fft), sms)
+        tiles.add(tile)
+        tag = f"B={batch} (tile {gl_cuda.BLOCK_ROWS}x{tile})"
+        cases = [("zero", {}), ("observed", {"observed": obs}),
+                 ("observed+extrapolate",
+                  {"observed": obs, "phase_init": "extrapolate"})]
+        for n_iter in (0, 1, 4):
+            for name, kw in cases:
+                out = griffin_lim_cuda(mag, cfg, n_iter=n_iter, length=n, **kw)
+                ref = griffin_lim(mag, cfg, n_iter=n_iter, length=n, **kw)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                ok = bool(torch.allclose(out, ref, atol=1e-3, rtol=1e-3))
+                log(f"[kernel] {tag} GL×{n_iter} {name}: max|Δ| {err:.3e} "
+                    f"(bound atol=rtol=1e-3) {'ok' if ok else 'FAIL'}")
+                require(ok, f"kernel disagrees with plain at B={batch} "
+                        f"n_iter={n_iter} {name}")
+                worst = max(worst, err)
+        kw = {"observed": obs, "phase_init": "extrapolate"}
+        out = griffin_lim_cuda(mag, cfg, n_iter=32, length=n, **kw)
+        ref = griffin_lim(mag, cfg, n_iter=32, length=n, **kw)
+        sl = observed_slices(HOLE, cfg.hop_length, cfg.n_fft, n)
+        e_obs = rel_err(out, ref, sl)
+        hole = slice(sl[0].stop, sl[1].start)
+        e_hole = rel_err(out, ref, [hole])
+        log(f"[kernel] {tag} GL×32 observed+extrapolate: observed-region "
+            f"rel err {e_obs:.3e} (bound 1e-3); hole rel err {e_hole:.3e} "
+            f"(GL is chaotic in the hole; not bounded)")
+        require(e_obs < 1e-3,
+                f"kernel disagrees with plain at B={batch} GL×32 (observed)")
+    require(tiles == set(gl_cuda.TILES),
+            f"the checked batches ran tiles {sorted(tiles)}, not every one "
+            f"of {gl_cuda.TILES}")
     return worst
 
 
@@ -244,23 +269,52 @@ def phase_reference(svc: InpaintService, dev):
 def phase_times(svc: InpaintService, dev, card: str) -> dict:
     tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
     res = {}
-    for batch in (8, 32):
+    n_iter = 32
+    for batch in GL_BATCHES:
         cfg, x, mag, obs = gl_inputs(batch, dev, seed=batch)
         n = x.shape[-1]
         kw = {"observed": obs, "phase_init": "extrapolate"}
-        k_ms = time_ms(lambda: griffin_lim_cuda(mag, cfg, 32, n, **kw), 5)
-        p_ms = time_ms(lambda: griffin_lim(mag, cfg, 32, n, **kw), 5)
-        k0_ms = time_ms(lambda: griffin_lim_cuda(mag, cfg, 32, n), 5)
-        ops_ms, bytes_ms = gl_bound_ms(batch, mag.shape[1], mag.shape[2],
-                                       cfg.n_fft, 32, n)
-        res[batch] = dict(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=max(
-            ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms
-            else "bytes")
-        log(f"[times] GL×32 B={batch}: kernel {k_ms:.3f} ms (zero init, no "
-            f"observed: {k0_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
-            f"{max(ops_ms, bytes_ms):.3f} ms (operations {ops_ms:.3f}, bytes "
-            f"{bytes_ms:.3f}) -> {max(ops_ms, bytes_ms) / k_ms:.1%} of the "
-            f"fp32 roofline {tag}")
+        k_ms = time_ms(lambda: griffin_lim_cuda(mag, cfg, n_iter, n, **kw), 5)
+        p_ms = time_ms(lambda: griffin_lim(mag, cfg, n_iter, n, **kw), 5)
+        k0_ms = time_ms(lambda: griffin_lim_cuda(mag, cfg, n_iter, n), 5)
+        # The kernel alone: the C entry point on buffers prepared once
+        # (it updates A and prev in place; the time does not depend on it).
+        buf = gl_cuda.prepare_buffers(mag, cfg, obs, "extrapolate")
+        ko_ms = time_ms(lambda: gl_cuda.launch(buf, n_iter), 10)
+        b = gl_bound_ms(batch, mag.shape[1], mag.shape[2], cfg.n_fft, n_iter,
+                        n)
+        M, W = batch * mag.shape[1], gl_cuda.padded_width(cfg.n_fft)
+        tile = gl_cuda.pick_tile(M, W, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        # The kernel computes in 3xTF32 on the tensor cores, so its bound
+        # is that type's peak; the float32 SIMT bound is kept for history.
+        bound = max(b["ops_tc"], b["bytes"])
+        res[batch] = dict(kernel_ms=k_ms, kernel_only_ms=ko_ms, plain_ms=p_ms,
+                          bound_ms=bound, bound_tc_ms=bound,
+                          bound_simt_ms=max(b["ops"], b["bytes"]),
+                          bound_by="operations" if b["ops_tc"] >= b["bytes"]
+                          else "bytes")
+        log(f"[times] GL×{n_iter} B={batch}: wrapper {k_ms:.3f} ms (zero "
+            f"init, no observed: {k0_ms:.3f} ms), kernel alone {ko_ms:.3f} ms"
+            f" ({3 * n_iter + 2} launches, tile {gl_cuda.BLOCK_ROWS}x{tile}),"
+            f" plain {p_ms:.3f} ms {tag}")
+        log(f"[times]   bounds: 3xTF32 tensor cores {b['ops_tc']:.3f} ms "
+            f"(kernel alone at {b['ops_tc'] / ko_ms:.1%}, wrapper at "
+            f"{b['ops_tc'] / k_ms:.1%}); float32 SIMT {b['ops']:.3f} ms "
+            f"(kernel alone at {b['ops'] / ko_ms:.1%}); bytes "
+            f"{b['bytes']:.3f} ms; kernel alone "
+            f"{'faster' if ko_ms < p_ms else 'NOT faster'} than plain "
+            f"({p_ms / ko_ms:.2f}x)")
+        # Diagnostic only (the port never calls it): cuBLAS on the
+        # kernel's product shape, float32 with TF32 off, times the
+        # products of one call (two per iteration and the final one).
+        a = torch.randn(M, W, device=dev)
+        w = torch.randn(W, W, device=dev)
+        mm_ms = time_ms(lambda: torch.matmul(a, w), 10)
+        n_mm = 2 * n_iter + 1
+        log(f"[times]   cuBLAS float32 ({M}, {W}) @ ({W}, {W}): {mm_ms:.4f} "
+            f"ms x {n_mm} products = {mm_ms * n_mm:.3f} ms (diagnostic)")
+        del buf, a, w
     G = svc.G
     for batch in svc.buckets:
         wavs = tones(batch, seed=100 + batch, device="cpu").numpy()
@@ -328,7 +382,9 @@ def main():
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
         "launches": launches, "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+        "kernel_only_ms": t["kernel_only_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_tc_ms": t["bound_tc_ms"], "bound_simt_ms": t["bound_simt_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "batch": 32, "n_iter": 32,
     }]}), flush=True)
