@@ -13,20 +13,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      (ngf 64, six levels) and GL×32, requests of 3, 8 and 21 clips and
      five streamed clips, with the kernel's launches counted; and the
      chain on the card against the chain on the CPU on a small input;
-  5. times, with CUDA events after warm-up: GL×32 at B = 8, 32 and 128
+  5. the vision-infused chain (--model av) at full width, the README's
+     recipe: define_G(fusion_channels=256, gated, bottleneck dilation
+     1,2,4, dropout 0.5) and define_V(), (16, 64, 64, 3) frames a clip,
+     GL×32, requests of 3, 8 and 21 clips, launches counted; and the
+     card against the CPU on 2 clips;
+  6. the other serving options of G and the chain at full width, one
+     bucket-8 request each at GL×1 (bottleneck attention, the phase
+     head, multi_res, an ensemble of two, the flax GroupNorm, bf16),
+     launches counted, each held against the CPU chain;
+  7. times, with CUDA events after warm-up: GL×32 at B = 8, 32 and 128
      through the wrapper, the kernel alone (the C entry point on
      buffers prepared once), the plain version, and both bounds (3xTF32
      on the tensor cores, the kernel's own; float32 SIMT, for history);
-     the chain per bucket;
-     and the device time of one bucket-32 request by kernel
-     (torch.profiler).
+     the audio-only and the av chain per bucket, with G's and V's
+     forward and the frames' copy to the card;
+     and the device time of one bucket-32 request of each chain by
+     kernel (torch.profiler).
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
-kernels with their launches, errors and times.
+kernels with their launches (summed over every served path), errors
+and times.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -35,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from viai_tpu_torch import (InpaintService, TrainConfig, define_G,
+from viai_tpu_torch import (InpaintService, TrainConfig, define_G, define_V,
                             make_infer_fn)
 from viai_tpu_torch import _build
 from viai_tpu_torch.signal import gl_cuda, griffin_lim, stft
@@ -51,6 +63,29 @@ PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 GL_BATCHES = (8, 32, 128)    # the service's default buckets
 KERNEL_BATCHES = (8, 32)     # the slice's buckets, one per block tile
+# The README's best single-G recipe under --model av (VIAIModel builds
+# G with dropout 0.5 unless --no_dropout, fusion = --fusion_channels).
+AV_G = dict(fusion_channels=256, gated=True, bottleneck_dilation=(1, 2, 4),
+            dropout=0.5)
+FRAMES = (16, 64, 64, 3)     # a clip's frames at define_V()'s shapes
+# The serving options held card against CPU, one bucket-8 request each:
+# (name, define_G arguments, TrainConfig fields, ensemble of two, bound of
+# max|Δ|/max|ref|). float32 options: 1e-3, float32 summation order, as
+# [reference]. bf16: the card's cuDNN and the CPU's oneDNN round every
+# activation to bf16 at their own places, so the two chains are two bf16
+# roundings of one function, amplified by the exponential decompress
+# (measured 7.3e-3 on an H100; bound 2e-2).
+BF16_BOUND = 2e-2
+OPTIONS = (
+    ("bottleneck_attn=2", dict(bottleneck_attn=2), {}, False, 1e-3),
+    ("phase_head (init=)", dict(output_nc=3), dict(phase_head=True), False,
+     1e-3),
+    ("multi_res", dict(input_nc=3), dict(multi_res=True), False, 1e-3),
+    ("ensemble of 2", {}, {}, True, 1e-3),
+    ("norm=groupnorm_instance", dict(norm="groupnorm_instance"), {}, False,
+     1e-3),
+    ("dtype=bfloat16", dict(dtype="bfloat16"), {}, False, BF16_BOUND),
+)
 
 
 def log(msg: str):
@@ -93,6 +128,51 @@ def rel_err(a: torch.Tensor, b: torch.Tensor, slices) -> float:
     num = sum(float(torch.linalg.norm(a[:, s] - b[:, s])) ** 2 for s in slices)
     den = sum(float(torch.linalg.norm(b[:, s])) ** 2 for s in slices)
     return (num / den) ** 0.5
+
+
+def video_frames(batch: int, seed: int) -> np.ndarray:
+    """(batch, 16, 64, 64, 3) float32 frames in [0, 1) from a seed."""
+    return np.random.default_rng(seed).uniform(
+        0, 1, (batch, *FRAMES)).astype(np.float32)
+
+
+def unit_phasors(mag: torch.Tensor, seed: int):
+    """Random unit phasors from a seed, as the phase head's init=."""
+    g = torch.Generator().manual_seed(seed)
+    ang = 2 * np.pi * torch.rand(mag.shape, generator=g)
+    return torch.cos(ang).to(mag.device), torch.sin(ang).to(mag.device)
+
+
+def card_copy(module: torch.nn.Module, dev) -> torch.nn.Module:
+    """The same weights on the card (a model built once on the CPU)."""
+    return copy.deepcopy(module).to(dev).eval()
+
+
+def conv_gflop(model: torch.nn.Module, *inputs) -> float:
+    """GFLOP (2 per multiply-add) of the conv and linear layers of one
+    forward, counted from the shapes by forward hooks."""
+    total = 0
+
+    def hook(mod, inp, out):
+        nonlocal total
+        if isinstance(mod, torch.nn.Linear):
+            total += out.numel() * mod.in_features
+        elif isinstance(mod, torch.nn.ConvTranspose2d):
+            total += (inp[0].numel() * mod.out_channels
+                      * int(np.prod(mod.kernel_size)))
+        else:
+            total += (out.numel() * mod.in_channels
+                      * int(np.prod(mod.kernel_size)))
+
+    kinds = (torch.nn.Linear, torch.nn.Conv2d, torch.nn.Conv3d,
+             torch.nn.ConvTranspose2d)
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, kinds)]
+    with torch.inference_mode():
+        model(*inputs)
+    for h in hooks:
+        h.remove()
+    return 2 * total / 1e9
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -177,7 +257,9 @@ def phase_kernel(dev) -> float:
         tag = f"B={batch} (tile {gl_cuda.BLOCK_ROWS}x{tile})"
         cases = [("zero", {}), ("observed", {"observed": obs}),
                  ("observed+extrapolate",
-                  {"observed": obs, "phase_init": "extrapolate"})]
+                  {"observed": obs, "phase_init": "extrapolate"}),
+                 ("observed+init",
+                  {"observed": obs, "init": unit_phasors(mag, batch)})]
         for n_iter in (0, 1, 4):
             for name, kw in cases:
                 out = griffin_lim_cuda(mag, cfg, n_iter=n_iter, length=n, **kw)
@@ -208,13 +290,46 @@ def phase_kernel(dev) -> float:
     return worst
 
 
+def check_served(tag: str, svc: InpaintService, outs: dict):
+    """Shapes, finite values and the observed region of served clips."""
+    cfg = svc.cfg
+    m = svc.time_mask_from_seconds(1, *GAP_S)[0]
+    hole = np.nonzero(m == 0)[0]
+    sl = observed_slices((hole[0], hole[-1] + 1), cfg.stft.hop_length,
+                         cfg.stft.n_fft, CLIP)
+    for n_req, (x, y) in outs.items():
+        require(y.shape == x.shape == (n_req, CLIP), f"bad shape {y.shape}")
+        require(bool(np.isfinite(y).all()), "non-finite output")
+        err = rel_err(torch.from_numpy(y), torch.from_numpy(x), sl)
+        log(f"[{tag}] {n_req} clips -> {y.shape}, finite, observed-region "
+            f"rel err vs input {err:.3e} (bound 1e-2)")
+        require(err < 1e-2, "observed region not reconstructed")
+
+
+def read_launches(tag: str, svc: InpaintService, wall: float) -> int:
+    """The GL kernel's launches since the counts were zeroed; fails if
+    the path never launched it or ran the plain version."""
+    launches, plain_calls = griffin_lim_cuda.launches, griffin_lim.calls
+    log(f"[{tag}] {svc.stats.batches} batches, {svc.stats.padded_clips} "
+        f"padded clips, {wall:.2f} s incl. first-call set-up; "
+        f"griffin_lim_cuda launches {launches}, plain griffin_lim calls "
+        f"{plain_calls}")
+    require(launches > 0, f"[{tag}] never launched the GL kernel")
+    require(plain_calls == 0, f"[{tag}] ran the plain griffin_lim")
+    return launches
+
+
+def zero_counts():
+    griffin_lim_cuda.launches = 0
+    griffin_lim.calls = 0
+
+
 def phase_slice(dev) -> tuple[InpaintService, int]:
     """The serving chain at full width; returns the service and the
     kernel's launches during the main-path run."""
     cfg = TrainConfig()
     svc = InpaintService(define_G(), cfg, buckets=(8, 32), gl_iters=32)
-    griffin_lim_cuda.launches = 0
-    griffin_lim.calls = 0
+    zero_counts()
     outs = {}
     t0 = time.perf_counter()
     for n_req in (3, 8, 21):
@@ -225,45 +340,92 @@ def phase_slice(dev) -> tuple[InpaintService, int]:
     mask = svc.time_mask_from_seconds(1, *GAP_S)[0]
     futs = [svc.submit(w, mask) for w in wavs]
     flushed = svc.flush()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = griffin_lim_cuda.launches, griffin_lim.calls
+    launches = read_launches("slice", svc, time.perf_counter() - t0)
     outs[5] = (wavs, np.stack([f.result(timeout=60) for f in futs]))
     require(len(flushed) == 5, "flush returned the wrong number of clips")
-    m = svc.time_mask_from_seconds(1, *GAP_S)[0]
-    hole = np.nonzero(m == 0)[0]
-    sl = observed_slices((hole[0], hole[-1] + 1), cfg.stft.hop_length,
-                         cfg.stft.n_fft, CLIP)
-    for n_req, (x, y) in outs.items():
-        require(y.shape == x.shape == (n_req, CLIP), f"bad shape {y.shape}")
-        require(bool(np.isfinite(y).all()), "non-finite output")
-        err = rel_err(torch.from_numpy(y), torch.from_numpy(x), sl)
-        log(f"[slice] {n_req} clips -> {y.shape}, finite, observed-region "
-            f"rel err vs input {err:.3e} (bound 1e-2)")
-        require(err < 1e-2, "observed region not reconstructed")
-    log(f"[slice] {svc.stats.batches} batches, {svc.stats.padded_clips} "
-        f"padded clips, {wall:.2f} s incl. first-call set-up; "
-        f"griffin_lim_cuda launches {launches}, plain griffin_lim calls "
-        f"{plain_calls}")
-    require(launches > 0, "the main path never launched the GL kernel")
-    require(plain_calls == 0, "the main path ran the plain griffin_lim")
+    check_served("slice", svc, outs)
     return svc, launches
 
 
-def phase_reference(svc: InpaintService, dev):
+def chain_error(tag: str, cfg: TrainConfig, gens, V, dev, wavs, masks,
+                frames=None, y_card=None, bound: float = 1e-3) -> float:
     """The chain on the card against the chain on the CPU (plain GL),
-    same weights and input, 2 clips, GL×1."""
-    cfg = svc.cfg
-    x = tones(2, seed=7, device="cpu")
-    m = torch.from_numpy(svc.time_mask_from_seconds(2, *GAP_S))
-    ys = {}
-    for d in ("cpu", dev):
-        infer = make_infer_fn(define_G(device=d), cfg, n_gl_iter=1)
-        ys[str(d)] = infer(x.to(d), m.to(d)).cpu()
-    a, b = ys[str(dev)], ys["cpu"]
-    err = float((a - b).abs().max()) / float(b.abs().max())
-    log(f"[reference] chain on {dev} vs CPU, 2 clips GL×1: max|Δ|/max|ref| "
-        f"{err:.3e} (bound 1e-3)")
-    require(err < 1e-3, "the chain on the card disagrees with the CPU")
+    same weights (`gens`, `V` on the CPU) and clips, GL×1: max|Δ| over
+    the CPU output's peak. y_card, when given, is the card's output for
+    these clips from a served request; else the card runs make_infer_fn
+    on copies of the CPU's networks."""
+    x, m = torch.from_numpy(wavs), torch.from_numpy(masks)
+    fr = None if frames is None else torch.from_numpy(frames)
+    ref = make_infer_fn(gens, cfg, n_gl_iter=1, V=V)(x, m, fr)
+    if y_card is None:
+        cg = [card_copy(g, dev) for g in gens]
+        cv = card_copy(V, dev) if V is not None else None
+        y_card = make_infer_fn(cg, cfg, n_gl_iter=1, V=cv)(
+            x.to(dev), m.to(dev), None if fr is None else fr.to(dev)).cpu()
+    err = float((y_card - ref).abs().max()) / float(ref.abs().max())
+    log(f"[{tag}] chain on {dev} vs CPU, {len(wavs)} clips GL×1: "
+        f"max|Δ|/max|ref| {err:.3e} (bound {bound:g})")
+    require(err < bound, f"[{tag}] the chain on the card disagrees with the "
+            f"CPU")
+    return err
+
+
+def phase_reference(svc: InpaintService, dev):
+    """The audio-only chain on the card against the CPU, 2 clips."""
+    chain_error("reference", svc.cfg, [define_G(device="cpu")], None, dev,
+                tones(2, seed=7, device="cpu").numpy(),
+                svc.time_mask_from_seconds(2, *GAP_S))
+
+
+def phase_av(dev) -> tuple[InpaintService, int]:
+    """The vision-infused chain at full width (AV_G, define_V(),
+    GL×32), requests of 3, 8 and 21 clips with frames; returns the
+    service and the kernel's launches; then card against CPU."""
+    cfg = TrainConfig(use_video=True)
+    Gc, Vc = define_G(**AV_G, device="cpu"), define_V(device="cpu")
+    svc = InpaintService(card_copy(Gc, dev), cfg, V=card_copy(Vc, dev),
+                         buckets=(8, 32), gl_iters=32)
+    zero_counts()
+    outs = {}
+    t0 = time.perf_counter()
+    for n_req in (3, 8, 21):
+        wavs = tones(n_req, seed=50 + n_req, device="cpu").numpy()
+        outs[n_req] = (wavs, svc.inpaint(
+            wavs, gap_start_s=GAP_S[0], gap_end_s=GAP_S[1],
+            frames=video_frames(n_req, seed=n_req)))
+    launches = read_launches("av", svc, time.perf_counter() - t0)
+    check_served("av", svc, outs)
+    chain_error("av", cfg, [Gc], Vc, dev, tones(2, seed=7, device="cpu").numpy(),
+                svc.time_mask_from_seconds(2, *GAP_S),
+                frames=video_frames(2, seed=7))
+    return svc, launches
+
+
+def phase_options(dev) -> int:
+    """One bucket-8 request at GL×1 per serving option of OPTIONS, at
+    full width; its first 2 clips held against the CPU chain on them.
+    Returns the kernel's launches over the options' requests."""
+    total = 0
+    for name, gkw, ckw, ensemble, bound in OPTIONS:
+        cfg = TrainConfig(**ckw)
+        gens = [define_G(**gkw, seed=s, device="cpu")
+                for s in ((0, 1) if ensemble else (0,))]
+        svc = InpaintService(card_copy(gens[0], dev), cfg, buckets=(8,),
+                             gl_iters=1,
+                             ensemble_states=[card_copy(g, dev)
+                                              for g in gens[1:]])
+        wavs = tones(8, seed=7, device="cpu").numpy()
+        masks = svc.time_mask_from_seconds(8, *GAP_S)
+        zero_counts()
+        t0 = time.perf_counter()
+        y = svc.inpaint(wavs, masks=masks)
+        tag = f"options] [{name}"
+        total += read_launches(tag, svc, time.perf_counter() - t0)
+        require(y.shape == wavs.shape and bool(np.isfinite(y).all()),
+                f"[options] {name}: bad output")
+        chain_error(tag, cfg, gens, None, dev, wavs[:2], masks[:2],
+                    y_card=torch.from_numpy(y[:2]), bound=bound)
+    return total
 
 
 def phase_times(svc: InpaintService, dev, card: str) -> dict:
@@ -334,18 +496,63 @@ def phase_times(svc: InpaintService, dev, card: str) -> dict:
     return res
 
 
-def phase_profile(svc: InpaintService, card: str):
+def phase_times_av(svc: InpaintService, dev, card: str) -> dict:
+    """The av chain per bucket (host clock around a full request after
+    warm-up), G's and V's forward (CUDA events), the frames' copy to
+    the card (host clock to a synchronize), and the FLOPs of G and V
+    per clip counted from the shapes."""
+    tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
+    G, V, res = svc.G, svc.V, {}
+    g_gf = conv_gflop(G, torch.zeros(1, 2, 256, 256, device=dev),
+                      torch.zeros(1, 16, 256, device=dev))
+    v_gf = conv_gflop(V, torch.zeros(1, *FRAMES, device=dev))
+    log(f"[times] av: G {g_gf:.2f} GFLOP a clip, V {v_gf:.3f} GFLOP a clip "
+        f"(conv and linear layers, counted from the shapes)")
+    for batch in svc.buckets:
+        wavs = tones(batch, seed=200 + batch, device="cpu").numpy()
+        fr = video_frames(batch, seed=200 + batch)
+        kw = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1], frames=fr)
+        svc.inpaint(wavs, **kw)
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            svc.inpaint(wavs, **kw)
+        dt = (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fr_dev = torch.from_numpy(fr).to(dev)
+            torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) / reps * 1e3
+        g_in = torch.zeros(batch, 2, 256, 256, device=dev)
+        with torch.inference_mode():
+            feats = V(fr_dev)
+            g_ms = time_ms(lambda: G(g_in, feats), 3)
+            v_ms = time_ms(lambda: V(fr_dev), 3)
+        log(f"[times] av chain bucket {batch}: {batch / dt:.1f} clips/s "
+            f"({dt * 1e3:.1f} ms per request, host clock incl. copies); "
+            f"G forward {g_ms:.2f} ms, V forward {v_ms:.2f} ms, frames "
+            f"{fr.nbytes / 1e6:.1f} MB host->card {copy_ms:.2f} ms {tag}")
+        res[batch] = dict(clips_per_s=batch / dt, ms=dt * 1e3, g_ms=g_ms,
+                          v_ms=v_ms, copy_ms=copy_ms)
+    return res
+
+
+def phase_profile(svc: InpaintService, card: str, name: str = "profile"):
     """Device time by kernel for one bucket-32 request (torch.profiler),
     and the device's busy share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = svc.buckets[-1]
     wavs = tones(batch, seed=300, device="cpu").numpy()
-    svc.inpaint(wavs, gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+    kw = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+    if svc.V is not None:
+        kw["frames"] = video_frames(batch, seed=300)
+    svc.inpaint(wavs, **kw)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.inpaint(wavs, gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+        svc.inpaint(wavs, **kw)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernel rows only: an operator's row repeats its kernels' time.
     rows = [e for e in prof.key_averages()
@@ -354,14 +561,14 @@ def phase_profile(svc: InpaintService, card: str):
     total_us = sum(e.self_device_time_total for e in rows)
     tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
     if not rows:
-        log("[profile] no device time in the trace: not measured")
+        log(f"[{name}] no device time in the trace: not measured")
         return
-    log(f"[profile] bucket {batch} request: device busy {total_us / 1e3:.2f} "
+    log(f"[{name}] bucket {batch} request: device busy {total_us / 1e3:.2f} "
         f"ms of {wall_ms:.2f} ms wall ({total_us / 1e3 / wall_ms:.1%}; "
         f"profiler on) {tag}")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+        log(f"[{name}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.self_device_time_total / total_us:6.1%} x{e.count:<4d} "
             f"{e.key[:90]}")
 
@@ -371,16 +578,23 @@ def main():
     dev = torch.device("cuda")
     phase_build()
     max_err = phase_kernel(dev)
-    svc, launches = phase_slice(dev)
+    svc, launches_slice = phase_slice(dev)
     phase_reference(svc, dev)
+    av, launches_av = phase_av(dev)
+    launches_options = phase_options(dev)
     times = phase_times(svc, dev, card)
+    phase_times_av(av, dev, card)
     phase_profile(svc, card)
+    phase_profile(av, card, "profile av")
     t = times[32]
     print(json.dumps({"kernels": [{
         "name": "griffin_lim", "route": "cuda",
         "source": "viai_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches_slice + launches_av + launches_options,
+        "launches_by_path": {"slice": launches_slice, "av": launches_av,
+                             "options": launches_options},
+        "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "kernel_only_ms": t["kernel_only_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -99,16 +99,6 @@ def test_bridge_is_strict():
         generator_state_from_flat(bad, pcfg)
 
 
-@pytest.mark.parametrize("option", [
-    dict(gated=True), dict(bottleneck_dilation=(1, 2)),
-    dict(bottleneck_attn=1), dict(dropout=0.5), dict(fusion_channels=16),
-    dict(dtype="bfloat16"),
-])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        define_G(ngf=8, device="cpu", **option)
-
-
 @pytest.mark.parametrize("init_type,std", [
     ("normal", lambda fi, fo: 0.02),
     ("xavier", lambda fi, fo: 0.02 * np.sqrt(2.0 / (fi + fo))),

@@ -52,8 +52,16 @@ def _case(name, dev, seed=0, batch=3, n=None):
     return cfg, n, mag, (fmask, re, im)
 
 
+def _unit_phasors(mag, seed):
+    """Random unit phasors from a seed: the phase head's explicit init."""
+    g = torch.Generator().manual_seed(seed)
+    ang = 2 * np.pi * torch.rand(mag.shape, generator=g)
+    return torch.cos(ang).to(mag.device), torch.sin(ang).to(mag.device)
+
+
 @pytest.mark.parametrize("n_iter", [0, 1, 4])
-@pytest.mark.parametrize("mode", ["zero", "observed", "observed_extrapolate"])
+@pytest.mark.parametrize("mode", ["zero", "observed", "observed_extrapolate",
+                                  "observed_init"])
 @pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
 def test_kernel_matches_plain(cuda, cfg_name, mode, n_iter):
     cfg, n, mag, obs = _case(cfg_name, cuda, seed=n_iter)
@@ -62,6 +70,8 @@ def test_kernel_matches_plain(cuda, cfg_name, mode, n_iter):
         kw["observed"] = obs
     if mode == "observed_extrapolate":
         kw["phase_init"] = "extrapolate"
+    if mode == "observed_init":
+        kw["init"] = _unit_phasors(mag, 100 + n_iter)
     launches = griffin_lim_cuda.launches
     out = griffin_lim_cuda(mag, cfg, n_iter=n_iter, length=n, **kw)
     torch.cuda.synchronize()

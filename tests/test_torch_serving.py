@@ -100,16 +100,17 @@ def test_infer_chain_matches_jax(models, kw):
 
 
 def test_infer_rejects_unported_options(models):
+    """Every option is ported; the combinations the JAX make_infer_fn
+    refuses raise ValueError here too."""
     import dataclasses
 
     PG = models[2]
-    for field in ("multi_res", "phase_head", "use_video"):
-        with pytest.raises(NotImplementedError):
-            make_infer_fn(PG, dataclasses.replace(CFG, **{field: True}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="phase_head"):
         make_infer_fn(PG, CFG, phase_init="model")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="phase_aware"):
         make_infer_fn(PG, CFG, phase_aware=False, phase_init="extrapolate")
+    with pytest.raises(ValueError, match="V"):
+        make_infer_fn(PG, dataclasses.replace(CFG, use_video=True))
 
 
 def _services(models, buckets=(2, 4)):

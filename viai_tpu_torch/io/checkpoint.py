@@ -1,15 +1,19 @@
-"""Weight bridge: the JAX package's `.pth` files → the port's G.
+"""Weight bridge: the JAX package's `.pth` files → the port's G and V.
 
 `viai_tpu/io/checkpoint.py::save_networks` writes each net as a torch
-state dict with flat keys and flax layouts, `{epoch}_net_{name}.pth`:
-  downs.{i}.conv.kernel (kh, kw, cin, cout) / .bias
-  downs.{i}.norm.scale / .bias            (i ≥ 1; block 0 has no norm)
-  ups.{i}.conv.kernel   (kh, kw, cin, cout) / .bias   (ConvTranspose in
-                                                       deconv mode)
-  ups.{i}.norm.scale / .bias
-  head.kernel / .bias
-This module maps that schema onto `UNetGenerator`'s state dict,
-strictly: a missing key, an extra key or a wrong shape raises.
+state dict with flat keys and flax layouts, `{epoch}_net_{name}.pth`.
+The keys follow the flax module tree, one `.kernel`/`.bias` pair per
+conv or linear layer and one `.scale`/`.bias` pair per norm:
+  G: downs.{i}.conv, downs.{i}.norm (i ≥ 1), fuse, bott_blocks.{i}.conv,
+     bott_blocks.{i}.norm, attn_blocks.{i}.{norm1,qkv,proj,norm2,mlp_in,
+     mlp_out}, ups.{i}.conv, ups.{i}.norm, head
+  V: convs.{i}, norms.{i}, proj
+Layouts: Conv (*spatial, cin, cout) → torch (cout, cin, *spatial);
+ConvTranspose (kh, kw, cin, cout), applied unflipped → torch (cin,
+cout, kh, kw), flipped; Linear (in, out) → torch (out, in). The gated
+convs' kernels are 2·cout wide. This module maps that schema onto the
+port's state dicts, strictly: a missing key, an extra key or a wrong
+shape raises.
 """
 
 from __future__ import annotations
@@ -20,38 +24,37 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.generator import (GeneratorConfig, InstanceNorm, UNetGenerator,
+from ..nn.generator import (NORM_TYPES, GeneratorConfig, UNetGenerator,
                             conv_weight_from_hwio, deconv_weight_from_hwio)
+from ..nn.video import VideoFeatureNet, VideoNetConfig
 
 
-def generator_state_from_flat(flat: dict[str, np.ndarray],
-                              cfg: GeneratorConfig) -> dict[str, torch.Tensor]:
-    """Flat JAX-package keys → the port's UNetGenerator state dict.
-
-    The key plan comes from the port's own module tree (built on the
-    meta device: shapes only, no weights), so it follows the config.
-    """
-    with torch.device("meta"):
-        model = UNetGenerator(cfg)
+def state_from_flat(flat: dict[str, np.ndarray],
+                    model: nn.Module) -> dict[str, torch.Tensor]:
+    """Flat JAX-package keys → `model`'s state dict. The key plan comes
+    from the port's module tree (`model` may live on the meta device:
+    only its shapes are read)."""
     # flat key → (port key, layout converter or None, expected shape)
     plan = {}
     for name, mod in model.named_modules():
-        if isinstance(mod, InstanceNorm):
-            plan[f"{name}.scale"] = (f"{name}.weight", None, mod.weight.shape)
-        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+        pre = f"{name}." if name else ""
+        if isinstance(mod, NORM_TYPES):
+            plan[f"{pre}scale"] = (f"{pre}weight", None, mod.weight.shape)
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                              nn.Linear)):
             conv = (deconv_weight_from_hwio
                     if isinstance(mod, nn.ConvTranspose2d)
                     else conv_weight_from_hwio)
-            plan[f"{name}.kernel"] = (f"{name}.weight", conv, mod.weight.shape)
+            plan[f"{pre}kernel"] = (f"{pre}weight", conv, mod.weight.shape)
         else:
             continue
-        plan[f"{name}.bias"] = (f"{name}.bias", None, mod.bias.shape)
+        plan[f"{pre}bias"] = (f"{pre}bias", None, mod.bias.shape)
 
     missing = sorted(set(plan) - set(flat))
     extra = sorted(set(flat) - set(plan))
     if missing or extra:
-        raise KeyError(f"generator checkpoint does not match the config: "
-                       f"missing {missing}, unexpected {extra}")
+        raise KeyError(f"{type(model).__name__} checkpoint does not match "
+                       f"the config: missing {missing}, unexpected {extra}")
     out = {}
     for key, (port_key, conv, shape) in plan.items():
         t = torch.from_numpy(np.array(flat[key], dtype=np.float32))
@@ -64,23 +67,52 @@ def generator_state_from_flat(flat: dict[str, np.ndarray],
     return out
 
 
-def load_generator_pth(path: str, cfg: GeneratorConfig) -> dict[str, torch.Tensor]:
+def generator_state_from_flat(flat: dict[str, np.ndarray],
+                              cfg: GeneratorConfig,
+                              fusion_channels: int = 0
+                              ) -> dict[str, torch.Tensor]:
+    """Flat JAX-package keys → the port's UNetGenerator state dict."""
+    with torch.device("meta"):
+        model = UNetGenerator(cfg, fusion_channels=fusion_channels)
+    return state_from_flat(flat, model)
+
+
+def video_state_from_flat(flat: dict[str, np.ndarray],
+                          cfg: VideoNetConfig) -> dict[str, torch.Tensor]:
+    """Flat JAX-package keys → the port's VideoFeatureNet state dict."""
+    with torch.device("meta"):
+        model = VideoFeatureNet(cfg)
+    return state_from_flat(flat, model)
+
+
+def _read_flat(path: str) -> dict[str, np.ndarray]:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def load_generator_pth(path: str, cfg: GeneratorConfig,
+                       fusion_channels: int = 0) -> dict[str, torch.Tensor]:
     """The port's G state dict from a `.pth` file that the JAX package's
     `save_networks` wrote."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return generator_state_from_flat(
-        {k: v.numpy() for k, v in sd.items()}, cfg)
+    return generator_state_from_flat(_read_flat(path), cfg, fusion_channels)
+
+
+def load_video_pth(path: str, cfg: VideoNetConfig) -> dict[str, torch.Tensor]:
+    """The port's V state dict from a `.pth` file that the JAX package's
+    `save_networks` wrote."""
+    return video_state_from_flat(_read_flat(path), cfg)
 
 
 def _net_path(expr_dir: str, which_epoch, net_name: str) -> str:
     return os.path.join(expr_dir, f"{which_epoch}_net_{net_name}.pth")
 
 
-def load_networks(nets: dict[str, UNetGenerator], which_epoch,
-                  expr_dir: str) -> dict[str, UNetGenerator]:
-    """Load each generator in place from `{expr_dir}/{which_epoch}_net_{name}.pth`,
+def load_networks(nets: dict[str, nn.Module], which_epoch,
+                  expr_dir: str) -> dict[str, nn.Module]:
+    """Load each net (a UNetGenerator or a VideoFeatureNet, e.g.
+    {"G": G, "V": V}) in place from `{expr_dir}/{which_epoch}_net_{name}.pth`,
     the file scheme of the JAX package's save_networks."""
     for name, net in nets.items():
-        sd = load_generator_pth(_net_path(expr_dir, which_epoch, name), net.cfg)
-        net.load_state_dict(sd)
+        flat = _read_flat(_net_path(expr_dir, which_epoch, name))
+        net.load_state_dict(state_from_flat(flat, net))
     return nets

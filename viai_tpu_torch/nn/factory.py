@@ -1,7 +1,10 @@
-"""Network factories — the reference's `define_G` surface, in PyTorch.
+"""Network factories — the reference's `define_G`/`define_V` surface, in
+PyTorch.
 
-Port of `viai_tpu/nn/factory.py::define_G`, with the same defaults and
-a `device` (the card unless the caller asks for the CPU).
+Port of `viai_tpu/nn/factory.py::define_G` and `define_V`, with the same
+defaults and a `device` (the card unless the caller asks for the CPU).
+Weights are drawn on the CPU, so a seed gives the same weights on
+every device.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ import torch
 
 from .._device import resolve_device
 from .generator import GeneratorConfig, UNetGenerator
+from .video import VideoFeatureNet, VideoNetConfig
 
 
 def define_G(
@@ -30,8 +34,7 @@ def define_G(
     gated: bool = False,
     device: str | torch.device = "cuda",
 ) -> UNetGenerator:
-    """A U-Net G with weights drawn from `seed` (on the CPU, so a seed
-    gives the same weights on every device), in eval mode on `device`."""
+    """A U-Net G with weights drawn from `seed`, in eval mode on `device`."""
     dev = resolve_device(device)
     cfg = GeneratorConfig(
         in_channels=input_nc, out_channels=output_nc, ngf=ngf,
@@ -44,3 +47,24 @@ def define_G(
     G = UNetGenerator(cfg, torch.Generator().manual_seed(seed),
                       fusion_channels=fusion_channels)
     return G.to(dev).eval()
+
+
+def define_V(
+    out_features: int = 256,
+    out_time: int = 16,
+    base: int = 32,
+    dtype: str = "float32",
+    seed: int = 2,
+    init_type: str = "normal",
+    init_gain: float = 0.02,
+    device: str | torch.device = "cuda",
+) -> VideoFeatureNet:
+    """The video feature net with weights drawn from `seed`, in eval
+    mode on `device`. VIAIModel seeds it with G's seed + 2."""
+    dev = resolve_device(device)
+    cfg = VideoNetConfig(
+        base=base, out_features=out_features, out_time=out_time,
+        dtype=dtype, init_type=init_type, init_gain=init_gain,
+    )
+    V = VideoFeatureNet(cfg, torch.Generator().manual_seed(seed))
+    return V.to(dev).eval()

@@ -7,9 +7,12 @@ Port of `viai_tpu/serving.py::InpaintService`:
     explicit dense (B, image_frames) keep-mask;
   * `submit`/`flush` coalesce single clips into micro-batches, flushed
     on demand, at a queue size, or at a deadline.
+  * `V` and `frames` serve the vision-infused model (cfg.use_video):
+    each clip comes with its (T, H, W, 3) frames;
+  * `ensemble_states`, K−1 extra generators of G's architecture, serve
+    a deep ensemble (the K predictions averaged inside the chain).
 The chain runs on `device`, the card unless the caller asks for the
-CPU. Data-parallel serving (`mesh`), the refiner and seed ensembles are
-not ported yet.
+CPU. Data-parallel serving (`mesh`) and the refiner are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,12 +48,16 @@ class InpaintService:
 
     >>> svc = InpaintService(define_G(), TrainConfig())
     >>> out = svc.inpaint(wavs, gap_start_s=0.8, gap_end_s=1.2)
+    >>> av = InpaintService(define_G(fusion_channels=256), TrainConfig(
+    ...     use_video=True), V=define_V())
+    >>> out = av.inpaint(wavs, gap_start_s=0.8, gap_end_s=1.2, frames=frames)
     """
 
     def __init__(
         self,
         G: torch.nn.Module,
         cfg: TrainConfig,
+        V: torch.nn.Module | None = None,
         buckets: tp.Sequence[int] = (8, 32, 128),
         gl_iters: int = 32,
         clip_samples: int = 32000,
@@ -58,17 +65,21 @@ class InpaintService:
         phase_aware: bool = True,
         phase_init: str = "auto",
         mag_sharpen: float = 1.0,
+        ensemble_states: tp.Sequence[torch.nn.Module] = (),
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.G = G.to(self.device).eval()
+        self.V = V.to(self.device).eval() if V is not None else None
+        self.ensemble = [g.to(self.device).eval() for g in ensemble_states]
         self.buckets = tuple(sorted(buckets))
         self.clip_samples = clip_samples
         self.sample_rate = sample_rate
         self._infer = make_infer_fn(
-            self.G, cfg, n_gl_iter=gl_iters, phase_aware=phase_aware,
-            phase_init=phase_init, mag_sharpen=mag_sharpen,
+            [self.G, *self.ensemble], cfg, n_gl_iter=gl_iters,
+            phase_aware=phase_aware, phase_init=phase_init,
+            mag_sharpen=mag_sharpen, V=self.V,
         )
         self.stats = ServiceStats()
         self._queue: list = []
@@ -112,13 +123,21 @@ class InpaintService:
         masks: np.ndarray | None = None,
         gap_start_s: float | None = None,
         gap_end_s: float | None = None,
+        frames: np.ndarray | None = None,
     ) -> np.ndarray:
-        """(N, clip_samples) wavs (+ masks or a gap interval) → inpainted.
+        """(N, clip_samples) wavs (+ masks or a gap interval, + (N, T,
+        H, W, 3) frames under cfg.use_video) → inpainted.
 
-        N may be anything; internally processed in padded buckets.
+        N may be anything; internally processed in padded buckets
+        (padding clips get zero frames).
         """
         wavs = np.asarray(wavs, np.float32)
         n = wavs.shape[0]
+        if frames is not None:
+            frames = np.asarray(frames, np.float32)
+            if frames.shape[0] != n:
+                raise ValueError(f"{frames.shape[0]} frame stacks for {n} "
+                                 f"clips")
         if masks is None:
             if gap_start_s is None or gap_end_s is None:
                 raise ValueError("provide either dense masks or a gap interval")
@@ -132,14 +151,20 @@ class InpaintService:
             take = min(remaining, bucket)
             w = wavs[i : i + take]
             m = masks[i : i + take]
+            fr = frames[i : i + take] if frames is not None else None
             if take < bucket:
                 padn = bucket - take
                 w = np.concatenate([w, np.zeros((padn, w.shape[1]), w.dtype)])
                 m = np.concatenate([m, np.ones((padn, m.shape[1]), m.dtype)])
+                if fr is not None:
+                    fr = np.concatenate(
+                        [fr, np.zeros((padn, *fr.shape[1:]), fr.dtype)])
                 self.stats.padded_clips += padn
             t0 = time.perf_counter()
-            y = self._infer(torch.from_numpy(w).to(self.device),
-                            torch.from_numpy(m).to(self.device))
+            y = self._infer(
+                torch.from_numpy(w).to(self.device),
+                torch.from_numpy(m).to(self.device),
+                None if fr is None else torch.from_numpy(fr).to(self.device))
             y = y.cpu().numpy()             # waits for the device
             self.stats.total_s += time.perf_counter() - t0
             self.stats.batches += 1
@@ -223,7 +248,8 @@ class InpaintService:
 
     def submit(self, wav: np.ndarray, mask: np.ndarray
                ) -> "concurrent.futures.Future[np.ndarray]":
-        """Queue one clip → Future resolving to the inpainted waveform."""
+        """Queue one clip → Future resolving to the inpainted waveform
+        (audio only, as in the JAX package)."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         run_now = False
         with self._lock:
