@@ -29,29 +29,50 @@ Phases, in order; any failure raises and the script exits non-zero:
      the audio-only and the av chain per bucket, with G's and V's
      forward and the frames' copy to the card;
      and the device time of one bucket-32 request of each chain by
-     kernel (torch.profiler).
+     kernel (torch.profiler);
+  8. training through the port's CLI (viai_tpu_torch.cli.train.main)
+     at full width, batch 16, 20 steps, visuals twice (GL×32 on the
+     card, launches counted): [train] the audio-only model at the
+     define_G() defaults with define_D(3, 64, 3) on `synthetic`;
+     [train av] the README's av recipe (gated G, bottleneck dilation
+     1,2,4, fusion 256, dropout 0.5, define_V()) on `synthetic_av`.
+     Losses finite; on one fixed batch and mask loss_G_L1 falls over 8
+     steps; the saved latest checkpoint is loaded with the port's
+     load_networks and served through InpaintService on the GL kernel
+     (bucket 8); under av, V's weights moved. [train reference]: one
+     full-width SGD step on the card against the same step on the CPU
+     (weights, batch, gap and dropout masks shared): the losses'
+     relative difference and each tensor's max|Δ update| / max|update|.
+     [times train]: steps/s and clips/s of both models (CUDA events
+     after warm-up), the loader's share of the wall time, peak memory,
+     FLOPs per step from the shapes and the rate they give, the time
+     to write a checkpoint; [profile train]: one step by kernel.
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
-kernels with their launches (summed over every served path), errors
-and times.
+kernels with their launches (summed over every path that ran them,
+`launches_by_path`), errors and times.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from viai_tpu_torch import (InpaintService, TrainConfig, define_G, define_V,
-                            make_infer_fn)
+from viai_tpu_torch import (InpaintService, TrainConfig, define_D, define_G,
+                            define_V, load_networks, make_infer_fn)
 from viai_tpu_torch import _build
 from viai_tpu_torch.signal import gl_cuda, griffin_lim, stft
 from viai_tpu_torch.signal.gl_cuda import griffin_lim_cuda
+from viai_tpu_torch.signal.mask import sample_batch_masks
 
 SR, CLIP = 16000, 32000
 GAP_S = (0.8, 1.2)
@@ -86,6 +107,28 @@ OPTIONS = (
      1e-3),
     ("dtype=bfloat16", dict(dtype="bfloat16"), {}, False, BF16_BOUND),
 )
+
+# Training at full width through the CLI: TrainOptions defaults except
+# these flags. Visuals (GL×32 on the batch) every TRAIN_DISPLAY steps.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_DISPLAY = 16, 20, 10
+TRAIN_MODELS = {
+    "audio": ["--dataset_mode", "synthetic"],
+    "av": ["--dataset_mode", "synthetic_av", "--model", "av", "--gated",
+           "--bottleneck_dilation", "1,2,4"],
+}
+TRAIN_REF_BATCH = 4           # the card-vs-CPU step (the CPU's time)
+TRAIN_REF_LR = 0.01           # SGD, G and D
+# [train reference] bounds of the card's step against the CPU's. Each
+# tensor's max|Δ update| / max|update| (for tensors whose updates reach
+# 1e-3 of their net's largest): 1e-2; the first proposal, 1e-3, failed
+# at 3.4e-3 in G's shallow layers (PERF.md, Findings), and the phase prints
+# beside it the CPU against itself on one thread and the card with
+# cuDNN off. Every tensor's max|Δ| over its net's largest update: 1e-3
+# (biases ahead of an instance norm have gradients of rounding size
+# only, so only this bound means anything for them). Losses: 1e-5.
+TRAIN_REF_BOUND, TRAIN_REF_NET_BOUND, TRAIN_REF_LOSS_BOUND = 1e-2, 1e-3, 1e-5
+TRAIN_TIMED_STEPS = 10
+OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
 
 
 def log(msg: str):
@@ -573,6 +616,345 @@ def phase_profile(svc: InpaintService, card: str, name: str = "profile"):
             f"{e.key[:90]}")
 
 
+def train_args(kind: str, ckpt: str, name: str) -> list[str]:
+    return ["--name", name, "--checkpoints_dir", ckpt, "--gpu_ids", "0",
+            "--batchSize", str(TRAIN_BATCH), "--niter", "1",
+            "--niter_decay", "0", "--steps_per_epoch", str(TRAIN_STEPS),
+            "--save_epoch_freq", "1", "--display_freq", str(TRAIN_DISPLAY),
+            "--print_freq", str(TRAIN_DISPLAY), *TRAIN_MODELS[kind]]
+
+
+def fixed_batch(opt) -> dict:
+    """The first batch of the dataset in order (no shuffling)."""
+    from viai_tpu_torch.data import create_dataloader
+
+    return next(iter(create_dataloader(
+        opt.dataset_mode, None, opt.batchSize,
+        int(opt.sample_rate * opt.clip_seconds), opt.sample_rate,
+        opt.nThreads, opt.n_video_frames, opt.frame_size, seed=opt.seed,
+        shuffle=False, num_epochs=1)))
+
+
+def phase_train(dev, kind: str) -> dict:
+    """Train one model at full width through the port's CLI, check it,
+    and serve its saved checkpoint on the GL kernel."""
+    from viai_tpu_torch.cli.train import main as train_main
+    from viai_tpu_torch.model import VIAIModel
+
+    tag = "train" if kind == "audio" else "train av"
+    av = kind == "av"
+    res = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        name = f"chip_{kind}"
+        args = train_args(kind, ckpt, name)
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train_main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+        displays = TRAIN_STEPS // TRAIN_DISPLAY
+        log(f"[{tag}] {TRAIN_STEPS} steps at batch {TRAIN_BATCH} through "
+            f"viai_tpu_torch.cli.train in {wall:.1f} s (incl. building, 3 "
+            f"checkpoint writes, {displays} visuals); griffin_lim_cuda "
+            f"launches {launches}, plain griffin_lim calls {plain}")
+        require(launches == displays, f"[{tag}] expected {displays} GL "
+                f"launches from the visuals, got {launches}")
+        require(plain == 0, f"[{tag}] ran the plain griffin_lim")
+        res["launches"] = launches
+        expr = os.path.join(ckpt, name)
+        with open(os.path.join(expr, "loss_log.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        require(len(recs) == displays, f"[{tag}] {len(recs)} loss records")
+        losses = model.get_current_losses()
+        require(all(np.isfinite(v) for r in recs for k, v in r.items()
+                    if k.startswith("loss")) and
+                all(np.isfinite(v) for v in losses.values()),
+                f"[{tag}] non-finite loss")
+        log(f"[{tag}] losses at step {TRAIN_STEPS}: " + " ".join(
+            f"{k} {v:.4f}" for k, v in losses.items()) + " (finite)")
+        require(os.path.exists(os.path.join(
+            expr, "web", "images", "epoch001_inpainted.png")),
+            f"[{tag}] no visuals written")
+        v_kw = dict(out_features=model.opt.fusion_channels,
+                    out_time=model.opt.image_frames // 16)
+        if av:
+            V0 = define_V(**v_kw, seed=model.opt.seed + 2, device=dev)
+            moved = max(float((a - b).abs().max()) for a, b in
+                        zip(model.V.state_dict().values(),
+                            V0.state_dict().values()))
+            log(f"[{tag}] V moved: max|ΔV| {moved:.3e} after {TRAIN_STEPS} "
+                f"steps")
+            require(moved > 0, "[train av] V's weights did not move")
+            del V0
+        del model
+        # One fixed batch and mask: loss_G_L1 falls over 8 steps.
+        opt = parse_quietly(args)
+        m = VIAIModel(opt)
+        batch = fixed_batch(opt)
+        dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        tmask = sample_batch_masks(m.generator, TRAIN_BATCH,
+                                   m.cfg.image_frames, m.cfg.mask)
+        l1 = []
+        for _ in range(8):
+            met = m.train_step(m.state, dev_batch["wav"],
+                               dev_batch.get("frames"), m.generator,
+                               dev_batch.get("frames_valid"), tmask=tmask)
+            l1.append(float(met["loss_G_L1"]))
+        log(f"[{tag}] fixed batch: loss_G_L1 step 1 {l1[0]:.4f} -> step 8 "
+            f"{l1[-1]:.4f}")
+        require(l1[-1] < l1[0], f"[{tag}] loss_G_L1 did not fall")
+        del m
+        # Serve the saved checkpoint.
+        # Fresh nets of the trained architecture, other seeds: the
+        # served weights can come only from the files.
+        G = define_G(**(AV_G if av else {}), seed=123)
+        nets = {"G": G}
+        if av:
+            nets["V"] = define_V(**v_kw, seed=124)
+        load_networks(nets, "latest", expr)
+        svc = InpaintService(G, TrainConfig(use_video=av), V=nets.get("V"),
+                             buckets=(8,), gl_iters=32)
+        wavs = tones(8, seed=400, device="cpu").numpy()
+        kw = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+        if av:
+            kw["frames"] = video_frames(8, seed=400)
+        zero_counts()
+        t0 = time.perf_counter()
+        y = svc.inpaint(wavs, **kw)
+        res["served"] = read_launches(tag, svc, time.perf_counter() - t0)
+        check_served(tag, svc, {8: (wavs, y)})
+    return res
+
+
+def _update_errors(ref: dict, other: dict) -> tuple[list, float, float]:
+    """Per tensor: max|upd| of `ref`, max|Δ| of `other` against it, their
+    ratio and Δ over the net's largest update; the worst ratio over the
+    tensors with updates ≥ 1e-3 of their net's largest, and the worst Δ
+    over the net's largest update over all tensors."""
+    table, worst, worst_net = [], 0.0, 0.0
+    for n in ref:
+        top = max(float(u.abs().max()) for u in ref[n].values())
+        for k, u in ref[n].items():
+            d = float((other[n][k] - u).abs().max())
+            m = float(u.abs().max())
+            bounded = m >= 1e-3 * top
+            table.append(dict(net=n, tensor=k, max_upd=m, max_diff=d,
+                              ratio=d / m if m > 0 else float("inf"),
+                              of_net_max=d / top, bounded=bounded))
+            if bounded:
+                worst = max(worst, d / m)
+            worst_net = max(worst_net, d / top)
+    return table, worst, worst_net
+
+
+def phase_train_reference(dev) -> dict:
+    """One full-width simultaneous SGD step of the audio-only model on
+    the card against the same step on the CPU: same weights, batch,
+    gap masks and dropout masks. Two diagnostics beside it: the CPU step
+    on one thread (another summation order), and the card's step with
+    cuDNN off (PyTorch's own convolutions), which tell the float32
+    spread of the step itself from that of cuDNN's algorithms."""
+    from viai_tpu_torch.train import init_state, make_train_step
+
+    cfg = TrainConfig()
+    B = TRAIN_REF_BATCH
+    G0, D0 = define_G(dropout=0.5, device="cpu"), define_D(3, device="cpu")
+    wav = tones(B, seed=9, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tmask = sample_batch_masks(gen, B, cfg.image_frames, cfg.mask)
+    masks = G0.dropout_masks((B, 2, cfg.n_bins, cfg.image_frames), gen)
+    runs = {}
+    threads = torch.get_num_threads()
+    cpu = torch.device("cpu")
+    for where, d, n_threads, cudnn in (
+            ("cpu", cpu, threads, True), ("cpu, 1 thread", cpu, 1, True),
+            ("card", dev, threads, True),
+            ("card, cuDNN off", dev, threads, False)):
+        torch.backends.cudnn.enabled = cudnn
+        G, D = copy.deepcopy(G0).to(d), copy.deepcopy(D0).to(d)
+        nets = {"G": G, "D": D}
+        before = {n: {k: p.detach().clone() for k, p in net.named_parameters()}
+                  for n, net in nets.items()}
+        step = make_train_step(
+            G, D, None, torch.optim.SGD(G.parameters(), lr=TRAIN_REF_LR),
+            torch.optim.SGD(D.parameters(), lr=TRAIN_REF_LR), cfg)
+        torch.set_num_threads(n_threads)
+        t0 = time.perf_counter()
+        met = step(init_state(D, cfg), wav.to(d), tmask=tmask.to(d),
+                   dropout=[m.to(d) for m in masks])
+        met = {k: float(v) for k, v in met.items()}
+        secs = time.perf_counter() - t0
+        torch.set_num_threads(threads)
+        torch.backends.cudnn.enabled = True
+        upd = {n: {k: (p.detach() - before[n][k]).cpu()
+                   for k, p in net.named_parameters()}
+               for n, net in nets.items()}
+        runs[where] = (met, upd, secs)
+    mc, uc, sc = runs["cpu"]
+    out = {}
+    for other in ("card", "cpu, 1 thread", "card, cuDNN off"):
+        mo, uo, so = runs[other]
+        loss_rel = {k: abs(mo[k] - mc[k]) / max(abs(mc[k]), 1e-12)
+                    for k in mc}
+        table, worst, worst_net = _update_errors(uc, uo)
+        out[other] = dict(loss_rel=max(loss_rel.values()), upd=worst,
+                          upd_net=worst_net)
+        tag = f"[train reference] {other} vs cpu ({threads} threads)"
+        log(f"{tag}: step {so:.2f} s; losses |Δ| / |cpu|: " + " ".join(
+            f"{k} {v:.2e}" for k, v in loss_rel.items()))
+        n_b = sum(t["bounded"] for t in table)
+        log(f"{tag}: max|Δ update| / max|update| worst {worst:.3e} over "
+            f"{n_b} tensors (bound {TRAIN_REF_BOUND:g} for the card); "
+            f"max|Δ| / net's largest update worst {worst_net:.3e} over all "
+            f"{len(table)} (bound {TRAIN_REF_NET_BOUND:g})")
+        for t in sorted(table, key=lambda t: -t["ratio"] if t["bounded"]
+                        else 0.0)[:3]:
+            log(f"{tag}:   {t['net']}.{t['tensor']}: max|upd| "
+                f"{t['max_upd']:.3e} max|Δ| {t['max_diff']:.3e} ratio "
+                f"{t['ratio']:.3e}")
+        if other == "card":
+            OUT_DIR.mkdir(exist_ok=True)
+            with open(OUT_DIR / "train_reference.json", "w") as f:
+                json.dump({"losses_rel": loss_rel, "tensors": table}, f,
+                          indent=1)
+    log(f"[train reference] batch {B}, SGD lr {TRAIN_REF_LR}, CPU step "
+        f"{sc:.2f} s; per tensor: chiprun_out/train_reference.json")
+    card = out["card"]
+    require(card["loss_rel"] < TRAIN_REF_LOSS_BOUND,
+            "[train reference] losses disagree")
+    require(card["upd"] < TRAIN_REF_BOUND
+            and card["upd_net"] < TRAIN_REF_NET_BOUND,
+            "[train reference] updates disagree")
+    return out
+
+
+def step_gflop(model) -> tuple[float, float, float, float]:
+    """GFLOP of one train step counted from the shapes: G (and V) one
+    forward and a backward at twice it; D three forwards (the fake for
+    G's loss, real and fake for D's), each with a backward at twice."""
+    b, o, c, dev = TRAIN_BATCH, model.opt, model.cfg, model.device
+    img = (1, c.n_bins, c.image_frames)
+    feats = ((torch.zeros(1, c.image_frames // 16, o.fusion_channels,
+                          device=dev),) if model.V is not None else ())
+    g = conv_gflop(model.G, torch.zeros(1, 2, *img[1:], device=dev), *feats)
+    d = conv_gflop(model.D, torch.zeros(1, 3, *img[1:], device=dev))
+    v = (conv_gflop(model.V, torch.zeros(
+        1, o.n_video_frames, o.frame_size, o.frame_size, 3, device=dev))
+         if model.V is not None else 0.0)
+    return b * (3 * g + 9 * d + 3 * v), g, d, v
+
+
+def parse_quietly(args: list[str]):
+    """TrainOptions for `args`, without printing them again."""
+    import contextlib
+    import io
+
+    from viai_tpu_torch.config import TrainOptions
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        opt = TrainOptions().parse(args, save=False)
+    opt.steps_per_epoch = TRAIN_STEPS
+    return opt
+
+
+def phase_times_train(dev, card: str, kind: str) -> dict:
+    """Steps/s and clips/s at batch 16 (CUDA events over TRAIN_TIMED_STEPS
+    steps after 3 of warm-up), the share of the window's wall time spent
+    waiting on the loader, peak memory, FLOPs and rate, a checkpoint's
+    write time; then one step under torch.profiler."""
+    from viai_tpu_torch.data import create_dataloader
+    from viai_tpu_torch.model import VIAIModel
+
+    tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
+    with tempfile.TemporaryDirectory() as ckpt:
+        opt = parse_quietly(train_args(kind, ckpt, f"times_{kind}"))
+        model = VIAIModel(opt)
+        loader = create_dataloader(
+            opt.dataset_mode, None, opt.batchSize,
+            int(opt.sample_rate * opt.clip_seconds), opt.sample_rate,
+            opt.nThreads, opt.n_video_frames, opt.frame_size, seed=opt.seed)
+        try:
+            for _ in range(3):
+                model.set_input(next(loader))
+                model.optimize_parameters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            wait = 0.0
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(TRAIN_TIMED_STEPS):
+                tw = time.perf_counter()
+                batch = next(loader)
+                wait += time.perf_counter() - tw
+                model.set_input(batch)
+                model.optimize_parameters()
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            step_ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            gf, g, d, v = step_gflop(model)
+            t1 = time.perf_counter()
+            model.save_networks("latest")
+            save_s = time.perf_counter() - t1
+            log(f"[times train] {kind}: {step_ms:.2f} ms a step, "
+                f"{1e3 / step_ms:.2f} steps/s, {TRAIN_BATCH * 1e3 / step_ms:.1f}"
+                f" clips/s at batch {TRAIN_BATCH} (CUDA events over "
+                f"{TRAIN_TIMED_STEPS} steps); loader wait {wait * 1e3:.1f} ms "
+                f"of {wall * 1e3:.1f} ms wall ({wait / wall:.1%}); peak "
+                f"allocated {peak:.2f} GiB {tag}")
+            log(f"[times train] {kind}: {gf / TRAIN_BATCH:.1f} GFLOP a clip a "
+                f"step (G fwd {g:.2f}, D fwd {d:.2f}, V fwd {v:.3f}; G, V "
+                f"×3, D ×9), {gf / 1e3:.2f} TFLOP a step -> "
+                f"{gf / step_ms:.1f} TFLOP/s achieved, "
+                f"{gf / step_ms / (PEAK_FP32 / 1e12):.1%} of the 67 TFLOP/s "
+                f"float32 peak; checkpoint write (G, D{', V' if v else ''} "
+                f".pth + state.pt) {save_s:.2f} s")
+            res = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                       clips_per_s=TRAIN_BATCH * 1e3 / step_ms,
+                       loader_share=wait / wall, peak_gib=peak,
+                       tflop_step=gf / 1e3, save_s=save_s)
+            profile_train_step(model, loader, kind, tag)
+        finally:
+            loader.close()
+    return res
+
+
+def profile_train_step(model, loader, kind: str, tag: str):
+    """Device time by kernel of one train step, and the device's busy
+    share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name = f"profile train{' av' if kind == 'av' else ''}"
+    batch = next(loader)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.set_input(batch)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        log(f"[{name}] no device time in the trace: not measured")
+        return
+    total_us = sum(e.self_device_time_total for e in rows)
+    log(f"[{name}] one step: device busy {total_us / 1e3:.2f} ms of "
+        f"{wall_ms:.2f} ms wall ({total_us / 1e3 / wall_ms:.1%}; profiler "
+        f"on) {tag}")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:10]:
+        log(f"[{name}]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.self_device_time_total / total_us:6.1%} x{e.count:<4d} "
+            f"{e.key[:90]}")
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -582,18 +964,27 @@ def main():
     phase_reference(svc, dev)
     av, launches_av = phase_av(dev)
     launches_options = phase_options(dev)
+    trains = {kind: phase_train(dev, kind) for kind in TRAIN_MODELS}
+    phase_train_reference(dev)
     times = phase_times(svc, dev, card)
     phase_times_av(av, dev, card)
+    for kind in TRAIN_MODELS:
+        phase_times_train(dev, card, kind)
     phase_profile(svc, card)
     phase_profile(av, card, "profile av")
     t = times[32]
+    launches_train = sum(r["launches"] for r in trains.values())
+    launches_served = sum(r["served"] for r in trains.values())
     print(json.dumps({"kernels": [{
         "name": "griffin_lim", "route": "cuda",
         "source": "viai_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
-        "launches": launches_slice + launches_av + launches_options,
+        "launches": (launches_slice + launches_av + launches_options
+                     + launches_train + launches_served),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
-                             "options": launches_options},
+                             "options": launches_options,
+                             "train": launches_train,
+                             "train_served": launches_served},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "kernel_only_ms": t["kernel_only_ms"],

@@ -42,6 +42,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "viai_tpu_torch.signal.gl_cuda" in res["modules"]
     assert "viai_tpu_torch.serving" in res["modules"]
+    for mod in ("train.step", "model", "cli.train"):
+        assert f"viai_tpu_torch.{mod}" in res["modules"]
     assert res["forbidden"] == []
 
 
@@ -71,3 +73,23 @@ def test_entry_points_default_to_the_card():
     assert next(G.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InpaintService(G, TrainConfig())
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from viai_tpu_torch.cli.train import main
+    from viai_tpu_torch.config import TrainOptions
+    from viai_tpu_torch.model import VIAIModel
+    from viai_tpu_torch.nn import define_D
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        define_D(3, 8, 2)
+    assert next(define_D(3, 8, 2, device="cpu").parameters()).device.type \
+        == "cpu"
+    args = ["--ngf", "8", "--ndf", "8", "--checkpoints_dir", str(tmp_path),
+            "--niter", "1", "--niter_decay", "0", "--steps_per_epoch", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VIAIModel(TrainOptions().parse(args, save=False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args)

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's `.pth` files → the port's G and V.
+"""Checkpoints: the JAX package's `.pth` schema in both directions, and
+the port's full train state.
 
 `viai_tpu/io/checkpoint.py::save_networks` writes each net as a torch
 state dict with flat keys and flax layouts, `{epoch}_net_{name}.pth`.
@@ -7,18 +8,28 @@ conv or linear layer and one `.scale`/`.bias` pair per norm:
   G: downs.{i}.conv, downs.{i}.norm (i ≥ 1), fuse, bott_blocks.{i}.conv,
      bott_blocks.{i}.norm, attn_blocks.{i}.{norm1,qkv,proj,norm2,mlp_in,
      mlp_out}, ups.{i}.conv, ups.{i}.norm, head
+  D: convs.{i}, norms.{i} (i ≥ 1), head; nets.{k}.… in the multi-scale D
   V: convs.{i}, norms.{i}, proj
 Layouts: Conv (*spatial, cin, cout) → torch (cout, cin, *spatial);
 ConvTranspose (kh, kw, cin, cout), applied unflipped → torch (cin,
 cout, kh, kw), flipped; Linear (in, out) → torch (out, in). The gated
-convs' kernels are 2·cout wide. This module maps that schema onto the
-port's state dicts, strictly: a missing key, an extra key or a wrong
-shape raises.
+convs' kernels are 2·cout wide. `state_from_flat` maps that schema onto
+the port's state dicts, strictly: a missing key, an extra key or a
+wrong shape raises. `flat_from_state` is its inverse: the port's
+`save_networks` writes files that the JAX package's `load_networks`
+reads unchanged.
+
+The full train state, which the `.pth` files cannot carry (both
+optimizers with their plateau state, the step count, the pool, the RNG
+state), is `{epoch}_state.pt`, a torch.save of plain dicts
+(`save_train_state` / `load_train_state`); it takes the place of the
+JAX package's orbax directory.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -67,6 +78,39 @@ def state_from_flat(flat: dict[str, np.ndarray],
     return out
 
 
+def _hwio_from_conv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of conv_weight_from_hwio: torch (cout, cin, *spatial) →
+    flax (*spatial, cin, cout); Linear (out, in) → (in, out)."""
+    n = w.dim()
+    return w.permute(*range(2, n), 1, 0).contiguous()
+
+
+def _hwio_from_deconv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of deconv_weight_from_hwio: torch (cin, cout, kh, kw),
+    flipped → flax (kh, kw, cin, cout), unflipped."""
+    return w.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+
+
+def flat_from_state(model: nn.Module) -> dict[str, torch.Tensor]:
+    """`model`'s weights under the JAX package's flat keys and flax
+    layouts, float32 on the CPU (the inverse of state_from_flat)."""
+    out = {}
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, NORM_TYPES):
+            out[f"{pre}scale"] = mod.weight
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                              nn.Linear)):
+            conv = (_hwio_from_deconv if isinstance(mod, nn.ConvTranspose2d)
+                    else _hwio_from_conv)
+            out[f"{pre}kernel"] = conv(mod.weight)
+        else:
+            continue
+        out[f"{pre}bias"] = mod.bias
+    return {k: v.detach().float().cpu().contiguous().clone()
+            for k, v in out.items()}
+
+
 def generator_state_from_flat(flat: dict[str, np.ndarray],
                               cfg: GeneratorConfig,
                               fusion_channels: int = 0
@@ -107,12 +151,54 @@ def _net_path(expr_dir: str, which_epoch, net_name: str) -> str:
     return os.path.join(expr_dir, f"{which_epoch}_net_{net_name}.pth")
 
 
+def save_networks(nets: dict[str, nn.Module], which_epoch, expr_dir: str):
+    """Write each net (e.g. {"G": G, "D": D, "V": V}) to
+    `{expr_dir}/{which_epoch}_net_{name}.pth` in the JAX package's
+    schema, and to the `latest` alias unless `which_epoch` is latest."""
+    os.makedirs(expr_dir, exist_ok=True)
+    for name, net in nets.items():
+        sd = flat_from_state(net)
+        torch.save(sd, _net_path(expr_dir, which_epoch, name))
+        if str(which_epoch) != "latest":
+            torch.save(sd, _net_path(expr_dir, "latest", name))
+
+
 def load_networks(nets: dict[str, nn.Module], which_epoch,
                   expr_dir: str) -> dict[str, nn.Module]:
-    """Load each net (a UNetGenerator or a VideoFeatureNet, e.g.
-    {"G": G, "V": V}) in place from `{expr_dir}/{which_epoch}_net_{name}.pth`,
-    the file scheme of the JAX package's save_networks."""
+    """Load each net (a UNetGenerator, a discriminator or a
+    VideoFeatureNet, e.g. {"G": G, "D": D, "V": V}) in place from
+    `{expr_dir}/{which_epoch}_net_{name}.pth`, the file scheme of the
+    JAX package's save_networks and of save_networks here."""
     for name, net in nets.items():
         flat = _read_flat(_net_path(expr_dir, which_epoch, name))
         net.load_state_dict(state_from_flat(flat, net))
     return nets
+
+
+def available_epochs(expr_dir: str, net_name: str = "G") -> list[str]:
+    """Saved epoch tags of a net, numeric ones in order, then the rest
+    ('latest')."""
+    if not os.path.isdir(expr_dir):
+        return []
+    pat = re.compile(rf"^(.+)_net_{re.escape(net_name)}\.pth$")
+    tags = [m.group(1) for f in os.listdir(expr_dir) if (m := pat.match(f))]
+    nums = sorted((t for t in tags if t.isdigit()), key=int)
+    return nums + [t for t in tags if not t.isdigit()]
+
+
+def _state_path(expr_dir: str, which_epoch) -> str:
+    return os.path.join(expr_dir, f"{which_epoch}_state.pt")
+
+
+def save_train_state(state: dict, which_epoch, expr_dir: str):
+    """torch.save `state` (a dict of state dicts, tensors and numbers)
+    as `{expr_dir}/{which_epoch}_state.pt`."""
+    os.makedirs(expr_dir, exist_ok=True)
+    torch.save(state, _state_path(expr_dir, which_epoch))
+
+
+def load_train_state(which_epoch, expr_dir: str) -> dict:
+    """The dict save_train_state wrote, on the CPU; FileNotFoundError
+    when there is none."""
+    return torch.load(_state_path(expr_dir, which_epoch), map_location="cpu",
+                      weights_only=True)

@@ -1,6 +1,8 @@
 """Networks of the port."""
 
-from .factory import define_G, define_V
+from .discriminator import (DiscriminatorConfig, MultiScaleDiscriminator,
+                            PatchDiscriminator, avg_pool_same)
+from .factory import define_D, define_G, define_V
 from .generator import (AttentionBlock, BatchNorm, ChannelLayerNorm,
                         DilatedTimeBlock, DownBlock, GeneratorConfig,
                         GroupNorm, InstanceNorm, UNetGenerator, UpBlock,
@@ -10,8 +12,9 @@ from .video import (VideoFeatureNet, VideoNetConfig, linear_resize_weights,
                     resize_time)
 
 __all__ = [
-    "define_G", "define_V", "GeneratorConfig", "UNetGenerator", "DownBlock",
-    "UpBlock", "DilatedTimeBlock", "AttentionBlock", "ChannelLayerNorm",
+    "define_G", "define_D", "define_V", "DiscriminatorConfig",
+    "PatchDiscriminator", "MultiScaleDiscriminator", "avg_pool_same",
+    "GeneratorConfig", "UNetGenerator", "DownBlock", "UpBlock", "DilatedTimeBlock", "AttentionBlock", "ChannelLayerNorm",
     "sincos_pos_embed", "InstanceNorm", "BatchNorm", "GroupNorm",
     "VideoNetConfig", "VideoFeatureNet", "linear_resize_weights",
     "resize_time", "INIT_TYPES", "kernel_init_for",

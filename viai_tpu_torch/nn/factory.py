@@ -1,7 +1,7 @@
-"""Network factories — the reference's `define_G`/`define_V` surface, in
-PyTorch.
+"""Network factories — the reference's `define_G`/`define_D`/`define_V`
+surface, in PyTorch.
 
-Port of `viai_tpu/nn/factory.py::define_G` and `define_V`, with the same
+Port of `viai_tpu/nn/factory.py`, with the same
 defaults and a `device` (the card unless the caller asks for the CPU).
 Weights are drawn on the CPU, so a seed gives the same weights on
 every device.
@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 
 from .._device import resolve_device
+from .discriminator import (DiscriminatorConfig, MultiScaleDiscriminator,
+                            PatchDiscriminator)
 from .generator import GeneratorConfig, UNetGenerator
 from .video import VideoFeatureNet, VideoNetConfig
 
@@ -47,6 +49,32 @@ def define_G(
     G = UNetGenerator(cfg, torch.Generator().manual_seed(seed),
                       fusion_channels=fusion_channels)
     return G.to(dev).eval()
+
+
+def define_D(
+    input_nc: int = 1,
+    ndf: int = 64,
+    n_layers_D: int = 3,
+    norm: str = "instance",
+    dtype: str = "float32",
+    seed: int = 1,
+    init_type: str = "normal",
+    init_gain: float = 0.02,
+    num_D: int = 1,
+    device: str | torch.device = "cuda",
+) -> PatchDiscriminator | MultiScaleDiscriminator:
+    """A PatchGAN D with weights drawn from `seed`, on `device`; num_D
+    > 1 builds the multi-scale ensemble. VIAIModel seeds it with G's
+    seed + 1."""
+    dev = resolve_device(device)
+    cfg = DiscriminatorConfig(
+        in_channels=input_nc, ndf=ndf, n_layers=n_layers_D, norm=norm,
+        dtype=dtype, init_type=init_type, init_gain=init_gain,
+    )
+    gen = torch.Generator().manual_seed(seed)
+    D = (MultiScaleDiscriminator(cfg, num_D, gen) if num_D > 1
+         else PatchDiscriminator(cfg, gen))
+    return D.to(dev)
 
 
 def define_V(

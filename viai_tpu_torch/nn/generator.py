@@ -23,9 +23,15 @@ flax's padding is reproduced exactly:
     (k−1−lo, k−1−hi) per axis; the flip is done once, when the weight
     is made or loaded (`deconv_weight_from_hwio`).
 
-Decoder dropout (`dropout`) applies in the JAX package only when its
-forward gets a dropout key, which inference never passes; the port
-accepts the option and its forward is deterministic.
+Decoder dropout (`dropout` = p) acts, as in the JAX package, only
+when the forward is given a dropout source (JAX: a key), which
+inference never passes, so inference is deterministic whatever the
+module's mode. The source is a `torch.Generator`, from which one
+keep-mask per affected block is drawn, or the list of keep-masks
+itself (`dropout_masks` draws them ahead, for a rematerialised forward
+or to inject another package's draws). The first min(3, len(ups))
+up-blocks (the deepest) are affected: h ← where(mask, h / (1 − p), 0)
+with mask ~ Bernoulli(1 − p), before the skip concat.
 """
 
 from __future__ import annotations
@@ -451,8 +457,51 @@ class UNetGenerator(nn.Module):
         init_parameters(self, self.cfg.init_type, self.cfg.init_gain,
                         generator)
 
+    @property
+    def dropout_blocks(self) -> int:
+        """Up-blocks under dropout: the deepest min(3, len(ups))."""
+        return min(3, len(self.ups)) if self.cfg.dropout > 0.0 else 0
+
+    def dropout_shapes(self, x_shape) -> list[tuple[int, ...]]:
+        """NCHW shapes of the dropped up-block outputs for an input of
+        `x_shape`: each is the shape of the skip it is concatenated with,
+        at the up-block's width."""
+        B, _, H, W = x_shape
+        sizes = [(H, W)]
+        for sf, st in self.cfg.strides:
+            sizes.append((-(-sizes[-1][0] // sf), -(-sizes[-1][1] // st)))
+        n = len(self.cfg.strides)
+        shapes = []
+        for i in range(self.dropout_blocks):
+            lvl = n - 1 - i
+            c = self.cfg.mults[lvl - 1] * self.cfg.ngf if lvl > 0 else \
+                self.cfg.ngf
+            shapes.append((B, c, *sizes[lvl]))
+        return shapes
+
+    def dropout_masks(self, x_shape, generator: torch.Generator
+                      ) -> list[torch.Tensor]:
+        """Keep-masks (bool, on the generator's device) for a forward on
+        an input of `x_shape`, drawn from `generator`."""
+        keep = 1.0 - self.cfg.dropout
+        return [torch.rand(s, generator=generator,
+                           device=generator.device) < keep
+                for s in self.dropout_shapes(x_shape)]
+
     def forward(self, x: torch.Tensor,
-                fusion_features: torch.Tensor | None = None) -> torch.Tensor:
+                fusion_features: torch.Tensor | None = None,
+                dropout: torch.Generator | list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """`dropout`: None (deterministic), a torch.Generator, or the
+        keep-masks of `dropout_masks`."""
+        masks = None
+        if dropout is not None and self.dropout_blocks:
+            masks = (self.dropout_masks(x.shape, dropout)
+                     if isinstance(dropout, torch.Generator) else dropout)
+            if len(masks) != self.dropout_blocks:
+                raise ValueError(f"{len(masks)} dropout masks for "
+                                 f"{self.dropout_blocks} blocks")
+        keep = 1.0 - self.cfg.dropout
         h = x.to(self.dtype)
         skips = []
         for blk in self.downs:
@@ -470,5 +519,10 @@ class UNetGenerator(nn.Module):
         for blk in self.attn_blocks:
             h = blk(h)
         for i, blk in enumerate(self.ups):
-            h = torch.cat([blk(h), skips[len(self.ups) - 1 - i]], dim=1)
+            h = blk(h)
+            if masks is not None and i < len(masks):
+                h = torch.where(masks[i].to(h.device), h / keep,
+                                torch.zeros((), dtype=h.dtype,
+                                            device=h.device))
+            h = torch.cat([h, skips[len(self.ups) - 1 - i]], dim=1)
         return torch.tanh(self.head(h).float())

@@ -1,6 +1,17 @@
-"""Configuration and the inference chain of the port."""
+"""Configuration, the inference chain and the GAN train step of the port."""
 
 from .config import TrainConfig
-from .infer import make_infer_fn, preprocess_with_mask
+from .infer import make_infer_fn, preprocess, preprocess_with_mask
+from .pool import draw_pool, init_pool, query_pool
+from .schedules import (Adam, ReduceOnPlateau, adam, cosine, lambda_linear,
+                        make_schedule, optimizer_step, plateau_kwargs,
+                        plateau_scale, step_decay)
+from .step import init_state, make_train_step
 
-__all__ = ["TrainConfig", "make_infer_fn", "preprocess_with_mask"]
+__all__ = [
+    "TrainConfig", "make_infer_fn", "preprocess", "preprocess_with_mask",
+    "init_pool", "draw_pool", "query_pool", "Adam", "ReduceOnPlateau",
+    "adam", "lambda_linear", "step_decay", "cosine", "make_schedule",
+    "plateau_kwargs", "plateau_scale", "optimizer_step", "init_state",
+    "make_train_step",
+]

@@ -1,8 +1,8 @@
 """Inference chain: wav → inpainted wav, in PyTorch.
 
-Port of `viai_tpu/train/step.py::preprocess_with_mask`, `_g_input` and
-`make_infer_fn(external_mask=True)`: STFT → log1p compression and an
-explicit time mask → U-Net G (fed the video net's features under
+Port of `viai_tpu/train/step.py::preprocess`, `preprocess_with_mask`,
+`_g_input` and `make_infer_fn(external_mask=True)`: STFT → log1p
+compression and a time mask (drawn, or given) → U-Net G (fed the video net's features under
 cfg.use_video; a deep ensemble when given several Gs) → composite
 (observed region kept, hole from G) → phase-aware Griffin-Lim, seeded
 by G's phase head under phase_init="model". The functions keep the JAX
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..signal.gl_cuda import griffin_lim_cuda
+from ..signal.mask import sample_batch_masks
 from ..signal.mel import compress, decompress, sharpen_mag
 from ..signal.stft import stft
 from .config import TrainConfig
@@ -30,6 +31,16 @@ from .config import TrainConfig
 def _stft_mag(wav, stft_cfg):
     re, im = stft(wav, stft_cfg)
     return re, im, torch.sqrt(re * re + im * im + 1e-9)
+
+
+def preprocess(wav: torch.Tensor, generator: torch.Generator,
+               cfg: TrainConfig) -> dict[str, torch.Tensor]:
+    """(B, T) waveform → NHWC image dict, with gap masks drawn from
+    `generator` (training and evaluation; cfg.mask's distribution).
+    For real corrupted regions use `preprocess_with_mask`."""
+    tmask = sample_batch_masks(generator, wav.shape[0], cfg.image_frames,
+                               cfg.mask)
+    return preprocess_with_mask(wav, tmask.to(wav.device), cfg)
 
 
 def preprocess_with_mask(wav: torch.Tensor, tmask: torch.Tensor,
