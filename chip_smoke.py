@@ -40,13 +40,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps; the saved latest checkpoint is loaded with the port's
      load_networks and served through InpaintService on the GL kernel
      (bucket 8); under av, V's weights moved. [train reference]: one
-     full-width SGD step on the card against the same step on the CPU
-     (weights, batch, gap and dropout masks shared): the losses'
+     full-width SGD step on the card (cuDNN's deterministic algorithms)
+     against the same step on the CPU (weights, batch, gap and dropout
+     masks shared): the losses'
      relative difference and each tensor's max|Δ update| / max|update|.
      [times train]: steps/s and clips/s of both models (CUDA events
      after warm-up), the loader's share of the wall time, peak memory,
      FLOPs per step from the shapes and the rate they give, the time
-     to write a checkpoint; [profile train]: one step by kernel.
+     to write a checkpoint; [profile train]: one step by kernel;
+  9. the diffusion refiner at full width (define_R(4, 64), its zero-init
+     FiLM projections and head moved off zero): [refiner] serves 3, 8
+     and 21 clips through InpaintService(define_G(), refiner=R) at 8
+     DDIM steps from t 0.35 and GL×32, then one bucket-8 request each
+     for refine_avg 8 in chunks of 3, refine_mix 0.7, clamp q with one
+     resample round, guidance 1.5 and self-conditioning (R with 5
+     inputs), all on the GL kernel, and one complex-domain request (R
+     of complex_refiner_channels(2), t 1.0, complex_mag mean, refine_avg
+     2) that must launch no GL; [refiner reference]: R's forward and
+     both chains on the card against the CPU, same weights and injected
+     noise, 2 clips (the magnitude chain at GL×1), each run again with
+     TF32 on as the control that R's float32 bound must catch;
+ 10. evaluation through the port's CLI (viai_tpu_torch.cli.test.main)
+     on the card, on the audio-only checkpoint [train] wrote, a second
+     G (seed 1) and two Rs saved beside it: [eval] runs G alone, the
+     README's best recipe (ensemble of 2, refine_avg 8, refine_mix 0.7,
+     eval_samples 2) and the complex-domain refiner, 40 clips of
+     synthetic_notes at batch 16 each, and checks n, the means and SEMs
+     and the GL launches of each arm; [times refiner]: one bucket-32
+     request at refine_avg 1 and 8 (CUDA events after warm-up), R's
+     GFLOP a clip, the rate, peak memory and clips/s; [profile
+     refiner]: one bucket-32 request by kernel.
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
 kernels with their launches (summed over every path that ran them,
@@ -55,6 +78,7 @@ kernels with their launches (summed over every path that ran them,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -68,11 +92,16 @@ import numpy as np
 import torch
 
 from viai_tpu_torch import (InpaintService, TrainConfig, define_D, define_G,
-                            define_V, load_networks, make_infer_fn)
+                            define_R, define_V, load_networks, make_infer_fn,
+                            save_networks)
 from viai_tpu_torch import _build
+from viai_tpu_torch.nn.refiner import FiLM
 from viai_tpu_torch.signal import gl_cuda, griffin_lim, stft
 from viai_tpu_torch.signal.gl_cuda import griffin_lim_cuda
 from viai_tpu_torch.signal.mask import sample_batch_masks
+from viai_tpu_torch.train.diffusion import (complex_refiner_channels,
+                                            draw_noise,
+                                            make_complex_refiner_infer_fn)
 
 SR, CLIP = 16000, 32000
 GAP_S = (0.8, 1.2)
@@ -129,6 +158,40 @@ TRAIN_REF_LR = 0.01           # SGD, G and D
 TRAIN_REF_BOUND, TRAIN_REF_NET_BOUND, TRAIN_REF_LOSS_BOUND = 1e-2, 1e-3, 1e-5
 TRAIN_TIMED_STEPS = 10
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+
+# The refiner's serving settings: 8 DDIM steps from t 0.35 (the JAX
+# package's defaults). One bucket-8 request per option: (name, service
+# arguments, R's input channels).
+REFINE = dict(refine_steps=8, refine_t=0.35)
+REFINER_OPTIONS = (
+    ("refine_avg=8 chunk 3", dict(refine_avg=8, refine_chunk=3), 4),
+    ("refine_mix=0.7", dict(refine_mix=0.7), 4),
+    ("clamp q + resample 1", dict(refine_clamp="q", refine_resample=1), 4),
+    ("guidance 1.5", dict(refine_guidance=1.5), 4),
+    ("self_cond", dict(refine_selfcond=True), 5),
+)
+# [refiner reference]: the bound of R's forward and of the complex chain,
+# card against CPU; float32 readings 1.3e-6 to 1.5e-6 (PERF.md, PR 5).
+REFINER_REF_BOUND = 1e-4
+COMPLEX = dict(refiner_domain="complex", refine_steps=8, refine_t=1.0,
+               complex_mag="mean", refine_avg=2)
+# [eval]: the CLI's arms on `synthetic_notes`, 40 clips at batch 16 (the
+# last batch partial): G alone, the README's best recipe, the complex
+# domain.
+EVAL_BASE = ["--dataset_mode", "synthetic_notes", "--batchSize", "16",
+             "--how_many", "40"]
+EVAL_RUN2 = "chip_audio_seed1"
+EVAL_ARMS = {
+    "a": [],
+    "b": ["--ensemble_names", EVAL_RUN2, "--refiner", "--rngf", "64",
+          "--refine_steps", "8", "--refine_t", "0.35", "--refine_avg", "8",
+          "--refine_chunk", "8", "--refine_mix", "0.7", "--eval_samples",
+          "2"],
+    "c": ["--refiner", "--refiner_domain", "complex", "--refiner_epoch",
+          "cplx", "--refine_t", "1.0", "--complex_mag", "mean",
+          "--refine_avg", "2"],
+}
 
 
 def log(msg: str):
@@ -635,95 +698,95 @@ def fixed_batch(opt) -> dict:
         shuffle=False, num_epochs=1)))
 
 
-def phase_train(dev, kind: str) -> dict:
-    """Train one model at full width through the port's CLI, check it,
-    and serve its saved checkpoint on the GL kernel."""
+def phase_train(dev, kind: str, ckpt: str) -> dict:
+    """Train one model at full width through the port's CLI into `ckpt`
+    (run chip_{kind}), check it, and serve its saved checkpoint on the GL
+    kernel."""
     from viai_tpu_torch.cli.train import main as train_main
     from viai_tpu_torch.model import VIAIModel
 
     tag = "train" if kind == "audio" else "train av"
     av = kind == "av"
     res = {}
-    with tempfile.TemporaryDirectory() as ckpt:
-        name = f"chip_{kind}"
-        args = train_args(kind, ckpt, name)
-        zero_counts()
-        t0 = time.perf_counter()
-        model = train_main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
-        displays = TRAIN_STEPS // TRAIN_DISPLAY
-        log(f"[{tag}] {TRAIN_STEPS} steps at batch {TRAIN_BATCH} through "
-            f"viai_tpu_torch.cli.train in {wall:.1f} s (incl. building, 3 "
-            f"checkpoint writes, {displays} visuals); griffin_lim_cuda "
-            f"launches {launches}, plain griffin_lim calls {plain}")
-        require(launches == displays, f"[{tag}] expected {displays} GL "
-                f"launches from the visuals, got {launches}")
-        require(plain == 0, f"[{tag}] ran the plain griffin_lim")
-        res["launches"] = launches
-        expr = os.path.join(ckpt, name)
-        with open(os.path.join(expr, "loss_log.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        require(len(recs) == displays, f"[{tag}] {len(recs)} loss records")
-        losses = model.get_current_losses()
-        require(all(np.isfinite(v) for r in recs for k, v in r.items()
-                    if k.startswith("loss")) and
-                all(np.isfinite(v) for v in losses.values()),
-                f"[{tag}] non-finite loss")
-        log(f"[{tag}] losses at step {TRAIN_STEPS}: " + " ".join(
-            f"{k} {v:.4f}" for k, v in losses.items()) + " (finite)")
-        require(os.path.exists(os.path.join(
-            expr, "web", "images", "epoch001_inpainted.png")),
-            f"[{tag}] no visuals written")
-        v_kw = dict(out_features=model.opt.fusion_channels,
-                    out_time=model.opt.image_frames // 16)
-        if av:
-            V0 = define_V(**v_kw, seed=model.opt.seed + 2, device=dev)
-            moved = max(float((a - b).abs().max()) for a, b in
-                        zip(model.V.state_dict().values(),
-                            V0.state_dict().values()))
-            log(f"[{tag}] V moved: max|ΔV| {moved:.3e} after {TRAIN_STEPS} "
-                f"steps")
-            require(moved > 0, "[train av] V's weights did not move")
-            del V0
-        del model
-        # One fixed batch and mask: loss_G_L1 falls over 8 steps.
-        opt = parse_quietly(args)
-        m = VIAIModel(opt)
-        batch = fixed_batch(opt)
-        dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        tmask = sample_batch_masks(m.generator, TRAIN_BATCH,
-                                   m.cfg.image_frames, m.cfg.mask)
-        l1 = []
-        for _ in range(8):
-            met = m.train_step(m.state, dev_batch["wav"],
-                               dev_batch.get("frames"), m.generator,
-                               dev_batch.get("frames_valid"), tmask=tmask)
-            l1.append(float(met["loss_G_L1"]))
-        log(f"[{tag}] fixed batch: loss_G_L1 step 1 {l1[0]:.4f} -> step 8 "
-            f"{l1[-1]:.4f}")
-        require(l1[-1] < l1[0], f"[{tag}] loss_G_L1 did not fall")
-        del m
-        # Serve the saved checkpoint.
-        # Fresh nets of the trained architecture, other seeds: the
-        # served weights can come only from the files.
-        G = define_G(**(AV_G if av else {}), seed=123)
-        nets = {"G": G}
-        if av:
-            nets["V"] = define_V(**v_kw, seed=124)
-        load_networks(nets, "latest", expr)
-        svc = InpaintService(G, TrainConfig(use_video=av), V=nets.get("V"),
-                             buckets=(8,), gl_iters=32)
-        wavs = tones(8, seed=400, device="cpu").numpy()
-        kw = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
-        if av:
-            kw["frames"] = video_frames(8, seed=400)
-        zero_counts()
-        t0 = time.perf_counter()
-        y = svc.inpaint(wavs, **kw)
-        res["served"] = read_launches(tag, svc, time.perf_counter() - t0)
-        check_served(tag, svc, {8: (wavs, y)})
+    name = f"chip_{kind}"
+    args = train_args(kind, ckpt, name)
+    zero_counts()
+    t0 = time.perf_counter()
+    model = train_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    displays = TRAIN_STEPS // TRAIN_DISPLAY
+    log(f"[{tag}] {TRAIN_STEPS} steps at batch {TRAIN_BATCH} through "
+        f"viai_tpu_torch.cli.train in {wall:.1f} s (incl. building, 3 "
+        f"checkpoint writes, {displays} visuals); griffin_lim_cuda "
+        f"launches {launches}, plain griffin_lim calls {plain}")
+    require(launches == displays, f"[{tag}] expected {displays} GL "
+            f"launches from the visuals, got {launches}")
+    require(plain == 0, f"[{tag}] ran the plain griffin_lim")
+    res["launches"] = launches
+    expr = os.path.join(ckpt, name)
+    with open(os.path.join(expr, "loss_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    require(len(recs) == displays, f"[{tag}] {len(recs)} loss records")
+    losses = model.get_current_losses()
+    require(all(np.isfinite(v) for r in recs for k, v in r.items()
+                if k.startswith("loss")) and
+            all(np.isfinite(v) for v in losses.values()),
+            f"[{tag}] non-finite loss")
+    log(f"[{tag}] losses at step {TRAIN_STEPS}: " + " ".join(
+        f"{k} {v:.4f}" for k, v in losses.items()) + " (finite)")
+    require(os.path.exists(os.path.join(
+        expr, "web", "images", "epoch001_inpainted.png")),
+        f"[{tag}] no visuals written")
+    v_kw = dict(out_features=model.opt.fusion_channels,
+                out_time=model.opt.image_frames // 16)
+    if av:
+        V0 = define_V(**v_kw, seed=model.opt.seed + 2, device=dev)
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(model.V.state_dict().values(),
+                        V0.state_dict().values()))
+        log(f"[{tag}] V moved: max|ΔV| {moved:.3e} after {TRAIN_STEPS} "
+            f"steps")
+        require(moved > 0, "[train av] V's weights did not move")
+        del V0
+    del model
+    # One fixed batch and mask: loss_G_L1 falls over 8 steps.
+    opt = parse_quietly(args)
+    m = VIAIModel(opt)
+    batch = fixed_batch(opt)
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    tmask = sample_batch_masks(m.generator, TRAIN_BATCH,
+                               m.cfg.image_frames, m.cfg.mask)
+    l1 = []
+    for _ in range(8):
+        met = m.train_step(m.state, dev_batch["wav"],
+                           dev_batch.get("frames"), m.generator,
+                           dev_batch.get("frames_valid"), tmask=tmask)
+        l1.append(float(met["loss_G_L1"]))
+    log(f"[{tag}] fixed batch: loss_G_L1 step 1 {l1[0]:.4f} -> step 8 "
+        f"{l1[-1]:.4f}")
+    require(l1[-1] < l1[0], f"[{tag}] loss_G_L1 did not fall")
+    del m
+    # Serve the saved checkpoint.
+    # Fresh nets of the trained architecture, other seeds: the
+    # served weights can come only from the files.
+    G = define_G(**(AV_G if av else {}), seed=123)
+    nets = {"G": G}
+    if av:
+        nets["V"] = define_V(**v_kw, seed=124)
+    load_networks(nets, "latest", expr)
+    svc = InpaintService(G, TrainConfig(use_video=av), V=nets.get("V"),
+                         buckets=(8,), gl_iters=32)
+    wavs = tones(8, seed=400, device="cpu").numpy()
+    kw = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+    if av:
+        kw["frames"] = video_frames(8, seed=400)
+    zero_counts()
+    t0 = time.perf_counter()
+    y = svc.inpaint(wavs, **kw)
+    res["served"] = read_launches(tag, svc, time.perf_counter() - t0)
+    check_served(tag, svc, {8: (wavs, y)})
     return res
 
 
@@ -751,10 +814,15 @@ def _update_errors(ref: dict, other: dict) -> tuple[list, float, float]:
 def phase_train_reference(dev) -> dict:
     """One full-width simultaneous SGD step of the audio-only model on
     the card against the same step on the CPU: same weights, batch,
-    gap masks and dropout masks. Two diagnostics beside it: the CPU step
-    on one thread (another summation order), and the card's step with
-    cuDNN off (PyTorch's own convolutions), which tell the float32
-    spread of the step itself from that of cuDNN's algorithms."""
+    gap masks and dropout masks. The card's step runs cuDNN's
+    deterministic algorithms: with its default ones (atomic sums in the
+    weight gradients) one run in twelve read 1.443e-3 of a net's largest
+    update against 2.9e-4 to 3.5e-4 in the others (PERF.md, PR 5). Three
+    diagnostics beside it: the card with cuDNN's default algorithms, the
+    CPU step on one thread (another summation order), and the card's
+    step with cuDNN off (PyTorch's own convolutions), which tell the
+    float32 spread of the step itself from that of cuDNN's
+    algorithms."""
     from viai_tpu_torch.train import init_state, make_train_step
 
     cfg = TrainConfig()
@@ -767,11 +835,14 @@ def phase_train_reference(dev) -> dict:
     runs = {}
     threads = torch.get_num_threads()
     cpu = torch.device("cpu")
-    for where, d, n_threads, cudnn in (
-            ("cpu", cpu, threads, True), ("cpu, 1 thread", cpu, 1, True),
-            ("card", dev, threads, True),
-            ("card, cuDNN off", dev, threads, False)):
+    for where, d, n_threads, cudnn, determ in (
+            ("cpu", cpu, threads, True, False),
+            ("cpu, 1 thread", cpu, 1, True, False),
+            ("card", dev, threads, True, True),
+            ("card, cuDNN default algorithms", dev, threads, True, False),
+            ("card, cuDNN off", dev, threads, False, False)):
         torch.backends.cudnn.enabled = cudnn
+        torch.backends.cudnn.deterministic = determ
         G, D = copy.deepcopy(G0).to(d), copy.deepcopy(D0).to(d)
         nets = {"G": G, "D": D}
         before = {n: {k: p.detach().clone() for k, p in net.named_parameters()}
@@ -787,13 +858,15 @@ def phase_train_reference(dev) -> dict:
         secs = time.perf_counter() - t0
         torch.set_num_threads(threads)
         torch.backends.cudnn.enabled = True
+        torch.backends.cudnn.deterministic = False
         upd = {n: {k: (p.detach() - before[n][k]).cpu()
                    for k, p in net.named_parameters()}
                for n, net in nets.items()}
         runs[where] = (met, upd, secs)
     mc, uc, sc = runs["cpu"]
     out = {}
-    for other in ("card", "cpu, 1 thread", "card, cuDNN off"):
+    for other in ("card", "card, cuDNN default algorithms", "cpu, 1 thread",
+                  "card, cuDNN off"):
         mo, uo, so = runs[other]
         loss_rel = {k: abs(mo[k] - mc[k]) / max(abs(mc[k]), 1e-12)
                     for k in mc}
@@ -804,10 +877,12 @@ def phase_train_reference(dev) -> dict:
         log(f"{tag}: step {so:.2f} s; losses |Δ| / |cpu|: " + " ".join(
             f"{k} {v:.2e}" for k, v in loss_rel.items()))
         n_b = sum(t["bounded"] for t in table)
+        w = max(table, key=lambda t: t["of_net_max"])
         log(f"{tag}: max|Δ update| / max|update| worst {worst:.3e} over "
             f"{n_b} tensors (bound {TRAIN_REF_BOUND:g} for the card); "
             f"max|Δ| / net's largest update worst {worst_net:.3e} over all "
-            f"{len(table)} (bound {TRAIN_REF_NET_BOUND:g})")
+            f"{len(table)} (bound {TRAIN_REF_NET_BOUND:g}), in "
+            f"{w['net']}.{w['tensor']}")
         for t in sorted(table, key=lambda t: -t["ratio"] if t["bounded"]
                         else 0.0)[:3]:
             log(f"{tag}:   {t['net']}.{t['tensor']}: max|upd| "
@@ -955,6 +1030,244 @@ def profile_train_step(model, loader, kind: str, tag: str):
             f"{e.key[:90]}")
 
 
+def perturbed_R(in_channels: int, out_channels: int = 1, seed: int = 3,
+                device="cpu") -> torch.nn.Module:
+    """define_R at full width with its zero-init layers (the FiLM
+    projections and the head) drawn N(0, 0.02²) from a seed: a fresh R
+    predicts v̂ ≡ 0, and a check of it would test nothing."""
+    R = define_R(in_channels, 64, out_channels=out_channels, seed=seed,
+                 device="cpu")
+    g = torch.Generator().manual_seed(100 + seed)
+    with torch.no_grad():
+        for m in R.modules():
+            if isinstance(m, FiLM):
+                m.proj.weight.normal_(0.0, 0.02, generator=g)
+        R.head.weight.normal_(0.0, 0.02, generator=g)
+    return R.to(device).eval()
+
+
+def phase_refiner(dev) -> tuple[InpaintService, int]:
+    """The refiner chain at full width: requests of 3, 8 and 21 clips,
+    then one bucket-8 request per option of REFINER_OPTIONS, each on the
+    GL kernel, then one complex-domain request, which must launch no GL.
+    Returns the service and the kernel's launches over the path."""
+    cfg = TrainConfig()
+    G = define_G()
+    R = perturbed_R(4, device=dev)
+    svc = InpaintService(G, cfg, refiner=R, buckets=(8, 32), gl_iters=32,
+                         **REFINE)
+    zero_counts()
+    outs = {}
+    t0 = time.perf_counter()
+    for n_req in (3, 8, 21):
+        wavs = tones(n_req, seed=500 + n_req, device="cpu").numpy()
+        outs[n_req] = (wavs, svc.inpaint(wavs, gap_start_s=GAP_S[0],
+                                         gap_end_s=GAP_S[1]))
+    launches = read_launches("refiner", svc, time.perf_counter() - t0)
+    check_served("refiner", svc, outs)
+    wavs = tones(8, seed=508, device="cpu").numpy()
+    gap = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+    for name, kw, r_in in REFINER_OPTIONS:
+        R_o = R if r_in == 4 else perturbed_R(r_in, device=dev)
+        svc_o = InpaintService(G, cfg, refiner=R_o, buckets=(8,),
+                               gl_iters=32, **{**REFINE, **kw})
+        zero_counts()
+        t0 = time.perf_counter()
+        y = svc_o.inpaint(wavs, **gap)
+        tag = f"refiner] [{name}"
+        launches += read_launches(tag, svc_o, time.perf_counter() - t0)
+        check_served(tag, svc_o, {8: (wavs, y)})
+    Rc = perturbed_R(*complex_refiner_channels(2), device=dev)
+    svc_c = InpaintService(G, cfg, refiner=Rc, buckets=(8,), **COMPLEX)
+    zero_counts()
+    t0 = time.perf_counter()
+    y = svc_c.inpaint(wavs, **gap)
+    torch.cuda.synchronize()
+    log(f"[refiner] [complex, complex_mag mean, refine_avg 2] 8 clips in "
+        f"{time.perf_counter() - t0:.2f} s incl. first-call set-up; "
+        f"griffin_lim_cuda launches {griffin_lim_cuda.launches}, plain "
+        f"griffin_lim calls {griffin_lim.calls}")
+    require(griffin_lim_cuda.launches == 0 and griffin_lim.calls == 0,
+            "[refiner] the complex domain ran Griffin-Lim")
+    check_served("refiner] [complex", svc_c, {8: (wavs, y)})
+    return svc, launches
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 for cuDNN convolutions and matmuls inside the block: the
+    control run that a float32 bound must fail."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def phase_refiner_reference(svc: InpaintService, dev):
+    """R's forward and both refiner chains on the card against the CPU:
+    same weights, inputs, clips, masks and injected noise (2 clips; the
+    magnitude chain at GL×1); max|Δ| over the CPU output's peak. R alone
+    (2 inputs, t 0.3 and 0.9) and the complex chain, which runs no GL,
+    are held to REFINER_REF_BOUND; the magnitude chain, whose error is
+    G's and GL's share as in [reference], to 1e-3. Each runs again on
+    the card with TF32 on; R alone and the complex chain must then
+    exceed their bound, or the bound could not see R's precision."""
+    cfg = svc.cfg
+    G = define_G(device="cpu")
+    wavs = tones(2, seed=7, device="cpu")
+    masks = torch.from_numpy(svc.time_mask_from_seconds(2, *GAP_S))
+    gen = torch.Generator().manual_seed(12)
+    x_r = torch.randn(2, 4, 256, 256, generator=gen)
+    t_r = torch.tensor([0.3, 0.9])
+
+    def forward(g, r):
+        @torch.inference_mode()
+        def run(w, m, noise):
+            return r(x_r.to(w.device), t_r.to(w.device))
+        return run
+
+    chains = (
+        ("R forward", 4, 1, REFINER_REF_BOUND, forward),
+        ("magnitude chain, GL×1", 4, 1, 1e-3, lambda g, r: make_infer_fn(
+            g, cfg, n_gl_iter=1, refiner=r, **REFINE)),
+        ("complex chain", *complex_refiner_channels(2), REFINER_REF_BOUND,
+         lambda g, r: make_complex_refiner_infer_fn(
+             g, r, cfg, steps=8, t_start=1.0, complex_mag="mean",
+             refine_avg=2)),
+    )
+    for name, r_in, r_out, bound, build in chains:
+        R = perturbed_R(r_in, r_out)
+        k = 2 if r_out == 2 else 1
+        gen = torch.Generator().manual_seed(11)
+        noise = [draw_noise(gen, (2, r_out, 256, 256), 8, 0)
+                 for _ in range(k)]
+        ref = build(G, R)(wavs, masks, noise=noise)
+        card = build(card_copy(G, dev), card_copy(R, dev))
+        out = card(wavs.to(dev), masks.to(dev), noise=noise).cpu()
+        with tf32_on():
+            out_tf32 = card(wavs.to(dev), masks.to(dev), noise=noise).cpu()
+        require(bool(torch.isfinite(out).all()),
+                f"[refiner reference] {name}: non-finite output")
+        peak = float(ref.abs().max())
+        err = float((out - ref).abs().max()) / peak
+        err_tf32 = float((out_tf32 - ref).abs().max()) / peak
+        log(f"[refiner reference] {name} on {dev} vs CPU, 2 clips (chains: "
+            f"8 DDIM steps, injected noise): max|Δ|/max|ref| {err:.3e} "
+            f"(bound {bound:g}); with TF32 on {err_tf32:.3e}")
+        require(err < bound, f"[refiner reference] the {name} on the card "
+                f"disagrees with the CPU")
+        require(bound > 1e-3 or err_tf32 > bound,
+                f"[refiner reference] the {name} with TF32 on passes the "
+                f"float32 bound {bound:g}")
+
+
+def phase_eval(dev, ckpt: str, name: str) -> int:
+    """The eval CLI on the card: the arms of EVAL_ARMS on the checkpoint
+    `name` that [train] wrote under `ckpt`, a second G (seed 1) in its
+    own run directory, R as latest_net_R.pth and a complex-domain R as
+    cplx_net_R.pth. Returns the GL kernel's launches over the arms."""
+    from viai_tpu_torch.cli.test import main as test_main
+
+    expr = os.path.join(ckpt, name)
+    save_networks({"G": define_G(seed=1)}, "latest",
+                  os.path.join(ckpt, EVAL_RUN2))
+    # Tag cplx first: saving an epoch tag also writes the latest alias.
+    save_networks({"R": perturbed_R(*complex_refiner_channels(2))}, "cplx",
+                  expr)
+    save_networks({"R": perturbed_R(4)}, "latest", expr)
+    BUILD_DIR.mkdir(exist_ok=True)
+    records = BUILD_DIR / "eval_results.jsonl"
+    os.environ["VIAI_RESULTS_JSONL"] = str(records)
+    total = 0
+    for arm, extra in EVAL_ARMS.items():
+        args = ["--name", name, "--checkpoints_dir", ckpt, "--gpu_ids", "0",
+                "--results_dir", os.path.join(ckpt, "results"), *EVAL_BASE,
+                *extra, "--log_results", f"chip_eval_{arm}"]
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = test_main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+        stats = {k: v for k, v in summary.items()
+                 if k.endswith(("_mean", "_sem"))}
+        bok = sorted(k for k in summary if "_bok_" in k)
+        log(f"[eval] ({arm}) {' '.join(extra) or 'G alone'}: n "
+            f"{summary['n']}, hole-PSNR {summary['hole_psnr_mean']:.3f} ± "
+            f"{summary['hole_psnr_sem']:.3f} dB, PSNR "
+            f"{summary['psnr_mean']:.3f}, SNR {summary['snr_mean']:.3f} dB, "
+            f"specConv {summary['spec_conv_mean']:.4f}; {len(bok)} *_bok_* "
+            f"keys; {wall:.1f} s incl. loading; griffin_lim_cuda launches "
+            f"{launches}, plain griffin_lim calls {plain}")
+        require(summary["n"] == 40, f"[eval] ({arm}) n {summary['n']} != 40")
+        require(all(np.isfinite(v) for v in stats.values()),
+                f"[eval] ({arm}) a non-finite mean or SEM")
+        require(bool(bok) == (arm == "b"),
+                f"[eval] ({arm}) *_bok_* keys {bok}")
+        require(plain == 0, f"[eval] ({arm}) ran the plain griffin_lim")
+        require((launches > 0) == (arm != "c"),
+                f"[eval] ({arm}) {launches} GL launches")
+        total += launches
+    with open(records) as f:
+        recs = [json.loads(line) for line in f]
+    require(len(recs) >= 3 and all(len(r["hole_psnr_clips"]) == 40
+                                   and r["package"] == "viai_tpu_torch"
+                                   for r in recs[-3:]),
+            "[eval] --log_results records")
+    log(f"[eval] records: {records.relative_to(BUILD_DIR.parent)}")
+    return total
+
+
+def phase_times_refiner(dev, card: str) -> dict:
+    """One bucket-32 request at refine_avg 1 and 8 (chunk 8), CUDA events
+    after warm-up, with R's GFLOP a clip counted from the shapes, the
+    rate, peak memory and clips/s; R's forward alone at batch 32."""
+    tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
+    cfg = TrainConfig()
+    G, R = define_G(), perturbed_R(4, device=dev)
+    r_gf = conv_gflop(R, torch.zeros(1, 4, 256, 256, device=dev),
+                      torch.zeros(1, device=dev))
+    g_gf = conv_gflop(G, torch.zeros(1, 2, 256, 256, device=dev))
+    x = torch.zeros(32, 4, 256, 256, device=dev)
+    t = torch.full((32,), 0.3, device=dev)
+    with torch.inference_mode():
+        r_ms = time_ms(lambda: R(x, t), 5)
+    del x
+    log(f"[times refiner] R {r_gf:.2f} GFLOP a clip a forward, G "
+        f"{g_gf:.2f} (conv and linear layers, counted from the shapes); R "
+        f"forward at batch 32 {r_ms:.2f} ms = {32 * r_gf / r_ms:.1f} TFLOP/s "
+        f"{tag}")
+    wavs = tones(32, seed=600, device="cpu").numpy()
+    gap = dict(gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+    res = {"r_gflop": r_gf, "r_ms": r_ms}
+    for avg in (1, 8):
+        svc = InpaintService(G, cfg, refiner=R, buckets=(8, 32), gl_iters=32,
+                             refine_avg=avg, refine_chunk=8, **REFINE)
+        svc.inpaint(wavs, **gap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: svc.inpaint(wavs, **gap), 3 if avg == 1 else 2,
+                     warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tflop = 32 * (g_gf + avg * REFINE["refine_steps"] * r_gf) / 1e3
+        log(f"[times refiner] bucket 32, refine_avg {avg}: {ms:.1f} ms a "
+            f"request, {32e3 / ms:.1f} clips/s; {tflop:.2f} TFLOP a request "
+            f"(G + {avg}×{REFINE['refine_steps']} R forwards) -> "
+            f"{tflop * 1e3 / ms:.1f} TFLOP/s; peak allocated {peak:.2f} GiB "
+            f"{tag}")
+        res[avg] = dict(ms=ms, clips_per_s=32e3 / ms, peak_gib=peak,
+                        tflop=tflop)
+    phase_profile(InpaintService(G, cfg, refiner=R, buckets=(8, 32),
+                                 gl_iters=32, **REFINE), card,
+                  "profile refiner")
+    return res
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -964,12 +1277,17 @@ def main():
     phase_reference(svc, dev)
     av, launches_av = phase_av(dev)
     launches_options = phase_options(dev)
-    trains = {kind: phase_train(dev, kind) for kind in TRAIN_MODELS}
+    refiner, launches_refiner = phase_refiner(dev)
+    phase_refiner_reference(refiner, dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        trains = {kind: phase_train(dev, kind, ckpt) for kind in TRAIN_MODELS}
+        launches_eval = phase_eval(dev, ckpt, "chip_audio")
     phase_train_reference(dev)
     times = phase_times(svc, dev, card)
     phase_times_av(av, dev, card)
     for kind in TRAIN_MODELS:
         phase_times_train(dev, card, kind)
+    phase_times_refiner(dev, card)
     phase_profile(svc, card)
     phase_profile(av, card, "profile av")
     t = times[32]
@@ -980,11 +1298,14 @@ def main():
         "source": "viai_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
         "launches": (launches_slice + launches_av + launches_options
-                     + launches_train + launches_served),
+                     + launches_train + launches_served + launches_refiner
+                     + launches_eval),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
                              "options": launches_options,
                              "train": launches_train,
-                             "train_served": launches_served},
+                             "train_served": launches_served,
+                             "refiner": launches_refiner,
+                             "eval": launches_eval},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "kernel_only_ms": t["kernel_only_ms"],

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "viai_tpu_torch.signal.gl_cuda" in res["modules"]
     assert "viai_tpu_torch.serving" in res["modules"]
-    for mod in ("train.step", "model", "cli.train"):
+    for mod in ("train.step", "model", "cli.train", "cli.test",
+                "nn.refiner", "train.diffusion", "train.preprocess",
+                "utils.metrics"):
         assert f"viai_tpu_torch.{mod}" in res["modules"]
     assert res["forbidden"] == []
 

@@ -201,7 +201,7 @@ def test_loader_and_options_refuse_what_is_not_ported(tmp_path):
         with pytest.raises(NotImplementedError, match="Data on CUDA"):
             create_dataloader(mode, "/nonexistent")
     for flag in ("--n_data_devices", "--n_model_devices"):
-        with pytest.raises(NotImplementedError, match="queue 7"):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
             TrainOptions().parse(TINY + [flag, "2"], save=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Visualizer(str(tmp_path), tensorboard=True)

@@ -207,11 +207,11 @@ def test_d_gets_no_gradient_from_the_g_loss():
     # D's update by hand: D's loss on the detached fake of the same G.
     PD.load_state_dict(d0)
     from viai_tpu_torch.nn.losses import gan_loss
-    from viai_tpu_torch.train.infer import _g_input, preprocess_with_mask
+    from viai_tpu_torch.train.preprocess import g_input, preprocess_with_mask
 
     _, PG2 = make_G(dropout=0.5)
     batch = preprocess_with_mask(wav, tmask, cfg)
-    x = _g_input(batch)
+    x = g_input(batch)
     with torch.no_grad():
         fake = PG2(x, None, masks)
     real = batch["real_img"].permute(0, 3, 1, 2)

@@ -6,7 +6,10 @@ and vision-infused: STFT → (video net →) U-Net G → phase-aware
 Griffin-Lim, with Griffin-Lim in a hand-written CUDA kernel for Hopper
 (csrc/griffin_lim.cu); and GAN training: D, the losses, the ImagePool,
 the lr schedules and Adam, the train step, VIAIModel and the train CLI
-(`python -m viai_tpu_torch.cli.train`) on the synthetic corpus.
+(`python -m viai_tpu_torch.cli.train`) on the synthetic corpus; and
+evaluation (`python -m viai_tpu_torch.cli.test`: the metrics, deep
+ensembles, and the diffusion refiner R in the magnitude domain and in
+the GL-free complex domain).
 """
 
 from .io import (generator_state_from_flat, load_generator_pth,
@@ -15,7 +18,7 @@ from .io import (generator_state_from_flat, load_generator_pth,
 from .model import VIAIModel, create_model
 from .nn import (DiscriminatorConfig, GeneratorConfig, MultiScaleDiscriminator,
                  PatchDiscriminator, UNetGenerator, VideoFeatureNet,
-                 VideoNetConfig, define_D, define_G, define_V)
+                 VideoNetConfig, define_D, define_G, define_R, define_V)
 from .serving import InpaintService, ServiceStats
 from .signal import (MaskConfig, STFTConfig, griffin_lim, griffin_lim_cuda,
                      istft, stft)
@@ -26,7 +29,7 @@ __all__ = [
     "STFTConfig", "MaskConfig", "stft", "istft", "griffin_lim",
     "griffin_lim_cuda", "GeneratorConfig", "UNetGenerator", "define_G",
     "DiscriminatorConfig", "PatchDiscriminator", "MultiScaleDiscriminator",
-    "define_D", "VideoNetConfig", "VideoFeatureNet", "define_V",
+    "define_D", "VideoNetConfig", "VideoFeatureNet", "define_V", "define_R",
     "generator_state_from_flat", "load_generator_pth", "load_networks",
     "save_networks", "video_state_from_flat", "load_video_pth",
     "TrainConfig", "make_infer_fn", "preprocess", "preprocess_with_mask",

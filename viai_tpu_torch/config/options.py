@@ -1,15 +1,16 @@
 """Options/CLI — the reference's argparse surface, for the port.
 
-Port of `viai_tpu/config/options.py::BaseOptions` and `TrainOptions`:
-the pix2pix flag names (--dataroot, --name, --batchSize, --nThreads,
---niter, --niter_decay, --lambda_L1, --which_epoch, ...), printed to
-stdout and persisted as `opt.txt` in the experiment directory keyed by
---name. The TPU-only --gl_backend is gone (the chain always runs the
-CUDA Griffin-Lim on a card). --gpu_ids -1 selects the CPU; any other
-value the card of its first id (`device_from_opt`). What the port
+Port of `viai_tpu/config/options.py` (BaseOptions, TrainOptions,
+TestOptions): the pix2pix flag names (--dataroot, --name, --batchSize,
+--nThreads, --niter, --niter_decay, --lambda_L1, --which_epoch, ...),
+printed to stdout and persisted as `opt.txt` (`opt_test.txt` for
+TestOptions) in the experiment directory keyed by --name. The TPU-only
+--gl_backend is gone (the chain always runs the CUDA Griffin-Lim on a
+card). --gpu_ids -1 selects the CPU; any other value the card of its
+first id (`device_from_opt`). What the port
 cannot honour yet raises with the ROADMAP item that brings it: more
-than one data or model device (queue 7, multi-GPU) and the folder
-dataset modes (queue 5, data on CUDA, raised by the loader).
+than one data or model device (multi-GPU) and the folder dataset modes
+(data on CUDA, raised by the loader).
 """
 
 from __future__ import annotations
@@ -183,7 +184,7 @@ class BaseOptions:
         if opt.n_data_devices > 1 or opt.n_model_devices > 1:
             raise NotImplementedError(
                 "--n_data_devices and --n_model_devices > 1 are not ported "
-                "yet (ROADMAP queue 7, multi-GPU); the port trains on one "
+                "yet (ROADMAP queue 1, multi-GPU); the port runs on one "
                 "device")
         expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
         if save:
@@ -257,6 +258,121 @@ class TrainOptions(BaseOptions):
                        help="TensorBoard event files (not ported yet: "
                             "raises)")
         self.isTrain = True
+
+
+class TestOptions(BaseOptions):
+    def initialize(self):
+        super().initialize()
+        p = self.parser
+        p.add_argument("--ntest", type=int, default=float("inf"))
+        p.add_argument("--results_dir", type=str, default="./results/")
+        p.add_argument("--phase", type=str, default="test")
+        p.add_argument("--which_epoch", type=str, default="latest")
+        p.add_argument("--how_many", type=int, default=50)
+        p.add_argument("--oracle_mag", action="store_true",
+                       help="evaluation-only attribution mode: use the "
+                            "GROUND-TRUTH magnitude in the hole (after "
+                            "the compress/decompress image round-trip) "
+                            "instead of G's prediction — measures the "
+                            "reconstruction ceiling of the phase-"
+                            "recovery pipeline itself")
+        p.add_argument("--refiner", action="store_true",
+                       help="run the stage-2 diffusion refiner "
+                            "(train/diffusion.py) between G and GL: "
+                            "loads {refiner_epoch}_net_R.pth from the "
+                            "checkpoint dir")
+        p.add_argument("--refiner_epoch", type=str, default="latest",
+                       help="epoch tag of the refiner checkpoint")
+        p.add_argument("--rngf", type=int, default=64,
+                       help="refiner width (must match the trained R)")
+        p.add_argument("--refine_steps", type=int, default=8,
+                       help="DDIM steps for the refinement")
+        p.add_argument("--refine_t", type=float, default=0.35,
+                       help="SDEdit truncation: diffuse G's output to "
+                            "this t before denoising (1.0 = full "
+                            "generation from noise)")
+        p.add_argument("--refine_noise", type=float, default=1.0,
+                       help="initial-noise scale for the refinement "
+                            "(0.0 = fully deterministic corrector)")
+        p.add_argument("--refine_guidance", type=float, default=0.0,
+                       help="classifier-free guidance scale over the "
+                            "g_pred conditioning channel (requires a "
+                            "refiner trained with --cond_drop > 0); "
+                            "0 = off")
+        p.add_argument("--eval_samples", type=int, default=1,
+                       help="best-of-K posterior sampling at eval "
+                            "(refiner only): run K decoupled-noise "
+                            "refinements per clip, keep the best "
+                            "hole-PSNR one; logs hole_psnr_s1_mean "
+                            "(first sample) beside the best-of-K mean "
+                            "— the posterior-coverage diagnostic")
+        p.add_argument("--refine_avg", type=int, default=1,
+                       help="posterior-MEAN estimate: average K "
+                            "independent-noise DDIM refinements of the "
+                            "hole before the decode (one GL / one "
+                            "iSTFT either way); 1 = off")
+        p.add_argument("--refine_chunk", type=int, default=8,
+                       help="posterior-mean memory chunking: run at "
+                            "most this many refine_avg samples as one "
+                            "batch (running sum); peak memory is "
+                            "chunk×batch DDIM intermediates for any K")
+        p.add_argument("--complex_mag", type=str, default="sample",
+                       choices=["sample", "keep", "mean"],
+                       help="complex-domain hybrid decode: phase always "
+                            "from the refined complex estimate; hole "
+                            "magnitude from the estimate itself "
+                            "('sample'), from G's regression "
+                            "prediction ('keep'), or from E[|x|] over "
+                            "the refine_avg samples ('mean' — "
+                            "shrinkage-free, unlike |E[x]|)")
+        p.add_argument("--refine_selfcond", action="store_true",
+                       help="the refiner was trained with "
+                            "self-conditioning (R carries its previous "
+                            "x̂0 as an extra input channel); each DDIM "
+                            "step feeds the prior step's estimate "
+                            "forward")
+        p.add_argument("--ensemble_names", type=str, default="",
+                       help="comma-separated extra checkpoint run "
+                            "names (same architecture + --which_epoch)"
+                            " whose Gs are averaged with this run's in "
+                            "compressed-magnitude space — a deep "
+                            "ensemble over training seeds")
+        p.add_argument("--refine_mix", type=float, default=0.0,
+                       help="convex ensemble weight on the regression "
+                            "G's hole vs the refiner estimate "
+                            "(mag-domain refiner only): x = mix*G + "
+                            "(1-mix)*refined before the GL decode; "
+                            "0 = off")
+        p.add_argument("--refine_resample", type=int, default=0,
+                       help="RePaint time-travel rounds per DDIM step "
+                            "(each round re-noises u back to t and "
+                            "re-denoises; (N+1)x network calls); 0 = "
+                            "off")
+        p.add_argument("--refine_clamp", type=str, default="x0",
+                       choices=["x0", "q"],
+                       help="observed-region handling inside DDIM: "
+                            "'x0' clamps x0-hat each step; 'q' "
+                            "re-noises the observed region to "
+                            "q(x_u|x0) (RePaint-style; pair with "
+                            "hole-only-trained refiners)")
+        p.add_argument("--refiner_domain", type=str, default="mag",
+                       choices=["mag", "complex"],
+                       help="mag: SDEdit-refine G's magnitude image, "
+                            "then Griffin-Lim (default). complex: DDIM "
+                            "over the hole's compressed COMPLEX STFT, "
+                            "decoded by one iSTFT (no GL); requires a "
+                            "complex-domain refiner")
+        p.add_argument("--log_results", type=str, default="",
+                       help="when set, append the eval summary (tagged "
+                            "with this string) to {results_dir}/"
+                            "quality_results.jsonl, or to the file "
+                            "VIAI_RESULTS_JSONL names")
+        p.add_argument("--refiner_net", type=str, default="R",
+                       choices=["R", "Rraw"],
+                       help="which refiner checkpoint family to load: "
+                            "R = EMA weights (default), Rraw = raw "
+                            "(non-EMA) weights")
+        self.isTrain = False
 
 
 def device_from_opt(opt):

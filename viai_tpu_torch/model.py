@@ -1,14 +1,16 @@
-"""Task model — the reference's `create_model(opt)` / BaseModel train
-surface, in PyTorch.
+"""Task model — the reference's `create_model(opt)` / BaseModel surface,
+in PyTorch.
 
-Port of `viai_tpu/model.py::train_config_from_opt` and VIAIModel's
-training surface: build G, D (and V for --model av) from the options,
-take a batch (set_input), run one GAN step (optimize_parameters),
-report losses, lr and visuals, and save or load checkpoints. The step
-itself is train/step.py; this class owns the modules, the optimizers,
-the train state, one torch.Generator for the step's draws and the
-checkpoint naming. It runs on the device of --gpu_ids (the card unless
--1). Evaluation (test(), ensembles, the refiner) is not ported yet.
+Port of `viai_tpu/model.py`: build G, D (and V for --model av) from the
+options, take a batch (set_input), run one GAN step
+(optimize_parameters), report losses, lr and visuals, save or load
+checkpoints; and the evaluation surface: the inference chain of the
+test options (`infer_fn`, `test()`), a deep ensemble of the Gs of
+--ensemble_names, and the diffusion refiner R of --refiner in either
+domain. The step and the chains are train/; this class owns the
+modules, the optimizers, the train state, one torch.Generator for the
+step's draws and the checkpoint naming. It runs on the device of
+--gpu_ids (the card unless -1).
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ import torch
 from .config.options import device_from_opt
 from .io import (load_networks, load_train_state, save_networks,
                  save_train_state)
-from .nn import define_D, define_G, define_V
+from .nn import define_D, define_G, define_R, define_V
 from .signal import MaskConfig, STFTConfig, sample_batch_masks
 from .signal.mel import compress
 from .signal.stft import stft_magnitude
 from .train import (TrainConfig, adam, init_state, make_infer_fn,
                     make_schedule, make_train_step, plateau_kwargs,
                     plateau_scale, preprocess_with_mask)
+from .train.diffusion import (complex_refiner_channels,
+                              make_complex_refiner_infer_fn)
 
 
 def train_config_from_opt(opt) -> TrainConfig:
@@ -94,15 +98,15 @@ class VIAIModel:
         # Phase head: +2 G output channels (cos, sin); D judges the
         # magnitude only, so its candidate input stays opt.output_nc.
         g_out = opt.output_nc + (2 if self.cfg.phase_head else 0)
+        g_kw = dict(fusion_channels=fusion,
+                    upsample=getattr(opt, "upsample", "deconv"),
+                    init_type=init_type, init_gain=init_gain,
+                    dropout=dropout, bottleneck_dilation=dilation,
+                    bottleneck_attn=getattr(opt, "bottleneck_attn", 0),
+                    attn_heads=getattr(opt, "attn_heads", 8),
+                    gated=getattr(opt, "gated", False), device=self.device)
         self.G = define_G(input_nc, g_out, opt.ngf, opt.norm, opt.dtype,
-                          fusion_channels=fusion, seed=opt.seed,
-                          upsample=getattr(opt, "upsample", "deconv"),
-                          init_type=init_type, init_gain=init_gain,
-                          dropout=dropout, bottleneck_dilation=dilation,
-                          bottleneck_attn=getattr(opt, "bottleneck_attn", 0),
-                          attn_heads=getattr(opt, "attn_heads", 8),
-                          gated=getattr(opt, "gated", False),
-                          device=self.device)
+                          seed=opt.seed, **g_kw)
         self.D = define_D(input_nc + opt.output_nc, opt.ndf, opt.n_layers_D,
                           opt.norm, opt.dtype, seed=opt.seed + 1,
                           init_type=init_type, init_gain=init_gain,
@@ -138,12 +142,77 @@ class VIAIModel:
             self.train_step = make_train_step(self.G, self.D, self.V,
                                               self.g_opt, self.d_opt,
                                               self.cfg)
+        # Seed ensemble (--ensemble_names): the extra runs' Gs, of G's
+        # architecture; load_networks fills them from their run dirs and
+        # the chain averages all K predictions.
+        self._ensemble_names = [
+            n.strip() for n in
+            str(getattr(opt, "ensemble_names", "") or "").split(",")
+            if n.strip()]
+        self._refiner_domain = getattr(opt, "refiner_domain", "mag")
+        use_refiner = not self.isTrain and getattr(opt, "refiner", False)
+        if (self._ensemble_names and self._refiner_domain == "complex"
+                and getattr(opt, "refiner", False)):
+            raise ValueError("--ensemble_names is not supported with "
+                             "--refiner_domain complex")
+        self.ensemble = [define_G(input_nc, g_out, opt.ngf, opt.norm,
+                                  opt.dtype, seed=opt.seed, **g_kw)
+                         for _ in self._ensemble_names]
+        # The diffusion refiner (evaluation only); load_networks restores
+        # {refiner_epoch}_net_{refiner_net}.pth.
+        self.R = None
+        if use_refiner:
+            sc = getattr(opt, "refine_selfcond", False)
+            if self._refiner_domain == "complex":
+                r_in, r_out = complex_refiner_channels(input_nc, self_cond=sc)
+            else:
+                r_in, r_out = input_nc + 2 + (1 if sc else 0), 1
+            self.R = define_R(r_in, getattr(opt, "rngf", 64), dtype=opt.dtype,
+                              seed=opt.seed + 3, out_channels=r_out,
+                              device=self.device)
+        self.infer_fn = self._build_infer_fn()
         self.generator = torch.Generator(device=self.device).manual_seed(
             opt.seed)
         self._input = None
         self._losses: dict = {}
         self._last_tmask = None      # gap masks of the latest train step
         self._vis_infer = None       # external-mask chain for visuals
+
+    def _build_infer_fn(self):
+        """The evaluation chain, masks drawn from a torch.Generator:
+        infer(wav, generator, frames=None, fold=0); fold s is another
+        posterior sample of the refiner on the same task."""
+        opt = self.opt
+        common = dict(refine_avg=getattr(opt, "refine_avg", 1),
+                      refine_chunk=getattr(opt, "refine_chunk", 8),
+                      external_mask=False)
+        if self.R is not None and self._refiner_domain == "complex":
+            return make_complex_refiner_infer_fn(
+                self.G, self.R, self.cfg,
+                steps=getattr(opt, "refine_steps", 8),
+                t_start=getattr(opt, "refine_t", 1.0),
+                noise_scale=getattr(opt, "refine_noise", 1.0),
+                guidance=getattr(opt, "refine_guidance", 0.0),
+                clamp_mode=getattr(opt, "refine_clamp", "x0"),
+                resample=getattr(opt, "refine_resample", 0),
+                complex_mag=getattr(opt, "complex_mag", "sample"),
+                self_cond=getattr(opt, "refine_selfcond", False), V=self.V,
+                **common)
+        return make_infer_fn(
+            [self.G, *self.ensemble], self.cfg,
+            n_gl_iter=getattr(opt, "gl_iters", 32),
+            phase_aware=not getattr(opt, "no_phase_aware", False),
+            phase_init=getattr(opt, "phase_init", "auto"),
+            mag_sharpen=getattr(opt, "mag_sharpen", 1.0),
+            oracle_mag=getattr(opt, "oracle_mag", False), V=self.V,
+            refiner=self.R, refine_steps=getattr(opt, "refine_steps", 8),
+            refine_t=getattr(opt, "refine_t", 0.35),
+            refine_noise=getattr(opt, "refine_noise", 1.0),
+            refine_guidance=getattr(opt, "refine_guidance", 0.0),
+            refine_clamp=getattr(opt, "refine_clamp", "x0"),
+            refine_resample=getattr(opt, "refine_resample", 0),
+            refine_mix=getattr(opt, "refine_mix", 0.0),
+            refine_selfcond=getattr(opt, "refine_selfcond", False), **common)
 
     # ---- reference BaseModel surface ------------------------------------
 
@@ -219,6 +288,16 @@ class VIAIModel:
         out["inpainted"] = ((img[0] + 1) / 2).cpu().numpy()
         return out
 
+    def test(self, generator: torch.Generator | None = None) -> np.ndarray:
+        """No-grad inference on the current input, gaps drawn from
+        `generator` (default: a CPU generator seeded 0) → the inpainted
+        waveform batch, host numpy."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        out = self.infer_fn(self._input["wav"], generator,
+                            self._input["frames"])
+        return out.cpu().numpy()
+
     def _nets(self) -> dict:
         nets = {"G": self.G, "D": self.D}
         if self.V is not None:
@@ -245,7 +324,10 @@ class VIAIModel:
     def load_networks(self, which_epoch):
         """Restore the full train state, strictly; a checkpoint with
         `.pth` files only (e.g. from the JAX package) restores the
-        weights and leaves the rest as built."""
+        weights and leaves the rest as built. The ensemble's Gs and the
+        refiner, when the options ask for them, load from their `.pth`
+        files."""
+        self._load_eval_nets(which_epoch)
         try:
             st = load_train_state(which_epoch, self.expr_dir)
         except FileNotFoundError:
@@ -267,6 +349,17 @@ class VIAIModel:
             self.state["pool"] = {"buf": st["pool"]["buf"].to(self.device),
                                   "n": int(st["pool"]["n"])}
         self.generator.set_state(st["rng"])
+
+    def _load_eval_nets(self, which_epoch):
+        """The ensemble's Gs from `{checkpoints_dir}/{name}` at the same
+        epoch, and R from `{refiner_epoch}_net_{refiner_net}.pth`."""
+        for name, G in zip(self._ensemble_names, self.ensemble):
+            load_networks({"G": G}, which_epoch,
+                          f"{self.opt.checkpoints_dir}/{name}")
+        if self.R is not None:
+            load_networks({getattr(self.opt, "refiner_net", "R"): self.R},
+                          getattr(self.opt, "refiner_epoch", "latest"),
+                          self.expr_dir)
 
 
 def create_model(opt) -> VIAIModel:

@@ -1,5 +1,5 @@
 """Network factories — the reference's `define_G`/`define_D`/`define_V`
-surface, in PyTorch.
+surface and the refiner's `define_R`, in PyTorch.
 
 Port of `viai_tpu/nn/factory.py`, with the same
 defaults and a `device` (the card unless the caller asks for the CPU).
@@ -15,6 +15,7 @@ from .._device import resolve_device
 from .discriminator import (DiscriminatorConfig, MultiScaleDiscriminator,
                             PatchDiscriminator)
 from .generator import GeneratorConfig, UNetGenerator
+from .refiner import DiffusionRefiner, RefinerConfig
 from .video import VideoFeatureNet, VideoNetConfig
 
 
@@ -96,3 +97,25 @@ def define_V(
     )
     V = VideoFeatureNet(cfg, torch.Generator().manual_seed(seed))
     return V.to(dev).eval()
+
+
+def define_R(
+    in_channels: int,
+    ngf: int = 64,
+    norm: str = "instance",
+    dtype: str = "float32",
+    seed: int = 0,
+    init_type: str = "normal",
+    init_gain: float = 0.02,
+    out_channels: int = 1,
+    device: str | torch.device = "cuda",
+) -> DiffusionRefiner:
+    """The diffusion refiner with weights drawn from `seed`, in eval mode
+    on `device`. out_channels 1: the magnitude-domain v̂; 2: the
+    complex-domain (re, im) v̂. VIAIModel seeds it with G's seed + 3."""
+    dev = resolve_device(device)
+    cfg = RefinerConfig(in_channels=in_channels, out_channels=out_channels,
+                        ngf=ngf, norm=norm, dtype=dtype, init_type=init_type,
+                        init_gain=init_gain)
+    R = DiffusionRefiner(cfg, torch.Generator().manual_seed(seed))
+    return R.to(dev).eval()

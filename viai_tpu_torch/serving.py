@@ -10,9 +10,13 @@ Port of `viai_tpu/serving.py::InpaintService`:
   * `V` and `frames` serve the vision-infused model (cfg.use_video):
     each clip comes with its (T, H, W, 3) frames;
   * `ensemble_states`, K−1 extra generators of G's architecture, serve
-    a deep ensemble (the K predictions averaged inside the chain).
+    a deep ensemble (the K predictions averaged inside the chain);
+  * `refiner` serves the diffusion refiner R: in the magnitude domain
+    between G and Griffin-Lim, or in the complex domain as the GL-free
+    chain (one iSTFT), with every refine_* option. Its noise stream is
+    fixed per call, so the same request gets the same answer.
 The chain runs on `device`, the card unless the caller asks for the
-CPU. Data-parallel serving (`mesh`) and the refiner are not ported yet.
+CPU. Data-parallel serving (`mesh`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from ._device import resolve_device
 from .train.config import TrainConfig
+from .train.diffusion import make_complex_refiner_infer_fn
 from .train.infer import make_infer_fn
 
 
@@ -51,6 +56,7 @@ class InpaintService:
     >>> av = InpaintService(define_G(fusion_channels=256), TrainConfig(
     ...     use_video=True), V=define_V())
     >>> out = av.inpaint(wavs, gap_start_s=0.8, gap_end_s=1.2, frames=frames)
+    >>> ref = InpaintService(define_G(), TrainConfig(), refiner=define_R(4))
     """
 
     def __init__(
@@ -66,21 +72,56 @@ class InpaintService:
         phase_init: str = "auto",
         mag_sharpen: float = 1.0,
         ensemble_states: tp.Sequence[torch.nn.Module] = (),
+        refiner: torch.nn.Module | None = None,
+        refiner_domain: str = "mag",
+        refine_steps: int = 8,
+        refine_t: float = 0.35,
+        refine_noise: float = 1.0,
+        refine_guidance: float = 0.0,
+        refine_clamp: str = "x0",
+        refine_resample: int = 0,
+        refine_avg: int = 1,
+        refine_chunk: int = 8,
+        refine_mix: float = 0.0,
+        refine_selfcond: bool = False,
+        complex_mag: str = "sample",
         device: str | torch.device = "cuda",
     ):
+        """refiner (a DiffusionRefiner): refiner_domain 'mag' runs it
+        between G and Griffin-Lim; 'complex' swaps the decode for the
+        GL-free complex-domain chain (prefer refine_t=1.0 there), which
+        serves no ensemble."""
+        if (ensemble_states and refiner is not None
+                and refiner_domain == "complex"):
+            raise ValueError("ensemble_states is not supported with "
+                             "refiner_domain='complex'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.G = G.to(self.device).eval()
         self.V = V.to(self.device).eval() if V is not None else None
         self.ensemble = [g.to(self.device).eval() for g in ensemble_states]
+        self.R = (refiner.to(self.device).eval() if refiner is not None
+                  else None)
         self.buckets = tuple(sorted(buckets))
         self.clip_samples = clip_samples
         self.sample_rate = sample_rate
-        self._infer = make_infer_fn(
-            [self.G, *self.ensemble], cfg, n_gl_iter=gl_iters,
-            phase_aware=phase_aware, phase_init=phase_init,
-            mag_sharpen=mag_sharpen, V=self.V,
-        )
+        if self.R is not None and refiner_domain == "complex":
+            self._infer = make_complex_refiner_infer_fn(
+                self.G, self.R, cfg, steps=refine_steps, t_start=refine_t,
+                noise_scale=refine_noise, guidance=refine_guidance,
+                clamp_mode=refine_clamp, resample=refine_resample,
+                refine_avg=refine_avg, refine_chunk=refine_chunk,
+                complex_mag=complex_mag, self_cond=refine_selfcond, V=self.V)
+        else:
+            self._infer = make_infer_fn(
+                [self.G, *self.ensemble], cfg, n_gl_iter=gl_iters,
+                phase_aware=phase_aware, phase_init=phase_init,
+                mag_sharpen=mag_sharpen, V=self.V, refiner=self.R,
+                refine_steps=refine_steps, refine_t=refine_t,
+                refine_noise=refine_noise, refine_guidance=refine_guidance,
+                refine_clamp=refine_clamp, refine_resample=refine_resample,
+                refine_avg=refine_avg, refine_chunk=refine_chunk,
+                refine_mix=refine_mix, refine_selfcond=refine_selfcond)
         self.stats = ServiceStats()
         self._queue: list = []
         self._lock = threading.Lock()

@@ -1,108 +1,28 @@
 """Inference chain: wav → inpainted wav, in PyTorch.
 
-Port of `viai_tpu/train/step.py::preprocess`, `preprocess_with_mask`,
-`_g_input` and `make_infer_fn(external_mask=True)`: STFT → log1p
-compression and a time mask (drawn, or given) → U-Net G (fed the video net's features under
-cfg.use_video; a deep ensemble when given several Gs) → composite
-(observed region kept, hole from G) → phase-aware Griffin-Lim, seeded
-by G's phase head under phase_init="model". The functions keep the JAX
-package's layouts at their boundaries: (B, T) waveforms,
-(B, image_frames) masks, (B, T, H, W, 3) frames, NHWC images. G itself
-runs in NCHW.
-
-The diffusion refiner has no counterpart here yet.
+Port of `viai_tpu/train/step.py::make_infer_fn`: STFT → log1p
+compression and a time mask (given, or drawn from a torch.Generator;
+train/preprocess.py) → U-Net G (fed the video net's features under
+cfg.use_video; a deep ensemble when given several Gs) → optionally the diffusion refiner R on G's magnitude image
+(train/diffusion.py) → composite (observed region kept, hole from G or
+R) → phase-aware Griffin-Lim, seeded by G's phase head under
+phase_init="model". The functions keep the JAX package's layouts at
+their boundaries: (B, T) waveforms, (B, image_frames) masks,
+(B, T, H, W, 3) frames, NHWC images. G and R run in NCHW.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import typing as tp
 
 import torch
-import torch.nn.functional as F
 
 from ..signal.gl_cuda import griffin_lim_cuda
-from ..signal.mask import sample_batch_masks
-from ..signal.mel import compress, decompress, sharpen_mag
-from ..signal.stft import stft
+from ..signal.mel import decompress, sharpen_mag
 from .config import TrainConfig
-
-
-def _stft_mag(wav, stft_cfg):
-    re, im = stft(wav, stft_cfg)
-    return re, im, torch.sqrt(re * re + im * im + 1e-9)
-
-
-def preprocess(wav: torch.Tensor, generator: torch.Generator,
-               cfg: TrainConfig) -> dict[str, torch.Tensor]:
-    """(B, T) waveform → NHWC image dict, with gap masks drawn from
-    `generator` (training and evaluation; cfg.mask's distribution).
-    For real corrupted regions use `preprocess_with_mask`."""
-    tmask = sample_batch_masks(generator, wav.shape[0], cfg.image_frames,
-                               cfg.mask)
-    return preprocess_with_mask(wav, tmask.to(wav.device), cfg)
-
-
-def preprocess_with_mask(wav: torch.Tensor, tmask: torch.Tensor,
-                         cfg: TrainConfig) -> dict[str, torch.Tensor]:
-    """(B, T) waveform + (B, image_frames) time mask → NHWC image dict.
-
-    Returns real_img/masked_img in [-1, 1] and mask_img with
-    1 = observed, each (B, n_bins, image_frames, 1). The STFT's
-    (B, frames, bins) is transposed and zero-padded along time to
-    `image_frames`; padding columns count as observed. cfg.multi_res
-    adds masked_lo_img, the masked magnitude of a second STFT at twice
-    the hop, each of its frames repeated twice; cfg.phase_head adds
-    phase_img (B, n_bins, image_frames, 2), the target's unit phasors.
-    """
-    return _preprocess(wav, tmask, cfg)[0]
-
-
-def _preprocess(wav, tmask, cfg: TrainConfig):
-    """preprocess_with_mask, plus the complex STFT it computed."""
-    if wav.dim() != 2 or tmask.dim() != 2 or wav.shape[0] != tmask.shape[0]:
-        raise ValueError(f"wav (B, T) and tmask (B, frames) expected, got "
-                         f"{tuple(wav.shape)} and {tuple(tmask.shape)}")
-    re, im, mag = _stft_mag(wav, cfg.stft)
-    mag = mag.transpose(-1, -2)                    # (B, n_bins, F)
-    n_frames = mag.shape[-1]
-    pad = cfg.image_frames - n_frames
-    if pad < 0:
-        raise ValueError("image_frames smaller than STFT frame count")
-    mag = F.pad(mag, (0, pad))
-    tmask = tmask.float()
-    if pad:
-        tmask = tmask.clone()
-        tmask[:, n_frames:] = 1.0
-    mask = tmask[:, None, :].expand(mag.shape)
-    batch = {
-        "real_img": compress(mag, cfg.compress_ceiling)[..., None],
-        "masked_img": compress(mag * mask, cfg.compress_ceiling)[..., None],
-        "mask_img": mask[..., None],
-    }
-    if cfg.multi_res:
-        lo_cfg = dataclasses.replace(cfg.stft,
-                                     hop_length=cfg.stft.hop_length * 2)
-        lo = _stft_mag(wav, lo_cfg)[2].transpose(-1, -2)
-        lo = lo.repeat_interleave(2, dim=-1)[..., : cfg.image_frames]
-        lo = F.pad(lo, (0, cfg.image_frames - lo.shape[-1]))
-        batch["masked_lo_img"] = compress(lo * mask,
-                                          cfg.compress_ceiling)[..., None]
-    if cfg.phase_head:
-        re_t = F.pad(re.transpose(-1, -2), (0, pad))
-        im_t = F.pad(im.transpose(-1, -2), (0, pad))
-        inv = torch.rsqrt(re_t * re_t + im_t * im_t + 1e-12)
-        batch["phase_img"] = torch.stack([re_t * inv, im_t * inv], dim=-1)
-    return batch, (re, im)
-
-
-def _g_input(batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    """G's input, NCHW: (B, 2 or 3, n_bins, image_frames) =
-    [masked, mask] or [masked, mask, masked_lo]."""
-    chans = [batch["masked_img"], batch["mask_img"]]
-    if "masked_lo_img" in batch:
-        chans.append(batch["masked_lo_img"])
-    return torch.cat(chans, dim=-1).permute(0, 3, 1, 2)
+from .diffusion import (check_clamp_mode, chunked_mean, ddim_refine,
+                        noise_source, tile, tile_batch)
+from .preprocess import g_input, preprocess_with_stft, task_masks
 
 
 def make_infer_fn(G: torch.nn.Module | tp.Sequence[torch.nn.Module],
@@ -110,12 +30,22 @@ def make_infer_fn(G: torch.nn.Module | tp.Sequence[torch.nn.Module],
                   length: int | None = None, phase_aware: bool = True,
                   phase_init: str = "auto", mag_sharpen: float = 1.0,
                   oracle_mag: bool = False, V: torch.nn.Module | None = None,
+                  refiner: torch.nn.Module | None = None,
+                  refine_steps: int = 8, refine_t: float = 0.35,
+                  refine_noise: float = 1.0, refine_guidance: float = 0.0,
+                  refine_clamp: str = "x0", refine_resample: int = 0,
+                  refine_avg: int = 1, refine_chunk: int = 8,
+                  refine_mix: float = 0.0, refine_selfcond: bool = False,
+                  external_mask: bool = True,
                   ) -> tp.Callable[..., torch.Tensor]:
-    """Build infer(wav (B, T), tmask (B, image_frames), frames=None) →
-    (B, length) wav.
+    """Build infer(wav (B, T), mask, frames=None, fold=0, noise=None)
+    → (B, length) wav.
 
-    tmask marks the real corrupted region (1 = observed, 0 = hole); the
-    chain runs on the device of its inputs. G may be a sequence of K
+    external_mask=True: `mask` is a (B, image_frames) keep-mask marking
+    the real corrupted region (1 = observed, 0 = hole), the serving
+    path. external_mask=False: `mask` is a torch.Generator from which
+    the gaps are drawn (cfg.mask's distribution), evaluation. The chain
+    runs on the device of its inputs. G may be a sequence of K
     same-architecture generators: a deep ensemble, whose outputs are
     averaged in compressed-magnitude space (phase channels included).
     cfg.use_video needs `V` here and (B, T, H, W, 3) `frames` at each
@@ -127,6 +57,18 @@ def make_infer_fn(G: torch.nn.Module | tp.Sequence[torch.nn.Module],
     phase_aware and to "zero" otherwise. mag_sharpen (gamma, 1 = off)
     sharpens the predicted magnitude; oracle_mag=True substitutes the
     true magnitude (the pipeline's ceiling, evaluation only).
+
+    refiner=R runs the diffusion refiner on G's magnitude image (the
+    ensemble's mean) before the composite: `refine_steps` DDIM steps
+    from t = `refine_t` (train/diffusion.py::ddim_refine with the
+    refine_* options), the posterior mean of `refine_avg` samples
+    computed `refine_chunk` at a time, then blended with G's image as
+    refine_mix·G + (1 − refine_mix)·R; the phase-head channels pass
+    through. Its noise: the fixed stream (base 0) for external masks,
+    else a base seed drawn from the generator after the masks; the
+    call's `fold` picks the stream (distinct folds: distinct posterior
+    samples of the same task); `noise`, a list of refine_avg
+    RefineNoise, stands in for the draws.
     """
     gens = list(G) if isinstance(G, (list, tuple)) else [G]
     if not gens:
@@ -141,21 +83,45 @@ def make_infer_fn(G: torch.nn.Module | tp.Sequence[torch.nn.Module],
     if phase_init == "model" and not cfg.phase_head:
         raise ValueError("phase_init='model' requires cfg.phase_head "
                          "(a G trained with --phase_head)")
+    if refiner is not None:
+        check_clamp_mode(refine_clamp)
+        refine_kw = dict(steps=refine_steps, t_start=refine_t,
+                         noise_scale=refine_noise, guidance=refine_guidance,
+                         clamp_mode=refine_clamp, resample=refine_resample,
+                         self_cond=refine_selfcond)
 
     @torch.inference_mode()
-    def infer(wav: torch.Tensor, tmask: torch.Tensor,
-              frames: torch.Tensor | None = None) -> torch.Tensor:
-        batch, (re_in, im_in) = _preprocess(wav, tmask, cfg)
+    def infer(wav: torch.Tensor, mask, frames: torch.Tensor | None = None,
+              fold: int = 0, noise=None) -> torch.Tensor:
+        tmask, base = task_masks(mask, wav.shape[0], cfg, external_mask)
+        batch, (re_in, im_in) = preprocess_with_stft(
+            wav, tmask.to(wav.device), cfg)
         feats = None
         if cfg.use_video:
             if frames is None:
                 raise ValueError("cfg.use_video: infer needs frames")
             feats = V(frames)
-        x = _g_input(batch)
+        x = g_input(batch)
         if len(gens) == 1:
             fake = gens[0](x, feats)
         else:
             fake = torch.stack([g(x, feats) for g in gens]).mean(0)
+        if refiner is not None:
+            g_img = fake[:, :1]
+
+            def sample_stats(nz, c):
+                return {"x": ddim_refine(refiner, tile(g_img, c),
+                                         tile_batch(batch, c), nz,
+                                         **refine_kw)}
+
+            refined = chunked_mean(
+                sample_stats,
+                noise_source(noise, base, fold, tuple(g_img.shape),
+                             refine_steps, refine_resample, wav.device),
+                max(refine_avg, 1), refine_chunk)["x"]
+            if refine_mix > 0.0:
+                refined = refine_mix * g_img + (1.0 - refine_mix) * refined
+            fake = torch.cat([refined, fake[:, 1:]], dim=1)
         fake = fake.permute(0, 2, 3, 1)                       # NHWC
         fake_mag = decompress(fake[..., 0], cfg.compress_ceiling)
         if oracle_mag:

@@ -42,7 +42,7 @@ from ..nn.losses import (feature_matching_loss, gan_loss, generator_gan_loss,
 from ..signal.mask import sample_batch_masks
 from ..signal.mel import decompress
 from .config import TrainConfig
-from .infer import _g_input, preprocess_with_mask
+from .preprocess import g_input, preprocess_with_mask
 from .pool import draw_pool, init_pool, query_pool
 from .schedules import optimizer_step
 
@@ -167,7 +167,7 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
             tmask = sample_batch_masks(generator, B, cfg.image_frames,
                                        cfg.mask)
         batch = preprocess_with_mask(wav, tmask.to(wav.device), cfg)
-        x = _g_input(batch)
+        x = g_input(batch)
         if need[1]:
             dropout = G.dropout_masks(x.shape, generator)
         if need[2]:
