@@ -5,7 +5,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: a CUDA card must be present; TF32 is switched off for
      matmuls and cuDNN convolutions, so every product is full float32;
-  2. build: nvcc builds the Griffin-Lim kernel from csrc/;
+  2. build: nvcc builds the Griffin-Lim kernel and g++ the native data
+     loader from csrc/, in parallel;
   3. the kernel against its plain PyTorch version at the serving
      shapes of both buckets, B = 8 and 32 clips of 2 s (F = 251 frames
      × 256 bins, 32000 samples), which run different block tiles;
@@ -69,7 +70,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the GL launches of each arm; [times refiner]: one bucket-32
      request at refine_avg 1 and 8 (CUDA events after warm-up), R's
      GFLOP a clip, the rate, peak memory and clips/s; [profile
-     refiner]: one bucket-32 request by kernel.
+     refiner]: one bucket-32 request by kernel;
+ 11. folder data on the card ([data]): a corpus written from the
+     synthetic corpus (24 wav files of 3 s, PCM16, one at 22.05 kHz, one
+     stereo; 12 npy frame stacks and one uncompressed AVI; a musices
+     manifest with train and test splits); the native wav decoder,
+     resampler and frame reader against the numpy ones; a batch in
+     every mode (the native clip loader, the DataLoader in order and
+     with 4 workers, both musices splits); [train]'s two models trained
+     20 steps at batch 16 from the folder through the train CLI with
+     prefetch (visuals on the GL kernel); the eval CLI on the musices
+     test split; the loader's wait share of a step;
+ 12. refiner training: [train refiner] runs the refiner CLI at its
+     defaults (batch 32, bf16 G and R) for 40 steps in each domain on
+     [train]'s audio checkpoint, resumes the magnitude run from
+     R20_state.pt and checks it equals the uninterrupted one (cuDNN's
+     deterministic algorithms), and checks the loss falls over 8 steps
+     on one fixed batch; [eval] scores the trained Rs (net_R, net_Rraw,
+     the complex R); [train refiner reference]: one float32 SGD step of
+     each domain at batch 4 on the card against the CPU (cond_drop 0.5,
+     self-conditioning on its first-pass side), and again with TF32 on;
+     [times train refiner]: steps/s, clips/s and TFLOP/s at batch 32,
+     both domains, bf16 and float32, self-conditioning off and on, and
+     one step by kernel.
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
 kernels with their launches (summed over every path that ran them,
@@ -83,6 +106,7 @@ import copy
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -192,6 +216,33 @@ EVAL_ARMS = {
           "cplx", "--refine_t", "1.0", "--complex_mag", "mean",
           "--refine_avg", "2"],
 }
+
+# [data]: a folder corpus written from the port's synthetic corpus (seed
+# DATA_SEED): DATA_CLIPS wav files of DATA_SECONDS, the first DATA_AV of
+# them in av/ with (16, 64, 64, 3) uint8 .npy frame stacks, one more in
+# av/ with an uncompressed AVI, the rest in audio_only/ (one at 22.05
+# kHz, one stereo); musices.json splits av/ into train and test.
+DATA_CLIPS, DATA_AV, DATA_SECONDS, DATA_SEED = 24, 12, 3.0, 7
+DATA_TRAIN = {
+    "audio": ["--dataset_mode", "audio"],
+    "av": ["--dataset_mode", "av", "--model", "av", "--gated",
+           "--bottleneck_dilation", "1,2,4"],
+}
+# [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
+# R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
+# of 8 batches; a resume from R20_state.pt to 40 repeats the run.
+REFINER_STEPS, REFINER_MILESTONE = 40, 20
+REFINER_TRAIN = ["--steps", str(REFINER_STEPS), "--milestone",
+                 str(REFINER_MILESTONE), "--pool_batches", "8",
+                 "--gpu_ids", "0"]
+REFINER_BATCH = 32            # the refiner CLI's default
+# [eval] on the Rs that [train refiner] wrote: (arm, run suffix, flags).
+EVAL_TRAINED_ARMS = (
+    ("R", "", ["--refiner", "--refiner_net", "R"]),
+    ("Rraw", "", ["--refiner", "--refiner_net", "Rraw"]),
+    ("complex", "_cplx", ["--refiner", "--refiner_domain", "complex",
+                          "--refine_t", "1.0"]),
+)
 
 
 def log(msg: str):
@@ -340,8 +391,8 @@ def phase_build():
     res = _build.build()
     wall = time.perf_counter() - t0
     for r in res.values():
-        log(f"[build] {r.name}: nvcc {r.seconds:.2f} s (wall {wall:.2f} s) "
-            f"-> {r.path.name}")
+        log(f"[build] {r.name}: compiled in {r.seconds:.2f} s (wall "
+            f"{wall:.2f} s, every target in parallel) -> {r.path.name}")
         for line in r.log.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build]   {line.strip()}")
@@ -1001,16 +1052,25 @@ def phase_times_train(dev, card: str, kind: str) -> dict:
 def profile_train_step(model, loader, kind: str, tag: str):
     """Device time by kernel of one train step, and the device's busy
     share of the step's wall time."""
+    batch = next(loader)
+
+    def step():
+        model.set_input(batch)
+        model.optimize_parameters()
+
+    profile_step(step, f"profile train{' av' if kind == 'av' else ''}", tag)
+
+
+def profile_step(step, name: str, tag: str):
+    """Device time by kernel of one call of `step` (torch.profiler), and
+    the device's busy share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    name = f"profile train{' av' if kind == 'av' else ''}"
-    batch = next(loader)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.set_input(batch)
-        model.optimize_parameters()
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
@@ -1166,13 +1226,37 @@ def phase_refiner_reference(svc: InpaintService, dev):
                 f"float32 bound {bound:g}")
 
 
+def eval_arm(label: str, args: list[str], n: int) -> tuple[dict, int]:
+    """One run of the eval CLI: its summary and GL launches; n clips
+    scored, every mean and SEM finite, no plain griffin_lim."""
+    from viai_tpu_torch.cli.test import main as test_main
+
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = test_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    stats = {k: v for k, v in summary.items() if k.endswith(("_mean", "_sem"))}
+    bok = sorted(k for k in summary if "_bok_" in k)
+    log(f"[eval] {label}: n {summary['n']}, hole-PSNR "
+        f"{summary['hole_psnr_mean']:.3f} ± {summary['hole_psnr_sem']:.3f} "
+        f"dB, PSNR {summary['psnr_mean']:.3f}, SNR {summary['snr_mean']:.3f} "
+        f"dB, specConv {summary['spec_conv_mean']:.4f}; {len(bok)} *_bok_* "
+        f"keys; {wall:.1f} s incl. loading; griffin_lim_cuda launches "
+        f"{launches}, plain griffin_lim calls {plain}")
+    require(summary["n"] == n, f"[eval] {label}: n {summary['n']} != {n}")
+    require(all(np.isfinite(v) for v in stats.values()),
+            f"[eval] {label}: a non-finite mean or SEM")
+    require(plain == 0, f"[eval] {label}: ran the plain griffin_lim")
+    return summary, launches
+
+
 def phase_eval(dev, ckpt: str, name: str) -> int:
     """The eval CLI on the card: the arms of EVAL_ARMS on the checkpoint
     `name` that [train] wrote under `ckpt`, a second G (seed 1) in its
     own run directory, R as latest_net_R.pth and a complex-domain R as
     cplx_net_R.pth. Returns the GL kernel's launches over the arms."""
-    from viai_tpu_torch.cli.test import main as test_main
-
     expr = os.path.join(ckpt, name)
     save_networks({"G": define_G(seed=1)}, "latest",
                   os.path.join(ckpt, EVAL_RUN2))
@@ -1188,28 +1272,11 @@ def phase_eval(dev, ckpt: str, name: str) -> int:
         args = ["--name", name, "--checkpoints_dir", ckpt, "--gpu_ids", "0",
                 "--results_dir", os.path.join(ckpt, "results"), *EVAL_BASE,
                 *extra, "--log_results", f"chip_eval_{arm}"]
-        zero_counts()
-        t0 = time.perf_counter()
-        summary = test_main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
-        stats = {k: v for k, v in summary.items()
-                 if k.endswith(("_mean", "_sem"))}
+        summary, launches = eval_arm(f"({arm}) {' '.join(extra) or 'G alone'}",
+                                     args, 40)
         bok = sorted(k for k in summary if "_bok_" in k)
-        log(f"[eval] ({arm}) {' '.join(extra) or 'G alone'}: n "
-            f"{summary['n']}, hole-PSNR {summary['hole_psnr_mean']:.3f} ± "
-            f"{summary['hole_psnr_sem']:.3f} dB, PSNR "
-            f"{summary['psnr_mean']:.3f}, SNR {summary['snr_mean']:.3f} dB, "
-            f"specConv {summary['spec_conv_mean']:.4f}; {len(bok)} *_bok_* "
-            f"keys; {wall:.1f} s incl. loading; griffin_lim_cuda launches "
-            f"{launches}, plain griffin_lim calls {plain}")
-        require(summary["n"] == 40, f"[eval] ({arm}) n {summary['n']} != 40")
-        require(all(np.isfinite(v) for v in stats.values()),
-                f"[eval] ({arm}) a non-finite mean or SEM")
         require(bool(bok) == (arm == "b"),
                 f"[eval] ({arm}) *_bok_* keys {bok}")
-        require(plain == 0, f"[eval] ({arm}) ran the plain griffin_lim")
         require((launches > 0) == (arm != "c"),
                 f"[eval] ({arm}) {launches} GL launches")
         total += launches
@@ -1268,6 +1335,430 @@ def phase_times_refiner(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Folder data
+# ---------------------------------------------------------------------------
+
+def write_corpus(root: pathlib.Path) -> list[str]:
+    """The [data] corpus under `root` (see DATA_CLIPS); → the stems of
+    the clips with frames, in av/."""
+    from viai_tpu_torch.data import SyntheticAVDataset, SyntheticConfig
+    from viai_tpu_torch.data.audio import resample_linear_numpy, write_wav
+    from viai_tpu_torch.data.avi import write_avi
+
+    ds = SyntheticAVDataset(SyntheticConfig(
+        clip_seconds=DATA_SECONDS, with_video=True, video_frames=FRAMES[0],
+        video_size=FRAMES[1]))
+    (root / "av").mkdir(parents=True)
+    (root / "audio_only").mkdir()
+    stems = []
+    for i in range(DATA_CLIPS):
+        item = ds[DATA_SEED * 1000 + i]
+        wav, sr = item["wav"], SR
+        if i <= DATA_AV:
+            stem = root / "av" / f"clip{i:02d}"
+            frames = np.round(item["frames"] * 255).astype(np.uint8)
+            if i < DATA_AV:
+                np.save(f"{stem}.npy", frames)
+            else:
+                write_avi(f"{stem}.avi", frames, 8)
+            stems.append(str(stem))
+        else:
+            stem = root / "audio_only" / f"clip{i:02d}"
+            if i == DATA_AV + 1:
+                sr = 22050
+                wav = resample_linear_numpy(wav, SR, sr)
+            elif i == DATA_AV + 2:
+                wav = np.stack([wav, 0.5 * wav], axis=1)
+        write_wav(f"{stem}.wav", wav, sr)
+    entries = [{"audio": os.path.relpath(f"{s}.wav", root),
+                "frames": os.path.relpath(
+                    s + (".npy" if os.path.exists(f"{s}.npy") else ".avi"),
+                    root)} for s in stems]
+    manifest = {"train": entries[:10], "test": entries[10:]}
+    with open(root / "musices.json", "w") as f:
+        json.dump(manifest, f)
+    return stems
+
+
+def data_train_args(kind: str, ckpt: str, root: pathlib.Path) -> list[str]:
+    dataroot = root if kind == "audio" else root / "av"
+    return ["--name", f"chip_data_{kind}", "--checkpoints_dir", ckpt,
+            "--gpu_ids", "0", "--batchSize", str(TRAIN_BATCH), "--niter", "1",
+            "--niter_decay", "0", "--steps_per_epoch", str(TRAIN_STEPS),
+            "--save_epoch_freq", "1", "--display_freq", str(TRAIN_DISPLAY),
+            "--print_freq", str(TRAIN_DISPLAY), "--dataroot", str(dataroot),
+            *DATA_TRAIN[kind]]
+
+
+def phase_data(dev, ckpt: str, card: str) -> int:
+    """Folder data on the card: write the corpus; the native decoder and
+    frame reader against the numpy ones; a batch in every mode; G
+    trained 20 steps from the folder (audio, then av) through the train
+    CLI with prefetch, the visuals on the GL kernel; the eval CLI on the
+    musices test split; the loader's wait share of a step. Returns the
+    GL kernel's launches."""
+    from viai_tpu_torch import native
+    from viai_tpu_torch.cli.train import main as train_main
+    from viai_tpu_torch.data import create_dataloader, device_prefetch
+    from viai_tpu_torch.data.audio import (find_wavs, read_wav_numpy,
+                                           resample_linear_numpy)
+    from viai_tpu_torch.data.av import frames_numpy
+    from viai_tpu_torch.data.avi import read_avi
+    from viai_tpu_torch.model import VIAIModel
+
+    root = pathlib.Path(ckpt) / "corpus"
+    t0 = time.perf_counter()
+    stems = write_corpus(root)
+    log(f"[data] corpus: {DATA_CLIPS} wav files of {DATA_SECONDS:g} s "
+        f"(PCM16; one at 22.05 kHz, one stereo), {DATA_AV} npy stacks "
+        f"{FRAMES} and one AVI, musices.json; written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    wav_err = 0.0
+    for path in find_wavs(str(root)):
+        with open(path, "rb") as f:
+            data = f.read()
+        (w, sr), (r, sr_r) = native.decode_wav(data), read_wav_numpy(data)
+        require(sr == sr_r and w.shape == r.shape, f"[data] {path}: decoders "
+                f"disagree on the rate or length")
+        wav_err = max(wav_err, float(np.abs(w - r).max()))
+        if sr != SR:
+            wav_err = max(wav_err, float(np.abs(
+                native.resample_linear(w, sr, SR)
+                - resample_linear_numpy(r, sr, SR)).max()))
+    frames_err = 0.0
+    for stem in stems:
+        path = stem + (".npy" if os.path.exists(stem + ".npy") else ".avi")
+        arr = np.load(path) if path.endswith(".npy") else read_avi(path)[0]
+        for size, window in ((FRAMES[1], None), (48, (0.25, 0.75))):
+            out = native.load_frames(path, FRAMES[0], size, window)
+            ref = frames_numpy(arr, FRAMES[0], size, window)
+            frames_err = max(frames_err, float(np.abs(out - ref).max()))
+    log(f"[data] native vs numpy: wav decode and resample max|Δ| "
+        f"{wav_err:.3e} (bound 0: the same float64 arithmetic); frames "
+        f"(npy and AVI, full size and resized to 48, whole source and a "
+        f"window) max|Δ| {frames_err:.3e} (bound 1e-6)")
+    require(wav_err == 0.0, "[data] the native wav decoder disagrees")
+    require(frames_err < 1e-6, "[data] the native frame reader disagrees")
+
+    manifest = str(root / "musices.json")
+    common = dict(clip_samples=CLIP, sample_rate=SR, n_frames=FRAMES[0],
+                  frame_size=FRAMES[1], seed=0)
+    for label, mode, dataroot, batch, kw in (
+            ("audio, native loader", "audio", root, TRAIN_BATCH, {}),
+            ("audio, in order", "audio", root, 8,
+             dict(shuffle=False, num_epochs=1, prefer_native=False)),
+            ("av", "av", root / "av", 8, {}),
+            ("musices train", "musices", manifest, 8,
+             dict(shuffle=False, num_epochs=1)),
+            ("musices test", "musices", manifest, 3,
+             dict(shuffle=False, num_epochs=1, split="test"))):
+        t0 = time.perf_counter()
+        loader = create_dataloader(mode, str(dataroot), batch,
+                                   **{"n_threads": 0, **common, **kw})
+        it = iter(loader)
+        b = next(it)
+        secs = time.perf_counter() - t0
+        shapes = {k: tuple(v.shape) for k, v in b.items()}
+        require(shapes["wav"] == (batch, CLIP) and all(
+            bool(np.isfinite(np.asarray(v)).all()) for v in b.values()),
+            f"[data] {label}: batch {shapes}")
+        require(mode == "audio" or shapes["frames"] == (batch, *FRAMES),
+                f"[data] {label}: frames {shapes}")
+        log(f"[data] {label}: first batch {shapes} in {secs:.2f} s")
+        del it
+        if hasattr(loader, "close"):
+            loader.close()
+
+    total = 0
+    for kind in DATA_TRAIN:
+        args = data_train_args(kind, ckpt, root)
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train_main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+        losses = model.get_current_losses()
+        log(f"[data] train {kind} from the folder: {TRAIN_STEPS} steps at "
+            f"batch {TRAIN_BATCH} through viai_tpu_torch.cli.train (prefetch "
+            f"depth 2) in {wall:.1f} s incl. building and the loader's "
+            f"start; losses " + " ".join(f"{k} {v:.4f}"
+                                         for k, v in losses.items())
+            + f"; griffin_lim_cuda launches {launches}, plain {plain}")
+        require(all(np.isfinite(v) for v in losses.values()),
+                f"[data] train {kind}: non-finite loss")
+        require(launches == TRAIN_STEPS // TRAIN_DISPLAY and plain == 0,
+                f"[data] train {kind}: GL launches {launches}, plain {plain}")
+        total += launches
+        del model
+    summary, launches = eval_arm(
+        "(data) chip_data_audio on the musices test split",
+        ["--name", "chip_data_audio", "--checkpoints_dir", ckpt, "--gpu_ids",
+         "0", "--dataset_mode", "musices", "--dataroot", manifest, "--phase",
+         "test", "--batchSize", "3", "--how_many", "3", "--results_dir",
+         os.path.join(ckpt, "results")], 3)
+    require(launches > 0, "[data] the eval CLI launched no GL")
+    total += launches
+
+    tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
+    for kind in DATA_TRAIN:
+        opt = parse_quietly(data_train_args(kind, ckpt, root))
+        model = VIAIModel(opt)
+        loader = create_dataloader(
+            opt.dataset_mode, opt.dataroot, opt.batchSize, CLIP, SR,
+            opt.nThreads, opt.n_video_frames, opt.frame_size, seed=opt.seed)
+        batches = device_prefetch(iter(loader), dev)
+        for _ in range(3):
+            model.set_input(next(batches))
+            model.optimize_parameters()
+        torch.cuda.synchronize()
+        wait = 0.0
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED_STEPS):
+            tw = time.perf_counter()
+            batch = next(batches)
+            wait += time.perf_counter() - tw
+            model.set_input(batch)
+            model.optimize_parameters()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"[data] {kind} from the folder ({type(loader).__name__}, "
+            f"{opt.nThreads} workers, prefetch depth 2): loader wait "
+            f"{wait * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall over "
+            f"{TRAIN_TIMED_STEPS} steps ({wait / wall:.1%}), "
+            f"{wall * 1e3 / TRAIN_TIMED_STEPS:.1f} ms a step {tag}")
+        del batches, model
+        if hasattr(loader, "close"):
+            loader.close()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Refiner training
+# ---------------------------------------------------------------------------
+
+def phase_train_refiner(dev, ckpt: str, name: str):
+    """The refiner CLI at full width on [train]'s audio checkpoint, both
+    domains (the complex R beside a copy of G in its own run directory),
+    under cuDNN's deterministic algorithms; a run resumed from
+    R20_state.pt to 40 gives the uninterrupted run's net_R; then 8 steps
+    on one fixed batch with fixed draws, whose loss falls."""
+    from viai_tpu_torch.cli.train_refiner import main as refiner_main
+    from viai_tpu_torch.train.diffusion import make_refiner_train_step
+    from viai_tpu_torch.train.schedules import adam, cosine
+
+    expr = os.path.join(ckpt, name)
+    os.makedirs(expr + "_cplx")
+    for net in ("G", "D"):
+        shutil.copy(os.path.join(expr, f"latest_net_{net}.pth"),
+                    expr + "_cplx")
+    torch.backends.cudnn.deterministic = True
+    try:
+        for domain, run in (("mag", name), ("complex", name + "_cplx")):
+            args = ["--name", run, "--checkpoints_dir", ckpt, "--domain",
+                    domain, "--results_dir", os.path.join(ckpt, "results"),
+                    *REFINER_TRAIN]
+            t0 = time.perf_counter()
+            rec = refiner_main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"[train refiner] {domain}: {REFINER_STEPS} steps at batch "
+                f"{REFINER_BATCH} (bf16 G and R, Adam with the cosine decay "
+                f"to 0.1, EMA 0.999) through viai_tpu_torch.cli.train_refiner"
+                f" in {wall:.1f} s incl. loading G, the pool and 3 saves; "
+                f"final v-MSE {rec['final_v_mse']:.5f}; "
+                f"{rec['train_clips_per_s']:.1f} clips/s (host clock, saves "
+                f"included)")
+            require(np.isfinite(rec["final_v_mse"]),
+                    f"[train refiner] {domain}: non-finite loss")
+            out = os.path.join(ckpt, run)
+            for f in (f"{REFINER_MILESTONE}_net_R.pth",
+                      f"{REFINER_STEPS}_net_Rraw.pth", "latest_net_R.pth",
+                      f"R{REFINER_MILESTONE}_state.pt"):
+                require(os.path.exists(os.path.join(out, f)),
+                        f"[train refiner] {domain}: no {f}")
+            if domain != "mag":
+                continue
+            path = os.path.join(out, f"{REFINER_STEPS}_net_R.pth")
+            first = torch.load(path, weights_only=True)
+            rec2 = refiner_main(args + ["--resume_step",
+                                        str(REFINER_MILESTONE)])
+            second = torch.load(path, weights_only=True)
+            diff = max(float((first[k] - second[k]).abs().max())
+                       for k in first)
+            log(f"[train refiner] {domain}: resumed from "
+                f"R{REFINER_MILESTONE}_state.pt to {REFINER_STEPS}: net_R "
+                f"max|Δ| {diff:.3e} from the uninterrupted run (bound 0, "
+                f"cuDNN's deterministic algorithms); final v-MSE "
+                f"{rec2['final_v_mse']:.5f}")
+            require(diff == 0.0, "[train refiner] the resumed run differs")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    cfg = TrainConfig()
+    G = define_G(dtype="bfloat16")
+    load_networks({"G": G}, "latest", expr)
+    R = define_R(4, 64, dtype="bfloat16", seed=3, device=dev)
+    opt = adam(R.parameters(), cosine(2e-4, 8, 0, 1, alpha=0.1), beta1=0.9)
+    step = make_refiner_train_step(G, None, R, copy.deepcopy(R), opt, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wav = tones(REFINER_BATCH, seed=800, device=dev)
+    draws = dict(tmask=sample_batch_masks(gen, REFINER_BATCH,
+                                          cfg.image_frames, cfg.mask),
+                 t=torch.rand(REFINER_BATCH, generator=gen, device=dev),
+                 eps=torch.randn(REFINER_BATCH, 1, cfg.n_bins,
+                                 cfg.image_frames, generator=gen, device=dev))
+    losses = [float(step(wav, **draws)["loss_R"]) for _ in range(8)]
+    log(f"[train refiner] fixed batch and draws: v-MSE step 1 "
+        f"{losses[0]:.5f} -> step 8 {losses[-1]:.5f}")
+    require(losses[-1] < losses[0], "[train refiner] the loss did not fall")
+
+
+def phase_train_refiner_reference(dev):
+    """One float32 SGD step of each domain's R at full width, batch 4, on
+    the card against the CPU: the same G and R (its zero-init layers
+    moved), waveforms and draws (gap masks, t, ε, keep under cond_drop
+    0.5, the self-conditioning coin on its first-pass side); cuDNN's
+    deterministic algorithms; the bounds of [train reference]. Again on
+    the card with TF32 on, printed beside it."""
+    from viai_tpu_torch.train.diffusion import (
+        make_complex_refiner_train_step, make_refiner_train_step)
+
+    cfg = TrainConfig()
+    B = TRAIN_REF_BATCH
+    G0 = define_G(device="cpu")
+    wav = tones(B, seed=19, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    tmask = sample_batch_masks(gen, B, cfg.image_frames, cfg.mask)
+    t = torch.rand(B, generator=gen)
+    keep = torch.rand(B, generator=gen) >= 0.5
+    cpu = torch.device("cpu")
+    for domain, (r_in, r_out), make in (
+            ("mag", (5, 1), make_refiner_train_step),
+            ("complex", complex_refiner_channels(2, self_cond=True),
+             make_complex_refiner_train_step)):
+        R0 = perturbed_R(r_in, r_out)
+        eps = torch.randn(B, r_out, cfg.n_bins, cfg.image_frames,
+                          generator=gen)
+        runs = {}
+        for where, d, tf32 in (("cpu", cpu, False), ("card", dev, False),
+                               ("card, TF32 on", dev, True)):
+            torch.backends.cudnn.deterministic = d.type == "cuda"
+            G, R = copy.deepcopy(G0).to(d), copy.deepcopy(R0).to(d)
+            before = {k: p.detach().clone() for k, p in R.named_parameters()}
+            step = make(G, None, R, copy.deepcopy(R),
+                        torch.optim.SGD(R.parameters(), lr=TRAIN_REF_LR),
+                        cfg, cond_drop=0.5, self_cond=True)
+            t0 = time.perf_counter()
+            with tf32_on() if tf32 else contextlib.nullcontext():
+                loss = float(step(wav.to(d), tmask=tmask, t=t, eps=eps,
+                                  keep=keep, sc_first_pass=True)["loss_R"])
+            secs = time.perf_counter() - t0
+            torch.backends.cudnn.deterministic = False
+            runs[where] = (loss, {"R": {k: (p.detach() - before[k]).cpu()
+                                        for k, p in R.named_parameters()}},
+                           secs)
+        lc, uc, sc = runs["cpu"]
+        for other in ("card", "card, TF32 on"):
+            lo, uo, so = runs[other]
+            loss_rel = abs(lo - lc) / abs(lc)
+            table, worst, worst_net = _update_errors(uc, uo)
+            ok = (loss_rel < TRAIN_REF_LOSS_BOUND and worst < TRAIN_REF_BOUND
+                  and worst_net < TRAIN_REF_NET_BOUND)
+            w = max(table, key=lambda r: r["of_net_max"])
+            log(f"[train refiner reference] {domain}, {other} vs cpu: step "
+                f"{so:.2f} s (cpu {sc:.2f} s); loss {lo:.6f} vs {lc:.6f}, "
+                f"|Δ|/|cpu| {loss_rel:.2e} (bound {TRAIN_REF_LOSS_BOUND:g}); "
+                f"max|Δ update| / max|update| worst {worst:.3e} over "
+                f"{sum(r['bounded'] for r in table)} tensors (bound "
+                f"{TRAIN_REF_BOUND:g}); max|Δ| / R's largest update worst "
+                f"{worst_net:.3e} (bound {TRAIN_REF_NET_BOUND:g}) in "
+                f"{w['tensor']}: {'within' if ok else 'outside'} the bounds")
+            if other == "card":
+                require(ok, f"[train refiner reference] {domain}: the card's "
+                        f"step disagrees with the CPU's")
+
+
+def phase_eval_trained(dev, ckpt: str, name: str) -> int:
+    """The eval CLI on the Rs that [train refiner] trained: the EMA
+    (net_R) and the raw weights (net_Rraw) in the magnitude domain, on
+    the GL kernel, and the complex R. Returns the GL launches."""
+    total = 0
+    for arm, suffix, extra in EVAL_TRAINED_ARMS:
+        args = ["--name", name + suffix, "--checkpoints_dir", ckpt,
+                "--gpu_ids", "0", "--results_dir",
+                os.path.join(ckpt, "results"), *EVAL_BASE, *extra,
+                "--log_results", f"chip_eval_trained_{arm}"]
+        _, launches = eval_arm(f"(port-trained {arm}) {' '.join(extra)}",
+                               args, 40)
+        require((launches > 0) == (arm != "complex"),
+                f"[eval] (port-trained {arm}) {launches} GL launches")
+        total += launches
+    return total
+
+
+def phase_times_train_refiner(dev, card: str) -> dict:
+    """Steps/s and clips/s of the refiner's train step at batch 32 (CUDA
+    events over TRAIN_TIMED_STEPS steps after 3 of warm-up), both
+    domains, bf16 and float32, self-conditioning off and on (the coin
+    on its first-pass side: one more R forward); the rate from the
+    shapes' FLOPs: G's frozen forward and R's forward and backward
+    (3 forwards), plus the first pass under self-conditioning; peak
+    memory. One bf16 magnitude step under torch.profiler."""
+    from viai_tpu_torch.train.diffusion import (
+        make_complex_refiner_train_step, make_refiner_train_step)
+    from viai_tpu_torch.train.schedules import adam, cosine
+
+    tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
+    cfg, B = TrainConfig(), REFINER_BATCH
+    wav = tones(B, seed=900, device=dev)
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        G = define_G(dtype=dtype)
+        g_gf = conv_gflop(G, torch.zeros(1, 2, 256, 256, device=dev))
+        for domain, make in (("mag", make_refiner_train_step),
+                             ("complex", make_complex_refiner_train_step)):
+            for sc in (False, True):
+                r_in, r_out = ((4 + sc, 1) if domain == "mag" else
+                               complex_refiner_channels(2, self_cond=sc))
+                R = define_R(r_in, 64, dtype=dtype, out_channels=r_out,
+                             seed=3, device=dev)
+                r_gf = conv_gflop(R, torch.zeros(1, r_in, 256, 256,
+                                                 device=dev),
+                                  torch.zeros(1, device=dev))
+                opt = adam(R.parameters(), cosine(2e-4, 10000, 0, 1,
+                                                  alpha=0.1), beta1=0.9)
+                step = make(G, None, R, copy.deepcopy(R), opt, cfg,
+                            self_cond=sc)
+                gen = torch.Generator(device=dev).manual_seed(0)
+
+                def run():
+                    return step(wav, gen, sc_first_pass=True if sc else None)
+
+                for _ in range(3):
+                    run()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_ms(run, TRAIN_TIMED_STEPS, warmup=0)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                gf = B * (g_gf + r_gf * (4 if sc else 3))
+                log(f"[times train refiner] {domain} {dtype} self_cond "
+                    f"{'on' if sc else 'off'}: {ms:.2f} ms a step, "
+                    f"{1e3 / ms:.2f} steps/s, {B * 1e3 / ms:.1f} clips/s at "
+                    f"batch {B}; R {r_gf:.2f} GFLOP a clip a forward, G "
+                    f"{g_gf:.2f}; {gf / 1e3:.2f} TFLOP a step -> "
+                    f"{gf / ms:.1f} TFLOP/s; peak allocated {peak:.2f} GiB "
+                    f"{tag}")
+                res[(domain, dtype, sc)] = dict(ms=ms, tflops=gf / ms,
+                                                peak_gib=peak)
+                if (domain, dtype, sc) == ("mag", "bfloat16", False):
+                    profile_step(run, "profile train refiner", tag)
+                del R, opt, step
+        del G
+    return res
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -1282,12 +1773,17 @@ def main():
     with tempfile.TemporaryDirectory() as ckpt:
         trains = {kind: phase_train(dev, kind, ckpt) for kind in TRAIN_MODELS}
         launches_eval = phase_eval(dev, ckpt, "chip_audio")
+        launches_data = phase_data(dev, ckpt, card)
+        phase_train_refiner(dev, ckpt, "chip_audio")
+        launches_trained = phase_eval_trained(dev, ckpt, "chip_audio")
     phase_train_reference(dev)
+    phase_train_refiner_reference(dev)
     times = phase_times(svc, dev, card)
     phase_times_av(av, dev, card)
     for kind in TRAIN_MODELS:
         phase_times_train(dev, card, kind)
     phase_times_refiner(dev, card)
+    phase_times_train_refiner(dev, card)
     phase_profile(svc, card)
     phase_profile(av, card, "profile av")
     t = times[32]
@@ -1299,13 +1795,14 @@ def main():
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
         "launches": (launches_slice + launches_av + launches_options
                      + launches_train + launches_served + launches_refiner
-                     + launches_eval),
+                     + launches_eval + launches_data + launches_trained),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
                              "options": launches_options,
                              "train": launches_train,
                              "train_served": launches_served,
                              "refiner": launches_refiner,
-                             "eval": launches_eval},
+                             "eval": launches_eval, "data": launches_data,
+                             "refiner_trained": launches_trained},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "kernel_only_ms": t["kernel_only_ms"],

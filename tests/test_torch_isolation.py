@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "viai_tpu_torch.serving" in res["modules"]
     for mod in ("train.step", "model", "cli.train", "cli.test",
                 "nn.refiner", "train.diffusion", "train.preprocess",
-                "utils.metrics"):
+                "utils.metrics", "cli.train_refiner", "native",
+                "data.audio", "data.av", "data.avi", "data.loader",
+                "data.prefetch"):
         assert f"viai_tpu_torch.{mod}" in res["modules"]
     assert res["forbidden"] == []
 

@@ -1,11 +1,12 @@
 """Evaluate the port's model — the reference's inference entry point.
 
 Port of `viai_tpu/cli/test.py`: parse the test options → the loader in
-order, one pass → create_model → load_networks → per batch: gaps drawn,
-the inpainting chain (model.infer_fn: G, the ensemble, the refiner, GL
-or the complex decode) → spectrogram PSNR (full and hole), waveform SNR
-and spectral convergence against the input → the HTML gallery, the
-summary (mean and standard error per metric) and, with --log_results,
+order, one pass (the --phase split of a musices manifest) →
+create_model → load_networks → per batch: gaps drawn, the inpainting
+chain (model.infer_fn: G, the ensemble, the refiner, GL or the complex
+decode) → spectrogram PSNR (full and hole), waveform SNR and spectral
+convergence against the input → the HTML gallery, the summary (mean
+and standard error per metric) and, with --log_results,
 one JSON record (to {results_dir}/quality_results.jsonl, or to the file
 VIAI_RESULTS_JSONL names).
 
@@ -56,7 +57,8 @@ def main(args=None) -> dict:
     loader = create_dataloader(
         opt.dataset_mode, opt.dataroot, opt.batchSize, clip_samples,
         opt.sample_rate, opt.nThreads, opt.n_video_frames, opt.frame_size,
-        seed=opt.seed, shuffle=False, num_epochs=1,
+        seed=opt.seed, shuffle=False, num_epochs=1, prefer_native=False,
+        split=opt.phase,
     )
     opt.isTrain = False
     model = create_model(opt)
@@ -189,12 +191,19 @@ def main(args=None) -> dict:
         if len(head["hole_psnr"]) <= 256:
             rec["hole_psnr_clips"] = [round(float(x), 3)
                                       for x in head["hole_psnr"]]
-        out = os.environ.get("VIAI_RESULTS_JSONL") or os.path.join(
-            opt.results_dir, "quality_results.jsonl")
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        append_record(rec, opt.results_dir)
     return summary
+
+
+def append_record(rec: dict, results_dir: str):
+    """Append one JSON record to the file VIAI_RESULTS_JSONL names, else
+    to {results_dir}/quality_results.jsonl (never to the JAX package's
+    scripts/quality_results.jsonl)."""
+    out = os.environ.get("VIAI_RESULTS_JSONL") or os.path.join(
+        results_dir, "quality_results.jsonl")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "a") as f:
+        f.write(json.dumps(rec) + "\n")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Train the port's model — the reference's training entry point.
 
 Port of `viai_tpu/cli/train.py`: parse options → data loader →
-create_model → epoch/step loop → set_input → optimize_parameters →
+create_model → epoch/step loop over the batches prefetched to the
+device (data/prefetch.py) → set_input → optimize_parameters →
 periodic visuals, prints and saves (`latest` and per epoch) → the lr
 report per epoch.
 
@@ -18,6 +19,7 @@ import time
 
 from ..config.options import TrainOptions
 from ..data import create_dataloader
+from ..data.prefetch import device_prefetch
 from ..model import create_model
 from ..utils.visualizer import Visualizer
 
@@ -46,7 +48,12 @@ def main(args=None):
                                 tensorboard=getattr(opt, "tensorboard", False))
 
         total_steps = 0
-        data_iter = iter(loader)
+
+        def fresh_iter():
+            # Batches copied to the device two steps ahead of the step.
+            return device_prefetch(iter(loader), model.device, depth=2)
+
+        data_iter = fresh_iter()
         for epoch in range(opt.epoch_count, opt.niter + opt.niter_decay + 1):
             epoch_start = time.time()
             for i in range(steps_per_epoch):
@@ -54,7 +61,7 @@ def main(args=None):
                 try:
                     batch = next(data_iter)
                 except StopIteration:
-                    data_iter = iter(loader)
+                    data_iter = fresh_iter()
                     batch = next(data_iter)
                 model.set_input(batch)
                 model.optimize_parameters()

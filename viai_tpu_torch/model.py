@@ -217,11 +217,15 @@ class VIAIModel:
     # ---- reference BaseModel surface ------------------------------------
 
     def _to_device(self, x) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(x, np.float32))
-        if self.device.type == "cuda":
+        """A host array, a host tensor or a tensor already on the device
+        (data/prefetch.py) → float32 on the model's device."""
+        t = (x if torch.is_tensor(x)
+             else torch.as_tensor(np.asarray(x, np.float32))).float()
+        if self.device.type == "cuda" and t.device.type == "cpu":
             # Pinned staging (the host allocator reuses a block only once
             # its copy is done), then a copy that does not block the host.
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return (t if t.is_pinned() else t.pin_memory()).to(
+                self.device, non_blocking=True)
         return t.to(self.device)
 
     def set_input(self, batch: dict):

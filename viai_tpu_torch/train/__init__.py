@@ -1,11 +1,13 @@
-"""Configuration, the inference chains, the diffusion sampler and the GAN
-train step of the port."""
+"""Configuration, the inference chains, the diffusion sampler, the GAN
+train step and the refiner's train steps of the port."""
 
 from .config import TrainConfig
 from .infer import make_infer_fn
 from .preprocess import preprocess, preprocess_with_mask
 from .diffusion import (RefineNoise, ddim_refine, ddim_refine_complex,
-                        make_complex_refiner_infer_fn)
+                        make_complex_refiner_infer_fn,
+                        make_complex_refiner_train_step,
+                        make_refiner_train_step)
 from .pool import draw_pool, init_pool, query_pool
 from .schedules import (Adam, ReduceOnPlateau, adam, cosine, lambda_linear,
                         make_schedule, optimizer_step, plateau_kwargs,
@@ -18,5 +20,6 @@ __all__ = [
     "adam", "lambda_linear", "step_decay", "cosine", "make_schedule",
     "plateau_kwargs", "plateau_scale", "optimizer_step", "init_state",
     "make_train_step", "RefineNoise", "ddim_refine", "ddim_refine_complex",
-    "make_complex_refiner_infer_fn",
+    "make_complex_refiner_infer_fn", "make_refiner_train_step",
+    "make_complex_refiner_train_step",
 ]

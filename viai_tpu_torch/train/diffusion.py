@@ -1,12 +1,14 @@
-"""Diffusion schedule and DDIM refinement of the hole, in PyTorch.
+"""Diffusion schedule, DDIM refinement of the hole and the refiner's
+training, in PyTorch.
 
-Port of the serving half of `viai_tpu/train/diffusion.py`: the cosine ᾱ
-schedule with v-prediction, DDIM refinement of G's compressed magnitude
-image (`ddim_refine`) and of the hole's compressed complex STFT
-(`ddim_refine_complex`), the chunked posterior mean (`chunked_mean`), and
-the GL-free complex-domain chain (`make_complex_refiner_infer_fn`). The
+Port of `viai_tpu/train/diffusion.py`: the cosine ᾱ schedule with
+v-prediction, DDIM refinement of G's compressed magnitude image
+(`ddim_refine`) and of the hole's compressed complex STFT
+(`ddim_refine_complex`), the chunked posterior mean (`chunked_mean`),
+the GL-free complex-domain chain (`make_complex_refiner_infer_fn`), and
+stage-2 training of R against a frozen G in both domains
+(`make_refiner_train_step`, `make_complex_refiner_train_step`). The
 magnitude-domain chain is `train/infer.py::make_infer_fn(refiner=R)`.
-The refiner's training steps are not ported yet.
 
 Layouts: images here are NCHW, (B, C, n_bins, image_frames), as R
 computes; the preprocess dict (`batch`) keeps the chain's NHWC layout
@@ -23,7 +25,10 @@ them from a `torch.Generator`, ε₀ first, then the re-noise tensors in
 its own generator, seeded from (base, fold, s) (`sample_generator`):
 sample 0 is the single-sample stream, and chunking cannot change the
 noise a sample gets. The noise is scaled by `noise_scale` here, so
-`noise=` carries unscaled draws.
+`noise=` carries unscaled draws. The train steps take theirs as
+arguments (`tmask=`, `t=`, `eps=`, `keep=`, `sc_first_pass=`) or draw
+them from one generator in that order; the JAX package's coin runs R's
+extra pass when `bernoulli` is True, so `sc_first_pass` is that coin.
 """
 
 from __future__ import annotations
@@ -36,10 +41,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..signal.mask import sample_batch_masks
 from ..signal.mel import complex_compress, complex_decompress, decompress
 from ..signal.stft import istft, stft
 from .config import TrainConfig
 from .preprocess import g_input, preprocess_with_stft, task_masks
+from .schedules import optimizer_step
 
 _COS_S = 0.008
 CLAMP_MODES = ("x0", "q")
@@ -462,3 +469,138 @@ def make_complex_refiner_infer_fn(
         return istft(re, im, cfg.stft, length=wav.shape[-1])
 
     return infer
+
+
+# ---------------------------------------------------------------------------
+# Stage-2 training: G (and V) frozen, R gets the gradients
+# ---------------------------------------------------------------------------
+
+def make_refiner_train_step(G, V, R, R_ema, opt: torch.optim.Optimizer,
+                            cfg: TrainConfig, hole_weight: float = 3.0,
+                            observed_weight: float = 1.0,
+                            cond_drop: float = 0.0, ema_decay: float = 0.999,
+                            self_cond: bool = False):
+    """Build train_step(wav (B, T), generator=None, frames=None, *,
+    tmask=None, t=None, eps=None, keep=None, sc_first_pass=None) →
+    {"loss_R": 0-dim tensor}: one update of the magnitude-domain R
+    (x0 is the compressed magnitude image real_img).
+
+    One step: the preprocess with gap masks → the frozen G's forward
+    (V's under cfg.use_video; no gradient, no dropout) → g_img = G's
+    magnitude channel, zeroed per sample where keep is 0 (cond_drop > 0,
+    classifier-free-guidance training) → x_t = q_sample(x0, t, ε) →
+    R(x_t, cond[, sc]) → the v-MSE weighted by observed_weight on
+    observed bins and hole_weight in the hole, Σ w·(v̂ − v)² / Σ w →
+    `opt`'s update of R (schedules.Adam, or any torch optimizer) → the
+    EMA R_ema ← decay·R_ema + (1 − decay)·R, which the caller starts as
+    a copy of R. self_cond: R takes one more input channel, its own
+    previous x̂0; with sc_first_pass R runs once without gradient on a
+    zero channel and its x̂0 fills it, else the channel stays zero.
+
+    Randomness: whatever is not given is drawn from `generator`, in
+    this order: the gap masks tmask (B, image_frames), t ~ U(0, 1) (B,),
+    ε ~ N(0, 1) shaped as x0, keep = U(0, 1) ≥ cond_drop (B,) under
+    cond_drop > 0, and under self_cond the coin sc_first_pass = U(0, 1)
+    < ½ (read on the host: a card generator makes the step wait).
+    """
+    return _refiner_train_step(G, V, R, R_ema, opt, cfg, False, hole_weight,
+                               observed_weight, cond_drop, ema_decay,
+                               self_cond)
+
+
+def make_complex_refiner_train_step(G, V, R, R_ema,
+                                    opt: torch.optim.Optimizer,
+                                    cfg: TrainConfig,
+                                    hole_weight: float = 3.0,
+                                    observed_weight: float = 1.0,
+                                    cond_drop: float = 0.0,
+                                    ema_decay: float = 0.999,
+                                    self_cond: bool = False):
+    """make_refiner_train_step for the complex-domain R: x0 is the
+    2-channel compressed complex image (complex_image) and the
+    conditioning complex_refiner_cond. The weight w has the mask's one
+    channel and multiplies both channels of (v̂ − v)², so the loss is
+    Σ over both channels of w·(v̂ − v)² over Σ w of one channel, as the
+    JAX package computes it."""
+    return _refiner_train_step(G, V, R, R_ema, opt, cfg, True, hole_weight,
+                               observed_weight, cond_drop, ema_decay,
+                               self_cond)
+
+
+def _refiner_train_step(G, V, R, R_ema, opt, cfg, complex_domain,
+                        hole_weight, observed_weight, cond_drop, ema_decay,
+                        self_cond):
+    if cfg.use_video and V is None:
+        raise ValueError("cfg.use_video requires V (a VideoFeatureNet)")
+    params = list(R.parameters())
+    ema = list(R_ema.parameters())
+    if [p.shape for p in ema] != [p.shape for p in params]:
+        raise ValueError("R_ema must have R's architecture")
+    n_ch = 2 if complex_domain else 1
+
+    def train_step(wav: torch.Tensor, generator: torch.Generator | None = None,
+                   frames: torch.Tensor | None = None, *,
+                   tmask: torch.Tensor | None = None,
+                   t: torch.Tensor | None = None,
+                   eps: torch.Tensor | None = None,
+                   keep: torch.Tensor | None = None,
+                   sc_first_pass: bool | None = None
+                   ) -> dict[str, torch.Tensor]:
+        B, dev = wav.shape[0], wav.device
+        need = [tmask is None, t is None, eps is None,
+                keep is None and cond_drop > 0.0,
+                sc_first_pass is None and self_cond]
+        if any(need) and generator is None:
+            raise ValueError("train_step needs a generator for the draws "
+                             "it is not given")
+        if tmask is None:
+            tmask = sample_batch_masks(generator, B, cfg.image_frames,
+                                       cfg.mask)
+        gdev = generator.device if generator is not None else dev
+        if t is None:
+            t = torch.rand((B,), generator=generator, device=gdev)
+        if eps is None:
+            eps = torch.randn((B, n_ch, cfg.n_bins, cfg.image_frames),
+                              generator=generator, device=gdev)
+        if need[3]:
+            keep = torch.rand((B,), generator=generator, device=gdev) \
+                >= cond_drop
+        if need[4]:
+            sc_first_pass = bool(torch.rand((), generator=generator,
+                                            device=gdev) < 0.5)
+        t, eps = t.to(dev), eps.to(dev)
+
+        batch, (re, im) = preprocess_with_stft(wav, tmask.to(dev), cfg)
+        with torch.no_grad():
+            feats = V(frames) if cfg.use_video else None
+            g_img = G(g_input(batch), feats)[:, :1].float()
+            if cond_drop > 0.0:
+                g_img = g_img * keep.to(dev, g_img.dtype).reshape(B, 1, 1, 1)
+        m = batch["mask_img"].permute(0, 3, 1, 2)
+        if complex_domain:
+            x0 = _complex_image(re, im, cfg)
+            cond = complex_refiner_cond(batch, g_img, x0)
+        else:
+            x0 = batch["real_img"].permute(0, 3, 1, 2)
+            cond = refiner_cond(batch, g_img)
+        x_t, v_target = q_sample(x0, t, eps)
+        inputs = [x_t, cond]
+        if self_cond:
+            sc = torch.zeros_like(x_t)
+            if sc_first_pass:
+                with torch.no_grad():
+                    v0 = R(torch.cat([x_t, cond, sc], dim=1), t)
+                    sc = x0_eps_from_v(x_t, v0, t)[0]
+            inputs.append(sc)
+        v_hat = R(torch.cat(inputs, dim=1), t)
+        w = observed_weight * m + hole_weight * (1.0 - m)
+        loss = torch.sum(w * torch.square(v_hat - v_target)) / torch.sum(w)
+        loss.backward()
+        optimizer_step(opt, loss.detach())
+        opt.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
+        return {"loss_R": loss.detach()}
+
+    return train_step

@@ -58,12 +58,16 @@ def step_decay(lr: float, lr_decay_iters: int, steps_per_epoch: int,
 
 
 def cosine(lr: float, niter: int, niter_decay: int,
-           steps_per_epoch: int) -> Schedule:
-    """optax.cosine_decay_schedule(lr, total, alpha=0) over all epochs."""
+           steps_per_epoch: int, alpha: float = 0.0) -> Schedule:
+    """optax.cosine_decay_schedule(lr, total, alpha) over all epochs:
+    lr·((1−α)·½(1 + cos(π·min(s, T)/T)) + α), T the total updates; the
+    refiner trains with α 0.1 over --steps updates (niter = steps,
+    niter_decay = 0, one update an epoch)."""
     total = max((niter + niter_decay) * steps_per_epoch, 1)
 
     def sched(step):
-        return lr * 0.5 * (1.0 + math.cos(math.pi * min(step, total) / total))
+        decay = 0.5 * (1.0 + math.cos(math.pi * min(step, total) / total))
+        return lr * ((1.0 - alpha) * decay + alpha)
 
     return sched
 
