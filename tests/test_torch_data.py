@@ -3,14 +3,17 @@ against its numpy ones.
 
 A small corpus is written from a seed into a temporary directory: wav
 files (PCM16 at 16 kHz, one at 22.05 kHz, one stereo, one float32, one
-shorter than a clip), uint8 `.npy` frame stacks (one at another size,
-so the frames are resized), an uncompressed AVI and a musices manifest
-with train and test splits. Items and in-order batches must equal the
-JAX package's for the same (seed, idx), bit for bit: both read through
-the same C++ sources, each package through its own build. The native
-decoder and resampler equal the numpy ones bit for bit; the native
-frame reader matches numpy's within 1e-6 (float32 sums in another
-order).
+shorter than a clip), `.npy` frame stacks (C-ordered uint8, one at
+another size so the frames are resized; a float32 and a Fortran-ordered
+uint8 one at other sizes, which both packages read in numpy), an
+uncompressed AVI and a musices manifest with train and test splits.
+Items and in-order batches must equal the JAX package's for the same
+(seed, idx), bit for bit: both read native stacks through the same C++
+sources, each package through its own build, and the port's
+`resample_frames` repeats the JAX package's Pillow resize in numpy. The
+native decoder and resampler equal the numpy ones bit for bit; the
+native frame reader matches numpy's within 1e-6 (float32 sums in
+another order).
 """
 
 import json
@@ -30,7 +33,7 @@ from viai_tpu_torch.data import audio, av, avi
 from viai_tpu_torch.data.loader import EpochSampler, create_dataloader
 from viai_tpu_torch.data.prefetch import device_prefetch
 
-CLIP, N_FRAMES, SIZE, BATCH = 4032, 4, 16, 2
+CLIP, N_FRAMES, SIZE, BATCH, N_TRAIN = 4032, 4, 16, 2, 4
 FRAMES_TOL = 1e-6
 # name: (sample rate, channels, format, seconds, frames: npy (T, H, W) or
 # "avi" or None)
@@ -41,7 +44,19 @@ CLIPS = {
     "c_stereo": (16000, 2, "pcm16", 0.5, (10, 16, 16)),
     "d_float": (16000, 1, "float32", 0.5, (10, 16, 16)),
     "e_short": (16000, 1, "pcm16", 0.2, (6, 16, 16)),
+    "f_float_stack": (16000, 1, "pcm16", 0.5, (10, 20, 24)),
+    "g_fortran_stack": (16000, 1, "pcm16", 0.5, (9, 40, 12)),
 }
+# Stacks that neither package's native reader takes (C-ordered uint8
+# otherwise).
+STACK_LAYOUT = {"f_float_stack": "float32", "g_fortran_stack": "fortran"}
+
+
+def _stack(shape, layout, rng):
+    if layout == "float32":
+        return rng.random((*shape, 3), np.float32)
+    x = rng.integers(0, 256, (*shape, 3), np.uint8)
+    return np.asfortranarray(x) if layout == "fortran" else x
 
 
 def _tone(n, sr, ch, rng):
@@ -62,12 +77,12 @@ def corpus(tmp_path_factory):
                           rng.integers(0, 256, (8, 16, 16, 3), np.uint8), 16)
         else:
             np.save(root / f"{name}.npy",
-                    rng.integers(0, 256, (*frames, 3), np.uint8))
+                    _stack(frames, STACK_LAYOUT.get(name), rng))
     names = sorted(CLIPS)
     manifest = {split: [{"audio": f"{n}.wav", "frames": f"{n}.npy"}
                         for n in part]
-                for split, part in (("train", names[:4]),
-                                    ("test", names[4:]))}
+                for split, part in (("train", names[:N_TRAIN]),
+                                    ("test", names[N_TRAIN:]))}
     with open(root / "musices.json", "w") as f:
         json.dump(manifest, f)
     return root
@@ -124,6 +139,20 @@ def test_native_frames_match_numpy(corpus, name, window):
     np.testing.assert_allclose(out, ref, rtol=0, atol=FRAMES_TOL)
 
 
+@pytest.mark.parametrize("layout", ["uint8", "float32", "fortran"])
+@pytest.mark.parametrize("shape,size", [((7, 40, 12), 16),
+                                        ((5, 9, 30), 64)])
+def test_resample_frames_matches_jax(layout, shape, size):
+    """The numpy path for stacks that the native readers refuse, against
+    viai_tpu's `_resample_frames` (Pillow), shrinking and enlarging."""
+    rng = np.random.default_rng(size + len(layout))
+    arr = _stack(shape, layout, rng)
+    for window in (None, (0.25, 0.8)):
+        np.testing.assert_array_equal(
+            av.resample_frames(arr, N_FRAMES, size, window),
+            j_av._resample_frames(arr, N_FRAMES, size, window=window))
+
+
 def test_avi_matches_jax(tmp_path):
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (5, 12, 10, 3), np.uint8)
@@ -150,7 +179,7 @@ def _assert_items(ours, theirs, indices):
 def test_datasets_match_jax(corpus):
     root = str(corpus)
     n = len(CLIPS)
-    # Raw indices past one epoch: fresh crops, as EpochVariedSource reads.
+    # Raw indices past one epoch: fresh crops, as EpochSampler reads.
     idx = list(range(2 * n)) + [5 * n + 1]
     _assert_items(audio.AudioFolderDataset(root, **_kw()),
                   j_audio.AudioFolderDataset(root, **_kw()), idx)
@@ -161,7 +190,8 @@ def test_datasets_match_jax(corpus):
     for split in ("train", "test"):
         ours = av.MusicesManifest(manifest, split, **fkw)
         theirs = j_av.MusicesManifest(manifest, split, **fkw)
-        assert len(ours) == len(theirs) == (4 if split == "train" else 2)
+        assert len(ours) == len(theirs) == (
+            N_TRAIN if split == "train" else len(CLIPS) - N_TRAIN)
         _assert_items(ours, theirs, range(2 * len(ours)))
     with pytest.raises(KeyError, match="val"):
         av.MusicesManifest(manifest, "val")
@@ -175,12 +205,31 @@ def test_in_order_batches_match_jax(corpus, mode):
               shuffle=False, num_epochs=1, prefer_native=False, split="test")
     ours = list(create_dataloader(mode, root, **kw))
     theirs = list(j_create_dataloader(mode, root, **kw))
-    assert len(ours) == len(theirs) == (1 if mode == "musices" else 3)
+    n = len(CLIPS) - N_TRAIN if mode == "musices" else len(CLIPS)
+    assert len(ours) == len(theirs) == n // BATCH
     for a, b in zip(ours, theirs):
         assert sorted(a) == sorted(b)
         for k in a:
             assert a[k].dtype == torch.float32
             np.testing.assert_array_equal(a[k].numpy(), b[k])
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_epoch_sampler_offsets_each_epoch(shuffle):
+    """Epoch e holds the records e·n … e·n + n − 1 (mod 1024 epochs), in
+    order or permuted by (seed, e)."""
+    n, epochs = 5, EpochSampler.VIRTUAL_EPOCHS + 2
+    idx = np.array(list(EpochSampler(n, shuffle, 7, epochs)))
+    assert len(idx) == len(EpochSampler(n, shuffle, 7, epochs)) == n * epochs
+    for e in (0, 1, 2, epochs - 2, epochs - 1):
+        got = idx[e * n:(e + 1) * n]
+        base = (e % EpochSampler.VIRTUAL_EPOCHS) * n
+        assert sorted(got) == list(range(base, base + n))
+        if not shuffle:
+            assert list(got) == list(range(base, base + n))
+    assert shuffle == (list(idx[:n]) != list(range(n)))
+    with pytest.raises(TypeError):
+        len(EpochSampler(n, shuffle, 7, None))
 
 
 def test_shuffled_loader_in_workers(corpus):
@@ -193,7 +242,7 @@ def test_shuffled_loader_in_workers(corpus):
     assert loader.epoch_batches == n // 4
     src = av.AVFolderDataset(str(corpus), **_kw(n_frames=N_FRAMES,
                                                 frame_size=SIZE))
-    order = iter(EpochSampler(n * 1024, n, True, 3, None))
+    order = iter(EpochSampler(n, True, 3, None))
     batches = iter(loader)
     for _ in range(3):           # into the second epoch
         batch = next(batches)

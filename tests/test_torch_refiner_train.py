@@ -30,12 +30,9 @@ at lr 0.05). One step only: a second one, taken from weights that
 already differ by rounding, differs by 2.1e-4 of the largest update
 under SGD (measured), twice the bound.
 
-The av case draws its frames from their own seed, as
-tests/test_torch_train_step.py does. Frames drawn from the waveform
-noise's generator gave an input on which the JAX step disagrees with
-itself, jit against eager (`jax.disable_jit`), by 1.4e-3 of the largest
-update, as far as the port is from either; JAX's two runs agree to
-8e-6 on the frames used here.
+The av case runs at two frame inputs, drawn from their own seed (as
+tests/test_torch_train_step.py draws them) and from the waveform
+noise's generator after the noise, both at the bound above.
 """
 
 import copy
@@ -80,20 +77,22 @@ UPD_ATOL, UPD_RTOL = 1e-4, 1e-3
 EMA_DECAY, EMA_RTOL = 0.999, 1e-6
 
 # name: (domain, make_*_train_step keywords, the coin's side or None,
-# av, Adam)
+# the frames' generator under av (None: no video), Adam)
 CASES = {
     "mag_drop_sc_first_pass": ("mag", dict(cond_drop=0.5, self_cond=True),
-                               True, False, False),
+                               True, None, False),
     "mag_drop_sc_zeros": ("mag", dict(cond_drop=0.5, self_cond=True), False,
-                          False, False),
-    "mag_av_hole_only": ("mag", dict(observed_weight=0.0), None, True,
-                         False),
+                          None, False),
+    "mag_av_hole_only": ("mag", dict(observed_weight=0.0), None,
+                         "own_seed", False),
+    "mag_av_hole_only_noise_generator": ("mag", dict(observed_weight=0.0),
+                                         None, "noise_generator", False),
     "complex_drop_sc_first_pass": ("complex",
                                    dict(cond_drop=0.5, self_cond=True),
-                                   True, False, False),
+                                   True, None, False),
     "complex_drop_sc_zeros": ("complex", dict(cond_drop=0.5, self_cond=True),
-                              False, False, False),
-    "mag_adam_cosine": ("mag", {}, None, False, True),
+                              False, None, False),
+    "mag_adam_cosine": ("mag", {}, None, None, True),
 }
 
 
@@ -163,7 +162,8 @@ _JAX_STEPS = {}
 
 def _jax_step(name, g_def, v_def, r_def, cfg):
     """The compiled JAX step of a case; the coin cases share one."""
-    domain, kw, _, av, use_adam = CASES[name]
+    domain, kw, _, frames_from, use_adam = CASES[name]
+    av = frames_from is not None
     cache = (domain, tuple(sorted(kw.items())), av, use_adam)
     if cache not in _JAX_STEPS:
         tx = (optax.adam(optax.cosine_decay_schedule(LR, ADAM_STEPS,
@@ -204,7 +204,8 @@ def _assert_updates(new, old, ref_new):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_refiner_train_step_matches_jax(name):
-    domain, kw, coin, av, use_adam = CASES[name]
+    domain, kw, coin, frames_from, use_adam = CASES[name]
+    av = frames_from is not None
     cd, sc = kw.get("cond_drop", 0.0), kw.get("self_cond", False)
     pcfg = port_cfg(use_video=av)
     jcfg = jax_cfg(pcfg)
@@ -231,10 +232,15 @@ def test_refiner_train_step_matches_jax(name):
             else pd.make_refiner_train_step)
     p_step = make(PG, PV, PR, PR_ema, opt, pcfg, **kw)
 
-    wav = (tone_batch(B, CLIP, seed=4) + 0.01 * np.random.default_rng(
-        4).standard_normal((B, CLIP))).astype(np.float32)
-    frames = (np.random.default_rng(5).uniform(0, 1, (B, 8, 16, 16, 3))
-              .astype(np.float32) if av else None)
+    rng = np.random.default_rng(4)
+    wav = (tone_batch(B, CLIP, seed=4) + 0.01 * rng.standard_normal(
+        (B, CLIP))).astype(np.float32)
+    if av:
+        frames = (np.random.default_rng(5) if frames_from == "own_seed"
+                  else rng).uniform(0, 1, (B, 8, 16, 16, 3)).astype(
+                      np.float32)
+    else:
+        frames = None
     j_extra = (jnp.asarray(frames),) if av else ()
     key = _key(coin, cd)
     if coin is not None:

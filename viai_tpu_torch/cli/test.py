@@ -25,7 +25,6 @@ different masks of the same distribution.
 
 from __future__ import annotations
 
-import json
 import os
 import time
 
@@ -34,6 +33,7 @@ import torch
 
 from ..config.options import TestOptions
 from ..data import create_dataloader
+from ..io.results import append_record
 from ..model import create_model
 from ..signal.mel import compress
 from ..signal.stft import stft_magnitude
@@ -193,17 +193,6 @@ def main(args=None) -> dict:
                                       for x in head["hole_psnr"]]
         append_record(rec, opt.results_dir)
     return summary
-
-
-def append_record(rec: dict, results_dir: str):
-    """Append one JSON record to the file VIAI_RESULTS_JSONL names, else
-    to {results_dir}/quality_results.jsonl (never to the JAX package's
-    scripts/quality_results.jsonl)."""
-    out = os.environ.get("VIAI_RESULTS_JSONL") or os.path.join(
-        results_dir, "quality_results.jsonl")
-    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    with open(out, "a") as f:
-        f.write(json.dumps(rec) + "\n")
 
 
 if __name__ == "__main__":

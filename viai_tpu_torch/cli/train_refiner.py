@@ -42,13 +42,13 @@ import torch
 from ..config.options import TestOptions
 from ..data.synthetic import SyntheticBatchIterator, SyntheticConfig
 from ..io import load_train_state, save_networks, save_train_state
+from ..io.results import append_record
 from ..model import VIAIModel
 from ..nn import define_R
 from ..train.diffusion import (complex_refiner_channels,
                                make_complex_refiner_train_step,
                                make_refiner_train_step, sample_generator)
 from ..train.schedules import adam, cosine
-from .test import append_record
 
 
 def parse_args(args=None) -> tuple[argparse.Namespace, list[str]]:

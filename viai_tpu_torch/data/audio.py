@@ -161,8 +161,8 @@ class AudioFolderDataset:
     """Random-access dataset: idx → {'wav': (clip_samples,) float32}.
 
     The crop position is a function of (seed, idx) for the raw index
-    (not idx % len), so a source wrapped in loader.EpochVariedSource
-    gets fresh crops every epoch and stays replayable.
+    (not idx % len), so loader.EpochSampler's indices, offset by one
+    epoch's records each epoch, read fresh crops and stay replayable.
     """
 
     def __init__(self, root: str, clip_samples: int = 32000,

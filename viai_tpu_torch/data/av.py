@@ -2,10 +2,14 @@
 
 The port's copy of `viai_tpu/data/av.py`. The frames of a clip
 `<stem>.wav` are read from:
-  * `<stem>.npy`, a (T, H, W, 3) stack: uint8 through the native reader
-    (native.py: window select, Pillow-style triangle resize, [0, 1]
-    float32), any other dtype in numpy (`frames_numpy`, the same
-    arithmetic; values taken as [0, 1]);
+  * `<stem>.npy`, a (T, H, W, 3) stack: a C-ordered uint8 one through
+    the native reader (native.py: window select, Pillow-style triangle
+    resize in float, [0, 1] float32; `frames_numpy` is its plain numpy
+    twin), any other (another dtype, Fortran order) through
+    `resample_frames`, the JAX package's fallback for what its native
+    reader refuses: uint8 scaled to [0, 1], other dtypes taken as
+    [0, 1], and a resize through 8-bit frames with Pillow's bilinear
+    filter in its fixed-point arithmetic;
   * `<stem>.avi`, uncompressed ('RGBA' 32-bit or BI_RGB 24-bit
     bottom-up, as data/avi.py writes and reads), through the native
     reader.
@@ -77,6 +81,66 @@ def frames_numpy(arr: np.ndarray, n_frames: int, size: int,
     return x.astype(np.float32)
 
 
+_PILLOW_BITS = 22
+
+
+def _pillow_coeffs(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) int64 coefficients of Pillow's 8-bit BILINEAR
+    resample (libImaging/Resample.c), in its order of operations: the
+    triangle filter's weights in double, normalized by their running
+    sum, rounded to 22 fractional bits."""
+    scale = n_in / n_out
+    support = max(scale, 1.0)
+    ss = 1.0 / support
+    k = np.zeros((n_out, n_in), np.int64)
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        w = [max(1.0 - abs((x - center + 0.5) * ss), 0.0)
+             for x in range(lo, hi)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for j, v in enumerate(w):
+            v = v / ww if ww != 0.0 else v
+            k[i, lo + j] = int(v * (1 << _PILLOW_BITS) + 0.5)  # v ≥ 0
+    return k
+
+
+def _pillow_pass(x: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resample along `axis` of uint8 `x`:
+    Σ pixel·k from the rounding half, shifted, clipped to [0, 255]."""
+    acc = np.tensordot(x.astype(np.int64), k, axes=([axis], [1]))
+    acc = np.moveaxis(acc, -1, axis) + (1 << (_PILLOW_BITS - 1))
+    return np.clip(acc >> _PILLOW_BITS, 0, 255).astype(np.uint8)
+
+
+def resample_frames(arr: np.ndarray, n_frames: int, size: int,
+                    window=None) -> np.ndarray:
+    """A (T, H, W, 3) stack → (n_frames, size, size, 3) float32, as
+    `viai_tpu/data/av.py::_resample_frames` computes it: uint8 / 255,
+    the window's frames at round(linspace(w0·(T−1), w1·(T−1), n)), and,
+    when the size differs, each frame as (x·255) cut to uint8, resized
+    by Pillow's BILINEAR (horizontal pass, then vertical), / 255."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.float32) / 255.0
+    arr = arr.astype(np.float32)
+    w0, w1 = (0.0, 1.0) if window is None else window
+    hi = max(arr.shape[0] - 1, 0)
+    arr = arr[np.clip(np.linspace(w0 * hi, w1 * hi, n_frames).round()
+                      .astype(int), 0, hi)]
+    if arr.shape[1] == arr.shape[2] == size:
+        return arr
+    x = (arr * 255).astype(np.uint8)
+    if arr.shape[2] != size:
+        x = _pillow_pass(x, _pillow_coeffs(arr.shape[2], size), 2)
+    if arr.shape[1] != size:
+        x = _pillow_pass(x, _pillow_coeffs(arr.shape[1], size), 1)
+    return x.astype(np.float32) / 255.0
+
+
 def load_frames_for(stem: str, n_frames: int, size: int,
                     window: tuple[float, float] | None = None) -> np.ndarray:
     """The frames of `<stem>` in the layout found first: `.npy`, then a
@@ -86,7 +150,7 @@ def load_frames_for(stem: str, n_frames: int, size: int,
         arr = np.load(stem + ".npy", mmap_mode="r")
         if arr.dtype == np.uint8 and arr.flags.c_contiguous:
             return native.load_frames(stem + ".npy", n_frames, size, window)
-        return frames_numpy(arr, n_frames, size, window)
+        return resample_frames(arr, n_frames, size, window)
     if os.path.isdir(stem):
         raise NotImplementedError(
             f"{stem}/: a directory of image frames is not read by "

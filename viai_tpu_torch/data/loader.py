@@ -11,7 +11,9 @@ every other request a `torch.utils.data.DataLoader` over the dataset
 (`nThreads` worker processes, started by spawn, and pinned batches on
 a card's machine), where the JAX package uses grain. Item idx of a
 dataset is a function of (seed, idx) and equals the JAX package's;
-the order in which indices are drawn is the port's own.
+the order in which indices are drawn is the port's own, and each epoch
+reads fresh crops (the JAX package varies them in endless shuffled
+runs only).
 """
 
 from __future__ import annotations
@@ -55,33 +57,19 @@ class InOrderLoader:
             epoch += 1
 
 
-class EpochVariedSource:
-    """A source `virtual_epochs` times as long, whose raw index encodes
-    (epoch, record): the wrapped source picks the file by idx % n and
-    seeds the crop with (seed, idx), so every epoch crops afresh and
-    stays replayable."""
-
-    def __init__(self, src, virtual_epochs: int = 1024):
-        self.src = src
-        self.virtual_epochs = virtual_epochs
-
-    def __len__(self):
-        return len(self.src) * self.virtual_epochs
-
-    def __getitem__(self, idx):
-        return self.src[int(idx)]
-
-
 class EpochSampler(torch.utils.data.Sampler):
     """Indices of `num_epochs` epochs (None: endless) of `epoch_records`
-    each; epoch e is its records in order, or permuted by
+    each: epoch e is its records in order, or permuted by
     default_rng((seed, e)) under shuffle, offset by e·epoch_records
-    modulo `n_records` (an EpochVariedSource's length) so that each epoch
-    of a varied source reads other crops."""
+    modulo VIRTUAL_EPOCHS·epoch_records. A folder dataset picks the
+    file by idx % len and seeds the crop with (seed, idx), so each epoch
+    reads fresh crops, the JAX package's items for those raw indices."""
 
-    def __init__(self, n_records: int, epoch_records: int, shuffle: bool,
-                 seed: int, num_epochs: int | None):
-        self.n_records, self.epoch_records = n_records, epoch_records
+    VIRTUAL_EPOCHS = 1024    # the JAX package's EpochVariedSource length
+
+    def __init__(self, epoch_records: int, shuffle: bool, seed: int,
+                 num_epochs: int | None):
+        self.epoch_records = epoch_records
         self.shuffle, self.seed, self.num_epochs = shuffle, seed, num_epochs
 
     def __iter__(self):
@@ -90,7 +78,7 @@ class EpochSampler(torch.utils.data.Sampler):
             order = (np.random.default_rng((self.seed, e)).permutation(
                 self.epoch_records) if self.shuffle
                 else np.arange(self.epoch_records))
-            base = e * self.epoch_records % self.n_records
+            base = (e % self.VIRTUAL_EPOCHS) * self.epoch_records
             yield from (base + order).tolist()
             e += 1
 
@@ -101,30 +89,29 @@ class EpochSampler(torch.utils.data.Sampler):
 
 
 def collate(items: list[dict]) -> dict[str, torch.Tensor]:
-    """Items → a batch dict of float32 tensors."""
-    return {k: torch.from_numpy(np.stack([np.asarray(it[k], np.float32)
-                                          for it in items]))
-            for k in items[0]}
+    """Items → a batch dict of float32 tensors, stacked by
+    default_collate: inside a worker straight into shared memory, so the
+    worker's queue thread only passes handles (a worker whose queue
+    thread still copied a batch into shared memory when the loader shut
+    down aborted as it exited)."""
+    return torch.utils.data.default_collate(
+        [{k: np.asarray(v, np.float32) for k, v in it.items()}
+         for it in items])
 
 
 def torch_loader(source, batch_size: int, n_workers: int, seed: int,
-                 shuffle: bool = True, num_epochs: int | None = None,
-                 vary_epochs: bool = False) -> torch.utils.data.DataLoader:
-    """A DataLoader of whole batches over `source` (EpochSampler's
-    order), with `epoch_batches`, the batches in one pass over the
-    records (not over an EpochVariedSource's virtual epochs)."""
-    epoch_records = len(source)
-    if vary_epochs and shuffle and num_epochs is None:
-        source = EpochVariedSource(source)
-    sampler = EpochSampler(len(source), epoch_records, shuffle, seed,
-                           num_epochs)
+                 shuffle: bool = True, num_epochs: int | None = None
+                 ) -> torch.utils.data.DataLoader:
+    """A DataLoader of whole batches over `source` in EpochSampler's
+    order, with `epoch_batches`, the batches in one pass."""
+    sampler = EpochSampler(len(source), shuffle, seed, num_epochs)
     loader = torch.utils.data.DataLoader(
         source, batch_size=batch_size, sampler=sampler, drop_last=True,
         collate_fn=collate, num_workers=n_workers,
         pin_memory=torch.cuda.is_available(),
         multiprocessing_context=(multiprocessing.get_context("spawn")
                                  if n_workers > 0 else None))
-    loader.epoch_batches = max(epoch_records // batch_size, 1)
+    loader.epoch_batches = max(len(source) // batch_size, 1)
     return loader
 
 
@@ -203,4 +190,4 @@ def create_dataloader(
                               n_frames, frame_size, seed)
     native.library()     # built here, once, before any worker starts
     return torch_loader(src, batch_size, n_threads, seed, shuffle=shuffle,
-                        num_epochs=num_epochs, vary_epochs=True)
+                        num_epochs=num_epochs)
