@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      loader from csrc/, in parallel;
   3. the kernel against its plain PyTorch version at the serving
      shapes of both buckets, B = 8 and 32 clips of 2 s (F = 251 frames
-     × 256 bins, 32000 samples), which run different block tiles;
+     × 256 bins, 32000 samples), which run different block tiles, and
+     at the bench's batch, B = 128;
   4. the serving chain: InpaintService with the define_G() defaults
      (ngf 64, six levels) and GL×32, requests of 3, 8 and 21 clips and
      five streamed clips, with the kernel's launches counted; and the
@@ -92,7 +93,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      self-conditioning on its first-pass side), and again with TF32 on;
      [times train refiner]: steps/s, clips/s and TFLOP/s at batch 32,
      both domains, bf16 and float32, self-conditioning off and on, and
-     one step by kernel.
+     one step by kernel;
+ 13. the bench entry point: [bench] runs viai_tpu_torch.bench.main once
+     per preset at its defaults (bf16 G and R, GL×32, batch 128) but
+     --inner 8 for default (one CUDA graph of 8 chained calls) and
+     --inner 1 for the refiner presets, batch 32 for the complex ones,
+     launches counted; [bench reference] holds each preset's bf16 chain
+     on the card against its float32 chain on the CPU (same weights,
+     clips, masks and injected noise, GL×1; bucket 8, the complex
+     presets 2 clips); [profile bench] profiles one default call at
+     batch 128 (busy share, kernel rows, elementwise share);
+ 14. the mesh: [mesh] starts a 1-rank NCCL group from a file store;
+     make_mesh() is 1x1, a tiny SGD step through make_train_step(mesh=)
+     and a bucket-8 InpaintService(mesh=) request at full width equal
+     their runs without a mesh bit for bit (launches counted), and the
+     group is torn down.
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
 kernels with their launches (summed over every path that ran them,
@@ -136,7 +151,13 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 GL_BATCHES = (8, 32, 128)    # the service's default buckets
-KERNEL_BATCHES = (8, 32)     # the slice's buckets, one per block tile
+# The kernel against plain: the slice's buckets, one per block tile, and
+# the bench's batch, each at the GL depths checked to atol = rtol = 1e-3.
+# GL is chaotic: at B 128 the zero-init GL×4 case's tail over 128 clips
+# puts even the plain version on the card and on the CPU (two float32
+# orders) 3.4e-3 apart (PERF.md), so B 128 is checked to GL×2 and
+# its GL×4 distances are printed beside that spread.
+KERNEL_BATCHES = {8: (0, 1, 4), 32: (0, 1, 4), 128: (0, 1, 2)}
 # The README's best single-G recipe under --model av (VIAIModel builds
 # G with dropout 0.5 unless --no_dropout, fusion = --fusion_channels).
 AV_G = dict(fusion_channels=256, gated=True, bottleneck_dilation=(1, 2, 4),
@@ -150,6 +171,15 @@ FRAMES = (16, 64, 64, 3)     # a clip's frames at define_V()'s shapes
 # roundings of one function, amplified by the exponential decompress
 # (measured 7.3e-3 on an H100; bound 2e-2).
 BF16_BOUND = 2e-2
+# [bench reference]: each preset's bf16 chain against float32 on the CPU,
+# max|Δ| over the CPU output's peak. BF16_BOUND, but for the magnitude
+# refiner chain: there the first proposal, 2e-2, failed at 3.507e-2, and
+# the phase's split shows bf16 G alone (float32 R) reads 3.6e-2 and bf16
+# R alone 3.2e-2 (PERF.md): R refines G's bf16 image in the hole, where
+# the exponential decompress amplifies it. Bound 5e-2 there. The phase
+# prints the float32 chain on the card beside each (the floor).
+BENCH_REF_BOUNDS = {"default": BF16_BOUND, "refiner_mag": 5e-2,
+                    "refiner_complex": BF16_BOUND, "hybrid": BF16_BOUND}
 OPTIONS = (
     ("bottleneck_attn=2", dict(bottleneck_attn=2), {}, False, 1e-3),
     ("phase_head (init=)", dict(output_nc=3), dict(phase_head=True), False,
@@ -236,6 +266,14 @@ REFINER_TRAIN = ["--steps", str(REFINER_STEPS), "--milestone",
                  str(REFINER_MILESTONE), "--pool_batches", "8",
                  "--gpu_ids", "0"]
 REFINER_BATCH = 32            # the refiner CLI's default
+# [bench]: viai_tpu_torch.bench.main per preset, bf16 and GL×32 (its
+# defaults) but for these flags.
+BENCH_RUNS = (
+    ("default", ["--inner", "8"]),
+    ("refiner_mag", ["--inner", "1"]),
+    ("refiner_complex", ["--batch", "32", "--inner", "1"]),
+    ("hybrid", ["--batch", "32", "--inner", "1"]),
+)
 # [eval] on the Rs that [train refiner] wrote: (arm, run suffix, flags).
 EVAL_TRAINED_ARMS = (
     ("R", "", ["--refiner", "--refiner_net", "R"]),
@@ -400,12 +438,13 @@ def phase_build():
 
 def phase_kernel(dev) -> float:
     """Kernel vs plain at the serving shapes of the slice's buckets,
-    B = 8 and 32, which the kernel runs with different block tiles;
-    returns the max abs error over the n_iter ≤ 4 cases."""
+    B = 8 and 32, which the kernel runs with different block tiles, and
+    of the bench's batch, B = 128 (KERNEL_BATCHES gives the depths);
+    returns the max abs error over those cases."""
     worst = 0.0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = set()
-    for batch in KERNEL_BATCHES:
+    for batch, depths in KERNEL_BATCHES.items():
         cfg, x, mag, obs = gl_inputs(batch, dev)
         n = x.shape[-1]
         tile = gl_cuda.pick_tile(batch * mag.shape[1],
@@ -417,7 +456,7 @@ def phase_kernel(dev) -> float:
                   {"observed": obs, "phase_init": "extrapolate"}),
                  ("observed+init",
                   {"observed": obs, "init": unit_phasors(mag, batch)})]
-        for n_iter in (0, 1, 4):
+        for n_iter in depths:
             for name, kw in cases:
                 out = griffin_lim_cuda(mag, cfg, n_iter=n_iter, length=n, **kw)
                 ref = griffin_lim(mag, cfg, n_iter=n_iter, length=n, **kw)
@@ -429,6 +468,16 @@ def phase_kernel(dev) -> float:
                 require(ok, f"kernel disagrees with plain at B={batch} "
                         f"n_iter={n_iter} {name}")
                 worst = max(worst, err)
+        if 4 not in depths:
+            for name, kw in cases[:2]:
+                out = griffin_lim_cuda(mag, cfg, n_iter=4, length=n, **kw)
+                ref = griffin_lim(mag, cfg, n_iter=4, length=n, **kw)
+                cpu = griffin_lim(mag.cpu(), cfg, n_iter=4, length=n, **{
+                    k: tuple(t.cpu() for t in v) for k, v in kw.items()})
+                log(f"[kernel] {tag} GL×4 {name} (not bounded): max|Δ| "
+                    f"kernel vs plain {float((out - ref).abs().max()):.3e}; "
+                    f"plain on the card vs on the CPU "
+                    f"{float((ref.cpu() - cpu).abs().max()):.3e}")
         kw = {"observed": obs, "phase_init": "extrapolate"}
         out = griffin_lim_cuda(mag, cfg, n_iter=32, length=n, **kw)
         ref = griffin_lim(mag, cfg, n_iter=32, length=n, **kw)
@@ -1758,6 +1807,240 @@ def phase_times_train_refiner(dev, card: str) -> dict:
         del G
     return res
 
+# ---------------------------------------------------------------------------
+# The bench entry point and the mesh
+# ---------------------------------------------------------------------------
+
+def phase_bench(dev) -> int:
+    """`viai_tpu_torch.bench.main` once per preset (BENCH_RUNS), each
+    JSON line checked; returns the GL kernel's launches over the runs
+    (the default preset's CUDA graph counts its launches at each
+    replay)."""
+    from viai_tpu_torch import bench
+
+    zero_counts()
+    lines = []
+    for preset, flags in BENCH_RUNS:
+        t0 = time.perf_counter()
+        res = bench.main(["--preset", preset, *flags])
+        wall = time.perf_counter() - t0
+        for k in ("value", "preset", "batch", "dtype", "gl_iters",
+                  "refine_chunk", "inner", "graph", "card", "power_limit_w",
+                  "samples_clips_per_sec", "plateau_spread_pct"):
+            require(k in res, f"[bench] {preset}: no {k!r} in the JSON line")
+        require(np.isfinite(res["value"]) and res["value"] > 0,
+                f"[bench] {preset}: bad value {res['value']}")
+        require(res["preset"] == preset and res["dtype"] == "bfloat16",
+                f"[bench] {preset}: wrong preset or dtype")
+        require(res["graph"] == (preset in bench.GRAPH_PRESETS
+                                 and res["inner"] > 1),
+                f"[bench] {preset}: graph {res['graph']}")
+        log(f"[bench] {preset} batch {res['batch']} inner {res['inner']} "
+            f"graph {res['graph']}: {res['value']:.2f} clips/s/card "
+            f"(plateau {res['n_plateau']}/{res['n_samples']} samples, "
+            f"spread {res['plateau_spread_pct']:.2f}%; {wall:.1f} s wall "
+            f"incl. set-up) ({res['card']}, {res['power_limit_w']} W)")
+        lines.append(res)
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "bench.jsonl", "w") as f:
+        for res in lines:
+            f.write(json.dumps(res) + "\n")
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    log(f"[bench] griffin_lim_cuda launches {launches}, plain griffin_lim "
+        f"calls {plain}")
+    require(launches > 0, "[bench] never launched the GL kernel")
+    require(plain == 0, "[bench] ran the plain griffin_lim")
+    return launches
+
+
+def phase_bench_reference(dev):
+    """Each preset's bf16 chain on the card against its float32 chain on
+    the CPU: the same weights (R with its zero-init layers drawn), clips,
+    gap masks (one CPU generator) and injected refiner noise, GL×1,
+    bounded by BENCH_REF_BOUNDS. The complex presets (16 steps × 8
+    samples of full-width R on the CPU) at 2 clips, the others at bucket
+    8. The card also runs the float32 chain and, for the refiner
+    presets, bf16 G with float32 R and float32 G with bf16 R, printed
+    beside (not bounded)."""
+    from viai_tpu_torch import bench
+    from viai_tpu_torch.train.diffusion import RefineNoise
+
+    cfg = TrainConfig()
+    for preset in bench.PRESETS:
+        n = 8 if preset in ("default", "refiner_mag") else 2
+        args = bench.parse_args(["--preset", preset, "--gl_iters", "1",
+                                 "--device", "cpu"])
+        g32 = define_G(device="cpu")
+        r32 = noise = None
+        if preset != "default":
+            r_in, r_out = ((4, 1) if preset == "refiner_mag"
+                           else complex_refiner_channels(2))
+            r32 = perturbed_R(r_in, r_out)
+            k = 1 if preset == "refiner_mag" else 8
+            g = torch.Generator().manual_seed(11)
+            noise = [RefineNoise(torch.randn((n, r_out, 256, 256),
+                                             generator=g))
+                     for _ in range(k)]
+        wav = tones(n, seed=21, device="cpu")
+
+        def run(g_dtype, r_dtype, where):
+            G = define_G(dtype=g_dtype, device=where)
+            G.load_state_dict(g32.state_dict())
+            R = None
+            if r32 is not None:
+                R = define_R(r_in, 64, dtype=r_dtype, out_channels=r_out,
+                             device=where)
+                R.load_state_dict(r32.state_dict())
+            return bench.build_infer(preset, G, R, cfg, args)(
+                wav.to(where), torch.Generator().manual_seed(0),
+                noise=noise).cpu()
+
+        ref = run("float32", "float32", "cpu")
+        arms = [("bf16", "bfloat16", "bfloat16"),
+                ("float32", "float32", "float32")]
+        if r32 is not None:
+            arms += [("bf16 G, float32 R", "bfloat16", "float32"),
+                     ("float32 G, bf16 R", "float32", "bfloat16")]
+        bound = BENCH_REF_BOUNDS[preset]
+        for name, g_dtype, r_dtype in arms:
+            out = run(g_dtype, r_dtype, dev)
+            require(bool(torch.isfinite(out).all()), f"[bench reference] "
+                    f"{preset}: non-finite output")
+            err = float((out - ref).abs().max()) / float(ref.abs().max())
+            if name == "bf16":
+                log(f"[bench reference] {preset}: bf16 chain on the card vs "
+                    f"float32 on the CPU, {n} clips GL×1: max|Δ|/max|ref| "
+                    f"{err:.3e} (bound {bound:g})")
+                require(err < bound, f"[bench reference] {preset}: the "
+                        "bf16 chain disagrees with the CPU")
+            else:
+                log(f"[bench reference] {preset}:   {name} on the card: "
+                    f"{err:.3e} (not bounded)")
+
+
+def phase_profile_bench(dev, card: str):
+    """One default-preset chain call at batch 128 in bf16 under
+    utils/profiling.trace: the device's busy share of the call's wall
+    time, the largest kernel rows, and the elementwise share (PyTorch's
+    `elementwise_kernel` rows) of the device time."""
+    from viai_tpu_torch import bench
+    from viai_tpu_torch.utils.profiling import trace
+
+    args = bench.parse_args(["--batch", "128"])
+    G, _ = bench.build_nets("default", args.dtype, dev)
+    infer = bench.build_infer("default", G, None, TrainConfig(), args)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wav = tones(128, seed=31, device=dev)
+    infer(wav, gen)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir, trace(logdir) as prof:
+        t0 = time.perf_counter()
+        infer(wav, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    tag = f"({torch.cuda.get_device_name(0)}, {card.split(',')[-1].strip()})"
+    if not rows:
+        log("[profile bench] no device time in the trace: not measured")
+        return
+    total = sum(e.self_device_time_total for e in rows)
+    elem = sum(e.self_device_time_total for e in rows
+               if "elementwise_kernel" in e.key)
+    log(f"[profile bench] default, batch 128, bf16: device busy "
+        f"{total / 1e3:.2f} ms of {wall_ms:.2f} ms wall "
+        f"({total / 1e3 / wall_ms:.1%}; profiler on); elementwise kernels "
+        f"{elem / 1e3:.2f} ms ({elem / total:.1%} of the device time) {tag}")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:12]:
+        log(f"[profile bench]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.self_device_time_total / total:6.1%} x{e.count:<4d} "
+            f"{e.key[:90]}")
+
+
+def phase_mesh(dev) -> int:
+    """A 1-rank NCCL group from a file store: make_mesh() is 1x1; one
+    tiny SGD GAN step through make_train_step(mesh=...) equals the step
+    without a mesh, and InpaintService(mesh=...) at bucket 8 (full
+    width, GL×32) the service without one, bit for bit; shard_params at
+    n_model 1 is replicate. Returns the GL launches of the mesh
+    service's request."""
+    import torch.distributed as dist
+
+    from viai_tpu_torch.testing import TINY_CFG, tiny_models, tone_batch
+    from viai_tpu_torch.train import init_state, make_train_step
+    from viai_tpu_torch.train.mesh import (global_batch_from_local,
+                                           make_mesh,
+                                           maybe_initialize_distributed,
+                                           shard_params)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        require(maybe_initialize_distributed(f"file://{tmp}/store", 1, 0,
+                                             device="cuda"),
+                "[mesh] no process group")
+        try:
+            mesh = make_mesh()
+            require(mesh.shape == {"data": 1, "model": 1}
+                    and mesh.distributed and mesh.device.type == "cuda",
+                    f"[mesh] make_mesh() gave {mesh.shape} on {mesh.device}")
+            # G's transposed convolutions run cuDNN's backward-data
+            # algorithms, whose default ones sum with atomics.
+            torch.backends.cudnn.deterministic = True
+            wav = torch.from_numpy(tone_batch(4, seed=3))
+            runs = []
+            for m in (None, mesh):
+                G, D, _ = tiny_models(seed=0, device=dev)
+                g_opt = torch.optim.SGD(G.parameters(), lr=0.1)
+                d_opt = torch.optim.SGD(D.parameters(), lr=0.05)
+                if m is not None:
+                    placed = shard_params({"G": G, "D": D, "g": g_opt,
+                                           "d": d_opt}, m)
+                    require(placed["g"] is g_opt and placed["d"] is d_opt,
+                            "[mesh] shard_params at n_model 1 wrapped an "
+                            "optimizer")
+                    x = global_batch_from_local(wav, m)
+                else:
+                    x = wav.to(dev)
+                step = make_train_step(G, D, None, g_opt, d_opt, TINY_CFG,
+                                       mesh=m)
+                met = step(init_state(D, TINY_CFG), x,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+                runs.append(([p.detach().clone() for p in
+                              [*G.parameters(), *D.parameters()]],
+                             {k: float(v) for k, v in met.items()}))
+            same = all(torch.equal(a, b) for a, b in zip(runs[0][0],
+                                                          runs[1][0]))
+            log(f"[mesh] 1-rank NCCL group, mesh {mesh.shape}: tiny SGD "
+                f"step with the mesh == without: {same} (losses "
+                f"{runs[1][1]['loss_G']:.6f} / {runs[0][1]['loss_G']:.6f})")
+            require(same and runs[0][1] == runs[1][1],
+                    "[mesh] the step under the mesh differs")
+            G0 = define_G(device="cpu")
+            wavs = tones(8, seed=41, device="cpu").numpy()
+            outs = {}
+            for m in (None, mesh):
+                svc = InpaintService(card_copy(G0, dev), TrainConfig(),
+                                     buckets=(8,), gl_iters=32, device=dev,
+                                     mesh=m)
+                zero_counts()
+                t0 = time.perf_counter()
+                outs[m is not None] = svc.inpaint(
+                    wavs, gap_start_s=GAP_S[0], gap_end_s=GAP_S[1])
+                if m is not None:
+                    launches = read_launches("mesh", svc,
+                                             time.perf_counter() - t0)
+            same = np.array_equal(outs[True], outs[False])
+            log(f"[mesh] InpaintService(mesh=...) bucket 8, GL×32 == "
+                f"without: {same} (max|Δ| "
+                f"{np.abs(outs[True] - outs[False]).max():.3e})")
+            require(same, "[mesh] the service under the mesh differs")
+        finally:
+            torch.backends.cudnn.deterministic = False
+            dist.destroy_process_group()
+    require(not dist.is_initialized(), "[mesh] the group was not torn down")
+    return launches
+
 
 def main():
     card = phase_device()
@@ -1786,6 +2069,10 @@ def main():
     phase_times_train_refiner(dev, card)
     phase_profile(svc, card)
     phase_profile(av, card, "profile av")
+    launches_bench = phase_bench(dev)
+    phase_bench_reference(dev)
+    phase_profile_bench(dev, card)
+    launches_mesh = phase_mesh(dev)
     t = times[32]
     launches_train = sum(r["launches"] for r in trains.values())
     launches_served = sum(r["served"] for r in trains.values())
@@ -1795,14 +2082,16 @@ def main():
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
         "launches": (launches_slice + launches_av + launches_options
                      + launches_train + launches_served + launches_refiner
-                     + launches_eval + launches_data + launches_trained),
+                     + launches_eval + launches_data + launches_trained
+                     + launches_bench + launches_mesh),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
                              "options": launches_options,
                              "train": launches_train,
                              "train_served": launches_served,
                              "refiner": launches_refiner,
                              "eval": launches_eval, "data": launches_data,
-                             "refiner_trained": launches_trained},
+                             "refiner_trained": launches_trained,
+                             "bench": launches_bench, "mesh": launches_mesh},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "kernel_only_ms": t["kernel_only_ms"],

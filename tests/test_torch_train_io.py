@@ -200,9 +200,11 @@ def test_loader_and_options_refuse_what_is_not_ported(tmp_path):
     for mode in ("audio", "av", "musices"):
         with pytest.raises(FileNotFoundError):
             create_dataloader(mode, "/nonexistent")
+    # The multi-device flags parse; a 2-rank mesh needs a process group.
     for flag in ("--n_data_devices", "--n_model_devices"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            TrainOptions().parse(TINY + [flag, "2"], save=False)
+        opt = TrainOptions().parse(TINY + [flag, "2"], save=False)
+        with pytest.raises(ValueError, match="process group"):
+            VIAIModel(opt, expr_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Visualizer(str(tmp_path), tensorboard=True)
     opt = TrainOptions().parse(TINY, save=False)

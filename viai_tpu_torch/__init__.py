@@ -9,7 +9,9 @@ the lr schedules and Adam, the train step, VIAIModel and the train CLI
 (`python -m viai_tpu_torch.cli.train`) on the synthetic corpus; and
 evaluation (`python -m viai_tpu_torch.cli.test`: the metrics, deep
 ensembles, and the diffusion refiner R in the magnitude domain and in
-the GL-free complex domain).
+the GL-free complex domain); R's training and folder data; the
+throughput bench (`python -m viai_tpu_torch.bench`); and multi-GPU
+training and serving on torch.distributed (`train/mesh.py`).
 """
 
 from .io import (generator_state_from_flat, load_generator_pth,

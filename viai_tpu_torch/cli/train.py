@@ -9,7 +9,15 @@ report per epoch.
     python -m viai_tpu_torch.cli.train --name exp --model audio \\
         --dataset_mode synthetic --niter 2 --niter_decay 0 --batchSize 16
 
---gpu_ids -1 trains on the CPU; otherwise the card.
+--gpu_ids -1 trains on the CPU; otherwise the card. On several cards,
+one process each (NCCL; gloo on the CPU), every rank reading the same
+global batches:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m viai_tpu_torch.cli.train --name exp --batchSize 64 ...
+
+The mesh is --n_data_devices x --n_model_devices ranks (0 data devices
+= the world's size); rank 0 prints, writes the visuals and saves.
 """
 
 from __future__ import annotations
@@ -17,16 +25,21 @@ from __future__ import annotations
 import os
 import time
 
-from ..config.options import TrainOptions
+import torch.distributed as dist
+
+from ..config.options import TrainOptions, device_from_opt
 from ..data import create_dataloader
 from ..data.prefetch import device_prefetch
 from ..model import create_model
+from ..train.mesh import maybe_initialize_distributed
 from ..utils.visualizer import Visualizer
 
 
 def main(args=None):
     opt = TrainOptions().parse(args)
     expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    maybe_initialize_distributed(device=device_from_opt(opt).type)
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
 
     clip_samples = int(opt.sample_rate * opt.clip_seconds)
     loader = create_dataloader(
@@ -44,8 +57,10 @@ def main(args=None):
         model = create_model(opt)
         if opt.continue_train:
             model.load_networks(opt.which_epoch)
-        visualizer = Visualizer(expr_dir, opt.name,
-                                tensorboard=getattr(opt, "tensorboard", False))
+        visualizer = (Visualizer(expr_dir, opt.name,
+                                 tensorboard=getattr(opt, "tensorboard",
+                                                     False))
+                      if main_rank else None)
 
         total_steps = 0
 
@@ -67,9 +82,12 @@ def main(args=None):
                 model.optimize_parameters()
                 total_steps += 1
                 if not opt.no_html and total_steps % opt.display_freq == 0:
-                    visualizer.display_current_results(
-                        model.get_current_visuals(), epoch)
-                if total_steps % opt.print_freq == 0:
+                    # Every rank runs the chain (a synced batch norm
+                    # takes part in a collective); rank 0 writes.
+                    visuals = model.get_current_visuals()
+                    if main_rank:
+                        visualizer.display_current_results(visuals, epoch)
+                if main_rank and total_steps % opt.print_freq == 0:
                     visualizer.print_current_losses(
                         epoch, i, model.get_current_losses(),
                         time.time() - step_start)

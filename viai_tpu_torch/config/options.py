@@ -169,11 +169,13 @@ class BaseOptions:
                        help="rematerialize G forward in backward "
                             "(less activation memory, ~30%% more FLOPs)")
         p.add_argument("--n_data_devices", type=int, default=0,
-                       help="data-parallel size; the port runs on one "
-                            "device (0 or 1)")
+                       help="data-parallel size over the process group's "
+                            "ranks, one process a card (python -m "
+                            "torch.distributed.run); 0 = the world's size "
+                            "over --n_model_devices")
         p.add_argument("--n_model_devices", type=int, default=1,
-                       help="devices to shard G/D/V over; the port "
-                            "runs on one device (1)")
+                       help="ranks to shard the optimizers of G/D/V over "
+                            "(ZeRO-style; train/mesh.py::shard_params)")
         self.initialized = True
 
     def parse(self, args=None, save=True):
@@ -181,11 +183,6 @@ class BaseOptions:
             self.initialize()
         opt = self.parser.parse_args(args)
         opt.isTrain = self.isTrain
-        if opt.n_data_devices > 1 or opt.n_model_devices > 1:
-            raise NotImplementedError(
-                "--n_data_devices and --n_model_devices > 1 are not ported "
-                "yet (ROADMAP queue 1, multi-GPU); the port runs on one "
-                "device")
         expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
         if save:
             os.makedirs(expr_dir, exist_ok=True)

@@ -11,12 +11,20 @@ domain. The step and the chains are train/; this class owns the
 modules, the optimizers, the train state, one torch.Generator for the
 step's draws and the checkpoint naming. It runs on the device of
 --gpu_ids (the card unless -1).
+
+Multi-process (train/mesh.py): the mesh is (--n_data_devices,
+--n_model_devices) over the process group's ranks (0 data devices = the
+world's size over the model axis). Every rank is given the global batch
+(set_input keeps its rows) and takes the single-device step of the
+global batch; the nets are replicated from rank 0 and, over a model
+axis, the optimizers sharded. Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config.options import device_from_opt
 from .io import (load_networks, load_train_state, save_networks,
@@ -30,6 +38,8 @@ from .train import (TrainConfig, adam, init_state, make_infer_fn,
                     plateau_scale, preprocess_with_mask)
 from .train.diffusion import (complex_refiner_channels,
                               make_complex_refiner_infer_fn)
+from .train.mesh import (all_gather_rows, batch_sharding, global_rows,
+                         local_rows, make_mesh, shard_params)
 
 
 def train_config_from_opt(opt) -> TrainConfig:
@@ -81,7 +91,11 @@ class VIAIModel:
         self.isTrain = getattr(opt, "isTrain", True)
         self.cfg = train_config_from_opt(opt)
         self.expr_dir = expr_dir or f"{opt.checkpoints_dir}/{opt.name}"
-        self.device = device_from_opt(opt)
+        self.mesh = make_mesh(getattr(opt, "n_data_devices", 0) or None,
+                              devices=device_from_opt(opt),
+                              n_model=max(getattr(opt, "n_model_devices", 1),
+                                          1))
+        self.device = self.mesh.device
 
         use_video = opt.model == "av"
         fusion = opt.fusion_channels if use_video else 0
@@ -138,10 +152,15 @@ class VIAIModel:
                           make_schedule(policy, lr, **sched_kw),
                           beta1=beta1, plateau=plateau_kw)
         self.state = init_state(self.D, self.cfg)
+        # Replicated from rank 0; over a model axis the optimizers are
+        # sharded (the same placement the JAX package reapplies on load).
+        placed = shard_params({**self._nets(), "g_opt": self.g_opt,
+                               "d_opt": self.d_opt}, self.mesh)
+        self.g_opt, self.d_opt = placed["g_opt"], placed["d_opt"]
         if self.isTrain:
             self.train_step = make_train_step(self.G, self.D, self.V,
                                               self.g_opt, self.d_opt,
-                                              self.cfg)
+                                              self.cfg, mesh=self.mesh)
         # Seed ensemble (--ensemble_names): the extra runs' Gs, of G's
         # architecture; load_networks fills them from their run dirs and
         # the chain averages all K predictions.
@@ -228,23 +247,39 @@ class VIAIModel:
                 self.device, non_blocking=True)
         return t.to(self.device)
 
+    @property
+    def batch_sharding(self):
+        """The batch axis over the mesh's data axis (train/mesh.py)."""
+        return batch_sharding(self.mesh)
+
     def set_input(self, batch: dict):
-        """Host batch dict → tensors on the model's device."""
-        frames, fv = batch.get("frames"), batch.get("frames_valid")
-        self._input = {
-            "wav": self._to_device(batch["wav"]),
-            "frames": None if frames is None else self._to_device(frames),
-            "frames_valid": None if fv is None else self._to_device(fv),
-        }
+        """Global batch dict (host or device) → this rank's rows on the
+        model's device."""
+        n_data = self.mesh.shape["data"]
+        if len(batch["wav"]) % n_data:
+            raise ValueError(
+                f"batchSize {len(batch['wav'])} must be divisible by the "
+                f"data mesh axis ({n_data} devices); set --batchSize or "
+                f"--n_data_devices accordingly")
+        rows = self.batch_sharding.local
+
+        def put(x):
+            return None if x is None else rows(self._to_device(x))
+
+        self._input = {"wav": put(batch["wav"]),
+                       "frames": put(batch.get("frames")),
+                       "frames_valid": put(batch.get("frames_valid"))}
 
     def optimize_parameters(self):
         wav = self._input["wav"]
-        tmask = sample_batch_masks(self.generator, wav.shape[0],
+        # The global batch's masks, drawn on every rank alike.
+        tmask = sample_batch_masks(self.generator,
+                                   global_rows(wav.shape[0], self.mesh),
                                    self.cfg.image_frames, self.cfg.mask)
         self._losses = self.train_step(
             self.state, wav, self._input["frames"], self.generator,
             self._input["frames_valid"], tmask=tmask)
-        self._last_tmask = tmask
+        self._last_tmask = local_rows(tmask, self.mesh)
 
     def get_current_losses(self) -> dict[str, float]:
         return {k: float(v) for k, v in self._losses.items()}
@@ -260,6 +295,23 @@ class VIAIModel:
         """Reference BaseModel API: the schedule is step-addressed inside
         the optimizer; this reports it, as the reference prints it."""
         print(f"learning rate = {self.get_current_lr():.7f}")
+
+    def eval(self):
+        """Reference BaseModel API. No-op: the chains run without
+        gradients and without dropout whatever the modules' mode (G's
+        dropout acts only when the step passes it a source), and the
+        batch norm keeps no running statistics."""
+        return self
+
+    def train(self):
+        """Reference BaseModel API counterpart of eval(); no-op."""
+        return self
+
+    def set_requires_grad(self, *args, **kwargs):
+        """Reference BaseModel API. No-op: the train step takes each
+        net's gradients explicitly (torch.autograd.grad over G's and
+        V's parameters, D's loss on a detached fake), not by
+        per-parameter flags."""
 
     def get_current_visuals(self) -> dict[str, np.ndarray]:
         """Real, masked and inpainted spectrograms of the first clip,
@@ -295,11 +347,15 @@ class VIAIModel:
     def test(self, generator: torch.Generator | None = None) -> np.ndarray:
         """No-grad inference on the current input, gaps drawn from
         `generator` (default: a CPU generator seeded 0) → the inpainted
-        waveform batch, host numpy."""
+        waveform batch, host numpy. Under a data axis every rank runs
+        the chain on the global batch (the ranks' rows gathered), whose
+        masks are the generator's draws for the whole batch."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        out = self.infer_fn(self._input["wav"], generator,
-                            self._input["frames"])
+        frames = self._input["frames"]
+        out = self.infer_fn(
+            all_gather_rows(self._input["wav"], self.mesh), generator,
+            None if frames is None else all_gather_rows(frames, self.mesh))
         return out.cpu().numpy()
 
     def _nets(self) -> dict:
@@ -321,9 +377,14 @@ class VIAIModel:
 
     def save_networks(self, which_epoch):
         """`{epoch}_net_{G,D,V}.pth` in the JAX package's schema, and the
-        full train state `{epoch}_state.pt` for --continue_train."""
+        full train state `{epoch}_state.pt` for --continue_train. Every
+        rank gathers the state (a sharded optimizer's is split over the
+        model axis); rank 0 writes it."""
+        state = self._train_state()
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         save_networks(self._nets(), which_epoch, self.expr_dir)
-        save_train_state(self._train_state(), which_epoch, self.expr_dir)
+        save_train_state(state, which_epoch, self.expr_dir)
 
     def load_networks(self, which_epoch):
         """Restore the full train state, strictly; a checkpoint with

@@ -174,20 +174,34 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x):
         xf = x.float()
-        mean = xf.mean(self.dims, keepdim=True)
-        var = (xf * xf).mean(self.dims, keepdim=True) - mean * mean
+        mean, sq = self.moments(xf)
+        var = sq - mean * mean
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         y = y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
         return y.to(x.dtype)
 
+    def moments(self, xf):
+        """(E[x], E[x²]) over self.dims, float32, kept dims."""
+        return (xf.mean(self.dims, keepdim=True),
+                (xf * xf).mean(self.dims, keepdim=True))
+
 
 class BatchNorm(InstanceNorm):
     """Per-channel normalization over (N, H, W) with live batch
-    statistics and no running averages (the JAX package keeps none)."""
+    statistics and no running averages (the JAX package keeps none).
+    `stats_mean`, when set (train/mesh.py::sync_batch_stats), maps the
+    stacked moments of this rank's rows to the global batch's."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__(features, epsilon)
         self.dims = (0, 2, 3)
+        self.stats_mean = None
+
+    def moments(self, xf):
+        mean, sq = super().moments(xf)
+        if self.stats_mean is not None:
+            mean, sq = self.stats_mean(torch.stack([mean, sq])).unbind(0)
+        return mean, sq
 
 
 class GroupNorm(nn.Module):

@@ -48,21 +48,29 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
 
 
+def _total(w, total):
+    s = torch.sum(w)
+    return s if total is None else total(s)
+
+
 def masked_l1_loss(pred, target, keep_mask, hole_weight: float = 1.0,
-                   context_weight: float = 1.0):
+                   context_weight: float = 1.0, total=None):
     """L1 weighted by region: keep_mask 1 = observed (context_weight),
-    0 = hole (hole_weight)."""
+    0 = hole (hole_weight). `total` (here and in the other weighted
+    losses) maps the weight sum before the division: under data
+    parallelism the data group's mean (train/mesh.py::data_mean), so
+    that the ranks' mean loss is the global batch's."""
     err = torch.abs(pred - target)
     w = keep_mask * context_weight + (1.0 - keep_mask) * hole_weight
-    return torch.sum(err * w) / (torch.sum(w) + 1e-8)
+    return torch.sum(err * w) / (_total(w, total) + 1e-8)
 
 
 def masked_l2_loss(pred, target, keep_mask, hole_weight: float = 1.0,
-                   context_weight: float = 1.0):
+                   context_weight: float = 1.0, total=None):
     """The squared-error twin of masked_l1_loss."""
     err = (pred - target) ** 2
     w = keep_mask * context_weight + (1.0 - keep_mask) * hole_weight
-    return torch.sum(err * w) / (torch.sum(w) + 1e-8)
+    return torch.sum(err * w) / (_total(w, total) + 1e-8)
 
 
 def hole_spectral_convergence_loss(pred_mag, target_mag, keep_mask):
@@ -85,7 +93,7 @@ def feature_matching_loss(feats_fake, feats_real):
 
 
 def phase_cosine_loss(pred_cos, pred_sin, true_re_unit, true_im_unit,
-                      keep_mask, weight):
+                      keep_mask, weight, total=None):
     """Magnitude-weighted 1 − cos(φ_pred − φ_true) over the hole, from
     unit phasors: the prediction (any magnitude) is normalised here;
     each bin is weighted by `weight` (the true linear magnitude) and
@@ -93,14 +101,15 @@ def phase_cosine_loss(pred_cos, pred_sin, true_re_unit, true_im_unit,
     inv = torch.rsqrt(pred_cos * pred_cos + pred_sin * pred_sin + 1e-8)
     cosd = (pred_cos * true_re_unit + pred_sin * true_im_unit) * inv
     w = (1.0 - keep_mask) * weight
-    return torch.sum(w * (1.0 - cosd)) / (torch.sum(w) + 1e-8)
+    return torch.sum(w * (1.0 - cosd)) / (_total(w, total) + 1e-8)
 
 
-def onset_l1_loss(pred, target, keep_mask, hole_weight: float = 1.0):
+def onset_l1_loss(pred, target, keep_mask, hole_weight: float = 1.0,
+                  total=None):
     """L1 on the time derivative of (B, bins, T, C) compressed images;
     a frame pair straddling the hole boundary counts as hole."""
     dp = pred[..., 1:, :] - pred[..., :-1, :]
     dt = target[..., 1:, :] - target[..., :-1, :]
     m = torch.minimum(keep_mask[..., 1:, :], keep_mask[..., :-1, :])
     w = m + (1.0 - m) * hole_weight
-    return torch.sum(torch.abs(dp - dt) * w) / (torch.sum(w) + 1e-8)
+    return torch.sum(torch.abs(dp - dt) * w) / (_total(w, total) + 1e-8)

@@ -16,7 +16,12 @@ Port of `viai_tpu/serving.py::InpaintService`:
     chain (one iSTFT), with every refine_* option. Its noise stream is
     fixed per call, so the same request gets the same answer.
 The chain runs on `device`, the card unless the caller asks for the
-CPU. Data-parallel serving (`mesh`) is not ported yet.
+CPU. With a `mesh` (train/mesh.py) it serves data-parallel, one process
+a card: every rank is called with the whole request, runs its rows of
+each padded bucket, and returns the whole result (the outputs are
+all-gathered over the data group); the nets are replicated from rank 0
+and the refiner's noise is drawn for the whole bucket, so the result is
+the single-device one.
 """
 
 from __future__ import annotations
@@ -32,8 +37,11 @@ import torch
 
 from ._device import resolve_device
 from .train.config import TrainConfig
-from .train.diffusion import make_complex_refiner_infer_fn
+from .train.diffusion import (RefineNoise, draw_noise,
+                              make_complex_refiner_infer_fn, sample_generator)
 from .train.infer import make_infer_fn
+from .train.mesh import (Mesh, all_gather_rows, local_rows, replicate,
+                         sync_batch_stats)
 
 
 @dataclasses.dataclass
@@ -86,15 +94,24 @@ class InpaintService:
         refine_selfcond: bool = False,
         complex_mag: str = "sample",
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
         """refiner (a DiffusionRefiner): refiner_domain 'mag' runs it
         between G and Griffin-Lim; 'complex' swaps the decode for the
         GL-free complex-domain chain (prefer refine_t=1.0 there), which
-        serves no ensemble."""
+        serves no ensemble. With a `mesh` the chain runs on the mesh's
+        device and each bucket must divide by its data axis."""
         if (ensemble_states and refiner is not None
                 and refiner_domain == "complex"):
             raise ValueError("ensemble_states is not supported with "
                              "refiner_domain='complex'")
+        self.mesh = mesh
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            if any(b % n_data for b in buckets):
+                raise ValueError(f"bucket sizes {tuple(buckets)} must "
+                                 f"divide the data axis ({n_data})")
+            device = mesh.device
         self.device = resolve_device(device)
         self.cfg = cfg
         self.G = G.to(self.device).eval()
@@ -102,6 +119,17 @@ class InpaintService:
         self.ensemble = [g.to(self.device).eval() for g in ensemble_states]
         self.R = (refiner.to(self.device).eval() if refiner is not None
                   else None)
+        if mesh is not None:
+            replicate([self.G, self.V, *self.ensemble, self.R], mesh)
+            for m in (self.G, *self.ensemble, self.R):
+                sync_batch_stats(m, mesh)
+        # The refiner's noise of a padded bucket, drawn whole under a
+        # mesh (channels of its image, DDIM steps, RePaint rounds, K).
+        self._noise_plan = None
+        if mesh is not None and self.R is not None:
+            self._noise_plan = (2 if refiner_domain == "complex" else 1,
+                                refine_steps, refine_resample,
+                                max(refine_avg, 1))
         self.buckets = tuple(sorted(buckets))
         self.clip_samples = clip_samples
         self.sample_rate = sample_rate
@@ -202,17 +230,37 @@ class InpaintService:
                         [fr, np.zeros((padn, *fr.shape[1:]), fr.dtype)])
                 self.stats.padded_clips += padn
             t0 = time.perf_counter()
-            y = self._infer(
-                torch.from_numpy(w).to(self.device),
-                torch.from_numpy(m).to(self.device),
-                None if fr is None else torch.from_numpy(fr).to(self.device))
-            y = y.cpu().numpy()             # waits for the device
+            y = self._run(w, m, fr)         # waits for the device
             self.stats.total_s += time.perf_counter() - t0
             self.stats.batches += 1
             self.stats.clips += take
             out[i : i + take] = y[:take]
             i += take
         return out
+
+    def _run(self, w: np.ndarray, m: np.ndarray,
+             fr: np.ndarray | None) -> np.ndarray:
+        """One padded bucket through the chain → host outputs; under a
+        mesh, this rank's rows, then every rank's gathered."""
+        def rows(a):
+            return local_rows(torch.from_numpy(a), self.mesh).to(self.device)
+
+        noise = None
+        if self._noise_plan is not None:
+            ch, steps, resample, k = self._noise_plan
+            shape = (w.shape[0], ch, self.cfg.stft.n_bins,
+                     self.cfg.image_frames)
+            noise = []
+            for s in range(k):
+                nz = draw_noise(sample_generator(0, 0, s, self.device),
+                                shape, steps, resample)
+                noise.append(RefineNoise(
+                    local_rows(nz.eps0, self.mesh),
+                    None if nz.renoise is None
+                    else local_rows(nz.renoise, self.mesh, dim=2)))
+        y = self._infer(rows(w), rows(m), None if fr is None else rows(fr),
+                        noise=noise)
+        return all_gather_rows(y, self.mesh).cpu().numpy()
 
     # -- long audio: host-side chunking + overlap-add ---------------------
 

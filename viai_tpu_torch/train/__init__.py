@@ -1,5 +1,5 @@
 """Configuration, the inference chains, the diffusion sampler, the GAN
-train step and the refiner's train steps of the port."""
+train step, the refiner's train steps and the mesh of the port."""
 
 from .config import TrainConfig
 from .infer import make_infer_fn
@@ -8,6 +8,9 @@ from .diffusion import (RefineNoise, ddim_refine, ddim_refine_complex,
                         make_complex_refiner_infer_fn,
                         make_complex_refiner_train_step,
                         make_refiner_train_step)
+from .mesh import (Mesh, batch_sharding, global_batch_from_local, make_mesh,
+                   maybe_initialize_distributed, replicate, shard_batch,
+                   shard_params)
 from .pool import draw_pool, init_pool, query_pool
 from .schedules import (Adam, ReduceOnPlateau, adam, cosine, lambda_linear,
                         make_schedule, optimizer_step, plateau_kwargs,
@@ -21,5 +24,7 @@ __all__ = [
     "plateau_kwargs", "plateau_scale", "optimizer_step", "init_state",
     "make_train_step", "RefineNoise", "ddim_refine", "ddim_refine_complex",
     "make_complex_refiner_infer_fn", "make_refiner_train_step",
-    "make_complex_refiner_train_step",
+    "make_complex_refiner_train_step", "Mesh", "make_mesh",
+    "batch_sharding", "shard_batch", "replicate", "shard_params",
+    "maybe_initialize_distributed", "global_batch_from_local",
 ]

@@ -45,6 +45,8 @@ from ..signal.mask import sample_batch_masks
 from ..signal.mel import complex_compress, complex_decompress, decompress
 from ..signal.stft import istft, stft
 from .config import TrainConfig
+from .mesh import (Mesh, average_gradients, average_metrics, data_mean,
+                   global_rows, local_rows, sync_batch_stats)
 from .preprocess import g_input, preprocess_with_stft, task_masks
 from .schedules import optimizer_step
 
@@ -479,7 +481,8 @@ def make_refiner_train_step(G, V, R, R_ema, opt: torch.optim.Optimizer,
                             cfg: TrainConfig, hole_weight: float = 3.0,
                             observed_weight: float = 1.0,
                             cond_drop: float = 0.0, ema_decay: float = 0.999,
-                            self_cond: bool = False):
+                            self_cond: bool = False,
+                            mesh: Mesh | None = None):
     """Build train_step(wav (B, T), generator=None, frames=None, *,
     tmask=None, t=None, eps=None, keep=None, sc_first_pass=None) →
     {"loss_R": 0-dim tensor}: one update of the magnitude-domain R
@@ -502,10 +505,16 @@ def make_refiner_train_step(G, V, R, R_ema, opt: torch.optim.Optimizer,
     ε ~ N(0, 1) shaped as x0, keep = U(0, 1) ≥ cond_drop (B,) under
     cond_drop > 0, and under self_cond the coin sc_first_pass = U(0, 1)
     < ½ (read on the host: a card generator makes the step wait).
+
+    With a `mesh` (train/mesh.py), wav and frames are this rank's rows;
+    the draws are the global batch's (drawn, or given) and sliced, the
+    loss divides by the global weight sum, and R's gradients and the
+    reported loss are averaged over the data group: every rank takes
+    the single-device step of the global batch.
     """
     return _refiner_train_step(G, V, R, R_ema, opt, cfg, False, hole_weight,
                                observed_weight, cond_drop, ema_decay,
-                               self_cond)
+                               self_cond, mesh)
 
 
 def make_complex_refiner_train_step(G, V, R, R_ema,
@@ -515,7 +524,8 @@ def make_complex_refiner_train_step(G, V, R, R_ema,
                                     observed_weight: float = 1.0,
                                     cond_drop: float = 0.0,
                                     ema_decay: float = 0.999,
-                                    self_cond: bool = False):
+                                    self_cond: bool = False,
+                                    mesh: Mesh | None = None):
     """make_refiner_train_step for the complex-domain R: x0 is the
     2-channel compressed complex image (complex_image) and the
     conditioning complex_refiner_cond. The weight w has the mask's one
@@ -524,12 +534,12 @@ def make_complex_refiner_train_step(G, V, R, R_ema,
     JAX package computes it."""
     return _refiner_train_step(G, V, R, R_ema, opt, cfg, True, hole_weight,
                                observed_weight, cond_drop, ema_decay,
-                               self_cond)
+                               self_cond, mesh)
 
 
 def _refiner_train_step(G, V, R, R_ema, opt, cfg, complex_domain,
                         hole_weight, observed_weight, cond_drop, ema_decay,
-                        self_cond):
+                        self_cond, mesh):
     if cfg.use_video and V is None:
         raise ValueError("cfg.use_video requires V (a VideoFeatureNet)")
     params = list(R.parameters())
@@ -537,6 +547,8 @@ def _refiner_train_step(G, V, R, R_ema, opt, cfg, complex_domain,
     if [p.shape for p in ema] != [p.shape for p in params]:
         raise ValueError("R_ema must have R's architecture")
     n_ch = 2 if complex_domain else 1
+    for m in (G, R):
+        sync_batch_stats(m, mesh)
 
     def train_step(wav: torch.Tensor, generator: torch.Generator | None = None,
                    frames: torch.Tensor | None = None, *,
@@ -546,7 +558,7 @@ def _refiner_train_step(G, V, R, R_ema, opt, cfg, complex_domain,
                    keep: torch.Tensor | None = None,
                    sc_first_pass: bool | None = None
                    ) -> dict[str, torch.Tensor]:
-        B, dev = wav.shape[0], wav.device
+        B, dev = global_rows(wav.shape[0], mesh), wav.device
         need = [tmask is None, t is None, eps is None,
                 keep is None and cond_drop > 0.0,
                 sc_first_pass is None and self_cond]
@@ -568,14 +580,18 @@ def _refiner_train_step(G, V, R, R_ema, opt, cfg, complex_domain,
         if need[4]:
             sc_first_pass = bool(torch.rand((), generator=generator,
                                             device=gdev) < 0.5)
-        t, eps = t.to(dev), eps.to(dev)
+        t, eps = local_rows(t.to(dev), mesh), local_rows(eps.to(dev), mesh)
+        if keep is not None:
+            keep = local_rows(keep, mesh)
+        b = wav.shape[0]
 
-        batch, (re, im) = preprocess_with_stft(wav, tmask.to(dev), cfg)
+        batch, (re, im) = preprocess_with_stft(
+            wav, local_rows(tmask.to(dev), mesh), cfg)
         with torch.no_grad():
             feats = V(frames) if cfg.use_video else None
             g_img = G(g_input(batch), feats)[:, :1].float()
             if cond_drop > 0.0:
-                g_img = g_img * keep.to(dev, g_img.dtype).reshape(B, 1, 1, 1)
+                g_img = g_img * keep.to(dev, g_img.dtype).reshape(b, 1, 1, 1)
         m = batch["mask_img"].permute(0, 3, 1, 2)
         if complex_domain:
             x0 = _complex_image(re, im, cfg)
@@ -594,13 +610,15 @@ def _refiner_train_step(G, V, R, R_ema, opt, cfg, complex_domain,
             inputs.append(sc)
         v_hat = R(torch.cat(inputs, dim=1), t)
         w = observed_weight * m + hole_weight * (1.0 - m)
-        loss = torch.sum(w * torch.square(v_hat - v_target)) / torch.sum(w)
+        loss = (torch.sum(w * torch.square(v_hat - v_target))
+                / data_mean(torch.sum(w), mesh))
         loss.backward()
-        optimizer_step(opt, loss.detach())
+        average_gradients(params, mesh)
+        optimizer_step(opt, data_mean(loss.detach(), mesh))
         opt.zero_grad(set_to_none=True)
         with torch.no_grad():
             torch._foreach_mul_(ema, ema_decay)
             torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
-        return {"loss_R": loss.detach()}
+        return average_metrics({"loss_R": loss.detach()}, mesh)
 
     return train_step

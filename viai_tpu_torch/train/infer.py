@@ -93,7 +93,8 @@ def make_infer_fn(G: torch.nn.Module | tp.Sequence[torch.nn.Module],
     @torch.inference_mode()
     def infer(wav: torch.Tensor, mask, frames: torch.Tensor | None = None,
               fold: int = 0, noise=None) -> torch.Tensor:
-        tmask, base = task_masks(mask, wav.shape[0], cfg, external_mask)
+        tmask, base = task_masks(mask, wav.shape[0], cfg, external_mask,
+                                 with_base=refiner is not None)
         batch, (re_in, im_in) = preprocess_with_stft(
             wav, tmask.to(wav.device), cfg)
         feats = None

@@ -89,16 +89,20 @@ def preprocess_with_stft(wav: torch.Tensor, tmask: torch.Tensor,
     return batch, (re, im)
 
 
-def task_masks(mask, batch: int, cfg: TrainConfig, external_mask: bool
-               ) -> tuple[torch.Tensor, int]:
+def task_masks(mask, batch: int, cfg: TrainConfig, external_mask: bool,
+               with_base: bool = True) -> tuple[torch.Tensor, int]:
     """An infer fn's mask argument → (time masks, base seed of the
     refiner's noise stream). external_mask: `mask` is the (B,
     image_frames) keep-mask and the stream is the fixed one, base 0.
-    Else `mask` is a torch.Generator: the masks are drawn from it, then
-    the base seed."""
+    Else `mask` is a torch.Generator: the masks are drawn from it, then,
+    when `with_base` (a chain with a refiner), the base seed. Read on
+    the host, the seed makes a card generator's chain wait, so a chain
+    without a refiner draws none (and can be captured in a CUDA graph)."""
     if external_mask:
         return mask, 0
     tmask = sample_batch_masks(mask, batch, cfg.image_frames, cfg.mask)
+    if not with_base:
+        return tmask, 0
     base = int(torch.randint(0, 2**62, (1,), generator=mask,
                              device=mask.device))
     return tmask, base

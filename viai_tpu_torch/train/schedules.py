@@ -257,8 +257,9 @@ def plateau_scale(opt) -> float | None:
 
 def optimizer_step(opt: torch.optim.Optimizer, value: torch.Tensor):
     """One update of `opt`; the loss `value` goes to an optimizer that
-    takes it (Adam), the others (e.g. torch.optim.SGD) ignore it."""
-    if isinstance(opt, Adam):
+    takes it (Adam, and train/mesh.py's ShardedOptimizer, which passes
+    it on), the others (e.g. torch.optim.SGD) ignore it."""
+    if isinstance(opt, Adam) or getattr(opt, "takes_loss", False):
         opt.step(value=value)
     else:
         opt.step()

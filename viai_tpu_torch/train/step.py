@@ -29,6 +29,14 @@ can be given instead (`tmask=`, `dropout=`, `pool_draw=`), which is
 how the tests feed the JAX package's draws. The dropout masks are
 drawn before G's forward, so cfg.remat (G's forward under
 torch.utils.checkpoint, recomputed in the backward pass) replays them.
+
+Data parallelism (`mesh`, train/mesh.py): each rank is called with its
+rows of the global batch. The draws are made (or given) for the global
+batch and sliced; the weighted losses divide by the global weight sum,
+batch norms take global moments, the pool is updated from every rank's
+fakes, and both nets' gradients and the reported losses are averaged
+over the data group before the updates: every rank takes the
+single-device step of the global batch.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from ..nn.losses import (feature_matching_loss, gan_loss, generator_gan_loss,
 from ..signal.mask import sample_batch_masks
 from ..signal.mel import decompress
 from .config import TrainConfig
+from .mesh import (Mesh, all_gather_rows, average_gradients, average_metrics,
+                   data_mean, global_rows, local_rows, sync_batch_stats)
 from .preprocess import g_input, preprocess_with_mask
 from .pool import draw_pool, init_pool, query_pool
 from .schedules import optimizer_step
@@ -70,7 +80,8 @@ def _set_grads(params, loss):
 
 
 def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
-                    d_opt: torch.optim.Optimizer, cfg: TrainConfig):
+                    d_opt: torch.optim.Optimizer, cfg: TrainConfig,
+                    mesh: Mesh | None = None):
     """Build train_step(state, wav (B, T), frames (B, T, H, W, 3) or
     None, generator=None, frames_valid (B,) or None, *, tmask=None,
     dropout=None, pool_draw=None) → metrics.
@@ -79,6 +90,10 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
     init_state) gets the new step count and pool. `g_opt` must hold G's
     parameters and, with cfg.use_video, V's; `d_opt` D's. Metrics are
     0-dim tensors on the device (reading them waits for the step).
+    With a `mesh`, wav, frames and frames_valid are this rank's rows and
+    tmask, dropout and pool_draw are the global batch's; the modules
+    are replicated (train/mesh.py::replicate) and the optimizers
+    replicated or sharded (shard_params) by the caller.
     """
     if cfg.update_order not in ("simultaneous", "sequential"):
         raise ValueError(f"unknown update_order {cfg.update_order!r}")
@@ -87,6 +102,9 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
     gv_params = list(G.parameters()) + (
         list(V.parameters()) if cfg.use_video else [])
     d_params = list(D.parameters())
+    sync_batch_stats(G, mesh)
+    sync_batch_stats(D, mesh)
+    total = None if mesh is None else (lambda x: data_mean(x, mesh))
 
     def d_input(x, img):
         return torch.cat([x, img], dim=1) if cfg.conditional_d else img
@@ -115,12 +133,12 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
             l_gan = generator_gan_loss(D(fake_in), cfg.gan_mode)
         real, mask = batch["real_img"], batch["mask_img"]
         l_l1 = masked_l1_loss(fake_mag, real, mask,
-                              hole_weight=cfg.hole_weight)
+                              hole_weight=cfg.hole_weight, total=total)
         loss = l_gan + cfg.lambda_l1 * l_l1
         metrics = {"loss_G_GAN": l_gan, "loss_G_L1": l_l1}
         if cfg.lambda_l2 > 0.0:
             l_l2 = masked_l2_loss(fake_mag, real, mask,
-                                  hole_weight=cfg.hole_weight)
+                                  hole_weight=cfg.hole_weight, total=total)
             loss = loss + cfg.lambda_l2 * l_l2
             metrics["loss_G_L2"] = l_l2
         if cfg.lambda_sc > 0.0:
@@ -132,14 +150,15 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
             metrics["loss_G_SC"] = l_sc
         if cfg.lambda_onset > 0.0:
             l_on = onset_l1_loss(fake_mag, real, mask,
-                                 hole_weight=cfg.hole_weight)
+                                 hole_weight=cfg.hole_weight, total=total)
             loss = loss + cfg.lambda_onset * l_on
             metrics["loss_G_onset"] = l_on
         if cfg.phase_head and cfg.lambda_phase > 0.0:
             l_ph = phase_cosine_loss(
                 fake[..., 1], fake[..., 2],
                 batch["phase_img"][..., 0], batch["phase_img"][..., 1],
-                mask[..., 0], decompress(real[..., 0], cfg.compress_ceiling))
+                mask[..., 0], decompress(real[..., 0], cfg.compress_ceiling),
+                total=total)
             loss = loss + cfg.lambda_phase * l_ph
             metrics["loss_G_phase"] = l_ph
         if cfg.lambda_fm > 0.0:
@@ -157,7 +176,7 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
                    dropout: list[torch.Tensor] | None = None,
                    pool_draw: tuple[torch.Tensor, torch.Tensor] | None = None
                    ) -> dict[str, torch.Tensor]:
-        B = wav.shape[0]
+        B = global_rows(wav.shape[0], mesh)
         need = [tmask is None, dropout is None and G.dropout_blocks > 0,
                 pool_draw is None and cfg.pool_size > 0]
         if any(need) and generator is None:
@@ -166,12 +185,15 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
         if tmask is None:
             tmask = sample_batch_masks(generator, B, cfg.image_frames,
                                        cfg.mask)
-        batch = preprocess_with_mask(wav, tmask.to(wav.device), cfg)
+        batch = preprocess_with_mask(
+            wav, local_rows(tmask.to(wav.device), mesh), cfg)
         x = g_input(batch)
         if need[1]:
-            dropout = G.dropout_masks(x.shape, generator)
+            dropout = G.dropout_masks((B, *x.shape[1:]), generator)
         if need[2]:
             pool_draw = draw_pool(generator, B, cfg.pool_size)
+        if dropout is not None:
+            dropout = [local_rows(d, mesh) for d in dropout]
 
         def g_forward(x):
             feats = None
@@ -188,14 +210,18 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
             mag = fake[:, :1] if cfg.phase_head else fake
             fake_in = d_input(x, mag.detach())
             if cfg.pool_size > 0:
-                state["pool"], fake_in = query_pool(state["pool"], fake_in,
-                                                    *pool_draw)
+                # The pool holds the global batch's fakes on every rank.
+                state["pool"], fake_in = query_pool(
+                    state["pool"], all_gather_rows(fake_in, mesh),
+                    *pool_draw)
+                fake_in = local_rows(fake_in, mesh)
             return fake_in
 
         if cfg.update_order == "sequential":
             loss_D, d_metrics = d_loss_fn(batch, x, fake_for_d())
             _set_grads(d_params, loss_D)
-            optimizer_step(d_opt, loss_D.detach())
+            average_gradients(d_params, mesh)
+            optimizer_step(d_opt, data_mean(loss_D.detach(), mesh))
             loss_G, g_metrics = g_loss_fn(batch, x, fake)
             _set_grads(gv_params, loss_G)
         else:
@@ -203,11 +229,14 @@ def make_train_step(G, D, V, g_opt: torch.optim.Optimizer,
             _set_grads(gv_params, loss_G)
             loss_D, d_metrics = d_loss_fn(batch, x, fake_for_d())
             _set_grads(d_params, loss_D)
-            optimizer_step(d_opt, loss_D.detach())
-        optimizer_step(g_opt, loss_G.detach())
+            average_gradients(d_params, mesh)
+            optimizer_step(d_opt, data_mean(loss_D.detach(), mesh))
+        average_gradients(gv_params, mesh)
+        optimizer_step(g_opt, data_mean(loss_G.detach(), mesh))
         d_opt.zero_grad(set_to_none=True)
         g_opt.zero_grad(set_to_none=True)
         state["step"] += 1
-        return {k: v.detach() for k, v in {**d_metrics, **g_metrics}.items()}
+        return average_metrics({k: v.detach() for k, v in
+                                {**d_metrics, **g_metrics}.items()}, mesh)
 
     return train_step
