@@ -107,7 +107,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      make_mesh() is 1x1, a tiny SGD step through make_train_step(mesh=)
      and a bucket-8 InpaintService(mesh=) request at full width equal
      their runs without a mesh bit for bit (launches counted), and the
-     group is torn down.
+     group is torn down;
+ 15. the scripts ([scripts]): viai_tpu_torch.scripts.<name>.main at
+     full width, steps cut (SCRIPT_CUTS, printed): quality_report (and
+     --long_gap) and av_ablation, their hole-PSNRs finite and train
+     clips/s printed with the card; quality_long 20 steps with
+     milestones at 10 and 20, its step-10 state loaded again and held
+     equal to the save bit for bit, a resume from it, its step-20 nets
+     served by the eval CLI (16 clips) and diagnosed by grid_diag;
+     bayes_ceiling; cost_analysis at batch 128, where G's forward must
+     read 128 x 18.40 GFLOP; prepare_dataset's synthetic, extract (an
+     AVI with PCM at 22.05 kHz; a .mp4 skipped), manifest and download
+     --dry_run, and 5 av train steps from the folder it prepared. Every
+     record carries "package"; the GL launches are counted;
+ 16. [tensorboard]: the train CLI with --tensorboard, 10 steps; the
+     event file read back with the port's CRC-checking reader equals
+     loss_log.jsonl;
+ 17. [compile cache]: with VIAI_CACHE_DIR set, the GL kernel builds
+     there and loads again in 0.0 s; with VIAI_NO_CACHE=1 a fresh
+     process builds it anew.
 The last two lines are the card's name and power limit (as nvidia-smi
 prints them) and the JSON result; the line before them lists the
 kernels with their launches (summed over every path that ran them,
@@ -141,6 +159,7 @@ from viai_tpu_torch.signal.mask import sample_batch_masks
 from viai_tpu_torch.train.diffusion import (complex_refiner_channels,
                                             draw_noise,
                                             make_complex_refiner_infer_fn)
+from viai_tpu_torch.utils.cost import conv_gflop, gl_bytes, gl_ops
 
 SR, CLIP = 16000, 32000
 GAP_S = (0.8, 1.2)
@@ -274,6 +293,20 @@ BENCH_RUNS = (
     ("refiner_complex", ["--batch", "32", "--inner", "1"]),
     ("hybrid", ["--batch", "32", "--inner", "1"]),
 )
+# [scripts]: the ported scripts (viai_tpu_torch/scripts/) at their
+# full-width defaults, steps cut to fit the run (each cut printed).
+SCRIPT_CUTS = {
+    "quality_report": ["--steps", "10"],             # default 300
+    "quality_report long_gap": ["--long_gap", "--steps", "5"],
+    "av_ablation": ["--steps", "5"],                 # default 600
+    "quality_long": ["--steps", "20", "--milestone", "10",
+                     "--pool_batches", "2"],         # 15000, 5000, 64
+    "bayes_ceiling": ["--clips", "8", "--variants", "8"],   # 64, 48
+}
+SCRIPTS_EVAL_CLIPS = 16
+# [scripts] cost_analysis: define_G()'s conv FLOPs a clip (PERF.md §4).
+G_GFLOP_CLIP = 18.40
+TB_STEPS = 10                 # [tensorboard]: train CLI steps, one record each
 # [eval] on the Rs that [train refiner] wrote: (arm, run suffix, flags).
 EVAL_TRAINED_ARMS = (
     ("R", "", ["--refiner", "--refiner_net", "R"]),
@@ -343,33 +376,6 @@ def card_copy(module: torch.nn.Module, dev) -> torch.nn.Module:
     return copy.deepcopy(module).to(dev).eval()
 
 
-def conv_gflop(model: torch.nn.Module, *inputs) -> float:
-    """GFLOP (2 per multiply-add) of the conv and linear layers of one
-    forward, counted from the shapes by forward hooks."""
-    total = 0
-
-    def hook(mod, inp, out):
-        nonlocal total
-        if isinstance(mod, torch.nn.Linear):
-            total += out.numel() * mod.in_features
-        elif isinstance(mod, torch.nn.ConvTranspose2d):
-            total += (inp[0].numel() * mod.out_channels
-                      * int(np.prod(mod.kernel_size)))
-        else:
-            total += (out.numel() * mod.in_channels
-                      * int(np.prod(mod.kernel_size)))
-
-    kinds = (torch.nn.Linear, torch.nn.Conv2d, torch.nn.Conv3d,
-             torch.nn.ConvTranspose2d)
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, kinds)]
-    with torch.inference_mode():
-        model(*inputs)
-    for h in hooks:
-        h.remove()
-    return 2 * total / 1e9
-
-
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -402,12 +408,9 @@ def gl_bound_ms(batch: int, n_frames: int, n_bins: int, n_fft: int,
     the tensor cores (`ops`), by the same operations as 3xTF32 on the
     tensor cores (`ops_tc`: three TF32 products per product), by bytes.
 
-    Operations: per iteration 4 products of F×n_bins×n_fft
-    multiply-adds (iDFT re/im, DFT cos/sin), plus the final iDFT.
-    Bytes: mag, obs_re, obs_im, init_re, init_im read once, the
-    waveform written once."""
-    flop = 2 * batch * n_frames * n_bins * n_fft * (4 * n_iter + 2)
-    nbytes = 4 * (5 * batch * n_frames * n_bins + batch * T)
+    The counts are utils/cost.py's gl_ops and gl_bytes."""
+    flop = gl_ops(batch, n_frames, n_bins, n_fft, n_iter)
+    nbytes = gl_bytes(batch, n_frames, n_bins, T)
     return {"ops": flop / PEAK_FP32 * 1e3,
             "ops_tc": 3 * flop / PEAK_TF32 * 1e3,
             "bytes": nbytes / PEAK_BYTES * 1e3}
@@ -2042,6 +2045,316 @@ def phase_mesh(dev) -> int:
     return launches
 
 
+def _records(results_dir: str) -> list[dict]:
+    with open(os.path.join(results_dir, "quality_results.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _state_equal(a, b) -> bool:
+    """Nested dicts, lists and tensors equal to the bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_state_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_state_equal(x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def write_raw_avi(path: pathlib.Path, seconds: float, sr: int, seed: int):
+    """An uncompressed AVI of `seconds` with PCM16 audio at `sr` (three
+    tones) and 48x64 random frames at 10 fps."""
+    from viai_tpu_torch.data.avi import write_avi
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    audio = sum(0.2 * np.sin(2 * np.pi * f * t + p) for f, p in
+                zip(rng.uniform(100, 2000, 3), rng.uniform(0, 6, 3)))
+    frames = rng.integers(0, 256, (int(seconds * 10), 48, 64, 3),
+                          dtype=np.uint8)
+    write_avi(str(path), frames, 10, audio.astype(np.float32), sr)
+
+
+def io_capture(fn) -> str:
+    """What fn() prints."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    return buf.getvalue()
+
+
+def phase_scripts(dev, card: str) -> int:
+    """The JAX package's scripts, ported, at full width through their
+    entry points (viai_tpu_torch.scripts.<name>.main), steps cut
+    (SCRIPT_CUTS): hole-PSNRs and losses finite, every record written
+    with "package" under --results_dir; quality_long's step-10 state
+    loaded bit for bit, its step-20 nets served by cli.test and
+    diagnosed by grid_diag; define_G()'s FLOPs read by cost_analysis;
+    prepare_dataset's modes, and 5 train steps from the folder it
+    prepared. Returns the GL kernel's launches over the phase."""
+    from viai_tpu_torch.cli.test import main as test_main
+    from viai_tpu_torch.cli.train import main as train_main
+    from viai_tpu_torch.io import load_networks, load_train_state
+    from viai_tpu_torch.scripts import (av_ablation, bayes_ceiling,
+                                        cost_analysis, grid_diag,
+                                        prepare_dataset, quality_long,
+                                        quality_report)
+
+    # The eval phase points the port's records at its own file.
+    os.environ.pop("VIAI_RESULTS_JSONL", None)
+    zero_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = os.path.join(tmp, "results")
+        for name, cut in SCRIPT_CUTS.items():
+            log(f"[scripts] cut: {name} {' '.join(cut)} (its defaults "
+                f"otherwise)")
+
+        for name in ("quality_report", "quality_report long_gap"):
+            t0 = time.perf_counter()
+            rec = quality_report.main(SCRIPT_CUTS[name]
+                                      + ["--results_dir", res])
+            log(f"[scripts] {name}: hole-PSNR {rec['hole_psnr_before']:.3f} "
+                f"-> {rec['hole_psnr_after']:.3f} dB, L1 {rec['final_l1']}, "
+                f"{time.perf_counter() - t0:.1f} s; train "
+                f"{rec['train_clips_per_s']} clips/s at batch {rec['batch']}, "
+                f"bf16, first step included | {card}")
+            require(np.isfinite(rec["hole_psnr_before"])
+                    and np.isfinite(rec["hole_psnr_after"]),
+                    f"[scripts] {name}: a non-finite hole-PSNR")
+
+        t0 = time.perf_counter()
+        rec = av_ablation.main(SCRIPT_CUTS["av_ablation"]
+                               + ["--results_dir", res])
+        for v in ("audio", "av"):
+            log(f"[scripts] av_ablation {v}: hole-PSNR "
+                f"{rec[f'{v}_hole_psnr']:.3f} dB, L1 {rec[f'{v}_final_l1']}; "
+                f"train {rec[f'{v}_train_clips_per_s']} clips/s at batch "
+                f"{rec['batch']}, bf16, first step included | {card}")
+            require(np.isfinite(rec[f"{v}_hole_psnr"]),
+                    f"[scripts] av_ablation {v}: a non-finite hole-PSNR")
+        log(f"[scripts] av_ablation: {time.perf_counter() - t0:.1f} s")
+
+        ckpt = os.path.join(tmp, "ckpt")
+        ql = ["--name", "chip_ql", "--checkpoints_dir", ckpt,
+              "--results_dir", res, *SCRIPT_CUTS["quality_long"]]
+        t0 = time.perf_counter()
+        rec = quality_long.main(ql)
+        log(f"[scripts] quality_long: L1 {rec['final_l1']}, "
+            f"{time.perf_counter() - t0:.1f} s; train "
+            f"{rec['train_clips_per_s']} clips/s at batch {rec['batch']}, "
+            f"bf16, pool {rec['pool_clips']} clips, two milestone saves and "
+            f"the first step included | {card}")
+        require(np.isfinite(rec["final_l1"]), "[scripts] quality_long L1")
+        expr = rec["expr_dir"]
+        args, extra = quality_long.parse_args(ql)
+        model = quality_long.build_model(args, extra)
+        model.load_networks("10")
+        saved = load_train_state("10", expr)
+        same = {name: _state_equal(net.state_dict(), saved["nets"][name])
+                for name, net in model._nets().items()}
+        for name, net in model._nets().items():       # the .pth schema
+            twin = copy.deepcopy(net)
+            load_networks({name: twin}, "10", expr)
+            same[f"{name}.pth"] = _state_equal(net.state_dict(),
+                                               twin.state_dict())
+        same["g_opt"] = _state_equal(model.g_opt.state_dict(),
+                                     saved["g_opt"])
+        same["d_opt"] = _state_equal(model.d_opt.state_dict(),
+                                     saved["d_opt"])
+        same["step"] = model.state["step"] == saved["step"] == 10
+        log(f"[scripts] quality_long --resume_step 10: the loaded state "
+            f"equals the step-10 save to the bit: {same}")
+        require(all(same.values()), "[scripts] the resumed state differs")
+        del model
+        rec = quality_long.main(ql + ["--resume_step", "10"])
+        require(rec["resume_step"] == 10 and np.isfinite(rec["final_l1"]),
+                "[scripts] quality_long resume")
+        log(f"[scripts] quality_long resumed 10 -> 20: L1 {rec['final_l1']}")
+        summary = test_main([
+            "--name", "chip_ql", "--checkpoints_dir", ckpt, "--which_epoch",
+            "20", "--gpu_ids", "0", "--dataset_mode", "synthetic",
+            "--how_many", str(SCRIPTS_EVAL_CLIPS), "--batchSize",
+            str(SCRIPTS_EVAL_CLIPS), "--results_dir", res])
+        log(f"[scripts] cli.test on quality_long's 20_net_G: n "
+            f"{summary['n']}, hole-PSNR {summary['hole_psnr_mean']:.3f} dB, "
+            f"SNR {summary['snr_mean']:.3f} dB")
+        require(summary["n"] == SCRIPTS_EVAL_CLIPS
+                and np.isfinite(summary["hole_psnr_mean"]),
+                "[scripts] cli.test on quality_long's nets")
+        rec = grid_diag.main(["chip_ql", ckpt, "20", "", "harmonic", "0",
+                              "--results_dir", res])
+        require(all(np.isfinite(rec[k]) for k in (
+            "pre_gl_hole_psnr_eval_unseen", "pre_gl_hole_psnr_train_pool")),
+            "[scripts] grid_diag")
+
+        t0 = time.perf_counter()
+        rec = bayes_ceiling.main(SCRIPT_CUTS["bayes_ceiling"]
+                                 + ["--log_results", "--results_dir", res])
+        log(f"[scripts] bayes_ceiling: ceiling "
+            f"{rec['ceiling_hole_psnr_mean']} dB, sample "
+            f"{rec['sample_hole_psnr_mean']} dB, "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(np.isfinite(rec["ceiling_hole_psnr_mean"]),
+                "[scripts] bayes_ceiling")
+
+        rec = cost_analysis.main(["--batch", "128", "--results_dir", res])
+        g_fwd = rec["programs"][0]["gflops_by_module"]["UNetGenerator"]
+        log(f"[scripts] cost_analysis --batch 128: G forward "
+            f"{g_fwd:.2f} GFLOP = 128 x {g_fwd / 128:.4f}; the chain "
+            f"{rec['programs'][1]['gflops']} GFLOP with "
+            f"{rec['programs'][1]['gl_launches']} GL launch(es); the train "
+            f"step {rec['programs'][2]['gflops']} GFLOP")
+        require(abs(g_fwd / 128 - G_GFLOP_CLIP) < 0.01,
+                f"[scripts] cost_analysis: G reads {g_fwd / 128:.4f} GFLOP "
+                f"a clip, not {G_GFLOP_CLIP}")
+        require(rec["programs"][1]["gl_launches"] == 1,
+                "[scripts] cost_analysis: the chain's GL launch")
+
+        data, raw = pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "raw"
+        raw.mkdir()
+        write_raw_avi(raw / "clip_22k.avi", 3.0, 22050, seed=9)
+        (raw / "clip.mp4").write_bytes(b"\0" * 64)
+        pd = ["--results_dir", res]
+        prepare_dataset.main(["synthetic", "--out", str(data), "-n",
+                              str(TRAIN_BATCH), "--video", *pd])
+        rec = prepare_dataset.main(["extract", "--root", str(raw), "--out",
+                                    str(data), *pd])
+        require((rec["clips"], rec["skipped"]) == (1, 1),
+                f"[scripts] prepare_dataset extract: {rec}")
+        require(os.path.exists(data / "clip_22k.wav")
+                and np.load(data / "clip_22k.npy").shape == (16, 64, 64, 3),
+                "[scripts] prepare_dataset extract's files")
+        rec = prepare_dataset.main(["manifest", "--root", str(data), *pd])
+        log(f"[scripts] prepare_dataset: synthetic {TRAIN_BATCH} clips with "
+            f"frames, extract (AVI at 22.05 kHz read, .mp4 skipped), "
+            f"manifest {rec['train']} train / {rec['test']} test")
+        manifest = raw / "yt.json"
+        manifest.write_text(json.dumps(
+            {"train": ["vid0", {"id": "vid1", "start": 1, "end": 3}]}))
+        out = io_capture(lambda: prepare_dataset.main([
+            "download", "--manifest", str(manifest), "--out",
+            str(raw / "dl"), "--dry_run", *pd]))
+        log("[scripts] prepare_dataset download --dry_run: "
+            + " | ".join(out.strip().splitlines()))
+        require(out.strip().endswith("# 3 commands (dry run)"),
+                "[scripts] the download plan")
+        model = train_main([
+            "--name", "chip_prepared", "--checkpoints_dir", ckpt,
+            "--gpu_ids", "0", "--dataset_mode", "av", "--model", "av",
+            "--dataroot", str(data), "--batchSize", str(TRAIN_BATCH),
+            "--nThreads", "0", "--niter", "1", "--niter_decay", "0",
+            "--steps_per_epoch", "5", "--print_freq", "5",
+            "--display_freq", "1000"])
+        losses = model.get_current_losses()
+        log(f"[scripts] 5 av train steps from the prepared folder: "
+            + " ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+        require(all(np.isfinite(v) for v in losses.values()),
+                "[scripts] training from the prepared folder")
+
+        recs = _records(res)
+        exps = sorted({r.get("exp", "quality_report") for r in recs})
+        log(f"[scripts] {len(recs)} records in results/quality_results.jsonl"
+            f" ({', '.join(exps)}), each with package viai_tpu_torch")
+        require(len(exps) == 7 and all(r["package"] == "viai_tpu_torch"
+                                       for r in recs),
+                "[scripts] the records")
+    torch.cuda.synchronize()
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    log(f"[scripts] {time.perf_counter() - t_phase:.1f} s; griffin_lim_cuda "
+        f"launches {launches}, plain griffin_lim calls {plain}")
+    require(launches > 0, "[scripts] never launched the GL kernel")
+    require(plain == 0, "[scripts] ran the plain griffin_lim")
+    return launches
+
+
+def phase_tensorboard():
+    """[tensorboard]: the train CLI with --tensorboard, one loss record a
+    step; the event files read back with the port's CRC-checking reader
+    hold every loss tag at steps 1..TB_STEPS with loss_log.jsonl's
+    values (float32)."""
+    from viai_tpu_torch.cli.train import main as train_main
+    from viai_tpu_torch.utils.tensorboard import read_scalars
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        train_main(["--name", "chip_tb", "--checkpoints_dir", ckpt,
+                    "--gpu_ids", "0", "--batchSize", str(TRAIN_BATCH),
+                    "--niter", "1", "--niter_decay", "0",
+                    "--steps_per_epoch", str(TB_STEPS), "--print_freq", "1",
+                    "--display_freq", "1000", "--tensorboard"])
+        expr = os.path.join(ckpt, "chip_tb")
+        with open(os.path.join(expr, "loss_log.jsonl")) as f:
+            want = sorted(
+                (k, step, float(np.float32(v)))
+                for step, r in enumerate(map(json.loads, f), start=1)
+                for k, v in r.items() if k.startswith("loss"))
+        files = os.listdir(os.path.join(expr, "tb"))
+        got = sorted(t for name in files
+                     for t in read_scalars(os.path.join(expr, "tb", name)))
+        tags = sorted({t for t, _, _ in got})
+        log(f"[tensorboard] {TB_STEPS} train steps with --tensorboard in "
+            f"{time.perf_counter() - t0:.1f} s: {len(files)} event file, "
+            f"{len(got)} scalars, tags {tags}, steps "
+            f"{min(s for _, s, _ in got)}..{max(s for _, s, _ in got)}; "
+            f"equal to loss_log.jsonl: {got == want}")
+        require(len(files) == 1 and len(want) >= 4 * TB_STEPS and got == want,
+                "[tensorboard] the event file differs from loss_log.jsonl")
+
+
+_NO_CACHE_PROBE = """
+import json
+from viai_tpu_torch import _build
+from viai_tpu_torch.utils import compile_cache
+d = compile_cache.enable()
+r = _build.build(["griffin_lim"])["griffin_lim"]
+print(json.dumps({"dir": str(d), "path": str(r.path), "seconds": r.seconds}))
+"""
+
+
+def phase_compile_cache():
+    """[compile cache]: VIAI_CACHE_DIR relocates the GL kernel's build
+    (built there, then reused: 0.0 s); under VIAI_NO_CACHE=1 a fresh
+    process builds it anew in a directory of its own."""
+    from viai_tpu_torch.utils import compile_cache
+
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["VIAI_CACHE_DIR"] = d
+        try:
+            where = compile_cache.enable()
+            first = _build.build(["griffin_lim"])["griffin_lim"]
+            again = _build.build(["griffin_lim"])["griffin_lim"]
+        finally:
+            del os.environ["VIAI_CACHE_DIR"]
+            _build.set_cache_dir(None)
+        log(f"[compile cache] VIAI_CACHE_DIR: enable() -> the temp dir: "
+            f"{where == pathlib.Path(d)}; griffin_lim built there in "
+            f"{first.seconds:.2f} s, loaded again in {again.seconds} s")
+        require(where == pathlib.Path(d) and first.path.parent == where
+                and first.seconds > 0.0 and again.seconds == 0.0
+                and again.path == first.path, "[compile cache] relocation")
+    root = pathlib.Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_CACHE_PROBE], cwd=root,
+        env={**os.environ, "VIAI_NO_CACHE": "1"}, capture_output=True,
+        text=True, timeout=600, check=True)
+    probe = json.loads(out.stdout.strip().splitlines()[-1])
+    fresh = pathlib.Path(probe["dir"])
+    log(f"[compile cache] VIAI_NO_CACHE=1: a fresh process built "
+        f"griffin_lim in {probe['seconds']:.2f} s into "
+        f"{fresh.relative_to(root)} (removed at its exit: "
+        f"{not fresh.exists()})")
+    require(probe["seconds"] > 0.0 and fresh.parent == _build.BUILD_DIR
+            and pathlib.Path(probe["path"]).parent == fresh
+            and not fresh.exists(), "[compile cache] VIAI_NO_CACHE")
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -2073,6 +2386,12 @@ def main():
     phase_bench_reference(dev)
     phase_profile_bench(dev, card)
     launches_mesh = phase_mesh(dev)
+    t_new = time.perf_counter()
+    launches_scripts = phase_scripts(dev, card)
+    phase_tensorboard()
+    phase_compile_cache()
+    log(f"[scripts] [tensorboard] [compile cache] took "
+        f"{time.perf_counter() - t_new:.1f} s together")
     t = times[32]
     launches_train = sum(r["launches"] for r in trains.values())
     launches_served = sum(r["served"] for r in trains.values())
@@ -2083,7 +2402,7 @@ def main():
         "launches": (launches_slice + launches_av + launches_options
                      + launches_train + launches_served + launches_refiner
                      + launches_eval + launches_data + launches_trained
-                     + launches_bench + launches_mesh),
+                     + launches_bench + launches_mesh + launches_scripts),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
                              "options": launches_options,
                              "train": launches_train,
@@ -2091,7 +2410,8 @@ def main():
                              "refiner": launches_refiner,
                              "eval": launches_eval, "data": launches_data,
                              "refiner_trained": launches_trained,
-                             "bench": launches_bench, "mesh": launches_mesh},
+                             "bench": launches_bench, "mesh": launches_mesh,
+                             "scripts": launches_scripts},
         "max_abs_err": max_err,
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "kernel_only_ms": t["kernel_only_ms"],

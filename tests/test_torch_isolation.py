@@ -16,7 +16,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "chex", "optax", "orbax", "viai_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "chex", "optax", "orbax", "clu",
+             "tensorboard", "tensorflow", "viai_tpu")
 
 _PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys
@@ -46,7 +47,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "nn.refiner", "train.diffusion", "train.preprocess",
                 "utils.metrics", "cli.train_refiner", "native",
                 "data.audio", "data.av", "data.avi", "data.loader",
-                "data.prefetch"):
+                "data.prefetch", "utils.tensorboard", "utils.compile_cache",
+                "utils.cost", "scripts._quality", "scripts.quality_report",
+                "scripts.av_ablation", "scripts.quality_long",
+                "scripts.grid_diag", "scripts.bayes_ceiling",
+                "scripts.cost_analysis", "scripts.prepare_dataset"):
         assert f"viai_tpu_torch.{mod}" in res["modules"]
     assert res["forbidden"] == []
 
@@ -97,3 +102,20 @@ def test_training_entry_points_default_to_the_card(tmp_path):
         VIAIModel(TrainOptions().parse(args, save=False))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(args)
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("quality_report", []), ("av_ablation", []), ("quality_long", []),
+    ("grid_diag", ["name", "ckpt", "latest"]), ("bayes_ceiling", []),
+    ("cost_analysis", []),
+])
+def test_scripts_default_to_the_card(script, argv):
+    """Each script's --device is the card; without one it raises before
+    any work rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import importlib
+
+    mod = importlib.import_module(f"viai_tpu_torch.scripts.{script}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)

@@ -10,7 +10,9 @@ port, against viai_tpu where it has the same surface.
     the pool, the generator);
   * the synthetic loaders yield viai_tpu's batches bit for bit;
   * train_config_from_opt equals viai_tpu's for the same flags;
-  * the visualizer's PNGs hold viai_tpu's pixels exactly;
+  * the visualizer's PNGs hold viai_tpu's pixels exactly, and with
+    --tensorboard it writes event files (tests/test_torch_tensorboard.py
+    holds them against the JAX writer);
   * the train CLI runs 2 steps on the CPU, then 2 more with
     --continue_train, as tests/test_cli_e2e.py does for viai_tpu.
 """
@@ -41,6 +43,7 @@ from viai_tpu_torch.io import available_epochs, load_networks, save_networks
 from viai_tpu_torch.model import VIAIModel, train_config_from_opt
 from viai_tpu_torch.nn import (DiscriminatorConfig, MultiScaleDiscriminator,
                                VideoFeatureNet, VideoNetConfig)
+from viai_tpu_torch.utils.tensorboard import read_scalars
 from viai_tpu_torch.utils.visualizer import Visualizer, spec_to_png
 
 from _torch_train_util import D_TINY, V_TINY, make_D, make_G, make_V, nchw, nhwc
@@ -205,8 +208,11 @@ def test_loader_and_options_refuse_what_is_not_ported(tmp_path):
         opt = TrainOptions().parse(TINY + [flag, "2"], save=False)
         with pytest.raises(ValueError, match="process group"):
             VIAIModel(opt, expr_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Visualizer(str(tmp_path), tensorboard=True)
+    vis = Visualizer(str(tmp_path / "tb_run"), tensorboard=True)
+    vis.print_current_losses(1, 0, {"loss_G": 1.5})
+    (events,) = os.listdir(tmp_path / "tb_run" / "tb")
+    assert read_scalars(str(tmp_path / "tb_run" / "tb" / events)) == [
+        ("loss_G", 1, 1.5)]
     opt = TrainOptions().parse(TINY, save=False)
     assert device_from_opt(opt) == torch.device("cpu")
     with pytest.raises(SystemExit):

@@ -10,8 +10,11 @@ the lr schedules and Adam, the train step, VIAIModel and the train CLI
 evaluation (`python -m viai_tpu_torch.cli.test`: the metrics, deep
 ensembles, and the diffusion refiner R in the magnitude domain and in
 the GL-free complex domain); R's training and folder data; the
-throughput bench (`python -m viai_tpu_torch.bench`); and multi-GPU
-training and serving on torch.distributed (`train/mesh.py`).
+throughput bench (`python -m viai_tpu_torch.bench`); multi-GPU
+training and serving on torch.distributed (`train/mesh.py`); the
+TensorBoard writer and the build cache's knobs (utils/); and the JAX
+package's quality and data scripts (`python -m
+viai_tpu_torch.scripts.<name>`).
 """
 
 from .io import (generator_state_from_flat, load_generator_pth,

@@ -13,7 +13,9 @@ as it is:
     g++).
 
 Targets are compiled in parallel, one compiler process each. A failed
-build raises.
+build raises. The directory is read at build time (`cache_dir`):
+`utils/compile_cache.py::enable` relocates it or gives the process a
+fresh one.
 """
 
 from __future__ import annotations
@@ -37,6 +39,18 @@ NVCC_FLAGS = (
 )
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17", "-Wall")
 HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp")}
+_cache_dir: Path | None = None      # set_cache_dir; BUILD_DIR when unset
+
+
+def cache_dir() -> Path:
+    """Where the libraries are built and looked up."""
+    return BUILD_DIR if _cache_dir is None else _cache_dir
+
+
+def set_cache_dir(path: str | os.PathLike | None):
+    """Build into `path` from now on (None: back to BUILD_DIR)."""
+    global _cache_dir
+    _cache_dir = None if path is None else Path(path)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,14 +104,14 @@ def _target(name: str, srcs: list[Path], compiler: str, flags) -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join((compiler, *flags)).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return cache_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, BuildResult]:
     """Compile the named targets (all by default) that have no library
     for their current hash yet, in parallel; raise if any build fails."""
     names = sources() if names is None else names
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cache_dir().mkdir(parents=True, exist_ok=True)
     results, running = {}, {}
     for name in names:
         srcs, find, flags = _recipe(name)

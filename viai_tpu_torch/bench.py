@@ -60,6 +60,7 @@ from .signal.gl_cuda import griffin_lim_cuda
 from .train import TrainConfig, make_infer_fn
 from .train.diffusion import (complex_refiner_channels,
                               make_complex_refiner_infer_fn)
+from .utils.compile_cache import enable as enable_build_cache
 
 PRESETS = ("default", "refiner_mag", "refiner_complex", "hybrid")
 GRAPH_PRESETS = ("default",)   # the presets whose step is a CUDA graph
@@ -195,6 +196,7 @@ def spread(xs) -> float:
 
 
 def main(argv=None) -> dict:
+    enable_build_cache()
     args = parse_args(argv)
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"

@@ -38,6 +38,7 @@ from ..model import create_model
 from ..signal.mel import compress
 from ..signal.stft import stft_magnitude
 from ..train.preprocess import preprocess
+from ..utils.compile_cache import enable as enable_build_cache
 from ..utils.metrics import masked_psnr, psnr, snr, spectral_convergence
 from ..utils.visualizer import HTMLGallery
 
@@ -52,6 +53,7 @@ def _mean_sem(xs) -> tuple[float, float]:
 
 
 def main(args=None) -> dict:
+    enable_build_cache()
     opt = TestOptions().parse(args)
     clip_samples = int(opt.sample_rate * opt.clip_seconds)
     loader = create_dataloader(

@@ -32,10 +32,12 @@ from ..data import create_dataloader
 from ..data.prefetch import device_prefetch
 from ..model import create_model
 from ..train.mesh import maybe_initialize_distributed
+from ..utils.compile_cache import enable as enable_build_cache
 from ..utils.visualizer import Visualizer
 
 
 def main(args=None):
+    enable_build_cache()
     opt = TrainOptions().parse(args)
     expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
     maybe_initialize_distributed(device=device_from_opt(opt).type)

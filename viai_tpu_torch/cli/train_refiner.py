@@ -49,6 +49,7 @@ from ..train.diffusion import (complex_refiner_channels,
                                make_complex_refiner_train_step,
                                make_refiner_train_step, sample_generator)
 from ..train.schedules import adam, cosine
+from ..utils.compile_cache import enable as enable_build_cache
 
 
 def parse_args(args=None) -> tuple[argparse.Namespace, list[str]]:
@@ -103,6 +104,7 @@ def parse_args(args=None) -> tuple[argparse.Namespace, list[str]]:
 def main(args=None) -> dict | None:
     """Train R; → the run's record, or None when --resume_step leaves
     nothing to train."""
+    enable_build_cache()
     a, extra = parse_args(args)
     style = ("notes_grid" if a.notes_grid else "notes" if a.notes
              else "harmonic")

@@ -252,8 +252,8 @@ class TrainOptions(BaseOptions):
         p.add_argument("--steps_per_epoch", type=int, default=0,
                        help="0 = derive from dataset length / batchSize")
         p.add_argument("--tensorboard", action="store_true",
-                       help="TensorBoard event files (not ported yet: "
-                            "raises)")
+                       help="also write the losses as TensorBoard event "
+                            "files under <expr_dir>/tb")
         self.isTrain = True
 
 

@@ -1,4 +1,5 @@
-"""Utilities of the port: loss logs, result galleries, profiling."""
+"""Utilities of the port: loss logs (and TensorBoard event files),
+result galleries, profiling, the build cache and counts of work."""
 
 from .profiling import StepTimer, disable_debug_mode, enable_debug_mode, trace
 from .visualizer import HTMLGallery, Visualizer, spec_to_png, write_wav

@@ -4,8 +4,10 @@ The port's own copy of `viai_tpu/utils/visualizer.py` (numpy only):
 losses to stdout, loss_log.txt and loss_log.jsonl; the current
 spectrogram images to a static web/ page; and a gallery writer with
 spectrogram PNGs and wav files. PNGs are encoded with the standard
-library (zlib), so the port needs no imaging package. TensorBoard
-files are not written yet (ROADMAP "Utilities").
+library (zlib), so the port needs no imaging package. With
+`tensorboard=True` the losses also go to TensorBoard event files under
+expr_dir/tb, one global step per print_current_losses call, written by
+the port's own writer (utils/tensorboard.py); a write error raises.
 """
 
 from __future__ import annotations
@@ -19,17 +21,14 @@ import zlib
 
 import numpy as np
 
+from .tensorboard import SummaryWriter
+
 
 class Visualizer:
     """print_current_losses → stdout + loss_log.txt + loss_log.jsonl."""
 
     def __init__(self, expr_dir: str, name: str = "experiment",
                  tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError(
-                "TensorBoard logging is not ported yet (ROADMAP "
-                "'Utilities'); the losses go to loss_log.txt and "
-                "loss_log.jsonl")
         self.expr_dir = expr_dir
         self.name = name
         os.makedirs(expr_dir, exist_ok=True)
@@ -40,6 +39,9 @@ class Visualizer:
                 f"================ Training Loss ({time.strftime('%c')}) "
                 "================\n"
             )
+        self._tb = (SummaryWriter(os.path.join(expr_dir, "tb"))
+                    if tensorboard else None)
+        self._global_step = 0
 
     def display_current_results(self, visuals: dict, epoch: int):
         """Reference Visualizer API: write current spectrogram images to
@@ -88,6 +90,10 @@ class Visualizer:
                 {"epoch": epoch, "iters": iters, "t": time.time(), **{
                     k: float(v) for k, v in losses.items()}}
             ) + "\n")
+        if self._tb is not None:
+            self._global_step += 1
+            self._tb.write_scalars(
+                self._global_step, {k: float(v) for k, v in losses.items()})
 
 
 def _png_bytes(rgb: np.ndarray) -> bytes:
