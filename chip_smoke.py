@@ -82,7 +82,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      20 steps at batch 16 from the folder through the train CLI with
      prefetch (visuals on the GL kernel); the eval CLI on the musices
      test split; the loader's wait share of a step;
- 12. refiner training: [train refiner] runs the refiner CLI at its
+ 12. frame directories ([frames]): the native JPEG/PNG decoder
+     (csrc/imagedec.cpp) against PIL's decodes of the committed
+     fixtures of tests/torch_frames/ (JPEG within 1 level, PNG exact)
+     and against its plain twin data/image.py (exact), the directory
+     reader against the twin on the committed 224x224 jpeg clip; the
+     av model (the README's recipe) trained 20 steps at batch 16 from
+     [data]'s av clips with frame directories (copies of the clip, one
+     as PNG) through the train CLI, GL launches 2 and plain 0; the eval
+     CLI on a musices split of them; the loader's wait share over 10
+     steps, the decode time per frame and the host's cores;
+ 13. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
      R20_state.pt and checks it equals the uninterrupted one (cuDNN's
@@ -94,7 +104,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      [times train refiner]: steps/s, clips/s and TFLOP/s at batch 32,
      both domains, bf16 and float32, self-conditioning off and on, and
      one step by kernel;
- 13. the bench entry point: [bench] runs viai_tpu_torch.bench.main once
+ 14. the bench entry point: [bench] runs viai_tpu_torch.bench.main once
      per preset at its defaults (bf16 G and R, GL×32, batch 128) but
      --inner 8 for default (one CUDA graph of 8 chained calls) and
      --inner 1 for the refiner presets, batch 32 for the complex ones,
@@ -103,12 +113,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      clips, masks and injected noise, GL×1; bucket 8, the complex
      presets 2 clips); [profile bench] profiles one default call at
      batch 128 (busy share, kernel rows, elementwise share);
- 14. the mesh: [mesh] starts a 1-rank NCCL group from a file store;
+ 15. the mesh: [mesh] starts a 1-rank NCCL group from a file store;
      make_mesh() is 1x1, a tiny SGD step through make_train_step(mesh=)
      and a bucket-8 InpaintService(mesh=) request at full width equal
      their runs without a mesh bit for bit (launches counted), and the
      group is torn down;
- 15. the scripts ([scripts]): viai_tpu_torch.scripts.<name>.main at
+ 16. the scripts ([scripts]): viai_tpu_torch.scripts.<name>.main at
      full width, steps cut (SCRIPT_CUTS, printed): quality_report (and
      --long_gap) and av_ablation, their hole-PSNRs finite and train
      clips/s printed with the card; quality_long 20 steps with
@@ -120,10 +130,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      AVI with PCM at 22.05 kHz; a .mp4 skipped), manifest and download
      --dry_run, and 5 av train steps from the folder it prepared. Every
      record carries "package"; the GL launches are counted;
- 16. [tensorboard]: the train CLI with --tensorboard, 10 steps; the
+ 17. [tensorboard]: the train CLI with --tensorboard, 10 steps; the
      event file read back with the port's CRC-checking reader equals
      loss_log.jsonl;
- 17. [compile cache]: with VIAI_CACHE_DIR set, the GL kernel builds
+ 18. [compile cache]: with VIAI_CACHE_DIR set, the GL kernel builds
      there and loads again in 0.0 s; with VIAI_NO_CACHE=1 a fresh
      process builds it anew.
 The last two lines are the card's name and power limit (as nvidia-smi
@@ -277,6 +287,18 @@ DATA_TRAIN = {
     "av": ["--dataset_mode", "av", "--model", "av", "--gated",
            "--bottleneck_dilation", "1,2,4"],
 }
+# [frames]: the committed fixtures of tests/torch_frames/ (written with
+# PIL by tests/_torch_make_frames.py, which the card's machine cannot
+# run): small JPEG and PNG cases with PIL's decode of each (.npy) and a
+# 32-frame 224x224 quality-75 4:2:0 clip. Decoded against PIL: JPEG
+# within FRAMES_JPEG_TOL levels, PNG exact; against the plain twin
+# (data/image.py): exact. [data]'s av clips get frame directories: each
+# a copy of the clip, the last one the clip as PNG files.
+FRAMES_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
+    "torch_frames"
+FRAMES_JPEG_TOL = 1
+FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
+FRAMES_WARMUP = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
 # of 8 batches; a resume from R20_state.pt to 40 repeats the run.
@@ -1587,6 +1609,189 @@ def phase_data(dev, ckpt: str, card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Frame directories
+# ---------------------------------------------------------------------------
+
+def write_frame_dirs(root: pathlib.Path, wavs: list[str]) -> list[str]:
+    """A folder of the av clips `wavs` (copied) whose frames are
+    directories: the committed jpeg clip, the last one the clip as PNG
+    files written by the port's own writer; musices.json over them.
+    → the stems."""
+    from viai_tpu_torch import native
+    from viai_tpu_torch.utils.visualizer import _png_bytes
+
+    root.mkdir(parents=True)
+    clip = FRAMES_FIXTURES / "clip"
+    stems = []
+    for i, wav in enumerate(wavs):
+        stem = root / pathlib.Path(wav).stem
+        shutil.copy(wav, f"{stem}.wav")
+        if i < len(wavs) - 1:
+            shutil.copytree(clip, stem)
+        else:
+            stem.mkdir()
+            for f in sorted(clip.iterdir()):
+                (stem / f"{f.stem}.png").write_bytes(
+                    _png_bytes(native.decode_image(f.read_bytes())))
+        stems.append(str(stem))
+    entries = [{"audio": f"{pathlib.Path(s).name}.wav",
+                "frames": pathlib.Path(s).name} for s in stems]
+    with open(root / "musices.json", "w") as f:
+        json.dump({"train": entries[:10], "test": entries[10:]}, f)
+    return stems
+
+
+def phase_frames(dev, ckpt: str, card: str) -> int:
+    """Frame directories on the card ([frames]): (a) the native JPEG/PNG
+    decoder against PIL's committed decodes and against its plain twin,
+    and the directory reader against the twin; (b) the av model trained
+    20 steps at full width from jpeg/png frame directories through the
+    train CLI; (c) the eval CLI on a musices split of them; (d) the
+    loader's wait share of a step and the decode time per frame.
+    Returns the GL kernel's launches."""
+    from viai_tpu_torch import native
+    from viai_tpu_torch.cli.train import main as train_main
+    from viai_tpu_torch.data import create_dataloader, device_prefetch
+    from viai_tpu_torch.data import image
+    from viai_tpu_torch.model import VIAIModel
+
+    # (a) the decoders
+    worst = {".jpg": 0, ".png": 0}
+    differ = {".jpg": [0, 0], ".png": [0, 0]}
+    twin_equal = True
+    cases = sorted(p for p in FRAMES_FIXTURES.iterdir()
+                   if p.suffix in (".jpg", ".png"))
+    for path in cases:
+        data = path.read_bytes()
+        got = native.decode_image(data)
+        ref = np.load(path.with_suffix(".npy"))
+        require(got.shape == ref.shape, f"[frames] {path.name}: shape "
+                f"{got.shape}, PIL's {ref.shape}")
+        worst[path.suffix] = max(worst[path.suffix], int(np.abs(
+            got.astype(np.int64) - ref).max()))
+        differ[path.suffix][0] += int((got != ref).sum())
+        differ[path.suffix][1] += ref.size
+        twin_equal &= np.array_equal(got, image.decode_image_numpy(data))
+    clip = FRAMES_FIXTURES / "clip"
+    frames = sorted(clip.iterdir())
+    for path in (frames[0], frames[-1]):
+        data = path.read_bytes()
+        twin_equal &= np.array_equal(native.decode_image(data),
+                                     image.decode_image_numpy(data))
+    n, size, window = FRAMES_TWIN
+    dir_err = float(np.abs(native.load_frame_dir(str(clip), n, size, window)
+                           - image.frame_dir_numpy(str(clip), n, size,
+                                                   window)).max())
+    for ext, name in ((".jpg", "JPEG"), (".png", "PNG")):
+        k, total = differ[ext]
+        log(f"[frames] {name}: {sum(p.suffix == ext for p in cases)} "
+            f"fixtures against PIL's committed decodes: {k} of {total} "
+            f"bytes differ ({k / total:.3%}), max|Δ| {worst[ext]} levels "
+            f"({'exact' if k == 0 else 'not exact'}; bound "
+            f"{FRAMES_JPEG_TOL if ext == '.jpg' else 0})")
+    log(f"[frames] native against the plain twin (data/image.py), every "
+        f"fixture and clip frames 0 and {len(frames) - 1}: "
+        f"{'equal' if twin_equal else 'DIFFERENT'}; the directory reader on "
+        f"the clip ({n} frames of {window}, size {size}) max|Δ| "
+        f"{dir_err:.3e} (bound 0)")
+    require(worst[".jpg"] <= FRAMES_JPEG_TOL and worst[".png"] == 0,
+            "[frames] the native decoder disagrees with PIL")
+    require(twin_equal and dir_err == 0.0,
+            "[frames] the native decoder disagrees with its plain twin")
+
+    # (b) av training from frame directories
+    corpus = pathlib.Path(ckpt) / "corpus"
+    if not (corpus / "av").exists():
+        write_corpus(corpus)
+    root = pathlib.Path(ckpt) / "frames_corpus"
+    stems = write_frame_dirs(
+        root, sorted(str(p) for p in (corpus / "av").glob("*.wav")))
+    log(f"[frames] corpus: {len(stems)} wav files of [data] with frame "
+        f"directories ({len(stems) - 1} copies of the {len(frames)}-frame "
+        f"224x224 jpeg clip, one of it as PNG), musices.json")
+    args = data_train_args("av", ckpt, root)
+    args[args.index("--name") + 1] = "chip_frames_av"
+    args[args.index("--dataroot") + 1] = str(root)
+    zero_counts()
+    t0 = time.perf_counter()
+    model = train_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    losses = model.get_current_losses()
+    log(f"[frames] train av from frame directories: {TRAIN_STEPS} steps at "
+        f"batch {TRAIN_BATCH}, {FRAMES[0]} frames of {FRAMES[1]}x{FRAMES[2]} "
+        f"a clip, through viai_tpu_torch.cli.train in {wall:.1f} s incl. the "
+        f"loader's start; losses " + " ".join(f"{k} {v:.4f}"
+                                             for k, v in losses.items())
+        + f"; griffin_lim_cuda launches {launches}, plain {plain}")
+    require(all(np.isfinite(v) for v in losses.values()),
+            "[frames] train av: non-finite loss")
+    require(launches == TRAIN_STEPS // TRAIN_DISPLAY and plain == 0,
+            f"[frames] train av: GL launches {launches}, plain {plain}")
+    total = launches
+    del model
+
+    # (c) the eval CLI on a musices split of frame directories
+    _, launches = eval_arm(
+        "(frames) chip_frames_av on the musices test split of frame "
+        "directories",
+        ["--name", "chip_frames_av", "--checkpoints_dir", ckpt, "--gpu_ids",
+         "0", "--model", "av", "--gated", "--bottleneck_dilation", "1,2,4",
+         "--dataset_mode", "musices", "--dataroot",
+         str(root / "musices.json"), "--phase", "test", "--batchSize", "3",
+         "--how_many", "3", "--results_dir", os.path.join(ckpt, "results")],
+        3)
+    require(launches > 0, "[frames] the eval CLI launched no GL")
+    total += launches
+
+    # (d) the loader's wait share and the decode time
+    blobs = [p.read_bytes() for p in frames]
+    t0 = time.perf_counter()
+    for data in blobs:
+        native.decode_image(data)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(blobs)
+    t0 = time.perf_counter()
+    native.load_frame_dir(str(clip), len(frames), FRAMES[1], threads=1)
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    opt = parse_quietly(args)
+    model = VIAIModel(opt)
+    loader = create_dataloader(
+        opt.dataset_mode, opt.dataroot, opt.batchSize, CLIP, SR,
+        opt.nThreads, opt.n_video_frames, opt.frame_size, seed=opt.seed)
+    batches = device_prefetch(iter(loader), dev)
+    for _ in range(FRAMES_WARMUP):
+        model.set_input(next(batches))
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    wait = 0.0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        tw = time.perf_counter()
+        batch = next(batches)
+        wait += time.perf_counter() - tw
+        model.set_input(batch)
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cores = len(os.sched_getaffinity(0))
+    log(f"[frames] av from frame directories ({type(loader).__name__}, "
+        f"{opt.nThreads} workers of {loader.dataset.frame_threads} decode "
+        f"threads, prefetch depth 2): loader wait {wait * 1e3:.1f} ms "
+        f"of {wall * 1e3:.1f} ms wall over {TRAIN_TIMED_STEPS} steps after "
+        f"{FRAMES_WARMUP} ({wait / wall:.1%}), "
+        f"{wall * 1e3 / TRAIN_TIMED_STEPS:.1f} ms a step; decode "
+        f"{decode_ms:.3f} ms a 224x224 4:2:0 frame (native, one thread, "
+        f"from memory), {read_ms:.3f} ms read + decode + resize to "
+        f"{FRAMES[1]} (one thread); host {cores} cores (os.cpu_count "
+        f"{os.cpu_count()}); {card}")
+    del batches, model
+    if hasattr(loader, "close"):
+        loader.close()
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Refiner training
 # ---------------------------------------------------------------------------
 
@@ -2370,6 +2575,7 @@ def main():
         trains = {kind: phase_train(dev, kind, ckpt) for kind in TRAIN_MODELS}
         launches_eval = phase_eval(dev, ckpt, "chip_audio")
         launches_data = phase_data(dev, ckpt, card)
+        launches_frames = phase_frames(dev, ckpt, card)
         phase_train_refiner(dev, ckpt, "chip_audio")
         launches_trained = phase_eval_trained(dev, ckpt, "chip_audio")
     phase_train_reference(dev)
@@ -2401,7 +2607,8 @@ def main():
         "replaces": "viai_tpu/signal/pallas_gl.py:632",
         "launches": (launches_slice + launches_av + launches_options
                      + launches_train + launches_served + launches_refiner
-                     + launches_eval + launches_data + launches_trained
+                     + launches_eval + launches_data + launches_frames
+                     + launches_trained
                      + launches_bench + launches_mesh + launches_scripts),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
                              "options": launches_options,
@@ -2409,6 +2616,7 @@ def main():
                              "train_served": launches_served,
                              "refiner": launches_refiner,
                              "eval": launches_eval, "data": launches_data,
+                             "frames": launches_frames,
                              "refiner_trained": launches_trained,
                              "bench": launches_bench, "mesh": launches_mesh,
                              "scripts": launches_scripts},

@@ -32,6 +32,7 @@ from viai_tpu_torch import _build, native
 from viai_tpu_torch.data import audio, av, avi
 from viai_tpu_torch.data.loader import EpochSampler, create_dataloader
 from viai_tpu_torch.data.prefetch import device_prefetch
+from viai_tpu_torch.utils.visualizer import _png_bytes
 
 CLIP, N_FRAMES, SIZE, BATCH, N_TRAIN = 4032, 4, 16, 2, 4
 FRAMES_TOL = 1e-6
@@ -279,9 +280,12 @@ def test_device_prefetch_on_the_cpu(corpus):
 
 
 def test_unsupported_layouts_raise(tmp_path):
+    """Compressed video (and an AVI that claims MJPEG) raises, naming the
+    layout; a frame directory without frames and a missing source raise
+    FileNotFoundError."""
     stem = str(tmp_path / "clip")
     os.makedirs(stem)
-    with pytest.raises(NotImplementedError, match="directory of image"):
+    with pytest.raises(FileNotFoundError, match="no frames"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     os.rmdir(stem)
     open(stem + ".mp4", "wb").close()
@@ -297,6 +301,20 @@ def test_unsupported_layouts_raise(tmp_path):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     with pytest.raises(FileNotFoundError):
         av.load_frames_for(str(tmp_path / "none"), N_FRAMES, SIZE)
+
+
+def test_frame_directory_loads(tmp_path):
+    """A directory of frames is read (tests/test_torch_frames.py holds it
+    against the JAX package): the window's frames, resized, in [0, 1]."""
+    stem = tmp_path / "clip"
+    stem.mkdir()
+    rng = np.random.default_rng(4)
+    for t in range(3):
+        (stem / f"{t}.png").write_bytes(_png_bytes(
+            rng.integers(0, 256, (12, 10, 3), np.uint8)))
+    out = av.load_frames_for(str(stem), N_FRAMES, SIZE)
+    assert out.shape == (N_FRAMES, SIZE, SIZE, 3) and out.dtype == np.float32
+    assert 0.0 <= out.min() and out.max() <= 1.0 and out.std() > 0.05
 
 
 @pytest.mark.parametrize("cxx", ["/nonexistent/g++", "false"])

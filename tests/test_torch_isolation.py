@@ -1,9 +1,10 @@
 """Rules of the port: isolation from JAX and explicit devices.
 
 viai_tpu_torch (and chip_smoke.py, which drives it on the card) imports
-torch and numpy, never jax, flax or any module of viai_tpu; its entry
-points run on the card unless the caller asks for the CPU, and raise
-when there is no card rather than fall back quietly.
+torch and numpy, never jax, flax or any module of viai_tpu, nor PIL or
+cv2, which the card's machine does not have; its entry points run on
+the card unless the caller asks for the CPU, and raise when there is no
+card rather than fall back quietly.
 """
 
 import ast
@@ -17,7 +18,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "chex", "optax", "orbax", "clu",
-             "tensorboard", "tensorflow", "viai_tpu")
+             "tensorboard", "tensorflow", "viai_tpu", "PIL", "cv2")
 
 _PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys
@@ -46,7 +47,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     for mod in ("train.step", "model", "cli.train", "cli.test",
                 "nn.refiner", "train.diffusion", "train.preprocess",
                 "utils.metrics", "cli.train_refiner", "native",
-                "data.audio", "data.av", "data.avi", "data.loader",
+                "data.audio", "data.av", "data.avi", "data.image",
+                "data.loader",
                 "data.prefetch", "utils.tensorboard", "utils.compile_cache",
                 "utils.cost", "scripts._quality", "scripts.quality_report",
                 "scripts.av_ablation", "scripts.quality_long",

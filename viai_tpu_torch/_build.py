@@ -8,9 +8,10 @@ as it is:
 
   * each `csrc/<name>.cu`, a CUDA kernel for sm_90a, by nvcc;
   * `native`, the host data loader (`csrc/wavio.cpp`,
-    `csrc/framestack.cpp`: WAV decode, resampling, the threaded clip
-    loader, the frame-stack reader), by the C++ compiler ($CXX, else
-    g++).
+    `csrc/framestack.cpp`, `csrc/imagedec.cpp`: WAV decode, resampling,
+    the threaded clip loader, the frame-stack reader, the JPEG and PNG
+    decoder and the frame-directory reader), by the C++ compiler ($CXX,
+    else g++).
 
 Targets are compiled in parallel, one compiler process each. A failed
 build raises. The directory is read at build time (`cache_dir`):
@@ -38,7 +39,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17", "-Wall")
-HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp")}
+HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp", "imagedec.cpp")}
 _cache_dir: Path | None = None      # set_cache_dir; BUILD_DIR when unset
 
 

@@ -10,14 +10,20 @@ The port's copy of `viai_tpu/data/av.py`. The frames of a clip
     reader refuses: uint8 scaled to [0, 1], other dtypes taken as
     [0, 1], and a resize through 8-bit frames with Pillow's bilinear
     filter in its fixed-point arithmetic;
+  * `<stem>/`, a directory of jpeg or png frames (the names ending in
+    .jpg, .jpeg or .png, any case, sorted), through the native reader
+    (native.py: the picked files decoded by the port's own JPEG and PNG
+    decoder, csrc/imagedec.cpp, what PIL gives; Pillow's 8-bit BILINEAR
+    resize; [0, 1] float32; data/image.py is its plain twin);
   * `<stem>.avi`, uncompressed ('RGBA' 32-bit or BI_RGB 24-bit
     bottom-up, as data/avi.py writes and reads), through the native
     reader.
-A directory of jpeg or png frames and compressed video (`.mp4`,
-`.mkv`, `.webm`, compressed `.avi`) raise NotImplementedError naming
-the layout: the JAX package reads them with PIL and cv2, which the port
-does not import. A MUSICES-style JSON manifest {split: [{"audio": ...,
-"frames": ...}]} is read by MusicesManifest.
+Compressed video (`.mp4`, `.mkv`, `.webm`, compressed `.avi` such as
+MJPEG) raises NotImplementedError naming the layout: the JAX package
+decodes it with cv2, which the port does not import, so there is no
+reference beside it to hold a port against. A MUSICES-style
+JSON manifest {split: [{"audio": ..., "frames": ...}]} is read by
+MusicesManifest.
 """
 
 from __future__ import annotations
@@ -142,21 +148,20 @@ def resample_frames(arr: np.ndarray, n_frames: int, size: int,
 
 
 def load_frames_for(stem: str, n_frames: int, size: int,
-                    window: tuple[float, float] | None = None) -> np.ndarray:
+                    window: tuple[float, float] | None = None,
+                    frame_threads: int | None = None) -> np.ndarray:
     """The frames of `<stem>` in the layout found first: `.npy`, then a
     frame directory, then video. `window` = (t0_frac, t1_frac) of the
-    source's duration picks the frames aligned with the audio crop."""
+    source's duration picks the frames aligned with the audio crop;
+    `frame_threads` decode a frame directory (None: one a core)."""
     if os.path.exists(stem + ".npy"):
         arr = np.load(stem + ".npy", mmap_mode="r")
         if arr.dtype == np.uint8 and arr.flags.c_contiguous:
             return native.load_frames(stem + ".npy", n_frames, size, window)
         return resample_frames(arr, n_frames, size, window)
     if os.path.isdir(stem):
-        raise NotImplementedError(
-            f"{stem}/: a directory of image frames is not read by "
-            f"viai_tpu_torch (the JAX package decodes it with PIL); store "
-            f"the clip's frames as {os.path.basename(stem)}.npy, a "
-            f"(T, H, W, 3) uint8 stack, or as an uncompressed AVI")
+        return native.load_frame_dir(stem, n_frames, size, window,
+                                     frame_threads)
     if os.path.exists(stem + ".avi"):
         return native.load_frames(stem + ".avi", n_frames, size, window)
     for ext in COMPRESSED_VIDEO:
@@ -164,8 +169,9 @@ def load_frames_for(stem: str, n_frames: int, size: int,
             raise NotImplementedError(
                 f"{stem}{ext}: compressed video is not read by "
                 f"viai_tpu_torch (the JAX package decodes it with cv2); "
-                f"store the clip's frames as {os.path.basename(stem)}.npy "
-                f"or as an uncompressed AVI")
+                f"store the clip's frames as {os.path.basename(stem)}.npy, "
+                f"as a directory of jpeg or png frames or as an "
+                f"uncompressed AVI")
     raise FileNotFoundError(f"no frame source for {stem}")
 
 
@@ -179,21 +185,25 @@ def _crop_window(start: int, clip_samples: int, total: int):
 
 class AVFolderDataset(AudioFolderDataset):
     """idx → {'wav': (S,), 'frames': (T, H, W, 3) float32 in [0, 1]}, the
-    frames those of the audio crop."""
+    frames those of the audio crop; a frame directory is decoded over
+    `frame_threads` threads (None: one a core)."""
 
     def __init__(self, root: str, clip_samples: int = 32000,
                  sample_rate: int = 16000, n_frames: int = 16,
-                 frame_size: int = 64, seed: int = 0):
+                 frame_size: int = 64, seed: int = 0,
+                 frame_threads: int | None = None):
         super().__init__(root, clip_samples, sample_rate, seed)
         self.n_frames = n_frames
         self.frame_size = frame_size
+        self.frame_threads = frame_threads
 
     def __getitem__(self, idx: int):
         item, start, total = self.load_cropped(idx)
         stem = os.path.splitext(self.paths[int(idx) % len(self.paths)])[0]
         item["frames"] = load_frames_for(
             stem, self.n_frames, self.frame_size,
-            window=_crop_window(start, self.clip_samples, total))
+            window=_crop_window(start, self.clip_samples, total),
+            frame_threads=self.frame_threads)
         return item
 
 
@@ -202,12 +212,14 @@ class MusicesManifest:
 
     Schema: {"train": [{"audio": path, "frames": path}, ...], "test":
     [...]}, paths relative to the manifest's directory; "frames" is
-    optional.
+    optional (a frame directory is decoded over `frame_threads` threads,
+    None: one a core).
     """
 
     def __init__(self, manifest_path: str, split: str = "train",
                  clip_samples: int = 32000, sample_rate: int = 16000,
-                 n_frames: int = 16, frame_size: int = 64, seed: int = 0):
+                 n_frames: int = 16, frame_size: int = 64, seed: int = 0,
+                 frame_threads: int | None = None):
         with open(manifest_path) as f:
             manifest = json.load(f)
         if split not in manifest:
@@ -223,6 +235,7 @@ class MusicesManifest:
         self.n_frames = n_frames
         self.frame_size = frame_size
         self.seed = seed
+        self.frame_threads = frame_threads
 
     def __len__(self):
         return len(self.entries)
@@ -237,5 +250,6 @@ class MusicesManifest:
             stem = os.path.splitext(e["frames"])[0]
             item["frames"] = load_frames_for(
                 stem, self.n_frames, self.frame_size,
-                window=_crop_window(start, self.clip_samples, total))
+                window=_crop_window(start, self.clip_samples, total),
+                frame_threads=self.frame_threads)
         return item

@@ -9,11 +9,13 @@ dataset's indices in order. The folder modes (`audio`, `av`,
 clip loader (`NativeAudioIterator`) unless prefer_native is False;
 every other request a `torch.utils.data.DataLoader` over the dataset
 (`nThreads` worker processes, started by spawn, and pinned batches on
-a card's machine), where the JAX package uses grain. Item idx of a
-dataset is a function of (seed, idx) and equals the JAX package's;
-the order in which indices are drawn is the port's own, and each epoch
-reads fresh crops (the JAX package varies them in endless shuffled
-runs only).
+a card's machine), where the JAX package uses grain; a frame
+directory's files are decoded over threads inside each worker, the
+host's cores divided among the workers (`frame_threads`). Item
+idx of a dataset is a function of (seed, idx) and equals the JAX
+package's; the order in which indices are drawn is the port's own, and
+each epoch reads fresh crops (the JAX package varies them in endless
+shuffled runs only).
 """
 
 from __future__ import annotations
@@ -97,6 +99,14 @@ def collate(items: list[dict]) -> dict[str, torch.Tensor]:
     return torch.utils.data.default_collate(
         [{k: np.asarray(v, np.float32) for k, v in it.items()}
          for it in items])
+
+
+def frame_threads(n_workers: int) -> int:
+    """Decode threads of each frame-directory read when `n_workers`
+    DataLoader workers (0: the main process) read at once: the host's
+    cores divided among them, at least one, so that workers × threads
+    do not oversubscribe the host."""
+    return max(native.host_cores() // max(n_workers, 1), 1)
 
 
 def torch_loader(source, batch_size: int, n_workers: int, seed: int,
@@ -184,10 +194,11 @@ def create_dataloader(
         src = AudioFolderDataset(dataroot, clip_samples, sample_rate, seed)
     elif dataset_mode == "av":
         src = AVFolderDataset(dataroot, clip_samples, sample_rate, n_frames,
-                              frame_size, seed)
+                              frame_size, seed, frame_threads(n_threads))
     else:
         src = MusicesManifest(dataroot, split, clip_samples, sample_rate,
-                              n_frames, frame_size, seed)
+                              n_frames, frame_size, seed,
+                              frame_threads(n_threads))
     native.library()     # built here, once, before any worker starts
     return torch_loader(src, batch_size, n_threads, seed, shuffle=shuffle,
                         num_epochs=num_epochs)

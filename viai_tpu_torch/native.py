@@ -1,18 +1,22 @@
 """ctypes bindings of the port's native host library (csrc/wavio.cpp,
-csrc/framestack.cpp).
+csrc/framestack.cpp, csrc/imagedec.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
 AVI: window select, Pillow-style triangle resize, [0, 1] float32) and
-the threaded random-crop clip loader. `_build.py` compiles the library
-with g++ at first use; a failed build raises, and there is no flag to
-go without it (the JAX module falls back to numpy quietly).
+the threaded random-crop clip loader; and, where the JAX package calls
+PIL, the JPEG and PNG decoder (`decode_image`) and the frame-directory
+reader (`load_frame_dir`), whose plain twin is `data/image.py`.
+`_build.py` compiles the library with g++ at first use; a failed build
+raises, and there is no flag to go without it (the JAX module falls
+back to numpy quietly).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 
@@ -46,6 +50,17 @@ def library() -> ctypes.CDLL:
     lib.viai_load_frames.argtypes = [
         ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
         ctypes.c_float, _F32P]
+    lib.viai_decode_image.restype = ctypes.c_void_p
+    lib.viai_decode_image.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32]
+    lib.viai_image_free.restype = None
+    lib.viai_image_free.argtypes = [ctypes.c_void_p]
+    lib.viai_load_frame_dir.restype = ctypes.c_int32
+    lib.viai_load_frame_dir.argtypes = [
+        ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
+        ctypes.c_double, ctypes.c_int32, _F32P, ctypes.c_char_p,
+        ctypes.c_int32]
     return lib
 
 
@@ -103,6 +118,73 @@ def load_frames(path: str, n_frames: int, size: int,
                                   f"by viai_tpu_torch")
     if rc != 0:
         raise ValueError(f"native frame decode failed ({rc}) for {path}")
+    return out
+
+
+# imagedec.cpp's codes: 1 a broken file, 2 a variant it does not read,
+# 3 a directory without frames.
+_IMAGE_ERRORS = {1: ValueError, 2: NotImplementedError,
+                 3: FileNotFoundError}
+_ERR_LEN = 512
+
+
+def host_cores() -> int:
+    """The cores this process may run on."""
+    return len(os.sched_getaffinity(0))
+
+
+def _image_error(code: int, err) -> Exception:
+    msg = err.value.decode(errors="replace")
+    return _IMAGE_ERRORS[code](f"{msg} (viai_tpu_torch's decoder)")
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """JPEG or PNG bytes → (H, W, 3) uint8, what PIL's
+    `Image.open(...).convert("RGB")` gives (JPEG as libjpeg-turbo
+    decodes it at PIL's settings). Raises ValueError for a broken file,
+    NotImplementedError for a variant it does not read (arithmetic,
+    12-bit, lossless or CMYK JPEG, another format)."""
+    lib = library()
+    hw = (ctypes.c_int32 * 2)()
+    code = ctypes.c_int32(0)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    ptr = lib.viai_decode_image(data, len(data), hw, ctypes.byref(code), err,
+                                _ERR_LEN)
+    if not ptr:
+        raise _image_error(code.value, err)
+    try:
+        return np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)),
+            shape=(hw[0], hw[1], 3)).copy()
+    finally:
+        lib.viai_image_free(ptr)
+
+
+def load_frame_dir(path: str, n_frames: int, size: int,
+                   window: tuple[float, float] | None = None,
+                   threads: int | None = None) -> np.ndarray:
+    """A directory of jpeg/png frames → (n_frames, size, size, 3) float32
+    in [0, 1], as `viai_tpu/data/av.py::_load_frames_dir` computes it:
+    the names ending in .jpg, .jpeg or .png (any case) in sorted order,
+    the frames at round(linspace(w0·(T−1), w1·(T−1), n_frames)) in
+    float64 over the fractional `window` (all of it by default), each
+    decoded (only the picked files, over `threads` threads made for the
+    call, by default one a core), resized by Pillow's 8-bit BILINEAR and
+    / 255. Raises FileNotFoundError for a directory without frames,
+    ValueError for a broken file and NotImplementedError for one it does
+    not read."""
+    if n_frames < 1 or size < 1:
+        raise ValueError(f"n_frames {n_frames} and size {size} must be "
+                         f"positive")
+    w0, w1 = (0.0, 1.0) if window is None else window
+    out = np.empty((n_frames, size, size, 3), np.float32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    code = library().viai_load_frame_dir(
+        os.fsencode(path), n_frames, size, float(w0), float(w1),
+        host_cores() if threads is None else max(int(threads), 1),
+        _ptr(out), err, _ERR_LEN)
+    if code:
+        raise _image_error(code, err)
     return out
 
 
