@@ -92,7 +92,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      as PNG) through the train CLI, GL launches 2 and plain 0; the eval
      CLI on a musices split of them; the loader's wait share over 10
      steps, the decode time per frame and the host's cores;
- 13. refiner training: [train refiner] runs the refiner CLI at its
+ 13. compressed video ([video]): the native demuxers and decoders
+     (csrc/videodec.cpp, csrc/mpeg4.cpp) on the committed fixtures of
+     tests/torch_videos/ against cv2's committed decodes and frame
+     counts (MJPEG within 1 level, MPEG-4 Part 2 within 2), a VP8 webm
+     raising NotImplementedError; the av model (the README's recipe)
+     trained 20 steps at batch 16 from [data]'s av clips given the
+     committed 224x224 video files as frames (MJPEG .avi, MPEG-4 .mp4
+     and .mkv, and a MOV made a stack by prepare_dataset extract), GL
+     launches 2 and plain 0; the eval CLI on a musices split of them;
+     the decode time per frame of each codec, a clip's read of 16
+     frames, the loader's wait share of a step and the host's cores;
+ 14. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
      R20_state.pt and checks it equals the uninterrupted one (cuDNN's
@@ -104,7 +115,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      [times train refiner]: steps/s, clips/s and TFLOP/s at batch 32,
      both domains, bf16 and float32, self-conditioning off and on, and
      one step by kernel;
- 14. the bench entry point: [bench] runs viai_tpu_torch.bench.main once
+ 15. the bench entry point: [bench] runs viai_tpu_torch.bench.main once
      per preset at its defaults (bf16 G and R, GL×32, batch 128) but
      --inner 8 for default (one CUDA graph of 8 chained calls) and
      --inner 1 for the refiner presets, batch 32 for the complex ones,
@@ -113,12 +124,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      clips, masks and injected noise, GL×1; bucket 8, the complex
      presets 2 clips); [profile bench] profiles one default call at
      batch 128 (busy share, kernel rows, elementwise share);
- 15. the mesh: [mesh] starts a 1-rank NCCL group from a file store;
+ 16. the mesh: [mesh] starts a 1-rank NCCL group from a file store;
      make_mesh() is 1x1, a tiny SGD step through make_train_step(mesh=)
      and a bucket-8 InpaintService(mesh=) request at full width equal
      their runs without a mesh bit for bit (launches counted), and the
      group is torn down;
- 16. the scripts ([scripts]): viai_tpu_torch.scripts.<name>.main at
+ 17. the scripts ([scripts]): viai_tpu_torch.scripts.<name>.main at
      full width, steps cut (SCRIPT_CUTS, printed): quality_report (and
      --long_gap) and av_ablation, their hole-PSNRs finite and train
      clips/s printed with the card; quality_long 20 steps with
@@ -127,13 +138,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      served by the eval CLI (16 clips) and diagnosed by grid_diag;
      bayes_ceiling; cost_analysis at batch 128, where G's forward must
      read 128 x 18.40 GFLOP; prepare_dataset's synthetic, extract (an
-     AVI with PCM at 22.05 kHz; a .mp4 skipped), manifest and download
+     AVI with PCM at 22.05 kHz; a broken .mp4 skipped), manifest and download
      --dry_run, and 5 av train steps from the folder it prepared. Every
      record carries "package"; the GL launches are counted;
- 17. [tensorboard]: the train CLI with --tensorboard, 10 steps; the
+ 18. [tensorboard]: the train CLI with --tensorboard, 10 steps; the
      event file read back with the port's CRC-checking reader equals
      loss_log.jsonl;
- 18. [compile cache]: with VIAI_CACHE_DIR set, the GL kernel builds
+ 19. [compile cache]: with VIAI_CACHE_DIR set, the GL kernel builds
      there and loads again in 0.0 s; with VIAI_NO_CACHE=1 a fresh
      process builds it anew.
 The last two lines are the card's name and power limit (as nvidia-smi
@@ -299,6 +310,20 @@ FRAMES_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
 FRAMES_JPEG_TOL = 1
 FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
 FRAMES_WARMUP = 3
+# [video]: the committed fixtures of tests/torch_videos/ (written with cv2
+# by tests/_torch_make_videos.py, which the card's machine cannot run):
+# MJPEG and MPEG-4 Part 2 clips in AVI, MP4, MOV and Matroska with cv2's
+# decode of their first, middle and last frames and its frame count
+# (.npz), a VP8 webm, and the first frames of the 224x224 jpeg clip as
+# clip.avi (MJPEG), clip.mp4 and clip.mkv (MPEG-4) and clip.mov (MJPEG).
+# Decoded against cv2 within VIDEO_TOL levels (measured 0 on the CPU).
+# [data]'s av clips get these files as their frames; the .mov, which
+# load_frames_for does not look for (as in the JAX package), becomes a
+# frame stack through prepare_dataset extract.
+VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
+    "torch_videos"
+VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2}
+VIDEO_REPS = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
 # of 8 batches; a resume from R20_state.pt to 40 repeats the run.
@@ -1792,6 +1817,198 @@ def phase_frames(dev, ckpt: str, card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Compressed video
+# ---------------------------------------------------------------------------
+
+def write_video_clips(root: pathlib.Path, wavs: list[str]) -> list[str]:
+    """A folder of the av clips `wavs` (copied) whose frames are the
+    committed video files: clip.avi (MJPEG) and clip.mp4 (MPEG-4) in
+    turn, clip.mkv for the second to last, and for the last clip.mov
+    made a frame stack by prepare_dataset extract; musices.json over
+    them. → the frame file of each clip."""
+    from viai_tpu_torch.scripts import prepare_dataset
+
+    root.mkdir(parents=True)
+    files = []
+    for i, wav in enumerate(wavs):
+        stem = root / pathlib.Path(wav).stem
+        shutil.copy(wav, f"{stem}.wav")
+        if i == len(wavs) - 1:
+            raw = root.parent / "video_raw"
+            raw.mkdir()
+            shutil.copy(VIDEO_FIXTURES / "clip.mov", raw / f"{stem.name}.mov")
+            rec = prepare_dataset.main([
+                "extract", "--root", str(raw), "--out", str(root),
+                "--results_dir", str(root.parent / "video_res")])
+            require((rec["clips"], rec["frames_only"], rec["skipped"])
+                    == (0, 1, 0), f"[video] prepare_dataset extract: {rec}")
+            files.append(f"{stem}.npy")
+            continue
+        ext = ".mkv" if i == len(wavs) - 2 else (".avi", ".mp4")[i % 2]
+        shutil.copy(VIDEO_FIXTURES / f"clip{ext}", f"{stem}{ext}")
+        files.append(f"{stem}{ext}")
+    entries = [{"audio": f"{pathlib.Path(f).stem}.wav",
+                "frames": pathlib.Path(f).name} for f in files]
+    with open(root / "musices.json", "w") as f:
+        json.dump({"train": entries[:10], "test": entries[10:]}, f)
+    return files
+
+
+def phase_video(dev, ckpt: str, card: str) -> int:
+    """Compressed video on the card ([video]): (a) native.decode_video on
+    the committed fixtures against cv2's committed decodes and frame
+    counts, the unread codec raising; (b) the av model trained 20 steps
+    at full width from MJPEG and MPEG-4 clips (AVI, MP4, Matroska, and a
+    MOV through prepare_dataset extract) through the train CLI; (c) the
+    eval CLI on a musices split of them; (d) the decode time per frame
+    of each codec, a clip's read, the loader's wait share of a step.
+    Returns the GL kernel's launches."""
+    from viai_tpu_torch import native
+    from viai_tpu_torch.cli.train import main as train_main
+    from viai_tpu_torch.data import create_dataloader, device_prefetch
+    from viai_tpu_torch.model import VIAIModel
+
+    # (a) the decoders against cv2's committed decodes
+    worst = {"mjpeg": 0, "mpeg4": 0}
+    n_frames = {"mjpeg": 0, "mpeg4": 0}
+    cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
+    for npz in cases:
+        path = next(p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
+                    if p.suffix != ".npz")
+        ref = np.load(npz)
+        track = native.video_track(str(path), packets=False)
+        got = native.decode_video(str(path))
+        require(got.shape[0] == int(ref["n"]) and got.shape[1:] ==
+                ref["frames"].shape[1:], f"[video] {path.name}: "
+                f"{got.shape}, cv2's {int(ref['n'])} of "
+                f"{ref['frames'].shape[1:]}")
+        require(track.count == int(ref["count"]), f"[video] {path.name}: "
+                f"count {track.count}, cv2's {int(ref['count'])}")
+        err = int(np.abs(got[ref["index"]].astype(np.int64)
+                         - ref["frames"]).max())
+        worst[track.codec] = max(worst[track.codec], err)
+        n_frames[track.codec] += len(ref["index"])
+    for codec, name in (("mjpeg", "MJPEG"), ("mpeg4", "MPEG-4 Part 2")):
+        log(f"[video] {name}: {n_frames[codec]} frames of the committed "
+            f"fixtures against cv2's decodes: max|Δ| {worst[codec]} levels "
+            f"(bound {VIDEO_TOL[codec]}); counts equal cv2's")
+    require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
+            "[video] the native decoders disagree with cv2")
+    try:
+        native.decode_video(str(VIDEO_FIXTURES / "vp8_webm.webm"))
+        require(False, "[video] VP8 decoded")
+    except NotImplementedError as e:
+        log(f"[video] vp8_webm.webm raises NotImplementedError: {e}")
+
+    # (b) av training from video files
+    corpus = pathlib.Path(ckpt) / "corpus"
+    if not (corpus / "av").exists():
+        write_corpus(corpus)
+    root = pathlib.Path(ckpt) / "video_corpus" / "av"
+    files = write_video_clips(
+        root, sorted(str(p) for p in (corpus / "av").glob("*.wav")))
+    kinds = {}
+    for f in files:
+        kinds[pathlib.Path(f).suffix] = kinds.get(pathlib.Path(f).suffix,
+                                                  0) + 1
+    log(f"[video] corpus: {len(files)} wav files of [data] with video "
+        f"frames (" + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items()))
+        + "; the .npy from clip.mov through prepare_dataset extract), "
+        "musices.json")
+    args = data_train_args("av", ckpt, root)
+    args[args.index("--name") + 1] = "chip_video_av"
+    args[args.index("--dataroot") + 1] = str(root)
+    zero_counts()
+    t0 = time.perf_counter()
+    model = train_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    losses = model.get_current_losses()
+    log(f"[video] train av from video files: {TRAIN_STEPS} steps at batch "
+        f"{TRAIN_BATCH}, {FRAMES[0]} frames of {FRAMES[1]}x{FRAMES[2]} a "
+        f"clip, through viai_tpu_torch.cli.train in {wall:.1f} s incl. the "
+        f"loader's start; losses " + " ".join(f"{k} {v:.4f}"
+                                             for k, v in losses.items())
+        + f"; griffin_lim_cuda launches {launches}, plain {plain}")
+    require(all(np.isfinite(v) for v in losses.values()),
+            "[video] train av: non-finite loss")
+    require(launches == TRAIN_STEPS // TRAIN_DISPLAY and plain == 0,
+            f"[video] train av: GL launches {launches}, plain {plain}")
+    total = launches
+    del model
+
+    # (c) the eval CLI on a musices split of video clips
+    zero_counts()
+    _, launches = eval_arm(
+        "(video) chip_video_av on the musices test split of video clips",
+        ["--name", "chip_video_av", "--checkpoints_dir", ckpt, "--gpu_ids",
+         "0", "--model", "av", "--gated", "--bottleneck_dilation", "1,2,4",
+         "--dataset_mode", "musices", "--dataroot",
+         str(root / "musices.json"), "--phase", "test", "--batchSize", "3",
+         "--how_many", "3", "--results_dir", os.path.join(ckpt, "results")],
+        3)
+    require(launches > 0 and griffin_lim.calls == 0,
+            f"[video] the eval CLI: GL launches {launches}, plain "
+            f"{griffin_lim.calls}")
+    total += launches
+
+    # (d) decode and read times, the loader's wait share
+    def best_ms(fn) -> float:
+        out = []
+        for _ in range(VIDEO_REPS):
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return min(out)
+
+    times = {}
+    for ext, codec in ((".avi", "MJPEG"), (".mp4", "MPEG-4"),
+                       (".mkv", "MPEG-4")):
+        path = str(VIDEO_FIXTURES / f"clip{ext}")
+        n = native.video_track(path, packets=False).count
+        dec = best_ms(lambda: native.decode_video(path)) / n
+        read = best_ms(lambda: native.load_video_frames(path, FRAMES[0],
+                                                        FRAMES[1]))
+        times[ext] = (codec, n, dec, read)
+        log(f"[video] clip{ext} ({codec}, {n} frames of 224x224): decode "
+            f"{dec:.3f} ms a frame (demux, decode, BGR; one thread), "
+            f"{read:.3f} ms to read {FRAMES[0]} frames at {FRAMES[1]}x"
+            f"{FRAMES[2]} (load_video_frames, one thread)")
+    opt = parse_quietly(args)
+    model = VIAIModel(opt)
+    loader = create_dataloader(
+        opt.dataset_mode, opt.dataroot, opt.batchSize, CLIP, SR,
+        opt.nThreads, opt.n_video_frames, opt.frame_size, seed=opt.seed)
+    batches = device_prefetch(iter(loader), dev)
+    for _ in range(FRAMES_WARMUP):
+        model.set_input(next(batches))
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    wait = 0.0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        tw = time.perf_counter()
+        batch = next(batches)
+        wait += time.perf_counter() - tw
+        model.set_input(batch)
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cores = len(os.sched_getaffinity(0))
+    log(f"[video] av from video files ({type(loader).__name__}, "
+        f"{opt.nThreads} workers, prefetch depth 2): loader wait "
+        f"{wait * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall over "
+        f"{TRAIN_TIMED_STEPS} steps after {FRAMES_WARMUP} "
+        f"({wait / wall:.1%}), {wall * 1e3 / TRAIN_TIMED_STEPS:.1f} ms a "
+        f"step; host {cores} cores (os.cpu_count {os.cpu_count()}); {card}")
+    del batches, model
+    if hasattr(loader, "close"):
+        loader.close()
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Refiner training
 # ---------------------------------------------------------------------------
 
@@ -2576,6 +2793,7 @@ def main():
         launches_eval = phase_eval(dev, ckpt, "chip_audio")
         launches_data = phase_data(dev, ckpt, card)
         launches_frames = phase_frames(dev, ckpt, card)
+        launches_video = phase_video(dev, ckpt, card)
         phase_train_refiner(dev, ckpt, "chip_audio")
         launches_trained = phase_eval_trained(dev, ckpt, "chip_audio")
     phase_train_reference(dev)
@@ -2608,7 +2826,7 @@ def main():
         "launches": (launches_slice + launches_av + launches_options
                      + launches_train + launches_served + launches_refiner
                      + launches_eval + launches_data + launches_frames
-                     + launches_trained
+                     + launches_video + launches_trained
                      + launches_bench + launches_mesh + launches_scripts),
         "launches_by_path": {"slice": launches_slice, "av": launches_av,
                              "options": launches_options,
@@ -2617,6 +2835,7 @@ def main():
                              "refiner": launches_refiner,
                              "eval": launches_eval, "data": launches_data,
                              "frames": launches_frames,
+                             "video": launches_video,
                              "refiner_trained": launches_trained,
                              "bench": launches_bench, "mesh": launches_mesh,
                              "scripts": launches_scripts},

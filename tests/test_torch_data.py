@@ -280,16 +280,17 @@ def test_device_prefetch_on_the_cpu(corpus):
 
 
 def test_unsupported_layouts_raise(tmp_path):
-    """Compressed video (and an AVI that claims MJPEG) raises, naming the
-    layout; a frame directory without frames and a missing source raise
-    FileNotFoundError."""
+    """A video file of a codec the port does not read raises
+    NotImplementedError naming it, a broken one (an empty .mp4, an AVI
+    that claims MJPEG over raw pixels) ValueError; a frame directory
+    without frames and a missing source raise FileNotFoundError."""
     stem = str(tmp_path / "clip")
     os.makedirs(stem)
     with pytest.raises(FileNotFoundError, match="no frames"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     os.rmdir(stem)
     open(stem + ".mp4", "wb").close()
-    with pytest.raises(NotImplementedError, match="compressed video"):
+    with pytest.raises(ValueError, match="not an AVI, MP4/MOV or Matroska"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     os.remove(stem + ".mp4")
     avi.write_avi(stem + ".avi", np.zeros((2, 8, 8, 3), np.uint8), 10)
@@ -297,7 +298,11 @@ def test_unsupported_layouts_raise(tmp_path):
         data = f.read()
     with open(stem + ".avi", "wb") as f:     # claim MJPG compression
         f.write(data.replace(b"RGBA", b"MJPG"))
-    with pytest.raises(NotImplementedError, match="compressed"):
+    with pytest.raises(ValueError, match="MJPEG"):
+        av.load_frames_for(stem, N_FRAMES, SIZE)
+    with open(stem + ".avi", "wb") as f:     # claim H.264
+        f.write(data.replace(b"RGBA", b"H264"))
+    with pytest.raises(NotImplementedError, match="H.264"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     with pytest.raises(FileNotFoundError):
         av.load_frames_for(str(tmp_path / "none"), N_FRAMES, SIZE)

@@ -17,8 +17,10 @@
   * prepare_dataset: `synthetic` writes byte-equal files, `manifest`
     equal JSON, `download` the same plan and dry-run output, `extract`
     of a raw AVI (PCM at 22.05 kHz) an equal .npy and a byte-equal .wav
-    (both resample through the same native source); a .mp4 is skipped
-    with its reason and --require_audio then exits 1;
+    (both resample through the same native source); a broken .mp4 is
+    skipped with its reason and --require_audio then exits 1; `extract`
+    and `frames` over mp4v, MJPEG, .mov and VP8 clips give the JAX
+    script's stacks, the port listing the VP8 clip as skipped;
   * quality_report.run and quality_long write their records (with
     "package") under --results_dir, not to scripts/quality_results.jsonl;
     quality_long's nets load in cli.test and grid_diag, a resume loads
@@ -32,6 +34,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -356,8 +360,7 @@ def test_prepare_skips_compressed_video(tmp_path, capsys):
             str(tmp_path / "out"), "--results_dir", str(tmp_path)]
     rec = prepare_dataset.main(argv)
     assert (rec["clips"], rec["skipped"]) == (1, 1)
-    assert "b.mp4: compressed video (.mp4) is not read" in \
-        capsys.readouterr().out
+    assert "b.mp4: " in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:
         prepare_dataset.main(argv + ["--require_audio"])
     assert e.value.code == 1
@@ -365,6 +368,62 @@ def test_prepare_skips_compressed_video(tmp_path, capsys):
                                 "--results_dir", str(tmp_path)])
     assert (rec["clips"], rec["skipped"]) == (1, 1)
     assert (tmp_path / "raw" / "a.npy").exists()
+
+
+VIDEOS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "torch_videos")
+
+
+def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
+                                               jax_records_untouched,
+                                               capsys):
+    """frames and extract over mp4v, MJPEG, .mov and VP8 clips beside a raw
+    AVI give the JAX script's .npy stacks and wavs; the JAX script reads
+    VP8 with cv2, the port lists it as skipped with the reason."""
+    pytest.importorskip("cv2")
+    raw = tmp_path / "raw"
+    (raw / "sub").mkdir(parents=True)
+    _raw_avi(raw / "a.avi")
+    for src, dst in (("mpeg4_mp4.mp4", "b.mp4"), ("mjpeg_avi.avi", "c.avi"),
+                     ("mpeg4_mkv.mkv", "sub/d.mkv"),
+                     ("mjpeg_mov.mov", "e.mov"), ("vp8_webm.webm", "f.webm")):
+        shutil.copy(os.path.join(VIDEOS, src), raw / dst)
+    args = dict(root=str(raw), sample_rate=16000, n_frames=16,
+                frame_size=64, require_audio=False)
+    rec = prepare_dataset.main(["extract", "--root", str(raw), "--out",
+                                str(tmp_path / "p"), "--results_dir",
+                                str(tmp_path / "res")])
+    out = capsys.readouterr().out
+    j_pd.cmd_extract(argparse.Namespace(out=str(tmp_path / "j"), **args))
+    capsys.readouterr()
+    ours, ref = _files(tmp_path / "p"), _files(tmp_path / "j")
+    assert sorted(ref) == ["a.npy", "a.wav", "b.npy", "c.npy", "d.npy",
+                           "e.npy", "f.npy"]
+    assert sorted(ours) == sorted(set(ref) - {"f.npy"})
+    for name in ours:
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(tmp_path / "p" / name),
+                                          np.load(tmp_path / "j" / name))
+        else:
+            assert ours[name] == ref[name]
+    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 4, 1)
+    assert re.search(r"skipped .*f\.webm: .*VP8, not read", out)
+    # frames: .mp4/.avi/.mkv/.webm beside the videos, .mov left alone.
+    jraw = tmp_path / "jraw"
+    shutil.copytree(raw, jraw)
+    rec = prepare_dataset.main(["frames", "--root", str(raw),
+                                "--results_dir", str(tmp_path / "res")])
+    assert "VP8, not read" in capsys.readouterr().out
+    (jraw / "f.webm").unlink()          # cv2 reads it; the port does not
+    j_pd.cmd_frames(argparse.Namespace(root=str(jraw), n_frames=16,
+                                       frame_size=64))
+    ours = {k for k in _files(raw) if k.endswith(".npy")}
+    assert ours == {k for k in _files(jraw) if k.endswith(".npy")} == {
+        "a.npy", "b.npy", "c.npy", "sub/d.npy"}
+    for name in ours:
+        np.testing.assert_array_equal(np.load(raw / name),
+                                      np.load(jraw / name))
+    assert (rec["clips"], rec["skipped"]) == (4, 1)
 
 
 # ---- quality_report, quality_long, grid_diag ---------------------------

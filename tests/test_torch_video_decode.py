@@ -1,0 +1,396 @@
+"""The port's compressed video reader (csrc/videodec.cpp, csrc/mpeg4.cpp
+through native.py) against cv2 and the JAX package's `_load_frames_video`.
+
+The clips of tests/_torch_make_videos.py (committed in tests/torch_videos/:
+MJPEG and MPEG-4 Part 2 written by cv2's ffmpeg in AVI, MP4, MOV and
+Matroska, at 72x56, 8, 25 and 29.97 fps; an AVI of MJPEG without Huffman
+tables; an AVI whose headers count 17 of its 12 frames; the 224x224 clips
+chip_smoke.py trains from) go through:
+
+  * `native.video_track` against cv2's demuxed packets
+    (`CAP_PROP_FORMAT = -1`), byte for byte, and its frame count against
+    `CAP_PROP_FRAME_COUNT`;
+  * `native.decode_video` against `cap.read()`: the bound is 1 level for
+    MJPEG and 2 for MPEG-4 (P-frame drift) over every byte of every
+    frame; the measured maximum is 0 for every clip here (the decoders
+    compute what libavcodec and swscale compute);
+  * `native.load_video_frames` and the port's `data.av.load_frames_for`
+    against the JAX package's over several windows at 16 frames and at
+    40 (more than any clip has: the `set` case), sizes 64 and 32: the
+    bound over 255 on the [0, 1] frames; measured maximum 0;
+  * the committed `<case>.npz` (what chip_smoke.py holds the card's
+    build against) against cv2 now;
+  * a stem with both `.mp4` and `.avi` reads the `.mp4`, as the JAX
+    package does;
+  * NotImplementedError naming the codec for VP8 (a cv2 webm) and for
+    H.264, HEVC, VP9, AV1 and FFV1 (their fourccs put into a clip's
+    header), and naming each MPEG-4 feature a patched header or
+    macroblock flag can show; ValueError for a broken file and for a
+    window past the clip's last frame, as the JAX package raises.
+"""
+
+import os
+import re
+import shutil
+import struct
+import sys
+
+import numpy as np
+import pytest
+
+from viai_tpu.data import av as j_av
+from viai_tpu_torch import native
+from viai_tpu_torch.data import av
+
+cv2 = pytest.importorskip("cv2")
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_make_videos as mk  # noqa: E402
+
+TOL = {"mjpeg": 1, "mpeg4": 2}     # levels of 255 at full size
+CASES = [c for c in (*mk.CASES, *mk.HAND_CASES) if c != "vp8_webm"]
+FILES = {c: mk.path_of(c) if c in mk.CASES
+         else os.path.join(mk.FIXTURES, c + ".avi") for c in CASES}
+FILES.update({c: mk.path_of(c) for c in mk.CLIP_CASES})
+ALL = [*CASES, *mk.CLIP_CASES]
+WINDOWS = (None, (0.25, 0.75), (0.1, 0.9), (0.0, 0.3), (0.6, 1.0))
+
+
+def _cv2_packets(path):
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_FORMAT, -1)
+    out = []
+    while True:
+        ok, p = cap.read()
+        if not ok:
+            break
+        out.append(p.ravel().tobytes())
+    cap.release()
+    return out
+
+
+def _codec(name):
+    return native.video_track(FILES[name], packets=False).codec
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_packets_and_count_match_cv2(name):
+    path = FILES[name]
+    track = native.video_track(path)
+    assert [p for p, _ in track.packets] == _cv2_packets(path)
+    cap = cv2.VideoCapture(path)
+    assert track.count == int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    assert (track.width, track.height) == (
+        int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+        int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    assert track.codec in ("mjpeg", "mpeg4")
+    assert track.packets[0][1]                 # the first is a keyframe
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_decode_video_matches_cv2(name):
+    path = FILES[name]
+    got = native.decode_video(path)
+    ref = np.stack(mk.cv2_view(path)[0])
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    err = int(np.abs(got.astype(int) - ref).max())
+    print(f"{name}: max |Δ| {err} over {ref.shape}")
+    assert err <= TOL[_codec(name)]
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_load_frames_match_jax(name):
+    path = FILES[name]
+    tol = TOL[_codec(name)] / 255
+    stem, ext = os.path.splitext(path)
+    worst = 0.0
+    for n in (16, 40):
+        for window in WINDOWS:
+            for size in (64, 32):
+                try:
+                    ref = j_av._load_frames_video(path, n, size, window)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        native.load_video_frames(path, n, size, window)
+                    continue
+                got = native.load_video_frames(path, n, size, window)
+                assert got.shape == ref.shape and got.dtype == np.float32
+                worst = max(worst, float(np.abs(got - ref).max()))
+    if ext != ".mov":                   # load_frames_for does not look for .mov
+        for window in WINDOWS[:3]:
+            ref = j_av.load_frames_for(stem, 16, 64, window)
+            got = av.load_frames_for(stem, 16, 64, window)
+            worst = max(worst, float(np.abs(got - ref).max()))
+    print(f"{name}: max |Δ| {worst * 255:.3f} / 255")
+    assert worst <= tol
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_committed_decodes_are_cv2s(name):
+    ref = np.load(os.path.join(mk.FIXTURES, name + ".npz"))
+    frames, count = mk.cv2_view(FILES[name])
+    assert int(ref["n"]) == len(frames) and int(ref["count"]) == count
+    np.testing.assert_array_equal(ref["frames"], frames[ref["index"]])
+    got = native.decode_video(FILES[name])
+    assert got.shape[0] == int(ref["n"])
+    assert np.abs(got[ref["index"]].astype(int) - ref["frames"]).max() <= \
+        TOL[_codec(name)]
+
+
+def test_layout_order_reads_mp4_before_avi(tmp_path):
+    stem = str(tmp_path / "clip")
+    shutil.copy(FILES["mpeg4_mp4"], stem + ".mp4")
+    shutil.copy(FILES["mjpeg_avi"], stem + ".avi")
+    ref = j_av.load_frames_for(stem, 16, 64, (0.2, 0.8))
+    got = av.load_frames_for(stem, 16, 64, (0.2, 0.8))
+    np.testing.assert_array_equal(got, ref)
+    avi = native.load_video_frames(stem + ".avi", 16, 64, (0.2, 0.8))
+    assert np.abs(avi - got).max() > 0.1       # the two files differ
+
+
+def test_folder_datasets_read_video(tmp_path):
+    """AVFolderDataset reads a clip's frames from its video file."""
+    from viai_tpu_torch.data.audio import AudioFolderDataset
+    from viai_tpu_torch.utils.visualizer import write_wav
+
+    write_wav(str(tmp_path / "a.wav"),
+              np.sin(np.arange(8000) / 5.0).astype(np.float32) * 0.3, 16000)
+    shutil.copy(FILES["mpeg4_mkv"], tmp_path / "a.mkv")
+    ds = av.AVFolderDataset(str(tmp_path), clip_samples=4000, n_frames=16,
+                            frame_size=32)
+    assert isinstance(ds, AudioFolderDataset)
+    item, start, total = ds.load_cropped(0)
+    got = ds[0]["frames"]
+    ref = j_av.load_frames_for(str(tmp_path / "a"), 16, 32,
+                               av._crop_window(start, 4000, total))
+    np.testing.assert_array_equal(got, ref)
+
+
+# ---- what is not read ---------------------------------------------------
+
+def _patched(src, dst, old: bytes, new: bytes, count=1):
+    data = open(src, "rb").read()
+    assert data.count(old) >= 1
+    with open(dst, "wb") as f:
+        f.write(data.replace(old, new, count))
+    return str(dst)
+
+
+@pytest.mark.parametrize("fourcc,name", [
+    (b"H264", "H.264"), (b"HEVC", "HEVC"), (b"VP90", "VP9"),
+    (b"AV01", "AV1"), (b"FFV1", "FFV1")])
+def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
+    tag = native.video_track(FILES["mpeg4_avi"], packets=False).tag.encode()
+    avi = _patched(FILES["mpeg4_avi"], tmp_path / "x.avi", tag, fourcc,
+                   count=2)
+    mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v",
+                   {b"H264": b"avc1", b"HEVC": b"hvc1", b"VP90": b"vp09",
+                    b"AV01": b"av01", b"FFV1": b"FFV1"}[fourcc])
+    for path in (avi, mp4):
+        with pytest.raises(NotImplementedError, match=re.escape(name)):
+            native.decode_video(path)
+        with pytest.raises(NotImplementedError, match=re.escape(name)):
+            native.load_video_frames(path, 16, 64)
+
+
+def test_vp8_webm_raises_naming_vp8():
+    path = mk.path_of("vp8_webm")
+    assert native.video_track(path).tag == "V_VP8"
+    with pytest.raises(NotImplementedError, match="VP8"):
+        native.decode_video(path)
+    with pytest.raises(NotImplementedError, match="VP8"):
+        av.load_frames_for(os.path.splitext(path)[0], 16, 64)
+
+
+class _BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def put(self, v, n):
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+
+    def stuffed(self) -> bytes:
+        self.put(0, 1)
+        while len(self.bits) % 8:
+            self.put(1, 1)
+        return bytes(int("".join(map(str, self.bits[i:i + 8])), 2)
+                     for i in range(0, len(self.bits), 8))
+
+
+def vol_header(width, height, res=25, verid=1, interlaced=0, obmc_disable=1,
+               sprite=0, quant_type=0, quarter=0, estimation_disable=1,
+               resync_disable=1, partitioned=0, scalability=0):
+    """A video object layer header as ffmpeg's encoder writes it, with
+    one field changed."""
+    b = _BitWriter()
+    b.put(0x00000120, 32)
+    b.put(0, 1)
+    b.put(1, 8)
+    b.put(1, 1)
+    b.put(verid, 4)
+    b.put(1, 3)
+    b.put(1, 4)
+    b.put(1, 1)
+    b.put(1, 2)
+    b.put(1, 1)
+    b.put(0, 1)
+    b.put(0, 2)
+    b.put(1, 1)
+    b.put(res, 16)
+    b.put(1, 1)
+    b.put(0, 1)
+    b.put(1, 1)
+    b.put(width, 13)
+    b.put(1, 1)
+    b.put(height, 13)
+    b.put(1, 1)
+    b.put(interlaced, 1)
+    b.put(obmc_disable, 1)
+    b.put(sprite, 1 if verid == 1 else 2)
+    b.put(0, 1)
+    b.put(quant_type, 1)
+    if quant_type:
+        b.put(0, 2)
+    if verid != 1:
+        b.put(quarter, 1)
+    b.put(estimation_disable, 1)
+    b.put(resync_disable, 1)
+    b.put(partitioned, 1)
+    if partitioned:
+        b.put(0, 1)
+    if verid != 1:
+        b.put(0, 2)
+    b.put(scalability, 1)
+    return b.stuffed()
+
+
+def _mpeg4_packets():
+    return [p for p, _ in native.video_track(FILES["mpeg4_avi"]).packets]
+
+
+def _with_vol(pkt: bytes, vol: bytes) -> bytes:
+    i = pkt.index(b"\x00\x00\x01\x20")
+    j = pkt.index(b"\x00\x00\x01", i + 4)
+    return pkt[:i] + vol + pkt[j:]
+
+
+def _write(tmp_path, packets, name="x.avi"):
+    path = tmp_path / name
+    path.write_bytes(mk.avi_file(packets, mk.W, mk.H, 25, len(packets),
+                                 b"FMP4"))
+    return str(path)
+
+
+def test_rewritten_vol_decodes_as_the_original(tmp_path):
+    pk = _mpeg4_packets()
+    pk[0] = _with_vol(pk[0], vol_header(mk.W, mk.H))
+    np.testing.assert_array_equal(native.decode_video(_write(tmp_path, pk)),
+                                  native.decode_video(FILES["mpeg4_avi"]))
+
+
+def _flip_vop_bits(pkt: bytes, value: int, n: int, offset: int) -> bytes:
+    """`pkt` with the n bits at `offset` bits after its VOP start code
+    set to `value`."""
+    i = pkt.index(b"\x00\x00\x01\xb6") + 4
+    bits = "".join(f"{x:08b}" for x in pkt[i:i + 8])
+    bits = bits[:offset] + format(value, f"0{n}b") + bits[offset + n:]
+    return pkt[:i] + bytes(int(bits[k:k + 8], 2)
+                           for k in range(0, 64, 8)) + pkt[i + 8:]
+
+
+def _ac_pred_offset(pkt: bytes, time_bits: int = 5) -> int:
+    """The bit of the first macroblock's ac_pred_flag in an I-VOP."""
+    i = pkt.index(b"\x00\x00\x01\xb6") + 4
+    bits = "".join(f"{x:08b}" for x in pkt[i:i + 16])
+    k = 2
+    while bits[k] == "1":
+        k += 1
+    k += 1 + 1 + time_bits + 1 + 1 + 3 + 5      # marker…vop_coded, thr, q
+    codes = {"1": 1, "001": 3, "010": 3, "011": 3, "0001": 4}
+    for code, n in codes.items():
+        if bits[k:k + n] == code:
+            return k + n
+    raise AssertionError("first MCBPC not one of the short codes")
+
+
+@pytest.mark.parametrize("feature,vol", [
+    ("interlace", dict(interlaced=1)),
+    ("OBMC", dict(obmc_disable=0)),
+    ("GMC (S-VOPs)", dict(verid=2, sprite=2)),
+    ("static sprites", dict(sprite=1)),
+    ("MPEG quantisation matrices", dict(quant_type=1)),
+    ("quarter-pel", dict(verid=2, quarter=1)),
+    ("complexity estimation", dict(estimation_disable=0)),
+    ("video packets (resync markers)", dict(resync_disable=0)),
+    ("data partitioning/RVLC", dict(partitioned=1)),
+    ("scalability", dict(scalability=1)),
+])
+def test_mpeg4_header_features_raise_naming_them(tmp_path, feature, vol):
+    pk = _mpeg4_packets()
+    pk[0] = _with_vol(pk[0], vol_header(mk.W, mk.H, **vol))
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(_write(tmp_path, pk))
+
+
+@pytest.mark.parametrize("feature", [
+    "B-VOPs", "S-VOPs (GMC)", "packed bitstreams", "AC prediction",
+    "an XviD stream", "a DivX stream", "short-header (H.263)"])
+def test_mpeg4_stream_features_raise_naming_them(tmp_path, feature):
+    pk = _mpeg4_packets()
+    if feature == "B-VOPs":
+        pk[1] = _flip_vop_bits(pk[1], 2, 2, 0)
+    elif feature == "S-VOPs (GMC)":
+        pk[1] = _flip_vop_bits(pk[1], 3, 2, 0)
+    elif feature == "packed bitstreams":
+        pk[1:3] = [pk[1] + pk[2]]
+    elif feature == "AC prediction":
+        pk[0] = _flip_vop_bits(pk[0], 1, 1, _ac_pred_offset(pk[0]))
+    elif feature == "an XviD stream":
+        pk[0] = re.sub(rb"Lavc[0-9.]+", b"XviD0050", pk[0])
+    elif feature == "a DivX stream":
+        pk[0] = re.sub(rb"Lavc[0-9.]+", b"DivX503b1393p", pk[0])
+    else:
+        pk[0] = b"\x00\x00\x80\x02\x0a" + bytes(40)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(_write(tmp_path, pk))
+
+
+def test_broken_files_raise_value_error(tmp_path):
+    junk = tmp_path / "junk.mp4"
+    junk.write_bytes(b"\0" * 64)
+    with pytest.raises(ValueError, match="not an AVI, MP4/MOV or Matroska"):
+        native.decode_video(str(junk))
+    data = open(FILES["mjpeg_avi"], "rb").read()
+    cut = tmp_path / "cut.avi"
+    cut.write_bytes(data[:len(data) // 2])
+    with pytest.raises(ValueError):
+        native.decode_video(str(cut))
+    # A window past the frames the clip holds: the JAX package's
+    # "no frames decoded".
+    with pytest.raises(ValueError, match="no frames decoded"):
+        j_av._load_frames_video(FILES["mjpeg_longhdr_avi"], 4, 64, (0.9, 1))
+    with pytest.raises(ValueError, match="no frames decoded"):
+        native.load_video_frames(FILES["mjpeg_longhdr_avi"], 4, 64, (0.9, 1))
+
+
+def test_odd_height_and_other_sampling_raise(tmp_path):
+    pk = [p for p, _ in native.video_track(FILES["mjpeg_avi"]).packets]
+    sof = pk[0].index(b"\xff\xc0")
+    odd = bytearray(pk[0])
+    struct.pack_into(">H", odd, sof + 5, mk.H - 1)          # 55 lines
+    path = tmp_path / "odd.avi"
+    path.write_bytes(mk.avi_file([bytes(odd)], mk.W, mk.H - 1, 25, 1))
+    with pytest.raises(NotImplementedError, match="odd height"):
+        native.decode_video(str(path))
+    s444 = bytearray(pk[0])
+    s444[sof + 11] = 0x11                                   # Y at 1x1
+    path.write_bytes(mk.avi_file([bytes(s444)], mk.W, mk.H, 25, 1))
+    with pytest.raises((NotImplementedError, ValueError)):
+        native.decode_video(str(path))
+
+
+def test_fixture_script_rewrites_the_committed_avi_and_mp4(tmp_path):
+    for name in ("mjpeg_avi", "mpeg4_mp4", "mjpeg_nodht_avi", "clip_avi"):
+        path = mk.write_case(name, str(tmp_path))
+        with open(path, "rb") as f, open(FILES[name], "rb") as g:
+            assert f.read() == g.read(), name

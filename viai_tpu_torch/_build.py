@@ -8,10 +8,11 @@ as it is:
 
   * each `csrc/<name>.cu`, a CUDA kernel for sm_90a, by nvcc;
   * `native`, the host data loader (`csrc/wavio.cpp`,
-    `csrc/framestack.cpp`, `csrc/imagedec.cpp`: WAV decode, resampling,
-    the threaded clip loader, the frame-stack reader, the JPEG and PNG
-    decoder and the frame-directory reader), by the C++ compiler ($CXX,
-    else g++).
+    `csrc/framestack.cpp`, `csrc/imagedec.cpp`, `csrc/videodec.cpp`,
+    `csrc/mpeg4.cpp`: WAV decode, resampling, the threaded clip loader,
+    the frame-stack reader, the JPEG and PNG decoder, the
+    frame-directory reader and the compressed video reader), by the C++
+    compiler ($CXX, else g++), its hash over `csrc/*.h` too.
 
 Targets are compiled in parallel, one compiler process each. A failed
 build raises. The directory is read at build time (`cache_dir`):
@@ -39,7 +40,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17", "-Wall")
-HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp", "imagedec.cpp")}
+HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp", "imagedec.cpp",
+                           "videodec.cpp", "mpeg4.cpp")}
 _cache_dir: Path | None = None      # set_cache_dir; BUILD_DIR when unset
 
 
@@ -99,8 +101,8 @@ def _recipe(name: str) -> tuple[list[Path], tp.Callable[[], str], tuple]:
 
 def _target(name: str, srcs: list[Path], compiler: str, flags) -> Path:
     h = hashlib.sha256()
-    deps = srcs if name in HOST_SOURCES else [*srcs,
-                                              *sorted(CSRC.glob("*.cuh"))]
+    deps = [*srcs, *sorted(CSRC.glob("*.h" if name in HOST_SOURCES
+                                     else "*.cuh"))]
     for p in deps:
         h.update(p.name.encode())
         h.update(p.read_bytes())

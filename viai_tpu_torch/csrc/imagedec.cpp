@@ -54,6 +54,9 @@
 #include <thread>
 #include <vector>
 
+#include "jpeg.h"
+#include "window.h"
+
 namespace {
 
 struct DecodeError {
@@ -657,8 +660,60 @@ void read_sof(Jpeg& j, const uint8_t* d, int len, int marker) {
   j.frame = true;
 }
 
-Rgb decode_jpeg(const uint8_t* data, size_t n) {
+// JPEG annex K.3's Huffman tables, which ffmpeg's MJPEG decoder holds
+// until a DHT replaces them (the AVI1 convention of MJPEG packets
+// without tables).
+const uint8_t kStdBits[4][16] = {
+    {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+    {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+    {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};
+const uint8_t kStdAcLuma[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChroma[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// The markers and scans of a JPEG: its frame and every component's
+// quantized coefficients (`standard_tables`: start from annex K's
+// Huffman tables, as ffmpeg does, instead of none).
+Jpeg parse_jpeg(const uint8_t* data, size_t n, bool standard_tables) {
   Jpeg j;
+  if (standard_tables) {
+    static const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10,
+                                        11};
+    build_huffman(j.dc[0], kStdBits[0], kDcVals, 12);
+    build_huffman(j.dc[1], kStdBits[1], kDcVals, 12);
+    build_huffman(j.ac[0], kStdBits[2], kStdAcLuma, 162);
+    build_huffman(j.ac[1], kStdBits[3], kStdAcChroma, 162);
+  }
+  if (n < 2 || data[0] != 0xFF || data[1] != 0xD8)
+    broken("not a JPEG (no SOI marker)");
   const uint8_t* p = data + 2;
   const uint8_t* end = data + n;
   int scans = 0;
@@ -804,6 +859,11 @@ Rgb decode_jpeg(const uint8_t* data, size_t n) {
         unsupported("progressive JPEG whose scans leave its first "
                     "coefficients incomplete (libjpeg would smooth it)");
   }
+  return j;
+}
+
+Rgb decode_jpeg(const uint8_t* data, size_t n) {
+  Jpeg j = parse_jpeg(data, n, false);
 
   Rgb img;
   img.w = j.width;
@@ -1353,33 +1413,6 @@ bool is_frame_name(const std::string& s) {
   return ends(".jpg") || ends(".jpeg") || ends(".png");
 }
 
-// viai_tpu/data/av.py::_window_indices: np.linspace(w0·hi, w1·hi, n)
-// in float64, rounded half to even, clipped to [0, hi].
-std::vector<int64_t> window_indices(int64_t total, int n, double w0,
-                                    double w1) {
-  int64_t hi = std::max<int64_t>(total - 1, 0);
-  double start = w0 * double(hi), stop = w1 * double(hi);
-  std::vector<int64_t> idx(n);
-  int div = n - 1;
-  double delta = stop - start;
-  for (int i = 0; i < n; ++i) {
-    double y;
-    if (div > 0) {
-      double step = delta / div;
-      volatile double t = step == 0.0 ? (double(i) / div) * delta
-                                      : double(i) * step;
-      y = t + start;
-      if (i == n - 1) y = stop;
-    } else {
-      y = double(i) * delta + start;
-    }
-    double r = std::nearbyint(y);
-    int64_t v = int64_t(r);
-    idx[i] = std::min(std::max<int64_t>(v, 0), hi);
-  }
-  return idx;
-}
-
 void set_error(char* err, int errlen, const std::string& msg) {
   if (err && errlen > 0) {
     std::snprintf(err, size_t(errlen), "%s", msg.c_str());
@@ -1387,6 +1420,39 @@ void set_error(char* err, int errlen, const std::string& msg) {
 }
 
 }  // namespace
+
+namespace viai_jpeg {
+
+Coefficients decode_coefficients(const uint8_t* data, size_t n,
+                                 bool standard_tables) {
+  try {
+    Jpeg j = parse_jpeg(data, n, standard_tables);
+    Coefficients out;
+    out.width = j.width;
+    out.height = j.height;
+    out.ncomp = j.ncomp;
+    out.hmax = j.hmax;
+    out.vmax = j.vmax;
+    for (int i = 0; i < j.ncomp; ++i) {
+      const Component& c = j.comp[i];
+      Plane& p = out.comp[i];
+      p.h = c.h;
+      p.v = c.v;
+      p.dw = c.dw;
+      p.dh = c.dh;
+      p.bw = c.bw;
+      p.cbw = c.cbw;
+      p.cbh = c.cbh;
+      std::memcpy(p.q, c.q, sizeof(p.q));
+      p.coef = c.coef;
+    }
+    return out;
+  } catch (const DecodeError& e) {
+    throw Error{e.code, e.msg};
+  }
+}
+
+}  // namespace viai_jpeg
 
 extern "C" {
 
@@ -1445,7 +1511,7 @@ int32_t viai_load_frame_dir(const char* dir, int32_t n_frames, int32_t size,
   }
   std::sort(names.begin(), names.end());
   std::vector<int64_t> idx =
-      window_indices(int64_t(names.size()), n_frames, w0, w1);
+      viai_window::window_indices(int64_t(names.size()), n_frames, w0, w1);
   std::vector<int64_t> unique(idx);
   std::sort(unique.begin(), unique.end());
   unique.erase(std::unique(unique.begin(), unique.end()), unique.end());

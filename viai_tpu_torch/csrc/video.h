@@ -1,0 +1,58 @@
+// Shared by videodec.cpp (containers, MJPEG, the frame path) and
+// mpeg4.cpp (the MPEG-4 Part 2 decoder).
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <memory>
+#include <string>
+#include <vector>
+
+namespace viai_video {
+
+struct Error {
+  int code;             // 1 broken (ValueError), 2 unsupported
+  std::string msg;      // (NotImplementedError)
+};
+
+[[noreturn]] inline void broken(const std::string& m) { throw Error{1, m}; }
+[[noreturn]] inline void unsupported(const std::string& m) {
+  throw Error{2, m};
+}
+
+// A decoded 4:2:0 picture: luma (h, w), chroma ((h + 1)/2, (w + 1)/2),
+// each plane at its own row stride.
+struct Picture {
+  int w = 0, h = 0;
+  int ystride = 0, cstride = 0;
+  std::vector<uint8_t> y, u, v;
+  bool full_range = false;  // yuvj (JPEG) levels, else limited (16..235)
+};
+
+// ffmpeg's "simple" integer IDCT (simple_idct_template.c, 8 bits) of a
+// block in natural order, in place: rows, then columns, written with
+// saturation (put) or added to what `dst` holds (add).
+void idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
+void idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
+
+// ffmpeg's mpeg4 decoder for what its encoder writes (see mpeg4.cpp).
+class Mpeg4Decoder {
+ public:
+  // `config`: the stream's headers from the container (VOS, VO, VOL),
+  // possibly empty when they travel in the first packet; `tag` names
+  // the stream in messages.
+  Mpeg4Decoder(const std::vector<uint8_t>& config, const std::string& tag);
+  ~Mpeg4Decoder();
+  // Decode one packet; true with `out` filled when it gave a picture
+  // (ffmpeg gives none for a packet without a coded VOP).
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // Read one packet's headers only: its VOP's kind, 0 I, 1 P, 2 B,
+  // 3 S, or −1 when it gives no picture. Headers it holds are kept.
+  int peek(const uint8_t* data, size_t n);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+}  // namespace viai_video

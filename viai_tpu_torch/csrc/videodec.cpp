@@ -1,0 +1,1369 @@
+// Compressed video reader of viai_tpu_torch: the containers, the MJPEG
+// decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
+// (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2).
+//
+// The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
+// FFmpeg backend demuxes with libavformat, decodes with libavcodec and
+// converts each picture to BGR24 with swscale (SWS_BICUBIC, same size).
+// This file gives the same bytes without them:
+//
+//   * demuxers: AVI (the `##dc`/`##db` chunks of the first video stream
+//     through idx1, else a scan of `movi`), ISO-BMFF (.mp4/.mov: the
+//     first `vide` track's sample tables) and Matroska/WebM (EBML,
+//     unknown-size elements, SimpleBlock and BlockGroup with Xiph, EBML
+//     and fixed lacing). Each gives the track's packets in decode order,
+//     byte for byte as libavformat gives them, and the frame count that
+//     cv2's CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the
+//     sample count, Matroska round(duration · fps) with libavformat's
+//     duration and av_reduce'd DefaultDuration.
+//   * MJPEG: imagedec.cpp's entropy decoder (annex K tables until a DHT,
+//     the AVI1 convention), ffmpeg's simple IDCT into yuvj420p planes.
+//   * the conversion to BGR24 that swscale does for 4:2:0 at the same
+//     size (the x86 yuv420 → bgr24 path of libswscale/x86/yuv2rgb): each
+//     chroma sample for its 2×2 pixels, 16-bit fixed-point products
+//     (pmulhw) of coefficients from BT.601, full range for yuvj, limited
+//     for yuv420p, saturated to 0..255. Checked on every (Y, U, V).
+//   * cv2.resize(frame, (size, size)) at INTER_LINEAR on the BGR frame:
+//     11-bit weights from float32 positions, a horizontal pass in int32,
+//     the vertical one as OpenCV's SIMD does it (each row >> 4, ·β >> 16,
+//     summed, + 2 >> 2); rows beyond the edge take the edge row, with the
+//     unclamped weight (an exact 2× shrink, cv2's INTER_AREA, gives the
+//     same bytes).
+//   * the frame pick: cv2's count, the float64 window rule, the `set`,
+//     the frames found re-picked by the window rule over (0, 1).
+//
+// Errors: a broken file gives code 1 (ValueError), a codec, container or
+// feature that is not read code 2 (NotImplementedError), naming it.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+#include "jpeg.h"
+#include "video.h"
+#include "window.h"
+
+namespace viai_video {
+
+namespace {
+
+uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
+         (uint32_t(p[3]) << 24);
+}
+uint32_t be32(const uint8_t* p) {
+  return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
+         (uint32_t(p[2]) << 8) | uint32_t(p[3]);
+}
+uint64_t be64(const uint8_t* p) {
+  return (uint64_t(be32(p)) << 32) | be32(p + 4);
+}
+
+std::string fourcc_str(uint32_t le) {
+  std::string s;
+  for (int i = 0; i < 4; ++i) {
+    char c = char((le >> (8 * i)) & 0xFF);
+    s += (c >= 32 && c < 127) ? c : '?';
+  }
+  return s;
+}
+
+std::string upper(std::string s) {
+  for (char& c : s)
+    if (c >= 'a' && c <= 'z') c = char(c - 'a' + 'A');
+  return s;
+}
+
+std::vector<uint8_t> read_file(const std::string& path) {
+  FILE* f = std::fopen(path.c_str(), "rb");
+  if (!f) broken(path + ": cannot open");
+  std::vector<uint8_t> out;
+  uint8_t chunk[1 << 16];
+  size_t got;
+  while ((got = std::fread(chunk, 1, sizeof(chunk), f)) > 0)
+    out.insert(out.end(), chunk, chunk + got);
+  bool err = std::ferror(f);
+  std::fclose(f);
+  if (err) broken(path + ": cannot read");
+  return out;
+}
+
+}  // namespace
+
+// =====================================================================
+// Containers
+// =====================================================================
+
+enum class Codec { kMjpeg, kMpeg4, kOther };
+
+struct Packet {
+  size_t off = 0;
+  uint32_t size = 0;
+  bool key = false;
+};
+
+struct Track {
+  std::vector<uint8_t> file;
+  Codec codec = Codec::kOther;
+  std::string tag;              // fourcc or CodecID, for messages
+  std::string container;
+  int width = 0, height = 0;    // as the container gives them
+  std::vector<uint8_t> config;  // MPEG-4 headers (esds, CodecPrivate, strf)
+  std::vector<Packet> packets;
+  int64_t count = 0;            // cv2's CAP_PROP_FRAME_COUNT
+};
+
+namespace {
+
+// libavformat's riff tags (upper-cased, as its AVI demuxer retries) and
+// the codecs they name.
+Codec riff_codec(const std::string& tag) {
+  static const char* kMjpeg[] = {"MJPG", "AVRN", "JPGL", "DMB1", "MJPA"};
+  static const char* kMpeg4[] = {"FMP4", "DIVX", "DX50", "XVID", "MP4V",
+                                 "MP4S", "M4S2", "3IV2", "RMP4", "UMP4",
+                                 "SMP4", "DXGM", "FVFW", "FFDS", "DCOD"};
+  std::string u = upper(tag);
+  for (const char* t : kMjpeg)
+    if (u == t) return Codec::kMjpeg;
+  for (const char* t : kMpeg4)
+    if (u == t) return Codec::kMpeg4;
+  return Codec::kOther;
+}
+
+// ---------------------------------------------------------------- AVI
+
+void demux_avi(Track& t) {
+  const std::vector<uint8_t>& f = t.file;
+  const size_t n = f.size();
+  if (n < 12 || std::memcmp(f.data(), "RIFF", 4) != 0 ||
+      std::memcmp(f.data() + 8, "AVI ", 4) != 0)
+    broken("not an AVI file");
+  t.container = "AVI";
+  int stream = -1, nstreams = 0;
+  size_t movi = 0, movi_end = 0, idx1 = 0, idx1_size = 0;
+  bool have_idx1 = false;
+  // Walk the RIFF tree: hdrl's stream lists, movi, idx1.
+  std::vector<std::pair<size_t, size_t>> stack = {{12, n}};
+  while (!stack.empty()) {
+    auto [p, end] = stack.back();
+    stack.pop_back();
+    while (p + 8 <= end) {
+      uint32_t id = le32(&f[p]);
+      size_t sz = le32(&f[p + 4]);
+      size_t body = p + 8;
+      size_t next = body + sz + (sz & 1);
+      if (body + sz > n) sz = n - body;   // a file cut short
+      std::string tag = fourcc_str(id);
+      if (tag == "LIST" && sz >= 4) {
+        std::string kind = fourcc_str(le32(&f[body]));
+        if (kind == "movi") {
+          if (!movi) {
+            movi = body;
+            movi_end = body + sz;
+          }
+        } else if (kind == "hdrl" || kind == "strl") {
+          if (kind == "strl") ++nstreams;
+          stack.push_back({next, end});
+          end = body + sz;
+          p = body + 4;
+          continue;
+        }
+      } else if (tag == "RIFF" && sz >= 4 &&
+                 fourcc_str(le32(&f[body])) == "AVIX") {
+        unsupported("OpenDML AVI (RIFF AVIX extension)");
+      } else if (tag == "indx" && stream == nstreams - 1) {
+        unsupported("OpenDML AVI (indx super-index)");
+      } else if (tag == "strh" && sz >= 36 && stream < 0) {
+        if (fourcc_str(le32(&f[body])) == "vids") {
+          stream = nstreams - 1;
+          t.count = le32(&f[body + 32]);      // dwLength
+        }
+      } else if (tag == "strf" && stream == nstreams - 1 && stream >= 0 &&
+                 t.tag.empty()) {
+        if (sz < 40) broken("AVI video format (strf) cut short");
+        t.width = int32_t(le32(&f[body + 4]));
+        t.height = std::abs(int32_t(le32(&f[body + 8])));
+        uint32_t comp = le32(&f[body + 16]);
+        t.tag = fourcc_str(comp);
+        if (comp == 0 || comp == 3)
+          t.tag = comp == 0 ? "BI_RGB" : "BI_BITFIELDS";
+        size_t bisize = std::min<size_t>(le32(&f[body]), sz);
+        if (bisize > 40 && bisize <= sz)
+          t.config.assign(f.begin() + body + 40, f.begin() + body + bisize);
+        else if (sz > 40)
+          t.config.assign(f.begin() + body + 40, f.begin() + body + sz);
+      } else if (tag == "idx1" && !have_idx1) {
+        idx1 = body;
+        idx1_size = sz;
+        have_idx1 = true;
+      }
+      p = next;
+    }
+  }
+  if (stream < 0 || t.tag.empty()) broken("AVI file without a video stream");
+  if (!movi) broken("AVI file without a movi list");
+  t.codec = riff_codec(t.tag);
+  char id[3];
+  std::snprintf(id, sizeof(id), "%02d", stream % 100);
+  auto ours = [&](const uint8_t* ck) {
+    return ck[0] == uint8_t(id[0]) && ck[1] == uint8_t(id[1]) &&
+           ck[2] == 'd' && (ck[3] == 'c' || ck[3] == 'b');
+  };
+  if (have_idx1 && idx1_size >= 16) {
+    size_t entries = idx1_size / 16;
+    // Offsets count from the 'movi' fourcc, or from the file's start
+    // where the first one lies past it.
+    size_t base = le32(&f[idx1 + 8]) < movi ? movi : 0;
+    for (size_t e = 0; e < entries; ++e) {
+      const uint8_t* ent = &f[idx1 + 16 * e];
+      if (!ours(ent)) continue;
+      size_t ck = base + le32(ent + 8);
+      uint32_t size = le32(ent + 12);
+      if (ck + 8 + size > n) broken("AVI index points past the file");
+      if (size == 0) continue;
+      t.packets.push_back({ck + 8, size, (le32(ent + 4) & 0x10) != 0});
+    }
+  } else {
+    std::vector<std::pair<size_t, size_t>> lists = {{movi + 4, movi_end}};
+    while (!lists.empty()) {
+      auto [p, end] = lists.back();
+      lists.pop_back();
+      while (p + 8 <= end) {
+        uint32_t sz = le32(&f[p + 4]);
+        if (std::memcmp(&f[p], "LIST", 4) == 0 && sz >= 4) {
+          lists.push_back({p + 8 + sz + (sz & 1), end});
+          end = p + 8 + sz;
+          p += 12;
+          continue;
+        }
+        if (ours(&f[p]) && sz > 0) {
+          if (p + 8 + sz > n) broken("AVI chunk runs past the file");
+          t.packets.push_back({p + 8, sz, t.packets.empty()});
+        }
+        p += 8 + sz + (sz & 1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- MP4
+
+struct Box {
+  size_t body, end;
+  std::string type;
+};
+
+// The boxes in [p, end).
+std::vector<Box> boxes(const std::vector<uint8_t>& f, size_t p, size_t end) {
+  std::vector<Box> out;
+  while (p + 8 <= end) {
+    uint64_t sz = be32(&f[p]);
+    std::string type(reinterpret_cast<const char*>(&f[p + 4]), 4);
+    size_t hdr = 8;
+    if (sz == 1) {
+      if (p + 16 > end) broken("MP4 box header cut short");
+      sz = be64(&f[p + 8]);
+      hdr = 16;
+    } else if (sz == 0) {
+      sz = end - p;
+    }
+    if (sz < hdr || p + sz > end) broken("MP4 box '" + type + "' runs past "
+                                         "its parent");
+    out.push_back({p + hdr, size_t(p + sz), type});
+    p += sz;
+  }
+  return out;
+}
+
+const Box* child(const std::vector<Box>& bs, const char* type) {
+  for (const Box& b : bs)
+    if (b.type == type) return &b;
+  return nullptr;
+}
+
+// An MPEG-4 descriptor's length (up to four 7-bit groups).
+size_t desc_len(const std::vector<uint8_t>& f, size_t& p, size_t end) {
+  size_t len = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (p >= end) broken("MP4 esds descriptor cut short");
+    uint8_t b = f[p++];
+    len = (len << 7) | (b & 0x7F);
+    if (!(b & 0x80)) break;
+  }
+  return len;
+}
+
+// esds → (objectTypeIndication, DecoderSpecificInfo).
+void read_esds(Track& t, const Box& esds, int& oti) {
+  const std::vector<uint8_t>& f = t.file;
+  size_t p = esds.body + 4, end = esds.end;
+  while (p < end) {
+    uint8_t tag = f[p++];
+    size_t len = desc_len(f, p, end);
+    size_t body_end = std::min(end, p + len);
+    if (tag == 0x03) {                          // ES_Descriptor
+      if (p + 3 > body_end) broken("MP4 esds ES descriptor cut short");
+      uint8_t flags = f[p + 2];
+      p += 3;
+      if (flags & 0x80) p += 2;
+      if (flags & 0x40) {
+        if (p >= body_end) broken("MP4 esds URL cut short");
+        p += 1 + f[p];
+      }
+      if (flags & 0x20) p += 2;
+      continue;                                 // its children follow
+    }
+    if (tag == 0x04) {                          // DecoderConfigDescriptor
+      if (p + 13 > body_end) broken("MP4 esds decoder config cut short");
+      oti = f[p];
+      p += 13;
+      continue;
+    }
+    if (tag == 0x05) {                          // DecoderSpecificInfo
+      t.config.assign(f.begin() + p, f.begin() + body_end);
+      return;
+    }
+    p = body_end;
+  }
+}
+
+void demux_mp4(Track& t) {
+  const std::vector<uint8_t>& f = t.file;
+  t.container = "MP4";
+  std::vector<Box> top = boxes(f, 0, f.size());
+  const Box* moov = child(top, "moov");
+  if (!moov) broken("MP4 file without a moov box");
+  for (const Box& trak : boxes(f, moov->body, moov->end)) {
+    if (trak.type != "trak") continue;
+    std::vector<Box> tb = boxes(f, trak.body, trak.end);
+    const Box* mdia = child(tb, "mdia");
+    if (!mdia) continue;
+    std::vector<Box> mb = boxes(f, mdia->body, mdia->end);
+    const Box* hdlr = child(mb, "hdlr");
+    if (!hdlr || hdlr->body + 12 > hdlr->end ||
+        std::memcmp(&f[hdlr->body + 8], "vide", 4) != 0)
+      continue;
+    if (const Box* edts = child(tb, "edts")) {
+      for (const Box& elst : boxes(f, edts->body, edts->end)) {
+        if (elst.type != "elst" || elst.body + 8 > elst.end) continue;
+        int version = f[elst.body];
+        uint32_t entries = be32(&f[elst.body + 4]);
+        size_t w = version == 1 ? 20 : 12;
+        if (elst.body + 8 + w * entries > elst.end)
+          broken("MP4 edit list cut short");
+        const uint8_t* e = &f[elst.body + 8];
+        int64_t media_time = version == 1 ? int64_t(be64(e + 8))
+                                          : int32_t(be32(e + 4));
+        uint32_t rate = be32(e + (version == 1 ? 16 : 8));
+        if (entries != 1 || media_time != 0 || rate != 0x10000)
+          unsupported("MP4 edit list other than one whole-track edit");
+      }
+    }
+    const Box* minf = child(mb, "minf");
+    if (!minf) broken("MP4 video track without minf");
+    std::vector<Box> nb = boxes(f, minf->body, minf->end);
+    const Box* stbl = child(nb, "stbl");
+    if (!stbl) broken("MP4 video track without stbl");
+    std::vector<Box> sb = boxes(f, stbl->body, stbl->end);
+    const Box* stsd = child(sb, "stsd");
+    if (!stsd || stsd->body + 16 > stsd->end)
+      broken("MP4 video track without a sample description");
+    size_t entry = stsd->body + 8;
+    uint32_t esz = be32(&f[entry]);
+    if (esz < 86 || entry + esz > stsd->end)
+      broken("MP4 visual sample entry cut short");
+    t.tag = fourcc_str(le32(&f[entry + 4]));
+    t.width = (f[entry + 32] << 8) | f[entry + 33];
+    t.height = (f[entry + 34] << 8) | f[entry + 35];
+    if (t.tag == "jpeg" || t.tag == "mjpa" || t.tag == "MJPG") {
+      t.codec = Codec::kMjpeg;
+    } else if (t.tag == "mp4v") {
+      const Box* esds = nullptr;
+      std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
+      esds = child(eb, "esds");
+      if (!esds) broken("MP4 'mp4v' sample entry without esds");
+      int oti = -1;
+      read_esds(t, *esds, oti);
+      if (oti == 0x20) {
+        t.codec = Codec::kMpeg4;
+      } else if (oti == 0x6C) {
+        t.codec = Codec::kMjpeg;
+        t.config.clear();
+      } else {
+        char b[64];
+        std::snprintf(b, sizeof(b), "mp4v objectTypeIndication 0x%02X", oti);
+        t.tag = b;
+      }
+    }
+    // Sample table → packets.
+    const Box* stsz = child(sb, "stsz");
+    const Box* stz2 = child(sb, "stz2");
+    const Box* stsc = child(sb, "stsc");
+    const Box* stco = child(sb, "stco");
+    const Box* co64 = child(sb, "co64");
+    const Box* stss = child(sb, "stss");
+    if ((!stsz && !stz2) || !stsc || (!stco && !co64))
+      broken("MP4 video track without its sample tables");
+    std::vector<uint32_t> sizes;
+    if (stsz) {
+      if (stsz->body + 12 > stsz->end) broken("MP4 stsz cut short");
+      uint32_t fixed = be32(&f[stsz->body + 4]);
+      uint32_t count = be32(&f[stsz->body + 8]);
+      if (!fixed && stsz->body + 12 + 4 * size_t(count) > stsz->end)
+        broken("MP4 stsz cut short");
+      sizes.resize(count, fixed);
+      for (uint32_t i = 0; i < count && !fixed; ++i)
+        sizes[i] = be32(&f[stsz->body + 12 + 4 * i]);
+    } else {
+      if (stz2->body + 12 > stz2->end) broken("MP4 stz2 cut short");
+      int bits = f[stz2->body + 7];
+      uint32_t count = be32(&f[stz2->body + 8]);
+      if (bits != 4 && bits != 8 && bits != 16) broken("MP4 stz2 field size");
+      if (stz2->body + 12 + (size_t(count) * bits + 7) / 8 > stz2->end)
+        broken("MP4 stz2 cut short");
+      sizes.resize(count);
+      const uint8_t* q = &f[stz2->body + 12];
+      for (uint32_t i = 0; i < count; ++i)
+        sizes[i] = bits == 16 ? (q[2 * i] << 8) | q[2 * i + 1]
+                   : bits == 8 ? q[i]
+                               : (i & 1 ? q[i / 2] & 15 : q[i / 2] >> 4);
+    }
+    std::vector<uint64_t> chunks;
+    const Box* co = stco ? stco : co64;
+    if (co->body + 8 > co->end) broken("MP4 chunk offsets cut short");
+    uint32_t nchunks = be32(&f[co->body + 4]);
+    size_t w = stco ? 4 : 8;
+    if (co->body + 8 + w * nchunks > co->end)
+      broken("MP4 chunk offsets cut short");
+    for (uint32_t i = 0; i < nchunks; ++i)
+      chunks.push_back(stco ? be32(&f[co->body + 8 + 4 * i])
+                            : be64(&f[co->body + 8 + 8 * i]));
+    if (stsc->body + 8 > stsc->end) broken("MP4 stsc cut short");
+    uint32_t runs = be32(&f[stsc->body + 4]);
+    if (stsc->body + 8 + 12 * size_t(runs) > stsc->end)
+      broken("MP4 stsc cut short");
+    std::vector<bool> key(sizes.size(), stss == nullptr);
+    if (stss) {
+      if (stss->body + 8 > stss->end) broken("MP4 stss cut short");
+      uint32_t k = be32(&f[stss->body + 4]);
+      if (stss->body + 8 + 4 * size_t(k) > stss->end)
+        broken("MP4 stss cut short");
+      for (uint32_t i = 0; i < k; ++i) {
+        uint32_t s = be32(&f[stss->body + 8 + 4 * i]);
+        if (s >= 1 && s <= key.size()) key[s - 1] = true;
+      }
+    }
+    size_t sample = 0;
+    for (uint32_t r = 0; r < runs && sample < sizes.size(); ++r) {
+      const uint8_t* e = &f[stsc->body + 8 + 12 * r];
+      uint32_t first = be32(e), per = be32(e + 4);
+      uint32_t last = r + 1 < runs ? be32(e + 12) : nchunks + 1;
+      if (first < 1 || last < first) broken("MP4 stsc is not ordered");
+      for (uint32_t c = first; c < last && sample < sizes.size(); ++c) {
+        if (c > nchunks) broken("MP4 stsc names a chunk past stco");
+        uint64_t off = chunks[c - 1];
+        for (uint32_t k = 0; k < per && sample < sizes.size(); ++k) {
+          if (off + sizes[sample] > f.size())
+            broken("MP4 sample runs past the file");
+          if (sizes[sample])
+            t.packets.push_back({size_t(off), sizes[sample], key[sample]});
+          off += sizes[sample++];
+        }
+      }
+    }
+    t.count = int64_t(sizes.size());
+    return;
+  }
+  broken("MP4 file without a video track");
+}
+
+// ----------------------------------------------------------- Matroska
+
+struct Ebml {
+  const std::vector<uint8_t>& f;
+  size_t p, end;
+};
+
+constexpr uint64_t kUnknown = ~uint64_t(0);
+
+uint32_t ebml_id(Ebml& e) {
+  if (e.p >= e.end) broken("Matroska element cut short");
+  uint8_t b = e.f[e.p];
+  int len = b & 0x80 ? 1 : b & 0x40 ? 2 : b & 0x20 ? 3 : b & 0x10 ? 4 : 0;
+  if (!len || e.p + len > e.end) broken("Matroska element ID is bad");
+  uint32_t id = 0;
+  for (int i = 0; i < len; ++i) id = (id << 8) | e.f[e.p++];
+  return id;
+}
+
+uint64_t ebml_vint(const std::vector<uint8_t>& f, size_t& p, size_t end,
+                   int* width = nullptr) {
+  if (p >= end) broken("Matroska number cut short");
+  uint8_t b = f[p];
+  int len = 1;
+  while (len <= 8 && !(b & (0x80 >> (len - 1)))) ++len;
+  if (len > 8 || p + len > end) broken("Matroska number is bad");
+  uint64_t v = b & (0xFF >> len);
+  bool ones = v == uint64_t(0xFF >> len);
+  for (int i = 1; i < len; ++i) {
+    v = (v << 8) | f[p + i];
+    ones = ones && f[p + i] == 0xFF;
+  }
+  p += len;
+  if (width) *width = len;
+  return ones ? kUnknown : v;
+}
+
+uint64_t ebml_uint(const std::vector<uint8_t>& f, size_t p, size_t n) {
+  uint64_t v = 0;
+  for (size_t i = 0; i < n && i < 8; ++i) v = (v << 8) | f[p + i];
+  return v;
+}
+
+double ebml_float(const std::vector<uint8_t>& f, size_t p, size_t n) {
+  if (n == 4) {
+    uint32_t u = uint32_t(ebml_uint(f, p, 4));
+    float x;
+    std::memcpy(&x, &u, 4);
+    return x;
+  }
+  if (n == 8) {
+    uint64_t u = ebml_uint(f, p, 8);
+    double x;
+    std::memcpy(&x, &u, 8);
+    return x;
+  }
+  return 0.0;
+}
+
+bool mkv_top_level(uint32_t id) {
+  return id == 0x1F43B675 || id == 0x1C53BB6B || id == 0x1254C367 ||
+         id == 0x1043A770 || id == 0x1941A469 || id == 0x114D9B74 ||
+         id == 0x1549A966 || id == 0x1654AE6B || id == 0x18538067;
+}
+
+// libavutil's av_reduce: the closest num/den with both at most `max`.
+void av_reduce(int64_t& dn, int64_t& dd, int64_t num, int64_t den,
+               int64_t max) {
+  int64_t a0n = 0, a0d = 1, a1n = 1, a1d = 0;
+  auto gcd = [](int64_t a, int64_t b) {
+    while (b) {
+      int64_t t = a % b;
+      a = b;
+      b = t;
+    }
+    return a;
+  };
+  int64_t g = gcd(num, den);
+  if (g) {
+    num /= g;
+    den /= g;
+  }
+  if (num <= max && den <= max) {
+    a1n = num;
+    a1d = den;
+    den = 0;
+  }
+  while (den) {
+    uint64_t x = uint64_t(num / den);
+    int64_t next_den = num - den * int64_t(x);
+    int64_t a2n = int64_t(x) * a1n + a0n, a2d = int64_t(x) * a1d + a0d;
+    if (a2n > max || a2d > max) {
+      if (a1n) x = uint64_t((max - a0n) / a1n);
+      if (a1d) x = std::min<uint64_t>(x, uint64_t((max - a0d) / a1d));
+      if (den * (2 * int64_t(x) * a1d + a0d) > num * a1d) {
+        a1n = int64_t(x) * a1n + a0n;
+        a1d = int64_t(x) * a1d + a0d;
+      }
+      break;
+    }
+    a0n = a1n;
+    a0d = a1d;
+    a1n = a2n;
+    a1d = a2d;
+    num = den;
+    den = next_den;
+  }
+  dn = a1n;
+  dd = a1d;
+}
+
+void mkv_block(Track& t, size_t p, size_t end, uint64_t track, bool simple,
+               bool referenced) {
+  const std::vector<uint8_t>& f = t.file;
+  uint64_t num = ebml_vint(f, p, end);
+  if (num != track) return;
+  if (p + 3 > end) broken("Matroska block cut short");
+  uint8_t flags = f[p + 2];
+  p += 3;
+  bool key = simple ? (flags & 0x80) != 0 : !referenced;
+  int lacing = (flags >> 1) & 3;
+  if (lacing == 0) {
+    if (end > p) t.packets.push_back({p, uint32_t(end - p), key});
+    return;
+  }
+  if (p >= end) broken("Matroska laced block cut short");
+  int frames = f[p++] + 1;
+  std::vector<uint64_t> sizes(frames, 0);
+  if (lacing == 1) {                             // Xiph
+    for (int i = 0; i < frames - 1; ++i) {
+      uint64_t s = 0;
+      uint8_t b;
+      do {
+        if (p >= end) broken("Matroska Xiph lacing cut short");
+        b = f[p++];
+        s += b;
+      } while (b == 255);
+      sizes[i] = s;
+    }
+  } else if (lacing == 3) {                      // EBML
+    int64_t s = int64_t(ebml_vint(f, p, end));
+    sizes[0] = uint64_t(s);
+    for (int i = 1; i < frames - 1; ++i) {
+      int w = 0;
+      uint64_t v = ebml_vint(f, p, end, &w);
+      int64_t bias = (int64_t(1) << (7 * w - 1)) - 1;
+      s += int64_t(v) - bias;
+      if (s < 0) broken("Matroska EBML lacing is bad");
+      sizes[i] = uint64_t(s);
+    }
+  } else {                                       // fixed
+    if ((end - p) % frames) broken("Matroska fixed lacing is bad");
+    for (int i = 0; i < frames - 1; ++i) sizes[i] = (end - p) / frames;
+  }
+  uint64_t used = 0;
+  for (int i = 0; i < frames - 1; ++i) used += sizes[i];
+  if (used > end - p) broken("Matroska lacing runs past its block");
+  sizes[frames - 1] = (end - p) - used;
+  for (int i = 0; i < frames; ++i) {
+    if (sizes[i]) t.packets.push_back({p, uint32_t(sizes[i]), key && i == 0});
+    p += sizes[i];
+  }
+}
+
+void demux_mkv(Track& t) {
+  const std::vector<uint8_t>& f = t.file;
+  t.container = "Matroska";
+  Ebml e{f, 0, f.size()};
+  if (ebml_id(e) != 0x1A45DFA3) broken("not a Matroska file");
+  uint64_t hs = ebml_vint(f, e.p, e.end);
+  if (hs == kUnknown || e.p + hs > e.end) broken("Matroska header is bad");
+  e.p += hs;
+  if (ebml_id(e) != 0x18538067) broken("Matroska file without a segment");
+  uint64_t ss = ebml_vint(f, e.p, e.end);
+  size_t seg_end = ss == kUnknown ? f.size()
+                                  : std::min<size_t>(f.size(), e.p + ss);
+  uint64_t scale = 1000000, track = 0, default_duration = 0;
+  double duration = 0.0;
+  bool have_track = false;
+  // Elements whose children are read: Segment's masters, then clusters.
+  struct Level {
+    size_t end;
+    uint32_t id;
+  };
+  std::vector<Level> levels = {{seg_end, 0x18538067}};
+  bool in_group = false, referenced = false;
+  size_t block = 0, block_end = 0;
+  while (!levels.empty()) {
+    Level& lv = levels.back();
+    if (e.p >= lv.end) {
+      if (lv.id == 0xA0 && block)                 // end of a BlockGroup
+        mkv_block(t, block, block_end, track, false, referenced);
+      if (lv.id == 0xA0) in_group = false;
+      e.p = std::max(e.p, lv.end);
+      levels.pop_back();
+      continue;
+    }
+    size_t start = e.p;
+    uint32_t id = ebml_id(e);
+    uint64_t sz = ebml_vint(f, e.p, lv.end);
+    // An unknown-size cluster ends where an element of a higher level
+    // begins.
+    if (lv.id == 0x1F43B675 && lv.end == seg_end && mkv_top_level(id) &&
+        levels.size() > 1) {
+      e.p = start;
+      levels.pop_back();
+      continue;
+    }
+    size_t body = e.p;
+    size_t end = sz == kUnknown ? lv.end : body + sz;
+    if (end > lv.end) {
+      if (lv.id == 0x18538067) end = lv.end;     // a file cut short
+      else broken("Matroska element runs past its parent");
+    }
+    switch (id) {
+      case 0x1549A966:                            // Info
+      case 0x1654AE6B:                            // Tracks
+      case 0xE0:                                  // Video
+        levels.push_back({end, id});
+        continue;
+      case 0xAE:                                  // TrackEntry
+        if (!have_track) {
+          // Read the entry; keep it if it is the first video track.
+          Track cand;
+          uint64_t number = 0, type = 0, dd = 0;
+          std::string codec;
+          std::vector<uint8_t> priv;
+          int w = 0, h = 0;
+          bool encoded = false;
+          std::vector<std::pair<size_t, size_t>> st = {{body, end}};
+          while (!st.empty()) {
+            auto [q, qe] = st.back();
+            st.pop_back();
+            Ebml c{f, q, qe};
+            while (c.p < qe) {
+              uint32_t cid = ebml_id(c);
+              uint64_t cs = ebml_vint(f, c.p, qe);
+              if (cs == kUnknown || c.p + cs > qe)
+                broken("Matroska track entry is bad");
+              size_t cb = c.p;
+              c.p += cs;
+              if (cid == 0xD7) number = ebml_uint(f, cb, cs);
+              else if (cid == 0x83) type = ebml_uint(f, cb, cs);
+              else if (cid == 0x86)
+                codec.assign(reinterpret_cast<const char*>(&f[cb]), cs);
+              else if (cid == 0x63A2) priv.assign(f.begin() + cb,
+                                                  f.begin() + cb + cs);
+              else if (cid == 0x23E383) dd = ebml_uint(f, cb, cs);
+              else if (cid == 0xB0) w = int(ebml_uint(f, cb, cs));
+              else if (cid == 0xBA) h = int(ebml_uint(f, cb, cs));
+              else if (cid == 0x6D80) encoded = true;
+              else if (cid == 0xE0) st.push_back({cb, cb + cs});
+            }
+          }
+          while (!codec.empty() && codec.back() == '\0') codec.pop_back();
+          if (type == 1) {
+            if (encoded)
+              unsupported("Matroska track with content encodings "
+                          "(compression or encryption)");
+            have_track = true;
+            track = number;
+            default_duration = dd;
+            t.width = w;
+            t.height = h;
+            t.tag = codec;
+            if (codec == "V_MJPEG") {
+              t.codec = Codec::kMjpeg;
+            } else if (codec == "V_MPEG4/ISO/SP" ||
+                       codec == "V_MPEG4/ISO/ASP" ||
+                       codec == "V_MPEG4/ISO/AP") {
+              t.codec = Codec::kMpeg4;
+              t.config = priv;
+            } else if (codec == "V_MS/VFW/FOURCC") {
+              if (priv.size() < 40)
+                broken("Matroska V_MS/VFW/FOURCC without its "
+                       "BITMAPINFOHEADER");
+              t.tag = codec + " " + fourcc_str(le32(&priv[16]));
+              t.codec = riff_codec(fourcc_str(le32(&priv[16])));
+              t.config.assign(priv.begin() + 40, priv.end());
+            }
+          }
+        }
+        e.p = end;
+        continue;
+      case 0x2AD7B1:                              // TimestampScale
+        scale = ebml_uint(f, body, sz);
+        break;
+      case 0x4489:                                // Duration
+        duration = ebml_float(f, body, sz);
+        break;
+      case 0x1F43B675:                            // Cluster
+        levels.push_back({end, id});
+        continue;
+      case 0xA3:                                  // SimpleBlock
+        if (!have_track) broken("Matroska block before its track");
+        mkv_block(t, body, end, track, true, false);
+        break;
+      case 0xA0:                                  // BlockGroup
+        in_group = true;
+        referenced = false;
+        block = 0;
+        levels.push_back({end, id});
+        continue;
+      case 0xA1:                                  // Block
+        if (in_group) {
+          block = body;
+          block_end = end;
+        }
+        break;
+      case 0xFB:                                  // ReferenceBlock
+        if (in_group) referenced = true;
+        break;
+      default:
+        break;
+    }
+    if (sz == kUnknown) broken("Matroska element of unknown size");
+    e.p = end;
+  }
+  if (!have_track) broken("Matroska file without a video track");
+  // cv2: round(duration_sec · fps), duration from the segment's Info as
+  // libavformat converts it to microseconds, fps its avg_frame_rate.
+  if (!default_duration)
+    unsupported("Matroska video track without DefaultDuration "
+                "(cv2's frame count would come from its timestamps)");
+  if (duration <= 0.0)
+    unsupported("Matroska segment without a Duration");
+  int64_t dur_us = int64_t(duration * double(scale) * 1000.0 / 1000000.0);
+  int64_t fn = 0, fd = 1;
+  av_reduce(fn, fd, 1000000000, int64_t(default_duration), 30000);
+  double fps = fd ? double(fn) / double(fd) : 0.0;
+  t.count = int64_t(std::floor(double(dur_us) / 1000000.0 * fps + 0.5));
+}
+
+// ------------------------------------------------------------ by name
+
+Track open_track(const std::string& path) {
+  Track t;
+  t.file = read_file(path);
+  const std::vector<uint8_t>& f = t.file;
+  if (f.size() >= 12 && std::memcmp(f.data(), "RIFF", 4) == 0) {
+    demux_avi(t);
+  } else if (f.size() >= 4 && be32(f.data()) == 0x1A45DFA3) {
+    demux_mkv(t);
+  } else if (f.size() >= 8 &&
+             (std::memcmp(&f[4], "ftyp", 4) == 0 ||
+              std::memcmp(&f[4], "moov", 4) == 0 ||
+              std::memcmp(&f[4], "mdat", 4) == 0 ||
+              std::memcmp(&f[4], "free", 4) == 0 ||
+              std::memcmp(&f[4], "wide", 4) == 0 ||
+              std::memcmp(&f[4], "skip", 4) == 0)) {
+    demux_mp4(t);
+  } else {
+    broken(path + ": not an AVI, MP4/MOV or Matroska/WebM file");
+  }
+  return t;
+}
+
+}  // namespace
+
+// =====================================================================
+// ffmpeg's simple IDCT (libavcodec/simple_idct_template.c, 8 bits)
+// =====================================================================
+
+namespace {
+
+constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873,
+              W6 = 8867, W7 = 4520;
+constexpr int kRowShift = 11, kColShift = 20;
+
+inline uint8_t clip_u8(int v) {
+  return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+
+void idct_row(int16_t* row) {
+  if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
+    int16_t dc = int16_t(uint16_t(row[0]) << 3);
+    for (int i = 0; i < 8; ++i) row[i] = dc;
+    return;
+  }
+  int a0 = W4 * row[0] + (1 << (kRowShift - 1));
+  int a1 = a0, a2 = a0, a3 = a0;
+  a0 += W2 * row[2];
+  a1 += W6 * row[2];
+  a2 -= W6 * row[2];
+  a3 -= W2 * row[2];
+  int b0 = W1 * row[1] + W3 * row[3];
+  int b1 = W3 * row[1] - W7 * row[3];
+  int b2 = W5 * row[1] - W1 * row[3];
+  int b3 = W7 * row[1] - W5 * row[3];
+  if (row[4] | row[5] | row[6] | row[7]) {
+    a0 += W4 * row[4] + W6 * row[6];
+    a1 += -W4 * row[4] - W2 * row[6];
+    a2 += -W4 * row[4] + W2 * row[6];
+    a3 += W4 * row[4] - W6 * row[6];
+    b0 += W5 * row[5] + W7 * row[7];
+    b1 += -W1 * row[5] - W5 * row[7];
+    b2 += W7 * row[5] + W3 * row[7];
+    b3 += W3 * row[5] - W1 * row[7];
+  }
+  row[0] = int16_t((a0 + b0) >> kRowShift);
+  row[7] = int16_t((a0 - b0) >> kRowShift);
+  row[1] = int16_t((a1 + b1) >> kRowShift);
+  row[6] = int16_t((a1 - b1) >> kRowShift);
+  row[2] = int16_t((a2 + b2) >> kRowShift);
+  row[5] = int16_t((a2 - b2) >> kRowShift);
+  row[3] = int16_t((a3 + b3) >> kRowShift);
+  row[4] = int16_t((a3 - b3) >> kRowShift);
+}
+
+// One column → its 8 outputs (before the clip), unsigned arithmetic as
+// ffmpeg's SUINT.
+void idct_col(const int16_t* col, int out[8]) {
+  unsigned a0 = unsigned(W4 * (col[0] + ((1 << (kColShift - 1)) / W4)));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += unsigned(W2 * col[16]);
+  a1 += unsigned(W6 * col[16]);
+  a2 += unsigned(-W6 * col[16]);
+  a3 += unsigned(-W2 * col[16]);
+  unsigned b0 = unsigned(W1 * col[8]), b1 = unsigned(W3 * col[8]);
+  unsigned b2 = unsigned(W5 * col[8]), b3 = unsigned(W7 * col[8]);
+  b0 += unsigned(W3 * col[24]);
+  b1 += unsigned(-W7 * col[24]);
+  b2 += unsigned(-W1 * col[24]);
+  b3 += unsigned(-W5 * col[24]);
+  a0 += unsigned(W4 * col[32]);
+  a1 += unsigned(-W4 * col[32]);
+  a2 += unsigned(-W4 * col[32]);
+  a3 += unsigned(W4 * col[32]);
+  b0 += unsigned(W5 * col[40]);
+  b1 += unsigned(-W1 * col[40]);
+  b2 += unsigned(W7 * col[40]);
+  b3 += unsigned(W3 * col[40]);
+  a0 += unsigned(W6 * col[48]);
+  a1 += unsigned(-W2 * col[48]);
+  a2 += unsigned(W2 * col[48]);
+  a3 += unsigned(-W6 * col[48]);
+  b0 += unsigned(W7 * col[56]);
+  b1 += unsigned(-W5 * col[56]);
+  b2 += unsigned(W3 * col[56]);
+  b3 += unsigned(-W1 * col[56]);
+  out[0] = int(a0 + b0) >> kColShift;
+  out[1] = int(a1 + b1) >> kColShift;
+  out[2] = int(a2 + b2) >> kColShift;
+  out[3] = int(a3 + b3) >> kColShift;
+  out[4] = int(a3 - b3) >> kColShift;
+  out[5] = int(a2 - b2) >> kColShift;
+  out[6] = int(a1 - b1) >> kColShift;
+  out[7] = int(a0 - b0) >> kColShift;
+}
+
+}  // namespace
+
+void idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
+  for (int r = 0; r < 8; ++r) idct_row(blk + 8 * r);
+  for (int c = 0; c < 8; ++c) {
+    int o[8];
+    idct_col(blk + c, o);
+    for (int r = 0; r < 8; ++r) dst[r * stride + c] = clip_u8(o[r]);
+  }
+}
+
+void idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
+  for (int r = 0; r < 8; ++r) idct_row(blk + 8 * r);
+  for (int c = 0; c < 8; ++c) {
+    int o[8];
+    idct_col(blk + c, o);
+    for (int r = 0; r < 8; ++r)
+      dst[r * stride + c] = clip_u8(dst[r * stride + c] + o[r]);
+  }
+}
+
+// =====================================================================
+// MJPEG, the conversion to BGR24, the resize
+// =====================================================================
+
+namespace {
+
+// One MJPEG packet → yuvj420p planes. `container_h`: the height the
+// container gives (a picture under 3/4 of it is one field of a pair).
+void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
+                  Picture& out) {
+  viai_jpeg::Coefficients c;
+  try {
+    c = viai_jpeg::decode_coefficients(data, n, true);
+  } catch (const viai_jpeg::Error& e) {
+    throw Error{e.code, "MJPEG: " + e.msg};
+  }
+  if (container_h > 0 && c.height < (container_h * 3) / 4)
+    unsupported("MJPEG interlaced field pairs (AVI1)");
+  if (c.ncomp != 3 || c.comp[0].h != 2 || c.comp[0].v != 2 ||
+      c.comp[1].h != 1 || c.comp[1].v != 1 || c.comp[2].h != 1 ||
+      c.comp[2].v != 1)
+    unsupported("MJPEG other than 4:2:0 YCbCr (ffmpeg's yuvj420p)");
+  out.w = c.width;
+  out.h = c.height;
+  out.full_range = true;
+  std::vector<uint8_t>* planes[3] = {&out.y, &out.u, &out.v};
+  for (int i = 0; i < 3; ++i) {
+    viai_jpeg::Plane& p = c.comp[i];
+    int pw = p.bw * 8, ph = p.cbh * 8;
+    std::vector<uint8_t>& dst = *planes[i];
+    dst.assign(size_t(pw) * ph, 0);
+    int16_t blk[64];
+    for (int by = 0; by < p.cbh; ++by)
+      for (int bx = 0; bx < p.cbw; ++bx) {
+        const int16_t* src = &p.coef[(size_t(by) * p.bw + bx) * 64];
+        for (int k = 0; k < 64; ++k)
+          blk[k] = int16_t(int(src[k]) * p.q[k]);
+        // ffmpeg's DC predictor starts at 4 << 8: the level shift.
+        blk[0] = int16_t(std::min(std::max(int(src[0]) * p.q[0] + 1024,
+                                           -32768), 32767));
+        idct_put(blk, &dst[size_t(by) * 8 * pw + bx * 8], pw);
+      }
+    if (i == 0) out.ystride = pw;
+    else out.cstride = pw;
+  }
+}
+
+// libswscale's roundToInt16 of a 16.16 value.
+int round16(int64_t f) {
+  int64_t r = (f + (1 << 15)) >> 16;
+  return int(std::max<int64_t>(std::min<int64_t>(r, 0x7FFF), -0x7FFF));
+}
+
+struct BgrCoeffs {
+  int y, vr, ub, vg, ug, yoff;
+};
+
+// swscale's coefficients for BT.601 (ff_yuv2rgb_coeffs[SWS_CS_DEFAULT]),
+// scaled by 224/255 for full range or the luma by 255/219 for limited.
+BgrCoeffs bgr_coeffs(bool full) {
+  int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+  int64_t cy = 1 << 16, oy = 0;
+  if (full) {
+    auto s = [](int64_t v) { return v < 0 ? -((-v * 224) / 255)
+                                          : (v * 224) / 255; };
+    crv = s(crv);
+    cbu = s(cbu);
+    cgu = s(cgu);
+    cgv = s(cgv);
+  } else {
+    cy = (cy * 255) / 219;
+    oy = 16 << 16;
+  }
+  return {round16(cy << 13), round16(crv << 13), round16(cbu << 13),
+          round16(cgv << 13), round16(cgu << 13), round16(oy << 3)};
+}
+
+inline int pmulhw(int a, int b) { return (a * b) >> 16; }
+
+// A 4:2:0 picture → (h, w, 3) BGR24, as swscale converts it.
+std::vector<uint8_t> to_bgr(const Picture& p) {
+  if (p.h & 1)
+    unsupported("4:2:0 picture of odd height (swscale converts it "
+                "through its scaler, not read)");
+  BgrCoeffs k = bgr_coeffs(p.full_range);
+  std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
+  for (int y = 0; y < p.h; ++y) {
+    const uint8_t* yr = &p.y[size_t(y) * p.ystride];
+    const uint8_t* ur = &p.u[size_t(y / 2) * p.cstride];
+    const uint8_t* vr = &p.v[size_t(y / 2) * p.cstride];
+    uint8_t* o = &out[size_t(y) * p.w * 3];
+    for (int x = 0; x < p.w; ++x) {
+      int yy = pmulhw(int(int16_t(yr[x] * 8 - k.yoff)), k.y);
+      int u = ur[x / 2] * 8 - 1024, v = vr[x / 2] * 8 - 1024;
+      o[3 * x] = clip_u8(yy + pmulhw(u, k.ub));
+      o[3 * x + 1] = clip_u8(yy + (pmulhw(u, k.ug) + pmulhw(v, k.vg)));
+      o[3 * x + 2] = clip_u8(yy + pmulhw(v, k.vr));
+    }
+  }
+  return out;
+}
+
+struct Taps {
+  std::vector<int> i0, i1;
+  std::vector<int> a0, a1;   // 11-bit weights
+};
+
+// cv::resize INTER_LINEAR's taps for one axis: float32 positions,
+// saturate_cast<short>(weight · 2048); the horizontal axis clamps
+// positions outside the source (the weight of the edge pixel 1), the
+// vertical one keeps its weights and reads the edge row for both.
+Taps linear_taps(int n_in, int n_out, bool clamp) {
+  Taps t;
+  double scale = double(n_in) / double(n_out);
+  for (int d = 0; d < n_out; ++d) {
+    float fx = float((d + 0.5) * scale - 0.5);
+    int s = int(std::floor(fx));
+    fx -= float(s);
+    int s1 = s + 1;
+    if (clamp) {
+      if (s < 0) {
+        fx = 0.f;
+        s = 0;
+      }
+      if (s + 1 >= n_in) {
+        fx = 0.f;
+        s = n_in - 1;
+      }
+      s1 = std::min(s + 1, n_in - 1);
+    } else {
+      s = std::min(std::max(s, 0), n_in - 1);
+      s1 = std::min(std::max(s1, 0), n_in - 1);
+    }
+    t.i0.push_back(s);
+    t.i1.push_back(s1);
+    t.a0.push_back(int(std::nearbyint((1.f - fx) * 2048.f)));
+    t.a1.push_back(int(std::nearbyint(fx * 2048.f)));
+  }
+  return t;
+}
+
+// cv2.resize(bgr, (size, size)) → float32 RGB / 255 into `out`.
+void resize_rgb(const uint8_t* bgr, int h, int w, int size, float* out) {
+  Taps tx = linear_taps(w, size, true), ty = linear_taps(h, size, false);
+  std::vector<int32_t> rows(size_t(h) * size * 3);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* s = bgr + size_t(y) * w * 3;
+    int32_t* d = &rows[size_t(y) * size * 3];
+    for (int x = 0; x < size; ++x)
+      for (int c = 0; c < 3; ++c)
+        d[3 * x + c] = s[3 * tx.i0[x] + c] * tx.a0[x] +
+                       s[3 * tx.i1[x] + c] * tx.a1[x];
+  }
+  for (int y = 0; y < size; ++y) {
+    const int32_t* r0 = &rows[size_t(ty.i0[y]) * size * 3];
+    const int32_t* r1 = &rows[size_t(ty.i1[y]) * size * 3];
+    int b0 = ty.a0[y], b1 = ty.a1[y];
+    float* o = out + size_t(y) * size * 3;
+    for (int x = 0; x < size; ++x)
+      for (int c = 0; c < 3; ++c) {
+        int v = (pmulhw(int(int16_t(r0[3 * x + c] >> 4)), b0) +
+                 pmulhw(int(int16_t(r1[3 * x + c] >> 4)), b1) + 2) >> 2;
+        o[3 * x + 2 - c] = float(clip_u8(v)) / 255.0f;
+      }
+  }
+}
+
+// Decodes a track's pictures in order.
+class Decoder {
+ public:
+  explicit Decoder(const Track& t) : t_(t) {
+    if (t.codec == Codec::kOther)
+      unsupported(t.container + " video coded as '" + t.tag + "' (" +
+                  codec_name(t.tag) + ")");
+    if (t.codec == Codec::kMpeg4)
+      mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
+  }
+
+  // Packet i → its picture in `out`; false when it holds none.
+  bool decode(size_t i, Picture& out) {
+    const Packet& p = t_.packets[i];
+    const uint8_t* d = &t_.file[p.off];
+    if (t_.codec == Codec::kMjpeg) {
+      decode_mjpeg(d, p.size, t_.height, out);
+      return true;
+    }
+    return mpeg4_->decode(d, p.size, out);
+  }
+
+  // Read packet i's headers only (MPEG-4: a VOL it holds is kept).
+  void skip(size_t i) {
+    if (mpeg4_) mpeg4_->peek(&t_.file[t_.packets[i].off], t_.packets[i].size);
+  }
+
+  static std::string codec_name(const std::string& tag) {
+    std::string u = upper(tag);
+    auto has = [&](const char* s) { return u.find(s) != std::string::npos; };
+    if (has("AVC") || has("H264") || has("X264") || has("DAVC"))
+      return "H.264, not read";
+    if (has("HEVC") || has("HVC1") || has("HEV1") || has("H265"))
+      return "HEVC, not read";
+    if (has("VP8") || has("VP08") || has("VP80")) return "VP8, not read";
+    if (has("VP9") || has("VP09") || has("VP90")) return "VP9, not read";
+    if (has("AV1") || has("AV01")) return "AV1, not read";
+    if (has("FFV1")) return "FFV1, not read";
+    return "a codec that is not read";
+  }
+
+ private:
+  const Track& t_;
+  std::unique_ptr<Mpeg4Decoder> mpeg4_;
+};
+
+}  // namespace
+
+}  // namespace viai_video
+
+// =====================================================================
+// C interface
+// =====================================================================
+
+namespace {
+
+using viai_video::Error;
+using viai_video::Picture;
+using viai_video::Track;
+
+void set_error(char* err, int errlen, const std::string& msg) {
+  if (err && errlen > 0) std::snprintf(err, size_t(errlen), "%s", msg.c_str());
+}
+
+struct Handle {
+  Track track;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Demux a file. → a handle (free it with viai_video_close), nullptr on
+// failure with *code 1 (broken) or 2 (unsupported) and err set.
+void* viai_video_open(const char* path, int32_t* code, char* err,
+                      int32_t errlen) {
+  try {
+    Handle* h = new Handle{viai_video::open_track(path)};
+    *code = 0;
+    return h;
+  } catch (const Error& e) {
+    *code = e.code;
+    set_error(err, errlen, std::string(path) + ": " + e.msg);
+  } catch (const std::bad_alloc&) {
+    *code = 1;
+    set_error(err, errlen, "out of memory");
+  }
+  return nullptr;
+}
+
+void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
+
+// info = (width, height, cv2's frame count, packets, config bytes,
+// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 another); tag and container names.
+void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
+                     int32_t len) {
+  const Track& t = static_cast<Handle*>(hp)->track;
+  info[0] = t.width;
+  info[1] = t.height;
+  info[2] = t.count;
+  info[3] = int64_t(t.packets.size());
+  info[4] = int64_t(t.config.size());
+  info[5] = int64_t(t.codec);
+  set_error(tag, len, t.tag);
+  set_error(container, len, t.container);
+}
+
+// Packet i's bytes, size and keyframe flag (the container's).
+const uint8_t* viai_video_packet(void* hp, int64_t i, int64_t* size,
+                                 int32_t* key) {
+  const Track& t = static_cast<Handle*>(hp)->track;
+  const viai_video::Packet& p = t.packets[size_t(i)];
+  *size = p.size;
+  *key = p.key;
+  return &t.file[p.off];
+}
+
+const uint8_t* viai_video_config(void* hp) {
+  return static_cast<Handle*>(hp)->track.config.data();
+}
+
+// Every picture of the track as (T, h, w, 3) BGR24 → a malloc'd buffer
+// (free it with viai_video_free), shape in thw; nullptr on failure with
+// *code and err set.
+uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
+                           int32_t errlen) {
+  const Track& t = static_cast<Handle*>(hp)->track;
+  try {
+    viai_video::Decoder dec(t);
+    std::vector<uint8_t> all;
+    int64_t frames = 0, w = 0, h = 0;
+    Picture pic;
+    for (size_t i = 0; i < t.packets.size(); ++i) {
+      if (!dec.decode(i, pic)) continue;
+      std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
+      if (frames && (pic.w != w || pic.h != h))
+        viai_video::unsupported("a picture size that changes mid-stream");
+      w = pic.w;
+      h = pic.h;
+      all.insert(all.end(), bgr.begin(), bgr.end());
+      ++frames;
+    }
+    if (!frames) viai_video::broken("no frames decoded");
+    uint8_t* out = static_cast<uint8_t*>(std::malloc(all.size()));
+    if (!out) viai_video::broken("out of memory");
+    std::memcpy(out, all.data(), all.size());
+    thw[0] = frames;
+    thw[1] = h;
+    thw[2] = w;
+    *code = 0;
+    return out;
+  } catch (const Error& e) {
+    *code = e.code;
+    set_error(err, errlen, e.msg);
+  } catch (const std::bad_alloc&) {
+    *code = 1;
+    set_error(err, errlen, "out of memory");
+  }
+  return nullptr;
+}
+
+void viai_video_free(uint8_t* p) { std::free(p); }
+
+// viai_tpu/data/av.py::_load_frames_video → out (n_frames, size, size, 3)
+// float32 RGB in [0, 1]: the indices of cv2's frame count over the
+// window (float64 rule) as a set; the frames found among them, each
+// resized as cv2.resize at INTER_LINEAR on BGR, flipped to RGB, / 255;
+// then re-picked by the window rule over (0, 1) when their number is
+// not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
+// last I-VOP at or before the first pick to the last pick. → 0, or 1
+// broken / 2 unsupported with err set.
+int32_t viai_load_video_frames(const char* path, int32_t n_frames,
+                               int32_t size, double w0, double w1,
+                               float* out, char* err, int32_t errlen) {
+  try {
+    if (n_frames < 1 || size < 1)
+      viai_video::broken("n_frames and size must be positive");
+    Track t = viai_video::open_track(path);
+    viai_video::Decoder dec(t);
+    std::vector<int64_t> idx =
+        viai_window::window_indices(t.count, n_frames, w0, w1);
+    std::vector<int64_t> want(idx);
+    std::sort(want.begin(), want.end());
+    want.erase(std::unique(want.begin(), want.end()), want.end());
+    // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
+    // frame when it holds a VOP.
+    std::vector<int64_t> frame_of(t.packets.size(), -1);
+    std::vector<int> vop(t.packets.size(), 0);
+    int64_t frames = 0;
+    std::unique_ptr<viai_video::Mpeg4Decoder> scan;
+    if (t.codec == viai_video::Codec::kMpeg4)
+      scan.reset(new viai_video::Mpeg4Decoder(t.config, t.tag));
+    for (size_t i = 0; i < t.packets.size(); ++i) {
+      const viai_video::Packet& p = t.packets[i];
+      vop[i] = scan ? scan->peek(&t.file[p.off], p.size) : 0;
+      if (vop[i] >= 0) frame_of[i] = frames++;
+    }
+    size_t first = 0, last = 0;
+    bool any = false;
+    for (size_t i = 0; i < t.packets.size(); ++i) {
+      if (frame_of[i] < 0 ||
+          !std::binary_search(want.begin(), want.end(), frame_of[i]))
+        continue;
+      if (!any) first = i;
+      last = i;
+      any = true;
+    }
+    if (!any) viai_video::broken("no frames decoded");
+    size_t start = first;
+    if (t.codec == viai_video::Codec::kMpeg4)
+      while (start > 0 && vop[start] != 0) --start;
+    // Headers (an in-band VOL) may precede that I-VOP.
+    for (size_t i = 0; i < start; ++i) dec.skip(i);
+    const int64_t fsz = int64_t(size) * size * 3;
+    std::vector<float> got;
+    Picture pic;
+    for (size_t i = start; i <= last; ++i) {
+      bool picked = frame_of[i] >= 0 &&
+                    std::binary_search(want.begin(), want.end(), frame_of[i]);
+      if (t.codec == viai_video::Codec::kMjpeg && !picked) continue;
+      if (!dec.decode(i, pic) || !picked) continue;
+      std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
+      got.resize(got.size() + size_t(fsz));
+      viai_video::resize_rgb(bgr.data(), pic.h, pic.w, size,
+                             &got[got.size() - size_t(fsz)]);
+    }
+    int64_t k = int64_t(got.size() / size_t(fsz));
+    std::vector<int64_t> pick(n_frames);
+    if (k == n_frames) {
+      for (int i = 0; i < n_frames; ++i) pick[i] = i;
+    } else {
+      pick = viai_window::window_indices(k, n_frames, 0.0, 1.0);
+    }
+    for (int i = 0; i < n_frames; ++i)
+      std::memcpy(out + i * fsz, &got[size_t(pick[i] * fsz)],
+                  sizeof(float) * size_t(fsz));
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, std::string(path) + ": " + e.msg);
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+    return 1;
+  }
+}
+
+}  // extern "C"

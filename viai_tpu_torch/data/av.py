@@ -15,15 +15,19 @@ The port's copy of `viai_tpu/data/av.py`. The frames of a clip
     (native.py: the picked files decoded by the port's own JPEG and PNG
     decoder, csrc/imagedec.cpp, what PIL gives; Pillow's 8-bit BILINEAR
     resize; [0, 1] float32; data/image.py is its plain twin);
-  * `<stem>.avi`, uncompressed ('RGBA' 32-bit or BI_RGB 24-bit
-    bottom-up, as data/avi.py writes and reads), through the native
-    reader.
-Compressed video (`.mp4`, `.mkv`, `.webm`, compressed `.avi` such as
-MJPEG) raises NotImplementedError naming the layout: the JAX package
-decodes it with cv2, which the port does not import, so there is no
-reference beside it to hold a port against. A MUSICES-style
-JSON manifest {split: [{"audio": ..., "frames": ...}]} is read by
-MusicesManifest.
+  * a video file, the first of `<stem>.mp4`, `.avi`, `.mkv`, `.webm`
+    (the JAX package's order): an uncompressed AVI ('RGBA' 32-bit or
+    BI_RGB 24-bit bottom-up, as data/avi.py writes and reads) through
+    the frame-stack reader, any other through the port's video reader
+    (native.load_video_frames: csrc/videodec.cpp's demuxers for AVI,
+    MP4/MOV and Matroska/WebM, its MJPEG decoder and csrc/mpeg4.cpp's
+    MPEG-4 Part 2 decoder), what the JAX package's cv2 path gives: the
+    frames of cv2's count over the window as a set, cv2's INTER_LINEAR
+    resize on BGR, RGB / 255, re-picked over the frames found. Another
+    codec (H.264, HEVC, VP8, VP9, AV1, FFV1) raises NotImplementedError
+    naming it.
+A MUSICES-style JSON manifest {split: [{"audio": ..., "frames": ...}]}
+is read by MusicesManifest.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import numpy as np
 from .. import native
 from .audio import AudioFolderDataset, crop_with_info, load_wav
 
-COMPRESSED_VIDEO = (".mp4", ".mkv", ".webm")
+VIDEO_EXTS = (".mp4", ".avi", ".mkv", ".webm")
 
 
 def _window_indices(total: int, n_frames: int, window) -> np.ndarray:
@@ -151,7 +155,7 @@ def load_frames_for(stem: str, n_frames: int, size: int,
                     window: tuple[float, float] | None = None,
                     frame_threads: int | None = None) -> np.ndarray:
     """The frames of `<stem>` in the layout found first: `.npy`, then a
-    frame directory, then video. `window` = (t0_frac, t1_frac) of the
+    frame directory, then video (.mp4, .avi, .mkv, .webm). `window` = (t0_frac, t1_frac) of the
     source's duration picks the frames aligned with the audio crop;
     `frame_threads` decode a frame directory (None: one a core)."""
     if os.path.exists(stem + ".npy"):
@@ -162,16 +166,14 @@ def load_frames_for(stem: str, n_frames: int, size: int,
     if os.path.isdir(stem):
         return native.load_frame_dir(stem, n_frames, size, window,
                                      frame_threads)
-    if os.path.exists(stem + ".avi"):
-        return native.load_frames(stem + ".avi", n_frames, size, window)
-    for ext in COMPRESSED_VIDEO:
-        if os.path.exists(stem + ext):
-            raise NotImplementedError(
-                f"{stem}{ext}: compressed video is not read by "
-                f"viai_tpu_torch (the JAX package decodes it with cv2); "
-                f"store the clip's frames as {os.path.basename(stem)}.npy, "
-                f"as a directory of jpeg or png frames or as an "
-                f"uncompressed AVI")
+    for ext in VIDEO_EXTS:
+        path = stem + ext
+        if not os.path.exists(path):
+            continue
+        if ext == ".avi" and native.video_track(
+                path, packets=False).tag in native.RAW_AVI_TAGS:
+            return native.load_frames(path, n_frames, size, window)
+        return native.load_video_frames(path, n_frames, size, window)
     raise FileNotFoundError(f"no frame source for {stem}")
 
 

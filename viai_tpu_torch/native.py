@@ -1,12 +1,16 @@
 """ctypes bindings of the port's native host library (csrc/wavio.cpp,
-csrc/framestack.cpp, csrc/imagedec.cpp).
+csrc/framestack.cpp, csrc/imagedec.cpp, csrc/videodec.cpp,
+csrc/mpeg4.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
 AVI: window select, Pillow-style triangle resize, [0, 1] float32) and
-the threaded random-crop clip loader; and, where the JAX package calls
-PIL, the JPEG and PNG decoder (`decode_image`) and the frame-directory
-reader (`load_frame_dir`), whose plain twin is `data/image.py`.
+the threaded random-crop clip loader; where the JAX package calls PIL,
+the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
+(`load_frame_dir`), whose plain twin is `data/image.py`; and where it
+calls cv2, the compressed video reader: the demuxers (`video_track`),
+the MJPEG and MPEG-4 Part 2 decoders (`decode_video`) and the frame path
+of `_load_frames_video` (`load_video_frames`).
 `_build.py` compiles the library with g++ at first use; a failed build
 raises, and there is no flag to go without it (the JAX module falls
 back to numpy quietly).
@@ -15,6 +19,7 @@ back to numpy quietly).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 
@@ -56,6 +61,32 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32]
     lib.viai_image_free.restype = None
     lib.viai_image_free.argtypes = [ctypes.c_void_p]
+    lib.viai_video_open.restype = ctypes.c_void_p
+    lib.viai_video_open.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+        ctypes.c_int32]
+    lib.viai_video_close.restype = None
+    lib.viai_video_close.argtypes = [ctypes.c_void_p]
+    lib.viai_video_info.restype = None
+    lib.viai_video_info.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_int32]
+    lib.viai_video_packet.restype = ctypes.c_void_p
+    lib.viai_video_packet.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.viai_video_config.restype = ctypes.c_void_p
+    lib.viai_video_config.argtypes = [ctypes.c_void_p]
+    lib.viai_video_decode.restype = ctypes.c_void_p
+    lib.viai_video_decode.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32]
+    lib.viai_video_free.restype = None
+    lib.viai_video_free.argtypes = [ctypes.c_void_p]
+    lib.viai_load_video_frames.restype = ctypes.c_int32
+    lib.viai_load_video_frames.argtypes = [
+        ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
+        ctypes.c_double, _F32P, ctypes.c_char_p, ctypes.c_int32]
     lib.viai_load_frame_dir.restype = ctypes.c_int32
     lib.viai_load_frame_dir.argtypes = [
         ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
@@ -121,8 +152,8 @@ def load_frames(path: str, n_frames: int, size: int,
     return out
 
 
-# imagedec.cpp's codes: 1 a broken file, 2 a variant it does not read,
-# 3 a directory without frames.
+# imagedec.cpp's and videodec.cpp's codes: 1 a broken file, 2 a variant
+# it does not read, 3 a directory without frames.
 _IMAGE_ERRORS = {1: ValueError, 2: NotImplementedError,
                  3: FileNotFoundError}
 _ERR_LEN = 512
@@ -183,6 +214,120 @@ def load_frame_dir(path: str, n_frames: int, size: int,
         os.fsencode(path), n_frames, size, float(w0), float(w1),
         host_cores() if threads is None else max(int(threads), 1),
         _ptr(out), err, _ERR_LEN)
+    if code:
+        raise _image_error(code, err)
+    return out
+
+
+# videodec.cpp's codecs (VideoTrack.codec).
+VIDEO_CODECS = ("mjpeg", "mpeg4", "other")
+# The AVI video formats of data/avi.py, which load_frames reads.
+RAW_AVI_TAGS = ("RGBA", "BI_RGB")
+
+
+@dataclasses.dataclass
+class VideoTrack:
+    """A video file's first video track as the port's demuxer gives it:
+    the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
+    .webm), the fourcc or Matroska CodecID (`tag`), the codec
+    ("mjpeg", "mpeg4" or "other"), the size the container gives, the
+    frame count cv2's CAP_PROP_FRAME_COUNT reports, the MPEG-4 headers
+    the container holds (`config`) and the packets in decode order,
+    each (bytes, the container's keyframe flag)."""
+    container: str
+    tag: str
+    codec: str
+    width: int
+    height: int
+    count: int
+    config: bytes
+    packets: list
+
+
+def _open_video(path: str):
+    lib = library()
+    code = ctypes.c_int32(0)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    handle = lib.viai_video_open(os.fsencode(path), ctypes.byref(code), err,
+                                 _ERR_LEN)
+    if not handle:
+        raise _image_error(code.value, err)
+    return lib, handle
+
+
+def video_track(path: str, packets: bool = True) -> VideoTrack:
+    """Demux `path` (AVI, MP4/MOV, Matroska/WebM). Raises ValueError for
+    a broken file, NotImplementedError for a container feature that is
+    not read (an OpenDML index, an edit list, Matroska content
+    encodings)."""
+    lib, h = _open_video(path)
+    try:
+        info = (ctypes.c_int64 * 6)()
+        tag = ctypes.create_string_buffer(_ERR_LEN)
+        container = ctypes.create_string_buffer(_ERR_LEN)
+        lib.viai_video_info(h, info, tag, container, _ERR_LEN)
+        config = ctypes.string_at(lib.viai_video_config(h), info[4]) \
+            if info[4] else b""
+        pkts = []
+        for i in range(info[3] if packets else 0):
+            size, key = ctypes.c_int64(0), ctypes.c_int32(0)
+            ptr = lib.viai_video_packet(h, i, ctypes.byref(size),
+                                        ctypes.byref(key))
+            pkts.append((ctypes.string_at(ptr, size.value), bool(key.value)))
+        return VideoTrack(container.value.decode(), tag.value.decode(),
+                          VIDEO_CODECS[info[5]], int(info[0]), int(info[1]),
+                          int(info[2]), config, pkts)
+    finally:
+        lib.viai_video_close(h)
+
+
+def decode_video(path: str) -> np.ndarray:
+    """Every frame of a video file, (T, H, W, 3) BGR uint8, as cv2's
+    `VideoCapture(path).read()` gives them: MJPEG and MPEG-4 Part 2 (the
+    I- and P-VOPs of ffmpeg's encoder), converted to BGR24 as swscale
+    does. Raises ValueError for a broken file or one without frames,
+    NotImplementedError naming the codec (H.264, HEVC, VP8, VP9, AV1,
+    FFV1, ...) or the MPEG-4 feature it does not read."""
+    lib, h = _open_video(path)
+    try:
+        thw = (ctypes.c_int64 * 3)()
+        code = ctypes.c_int32(0)
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        ptr = lib.viai_video_decode(h, thw, ctypes.byref(code), err,
+                                    _ERR_LEN)
+        if not ptr:
+            raise _image_error(code.value, err)
+        try:
+            return np.ctypeslib.as_array(
+                ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)),
+                shape=(thw[0], thw[1], thw[2], 3)).copy()
+        finally:
+            lib.viai_video_free(ptr)
+    finally:
+        lib.viai_video_close(h)
+
+
+def load_video_frames(path: str, n_frames: int, size: int,
+                      window: tuple[float, float] | None = None
+                      ) -> np.ndarray:
+    """A compressed video → (n_frames, size, size, 3) float32 RGB in
+    [0, 1], what `viai_tpu/data/av.py::_load_frames_video` computes with
+    cv2: the indices round(linspace(w0·(T−1), w1·(T−1), n_frames)) in
+    float64 of cv2's frame count T over the fractional `window` (all of
+    it by default), as a set; the frames decoded at those indices (an
+    index past the last frame is never reached), each resized by
+    cv2.resize at INTER_LINEAR on BGR, flipped to RGB, / 255; those
+    frames re-picked by the same rule over all of them when they are
+    not n_frames. Raises as decode_video."""
+    if n_frames < 1 or size < 1:
+        raise ValueError(f"n_frames {n_frames} and size {size} must be "
+                         f"positive")
+    w0, w1 = (0.0, 1.0) if window is None else window
+    out = np.empty((n_frames, size, size, 3), np.float32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    code = library().viai_load_video_frames(
+        os.fsencode(path), n_frames, size, float(w0), float(w1), _ptr(out),
+        err, _ERR_LEN)
     if code:
         raise _image_error(code, err)
     return out

@@ -7,20 +7,25 @@ Port of `scripts/prepare_dataset.py`, with its modes and flags:
               YouTube-ID manifest (download_commands); --dry_run prints
               it, otherwise each command runs and missing tools are
               named before any runs;
-  extract   — video files → 16 kHz mono wav + (T, H, W, 3) uint8 frame
-              stack .npy per clip, from uncompressed AVI (data/avi.py:
-              RGBA-32 or BI_RGB-24 video, PCM16 audio), frames through
-              data/av.py::resample_frames, audio through the native
-              resampler;
+  extract   — video files (.avi, .mp4, .mkv, .webm, .mov) → 16 kHz mono
+              wav + (T, H, W, 3) uint8 frame stack .npy per clip: an
+              uncompressed AVI (data/avi.py: RGBA-32 or BI_RGB-24 video,
+              PCM16 audio) gives frames through
+              data/av.py::resample_frames and audio through the native
+              resampler; any other file (a compressed AVI among them)
+              gives its frames through native.load_video_frames and no
+              audio: the clip is frames-only, as in the JAX script;
   audio     — a tree of wav files → 16 kHz mono wavs;
-  frames    — per-clip frame stacks <stem>.npy beside uncompressed AVIs;
+  frames    — per-clip frame stacks <stem>.npy beside the .mp4, .avi,
+              .mkv and .webm files (not .mov, as the JAX script), read
+              as extract reads them;
   manifest  — a MUSICES.json-style manifest of a prepared tree;
   synthetic — N synthetic wav clips (+ frame stacks) for demos.
 
-Compressed containers (.mp4, .mkv, .webm, .mov, compressed .avi), which
-the JAX package decodes with cv2, are not read by the port: extract and
-frames list such clips as skipped with the reason, and extract
---require_audio then exits 1. Each mode appends one record to
+Video the port does not read (H.264, HEVC, VP8, VP9, AV1, FFV1, which
+the JAX package decodes with cv2; a broken file) is listed by extract
+and frames as skipped with the reason; extract --require_audio skips
+frames-only clips too and then exits 1. Each mode appends one record to
 {--results_dir}/quality_results.jsonl. The work is on the host (numpy
 and the native library), as in the JAX script.
 
@@ -51,22 +56,25 @@ from ..io.results import append_record
 from ..utils.visualizer import write_wav
 
 VIDEO_EXTS = (".avi", ".mp4", ".mkv", ".webm", ".mov")
+FRAMES_EXTS = (".mp4", ".avi", ".mkv", ".webm")
 
 
-def _raw_avi(path: str):
-    """(frames uint8 (T, H, W, 3), audio float32 or None, sample rate)
-    of an uncompressed AVI, or the reason the port cannot read `path`."""
-    if not path.lower().endswith(".avi"):
-        return (f"compressed video ({os.path.splitext(path)[1]}) is not "
-                f"read by viai_tpu_torch (the JAX package decodes it with "
-                f"cv2); convert it to an uncompressed AVI with PCM16 audio")
+def _read_video(path: str, n_frames: int, size: int):
+    """(frames uint8 (n_frames, size, size, 3), audio float32 or None,
+    sample rate) of a video file, as the JAX script reads it: an
+    uncompressed AVI with its PCM audio through data/avi.py, any other
+    file's frames alone through the video reader; the reason, a string,
+    for a file the port does not read."""
     try:
         frames, _fps, audio, sr = read_avi(path)
-    except (ValueError, struct.error) as e:
-        return (f"not an uncompressed AVI that viai_tpu_torch reads "
-                f"({e}); convert it to RGBA-32 or BI_RGB-24 video with "
-                f"PCM16 audio")
-    return frames, audio, sr
+        return _to_uint8(frames, n_frames, size), audio, sr
+    except (ValueError, struct.error):
+        pass
+    try:
+        x = native.load_video_frames(path, n_frames, size)
+    except (ValueError, NotImplementedError) as e:
+        return str(e)
+    return (x * 255).astype(np.uint8), None, None
 
 
 def _to_uint8(frames: np.ndarray, n_frames: int, size: int) -> np.ndarray:
@@ -113,15 +121,14 @@ def cmd_frames(args) -> dict:
     n, skipped = 0, []
     for dirpath, _, files in os.walk(args.root):
         for f in sorted(files):
-            if not f.lower().endswith(VIDEO_EXTS):
+            if not f.lower().endswith(FRAMES_EXTS):
                 continue
             path = os.path.join(dirpath, f)
-            got = _raw_avi(path)
+            got = _read_video(path, args.n_frames, args.frame_size)
             if isinstance(got, str):
                 skipped.append((path, got))
                 continue
-            np.save(os.path.splitext(path)[0] + ".npy",
-                    _to_uint8(got[0], args.n_frames, args.frame_size))
+            np.save(os.path.splitext(path)[0] + ".npy", got[0])
             n += 1
     print(f"extracted frames for {n} videos, {len(skipped)} skipped")
     _report_skipped(skipped)
@@ -141,7 +148,7 @@ def cmd_extract(args) -> dict:
                 continue
             path = os.path.join(dirpath, f)
             stem = os.path.join(args.out, os.path.splitext(f)[0])
-            got = _raw_avi(path)
+            got = _read_video(path, args.n_frames, args.frame_size)
             if isinstance(got, str):
                 skipped.append((path, got))
                 continue
@@ -149,8 +156,7 @@ def cmd_extract(args) -> dict:
             if audio is None and args.require_audio:
                 skipped.append((path, "no PCM audio stream"))
                 continue
-            np.save(stem + ".npy",
-                    _to_uint8(frames, args.n_frames, args.frame_size))
+            np.save(stem + ".npy", frames)
             if audio is None:
                 n_frames_only += 1
                 continue
