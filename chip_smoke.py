@@ -93,16 +93,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      CLI on a musices split of them; the loader's wait share over 10
      steps, the decode time per frame and the host's cores;
  13. compressed video ([video]): the native demuxers and decoders
-     (csrc/videodec.cpp, csrc/mpeg4.cpp) on the committed fixtures of
-     tests/torch_videos/ against cv2's committed decodes and frame
-     counts (MJPEG within 1 level, MPEG-4 Part 2 within 2), a VP8 webm
-     raising NotImplementedError; the av model (the README's recipe)
-     trained 20 steps at batch 16 from [data]'s av clips given the
-     committed 224x224 video files as frames (MJPEG .avi, MPEG-4 .mp4
-     and .mkv, and a MOV made a stack by prepare_dataset extract), GL
-     launches 2 and plain 0; the eval CLI on a musices split of them;
-     the decode time per frame of each codec, a clip's read of 16
-     frames, the loader's wait share of a step and the host's cores;
+     (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp) on the committed
+     fixtures of tests/torch_videos/ against cv2's committed decodes and
+     frame counts (MJPEG within 1 level, MPEG-4 Part 2 within 2, VP8
+     exact), a VP9 webm raising NotImplementedError; the av model (the
+     README's recipe) trained 20 steps at batch 16 from [data]'s av
+     clips given the committed 224x224 video files as frames, once from
+     MJPEG and MPEG-4 files (.avi, .mp4, .mkv, and a MOV made a stack by
+     prepare_dataset extract) and once from VP8 files (.webm, .mkv), GL
+     launches 2 and plain 0 each; the eval CLI on a musices split of
+     each folder; the decode time per frame of each codec, a clip's read
+     of 16 frames, the loader's wait share of a step from each folder
+     and the host's cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
@@ -311,18 +313,24 @@ FRAMES_JPEG_TOL = 1
 FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
 FRAMES_WARMUP = 3
 # [video]: the committed fixtures of tests/torch_videos/ (written with cv2
-# by tests/_torch_make_videos.py, which the card's machine cannot run):
-# MJPEG and MPEG-4 Part 2 clips in AVI, MP4, MOV and Matroska with cv2's
-# decode of their first, middle and last frames and its frame count
-# (.npz), a VP8 webm, and the first frames of the 224x224 jpeg clip as
-# clip.avi (MJPEG), clip.mp4 and clip.mkv (MPEG-4) and clip.mov (MJPEG).
-# Decoded against cv2 within VIDEO_TOL levels (measured 0 on the CPU).
-# [data]'s av clips get these files as their frames; the .mov, which
-# load_frames_for does not look for (as in the JAX package), becomes a
-# frame stack through prepare_dataset extract.
+# and libvpx by tests/_torch_make_videos.py, which the card's machine
+# cannot run): MJPEG, MPEG-4 Part 2 and VP8 clips in AVI, MP4, MOV,
+# Matroska and WebM with cv2's decode of their first, middle and last
+# frames and its frame count (.npz), a VP9 webm, and the first frames of
+# the 224x224 jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv
+# (MPEG-4), clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8). Decoded
+# against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
+# av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
+# which load_frames_for does not look for (as in the JAX package),
+# becomes a frame stack through prepare_dataset extract.
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
-VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2}
+VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0}
+VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8"}
+# folder: the frame files of its clips in turn; "clip.mov" (last) through
+# prepare_dataset extract, "clip.mkv" for the one before it.
+VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
+                 "vp8": ("clip.webm", "clip_vp8.mkv")}
 VIDEO_REPS = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
@@ -1820,20 +1828,22 @@ def phase_frames(dev, ckpt: str, card: str) -> int:
 # Compressed video
 # ---------------------------------------------------------------------------
 
-def write_video_clips(root: pathlib.Path, wavs: list[str]) -> list[str]:
+def write_video_clips(root: pathlib.Path, wavs: list[str],
+                      folder: str) -> list[str]:
     """A folder of the av clips `wavs` (copied) whose frames are the
-    committed video files: clip.avi (MJPEG) and clip.mp4 (MPEG-4) in
-    turn, clip.mkv for the second to last, and for the last clip.mov
-    made a frame stack by prepare_dataset extract; musices.json over
-    them. → the frame file of each clip."""
+    committed video files of VIDEO_FOLDERS[folder] in turn; for
+    "mjpeg_mpeg4" clip.mkv (MPEG-4) for the second to last and for the
+    last clip.mov made a frame stack by prepare_dataset extract;
+    musices.json over them. → the frame file of each clip."""
     from viai_tpu_torch.scripts import prepare_dataset
 
     root.mkdir(parents=True)
     files = []
+    turn = VIDEO_FOLDERS[folder]
     for i, wav in enumerate(wavs):
         stem = root / pathlib.Path(wav).stem
         shutil.copy(wav, f"{stem}.wav")
-        if i == len(wavs) - 1:
+        if folder == "mjpeg_mpeg4" and i == len(wavs) - 1:
             raw = root.parent / "video_raw"
             raw.mkdir()
             shutil.copy(VIDEO_FIXTURES / "clip.mov", raw / f"{stem.name}.mov")
@@ -1844,8 +1854,11 @@ def write_video_clips(root: pathlib.Path, wavs: list[str]) -> list[str]:
                     == (0, 1, 0), f"[video] prepare_dataset extract: {rec}")
             files.append(f"{stem}.npy")
             continue
-        ext = ".mkv" if i == len(wavs) - 2 else (".avi", ".mp4")[i % 2]
-        shutil.copy(VIDEO_FIXTURES / f"clip{ext}", f"{stem}{ext}")
+        src = turn[i % len(turn)]
+        if folder == "mjpeg_mpeg4" and i == len(wavs) - 2:
+            src = "clip.mkv"
+        ext = pathlib.Path(src).suffix
+        shutil.copy(VIDEO_FIXTURES / src, f"{stem}{ext}")
         files.append(f"{stem}{ext}")
     entries = [{"audio": f"{pathlib.Path(f).stem}.wav",
                 "frames": pathlib.Path(f).name} for f in files]
@@ -1857,20 +1870,19 @@ def write_video_clips(root: pathlib.Path, wavs: list[str]) -> list[str]:
 def phase_video(dev, ckpt: str, card: str) -> int:
     """Compressed video on the card ([video]): (a) native.decode_video on
     the committed fixtures against cv2's committed decodes and frame
-    counts, the unread codec raising; (b) the av model trained 20 steps
-    at full width from MJPEG and MPEG-4 clips (AVI, MP4, Matroska, and a
-    MOV through prepare_dataset extract) through the train CLI; (c) the
-    eval CLI on a musices split of them; (d) the decode time per frame
-    of each codec, a clip's read, the loader's wait share of a step.
-    Returns the GL kernel's launches."""
+    counts, an unread codec (VP9) raising; (b) the av model trained 20
+    steps at full width through the train CLI from each folder of
+    VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4, Matroska, and a MOV
+    through prepare_dataset extract), then VP8 clips (WebM, Matroska);
+    (c) the eval CLI on a musices split of each; (d) the decode time per
+    frame of each codec, a clip's read, the loader's wait share of a step
+    from each folder. Returns the GL kernel's launches."""
     from viai_tpu_torch import native
-    from viai_tpu_torch.cli.train import main as train_main
-    from viai_tpu_torch.data import create_dataloader, device_prefetch
-    from viai_tpu_torch.model import VIAIModel
 
     # (a) the decoders against cv2's committed decodes
-    worst = {"mjpeg": 0, "mpeg4": 0}
-    n_frames = {"mjpeg": 0, "mpeg4": 0}
+    worst = {c: 0 for c in VIDEO_TOL}
+    n_frames = {c: 0 for c in VIDEO_TOL}
+    n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     for npz in cases:
         path = next(p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
@@ -1888,70 +1900,34 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                          - ref["frames"]).max())
         worst[track.codec] = max(worst[track.codec], err)
         n_frames[track.codec] += len(ref["index"])
-    for codec, name in (("mjpeg", "MJPEG"), ("mpeg4", "MPEG-4 Part 2")):
-        log(f"[video] {name}: {n_frames[codec]} frames of the committed "
-            f"fixtures against cv2's decodes: max|Δ| {worst[codec]} levels "
-            f"(bound {VIDEO_TOL[codec]}); counts equal cv2's")
+        n_files[track.codec] += 1
+    for codec, name in VIDEO_NAMES.items():
+        log(f"[video] {name}: {n_frames[codec]} frames of {n_files[codec]} "
+            f"committed fixtures against cv2's decodes: max|Δ| "
+            f"{worst[codec]} levels (bound {VIDEO_TOL[codec]}); counts "
+            f"equal cv2's")
+    require(all(n_files.values()), f"[video] a codec without fixtures: "
+            f"{n_files}")
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
             "[video] the native decoders disagree with cv2")
     try:
-        native.decode_video(str(VIDEO_FIXTURES / "vp8_webm.webm"))
-        require(False, "[video] VP8 decoded")
+        native.decode_video(str(VIDEO_FIXTURES / "vp9_webm.webm"))
+        require(False, "[video] VP9 decoded")
     except NotImplementedError as e:
-        log(f"[video] vp8_webm.webm raises NotImplementedError: {e}")
+        require("VP9" in str(e),
+                f"[video] VP9 raises without naming it: {e}")
+        log(f"[video] vp9_webm.webm raises NotImplementedError: {e}")
 
-    # (b) av training from video files
+    # (b), (c) av training and evaluation from each folder of video files
     corpus = pathlib.Path(ckpt) / "corpus"
     if not (corpus / "av").exists():
         write_corpus(corpus)
-    root = pathlib.Path(ckpt) / "video_corpus" / "av"
-    files = write_video_clips(
-        root, sorted(str(p) for p in (corpus / "av").glob("*.wav")))
-    kinds = {}
-    for f in files:
-        kinds[pathlib.Path(f).suffix] = kinds.get(pathlib.Path(f).suffix,
-                                                  0) + 1
-    log(f"[video] corpus: {len(files)} wav files of [data] with video "
-        f"frames (" + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items()))
-        + "; the .npy from clip.mov through prepare_dataset extract), "
-        "musices.json")
-    args = data_train_args("av", ckpt, root)
-    args[args.index("--name") + 1] = "chip_video_av"
-    args[args.index("--dataroot") + 1] = str(root)
-    zero_counts()
-    t0 = time.perf_counter()
-    model = train_main(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
-    losses = model.get_current_losses()
-    log(f"[video] train av from video files: {TRAIN_STEPS} steps at batch "
-        f"{TRAIN_BATCH}, {FRAMES[0]} frames of {FRAMES[1]}x{FRAMES[2]} a "
-        f"clip, through viai_tpu_torch.cli.train in {wall:.1f} s incl. the "
-        f"loader's start; losses " + " ".join(f"{k} {v:.4f}"
-                                             for k, v in losses.items())
-        + f"; griffin_lim_cuda launches {launches}, plain {plain}")
-    require(all(np.isfinite(v) for v in losses.values()),
-            "[video] train av: non-finite loss")
-    require(launches == TRAIN_STEPS // TRAIN_DISPLAY and plain == 0,
-            f"[video] train av: GL launches {launches}, plain {plain}")
-    total = launches
-    del model
-
-    # (c) the eval CLI on a musices split of video clips
-    zero_counts()
-    _, launches = eval_arm(
-        "(video) chip_video_av on the musices test split of video clips",
-        ["--name", "chip_video_av", "--checkpoints_dir", ckpt, "--gpu_ids",
-         "0", "--model", "av", "--gated", "--bottleneck_dilation", "1,2,4",
-         "--dataset_mode", "musices", "--dataroot",
-         str(root / "musices.json"), "--phase", "test", "--batchSize", "3",
-         "--how_many", "3", "--results_dir", os.path.join(ckpt, "results")],
-        3)
-    require(launches > 0 and griffin_lim.calls == 0,
-            f"[video] the eval CLI: GL launches {launches}, plain "
-            f"{griffin_lim.calls}")
-    total += launches
+    total = 0
+    roots = {}
+    for folder in VIDEO_FOLDERS:
+        roots[folder] = root = \
+            pathlib.Path(ckpt) / f"video_corpus_{folder}" / "av"
+        total += video_train_eval(folder, root, corpus, ckpt)
 
     # (d) decode and read times, the loader's wait share
     def best_ms(fn) -> float:
@@ -1962,20 +1938,96 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             out.append((time.perf_counter() - t) * 1e3)
         return min(out)
 
-    times = {}
-    for ext, codec in ((".avi", "MJPEG"), (".mp4", "MPEG-4"),
-                       (".mkv", "MPEG-4")):
-        path = str(VIDEO_FIXTURES / f"clip{ext}")
+    for src, codec in (("clip.avi", "MJPEG"), ("clip.mp4", "MPEG-4"),
+                       ("clip.mkv", "MPEG-4"), ("clip.webm", "VP8"),
+                       ("clip_vp8.mkv", "VP8")):
+        path = str(VIDEO_FIXTURES / src)
         n = native.video_track(path, packets=False).count
         dec = best_ms(lambda: native.decode_video(path)) / n
         read = best_ms(lambda: native.load_video_frames(path, FRAMES[0],
                                                         FRAMES[1]))
-        times[ext] = (codec, n, dec, read)
-        log(f"[video] clip{ext} ({codec}, {n} frames of 224x224): decode "
+        log(f"[video] {src} ({codec}, {n} frames of 224x224): decode "
             f"{dec:.3f} ms a frame (demux, decode, BGR; one thread), "
             f"{read:.3f} ms to read {FRAMES[0]} frames at {FRAMES[1]}x"
-            f"{FRAMES[2]} (load_video_frames, one thread)")
-    opt = parse_quietly(args)
+            f"{FRAMES[2]} (load_video_frames, one thread); {card}")
+    for folder, root in roots.items():
+        video_wait_share(folder, root, ckpt, dev, card)
+    return total
+
+
+def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
+                     ckpt: str) -> int:
+    """[video] (b) and (c) for one folder of VIDEO_FOLDERS: 20 av steps
+    through the train CLI from [data]'s clips with these frame files,
+    then the eval CLI on their musices test split. → GL launches."""
+    from viai_tpu_torch.cli.train import main as train_main
+
+    files = write_video_clips(
+        root, sorted(str(p) for p in (corpus / "av").glob("*.wav")), folder)
+    kinds = {}
+    for f in files:
+        kinds[pathlib.Path(f).suffix] = kinds.get(pathlib.Path(f).suffix,
+                                                  0) + 1
+    log(f"[video] corpus {folder}: {len(files)} wav files of [data] with "
+        f"video frames (" + ", ".join(f"{k} {v}" for k, v in
+                                      sorted(kinds.items()))
+        + (("; the .npy from clip.mov through prepare_dataset extract"
+            if folder == "mjpeg_mpeg4" else "")) + "), musices.json")
+    name = f"chip_video_{folder}"
+    args = video_args(folder, root, ckpt)
+    zero_counts()
+    t0 = time.perf_counter()
+    model = train_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
+    losses = model.get_current_losses()
+    log(f"[video] train av from {folder} files: {TRAIN_STEPS} steps at "
+        f"batch {TRAIN_BATCH}, {FRAMES[0]} frames of {FRAMES[1]}x"
+        f"{FRAMES[2]} a clip, through viai_tpu_torch.cli.train in "
+        f"{wall:.1f} s incl. the loader's start; losses "
+        + " ".join(f"{k} {v:.4f}" for k, v in losses.items())
+        + f"; griffin_lim_cuda launches {launches}, plain {plain}")
+    require(all(np.isfinite(v) for v in losses.values()),
+            f"[video] train av ({folder}): non-finite loss")
+    require(launches == TRAIN_STEPS // TRAIN_DISPLAY and plain == 0,
+            f"[video] train av ({folder}): GL launches {launches}, plain "
+            f"{plain}")
+    total = launches
+    del model
+    zero_counts()
+    _, launches = eval_arm(
+        f"(video) {name} on the musices test split of {folder} clips",
+        ["--name", name, "--checkpoints_dir", ckpt, "--gpu_ids",
+         "0", "--model", "av", "--gated", "--bottleneck_dilation", "1,2,4",
+         "--dataset_mode", "musices", "--dataroot",
+         str(root / "musices.json"), "--phase", "test", "--batchSize", "3",
+         "--how_many", "3", "--results_dir", os.path.join(ckpt, "results")],
+        3)
+    require(launches > 0 and griffin_lim.calls == 0,
+            f"[video] the eval CLI ({folder}): GL launches {launches}, "
+            f"plain {griffin_lim.calls}")
+    log(f"[video] eval {folder}: griffin_lim_cuda launches {launches}, "
+        f"plain {griffin_lim.calls}")
+    return total + launches
+
+
+def video_args(folder: str, root: pathlib.Path, ckpt: str) -> list[str]:
+    """The train CLI's arguments for one folder of VIDEO_FOLDERS."""
+    args = data_train_args("av", ckpt, root)
+    args[args.index("--name") + 1] = f"chip_video_{folder}"
+    args[args.index("--dataroot") + 1] = str(root)
+    return args
+
+
+def video_wait_share(folder: str, root: pathlib.Path, ckpt: str, dev,
+                     card: str):
+    """[video] (d): the loader's wait over TRAIN_TIMED_STEPS av steps
+    after FRAMES_WARMUP from one folder of video files."""
+    from viai_tpu_torch.data import create_dataloader, device_prefetch
+    from viai_tpu_torch.model import VIAIModel
+
+    opt = parse_quietly(video_args(folder, root, ckpt))
     model = VIAIModel(opt)
     loader = create_dataloader(
         opt.dataset_mode, opt.dataroot, opt.batchSize, CLIP, SR,
@@ -1996,7 +2048,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     cores = len(os.sched_getaffinity(0))
-    log(f"[video] av from video files ({type(loader).__name__}, "
+    log(f"[video] av from {folder} files ({type(loader).__name__}, "
         f"{opt.nThreads} workers, prefetch depth 2): loader wait "
         f"{wait * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall over "
         f"{TRAIN_TIMED_STEPS} steps after {FRAMES_WARMUP} "
@@ -2005,7 +2057,6 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     del batches, model
     if hasattr(loader, "close"):
         loader.close()
-    return total
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,44 @@
 """Compressed video clips for the port's video reader, and cv2's decodes.
 
-    python tests/_torch_make_videos.py
+    python tests/_torch_make_videos.py [out_dir [case ...]]
 
-writes `tests/torch_videos/` (needs cv2, which the card's machine does
-not have, so the fixtures are committed):
+writes `tests/torch_videos/` (every case, or the named ones; needs cv2,
+which the card's machine does not have, so the fixtures are committed):
   * `<case>.<ext>`: every case of CASES, written by cv2's VideoWriter
-    (ffmpeg's MJPEG and MPEG-4 Part 2 encoders, in AVI, MP4, MOV and
-    Matroska), except the AVIs of HAND_CASES, muxed here: MJPEG packets
-    without their Huffman tables (the AVI1 convention: the decoder
-    takes the standard tables of JPEG's annex K), and one whose headers
-    count more frames than it holds;
+    (ffmpeg's MJPEG and MPEG-4 Part 2 encoders and libvpx's VP8, in AVI,
+    MP4, MOV, Matroska and WebM); the AVIs of HAND_CASES, muxed here:
+    MJPEG packets without their Huffman tables (the AVI1 convention: the
+    decoder takes the standard tables of JPEG's annex K), and one whose
+    headers count more frames than it holds; the MP4s of MP4_MJPEG_CASES,
+    cv2's MJPEG packets muxed here under the `mjpa` and `MJPG` sample
+    entries (cv2's writer puts MJPG in MP4 under an `mp4v` entry whose
+    esds objectTypeIndication is 0x6C, JPEG: `mjpeg_mp4v_mp4`);
+    the VP8 Matroska files of VP8_PATCHED, cv2's stream with bits of its
+    frame tags or keyframe sizes changed (a hidden frame, versions 1-3,
+    an odd width with the scaling fields set), which cv2 still reads;
+    the AVIs of LIBVPX_CASES, VP8 written by libvpx's own API (the
+    library cv2's wheel bundles, through ctypes) with the settings cv2's
+    writer does not reach: token partitions, sharpness, error-resilient
+    mode (segmentation, no entropy refresh), a region-of-interest map
+    (segment quantiser and level deltas), two-pass alt-ref frames
+    (hidden, sign-biased), profile 1 (bilinear, simple loop filter);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); and `count`, `CAP_PROP_FRAME_COUNT`;
-  * `clip.avi`, `clip.mp4`, `clip.mkv`, `clip.mov`: the first frames
-    of the committed 224x224 jpeg clip (tests/torch_frames/clip/) as
-    video (CLIP_CASES), the clips chip_smoke.py trains from.
+  * `vp9_webm.webm`: VP9 from cv2's writer, a codec the port names and
+    does not read (no .npz);
+  * `clip.avi`, `clip.mp4`, `clip.mkv`, `clip.mov`, `clip.webm`,
+    `clip_vp8.mkv`: the first frames of the committed 224x224 jpeg clip
+    (tests/torch_frames/clip/) as video (CLIP_CASES), the clips
+    chip_smoke.py trains from.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
-that moves over a drifting background, so that the MPEG-4 clips' P-VOPs
-carry motion and, at 30 frames, a third I-VOP (ffmpeg's GOP is 12).
-cv2's encoders are deterministic here, so a rerun rewrites the same
-bytes, but for the Matroska files' random segment UID. tests/test_torch_video_decode.py holds the port against cv2
-live and against these files.
+that moves over a drifting background, so that the MPEG-4 and VP8 clips'
+inter frames carry motion and, at 30 frames, a third I-VOP or keyframe
+(ffmpeg's GOP is 12 for both). The encoders are deterministic here, so a
+rerun rewrites the same bytes, but for the Matroska and WebM files'
+random segment UID. tests/test_torch_video_decode.py holds the port
+against cv2 live and against these files.
 """
 
 from __future__ import annotations
@@ -43,7 +59,7 @@ H, W = 56, 72
 # name: (ext, fourcc, fps, frames)
 CASES = {
     "mjpeg_avi": ("avi", "MJPG", 25, 20),
-    "mjpeg_mp4": ("mp4", "MJPG", 25, 20),
+    "mjpeg_mp4v_mp4": ("mp4", "MJPG", 25, 20),   # an mp4v entry, OTI 0x6C
     "mjpeg_mkv": ("mkv", "MJPG", 25, 20),
     "mjpeg_mov": ("mov", "MJPG", 25, 20),
     "mjpeg_8fps_mkv": ("mkv", "MJPG", 8, 13),
@@ -54,23 +70,60 @@ CASES = {
     "mpeg4_2997_mkv": ("mkv", "mp4v", 30000 / 1001, 25),
     "mpeg4_8fps_mkv": ("mkv", "mp4v", 8, 17),
     "xvid_avi": ("avi", "XVID", 25, 14),
-    "vp8_webm": ("webm", "VP80", 25, 6),
+    "vp8_webm": ("webm", "VP80", 25, 20),
+    "vp8_mkv": ("mkv", "VP80", 25, 20),
+    "vp8_avi": ("avi", "VP80", 25, 20),
+    "vp8_8fps_mkv": ("mkv", "VP80", 8, 13),
+    "vp8_2997_mkv": ("mkv", "VP80", 30000 / 1001, 25),
+    "vp8_long_webm": ("webm", "VP80", 25, 40),        # keyframes 0, 12, 24, 36
+}
+# name: the sample entry of cv2's MJPEG packets in a hand-muxed MP4
+MP4_MJPEG_CASES = {"mjpeg_mjpa_mp4": b"mjpa", "mjpeg_mjpg_mp4": b"MJPG"}
+# name: what is changed in cv2's 30-frame VP8 Matroska file
+VP8_PATCHED = {
+    "vp8_hidden_mkv": "show_frame cleared in packet 5",
+    "vp8_v1_mkv": "version 1 in every frame tag",
+    "vp8_v2_mkv": "version 2 in every frame tag",
+    "vp8_v3_mkv": "version 3 in every frame tag",
+    "vp8_odd_mkv": "width 71 (keyframes, PixelWidth), scaling fields 1, 2",
+}
+# name: libvpx settings (see libvpx_vp8), 40 frames at 25 fps in AVI
+LIBVPX_CASES = {
+    "vp8_partitions_avi": dict(token_partitions=2, sharpness=5),
+    "vp8_resilient_avi": dict(error_resilient=True),
+    "vp8_roi_avi": dict(roi=True),
+    "vp8_altref_avi": dict(two_pass=True),
+    "vp8_profile1_avi": dict(profile=1),
 }
 # name: (frames, frame count the headers give, fps)
 HAND_CASES = {
     "mjpeg_nodht_avi": (12, 12, 25),
     "mjpeg_longhdr_avi": (12, 17, 25),
 }
-# the clip chip_smoke.py trains from: name: (ext, fourcc)
-# (ext, fourcc, frames): the first frames of the 32.
+# the clips chip_smoke.py trains from: name: (ext, fourcc, frames), the
+# first frames of the 32.
 CLIP_CASES = {"clip_avi": ("avi", "MJPG", 16), "clip_mp4": ("mp4", "mp4v", 16),
-              "clip_mkv": ("mkv", "mp4v", 8), "clip_mov": ("mov", "MJPG", 8)}
+              "clip_mkv": ("mkv", "mp4v", 8), "clip_mov": ("mov", "MJPG", 8),
+              "clip_webm": ("webm", "VP80", 8),
+              "clip_vp8_mkv": ("mkv", "VP80", 8)}
+# Every case held against cv2 (an .npz each), and the codec it holds.
+DECODED = (*CASES, *HAND_CASES, *MP4_MJPEG_CASES, *VP8_PATCHED,
+           *LIBVPX_CASES)
+
+
+def codec_of(name: str) -> str:
+    """The codec a case holds, by its name."""
+    if name in CLIP_CASES:
+        return {"MJPG": "mjpeg", "mp4v": "mpeg4",
+                "VP80": "vp8"}[CLIP_CASES[name][1]]
+    return {"xvid": "mpeg4"}.get(name.split("_")[0], name.split("_")[0])
 
 
 def path_of(name: str) -> str:
-    ext = (CASES.get(name) or CLIP_CASES.get(name) or ("avi",))[0]
-    return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." + ext) \
-        if name in CLIP_CASES else os.path.join(FIXTURES, f"{name}.{ext}")
+    if name in CLIP_CASES:
+        return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
+                            CLIP_CASES[name][0])
+    return os.path.join(FIXTURES, f"{name}.{name.rsplit('_', 1)[1]}")
 
 
 def moving_frames(seed: int, t: int, h: int = H, w: int = W) -> np.ndarray:
@@ -155,6 +208,214 @@ def avi_file(packets: list[bytes], w: int, h: int, fps: int, count: int,
     return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"AVI " + body
 
 
+def _box(kind: bytes, *parts: bytes) -> bytes:
+    body = b"".join(parts)
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full_box(kind: bytes, flags: int, *parts: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", flags), *parts)
+
+
+def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
+             entry: bytes) -> bytes:
+    """An MP4 of one video track: `packets` as its samples (each a sync
+    sample, one chunk, 1/fps apart) under the visual sample entry
+    `entry` (a fourcc, no extension boxes)."""
+    n = len(packets)
+    matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                         0x40000000)
+    sample_entry = _box(entry, bytes(6), struct.pack(
+        ">HHH12xHHIIIH32sHh", 1, 0, 0, w, h, 0x480000, 0x480000, 0, 1,
+        b"", 24, -1))
+
+    def moov(mdat_at: int) -> bytes:
+        stbl = _box(
+            b"stbl",
+            _full_box(b"stsd", 0, struct.pack(">I", 1), sample_entry),
+            _full_box(b"stts", 0, struct.pack(">III", 1, n, 1)),
+            _full_box(b"stsc", 0, struct.pack(">IIII", 1, 1, n, 1)),
+            _full_box(b"stsz", 0, struct.pack(">II", 0, n),
+                      *(struct.pack(">I", len(p)) for p in packets)),
+            _full_box(b"stco", 0, struct.pack(">II", 1, mdat_at)))
+        minf = _box(b"minf", _full_box(b"vmhd", 1, bytes(8)),
+                    _box(b"dinf", _full_box(b"dref", 0, struct.pack(
+                        ">I", 1), _full_box(b"url ", 1))), stbl)
+        mdia = _box(
+            b"mdia",
+            _full_box(b"mdhd", 0, struct.pack(">IIIIHH", 0, 0, fps, n,
+                                              0x55C4, 0)),
+            _full_box(b"hdlr", 0, struct.pack(">I4s12x", 0, b"vide"),
+                      b"VideoHandler\0"), minf)
+        tkhd = _full_box(b"tkhd", 3, struct.pack(">IIIII8xHHHH", 0, 0, 1,
+                                                 0, n, 0, 0, 0, 0),
+                         matrix, struct.pack(">II", w << 16, h << 16))
+        mvhd = _full_box(b"mvhd", 0, struct.pack(">IIIIIH10x", 0, 0, fps,
+                                                 n, 0x10000, 0x100),
+                         matrix, bytes(24), struct.pack(">I", 2))
+        return _box(b"moov", mvhd, _box(b"trak", tkhd, mdia))
+
+    ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200), b"isomiso2mp41")
+    head = ftyp + moov(0)
+    return ftyp + moov(len(head) + 8) + _box(b"mdat", *packets)
+
+
+def libvpx_vp8(frames, fps: int = 25, profile: int = 0,
+               error_resilient: bool = False, token_partitions: int = 0,
+               sharpness: int = 0, roi: bool = False,
+               two_pass: bool = False) -> list[bytes]:
+    """VP8 packets of `frames` (BGR) from libvpx's encoder API, loaded
+    from the libvpx that cv2's wheel bundles (1.15's structure layouts):
+    one thread, good quality, the given profile, error-resilient mode,
+    log2 token partitions, sharpness; with `roi`, a 4-segment map (each
+    macroblock's segment its index mod 4) with quantiser deltas 0, -10,
+    10, 20 and level deltas 0, 5, -5, 10; with `two_pass`, a first pass
+    for its statistics, then alt-ref frames from 16 frames of lag."""
+    import ctypes
+    import glob
+
+    import cv2
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)),
+                        "opencv_python.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libvpx*.so*"))[0])
+    vp = ctypes.c_void_p
+    for name, res, args in (
+            ("vpx_codec_vp8_cx", vp, []),
+            ("vpx_codec_enc_config_default", ctypes.c_int,
+             [vp, vp, ctypes.c_uint]),
+            ("vpx_codec_enc_init_ver", ctypes.c_int,
+             [vp, vp, vp, ctypes.c_long, ctypes.c_int]),
+            ("vpx_codec_control_", ctypes.c_int, [vp, ctypes.c_int]),
+            ("vpx_img_wrap", vp, [vp, ctypes.c_int, ctypes.c_uint,
+                                  ctypes.c_uint, ctypes.c_uint, vp]),
+            ("vpx_codec_encode", ctypes.c_int,
+             [vp, vp, ctypes.c_int64, ctypes.c_ulong, ctypes.c_long,
+              ctypes.c_ulong]),
+            ("vpx_codec_get_cx_data", vp, [vp, vp]),
+            ("vpx_codec_destroy", ctypes.c_int, [vp])):
+        getattr(lib, name).restype = res
+        getattr(lib, name).argtypes = args
+
+    class RoiMap(ctypes.Structure):
+        _fields_ = [("enabled", ctypes.c_uint8), ("roi_map", ctypes.c_void_p),
+                    ("rows", ctypes.c_uint), ("cols", ctypes.c_uint),
+                    ("delta_q", ctypes.c_int * 8),
+                    ("delta_lf", ctypes.c_int * 8),
+                    ("skip", ctypes.c_int * 8), ("ref_frame", ctypes.c_int * 8),
+                    ("static_threshold", ctypes.c_uint * 4)]
+
+    h, w = frames[0].shape[:2]
+
+    def run(pass_no: int, stats: bytes = b"") -> list[bytes]:
+        iface = lib.vpx_codec_vp8_cx()
+        cfg = (ctypes.c_uint32 * 1024)()           # vpx_codec_enc_cfg_t
+        if lib.vpx_codec_enc_config_default(iface, cfg, 0):
+            raise RuntimeError("libvpx: no default configuration")
+        cfg[1], cfg[2], cfg[3], cfg[4] = 1, profile, w, h
+        cfg[7], cfg[8], cfg[9] = 1, fps, int(error_resilient)
+        cfg[10] = pass_no
+        if two_pass:
+            cfg[11] = 16                           # g_lag_in_frames
+        keep = ctypes.create_string_buffer(stats, len(stats) or 1)
+        if pass_no == 2:                           # rc_twopass_stats_in
+            ctypes.c_void_p.from_buffer(cfg, 80).value = \
+                ctypes.addressof(keep)
+            ctypes.c_size_t.from_buffer(cfg, 88).value = len(stats)
+        ctx = (ctypes.c_uint8 * 256)()
+        # The ABI version the library was built with: the one it accepts.
+        if not any(lib.vpx_codec_enc_init_ver(ctx, iface, cfg,
+                                              ctypes.c_long(0), v) == 0
+                   for v in range(1, 100)):
+            raise RuntimeError("libvpx: the encoder does not initialise")
+        controls = [(16, sharpness), (18, token_partitions)]
+        if two_pass:
+            controls.append((14, 1))               # ENABLEAUTOALTREF
+        for cid, val in controls:
+            if lib.vpx_codec_control_(ctx, cid, ctypes.c_int(val)):
+                raise RuntimeError(f"libvpx: control {cid} refused")
+        if roi:
+            rows, cols = (h + 15) // 16, (w + 15) // 16
+            seg = (ctypes.c_uint8 * (rows * cols))(
+                *[i % 4 for i in range(rows * cols)])
+            m = RoiMap(1, ctypes.addressof(seg), rows, cols,
+                       (ctypes.c_int * 8)(0, -10, 10, 20),
+                       (ctypes.c_int * 8)(0, 5, -5, 10))
+            if lib.vpx_codec_control_(ctx, 8, ctypes.byref(m)):
+                raise RuntimeError("libvpx: ROI map refused")
+        img = (ctypes.c_uint8 * 512)()             # vpx_image_t
+        buf = (ctypes.c_uint8 * (w * h * 3 // 2))()
+        lib.vpx_img_wrap(img, 0x102, w, h, 1, buf)   # I420
+        out = []
+
+        def drain():
+            it = ctypes.c_void_p(0)
+            while p := lib.vpx_codec_get_cx_data(ctx, ctypes.byref(it)):
+                kind = ctypes.c_int.from_address(p).value
+                data = ctypes.string_at(
+                    ctypes.c_void_p.from_address(p + 8).value,
+                    ctypes.c_size_t.from_address(p + 16).value)
+                if kind == (1 if pass_no == 1 else 0):
+                    out.append(data)
+
+        for i, f in enumerate(frames):
+            ctypes.memmove(buf, cv2.cvtColor(
+                np.ascontiguousarray(f), cv2.COLOR_BGR2YUV_I420).tobytes(),
+                len(buf))
+            if lib.vpx_codec_encode(ctx, img, i, 1, 0, 1000000):
+                raise RuntimeError("libvpx: a frame failed to encode")
+            drain()
+        while True:
+            n = len(out)
+            lib.vpx_codec_encode(ctx, None, -1, 1, 0, 1000000)
+            drain()
+            if len(out) == n:
+                break
+        lib.vpx_codec_destroy(ctx)
+        return out
+
+    if two_pass:
+        return run(2, b"".join(run(1)))
+    return run(0)
+
+
+def patch_vp8(data: bytes, packets: list[bytes], change: str) -> bytes:
+    """A VP8 Matroska file's bytes with VP8_PATCHED's `change` made to
+    its packets (found in the file by their bytes)."""
+    out = bytearray(data)
+    for i, p in enumerate(packets):
+        at = data.index(p)
+        tag = out[at]
+        if change.startswith("show_frame") and i == 5:
+            out[at] = tag & ~0x10
+        elif change.startswith("version"):
+            out[at] = (tag & ~0x0E) | (int(change.split()[1]) << 1)
+        elif change.startswith("width") and not tag & 1:   # a keyframe
+            w, h = struct.unpack_from("<HH", out, at + 6)
+            struct.pack_into("<HH", out, at + 6, 71 | (1 << 14),
+                             (h & 0x3FFF) | (2 << 14))
+    if change.startswith("width"):
+        at = data.index(b"\xb0\x81" + bytes([W]))        # PixelWidth
+        out[at + 2] = 71
+    return bytes(out)
+
+
+def cv2_packets(path: str) -> list[bytes]:
+    """The packets cv2 demuxes (CAP_PROP_FORMAT -1), in decode order."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_FORMAT, -1)
+    out = []
+    while True:
+        ok, p = cap.read()
+        if not ok:
+            break
+        out.append(p.ravel().tobytes())
+    cap.release()
+    return out
+
+
 def pil_jpegs(frames, quality: int = 75) -> list[bytes]:
     from PIL import Image
 
@@ -193,10 +454,38 @@ def cv2_view(path: str) -> tuple[np.ndarray, int]:
 
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
+    import tempfile
+
+    path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in MP4_MJPEG_CASES:
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "src.avi")
+            write_cv2(src, "MJPG", 25, moving_frames(len(name), 12))
+            packets = cv2_packets(src)
+        with open(path, "wb") as f:
+            f.write(mp4_file(packets, W, H, 25, MP4_MJPEG_CASES[name]))
+        return path
+    if name in VP8_PATCHED:
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "src.mkv")
+            write_cv2(src, "VP80", 25, moving_frames(11, 30))
+            data = open(src, "rb").read()
+            packets = cv2_packets(src)
+        with open(path, "wb") as f:
+            f.write(patch_vp8(data, packets, VP8_PATCHED[name]))
+        return path
+    if name in LIBVPX_CASES:
+        packets = libvpx_vp8(moving_frames(sum(map(ord, name)), 40),
+                             **LIBVPX_CASES[name])
+        with open(path, "wb") as f:
+            f.write(avi_file(packets, W, H, 25, len(packets), b"VP80"))
+        return path
+    if name == "vp9_webm":
+        write_cv2(path, "VP90", 25, moving_frames(9, 6))
+        return path
     if name in HAND_CASES:
         t, count, fps = HAND_CASES[name]
         frames = moving_frames(len(name), t)
-        path = os.path.join(out, name + ".avi")
         jpegs = pil_jpegs(frames)
         if "nodht" in name:
             jpegs = [strip_dht(j) for j in jpegs]
@@ -205,28 +494,24 @@ def write_case(name: str, out: str = FIXTURES) -> str:
         return path
     if name in CLIP_CASES:
         ext, fourcc, t = CLIP_CASES[name]
-        path = os.path.join(out, "clip." + ext)
         write_cv2(path, fourcc, 25, clip_frames_bgr()[:t])
         return path
     ext, fourcc, fps, t = CASES[name]
-    path = os.path.join(out, f"{name}.{ext}")
     write_cv2(path, fourcc, fps, moving_frames(sum(map(ord, name)), t))
     return path
 
 
-def main(out: str = FIXTURES):
+def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
-    for name in (*CASES, *HAND_CASES):
+    for name in names or (*DECODED, "vp9_webm", *CLIP_CASES):
         path = write_case(name, out)
-        if name == "vp8_webm":
-            continue                    # not read by the port
+        if name not in DECODED:
+            continue
         frames, count = cv2_view(path)
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
         np.savez_compressed(os.path.join(out, name + ".npz"),
                             frames=frames[index], index=index,
                             n=np.int64(len(frames)), count=np.int64(count))
-    for name in CLIP_CASES:
-        write_case(name, out)
 
 
 if __name__ == "__main__":

@@ -379,14 +379,15 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                                                capsys):
     """frames and extract over mp4v, MJPEG, .mov and VP8 clips beside a raw
     AVI give the JAX script's .npy stacks and wavs; the JAX script reads
-    VP8 with cv2, the port lists it as skipped with the reason."""
+    VP9 with cv2, the port lists it as skipped with the reason."""
     pytest.importorskip("cv2")
     raw = tmp_path / "raw"
     (raw / "sub").mkdir(parents=True)
     _raw_avi(raw / "a.avi")
     for src, dst in (("mpeg4_mp4.mp4", "b.mp4"), ("mjpeg_avi.avi", "c.avi"),
                      ("mpeg4_mkv.mkv", "sub/d.mkv"),
-                     ("mjpeg_mov.mov", "e.mov"), ("vp8_webm.webm", "f.webm")):
+                     ("mjpeg_mov.mov", "e.mov"), ("vp9_webm.webm", "f.webm"),
+                     ("vp8_webm.webm", "g.webm")):
         shutil.copy(os.path.join(VIDEOS, src), raw / dst)
     args = dict(root=str(raw), sample_rate=16000, n_frames=16,
                 frame_size=64, require_audio=False)
@@ -398,7 +399,7 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
     capsys.readouterr()
     ours, ref = _files(tmp_path / "p"), _files(tmp_path / "j")
     assert sorted(ref) == ["a.npy", "a.wav", "b.npy", "c.npy", "d.npy",
-                           "e.npy", "f.npy"]
+                           "e.npy", "f.npy", "g.npy"]
     assert sorted(ours) == sorted(set(ref) - {"f.npy"})
     for name in ours:
         if name.endswith(".npy"):
@@ -406,24 +407,24 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                                           np.load(tmp_path / "j" / name))
         else:
             assert ours[name] == ref[name]
-    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 4, 1)
-    assert re.search(r"skipped .*f\.webm: .*VP8, not read", out)
+    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 5, 1)
+    assert re.search(r"skipped .*f\.webm: .*VP9, not read", out)
     # frames: .mp4/.avi/.mkv/.webm beside the videos, .mov left alone.
     jraw = tmp_path / "jraw"
     shutil.copytree(raw, jraw)
     rec = prepare_dataset.main(["frames", "--root", str(raw),
                                 "--results_dir", str(tmp_path / "res")])
-    assert "VP8, not read" in capsys.readouterr().out
+    assert "VP9, not read" in capsys.readouterr().out
     (jraw / "f.webm").unlink()          # cv2 reads it; the port does not
     j_pd.cmd_frames(argparse.Namespace(root=str(jraw), n_frames=16,
                                        frame_size=64))
     ours = {k for k in _files(raw) if k.endswith(".npy")}
     assert ours == {k for k in _files(jraw) if k.endswith(".npy")} == {
-        "a.npy", "b.npy", "c.npy", "sub/d.npy"}
+        "a.npy", "b.npy", "c.npy", "sub/d.npy", "g.npy"}
     for name in ours:
         np.testing.assert_array_equal(np.load(raw / name),
                                       np.load(jraw / name))
-    assert (rec["clips"], rec["skipped"]) == (4, 1)
+    assert (rec["clips"], rec["skipped"]) == (5, 1)
 
 
 # ---- quality_report, quality_long, grid_diag ---------------------------

@@ -1,19 +1,25 @@
-"""The port's compressed video reader (csrc/videodec.cpp, csrc/mpeg4.cpp
-through native.py) against cv2 and the JAX package's `_load_frames_video`.
+"""The port's compressed video reader (csrc/videodec.cpp, csrc/mpeg4.cpp,
+csrc/vp8.cpp through native.py) against cv2 and the JAX package's
+`_load_frames_video`.
 
 The clips of tests/_torch_make_videos.py (committed in tests/torch_videos/:
-MJPEG and MPEG-4 Part 2 written by cv2's ffmpeg in AVI, MP4, MOV and
-Matroska, at 72x56, 8, 25 and 29.97 fps; an AVI of MJPEG without Huffman
-tables; an AVI whose headers count 17 of its 12 frames; the 224x224 clips
+MJPEG, MPEG-4 Part 2 and VP8 written by cv2's ffmpeg in AVI, MP4, MOV,
+Matroska and WebM, at 72x56, 8, 25 and 29.97 fps; MJPEG hand-muxed in MP4
+under the mjpa and MJPG sample entries; an AVI of MJPEG without Huffman
+tables; an AVI whose headers count 17 of its 12 frames; cv2's VP8 with a
+hidden frame, versions 1-3 and an odd width patched in; VP8 from
+libvpx's API with token partitions, sharpness, segmentation, no entropy
+refresh, hidden alt-ref frames and profile 1; the 224x224 clips
 chip_smoke.py trains from) go through:
 
   * `native.video_track` against cv2's demuxed packets
-    (`CAP_PROP_FORMAT = -1`), byte for byte, and its frame count against
-    `CAP_PROP_FRAME_COUNT`;
+    (`CAP_PROP_FORMAT = -1`), byte for byte, its frame count against
+    `CAP_PROP_FRAME_COUNT`, and its codec against the one the case's
+    name says;
   * `native.decode_video` against `cap.read()`: the bound is 1 level for
-    MJPEG and 2 for MPEG-4 (P-frame drift) over every byte of every
-    frame; the measured maximum is 0 for every clip here (the decoders
-    compute what libavcodec and swscale compute);
+    MJPEG, 2 for MPEG-4 (P-frame drift) and 0 for VP8 (exact by RFC 6386)
+    over every byte of every frame; the measured maximum is 0 for every
+    clip here (the decoders compute what libavcodec and swscale compute);
   * `native.load_video_frames` and the port's `data.av.load_frames_for`
     against the JAX package's over several windows at 16 frames and at
     40 (more than any clip has: the `set` case), sizes 64 and 32: the
@@ -22,11 +28,13 @@ chip_smoke.py trains from) go through:
     build against) against cv2 now;
   * a stem with both `.mp4` and `.avi` reads the `.mp4`, as the JAX
     package does;
-  * NotImplementedError naming the codec for VP8 (a cv2 webm) and for
+  * NotImplementedError naming the codec for VP9 (a cv2 webm), for
     H.264, HEVC, VP9, AV1 and FFV1 (their fourccs put into a clip's
-    header), and naming each MPEG-4 feature a patched header or
-    macroblock flag can show; ValueError for a broken file and for a
-    window past the clip's last frame, as the JAX package raises.
+    header) and for VP8 in MP4, naming each MPEG-4 feature a patched
+    header or macroblock flag can show, and naming each VP8 feature
+    libvpx does not write (frame headers written here by a boolean
+    encoder); ValueError for a broken file and for a window past the
+    clip's last frame, as the JAX package raises.
 """
 
 import os
@@ -47,26 +55,12 @@ cv2 = pytest.importorskip("cv2")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_make_videos as mk  # noqa: E402
 
-TOL = {"mjpeg": 1, "mpeg4": 2}     # levels of 255 at full size
-CASES = [c for c in (*mk.CASES, *mk.HAND_CASES) if c != "vp8_webm"]
-FILES = {c: mk.path_of(c) if c in mk.CASES
-         else os.path.join(mk.FIXTURES, c + ".avi") for c in CASES}
-FILES.update({c: mk.path_of(c) for c in mk.CLIP_CASES})
+# levels of 255 at full size; VP8 is exact by specification
+TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0}
+CASES = list(mk.DECODED)
+FILES = {c: mk.path_of(c) for c in (*CASES, *mk.CLIP_CASES)}
 ALL = [*CASES, *mk.CLIP_CASES]
 WINDOWS = (None, (0.25, 0.75), (0.1, 0.9), (0.0, 0.3), (0.6, 1.0))
-
-
-def _cv2_packets(path):
-    cap = cv2.VideoCapture(path)
-    cap.set(cv2.CAP_PROP_FORMAT, -1)
-    out = []
-    while True:
-        ok, p = cap.read()
-        if not ok:
-            break
-        out.append(p.ravel().tobytes())
-    cap.release()
-    return out
 
 
 def _codec(name):
@@ -77,13 +71,13 @@ def _codec(name):
 def test_packets_and_count_match_cv2(name):
     path = FILES[name]
     track = native.video_track(path)
-    assert [p for p, _ in track.packets] == _cv2_packets(path)
+    assert [p for p, _ in track.packets] == mk.cv2_packets(path)
     cap = cv2.VideoCapture(path)
     assert track.count == int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     assert (track.width, track.height) == (
         int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
         int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
-    assert track.codec in ("mjpeg", "mpeg4")
+    assert track.codec == mk.codec_of(name)    # the one its name says
     assert track.packets[0][1]                 # the first is a keyframe
 
 
@@ -148,14 +142,16 @@ def test_layout_order_reads_mp4_before_avi(tmp_path):
     assert np.abs(avi - got).max() > 0.1       # the two files differ
 
 
-def test_folder_datasets_read_video(tmp_path):
+@pytest.mark.parametrize("case", ["mpeg4_mkv", "vp8_webm"])
+def test_folder_datasets_read_video(tmp_path, case):
     """AVFolderDataset reads a clip's frames from its video file."""
     from viai_tpu_torch.data.audio import AudioFolderDataset
     from viai_tpu_torch.utils.visualizer import write_wav
 
     write_wav(str(tmp_path / "a.wav"),
               np.sin(np.arange(8000) / 5.0).astype(np.float32) * 0.3, 16000)
-    shutil.copy(FILES["mpeg4_mkv"], tmp_path / "a.mkv")
+    ext = os.path.splitext(FILES[case])[1]
+    shutil.copy(FILES[case], tmp_path / ("a" + ext))
     ds = av.AVFolderDataset(str(tmp_path), clip_samples=4000, n_frames=16,
                             frame_size=32)
     assert isinstance(ds, AudioFolderDataset)
@@ -193,13 +189,203 @@ def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
             native.load_video_frames(path, 16, 64)
 
 
-def test_vp8_webm_raises_naming_vp8():
-    path = mk.path_of("vp8_webm")
-    assert native.video_track(path).tag == "V_VP8"
-    with pytest.raises(NotImplementedError, match="VP8"):
+def test_vp9_webm_raises_naming_vp9():
+    path = mk.path_of("vp9_webm")
+    assert native.video_track(path).tag == "V_VP9"
+    with pytest.raises(NotImplementedError, match="VP9"):
         native.decode_video(path)
-    with pytest.raises(NotImplementedError, match="VP8"):
+    with pytest.raises(NotImplementedError, match="VP9"):
         av.load_frames_for(os.path.splitext(path)[0], 16, 64)
+
+
+def test_vp8_in_mp4_raises_naming_it(tmp_path):
+    mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v", b"vp08")
+    with pytest.raises(NotImplementedError, match="VP8 in MP4"):
+        native.decode_video(mp4)
+
+
+# ---- VP8 features libvpx does not write ----------------------------------
+
+class _BoolEncoder:
+    """RFC 6386 §7.3's boolean encoder."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def put(self, bit, prob=128):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):             # carry
+                i = len(self.out) - 1
+                while self.out[i] == 255:
+                    self.out[i] = 0
+                    i -= 1
+                self.out[i] += 1
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= 0xFFFFFF
+                self.count = 8
+
+    def literal(self, v, n):
+        for i in reversed(range(n)):
+            self.put((v >> i) & 1)
+
+    def flush(self) -> bytes:
+        for _ in range(32):
+            self.put(0)
+        return bytes(self.out)
+
+
+def _vp8_table(name: str) -> list[int]:
+    """A probability table of vp8.cpp (RFC 6386's), flattened."""
+    src = open(os.path.join(os.path.dirname(native.__file__), "csrc",
+                            "vp8.cpp")).read()
+    body = src.split(f" {name}[", 1)[1].split("= {", 1)[1].split("};")[0]
+    return [int(v) for v in re.findall(r"\d+", re.sub(r"//.*", "", body))]
+
+
+def _vp8_frame(key, color_space=0, clamping=0, segmentation=None,
+               copy_golden=0, copy_alt=0, sign_golden=0, skip_flags=1):
+    """A 72x56 VP8 frame whose header has the given fields (a keyframe or
+    an inter frame refreshing nothing), each macroblock skipped and
+    predicted DC_PRED (intra in an inter frame too)."""
+    e = _BoolEncoder()
+    if key:
+        e.put(color_space)
+        e.put(clamping)
+    e.put(segmentation is not None)
+    if segmentation is not None:
+        update_map, absolute = segmentation
+        e.put(update_map)
+        e.put(1)                                    # update_segment_data
+        e.put(absolute)
+        for _ in range(8):
+            e.put(0)
+        for _ in range(3 * update_map):
+            e.put(0)
+    e.put(0)                                        # filter_type
+    e.literal(20, 6)                                # loop_filter_level
+    e.literal(0, 3)                                 # sharpness
+    e.put(0)                                        # no mode/ref deltas
+    e.literal(0, 2)                                 # one token partition
+    e.literal(40, 7)                                # y_ac_qi
+    for _ in range(5):
+        e.put(0)                                    # no quantiser deltas
+    if key:
+        e.put(1)                                    # refresh_entropy_probs
+    else:
+        e.put(0)                                    # refresh_golden_frame
+        e.put(0)                                    # refresh_alternate
+        e.literal(copy_golden, 2)
+        e.literal(copy_alt, 2)
+        e.put(sign_golden)
+        e.put(0)                                    # sign_bias_alternate
+        e.put(1)                                    # refresh_entropy_probs
+        e.put(1)                                    # refresh_last
+    for p in _vp8_table("kCoefUpdate"):
+        e.put(0, p)
+    e.put(skip_flags)                               # mb_no_coeff_skip
+    if skip_flags:
+        e.literal(200, 8)
+    if not key:
+        for v in (100, 128, 128):                   # intra, last, golden
+            e.literal(v, 8)
+        e.put(0)                                    # no 16x16 mode update
+        e.put(0)                                    # no chroma mode update
+        for p in _vp8_table("kMvUpdate"):
+            e.put(0, p)
+    for _ in range(((mk.W + 15) // 16) * ((mk.H + 15) // 16)):
+        if skip_flags:
+            e.put(1, 200)                           # skipped
+        if key:
+            for bit, p in ((1, 145), (0, 156), (0, 163), (0, 142)):
+                e.put(bit, p)                       # DC_PRED, chroma DC
+        else:
+            for bit, p in ((0, 100), (0, 112), (0, 162)):
+                e.put(bit, p)                       # intra, DC, chroma DC
+    first = e.flush()
+    tag = (0 if key else 1) | (1 << 4) | (len(first) << 5)
+    head = struct.pack("<I", tag)[:3]
+    if key:
+        head += b"\x9d\x01\x2a" + struct.pack("<HH", mk.W, mk.H)
+    return head + first + bytes(64)
+
+
+def _vp8_avi(tmp_path, packets):
+    path = tmp_path / "vp8.avi"
+    path.write_bytes(mk.avi_file(packets, mk.W, mk.H, 25, len(packets),
+                                 b"VP80"))
+    return str(path)
+
+
+def test_vp8_frame_writer_makes_frames_the_decoder_reads(tmp_path):
+    """The header writer of the tests below: its plain keyframe and inter
+    frame decode, to cv2's frames."""
+    path = _vp8_avi(tmp_path, [_vp8_frame(True), _vp8_frame(False)])
+    got = native.decode_video(path)
+    ref = np.stack(mk.cv2_view(path)[0])
+    assert got.shape == ref.shape == (2, mk.H, mk.W, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("feature,key,fields", [
+    ("VP8 colour space 1", True, dict(color_space=1)),
+    ("VP8 clamping type 1", True, dict(clamping=1)),
+    ("VP8 segment data in absolute values", True,
+     dict(segmentation=(1, 1))),
+    ("VP8 keyframe with segmentation that keeps an earlier frame's segment "
+     "map", True, dict(segmentation=(0, 0))),
+    ("VP8 golden frame copied from another reference", False,
+     dict(copy_golden=1)),
+    ("VP8 altref frame copied from the last frame", False, dict(copy_alt=1)),
+    ("VP8 sign bias on the golden frame", False, dict(sign_golden=1)),
+    ("VP8 without mb_no_coeff_skip", True, dict(skip_flags=0)),
+])
+def test_vp8_header_features_raise_naming_them(tmp_path, feature, key,
+                                               fields):
+    packets = [_vp8_frame(True)] * (not key) + [_vp8_frame(key, **fields)]
+    path = _vp8_avi(tmp_path, packets)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(path)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.load_video_frames(path, 4, 32)
+
+
+def _vp8_packets(name):
+    return [p for p, _ in native.video_track(FILES[name]).packets]
+
+
+def test_vp8_reserved_version_raises(tmp_path):
+    pk = [bytes([(p[0] & ~0x0E) | (4 << 1)]) + p[1:]
+          for p in _vp8_packets("vp8_avi")]
+    with pytest.raises(NotImplementedError, match="VP8 version 4"):
+        native.decode_video(_vp8_avi(tmp_path, pk))
+
+
+def test_vp8_odd_height_raises(tmp_path):
+    """An odd coded height (55 of the 56 lines): swscale converts such a
+    picture through its scaler, which the port does not copy."""
+    pk = _vp8_packets("vp8_avi")
+    pk[0] = pk[0][:8] + struct.pack("<H", mk.H - 1) + pk[0][10:]
+    with pytest.raises(NotImplementedError, match="odd height"):
+        native.decode_video(_vp8_avi(tmp_path, pk))
+
+
+def test_vp8_broken_frames_raise_value_error(tmp_path):
+    pk = _vp8_packets("vp8_avi")
+    for bad, why in ((pk[1:], "before the first keyframe"),
+                     ([pk[0][:3] + b"\0\0\0" + pk[0][6:]], "start code"),
+                     ([pk[0][:20]], "first partition runs past")):
+        with pytest.raises(ValueError, match=why):
+            native.decode_video(_vp8_avi(tmp_path, bad))
 
 
 class _BitWriter:
@@ -390,7 +576,9 @@ def test_odd_height_and_other_sampling_raise(tmp_path):
 
 
 def test_fixture_script_rewrites_the_committed_avi_and_mp4(tmp_path):
-    for name in ("mjpeg_avi", "mpeg4_mp4", "mjpeg_nodht_avi", "clip_avi"):
+    for name in ("mjpeg_avi", "mpeg4_mp4", "mjpeg_nodht_avi", "clip_avi",
+                 "mjpeg_mjpa_mp4", "vp8_avi", "vp8_partitions_avi",
+                 "vp8_altref_avi"):
         path = mk.write_case(name, str(tmp_path))
         with open(path, "rb") as f, open(FILES[name], "rb") as g:
             assert f.read() == g.read(), name

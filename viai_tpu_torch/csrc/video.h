@@ -1,5 +1,5 @@
-// Shared by videodec.cpp (containers, MJPEG, the frame path) and
-// mpeg4.cpp (the MPEG-4 Part 2 decoder).
+// Shared by videodec.cpp (containers, MJPEG, the frame path),
+// mpeg4.cpp (the MPEG-4 Part 2 decoder) and vp8.cpp (the VP8 decoder).
 #pragma once
 
 #include <cstddef>
@@ -49,6 +49,24 @@ class Mpeg4Decoder {
   // Read one packet's headers only: its VOP's kind, 0 I, 1 P, 2 B,
   // 3 S, or −1 when it gives no picture. Headers it holds are kept.
   int peek(const uint8_t* data, size_t n);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// The VP8 decoder (RFC 6386) for libvpx's streams (see vp8.cpp).
+class Vp8Decoder {
+ public:
+  Vp8Decoder();
+  ~Vp8Decoder();
+  // Decode one packet (one frame); true with `out` filled when the frame
+  // is shown (a hidden frame is decoded, kept as a reference, and gives
+  // no picture, as in ffmpeg).
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // Read one packet's 3-byte frame tag only: 0 a shown keyframe, 1 a
+  // shown inter frame, -1 a hidden frame.
+  static int peek(const uint8_t* data, size_t n);
 
  private:
   struct State;

@@ -1,6 +1,7 @@
 // Compressed video reader of viai_tpu_torch: the containers, the MJPEG
 // decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
-// (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2).
+// (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
+// vp8.cpp VP8).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -30,7 +31,10 @@
 //     unclamped weight (an exact 2× shrink, cv2's INTER_AREA, gives the
 //     same bytes).
 //   * the frame pick: cv2's count, the float64 window rule, the `set`,
-//     the frames found re-picked by the window rule over (0, 1).
+//     the frames found re-picked by the window rule over (0, 1). A
+//     frame is a packet that gives a picture: every MJPEG packet, an
+//     MPEG-4 packet with a coded VOP, a VP8 packet whose frame tag has
+//     show_frame set.
 //
 // Errors: a broken file gives code 1 (ValueError), a codec, container or
 // feature that is not read code 2 (NotImplementedError), naming it.
@@ -99,7 +103,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // Containers
 // =====================================================================
 
-enum class Codec { kMjpeg, kMpeg4, kOther };
+enum class Codec { kMjpeg, kMpeg4, kVp8, kOther };
 
 struct Packet {
   size_t off = 0;
@@ -132,6 +136,7 @@ Codec riff_codec(const std::string& tag) {
     if (u == t) return Codec::kMjpeg;
   for (const char* t : kMpeg4)
     if (u == t) return Codec::kMpeg4;
+  if (u == "VP80") return Codec::kVp8;
   return Codec::kOther;
 }
 
@@ -749,6 +754,8 @@ void demux_mkv(Track& t) {
             t.tag = codec;
             if (codec == "V_MJPEG") {
               t.codec = Codec::kMjpeg;
+            } else if (codec == "V_VP8") {
+              t.codec = Codec::kVp8;
             } else if (codec == "V_MPEG4/ISO/SP" ||
                        codec == "V_MPEG4/ISO/ASP" ||
                        codec == "V_MPEG4/ISO/AP") {
@@ -1129,6 +1136,7 @@ class Decoder {
                   codec_name(t.tag) + ")");
     if (t.codec == Codec::kMpeg4)
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
+    if (t.codec == Codec::kVp8) vp8_.reset(new Vp8Decoder());
   }
 
   // Packet i → its picture in `out`; false when it holds none.
@@ -1139,6 +1147,7 @@ class Decoder {
       decode_mjpeg(d, p.size, t_.height, out);
       return true;
     }
+    if (vp8_) return vp8_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
@@ -1154,7 +1163,7 @@ class Decoder {
       return "H.264, not read";
     if (has("HEVC") || has("HVC1") || has("HEV1") || has("H265"))
       return "HEVC, not read";
-    if (has("VP8") || has("VP08") || has("VP80")) return "VP8, not read";
+    if (has("VP08")) return "VP8 in MP4, not read";
     if (has("VP9") || has("VP09") || has("VP90")) return "VP9, not read";
     if (has("AV1") || has("AV01")) return "AV1, not read";
     if (has("FFV1")) return "FFV1, not read";
@@ -1164,6 +1173,7 @@ class Decoder {
  private:
   const Track& t_;
   std::unique_ptr<Mpeg4Decoder> mpeg4_;
+  std::unique_ptr<Vp8Decoder> vp8_;
 };
 
 }  // namespace
@@ -1213,7 +1223,8 @@ void* viai_video_open(const char* path, int32_t* code, char* err,
 void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 
 // info = (width, height, cv2's frame count, packets, config bytes,
-// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 another); tag and container names.
+// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 another); tag and container
+// names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
   const Track& t = static_cast<Handle*>(hp)->track;
@@ -1289,8 +1300,9 @@ void viai_video_free(uint8_t* p) { std::free(p); }
 // resized as cv2.resize at INTER_LINEAR on BGR, flipped to RGB, / 255;
 // then re-picked by the window rule over (0, 1) when their number is
 // not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
-// last I-VOP at or before the first pick to the last pick. → 0, or 1
-// broken / 2 unsupported with err set.
+// last I-VOP at or before the first pick to the last pick, VP8 from the
+// last shown keyframe at or before it. → 0, or 1 broken / 2 unsupported
+// with err set.
 int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                int32_t size, double w0, double w1,
                                float* out, char* err, int32_t errlen) {
@@ -1305,7 +1317,7 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     std::sort(want.begin(), want.end());
     want.erase(std::unique(want.begin(), want.end()), want.end());
     // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
-    // frame when it holds a VOP.
+    // frame when it holds a VOP, a VP8 packet when it is shown.
     std::vector<int64_t> frame_of(t.packets.size(), -1);
     std::vector<int> vop(t.packets.size(), 0);
     int64_t frames = 0;
@@ -1314,7 +1326,10 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       scan.reset(new viai_video::Mpeg4Decoder(t.config, t.tag));
     for (size_t i = 0; i < t.packets.size(); ++i) {
       const viai_video::Packet& p = t.packets[i];
-      vop[i] = scan ? scan->peek(&t.file[p.off], p.size) : 0;
+      vop[i] = scan ? scan->peek(&t.file[p.off], p.size)
+               : t.codec == viai_video::Codec::kVp8
+                   ? viai_video::Vp8Decoder::peek(&t.file[p.off], p.size)
+                   : 0;
       if (vop[i] >= 0) frame_of[i] = frames++;
     }
     size_t first = 0, last = 0;
@@ -1329,7 +1344,7 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     }
     if (!any) viai_video::broken("no frames decoded");
     size_t start = first;
-    if (t.codec == viai_video::Codec::kMpeg4)
+    if (t.codec != viai_video::Codec::kMjpeg)
       while (start > 0 && vop[start] != 0) --start;
     // Headers (an in-band VOL) may precede that I-VOP.
     for (size_t i = 0; i < start; ++i) dec.skip(i);
