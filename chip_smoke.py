@@ -93,15 +93,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      CLI on a musices split of them; the loader's wait share over 10
      steps, the decode time per frame and the host's cores;
  13. compressed video ([video]): the native demuxers and decoders
-     (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp) on the committed
-     fixtures of tests/torch_videos/ against cv2's committed decodes and
-     frame counts (MJPEG within 1 level, MPEG-4 Part 2 within 2, VP8
-     exact), a VP9 webm raising NotImplementedError; the av model (the
-     README's recipe) trained 20 steps at batch 16 from [data]'s av
-     clips given the committed 224x224 video files as frames, once from
-     MJPEG and MPEG-4 files (.avi, .mp4, .mkv, and a MOV made a stack by
-     prepare_dataset extract) and once from VP8 files (.webm, .mkv), GL
-     launches 2 and plain 0 each; the eval CLI on a musices split of
+     (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp, csrc/vp9.cpp) on
+     the committed fixtures of tests/torch_videos/ against cv2's
+     committed decodes and frame counts (MJPEG within 1 level, MPEG-4
+     Part 2 within 2, VP8 and VP9 exact), an H.264 sample entry raising
+     NotImplementedError; the av model (the README's recipe) trained 20
+     steps at batch 16 from [data]'s av clips given the committed
+     224x224 video files as frames, once from MJPEG and MPEG-4 files
+     (.avi, .mp4, .mkv, and a MOV made a stack by prepare_dataset
+     extract), once from VP8 files (.webm, .mkv) and once from VP9 files
+     (.webm, .mp4), GL launches 2 and plain 0 each; the eval CLI on a
+     musices split of
      each folder; the decode time per frame of each codec, a clip's read
      of 16 frames, the loader's wait share of a step from each folder
      and the host's cores;
@@ -314,23 +316,26 @@ FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
 FRAMES_WARMUP = 3
 # [video]: the committed fixtures of tests/torch_videos/ (written with cv2
 # and libvpx by tests/_torch_make_videos.py, which the card's machine
-# cannot run): MJPEG, MPEG-4 Part 2 and VP8 clips in AVI, MP4, MOV,
+# cannot run): MJPEG, MPEG-4 Part 2, VP8 and VP9 clips in AVI, MP4, MOV,
 # Matroska and WebM with cv2's decode of their first, middle and last
-# frames and its frame count (.npz), a VP9 webm, and the first frames of
-# the 224x224 jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv
-# (MPEG-4), clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8). Decoded
+# frames and its frame count (.npz), and the first frames of the 224x224
+# jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv (MPEG-4),
+# clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8), clip_vp9.webm and
+# clip_vp9.mp4 (VP9). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
 # becomes a frame stack through prepare_dataset extract.
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
-VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0}
-VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8"}
+VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0}
+VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
+               "vp9": "VP9"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
-                 "vp8": ("clip.webm", "clip_vp8.mkv")}
+                 "vp8": ("clip.webm", "clip_vp8.mkv"),
+                 "vp9": ("clip_vp9.webm", "clip_vp9.mp4")}
 VIDEO_REPS = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
@@ -1870,10 +1875,11 @@ def write_video_clips(root: pathlib.Path, wavs: list[str],
 def phase_video(dev, ckpt: str, card: str) -> int:
     """Compressed video on the card ([video]): (a) native.decode_video on
     the committed fixtures against cv2's committed decodes and frame
-    counts, an unread codec (VP9) raising; (b) the av model trained 20
-    steps at full width through the train CLI from each folder of
-    VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4, Matroska, and a MOV
-    through prepare_dataset extract), then VP8 clips (WebM, Matroska);
+    counts, an unread codec (H.264: clip.mp4 relabelled avc1) raising;
+    (b) the av model trained 20 steps at full width through the train CLI
+    from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
+    Matroska, and a MOV through prepare_dataset extract), VP8 clips
+    (WebM, Matroska), then VP9 clips (WebM, MP4);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a clip's read, the loader's wait share of a step
     from each folder. Returns the GL kernel's launches."""
@@ -1910,13 +1916,18 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             f"{n_files}")
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
             "[video] the native decoders disagree with cv2")
-    try:
-        native.decode_video(str(VIDEO_FIXTURES / "vp9_webm.webm"))
-        require(False, "[video] VP9 decoded")
-    except NotImplementedError as e:
-        require("VP9" in str(e),
-                f"[video] VP9 raises without naming it: {e}")
-        log(f"[video] vp9_webm.webm raises NotImplementedError: {e}")
+    with tempfile.TemporaryDirectory() as tmp:
+        h264 = pathlib.Path(tmp) / "clip_avc1.mp4"
+        h264.write_bytes((VIDEO_FIXTURES / "clip.mp4").read_bytes()
+                         .replace(b"mp4v", b"avc1", 1))
+        try:
+            native.decode_video(str(h264))
+            require(False, "[video] an avc1 sample entry decoded")
+        except NotImplementedError as e:
+            require("H.264" in str(e),
+                    f"[video] H.264 raises without naming it: {e}")
+            log(f"[video] clip.mp4 relabelled avc1 raises "
+                f"NotImplementedError: {e}")
 
     # (b), (c) av training and evaluation from each folder of video files
     corpus = pathlib.Path(ckpt) / "corpus"
@@ -1940,7 +1951,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
 
     for src, codec in (("clip.avi", "MJPEG"), ("clip.mp4", "MPEG-4"),
                        ("clip.mkv", "MPEG-4"), ("clip.webm", "VP8"),
-                       ("clip_vp8.mkv", "VP8")):
+                       ("clip_vp8.mkv", "VP8"), ("clip_vp9.webm", "VP9"),
+                       ("clip_vp9.mp4", "VP9")):
         path = str(VIDEO_FIXTURES / src)
         n = native.video_track(path, packets=False).count
         dec = best_ms(lambda: native.decode_video(path)) / n

@@ -377,9 +377,11 @@ VIDEOS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                                                jax_records_untouched,
                                                capsys):
-    """frames and extract over mp4v, MJPEG, .mov and VP8 clips beside a raw
-    AVI give the JAX script's .npy stacks and wavs; the JAX script reads
-    VP9 with cv2, the port lists it as skipped with the reason."""
+    """frames and extract over mp4v, MJPEG, .mov, VP8 and VP9 clips beside
+    a raw AVI give the JAX script's .npy stacks and wavs; an MP4 whose
+    sample entry names H.264 (an mp4v clip relabelled avc1) the JAX
+    script reads with cv2, the port lists it as skipped with the
+    reason."""
     pytest.importorskip("cv2")
     raw = tmp_path / "raw"
     (raw / "sub").mkdir(parents=True)
@@ -389,6 +391,8 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                      ("mjpeg_mov.mov", "e.mov"), ("vp9_webm.webm", "f.webm"),
                      ("vp8_webm.webm", "g.webm")):
         shutil.copy(os.path.join(VIDEOS, src), raw / dst)
+    data = open(os.path.join(VIDEOS, "mpeg4_mp4.mp4"), "rb").read()
+    (raw / "h.mp4").write_bytes(data.replace(b"mp4v", b"avc1", 1))
     args = dict(root=str(raw), sample_rate=16000, n_frames=16,
                 frame_size=64, require_audio=False)
     rec = prepare_dataset.main(["extract", "--root", str(raw), "--out",
@@ -399,32 +403,32 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
     capsys.readouterr()
     ours, ref = _files(tmp_path / "p"), _files(tmp_path / "j")
     assert sorted(ref) == ["a.npy", "a.wav", "b.npy", "c.npy", "d.npy",
-                           "e.npy", "f.npy", "g.npy"]
-    assert sorted(ours) == sorted(set(ref) - {"f.npy"})
+                           "e.npy", "f.npy", "g.npy", "h.npy"]
+    assert sorted(ours) == sorted(set(ref) - {"h.npy"})
     for name in ours:
         if name.endswith(".npy"):
             np.testing.assert_array_equal(np.load(tmp_path / "p" / name),
                                           np.load(tmp_path / "j" / name))
         else:
             assert ours[name] == ref[name]
-    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 5, 1)
-    assert re.search(r"skipped .*f\.webm: .*VP9, not read", out)
+    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 6, 1)
+    assert re.search(r"skipped .*h\.mp4: .*H\.264, not read", out)
     # frames: .mp4/.avi/.mkv/.webm beside the videos, .mov left alone.
     jraw = tmp_path / "jraw"
     shutil.copytree(raw, jraw)
     rec = prepare_dataset.main(["frames", "--root", str(raw),
                                 "--results_dir", str(tmp_path / "res")])
-    assert "VP9, not read" in capsys.readouterr().out
-    (jraw / "f.webm").unlink()          # cv2 reads it; the port does not
+    assert "H.264, not read" in capsys.readouterr().out
+    (jraw / "h.mp4").unlink()           # cv2 reads it; the port does not
     j_pd.cmd_frames(argparse.Namespace(root=str(jraw), n_frames=16,
                                        frame_size=64))
     ours = {k for k in _files(raw) if k.endswith(".npy")}
     assert ours == {k for k in _files(jraw) if k.endswith(".npy")} == {
-        "a.npy", "b.npy", "c.npy", "sub/d.npy", "g.npy"}
+        "a.npy", "b.npy", "c.npy", "sub/d.npy", "f.npy", "g.npy"}
     for name in ours:
         np.testing.assert_array_equal(np.load(raw / name),
                                       np.load(jraw / name))
-    assert (rec["clips"], rec["skipped"]) == (5, 1)
+    assert (rec["clips"], rec["skipped"]) == (6, 1)
 
 
 # ---- quality_report, quality_long, grid_diag ---------------------------

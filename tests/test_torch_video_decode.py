@@ -1,16 +1,20 @@
 """The port's compressed video reader (csrc/videodec.cpp, csrc/mpeg4.cpp,
-csrc/vp8.cpp through native.py) against cv2 and the JAX package's
-`_load_frames_video`.
+csrc/vp8.cpp, csrc/vp9.cpp through native.py) against cv2 and the JAX
+package's `_load_frames_video`.
 
 The clips of tests/_torch_make_videos.py (committed in tests/torch_videos/:
-MJPEG, MPEG-4 Part 2 and VP8 written by cv2's ffmpeg in AVI, MP4, MOV,
-Matroska and WebM, at 72x56, 8, 25 and 29.97 fps; MJPEG hand-muxed in MP4
-under the mjpa and MJPG sample entries; an AVI of MJPEG without Huffman
-tables; an AVI whose headers count 17 of its 12 frames; cv2's VP8 with a
-hidden frame, versions 1-3 and an odd width patched in; VP8 from
-libvpx's API with token partitions, sharpness, segmentation, no entropy
-refresh, hidden alt-ref frames and profile 1; the 224x224 clips
-chip_smoke.py trains from) go through:
+MJPEG, MPEG-4 Part 2, VP8 and VP9 written by cv2's ffmpeg in AVI, MP4,
+MOV, Matroska and WebM, at 72x56, 8, 25 and 29.97 fps; MJPEG hand-muxed
+in MP4 under the mjpa and MJPG sample entries and VP8 under vp08; an AVI
+of MJPEG without Huffman tables; an AVI whose headers count 17 of its 12
+frames; cv2's VP8 with a hidden frame, versions 1-3 and an odd width
+patched in; VP8 from libvpx's API with token partitions, sharpness,
+segmentation, no entropy refresh, hidden alt-ref frames and profile 1;
+VP9 from libvpx's API with backward adaptation, two-pass alt-ref
+superframes and compound prediction, 2x2 tiles, AQ and ROI segmentation,
+error-resilient frame-parallel coding, realtime speed 8, lossless, an
+odd width, full range and BT.709; the 224x224 clips chip_smoke.py
+trains from) go through:
 
   * `native.video_track` against cv2's demuxed packets
     (`CAP_PROP_FORMAT = -1`), byte for byte, its frame count against
@@ -18,8 +22,9 @@ chip_smoke.py trains from) go through:
     name says;
   * `native.decode_video` against `cap.read()`: the bound is 1 level for
     MJPEG, 2 for MPEG-4 (P-frame drift) and 0 for VP8 (exact by RFC 6386)
-    over every byte of every frame; the measured maximum is 0 for every
-    clip here (the decoders compute what libavcodec and swscale compute);
+    and VP9 (exact by its specification) over every byte of every frame;
+    the measured maximum is 0 for every clip here (the decoders compute
+    what libavcodec and swscale compute);
   * `native.load_video_frames` and the port's `data.av.load_frames_for`
     against the JAX package's over several windows at 16 frames and at
     40 (more than any clip has: the `set` case), sizes 64 and 32: the
@@ -28,13 +33,15 @@ chip_smoke.py trains from) go through:
     build against) against cv2 now;
   * a stem with both `.mp4` and `.avi` reads the `.mp4`, as the JAX
     package does;
-  * NotImplementedError naming the codec for VP9 (a cv2 webm), for
-    H.264, HEVC, VP9, AV1 and FFV1 (their fourccs put into a clip's
-    header) and for VP8 in MP4, naming each MPEG-4 feature a patched
-    header or macroblock flag can show, and naming each VP8 feature
+  * NotImplementedError naming the codec for H.264, HEVC, AV1 and FFV1
+    (their fourccs put into a clip's header), naming each MPEG-4 feature
+    a patched header or macroblock flag can show, each VP8 feature
     libvpx does not write (frame headers written here by a boolean
-    encoder); ValueError for a broken file and for a window past the
-    clip's last frame, as the JAX package raises.
+    encoder), each VP9 profile, bit depth and sampling other than
+    profile 0's, sRGB, intra-only frames and reference scaling (patched
+    or written headers), and a vpcC box of another bit depth; ValueError
+    for a broken file and for a window past the clip's last frame, as
+    the JAX package raises.
 """
 
 import os
@@ -55,8 +62,8 @@ cv2 = pytest.importorskip("cv2")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_make_videos as mk  # noqa: E402
 
-# levels of 255 at full size; VP8 is exact by specification
-TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0}
+# levels of 255 at full size; VP8 and VP9 are exact by specification
+TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0}
 CASES = list(mk.DECODED)
 FILES = {c: mk.path_of(c) for c in (*CASES, *mk.CLIP_CASES)}
 ALL = [*CASES, *mk.CLIP_CASES]
@@ -142,7 +149,7 @@ def test_layout_order_reads_mp4_before_avi(tmp_path):
     assert np.abs(avi - got).max() > 0.1       # the two files differ
 
 
-@pytest.mark.parametrize("case", ["mpeg4_mkv", "vp8_webm"])
+@pytest.mark.parametrize("case", ["mpeg4_mkv", "vp8_webm", "vp9_mp4"])
 def test_folder_datasets_read_video(tmp_path, case):
     """AVFolderDataset reads a clip's frames from its video file."""
     from viai_tpu_torch.data.audio import AudioFolderDataset
@@ -173,15 +180,15 @@ def _patched(src, dst, old: bytes, new: bytes, count=1):
 
 
 @pytest.mark.parametrize("fourcc,name", [
-    (b"H264", "H.264"), (b"HEVC", "HEVC"), (b"VP90", "VP9"),
-    (b"AV01", "AV1"), (b"FFV1", "FFV1")])
+    (b"H264", "H.264"), (b"HEVC", "HEVC"), (b"AV01", "AV1"),
+    (b"FFV1", "FFV1")])
 def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
     tag = native.video_track(FILES["mpeg4_avi"], packets=False).tag.encode()
     avi = _patched(FILES["mpeg4_avi"], tmp_path / "x.avi", tag, fourcc,
                    count=2)
     mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v",
-                   {b"H264": b"avc1", b"HEVC": b"hvc1", b"VP90": b"vp09",
-                    b"AV01": b"av01", b"FFV1": b"FFV1"}[fourcc])
+                   {b"H264": b"avc1", b"HEVC": b"hvc1", b"AV01": b"av01",
+                    b"FFV1": b"FFV1"}[fourcc])
     for path in (avi, mp4):
         with pytest.raises(NotImplementedError, match=re.escape(name)):
             native.decode_video(path)
@@ -189,19 +196,130 @@ def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
             native.load_video_frames(path, 16, 64)
 
 
-def test_vp9_webm_raises_naming_vp9():
-    path = mk.path_of("vp9_webm")
-    assert native.video_track(path).tag == "V_VP9"
-    with pytest.raises(NotImplementedError, match="VP9"):
-        native.decode_video(path)
-    with pytest.raises(NotImplementedError, match="VP9"):
-        av.load_frames_for(os.path.splitext(path)[0], 16, 64)
+def test_vp9_webm_raises_naming_vp9(tmp_path):
+    """cv2's VP9 webm with its keyframes patched to profile 1: the
+    profile's bit depth and sampling are named."""
+    data = bytearray(open(FILES["vp9_webm"], "rb").read())
+    for p, key in native.video_track(FILES["vp9_webm"]).packets:
+        if key:
+            data[bytes(data).index(p)] |= 0x20       # profile_low_bit
+    path = tmp_path / "x.webm"
+    path.write_bytes(bytes(data))
+    assert native.video_track(str(path)).tag == "V_VP9"
+    with pytest.raises(NotImplementedError, match="VP9 profile 1"):
+        native.decode_video(str(path))
+    with pytest.raises(NotImplementedError, match="VP9 profile 1"):
+        av.load_frames_for(str(tmp_path / "x"), 16, 64)
 
 
 def test_vp8_in_mp4_raises_naming_it(tmp_path):
-    mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v", b"vp08")
-    with pytest.raises(NotImplementedError, match="VP8 in MP4"):
+    """VP8 in MP4 is read (the vp8_mp4 case); a vpcC box of another bit
+    depth raises naming the codec and the depth."""
+    mp4 = _patched(FILES["vp8_mp4"], tmp_path / "x.mp4",
+                   bytes(mk.vpcc_box()), bytes(mk.vpcc_box(depth=10)))
+    with pytest.raises(NotImplementedError, match="VP8 profile 0 .10-bit"):
         native.decode_video(mp4)
+    assert native.decode_video(FILES["vp8_mp4"]).shape[0] == 20
+
+
+@pytest.mark.parametrize("entry", ["avi vp90", "mp4 vp09"])
+def test_vp9_sample_entries_decode_as_cv2(tmp_path, entry):
+    """cv2's VP9 packets under a lower-case AVI fourcc (libavformat
+    upper-cases riff tags) and hand-muxed under an MP4 vp09 entry with
+    its vpcC box: cv2's frames, exactly."""
+    pk = _vp9_packets("vp9_avi")
+    if entry.startswith("avi"):
+        path = tmp_path / "x.avi"
+        path.write_bytes(mk.avi_file(pk, mk.W, mk.H, 25, len(pk), b"vp90"))
+    else:
+        path = tmp_path / "x.mp4"
+        path.write_bytes(mk.mp4_file(pk, mk.W, mk.H, 25, b"vp09",
+                                     mk.vpcc_box()))
+    ref, count = mk.cv2_view(str(path))
+    assert native.video_track(str(path)).count == count == len(pk)
+    np.testing.assert_array_equal(native.decode_video(str(path)), ref)
+
+
+# ---- VP9 features that are not read, and show_existing_frame ------------
+
+def _vp9_packets(name):
+    return [p for p, _ in native.video_track(FILES[name]).packets]
+
+
+def _set_bits(data: bytes, pos: int, n: int, value: int) -> bytes:
+    """`data` with the n bits from bit `pos` (most significant first)
+    set to `value`."""
+    bits = "".join(f"{b:08b}" for b in data)
+    bits = bits[:pos] + format(value, f"0{n}b") + bits[pos + n:]
+    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+
+
+def _vp9_header(*fields) -> bytes:
+    """An uncompressed header written from (value, bits) pairs, padded
+    with zero bytes."""
+    bits = "".join(format(v, f"0{n}b") for v, n in fields)
+    bits += "0" * (-len(bits) % 8) + "0" * 64
+    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+
+
+def _vp9_avi(tmp_path, packets, h=mk.H):
+    path = tmp_path / "vp9.avi"
+    path.write_bytes(mk.avi_file(packets, mk.W, h, 25, len(packets), b"VP90"))
+    return str(path)
+
+
+# A keyframe's header bits: marker 2, profile 2, show_existing 1, type,
+# show, error_resilient 3, sync code 24, then colour space at bit 32.
+@pytest.mark.parametrize("feature,patch", [
+    ("VP9 profile 1, 8-bit 4:4:4", [(2, 1, 1)]),
+    ("VP9 profile 2, 10-bit 4:2:0", [(3, 1, 1)]),
+    ("VP9 profile 2, 12-bit 4:2:0", [(3, 1, 1), (32, 1, 1)]),
+    ("VP9 profile 3", [(2, 2, 3)]),
+    ("VP9 colour space sRGB", [(32, 3, 7)]),
+    ("odd height", [(52, 16, mk.H - 2)]),
+])
+def test_vp9_keyframe_features_raise_naming_them(tmp_path, feature, patch):
+    pk = _vp9_packets("vp9_avi")
+    for pos, n, value in patch:
+        pk[0] = _set_bits(pk[0], pos, n, value)
+    path = _vp9_avi(tmp_path, pk, mk.H - 1 if "odd" in feature else mk.H)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(path)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.load_video_frames(path, 4, 32)
+
+
+@pytest.mark.parametrize("feature", ["VP9 reference scaling",
+                                     "VP9 intra-only frames"])
+def test_vp9_inter_header_features_raise_naming_them(tmp_path, feature):
+    """An inter frame written after cv2's keyframe: one whose size differs
+    from its references', and a hidden intra-only frame."""
+    if "scaling" in feature:
+        frame = _vp9_header((2, 2), (0, 2), (0, 1), (1, 1), (1, 1), (0, 1),
+                            (0, 2), (0, 8), *[(0, 4)] * 3, (0, 3),
+                            (mk.W // 2 - 1, 16), (mk.H // 2 - 1, 16))
+    else:
+        frame = _vp9_header((2, 2), (0, 2), (0, 1), (1, 1), (0, 1), (0, 1),
+                            (1, 1))
+    path = _vp9_avi(tmp_path, [_vp9_packets("vp9_avi")[0], frame])
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(path)
+
+
+def test_vp9_show_existing_frame_matches_cv2(tmp_path):
+    """One-byte packets with show_existing_frame (slots 0 and 7) put into
+    cv2's stream: each shows its slot's frame again, as libavcodec does."""
+    pk = _vp9_packets("vp9_avi")
+    pk[5:5] = [bytes([0x88 | 0])]
+    pk[12:12] = [bytes([0x88 | 7])]
+    path = _vp9_avi(tmp_path, pk)
+    ref, count = mk.cv2_view(path)
+    assert len(ref) == count == len(pk)
+    got = native.decode_video(path)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        native.load_video_frames(path, 8, 32),
+        j_av._load_frames_video(path, 8, 32, None))
 
 
 # ---- VP8 features libvpx does not write ----------------------------------
@@ -578,7 +696,8 @@ def test_odd_height_and_other_sampling_raise(tmp_path):
 def test_fixture_script_rewrites_the_committed_avi_and_mp4(tmp_path):
     for name in ("mjpeg_avi", "mpeg4_mp4", "mjpeg_nodht_avi", "clip_avi",
                  "mjpeg_mjpa_mp4", "vp8_avi", "vp8_partitions_avi",
-                 "vp8_altref_avi"):
+                 "vp8_altref_avi", "vp8_mp4", "vp9_avi", "vp9_mp4",
+                 "vp9_good_avi", "vp9_twopass_avi", "vp9_tiles_avi"):
         path = mk.write_case(name, str(tmp_path))
         with open(path, "rb") as f, open(FILES[name], "rb") as g:
             assert f.read() == g.read(), name

@@ -1,5 +1,6 @@
 // Shared by videodec.cpp (containers, MJPEG, the frame path),
-// mpeg4.cpp (the MPEG-4 Part 2 decoder) and vp8.cpp (the VP8 decoder).
+// mpeg4.cpp (the MPEG-4 Part 2 decoder), vp8.cpp (the VP8 decoder) and
+// vp9.cpp (the VP9 decoder).
 #pragma once
 
 #include <cstddef>
@@ -27,6 +28,9 @@ struct Picture {
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
   bool full_range = false;  // yuvj (JPEG) levels, else limited (16..235)
+  // The YCbCr matrix as swscale's colour space index (SWS_CS_*): 5 is
+  // BT.601 (swscale's default), 1 BT.709, 7 SMPTE 240M, 9 BT.2020.
+  int matrix = 5;
 };
 
 // ffmpeg's "simple" integer IDCT (simple_idct_template.c, 8 bits) of a
@@ -66,6 +70,26 @@ class Vp8Decoder {
   bool decode(const uint8_t* data, size_t n, Picture& out);
   // Read one packet's 3-byte frame tag only: 0 a shown keyframe, 1 a
   // shown inter frame, -1 a hidden frame.
+  static int peek(const uint8_t* data, size_t n);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// The VP9 decoder (profile 0: 8 bits, 4:2:0) for libvpx's streams (see
+// vp9.cpp).
+class Vp9Decoder {
+ public:
+  Vp9Decoder();
+  ~Vp9Decoder();
+  // Decode one packet (its frames, by its superframe index); true with
+  // `out` filled when it shows a picture (a hidden frame is decoded and
+  // kept as a reference; show_existing_frame gives the slot's picture).
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // Read one packet's frame headers only: 0 when it shows a picture and
+  // begins with a keyframe, 1 when it shows one otherwise, -1 when it
+  // shows none.
   static int peek(const uint8_t* data, size_t n);
 
  private:

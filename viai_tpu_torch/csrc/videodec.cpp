@@ -1,7 +1,7 @@
 // Compressed video reader of viai_tpu_torch: the containers, the MJPEG
 // decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
 // (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
-// vp8.cpp VP8).
+// vp8.cpp VP8, vp9.cpp VP9).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -12,7 +12,8 @@
 //     through idx1, else a scan of `movi`), ISO-BMFF (.mp4/.mov: the
 //     first `vide` track's sample tables) and Matroska/WebM (EBML,
 //     unknown-size elements, SimpleBlock and BlockGroup with Xiph, EBML
-//     and fixed lacing). Each gives the track's packets in decode order,
+//     and fixed lacing; VP8 and VP9 in MP4 under their vp08/vp09 sample
+//     entries and vpcC boxes). Each gives the track's packets in decode order,
 //     byte for byte as libavformat gives them, and the frame count that
 //     cv2's CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the
 //     sample count, Matroska round(duration · fps) with libavformat's
@@ -34,7 +35,7 @@
 //     the frames found re-picked by the window rule over (0, 1). A
 //     frame is a packet that gives a picture: every MJPEG packet, an
 //     MPEG-4 packet with a coded VOP, a VP8 packet whose frame tag has
-//     show_frame set.
+//     show_frame set, a VP9 packet one of whose frames is shown.
 //
 // Errors: a broken file gives code 1 (ValueError), a codec, container or
 // feature that is not read code 2 (NotImplementedError), naming it.
@@ -103,7 +104,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // Containers
 // =====================================================================
 
-enum class Codec { kMjpeg, kMpeg4, kVp8, kOther };
+enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kOther };
 
 struct Packet {
   size_t off = 0;
@@ -137,6 +138,7 @@ Codec riff_codec(const std::string& tag) {
   for (const char* t : kMpeg4)
     if (u == t) return Codec::kMpeg4;
   if (u == "VP80") return Codec::kVp8;
+  if (u == "VP90") return Codec::kVp9;
   return Codec::kOther;
 }
 
@@ -337,6 +339,28 @@ void read_esds(Track& t, const Box& esds, int& oti) {
   }
 }
 
+// A vp08/vp09 sample entry's vpcC box (VP Codec ISO Media File Format
+// Binding, version 1): profile, level, bit depth, chroma subsampling.
+void read_vpcc(Track& t, const std::vector<Box>& entry_boxes) {
+  const std::vector<uint8_t>& f = t.file;
+  const Box* vpcc = child(entry_boxes, "vpcC");
+  const char* name = t.tag == "vp08" ? "VP8" : "VP9";
+  if (!vpcc || vpcc->body + 8 > vpcc->end)
+    broken(std::string("MP4 '") + t.tag + "' sample entry without its vpcC box");
+  if (f[vpcc->body] != 1)
+    unsupported(std::string("MP4 vpcC box of version ") +
+                std::to_string(f[vpcc->body]));
+  int profile = f[vpcc->body + 4];
+  int depth = f[vpcc->body + 6] >> 4;
+  int chroma = (f[vpcc->body + 6] >> 1) & 7;
+  if (depth != 8 || chroma > 1)
+    unsupported(std::string(name) + " profile " + std::to_string(profile) +
+                " (" + std::to_string(depth) + "-bit, " +
+                (chroma == 2 ? "4:2:2" : chroma == 3 ? "4:4:4" : "4:2:0") +
+                "; only 8-bit 4:2:0 is read)");
+  t.codec = t.tag == "vp08" ? Codec::kVp8 : Codec::kVp9;
+}
+
 void demux_mp4(Track& t) {
   const std::vector<uint8_t>& f = t.file;
   t.container = "MP4";
@@ -387,6 +411,8 @@ void demux_mp4(Track& t) {
     t.height = (f[entry + 34] << 8) | f[entry + 35];
     if (t.tag == "jpeg" || t.tag == "mjpa" || t.tag == "MJPG") {
       t.codec = Codec::kMjpeg;
+    } else if (t.tag == "vp08" || t.tag == "vp09") {
+      read_vpcc(t, boxes(f, entry + 86, entry + esz));
     } else if (t.tag == "mp4v") {
       const Box* esds = nullptr;
       std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
@@ -756,6 +782,8 @@ void demux_mkv(Track& t) {
               t.codec = Codec::kMjpeg;
             } else if (codec == "V_VP8") {
               t.codec = Codec::kVp8;
+            } else if (codec == "V_VP9") {
+              t.codec = Codec::kVp9;
             } else if (codec == "V_MPEG4/ISO/SP" ||
                        codec == "V_MPEG4/ISO/ASP" ||
                        codec == "V_MPEG4/ISO/AP") {
@@ -1017,10 +1045,20 @@ struct BgrCoeffs {
   int y, vr, ub, vg, ug, yoff;
 };
 
-// swscale's coefficients for BT.601 (ff_yuv2rgb_coeffs[SWS_CS_DEFAULT]),
-// scaled by 224/255 for full range or the luma by 255/219 for limited.
-BgrCoeffs bgr_coeffs(bool full) {
-  int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+// swscale's coefficients (ff_yuv2rgb_coeffs[matrix], the colour space
+// cv2 passes on from the decoded frame), scaled by 224/255 for full range
+// or the luma by 255/219 for limited.
+BgrCoeffs bgr_coeffs(bool full, int matrix) {
+  static const int kTable[11][4] = {
+      {117489, 138438, 13975, 34925}, {117489, 138438, 13975, 34925},
+      {104597, 132201, 25675, 53279}, {104597, 132201, 25675, 53279},
+      {104448, 132798, 24759, 53109}, {104597, 132201, 25675, 53279},
+      {104597, 132201, 25675, 53279}, {117579, 136230, 16907, 35559},
+      {0, 0, 0, 0},                   {110013, 140363, 12277, 42626},
+      {110013, 140363, 12277, 42626}};
+  if (matrix < 0 || matrix > 10 || matrix == 8) matrix = 5;
+  const int* t = kTable[matrix];
+  int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3];
   int64_t cy = 1 << 16, oy = 0;
   if (full) {
     auto s = [](int64_t v) { return v < 0 ? -((-v * 224) / 255)
@@ -1044,7 +1082,7 @@ std::vector<uint8_t> to_bgr(const Picture& p) {
   if (p.h & 1)
     unsupported("4:2:0 picture of odd height (swscale converts it "
                 "through its scaler, not read)");
-  BgrCoeffs k = bgr_coeffs(p.full_range);
+  BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
   for (int y = 0; y < p.h; ++y) {
     const uint8_t* yr = &p.y[size_t(y) * p.ystride];
@@ -1137,6 +1175,7 @@ class Decoder {
     if (t.codec == Codec::kMpeg4)
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
     if (t.codec == Codec::kVp8) vp8_.reset(new Vp8Decoder());
+    if (t.codec == Codec::kVp9) vp9_.reset(new Vp9Decoder());
   }
 
   // Packet i → its picture in `out`; false when it holds none.
@@ -1148,6 +1187,7 @@ class Decoder {
       return true;
     }
     if (vp8_) return vp8_->decode(d, p.size, out);
+    if (vp9_) return vp9_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
@@ -1163,8 +1203,6 @@ class Decoder {
       return "H.264, not read";
     if (has("HEVC") || has("HVC1") || has("HEV1") || has("H265"))
       return "HEVC, not read";
-    if (has("VP08")) return "VP8 in MP4, not read";
-    if (has("VP9") || has("VP09") || has("VP90")) return "VP9, not read";
     if (has("AV1") || has("AV01")) return "AV1, not read";
     if (has("FFV1")) return "FFV1, not read";
     return "a codec that is not read";
@@ -1174,6 +1212,7 @@ class Decoder {
   const Track& t_;
   std::unique_ptr<Mpeg4Decoder> mpeg4_;
   std::unique_ptr<Vp8Decoder> vp8_;
+  std::unique_ptr<Vp9Decoder> vp9_;
 };
 
 }  // namespace
@@ -1223,7 +1262,8 @@ void* viai_video_open(const char* path, int32_t* code, char* err,
 void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 
 // info = (width, height, cv2's frame count, packets, config bytes,
-// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 another); tag and container
+// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 another); tag and
+// container
 // names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
@@ -1300,8 +1340,8 @@ void viai_video_free(uint8_t* p) { std::free(p); }
 // resized as cv2.resize at INTER_LINEAR on BGR, flipped to RGB, / 255;
 // then re-picked by the window rule over (0, 1) when their number is
 // not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
-// last I-VOP at or before the first pick to the last pick, VP8 from the
-// last shown keyframe at or before it. → 0, or 1 broken / 2 unsupported
+// last I-VOP at or before the first pick to the last pick, VP8 and VP9
+// from the last shown keyframe at or before it. → 0, or 1 broken / 2 unsupported
 // with err set.
 int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                int32_t size, double w0, double w1,
@@ -1317,7 +1357,7 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     std::sort(want.begin(), want.end());
     want.erase(std::unique(want.begin(), want.end()), want.end());
     // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
-    // frame when it holds a VOP, a VP8 packet when it is shown.
+    // frame when it holds a VOP, a VP8 or VP9 packet when it shows one.
     std::vector<int64_t> frame_of(t.packets.size(), -1);
     std::vector<int> vop(t.packets.size(), 0);
     int64_t frames = 0;
@@ -1329,6 +1369,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       vop[i] = scan ? scan->peek(&t.file[p.off], p.size)
                : t.codec == viai_video::Codec::kVp8
                    ? viai_video::Vp8Decoder::peek(&t.file[p.off], p.size)
+               : t.codec == viai_video::Codec::kVp9
+                   ? viai_video::Vp9Decoder::peek(&t.file[p.off], p.size)
                    : 0;
       if (vop[i] >= 0) frame_of[i] = frames++;
     }
