@@ -93,16 +93,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      CLI on a musices split of them; the loader's wait share over 10
      steps, the decode time per frame and the host's cores;
  13. compressed video ([video]): the native demuxers and decoders
-     (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp, csrc/vp9.cpp) on
-     the committed fixtures of tests/torch_videos/ against cv2's
-     committed decodes and frame counts (MJPEG within 1 level, MPEG-4
-     Part 2 within 2, VP8 and VP9 exact), an H.264 sample entry raising
-     NotImplementedError; the av model (the README's recipe) trained 20
-     steps at batch 16 from [data]'s av clips given the committed
-     224x224 video files as frames, once from MJPEG and MPEG-4 files
-     (.avi, .mp4, .mkv, and a MOV made a stack by prepare_dataset
-     extract), once from VP8 files (.webm, .mkv) and once from VP9 files
-     (.webm, .mp4), GL launches 2 and plain 0 each; the eval CLI on a
+     (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
+     csrc/h264.cpp) on the committed fixtures of tests/torch_videos/
+     against cv2's committed decodes and frame counts (MJPEG within 1
+     level, MPEG-4 Part 2 within 2, VP8, VP9 and H.264 exact), an HEVC
+     sample entry raising NotImplementedError; the av model (the
+     README's recipe) trained 20 steps at batch 16 from [data]'s av clips
+     given the committed 224x224 video files as frames, once from MJPEG
+     and MPEG-4 files (.avi, .mp4, .mkv, and a MOV made a stack by
+     prepare_dataset extract), once from VP8 files (.webm, .mkv), once
+     from VP9 files (.webm, .mp4) and once from H.264 files (.mp4 High,
+     .mkv Main), GL launches 2 and plain 0 each; the eval CLI on a
      musices split of
      each folder; the decode time per frame of each codec, a clip's read
      of 16 frames, the loader's wait share of a step from each folder
@@ -315,27 +316,29 @@ FRAMES_JPEG_TOL = 1
 FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
 FRAMES_WARMUP = 3
 # [video]: the committed fixtures of tests/torch_videos/ (written with cv2
-# and libvpx by tests/_torch_make_videos.py, which the card's machine
-# cannot run): MJPEG, MPEG-4 Part 2, VP8 and VP9 clips in AVI, MP4, MOV,
-# Matroska and WebM with cv2's decode of their first, middle and last
-# frames and its frame count (.npz), and the first frames of the 224x224
-# jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv (MPEG-4),
-# clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8), clip_vp9.webm and
-# clip_vp9.mp4 (VP9). Decoded
+# libvpx and libx264 by tests/_torch_make_videos.py, which the card's
+# machine cannot run): MJPEG, MPEG-4 Part 2, VP8, VP9 and H.264 clips in
+# AVI, MP4, MOV, Matroska and WebM with cv2's decode of their first,
+# middle and last frames and its frame count (.npz), and the first frames
+# of the 224x224 jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv
+# (MPEG-4), clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8),
+# clip_vp9.webm and clip_vp9.mp4 (VP9), clip_h264.mp4 (High, CABAC,
+# B-frames) and clip_h264.mkv (Main, CAVLC). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
 # becomes a frame stack through prepare_dataset extract.
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
-VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0}
+VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0, "h264": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
-               "vp9": "VP9"}
+               "vp9": "VP9", "h264": "H.264"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "vp8": ("clip.webm", "clip_vp8.mkv"),
-                 "vp9": ("clip_vp9.webm", "clip_vp9.mp4")}
+                 "vp9": ("clip_vp9.webm", "clip_vp9.mp4"),
+                 "h264": ("clip_h264.mp4", "clip_h264.mkv")}
 VIDEO_REPS = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
@@ -1875,11 +1878,12 @@ def write_video_clips(root: pathlib.Path, wavs: list[str],
 def phase_video(dev, ckpt: str, card: str) -> int:
     """Compressed video on the card ([video]): (a) native.decode_video on
     the committed fixtures against cv2's committed decodes and frame
-    counts, an unread codec (H.264: clip.mp4 relabelled avc1) raising;
+    counts, an unread codec (HEVC: clip.mp4 relabelled hvc1) raising;
     (b) the av model trained 20 steps at full width through the train CLI
     from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
     Matroska, and a MOV through prepare_dataset extract), VP8 clips
-    (WebM, Matroska), then VP9 clips (WebM, MP4);
+    (WebM, Matroska), VP9 clips (WebM, MP4), then H.264 clips (MP4,
+    Matroska);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a clip's read, the loader's wait share of a step
     from each folder. Returns the GL kernel's launches."""
@@ -1917,16 +1921,16 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
             "[video] the native decoders disagree with cv2")
     with tempfile.TemporaryDirectory() as tmp:
-        h264 = pathlib.Path(tmp) / "clip_avc1.mp4"
-        h264.write_bytes((VIDEO_FIXTURES / "clip.mp4").read_bytes()
-                         .replace(b"mp4v", b"avc1", 1))
+        hevc = pathlib.Path(tmp) / "clip_hvc1.mp4"
+        hevc.write_bytes((VIDEO_FIXTURES / "clip.mp4").read_bytes()
+                         .replace(b"mp4v", b"hvc1", 1))
         try:
-            native.decode_video(str(h264))
-            require(False, "[video] an avc1 sample entry decoded")
+            native.decode_video(str(hevc))
+            require(False, "[video] an hvc1 sample entry decoded")
         except NotImplementedError as e:
-            require("H.264" in str(e),
-                    f"[video] H.264 raises without naming it: {e}")
-            log(f"[video] clip.mp4 relabelled avc1 raises "
+            require("HEVC" in str(e),
+                    f"[video] HEVC raises without naming it: {e}")
+            log(f"[video] clip.mp4 relabelled hvc1 raises "
                 f"NotImplementedError: {e}")
 
     # (b), (c) av training and evaluation from each folder of video files
@@ -1952,7 +1956,9 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     for src, codec in (("clip.avi", "MJPEG"), ("clip.mp4", "MPEG-4"),
                        ("clip.mkv", "MPEG-4"), ("clip.webm", "VP8"),
                        ("clip_vp8.mkv", "VP8"), ("clip_vp9.webm", "VP9"),
-                       ("clip_vp9.mp4", "VP9")):
+                       ("clip_vp9.mp4", "VP9"),
+                       ("clip_h264.mp4", "H.264 High"),
+                       ("clip_h264.mkv", "H.264 Main")):
         path = str(VIDEO_FIXTURES / src)
         n = native.video_track(path, packets=False).count
         dec = best_ms(lambda: native.decode_video(path)) / n

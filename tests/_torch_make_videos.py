@@ -32,12 +32,25 @@ which the card's machine does not have, so the fixtures are committed):
     skip), error-resilient with frame-parallel decoding (no adaptation,
     contexts reset), realtime speed 8, lossless at 64x64 (WHT), an odd
     width, full colour range and BT.709 (which cv2's conversion applies);
+    the files of X264_CASES, H.264 written by the system's libx264
+    through ctypes (`x264_encode`) and muxed here (`h264_file`): Baseline
+    CAVLC (POC type 2) in AVI, Main CAVLC with B-frames, temporal direct
+    and implicit weights in Matroska, x264's medium High (CABAC,
+    B-pyramid, weighted P prediction, the 8x8 transform) in MP4 with
+    ctts and ffmpeg's edit list, the slower preset (8 references, 4x4
+    partitions, direct auto), custom scaling matrices, 4 slices with
+    deblocking offsets and constrained intra, open GOP, intra refresh
+    (High CAVLC), full range with BT.709, and I_PCM at qp 1 over noise
+    in CABAC and in CAVLC; the AVIs of X264_PATCHED, libx264's streams
+    with a header field patched bit by bit (`patch_h264`):
+    disable_deblocking_filter_idc 2 and direct_8x8_inference_flag 0;
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); and `count`, `CAP_PROP_FRAME_COUNT`;
   * `clip.avi`, `clip.mp4`, `clip.mkv`, `clip.mov`, `clip.webm`,
-    `clip_vp8.mkv`, `clip_vp9.webm`, `clip_vp9.mp4`: the first frames of
-    the committed 224x224 jpeg clip
+    `clip_vp8.mkv`, `clip_vp9.webm`, `clip_vp9.mp4`, `clip_h264.mp4`
+    (High), `clip_h264.mkv` (Main, CAVLC): the first frames of the
+    committed 224x224 jpeg clip
     (tests/torch_frames/clip/) as video (CLIP_CASES), the clips
     chip_smoke.py trains from.
 
@@ -46,7 +59,7 @@ that moves over a drifting background, so that the MPEG-4 and VP8 clips'
 inter frames carry motion and, at 30 frames, a third I-VOP or keyframe
 (ffmpeg's GOP is 12 for all three). The encoders are deterministic here, so a
 rerun rewrites the same bytes, but for the Matroska and WebM files'
-random segment UID. tests/test_torch_video_decode.py holds the port
+random segment UID (cv2's writer; `mkv_file` writes none). tests/test_torch_video_decode.py holds the port
 against cv2 live and against these files.
 """
 
@@ -126,6 +139,49 @@ LIBVPX_CASES = {
     "vp9_range_avi": dict(color_range=1),
     "vp9_bt709_avi": dict(color_space=2),
 }
+# name: libx264 settings (see x264_encode; `frames`, else 30; `noise`,
+# the amplitude of uniform noise added to the frames), 72x56 at 25 fps
+# in the container its name ends with: AVI (fourcc H264, Annex B), MP4
+# (avc1 with its avcC box, ctts, stss and ffmpeg's edit list) or
+# Matroska (V_MPEG4/ISO/AVC, presentation times, keyframe flags).
+X264_CASES = {
+    "h264_baseline_avi": dict(profile="baseline"),          # POC type 2
+    "h264_main_mkv": dict(profile="main", cabac=0, bframes=3,
+                          b_pyramid="none", direct="temporal", weightb=1),
+    "h264_high_mp4": dict(frames=40, keyint=12),   # medium: CABAC, B-pyramid
+    "h264_slower_mkv": dict(preset="slower", ref=8, b_adapt=2,
+                            partitions="all", direct="auto"),
+    "h264_cqm_avi": dict(
+        cqm4iy=",".join(str(6 + 2 * i) for i in range(16)),
+        cqm4ic=",".join(str(20 - i) for i in range(16)),
+        cqm4py=",".join(str(10 + i) for i in range(16)),
+        cqm8i=",".join(str(8 + i // 2) for i in range(64)),
+        cqm8p=",".join(str(40 - i // 4) for i in range(64))),
+    "h264_slices_avi": dict(slices=4, deblock="-3:2", constrained_intra=1),
+    "h264_opengop_avi": dict(frames=40, open_gop=1, keyint=10),
+    "h264_refresh_avi": dict(intra_refresh=1, keyint=10, cabac=0),
+    "h264_range_avi": dict(fullrange="on", colormatrix="bt709"),
+    "h264_pcm_avi": dict(frames=24, qp=1, psy_rd="0:0", subme=10, noise=60),
+    "h264_pcmcavlc_avi": dict(frames=24, qp=1, psy_rd="0:0", subme=10,
+                              noise=60, cabac=0),
+}
+# name: (libx264 settings as X264_CASES, the NAL unit type, the field
+# and its new bits for patch_h264): headers that libx264 does not write,
+# patched into its AVI stream (cv2 the judge): every slice's
+# disable_deblocking_filter_idc 0 made 2 (no filtering across slice
+# edges) in 4 CAVLC slices, and direct_8x8_inference_flag cleared in
+# the SPS of a CAVLC stream with B-frames, temporal direct and 4x4
+# P partitions (direct motion of every 4x4 block from its own
+# colocated block: 2 of its 30 frames differ from the unpatched
+# stream's).
+X264_PATCHED = {
+    "h264_idc2_avi": (dict(profile="baseline", slices=4, deblock="1:-1"),
+                      (1, 5), "deblocking_idc", "011"),
+    "h264_nodirect8_avi": (dict(profile="main", cabac=0, bframes=3,
+                                direct="temporal", preset="slower",
+                                partitions="all"),
+                           (7,), "direct_8x8_inference", "0"),
+}
 # name: (frames, frame count the headers give, fps)
 HAND_CASES = {
     "mjpeg_nodht_avi": (12, 12, 25),
@@ -138,17 +194,23 @@ CLIP_CASES = {"clip_avi": ("avi", "MJPG", 16), "clip_mp4": ("mp4", "mp4v", 16),
               "clip_webm": ("webm", "VP80", 8),
               "clip_vp8_mkv": ("mkv", "VP80", 8),
               "clip_vp9_webm": ("webm", "VP90", 8),
-              "clip_vp9_mp4": ("mp4", "vp09", 8)}
+              "clip_vp9_mp4": ("mp4", "vp09", 8),
+              "clip_h264_mp4": ("mp4", "avc1", 16),    # High (medium)
+              "clip_h264_mkv": ("mkv", "avc1", 8)}     # Main, CAVLC
+# the libx264 settings of the H.264 training clips
+X264_CLIPS = {"clip_h264_mp4": dict(),
+              "clip_h264_mkv": dict(profile="main", cabac=0)}
 # Every case held against cv2 (an .npz each), and the codec it holds.
 DECODED = (*CASES, *HAND_CASES, *MP4_MJPEG_CASES, *VP8_PATCHED,
-           *VP8_MP4_CASES, *LIBVPX_CASES)
+           *VP8_MP4_CASES, *LIBVPX_CASES, *X264_CASES, *X264_PATCHED)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "VP80": "vp8",
-                "VP90": "vp9", "vp09": "vp9"}[CLIP_CASES[name][1]]
+                "VP90": "vp9", "vp09": "vp9",
+                "avc1": "h264"}[CLIP_CASES[name][1]]
     return {"xvid": "mpeg4"}.get(name.split("_")[0], name.split("_")[0])
 
 
@@ -251,22 +313,45 @@ def _full_box(kind: bytes, flags: int, *parts: bytes) -> bytes:
 
 
 def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
-             entry: bytes, boxes: bytes = b"") -> bytes:
-    """An MP4 of one video track: `packets` as its samples (each a sync
-    sample, one chunk, 1/fps apart) under the visual sample entry
-    `entry` (a fourcc) holding the extension `boxes`."""
+             entry: bytes, boxes: bytes = b"", ctts: list[int] | None = None,
+             media_time: int | None = None,
+             sync: list[int] | None = None) -> bytes:
+    """An MP4 of one video track: `packets` as its samples (one chunk,
+    1/fps apart in decode order) under the visual sample entry `entry`
+    (a fourcc) holding the extension `boxes`; `ctts`, each sample's
+    composition offset in frames; `media_time`, an edit list of one
+    edit over the whole track from that media time (in frames), as
+    ffmpeg's muxer writes for streams with B-frames; `sync`, the sync
+    samples (0-based; None: every sample, no stss box)."""
     n = len(packets)
     matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
                          0x40000000)
     sample_entry = _box(entry, bytes(6), struct.pack(
         ">HHH12xHHIIIH32sHh", 1, 0, 0, w, h, 0x480000, 0x480000, 0, 1,
         b"", 24, -1), boxes)
+    extra = b""
+    if ctts is not None:
+        runs: list[list[int]] = []
+        for off in ctts:
+            if runs and runs[-1][1] == off:
+                runs[-1][0] += 1
+            else:
+                runs.append([1, off])
+        extra += _full_box(b"ctts", 0, struct.pack(">I", len(runs)),
+                           *(struct.pack(">II", c, o) for c, o in runs))
+    if sync is not None:
+        extra += _full_box(b"stss", 0, struct.pack(">I", len(sync)),
+                           *(struct.pack(">I", i + 1) for i in sync))
+    edts = b""
+    if media_time is not None:
+        edts = _box(b"edts", _full_box(b"elst", 0, struct.pack(
+            ">IIiI", 1, n, media_time, 0x10000)))
 
     def moov(mdat_at: int) -> bytes:
         stbl = _box(
             b"stbl",
             _full_box(b"stsd", 0, struct.pack(">I", 1), sample_entry),
-            _full_box(b"stts", 0, struct.pack(">III", 1, n, 1)),
+            _full_box(b"stts", 0, struct.pack(">III", 1, n, 1)), extra,
             _full_box(b"stsc", 0, struct.pack(">IIII", 1, 1, n, 1)),
             _full_box(b"stsz", 0, struct.pack(">II", 0, n),
                       *(struct.pack(">I", len(p)) for p in packets)),
@@ -286,11 +371,59 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
         mvhd = _full_box(b"mvhd", 0, struct.pack(">IIIIIH10x", 0, 0, fps,
                                                  n, 0x10000, 0x100),
                          matrix, bytes(24), struct.pack(">I", 2))
-        return _box(b"moov", mvhd, _box(b"trak", tkhd, mdia))
+        return _box(b"moov", mvhd, _box(b"trak", tkhd, edts, mdia))
 
     ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200), b"isomiso2mp41")
     head = ftyp + moov(0)
     return ftyp + moov(len(head) + 8) + _box(b"mdat", *packets)
+
+
+def _ebml(eid: int, *parts: bytes) -> bytes:
+    body = b"".join(parts)
+    n = len(body)
+    k = 1
+    while n >= (1 << (7 * k)) - 1:
+        k += 1
+    size = ((1 << (7 * k)) | n).to_bytes(k, "big")
+    return eid.to_bytes((eid.bit_length() + 7) // 8, "big") + size + body
+
+
+def _ebml_uint(eid: int, v: int) -> bytes:
+    return _ebml(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
+
+
+def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
+             codec_private: bytes = b"", pts: list[int] | None = None,
+             keys: list[int] | None = None) -> bytes:
+    """A Matroska file of one video track: `packets` as SimpleBlocks of
+    one cluster in decode order, at the presentation times `pts` (in
+    frames; None: decode order), keyframes at `keys` (None: every
+    packet); the track's CodecID, CodecPrivate and DefaultDuration, a
+    segment Duration of len(packets) frames, no SegmentUID (so a rerun
+    writes the same bytes)."""
+    n = len(packets)
+    pts = list(range(n)) if pts is None else pts
+    keys = set(range(n)) if keys is None else set(keys)
+    ms = 1000 // fps
+    header = _ebml(0x1A45DFA3, _ebml_uint(0x4286, 1), _ebml_uint(0x42F7, 1),
+                   _ebml_uint(0x42F2, 4), _ebml_uint(0x42F3, 8),
+                   _ebml(0x4282, b"matroska"), _ebml_uint(0x4287, 4),
+                   _ebml_uint(0x4285, 2))
+    info = _ebml(0x1549A966, _ebml_uint(0x2AD7B1, 1000000),
+                 _ebml(0x4489, struct.pack(">d", float(n * ms))),
+                 _ebml(0x4D80, b"tests"), _ebml(0x5741, b"tests"))
+    video = _ebml(0xE0, _ebml_uint(0xB0, w), _ebml_uint(0xBA, h))
+    entry = _ebml(0xAE, _ebml_uint(0xD7, 1), _ebml_uint(0x73C5, 1),
+                  _ebml_uint(0x83, 1), _ebml(0x86, codec_id.encode()),
+                  *([_ebml(0x63A2, codec_private)] if codec_private else []),
+                  _ebml_uint(0x23E383, 1000000000 // fps), video)
+    blocks = b"".join(
+        _ebml(0xA3, b"\x81", struct.pack(">hB", pts[i] * ms,
+                                          0x80 if i in keys else 0), p)
+        for i, p in enumerate(packets))
+    cluster = _ebml(0x1F43B675, _ebml_uint(0xE7, 0), blocks)
+    return header + _ebml(0x18538067, info, _ebml(0x1654AE6B, entry),
+                          cluster)
 
 
 def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
@@ -444,6 +577,336 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
     return run(0)
 
 
+def x264_encode(frames, fps: int = 25, preset: str = "medium",
+                profile: str | None = "high", csp: int = 2,
+                bitdepth: int = 8, **opts) -> list[tuple[bytes, int, int]]:
+    """H.264 access units of `frames` (BGR) from libx264's API (the
+    system's libx264, API build 164, through ctypes): the preset, then
+    one thread and no macroblock tree, each of `opts` through
+    x264_param_parse (`_` for `-` in the names, True for "1"), then the
+    profile (None: the preset's);
+    `csp` and `bitdepth` set x264_param_t's i_csp (1 I400, 2 I420, 6
+    I422, 12 I444) and i_bitdepth; frames other than 8-bit I420 are
+    coded as a flat grey. → (Annex B bytes, pts, dts) in decode order,
+    SPS and PPS before every keyframe (x264's repeat-headers)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libx264.so.164")
+    vp = ctypes.c_void_p
+    lib.x264_encoder_open_164.restype = vp
+    lib.x264_encoder_open_164.argtypes = [vp]
+    for name in ("x264_encoder_encode", "x264_encoder_delayed_frames",
+                 "x264_encoder_close"):
+        getattr(lib, name).argtypes = [vp] + [vp] * (
+            4 if name.endswith("encode") else 0)
+    h, w = frames[0].shape[:2]
+    param = (ctypes.c_uint8 * 8192)()               # x264_param_t
+    if lib.x264_param_default_preset(param, preset.encode(), None):
+        raise RuntimeError(f"libx264: no preset {preset!r}")
+    ints = np.frombuffer(param, np.int32)
+    # i_csp, i_bitdepth, i_level_idc: build 164's layout.
+    assert tuple(ints[9:12]) == (2, 8, -1), ints[9:12]
+    ints[7], ints[8], ints[9], ints[10] = w, h, csp, bitdepth
+    # No macroblock tree: with it, libx264's first B-frame encode in a
+    # process reads memory it has not written, so its bytes vary.
+    settings = {"threads": "1", "fps": str(fps), "repeat-headers": "1",
+                "log": "-1", "mbtree": "0"}
+    settings.update({k.replace("_", "-"): "1" if v is True else str(v)
+                     for k, v in opts.items()})
+    for k, v in settings.items():
+        if lib.x264_param_parse(param, k.encode(), v.encode()):
+            raise RuntimeError(f"libx264: {k}={v} refused")
+    if profile and lib.x264_param_apply_profile(param, profile.encode()):
+        raise RuntimeError(f"libx264: profile {profile!r} refused")
+    enc = lib.x264_encoder_open_164(param)
+    if not enc:
+        raise RuntimeError("libx264: the encoder does not open")
+    pic, pic_out = (ctypes.c_uint8 * 1024)(), (ctypes.c_uint8 * 1024)()
+    lib.x264_picture_init(pic)
+    shift = {1: None, 2: (1, 1), 6: (1, 0), 12: (0, 0)}[csp]   # (x, y)
+    wide = 2 if bitdepth > 8 else 1
+    grey = np.uint8(128 if wide == 1 else 0)
+    planes = [np.full((h >> (shift[1] if i else 0),
+                       (w >> (shift[0] if i else 0)) * wide), grey)
+              for i in range(1 if shift is None else 3)]
+    struct.pack_into("<i", pic, 40, csp | (0x2000 if wide > 1 else 0))
+    struct.pack_into("<i", pic, 44, len(planes))
+    for i, pl in enumerate(planes):
+        struct.pack_into("<i", pic, 48 + 4 * i, pl.shape[1])
+        struct.pack_into("<Q", pic, 64 + 8 * i, pl.ctypes.data)
+    nal, n_nal = ctypes.c_void_p(), ctypes.c_int()
+    out = []
+
+    def collect(size: int):
+        if size <= 0:
+            return
+        base = nal.value
+        au = b"".join(ctypes.string_at(
+            ctypes.c_void_p.from_address(base + 40 * k + 24).value,
+            ctypes.c_int.from_address(base + 40 * k + 20).value)
+            for k in range(n_nal.value))
+        pts, dts = struct.unpack_from("<qq", pic_out, 16)
+        out.append((au, pts, dts))
+
+    for i, f in enumerate(frames):
+        if csp == 2 and wide == 1:
+            yuv = np.frombuffer(i420(f), np.uint8)
+            n0 = w * h
+            planes[0][:] = yuv[:n0].reshape(h, w)
+            planes[1][:] = yuv[n0:n0 + n0 // 4].reshape(h // 2, w // 2)
+            planes[2][:] = yuv[n0 + n0 // 4:].reshape(h // 2, w // 2)
+        struct.pack_into("<q", pic, 16, i)
+        collect(lib.x264_encoder_encode(enc, ctypes.byref(nal),
+                                        ctypes.byref(n_nal), pic, pic_out))
+    while lib.x264_encoder_delayed_frames(enc) > 0:
+        collect(lib.x264_encoder_encode(enc, ctypes.byref(nal),
+                                        ctypes.byref(n_nal), None, pic_out))
+    lib.x264_encoder_close(enc)
+    return out
+
+
+def nal_units(annexb: bytes) -> list[bytes]:
+    """The NAL units of an Annex B stream, start codes removed."""
+    out, p, n = [], 0, len(annexb)
+    starts = []
+    while True:
+        q = annexb.find(b"\0\0\1", p)
+        if q < 0:
+            break
+        starts.append(q + 3)
+        p = q + 3
+    for i, s in enumerate(starts):
+        e = starts[i + 1] - 3 if i + 1 < len(starts) else n
+        while i + 1 < len(starts) and e > s and annexb[e - 1] == 0:
+            e -= 1
+        out.append(annexb[s:e])
+    return out
+
+
+def rbsp_bits(unit: bytes) -> str:
+    """A NAL unit's RBSP (emulation prevention removed) as a bit string."""
+    out, zeros = bytearray(), 0
+    for b in unit[1:]:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return "".join(f"{b:08b}" for b in out)
+
+
+def nal_unit(header: int, bits: str) -> bytes:
+    """A NAL unit of `header` from RBSP bits (zero-padded to a byte),
+    emulation prevention put back."""
+    bits += "0" * (-len(bits) % 8)
+    out, zeros = bytearray([header]), 0
+    for k in range(0, len(bits), 8):
+        b = int(bits[k:k + 8], 2)
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def ue_bits(v: int) -> str:
+    return "0" * ((v + 1).bit_length() - 1) + format(v + 1, "b")
+
+
+class BitReader:
+    """Exp-Golomb reads over a bit string, noting where fields begin."""
+
+    def __init__(self, bits: str):
+        self.s, self.p, self.at = bits, 0, {}
+
+    def mark(self, name):
+        self.at[name] = self.p
+
+    def u(self, n):
+        v = int(self.s[self.p:self.p + n], 2) if n else 0
+        self.p += n
+        return v
+
+    def ue(self):
+        z = 0
+        while self.s[self.p + z] == "0":
+            z += 1
+        self.p += z
+        return self.u(z + 1) - 1
+
+    def se(self):
+        k = self.ue()
+        return (k + 1) // 2 if k & 1 else -(k // 2)
+
+
+def sps_fields(bits: str) -> BitReader:
+    """Where an SPS's fields begin (x264's SPS: no scaling lists, no
+    HRD), with `log2_max_frame_num`, `poc_type` and `log2_max_poc_lsb`."""
+    r = BitReader(bits)
+    profile = r.u(8)
+    r.u(16)
+    r.ue()
+    if profile in (100, 110, 122, 244):
+        r.mark("chroma_format_idc")
+        if r.ue() == 3:
+            r.u(1)
+        r.ue()
+        r.ue()
+        r.u(1)
+        assert r.u(1) == 0                      # no scaling lists
+    r.log2_max_frame_num = r.ue() + 4
+    r.mark("poc_type")
+    r.poc_type = r.ue()
+    r.log2_max_poc_lsb = r.ue() + 4 if r.poc_type == 0 else 0
+    assert r.poc_type in (0, 2)
+    r.ue()
+    r.u(1)
+    r.ue()
+    r.ue()
+    r.mark("frame_mbs_only")
+    assert r.u(1) == 1
+    r.mark("direct_8x8_inference")
+    r.u(1)
+    if r.u(1):                                  # frame cropping
+        r.mark("crop_left")
+        for _ in range(4):
+            r.ue()
+    assert r.u(1) == 1                          # VUI
+    if r.u(1) and r.u(8) == 255:                # aspect ratio
+        r.u(32)
+    if r.u(1):
+        r.u(1)
+    if r.u(1):                                  # video signal type
+        r.u(4)
+        if r.u(1):
+            r.u(24)
+    if r.u(1):
+        r.ue()
+        r.ue()
+    if r.u(1):                                  # timing
+        r.u(65)
+    assert r.u(1) == 0 and r.u(1) == 0          # no HRD
+    r.u(1)
+    r.mark("bitstream_restriction")
+    assert r.u(1) == 1
+    return r
+
+
+def pps_fields(bits: str) -> BitReader:
+    r = BitReader(bits)
+    r.ue()
+    r.ue()
+    r.u(2)
+    r.mark("num_slice_groups")
+    r.ue()
+    r.ue()
+    r.ue()
+    r.u(1)
+    r.mark("weighted_bipred_idc")
+    r.u(2)
+    r.se()
+    r.se()
+    r.se()
+    r.u(2)
+    r.mark("redundant_pic_cnt_present")
+    r.u(1)
+    return r
+
+
+def slice_fields(bits: str, sps: BitReader, idr: bool,
+                 ref: bool) -> BitReader:
+    """Where a Baseline I or P slice header's fields begin (no weights,
+    deblocking control present)."""
+    r = BitReader(bits)
+    r.ue()
+    r.mark("slice_type")
+    kind = r.ue() % 5
+    assert kind in (0, 2)
+    r.ue()
+    r.mark("frame_num")
+    r.u(sps.log2_max_frame_num)
+    if idr:
+        r.ue()
+    if sps.poc_type == 0:
+        r.u(sps.log2_max_poc_lsb)
+    if kind == 0:
+        if r.u(1):
+            r.ue()
+        if r.u(1):                              # list modification
+            while r.ue() != 3:
+                r.ue()
+    if ref:
+        if idr:
+            r.u(1)
+            r.mark("long_term_reference_flag")
+            r.u(1)
+        else:
+            r.mark("adaptive_ref_pic_marking")
+            assert r.u(1) == 0
+    r.se()
+    r.mark("deblocking_idc")
+    return r
+
+
+def patch_h264(packets: list[bytes], kind: int, field: str, new: str,
+               old_bits=1, which=lambda i: True) -> list[bytes]:
+    """Annex B packets with one field of the NAL units of type `kind`
+    (7 SPS, 8 PPS, 1 or 5 a Baseline slice) replaced: `old_bits` bits
+    (or old_bits(reader)) at the field become the bit string `new`, the
+    rest of the unit follows it; `which(i)` picks the i-th such unit."""
+    sps = None
+    out, n = [], 0
+    for p in packets:
+        units = []
+        for u in nal_units(p):
+            t = u[0] & 31
+            bits = rbsp_bits(u)
+            if t == 7:
+                sps = sps_fields(bits)
+            if t == kind and which(n):
+                r = (sps_fields(bits) if t == 7 else pps_fields(bits)
+                     if t == 8 else slice_fields(bits, sps, t == 5,
+                                                 u[0] >> 5 != 0))
+                at = r.at[field]
+                width = old_bits(r) if callable(old_bits) else old_bits
+                u = nal_unit(u[0], bits[:at] + new + bits[at + width:])
+            if t == kind:
+                n += 1
+            units.append(u)
+        out.append(b"".join(b"\0\0\0\1" + u for u in units))
+    return out
+
+
+def avcc_box(sps: bytes, pps: bytes) -> bytes:
+    """An avcC box (AVCDecoderConfigurationRecord) of one SPS and one
+    PPS, 4-byte NAL lengths."""
+    body = bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + struct.pack(
+        ">H", len(sps)) + sps + b"\1" + struct.pack(">H", len(pps)) + pps
+    if sps[1] in (100, 110, 122, 244):
+        body += bytes([0xFC | 1, 0xF8, 0xF8, 0])    # 4:2:0, 8-bit, no ext
+    return _box(b"avcC", body)
+
+
+def avc_samples(aus: list[bytes]) -> tuple[list[bytes], bytes, bytes]:
+    """Annex B access units as 4-byte length-prefixed samples without
+    their SPS and PPS, and the first SPS and PPS."""
+    sps = pps = None
+    samples = []
+    for au in aus:
+        s = b""
+        for u in nal_units(au):
+            kind = u[0] & 0x1F
+            if kind == 7:
+                sps = sps or u
+            elif kind == 8:
+                pps = pps or u
+            else:
+                s += struct.pack(">I", len(u)) + u
+        samples.append(s)
+    return samples, sps, pps
+
+
 def i420(bgr: np.ndarray) -> bytes:
     """A BGR frame as I420 planes (cv2's conversion; odd sizes by edge
     replication to even and cropping the chroma back)."""
@@ -544,11 +1007,60 @@ def cv2_view(path: str) -> tuple[np.ndarray, int]:
     return np.stack(frames), count
 
 
+def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
+              container: str, fps: int = 25) -> bytes:
+    """x264_encode's access units muxed as a file: "avi" (Annex B under
+    the fourcc H264), "mp4" (avc1 and avcC, ctts, stss and the edit list
+    ffmpeg's muxer writes from the first presented sample) or "mkv"
+    (V_MPEG4/ISO/AVC with its avcC CodecPrivate, presentation times)."""
+    packets = [a for a, _, _ in aus]
+    if container == "avi":
+        return avi_file(packets, w, h, fps, len(packets), b"H264")
+    samples, sps, pps = avc_samples(packets)
+    keys = [i for i, a in enumerate(packets)
+            if any(u[0] & 31 == 5 for u in nal_units(a))]
+    dts0 = aus[0][2]
+    if container == "mp4":
+        return mp4_file(samples, w, h, fps, b"avc1", avcc_box(sps, pps),
+                        ctts=[p - d for _, p, d in aus], media_time=-dts0,
+                        sync=keys)
+    return mkv_file(samples, w, h, fps, "V_MPEG4/ISO/AVC",
+                    avcc_box(sps, pps)[8:], pts=[p for _, p, _ in aus],
+                    keys=keys)
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in X264_PATCHED:
+        settings, kinds, field, bits = X264_PATCHED[name]
+        aus = x264_encode(moving_frames(sum(map(ord, name)), 30), **settings)
+        packets = [a for a, _, _ in aus]
+        for kind in kinds:
+            packets = patch_h264(packets, kind, field, bits)
+        with open(path, "wb") as f:
+            f.write(avi_file(packets, W, H, 25, len(packets), b"H264"))
+        return path
+    if name in X264_CASES or name in X264_CLIPS:
+        if name in X264_CLIPS:
+            frames = clip_frames_bgr()[:CLIP_CASES[name][2]]
+            settings = dict(X264_CLIPS[name])
+        else:
+            settings = dict(X264_CASES[name])
+            frames = moving_frames(sum(map(ord, name)),
+                                   settings.pop("frames", 30))
+            noise = settings.pop("noise", 0)
+            if noise:
+                rng = np.random.default_rng(len(name))
+                frames = np.clip(frames + rng.uniform(
+                    -noise, noise, frames.shape), 0, 255).astype(np.uint8)
+        aus = x264_encode(frames, **settings)
+        h, w = frames.shape[1:3]
+        with open(path, "wb") as f:
+            f.write(h264_file(aus, w, h, name.rsplit("_", 1)[1]))
+        return path
     if name in MP4_MJPEG_CASES:
         with tempfile.TemporaryDirectory() as tmp:
             src = os.path.join(tmp, "src.avi")

@@ -280,9 +280,9 @@ def test_device_prefetch_on_the_cpu(corpus):
 
 
 def test_unsupported_layouts_raise(tmp_path):
-    """A video file of a codec the port does not read raises
+    """A video file of a codec the port does not read (HEVC) raises
     NotImplementedError naming it, a broken one (an empty .mp4, an AVI
-    that claims MJPEG over raw pixels) ValueError; a frame directory
+    that claims MJPEG or H.264 over raw pixels) ValueError; a frame directory
     without frames and a missing source raise FileNotFoundError."""
     stem = str(tmp_path / "clip")
     os.makedirs(stem)
@@ -300,9 +300,13 @@ def test_unsupported_layouts_raise(tmp_path):
         f.write(data.replace(b"RGBA", b"MJPG"))
     with pytest.raises(ValueError, match="MJPEG"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
-    with open(stem + ".avi", "wb") as f:     # claim H.264
+    with open(stem + ".avi", "wb") as f:     # claim H.264 (read: broken)
         f.write(data.replace(b"RGBA", b"H264"))
-    with pytest.raises(NotImplementedError, match="H.264"):
+    with pytest.raises(ValueError, match="H.264"):
+        av.load_frames_for(stem, N_FRAMES, SIZE)
+    with open(stem + ".avi", "wb") as f:     # claim HEVC (not read)
+        f.write(data.replace(b"RGBA", b"HEVC"))
+    with pytest.raises(NotImplementedError, match="HEVC"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     with pytest.raises(FileNotFoundError):
         av.load_frames_for(str(tmp_path / "none"), N_FRAMES, SIZE)

@@ -377,10 +377,10 @@ VIDEOS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                                                jax_records_untouched,
                                                capsys):
-    """frames and extract over mp4v, MJPEG, .mov, VP8 and VP9 clips beside
-    a raw AVI give the JAX script's .npy stacks and wavs; an MP4 whose
-    sample entry names H.264 (an mp4v clip relabelled avc1) the JAX
-    script reads with cv2, the port lists it as skipped with the
+    """frames and extract over mp4v, MJPEG, .mov, VP8, VP9 and H.264
+    clips beside a raw AVI give the JAX script's .npy stacks and wavs; an
+    MP4 whose sample entry names HEVC (an mp4v clip relabelled hvc1) the
+    JAX script reads with cv2, the port lists it as skipped with the
     reason."""
     pytest.importorskip("cv2")
     raw = tmp_path / "raw"
@@ -389,10 +389,11 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
     for src, dst in (("mpeg4_mp4.mp4", "b.mp4"), ("mjpeg_avi.avi", "c.avi"),
                      ("mpeg4_mkv.mkv", "sub/d.mkv"),
                      ("mjpeg_mov.mov", "e.mov"), ("vp9_webm.webm", "f.webm"),
-                     ("vp8_webm.webm", "g.webm")):
+                     ("vp8_webm.webm", "g.webm"),
+                     ("h264_high_mp4.mp4", "i.mp4")):
         shutil.copy(os.path.join(VIDEOS, src), raw / dst)
     data = open(os.path.join(VIDEOS, "mpeg4_mp4.mp4"), "rb").read()
-    (raw / "h.mp4").write_bytes(data.replace(b"mp4v", b"avc1", 1))
+    (raw / "h.mp4").write_bytes(data.replace(b"mp4v", b"hvc1", 1))
     args = dict(root=str(raw), sample_rate=16000, n_frames=16,
                 frame_size=64, require_audio=False)
     rec = prepare_dataset.main(["extract", "--root", str(raw), "--out",
@@ -403,7 +404,7 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
     capsys.readouterr()
     ours, ref = _files(tmp_path / "p"), _files(tmp_path / "j")
     assert sorted(ref) == ["a.npy", "a.wav", "b.npy", "c.npy", "d.npy",
-                           "e.npy", "f.npy", "g.npy", "h.npy"]
+                           "e.npy", "f.npy", "g.npy", "h.npy", "i.npy"]
     assert sorted(ours) == sorted(set(ref) - {"h.npy"})
     for name in ours:
         if name.endswith(".npy"):
@@ -411,24 +412,24 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                                           np.load(tmp_path / "j" / name))
         else:
             assert ours[name] == ref[name]
-    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 6, 1)
-    assert re.search(r"skipped .*h\.mp4: .*H\.264, not read", out)
+    assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 7, 1)
+    assert re.search(r"skipped .*h\.mp4: .*HEVC, not read", out)
     # frames: .mp4/.avi/.mkv/.webm beside the videos, .mov left alone.
     jraw = tmp_path / "jraw"
     shutil.copytree(raw, jraw)
     rec = prepare_dataset.main(["frames", "--root", str(raw),
                                 "--results_dir", str(tmp_path / "res")])
-    assert "H.264, not read" in capsys.readouterr().out
+    assert "HEVC, not read" in capsys.readouterr().out
     (jraw / "h.mp4").unlink()           # cv2 reads it; the port does not
     j_pd.cmd_frames(argparse.Namespace(root=str(jraw), n_frames=16,
                                        frame_size=64))
     ours = {k for k in _files(raw) if k.endswith(".npy")}
     assert ours == {k for k in _files(jraw) if k.endswith(".npy")} == {
-        "a.npy", "b.npy", "c.npy", "sub/d.npy", "f.npy", "g.npy"}
+        "a.npy", "b.npy", "c.npy", "sub/d.npy", "f.npy", "g.npy", "i.npy"}
     for name in ours:
         np.testing.assert_array_equal(np.load(raw / name),
                                       np.load(jraw / name))
-    assert (rec["clips"], rec["skipped"]) == (6, 1)
+    assert (rec["clips"], rec["skipped"]) == (7, 1)
 
 
 # ---- quality_report, quality_long, grid_diag ---------------------------

@@ -1,6 +1,6 @@
 """The port's compressed video reader (csrc/videodec.cpp, csrc/mpeg4.cpp,
-csrc/vp8.cpp, csrc/vp9.cpp through native.py) against cv2 and the JAX
-package's `_load_frames_video`.
+csrc/vp8.cpp, csrc/vp9.cpp, csrc/h264.cpp through native.py) against cv2
+and the JAX package's `_load_frames_video`.
 
 The clips of tests/_torch_make_videos.py (committed in tests/torch_videos/:
 MJPEG, MPEG-4 Part 2, VP8 and VP9 written by cv2's ffmpeg in AVI, MP4,
@@ -13,16 +13,25 @@ segmentation, no entropy refresh, hidden alt-ref frames and profile 1;
 VP9 from libvpx's API with backward adaptation, two-pass alt-ref
 superframes and compound prediction, 2x2 tiles, AQ and ROI segmentation,
 error-resilient frame-parallel coding, realtime speed 8, lossless, an
-odd width, full range and BT.709; the 224x224 clips chip_smoke.py
-trains from) go through:
+odd width, full range and BT.709; H.264 from libx264's API: Baseline
+CAVLC in AVI, Main CAVLC with B-frames and temporal direct in Matroska,
+High CABAC with B-pyramid, weighted prediction and the 8x8 transform in
+MP4 (ctts and ffmpeg's edit list), the slower preset with 8 references
+and 4x4 partitions, custom scaling matrices, 4 slices with deblocking
+offsets and constrained intra, open GOP, intra refresh (High CAVLC),
+full range with BT.709, I_PCM in CABAC and in CAVLC; the 224x224 clips
+chip_smoke.py trains from) go through:
 
   * `native.video_track` against cv2's demuxed packets
-    (`CAP_PROP_FORMAT = -1`), byte for byte, its frame count against
+    (`CAP_PROP_FORMAT = -1`), byte for byte (H.264 in MP4 and Matroska
+    through the test's copy of libavcodec's h264_mp4toannexb, which cv2
+    applies), its frame count against
     `CAP_PROP_FRAME_COUNT`, and its codec against the one the case's
     name says;
   * `native.decode_video` against `cap.read()`: the bound is 1 level for
-    MJPEG, 2 for MPEG-4 (P-frame drift) and 0 for VP8 (exact by RFC 6386)
-    and VP9 (exact by its specification) over every byte of every frame;
+    MJPEG, 2 for MPEG-4 (P-frame drift) and 0 for VP8 (exact by RFC 6386),
+    VP9 and H.264 (exact by their specifications) over every byte of
+    every frame;
     the measured maximum is 0 for every clip here (the decoders compute
     what libavcodec and swscale compute);
   * `native.load_video_frames` and the port's `data.av.load_frames_for`
@@ -33,15 +42,18 @@ trains from) go through:
     build against) against cv2 now;
   * a stem with both `.mp4` and `.avi` reads the `.mp4`, as the JAX
     package does;
-  * NotImplementedError naming the codec for H.264, HEVC, AV1 and FFV1
+  * NotImplementedError naming the codec for HEVC, AV1 and FFV1
     (their fourccs put into a clip's header), naming each MPEG-4 feature
     a patched header or macroblock flag can show, each VP8 feature
     libvpx does not write (frame headers written here by a boolean
     encoder), each VP9 profile, bit depth and sampling other than
     profile 0's, sRGB, intra-only frames and reference scaling (patched
-    or written headers), and a vpcC box of another bit depth; ValueError
-    for a broken file and for a window past the clip's last frame, as
-    the JAX package raises.
+    or written headers), a vpcC box of another bit depth, and each H.264
+    feature outside 8-bit 4:2:0 progressive coding (libx264's own
+    interlaced, 10-bit, 4:2:2, 4:4:4, monochrome and lossless streams;
+    parameter sets, slice headers and NAL units patched bit by bit for
+    the rest); ValueError for a broken file and for a window past the
+    clip's last frame, as the JAX package raises.
 """
 
 import os
@@ -62,8 +74,9 @@ cv2 = pytest.importorskip("cv2")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_make_videos as mk  # noqa: E402
 
-# levels of 255 at full size; VP8 and VP9 are exact by specification
-TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0}
+# levels of 255 at full size; VP8, VP9 and H.264 are exact by
+# specification
+TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0, "h264": 0}
 CASES = list(mk.DECODED)
 FILES = {c: mk.path_of(c) for c in (*CASES, *mk.CLIP_CASES)}
 ALL = [*CASES, *mk.CLIP_CASES]
@@ -74,11 +87,56 @@ def _codec(name):
     return native.video_track(FILES[name], packets=False).codec
 
 
+def _mp4toannexb(track):
+    """The packets of an H.264 track in MP4 or Matroska (length-prefixed
+    NAL units, avcC record) as libavcodec's h264_mp4toannexb gives them
+    to cv2: start codes of 4 bytes before a parameter set or a packet's
+    first unit, else 3; the record's SPS and PPS before the first IDR
+    slice of each IDR picture that carries none."""
+    cfg = track.config
+    nal_len = (cfg[4] & 3) + 1
+    sets, p = [], 5
+    for count_mask in (31, 255):
+        n = cfg[p] & count_mask
+        p += 1
+        for _ in range(n):
+            size = int.from_bytes(cfg[p:p + 2], "big")
+            sets.append(cfg[p + 2:p + 2 + size])
+            p += 2 + size
+    extradata = b"".join(b"\0\0\0\1" + u for u in sets)
+    out, new_idr = [], True
+    for data, _ in track.packets:
+        pkt, sps_seen, pps_seen, q = b"", False, False, 0
+        while q < len(data):
+            size = int.from_bytes(data[q:q + nal_len], "big")
+            unit = data[q + nal_len:q + nal_len + size]
+            q += nal_len + size
+            kind = unit[0] & 31
+            if kind == 7:
+                sps_seen = new_idr = True
+            elif kind == 8:
+                pps_seen = new_idr = True
+            if kind == 5 and unit[1] & 0x80:        # first_mb_in_slice 0
+                new_idr = True
+            if new_idr and kind == 5 and not sps_seen and not pps_seen:
+                pkt += extradata
+                new_idr = False
+            pkt += (b"\0\0\0\1" if kind in (7, 8) or not pkt else
+                    b"\0\0\1") + unit
+            if not new_idr and kind == 1:
+                new_idr, sps_seen, pps_seen = True, False, False
+        out.append(pkt)
+    return out
+
+
 @pytest.mark.parametrize("name", ALL)
 def test_packets_and_count_match_cv2(name):
     path = FILES[name]
     track = native.video_track(path)
-    assert [p for p, _ in track.packets] == mk.cv2_packets(path)
+    got = [p for p, _ in track.packets]
+    if track.codec == "h264" and track.config:
+        got = _mp4toannexb(track)
+    assert got == mk.cv2_packets(path)
     cap = cv2.VideoCapture(path)
     assert track.count == int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     assert (track.width, track.height) == (
@@ -149,7 +207,8 @@ def test_layout_order_reads_mp4_before_avi(tmp_path):
     assert np.abs(avi - got).max() > 0.1       # the two files differ
 
 
-@pytest.mark.parametrize("case", ["mpeg4_mkv", "vp8_webm", "vp9_mp4"])
+@pytest.mark.parametrize("case", ["mpeg4_mkv", "vp8_webm", "vp9_mp4",
+                                  "h264_high_mp4"])
 def test_folder_datasets_read_video(tmp_path, case):
     """AVFolderDataset reads a clip's frames from its video file."""
     from viai_tpu_torch.data.audio import AudioFolderDataset
@@ -180,14 +239,13 @@ def _patched(src, dst, old: bytes, new: bytes, count=1):
 
 
 @pytest.mark.parametrize("fourcc,name", [
-    (b"H264", "H.264"), (b"HEVC", "HEVC"), (b"AV01", "AV1"),
-    (b"FFV1", "FFV1")])
+    (b"HEVC", "HEVC"), (b"AV01", "AV1"), (b"FFV1", "FFV1")])
 def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
     tag = native.video_track(FILES["mpeg4_avi"], packets=False).tag.encode()
     avi = _patched(FILES["mpeg4_avi"], tmp_path / "x.avi", tag, fourcc,
                    count=2)
     mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v",
-                   {b"H264": b"avc1", b"HEVC": b"hvc1", b"AV01": b"av01",
+                   {b"HEVC": b"hvc1", b"AV01": b"av01",
                     b"FFV1": b"FFV1"}[fourcc])
     for path in (avi, mp4):
         with pytest.raises(NotImplementedError, match=re.escape(name)):
@@ -701,3 +759,211 @@ def test_fixture_script_rewrites_the_committed_avi_and_mp4(tmp_path):
         path = mk.write_case(name, str(tmp_path))
         with open(path, "rb") as f, open(FILES[name], "rb") as g:
             assert f.read() == g.read(), name
+
+
+# ---- H.264 ---------------------------------------------------------------
+
+def _x264():
+    """Skip unless libx264 (build 164) is there to write streams."""
+    import ctypes
+    try:
+        ctypes.CDLL("libx264.so.164")
+    except OSError:
+        pytest.skip("libx264.so.164 is not installed")
+
+
+def test_x264_fixtures_rewrite_the_committed_files(tmp_path):
+    """libx264 with one thread writes the same bytes again (AVI, MP4 and
+    the Matroska files, which carry no random UID)."""
+    _x264()
+    for name in ("h264_baseline_avi", "h264_high_mp4", "h264_main_mkv",
+                 "h264_pcm_avi", "clip_h264_mkv"):
+        path = mk.write_case(name, str(tmp_path))
+        with open(path, "rb") as f, open(FILES[name], "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def _patch_stream(tmp_path, name: str, kind: int, field: str, new: str,
+                  old_bits=1, which=lambda i: True) -> str:
+    """`name`'s packets (an AVI of Annex B packets) through
+    mk.patch_h264, as an AVI."""
+    pk = [p for p, _ in native.video_track(FILES[name]).packets]
+    out = mk.patch_h264(pk, kind, field, new, old_bits, which)
+    path = tmp_path / "x.avi"
+    path.write_bytes(mk.avi_file(out, mk.W, mk.H, 25, len(out), b"H264"))
+    return str(path)
+
+
+@pytest.mark.parametrize("feature,name,kind,field,new,old", [
+    ("pic_order_cnt_type 1", "h264_baseline_avi", 7, "poc_type",
+     mk.ue_bits(1), 3),
+    ("frame cropping on the left", "h264_baseline_avi", 7, "crop_left",
+     mk.ue_bits(2), 1),
+    ("interlaced coding", "h264_baseline_avi", 7, "frame_mbs_only", "0", 1),
+    ("bitstream_restriction", "h264_opengop_avi", 7,
+     "bitstream_restriction", "0", 1),
+    ("slice groups (FMO)", "h264_baseline_avi", 8, "num_slice_groups",
+     mk.ue_bits(1), 1),
+    ("redundant pictures", "h264_baseline_avi", 8,
+     "redundant_pic_cnt_present", "1", 1),
+    ("weighted_bipred_idc 1", "h264_opengop_avi", 8, "weighted_bipred_idc",
+     "01", 2),
+    ("SP and SI slices", "h264_baseline_avi", 1, "slice_type", mk.ue_bits(3), 5),
+    ("gaps in frame_num", "h264_baseline_avi", 1, "frame_num", None, None),
+    ("long-term references", "h264_baseline_avi", 5,
+     "long_term_reference_flag", "1", 1),
+    ("memory_management_control_operation 2", "h264_baseline_avi", 1,
+     "adaptive_ref_pic_marking", "1" + mk.ue_bits(2), 1),
+    ("memory_management_control_operation 3", "h264_baseline_avi", 1,
+     "adaptive_ref_pic_marking", "1" + mk.ue_bits(3), 1),
+    ("memory_management_control_operation 4", "h264_baseline_avi", 1,
+     "adaptive_ref_pic_marking", "1" + mk.ue_bits(4), 1),
+    ("memory_management_control_operation 5", "h264_baseline_avi", 1,
+     "adaptive_ref_pic_marking", "1" + mk.ue_bits(5), 1),
+    ("memory_management_control_operation 6", "h264_baseline_avi", 1,
+     "adaptive_ref_pic_marking", "1" + mk.ue_bits(6), 1),
+])
+def test_h264_header_features_raise_naming_them(tmp_path, feature, name,
+                                                kind, field, new, old):
+    """Parameter sets and slice headers of the committed streams with one
+    field changed: each feature the decoder does not read is named."""
+    if field == "frame_num":                    # the 5th P slice skips one
+        sps = mk.sps_fields(mk.rbsp_bits(mk.nal_units(
+            native.video_track(FILES[name]).packets[0][0])[0]))
+        n = sps.log2_max_frame_num
+        path = _patch_stream(tmp_path, name, kind, field,
+                             format(6, f"0{n}b"), n, which=lambda i: i == 4)
+    else:
+        path = _patch_stream(tmp_path, name, kind, field, new, old)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(path)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.load_video_frames(path, 4, 32)
+
+
+@pytest.mark.parametrize("feature,settings", [
+    ("interlaced coding", dict(interlaced=1)),
+    ("10-bit", dict(bitdepth=10, profile="high10")),
+    ("4:2:2", dict(csp=6, profile="high422")),
+    ("4:4:4", dict(csp=12, profile="high444")),
+    ("monochrome", dict(csp=1)),
+    ("lossless", dict(qp=0, profile="high444")),
+])
+def test_h264_x264_streams_out_of_scope_raise(tmp_path, feature, settings):
+    """libx264's own streams of the profiles and formats not read."""
+    _x264()
+    aus = mk.x264_encode(mk.moving_frames(1, 4), **settings)
+    path = tmp_path / "x.avi"
+    path.write_bytes(mk.h264_file(aus, mk.W, mk.H, "avi"))
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.decode_video(str(path))
+
+
+def test_h264_nal_features_raise_naming_them(tmp_path):
+    """A slice NAL unit relabelled as a data partition; the 4 slices of a
+    picture put in another order (Baseline's ASO)."""
+    pk = [p for p, _ in native.video_track(FILES["h264_baseline_avi"]).packets]
+    units = mk.nal_units(pk[1])
+    assert units[-1][0] & 31 == 1
+    units[-1] = bytes([(units[-1][0] & 0xE0) | 2]) + units[-1][1:]
+    path = tmp_path / "dp.avi"
+    path.write_bytes(mk.avi_file(
+        [pk[0], b"".join(b"\0\0\0\1" + u for u in units)], mk.W, mk.H, 25, 2,
+        b"H264"))
+    with pytest.raises(NotImplementedError, match="data partitioning"):
+        native.decode_video(str(path))
+    pk = [p for p, _ in native.video_track(FILES["h264_slices_avi"]).packets]
+    units = mk.nal_units(pk[1])
+    slices = [k for k, u in enumerate(units) if u[0] & 31 == 1]
+    assert len(slices) == 4
+    a, b = slices[1], slices[2]
+    units[a], units[b] = units[b], units[a]
+    path = tmp_path / "aso.avi"
+    path.write_bytes(mk.avi_file(
+        [pk[0], b"".join(b"\0\0\0\1" + u for u in units)], mk.W, mk.H, 25, 2,
+        b"H264"))
+    with pytest.raises(NotImplementedError, match=re.escape("(ASO)")):
+        native.decode_video(str(path))
+
+
+def test_h264_broken_streams_raise_value_error(tmp_path):
+    """A picture cut short, a picture without its parameter sets, and an
+    MP4 avc1 entry without its avcC box."""
+    pk = [p for p, _ in native.video_track(FILES["h264_baseline_avi"]).packets]
+    units = mk.nal_units(pk[0])
+    no_sets = b"".join(b"\0\0\0\1" + u for u in units
+                       if u[0] & 31 not in (7, 8))
+    for bad in (pk[0][:len(pk[0]) // 2], no_sets):
+        path = tmp_path / "x.avi"
+        path.write_bytes(mk.avi_file([bad], mk.W, mk.H, 25, 1, b"H264"))
+        with pytest.raises(ValueError):
+            native.decode_video(str(path))
+    data = open(FILES["h264_high_mp4"], "rb").read()
+    path = tmp_path / "x.mp4"
+    path.write_bytes(data.replace(b"avcC", b"xxxx", 1))
+    with pytest.raises(ValueError, match="avcC"):
+        native.decode_video(str(path))
+
+
+@pytest.mark.parametrize("media_time", [0, 1, 3])
+def test_h264_mp4_edit_lists_that_trim_raise(tmp_path, media_time):
+    """The committed MP4 carries ffmpeg's edit list (one edit from the
+    first presented sample's composition time, 2 frames: read as cv2
+    reads it); an edit from any other time raises."""
+    data = bytearray(open(FILES["h264_high_mp4"], "rb").read())
+    at = data.index(b"elst") + 16                  # the edit's media_time
+    assert struct.unpack_from(">i", data, at)[0] == 2
+    struct.pack_into(">i", data, at, media_time)
+    path = tmp_path / "x.mp4"
+    path.write_bytes(bytes(data))
+    with pytest.raises(NotImplementedError, match="edit list"):
+        native.decode_video(str(path))
+
+
+def test_h264_corrupted_streams_raise_or_decode(tmp_path):
+    """Seeded corruptions of the committed streams (flipped and replaced
+    bytes, cut NAL units, packets dropped, swapped and repeated): each
+    decodes or raises ValueError / NotImplementedError."""
+    import random
+
+    rng = random.Random(13)
+    names = ("h264_baseline_avi", "h264_high_mp4", "h264_main_mkv",
+             "h264_slices_avi", "h264_pcm_avi")
+    streams = {n: [p for p, _ in native.video_track(FILES[n]).packets]
+               for n in names}
+    decoded = raised = 0
+    for it in range(40):
+        name = names[it % len(names)]
+        pk = [bytearray(p) for p in streams[name]]
+        for _ in range(rng.randint(1, 3)):
+            i, j = rng.randrange(len(pk)), rng.randrange(len(pk))
+            op = rng.randrange(4)
+            if op == 0:
+                pk[i], pk[j] = pk[j], pk[i]
+            elif op == 1 and len(pk) > 1:
+                del pk[i]
+            elif op == 2:
+                pk.insert(i, bytearray(pk[j]))
+        for _ in range(rng.randint(1, 6)):
+            p = pk[rng.randrange(len(pk))]
+            at = rng.randrange(5, len(p)) if len(p) > 5 else 0
+            if rng.random() < 0.7:
+                p[at] ^= 1 << rng.randrange(8)
+            else:
+                del p[at:at + rng.randint(1, 40)]
+        path = tmp_path / f"x{it}.mkv"
+        track = native.video_track(FILES[name], packets=False)
+        path.write_bytes(mk.mkv_file([bytes(p) for p in pk], mk.W, mk.H, 25,
+                                     "V_MPEG4/ISO/AVC", track.config)
+                         if track.config else b"")
+        if not track.config:
+            path = tmp_path / f"x{it}.avi"
+            path.write_bytes(mk.avi_file([bytes(p) for p in pk], mk.W, mk.H,
+                                         25, len(pk), b"H264"))
+        try:
+            frames = native.decode_video(str(path))
+            assert frames.shape[1:] == (mk.H, mk.W, 3)
+            decoded += 1
+        except (ValueError, NotImplementedError):
+            raised += 1
+    assert decoded + raised == 40 and raised > 0

@@ -1,0 +1,3156 @@
+// The H.264 decoder of viai_tpu_torch's video reader (videodec.cpp):
+// progressive 8-bit 4:2:0 streams of the Baseline, Main and High
+// profiles, decoded as ITU-T H.264 (08/2021) specifies and output in
+// the order and number libavcodec's decoder gives them to cv2.
+//
+//   * parsing: NAL units (Annex B start codes, or the length prefixes of
+//     an avcC record), emulation prevention, SPS with VUI, cropping and
+//     scaling lists, PPS with transform_8x8_mode_flag and its lists
+//     (fall-back rules A and B), slice headers, pred_weight_table,
+//     dec_ref_pic_marking;
+//   * entropy decoding: CAVLC (9.2) and CABAC (9.3: the arithmetic
+//     engine bit by bit, context initialisation, every syntax element of
+//     4:2:0 frame coding, I_PCM with the engine's re-initialisation);
+//   * macroblocks: I_PCM, Intra_16x16, Intra_4x4, Intra_8x8 (reference
+//     sample filtering), P partitions down to 4x4, B partitions down to
+//     8x8, P_Skip, B_Skip and B_Direct (spatial and temporal, with and
+//     without direct_8x8_inference_flag), several reference frames,
+//     list modification, explicit weighted prediction in P slices and
+//     implicit weights in B slices; quarter-sample luma (6-tap) and
+//     eighth-sample chroma interpolation, references read clamped to the
+//     picture;
+//   * transforms: 4x4 and 8x8 inverse transforms, luma DC (Hadamard) and
+//     chroma DC, scaling with flat or custom matrices;
+//   * the deblocking filter (8.7) with the slice's offsets and
+//     disable_deblocking_filter_idc 0, 1 and 2, bS of 8x8-transform
+//     edges;
+//   * references: several slices a picture, POC types 0 and 2, the
+//     sliding window and memory_management_control_operation 1, IDR;
+//   * output: libavcodec's h264_select_output_frame (its reorder depth
+//     from the VUI's max_num_reorder_frames, its POC history and
+//     keyframe barriers) and, at the end of the stream, its draining;
+//     the picture cropped by the SPS's frame cropping, with the VUI's
+//     range and matrix (Picture::full_range, Picture::matrix).
+//
+// Everything else raises NotImplementedError (code 2) naming it:
+// interlaced coding (field pictures, MBAFF), profiles and formats other
+// than 8-bit 4:2:0 (High 10, 4:2:2, 4:4:4, monochrome, lossless
+// transform bypass), SP/SI slices, slice groups (FMO), arbitrary slice
+// order (ASO) and redundant pictures, data partitioning, gaps in frame_num,
+// long-term references, memory_management_control_operation 2-6, POC
+// type 1, explicit bi-predictive weights (weighted_bipred_idc 1),
+// frame cropping on the left or top, B sub-macroblock partitions below
+// 8x8 (x264 writes none), and B slices in a stream whose VUI gives no
+// bitstream_restriction (libavcodec then guesses its reorder depth). A
+// stream that breaks the syntax raises ValueError (code 1).
+
+#include <algorithm>
+#include <array>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <string>
+#include <vector>
+
+#include "h264_tables.h"
+#include "video.h"
+
+namespace viai_video {
+
+namespace {
+
+using namespace h264;
+
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline uint8_t clip1(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
+inline int median3(int a, int b, int c) {
+  return std::max(std::min(a, b), std::min(std::max(a, b), c));
+}
+
+// ------------------------------------------------------------ bits
+
+// An RBSP read MSB first; reads past its end give zeros (and are caught
+// by the callers' length checks).
+struct Bits {
+  const uint8_t* p = nullptr;
+  size_t n = 0;      // bytes
+  size_t pos = 0;    // bit position
+  bool padded = false;  // 8 zero bytes follow p[n - 1]
+
+  uint32_t peek32() const {
+    size_t b = pos >> 3;
+    uint64_t w = 0;
+    if (padded && b < n) {
+      std::memcpy(&w, p + b, 8);
+      return uint32_t(__builtin_bswap64(w) >> (32 - (pos & 7)));
+    }
+    for (int i = 0; i < 5; ++i) w = (w << 8) | (b + i < n ? p[b + i] : 0);
+    return uint32_t(w >> (8 - (pos & 7)));
+  }
+  uint32_t u(int k) {
+    if (k == 0) return 0;
+    uint32_t v = peek32() >> (32 - k);
+    pos += size_t(k);
+    return v;
+  }
+  int u1() {
+    size_t b = pos >> 3;
+    int v = b < n ? (p[b] >> (7 - (pos & 7))) & 1 : 0;
+    ++pos;
+    return v;
+  }
+  uint32_t ue() {
+    uint32_t w = peek32();
+    if (w == 0) broken("H.264 Exp-Golomb code too long");
+    int lz = __builtin_clz(w);
+    pos += size_t(lz);
+    return u(lz + 1) - 1;
+  }
+  int32_t se() {
+    uint32_t k = ue();
+    return (k & 1) ? int32_t((k + 1) >> 1) : -int32_t(k >> 1);
+  }
+  size_t bits_left() const { return n * 8 > pos ? n * 8 - pos : 0; }
+  bool over() const { return pos > n * 8; }
+  bool aligned() const { return (pos & 7) == 0; }
+};
+
+// The RBSP of a NAL unit's payload: emulation_prevention_three_byte
+// removed.
+std::vector<uint8_t> unescape(const uint8_t* d, size_t n) {
+  std::vector<uint8_t> out;
+  out.reserve(n);
+  int zeros = 0;
+  for (size_t i = 0; i < n; ++i) {
+    if (zeros >= 2 && d[i] == 3) {
+      zeros = 0;
+      continue;
+    }
+    out.push_back(d[i]);
+    zeros = d[i] == 0 ? zeros + 1 : 0;
+  }
+  return out;
+}
+
+// The bit position of the rbsp_stop_one_bit (the last 1 in the RBSP).
+size_t stop_bit(const std::vector<uint8_t>& r) {
+  size_t i = r.size();
+  while (i > 0 && r[i - 1] == 0) --i;
+  if (i == 0) return 0;
+  int b = __builtin_ctz(r[i - 1]);
+  return (i - 1) * 8 + size_t(7 - b);
+}
+
+// ------------------------------------------------------ parameter sets
+
+struct Sps {
+  bool valid = false;
+  bool scaling_present = false;
+  uint8_t scaling4[6][16];      // raster order, after fall-back rule A
+  uint8_t scaling8[2][64];
+  int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
+  int max_num_ref_frames = 0;
+  int mb_w = 0, mb_h = 0;
+  bool direct_8x8_inference = false;
+  int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;
+  bool full_range = false;
+  int matrix = 2;               // matrix_coefficients (2: unspecified)
+  bool bitstream_restriction = false;
+  int num_reorder_frames = 0;
+};
+
+struct Pps {
+  bool valid = false;
+  int sps_id = 0;
+  bool cabac = false, bottom_field_pic_order = false;
+  int num_ref_idx_default[2] = {1, 1};
+  bool weighted_pred = false;
+  int weighted_bipred_idc = 0;
+  int pic_init_qp = 26;
+  int chroma_qp_offset[2] = {0, 0};
+  bool deblocking_control = false, constrained_intra = false;
+  bool transform_8x8 = false;
+  bool scaling_present = false;
+  bool list_present[8] = {};
+  bool list_default[8] = {};    // useDefaultScalingMatrixFlag
+  uint8_t lists[8][64] = {};    // as parsed, zigzag order
+};
+
+// scaling_list(): into `out` (zigzag order); → useDefaultScalingMatrixFlag.
+bool read_scaling_list(Bits& b, uint8_t* out, int size) {
+  int last = 8, next = 8;
+  bool use_default = false;
+  for (int j = 0; j < size; ++j) {
+    if (next != 0) {
+      int delta = b.se();
+      if (delta < -128 || delta > 127) broken("H.264 scaling list delta out of range");
+      next = (last + delta + 256) % 256;
+      use_default = (j == 0 && next == 0);
+    }
+    out[j] = uint8_t(next == 0 ? last : next);
+    last = out[j];
+  }
+  return use_default;
+}
+
+void to_raster4(const uint8_t* zz, uint8_t* raster) {
+  for (int k = 0; k < 16; ++k) raster[kZigzag4[k]] = zz[k];
+}
+void to_raster8(const uint8_t* zz, uint8_t* raster) {
+  for (int k = 0; k < 64; ++k) raster[kZigzag8[k]] = zz[k];
+}
+
+void parse_vui(Bits& b, Sps& s) {
+  if (b.u1()) {                                   // aspect_ratio_info
+    if (b.u(8) == 255) b.u(32);
+  }
+  if (b.u1()) b.u1();                             // overscan
+  if (b.u1()) {                                   // video_signal_type
+    b.u(3);
+    s.full_range = b.u1();
+    if (b.u1()) {                                 // colour_description
+      b.u(8);
+      b.u(8);
+      s.matrix = int(b.u(8));
+    }
+  }
+  if (b.u1()) {                                   // chroma_loc_info
+    b.ue();
+    b.ue();
+  }
+  if (b.u1()) {                                   // timing_info
+    b.u(32);
+    b.u(32);
+    b.u1();
+  }
+  auto hrd = [&]() {
+    int cnt = int(b.ue()) + 1;
+    if (cnt > 32) broken("H.264 HRD with too many schedules");
+    b.u(4);
+    b.u(4);
+    for (int i = 0; i < cnt; ++i) {
+      b.ue();
+      b.ue();
+      b.u1();
+    }
+    b.u(5);
+    b.u(5);
+    b.u(5);
+    b.u(5);
+  };
+  bool nal_hrd = b.u1();
+  if (nal_hrd) hrd();
+  bool vcl_hrd = b.u1();
+  if (vcl_hrd) hrd();
+  if (nal_hrd || vcl_hrd) b.u1();                 // low_delay_hrd_flag
+  b.u1();                                         // pic_struct_present
+  s.bitstream_restriction = b.u1();
+  if (s.bitstream_restriction) {
+    b.u1();
+    b.ue();
+    b.ue();
+    b.ue();
+    b.ue();
+    s.num_reorder_frames = int(b.ue());
+    b.ue();                                       // max_dec_frame_buffering
+    if (s.num_reorder_frames > 16) broken("H.264 max_num_reorder_frames above 16");
+  }
+}
+
+void parse_sps(Bits& b, Sps* table) {
+  Sps s;
+  int p = int(b.u(8));                            // profile_idc
+  b.u(16);                                        // constraints, level
+  uint32_t id = b.ue();
+  if (id > 31) broken("H.264 seq_parameter_set_id above 31");
+  for (int i = 0; i < 6; ++i) std::memset(s.scaling4[i], 16, 16);
+  for (int i = 0; i < 2; ++i) std::memset(s.scaling8[i], 16, 64);
+  if (p == 100 || p == 110 || p == 122 || p == 244 || p == 44 || p == 83 ||
+      p == 86 || p == 118 || p == 128 || p == 138 || p == 139 || p == 134 ||
+      p == 135) {
+    uint32_t chroma_format_idc = b.ue();
+    if (chroma_format_idc == 3) b.u1();
+    uint32_t depth_luma = b.ue() + 8, depth_chroma = b.ue() + 8;
+    bool bypass = b.u1();
+    if (chroma_format_idc != 1)
+      unsupported(chroma_format_idc == 0 ? "H.264 monochrome (4:0:0)"
+                  : chroma_format_idc == 2 ? "H.264 4:2:2 (High 4:2:2 profile)"
+                                           : "H.264 4:4:4 (High 4:4:4 profile)");
+    if (depth_luma != 8 || depth_chroma != 8)
+      unsupported("H.264 at " + std::to_string(depth_luma) +
+                  "-bit (High 10 and above; only 8-bit is read)");
+    if (bypass) unsupported("H.264 lossless (qpprime_y_zero_transform_bypass)");
+    s.scaling_present = b.u1();
+    if (s.scaling_present) {
+      uint8_t zz[64];
+      for (int i = 0; i < 8; ++i) {
+        bool present = b.u1();
+        bool is4 = i < 6;
+        const uint8_t* fallback = nullptr;
+        uint8_t def[64];
+        if (is4) to_raster4(kDefaultScaling4[i < 3 ? 0 : 1], def);
+        else to_raster8(kDefaultScaling8[i - 6], def);
+        if (present) {
+          bool use_def = read_scaling_list(b, zz, is4 ? 16 : 64);
+          if (use_def) {
+            fallback = def;
+          } else {
+            if (is4) to_raster4(zz, s.scaling4[i]);
+            else to_raster8(zz, s.scaling8[i - 6]);
+            continue;
+          }
+        } else {
+          // Fall-back rule A.
+          if (i == 0 || i == 3 || i >= 6) fallback = def;
+          else fallback = s.scaling4[i - 1];
+        }
+        if (is4) std::memcpy(s.scaling4[i], fallback, 16);
+        else std::memcpy(s.scaling8[i - 6], fallback, 64);
+      }
+    }
+  }
+  s.log2_max_frame_num = int(b.ue()) + 4;
+  if (s.log2_max_frame_num > 16) broken("H.264 log2_max_frame_num above 16");
+  s.poc_type = int(b.ue());
+  if (s.poc_type == 0) {
+    s.log2_max_poc_lsb = int(b.ue()) + 4;
+    if (s.log2_max_poc_lsb > 16) broken("H.264 log2_max_pic_order_cnt_lsb above 16");
+  } else if (s.poc_type == 1) {
+    unsupported("H.264 pic_order_cnt_type 1");
+  } else if (s.poc_type != 2) {
+    broken("H.264 pic_order_cnt_type above 2");
+  }
+  s.max_num_ref_frames = int(b.ue());
+  if (s.max_num_ref_frames > 16) broken("H.264 max_num_ref_frames above 16");
+  b.u1();                                         // gaps allowed: gaps raise
+  s.mb_w = int(b.ue()) + 1;
+  s.mb_h = int(b.ue()) + 1;
+  if (s.mb_w > 1024 || s.mb_h > 1024) broken("H.264 picture too large");
+  if (!b.u1()) unsupported("H.264 interlaced coding (frame_mbs_only_flag 0: "
+                           "field pictures or MBAFF)");
+  s.direct_8x8_inference = b.u1();
+  if (b.u1()) {                                   // frame_cropping
+    s.crop_l = int(b.ue());
+    s.crop_r = int(b.ue());
+    s.crop_t = int(b.ue());
+    s.crop_b = int(b.ue());
+    if (s.crop_l || s.crop_t)
+      unsupported("H.264 frame cropping on the left or top");
+    if (2 * (s.crop_l + s.crop_r) >= 16 * s.mb_w ||
+        2 * (s.crop_t + s.crop_b) >= 16 * s.mb_h)
+      broken("H.264 frame cropping larger than the picture");
+  }
+  if (b.u1()) parse_vui(b, s);
+  if (b.over()) broken("H.264 SPS cut short");
+  s.valid = true;
+  table[id] = s;
+}
+
+void parse_pps(Bits& b, const Sps* spss, Pps* table, size_t stop) {
+  Pps q;
+  uint32_t id = b.ue();
+  if (id > 255) broken("H.264 pic_parameter_set_id above 255");
+  q.sps_id = int(b.ue());
+  if (q.sps_id > 31 || !spss[q.sps_id].valid) broken("H.264 PPS refers to a missing SPS");
+  q.cabac = b.u1();
+  q.bottom_field_pic_order = b.u1();
+  if (b.ue() > 0) unsupported("H.264 slice groups (FMO)");
+  q.num_ref_idx_default[0] = int(b.ue()) + 1;
+  q.num_ref_idx_default[1] = int(b.ue()) + 1;
+  if (q.num_ref_idx_default[0] > 32 || q.num_ref_idx_default[1] > 32)
+    broken("H.264 num_ref_idx_default above 32");
+  q.weighted_pred = b.u1();
+  q.weighted_bipred_idc = int(b.u(2));
+  q.pic_init_qp = 26 + b.se();
+  b.se();                                         // pic_init_qs
+  q.chroma_qp_offset[0] = q.chroma_qp_offset[1] = b.se();
+  q.deblocking_control = b.u1();
+  q.constrained_intra = b.u1();
+  if (b.u1()) unsupported("H.264 redundant pictures (redundant_pic_cnt_present_flag)");
+  if (b.pos < stop) {
+    q.transform_8x8 = b.u1();
+    q.scaling_present = b.u1();
+    if (q.scaling_present) {
+      int lists = 6 + (q.transform_8x8 ? 2 : 0);
+      for (int i = 0; i < lists; ++i) {
+        q.list_present[i] = b.u1();
+        if (q.list_present[i])
+          q.list_default[i] = read_scaling_list(b, q.lists[i], i < 6 ? 16 : 64);
+      }
+    }
+    q.chroma_qp_offset[1] = b.se();
+  }
+  if (q.pic_init_qp < 0 || q.pic_init_qp > 51) broken("H.264 pic_init_qp out of range");
+  if (b.over()) broken("H.264 PPS cut short");
+  q.valid = true;
+  table[id] = q;
+}
+
+// ------------------------------------------------------------ pictures
+
+enum MbKind : uint8_t { kI4x4, kI8x8, kI16x16, kPcm, kInter };
+
+struct MbInfo {
+  int slice = -1;               // slice number in the picture; -1 not decoded
+  uint8_t kind = kInter;
+  bool skip = false;            // P_Skip, B_Skip
+  bool direct16 = false;        // B_Skip, B_Direct_16x16
+  bool t8x8 = false;
+  uint8_t cbp = 0;              // luma bits 0-3, chroma << 4
+  int8_t qp = 0;                // QPY (0 for I_PCM, as the deblocking filter reads it)
+  int8_t qpc[2] = {0, 0};       // QPc of Cb, Cr (deblocking)
+  uint8_t chroma_mode = 0;
+  uint8_t dc_cbf = 0;           // coded_block_flag of luma DC (1), Cb DC (2), Cr DC (4)
+  uint8_t direct8 = 0;          // bit per 8x8: direct predicted
+  int8_t ipred[16];             // Intra4x4/8x8 modes, raster 4x4 blocks
+  uint8_t nz[24];               // TotalCoeff: luma raster 0..15, Cb 16..19, Cr 20..23
+  int16_t mv[2][16][2];
+  uint8_t mvd[2][16][2];        // |mvd| (CABAC contexts)
+  int8_t ref[2][4];             // refIdx per 8x8, -1 not used
+  int32_t refid[2][4];          // the referenced frame's id, -1
+  bool intra() const { return kind != kInter; }
+};
+
+struct Frame {
+  int id = 0;
+  int w = 0, h = 0;             // coded size (luma)
+  std::vector<uint8_t> y, u, v;
+  int poc = 0, frame_num = 0;
+  bool key = false;             // an IDR picture
+  bool mmco_reset = false;
+  bool b_type = false;          // its first slice is a B slice
+  std::vector<MbInfo> mbs;      // motion of the picture (temporal direct)
+  // cropping and colour, from the SPS it was decoded with
+  int out_w = 0, out_h = 0;
+  bool full_range = false;
+  int matrix = 2;
+};
+using FramePtr = std::shared_ptr<Frame>;
+
+// --------------------------------------------------------------- CABAC
+
+struct Cabac {
+  Bits* b = nullptr;
+  uint32_t range = 0, offset = 0;
+  uint8_t state[460];           // pStateIdx << 1 | valMPS
+
+  void init_contexts(int slice_qp, int idc, bool islice) {
+    int qp = clip3(0, 51, slice_qp);
+    for (int i = 0; i < 460; ++i) {
+      int m = islice ? kCabacInitI[i][0] : kCabacInitPB[idc][i][0];
+      int n = islice ? kCabacInitI[i][1] : kCabacInitPB[idc][i][1];
+      int pre = clip3(1, 126, ((m * qp) >> 4) + n);
+      state[i] = pre <= 63 ? uint8_t((63 - pre) << 1) : uint8_t(((pre - 64) << 1) | 1);
+    }
+  }
+  void init_engine() {
+    range = 510;
+    offset = b->u(9);
+    if (offset == 510 || offset == 511) broken("H.264 CABAC offset out of range");
+  }
+  int decision(int ctx) {
+    uint8_t& s = state[ctx];
+    int p = s >> 1, mps = s & 1;
+    uint32_t lps = kRangeLps[p][(range >> 6) & 3];
+    range -= lps;
+    int bin;
+    if (offset >= range) {
+      bin = !mps;
+      offset -= range;
+      range = lps;
+      if (p == 0) mps = 1 - mps;
+      s = uint8_t((kTransLps[p] << 1) | mps);
+    } else {
+      bin = mps;
+      s = uint8_t((kTransMps[p] << 1) | mps);
+    }
+    renorm();
+    return bin;
+  }
+  int bypass() {
+    offset = (offset << 1) | uint32_t(b->u1());
+    if (offset >= range) {
+      offset -= range;
+      return 1;
+    }
+    return 0;
+  }
+  int terminate() {
+    range -= 2;
+    if (offset >= range) return 1;
+    renorm();
+    return 0;
+  }
+  // RenormD: the shifts that bring the range to 256 or more, with as
+  // many bits read into the offset.
+  void renorm() {
+    int n = __builtin_clz(range) - 23;
+    if (n > 0) {
+      range <<= n;
+      offset = (offset << n) | b->u(n);
+    }
+  }
+};
+
+// --------------------------------------------------------- slice header
+
+struct SliceHeader {
+  int nal_type = 0, nal_ref_idc = 0;
+  int first_mb = 0, type = 0;   // 0 P, 1 B, 2 I
+  int pps_id = 0, frame_num = 0;
+  int poc_lsb = 0, delta_poc_bottom = 0;
+  bool direct_spatial = false;
+  int num_ref_idx[2] = {0, 0};
+  struct Mod {
+    int idc, val;
+  };
+  std::vector<Mod> mods[2];
+  int luma_log2 = 0, chroma_log2 = 0;
+  int lw[2][32] = {}, lo[2][32] = {}, cw[2][32][2] = {}, co[2][32][2] = {};
+  bool lw_flag[2][32] = {}, cw_flag[2][32] = {};
+  bool adaptive_marking = false;
+  std::vector<std::pair<int, int>> mmco;   // (op, difference_of_pic_nums_minus1)
+  int cabac_init_idc = 0;
+  int qp = 26;
+  int deblock_idc = 0, alpha_off = 0, beta_off = 0;
+};
+
+constexpr int kMaxDelayed = 16;   // libavcodec's MAX_DELAYED_PIC_COUNT
+constexpr int kPocMin = -0x7FFFFFFF - 1;
+
+// Luma 4x4 block index (z-order, luma4x4BlkIdx) → raster index.
+constexpr int kBlkRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7,
+                                8, 9, 12, 13, 10, 11, 14, 15};
+
+}  // namespace
+
+// =====================================================================
+// The decoder
+// =====================================================================
+
+struct H264Decoder::State {
+  Sps sps_table[32];
+  Pps pps_table[256];
+  int nal_len = 0;              // 0: Annex B; 1..4: avcC length prefixes
+
+  // the active parameter sets and the picture being decoded
+  Sps sps;
+  Pps pps;
+  FramePtr cur;
+  int slice_num = 0;
+  int last_first_mb = 0;
+  int next_id = 1;
+  bool cur_idr = false;
+  SliceHeader first_sh;         // the picture's first slice header
+  int pic_w = 0, pic_h = 0, mb_w = 0, mb_h = 0;
+
+  // references and POC state
+  std::vector<FramePtr> refs;   // short-term references
+  int prev_poc_msb = 0, prev_poc_lsb = 0;
+  int prev_frame_num_offset = 0, prev_frame_num = 0, prev_ref_frame_num = 0;
+  int frame_num_offset = 0;
+  bool seen_idr = false;
+
+  // libavcodec's output state
+  int has_b_frames = 0;
+  int last_pocs[kMaxDelayed];
+  int next_outputed_poc = kPocMin;
+  std::vector<FramePtr> delayed;
+  FramePtr next_output;
+
+  // the slice being decoded
+  SliceHeader sh;
+  Bits bits;
+  Cabac cabac;
+  std::vector<FramePtr> list[2];
+  int ls4[6][6][16];            // LevelScale4x4[list][qP % 6][raster]
+  int ls8[2][6][64];
+  int implicit_w[32][32][2];
+  bool use_implicit = false;
+  int qp = 0;                   // QPY of the last macroblock decoded
+  int prev_qp_delta_nz = 0;
+  int mb_x = 0, mb_y = 0, mb_addr = 0;
+  MbInfo* mb = nullptr;
+  std::vector<MbInfo>* mbs = nullptr;
+
+  // the macroblock's residual (raster positions)
+  int32_t coef[16][16];         // luma 4x4 blocks (raster block index)
+  int32_t coef8[4][64];         // luma 8x8 blocks
+  int32_t dc[16];               // Intra16x16 DC (scan order)
+  int32_t cdc[2][4];
+  int32_t cac[2][4][16];
+  bool done4[16];               // motion assigned (current MB, raster 4x4)
+
+  State() {
+    for (int i = 0; i < kMaxDelayed; ++i) last_pocs[i] = kPocMin;
+  }
+
+  // -------------------------------------------------------- NAL units
+
+  template <class F>
+  void for_each_nal(const uint8_t* d, size_t n, F&& f) {
+    if (nal_len) {
+      size_t p = 0;
+      while (p + size_t(nal_len) <= n) {
+        size_t len = 0;
+        for (int i = 0; i < nal_len; ++i) len = (len << 8) | d[p + i];
+        p += size_t(nal_len);
+        if (len > n - p) broken("H.264 NAL unit runs past its packet");
+        if (len) f(d + p, len);
+        p += len;
+      }
+      return;
+    }
+    size_t p = 0, start = SIZE_MAX;
+    while (p + 3 <= n) {
+      if (d[p] == 0 && d[p + 1] == 0 && d[p + 2] == 1) {
+        if (start != SIZE_MAX) {
+          size_t e = p;
+          while (e > start && d[e - 1] == 0) --e;
+          if (e > start) f(d + start, e - start);
+        }
+        p += 3;
+        start = p;
+        continue;
+      }
+      ++p;
+    }
+    if (start == SIZE_MAX) {
+      if (n) broken("H.264 packet without a start code");
+      return;
+    }
+    size_t e = n;
+    while (e > start && d[e - 1] == 0) --e;
+    if (e > start) f(d + start, e - start);
+  }
+
+  void read_avcc(const std::vector<uint8_t>& c) {
+    if (c.size() < 7 || c[0] != 1) broken("H.264 avcC record is bad");
+    nal_len = (c[4] & 3) + 1;
+    if (nal_len == 3) broken("H.264 avcC with 3-byte NAL lengths");
+    size_t p = 5;
+    for (int pass = 0; pass < 2; ++pass) {
+      if (p >= c.size()) broken("H.264 avcC record cut short");
+      int cnt = pass == 0 ? (c[p] & 31) : c[p];
+      ++p;
+      for (int i = 0; i < cnt; ++i) {
+        if (p + 2 > c.size()) broken("H.264 avcC record cut short");
+        size_t len = (size_t(c[p]) << 8) | c[p + 1];
+        p += 2;
+        if (p + len > c.size()) broken("H.264 avcC record cut short");
+        parameter_set(&c[p], len);
+        p += len;
+      }
+    }
+  }
+
+  // An SPS or PPS NAL unit; other kinds are ignored.
+  void parameter_set(const uint8_t* d, size_t n) {
+    if (n < 1) return;
+    int type = d[0] & 31;
+    if (type != 7 && type != 8) return;
+    std::vector<uint8_t> r = unescape(d + 1, n - 1);
+    Bits b{r.data(), r.size(), 0};
+    if (type == 7) parse_sps(b, sps_table);
+    else parse_pps(b, sps_table, pps_table, stop_bit(r));
+  }
+
+  // --------------------------------------------------------- decoding
+
+  bool decode(const uint8_t* d, size_t n, Picture& out) {
+    for_each_nal(d, n, [&](const uint8_t* u, size_t len) { nal(u, len); });
+    if (cur) finish_picture();
+    if (!next_output) return false;
+    to_picture(*next_output, out);
+    next_output.reset();
+    return true;
+  }
+
+  void nal(const uint8_t* d, size_t n) {
+    if (d[0] & 0x80) broken("H.264 forbidden_zero_bit set");
+    int type = d[0] & 31;
+    switch (type) {
+      case 1:
+      case 5:
+        slice(d, n);
+        break;
+      case 2:
+      case 3:
+      case 4:
+        unsupported("H.264 data partitioning (Extended profile)");
+      case 7:
+      case 8:
+        if (cur) finish_picture();
+        parameter_set(d, n);
+        break;
+      default:                  // SEI, AUD, end of sequence, filler, ...
+        break;
+    }
+  }
+
+  void slice(const uint8_t* d, size_t n) {
+    std::vector<uint8_t> r = unescape(d + 1, n - 1);
+    size_t size = r.size();
+    r.resize(size + 8, 0);      // the reader's padding
+    bits = Bits{r.data(), size, 0, true};
+    SliceHeader h;
+    h.nal_type = d[0] & 31;
+    h.nal_ref_idc = (d[0] >> 5) & 3;
+    h.first_mb = int(bits.ue());
+    uint32_t st = bits.ue();
+    if (st > 9) broken("H.264 slice_type above 9");
+    st %= 5;
+    if (st == 3 || st == 4) unsupported("H.264 SP and SI slices (Extended profile)");
+    h.type = int(st);
+    h.pps_id = int(bits.ue());
+    if (h.pps_id > 255 || !pps_table[h.pps_id].valid) broken("H.264 slice refers to a missing PPS");
+    const Pps& p = pps_table[h.pps_id];
+    const Sps& s = sps_table[p.sps_id];
+    if (h.first_mb == 0 && cur) finish_picture();
+    if (!cur) {
+      sps = s;
+      pps = p;
+    } else if (h.pps_id != first_sh.pps_id) {
+      pps = p;
+      if (pps.sps_id != pps_table[first_sh.pps_id].sps_id)
+        broken("H.264 slices of one picture with different SPS");
+    }
+    h.frame_num = int(bits.u(s.log2_max_frame_num));
+    if (h.nal_type == 5) bits.ue();                 // idr_pic_id
+    if (s.poc_type == 0) {
+      h.poc_lsb = int(bits.u(s.log2_max_poc_lsb));
+      if (p.bottom_field_pic_order) h.delta_poc_bottom = bits.se();
+    }
+    if (h.type == 1) h.direct_spatial = bits.u1();
+    if (h.type != 2) {
+      h.num_ref_idx[0] = p.num_ref_idx_default[0];
+      h.num_ref_idx[1] = h.type == 1 ? p.num_ref_idx_default[1] : 0;
+      if (bits.u1()) {
+        h.num_ref_idx[0] = int(bits.ue()) + 1;
+        if (h.type == 1) h.num_ref_idx[1] = int(bits.ue()) + 1;
+      }
+      if (h.num_ref_idx[0] > 32 || h.num_ref_idx[1] > 32)
+        broken("H.264 num_ref_idx_active above 32");
+      for (int l = 0; l < (h.type == 1 ? 2 : 1); ++l) {
+        if (!bits.u1()) continue;
+        for (;;) {
+          int idc = int(bits.ue());
+          if (idc == 3) break;
+          if (idc == 2) unsupported("H.264 long-term references (list modification)");
+          if (idc > 5) broken("H.264 modification_of_pic_nums_idc above 5");
+          if (idc > 2) unsupported("H.264 MVC list modification");
+          h.mods[l].push_back({idc, int(bits.ue())});
+          if (h.mods[l].size() > 33) broken("H.264 too many list modifications");
+        }
+      }
+    }
+    if ((p.weighted_pred && h.type == 0) || (p.weighted_bipred_idc == 1 && h.type == 1)) {
+      if (h.type == 1)
+        unsupported("H.264 explicit bi-predictive weights (weighted_bipred_idc 1)");
+      h.luma_log2 = int(bits.ue());
+      h.chroma_log2 = int(bits.ue());
+      if (h.luma_log2 > 7 || h.chroma_log2 > 7) broken("H.264 weight denominator above 7");
+      for (int l = 0; l < (h.type == 1 ? 2 : 1); ++l)
+        for (int i = 0; i < h.num_ref_idx[l]; ++i) {
+          h.lw_flag[l][i] = bits.u1();
+          h.lw[l][i] = 1 << h.luma_log2;
+          h.lo[l][i] = 0;
+          if (h.lw_flag[l][i]) {
+            h.lw[l][i] = bits.se();
+            h.lo[l][i] = bits.se();
+          }
+          h.cw_flag[l][i] = bits.u1();
+          for (int c = 0; c < 2; ++c) {
+            h.cw[l][i][c] = 1 << h.chroma_log2;
+            h.co[l][i][c] = 0;
+            if (h.cw_flag[l][i]) {
+              h.cw[l][i][c] = bits.se();
+              h.co[l][i][c] = bits.se();
+            }
+          }
+        }
+    }
+    if (h.nal_ref_idc) {
+      if (h.nal_type == 5) {
+        bits.u1();                                // no_output_of_prior_pics
+        if (bits.u1()) unsupported("H.264 long-term references (long_term_reference_flag)");
+      } else {
+        h.adaptive_marking = bits.u1();
+        if (h.adaptive_marking) {
+          for (;;) {
+            int op = int(bits.ue());
+            if (op == 0) break;
+            if (op > 6) broken("H.264 memory_management_control_operation above 6");
+            if (op != 1)
+              unsupported("H.264 memory_management_control_operation " +
+                          std::to_string(op) + (op == 5 ? " (reset)" : " (long-term references)"));
+            h.mmco.push_back({op, int(bits.ue())});
+            if (h.mmco.size() > 66) broken("H.264 too many MMCOs");
+          }
+        }
+      }
+    }
+    if (p.cabac && h.type != 2) {
+      h.cabac_init_idc = int(bits.ue());
+      if (h.cabac_init_idc > 2) broken("H.264 cabac_init_idc above 2");
+    }
+    h.qp = p.pic_init_qp + bits.se();
+    if (h.qp < 0 || h.qp > 51) broken("H.264 slice QP out of range");
+    if (p.deblocking_control) {
+      h.deblock_idc = int(bits.ue());
+      if (h.deblock_idc > 2) broken("H.264 disable_deblocking_filter_idc above 2");
+      if (h.deblock_idc != 1) {
+        h.alpha_off = bits.se() * 2;
+        h.beta_off = bits.se() * 2;
+        if (h.alpha_off < -12 || h.alpha_off > 12 || h.beta_off < -12 || h.beta_off > 12)
+          broken("H.264 deblocking offsets out of range");
+      }
+    }
+    if (bits.over()) broken("H.264 slice header cut short");
+    if (h.type == 1 && !s.bitstream_restriction)
+      unsupported("H.264 B slices without the VUI's bitstream_restriction "
+                  "(libavcodec guesses its reorder depth)");
+    sh = h;
+    // Slices in raster order, the first at macroblock 0; Baseline's
+    // arbitrary slice order is not read.
+    if (cur ? h.first_mb <= last_first_mb : h.first_mb != 0)
+      unsupported("H.264 arbitrary slice order (ASO)");
+    last_first_mb = h.first_mb;
+    if (!cur) start_picture();
+    else if (h.frame_num != first_sh.frame_num || h.nal_type != first_sh.nal_type)
+      broken("H.264 slices of one picture disagree");
+    pps = p;
+    if (h.first_mb >= mb_w * mb_h) broken("H.264 first_mb_in_slice past the picture");
+    slice_params.push_back({h.deblock_idc, h.alpha_off, h.beta_off});
+    decode_slice(r);
+    ++slice_num;
+  }
+
+  // ---------------------------------------------------------- pictures
+
+  void start_picture() {
+    const SliceHeader& h = sh;
+    if (h.nal_type != 5 && !seen_idr) {
+      // libavcodec outputs nothing before a recovery point; streams here
+      // start with an IDR picture.
+      unsupported("H.264 stream that does not begin with an IDR picture");
+    }
+    mb_w = sps.mb_w;
+    mb_h = sps.mb_h;
+    pic_w = mb_w * 16;
+    pic_h = mb_h * 16;
+    int max_frame_num = 1 << sps.log2_max_frame_num;
+    if (h.nal_type == 5) {
+      seen_idr = true;
+      refs.clear();
+      prev_ref_frame_num = 0;
+      if (h.frame_num != 0) broken("H.264 IDR picture with frame_num other than 0");
+    } else if (h.frame_num != prev_ref_frame_num &&
+               h.frame_num != (prev_ref_frame_num + 1) % max_frame_num) {
+      unsupported("H.264 gaps in frame_num");
+    }
+    cur = std::make_shared<Frame>();
+    Frame& f = *cur;
+    f.id = next_id++;
+    f.w = pic_w;
+    f.h = pic_h;
+    f.y.assign(size_t(pic_w) * pic_h, 0);
+    f.u.assign(size_t(pic_w / 2) * (pic_h / 2), 0);
+    f.v.assign(size_t(pic_w / 2) * (pic_h / 2), 0);
+    f.mbs.assign(size_t(mb_w) * mb_h, MbInfo());
+    f.frame_num = h.frame_num;
+    f.key = h.nal_type == 5;
+    f.b_type = h.type == 1;
+    f.out_w = pic_w - 2 * (sps.crop_l + sps.crop_r);
+    f.out_h = pic_h - 2 * (sps.crop_t + sps.crop_b);
+    f.full_range = sps.full_range;
+    f.matrix = sps.matrix;
+    // Picture order count (8.2.1).
+    if (sps.poc_type == 0) {
+      if (h.nal_type == 5) {
+        prev_poc_msb = 0;
+        prev_poc_lsb = 0;
+      }
+      int max_lsb = 1 << sps.log2_max_poc_lsb;
+      int msb;
+      if (h.poc_lsb < prev_poc_lsb && prev_poc_lsb - h.poc_lsb >= max_lsb / 2)
+        msb = prev_poc_msb + max_lsb;
+      else if (h.poc_lsb > prev_poc_lsb && h.poc_lsb - prev_poc_lsb > max_lsb / 2)
+        msb = prev_poc_msb - max_lsb;
+      else
+        msb = prev_poc_msb;
+      int top = msb + h.poc_lsb;
+      int bottom = top + h.delta_poc_bottom;
+      f.poc = std::min(top, bottom);
+      if (h.nal_ref_idc) {
+        prev_poc_msb = msb;
+        prev_poc_lsb = h.poc_lsb;
+      }
+    } else {
+      if (h.nal_type == 5) frame_num_offset = 0;
+      else if (prev_frame_num > h.frame_num) frame_num_offset = prev_frame_num_offset + max_frame_num;
+      else frame_num_offset = prev_frame_num_offset;
+      if (h.nal_type == 5) f.poc = 0;
+      else if (h.nal_ref_idc == 0) f.poc = 2 * (frame_num_offset + h.frame_num) - 1;
+      else f.poc = 2 * (frame_num_offset + h.frame_num);
+      prev_frame_num_offset = frame_num_offset;
+    }
+    prev_frame_num = h.frame_num;
+    first_sh = h;
+    cur_idr = h.nal_type == 5;
+    slice_num = 0;
+    mbs = &f.mbs;
+    select_output();
+  }
+
+  // libavcodec's h264_select_output_frame, run as a picture starts.
+  void select_output() {
+    Frame& c = *cur;
+    if (sps.bitstream_restriction) has_b_frames = std::max(has_b_frames, sps.num_reorder_frames);
+    int i;
+    for (i = 0;; ++i) {
+      if (i == kMaxDelayed || c.poc < last_pocs[i]) {
+        if (i) last_pocs[i - 1] = c.poc;
+        break;
+      } else if (i) {
+        last_pocs[i - 1] = last_pocs[i];
+      }
+    }
+    int out_of_order = kMaxDelayed - i;
+    if (c.b_type || (last_pocs[kMaxDelayed - 2] > kPocMin &&
+                     int64_t(last_pocs[kMaxDelayed - 1]) - last_pocs[kMaxDelayed - 2] > 2))
+      out_of_order = std::max(out_of_order, 1);
+    if (out_of_order == kMaxDelayed) {
+      for (int k = 1; k < kMaxDelayed; ++k) last_pocs[k] = kPocMin;
+      last_pocs[0] = c.poc;
+      c.mmco_reset = true;
+    } else if (has_b_frames < out_of_order && !sps.bitstream_restriction) {
+      has_b_frames = out_of_order;
+    }
+    delayed.push_back(cur);
+    if (int(delayed.size()) > kMaxDelayed + 1) broken("H.264 reorder buffer overflow");
+    size_t pics = delayed.size();
+    size_t out_idx = 0;
+    FramePtr out = delayed[0];
+    for (size_t k = 1; k < delayed.size() && !(delayed[k]->key || delayed[k]->mmco_reset); ++k)
+      if (delayed[k]->poc < out->poc) {
+        out = delayed[k];
+        out_idx = k;
+      }
+    if (has_b_frames == 0 && (delayed[0]->key || delayed[0]->mmco_reset))
+      next_outputed_poc = kPocMin;
+    bool ooo = out->poc < next_outputed_poc;
+    if (ooo || int(pics) > has_b_frames) delayed.erase(delayed.begin() + long(out_idx));
+    if (!ooo && int(pics) > has_b_frames) {
+      next_output = out;
+      if (out_idx == 0 && !delayed.empty() && (delayed[0]->key || delayed[0]->mmco_reset))
+        next_outputed_poc = kPocMin;
+      else
+        next_outputed_poc = out->poc;
+    }
+  }
+
+  // libavcodec's draining at the end of the stream.
+  bool flush(Picture& out) {
+    if (cur) finish_picture();
+    if (delayed.empty()) return false;
+    size_t out_idx = 0;
+    for (size_t k = 1; k < delayed.size() && !(delayed[k]->key || delayed[k]->mmco_reset); ++k)
+      if (delayed[k]->poc < delayed[out_idx]->poc) out_idx = k;
+    FramePtr f = delayed[out_idx];
+    delayed.erase(delayed.begin() + long(out_idx));
+    to_picture(*f, out);
+    return true;
+  }
+
+  void finish_picture() {
+    Frame& f = *cur;
+    for (const MbInfo& m : f.mbs)
+      if (m.slice < 0) broken("H.264 picture with macroblocks missing");
+    deblock_picture();
+    if (first_sh.nal_ref_idc) {
+      // Reference marking (8.2.5).
+      if (!cur_idr) {
+        int max_frame_num = 1 << sps.log2_max_frame_num;
+        if (first_sh.adaptive_marking) {
+          for (auto& op : first_sh.mmco) {
+            int pic_num = f.frame_num - (op.second + 1);
+            for (size_t k = 0; k < refs.size(); ++k) {
+              int fn = refs[k]->frame_num;
+              int wrap = fn > f.frame_num ? fn - max_frame_num : fn;
+              if (wrap == pic_num) {
+                refs.erase(refs.begin() + long(k));
+                break;
+              }
+            }
+          }
+        } else {
+          while (!refs.empty() &&
+                 int(refs.size()) >= std::max(sps.max_num_ref_frames, 1)) {
+            size_t oldest = 0;
+            int best = 0x7FFFFFFF;
+            for (size_t k = 0; k < refs.size(); ++k) {
+              int fn = refs[k]->frame_num;
+              int wrap = fn > f.frame_num ? fn - max_frame_num : fn;
+              if (wrap < best) {
+                best = wrap;
+                oldest = k;
+              }
+            }
+            refs.erase(refs.begin() + long(oldest));
+          }
+        }
+      }
+      refs.push_back(cur);
+      if (int(refs.size()) > std::max(sps.max_num_ref_frames, 1))
+        broken("H.264 more reference frames than max_num_ref_frames");
+      prev_ref_frame_num = f.frame_num;
+    }
+    cur.reset();
+  }
+
+  void to_picture(const Frame& f, Picture& out) {
+    out.w = f.out_w;
+    out.h = f.out_h;
+    out.ystride = f.w;
+    out.cstride = f.w / 2;
+    out.y = f.y;
+    out.u = f.u;
+    out.v = f.v;
+    out.full_range = f.full_range;
+    out.matrix = f.matrix;
+  }
+
+  // --------------------------------------------------------- the slice
+
+  void decode_slice(const std::vector<uint8_t>& r) {
+    // Reference lists (8.2.4) and weights.
+    list[0].clear();
+    list[1].clear();
+    if (sh.type != 2) build_lists();
+    init_scaling();
+    use_implicit = sh.type == 1 && pps.weighted_bipred_idc == 2;
+    if (use_implicit) init_implicit();
+    qp = sh.qp;
+    prev_qp_delta_nz = 0;
+    size_t stop = stop_bit(r);
+    mb_addr = sh.first_mb;
+    if (pps.cabac) {
+      while (!bits.aligned()) {
+        if (!bits.u1()) broken("H.264 cabac_alignment_one_bit is 0");
+      }
+      cabac.b = &bits;
+      cabac.init_contexts(sh.qp, sh.cabac_init_idc, sh.type == 2);
+      cabac.init_engine();
+      for (;;) {
+        if (mb_addr >= mb_w * mb_h) broken("H.264 slice runs past the picture");
+        begin_mb();
+        bool skip = false;
+        if (sh.type != 2) skip = cabac_skip_flag();
+        if (skip) decode_skip();
+        else macroblock_layer();
+        if (bits.pos > bits.n * 8 + 16) broken("H.264 slice data runs past its end");
+        if (cabac.terminate()) break;
+        ++mb_addr;
+      }
+    } else {
+      for (;;) {
+        bool more = true;
+        if (sh.type != 2) {
+          uint32_t run = bits.ue();
+          if (run > uint32_t(mb_w * mb_h)) broken("H.264 mb_skip_run too long");
+          for (uint32_t k = 0; k < run; ++k) {
+            if (mb_addr >= mb_w * mb_h) broken("H.264 mb_skip_run past the picture");
+            begin_mb();
+            decode_skip();
+            ++mb_addr;
+          }
+          if (run > 0) more = bits.pos < stop;
+        }
+        if (more) {
+          if (mb_addr >= mb_w * mb_h) broken("H.264 slice runs past the picture");
+          begin_mb();
+          macroblock_layer();
+          ++mb_addr;
+        }
+        if (bits.over() || bits.pos > stop) broken("H.264 slice data runs past its end");
+        if (bits.pos >= stop) break;
+      }
+    }
+  }
+
+  void begin_mb() {
+    mb_x = mb_addr % mb_w;
+    mb_y = mb_addr / mb_w;
+    mb = &(*mbs)[size_t(mb_addr)];
+    if (mb->slice >= 0) broken("H.264 macroblock decoded twice");
+    *mb = MbInfo();
+    mb->slice = slice_num;
+    std::memset(mb->ipred, 2, sizeof(mb->ipred));
+    std::memset(mb->nz, 0, sizeof(mb->nz));
+    std::memset(mb->mv, 0, sizeof(mb->mv));
+    std::memset(mb->mvd, 0, sizeof(mb->mvd));
+    std::memset(mb->ref, -1, sizeof(mb->ref));
+    for (int l = 0; l < 2; ++l)
+      for (int k = 0; k < 4; ++k) mb->refid[l][k] = -1;
+    std::memset(done4, 0, sizeof(done4));
+  }
+
+  // The neighbouring macroblock (dx, dy in -1..1), nullptr when it is
+  // outside the picture, in another slice or not decoded yet.
+  MbInfo* nb_mb(int dx, int dy) {
+    int x = mb_x + dx, y = mb_y + dy;
+    if (x < 0 || x >= mb_w || y < 0) return nullptr;
+    if (dy == 0 && dx >= 0) return dx == 0 ? mb : nullptr;
+    MbInfo* m = &(*mbs)[size_t(y * mb_w + x)];
+    return m->slice == slice_num ? m : nullptr;
+  }
+  MbInfo* mbA() { return nb_mb(-1, 0); }
+  MbInfo* mbB() { return nb_mb(0, -1); }
+
+  // The macroblock holding 4x4 block (x4, y4) of the current one's grid
+  // (x4 in -1..4, y4 in -1..3) and the block's raster index in it
+  // (6.4.12); the current macroblock for blocks inside it.
+  MbInfo* nb4(int x4, int y4, int& blk) {
+    blk = 0;
+    if (y4 > 3) return nullptr;
+    if (x4 > 3 && y4 >= 0) return nullptr;
+    int dx = x4 < 0 ? -1 : x4 > 3 ? 1 : 0;
+    int dy = y4 < 0 ? -1 : 0;
+    blk = ((y4 + 4) & 3) * 4 + ((x4 + 4) & 3);
+    return nb_mb(dx, dy);
+  }
+
+  // ------------------------------------------------ reference lists
+
+  int pic_num(const Frame& f) const {
+    int fn = f.frame_num;
+    return fn > sh.frame_num ? fn - (1 << sps.log2_max_frame_num) : fn;
+  }
+
+  void build_lists() {
+    std::vector<FramePtr> st = refs;
+    if (sh.type == 0) {
+      std::sort(st.begin(), st.end(), [&](const FramePtr& a, const FramePtr& b) {
+        return pic_num(*a) > pic_num(*b);
+      });
+      list[0] = st;
+    } else {
+      int poc = cur->poc;
+      std::vector<FramePtr> before, after;
+      for (auto& f : st) (f->poc < poc ? before : after).push_back(f);
+      std::sort(before.begin(), before.end(),
+                [](const FramePtr& a, const FramePtr& b) { return a->poc > b->poc; });
+      std::sort(after.begin(), after.end(),
+                [](const FramePtr& a, const FramePtr& b) { return a->poc < b->poc; });
+      list[0] = before;
+      list[0].insert(list[0].end(), after.begin(), after.end());
+      list[1] = after;
+      list[1].insert(list[1].end(), before.begin(), before.end());
+      if (list[1].size() > 1 && list[0] == list[1]) std::swap(list[1][0], list[1][1]);
+    }
+    int max_pic_num = 1 << sps.log2_max_frame_num;
+    for (int l = 0; l < (sh.type == 1 ? 2 : 1); ++l) {
+      std::vector<FramePtr>& L = list[l];
+      int n = sh.num_ref_idx[l];
+      L.resize(size_t(n));      // entries past the initial list: none
+      int pred = sh.frame_num, idx = 0;
+      for (auto& m : sh.mods[l]) {
+        int abs_diff = m.val + 1;
+        if (abs_diff > max_pic_num) broken("H.264 abs_diff_pic_num out of range");
+        int nowrap;
+        if (m.idc == 0) {
+          nowrap = pred - abs_diff;
+          if (nowrap < 0) nowrap += max_pic_num;
+        } else {
+          nowrap = pred + abs_diff;
+          if (nowrap >= max_pic_num) nowrap -= max_pic_num;
+        }
+        pred = nowrap;
+        int pn = nowrap > sh.frame_num ? nowrap - max_pic_num : nowrap;
+        FramePtr pic;
+        for (auto& f : refs)
+          if (pic_num(*f) == pn) pic = f;
+        if (!pic) broken("H.264 list modification names a missing picture");
+        if (idx >= n) broken("H.264 too many list modifications");
+        L.insert(L.begin() + idx, pic);
+        ++idx;
+        int k = idx;
+        for (int c = idx; c < int(L.size()); ++c)
+          if (L[size_t(c)] != pic) L[size_t(k++)] = L[size_t(c)];
+        L.resize(size_t(n));
+      }
+      for (auto& f : L)
+        if (!f) f = L[0] ? L[0] : (refs.empty() ? nullptr : refs.back());
+    }
+    if (list[0].empty() || !list[0][0] || (sh.type == 1 && (list[1].empty() || !list[1][0])))
+      broken("H.264 inter slice without reference pictures");
+  }
+
+  void init_implicit() {
+    int poc = cur->poc;
+    for (int i = 0; i < sh.num_ref_idx[0]; ++i)
+      for (int j = 0; j < sh.num_ref_idx[1]; ++j) {
+        int p0 = list[0][size_t(i)]->poc, p1 = list[1][size_t(j)]->poc;
+        int tb = clip3(-128, 127, poc - p0), td = clip3(-128, 127, p1 - p0);
+        int w0 = 32, w1 = 32;
+        if (td != 0) {
+          int tx = (16384 + std::abs(td / 2)) / td;
+          int dsf = clip3(-1024, 1023, (tb * tx + 32) >> 6);
+          if (!((dsf >> 2) < -64 || (dsf >> 2) > 128)) {
+            w0 = 64 - (dsf >> 2);
+            w1 = dsf >> 2;
+          }
+        }
+        implicit_w[i][j][0] = w0;
+        implicit_w[i][j][1] = w1;
+      }
+  }
+
+  void init_scaling() {
+    uint8_t w4[6][16], w8[2][64];
+    std::memcpy(w4, sps.scaling4, sizeof(w4));
+    std::memcpy(w8, sps.scaling8, sizeof(w8));
+    if (pps.scaling_present) {
+      // Fall-back rule B after an SPS with scaling lists, else A.
+      for (int i = 0; i < 8; ++i) {
+        if (i >= 6 && !pps.transform_8x8) break;
+        bool is4 = i < 6;
+        uint8_t def[64];
+        if (is4) to_raster4(kDefaultScaling4[i < 3 ? 0 : 1], def);
+        else to_raster8(kDefaultScaling8[i - 6], def);
+        uint8_t* dst = is4 ? w4[i] : w8[i - 6];
+        size_t sz = is4 ? 16 : 64;
+        if (pps.list_present[i]) {
+          if (pps.list_default[i]) std::memcpy(dst, def, sz);
+          else if (is4) to_raster4(pps.lists[i], dst);
+          else to_raster8(pps.lists[i], dst);
+        } else if (i == 0 || i == 3 || i >= 6) {
+          if (!sps.scaling_present) std::memcpy(dst, def, sz);
+          else if (is4) std::memcpy(dst, sps.scaling4[i], 16);
+          else std::memcpy(dst, sps.scaling8[i - 6], 64);
+        } else {
+          std::memcpy(dst, w4[i - 1], 16);
+        }
+      }
+    }
+    static const int kNorm4[6][3] = {{10, 16, 13}, {11, 18, 14}, {13, 20, 16},
+                                     {14, 23, 18}, {16, 25, 20}, {18, 29, 23}};
+    static const int kNorm8[6][6] = {{20, 18, 32, 19, 25, 24}, {22, 19, 35, 21, 28, 26},
+                                     {26, 23, 42, 24, 33, 31}, {28, 25, 45, 26, 35, 33},
+                                     {32, 28, 51, 30, 40, 38}, {36, 32, 58, 34, 46, 43}};
+    for (int m = 0; m < 6; ++m) {
+      for (int pos = 0; pos < 16; ++pos) {
+        int i = pos >> 2, j = pos & 3;
+        int v = (i % 2 == 0 && j % 2 == 0) ? kNorm4[m][0]
+                : (i % 2 == 1 && j % 2 == 1) ? kNorm4[m][1] : kNorm4[m][2];
+        for (int l = 0; l < 6; ++l) ls4[l][m][pos] = w4[l][pos] * v;
+      }
+      for (int pos = 0; pos < 64; ++pos) {
+        int i = pos >> 3, j = pos & 7;
+        int v;
+        if (i % 4 == 0 && j % 4 == 0) v = kNorm8[m][0];
+        else if (i % 2 == 1 && j % 2 == 1) v = kNorm8[m][1];
+        else if (i % 4 == 2 && j % 4 == 2) v = kNorm8[m][2];
+        else if ((i % 4 == 0 && j % 2 == 1) || (i % 2 == 1 && j % 4 == 0)) v = kNorm8[m][3];
+        else if ((i % 4 == 0 && j % 4 == 2) || (i % 4 == 2 && j % 4 == 0)) v = kNorm8[m][4];
+        else v = kNorm8[m][5];
+        for (int l = 0; l < 2; ++l) ls8[l][m][pos] = w8[l][pos] * v;
+      }
+    }
+  }
+
+  // ============================================== syntax elements
+
+  // mb_skip_flag (CABAC).
+  bool cabac_skip_flag() {
+    MbInfo *a = mbA(), *b = mbB();
+    int inc = (a && !a->skip) + (b && !b->skip);
+    return cabac.decision((sh.type == 1 ? 24 : 11) + inc);
+  }
+
+  // The I mb_type's value (0 I_NxN, 1..24 I_16x16, 25 I_PCM).
+  int cabac_intra_type(int base, bool islice) {
+    int st = base;
+    if (islice) {
+      MbInfo *a = mbA(), *b = mbB();
+      int inc = (a && a->kind != kI4x4 && a->kind != kI8x8) +
+                (b && b->kind != kI4x4 && b->kind != kI8x8);
+      if (!cabac.decision(st + inc)) return 0;
+      st += 2;
+    } else {
+      if (!cabac.decision(st)) return 0;
+    }
+    if (cabac.terminate()) return 25;
+    int t = 1;
+    t += 12 * cabac.decision(st + 1);
+    if (cabac.decision(st + 2)) t += 4 + 4 * cabac.decision(st + 2 + (islice ? 1 : 0));
+    t += 2 * cabac.decision(st + 3 + (islice ? 1 : 0));
+    t += cabac.decision(st + 3 + 2 * (islice ? 1 : 0));
+    return t;
+  }
+
+  // mb_type: → (slice-relative) value; intra types of P and B slices
+  // come back as 100 + the I value.
+  int read_mb_type() {
+    if (!pps.cabac) {
+      uint32_t v = bits.ue();
+      if (sh.type == 2) {
+        if (v > 25) broken("H.264 I mb_type above 25");
+        return int(v);
+      }
+      if (sh.type == 0) {
+        if (v > 30) broken("H.264 P mb_type above 30");
+        return v < 5 ? int(v) : 100 + int(v) - 5;
+      }
+      if (v > 48) broken("H.264 B mb_type above 48");
+      return v < 23 ? int(v) : 100 + int(v) - 23;
+    }
+    if (sh.type == 2) return cabac_intra_type(3, true);
+    if (sh.type == 0) {
+      if (!cabac.decision(14)) {
+        if (!cabac.decision(15)) return 3 * cabac.decision(16);
+        return 2 - cabac.decision(17);
+      }
+      return 100 + cabac_intra_type(17, false);
+    }
+    MbInfo *a = mbA(), *b = mbB();
+    int inc = (a && !a->direct16) + (b && !b->direct16);
+    if (!cabac.decision(27 + inc)) return 0;
+    if (!cabac.decision(27 + 3)) return 1 + cabac.decision(27 + 5);
+    int v = cabac.decision(27 + 4) << 3;
+    v |= cabac.decision(27 + 5) << 2;
+    v |= cabac.decision(27 + 5) << 1;
+    v |= cabac.decision(27 + 5);
+    if (v < 8) return v + 3;
+    if (v == 13) return 100 + cabac_intra_type(32, false);
+    if (v == 14) return 11;
+    if (v == 15) return 22;
+    v = (v << 1) | cabac.decision(27 + 5);
+    return v - 4;
+  }
+
+  int read_sub_type() {
+    if (!pps.cabac) {
+      uint32_t v = bits.ue();
+      if (v > (sh.type == 1 ? 12u : 3u)) broken("H.264 sub_mb_type out of range");
+      return int(v);
+    }
+    if (sh.type == 0) {
+      if (cabac.decision(21)) return 0;
+      if (!cabac.decision(22)) return 1;
+      if (cabac.decision(23)) return 2;
+      return 3;
+    }
+    if (!cabac.decision(36)) return 0;
+    if (!cabac.decision(37)) return 1 + cabac.decision(39);
+    int t = 3;
+    if (cabac.decision(38)) {
+      if (cabac.decision(39)) return 11 + cabac.decision(39);
+      t += 4;
+    }
+    t += 2 * cabac.decision(39);
+    t += cabac.decision(39);
+    return t;
+  }
+
+  int read_ref_idx(int l, int x4, int y4) {
+    int n = sh.num_ref_idx[l];
+    int v;
+    if (!pps.cabac) {
+      v = n == 2 ? 1 - bits.u1() : int(bits.ue());
+    } else {
+      int inc = 0;
+      for (int k = 0; k < 2; ++k) {
+        int blk;
+        MbInfo* m = k == 0 ? nb4(x4 - 1, y4, blk) : nb4(x4, y4 - 1, blk);
+        if (!m || m->skip || m->intra()) continue;
+        int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
+        if (m->direct8 & (1 << b8)) continue;
+        if (m->ref[l][b8] > 0) inc += k == 0 ? 1 : 2;
+      }
+      v = 0;
+      if (cabac.decision(54 + inc)) {
+        v = 1;
+        int ctx = 54 + 4;
+        while (cabac.decision(ctx)) {
+          ctx = 54 + 5;
+          if (++v > 32) broken("H.264 ref_idx too long");
+        }
+      }
+    }
+    if (v < 0 || v >= n) broken("H.264 ref_idx out of range");
+    return v;
+  }
+
+  int read_mvd(int l, int comp, int x4, int y4) {
+    if (!pps.cabac) return bits.se();
+    int sum = 0;
+    int blk;
+    if (MbInfo* m = nb4(x4 - 1, y4, blk)) sum += m->mvd[l][blk][comp];
+    if (MbInfo* m = nb4(x4, y4 - 1, blk)) sum += m->mvd[l][blk][comp];
+    int base = comp == 0 ? 40 : 47;
+    int inc = sum < 3 ? 0 : sum <= 32 ? 1 : 2;
+    if (!cabac.decision(base + inc)) return 0;
+    int v = 1;
+    int ctx = base + 3;
+    while (v < 9 && cabac.decision(ctx)) {
+      if (v < 4) ++ctx;
+      ++v;
+    }
+    if (v >= 9) {
+      int k = 3;
+      while (cabac.bypass()) {
+        v += 1 << k;
+        if (++k > 24) broken("H.264 mvd too long");
+      }
+      while (k--) v += cabac.bypass() << k;
+    }
+    return cabac.bypass() ? -v : v;
+  }
+
+  int read_cbp(bool intra) {
+    if (!pps.cabac) {
+      uint32_t v = bits.ue();
+      if (v > 47) broken("H.264 coded_block_pattern above 47");
+      return intra ? kIntraCbp[v] : kInterCbp[v];
+    }
+    MbInfo *a = mbA(), *b = mbB();
+    auto luma_bit = [&](MbInfo* m, int b8) -> int {
+      // condTermFlagN: 0 unless the neighbour is available, not I_PCM,
+      // and its bit is 0 (skip: 0).
+      if (!m) return 0;
+      if (m->kind == kPcm) return 0;
+      return ((m->cbp >> b8) & 1) ? 0 : 1;
+    };
+    int cbp = 0;
+    for (int b8 = 0; b8 < 4; ++b8) {
+      int bx = b8 & 1, by = b8 >> 1;
+      int ca, cb;
+      if (bx == 0) ca = luma_bit(a, b8 + 1);
+      else ca = ((cbp >> (b8 - 1)) & 1) ? 0 : 1;
+      if (by == 0) cb = luma_bit(b, b8 + 2);
+      else cb = ((cbp >> (b8 - 2)) & 1) ? 0 : 1;
+      cbp |= cabac.decision(73 + ca + 2 * cb) << b8;
+    }
+    auto chroma = [&](MbInfo* m) -> int {
+      if (!m) return 0;
+      if (m->kind == kPcm) return 2;
+      return m->cbp >> 4;
+    };
+    int ca = chroma(a), cb = chroma(b);
+    if (cabac.decision(77 + (ca > 0) + 2 * (cb > 0))) {
+      int c = 1 + cabac.decision(77 + 4 + (ca == 2) + 2 * (cb == 2));
+      cbp |= c << 4;
+    }
+    return cbp;
+  }
+
+  int read_qp_delta() {
+    int v;
+    if (!pps.cabac) {
+      v = bits.se();
+    } else {
+      int k = 0;
+      if (cabac.decision(60 + (prev_qp_delta_nz ? 1 : 0))) {
+        k = 1;
+        int ctx = 62;
+        while (cabac.decision(ctx)) {
+          ctx = 63;
+          if (++k > 104) broken("H.264 mb_qp_delta too long");
+        }
+      }
+      v = (k & 1) ? (k + 1) / 2 : -(k / 2);
+    }
+    if (v < -26 || v > 25) broken("H.264 mb_qp_delta out of range");
+    return v;
+  }
+
+  int read_chroma_mode() {
+    if (!pps.cabac) {
+      uint32_t v = bits.ue();
+      if (v > 3) broken("H.264 intra_chroma_pred_mode above 3");
+      return int(v);
+    }
+    MbInfo *a = mbA(), *b = mbB();
+    auto cond = [](MbInfo* m) {
+      return m && m->intra() && m->kind != kPcm && m->chroma_mode != 0;
+    };
+    if (!cabac.decision(64 + cond(a) + cond(b))) return 0;
+    if (!cabac.decision(64 + 3)) return 1;
+    return cabac.decision(64 + 3) ? 3 : 2;
+  }
+
+  // prev_intra_pred_mode_flag / rem_intra_pred_mode → rem, or -1.
+  int read_intra_mode() {
+    if (!pps.cabac) {
+      if (bits.u1()) return -1;
+      return int(bits.u(3));
+    }
+    if (cabac.decision(68)) return -1;
+    int m = cabac.decision(69);
+    m |= cabac.decision(69) << 1;
+    m |= cabac.decision(69) << 2;
+    return m;
+  }
+
+  bool read_t8x8() {
+    if (!pps.cabac) return bits.u1();
+    MbInfo *a = mbA(), *b = mbB();
+    return cabac.decision(399 + (a && a->t8x8) + (b && b->t8x8));
+  }
+
+  // ------------------------------------------------------ residuals
+
+  // A VLC of (len, code) pairs, matched against the next 16 bits.
+  int read_vlc(const uint8_t* len, const uint8_t* code, int n) {
+    uint32_t pk = bits.peek32() >> 16;
+    for (int i = 0; i < n; ++i) {
+      int l = len[i];
+      if (l && (pk >> (16 - l)) == code[i]) {
+        bits.pos += size_t(l);
+        return i;
+      }
+    }
+    broken("H.264 CAVLC code not in its table");
+  }
+
+  // CAVLC residual_block: levels into coeffLevel[start..end] of `out`
+  // (scan order, max entries), → TotalCoeff.
+  int cavlc_block(int32_t* out, int start, int end, int max, int nc) {
+    int tc, t1;
+    if (nc == -1) {
+      int i = read_vlc(kChromaDcTokenLen, kChromaDcTokenBits, 20);
+      tc = i >> 2;
+      t1 = i & 3;
+    } else {
+      int t = nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
+      int i = read_vlc(kCoeffTokenLen[t], kCoeffTokenBits[t], 68);
+      tc = i >> 2;
+      t1 = i & 3;
+    }
+    if (tc == 0) return 0;
+    if (tc > max || t1 > tc) broken("H.264 coeff_token out of range");
+    int level[16];
+    int suffix_len = (tc > 10 && t1 < 3) ? 1 : 0;
+    for (int i = 0; i < tc; ++i) {
+      if (i < t1) {
+        level[i] = bits.u1() ? -1 : 1;
+        continue;
+      }
+      int prefix = 0;
+      while (!bits.u1()) {
+        if (++prefix > 32) broken("H.264 level_prefix too long");
+      }
+      int code = (std::min(15, prefix) << suffix_len);
+      int ssize = suffix_len;
+      if (prefix == 14 && suffix_len == 0) ssize = 4;
+      if (prefix >= 15) ssize = prefix - 3;
+      if (ssize > 0) code += int(bits.u(ssize));
+      if (prefix >= 15 && suffix_len == 0) code += 15;
+      if (prefix >= 16) code += (1 << (prefix - 3)) - 4096;
+      if (i == t1 && t1 < 3) code += 2;
+      level[i] = (code & 1) ? (-code - 1) >> 1 : (code + 2) >> 1;
+      if (suffix_len == 0) suffix_len = 1;
+      if (std::abs(level[i]) > (3 << (suffix_len - 1)) && suffix_len < 6) ++suffix_len;
+    }
+    int zeros = 0;
+    if (tc < end - start + 1) {
+      if (nc == -1)
+        zeros = read_vlc(kChromaDcTotalZerosLen[tc - 1], kChromaDcTotalZerosBits[tc - 1], 4);
+      else
+        zeros = read_vlc(kTotalZerosLen[tc - 1], kTotalZerosBits[tc - 1], 16);
+    }
+    if (tc + zeros > end - start + 1) broken("H.264 total_zeros out of range");
+    int run[16];
+    int left = zeros;
+    for (int i = 0; i < tc - 1; ++i) {
+      if (left > 0) {
+        int r = read_vlc(kRunLen[std::min(left, 7) - 1], kRunBits[std::min(left, 7) - 1], 16);
+        if (r > left) broken("H.264 run_before out of range");
+        run[i] = r;
+        left -= r;
+      } else {
+        run[i] = 0;
+      }
+    }
+    run[tc - 1] = left;
+    int pos = -1;
+    for (int i = tc - 1; i >= 0; --i) {
+      pos += run[i] + 1;
+      out[start + pos] = level[i];
+    }
+    return tc;
+  }
+
+  // CABAC residual_block for ctxBlockCat `cat`: levels into out[0..max)
+  // (scan order from startIdx); cbf_inc < 0 when coded_block_flag is
+  // not coded (inferred 1). → the number of non-zero levels.
+  int cabac_block(int32_t* out, int cat, int max, int cbf_inc) {
+    static const int kCbf[5] = {0, 4, 8, 12, 16};
+    static const int kSig[6] = {105, 120, 134, 149, 152, 402};
+    static const int kLast[6] = {166, 181, 195, 210, 213, 417};
+    static const int kAbs[6] = {227, 237, 247, 257, 266, 426};
+    if (cbf_inc >= 0 && !cabac.decision(85 + kCbf[cat] + cbf_inc)) return 0;
+    int sig_at[64];
+    int count = 0;
+    bool last = false;
+    for (int i = 0; i < max - 1 && !last; ++i) {
+      int si = cat == 5 ? kSig8x8[i] : cat == 3 ? std::min(i, 2) : i;
+      if (cabac.decision(kSig[cat] + si)) {
+        sig_at[count++] = i;
+        int li = cat == 5 ? kLast8x8[i] : cat == 3 ? std::min(i, 2) : i;
+        last = cabac.decision(kLast[cat] + li);
+      }
+    }
+    if (!last) sig_at[count++] = max - 1;
+    int eq1 = 0, gt1 = 0;
+    for (int k = count - 1; k >= 0; --k) {
+      int ctx = kAbs[cat] + ((gt1 != 0) ? 0 : std::min(4, 1 + eq1));
+      int v;
+      if (!cabac.decision(ctx)) {
+        v = 1;
+      } else {
+        int ctx2 = kAbs[cat] + 5 + std::min(4 - (cat == 3 ? 1 : 0), gt1);
+        int prefix = 1;
+        while (prefix < 14 && cabac.decision(ctx2)) ++prefix;
+        v = prefix + 1;
+        if (prefix >= 14) {
+          int kk = 0, suf = 0;
+          while (cabac.bypass()) {
+            suf += 1 << kk;
+            if (++kk > 24) broken("H.264 coeff_abs_level_minus1 too long");
+          }
+          while (kk--) suf += cabac.bypass() << kk;
+          v += suf;
+        }
+      }
+      if (v == 1) ++eq1;
+      else ++gt1;
+      out[sig_at[k]] = cabac.bypass() ? -v : v;
+    }
+    return count;
+  }
+
+  // The nC of a luma (comp 0) or chroma (1, 2) 4x4 block (CAVLC).
+  int cavlc_nc(int comp, int x4, int y4) {
+    int n[2] = {0, 0}, avail[2];
+    for (int k = 0; k < 2; ++k) {
+      int blk;
+      MbInfo* m = comp == 0 ? nb4(k == 0 ? x4 - 1 : x4, k == 0 ? y4 : y4 - 1, blk)
+                            : nb_chroma(k == 0 ? x4 - 1 : x4, k == 0 ? y4 : y4 - 1, blk);
+      avail[k] = m != nullptr;
+      if (!m) continue;
+      if (m->skip) n[k] = 0;
+      else if (m->kind == kPcm) n[k] = 16;
+      else n[k] = comp == 0 ? m->nz[blk] : m->nz[16 + (comp - 1) * 4 + blk];
+    }
+    if (avail[0] && avail[1]) return (n[0] + n[1] + 1) >> 1;
+    if (avail[0]) return n[0];
+    if (avail[1]) return n[1];
+    return 0;
+  }
+
+  // The macroblock holding chroma 4x4 block (x2, y2) of the current
+  // one's 2x2 grid, and its index (raster, 0..3) in it.
+  MbInfo* nb_chroma(int x2, int y2, int& blk) {
+    if (x2 > 1 || y2 > 1) return nullptr;
+    int dx = x2 < 0 ? -1 : 0, dy = y2 < 0 ? -1 : 0;
+    blk = ((y2 + 2) & 1) * 2 + ((x2 + 2) & 1);
+    return nb_mb(dx, dy);
+  }
+
+  // coded_block_flag's ctxIdxInc (CABAC) for block categories 0-4.
+  int cbf_inc(int cat, int comp, int x, int y) {
+    int inc = 0;
+    for (int k = 0; k < 2; ++k) {
+      int blk = 0;
+      MbInfo* m;
+      if (cat == 0 || cat == 3) m = k == 0 ? mbA() : mbB();
+      else if (cat == 4) m = nb_chroma(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, blk);
+      else m = nb4(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, blk);
+      int cond;
+      if (!m) {
+        cond = mb->intra() ? 1 : 0;
+      } else if (m->kind == kPcm) {
+        cond = 1;
+      } else if (cat == 0) {
+        cond = m->kind == kI16x16 ? (m->dc_cbf & 1) : 0;
+      } else if (cat == 3) {
+        cond = (m->cbp >> 4) ? ((m->dc_cbf >> (comp)) & 1) : 0;
+      } else if (cat == 4) {
+        cond = (m->cbp >> 4) == 2 ? (m->nz[16 + (comp - 1) * 4 + blk] != 0) : 0;
+      } else {
+        int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
+        cond = ((m->cbp >> b8) & 1) ? (m->nz[blk] != 0) : 0;
+      }
+      inc += cond << k;
+    }
+    return inc;
+  }
+
+  void residual(bool i16) {
+    std::memset(coef, 0, sizeof(coef));
+    std::memset(coef8, 0, sizeof(coef8));
+    std::memset(dc, 0, sizeof(dc));
+    std::memset(cdc, 0, sizeof(cdc));
+    std::memset(cac, 0, sizeof(cac));
+    int cbp = mb->cbp;
+    if (i16) {
+      int n;
+      int32_t tmp[16] = {0};
+      if (pps.cabac) n = cabac_block(tmp, 0, 16, cbf_inc(0, 0, 0, 0));
+      else n = cavlc_block(tmp, 0, 15, 16, cavlc_nc(0, 0, 0));
+      std::memcpy(dc, tmp, sizeof(tmp));
+      if (n) mb->dc_cbf |= 1;
+    }
+    for (int b8 = 0; b8 < 4; ++b8) {
+      if (!((cbp >> b8) & 1)) continue;
+      if (mb->t8x8 && pps.cabac) {
+        int32_t tmp[64] = {0};
+        int n = cabac_block(tmp, 5, 64, -1);
+        for (int k = 0; k < 64; ++k) coef8[b8][kZigzag8[k]] = tmp[k];
+        int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
+        for (int k = 0; k < 4; ++k) mb->nz[(by + (k >> 1)) * 4 + bx + (k & 1)] = uint8_t(n);
+        continue;
+      }
+      for (int i4 = 0; i4 < 4; ++i4) {
+        int zblk = b8 * 4 + i4;
+        int rb = kBlkRaster[zblk];
+        int x4 = rb & 3, y4 = rb >> 2;
+        int32_t tmp[16] = {0};
+        int n;
+        if (i16) {
+          if (pps.cabac) n = cabac_block(tmp + 1, 1, 15, cbf_inc(1, 0, x4, y4));
+          else n = cavlc_block(tmp, 1, 15, 15, cavlc_nc(0, x4, y4));
+        } else {
+          if (pps.cabac) n = cabac_block(tmp, 2, 16, cbf_inc(2, 0, x4, y4));
+          else n = cavlc_block(tmp, 0, 15, 16, cavlc_nc(0, x4, y4));
+        }
+        mb->nz[rb] = uint8_t(n);
+        if (mb->t8x8) {
+          for (int k = 0; k < 16; ++k) coef8[b8][kZigzag8[4 * k + i4]] = tmp[k];
+        } else {
+          for (int k = 0; k < 16; ++k) coef[rb][kZigzag4[k]] = tmp[k];
+        }
+      }
+    }
+    int cc = cbp >> 4;
+    if (cc) {
+      for (int c = 0; c < 2; ++c) {
+        int32_t tmp[4] = {0};
+        int n;
+        if (pps.cabac) n = cabac_block(tmp, 3, 4, cbf_inc(3, c + 1, 0, 0));
+        else n = cavlc_block(tmp, 0, 3, 4, -1);
+        std::memcpy(cdc[c], tmp, sizeof(tmp));
+        if (n) mb->dc_cbf |= uint8_t(2 << c);
+      }
+    }
+    if (cc == 2) {
+      for (int c = 0; c < 2; ++c)
+        for (int b = 0; b < 4; ++b) {
+          int x2 = b & 1, y2 = b >> 1;
+          int32_t tmp[16] = {0};
+          int n;
+          if (pps.cabac) n = cabac_block(tmp + 1, 4, 15, cbf_inc(4, c + 1, x2, y2));
+          else n = cavlc_block(tmp, 1, 15, 15, cavlc_nc(c + 1, x2, y2));
+          mb->nz[16 + c * 4 + b] = uint8_t(n);
+          for (int k = 1; k < 16; ++k) cac[c][b][kZigzag4[k]] = tmp[k];
+        }
+    }
+  }
+
+  // ======================================================= macroblocks
+
+  void set_qp(int delta) {
+    qp = (qp + delta + 52) % 52;
+    mb->qp = int8_t(qp);
+    for (int c = 0; c < 2; ++c)
+      mb->qpc[c] = int8_t(kChromaQp[clip3(0, 51, qp + pps.chroma_qp_offset[c])]);
+  }
+
+  void decode_skip() {
+    mb->skip = true;
+    mb->kind = kInter;
+    set_qp(0);
+    prev_qp_delta_nz = 0;
+    if (sh.type == 0) {
+      // P_Skip (8.4.1.1).
+      int mvx = 0, mvy = 0;
+      int blk;
+      MbInfo* a = nb4(-1, 0, blk);
+      int ra = -1, ax = 0, ay = 0;
+      if (a) mv_of(a, 0, blk, ra, ax, ay);
+      int blkb;
+      MbInfo* b = nb4(0, -1, blkb);
+      int rb = -1, bx = 0, by = 0;
+      if (b) mv_of(b, 0, blkb, rb, bx, by);
+      if (!a || !b || (ra == 0 && ax == 0 && ay == 0) || (rb == 0 && bx == 0 && by == 0)) {
+        mvx = mvy = 0;
+      } else {
+        mv_pred(0, 0, 0, 4, 0, mvx, mvy);
+      }
+      for (int k = 0; k < 4; ++k) set_ref(0, k, 0);
+      fill_mv(0, 0, 0, 4, 4, mvx, mvy);
+      inter_pred_mb();
+    } else {
+      mb->direct16 = true;
+      mb->direct8 = 15;
+      direct_pred(15);
+      inter_pred_mb();
+    }
+  }
+
+  void set_ref(int l, int b8, int r) {
+    mb->ref[l][b8] = int8_t(r);
+    mb->refid[l][b8] = r >= 0 ? list[l][size_t(r)]->id : -1;
+  }
+
+  void fill_mv(int l, int x4, int y4, int w4, int h4, int mx, int my) {
+    if (mx < -32768 || mx > 32767 || my < -32768 || my > 32767)
+      broken("H.264 motion vector out of range");
+    for (int y = y4; y < y4 + h4; ++y)
+      for (int x = x4; x < x4 + w4; ++x) {
+        mb->mv[l][y * 4 + x][0] = int16_t(mx);
+        mb->mv[l][y * 4 + x][1] = int16_t(my);
+      }
+  }
+
+  // A neighbouring block's refIdx and mv in list l (refIdx -1 when it is
+  // intra or does not use the list).
+  void mv_of(MbInfo* m, int l, int blk, int& r, int& mx, int& my) {
+    if (m->intra()) {
+      r = -1;
+      mx = my = 0;
+      return;
+    }
+    int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
+    r = m->ref[l][b8];
+    if (r < 0) {
+      mx = my = 0;
+      return;
+    }
+    mx = m->mv[l][blk][0];
+    my = m->mv[l][blk][1];
+  }
+
+  // Whether neighbouring 4x4 block (x4, y4) is available for motion
+  // vector prediction: in another macroblock (available), or in the
+  // current one and already given its motion.
+  MbInfo* nb_motion(int x4, int y4, int& blk) {
+    MbInfo* m = nb4(x4, y4, blk);
+    if (m == mb && !done4[blk]) return nullptr;
+    return m;
+  }
+
+  // Motion vector prediction (8.4.1.3) of the partition at (x4, y4),
+  // w4 blocks wide, for list l and refIdx r; shape 0 median, 1 16x8,
+  // 2 8x16; part is the partition index for the directional rules.
+  void mv_pred(int l, int x4, int y4, int w4, int r, int& px, int& py,
+               int shape = 0, int part = 0) {
+    int ba, bb, bc;
+    MbInfo* A = nb_motion(x4 - 1, y4, ba);
+    MbInfo* B = nb_motion(x4, y4 - 1, bb);
+    MbInfo* C = nb_motion(x4 + w4, y4 - 1, bc);
+    if (!C) C = nb_motion(x4 - 1, y4 - 1, bc);
+    int ra = -1, rb = -1, rc = -1, ax = 0, ay = 0, bx = 0, by = 0, cx = 0, cy = 0;
+    if (A) mv_of(A, l, ba, ra, ax, ay);
+    if (B) mv_of(B, l, bb, rb, bx, by);
+    if (C) mv_of(C, l, bc, rc, cx, cy);
+    if (shape == 1) {
+      if (part == 0 && rb == r) { px = bx; py = by; return; }
+      if (part == 1 && ra == r) { px = ax; py = ay; return; }
+    } else if (shape == 2) {
+      if (part == 0 && ra == r) { px = ax; py = ay; return; }
+      if (part == 1 && rc == r) { px = cx; py = cy; return; }
+    }
+    if (!B && !C && A) {
+      px = ax;
+      py = ay;
+      return;
+    }
+    int match = (ra == r) + (rb == r) + (rc == r);
+    if (match == 1) {
+      if (ra == r) { px = ax; py = ay; }
+      else if (rb == r) { px = bx; py = by; }
+      else { px = cx; py = cy; }
+      return;
+    }
+    px = median3(ax, bx, cx);
+    py = median3(ay, by, cy);
+  }
+
+  void mark_done(int x4, int y4, int w4, int h4) {
+    for (int y = y4; y < y4 + h4; ++y)
+      for (int x = x4; x < x4 + w4; ++x) done4[y * 4 + x] = true;
+  }
+
+  // B_Skip, B_Direct_16x16 and B_Direct_8x8 sub-macroblocks: the 8x8
+  // blocks of `mask` (8.4.1.2).
+  void direct_pred(int mask) {
+    const Frame& col = *list[1][0];
+    if (col.w != cur->w || col.h != cur->h) broken("H.264 colocated picture of another size");
+    const MbInfo& cm = col.mbs[size_t(mb_addr)];
+    auto col_of = [&](int blk, int& r, int& mx, int& my, int32_t& rid) {
+      if (cm.intra()) {
+        r = -1;
+        mx = my = 0;
+        rid = -1;
+        return;
+      }
+      int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
+      int l = cm.ref[0][b8] >= 0 ? 0 : 1;
+      r = cm.ref[l][b8];
+      rid = cm.refid[l][b8];
+      mx = cm.mv[l][blk][0];
+      my = cm.mv[l][blk][1];
+    };
+    static const int kCorner[4] = {0, 3, 12, 15};
+    if (sh.direct_spatial) {
+      int refs[2], mvx[2] = {0, 0}, mvy[2] = {0, 0};
+      // Neighbours of the macroblock as a 16x16 partition.
+      bool saved[16];
+      std::memcpy(saved, done4, sizeof(done4));
+      std::memset(done4, 0, sizeof(done4));
+      for (int l = 0; l < 2; ++l) {
+        int ba, bb, bc;
+        MbInfo* A = nb_motion(-1, 0, ba);
+        MbInfo* B = nb_motion(0, -1, bb);
+        MbInfo* C = nb_motion(4, -1, bc);
+        if (!C) C = nb_motion(-1, -1, bc);
+        int ra = -1, rb = -1, rc = -1, x, y;
+        if (A) mv_of(A, l, ba, ra, x, y);
+        if (B) mv_of(B, l, bb, rb, x, y);
+        if (C) mv_of(C, l, bc, rc, x, y);
+        auto minpos = [](int a, int b) { return (a >= 0 && b >= 0) ? std::min(a, b) : std::max(a, b); };
+        refs[l] = minpos(ra, minpos(rb, rc));
+      }
+      bool zero = refs[0] < 0 && refs[1] < 0;
+      if (zero) refs[0] = refs[1] = 0;
+      for (int l = 0; l < 2; ++l)
+        if (!zero && refs[l] >= 0) mv_pred(l, 0, 0, 4, refs[l], mvx[l], mvy[l]);
+      std::memcpy(done4, saved, sizeof(done4));
+      for (int b8 = 0; b8 < 4; ++b8) {
+        if (!((mask >> b8) & 1)) continue;
+        int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
+        for (int l = 0; l < 2; ++l) set_ref(l, b8, refs[l]);
+        for (int k = 0; k < 4; ++k) {
+          int x4 = bx + (k & 1), y4 = by + (k >> 1);
+          int blk = sps.direct_8x8_inference ? kCorner[b8] : y4 * 4 + x4;
+          int r, cx, cy;
+          int32_t rid;
+          col_of(blk, r, cx, cy, rid);
+          // RefPicList1[0] is a short-term reference (long-term ones raise).
+          bool colzero = r == 0 && cx >= -1 && cx <= 1 && cy >= -1 && cy <= 1;
+          for (int l = 0; l < 2; ++l) {
+            int mx = 0, my = 0;
+            if (refs[l] >= 0 && !zero && !(refs[l] == 0 && colzero)) {
+              mx = mvx[l];
+              my = mvy[l];
+            }
+            fill_mv(l, x4, y4, 1, 1, mx, my);
+          }
+        }
+        mark_done(bx, by, 2, 2);
+      }
+      return;
+    }
+    // Temporal direct.
+    for (int b8 = 0; b8 < 4; ++b8) {
+      if (!((mask >> b8) & 1)) continue;
+      int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
+      int ref0 = -1;
+      for (int k = 0; k < 4; ++k) {
+        int x4 = bx + (k & 1), y4 = by + (k >> 1);
+        int blk = sps.direct_8x8_inference ? kCorner[b8] : y4 * 4 + x4;
+        int r, cx, cy;
+        int32_t rid;
+        col_of(blk, r, cx, cy, rid);
+        int r0 = 0;
+        if (r >= 0) {
+          r0 = -1;
+          for (int i = 0; i < sh.num_ref_idx[0]; ++i)
+            if (list[0][size_t(i)]->id == rid) {
+              r0 = i;
+              break;
+            }
+          if (r0 < 0) r0 = 0;
+        }
+        if (ref0 >= 0 && ref0 != r0) broken("H.264 temporal direct with two references in an 8x8 block");
+        ref0 = r0;
+        int poc0 = list[0][size_t(r0)]->poc, poc1 = list[1][0]->poc;
+        int tb = clip3(-128, 127, cur->poc - poc0), td = clip3(-128, 127, poc1 - poc0);
+        int m0x, m0y, m1x, m1y;
+        if (td == 0) {
+          m0x = cx;
+          m0y = cy;
+          m1x = m1y = 0;
+        } else {
+          int tx = (16384 + std::abs(td / 2)) / td;
+          int dsf = clip3(-1024, 1023, (tb * tx + 32) >> 6);
+          m0x = (dsf * cx + 128) >> 8;
+          m0y = (dsf * cy + 128) >> 8;
+          m1x = m0x - cx;
+          m1y = m0y - cy;
+        }
+        fill_mv(0, x4, y4, 1, 1, m0x, m0y);
+        fill_mv(1, x4, y4, 1, 1, m1x, m1y);
+      }
+      set_ref(0, b8, ref0);
+      set_ref(1, b8, 0);
+      mark_done(bx, by, 2, 2);
+    }
+  }
+
+  void macroblock_layer() {
+    int t = read_mb_type();
+    bool islice = sh.type == 2;
+    int itype = islice ? t : (t >= 100 ? t - 100 : -1);
+    if (itype >= 0) {
+      intra_mb(itype);
+      return;
+    }
+    inter_mb(t);
+  }
+
+  void intra_mb(int itype) {
+    if (itype == 25) {
+      // I_PCM.
+      mb->kind = kPcm;
+      // The samples start at the next byte (after CABAC's terminating bin
+      // in its bit-serial reading). The alignment bits are skipped
+      // unread, as libavcodec does: x264 may set one after a CABAC flush.
+      bits.pos = (bits.pos + 7) & ~size_t(7);
+      if (bits.bits_left() < 384 * 8) broken("H.264 I_PCM samples cut short");
+      Frame& f = *cur;
+      for (int y = 0; y < 16; ++y)
+        for (int x = 0; x < 16; ++x)
+          f.y[size_t(mb_y * 16 + y) * f.w + mb_x * 16 + x] = uint8_t(bits.u(8));
+      for (int c = 0; c < 2; ++c) {
+        std::vector<uint8_t>& pl = c == 0 ? f.u : f.v;
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x)
+            pl[size_t(mb_y * 8 + y) * (f.w / 2) + mb_x * 8 + x] = uint8_t(bits.u(8));
+      }
+      mb->cbp = 0x2F;
+      mb->qp = 0;
+      mb->qpc[0] = mb->qpc[1] = 0;
+      std::memset(mb->nz, 16, sizeof(mb->nz));
+      mb->dc_cbf = 7;
+      prev_qp_delta_nz = 0;
+      if (pps.cabac) cabac.init_engine();
+      return;
+    }
+    bool i16 = itype >= 1;
+    int pred16 = 0;
+    if (i16) {
+      mb->kind = kI16x16;
+      int v = itype - 1;
+      pred16 = v % 4;
+      mb->cbp = uint8_t(((v / 4) % 3) << 4 | (v >= 12 ? 15 : 0));
+    } else {
+      mb->kind = kI4x4;
+      if (pps.transform_8x8 && read_t8x8()) {
+        mb->kind = kI8x8;
+        mb->t8x8 = true;
+      }
+      // Intra4x4/8x8 prediction modes.
+      int nblk = mb->kind == kI8x8 ? 4 : 16;
+      for (int k = 0; k < nblk; ++k) {
+        int rem = read_intra_mode();
+        int x4, y4;
+        if (nblk == 4) {
+          x4 = (k & 1) * 2;
+          y4 = (k >> 1) * 2;
+        } else {
+          int rb = kBlkRaster[k];
+          x4 = rb & 3;
+          y4 = rb >> 2;
+        }
+        int pm = pred_intra_mode(x4, y4);
+        int mode = rem < 0 ? pm : (rem < pm ? rem : rem + 1);
+        if (nblk == 4) {
+          for (int j = 0; j < 4; ++j) mb->ipred[(y4 + (j >> 1)) * 4 + x4 + (j & 1)] = int8_t(mode);
+        } else {
+          mb->ipred[y4 * 4 + x4] = int8_t(mode);
+        }
+      }
+    }
+    mb->chroma_mode = uint8_t(read_chroma_mode());
+    if (!i16) mb->cbp = uint8_t(read_cbp(true));
+    if (mb->cbp || i16) {
+      int d = read_qp_delta();
+      set_qp(d);
+      prev_qp_delta_nz = d != 0;
+      residual(i16);
+    } else {
+      set_qp(0);
+      prev_qp_delta_nz = 0;
+      std::memset(coef, 0, sizeof(coef));     // no residual
+      std::memset(coef8, 0, sizeof(coef8));
+    }
+    // Reconstruction.
+    if (i16) {
+      intra16(pred16);
+      luma_i16_residual();
+    } else if (mb->kind == kI8x8) {
+      for (int b8 = 0; b8 < 4; ++b8) {
+        int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
+        intra8(b8, mb->ipred[(y / 4) * 4 + x / 4]);
+        add8x8(b8, true);
+      }
+    } else {
+      for (int k = 0; k < 16; ++k) {
+        int rb = kBlkRaster[k];
+        intra4(rb, mb->ipred[rb]);
+        add4x4(rb, true);
+      }
+    }
+    intra_chroma(mb->chroma_mode);
+    chroma_residual(true);
+  }
+
+  // predIntra4x4PredMode / predIntra8x8PredMode of the block at (x4, y4).
+  int pred_intra_mode(int x4, int y4) {
+    int ba, bb;
+    MbInfo* A = nb4(x4 - 1, y4, ba);
+    MbInfo* B = nb4(x4, y4 - 1, bb);
+    auto unavail = [&](MbInfo* m) { return !m || (m->kind == kInter && pps.constrained_intra); };
+    if (unavail(A) || unavail(B)) return 2;
+    int ma = (A->kind == kI4x4 || A->kind == kI8x8) ? A->ipred[ba] : 2;
+    int mb_ = (B->kind == kI4x4 || B->kind == kI8x8) ? B->ipred[bb] : 2;
+    return std::min(ma, mb_);
+  }
+
+  void inter_mb(int t) {
+    mb->kind = kInter;
+    bool pslice = sh.type == 0;
+    int sub[4] = {0, 0, 0, 0};
+    bool no_sub8x8_lt = true;
+    if ((pslice && (t == 3 || t == 4)) || (!pslice && t == 22)) {
+      // Sub-macroblocks.
+      for (int k = 0; k < 4; ++k) {
+        sub[k] = read_sub_type();
+        if (!pslice && sub[k] >= 4)
+          unsupported("H.264 B sub-macroblock partitions smaller than 8x8");
+      }
+      if (!pslice) {
+        int mask = 0;
+        for (int k = 0; k < 4; ++k)
+          if (sub[k] == 0) mask |= 1 << k;
+        if (mask) {
+          mb->direct8 = uint8_t(mask);
+          direct_pred(mask);
+          std::memset(done4, 0, sizeof(done4));
+          if (!sps.direct_8x8_inference) no_sub8x8_lt = false;
+        }
+
+      } else {
+        for (int k = 0; k < 4; ++k)
+          if (sub[k] != 0) no_sub8x8_lt = false;
+      }
+      // Sub-partition geometry: (count, w4, h4) and the lists each uses.
+      int cnt[4], w4[4], h4[4], use[4];
+      for (int k = 0; k < 4; ++k) {
+        int s = sub[k];
+        if (pslice) {
+          static const int kC[4] = {1, 2, 2, 4}, kW[4] = {2, 2, 1, 1}, kH[4] = {2, 1, 2, 1};
+          cnt[k] = kC[s];
+          w4[k] = kW[s];
+          h4[k] = kH[s];
+          use[k] = 1;
+        } else {
+          static const int kC[13] = {4, 1, 1, 1, 2, 2, 2, 2, 2, 2, 4, 4, 4};
+          static const int kW[13] = {1, 2, 2, 2, 2, 1, 2, 1, 2, 1, 1, 1, 1};
+          static const int kH[13] = {1, 2, 2, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1};
+          static const int kU[13] = {0, 1, 2, 3, 1, 1, 2, 2, 3, 3, 1, 2, 3};
+          cnt[k] = kC[s];
+          w4[k] = kW[s];
+          h4[k] = kH[s];
+          use[k] = kU[s];
+        }
+      }
+      bool direct[4];
+      for (int k = 0; k < 4; ++k) direct[k] = !pslice && sub[k] == 0;
+      for (int l = 0; l < 2; ++l)
+        for (int k = 0; k < 4; ++k) {
+          if (direct[k]) continue;
+          if (!((use[k] >> l) & 1)) {
+            set_ref(l, k, -1);
+            continue;
+          }
+          int r = 0;
+          if (sh.num_ref_idx[l] > 1 && !(pslice && t == 4))
+            r = read_ref_idx(l, (k & 1) * 2, (k >> 1) * 2);
+          set_ref(l, k, r);
+        }
+      // mvds: all of list 0, then list 1; predictions in decoding order.
+      int mvdx[2][4][4], mvdy[2][4][4];
+      for (int l = 0; l < 2; ++l)
+        for (int k = 0; k < 4; ++k) {
+          if (direct[k] || !((use[k] >> l) & 1)) continue;
+          for (int j = 0; j < cnt[k]; ++j) {
+            int x4 = (k & 1) * 2 + (w4[k] == 1 ? (j & 1) : 0);
+            int y4 = (k >> 1) * 2 + (h4[k] == 1 ? (w4[k] == 1 ? j >> 1 : j) : 0);
+            int dx = read_mvd(l, 0, x4, y4);
+            int dy = read_mvd(l, 1, x4, y4);
+            mvdx[l][k][j] = dx;
+            mvdy[l][k][j] = dy;
+            for (int yy = y4; yy < y4 + h4[k]; ++yy)
+              for (int xx = x4; xx < x4 + w4[k]; ++xx) {
+                mb->mvd[l][yy * 4 + xx][0] = uint8_t(std::min(std::abs(dx), 255));
+                mb->mvd[l][yy * 4 + xx][1] = uint8_t(std::min(std::abs(dy), 255));
+              }
+          }
+        }
+      for (int k = 0; k < 4; ++k) {
+        if (direct[k]) {
+          mark_done((k & 1) * 2, (k >> 1) * 2, 2, 2);
+          continue;
+        }
+        for (int j = 0; j < cnt[k]; ++j) {
+          int x4 = (k & 1) * 2 + (w4[k] == 1 ? (j & 1) : 0);
+          int y4 = (k >> 1) * 2 + (h4[k] == 1 ? (w4[k] == 1 ? j >> 1 : j) : 0);
+          for (int l = 0; l < 2; ++l) {
+            if (!((use[k] >> l) & 1)) continue;
+            int px, py;
+            mv_pred(l, x4, y4, w4[k], mb->ref[l][k], px, py);
+            fill_mv(l, x4, y4, w4[k], h4[k], px + mvdx[l][k][j], py + mvdy[l][k][j]);
+          }
+          mark_done(x4, y4, w4[k], h4[k]);
+        }
+      }
+    } else if (!pslice && t == 0) {
+      mb->direct16 = true;
+      mb->direct8 = 15;
+      direct_pred(15);
+      if (!sps.direct_8x8_inference) no_sub8x8_lt = false;
+    } else {
+      // 16x16, 16x8, 8x16 partitions.
+      int shape, uses[2];
+      if (pslice) {
+        shape = t;              // 0 16x16, 1 16x8, 2 8x16
+        uses[0] = uses[1] = 1;
+      } else if (t <= 3) {
+        shape = 0;
+        uses[0] = uses[1] = t;  // 1 L0, 2 L1, 3 Bi
+      } else {
+        shape = (t % 2 == 0) ? 1 : 2;
+        static const int kP0[22] = {0, 0, 0, 0, 1, 1, 2, 2, 1, 1, 2, 2, 1, 1, 2, 2, 3, 3, 3, 3, 3, 3};
+        static const int kP1[22] = {0, 0, 0, 0, 1, 1, 2, 2, 2, 2, 1, 1, 3, 3, 3, 3, 1, 1, 2, 2, 3, 3};
+        uses[0] = kP0[t];
+        uses[1] = kP1[t];
+      }
+      int nparts = shape == 0 ? 1 : 2;
+      auto geom = [&](int p, int& x4, int& y4, int& w4, int& h4) {
+        if (shape == 0) { x4 = 0; y4 = 0; w4 = 4; h4 = 4; }
+        else if (shape == 1) { x4 = 0; y4 = 2 * p; w4 = 4; h4 = 2; }
+        else { x4 = 2 * p; y4 = 0; w4 = 2; h4 = 4; }
+      };
+      for (int l = 0; l < 2; ++l)
+        for (int p = 0; p < nparts; ++p) {
+          int x4, y4, w4, h4;
+          geom(p, x4, y4, w4, h4);
+          int r = -1;
+          if ((uses[p] >> l) & 1) {
+            r = 0;
+            if (sh.num_ref_idx[l] > 1) r = read_ref_idx(l, x4, y4);
+          }
+          for (int y = y4 / 2; y < (y4 + h4) / 2; ++y)
+            for (int x = x4 / 2; x < (x4 + w4) / 2; ++x) set_ref(l, y * 2 + x, r);
+        }
+      int mvdx[2][2], mvdy[2][2];
+      for (int l = 0; l < 2; ++l)
+        for (int p = 0; p < nparts; ++p) {
+          if (!((uses[p] >> l) & 1)) continue;
+          int x4, y4, w4, h4;
+          geom(p, x4, y4, w4, h4);
+          int dx = read_mvd(l, 0, x4, y4);
+          int dy = read_mvd(l, 1, x4, y4);
+          mvdx[l][p] = dx;
+          mvdy[l][p] = dy;
+          for (int yy = y4; yy < y4 + h4; ++yy)
+            for (int xx = x4; xx < x4 + w4; ++xx) {
+              mb->mvd[l][yy * 4 + xx][0] = uint8_t(std::min(std::abs(dx), 255));
+              mb->mvd[l][yy * 4 + xx][1] = uint8_t(std::min(std::abs(dy), 255));
+            }
+        }
+      for (int p = 0; p < nparts; ++p) {
+        int x4, y4, w4, h4;
+        geom(p, x4, y4, w4, h4);
+        for (int l = 0; l < 2; ++l) {
+          if (!((uses[p] >> l) & 1)) continue;
+          int px, py;
+          mv_pred(l, x4, y4, w4, mb->ref[l][(y4 / 2) * 2 + x4 / 2], px, py, shape, p);
+          fill_mv(l, x4, y4, w4, h4, px + mvdx[l][p], py + mvdy[l][p]);
+        }
+        mark_done(x4, y4, w4, h4);
+      }
+    }
+    mb->cbp = uint8_t(read_cbp(false));
+    if ((mb->cbp & 15) && pps.transform_8x8 && no_sub8x8_lt) mb->t8x8 = read_t8x8();
+    inter_pred_mb();
+    if (mb->cbp) {
+      int d = read_qp_delta();
+      set_qp(d);
+      prev_qp_delta_nz = d != 0;
+      residual(false);
+      if (mb->t8x8) {
+        for (int b8 = 0; b8 < 4; ++b8) add8x8(b8, false);
+      } else {
+        for (int rb = 0; rb < 16; ++rb) add4x4(rb, false);
+      }
+      chroma_residual(false);
+    } else {
+      set_qp(0);
+      prev_qp_delta_nz = 0;
+    }
+  }
+
+  // ===================================================== reconstruction
+
+  uint8_t* ypix(int x, int y) { return &cur->y[size_t(y) * cur->w + x]; }
+  uint8_t* cpix(int c, int x, int y) {
+    return &(c == 0 ? cur->u : cur->v)[size_t(y) * (cur->w / 2) + x];
+  }
+
+  // Inverse 4x4 transform of d (raster, scaled) added to 4x4 pixels.
+  static void idct4_add(int32_t* d, uint8_t* dst, int stride) {
+    int32_t t[16];
+    for (int i = 0; i < 4; ++i) {
+      int32_t* r = d + 4 * i;
+      int e0 = r[0] + r[2], e1 = r[0] - r[2];
+      int e2 = (r[1] >> 1) - r[3], e3 = r[1] + (r[3] >> 1);
+      t[4 * i] = e0 + e3;
+      t[4 * i + 1] = e1 + e2;
+      t[4 * i + 2] = e1 - e2;
+      t[4 * i + 3] = e0 - e3;
+    }
+    for (int j = 0; j < 4; ++j) {
+      int g0 = t[j], g1 = t[4 + j], g2 = t[8 + j], g3 = t[12 + j];
+      int e0 = g0 + g2, e1 = g0 - g2, e2 = (g1 >> 1) - g3, e3 = g1 + (g3 >> 1);
+      int h[4] = {e0 + e3, e1 + e2, e1 - e2, e0 - e3};
+      for (int i = 0; i < 4; ++i) {
+        uint8_t& p = dst[i * stride + j];
+        p = clip1(p + ((h[i] + 32) >> 6));
+      }
+    }
+  }
+
+  static void idct8_add(int32_t* d, uint8_t* dst, int stride) {
+    int32_t t[64];
+    auto pass = [](const int32_t* in, int step, int32_t* o, int ostep) {
+      int d0 = in[0], d1 = in[step], d2 = in[2 * step], d3 = in[3 * step];
+      int d4 = in[4 * step], d5 = in[5 * step], d6 = in[6 * step], d7 = in[7 * step];
+      int e0 = d0 + d4, e1 = -d3 + d5 - d7 - (d7 >> 1), e2 = d0 - d4;
+      int e3 = d1 + d7 - d3 - (d3 >> 1), e4 = (d2 >> 1) - d6;
+      int e5 = -d1 + d7 + d5 + (d5 >> 1), e6 = d2 + (d6 >> 1);
+      int e7 = d3 + d5 + d1 + (d1 >> 1);
+      int f0 = e0 + e6, f1 = e1 + (e7 >> 2), f2 = e2 + e4, f3 = e3 + (e5 >> 2);
+      int f4 = e2 - e4, f5 = (e3 >> 2) - e5, f6 = e0 - e6, f7 = e7 - (e1 >> 2);
+      o[0] = f0 + f7;
+      o[ostep] = f2 + f5;
+      o[2 * ostep] = f4 + f3;
+      o[3 * ostep] = f6 + f1;
+      o[4 * ostep] = f6 - f1;
+      o[5 * ostep] = f4 - f3;
+      o[6 * ostep] = f2 - f5;
+      o[7 * ostep] = f0 - f7;
+    };
+    for (int i = 0; i < 8; ++i) pass(d + 8 * i, 1, t + 8 * i, 1);
+    int32_t r[64];
+    for (int j = 0; j < 8; ++j) pass(t + j, 8, r + j, 8);
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 8; ++j) {
+        uint8_t& p = dst[i * stride + j];
+        p = clip1(p + ((r[8 * i + j] + 32) >> 6));
+      }
+  }
+
+  // Scale a 4x4 block's coefficients (raster) in place; `skip_dc`
+  // leaves coefficient 0 (already scaled DC).
+  void scale4(int32_t* c, int list_idx, int q, bool skip_dc) {
+    int m = q % 6, s = q / 6;
+    for (int k = skip_dc ? 1 : 0; k < 16; ++k) {
+      if (!c[k]) continue;
+      int64_t v = int64_t(c[k]) * ls4[list_idx][m][k];
+      if (q >= 24) v *= int64_t(1) << (s - 4);
+      else v = (v + (1 << (3 - s))) >> (4 - s);
+      c[k] = int32_t(v);
+    }
+  }
+
+  void add4x4(int rb, bool intra) {
+    int32_t* c = coef[rb];
+    bool any = false;
+    for (int k = 0; k < 16; ++k) any |= c[k] != 0;
+    if (!any) return;
+    scale4(c, intra ? 0 : 3, mb->qp, false);
+    int x = (rb & 3) * 4, y = (rb >> 2) * 4;
+    idct4_add(c, ypix(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+  }
+
+  void add8x8(int b8, bool intra) {
+    int32_t* c = coef8[b8];
+    bool any = false;
+    for (int k = 0; k < 64; ++k) any |= c[k] != 0;
+    if (!any) return;
+    int q = mb->qp, m = q % 6, s = q / 6;
+    for (int k = 0; k < 64; ++k) {
+      if (!c[k]) continue;
+      int64_t v = int64_t(c[k]) * ls8[intra ? 0 : 1][m][k];
+      if (q >= 36) v *= int64_t(1) << (s - 6);
+      else v = (v + (1 << (5 - s))) >> (6 - s);
+      c[k] = int32_t(v);
+    }
+    int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
+    idct8_add(c, ypix(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+  }
+
+  void luma_i16_residual() {
+    // DC: inverse scan, Hadamard, scale (8.5.10).
+    int32_t c[16];
+    for (int k = 0; k < 16; ++k) c[kZigzag4[k]] = dc[k];
+    int32_t t[16], f[16];
+    for (int i = 0; i < 4; ++i) {
+      int32_t* r = c + 4 * i;
+      int a = r[0] + r[1], b = r[0] - r[1], cc = r[2] + r[3], d = r[2] - r[3];
+      t[4 * i] = a + cc;
+      t[4 * i + 1] = a - cc;
+      t[4 * i + 2] = b - d;
+      t[4 * i + 3] = b + d;
+    }
+    for (int j = 0; j < 4; ++j) {
+      int a = t[j] + t[4 + j], b = t[j] - t[4 + j], cc = t[8 + j] + t[12 + j], d = t[8 + j] - t[12 + j];
+      f[j] = a + cc;
+      f[4 + j] = a - cc;
+      f[8 + j] = b - d;
+      f[12 + j] = b + d;
+    }
+    int q = mb->qp, m = q % 6, s = q / 6;
+    int ls = ls4[0][m][0];
+    for (int k = 0; k < 16; ++k) {
+      int64_t v = int64_t(f[k]) * ls;
+      if (q >= 36) v *= int64_t(1) << (s - 6);
+      else v = (v + (1 << (5 - s))) >> (6 - s);
+      f[k] = int32_t(v);
+    }
+    for (int rb = 0; rb < 16; ++rb) {
+      int32_t* cb = coef[rb];
+      cb[0] = 0;
+      scale4(cb, 0, q, true);
+      cb[0] = f[rb];
+      bool any = false;
+      for (int k = 0; k < 16; ++k) any |= cb[k] != 0;
+      if (!any) continue;
+      int x = (rb & 3) * 4, y = (rb >> 2) * 4;
+      idct4_add(cb, ypix(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+    }
+  }
+
+  void chroma_residual(bool intra) {
+    if (!(mb->cbp >> 4)) return;
+    for (int c = 0; c < 2; ++c) {
+      int q = mb->qpc[c];
+      int32_t* d = cdc[c];
+      int f[4] = {d[0] + d[1] + d[2] + d[3], d[0] - d[1] + d[2] - d[3],
+                  d[0] + d[1] - d[2] - d[3], d[0] - d[1] - d[2] + d[3]};
+      int ls = ls4[(intra ? 1 : 4) + c][q % 6][0];
+      for (int b = 0; b < 4; ++b) {
+        int32_t* cb = cac[c][b];
+        cb[0] = 0;
+        scale4(cb, (intra ? 1 : 4) + c, q, true);
+        cb[0] = int32_t((int64_t(f[b]) * ls * (int64_t(1) << (q / 6))) >> 5);
+        bool any = false;
+        for (int k = 0; k < 16; ++k) any |= cb[k] != 0;
+        if (!any) continue;
+        int x = (b & 1) * 4, y = (b >> 1) * 4;
+        idct4_add(cb, cpix(c, mb_x * 8 + x, mb_y * 8 + y), cur->w / 2);
+      }
+    }
+  }
+
+  // ---------------------------------------------------- intra prediction
+
+  bool intra_avail(MbInfo* m) { return m && !(m->kind == kInter && pps.constrained_intra); }
+
+  void intra4(int rb, int mode) {
+    int bx = rb & 3, by = rb >> 2;
+    int x0 = mb_x * 16 + bx * 4, y0 = mb_y * 16 + by * 4;
+    int ba;
+    bool has_l = intra_avail(nb4(bx - 1, by, ba));
+    bool has_t = intra_avail(nb4(bx, by - 1, ba));
+    bool has_tl = intra_avail(nb4(bx - 1, by - 1, ba));
+    // Blocks 3, 7, 11, 13 and 15 (z-order) have no decoded samples above
+    // and to the right.
+    bool has_tr = !(rb == 5 || rb == 7 || rb == 11 || rb == 13 || rb == 15) &&
+                  intra_avail(nb4(bx + 1, by - 1, ba));
+    int top[8], left[4], tl = 0;
+    uint8_t* P = ypix(x0, y0);
+    int W = cur->w;
+    if (has_t) {
+      for (int i = 0; i < 4; ++i) top[i] = P[-W + i];
+      for (int i = 4; i < 8; ++i) top[i] = has_tr ? P[-W + i] : top[3];
+    }
+    if (has_l)
+      for (int i = 0; i < 4; ++i) left[i] = P[i * W - 1];
+    if (has_tl) tl = P[-W - 1];
+    auto T = [&](int x) { return x < 0 ? tl : top[x]; };
+    auto L = [&](int y) { return y < 0 ? tl : left[y]; };
+    uint8_t pred[4][4];
+    for (int y = 0; y < 4; ++y)
+      for (int x = 0; x < 4; ++x) {
+        int v = 0;
+        switch (mode) {
+          case 0:
+            if (!has_t) broken("H.264 intra 4x4 vertical without its top");
+            v = top[x];
+            break;
+          case 1:
+            if (!has_l) broken("H.264 intra 4x4 horizontal without its left");
+            v = left[y];
+            break;
+          case 2: {
+            if (has_t && has_l) v = (top[0] + top[1] + top[2] + top[3] + left[0] + left[1] + left[2] + left[3] + 4) >> 3;
+            else if (has_l) v = (left[0] + left[1] + left[2] + left[3] + 2) >> 2;
+            else if (has_t) v = (top[0] + top[1] + top[2] + top[3] + 2) >> 2;
+            else v = 128;
+            break;
+          }
+          case 3:
+            if (!has_t) broken("H.264 intra 4x4 mode without its top");
+            if (x == 3 && y == 3) v = (top[6] + 3 * top[7] + 2) >> 2;
+            else v = (top[x + y] + 2 * top[x + y + 1] + top[x + y + 2] + 2) >> 2;
+            break;
+          case 4:
+            if (!has_t || !has_l || !has_tl) broken("H.264 intra 4x4 mode without its neighbours");
+            if (x > y) v = (T(x - y - 2) + 2 * T(x - y - 1) + T(x - y) + 2) >> 2;
+            else if (x < y) v = (L(y - x - 2) + 2 * L(y - x - 1) + L(y - x) + 2) >> 2;
+            else v = (T(0) + 2 * tl + L(0) + 2) >> 2;
+            break;
+          case 5: {
+            if (!has_t || !has_l || !has_tl) broken("H.264 intra 4x4 mode without its neighbours");
+            int z = 2 * x - y;
+            if (z >= 0 && !(z & 1)) v = (T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (T(x - (y >> 1) - 2) + 2 * T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * tl + T(0) + 2) >> 2;
+            else v = (L(y - 2 * x - 1) + 2 * L(y - 2 * x - 2) + L(y - 2 * x - 3) + 2) >> 2;
+            break;
+          }
+          case 6: {
+            if (!has_t || !has_l || !has_tl) broken("H.264 intra 4x4 mode without its neighbours");
+            int z = 2 * y - x;
+            if (z >= 0 && !(z & 1)) v = (L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (L(y - (x >> 1) - 2) + 2 * L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * tl + T(0) + 2) >> 2;
+            else v = (T(x - 2 * y - 1) + 2 * T(x - 2 * y - 2) + T(x - 2 * y - 3) + 2) >> 2;
+            break;
+          }
+          case 7:
+            if (!has_t) broken("H.264 intra 4x4 mode without its top");
+            if (!(y & 1)) v = (top[x + (y >> 1)] + top[x + (y >> 1) + 1] + 1) >> 1;
+            else v = (top[x + (y >> 1)] + 2 * top[x + (y >> 1) + 1] + top[x + (y >> 1) + 2] + 2) >> 2;
+            break;
+          case 8: {
+            if (!has_l) broken("H.264 intra 4x4 mode without its left");
+            int z = x + 2 * y;
+            if (z < 5 && !(z & 1)) v = (left[y + (x >> 1)] + left[y + (x >> 1) + 1] + 1) >> 1;
+            else if (z < 5) v = (left[y + (x >> 1)] + 2 * left[y + (x >> 1) + 1] + left[y + (x >> 1) + 2] + 2) >> 2;
+            else if (z == 5) v = (left[2] + 3 * left[3] + 2) >> 2;
+            else v = left[3];
+            break;
+          }
+          default:
+            broken("H.264 intra 4x4 mode above 8");
+        }
+        pred[y][x] = uint8_t(v);
+      }
+    for (int y = 0; y < 4; ++y)
+      for (int x = 0; x < 4; ++x) P[y * W + x] = pred[y][x];
+  }
+
+  void intra8(int b8, int mode) {
+    int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
+    int x0 = mb_x * 16 + bx * 4, y0 = mb_y * 16 + by * 4;
+    int ba;
+    bool has_l = intra_avail(nb4(bx - 1, by, ba));
+    bool has_t = intra_avail(nb4(bx, by - 1, ba));
+    bool has_tl = intra_avail(nb4(bx - 1, by - 1, ba));
+    bool has_tr = b8 == 3 ? false : b8 == 2 ? true : intra_avail(nb4(bx + 2, by - 1, ba));
+    uint8_t* P = ypix(x0, y0);
+    int W = cur->w;
+    int p_top[16], p_left[8], p_tl = 0;
+    if (has_t) {
+      for (int i = 0; i < 8; ++i) p_top[i] = P[-W + i];
+      for (int i = 8; i < 16; ++i) p_top[i] = has_tr ? P[-W + i] : p_top[7];
+    }
+    if (has_l)
+      for (int i = 0; i < 8; ++i) p_left[i] = P[i * W - 1];
+    if (has_tl) p_tl = P[-W - 1];
+    // Reference sample filtering (8.3.2.2.1).
+    int top[16], left[8], tl = 0;
+    if (has_t) {
+      top[0] = has_tl ? (p_tl + 2 * p_top[0] + p_top[1] + 2) >> 2 : (3 * p_top[0] + p_top[1] + 2) >> 2;
+      for (int x = 1; x < 15; ++x) top[x] = (p_top[x - 1] + 2 * p_top[x] + p_top[x + 1] + 2) >> 2;
+      top[15] = (p_top[14] + 3 * p_top[15] + 2) >> 2;
+    }
+    if (has_tl) {
+      if (!has_t || !has_l) {
+        if (has_t) tl = (3 * p_tl + p_top[0] + 2) >> 2;
+        else if (has_l) tl = (3 * p_tl + p_left[0] + 2) >> 2;
+        else tl = p_tl;
+      } else {
+        tl = (p_top[0] + 2 * p_tl + p_left[0] + 2) >> 2;
+      }
+    }
+    if (has_l) {
+      left[0] = has_tl ? (p_tl + 2 * p_left[0] + p_left[1] + 2) >> 2 : (3 * p_left[0] + p_left[1] + 2) >> 2;
+      for (int y = 1; y < 7; ++y) left[y] = (p_left[y - 1] + 2 * p_left[y] + p_left[y + 1] + 2) >> 2;
+      left[7] = (p_left[6] + 3 * p_left[7] + 2) >> 2;
+    }
+    auto T = [&](int x) { return x < 0 ? tl : top[x]; };
+    auto L = [&](int y) { return y < 0 ? tl : left[y]; };
+    bool need_t = mode == 0 || mode == 3 || mode == 4 || mode == 5 || mode == 6 || mode == 7;
+    bool need_l = mode == 1 || mode == 4 || mode == 5 || mode == 6 || mode == 8;
+    bool need_tl = mode == 4 || mode == 5 || mode == 6;
+    if ((need_t && !has_t) || (need_l && !has_l) || (need_tl && !has_tl) || mode > 8)
+      broken("H.264 intra 8x8 mode without its neighbours");
+    uint8_t pred[8][8];
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x) {
+        int v = 0;
+        switch (mode) {
+          case 0: v = top[x]; break;
+          case 1: v = left[y]; break;
+          case 2: {
+            int s = 0;
+            if (has_t && has_l) {
+              for (int i = 0; i < 8; ++i) s += top[i] + left[i];
+              v = (s + 8) >> 4;
+            } else if (has_l) {
+              for (int i = 0; i < 8; ++i) s += left[i];
+              v = (s + 4) >> 3;
+            } else if (has_t) {
+              for (int i = 0; i < 8; ++i) s += top[i];
+              v = (s + 4) >> 3;
+            } else {
+              v = 128;
+            }
+            break;
+          }
+          case 3:
+            if (x == 7 && y == 7) v = (top[14] + 3 * top[15] + 2) >> 2;
+            else v = (top[x + y] + 2 * top[x + y + 1] + top[x + y + 2] + 2) >> 2;
+            break;
+          case 4:
+            if (x > y) v = (T(x - y - 2) + 2 * T(x - y - 1) + T(x - y) + 2) >> 2;
+            else if (x < y) v = (L(y - x - 2) + 2 * L(y - x - 1) + L(y - x) + 2) >> 2;
+            else v = (T(0) + 2 * tl + L(0) + 2) >> 2;
+            break;
+          case 5: {
+            int z = 2 * x - y;
+            if (z >= 0 && !(z & 1)) v = (T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (T(x - (y >> 1) - 2) + 2 * T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * tl + T(0) + 2) >> 2;
+            else v = (L(y - 2 * x - 1) + 2 * L(y - 2 * x - 2) + L(y - 2 * x - 3) + 2) >> 2;
+            break;
+          }
+          case 6: {
+            int z = 2 * y - x;
+            if (z >= 0 && !(z & 1)) v = (L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (L(y - (x >> 1) - 2) + 2 * L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * tl + T(0) + 2) >> 2;
+            else v = (T(x - 2 * y - 1) + 2 * T(x - 2 * y - 2) + T(x - 2 * y - 3) + 2) >> 2;
+            break;
+          }
+          case 7:
+            if (!(y & 1)) v = (top[x + (y >> 1)] + top[x + (y >> 1) + 1] + 1) >> 1;
+            else v = (top[x + (y >> 1)] + 2 * top[x + (y >> 1) + 1] + top[x + (y >> 1) + 2] + 2) >> 2;
+            break;
+          case 8: {
+            int z = x + 2 * y;
+            if (z < 13 && !(z & 1)) v = (left[y + (x >> 1)] + left[y + (x >> 1) + 1] + 1) >> 1;
+            else if (z < 13) v = (left[y + (x >> 1)] + 2 * left[y + (x >> 1) + 1] + left[y + (x >> 1) + 2] + 2) >> 2;
+            else if (z == 13) v = (left[6] + 3 * left[7] + 2) >> 2;
+            else v = left[7];
+            break;
+          }
+        }
+        pred[y][x] = uint8_t(v);
+      }
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x) P[y * W + x] = pred[y][x];
+  }
+
+  void intra16(int mode) {
+    bool has_l = intra_avail(mbA()), has_t = intra_avail(mbB()), has_tl = intra_avail(nb_mb(-1, -1));
+    uint8_t* P = ypix(mb_x * 16, mb_y * 16);
+    int W = cur->w;
+    int top[16], left[16];
+    if (has_t)
+      for (int i = 0; i < 16; ++i) top[i] = P[-W + i];
+    if (has_l)
+      for (int i = 0; i < 16; ++i) left[i] = P[i * W - 1];
+    if ((mode == 0 && !has_t) || (mode == 1 && !has_l) || (mode == 3 && !(has_t && has_l && has_tl)))
+      broken("H.264 intra 16x16 mode without its neighbours");
+    if (mode == 0 || mode == 1) {
+      for (int y = 0; y < 16; ++y)
+        for (int x = 0; x < 16; ++x) P[y * W + x] = uint8_t(mode == 0 ? top[x] : left[y]);
+    } else if (mode == 2) {
+      int s = 0, v;
+      if (has_t && has_l) {
+        for (int i = 0; i < 16; ++i) s += top[i] + left[i];
+        v = (s + 16) >> 5;
+      } else if (has_l) {
+        for (int i = 0; i < 16; ++i) s += left[i];
+        v = (s + 8) >> 4;
+      } else if (has_t) {
+        for (int i = 0; i < 16; ++i) s += top[i];
+        v = (s + 8) >> 4;
+      } else {
+        v = 128;
+      }
+      for (int y = 0; y < 16; ++y) std::memset(P + y * W, v, 16);
+    } else {
+      int tl = P[-W - 1];
+      auto T = [&](int x) { return x < 0 ? tl : top[x]; };
+      auto L = [&](int y) { return y < 0 ? tl : left[y]; };
+      int H = 0, V = 0;
+      for (int k = 0; k < 8; ++k) {
+        H += (k + 1) * (T(8 + k) - T(6 - k));
+        V += (k + 1) * (L(8 + k) - L(6 - k));
+      }
+      int a = 16 * (left[15] + top[15]), b = (5 * H + 32) >> 6, c = (5 * V + 32) >> 6;
+      for (int y = 0; y < 16; ++y)
+        for (int x = 0; x < 16; ++x) P[y * W + x] = clip1((a + b * (x - 7) + c * (y - 7) + 16) >> 5);
+    }
+  }
+
+  void intra_chroma(int mode) {
+    bool has_l = intra_avail(mbA()), has_t = intra_avail(mbB()), has_tl = intra_avail(nb_mb(-1, -1));
+    if ((mode == 1 && !has_l) || (mode == 2 && !has_t) || (mode == 3 && !(has_t && has_l && has_tl)))
+      broken("H.264 intra chroma mode without its neighbours");
+    int W = cur->w / 2;
+    for (int c = 0; c < 2; ++c) {
+      uint8_t* P = cpix(c, mb_x * 8, mb_y * 8);
+      int top[8], left[8];
+      if (has_t)
+        for (int i = 0; i < 8; ++i) top[i] = P[-W + i];
+      if (has_l)
+        for (int i = 0; i < 8; ++i) left[i] = P[i * W - 1];
+      if (mode == 0) {
+        for (int b = 0; b < 4; ++b) {
+          int xo = (b & 1) * 4, yo = (b >> 1) * 4;
+          int st = 0, sl = 0;
+          if (has_t) for (int i = 0; i < 4; ++i) st += top[xo + i];
+          if (has_l) for (int i = 0; i < 4; ++i) sl += left[yo + i];
+          int v;
+          if ((xo == 0 && yo == 0) || (xo > 0 && yo > 0)) {
+            if (has_t && has_l) v = (st + sl + 4) >> 3;
+            else if (has_l) v = (sl + 2) >> 2;
+            else if (has_t) v = (st + 2) >> 2;
+            else v = 128;
+          } else if (xo > 0) {
+            if (has_t) v = (st + 2) >> 2;
+            else if (has_l) v = (sl + 2) >> 2;
+            else v = 128;
+          } else {
+            if (has_l) v = (sl + 2) >> 2;
+            else if (has_t) v = (st + 2) >> 2;
+            else v = 128;
+          }
+          for (int y = 0; y < 4; ++y) std::memset(P + (yo + y) * W + xo, v, 4);
+        }
+      } else if (mode == 1 || mode == 2) {
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x) P[y * W + x] = uint8_t(mode == 1 ? left[y] : top[x]);
+      } else {
+        int tl = P[-W - 1];
+        auto T = [&](int x) { return x < 0 ? tl : top[x]; };
+        auto L = [&](int y) { return y < 0 ? tl : left[y]; };
+        int H = 0, V = 0;
+        for (int k = 0; k < 4; ++k) {
+          H += (k + 1) * (T(4 + k) - T(2 - k));
+          V += (k + 1) * (L(4 + k) - L(2 - k));
+        }
+        int a = 16 * (left[7] + top[7]), b = (34 * H + 32) >> 6, cc = (34 * V + 32) >> 6;
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x) P[y * W + x] = clip1((a + b * (x - 3) + cc * (y - 3) + 16) >> 5);
+      }
+    }
+  }
+
+  // ---------------------------------------------------- inter prediction
+
+  // Luma samples of a w x h block at quarter-sample position (qx, qy)
+  // of `ref` (picture coordinates), read clamped (8.4.2.2.1), into dst
+  // (stride 16). The half-sample planes a position needs are computed
+  // once for the block: b (horizontal), h (vertical), j (centre, from
+  // the unrounded horizontal sums).
+  static void mc_luma(const Frame& ref, int qx, int qy, int w, int h, uint8_t* dst) {
+    int x0 = qx >> 2, y0 = qy >> 2, fx = qx & 3, fy = qy & 3;
+    // G(i, j) = g[(j + 2) * gs + i + 2], rows -2..h+2, columns -2..w+2.
+    uint8_t win[21 * 21];
+    const uint8_t* g;
+    int gs;
+    if (x0 - 2 >= 0 && y0 - 2 >= 0 && x0 + w + 3 <= ref.w && y0 + h + 3 <= ref.h) {
+      gs = ref.w;
+      g = &ref.y[size_t(y0 - 2) * gs + x0 - 2];
+    } else {
+      gs = 21;
+      for (int j = 0; j < h + 5; ++j) {
+        const uint8_t* row = &ref.y[size_t(clip3(0, ref.h - 1, y0 - 2 + j)) * ref.w];
+        for (int i = 0; i < w + 5; ++i) win[j * 21 + i] = row[clip3(0, ref.w - 1, x0 - 2 + i)];
+      }
+      g = win;
+    }
+    auto G = [&](int i, int j) { return int(g[(j + 2) * gs + i + 2]); };
+    int mode = fy * 4 + fx;
+    if (mode == 0) {
+      for (int j = 0; j < h; ++j)
+        for (int i = 0; i < w; ++i) dst[j * 16 + i] = uint8_t(G(i, j));
+      return;
+    }
+    auto tap6 = [](int a, int b, int c, int d, int e, int f) {
+      return a - 5 * b + 20 * c + 20 * d - 5 * e + f;
+    };
+    bool use_j = mode == 6 || mode == 9 || mode == 10 || mode == 11 || mode == 14;
+    bool use_b = fx != 0 && !(mode == 9 || mode == 10 || mode == 11);
+    bool use_h = fy != 0 && !(mode == 6 || mode == 10 || mode == 14);
+    // b1: unrounded horizontal sums, rows -2..h+2 (index j + 2).
+    int b1[21][16];
+    uint8_t B[17][16], H[16][17], J[16][16];
+    if (use_b || use_j) {
+      int lo = use_j ? -2 : 0, hi = use_j ? h + 3 : h + 1;
+      for (int j = lo; j < hi; ++j)
+        for (int i = 0; i < w; ++i)
+          b1[j + 2][i] = tap6(G(i - 2, j), G(i - 1, j), G(i, j), G(i + 1, j), G(i + 2, j), G(i + 3, j));
+      if (use_b)
+        for (int j = 0; j <= h; ++j)
+          for (int i = 0; i < w; ++i) B[j][i] = clip1((b1[j + 2][i] + 16) >> 5);
+    }
+    if (use_h)
+      for (int j = 0; j < h; ++j)
+        for (int i = 0; i <= w; ++i)
+          H[j][i] = clip1((tap6(G(i, j - 2), G(i, j - 1), G(i, j), G(i, j + 1), G(i, j + 2), G(i, j + 3)) + 16) >> 5);
+    if (use_j)
+      for (int j = 0; j < h; ++j)
+        for (int i = 0; i < w; ++i)
+          J[j][i] = clip1((tap6(b1[j][i], b1[j + 1][i], b1[j + 2][i], b1[j + 3][i], b1[j + 4][i], b1[j + 5][i]) + 512) >> 10);
+    for (int j = 0; j < h; ++j)
+      for (int i = 0; i < w; ++i) {
+        int v;
+        switch (mode) {
+          case 1: v = (G(i, j) + B[j][i] + 1) >> 1; break;
+          case 2: v = B[j][i]; break;
+          case 3: v = (G(i + 1, j) + B[j][i] + 1) >> 1; break;
+          case 4: v = (G(i, j) + H[j][i] + 1) >> 1; break;
+          case 5: v = (B[j][i] + H[j][i] + 1) >> 1; break;
+          case 6: v = (B[j][i] + J[j][i] + 1) >> 1; break;
+          case 7: v = (B[j][i] + H[j][i + 1] + 1) >> 1; break;
+          case 8: v = H[j][i]; break;
+          case 9: v = (H[j][i] + J[j][i] + 1) >> 1; break;
+          case 10: v = J[j][i]; break;
+          case 11: v = (J[j][i] + H[j][i + 1] + 1) >> 1; break;
+          case 12: v = (G(i, j + 1) + H[j][i] + 1) >> 1; break;
+          case 13: v = (H[j][i] + B[j + 1][i] + 1) >> 1; break;
+          case 14: v = (J[j][i] + B[j + 1][i] + 1) >> 1; break;
+          default: v = (H[j][i + 1] + B[j + 1][i] + 1) >> 1; break;
+        }
+        dst[j * 16 + i] = uint8_t(v);
+      }
+  }
+
+  static void mc_chroma(const Frame& ref, int c, int ex, int ey, int w, int h, uint8_t* dst) {
+    int cw = ref.w / 2, ch = ref.h / 2;
+    const std::vector<uint8_t>& pl = c == 0 ? ref.u : ref.v;
+    int x0 = ex >> 3, y0 = ey >> 3, fx = ex & 7, fy = ey & 7;
+    for (int j = 0; j < h; ++j) {
+      int ya = clip3(0, ch - 1, y0 + j), yb = clip3(0, ch - 1, y0 + j + 1);
+      for (int i = 0; i < w; ++i) {
+        int xa = clip3(0, cw - 1, x0 + i), xb = clip3(0, cw - 1, x0 + i + 1);
+        int A = pl[size_t(ya) * cw + xa], Bv = pl[size_t(ya) * cw + xb];
+        int C = pl[size_t(yb) * cw + xa], D = pl[size_t(yb) * cw + xb];
+        dst[j * 16 + i] = uint8_t(((8 - fx) * (8 - fy) * A + fx * (8 - fy) * Bv +
+                                   (8 - fx) * fy * C + fx * fy * D + 32) >> 6);
+      }
+    }
+  }
+
+  // Predicts a w4 x h4 block group at (x4, y4) with the motion stored in
+  // the macroblock (both lists as used, weighted) into the picture.
+  void predict_part(int x4, int y4, int w4, int h4) {
+    int b8 = (y4 / 2) * 2 + x4 / 2;
+    int r0 = mb->ref[0][b8], r1 = mb->ref[1][b8];
+    int w = w4 * 4, h = h4 * 4;
+    uint8_t pl[2][3][256];
+    int blk = y4 * 4 + x4;
+    for (int l = 0; l < 2; ++l) {
+      int r = l == 0 ? r0 : r1;
+      if (r < 0) continue;
+      const Frame& ref = *list[l][size_t(r)];
+      if (ref.w != cur->w || ref.h != cur->h) broken("H.264 reference picture of another size");
+      int mx = mb->mv[l][blk][0], my = mb->mv[l][blk][1];
+      int px = mb_x * 16 + x4 * 4, py = mb_y * 16 + y4 * 4;
+      mc_luma(ref, px * 4 + mx, py * 4 + my, w, h, pl[l][0]);
+      for (int c = 0; c < 2; ++c)
+        mc_chroma(ref, c, (px / 2) * 8 + mx, (py / 2) * 8 + my, w / 2, h / 2, pl[l][1 + c]);
+    }
+    if (r0 < 0 && r1 < 0) broken("H.264 inter block without a reference");
+    for (int comp = 0; comp < 3; ++comp) {
+      int cw = comp ? w / 2 : w, chh = comp ? h / 2 : h;
+      uint8_t* dst = comp == 0 ? ypix(mb_x * 16 + x4 * 4, mb_y * 16 + y4 * 4)
+                               : cpix(comp - 1, mb_x * 8 + x4 * 2, mb_y * 8 + y4 * 2);
+      int stride = comp == 0 ? cur->w : cur->w / 2;
+      // Weights: explicit (P), implicit (B) or default.
+      bool explicit_w = sh.type == 0 && pps.weighted_pred;
+      for (int j = 0; j < chh; ++j)
+        for (int i = 0; i < cw; ++i) {
+          int v;
+          if (r0 >= 0 && r1 >= 0) {
+            int a = pl[0][comp][j * 16 + i], b = pl[1][comp][j * 16 + i];
+            if (use_implicit) {
+              int w0 = implicit_w[r0][r1][0], w1 = implicit_w[r0][r1][1];
+              v = clip1((a * w0 + b * w1 + 32) >> 6);
+            } else {
+              v = (a + b + 1) >> 1;
+            }
+          } else {
+            int l = r0 >= 0 ? 0 : 1;
+            int r = l == 0 ? r0 : r1;
+            int a = pl[l][comp][j * 16 + i];
+            if (explicit_w) {
+              int lwd = comp ? sh.chroma_log2 : sh.luma_log2;
+              int wt = comp ? sh.cw[l][r][comp - 1] : sh.lw[l][r];
+              int o = comp ? sh.co[l][r][comp - 1] : sh.lo[l][r];
+              if (lwd >= 1) v = clip1(((a * wt + (1 << (lwd - 1))) >> lwd) + o);
+              else v = clip1(a * wt + o);
+            } else {
+              v = a;
+            }
+          }
+          dst[j * stride + i] = uint8_t(v);
+        }
+    }
+  }
+
+  void inter_pred_mb() {
+    // Predict in 4x4 units grouped where the motion is uniform: each 8x8
+    // block as one unit when its four 4x4 blocks share their motion.
+    for (int b8 = 0; b8 < 4; ++b8) {
+      int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
+      bool same = true;
+      for (int l = 0; l < 2 && same; ++l) {
+        if (mb->ref[l][b8] < 0) continue;
+        for (int k = 1; k < 4; ++k) {
+          int blk = (by + (k >> 1)) * 4 + bx + (k & 1);
+          if (mb->mv[l][blk][0] != mb->mv[l][by * 4 + bx][0] ||
+              mb->mv[l][blk][1] != mb->mv[l][by * 4 + bx][1])
+            same = false;
+        }
+      }
+      if (same) {
+        predict_part(bx, by, 2, 2);
+      } else {
+        for (int k = 0; k < 4; ++k) predict_part(bx + (k & 1), by + (k >> 1), 1, 1);
+      }
+    }
+  }
+
+  // ========================================================= deblocking
+
+  // bS of the edge between 4x4 blocks p (in mp) and q (in mq).
+  int bs_of(const MbInfo& mp, int bp, const MbInfo& mq, int bq, bool mb_edge) {
+    if (mp.intra() || mq.intra()) return mb_edge ? 4 : 3;
+    auto nz = [](const MbInfo& m, int b) {
+      if (m.t8x8) {
+        int b8 = ((b >> 3) << 1) | ((b & 3) >> 1);
+        int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
+        for (int k = 0; k < 4; ++k)
+          if (m.nz[(by + (k >> 1)) * 4 + bx + (k & 1)]) return true;
+        return false;
+      }
+      return m.nz[b] != 0;
+    };
+    if (nz(mp, bp) || nz(mq, bq)) return 2;
+    int p8 = ((bp >> 3) << 1) | ((bp & 3) >> 1), q8 = ((bq >> 3) << 1) | ((bq & 3) >> 1);
+    int pr[2] = {mp.ref[0][p8] >= 0 ? mp.refid[0][p8] : -1, mp.ref[1][p8] >= 0 ? mp.refid[1][p8] : -1};
+    int qr[2] = {mq.ref[0][q8] >= 0 ? mq.refid[0][q8] : -1, mq.ref[1][q8] >= 0 ? mq.refid[1][q8] : -1};
+    int np = (pr[0] >= 0) + (pr[1] >= 0), nq = (qr[0] >= 0) + (qr[1] >= 0);
+    if (np != nq) return 1;
+    auto far = [](const int16_t* a, const int16_t* b) {
+      return std::abs(a[0] - b[0]) >= 4 || std::abs(a[1] - b[1]) >= 4;
+    };
+    if (np == 1) {
+      int lp = pr[0] >= 0 ? 0 : 1, lq = qr[0] >= 0 ? 0 : 1;
+      if (pr[lp] != qr[lq]) return 1;
+      return far(mp.mv[lp][bp], mq.mv[lq][bq]) ? 1 : 0;
+    }
+    // Two motion vectors each.
+    bool same_set = (pr[0] == qr[0] && pr[1] == qr[1]) || (pr[0] == qr[1] && pr[1] == qr[0]);
+    if (!same_set) return 1;
+    if (pr[0] != pr[1]) {
+      if (pr[0] == qr[0])
+        return (far(mp.mv[0][bp], mq.mv[0][bq]) || far(mp.mv[1][bp], mq.mv[1][bq])) ? 1 : 0;
+      return (far(mp.mv[0][bp], mq.mv[1][bq]) || far(mp.mv[1][bp], mq.mv[0][bq])) ? 1 : 0;
+    }
+    bool straight = far(mp.mv[0][bp], mq.mv[0][bq]) || far(mp.mv[1][bp], mq.mv[1][bq]);
+    bool crossed = far(mp.mv[0][bp], mq.mv[1][bq]) || far(mp.mv[1][bp], mq.mv[0][bq]);
+    return (straight && crossed) ? 1 : 0;
+  }
+
+  // Filters one line of samples across an edge (8.7.2.3-4): p[-k * step]
+  // are p0..p3, p[k * step] q0..q3.
+  static void filter_line(uint8_t* s, int step, int bs, int alpha, int beta, int tc0, bool chroma) {
+    int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
+    if (!(std::abs(p0 - q0) < alpha && std::abs(p1 - p0) < beta && std::abs(q1 - q0) < beta)) return;
+    if (bs < 4) {
+      int tc;
+      int p2 = 0, q2 = 0, ap = 0, aq = 0;
+      if (chroma) {
+        tc = tc0 + 1;
+      } else {
+        p2 = s[-3 * step];
+        q2 = s[2 * step];
+        ap = std::abs(p2 - p0);
+        aq = std::abs(q2 - q0);
+        tc = tc0 + (ap < beta) + (aq < beta);
+      }
+      int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
+      s[-step] = clip1(p0 + delta);
+      s[0] = clip1(q0 - delta);
+      if (!chroma) {
+        if (ap < beta) s[-2 * step] = uint8_t(p1 + clip3(-tc0, tc0, (p2 + ((p0 + q0 + 1) >> 1) - (p1 << 1)) >> 1));
+        if (aq < beta) s[step] = uint8_t(q1 + clip3(-tc0, tc0, (q2 + ((p0 + q0 + 1) >> 1) - (q1 << 1)) >> 1));
+      }
+      return;
+    }
+    if (chroma) {
+      s[-step] = uint8_t((2 * p1 + p0 + q1 + 2) >> 2);
+      s[0] = uint8_t((2 * q1 + q0 + p1 + 2) >> 2);
+      return;
+    }
+    int p2 = s[-3 * step], q2 = s[2 * step], p3 = s[-4 * step], q3 = s[3 * step];
+    int ap = std::abs(p2 - p0), aq = std::abs(q2 - q0);
+    bool strong = std::abs(p0 - q0) < ((alpha >> 2) + 2);
+    if (ap < beta && strong) {
+      s[-step] = uint8_t((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+      s[-2 * step] = uint8_t((p2 + p1 + p0 + q0 + 2) >> 2);
+      s[-3 * step] = uint8_t((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+    } else {
+      s[-step] = uint8_t((2 * p1 + p0 + q1 + 2) >> 2);
+    }
+    if (aq < beta && strong) {
+      s[0] = uint8_t((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+      s[step] = uint8_t((p0 + q0 + q1 + q2 + 2) >> 2);
+      s[2 * step] = uint8_t((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3);
+    } else {
+      s[0] = uint8_t((2 * q1 + q0 + p1 + 2) >> 2);
+    }
+  }
+
+  void deblock_picture() {
+    std::vector<MbInfo>& M = cur->mbs;
+    // The deblocking parameters of each slice (from its header).
+    for (int addr = 0; addr < mb_w * mb_h; ++addr) {
+      const MbInfo& q = M[size_t(addr)];
+      const SliceParams& sp = slice_params[size_t(q.slice)];
+      if (sp.idc == 1) continue;
+      int x = addr % mb_w, y = addr / mb_w;
+      for (int dir = 0; dir < 2; ++dir) {            // 0 vertical edges, 1 horizontal
+        for (int e = 0; e < 4; ++e) {
+          bool mb_edge = e == 0;
+          const MbInfo* p;
+          if (mb_edge) {
+            if (dir == 0 ? x == 0 : y == 0) continue;
+            p = &M[size_t(dir == 0 ? addr - 1 : addr - mb_w)];
+            if (sp.idc == 2 && p->slice != q.slice) continue;
+          } else {
+            p = &q;
+            if (q.t8x8 && (e & 1)) continue;
+          }
+          int bs[4];
+          bool any = false;
+          for (int k = 0; k < 4; ++k) {
+            int bq = dir == 0 ? k * 4 + e : e * 4 + k;
+            int bp = mb_edge ? (dir == 0 ? k * 4 + 3 : 12 + k) : (dir == 0 ? bq - 1 : bq - 4);
+            bs[k] = bs_of(*p, bp, q, bq, mb_edge);
+            any |= bs[k] > 0;
+          }
+          if (!any) continue;
+          // Luma.
+          {
+            int qpav = (p->qp + q.qp + 1) >> 1;
+            int ia = clip3(0, 51, qpav + sp.alpha), ib = clip3(0, 51, qpav + sp.beta);
+            int alpha = kAlpha[ia], beta = kBeta[ib];
+            for (int k = 0; k < 16; ++k) {
+              int b = bs[k >> 2];
+              if (!b) continue;
+              int px = x * 16 + (dir == 0 ? e * 4 : k), py = y * 16 + (dir == 0 ? k : e * 4);
+              uint8_t* s = &cur->y[size_t(py) * cur->w + px];
+              filter_line(s, dir == 0 ? 1 : cur->w, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, false);
+            }
+          }
+          // Chroma: edges 0 and 2 of luma (chroma 0 and 4).
+          if (e & 1) continue;
+          for (int c = 0; c < 2; ++c) {
+            int qpav = (p->qpc[c] + q.qpc[c] + 1) >> 1;
+            if (p->kind == kPcm || q.kind == kPcm) {
+              int qp_p = p->kind == kPcm ? kChromaQp[clip3(0, 51, pps.chroma_qp_offset[c])] : p->qpc[c];
+              int qp_q = q.kind == kPcm ? kChromaQp[clip3(0, 51, pps.chroma_qp_offset[c])] : q.qpc[c];
+              qpav = (qp_p + qp_q + 1) >> 1;
+            }
+            int ia = clip3(0, 51, qpav + sp.alpha), ib = clip3(0, 51, qpav + sp.beta);
+            int alpha = kAlpha[ia], beta = kBeta[ib];
+            int W = cur->w / 2;
+            std::vector<uint8_t>& pl = c == 0 ? cur->u : cur->v;
+            for (int k = 0; k < 8; ++k) {
+              int b = bs[k >> 1];
+              if (!b) continue;
+              int px = x * 8 + (dir == 0 ? e * 2 : k), py = y * 8 + (dir == 0 ? k : e * 2);
+              uint8_t* s = &pl[size_t(py) * W + px];
+              filter_line(s, dir == 0 ? 1 : W, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, true);
+            }
+          }
+        }
+      }
+    }
+    slice_params.clear();
+  }
+
+  // Each slice's deblocking parameters, by slice number.
+  struct SliceParams {
+    int idc, alpha, beta;
+  };
+  std::vector<SliceParams> slice_params;
+};
+
+H264Decoder::H264Decoder(const std::vector<uint8_t>& config) : s_(new State()) {
+  if (config.empty()) return;
+  if (config[0] == 1) s_->read_avcc(config);
+  else headers(config.data(), config.size());   // Annex B parameter sets
+}
+H264Decoder::~H264Decoder() = default;
+
+bool H264Decoder::decode(const uint8_t* data, size_t n, Picture& out) {
+  return s_->decode(data, n, out);
+}
+
+bool H264Decoder::flush(Picture& out) { return s_->flush(out); }
+
+void H264Decoder::headers(const uint8_t* data, size_t n) {
+  s_->for_each_nal(data, n, [&](const uint8_t* u, size_t len) { s_->parameter_set(u, len); });
+}
+
+int H264Decoder::peek(const uint8_t* data, size_t n) {
+  int kind = -1;
+  s_->for_each_nal(data, n, [&](const uint8_t* u, size_t) {
+    int t = u[0] & 31;
+    if (t == 5) kind = 0;
+    else if (t == 1 && kind < 0) kind = 1;
+  });
+  return kind;
+}
+
+}  // namespace viai_video

@@ -97,4 +97,32 @@ class Vp9Decoder {
   std::unique_ptr<State> s_;
 };
 
+// The H.264 decoder (progressive 8-bit 4:2:0: Baseline, Main and High
+// profiles) for x264's streams (see h264.cpp).
+class H264Decoder {
+ public:
+  // `config`: the avcC record of an MP4 avc1/avc3 sample entry or a
+  // Matroska V_MPEG4/ISO/AVC track, whose packets carry length-prefixed
+  // NAL units; empty for Annex B packets (start codes, as in AVI).
+  explicit H264Decoder(const std::vector<uint8_t>& config);
+  ~H264Decoder();
+  // Decode one packet (an access unit); true with `out` filled when
+  // libavcodec would output a picture after it (in its output order,
+  // after its reorder delay).
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // At the end of the stream: the next picture still held back; false
+  // when none is left.
+  bool flush(Picture& out);
+  // Read one packet's parameter sets only (the packets before a later
+  // starting point).
+  void headers(const uint8_t* data, size_t n);
+  // Read one packet's NAL unit types only: 0 when it holds an IDR
+  // picture, 1 another picture, -1 none.
+  int peek(const uint8_t* data, size_t n);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
 }  // namespace viai_video

@@ -1,7 +1,7 @@
 // Compressed video reader of viai_tpu_torch: the containers, the MJPEG
 // decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
 // (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
-// vp8.cpp VP8, vp9.cpp VP9).
+// vp8.cpp VP8, vp9.cpp VP9, h264.cpp H.264).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -13,11 +13,14 @@
 //     first `vide` track's sample tables) and Matroska/WebM (EBML,
 //     unknown-size elements, SimpleBlock and BlockGroup with Xiph, EBML
 //     and fixed lacing; VP8 and VP9 in MP4 under their vp08/vp09 sample
-//     entries and vpcC boxes). Each gives the track's packets in decode order,
-//     byte for byte as libavformat gives them, and the frame count that
-//     cv2's CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the
-//     sample count, Matroska round(duration · fps) with libavformat's
-//     duration and av_reduce'd DefaultDuration.
+//     entries and vpcC boxes; H.264 under avc1/avc3 with its avcC box,
+//     V_MPEG4/ISO/AVC with its avcC CodecPrivate, and Annex B in AVI).
+//     Each gives the track's packets in decode order, byte for byte as
+//     libavformat gives them (H.264 in MP4 and Matroska before cv2's
+//     h264_mp4toannexb), and the frame count that cv2's
+//     CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the sample
+//     count, Matroska round(duration · fps) with libavformat's duration
+//     and av_reduce'd DefaultDuration.
 //   * MJPEG: imagedec.cpp's entropy decoder (annex K tables until a DHT,
 //     the AVI1 convention), ffmpeg's simple IDCT into yuvj420p planes.
 //   * the conversion to BGR24 that swscale does for 4:2:0 at the same
@@ -35,7 +38,8 @@
 //     the frames found re-picked by the window rule over (0, 1). A
 //     frame is a packet that gives a picture: every MJPEG packet, an
 //     MPEG-4 packet with a coded VOP, a VP8 packet whose frame tag has
-//     show_frame set, a VP9 packet one of whose frames is shown.
+//     show_frame set, a VP9 packet one of whose frames is shown; H.264
+//     frames count in the decoder's output order.
 //
 // Errors: a broken file gives code 1 (ValueError), a codec, container or
 // feature that is not read code 2 (NotImplementedError), naming it.
@@ -104,7 +108,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // Containers
 // =====================================================================
 
-enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kOther };
+enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kH264, kOther };
 
 struct Packet {
   size_t off = 0;
@@ -118,7 +122,8 @@ struct Track {
   std::string tag;              // fourcc or CodecID, for messages
   std::string container;
   int width = 0, height = 0;    // as the container gives them
-  std::vector<uint8_t> config;  // MPEG-4 headers (esds, CodecPrivate, strf)
+  std::vector<uint8_t> config;  // MPEG-4 headers (esds, CodecPrivate, strf);
+                                // H.264's avcC record
   std::vector<Packet> packets;
   int64_t count = 0;            // cv2's CAP_PROP_FRAME_COUNT
 };
@@ -139,6 +144,8 @@ Codec riff_codec(const std::string& tag) {
     if (u == t) return Codec::kMpeg4;
   if (u == "VP80") return Codec::kVp8;
   if (u == "VP90") return Codec::kVp9;
+  if (u == "H264" || u == "X264" || u == "AVC1" || u == "DAVC")
+    return Codec::kH264;
   return Codec::kOther;
 }
 
@@ -361,6 +368,38 @@ void read_vpcc(Track& t, const std::vector<Box>& entry_boxes) {
   t.codec = t.tag == "vp08" ? Codec::kVp8 : Codec::kVp9;
 }
 
+// The composition time of the first presented sample (stts decode
+// times plus ctts offsets; 0 without ctts).
+int64_t first_composition(const std::vector<uint8_t>& f,
+                          const std::vector<Box>& sb, size_t n) {
+  const Box* stts = child(sb, "stts");
+  const Box* ctts = child(sb, "ctts");
+  if (!ctts || n == 0) return 0;
+  if (!stts || stts->body + 8 > stts->end || ctts->body + 8 > ctts->end)
+    broken("MP4 stts or ctts cut short");
+  std::vector<int64_t> dts, cto;
+  uint32_t runs = be32(&f[stts->body + 4]);
+  if (stts->body + 8 + 8 * size_t(runs) > stts->end) broken("MP4 stts cut short");
+  int64_t t = 0;
+  for (uint32_t r = 0; r < runs && dts.size() < n; ++r) {
+    uint32_t cnt = be32(&f[stts->body + 8 + 8 * r]);
+    uint32_t delta = be32(&f[stts->body + 12 + 8 * r]);
+    for (uint32_t k = 0; k < cnt && dts.size() < n; ++k, t += delta)
+      dts.push_back(t);
+  }
+  runs = be32(&f[ctts->body + 4]);
+  if (ctts->body + 8 + 8 * size_t(runs) > ctts->end) broken("MP4 ctts cut short");
+  for (uint32_t r = 0; r < runs && cto.size() < n; ++r) {
+    uint32_t cnt = be32(&f[ctts->body + 8 + 8 * r]);
+    int32_t off = int32_t(be32(&f[ctts->body + 12 + 8 * r]));
+    for (uint32_t k = 0; k < cnt && cto.size() < n; ++k) cto.push_back(off);
+  }
+  if (dts.size() < n || cto.size() < n) broken("MP4 stts or ctts shorter than the track");
+  int64_t first = dts[0] + cto[0];
+  for (size_t i = 1; i < n; ++i) first = std::min(first, dts[i] + cto[i]);
+  return first;
+}
+
 void demux_mp4(Track& t) {
   const std::vector<uint8_t>& f = t.file;
   t.container = "MP4";
@@ -377,6 +416,11 @@ void demux_mp4(Track& t) {
     if (!hdlr || hdlr->body + 12 > hdlr->end ||
         std::memcmp(&f[hdlr->body + 8], "vide", 4) != 0)
       continue;
+    // The edit list: one edit at rate 1 from the first presented
+    // sample's composition time (0 without B-frames) over the track,
+    // as ffmpeg's muxer writes it; cv2 then reads every sample.
+    bool edited = false;
+    int64_t edit_start = 0;
     if (const Box* edts = child(tb, "edts")) {
       for (const Box& elst : boxes(f, edts->body, edts->end)) {
         if (elst.type != "elst" || elst.body + 8 > elst.end) continue;
@@ -389,8 +433,10 @@ void demux_mp4(Track& t) {
         int64_t media_time = version == 1 ? int64_t(be64(e + 8))
                                           : int32_t(be32(e + 4));
         uint32_t rate = be32(e + (version == 1 ? 16 : 8));
-        if (entries != 1 || media_time != 0 || rate != 0x10000)
+        if (entries != 1 || media_time < 0 || rate != 0x10000)
           unsupported("MP4 edit list other than one whole-track edit");
+        edited = true;
+        edit_start = media_time;
       }
     }
     const Box* minf = child(mb, "minf");
@@ -411,6 +457,12 @@ void demux_mp4(Track& t) {
     t.height = (f[entry + 34] << 8) | f[entry + 35];
     if (t.tag == "jpeg" || t.tag == "mjpa" || t.tag == "MJPG") {
       t.codec = Codec::kMjpeg;
+    } else if (t.tag == "avc1" || t.tag == "avc3") {
+      std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
+      const Box* avcc = child(eb, "avcC");
+      if (!avcc) broken("MP4 '" + t.tag + "' sample entry without its avcC box");
+      t.config.assign(f.begin() + avcc->body, f.begin() + avcc->end);
+      t.codec = Codec::kH264;
     } else if (t.tag == "vp08" || t.tag == "vp09") {
       read_vpcc(t, boxes(f, entry + 86, entry + esz));
     } else if (t.tag == "mp4v") {
@@ -508,6 +560,8 @@ void demux_mp4(Track& t) {
       }
     }
     t.count = int64_t(sizes.size());
+    if (edited && edit_start != first_composition(f, sb, sizes.size()))
+      unsupported("MP4 edit list other than one whole-track edit");
     return;
   }
   broken("MP4 file without a video track");
@@ -784,6 +838,12 @@ void demux_mkv(Track& t) {
               t.codec = Codec::kVp8;
             } else if (codec == "V_VP9") {
               t.codec = Codec::kVp9;
+            } else if (codec == "V_MPEG4/ISO/AVC") {
+              t.codec = Codec::kH264;
+              t.config = priv;
+              if (priv.empty())
+                broken("Matroska V_MPEG4/ISO/AVC track without its avcC "
+                       "CodecPrivate");
             } else if (codec == "V_MPEG4/ISO/SP" ||
                        codec == "V_MPEG4/ISO/ASP" ||
                        codec == "V_MPEG4/ISO/AP") {
@@ -1176,6 +1236,7 @@ class Decoder {
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
     if (t.codec == Codec::kVp8) vp8_.reset(new Vp8Decoder());
     if (t.codec == Codec::kVp9) vp9_.reset(new Vp9Decoder());
+    if (t.codec == Codec::kH264) h264_.reset(new H264Decoder(t.config));
   }
 
   // Packet i → its picture in `out`; false when it holds none.
@@ -1188,19 +1249,25 @@ class Decoder {
     }
     if (vp8_) return vp8_->decode(d, p.size, out);
     if (vp9_) return vp9_->decode(d, p.size, out);
+    if (h264_) return h264_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
-  // Read packet i's headers only (MPEG-4: a VOL it holds is kept).
+  // At the end of the track: a picture the decoder still holds back
+  // (H.264's reorder delay); false when none is left.
+  bool flush(Picture& out) { return h264_ && h264_->flush(out); }
+
+  // Read packet i's headers only (MPEG-4: a VOL it holds is kept;
+  // H.264: its parameter sets).
   void skip(size_t i) {
-    if (mpeg4_) mpeg4_->peek(&t_.file[t_.packets[i].off], t_.packets[i].size);
+    const uint8_t* d = &t_.file[t_.packets[i].off];
+    if (mpeg4_) mpeg4_->peek(d, t_.packets[i].size);
+    if (h264_) h264_->headers(d, t_.packets[i].size);
   }
 
   static std::string codec_name(const std::string& tag) {
     std::string u = upper(tag);
     auto has = [&](const char* s) { return u.find(s) != std::string::npos; };
-    if (has("AVC") || has("H264") || has("X264") || has("DAVC"))
-      return "H.264, not read";
     if (has("HEVC") || has("HVC1") || has("HEV1") || has("H265"))
       return "HEVC, not read";
     if (has("AV1") || has("AV01")) return "AV1, not read";
@@ -1213,6 +1280,7 @@ class Decoder {
   std::unique_ptr<Mpeg4Decoder> mpeg4_;
   std::unique_ptr<Vp8Decoder> vp8_;
   std::unique_ptr<Vp9Decoder> vp9_;
+  std::unique_ptr<H264Decoder> h264_;
 };
 
 }  // namespace
@@ -1262,9 +1330,8 @@ void* viai_video_open(const char* path, int32_t* code, char* err,
 void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 
 // info = (width, height, cv2's frame count, packets, config bytes,
-// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 another); tag and
-// container
-// names.
+// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 another);
+// tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
   const Track& t = static_cast<Handle*>(hp)->track;
@@ -1303,8 +1370,7 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
     std::vector<uint8_t> all;
     int64_t frames = 0, w = 0, h = 0;
     Picture pic;
-    for (size_t i = 0; i < t.packets.size(); ++i) {
-      if (!dec.decode(i, pic)) continue;
+    auto take = [&]() {
       std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
       if (frames && (pic.w != w || pic.h != h))
         viai_video::unsupported("a picture size that changes mid-stream");
@@ -1312,7 +1378,10 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
       h = pic.h;
       all.insert(all.end(), bgr.begin(), bgr.end());
       ++frames;
-    }
+    };
+    for (size_t i = 0; i < t.packets.size(); ++i)
+      if (dec.decode(i, pic)) take();
+    while (dec.flush(pic)) take();
     if (!frames) viai_video::broken("no frames decoded");
     uint8_t* out = static_cast<uint8_t*>(std::malloc(all.size()));
     if (!out) viai_video::broken("out of memory");
@@ -1341,8 +1410,9 @@ void viai_video_free(uint8_t* p) { std::free(p); }
 // then re-picked by the window rule over (0, 1) when their number is
 // not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
 // last I-VOP at or before the first pick to the last pick, VP8 and VP9
-// from the last shown keyframe at or before it. → 0, or 1 broken / 2 unsupported
-// with err set.
+// from the last shown keyframe at or before it, H.264 (whose frames count
+// in output order) from the last IDR picture at or before it until the
+// last pick is output. → 0, or 1 broken / 2 unsupported with err set.
 int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                int32_t size, double w0, double w1,
                                float* out, char* err, int32_t errlen) {
@@ -1356,52 +1426,89 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     std::vector<int64_t> want(idx);
     std::sort(want.begin(), want.end());
     want.erase(std::unique(want.begin(), want.end()), want.end());
-    // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
-    // frame when it holds a VOP, a VP8 or VP9 packet when it shows one.
-    std::vector<int64_t> frame_of(t.packets.size(), -1);
-    std::vector<int> vop(t.packets.size(), 0);
-    int64_t frames = 0;
-    std::unique_ptr<viai_video::Mpeg4Decoder> scan;
-    if (t.codec == viai_video::Codec::kMpeg4)
-      scan.reset(new viai_video::Mpeg4Decoder(t.config, t.tag));
-    for (size_t i = 0; i < t.packets.size(); ++i) {
-      const viai_video::Packet& p = t.packets[i];
-      vop[i] = scan ? scan->peek(&t.file[p.off], p.size)
-               : t.codec == viai_video::Codec::kVp8
-                   ? viai_video::Vp8Decoder::peek(&t.file[p.off], p.size)
-               : t.codec == viai_video::Codec::kVp9
-                   ? viai_video::Vp9Decoder::peek(&t.file[p.off], p.size)
-                   : 0;
-      if (vop[i] >= 0) frame_of[i] = frames++;
-    }
-    size_t first = 0, last = 0;
-    bool any = false;
-    for (size_t i = 0; i < t.packets.size(); ++i) {
-      if (frame_of[i] < 0 ||
-          !std::binary_search(want.begin(), want.end(), frame_of[i]))
-        continue;
-      if (!any) first = i;
-      last = i;
-      any = true;
-    }
-    if (!any) viai_video::broken("no frames decoded");
-    size_t start = first;
-    if (t.codec != viai_video::Codec::kMjpeg)
-      while (start > 0 && vop[start] != 0) --start;
-    // Headers (an in-band VOL) may precede that I-VOP.
-    for (size_t i = 0; i < start; ++i) dec.skip(i);
     const int64_t fsz = int64_t(size) * size * 3;
     std::vector<float> got;
     Picture pic;
-    for (size_t i = start; i <= last; ++i) {
-      bool picked = frame_of[i] >= 0 &&
-                    std::binary_search(want.begin(), want.end(), frame_of[i]);
-      if (t.codec == viai_video::Codec::kMjpeg && !picked) continue;
-      if (!dec.decode(i, pic) || !picked) continue;
+    auto keep = [&]() {
       std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
       got.resize(got.size() + size_t(fsz));
       viai_video::resize_rgb(bgr.data(), pic.h, pic.w, size,
                              &got[got.size() - size_t(fsz)]);
+    };
+    auto wanted = [&](int64_t f) {
+      return std::binary_search(want.begin(), want.end(), f);
+    };
+    if (t.codec == viai_video::Codec::kH264) {
+      // H.264 frames count in output order, which B-frames make differ
+      // from packet order. Every picture before an IDR picture is output
+      // before it, so an IDR packet's frame number is the count of
+      // pictures before it: decode from the last IDR at or before the
+      // first pick until the last pick is output.
+      viai_video::H264Decoder scan(t.config);
+      int64_t pics = 0, n = 0;
+      size_t start = 0;
+      for (size_t i = 0; i < t.packets.size(); ++i) {
+        int kind = scan.peek(&t.file[t.packets[i].off], t.packets[i].size);
+        if (kind == 0 && pics <= want.front()) {
+          start = i;
+          n = pics;
+        }
+        if (kind >= 0) ++pics;
+      }
+      for (size_t i = 0; i < start; ++i) dec.skip(i);
+      bool done = false;
+      for (size_t i = start; i < t.packets.size() && !done; ++i) {
+        if (!dec.decode(i, pic)) continue;
+        if (wanted(n)) keep();
+        done = ++n > want.back();
+      }
+      while (!done && dec.flush(pic)) {
+        if (wanted(n)) keep();
+        done = ++n > want.back();
+      }
+      if (got.empty()) viai_video::broken("no frames decoded");
+    } else {
+      // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
+      // frame when it holds a VOP, a VP8 or VP9 packet when it shows one.
+      std::vector<int64_t> frame_of(t.packets.size(), -1);
+      std::vector<int> vop(t.packets.size(), 0);
+      int64_t frames = 0;
+      std::unique_ptr<viai_video::Mpeg4Decoder> scan;
+      if (t.codec == viai_video::Codec::kMpeg4)
+        scan.reset(new viai_video::Mpeg4Decoder(t.config, t.tag));
+      for (size_t i = 0; i < t.packets.size(); ++i) {
+        const viai_video::Packet& p = t.packets[i];
+        vop[i] = scan ? scan->peek(&t.file[p.off], p.size)
+                 : t.codec == viai_video::Codec::kVp8
+                     ? viai_video::Vp8Decoder::peek(&t.file[p.off], p.size)
+                 : t.codec == viai_video::Codec::kVp9
+                     ? viai_video::Vp9Decoder::peek(&t.file[p.off], p.size)
+                     : 0;
+        if (vop[i] >= 0) frame_of[i] = frames++;
+      }
+      size_t first = 0, last = 0;
+      bool any = false;
+      for (size_t i = 0; i < t.packets.size(); ++i) {
+        if (frame_of[i] < 0 ||
+            !std::binary_search(want.begin(), want.end(), frame_of[i]))
+          continue;
+        if (!any) first = i;
+        last = i;
+        any = true;
+      }
+      if (!any) viai_video::broken("no frames decoded");
+      size_t start = first;
+      if (t.codec != viai_video::Codec::kMjpeg)
+        while (start > 0 && vop[start] != 0) --start;
+      // Headers (an in-band VOL) may precede that I-VOP.
+      for (size_t i = 0; i < start; ++i) dec.skip(i);
+      for (size_t i = start; i <= last; ++i) {
+        bool picked = frame_of[i] >= 0 &&
+                      std::binary_search(want.begin(), want.end(), frame_of[i]);
+        if (t.codec == viai_video::Codec::kMjpeg && !picked) continue;
+        if (!dec.decode(i, pic) || !picked) continue;
+        keep();
+      }
     }
     int64_t k = int64_t(got.size() / size_t(fsz));
     std::vector<int64_t> pick(n_frames);

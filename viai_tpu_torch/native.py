@@ -220,7 +220,7 @@ def load_frame_dir(path: str, n_frames: int, size: int,
 
 
 # videodec.cpp's codecs (VideoTrack.codec).
-VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "other")
+VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "other")
 # The AVI video formats of data/avi.py, which load_frames reads.
 RAW_AVI_TAGS = ("RGBA", "BI_RGB")
 
@@ -230,10 +230,12 @@ class VideoTrack:
     """A video file's first video track as the port's demuxer gives it:
     the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
-    ("mjpeg", "mpeg4", "vp8", "vp9" or "other"), the size the container
-    gives, the frame count cv2's CAP_PROP_FRAME_COUNT reports, the MPEG-4
-    headers the container holds (`config`) and the packets in decode order,
-    each (bytes, the container's keyframe flag)."""
+    ("mjpeg", "mpeg4", "vp8", "vp9", "h264" or "other"), the size the
+    container gives, the frame count cv2's CAP_PROP_FRAME_COUNT reports,
+    the MPEG-4 headers or H.264 avcC record the container holds (`config`)
+    and the packets in decode order, each (bytes, the container's keyframe
+    flag): H.264's as the container holds them (length-prefixed NAL units
+    in MP4 and Matroska, Annex B in AVI)."""
     container: str
     tag: str
     codec: str
@@ -258,7 +260,8 @@ def _open_video(path: str):
 def video_track(path: str, packets: bool = True) -> VideoTrack:
     """Demux `path` (AVI, MP4/MOV, Matroska/WebM). Raises ValueError for
     a broken file, NotImplementedError for a container feature that is
-    not read (an OpenDML index, an edit list, Matroska content
+    not read (an OpenDML index, an MP4 edit list other than one
+    whole-track edit from the first presented sample, Matroska content
     encodings)."""
     lib, h = _open_video(path)
     try:
@@ -285,10 +288,12 @@ def decode_video(path: str) -> np.ndarray:
     """Every frame of a video file, (T, H, W, 3) BGR uint8, as cv2's
     `VideoCapture(path).read()` gives them: MJPEG, MPEG-4 Part 2 (the
     I- and P-VOPs of ffmpeg's encoder), VP8 and VP9 (profile 0: their
-    shown frames; in AVI, Matroska/WebM and MP4), converted to BGR24 as
-    swscale does. Raises ValueError for a broken file or one without
-    frames, NotImplementedError naming the codec (H.264, HEVC, AV1, FFV1,
-    ...) or the MPEG-4, VP8 or VP9 feature it does not read."""
+    shown frames), H.264 (progressive 8-bit 4:2:0: Baseline, Main and
+    High, in libavcodec's output order); in AVI, Matroska/WebM and MP4,
+    converted to BGR24 as swscale does. Raises ValueError for a broken
+    file or one without frames, NotImplementedError naming the codec
+    (HEVC, AV1, FFV1, ...) or the MPEG-4, VP8, VP9 or H.264 feature it
+    does not read."""
     lib, h = _open_video(path)
     try:
         thw = (ctypes.c_int64 * 3)()

@@ -22,9 +22,10 @@ Port of `scripts/prepare_dataset.py`, with its modes and flags:
   manifest  — a MUSICES.json-style manifest of a prepared tree;
   synthetic — N synthetic wav clips (+ frame stacks) for demos.
 
-Video the port does not read (H.264, HEVC, AV1, FFV1, which the JAX
-package decodes with cv2; a VP8 feature libvpx does not write; a VP9
-profile other than 0; a broken file) is listed by extract
+Video the port does not read (HEVC, AV1, FFV1, which the JAX package
+decodes with cv2; a VP8 feature libvpx does not write; a VP9 profile
+other than 0; H.264 other than 8-bit 4:2:0 progressive; a broken file)
+is listed by extract
 and frames as skipped with the reason; extract --require_audio skips
 frames-only clips too and then exits 1. Each mode appends one record to
 {--results_dir}/quality_results.jsonl. The work is on the host (numpy
