@@ -323,7 +323,11 @@ FRAMES_WARMUP = 3
 # of the 224x224 jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv
 # (MPEG-4), clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8),
 # clip_vp9.webm and clip_vp9.mp4 (VP9), clip_h264.mp4 (High, CABAC,
-# B-frames) and clip_h264.mkv (Main, CAVLC). Decoded
+# B-frames) and clip_h264.mkv (Main, CAVLC), clip_cam.avi (a webcam's
+# MJPEG 4:2:2 in an OpenDML AVI with a RIFF AVIX), clip_cut.mp4 (High cut
+# as `ffmpeg -ss ... -c copy` leaves it: an edit that drops the first 4 of
+# 20 frames) and clip_oddh.avi (MJPEG 4:2:0 at 224x223, swscale's scaler
+# path; timed only). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -338,7 +342,8 @@ VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "vp8": ("clip.webm", "clip_vp8.mkv"),
                  "vp9": ("clip_vp9.webm", "clip_vp9.mp4"),
-                 "h264": ("clip_h264.mp4", "clip_h264.mkv")}
+                 "h264": ("clip_h264.mp4", "clip_h264.mkv"),
+                 "cam_cut": ("clip_cam.avi", "clip_cut.mp4")}
 VIDEO_REPS = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
@@ -1882,8 +1887,9 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     (b) the av model trained 20 steps at full width through the train CLI
     from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
     Matroska, and a MOV through prepare_dataset extract), VP8 clips
-    (WebM, Matroska), VP9 clips (WebM, MP4), then H.264 clips (MP4,
-    Matroska);
+    (WebM, Matroska), VP9 clips (WebM, MP4), H.264 clips (MP4,
+    Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
+    H.264 in MP4 under a trimming edit);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a clip's read, the loader's wait share of a step
     from each folder. Returns the GL kernel's launches."""
@@ -1958,13 +1964,16 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_vp8.mkv", "VP8"), ("clip_vp9.webm", "VP9"),
                        ("clip_vp9.mp4", "VP9"),
                        ("clip_h264.mp4", "H.264 High"),
-                       ("clip_h264.mkv", "H.264 Main")):
+                       ("clip_h264.mkv", "H.264 Main"),
+                       ("clip_cam.avi", "MJPEG 4:2:2, OpenDML"),
+                       ("clip_cut.mp4", "H.264 High, 4 of 20 frames cut"),
+                       ("clip_oddh.avi", "MJPEG 4:2:0, odd height")):
         path = str(VIDEO_FIXTURES / src)
-        n = native.video_track(path, packets=False).count
+        n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
         read = best_ms(lambda: native.load_video_frames(path, FRAMES[0],
                                                         FRAMES[1]))
-        log(f"[video] {src} ({codec}, {n} frames of 224x224): decode "
+        log(f"[video] {src} ({codec}, {n} frames of {w}x{h}): decode "
             f"{dec:.3f} ms a frame (demux, decode, BGR; one thread), "
             f"{read:.3f} ms to read {FRAMES[0]} frames at {FRAMES[1]}x"
             f"{FRAMES[2]} (load_video_frames, one thread); {card}")

@@ -44,15 +44,24 @@ which the card's machine does not have, so the fixtures are committed):
     in CABAC and in CAVLC; the AVIs of X264_PATCHED, libx264's streams
     with a header field patched bit by bit (`patch_h264`):
     disable_deblocking_filter_idc 2 and direct_8x8_inference_flag 0;
+    the AVIs of MJPEG_CASES, MJPEG in the other layouts libavcodec
+    decodes (PIL's 4:2:2, 4:4:4 and grey, cv2's imencode for 4:4:0,
+    ffmpeg's CS=ITU601 comment) and at an odd height; the OpenDML AVI of
+    ODML_CASES (`avi_odml_file`: indx, ix00, dmlh, one RIFF AVIX); the
+    MP4s of EDIT_CASES, libx264's High stream under an edit that trims
+    its first frames, as a cut with `ffmpeg -ss ... -c copy` leaves it,
+    alone and after an empty edit;
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); and `count`, `CAP_PROP_FRAME_COUNT`;
   * `clip.avi`, `clip.mp4`, `clip.mkv`, `clip.mov`, `clip.webm`,
     `clip_vp8.mkv`, `clip_vp9.webm`, `clip_vp9.mp4`, `clip_h264.mp4`
-    (High), `clip_h264.mkv` (Main, CAVLC): the first frames of the
+    (High), `clip_h264.mkv` (Main, CAVLC), `clip_cam.avi` (MJPEG 4:2:2
+    in OpenDML), `clip_cut.mp4` (High, 4 of 20 frames cut by an edit),
+    `clip_oddh.avi` (4:2:0 at 224x223): the first frames of the
     committed 224x224 jpeg clip
     (tests/torch_frames/clip/) as video (CLIP_CASES), the clips
-    chip_smoke.py trains from.
+    chip_smoke.py trains from and times.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
 that moves over a drifting background, so that the MPEG-4 and VP8 clips'
@@ -138,6 +147,8 @@ LIBVPX_CASES = {
     "vp9_oddw_avi": dict(frame_parallel=False, size=(56, 71)),
     "vp9_range_avi": dict(color_range=1),
     "vp9_bt709_avi": dict(color_space=2),
+    "vp8_oddh_avi": dict(size=(H - 1, W)),
+    "vp9_oddh_avi": dict(frame_parallel=False, size=(H + 1, W - 1)),
 }
 # name: libx264 settings (see x264_encode; `frames`, else 30; `noise`,
 # the amplitude of uniform noise added to the frames), 72x56 at 25 fps
@@ -187,6 +198,31 @@ HAND_CASES = {
     "mjpeg_nodht_avi": (12, 12, 25),
     "mjpeg_longhdr_avi": (12, 17, 25),
 }
+# name: (frames, (h, w), the JPEGs' layout, see jpegs_of): MJPEG in the
+# layouts libavcodec decodes other than 4:2:0 at an even height, which
+# swscale converts by routes of their own (4:2:2 unscaled, grey through
+# its palette, the rest through its scaler), hand-muxed in AVI
+MJPEG_CASES = {
+    "mjpeg_422_avi": (8, (H, W), "4:2:2"),
+    "mjpeg_444_avi": (8, (H, W), "4:4:4"),
+    "mjpeg_440_avi": (8, (H, W), "4:4:0"),
+    "mjpeg_grey_avi": (8, (H, W), "grey"),
+    "mjpeg_oddh_avi": (8, (H - 1, W), "4:2:0"),
+    "mjpeg_422oddh_avi": (8, (H - 1, W), "4:2:2"),
+    "mjpeg_itu601_avi": (8, (H, W), "4:2:0 CS=ITU601"),
+}
+# name: (frames, frames in the first RIFF): 4:2:2 MJPEG (a webcam's) in an
+# OpenDML AVI with one RIFF AVIX (avi_odml_file)
+ODML_CASES = {"mjpeg_odml_avi": (12, 7)}
+# name: the edit list of libx264's 40-frame High stream (keyframes every
+# 12) in MP4, as (segment duration, media time) in frames, the media
+# time counted from the first presented sample's composition time (None:
+# an empty edit): a clip cut as `ffmpeg -ss ... -c copy` leaves it, the
+# frames before the cut decoded and dropped
+EDIT_CASES = {
+    "h264_trim_mp4": [(35, 5)],
+    "h264_emptyedit_mp4": [(3, None), (33, 7)],
+}
 # the clips chip_smoke.py trains from: name: (ext, fourcc, frames), the
 # first frames of the 32.
 CLIP_CASES = {"clip_avi": ("avi", "MJPG", 16), "clip_mp4": ("mp4", "mp4v", 16),
@@ -196,13 +232,17 @@ CLIP_CASES = {"clip_avi": ("avi", "MJPG", 16), "clip_mp4": ("mp4", "mp4v", 16),
               "clip_vp9_webm": ("webm", "VP90", 8),
               "clip_vp9_mp4": ("mp4", "vp09", 8),
               "clip_h264_mp4": ("mp4", "avc1", 16),    # High (medium)
-              "clip_h264_mkv": ("mkv", "avc1", 8)}     # Main, CAVLC
+              "clip_h264_mkv": ("mkv", "avc1", 8),     # Main, CAVLC
+              "clip_cam_avi": ("avi", "MJPG", 16),     # 4:2:2, OpenDML
+              "clip_cut_mp4": ("mp4", "avc1", 16),     # a trimming edit
+              "clip_oddh_avi": ("avi", "MJPG", 8)}     # 224x223, PIL's
 # the libx264 settings of the H.264 training clips
 X264_CLIPS = {"clip_h264_mp4": dict(),
               "clip_h264_mkv": dict(profile="main", cabac=0)}
 # Every case held against cv2 (an .npz each), and the codec it holds.
 DECODED = (*CASES, *HAND_CASES, *MP4_MJPEG_CASES, *VP8_PATCHED,
-           *VP8_MP4_CASES, *LIBVPX_CASES, *X264_CASES, *X264_PATCHED)
+           *VP8_MP4_CASES, *LIBVPX_CASES, *X264_CASES, *X264_PATCHED,
+           *MJPEG_CASES, *ODML_CASES, *EDIT_CASES)
 
 
 def codec_of(name: str) -> str:
@@ -303,6 +343,69 @@ def avi_file(packets: list[bytes], w: int, h: int, fps: int, count: int,
     return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"AVI " + body
 
 
+def avi_odml_file(packets: list[bytes], w: int, h: int, fps: int,
+                  split: int, fourcc: bytes = b"MJPG",
+                  length: int | None = None,
+                  total: int | None = None) -> bytes:
+    """An OpenDML AVI of video packets, as ffmpeg's muxer writes one past
+    its first RIFF: `packets[:split]` in the movi list of `RIFF AVI `,
+    the rest in that of one `RIFF AVIX`, each movi list closed by its
+    `ix00` standard index (keyframes only: every entry's bit 31 clear);
+    an `indx` super-index over the two in the stream's strl; no idx1.
+    The avih counts the first RIFF's frames, the strh `length` (None:
+    all) and the odml list's dmlh `total` (None: all)."""
+    n = len(packets)
+    length = n if length is None else length
+    total = n if total is None else total
+    avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, split, 0, 1, 0,
+                       w, h, 0, 0, 0, 0)
+    strh = (b"vids" + fourcc + struct.pack(
+        "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, length, 0, 0xFFFFFFFF,
+        0, 0, 0, w, h))
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
+                       0, 0, 0, 0)
+    parts = [packets[:split], packets[split:]]
+
+    def movi(pk: list[bytes], at: int) -> tuple[bytes, bytes]:
+        """A movi list whose first byte lies at file offset `at`, and
+        its ix00 chunk (the list's last)."""
+        body, entries, off = b"", b"", at + 12
+        for p in pk:
+            entries += struct.pack("<II", off + 8 - at, len(p))
+            c = _chunk(b"00dc", p)
+            body += c
+            off += len(c)
+        ix = _chunk(b"ix00", struct.pack("<HBBI4sQI", 2, 0, 1, len(pk),
+                                         b"00dc", at, 0) + entries)
+        return _list(b"movi", body + ix), ix
+
+    def layout(super_entries: bytes) -> tuple[bytes, list[int]]:
+        indx = _chunk(b"indx", struct.pack("<HBBI4s3I", 4, 0, 0, 2, b"00dc",
+                                           0, 0, 0) + super_entries)
+        odml = _list(b"odml", _chunk(b"dmlh", struct.pack("<I", total)
+                                     + bytes(244)))
+        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + _list(
+            b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf) + indx)
+            + odml)
+        out, ix_at = b"", []
+        at = 12 + len(hdrl)
+        m0, ix0 = movi(parts[0], at)
+        ix_at.append(at + len(m0) - len(ix0))
+        first = hdrl + m0
+        out = b"RIFF" + struct.pack("<I", 4 + len(first)) + b"AVI " + first
+        at = len(out) + 12
+        m1, ix1 = movi(parts[1], at)
+        ix_at.append(at + len(m1) - len(ix1))
+        out += b"RIFF" + struct.pack("<I", 4 + len(m1)) + b"AVIX" + m1
+        return out, ix_at, [len(ix0), len(ix1)]
+
+    sizes = struct.pack("<QII", 0, 0, 0) * 2
+    _, ix_at, ix_len = layout(sizes)
+    entries = b"".join(struct.pack("<QII", a, s, len(p))
+                       for a, s, p in zip(ix_at, ix_len, parts))
+    return layout(entries)[0]
+
+
 def _box(kind: bytes, *parts: bytes) -> bytes:
     body = b"".join(parts)
     return struct.pack(">I", 8 + len(body)) + kind + body
@@ -315,15 +418,20 @@ def _full_box(kind: bytes, flags: int, *parts: bytes) -> bytes:
 def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
              entry: bytes, boxes: bytes = b"", ctts: list[int] | None = None,
              media_time: int | None = None,
-             sync: list[int] | None = None) -> bytes:
+             sync: list[int] | None = None,
+             edits: list[tuple[int, int, int]] | None = None) -> bytes:
     """An MP4 of one video track: `packets` as its samples (one chunk,
     1/fps apart in decode order) under the visual sample entry `entry`
     (a fourcc) holding the extension `boxes`; `ctts`, each sample's
     composition offset in frames; `media_time`, an edit list of one
     edit over the whole track from that media time (in frames), as
-    ffmpeg's muxer writes for streams with B-frames; `sync`, the sync
+    ffmpeg's muxer writes for streams with B-frames; `edits`, an edit
+    list of (segment duration, media time, rate in 16.16) entries in
+    frames instead (media time -1: an empty edit); `sync`, the sync
     samples (0-based; None: every sample, no stss box)."""
     n = len(packets)
+    if media_time is not None:
+        edits = [(n, media_time, 0x10000)]
     matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
                          0x40000000)
     sample_entry = _box(entry, bytes(6), struct.pack(
@@ -343,9 +451,10 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
         extra += _full_box(b"stss", 0, struct.pack(">I", len(sync)),
                            *(struct.pack(">I", i + 1) for i in sync))
     edts = b""
-    if media_time is not None:
+    if edits is not None:
         edts = _box(b"edts", _full_box(b"elst", 0, struct.pack(
-            ">IIiI", 1, n, media_time, 0x10000)))
+            ">I", len(edits)), *(struct.pack(">IiI", d, t, r)
+                                 for d, t, r in edits)))
 
     def moov(mdat_at: int) -> bytes:
         stbl = _box(
@@ -971,15 +1080,44 @@ def cv2_packets(path: str) -> list[bytes]:
     return out
 
 
-def pil_jpegs(frames, quality: int = 75) -> list[bytes]:
+def pil_jpegs(frames, quality: int = 75, subsampling: int = 2,
+              grey: bool = False) -> list[bytes]:
+    """PIL's JPEGs of BGR frames: `subsampling` 2 (4:2:0), 1 (4:2:2) or
+    0 (4:4:4); `grey`, one component."""
     from PIL import Image
 
     out = []
     for f in frames:
         buf = io.BytesIO()
-        Image.fromarray(f[..., ::-1]).save(buf, "JPEG", quality=quality,
-                                           subsampling=2)
+        img = Image.fromarray(f[..., ::-1])
+        if grey:
+            img.convert("L").save(buf, "JPEG", quality=quality)
+        else:
+            img.save(buf, "JPEG", quality=quality, subsampling=subsampling)
         out.append(buf.getvalue())
+    return out
+
+
+def jpegs_of(frames, layout: str) -> list[bytes]:
+    """JPEGs of BGR frames in `layout`: "4:2:0", "4:2:2", "4:4:4" or
+    "grey" from PIL; "4:4:0" (Y sampled 1x2) from cv2's imencode, as PIL
+    writes none; " CS=ITU601" after a layout puts ffmpeg's comment for
+    limited-range YCbCr after SOI."""
+    import cv2
+
+    kind = layout.split()[0]
+    if kind == "4:4:0":
+        out = [cv2.imencode(".jpg", np.ascontiguousarray(f), [
+            cv2.IMWRITE_JPEG_QUALITY, 75,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x121111])[1].tobytes()
+            for f in frames]
+    else:
+        out = pil_jpegs(frames, subsampling={"4:2:0": 2, "4:2:2": 1,
+                                             "4:4:4": 0}.get(kind, 0),
+                        grey=kind == "grey")
+    if layout.endswith("CS=ITU601"):
+        com = b"\xff\xfe" + struct.pack(">H", 12) + b"CS=ITU601\0"
+        out = [j[:2] + com + j[2:] for j in out]
     return out
 
 
@@ -1008,11 +1146,14 @@ def cv2_view(path: str) -> tuple[np.ndarray, int]:
 
 
 def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
-              container: str, fps: int = 25) -> bytes:
+              container: str, fps: int = 25,
+              edits: list[tuple[int, int | None]] | None = None) -> bytes:
     """x264_encode's access units muxed as a file: "avi" (Annex B under
     the fourcc H264), "mp4" (avc1 and avcC, ctts, stss and the edit list
-    ffmpeg's muxer writes from the first presented sample) or "mkv"
-    (V_MPEG4/ISO/AVC with its avcC CodecPrivate, presentation times)."""
+    ffmpeg's muxer writes from the first presented sample, or `edits`:
+    EDIT_CASES' (duration, media time after that sample's) entries) or
+    "mkv" (V_MPEG4/ISO/AVC with its avcC CodecPrivate, presentation
+    times)."""
     packets = [a for a, _, _ in aus]
     if container == "avi":
         return avi_file(packets, w, h, fps, len(packets), b"H264")
@@ -1021,9 +1162,12 @@ def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
             if any(u[0] & 31 == 5 for u in nal_units(a))]
     dts0 = aus[0][2]
     if container == "mp4":
+        elst = None if edits is None else [
+            (d, -1 if t is None else t - dts0, 0x10000) for d, t in edits]
         return mp4_file(samples, w, h, fps, b"avc1", avcc_box(sps, pps),
-                        ctts=[p - d for _, p, d in aus], media_time=-dts0,
-                        sync=keys)
+                        ctts=[p - d for _, p, d in aus],
+                        media_time=None if edits else -dts0, sync=keys,
+                        edits=elst)
     return mkv_file(samples, w, h, fps, "V_MPEG4/ISO/AVC",
                     avcc_box(sps, pps)[8:], pts=[p for _, p, _ in aus],
                     keys=keys)
@@ -1042,6 +1186,34 @@ def write_case(name: str, out: str = FIXTURES) -> str:
             packets = patch_h264(packets, kind, field, bits)
         with open(path, "wb") as f:
             f.write(avi_file(packets, W, H, 25, len(packets), b"H264"))
+        return path
+    if name in MJPEG_CASES or name == "clip_cam_avi" or name in ODML_CASES:
+        if name in MJPEG_CASES:
+            t, (h, w), layout = MJPEG_CASES[name]
+            frames = moving_frames(sum(map(ord, name)), t, h, w)
+            data = avi_file(jpegs_of(frames, layout), w, h, 25, t)
+        else:
+            if name in ODML_CASES:
+                t, split = ODML_CASES[name]
+                frames = moving_frames(sum(map(ord, name)), t)
+            else:
+                t = CLIP_CASES[name][2]
+                split, frames = 10, clip_frames_bgr()[:t]
+            h, w = frames.shape[1:3]
+            data = avi_odml_file(jpegs_of(frames, "4:2:2"), w, h, 25, split)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+    if name in EDIT_CASES or name == "clip_cut_mp4":
+        if name in EDIT_CASES:
+            frames, edits = moving_frames(sum(map(ord, name)), 40), \
+                EDIT_CASES[name]
+        else:                   # cut 4 frames into 20
+            frames, edits = clip_frames_bgr()[:20], [(16, 4)]
+        aus = x264_encode(frames, keyint=12)
+        h, w = frames.shape[1:3]
+        with open(path, "wb") as f:
+            f.write(h264_file(aus, w, h, "mp4", edits=edits))
         return path
     if name in X264_CASES or name in X264_CLIPS:
         if name in X264_CLIPS:
@@ -1110,7 +1282,14 @@ def write_case(name: str, out: str = FIXTURES) -> str:
         return path
     if name in CLIP_CASES:
         ext, fourcc, t = CLIP_CASES[name]
-        write_cv2(path, fourcc, 25, clip_frames_bgr()[:t])
+        frames = clip_frames_bgr()[:t]
+        if name == "clip_oddh_avi":     # cv2's writer evens the height
+            frames = frames[:, :-1]
+            with open(path, "wb") as f:
+                f.write(avi_file(jpegs_of(frames, "4:2:0"), frames.shape[2],
+                                 frames.shape[1], 25, t))
+            return path
+        write_cv2(path, fourcc, 25, frames)
         return path
     ext, fourcc, fps, t = CASES[name]
     write_cv2(path, fourcc, fps, moving_frames(sum(map(ord, name)), t))

@@ -19,8 +19,13 @@ High CABAC with B-pyramid, weighted prediction and the 8x8 transform in
 MP4 (ctts and ffmpeg's edit list), the slower preset with 8 references
 and 4x4 partitions, custom scaling matrices, 4 slices with deblocking
 offsets and constrained intra, open GOP, intra refresh (High CAVLC),
-full range with BT.709, I_PCM in CABAC and in CAVLC; the 224x224 clips
-chip_smoke.py trains from) go through:
+full range with BT.709, I_PCM in CABAC and in CAVLC; MJPEG in the other
+layouts libavcodec decodes (4:2:2, 4:4:4, 4:4:0, grey, limited range
+under a CS=ITU601 comment) and at 72x55, libvpx's VP8 and VP9 at odd
+heights (swscale's scaler), MJPEG 4:2:2 in an OpenDML AVI with a RIFF
+AVIX, H.264 in MP4 under an edit that trims its first frames and under
+an empty edit before one; the 224-wide clips chip_smoke.py trains from
+or times) go through:
 
   * `native.video_track` against cv2's demuxed packets
     (`CAP_PROP_FORMAT = -1`), byte for byte (H.264 in MP4 and Matroska
@@ -42,6 +47,11 @@ chip_smoke.py trains from) go through:
     build against) against cv2 now;
   * a stem with both `.mp4` and `.avi` reads the `.mp4`, as the JAX
     package does;
+  * against cv2 live: MJPEG of each layout, VP8 and VP9 keyframes
+    patched to an odd height, OpenDML files whose strh, avih and dmlh
+    counts disagree (cv2 takes strh's), and MP4 edits that drop frames
+    at either end, after an empty edit or at media times before the
+    first presented sample;
   * NotImplementedError naming the codec for HEVC, AV1 and FFV1
     (their fourccs put into a clip's header), naming each MPEG-4 feature
     a patched header or macroblock flag can show, each VP8 feature
@@ -52,8 +62,10 @@ chip_smoke.py trains from) go through:
     feature outside 8-bit 4:2:0 progressive coding (libx264's own
     interlaced, 10-bit, 4:2:2, 4:4:4, monochrome and lossless streams;
     parameter sets, slice headers and NAL units patched bit by bit for
-    the rest); ValueError for a broken file and for a window past the
-    clip's last frame, as the JAX package raises.
+    the rest), MJPEG field pairs and mixed sampling ratios, and MP4 edit
+    lists of several edits, another rate or a zero duration; ValueError
+    for a broken file and for a window past the clip's last frame, as the
+    JAX package raises.
 """
 
 import os
@@ -208,7 +220,8 @@ def test_layout_order_reads_mp4_before_avi(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["mpeg4_mkv", "vp8_webm", "vp9_mp4",
-                                  "h264_high_mp4"])
+                                  "h264_high_mp4", "mjpeg_odml_avi",
+                                  "h264_trim_mp4"])
 def test_folder_datasets_read_video(tmp_path, case):
     """AVFolderDataset reads a clip's frames from its video file."""
     from viai_tpu_torch.data.audio import AudioFolderDataset
@@ -334,17 +347,31 @@ def _vp9_avi(tmp_path, packets, h=mk.H):
     ("VP9 profile 2, 12-bit 4:2:0", [(3, 1, 1), (32, 1, 1)]),
     ("VP9 profile 3", [(2, 2, 3)]),
     ("VP9 colour space sRGB", [(32, 3, 7)]),
-    ("odd height", [(52, 16, mk.H - 2)]),
 ])
 def test_vp9_keyframe_features_raise_naming_them(tmp_path, feature, patch):
     pk = _vp9_packets("vp9_avi")
     for pos, n, value in patch:
         pk[0] = _set_bits(pk[0], pos, n, value)
-    path = _vp9_avi(tmp_path, pk, mk.H - 1 if "odd" in feature else mk.H)
+    path = _vp9_avi(tmp_path, pk)
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.decode_video(path)
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.load_video_frames(path, 4, 32)
+
+
+def test_vp9_odd_height_matches_cv2(tmp_path):
+    """cv2's VP9 keyframes (frame_type 0) patched to 55 of their 56
+    lines: the odd height goes through swscale's scaler, as cv2 converts
+    it."""
+    pk = [_set_bits(p, 52, 16, mk.H - 2) if not (p[0] >> 2) & 1 else p
+          for p in _vp9_packets("vp9_avi")]
+    assert sum(not (p[0] >> 2) & 1 for p in pk) == 2
+    path = _vp9_avi(tmp_path, pk, mk.H - 1)
+    ref, count = mk.cv2_view(path)
+    assert ref.shape[1:3] == (mk.H - 1, mk.W)
+    np.testing.assert_array_equal(native.decode_video(path), ref)
+    np.testing.assert_array_equal(native.load_video_frames(path, 4, 32),
+                                  j_av._load_frames_video(path, 4, 32, None))
 
 
 @pytest.mark.parametrize("feature", ["VP9 reference scaling",
@@ -547,12 +574,19 @@ def test_vp8_reserved_version_raises(tmp_path):
 
 
 def test_vp8_odd_height_raises(tmp_path):
-    """An odd coded height (55 of the 56 lines): swscale converts such a
-    picture through its scaler, which the port does not copy."""
-    pk = _vp8_packets("vp8_avi")
-    pk[0] = pk[0][:8] + struct.pack("<H", mk.H - 1) + pk[0][10:]
-    with pytest.raises(NotImplementedError, match="odd height"):
-        native.decode_video(_vp8_avi(tmp_path, pk))
+    """An odd coded height (55 of the 56 lines) patched into cv2's
+    keyframes: no longer raised, but read through swscale's scaler as cv2
+    converts it (libvpx's own odd-height stream: the vp8_oddh_avi
+    case)."""
+    pk = [p[:8] + struct.pack("<H", mk.H - 1) + p[10:] if not p[0] & 1
+          else p for p in _vp8_packets("vp8_avi")]
+    assert sum(not p[0] & 1 for p in pk) == 2
+    path = str(tmp_path / "vp8.avi")
+    with open(path, "wb") as f:         # the container's height too
+        f.write(mk.avi_file(pk, mk.W, mk.H - 1, 25, len(pk), b"VP80"))
+    ref, _ = mk.cv2_view(path)
+    assert ref.shape[1:3] == (mk.H - 1, mk.W)
+    np.testing.assert_array_equal(native.decode_video(path), ref)
 
 
 def test_vp8_broken_frames_raise_value_error(tmp_path):
@@ -735,27 +769,89 @@ def test_broken_files_raise_value_error(tmp_path):
         native.load_video_frames(FILES["mjpeg_longhdr_avi"], 4, 64, (0.9, 1))
 
 
-def test_odd_height_and_other_sampling_raise(tmp_path):
-    pk = [p for p, _ in native.video_track(FILES["mjpeg_avi"]).packets]
-    sof = pk[0].index(b"\xff\xc0")
-    odd = bytearray(pk[0])
-    struct.pack_into(">H", odd, sof + 5, mk.H - 1)          # 55 lines
-    path = tmp_path / "odd.avi"
-    path.write_bytes(mk.avi_file([bytes(odd)], mk.W, mk.H - 1, 25, 1))
-    with pytest.raises(NotImplementedError, match="odd height"):
+@pytest.mark.parametrize("layout", ["odd height", "4:2:2", "4:4:4",
+                                    "4:4:0", "grey", "4:2:2 odd width"])
+def test_odd_height_and_other_sampling_raise(tmp_path, layout):
+    """MJPEG that raised before swscale's other routes were copied, now
+    read as cv2 reads it: the committed 4:2:0 stream's first frame with
+    its SOF's height cut to 55 lines (the scaler), and frames JPEG-coded
+    in the other layouts libavcodec decodes, at 72x56 or 71x56."""
+    if layout == "odd height":
+        pk = [p for p, _ in native.video_track(FILES["mjpeg_avi"]).packets]
+        sof = pk[0].index(b"\xff\xc0")
+        odd = bytearray(pk[0])
+        struct.pack_into(">H", odd, sof + 5, mk.H - 1)
+        jpegs, h, w = [bytes(odd)], mk.H - 1, mk.W
+    else:
+        h, w = mk.H, mk.W - ("odd" in layout)
+        jpegs = mk.jpegs_of(mk.moving_frames(4, 3, h, w), layout.split()[0])
+    path = tmp_path / "x.avi"
+    path.write_bytes(mk.avi_file(jpegs, w, h, 25, len(jpegs)))
+    ref, count = mk.cv2_view(str(path))
+    got = native.decode_video(str(path))
+    assert got.shape == ref.shape == (len(jpegs), h, w, 3)
+    assert np.abs(got.astype(int) - ref).max() <= TOL["mjpeg"]
+
+
+@pytest.mark.parametrize("feature", ["field pairs", "sampled 2x2, 1x2, 2x1"])
+def test_mjpeg_out_of_scope_raises_naming_it(tmp_path, feature):
+    """An AVI whose pictures are half its height (AVI1 field pairs) and a
+    JPEG of mixed sampling ratios (which libavcodec upsamples to 4:4:4
+    itself) raise NotImplementedError naming them."""
+    if feature == "field pairs":
+        jpegs = mk.pil_jpegs(mk.moving_frames(4, 2))
+        h = 2 * mk.H
+    else:
+        import _torch_make_frames as mkf
+        rng = np.random.default_rng(2)
+        sampling = ((2, 2), (1, 2), (2, 1))
+        coefs = [np.clip(np.rint(rng.normal(0, 4, (mk.H // 8 * v // 2 + 1,
+                                                    mk.W // 8 * hh // 2 + 1,
+                                                    64))), -60, 60)
+                 .astype(int) for hh, v in sampling]
+        for c in coefs:
+            c[..., 0] = rng.integers(-20, 20, c.shape[:2])
+        jpegs = [mkf.jpeg_from_coefficients(mk.W, mk.H, sampling, coefs,
+                                            np.full(64, 4))]
+        h = mk.H
+    path = tmp_path / "x.avi"
+    path.write_bytes(mk.avi_file(jpegs, mk.W, h, 25, len(jpegs)))
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.decode_video(str(path))
-    s444 = bytearray(pk[0])
-    s444[sof + 11] = 0x11                                   # Y at 1x1
-    path.write_bytes(mk.avi_file([bytes(s444)], mk.W, mk.H, 25, 1))
-    with pytest.raises((NotImplementedError, ValueError)):
-        native.decode_video(str(path))
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.load_video_frames(str(path), 4, 32)
+
+
+def test_opendml_frame_count_is_strh_length(tmp_path):
+    """An OpenDML AVI's frame count is its strh dwLength, as cv2 reports
+    it, whatever the odml list's dmlh and the avih say; its packets come
+    from both RIFFs through the indx super-index, and without one from
+    a scan of both movi lists."""
+    jpegs = mk.pil_jpegs(mk.moving_frames(6, 9), subsampling=1)
+    for length, total in ((9, 9), (5, 9), (9, 5), (14, 9)):
+        data = mk.avi_odml_file(jpegs, mk.W, mk.H, 25, 5, length=length,
+                                total=total)
+        path = tmp_path / f"x{length}_{total}.avi"
+        path.write_bytes(data)
+        track = native.video_track(str(path))
+        ref, count = mk.cv2_view(str(path))
+        assert track.count == count == length
+        assert [p for p, _ in track.packets] == mk.cv2_packets(str(path))
+        np.testing.assert_array_equal(native.decode_video(str(path)), ref)
+        noindx = tmp_path / f"y{length}_{total}.avi"
+        noindx.write_bytes(data.replace(b"indx", b"JUNK", 1))
+        assert [p for p, _ in native.video_track(str(noindx)).packets] \
+            == mk.cv2_packets(str(noindx)) == jpegs
 
 
 def test_fixture_script_rewrites_the_committed_avi_and_mp4(tmp_path):
     for name in ("mjpeg_avi", "mpeg4_mp4", "mjpeg_nodht_avi", "clip_avi",
                  "mjpeg_mjpa_mp4", "vp8_avi", "vp8_partitions_avi",
                  "vp8_altref_avi", "vp8_mp4", "vp9_avi", "vp9_mp4",
-                 "vp9_good_avi", "vp9_twopass_avi", "vp9_tiles_avi"):
+                 "vp9_good_avi", "vp9_twopass_avi", "vp9_tiles_avi",
+                 "mjpeg_422_avi", "mjpeg_440_avi", "mjpeg_itu601_avi",
+                 "mjpeg_odml_avi", "vp8_oddh_avi", "vp9_oddh_avi",
+                 "clip_cam_avi", "clip_oddh_avi"):
         path = mk.write_case(name, str(tmp_path))
         with open(path, "rb") as f, open(FILES[name], "rb") as g:
             assert f.read() == g.read(), name
@@ -777,7 +873,8 @@ def test_x264_fixtures_rewrite_the_committed_files(tmp_path):
     the Matroska files, which carry no random UID)."""
     _x264()
     for name in ("h264_baseline_avi", "h264_high_mp4", "h264_main_mkv",
-                 "h264_pcm_avi", "clip_h264_mkv"):
+                 "h264_pcm_avi", "clip_h264_mkv", "h264_trim_mp4",
+                 "h264_emptyedit_mp4", "clip_cut_mp4"):
         path = mk.write_case(name, str(tmp_path))
         with open(path, "rb") as f, open(FILES[name], "rb") as g:
             assert f.read() == g.read(), name
@@ -907,17 +1004,68 @@ def test_h264_broken_streams_raise_value_error(tmp_path):
 
 @pytest.mark.parametrize("media_time", [0, 1, 3])
 def test_h264_mp4_edit_lists_that_trim_raise(tmp_path, media_time):
-    """The committed MP4 carries ffmpeg's edit list (one edit from the
-    first presented sample's composition time, 2 frames: read as cv2
-    reads it); an edit from any other time raises."""
+    """The committed MP4's one edit (from the first presented sample's
+    composition time, 2 frames, over 40) moved to 0, 1 and 3: read as
+    cv2 reads it, which keeps the 38, 39 and 39 frames presented within
+    the edit (libavformat's mov_fix_index marks the rest to be decoded
+    and dropped)."""
     data = bytearray(open(FILES["h264_high_mp4"], "rb").read())
     at = data.index(b"elst") + 16                  # the edit's media_time
     assert struct.unpack_from(">i", data, at)[0] == 2
     struct.pack_into(">i", data, at, media_time)
     path = tmp_path / "x.mp4"
     path.write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="edit list"):
-        native.decode_video(str(path))
+    ref, count = mk.cv2_view(str(path))
+    assert len(ref) == {0: 38, 1: 39, 3: 39}[media_time]
+    track = native.video_track(str(path))
+    assert track.count == count
+    assert _mp4toannexb(track) == mk.cv2_packets(str(path))
+    np.testing.assert_array_equal(native.decode_video(str(path)), ref)
+    np.testing.assert_array_equal(
+        native.load_video_frames(str(path), 8, 32, (0.2, 0.9)),
+        j_av._load_frames_video(str(path), 8, 32, (0.2, 0.9)))
+
+
+@pytest.mark.parametrize("edits", [[(20, 3)], [(2, None), (15, 14)],
+                                   [(10, 0)]])
+def test_h264_mp4_edits_match_cv2(tmp_path, edits):
+    """libx264's 30-frame High stream (keyframes 0, 12, 24) in MP4 under
+    an edit that drops frames at both ends, an empty edit before one
+    that starts past the second keyframe, and an edit that keeps the
+    first 10 frames: cv2's packets, count and frames."""
+    aus = mk.x264_encode(mk.moving_frames(12, 30), keyint=12)
+    path = tmp_path / "x.mp4"
+    path.write_bytes(mk.h264_file(aus, mk.W, mk.H, "mp4", edits=edits))
+    ref, count = mk.cv2_view(str(path))
+    track = native.video_track(str(path))
+    assert track.count == count == 30
+    assert _mp4toannexb(track) == mk.cv2_packets(str(path))
+    np.testing.assert_array_equal(native.decode_video(str(path)), ref)
+    np.testing.assert_array_equal(
+        native.load_video_frames(str(path), 6, 32),
+        j_av._load_frames_video(str(path), 6, 32, None))
+
+
+@pytest.mark.parametrize("feature,edits", [
+    ("rate 0.5000", [(40, 2, 0x8000)]),
+    ("several edits", [(10, 2, 0x10000), (30, 12, 0x10000)]),
+    ("duration 0", [(0, 5, 0x10000)]),
+])
+def test_h264_mp4_edit_lists_out_of_scope_raise(tmp_path, feature, edits):
+    """The committed High stream's samples under edits the reader does
+    not follow: another rate, several non-empty edits (libavformat's
+    advanced edit lists), a zero duration. Each raises
+    NotImplementedError naming it."""
+    track = native.video_track(FILES["h264_high_mp4"])
+    path = tmp_path / "x.mp4"
+    path.write_bytes(mk.mp4_file(
+        [p for p, _ in track.packets], mk.W, mk.H, 25, b"avc1",
+        mk._box(b"avcC", track.config),
+        sync=[i for i, (_, k) in enumerate(track.packets) if k],
+        edits=edits))
+    for read in (native.video_track, native.decode_video):
+        with pytest.raises(NotImplementedError, match=re.escape(feature)):
+            read(str(path))
 
 
 def test_h264_corrupted_streams_raise_or_decode(tmp_path):

@@ -414,6 +414,7 @@ struct MbInfo {
 
 struct Frame {
   int id = 0;
+  int64_t source = 0;           // the decode() call of its first slice
   int w = 0, h = 0;             // coded size (luma)
   std::vector<uint8_t> y, u, v;
   int poc = 0, frame_num = 0;
@@ -541,6 +542,7 @@ struct H264Decoder::State {
   int slice_num = 0;
   int last_first_mb = 0;
   int next_id = 1;
+  int64_t calls = 0;            // decode() calls so far
   bool cur_idr = false;
   SliceHeader first_sh;         // the picture's first slice header
   int pic_w = 0, pic_h = 0, mb_w = 0, mb_h = 0;
@@ -659,6 +661,7 @@ struct H264Decoder::State {
   // --------------------------------------------------------- decoding
 
   bool decode(const uint8_t* d, size_t n, Picture& out) {
+    ++calls;
     for_each_nal(d, n, [&](const uint8_t* u, size_t len) { nal(u, len); });
     if (cur) finish_picture();
     if (!next_output) return false;
@@ -853,6 +856,7 @@ struct H264Decoder::State {
     cur = std::make_shared<Frame>();
     Frame& f = *cur;
     f.id = next_id++;
+    f.source = calls - 1;
     f.w = pic_w;
     f.h = pic_h;
     f.y.assign(size_t(pic_w) * pic_h, 0);
@@ -1020,6 +1024,7 @@ struct H264Decoder::State {
     out.v = f.v;
     out.full_range = f.full_range;
     out.matrix = f.matrix;
+    out.source = f.source;
   }
 
   // --------------------------------------------------------- the slice

@@ -21,12 +21,21 @@ struct Error {
   throw Error{2, m};
 }
 
-// A decoded 4:2:0 picture: luma (h, w), chroma ((h + 1)/2, (w + 1)/2),
-// each plane at its own row stride.
+// A decoded picture: luma (h, w); chroma (h >> yshift, w >> xshift),
+// rounded up, each plane at its own row stride. The shifts are the
+// chroma layouts of ffmpeg's decoders: 1, 1 (4:2:0, every decoder but
+// MJPEG), 1, 0 (4:2:2), 0, 0 (4:4:4) and 0, 1 (4:4:0); `grey` has no
+// chroma planes (ffmpeg's gray).
 struct Picture {
   int w = 0, h = 0;
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
+  int xshift = 1, yshift = 1;
+  bool grey = false;
+  // The decode call (counted from 0 by the decoder that gave it) whose
+  // packet the picture was decoded from: H.264 outputs pictures after
+  // later packets.
+  int64_t source = 0;
   bool full_range = false;  // yuvj (JPEG) levels, else limited (16..235)
   // The YCbCr matrix as swscale's colour space index (SWS_CS_*): 5 is
   // BT.601 (swscale's default), 1 BT.709, 7 SMPTE 240M, 9 BT.2020.

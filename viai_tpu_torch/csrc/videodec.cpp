@@ -9,8 +9,12 @@
 // This file gives the same bytes without them:
 //
 //   * demuxers: AVI (the `##dc`/`##db` chunks of the first video stream
-//     through idx1, else a scan of `movi`), ISO-BMFF (.mp4/.mov: the
-//     first `vide` track's sample tables) and Matroska/WebM (EBML,
+//     through its OpenDML indx super-index and ix## indexes, else idx1,
+//     else a scan of the movi lists, the `RIFF AVIX` extensions'
+//     included), ISO-BMFF (.mp4/.mov: the first `vide` track's sample
+//     tables, an edit list of one edit as libavformat's mov_fix_index
+//     applies it: the samples from the keyframe before the edit on, the
+//     frames presented outside it decoded and dropped) and Matroska/WebM (EBML,
 //     unknown-size elements, SimpleBlock and BlockGroup with Xiph, EBML
 //     and fixed lacing; VP8 and VP9 in MP4 under their vp08/vp09 sample
 //     entries and vpcC boxes; H.264 under avc1/avc3 with its avcC box,
@@ -22,12 +26,15 @@
 //     count, Matroska round(duration · fps) with libavformat's duration
 //     and av_reduce'd DefaultDuration.
 //   * MJPEG: imagedec.cpp's entropy decoder (annex K tables until a DHT,
-//     the AVI1 convention), ffmpeg's simple IDCT into yuvj420p planes.
-//   * the conversion to BGR24 that swscale does for 4:2:0 at the same
-//     size (the x86 yuv420 → bgr24 path of libswscale/x86/yuv2rgb): each
-//     chroma sample for its 2×2 pixels, 16-bit fixed-point products
-//     (pmulhw) of coefficients from BT.601, full range for yuvj, limited
-//     for yuv420p, saturated to 0..255. Checked on every (Y, U, V).
+//     the AVI1 convention), ffmpeg's simple IDCT into the planes of the
+//     layout libavcodec picks (yuvj420p, yuvj422p, yuvj444p, yuvj440p,
+//     gray; limited range under a CS=ITU601 comment).
+//   * the conversion to BGR24 that swscale does at the same size: its x86
+//     yuv2rgb path for 4:2:0 and 4:2:2 of even height (each chroma sample
+//     for its 2×2 or 2×1 pixels, 16-bit fixed-point products (pmulhw) of
+//     the matrix's coefficients, full range for yuvj, limited else,
+//     saturated to 0..255), grey copied to B, G, R, and its generic
+//     bicubic scaler for the rest (see `sws`).
 //   * cv2.resize(frame, (size, size)) at INTER_LINEAR on the BGR frame:
 //     11-bit weights from float32 positions, a horizontal pass in int32,
 //     the vertical one as OpenCV's SIMD does it (each row >> 4, ·β >> 16,
@@ -114,6 +121,7 @@ struct Packet {
   size_t off = 0;
   uint32_t size = 0;
   bool key = false;
+  bool discard = false;   // decoded, its picture dropped (an MP4 edit)
 };
 
 struct Track {
@@ -151,6 +159,43 @@ Codec riff_codec(const std::string& tag) {
 
 // ---------------------------------------------------------------- AVI
 
+// An OpenDML index chunk's body at `p` (libavformat's read_odml_index):
+// a standard index (bIndexType 1) gives the packets, each at its
+// qwBaseOffset + dwOffset, keyframes where bit 31 of dwSize is clear; a
+// super-index (bIndexType 0) the standard indexes it points to, in turn.
+void read_odml_index(Track& t, size_t p, size_t end, int depth) {
+  const std::vector<uint8_t>& f = t.file;
+  if (depth > 4) broken("AVI OpenDML indexes nested too deeply");
+  if (p + 24 > end) broken("AVI OpenDML index cut short");
+  int longs = f[p] | (f[p + 1] << 8);
+  int sub = f[p + 2], type = f[p + 3];
+  uint32_t entries = le32(&f[p + 4]);
+  uint64_t base = uint64_t(le32(&f[p + 12])) |
+                  (uint64_t(le32(&f[p + 16])) << 32);
+  if (sub != 0 || type > 1 || (type == 1 && longs != 2))
+    broken("AVI OpenDML index of an unknown kind");
+  size_t w = type == 1 ? 8 : 16;
+  if (p + 24 + w * size_t(entries) > end) broken("AVI OpenDML index cut short");
+  for (uint32_t e = 0; e < entries; ++e) {
+    const uint8_t* q = &f[p + 24 + w * e];
+    if (type == 1) {
+      uint32_t size = le32(q + 4);
+      uint64_t at = base + le32(q);
+      size &= 0x7FFFFFFF;
+      if (at < 8 || at + size > f.size())
+        broken("AVI OpenDML index points past the file");
+      if (size) t.packets.push_back({size_t(at), size, !(le32(q + 4) >> 31)});
+    } else {
+      uint64_t at = uint64_t(le32(q)) | (uint64_t(le32(q + 4)) << 32);
+      if (at + 8 > f.size())
+        broken("AVI OpenDML super-index points past the file");
+      size_t sz = le32(&f[size_t(at) + 4]);
+      read_odml_index(t, size_t(at) + 8,
+                      std::min(f.size(), size_t(at) + 8 + sz), depth + 1);
+    }
+  }
+}
+
 void demux_avi(Track& t) {
   const std::vector<uint8_t>& f = t.file;
   const size_t n = f.size();
@@ -159,9 +204,12 @@ void demux_avi(Track& t) {
     broken("not an AVI file");
   t.container = "AVI";
   int stream = -1, nstreams = 0;
-  size_t movi = 0, movi_end = 0, idx1 = 0, idx1_size = 0;
+  size_t idx1 = 0, idx1_size = 0, indx = 0, indx_end = 0;
   bool have_idx1 = false;
-  // Walk the RIFF tree: hdrl's stream lists, movi, idx1.
+  // The movi lists: the first RIFF's, then those of its OpenDML `RIFF
+  // AVIX` extensions.
+  std::vector<std::pair<size_t, size_t>> movis;
+  // Walk the RIFF tree: hdrl's stream lists, movi, idx1, AVIX.
   std::vector<std::pair<size_t, size_t>> stack = {{12, n}};
   while (!stack.empty()) {
     auto [p, end] = stack.back();
@@ -176,10 +224,7 @@ void demux_avi(Track& t) {
       if (tag == "LIST" && sz >= 4) {
         std::string kind = fourcc_str(le32(&f[body]));
         if (kind == "movi") {
-          if (!movi) {
-            movi = body;
-            movi_end = body + sz;
-          }
+          movis.push_back({body, body + sz});
         } else if (kind == "hdrl" || kind == "strl") {
           if (kind == "strl") ++nstreams;
           stack.push_back({next, end});
@@ -189,13 +234,18 @@ void demux_avi(Track& t) {
         }
       } else if (tag == "RIFF" && sz >= 4 &&
                  fourcc_str(le32(&f[body])) == "AVIX") {
-        unsupported("OpenDML AVI (RIFF AVIX extension)");
-      } else if (tag == "indx" && stream == nstreams - 1) {
-        unsupported("OpenDML AVI (indx super-index)");
+        stack.push_back({next, end});
+        end = body + sz;
+        p = body + 4;
+        continue;
+      } else if (tag == "indx" && stream == nstreams - 1 && stream >= 0 &&
+                 !indx) {
+        indx = body;
+        indx_end = body + sz;
       } else if (tag == "strh" && sz >= 36 && stream < 0) {
         if (fourcc_str(le32(&f[body])) == "vids") {
           stream = nstreams - 1;
-          t.count = le32(&f[body + 32]);      // dwLength
+          t.count = le32(&f[body + 32]);      // dwLength, as cv2 counts
         }
       } else if (tag == "strf" && stream == nstreams - 1 && stream >= 0 &&
                  t.tag.empty()) {
@@ -220,7 +270,8 @@ void demux_avi(Track& t) {
     }
   }
   if (stream < 0 || t.tag.empty()) broken("AVI file without a video stream");
-  if (!movi) broken("AVI file without a movi list");
+  if (movis.empty()) broken("AVI file without a movi list");
+  std::sort(movis.begin(), movis.end());
   t.codec = riff_codec(t.tag);
   char id[3];
   std::snprintf(id, sizeof(id), "%02d", stream % 100);
@@ -228,10 +279,14 @@ void demux_avi(Track& t) {
     return ck[0] == uint8_t(id[0]) && ck[1] == uint8_t(id[1]) &&
            ck[2] == 'd' && (ck[3] == 'c' || ck[3] == 'b');
   };
-  if (have_idx1 && idx1_size >= 16) {
+  if (indx) {
+    // OpenDML: the stream's index, as libavformat reads it first.
+    read_odml_index(t, indx, indx_end, 0);
+  } else if (have_idx1 && idx1_size >= 16) {
     size_t entries = idx1_size / 16;
     // Offsets count from the 'movi' fourcc, or from the file's start
     // where the first one lies past it.
+    size_t movi = movis[0].first;
     size_t base = le32(&f[idx1 + 8]) < movi ? movi : 0;
     for (size_t e = 0; e < entries; ++e) {
       const uint8_t* ent = &f[idx1 + 16 * e];
@@ -243,7 +298,9 @@ void demux_avi(Track& t) {
       t.packets.push_back({ck + 8, size, (le32(ent + 4) & 0x10) != 0});
     }
   } else {
-    std::vector<std::pair<size_t, size_t>> lists = {{movi + 4, movi_end}};
+    std::vector<std::pair<size_t, size_t>> lists;
+    for (auto it = movis.rbegin(); it != movis.rend(); ++it)
+      lists.push_back({it->first + 4, it->second});
     while (!lists.empty()) {
       auto [p, end] = lists.back();
       lists.pop_back();
@@ -368,16 +425,15 @@ void read_vpcc(Track& t, const std::vector<Box>& entry_boxes) {
   t.codec = t.tag == "vp08" ? Codec::kVp8 : Codec::kVp9;
 }
 
-// The composition time of the first presented sample (stts decode
-// times plus ctts offsets; 0 without ctts).
-int64_t first_composition(const std::vector<uint8_t>& f,
-                          const std::vector<Box>& sb, size_t n) {
+// Each sample's decode time (stts) and composition time (plus its ctts
+// offset; the decode time without ctts), in the media's timescale.
+void sample_times(const std::vector<uint8_t>& f, const std::vector<Box>& sb,
+                  size_t n, std::vector<int64_t>& dts,
+                  std::vector<int64_t>& cts) {
   const Box* stts = child(sb, "stts");
   const Box* ctts = child(sb, "ctts");
-  if (!ctts || n == 0) return 0;
-  if (!stts || stts->body + 8 > stts->end || ctts->body + 8 > ctts->end)
-    broken("MP4 stts or ctts cut short");
-  std::vector<int64_t> dts, cto;
+  if (!stts || stts->body + 8 > stts->end)
+    broken("MP4 video track without stts");
   uint32_t runs = be32(&f[stts->body + 4]);
   if (stts->body + 8 + 8 * size_t(runs) > stts->end) broken("MP4 stts cut short");
   int64_t t = 0;
@@ -387,17 +443,26 @@ int64_t first_composition(const std::vector<uint8_t>& f,
     for (uint32_t k = 0; k < cnt && dts.size() < n; ++k, t += delta)
       dts.push_back(t);
   }
+  if (dts.size() < n) broken("MP4 stts shorter than the track");
+  cts = dts;
+  if (!ctts) return;
+  if (ctts->body + 8 > ctts->end) broken("MP4 ctts cut short");
   runs = be32(&f[ctts->body + 4]);
   if (ctts->body + 8 + 8 * size_t(runs) > ctts->end) broken("MP4 ctts cut short");
-  for (uint32_t r = 0; r < runs && cto.size() < n; ++r) {
+  size_t i = 0;
+  for (uint32_t r = 0; r < runs && i < n; ++r) {
     uint32_t cnt = be32(&f[ctts->body + 8 + 8 * r]);
     int32_t off = int32_t(be32(&f[ctts->body + 12 + 8 * r]));
-    for (uint32_t k = 0; k < cnt && cto.size() < n; ++k) cto.push_back(off);
+    for (uint32_t k = 0; k < cnt && i < n; ++k) cts[i++] += off;
   }
-  if (dts.size() < n || cto.size() < n) broken("MP4 stts or ctts shorter than the track");
-  int64_t first = dts[0] + cto[0];
-  for (size_t i = 1; i < n; ++i) first = std::min(first, dts[i] + cto[i]);
-  return first;
+  if (i < n) broken("MP4 ctts shorter than the track");
+}
+
+// A full box's timescale (mvhd, mdhd: after the version's times).
+int64_t timescale(const std::vector<uint8_t>& f, const Box* b) {
+  if (!b || b->body + 24 > b->end)
+    broken("MP4 mvhd or mdhd missing or cut short");
+  return be32(&f[b->body + (f[b->body] == 1 ? 20 : 12)]);
 }
 
 void demux_mp4(Track& t) {
@@ -416,11 +481,13 @@ void demux_mp4(Track& t) {
     if (!hdlr || hdlr->body + 12 > hdlr->end ||
         std::memcmp(&f[hdlr->body + 8], "vide", 4) != 0)
       continue;
-    // The edit list: one edit at rate 1 from the first presented
-    // sample's composition time (0 without B-frames) over the track,
-    // as ffmpeg's muxer writes it; cv2 then reads every sample.
+    // The edit list, as libavformat reads it (mov_fix_index): an empty
+    // edit (media time -1) first only delays presentation; one edit at
+    // rate 1 then keeps the samples from the last keyframe presented at
+    // or before its media time, marking those presented before it or
+    // past its end to be decoded and dropped.
     bool edited = false;
-    int64_t edit_start = 0;
+    int64_t edit_time = 0, edit_duration = 0;
     if (const Box* edts = child(tb, "edts")) {
       for (const Box& elst : boxes(f, edts->body, edts->end)) {
         if (elst.type != "elst" || elst.body + 8 > elst.end) continue;
@@ -429,14 +496,27 @@ void demux_mp4(Track& t) {
         size_t w = version == 1 ? 20 : 12;
         if (elst.body + 8 + w * entries > elst.end)
           broken("MP4 edit list cut short");
-        const uint8_t* e = &f[elst.body + 8];
-        int64_t media_time = version == 1 ? int64_t(be64(e + 8))
-                                          : int32_t(be32(e + 4));
-        uint32_t rate = be32(e + (version == 1 ? 16 : 8));
-        if (entries != 1 || media_time < 0 || rate != 0x10000)
-          unsupported("MP4 edit list other than one whole-track edit");
-        edited = true;
-        edit_start = media_time;
+        for (uint32_t k = 0; k < entries; ++k) {
+          const uint8_t* e = &f[elst.body + 8 + w * k];
+          int64_t duration = version == 1 ? int64_t(be64(e)) : be32(e);
+          int64_t media_time = version == 1 ? int64_t(be64(e + 8))
+                                            : int32_t(be32(e + 4));
+          uint32_t rate = be32(e + (version == 1 ? 16 : 8));
+          if (media_time == -1 && k == 0) continue;
+          if (edited || media_time < 0)
+            unsupported("MP4 edit list of several edits (libavformat's "
+                        "advanced edit lists)");
+          if (rate != 0x10000) {
+            char b[96];
+            std::snprintf(b, sizeof(b), "MP4 edit at rate %.4f (not 1)",
+                          rate / 65536.0);
+            unsupported(b);
+          }
+          if (duration == 0) unsupported("MP4 edit of duration 0");
+          edited = true;
+          edit_time = media_time;
+          edit_duration = duration;
+        }
       }
     }
     const Box* minf = child(mb, "minf");
@@ -541,6 +621,7 @@ void demux_mp4(Track& t) {
         if (s >= 1 && s <= key.size()) key[s - 1] = true;
       }
     }
+    std::vector<size_t> offs(sizes.size(), 0);
     size_t sample = 0;
     for (uint32_t r = 0; r < runs && sample < sizes.size(); ++r) {
       const uint8_t* e = &f[stsc->body + 8 + 12 * r];
@@ -553,15 +634,57 @@ void demux_mp4(Track& t) {
         for (uint32_t k = 0; k < per && sample < sizes.size(); ++k) {
           if (off + sizes[sample] > f.size())
             broken("MP4 sample runs past the file");
-          if (sizes[sample])
-            t.packets.push_back({size_t(off), sizes[sample], key[sample]});
+          offs[sample] = size_t(off);
           off += sizes[sample++];
         }
       }
     }
-    t.count = int64_t(sizes.size());
-    if (edited && edit_start != first_composition(f, sb, sizes.size()))
-      unsupported("MP4 edit list other than one whole-track edit");
+    const size_t n = sizes.size(), stored = sample;   // stsc may stop short
+    size_t first = 0, last = n;                  // the samples read
+    std::vector<bool> discard(n, false);
+    if (edited && n) {
+      std::vector<int64_t> dts, cts;
+      sample_times(f, sb, n, dts, cts);
+      // The edit's duration, in the movie's timescale, in the media's.
+      std::vector<Box> top_moov = boxes(f, moov->body, moov->end);
+      int64_t movie = timescale(f, child(top_moov, "mvhd"));
+      int64_t media = timescale(f, child(mb, "mdhd"));
+      if (movie <= 0 || media <= 0) broken("MP4 timescale of 0");
+      int64_t dur = (edit_duration * media + movie / 2) / movie;
+      int64_t end = edit_time + dur;
+      // find_prev_closest_index: the last keyframe decoded at or before
+      // the media time and, with ctts, presented at or before it; else
+      // the first sample.
+      bool with_ctts = child(sb, "ctts") != nullptr;
+      auto search = [&](bool any) {
+        int64_t k = -1;
+        for (size_t i = 0; i < n && dts[i] <= edit_time; ++i)
+          if (any || key[i]) k = int64_t(i);
+        while (with_ctts && k >= 0 &&
+               !(cts[size_t(k)] <= edit_time && key[size_t(k)]))
+          --k;
+        return k;
+      };
+      int64_t k = search(false);
+      if (k < 0) k = search(true);
+      first = k < 0 ? 0 : size_t(k);
+      bool seen_key_after = false;
+      for (size_t i = first; i < n; ++i) {
+        discard[i] = cts[i] < edit_time || cts[i] >= end;
+        last = i + 1;
+        int64_t frame = i + 1 < n ? dts[i + 1] - dts[i] : dur;
+        if (cts[i] + frame >= end && key[i]) {
+          // With ctts, the keyframe after the next one: B-frames after
+          // the first may still belong to the edit.
+          if (!with_ctts || seen_key_after) break;
+          seen_key_after = true;
+        }
+      }
+    }
+    for (size_t i = first; i < last && i < stored; ++i)
+      if (sizes[i])
+        t.packets.push_back({offs[i], sizes[i], key[i], discard[i]});
+    t.count = int64_t(n);
     return;
   }
   broken("MP4 file without a video track");
@@ -1054,8 +1177,34 @@ void idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
 
 namespace {
 
-// One MJPEG packet → yuvj420p planes. `container_h`: the height the
-// container gives (a picture under 3/4 of it is one field of a pair).
+// Whether a JPEG's headers carry the comment "CS=ITU601", by which
+// libavcodec's MJPEG decoder takes its YCbCr as limited range (the
+// yuv4xxp formats, as ffmpeg's encoder writes them) instead of yuvj.
+bool itu601_comment(const uint8_t* d, size_t n) {
+  size_t p = 2;
+  while (p + 4 <= n && d[p] == 0xFF) {
+    uint8_t m = d[p + 1];
+    if (m == 0xFF) {
+      ++p;
+      continue;
+    }
+    if (m == 0xDA || m == 0xD9) break;
+    size_t len = (size_t(d[p + 2]) << 8) | d[p + 3];
+    if (len < 2 || p + 2 + len > n) break;
+    if (m == 0xFE && len - 2 == 10 &&
+        std::memcmp(d + p + 4, "CS=ITU601", 10) == 0)
+      return true;
+    p += 2 + len;
+  }
+  return false;
+}
+
+// One MJPEG packet → planes in the layout libavcodec's MJPEG decoder
+// gives it (its sampling factors halved where all are even, as it does):
+// Y 2x2 with Cb, Cr 1x1 is 4:2:0, Y 2x1 4:2:2, Y 1x2 4:4:0, all 1x1
+// 4:4:4, one component grey; full range unless a CS=ITU601 comment says
+// limited. `container_h`: the height the container gives (a picture
+// under 3/4 of it is one field of a pair).
 void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
                   Picture& out) {
   viai_jpeg::Coefficients c;
@@ -1066,15 +1215,44 @@ void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
   }
   if (container_h > 0 && c.height < (container_h * 3) / 4)
     unsupported("MJPEG interlaced field pairs (AVI1)");
-  if (c.ncomp != 3 || c.comp[0].h != 2 || c.comp[0].v != 2 ||
-      c.comp[1].h != 1 || c.comp[1].v != 1 || c.comp[2].h != 1 ||
-      c.comp[2].v != 1)
-    unsupported("MJPEG other than 4:2:0 YCbCr (ffmpeg's yuvj420p)");
+  // libavcodec's pix_fmt_id: (h, v) of each component, a nibble each.
+  uint32_t id = 0;
+  for (int i = 0; i < c.ncomp && i < 4; ++i)
+    id |= (uint32_t(c.comp[i].h) << (28 - 8 * i)) |
+          (uint32_t(c.comp[i].v) << (24 - 8 * i));
+  if (!(id & 0xD0D0D0D0)) id -= (id & 0xF0F0F0F0) >> 1;
+  if (!(id & 0x0D0D0D0D)) id -= (id & 0x0F0F0F0F) >> 1;
+  bool grey = false;
+  int xs = 1, ys = 1;
+  if (c.ncomp == 1) {
+    grey = true;                  // gray, whatever its sampling factors
+  } else if (c.ncomp == 3 && (id & 0xFFFF) == 0x1100) {
+    if (id == 0x22111100) xs = ys = 1;
+    else if (id == 0x21111100) xs = 1, ys = 0;
+    else if (id == 0x11111100) xs = ys = 0;
+    else if (id == 0x12111100) xs = 0, ys = 1;
+    else id = 0;
+  } else {
+    id = 0;
+  }
+  if (!grey && (c.ncomp != 3 || !id)) {
+    std::string f;
+    for (int i = 0; i < c.ncomp; ++i)
+      f += std::string(i ? ", " : "") + std::to_string(c.comp[i].h) + "x" +
+           std::to_string(c.comp[i].v);
+    unsupported("MJPEG of " + std::to_string(c.ncomp) + " components "
+                "sampled " + f + " (libavcodec converts or refuses it; "
+                "4:2:0, 4:2:2, 4:4:4, 4:4:0 YCbCr and grey are read)");
+  }
   out.w = c.width;
   out.h = c.height;
-  out.full_range = true;
+  out.xshift = xs;
+  out.yshift = ys;
+  out.grey = grey;
+  out.full_range = !itu601_comment(data, n);
+  out.matrix = 5;
   std::vector<uint8_t>* planes[3] = {&out.y, &out.u, &out.v};
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < c.ncomp; ++i) {
     viai_jpeg::Plane& p = c.comp[i];
     int pw = p.bw * 8, ph = p.cbh * 8;
     std::vector<uint8_t>& dst = *planes[i];
@@ -1093,6 +1271,10 @@ void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
     if (i == 0) out.ystride = pw;
     else out.cstride = pw;
   }
+  if (grey) {
+    out.u.clear();
+    out.v.clear();
+  }
 }
 
 // libswscale's roundToInt16 of a 16.16 value.
@@ -1101,13 +1283,16 @@ int round16(int64_t f) {
   return int(std::max<int64_t>(std::min<int64_t>(r, 0x7FFF), -0x7FFF));
 }
 
+// swscale's YUV → RGB constants (ff_yuv2rgb_c_init_tables): the matrix's
+// coefficients (ff_yuv2rgb_coeffs[matrix], the colour space cv2 passes on
+// from the decoded frame) scaled by 224/255 for full range, or the luma
+// by 255/219 for limited, as 16.16 values (cy ... oy), and as the 16-bit
+// factors of its x86 code (y ... yoff).
 struct BgrCoeffs {
+  int64_t cy, crv, cbu, cgu, cgv, oy;
   int y, vr, ub, vg, ug, yoff;
 };
 
-// swscale's coefficients (ff_yuv2rgb_coeffs[matrix], the colour space
-// cv2 passes on from the decoded frame), scaled by 224/255 for full range
-// or the luma by 255/219 for limited.
 BgrCoeffs bgr_coeffs(bool full, int matrix) {
   static const int kTable[11][4] = {
       {117489, 138438, 13975, 34925}, {117489, 138438, 13975, 34925},
@@ -1121,41 +1306,404 @@ BgrCoeffs bgr_coeffs(bool full, int matrix) {
   int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3];
   int64_t cy = 1 << 16, oy = 0;
   if (full) {
-    auto s = [](int64_t v) { return v < 0 ? -((-v * 224) / 255)
-                                          : (v * 224) / 255; };
-    crv = s(crv);
-    cbu = s(cbu);
-    cgu = s(cgu);
-    cgv = s(cgv);
+    crv = crv * 224 / 255;
+    cbu = cbu * 224 / 255;
+    cgu = cgu * 224 / 255;
+    cgv = cgv * 224 / 255;
   } else {
     cy = (cy * 255) / 219;
     oy = 16 << 16;
   }
-  return {round16(cy << 13), round16(crv << 13), round16(cbu << 13),
+  return {cy, crv, cbu, cgu, cgv, oy,
+          round16(cy << 13), round16(crv << 13), round16(cbu << 13),
           round16(cgv << 13), round16(cgu << 13), round16(oy << 3)};
 }
 
 inline int pmulhw(int a, int b) { return (a * b) >> 16; }
+inline int wrap16(int v) { return int(int16_t(uint16_t(v))); }
 
-// A 4:2:0 picture → (h, w, 3) BGR24, as swscale converts it.
+// swscale's x86 YUV → BGR24 of one pixel: 16-bit fixed-point products
+// (pmulhw) of Y·8 and (U, V)·8 − 1024 (`y8`, `u8`, `v8`: those 16-bit
+// lanes), saturated to 0..255.
+inline void simd_pixel(const BgrCoeffs& k, int y8, int u8, int v8,
+                       uint8_t* o) {
+  int yy = pmulhw(wrap16(y8 - k.yoff), k.y);
+  int u = wrap16(u8 - 1024), v = wrap16(v8 - 1024);
+  o[0] = clip_u8(wrap16(yy + pmulhw(u, k.ub)));
+  o[1] = clip_u8(wrap16(yy + wrap16(pmulhw(u, k.ug) + pmulhw(v, k.vg))));
+  o[2] = clip_u8(wrap16(yy + pmulhw(v, k.vr)));
+}
+
+// ------------------------------------------------ swscale's scaler path
+//
+// cv2 asks swscale for BGR24 at the same size with SWS_BICUBIC. For
+// yuv420p/yuvj420p and 4:2:2 of even height it takes the unscaled x86
+// converter (simd_pixel, each chroma sample for its 2x2 or 2x1 pixels);
+// gray it copies to B, G and R (its palette path); everything else goes
+// through the generic scaler, which the rest of this section copies from
+// libswscale 9.5 (as cv2's wheel bundles it, x86 with MMXEXT; held
+// against it on random planes of every layout and of sizes from 1x1):
+//
+//   * a horizontal and a vertical filter for each plane from initFilter's
+//     fixed-point bicubic (B 0, C 0.6): luma at 1:1 is one tap; chroma is
+//     resampled to the luma's lines and to half or all of its columns
+//     (all for 4:4:4 input and odd widths: "full chroma", else half,
+//     each for 2 pixels), centred as get_local_pos places it;
+//   * the horizontal pass (hScale8To15): 15-bit lines;
+//   * full chroma: the C output (yuv2rgb_full_{1,X}_c, 30-bit products);
+//     else the MMXEXT output (yuv2bgr24_{1,X}: pmulhw sums with a
+//     rounder of 4, then simd_pixel) for every line but the last two,
+//     which its C output (yuv2rgb_{1,X}_c) writes through lookup tables.
+
+namespace sws {
+
+struct Filter {
+  int size = 0;
+  std::vector<int> pos;        // first source sample of each output
+  std::vector<int> coef;       // size coefficients each, summing to `one`
+};
+
+int64_t rounded_div(int64_t a, int64_t b) {
+  return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b;
+}
+
+int av_log2(int v) {
+  int n = 0;
+  while (v > 1) {
+    v >>= 1;
+    ++n;
+  }
+  return n;
+}
+
+// initFilter for SWS_BICUBIC: `inc` source samples an output sample in
+// 16.16; `align` the x86 alignment of the filter size (4 horizontal, 2
+// vertical), `one` the sum (1 << 14 horizontal, 1 << 12 vertical);
+// positions in 1/256 of a sample (get_local_pos).
+Filter init_filter(int64_t inc, int src_n, int dst_n, int align, int one,
+                   int src_pos, int dst_pos) {
+  const int64_t fone = int64_t(1) << (54 - std::min(av_log2(src_n / dst_n), 8));
+  int fsize;
+  std::vector<int64_t> f;
+  std::vector<int> pos(dst_n);
+  if (std::abs(inc - 0x10000) < 10 && src_pos == dst_pos) {
+    fsize = 1;
+    f.assign(dst_n, fone);
+    for (int i = 0; i < dst_n; ++i) pos[i] = i;
+  } else {
+    const int size_factor = 4;
+    fsize = inc <= (1 << 16) ? 1 + size_factor
+                             : 1 + (size_factor * src_n + dst_n - 1) / dst_n;
+    fsize = std::max(std::min(fsize, src_n - 2), 1);
+    f.assign(size_t(dst_n) * fsize, 0);
+    const int64_t B = 0, C = int64_t(0.6 * (1 << 24));
+    int64_t x_dst_in_src =
+        ((dst_pos * inc) >> 7) - ((src_pos * 0x10000LL) >> 7);
+    for (int i = 0; i < dst_n; ++i) {
+      int xx = int((x_dst_in_src - (fsize - 2) * (int64_t(1) << 16)) /
+                   (1 << 17));
+      pos[i] = xx;
+      for (int j = 0; j < fsize; ++j) {
+        int64_t d = std::abs(int64_t(xx) * (1 << 17) - x_dst_in_src) << 13;
+        if (inc > 1 << 16) d = d * dst_n / src_n;
+        int64_t coeff;
+        if (d >= int64_t(1) << 31) {
+          coeff = 0;
+        } else {
+          int64_t dd = (d * d) >> 30, ddd = (dd * d) >> 30;
+          if (d < int64_t(1) << 30)
+            coeff = (12 * (1 << 24) - 9 * B - 6 * C) * ddd +
+                    (-18 * (1 << 24) + 12 * B + 6 * C) * dd +
+                    (6 * (1 << 24) - 2 * B) * (int64_t(1) << 30);
+          else
+            coeff = (-B - 6 * C) * ddd + (6 * B + 30 * C) * dd +
+                    (-12 * B - 48 * C) * d +
+                    (8 * B + 24 * C) * (int64_t(1) << 30);
+        }
+        coeff /= (int64_t(1) << 54) / fone;
+        f[size_t(i) * fsize + j] = coeff;
+        ++xx;
+      }
+      x_dst_in_src += 2 * inc;
+    }
+  }
+  // Drop near-zero taps on the left (shifting) and count those on the
+  // right: the smallest size that keeps every output's taps.
+  int min_size = 0;
+  for (int i = dst_n - 1; i >= 0; --i) {
+    int64_t* r = &f[size_t(i) * fsize];
+    int m = fsize;
+    int64_t cut = 0;
+    for (int j = 0; j < fsize; ++j) {
+      cut += std::abs(r[0]);
+      if (double(cut) > 0.002 * double(fone)) break;
+      if (i < dst_n - 1 && pos[i] >= pos[i + 1]) break;
+      for (int k = 1; k < fsize; ++k) r[k - 1] = r[k];
+      r[fsize - 1] = 0;
+      ++pos[i];
+    }
+    cut = 0;
+    for (int j = fsize - 1; j > 0; --j) {
+      cut += std::abs(r[j]);
+      if (double(cut) > 0.002 * double(fone)) break;
+      --m;
+    }
+    min_size = std::max(min_size, m);
+  }
+  if (min_size == 1 && align == 2) align = 1;
+  const int size = (min_size + align - 1) & ~(align - 1);
+  std::vector<int64_t> g(size_t(dst_n) * size, 0);
+  for (int i = 0; i < dst_n; ++i)
+    for (int j = 0; j < size && j < fsize; ++j)
+      g[size_t(i) * size + j] = f[size_t(i) * fsize + j];
+  // Fold taps outside the source onto its edge samples.
+  for (int i = 0; i < dst_n; ++i) {
+    int64_t* r = &g[size_t(i) * size];
+    if (pos[i] < 0) {
+      for (int j = 1; j < size; ++j) {
+        int left = std::max(j + pos[i], 0);
+        r[left] += r[j];
+        r[j] = 0;
+      }
+      pos[i] = 0;
+    }
+    if (pos[i] + size > src_n) {
+      int shift = pos[i] + std::min(size - src_n, 0);
+      int64_t acc = 0;
+      for (int j = size - 1; j >= 0; --j)
+        if (pos[i] + j >= src_n) {
+          acc += r[j];
+          r[j] = 0;
+        }
+      for (int j = size - 1; j >= 0; --j) r[j] = j < shift ? 0 : r[j - shift];
+      pos[i] -= shift;
+      r[src_n - 1 - pos[i]] += acc;
+    }
+  }
+  Filter out;
+  out.size = size;
+  out.pos = pos;
+  out.coef.assign(size_t(dst_n) * size, 0);
+  for (int i = 0; i < dst_n; ++i) {
+    const int64_t* r = &g[size_t(i) * size];
+    int64_t sum = 0, err = 0;
+    for (int j = 0; j < size; ++j) sum += r[j];
+    sum = (sum + one / 2) / one;
+    if (!sum) sum = 1;
+    for (int j = 0; j < size; ++j) {
+      int64_t v = r[j] + err;
+      int64_t iv = rounded_div(v, sum);
+      out.coef[size_t(i) * size + j] = int(iv);
+      err = v - iv * sum;
+    }
+  }
+  return out;
+}
+
+// get_local_pos of the default chroma position for a subsampling shift.
+int local_pos(int shift) { return (((128 << shift) - 128) + 128) >> shift; }
+
+int64_t step(int src_n, int dst_n) {
+  return ((int64_t(src_n) << 16) + (dst_n >> 1)) / dst_n;
+}
+
+// hScale8To15 of a plane's rows → (rows, dst_n) 15-bit samples.
+std::vector<int> hscale(const uint8_t* src, int stride, int rows,
+                        const Filter& f, int dst_n) {
+  std::vector<int> out(size_t(rows) * dst_n);
+  for (int y = 0; y < rows; ++y) {
+    const uint8_t* s = src + size_t(y) * stride;
+    for (int i = 0; i < dst_n; ++i) {
+      const int* c = &f.coef[size_t(i) * f.size];
+      int val = 0;
+      for (int j = 0; j < f.size; ++j)
+        if (c[j]) val += s[f.pos[i] + j] * c[j];
+      out[size_t(y) * dst_n + i] = std::min(val >> 7, (1 << 15) - 1);
+    }
+  }
+  return out;
+}
+
+// The C output's lookup tables (ff_yuv2rgb_c_init_tables at 24 bits): a
+// clipped luma ramp, read at Y plus each chroma term's offset.
+struct Tables {
+  std::vector<uint8_t> ramp;
+  int64_t crv, cbu, cgu, cgv;
+  int yoffs;
+  Tables(const BgrCoeffs& k, bool full) : ramp(2048) {
+    auto scaled = [&](int64_t c) { return (c * (1 << 16) + 0x8000) / k.cy; };
+    crv = scaled(k.crv);
+    cbu = scaled(k.cbu);
+    cgu = scaled(k.cgu);
+    cgv = scaled(k.cgv);
+    yoffs = (full ? 384 : 326) + 512;
+    int64_t yb = -(int64_t(384) << 16) - 512 * k.cy - k.oy;
+    for (int i = 0; i < 2048; ++i, yb += k.cy)
+      ramp[size_t(i)] = clip_u8(int((yb + 0x8000) >> 16));
+  }
+  int term(int64_t c, int x) const {
+    return int(-(c >> 9) + ((int64_t(clip_u8(x)) * c) >> 16));
+  }
+  // yuv2rgb_write for one pair: Y1, Y2 and their U, V (clipped together
+  // when any has bit 8 set, as the C output does).
+  void pair(int y1, int y2, int u, int v, uint8_t* o, bool two) const {
+    if ((y1 | y2 | u | v) & 0x100) {
+      y1 = clip_u8(y1);
+      y2 = clip_u8(y2);
+      u = clip_u8(u);
+      v = clip_u8(v);
+    }
+    int r = yoffs + term(crv, v), b = yoffs + term(cbu, u);
+    int g = yoffs + term(cgu, u) + term(cgv, v);
+    o[0] = ramp[size_t(b + y1)];
+    o[1] = ramp[size_t(g + y1)];
+    o[2] = ramp[size_t(r + y1)];
+    if (two) {
+      o[3] = ramp[size_t(b + y2)];
+      o[4] = ramp[size_t(g + y2)];
+      o[5] = ramp[size_t(r + y2)];
+    }
+  }
+};
+
+// yuv2rgb_write_full: Y, U, V at 1 << 9 (U, V less 128 << 9) → BGR;
+// `yoff` the luma offset at that scale.
+inline void full_pixel(const BgrCoeffs& k, int yoff, int y, int u, int v,
+                       uint8_t* o) {
+  y = (y - yoff) * k.y + (1 << 21);
+  int r = int(unsigned(y) + unsigned(v) * unsigned(k.vr));
+  int g = int(unsigned(y) + unsigned(v) * unsigned(k.vg) +
+              unsigned(u) * unsigned(k.ug));
+  int b = int(unsigned(y) + unsigned(u) * unsigned(k.ub));
+  if ((r | g | b) & 0xC0000000) {
+    const int max30 = (1 << 30) - 1;          // av_clip_uintp2(x, 30)
+    auto c30 = [&](int x) { return x & ~max30 ? (~x >> 31) & max30 : x; };
+    r = c30(r);
+    g = c30(g);
+    b = c30(b);
+  }
+  o[0] = uint8_t(b >> 22);
+  o[1] = uint8_t(g >> 22);
+  o[2] = uint8_t(r >> 22);
+}
+
+std::vector<uint8_t> scaled_bgr(const Picture& p) {
+  const int w = p.w, h = p.h, xs = p.xshift, ys = p.yshift;
+  const bool full = (xs == 0 && ys == 0) || (w & 1);
+  const int dxs = full ? 0 : 1;
+  const int csw = (w + (1 << xs) - 1) >> xs, csh = (h + (1 << ys) - 1) >> ys;
+  const int cdw = (w + (1 << dxs) - 1) >> dxs;
+  Filter hf = init_filter(step(csw, cdw), csw, cdw, 4, 1 << 14,
+                          local_pos(xs), local_pos(dxs));
+  Filter vf = init_filter(step(csh, h), csh, h, 2, 1 << 12, local_pos(ys),
+                          local_pos(0));
+  std::vector<int> U = hscale(p.u.data(), p.cstride, csh, hf, cdw);
+  std::vector<int> V = hscale(p.v.data(), p.cstride, csh, hf, cdw);
+  const BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
+  const int yoff_full = round16(k.oy << 9);
+  const Tables tab(k, p.full_range);
+  std::vector<uint8_t> out(size_t(w) * h * 3);
+  const int n = vf.size;
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* yr = &p.y[size_t(y) * p.ystride];
+    const int* c = &vf.coef[size_t(y) * n];
+    const int* u0 = &U[size_t(vf.pos[y]) * cdw];
+    const int* v0 = &V[size_t(vf.pos[y]) * cdw];
+    const int* u1 = n > 1 ? u0 + cdw : u0;
+    const int* v1 = n > 1 ? v0 + cdw : v0;
+    // One tap, or two summing to 4096 (the weight of the second,
+    // `alpha`, at most 4096): the 1-tap outputs; else the n-tap ones.
+    const bool one_tap = n == 1 || (n == 2 && c[0] + c[1] == 4096 &&
+                                    unsigned(c[1]) <= 4096u);
+    const int alpha = n == 1 ? 0 : c[1];
+    auto sum = [&](const std::vector<int>& P, int x) {
+      int64_t s = 0;
+      for (int j = 0; j < n; ++j)
+        s += int64_t(P[size_t(vf.pos[y] + j) * cdw + x]) * c[j];
+      return s;
+    };
+    uint8_t* o = &out[size_t(y) * w * 3];
+    // Luma at 1:1 is one tap of 1: each output's scaling of its 15-bit
+    // line (Y << 7) is exact, Y << 9 (C), Y · 8 (MMXEXT), Y (tables).
+    if (full) {
+      for (int x = 0; x < w; ++x) {
+        int u, v;
+        if (one_tap) {
+          if (alpha) {
+            u = (u0[x] * (4096 - alpha) + u1[x] * alpha - (128 << 19)) >> 10;
+            v = (v0[x] * (4096 - alpha) + v1[x] * alpha - (128 << 19)) >> 10;
+          } else {
+            u = (u0[x] - (128 << 7)) * 4;
+            v = (v0[x] - (128 << 7)) * 4;
+          }
+        } else {
+          u = int(((1 << 9) - (int64_t(128) << 19) + sum(U, x)) >> 10);
+          v = int(((1 << 9) - (int64_t(128) << 19) + sum(V, x)) >> 10);
+        }
+        full_pixel(k, yoff_full, yr[x] << 9, u, v, o + 3 * x);
+      }
+    } else if (y < h - 2) {                      // MMXEXT
+      for (int i = 0; i < cdw; ++i) {
+        int u8, v8;
+        if (one_tap && alpha >= 2048) {
+          u8 = ((u0[i] + u1[i]) & 0xFFFF) >> 5;
+          v8 = ((v0[i] + v1[i]) & 0xFFFF) >> 5;
+        } else if (one_tap) {
+          u8 = u0[i] >> 4;
+          v8 = v0[i] >> 4;
+        } else {
+          u8 = v8 = 4;                           // the rounder
+          for (int j = 0; j < n; ++j) {
+            u8 = wrap16(u8 + pmulhw(U[size_t(vf.pos[y] + j) * cdw + i], c[j]));
+            v8 = wrap16(v8 + pmulhw(V[size_t(vf.pos[y] + j) * cdw + i], c[j]));
+          }
+        }
+        for (int x = 2 * i; x < 2 * i + 2 && x < w; ++x)
+          simd_pixel(k, (yr[x] << 3) + (one_tap ? 0 : 4), u8, v8, o + 3 * x);
+      }
+    } else {                                      // C, the last two lines
+      for (int i = 0; i < cdw; ++i) {
+        int u, v;
+        if (one_tap && alpha) {
+          u = (u0[i] * (4096 - alpha) + u1[i] * alpha + (128 << 11)) >> 19;
+          v = (v0[i] * (4096 - alpha) + v1[i] * alpha + (128 << 11)) >> 19;
+        } else if (one_tap) {
+          u = (u0[i] + 64) >> 7;
+          v = (v0[i] + 64) >> 7;
+        } else {
+          u = int(((1 << 18) + sum(U, i)) >> 19);
+          v = int(((1 << 18) + sum(V, i)) >> 19);
+        }
+        int x = 2 * i;
+        tab.pair(yr[x], x + 1 < w ? yr[x + 1] : 0, u, v, o + 3 * x,
+                 x + 1 < w);
+      }
+    }
+  }
+  return out;
+}
+
+}  // namespace sws
+
+// A picture → (h, w, 3) BGR24, as swscale converts it for cv2.
 std::vector<uint8_t> to_bgr(const Picture& p) {
-  if (p.h & 1)
-    unsupported("4:2:0 picture of odd height (swscale converts it "
-                "through its scaler, not read)");
-  BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
+  if (p.grey) {
+    for (int y = 0; y < p.h; ++y)
+      for (int x = 0; x < p.w; ++x)
+        std::memset(&out[(size_t(y) * p.w + x) * 3],
+                    p.y[size_t(y) * p.ystride + x], 3);
+    return out;
+  }
+  if (p.xshift != 1 || (p.h & 1)) return sws::scaled_bgr(p);
+  BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   for (int y = 0; y < p.h; ++y) {
     const uint8_t* yr = &p.y[size_t(y) * p.ystride];
-    const uint8_t* ur = &p.u[size_t(y / 2) * p.cstride];
-    const uint8_t* vr = &p.v[size_t(y / 2) * p.cstride];
+    const uint8_t* ur = &p.u[size_t(y >> p.yshift) * p.cstride];
+    const uint8_t* vr = &p.v[size_t(y >> p.yshift) * p.cstride];
     uint8_t* o = &out[size_t(y) * p.w * 3];
-    for (int x = 0; x < p.w; ++x) {
-      int yy = pmulhw(int(int16_t(yr[x] * 8 - k.yoff)), k.y);
-      int u = ur[x / 2] * 8 - 1024, v = vr[x / 2] * 8 - 1024;
-      o[3 * x] = clip_u8(yy + pmulhw(u, k.ub));
-      o[3 * x + 1] = clip_u8(yy + (pmulhw(u, k.ug) + pmulhw(v, k.vg)));
-      o[3 * x + 2] = clip_u8(yy + pmulhw(v, k.vr));
-    }
+    for (int x = 0; x < p.w; ++x)
+      simd_pixel(k, yr[x] * 8, ur[x / 2] * 8, vr[x / 2] * 8, o + 3 * x);
   }
   return out;
 }
@@ -1239,10 +1787,13 @@ class Decoder {
     if (t.codec == Codec::kH264) h264_.reset(new H264Decoder(t.config));
   }
 
-  // Packet i → its picture in `out`; false when it holds none.
+  // Packet i → a picture in `out`; false when it gives none (H.264's
+  // may come from an earlier packet: packet_of tells which).
   bool decode(size_t i, Picture& out) {
     const Packet& p = t_.packets[i];
     const uint8_t* d = &t_.file[p.off];
+    calls_.push_back(i);
+    out.source = int64_t(calls_.size()) - 1;
     if (t_.codec == Codec::kMjpeg) {
       decode_mjpeg(d, p.size, t_.height, out);
       return true;
@@ -1256,6 +1807,17 @@ class Decoder {
   // At the end of the track: a picture the decoder still holds back
   // (H.264's reorder delay); false when none is left.
   bool flush(Picture& out) { return h264_ && h264_->flush(out); }
+
+  // The packet a picture of decode() or flush() was decoded from.
+  size_t packet_of(const Picture& pic) const {
+    return calls_[size_t(pic.source)];
+  }
+
+  // Whether cv2 sees the picture: false for one of a packet an MP4 edit
+  // marks for discarding (libavcodec drops its frame).
+  bool shown(const Picture& pic) const {
+    return !t_.packets[packet_of(pic)].discard;
+  }
 
   // Read packet i's headers only (MPEG-4: a VOL it holds is kept;
   // H.264: its parameter sets).
@@ -1277,6 +1839,7 @@ class Decoder {
 
  private:
   const Track& t_;
+  std::vector<size_t> calls_;     // the packet of each decode() call
   std::unique_ptr<Mpeg4Decoder> mpeg4_;
   std::unique_ptr<Vp8Decoder> vp8_;
   std::unique_ptr<Vp9Decoder> vp9_;
@@ -1380,8 +1943,9 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
       ++frames;
     };
     for (size_t i = 0; i < t.packets.size(); ++i)
-      if (dec.decode(i, pic)) take();
-    while (dec.flush(pic)) take();
+      if (dec.decode(i, pic) && dec.shown(pic)) take();
+    while (dec.flush(pic))
+      if (dec.shown(pic)) take();
     if (!frames) viai_video::broken("no frames decoded");
     uint8_t* out = static_cast<uint8_t*>(std::malloc(all.size()));
     if (!out) viai_video::broken("out of memory");
@@ -1447,25 +2011,25 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       viai_video::H264Decoder scan(t.config);
       int64_t pics = 0, n = 0;
       size_t start = 0;
+      // Pictures an MP4 edit discards are not counted.
       for (size_t i = 0; i < t.packets.size(); ++i) {
         int kind = scan.peek(&t.file[t.packets[i].off], t.packets[i].size);
         if (kind == 0 && pics <= want.front()) {
           start = i;
           n = pics;
         }
-        if (kind >= 0) ++pics;
+        if (kind >= 0 && !t.packets[i].discard) ++pics;
       }
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       bool done = false;
-      for (size_t i = start; i < t.packets.size() && !done; ++i) {
-        if (!dec.decode(i, pic)) continue;
+      auto next = [&]() {
+        if (!dec.shown(pic)) return;
         if (wanted(n)) keep();
         done = ++n > want.back();
-      }
-      while (!done && dec.flush(pic)) {
-        if (wanted(n)) keep();
-        done = ++n > want.back();
-      }
+      };
+      for (size_t i = start; i < t.packets.size() && !done; ++i)
+        if (dec.decode(i, pic)) next();
+      while (!done && dec.flush(pic)) next();
       if (got.empty()) viai_video::broken("no frames decoded");
     } else {
       // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
@@ -1484,7 +2048,7 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                  : t.codec == viai_video::Codec::kVp9
                      ? viai_video::Vp9Decoder::peek(&t.file[p.off], p.size)
                      : 0;
-        if (vop[i] >= 0) frame_of[i] = frames++;
+        if (vop[i] >= 0 && !p.discard) frame_of[i] = frames++;
       }
       size_t first = 0, last = 0;
       bool any = false;

@@ -20,14 +20,17 @@ The port's copy of `viai_tpu/data/av.py`. The frames of a clip
     BI_RGB 24-bit bottom-up, as data/avi.py writes and reads) through
     the frame-stack reader, any other through the port's video reader
     (native.load_video_frames: csrc/videodec.cpp's demuxers for AVI,
-    MP4/MOV and Matroska/WebM, its MJPEG decoder, csrc/mpeg4.cpp's
+    MP4/MOV and Matroska/WebM (OpenDML AVI and MP4 edit lists too), its
+    MJPEG decoder (4:2:0, 4:2:2, 4:4:4, 4:4:0, grey), csrc/mpeg4.cpp's
     MPEG-4 Part 2 decoder, csrc/vp8.cpp's VP8 decoder, csrc/vp9.cpp's
     VP9 decoder and csrc/h264.cpp's H.264 decoder, VP8 and VP9 in MP4
     too), what the JAX package's cv2 path gives: the frames of cv2's
     count over the window as a set, cv2's INTER_LINEAR resize on BGR,
     RGB / 255, re-picked over the frames found. Another codec (HEVC,
-    AV1, FFV1), a VP9 profile other than 0 or H.264 other than 8-bit
-    4:2:0 progressive raises NotImplementedError naming it.
+    AV1, FFV1), a VP9 profile other than 0, H.264 other than 8-bit
+    4:2:0 progressive, MJPEG of another sampling or field pairs, or an
+    MP4 edit list of several edits or another rate raises
+    NotImplementedError naming it.
 A MUSICES-style JSON manifest {split: [{"audio": ..., "frames": ...}]}
 is read by MusicesManifest.
 """

@@ -9,7 +9,8 @@ the threaded random-crop clip loader; where the JAX package calls PIL,
 the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
 (`load_frame_dir`), whose plain twin is `data/image.py`; and where it
 calls cv2, the compressed video reader: the demuxers (`video_track`),
-the MJPEG and MPEG-4 Part 2 decoders (`decode_video`) and the frame path
+the MJPEG, MPEG-4 Part 2, VP8, VP9 and H.264 decoders with swscale's
+conversion to BGR (`decode_video`) and the frame path
 of `_load_frames_video` (`load_video_frames`).
 `_build.py` compiles the library with g++ at first use; a failed build
 raises, and there is no flag to go without it (the JAX module falls
@@ -233,9 +234,10 @@ class VideoTrack:
     ("mjpeg", "mpeg4", "vp8", "vp9", "h264" or "other"), the size the
     container gives, the frame count cv2's CAP_PROP_FRAME_COUNT reports,
     the MPEG-4 headers or H.264 avcC record the container holds (`config`)
-    and the packets in decode order, each (bytes, the container's keyframe
-    flag): H.264's as the container holds them (length-prefixed NAL units
-    in MP4 and Matroska, Annex B in AVI)."""
+    and the packets libavformat gives cv2 in decode order (under an MP4
+    edit, from the keyframe it starts from), each (bytes, the container's
+    keyframe flag): H.264's as the container holds them (length-prefixed
+    NAL units in MP4 and Matroska, Annex B in AVI)."""
     container: str
     tag: str
     codec: str
@@ -260,9 +262,12 @@ def _open_video(path: str):
 def video_track(path: str, packets: bool = True) -> VideoTrack:
     """Demux `path` (AVI, MP4/MOV, Matroska/WebM). Raises ValueError for
     a broken file, NotImplementedError for a container feature that is
-    not read (an OpenDML index, an MP4 edit list other than one
-    whole-track edit from the first presented sample, Matroska content
-    encodings)."""
+    not read (an MP4 edit at another rate than 1, of duration 0, or
+    several non-empty edits; Matroska content encodings). AVI's OpenDML
+    index and `RIFF AVIX` extensions are read; an MP4 edit list of one
+    edit (after an empty one or not) is read as libavformat reads it:
+    the packets from the keyframe before the edit on, those presented
+    outside it marked to be decoded and dropped."""
     lib, h = _open_video(path)
     try:
         info = (ctypes.c_int64 * 6)()
@@ -286,14 +291,16 @@ def video_track(path: str, packets: bool = True) -> VideoTrack:
 
 def decode_video(path: str) -> np.ndarray:
     """Every frame of a video file, (T, H, W, 3) BGR uint8, as cv2's
-    `VideoCapture(path).read()` gives them: MJPEG, MPEG-4 Part 2 (the
-    I- and P-VOPs of ffmpeg's encoder), VP8 and VP9 (profile 0: their
-    shown frames), H.264 (progressive 8-bit 4:2:0: Baseline, Main and
-    High, in libavcodec's output order); in AVI, Matroska/WebM and MP4,
-    converted to BGR24 as swscale does. Raises ValueError for a broken
-    file or one without frames, NotImplementedError naming the codec
-    (HEVC, AV1, FFV1, ...) or the MPEG-4, VP8, VP9 or H.264 feature it
-    does not read."""
+    `VideoCapture(path).read()` gives them: MJPEG (4:2:0, 4:2:2, 4:4:4,
+    4:4:0 or grey), MPEG-4 Part 2 (the I- and P-VOPs of ffmpeg's
+    encoder), VP8 and VP9 (profile 0: their shown frames), H.264
+    (progressive 8-bit 4:2:0: Baseline, Main and High, in libavcodec's
+    output order); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
+    list's dropped frames left out), converted to BGR24 as swscale does
+    (its scaler for odd heights and 4:4:4/4:4:0). Raises ValueError for
+    a broken file or one without frames, NotImplementedError naming the
+    codec (HEVC, AV1, FFV1, ...) or the MJPEG, MPEG-4, VP8, VP9, H.264
+    or container feature it does not read."""
     lib, h = _open_video(path)
     try:
         thw = (ctypes.c_int64 * 3)()

@@ -24,7 +24,9 @@ Port of `scripts/prepare_dataset.py`, with its modes and flags:
 
 Video the port does not read (HEVC, AV1, FFV1, which the JAX package
 decodes with cv2; a VP8 feature libvpx does not write; a VP9 profile
-other than 0; H.264 other than 8-bit 4:2:0 progressive; a broken file)
+other than 0; H.264 other than 8-bit 4:2:0 progressive; MJPEG field
+pairs or mixed sampling ratios; an MP4 edit list of several edits; a
+broken file)
 is listed by extract
 and frames as skipped with the reason; extract --require_audio skips
 frames-only clips too and then exits 1. Each mode appends one record to
