@@ -102,10 +102,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      given the committed 224x224 video files as frames, once from MJPEG
      and MPEG-4 files (.avi, .mp4, .mkv, and a MOV made a stack by
      prepare_dataset extract), once from VP8 files (.webm, .mkv), once
-     from VP9 files (.webm, .mp4) and once from H.264 files (.mp4 High,
-     .mkv Main), GL launches 2 and plain 0 each; the eval CLI on a
-     musices split of
-     each folder; the decode time per frame of each codec, a clip's read
+     from VP9 files (.webm, .mp4), once from H.264 files (.mp4 High,
+     .mkv Main), once from camera and cut clips (MJPEG 4:2:2 in OpenDML
+     AVI, H.264 under a trimming MP4 edit) and once from MPEG-4 Advanced
+     Simple Profile files (XviD in AVI: packed B-VOPs, quarter-pel, 4MV,
+     GMC; libavcodec's mpeg4 in MP4: B-VOPs, 4MV, AC prediction), GL
+     launches 2 and plain 0 each; the eval CLI on a musices split of
+     each folder; each MPEG-4 fixture's max |Δ|; the decode time per frame of each codec, a clip's read
      of 16 frames, the loader's wait share of a step from each folder
      and the host's cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
@@ -315,9 +318,12 @@ FRAMES_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
 FRAMES_JPEG_TOL = 1
 FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
 FRAMES_WARMUP = 3
-# [video]: the committed fixtures of tests/torch_videos/ (written with cv2
-# libvpx and libx264 by tests/_torch_make_videos.py, which the card's
-# machine cannot run): MJPEG, MPEG-4 Part 2, VP8, VP9 and H.264 clips in
+# [video]: the committed fixtures of tests/torch_videos/ (written with cv2,
+# libvpx, libx264, and libavcodec 59's mpeg4 and libxvid encoders by
+# tests/_torch_make_videos.py, which the card's machine cannot run): MJPEG,
+# MPEG-4 Part 2 (Simple and Advanced Simple Profile: B-VOPs packed and
+# not, quarter-pel, GMC, 4MV, AC prediction, MPEG quantisation, video
+# packets, the XviD IDCT), VP8, VP9 and H.264 clips in
 # AVI, MP4, MOV, Matroska and WebM with cv2's decode of their first,
 # middle and last frames and its frame count (.npz), and the first frames
 # of the 224x224 jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv
@@ -326,8 +332,10 @@ FRAMES_WARMUP = 3
 # B-frames) and clip_h264.mkv (Main, CAVLC), clip_cam.avi (a webcam's
 # MJPEG 4:2:2 in an OpenDML AVI with a RIFF AVIX), clip_cut.mp4 (High cut
 # as `ffmpeg -ss ... -c copy` leaves it: an edit that drops the first 4 of
-# 20 frames) and clip_oddh.avi (MJPEG 4:2:0 at 224x223, swscale's scaler
-# path; timed only). Decoded
+# 20 frames), clip_oddh.avi (MJPEG 4:2:0 at 224x223, swscale's scaler
+# path; timed only), clip_xvid.avi (libxvid: packed B-VOPs, quarter-pel,
+# 4MV, GMC of 3 warping points) and clip_dx50.mp4 (libavcodec's mpeg4:
+# B-VOPs, 4MV, AC prediction). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -343,7 +351,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "vp8": ("clip.webm", "clip_vp8.mkv"),
                  "vp9": ("clip_vp9.webm", "clip_vp9.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
-                 "cam_cut": ("clip_cam.avi", "clip_cut.mp4")}
+                 "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
+                 "xvid": ("clip_xvid.avi", "clip_dx50.mp4")}
 VIDEO_REPS = 3
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
@@ -1889,7 +1898,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     Matroska, and a MOV through prepare_dataset extract), VP8 clips
     (WebM, Matroska), VP9 clips (WebM, MP4), H.264 clips (MP4,
     Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
-    H.264 in MP4 under a trimming edit);
+    H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
+    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a clip's read, the loader's wait share of a step
     from each folder. Returns the GL kernel's launches."""
@@ -1900,6 +1910,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     n_frames = {c: 0 for c in VIDEO_TOL}
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
+    per_mpeg4 = []
     for npz in cases:
         path = next(p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                     if p.suffix != ".npz")
@@ -1915,6 +1926,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
         err = int(np.abs(got[ref["index"]].astype(np.int64)
                          - ref["frames"]).max())
         worst[track.codec] = max(worst[track.codec], err)
+        if track.codec == "mpeg4":
+            per_mpeg4.append(f"{npz.stem} {err}")
         n_frames[track.codec] += len(ref["index"])
         n_files[track.codec] += 1
     for codec, name in VIDEO_NAMES.items():
@@ -1922,6 +1935,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             f"committed fixtures against cv2's decodes: max|Δ| "
             f"{worst[codec]} levels (bound {VIDEO_TOL[codec]}); counts "
             f"equal cv2's")
+    log("[video] MPEG-4 Part 2 max|Δ| per fixture: " + ", ".join(per_mpeg4))
     require(all(n_files.values()), f"[video] a codec without fixtures: "
             f"{n_files}")
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
@@ -1967,7 +1981,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_h264.mkv", "H.264 Main"),
                        ("clip_cam.avi", "MJPEG 4:2:2, OpenDML"),
                        ("clip_cut.mp4", "H.264 High, 4 of 20 frames cut"),
-                       ("clip_oddh.avi", "MJPEG 4:2:0, odd height")):
+                       ("clip_oddh.avi", "MJPEG 4:2:0, odd height"),
+                       ("clip_xvid.avi",
+                        "MPEG-4 ASP: XviD, packed B, qpel, 4MV, GMC"),
+                       ("clip_dx50.mp4",
+                        "MPEG-4 ASP: B-VOPs, 4MV, AC prediction")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n

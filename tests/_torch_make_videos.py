@@ -50,7 +50,18 @@ which the card's machine does not have, so the fixtures are committed):
     ODML_CASES (`avi_odml_file`: indx, ix00, dmlh, one RIFF AVIX); the
     MP4s of EDIT_CASES, libx264's High stream under an edit that trims
     its first frames, as a cut with `ffmpeg -ss ... -c copy` leaves it,
-    alone and after an empty edit;
+    alone and after an empty edit; the files of LAVC_CASES, MPEG-4 Part 2
+    Advanced Simple Profile written by the system's libavcodec 59
+    (`libavcodec.so.59`, `libavutil.so.57`) through ctypes
+    (`lavc_encode`): libxvid (the real XviD, `libxvidcore.so.4`) at its
+    defaults, with packed B-VOPs (in AVI and Matroska), quarter-pel, MPEG
+    quantisation, GMC of 3 warping points and, its S-VOPs' warps made
+    translations (`gmc_translation`), GMC's one-point route, and an early
+    build's user data (XviD0001) at 88x56; libavcodec's mpeg4 with
+    B-VOPs (in AVI and MP4), 4MV, AC prediction, MPEG quantisation with
+    the default and with loaded matrices, video packets, data
+    partitioning, quarter-pel B-VOPs, and DivX user data (DivX503b1393p);
+    the AVI of LAVC_UNREAD, what the port does not read (interlace);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); and `count`, `CAP_PROP_FRAME_COUNT`;
@@ -58,7 +69,9 @@ which the card's machine does not have, so the fixtures are committed):
     `clip_vp8.mkv`, `clip_vp9.webm`, `clip_vp9.mp4`, `clip_h264.mp4`
     (High), `clip_h264.mkv` (Main, CAVLC), `clip_cam.avi` (MJPEG 4:2:2
     in OpenDML), `clip_cut.mp4` (High, 4 of 20 frames cut by an edit),
-    `clip_oddh.avi` (4:2:0 at 224x223): the first frames of the
+    `clip_oddh.avi` (4:2:0 at 224x223), `clip_xvid.avi` (libxvid:
+    packed B-VOPs, quarter-pel, 4MV, GMC), `clip_dx50.mp4` (libavcodec's
+    mpeg4: B-VOPs, 4MV, AC prediction): the first frames of the
     committed 224x224 jpeg clip
     (tests/torch_frames/clip/) as video (CLIP_CASES), the clips
     chip_smoke.py trains from and times.
@@ -223,6 +236,64 @@ EDIT_CASES = {
     "h264_trim_mp4": [(35, 5)],
     "h264_emptyedit_mp4": [(3, None), (33, 7)],
 }
+# name: (encoder, its options, fourcc, user data): MPEG-4 Part 2 Advanced
+# Simple Profile from the system's libavcodec 59 (lavc_encode): libxvid
+# (the real XviD) and ffmpeg's own mpeg4 encoder, one tool each, 12
+# frames at 96x64, in AVI under `fourcc` unless the name ends in mp4 (an
+# mp4v sample entry with its esds) or mkv (V_MPEG4/ISO/ASP with the
+# headers as CodecPrivate); `user data`, when given, replaces the
+# encoder's own ("Lavc59.37.100"). libxvid with B-frames packs them
+# (DivX503b1393p user data beside XviD0069: a P-VOP and the B-VOP before
+# it in one packet, an N-VOP placeholder later; 10 packets of 12 frames).
+# Custom quantisation matrices come from the encoder's intra_matrix and
+# inter_matrix (LAVC_MATRICES).
+LAVC_CASES = {
+    "xvid_default_avi": ("libxvid", {}, b"XVID", None),
+    "xvid_packed_avi": ("libxvid", {"bf": 2}, b"XVID", None),
+    "xvid_qpel_avi": ("libxvid", {"flags": "+qpel"}, b"XVID", None),
+    "xvid_mpegquant_avi": ("libxvid", {"mpeg_quant": 1}, b"XVID", None),
+    "xvid_gmc_avi": ("libxvid", {"bf": 2, "flags": "+qpel+mv4", "gmc": 1,
+                                 "mpeg_quant": 1}, b"XVID", None),
+    "xvid_packed_mkv": ("libxvid", {"bf": 2, "flags": "+qpel+mv4"}, b"XVID",
+                        None),
+    "mpeg4_bframes_avi": ("mpeg4", {"bf": 2}, b"DIVX", None),
+    "mpeg4_mv4_avi": ("mpeg4", {"flags": "+mv4"}, b"DX50", None),
+    "mpeg4_aic_avi": ("mpeg4", {"flags": "+aic"}, b"DX50", None),
+    "mpeg4_mpegquant_avi": ("mpeg4", {"mpeg_quant": 1}, b"DX50", None),
+    "mpeg4_matrices_avi": ("mpeg4", {"mpeg_quant": 1, "bf": 1}, b"DX50",
+                           None),
+    "mpeg4_packets_avi": ("mpeg4", {"ps": 200}, b"DX50", None),
+    "mpeg4_partitioned_avi": ("mpeg4", {"data_partitioning": 1, "ps": 300,
+                                        "flags": "+mv4+aic"}, b"DX50", None),
+    "mpeg4_qpelbf_avi": ("mpeg4", {"bf": 2, "flags": "+qpel"}, b"DX50", None),
+    "mpeg4_divx_avi": ("mpeg4", {"bf": 2, "flags": "+qpel+mv4"}, b"DX50",
+                       b"DivX503b1393p"),
+    "mpeg4_bframes_mp4": ("mpeg4", {"bf": 2, "flags": "+mv4"}, b"DX50", None),
+    "xvid_build1_avi": ("libxvid", {"bf": 1, "flags": "+qpel"}, b"XVID",
+                        b"XviD0001"),
+    "xvid_gmc1_avi": ("libxvid", {"bf": 2, "flags": "+qpel+mv4", "gmc": 1,
+                                  "mpeg_quant": 1}, b"XVID", None),
+}
+# the cases of LAVC_CASES at another size than 96x64, (h, w): an early
+# XviD build's stream (user data XviD0001: libavcodec's quarter-pel chroma,
+# edge and DC clipping workarounds) at a size that is not a multiple of 16
+LAVC_SIZES = {"xvid_build1_avi": (56, 88)}
+# the cases of LAVC_CASES whose S-VOPs get a translation for a warp
+# (gmc_translation): libavcodec's one-point GMC route
+LAVC_GMC1 = {"xvid_gmc1_avi"}
+# the cases of LAVC_CASES that encode a 96x64 crop of the 224x224 clip's
+# first frames (moving_frames' content gives libxvid no GMC macroblock)
+LAVC_CROP = {"xvid_gmc_avi", "xvid_gmc1_avi"}
+# the cases of LAVC_CASES encoded with these intra and inter matrices
+LAVC_MATRICES = {"mpeg4_matrices_avi": (
+    [8] + [10 + i // 3 for i in range(1, 64)],
+    [12 + (i * 5) % 23 for i in range(64)])}
+# name: (encoder, options, fourcc): what libavcodec's mpeg4 encoder writes
+# and the port does not read (LAVC_CASES' shape): interlaced coding
+# (field DCT and field motion)
+LAVC_UNREAD = {
+    "mpeg4_interlaced_avi": ("mpeg4", {"flags": "+ildct+ilme"}, b"DX50"),
+}
 # the clips chip_smoke.py trains from: name: (ext, fourcc, frames), the
 # first frames of the 32.
 CLIP_CASES = {"clip_avi": ("avi", "MJPG", 16), "clip_mp4": ("mp4", "mp4v", 16),
@@ -235,20 +306,27 @@ CLIP_CASES = {"clip_avi": ("avi", "MJPG", 16), "clip_mp4": ("mp4", "mp4v", 16),
               "clip_h264_mkv": ("mkv", "avc1", 8),     # Main, CAVLC
               "clip_cam_avi": ("avi", "MJPG", 16),     # 4:2:2, OpenDML
               "clip_cut_mp4": ("mp4", "avc1", 16),     # a trimming edit
-              "clip_oddh_avi": ("avi", "MJPG", 8)}     # 224x223, PIL's
+              "clip_oddh_avi": ("avi", "MJPG", 8),     # 224x223, PIL's
+              "clip_xvid_avi": ("avi", "XVID", 16),    # ASP, packed B
+              "clip_dx50_mp4": ("mp4", "DX50", 16)}    # B-VOPs, 4MV, AC
+# the libavcodec encoders and options of the ASP training clips
+LAVC_CLIPS = {"clip_xvid_avi": ("libxvid", {"bf": 2, "flags": "+qpel+mv4",
+                                            "gmc": 1}),
+              "clip_dx50_mp4": ("mpeg4", {"bf": 2, "flags": "+mv4+aic"})}
 # the libx264 settings of the H.264 training clips
 X264_CLIPS = {"clip_h264_mp4": dict(),
               "clip_h264_mkv": dict(profile="main", cabac=0)}
 # Every case held against cv2 (an .npz each), and the codec it holds.
 DECODED = (*CASES, *HAND_CASES, *MP4_MJPEG_CASES, *VP8_PATCHED,
            *VP8_MP4_CASES, *LIBVPX_CASES, *X264_CASES, *X264_PATCHED,
-           *MJPEG_CASES, *ODML_CASES, *EDIT_CASES)
+           *MJPEG_CASES, *ODML_CASES, *EDIT_CASES, *LAVC_CASES)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
     if name in CLIP_CASES:
-        return {"MJPG": "mjpeg", "mp4v": "mpeg4", "VP80": "vp8",
+        return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
+                "DX50": "mpeg4", "VP80": "vp8",
                 "VP90": "vp9", "vp09": "vp9",
                 "avc1": "h264"}[CLIP_CASES[name][1]]
     return {"xvid": "mpeg4"}.get(name.split("_")[0], name.split("_")[0])
@@ -774,6 +852,176 @@ def x264_encode(frames, fps: int = 25, preset: str = "medium",
     return out
 
 
+def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
+                matrices: tuple[list[int], list[int]] | None = None,
+                times: list[tuple[int, int]] | None = None,
+                **opts) -> list[bytes]:
+    """Packets of `frames` (BGR) from the system's libavcodec 59
+    (`libavcodec.so.59`, `libavutil.so.57`, through ctypes): the encoder
+    `encoder` ("mpeg4", ffmpeg's own, or "libxvid", which wraps
+    `libxvidcore.so.4`) opened on one thread with each of `opts` set by
+    av_opt_set (`_` kept in the names: "bf", "flags", "mpeg_quant",
+    "gmc", "ps", "data_partitioning", ...), and `matrices`, the intra
+    and inter quantisation matrices (natural order) that the mpeg4
+    encoder writes into its VOL with mpeg_quant 1; fed I420 frames with
+    pts 0, 1, ..., then flushed. → the packets in decode order (an
+    encoder's headers travel in its first packet); `times`, when given,
+    gets each packet's (pts, dts) in frames."""
+    import ctypes
+
+    av = ctypes.CDLL("libavcodec.so.59")
+    au = ctypes.CDLL("libavutil.so.57")
+    # The structure offsets below are libavutil 57's and libavcodec 59's.
+    assert av.avcodec_version() >> 16 == 59 and au.avutil_version() >> 16 == 57
+    vp = ctypes.c_void_p
+    for lib, name, res, args in (
+            (av, "avcodec_find_encoder_by_name", vp, [ctypes.c_char_p]),
+            (av, "avcodec_alloc_context3", vp, [vp]),
+            (av, "avcodec_open2", ctypes.c_int, [vp, vp, vp]),
+            (av, "avcodec_send_frame", ctypes.c_int, [vp, vp]),
+            (av, "avcodec_receive_packet", ctypes.c_int, [vp, vp]),
+            (av, "avcodec_free_context", None, [vp]),
+            (av, "av_packet_alloc", vp, []),
+            (av, "av_packet_unref", None, [vp]),
+            (av, "av_packet_free", None, [vp]),
+            (au, "av_opt_set", ctypes.c_int,
+             [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
+            (au, "av_frame_alloc", vp, []),
+            (au, "av_mallocz", vp, [ctypes.c_size_t]),
+            (au, "av_frame_get_buffer", ctypes.c_int, [vp, ctypes.c_int]),
+            (au, "av_frame_make_writable", ctypes.c_int, [vp]),
+            (au, "av_frame_free", None, [vp])):
+        getattr(lib, name).restype = res
+        getattr(lib, name).argtypes = args
+    h, w = frames[0].shape[:2]
+    codec = av.avcodec_find_encoder_by_name(encoder.encode())
+    if not codec:
+        raise RuntimeError(f"libavcodec: no encoder {encoder!r}")
+    ctx = av.avcodec_alloc_context3(codec)
+    settings = {"video_size": f"{w}x{h}", "pixel_format": "yuv420p",
+                "time_base": f"1/{fps}", "threads": "1"}
+    settings.update({k: str(v) for k, v in opts.items()})
+    for k, v in settings.items():
+        if au.av_opt_set(ctx, k.encode(), v.encode(), 1):  # SEARCH_CHILDREN
+            raise RuntimeError(f"libavcodec: option {k}={v} refused")
+    for at, m in zip((272, 280), matrices or ()):   # intra_, inter_matrix
+        buf = au.av_mallocz(128)                 # the context frees them
+        ctypes.memmove(buf, np.asarray(m, np.uint16).tobytes(), 128)
+        ctypes.c_void_p.from_address(ctx + at).value = buf
+    if av.avcodec_open2(ctx, codec, None) < 0:
+        raise RuntimeError(f"libavcodec: {encoder} does not open")
+    frame = au.av_frame_alloc()
+    struct.pack_into("<ii", (ctypes.c_char * 8).from_address(frame + 104),
+                     0, w, h)                        # width, height
+    ctypes.c_int.from_address(frame + 116).value = 0      # AV_PIX_FMT_YUV420P
+    if au.av_frame_get_buffer(frame, 0) < 0:
+        raise RuntimeError("libavutil: no frame buffer")
+    pkt = av.av_packet_alloc()
+    out = []
+
+    def drain():
+        while av.avcodec_receive_packet(ctx, pkt) == 0:
+            out.append(ctypes.string_at(
+                ctypes.c_void_p.from_address(pkt + 24).value,
+                ctypes.c_int.from_address(pkt + 32).value))
+            if times is not None:                # AVPacket pts, dts
+                times.append(struct.unpack_from(
+                    "<qq", (ctypes.c_char * 16).from_address(pkt + 8)))
+            av.av_packet_unref(pkt)
+
+    for i, f in enumerate(frames):
+        if au.av_frame_make_writable(frame) < 0:
+            raise RuntimeError("libavutil: frame not writable")
+        yuv = np.frombuffer(i420(f), np.uint8)
+        at = 0
+        for k, (ph, pw) in enumerate(((h, w), (h // 2, w // 2),
+                                      (h // 2, w // 2))):
+            data = ctypes.c_void_p.from_address(frame + 8 * k).value
+            stride = ctypes.c_int.from_address(frame + 64 + 4 * k).value
+            for r in range(ph):
+                ctypes.memmove(data + r * stride,
+                               yuv[at + r * pw:].ctypes.data, pw)
+            at += ph * pw
+        ctypes.c_int64.from_address(frame + 136).value = i       # pts
+        if av.avcodec_send_frame(ctx, frame) < 0:
+            raise RuntimeError(f"libavcodec: {encoder} refused frame {i}")
+        drain()
+    av.avcodec_send_frame(ctx, None)
+    drain()
+    for p in (pkt, frame, ctx):
+        box = ctypes.c_void_p(p)
+        (av.av_packet_free if p == pkt else au.av_frame_free if p == frame
+         else av.avcodec_free_context)(ctypes.byref(box))
+    return out
+
+
+# MPEG-4's sprite trajectory dmv_length codes (table B-33), by length
+_DMV_LENGTH = ["00", "010", "011", "100", "101", "110"] + [
+    "1" * k + "0" for k in range(3, 11)] + ["111111111110"]
+
+
+def gmc_translation(packet: bytes, time_bits: int = 5) -> bytes:
+    """An MPEG-4 Part 2 packet whose S-VOPs (GMC, 3 warping points, a
+    rectangular progressive VOL whose time increment takes `time_bits`)
+    keep the first point of their sprite trajectory and get 0 for the
+    other two: a translation, which libavcodec decodes by its one-point
+    route (gmc1_motion); the rest of each VOP follows bit for bit, its
+    stuffing redone."""
+    out, starts = b"", [i for i in range(len(packet) - 3)
+                        if packet[i:i + 4] == b"\0\0\1\xb6"]
+    ends = starts[1:] + [len(packet)]
+    out = packet[:starts[0]] if starts else packet
+    for a, e in zip(starts, ends):
+        body = packet[a + 4:e]
+        bits = "".join(f"{x:08b}" for x in body)
+        if bits[:2] != "11":
+            out += packet[a:e]
+            continue
+        k = 2
+        while bits[k] == "1":
+            k += 1
+        k += 1 + 1 + time_bits + 1               # … marker
+        if bits[k] == "0":                       # not coded
+            out += packet[a:e]
+            continue
+        k += 1 + 1 + 3                           # coded, rounding, dc_thr
+        head, traj = bits[:k], ""
+        for point in range(3):
+            for _ in range(2):
+                n = next(i for i, c in enumerate(_DMV_LENGTH)
+                         if bits.startswith(c, k))
+                code = bits[k:k + len(_DMV_LENGTH[n]) + n + 1]
+                k += len(code)
+                traj += code if point == 0 else _DMV_LENGTH[0] + "1"
+        rest = bits[k:bits.rindex("0")]         # the stuffing taken off
+        bits = head + traj + rest + "0"
+        bits += "1" * (-len(bits) % 8)
+        out += b"\0\0\1\xb6" + bytes(int(bits[i:i + 8], 2)
+                                       for i in range(0, len(bits), 8))
+    return out
+
+
+def mpeg4_headers(packet: bytes) -> bytes:
+    """The VOS, VO and VOL headers (and user data) that begin an MPEG-4
+    Part 2 packet: its bytes before the first GOV or VOP start code."""
+    ends = [i for i in (packet.find(b"\0\0\1\xb3"), packet.find(b"\0\0\1\xb6"))
+            if i >= 0]
+    return packet[:min(ends)]
+
+
+def esds_box(config: bytes) -> bytes:
+    """An esds box (ES_Descriptor, MPEG-4 Visual, objectTypeIndication
+    0x20) whose DecoderSpecificInfo is `config`."""
+    def desc(tag: int, body: bytes) -> bytes:
+        return bytes([tag, 0x80, 0x80, 0x80, len(body)]) + body
+
+    dsi = desc(5, config)
+    dcd = desc(4, bytes([0x20, 0x11]) + bytes(3) + struct.pack(
+        ">II", 0, 0) + dsi)
+    return _full_box(b"esds", 0, desc(3, struct.pack(">HB", 1, 0) + dcd
+                                       + desc(6, b"\x02")))
+
+
 def nal_units(annexb: bytes) -> list[bytes]:
     """The NAL units of an Annex B stream, start codes removed."""
     out, p, n = [], 0, len(annexb)
@@ -1173,11 +1421,56 @@ def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
                     keys=keys)
 
 
+def lavc_file(packets: list[bytes], times: list[tuple[int, int]], w: int,
+              h: int, fourcc: bytes, container: str, fps: int = 25) -> bytes:
+    """lavc_encode's MPEG-4 Part 2 packets and their (pts, dts) muxed as
+    "avi" (under `fourcc`), "mp4" (mp4v with the first packet's headers
+    in its esds; ctts and the edit list from the first presented sample,
+    as ffmpeg's muxer writes them for B-VOPs) or "mkv" (V_MPEG4/ISO/ASP,
+    the headers as CodecPrivate, presentation times); the packets keep
+    their in-band headers."""
+    if container == "avi":
+        return avi_file(packets, w, h, fps, len(packets), fourcc)
+    headers = mpeg4_headers(packets[0])
+    if container == "mp4":
+        return mp4_file(packets, w, h, fps, b"mp4v", esds_box(headers),
+                        ctts=[p - d for p, d in times],
+                        media_time=-times[0][1])
+    return mkv_file(packets, w, h, fps, "V_MPEG4/ISO/ASP", headers,
+                    pts=[p for p, _ in times])
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
+    import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in LAVC_CASES or name in LAVC_UNREAD or name in LAVC_CLIPS:
+        if name in LAVC_CLIPS:
+            (enc, opts), user = LAVC_CLIPS[name], None
+            fourcc = CLIP_CASES[name][1].encode()
+            frames = clip_frames_bgr()[:CLIP_CASES[name][2]]
+        else:
+            enc, opts, fourcc, *rest = (LAVC_CASES.get(name)
+                                        or LAVC_UNREAD[name])
+            user = rest[0] if rest else None
+            frames = (clip_frames_bgr()[:12, 64:128, 32:128]
+                      if name in LAVC_CROP else
+                      moving_frames(sum(map(ord, name)), 12,
+                                    *LAVC_SIZES.get(name, (64, 96))))
+        times: list[tuple[int, int]] = []
+        packets = lavc_encode(frames, enc, matrices=LAVC_MATRICES.get(name),
+                              times=times, **opts)
+        if user:
+            packets[0] = re.sub(rb"Lavc[0-9.]+|XviD[0-9]+", user, packets[0])
+        if name in LAVC_GMC1:
+            packets = [gmc_translation(p) for p in packets]
+        h, w = frames.shape[1:3]
+        with open(path, "wb") as f:
+            f.write(lavc_file(packets, times, w, h, fourcc,
+                              name.rsplit("_", 1)[1]))
+        return path
     if name in X264_PATCHED:
         settings, kinds, field, bits = X264_PATCHED[name]
         aus = x264_encode(moving_frames(sum(map(ord, name)), 30), **settings)
@@ -1298,7 +1591,7 @@ def write_case(name: str, out: str = FIXTURES) -> str:
 
 def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
-    for name in names or (*DECODED, *CLIP_CASES):
+    for name in names or (*DECODED, *CLIP_CASES, *LAVC_UNREAD):
         path = write_case(name, out)
         if name not in DECODED:
             continue

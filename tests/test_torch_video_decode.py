@@ -24,8 +24,12 @@ layouts libavcodec decodes (4:2:2, 4:4:4, 4:4:0, grey, limited range
 under a CS=ITU601 comment) and at 72x55, libvpx's VP8 and VP9 at odd
 heights (swscale's scaler), MJPEG 4:2:2 in an OpenDML AVI with a RIFF
 AVIX, H.264 in MP4 under an edit that trims its first frames and under
-an empty edit before one; the 224-wide clips chip_smoke.py trains from
-or times) go through:
+an empty edit before one; MPEG-4 Advanced Simple Profile from libxvid
+and libavcodec's mpeg4 encoder (B-VOPs packed and not, quarter-pel, GMC
+by both of libavcodec's routes, 4MV, AC prediction, MPEG quantisation
+with default and loaded matrices, video packets, data partitioning, XviD
+and DivX user data; in AVI, MP4 and Matroska); the 224-wide clips
+chip_smoke.py trains from or times) go through:
 
   * `native.video_track` against cv2's demuxed packets
     (`CAP_PROP_FORMAT = -1`), byte for byte (H.264 in MP4 and Matroska
@@ -42,7 +46,8 @@ or times) go through:
   * `native.load_video_frames` and the port's `data.av.load_frames_for`
     against the JAX package's over several windows at 16 frames and at
     40 (more than any clip has: the `set` case), sizes 64 and 32: the
-    bound over 255 on the [0, 1] frames; measured maximum 0;
+    bound over 255 on the [0, 1] frames; measured maximum 0 (MPEG-4
+    with B-VOPs read from its first packet, in output order);
   * the committed `<case>.npz` (what chip_smoke.py holds the card's
     build against) against cv2 now;
   * a stem with both `.mp4` and `.avi` reads the `.mp4`, as the JAX
@@ -52,9 +57,14 @@ or times) go through:
     counts disagree (cv2 takes strh's), and MP4 edits that drop frames
     at either end, after an empty edit or at media times before the
     first presented sample;
+  * MPEG-4 features that used to raise, decoded against cv2 on the same
+    patched stream (MPEG quantisation, quarter-pel and video packets in
+    the VOL, AC prediction, XviD and DivX user data, two VOPs in one
+    packet) or the encoders' own (B-VOPs, GMC, data partitioning);
   * NotImplementedError naming the codec for HEVC, AV1 and FFV1
     (their fourccs put into a clip's header), naming each MPEG-4 feature
-    a patched header or macroblock flag can show, each VP8 feature
+    not read that a patched header or macroblock flag can show (interlace
+    also from libavcodec's own interlaced stream; RVLC), each VP8 feature
     libvpx does not write (frame headers written here by a boolean
     encoder), each VP9 profile, bit depth and sampling other than
     profile 0's, sRGB, intra-only frames and reference scaling (patched
@@ -615,7 +625,7 @@ class _BitWriter:
 
 def vol_header(width, height, res=25, verid=1, interlaced=0, obmc_disable=1,
                sprite=0, quant_type=0, quarter=0, estimation_disable=1,
-               resync_disable=1, partitioned=0, scalability=0):
+               resync_disable=1, partitioned=0, rvlc=0, scalability=0):
     """A video object layer header as ffmpeg's encoder writes it, with
     one field changed."""
     b = _BitWriter()
@@ -653,7 +663,7 @@ def vol_header(width, height, res=25, verid=1, interlaced=0, obmc_disable=1,
     b.put(resync_disable, 1)
     b.put(partitioned, 1)
     if partitioned:
-        b.put(0, 1)
+        b.put(rvlc, 1)
     if verid != 1:
         b.put(0, 2)
     b.put(scalability, 1)
@@ -709,6 +719,28 @@ def _ac_pred_offset(pkt: bytes, time_bits: int = 5) -> int:
     raise AssertionError("first MCBPC not one of the short codes")
 
 
+def _against_cv2(path):
+    """decode_video of `path` within TOL["mpeg4"] of cv2's frames, the
+    same count."""
+    ref, count = mk.cv2_view(path)
+    got = native.decode_video(path)
+    assert got.shape == ref.shape
+    assert native.video_track(path, packets=False).count == count
+    err = int(np.abs(got.astype(int) - ref).max())
+    print(f"{os.path.basename(path)}: max |Δ| {err} over {ref.shape}")
+    assert err <= TOL["mpeg4"]
+
+
+# The features a patched VOL can show. Those the decoder reads since it
+# reads Advanced Simple Profile (READ_HEADER) decode the patched stream as
+# cv2 does; GMC, whose VOL fields the patch would leave out, decodes
+# libxvid's GMC stream instead, and data partitioning (whose macroblock
+# syntax differs) libavcodec's partitioned stream, RVLC still raising.
+# The rest raise, naming the feature.
+READ_HEADER = {"GMC (S-VOPs)", "MPEG quantisation matrices", "quarter-pel",
+               "video packets (resync markers)", "data partitioning/RVLC"}
+
+
 @pytest.mark.parametrize("feature,vol", [
     ("interlace", dict(interlaced=1)),
     ("OBMC", dict(obmc_disable=0)),
@@ -722,22 +754,44 @@ def _ac_pred_offset(pkt: bytes, time_bits: int = 5) -> int:
     ("scalability", dict(scalability=1)),
 ])
 def test_mpeg4_header_features_raise_naming_them(tmp_path, feature, vol):
+    if feature == "GMC (S-VOPs)":
+        _against_cv2(FILES["xvid_gmc_avi"])
+        return
     pk = _mpeg4_packets()
+    if feature == "data partitioning/RVLC":
+        # libavcodec's partitioned stream decodes; RVLC (which it does not
+        # write) raises.
+        _against_cv2(FILES["mpeg4_partitioned_avi"])
+        pk[0] = _with_vol(pk[0], vol_header(mk.W, mk.H, partitioned=1,
+                                            rvlc=1))
+        with pytest.raises(NotImplementedError, match="RVLC"):
+            native.decode_video(_write(tmp_path, pk))
+        return
     pk[0] = _with_vol(pk[0], vol_header(mk.W, mk.H, **vol))
+    if feature in READ_HEADER:
+        _against_cv2(_write(tmp_path, pk))
+        return
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.decode_video(_write(tmp_path, pk))
 
 
+# Stream features: B-VOPs and S-VOPs decode the encoders' streams (a
+# P-VOP's type patched to B or S misreads its macroblocks); two VOPs in
+# one packet of a stream without DivX's packed flag decode as libavcodec
+# decodes them (the first VOP, the second dropped); the rest decode the
+# patched stream. Short-header H.263 still raises.
 @pytest.mark.parametrize("feature", [
     "B-VOPs", "S-VOPs (GMC)", "packed bitstreams", "AC prediction",
     "an XviD stream", "a DivX stream", "short-header (H.263)"])
 def test_mpeg4_stream_features_raise_naming_them(tmp_path, feature):
-    pk = _mpeg4_packets()
     if feature == "B-VOPs":
-        pk[1] = _flip_vop_bits(pk[1], 2, 2, 0)
-    elif feature == "S-VOPs (GMC)":
-        pk[1] = _flip_vop_bits(pk[1], 3, 2, 0)
-    elif feature == "packed bitstreams":
+        _against_cv2(FILES["mpeg4_bframes_avi"])
+        return
+    if feature == "S-VOPs (GMC)":
+        _against_cv2(FILES["xvid_gmc_avi"])
+        return
+    pk = _mpeg4_packets()
+    if feature == "packed bitstreams":
         pk[1:3] = [pk[1] + pk[2]]
     elif feature == "AC prediction":
         pk[0] = _flip_vop_bits(pk[0], 1, 1, _ac_pred_offset(pk[0]))
@@ -747,8 +801,24 @@ def test_mpeg4_stream_features_raise_naming_them(tmp_path, feature):
         pk[0] = re.sub(rb"Lavc[0-9.]+", b"DivX503b1393p", pk[0])
     else:
         pk[0] = b"\x00\x00\x80\x02\x0a" + bytes(40)
+        with pytest.raises(NotImplementedError, match=re.escape(feature)):
+            native.decode_video(_write(tmp_path, pk))
+        return
+    _against_cv2(_write(tmp_path, pk))
+
+
+@pytest.mark.parametrize("name,feature", [
+    ("mpeg4_interlaced_avi", "interlace")])
+def test_mpeg4_unread_tools_raise_naming_them(name, feature):
+    """What libavcodec's mpeg4 encoder writes and the port does not read
+    (mk.LAVC_UNREAD) raises NotImplementedError naming the tool; cv2
+    reads it."""
+    path = mk.path_of(name)
+    assert len(mk.cv2_view(path)[0]) == 12
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
-        native.decode_video(_write(tmp_path, pk))
+        native.decode_video(path)
+    with pytest.raises(NotImplementedError, match=re.escape(feature)):
+        native.load_video_frames(path, 4, 32)
 
 
 def test_broken_files_raise_value_error(tmp_path):

@@ -33,8 +33,8 @@ struct Picture {
   int xshift = 1, yshift = 1;
   bool grey = false;
   // The decode call (counted from 0 by the decoder that gave it) whose
-  // packet the picture was decoded from: H.264 outputs pictures after
-  // later packets.
+  // packet the picture was decoded from: H.264, and MPEG-4 with B-VOPs,
+  // output pictures after later packets.
   int64_t source = 0;
   bool full_range = false;  // yuvj (JPEG) levels, else limited (16..235)
   // The YCbCr matrix as swscale's colour space index (SWS_CS_*): 5 is
@@ -47,6 +47,11 @@ struct Picture {
 // saturation (put) or added to what `dst` holds (add).
 void idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
 void idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
+// The XviD IDCT (libavcodec's xvididct, as its x86 SSE2 form computes it:
+// 16-bit saturation in both passes), which libavcodec uses for XviD's
+// streams.
+void xvid_idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
+void xvid_idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
 
 // ffmpeg's mpeg4 decoder for what its encoder writes (see mpeg4.cpp).
 class Mpeg4Decoder {
@@ -56,12 +61,19 @@ class Mpeg4Decoder {
   // the stream in messages.
   Mpeg4Decoder(const std::vector<uint8_t>& config, const std::string& tag);
   ~Mpeg4Decoder();
-  // Decode one packet; true with `out` filled when it gave a picture
-  // (ffmpeg gives none for a packet without a coded VOP).
+  // Decode one packet; true with `out` filled when libavcodec outputs a
+  // picture after it: none for a packet without a coded VOP; behind
+  // B-VOPs (low_delay 0) the older reference, a B-VOP at once.
   bool decode(const uint8_t* data, size_t n, Picture& out);
-  // Read one packet's headers only: its VOP's kind, 0 I, 1 P, 2 B,
+  // At the end of the stream: the reference still held back; false when
+  // none is left.
+  bool flush(Picture& out);
+  // Read one packet's headers only: its first VOP's kind, 0 I, 1 P, 2 B,
   // 3 S, or −1 when it gives no picture. Headers it holds are kept.
   int peek(const uint8_t* data, size_t n);
+  // Whether output runs one picture behind (in display order): a B-VOP
+  // was seen (by peek or decode), or the VOL clears low_delay.
+  bool reorders() const;
 
  private:
   struct State;

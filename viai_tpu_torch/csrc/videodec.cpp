@@ -1150,6 +1150,89 @@ void idct_col(const int16_t* col, int out[8]) {
   out[7] = int(a0 - b0) >> kColShift;
 }
 
+
+// libavcodec's XviD IDCT (xvididct.c, rows by TAB04/17/26/35 with their
+// rounders, columns by tangent multiplies), as its SSE2 form computes it:
+// row outputs saturate to 16 bits (packssdw), column sums saturate
+// (paddsw, psubsw), and a row whose outputs round to 0 is zeroed.
+namespace xvid {
+
+inline int sat16(int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
+inline int16_t row_out(unsigned v) { return int16_t(sat16(int(v) >> 11)); }
+inline int mult(int c, int x) { return int(c * unsigned(x)) >> 16; }
+
+const int kTab04[7] = {22725, 21407, 19266, 16384, 12873, 8867, 4520};
+const int kTab17[7] = {31521, 29692, 26722, 22725, 17855, 12299, 6270};
+const int kTab26[7] = {29692, 27969, 25172, 21407, 16819, 11585, 5906};
+const int kTab35[7] = {26722, 25172, 22654, 19266, 15137, 10426, 5315};
+
+void row(int16_t* in, const int* tab, int rnd) {
+  const unsigned c1 = tab[0], c2 = tab[1], c3 = tab[2], c4 = tab[3],
+                 c5 = tab[4], c6 = tab[5], c7 = tab[6];
+  const unsigned k = c4 * unsigned(in[0]) + unsigned(rnd);
+  const unsigned a0 = k + c2 * in[2] + c4 * in[4] + c6 * in[6];
+  const unsigned a1 = k + c6 * in[2] - c4 * in[4] - c2 * in[6];
+  const unsigned a2 = k - c6 * in[2] - c4 * in[4] + c2 * in[6];
+  const unsigned a3 = k - c2 * in[2] + c4 * in[4] - c6 * in[6];
+  const unsigned b0 = c1 * in[1] + c3 * in[3] + c5 * in[5] + c7 * in[7];
+  const unsigned b1 = c3 * in[1] - c7 * in[3] - c1 * in[5] - c5 * in[7];
+  const unsigned b2 = c5 * in[1] - c1 * in[3] + c7 * in[5] + c3 * in[7];
+  const unsigned b3 = c7 * in[1] - c5 * in[3] + c3 * in[5] - c1 * in[7];
+  in[0] = row_out(a0 + b0);
+  in[1] = row_out(a1 + b1);
+  in[2] = row_out(a2 + b2);
+  in[3] = row_out(a3 + b3);
+  in[4] = row_out(a3 - b3);
+  in[5] = row_out(a2 - b2);
+  in[6] = row_out(a1 - b1);
+  in[7] = row_out(a0 - b0);
+}
+
+// One column, in place (stride 8), butterflies in the order of
+// xvididct.c's idct_col_8.
+void col(int16_t* in) {
+  const int kTan1 = 0x32EC, kTan2 = 0x6A0A, kTan3 = 0xAB0E, kSqrt2 = 0x5A82;
+  int m4 = in[56], m5 = in[40], m6 = in[24], m7 = in[8];
+  int m0 = sat16(mult(kTan1, m4) + m7), m1 = sat16(mult(kTan1, m7) - m4);
+  int m2 = sat16(mult(kTan3, m5) + m6), m3 = sat16(mult(kTan3, m6) - m5);
+  m7 = sat16(m0 + m2);
+  m4 = sat16(m1 - m3);
+  m0 = sat16(m0 - m2);
+  m1 = sat16(m1 + m3);
+  m6 = sat16(m0 + m1);
+  m5 = sat16(m0 - m1);
+  m5 = sat16(2 * mult(kSqrt2, m5));
+  m6 = sat16(2 * mult(kSqrt2, m6));
+  m1 = in[16];
+  m2 = in[48];
+  m3 = sat16(mult(kTan2, m2) + m1);
+  m2 = sat16(mult(kTan2, m1) - m2);
+  m0 = sat16(in[0] + in[32]);
+  m1 = sat16(in[0] - in[32]);
+  auto butterfly = [](int& a, int& b) {
+    int t = sat16(a + b);
+    b = sat16(a - b);
+    a = t;
+  };
+  butterfly(m0, m3);
+  butterfly(m0, m7);
+  butterfly(m3, m4);
+  butterfly(m1, m2);
+  butterfly(m1, m6);
+  butterfly(m2, m5);
+  const int out[8] = {m0, m1, m2, m3, m4, m5, m6, m7};
+  for (int r = 0; r < 8; ++r) in[8 * r] = int16_t(out[r] >> 6);
+}
+
+void idct(int16_t* b) {
+  static const int* const tabs[8] = {kTab04, kTab17, kTab26, kTab35,
+                                     kTab04, kTab35, kTab26, kTab17};
+  static const int rnds[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+  for (int r = 0; r < 8; ++r) row(b + 8 * r, tabs[r], rnds[r]);
+  for (int c = 0; c < 8; ++c) col(b + c);
+}
+
+}  // namespace xvid
 }  // namespace
 
 void idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
@@ -1158,6 +1241,20 @@ void idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
     int o[8];
     idct_col(blk + c, o);
     for (int r = 0; r < 8; ++r) dst[r * stride + c] = clip_u8(o[r]);
+  }
+}
+
+void xvid_idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
+  xvid::idct(blk);
+  for (int i = 0; i < 64; ++i)
+    dst[(i >> 3) * stride + (i & 7)] = clip_u8(blk[i]);
+}
+
+void xvid_idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
+  xvid::idct(blk);
+  for (int i = 0; i < 64; ++i) {
+    uint8_t& d = dst[(i >> 3) * stride + (i & 7)];
+    d = clip_u8(d + blk[i]);
   }
 }
 
@@ -1805,8 +1902,10 @@ class Decoder {
   }
 
   // At the end of the track: a picture the decoder still holds back
-  // (H.264's reorder delay); false when none is left.
-  bool flush(Picture& out) { return h264_ && h264_->flush(out); }
+  // (H.264's reorder delay, MPEG-4's B-VOPs); false when none is left.
+  bool flush(Picture& out) {
+    return (h264_ && h264_->flush(out)) || (mpeg4_ && mpeg4_->flush(out));
+  }
 
   // The packet a picture of decode() or flush() was decoded from.
   size_t packet_of(const Picture& pic) const {
@@ -2002,23 +2101,38 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     auto wanted = [&](int64_t f) {
       return std::binary_search(want.begin(), want.end(), f);
     };
-    if (t.codec == viai_video::Codec::kH264) {
-      // H.264 frames count in output order, which B-frames make differ
-      // from packet order. Every picture before an IDR picture is output
-      // before it, so an IDR packet's frame number is the count of
+    // MPEG-4's VOP kinds (a packet holding none gives no frame); B-VOPs
+    // reorder its output.
+    std::vector<int> vop(t.packets.size(), 0);
+    bool reorder = t.codec == viai_video::Codec::kH264;
+    if (t.codec == viai_video::Codec::kMpeg4) {
+      viai_video::Mpeg4Decoder scan(t.config, t.tag);
+      for (size_t i = 0; i < t.packets.size(); ++i)
+        vop[i] = scan.peek(&t.file[t.packets[i].off], t.packets[i].size);
+      reorder = scan.reorders();
+    }
+    if (reorder) {
+      // Frames count in output order, which B-frames make differ from
+      // packet order. H.264: every picture before an IDR picture is
+      // output before it, so an IDR packet's frame number is the count of
       // pictures before it: decode from the last IDR at or before the
-      // first pick until the last pick is output.
-      viai_video::H264Decoder scan(t.config);
-      int64_t pics = 0, n = 0;
+      // first pick until the last pick is output. MPEG-4 with B-VOPs:
+      // from the first packet (libavcodec skips a B-VOP whose older
+      // reference it has not decoded).
+      int64_t n = 0;
       size_t start = 0;
-      // Pictures an MP4 edit discards are not counted.
-      for (size_t i = 0; i < t.packets.size(); ++i) {
-        int kind = scan.peek(&t.file[t.packets[i].off], t.packets[i].size);
-        if (kind == 0 && pics <= want.front()) {
-          start = i;
-          n = pics;
+      if (t.codec == viai_video::Codec::kH264) {
+        viai_video::H264Decoder scan(t.config);
+        int64_t pics = 0;
+        // Pictures an MP4 edit discards are not counted.
+        for (size_t i = 0; i < t.packets.size(); ++i) {
+          int kind = scan.peek(&t.file[t.packets[i].off], t.packets[i].size);
+          if (kind == 0 && pics <= want.front()) {
+            start = i;
+            n = pics;
+          }
+          if (kind >= 0 && !t.packets[i].discard) ++pics;
         }
-        if (kind >= 0 && !t.packets[i].discard) ++pics;
       }
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       bool done = false;
@@ -2035,19 +2149,13 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
       // frame when it holds a VOP, a VP8 or VP9 packet when it shows one.
       std::vector<int64_t> frame_of(t.packets.size(), -1);
-      std::vector<int> vop(t.packets.size(), 0);
       int64_t frames = 0;
-      std::unique_ptr<viai_video::Mpeg4Decoder> scan;
-      if (t.codec == viai_video::Codec::kMpeg4)
-        scan.reset(new viai_video::Mpeg4Decoder(t.config, t.tag));
       for (size_t i = 0; i < t.packets.size(); ++i) {
         const viai_video::Packet& p = t.packets[i];
-        vop[i] = scan ? scan->peek(&t.file[p.off], p.size)
-                 : t.codec == viai_video::Codec::kVp8
-                     ? viai_video::Vp8Decoder::peek(&t.file[p.off], p.size)
-                 : t.codec == viai_video::Codec::kVp9
-                     ? viai_video::Vp9Decoder::peek(&t.file[p.off], p.size)
-                     : 0;
+        if (t.codec == viai_video::Codec::kVp8)
+          vop[i] = viai_video::Vp8Decoder::peek(&t.file[p.off], p.size);
+        if (t.codec == viai_video::Codec::kVp9)
+          vop[i] = viai_video::Vp9Decoder::peek(&t.file[p.off], p.size);
         if (vop[i] >= 0 && !p.discard) frame_of[i] = frames++;
       }
       size_t first = 0, last = 0;

@@ -292,8 +292,11 @@ def video_track(path: str, packets: bool = True) -> VideoTrack:
 def decode_video(path: str) -> np.ndarray:
     """Every frame of a video file, (T, H, W, 3) BGR uint8, as cv2's
     `VideoCapture(path).read()` gives them: MJPEG (4:2:0, 4:2:2, 4:4:4,
-    4:4:0 or grey), MPEG-4 Part 2 (the I- and P-VOPs of ffmpeg's
-    encoder), VP8 and VP9 (profile 0: their shown frames), H.264
+    4:4:0 or grey), MPEG-4 Part 2 (Simple and Advanced Simple Profile
+    as libavcodec's encoder and XviD write them: B-VOPs, packed or not,
+    in libavcodec's output order; quarter-pel, GMC, 4MV, AC prediction,
+    MPEG quantisation, video packets, data partitioning; not interlace),
+    VP8 and VP9 (profile 0: their shown frames), H.264
     (progressive 8-bit 4:2:0: Baseline, Main and High, in libavcodec's
     output order); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
     list's dropped frames left out), converted to BGR24 as swscale does
