@@ -95,8 +95,10 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. compressed video ([video]): the native demuxers and decoders
      (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
      csrc/h264.cpp) on the committed fixtures of tests/torch_videos/
-     against cv2's committed decodes and frame counts (MJPEG within 1
-     level, MPEG-4 Part 2 within 2, VP8, VP9 and H.264 exact), an HEVC
+     against cv2's committed decodes, frame counts and, for video as
+     phones and muxers write it (turned, fragmented, without
+     DefaultDuration, with sound), orientations (every codec exact), an
+     HEVC
      sample entry raising NotImplementedError; the av model (the
      README's recipe) trained 20 steps at batch 16 from [data]'s av clips
      given the committed 224x224 video files as frames, once from MJPEG
@@ -106,11 +108,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      .mkv Main), once from camera and cut clips (MJPEG 4:2:2 in OpenDML
      AVI, H.264 under a trimming MP4 edit) and once from MPEG-4 Advanced
      Simple Profile files (XviD in AVI: packed B-VOPs, quarter-pel, 4MV,
-     GMC; libavcodec's mpeg4 in MP4: B-VOPs, 4MV, AC prediction), GL
-     launches 2 and plain 0 each; the eval CLI on a musices split of
-     each folder; each MPEG-4 fixture's max |Δ|; the decode time per frame of each codec, a clip's read
-     of 16 frames, the loader's wait share of a step from each folder
-     and the host's cores;
+     GMC; libavcodec's mpeg4 in MP4: B-VOPs, 4MV, AC prediction) and
+     once from phone clips (H.264 turned 90 degrees with AAC, and
+     fragmented), GL launches 2 and plain 0 each; the eval CLI on a
+     musices split of each folder; each MPEG-4 fixture's max |Δ|, each
+     phone and muxer fixture's count and orientation; the decode time
+     per frame of each codec, of a turned frame against the same file
+     unturned, a clip's read of 16 frames, the loader's wait share of a
+     step from each folder and the host's cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
@@ -169,6 +174,7 @@ import json
 import os
 import pathlib
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -324,8 +330,11 @@ FRAMES_WARMUP = 3
 # MPEG-4 Part 2 (Simple and Advanced Simple Profile: B-VOPs packed and
 # not, quarter-pel, GMC, 4MV, AC prediction, MPEG quantisation, video
 # packets, the XviD IDCT), VP8, VP9 and H.264 clips in
-# AVI, MP4, MOV, Matroska and WebM with cv2's decode of their first,
-# middle and last frames and its frame count (.npz), and the first frames
+# AVI, MP4, MOV, Matroska and WebM, and video as phones and muxers write
+# it (MP4 display matrices, Matroska projections, fragmented MP4,
+# Matroska without DefaultDuration, PCM and AAC sound tracks), with
+# cv2's decode of their first, middle and last frames, its frame count
+# and, for the latter, its orientation (.npz), and the first frames
 # of the 224x224 jpeg clip as clip.avi (MJPEG), clip.mp4 and clip.mkv
 # (MPEG-4), clip.mov (MJPEG), clip.webm and clip_vp8.mkv (VP8),
 # clip_vp9.webm and clip_vp9.mp4 (VP9), clip_h264.mp4 (High, CABAC,
@@ -335,14 +344,17 @@ FRAMES_WARMUP = 3
 # 20 frames), clip_oddh.avi (MJPEG 4:2:0 at 224x223, swscale's scaler
 # path; timed only), clip_xvid.avi (libxvid: packed B-VOPs, quarter-pel,
 # 4MV, GMC of 3 warping points) and clip_dx50.mp4 (libavcodec's mpeg4:
-# B-VOPs, 4MV, AC prediction). Decoded
+# B-VOPs, 4MV, AC prediction), clip_phone.mp4 (High at 224x160 under a
+# 90 degree tkhd matrix, AAC in interleaved chunks: a phone held upright)
+# and clip_frag.mp4 (the same stream fragmented, one fragment a
+# keyframe, AAC in trafs of its own). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
 # becomes a frame stack through prepare_dataset extract.
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
-VIDEO_TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0, "h264": 0}
+VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
@@ -352,8 +364,10 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "vp9": ("clip_vp9.webm", "clip_vp9.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
-                 "xvid": ("clip_xvid.avi", "clip_dx50.mp4")}
+                 "xvid": ("clip_xvid.avi", "clip_dx50.mp4"),
+                 "phone": ("clip_phone.mp4", "clip_frag.mp4")}
 VIDEO_REPS = 3
+TURN_ROUNDS = 7         # [video]: turned and unturned decodes, in turns
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
 # of 8 batches; a resume from R20_state.pt to 40 repeats the run.
@@ -1891,18 +1905,21 @@ def write_video_clips(root: pathlib.Path, wavs: list[str],
 
 def phase_video(dev, ckpt: str, card: str) -> int:
     """Compressed video on the card ([video]): (a) native.decode_video on
-    the committed fixtures against cv2's committed decodes and frame
-    counts, an unread codec (HEVC: clip.mp4 relabelled hvc1) raising;
+    the committed fixtures against cv2's committed decodes, frame counts
+    and orientations, an unread codec (HEVC: clip.mp4 relabelled hvc1)
+    raising;
     (b) the av model trained 20 steps at full width through the train CLI
     from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
     Matroska, and a MOV through prepare_dataset extract), VP8 clips
     (WebM, Matroska), VP9 clips (WebM, MP4), H.264 clips (MP4,
     Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
     H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
-    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4);
+    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4),
+    then phone clips (H.264 turned 90 degrees with AAC, and fragmented);
     (c) the eval CLI on a musices split of each; (d) the decode time per
-    frame of each codec, a clip's read, the loader's wait share of a step
-    from each folder. Returns the GL kernel's launches."""
+    frame of each codec, a turned frame's against the same file's
+    unturned, a clip's read, the loader's wait share of a step from each
+    folder. Returns the GL kernel's launches."""
     from viai_tpu_torch import native
 
     # (a) the decoders against cv2's committed decodes
@@ -1910,7 +1927,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     n_frames = {c: 0 for c in VIDEO_TOL}
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
-    per_mpeg4 = []
+    per_mpeg4, per_container, turned = [], [], 0
     for npz in cases:
         path = next(p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                     if p.suffix != ".npz")
@@ -1928,6 +1945,15 @@ def phase_video(dev, ckpt: str, card: str) -> int:
         worst[track.codec] = max(worst[track.codec], err)
         if track.codec == "mpeg4":
             per_mpeg4.append(f"{npz.stem} {err}")
+        if "orientation" in ref:
+            require(track.orientation == int(ref["orientation"]),
+                    f"[video] {path.name}: orientation {track.orientation}, "
+                    f"cv2's {int(ref['orientation'])}")
+            turned += track.orientation in (90, 180, 270)
+            per_container.append(
+                f"{npz.stem} count {track.count} (cv2 {int(ref['count'])}) "
+                f"orientation {track.orientation} (cv2 "
+                f"{int(ref['orientation'])}) max|Δ| {err}")
         n_frames[track.codec] += len(ref["index"])
         n_files[track.codec] += 1
     for codec, name in VIDEO_NAMES.items():
@@ -1936,6 +1962,9 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             f"{worst[codec]} levels (bound {VIDEO_TOL[codec]}); counts "
             f"equal cv2's")
     log("[video] MPEG-4 Part 2 max|Δ| per fixture: " + ", ".join(per_mpeg4))
+    log(f"[video] phones and muxers ({len(per_container)} fixtures, "
+        f"{turned} turned): " + "; ".join(per_container))
+    require(per_container, "[video] no fixture of phones and muxers")
     require(all(n_files.values()), f"[video] a codec without fixtures: "
             f"{n_files}")
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
@@ -1985,7 +2014,9 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_xvid.avi",
                         "MPEG-4 ASP: XviD, packed B, qpel, 4MV, GMC"),
                        ("clip_dx50.mp4",
-                        "MPEG-4 ASP: B-VOPs, 4MV, AC prediction")):
+                        "MPEG-4 ASP: B-VOPs, 4MV, AC prediction"),
+                       ("clip_phone.mp4", "H.264 High, turned 90, AAC"),
+                       ("clip_frag.mp4", "H.264 High, fragmented, AAC")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -1995,9 +2026,49 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             f"{dec:.3f} ms a frame (demux, decode, BGR; one thread), "
             f"{read:.3f} ms to read {FRAMES[0]} frames at {FRAMES[1]}x"
             f"{FRAMES[2]} (load_video_frames, one thread); {card}")
+    video_turn_cost(best_ms, card)
     for folder, root in roots.items():
         video_wait_share(folder, root, ckpt, dev, card)
     return total
+
+
+def video_turn_cost(best_ms, card: str):
+    """[video] (d): clip_phone.mp4's frames decoded turned (its 90 degree
+    tkhd matrix) against the same file's with the identity written over
+    that matrix, in turns, per frame; and the two reads."""
+    from viai_tpu_torch import native
+
+    data = (VIDEO_FIXTURES / "clip_phone.mp4").read_bytes()
+    identity = struct.pack(">9i", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                           0x40000000)
+    # the video trak's tkhd (version 0): the one whose matrix turns
+    at = next(i + 44 for i in range(len(data)) if data[i:i + 4] == b"tkhd"
+              and data[i + 44:i + 80] != identity)
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = pathlib.Path(tmp) / "clip_phone_unturned.mp4"
+        plain.write_bytes(data[:at] + identity + data[at + 36:])
+        paths = {"turned": str(VIDEO_FIXTURES / "clip_phone.mp4"),
+                 "unturned": str(plain)}
+        shapes = {k: native.decode_video(p).shape for k, p in paths.items()}
+        require(shapes["turned"][1:3] == shapes["unturned"][2:0:-1] and
+                native.video_track(paths["turned"]).orientation == 90,
+                f"[video] clip_phone.mp4 turned {shapes}")
+        ms = {k: [] for k in paths}
+        for _ in range(TURN_ROUNDS):
+            for k, p in paths.items():
+                ms[k].append(best_ms(lambda: native.decode_video(p))
+                             / shapes[k][0])
+        read = {k: best_ms(lambda: native.load_video_frames(
+            p, FRAMES[0], FRAMES[1])) for k, p in paths.items()}
+    t, u = min(ms["turned"]), min(ms["unturned"])
+    diff = float(np.median(np.subtract(ms["turned"], ms["unturned"])))
+    log(f"[video] clip_phone.mp4 decode a frame turned "
+        f"({shapes['turned'][2]}x{shapes['turned'][1]}) {t:.3f} ms, "
+        f"unturned ({shapes['unturned'][2]}x{shapes['unturned'][1]}) "
+        f"{u:.3f} ms (best of {TURN_ROUNDS} rounds of {VIDEO_REPS}, in "
+        f"turns, one thread; the rounds' median difference {diff:+.3f} "
+        f"ms, {diff / u:+.1%}); read {FRAMES[0]} frames "
+        f"{read['turned']:.3f} / {read['unturned']:.3f} ms; {card}")
 
 
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,

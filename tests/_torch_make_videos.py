@@ -61,10 +61,18 @@ which the card's machine does not have, so the fixtures are committed):
     B-VOPs (in AVI and MP4), 4MV, AC prediction, MPEG quantisation with
     the default and with loaded matrices, video packets, data
     partitioning, quarter-pel B-VOPs, and DivX user data (DivX503b1393p);
-    the AVI of LAVC_UNREAD, what the port does not read (interlace);
+    the AVI of LAVC_UNREAD, what the port does not read (interlace); the
+    files of CONTAINER_CASES, video as phones and muxers write it, one
+    stream re-muxed (`container_file`): MP4 display matrices in tkhd and
+    mvhd (`display_matrix`), Matroska Projections, fragmented MP4 (moof,
+    tfhd, tfdt, trun), Matroska without DefaultDuration, and a sound track
+    beside the video (`audio_track`'s PCM in AVI, MP4 and Matroska;
+    `aac_track`, AAC from the system's libavcodec 59 through ctypes, in
+    MP4);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
-    BGR uint8, at `index`); and `count`, `CAP_PROP_FRAME_COUNT`;
+    BGR uint8, at `index`); `count`, `CAP_PROP_FRAME_COUNT`; and for
+    CONTAINER_CASES `orientation`, `CAP_PROP_ORIENTATION_META`;
   * `clip.avi`, `clip.mp4`, `clip.mkv`, `clip.mov`, `clip.webm`,
     `clip_vp8.mkv`, `clip_vp9.webm`, `clip_vp9.mp4`, `clip_h264.mp4`
     (High), `clip_h264.mkv` (Main, CAVLC), `clip_cam.avi` (MJPEG 4:2:2
@@ -73,16 +81,20 @@ which the card's machine does not have, so the fixtures are committed):
     packed B-VOPs, quarter-pel, 4MV, GMC), `clip_dx50.mp4` (libavcodec's
     mpeg4: B-VOPs, 4MV, AC prediction): the first frames of the
     committed 224x224 jpeg clip
-    (tests/torch_frames/clip/) as video (CLIP_CASES), the clips
-    chip_smoke.py trains from and times.
+    (tests/torch_frames/clip/) as video (CLIP_CASES), and `clip_phone.mp4`
+    (a phone's: turned 90 degrees, AAC) and `clip_frag.mp4` (fragmented)
+    of a 224x160 crop (PHONE_CLIPS), the clips chip_smoke.py trains from
+    and times.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
 that moves over a drifting background, so that the MPEG-4 and VP8 clips'
 inter frames carry motion and, at 30 frames, a third I-VOP or keyframe
 (ffmpeg's GOP is 12 for all three). The encoders are deterministic here, so a
 rerun rewrites the same bytes, but for the Matroska and WebM files'
-random segment UID (cv2's writer; `mkv_file` writes none). tests/test_torch_video_decode.py holds the port
-against cv2 live and against these files.
+random segment UID (cv2's writer; `mkv_file` writes none).
+tests/test_torch_video_decode.py and, for CONTAINER_CASES and PHONE_CLIPS,
+tests/test_torch_video_containers.py hold the port against cv2 live and
+against these files.
 """
 
 from __future__ import annotations
@@ -320,10 +332,74 @@ X264_CLIPS = {"clip_h264_mp4": dict(),
 DECODED = (*CASES, *HAND_CASES, *MP4_MJPEG_CASES, *VP8_PATCHED,
            *VP8_MP4_CASES, *LIBVPX_CASES, *X264_CASES, *X264_PATCHED,
            *MJPEG_CASES, *ODML_CASES, *EDIT_CASES, *LAVC_CASES)
+# name: (the stream, the container's options): video as phones and
+# muxers write it, held by tests/test_torch_video_containers.py. The
+# streams (see container_packets): "mpeg4", mpeg4_avi's 30 packets (I-VOPs
+# 0, 12, 24); "vp8", vp8_webm's 20; "h264", libx264's 30 at its medium
+# preset (B-frames, keyframes every 12); "mjpeg", 12 JPEGs 4:2:2. The
+# options: MP4 display matrices, tkhd's ("matrix") and mvhd's
+# ("movie_matrix"), a clockwise turn in degrees or "scale2"; Matroska
+# Projections ("projection", mkv_file's); fragmented MP4 ("fragments":
+# "key", one a keyframe, or "sample", one a sample; with "negative", the
+# composition offsets made negative (trun version 1) instead of ffmpeg's
+# edit list); Matroska without DefaultDuration, its block times those of
+# "rate" rounded to 1 ms; "audio", a sound track before the video, or
+# after it ("... after"): "pcm" (audio_track at 8 kHz) or "aac"
+# (aac_track, 16 kHz); the rest go to the muxer as they are (OpenDML
+# with "split").
+CONTAINER_CASES = {
+    "mpeg4_rot90_mp4": ("mpeg4", dict(matrix=90)),
+    "mpeg4_rot180_mp4": ("mpeg4", dict(matrix=180)),
+    "mpeg4_rot270_mp4": ("mpeg4", dict(matrix=270, version=1)),
+    "mpeg4_movie90_mp4": ("mpeg4", dict(movie_matrix=90)),
+    "mpeg4_movie180_mp4": ("mpeg4", dict(movie_matrix=180)),
+    "mpeg4_movie270_mp4": ("mpeg4", dict(movie_matrix=270, version=1)),
+    "mpeg4_rot90x2_mp4": ("mpeg4", dict(matrix=90, movie_matrix=90)),
+    "mpeg4_rot45_mp4": ("mpeg4", dict(matrix=45)),
+    "mpeg4_scale2_mp4": ("mpeg4", dict(matrix="scale2")),
+    "vp8_roll90_mkv": ("vp8", dict(projection=dict(roll=90))),
+    "vp8_rollm90_mkv": ("vp8", dict(projection=dict(roll=-90))),
+    "vp8_roll180_mkv": ("vp8", dict(projection=dict(roll=180))),
+    "mpeg4_frag_mp4": ("mpeg4", dict(fragments="key")),
+    "mpeg4_fragmehd_mp4": ("mpeg4", dict(fragments="key", mehd=True)),
+    "mpeg4_fragsample_mp4": ("mpeg4", dict(fragments="sample")),
+    "mpeg4_fragmoov_mp4": ("mpeg4", dict(fragments="key", moov_samples=12)),
+    "mpeg4_fragaudio_mp4": ("mpeg4", dict(fragments="key", audio="pcm")),
+    "mpeg4_fragbase_mp4": ("mpeg4", dict(fragments="key", base_offset=True,
+                                         audio="pcm after")),
+    "h264_fragneg_mp4": ("h264", dict(fragments="key", negative=True,
+                                      audio="aac")),
+    "h264_fragedit_mp4": ("h264", dict(fragments="key", audio="aac after")),
+    "vp8_nodd25_mkv": ("vp8", dict(rate=25)),
+    "vp8_nodd2997_mkv": ("vp8", dict(rate=30000 / 1001)),
+    "vp8_nodd30_mkv": ("vp8", dict(rate=30)),
+    "vp8_nodd23976_mkv": ("vp8", dict(rate=24000 / 1001)),
+    "vp8_nodd15_mkv": ("vp8", dict(rate=15)),
+    "mpeg4_audio_avi": ("mpeg4", dict(audio="pcm")),
+    "mpeg4_audioafter_avi": ("mpeg4", dict(audio="pcm after")),
+    "mjpeg_odmlaudio_avi": ("mjpeg", dict(audio="pcm", split=7)),
+    "mjpeg_odmlaudioafter_avi": ("mjpeg", dict(audio="pcm after", split=7)),
+    "mpeg4_audio_mp4": ("mpeg4", dict(audio="pcm", chunk=[4, 3])),
+    "mpeg4_audioafter_mp4": ("mpeg4", dict(audio="pcm after", chunk=[5, 2])),
+    "h264_aac_mp4": ("h264", dict(audio="aac", chunk=[4, 3])),
+    "vp8_audio_mkv": ("vp8", dict(audio="pcm")),
+    "vp8_audioafter_mkv": ("vp8", dict(audio="pcm after", cluster=7)),
+}
+# the clips chip_smoke.py's `phone` folder trains from, libx264's High
+# (keyframes every 8) of a 224x160 crop of the committed clip's first 16
+# frames: a phone held upright (a 90 degree tkhd matrix, AAC in chunks
+# interleaved with the video's) and a fragmented file (one fragment a
+# keyframe, AAC in trafs of its own), with CONTAINER_CASES' options
+PHONE_CLIPS = {"clip_phone_mp4": dict(matrix=90, audio="aac", chunk=[5, 3]),
+               "clip_frag_mp4": dict(fragments="key", audio="aac after")}
+# Every case with an .npz of cv2's view
+HELD = (*DECODED, *CONTAINER_CASES)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
+    if name in PHONE_CLIPS:
+        return "h264"
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
                 "DX50": "mpeg4", "VP80": "vp8",
@@ -333,6 +409,8 @@ def codec_of(name: str) -> str:
 
 
 def path_of(name: str) -> str:
+    if name in PHONE_CLIPS:
+        return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
                             CLIP_CASES[name][0])
@@ -397,24 +475,58 @@ def _list(tag: bytes, data: bytes) -> bytes:
     return _chunk(b"LIST", tag + data)
 
 
+def _avi_audio_strl(audio: dict, extra: bytes = b"") -> bytes:
+    """An `auds` stream's strl of audio_track's PCM: WAVE_FORMAT_PCM,
+    mono, 16-bit; `extra`, its indx."""
+    rate = audio["rate"]
+    length = sum(len(a) for a in audio["frames"]) // 2
+    strh = (b"auds" + bytes(4) + struct.pack(
+        "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 2, 2 * rate, 0, length, 0,
+        0xFFFFFFFF, 2, 0, 0, 0, 0))
+    strf = struct.pack("<HHIIHHH", 1, 1, rate, 2 * rate, 2, 16, 0)
+    return _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)
+                 + extra)
+
+
+def _avi_chunks(packets: list[bytes], audio: dict | None, lo: int, hi: int,
+                vtag: bytes, atag: bytes) -> list[tuple[bytes, bytes]]:
+    """The chunks of frames lo..hi in movi order: each video packet with
+    its frame's audio before it (the audio stream first) or after it."""
+    out = []
+    for i in range(lo, hi):
+        if audio and audio["first"]:
+            out.append((atag, audio["frames"][i]))
+        out.append((vtag, packets[i]))
+        if audio and not audio["first"]:
+            out.append((atag, audio["frames"][i]))
+    return out
+
+
 def avi_file(packets: list[bytes], w: int, h: int, fps: int, count: int,
-             fourcc: bytes = b"MJPG") -> bytes:
+             fourcc: bytes = b"MJPG", audio: dict | None = None) -> bytes:
     """An AVI of video packets (stream 0 'vids' `fourcc`, `00dc` chunks,
     an idx1 index with every packet a keyframe) whose avih and strh say
-    `count` frames."""
-    avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, count, 0, 1, 0,
-                       w, h, 0, 0, 0, 0)
+    `count` frames; `audio`, a sound track (audio_track) as a second
+    stream, `auds` WAVE_FORMAT_PCM, stream 0 when its "first" is true
+    (the video stream 1, `01dc`), its `##wb` chunks interleaved with the
+    video's, one a frame, in movi and idx1."""
+    vid = 1 if audio and audio["first"] else 0
+    avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, count, 0,
+                       2 if audio else 1, 0, w, h, 0, 0, 0, 0)
     strh = (b"vids" + fourcc + struct.pack(
         "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, count, 0, 0xFFFFFFFF, 0,
         0, 0, w, h))
     strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
                        0, 0, 0, 0)
-    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + _list(
-        b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)))
+    strls = [_list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))]
+    if audio:
+        strls.insert(1 - vid, _avi_audio_strl(audio))
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + b"".join(strls))
     movi, idx, off = b"", b"", 4
-    for p in packets:
-        c = _chunk(b"00dc", p)
-        idx += b"00dc" + struct.pack("<III", 0x10, off, len(p))
+    for tag, p in _avi_chunks(packets, audio, 0, len(packets),
+                              b"%02ddc" % vid, b"%02dwb" % (1 - vid)):
+        c = _chunk(tag, p)
+        idx += tag + struct.pack("<III", 0x10, off, len(p))
         movi += c
         off += len(c)
     body = hdrl + _list(b"movi", movi) + _chunk(b"idx1", idx)
@@ -424,63 +536,86 @@ def avi_file(packets: list[bytes], w: int, h: int, fps: int, count: int,
 def avi_odml_file(packets: list[bytes], w: int, h: int, fps: int,
                   split: int, fourcc: bytes = b"MJPG",
                   length: int | None = None,
-                  total: int | None = None) -> bytes:
+                  total: int | None = None,
+                  audio: dict | None = None) -> bytes:
     """An OpenDML AVI of video packets, as ffmpeg's muxer writes one past
     its first RIFF: `packets[:split]` in the movi list of `RIFF AVI `,
     the rest in that of one `RIFF AVIX`, each movi list closed by its
     `ix00` standard index (keyframes only: every entry's bit 31 clear);
     an `indx` super-index over the two in the stream's strl; no idx1.
     The avih counts the first RIFF's frames, the strh `length` (None:
-    all) and the odml list's dmlh `total` (None: all)."""
+    all) and the odml list's dmlh `total` (None: all). `audio`, a sound
+    track (audio_track) as a second stream as in avi_file, with its own
+    `ix##` indexes and `indx`."""
     n = len(packets)
     length = n if length is None else length
     total = n if total is None else total
-    avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, split, 0, 1, 0,
-                       w, h, 0, 0, 0, 0)
+    vid = 1 if audio and audio["first"] else 0
+    tags = [b"%02ddc" % vid] + ([b"%02dwb" % (1 - vid)] if audio else [])
+    avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, split, 0,
+                       len(tags), 0, w, h, 0, 0, 0, 0)
     strh = (b"vids" + fourcc + struct.pack(
         "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, length, 0, 0xFFFFFFFF,
         0, 0, 0, w, h))
     strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
                        0, 0, 0, 0)
-    parts = [packets[:split], packets[split:]]
+    parts = [_avi_chunks(packets, audio, a, b, tags[0], tags[-1])
+             for a, b in ((0, split), (split, n))]
 
-    def movi(pk: list[bytes], at: int) -> tuple[bytes, bytes]:
-        """A movi list whose first byte lies at file offset `at`, and
-        its ix00 chunk (the list's last)."""
-        body, entries, off = b"", b"", at + 12
-        for p in pk:
-            entries += struct.pack("<II", off + 8 - at, len(p))
-            c = _chunk(b"00dc", p)
+    def movi(chunks, at: int) -> tuple[bytes, list[bytes]]:
+        """A movi list whose first byte lies at file offset `at`, and its
+        ix## chunks (the list's last), one a stream."""
+        body, entries, off = b"", {t: [] for t in tags}, at + 12
+        for tag, p in chunks:
+            entries[tag].append(struct.pack("<II", off + 8 - at, len(p)))
+            c = _chunk(tag, p)
             body += c
             off += len(c)
-        ix = _chunk(b"ix00", struct.pack("<HBBI4sQI", 2, 0, 1, len(pk),
-                                         b"00dc", at, 0) + entries)
-        return _list(b"movi", body + ix), ix
+        ixs = [_chunk(b"ix" + t[:2], struct.pack(
+            "<HBBI4sQI", 2, 0, 1, len(entries[t]), t, at, 0)
+            + b"".join(entries[t])) for t in tags]
+        return _list(b"movi", body + b"".join(ixs)), ixs
 
-    def layout(super_entries: bytes) -> tuple[bytes, list[int]]:
-        indx = _chunk(b"indx", struct.pack("<HBBI4s3I", 4, 0, 0, 2, b"00dc",
-                                           0, 0, 0) + super_entries)
+    def layout(super_entries: list[bytes]):
+        def indx(t: bytes, e: bytes) -> bytes:
+            return _chunk(b"indx", struct.pack("<HBBI4s3I", 4, 0, 0, 2, t,
+                                               0, 0, 0) + e)
+
         odml = _list(b"odml", _chunk(b"dmlh", struct.pack("<I", total)
                                      + bytes(244)))
-        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + _list(
-            b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf) + indx)
-            + odml)
-        out, ix_at = b"", []
-        at = 12 + len(hdrl)
-        m0, ix0 = movi(parts[0], at)
-        ix_at.append(at + len(m0) - len(ix0))
-        first = hdrl + m0
-        out = b"RIFF" + struct.pack("<I", 4 + len(first)) + b"AVI " + first
-        at = len(out) + 12
-        m1, ix1 = movi(parts[1], at)
-        ix_at.append(at + len(m1) - len(ix1))
-        out += b"RIFF" + struct.pack("<I", 4 + len(m1)) + b"AVIX" + m1
-        return out, ix_at, [len(ix0), len(ix1)]
+        strls = [_list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)
+                       + indx(tags[0], super_entries[0]))]
+        if audio:
+            strls.insert(1 - vid, _avi_audio_strl(
+                audio, indx(tags[1], super_entries[1])))
+        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + b"".join(strls)
+                     + odml)
+        ix_at = {t: [] for t in tags}
+        ix_len = {t: [] for t in tags}
+        out = b""
+        for k, part in enumerate(parts):
+            at = 12 + len(hdrl) if k == 0 else len(out) + 12
+            m, ixs = movi(part, at)
+            pos = at + len(m) - sum(len(ix) for ix in ixs)
+            for t, ix in zip(tags, ixs):
+                ix_at[t].append(pos)
+                ix_len[t].append(len(ix))
+                pos += len(ix)
+            if k == 0:
+                first = hdrl + m
+                out = b"RIFF" + struct.pack("<I", 4 + len(first)) + b"AVI " \
+                    + first
+            else:
+                out += b"RIFF" + struct.pack("<I", 4 + len(m)) + b"AVIX" + m
+        return out, ix_at, ix_len
 
-    sizes = struct.pack("<QII", 0, 0, 0) * 2
-    _, ix_at, ix_len = layout(sizes)
-    entries = b"".join(struct.pack("<QII", a, s, len(p))
-                       for a, s, p in zip(ix_at, ix_len, parts))
+    def durations(t: bytes) -> list[int]:
+        return [sum(len(p) // 2 if t != tags[0] else 1
+                    for tag, p in part if tag == t) for part in parts]
+
+    _, ix_at, ix_len = layout([struct.pack("<QII", 0, 0, 0) * 2] * len(tags))
+    entries = [b"".join(struct.pack("<QII", a, s, d) for a, s, d in zip(
+        ix_at[t], ix_len[t], durations(t))) for t in tags]
     return layout(entries)[0]
 
 
@@ -493,11 +628,48 @@ def _full_box(kind: bytes, flags: int, *parts: bytes) -> bytes:
     return _box(kind, struct.pack(">I", flags), *parts)
 
 
+# The identity display matrix (a, b, u, c, d, v, x, y, w: 16.16 but u, v
+# and w, 2.30), as mvhd and tkhd hold it.
+IDENTITY = (0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+
+
+def display_matrix(degrees: float = 0.0, scale: float = 1.0,
+                   mirror: str = "", w: int = 0, h: int = 0) -> tuple:
+    """The display matrix that turns the picture `degrees` clockwise, as
+    phones and ffmpeg's muxer write it (90: (0, 1, -1, 0) with the
+    picture's height as the x translation), scaled by `scale`; `mirror`
+    "h" (-1, 0, 0, 1), "v" (1, 0, 0, -1) or "t" (the transpose, (0, 1, 1,
+    0)) instead."""
+    import math
+
+    if mirror:
+        a, b, c, d = {"h": (-1, 0, 0, 1), "v": (1, 0, 0, -1),
+                      "t": (0, 1, 1, 0)}[mirror]
+    else:
+        r = math.radians(degrees)
+        a, b, c, d = math.cos(r), math.sin(r), -math.sin(r), math.cos(r)
+    tx, ty = {90: (h, 0), 180: (w, h), 270: (0, w)}.get(int(degrees) % 360,
+                                                        (0, 0))
+    return tuple(int(round(v * scale * 0x10000)) for v in (a, b)) + (0,) + \
+        tuple(int(round(v * scale * 0x10000)) for v in (c, d)) + (0,) + \
+        (tx << 16, ty << 16, 0x40000000)
+
+
+# trun/tfhd sample flags: a sync sample, and one that is not (depends on
+# others, sample_is_non_sync_sample), as ffmpeg's muxer writes them
+SYNC_FLAGS, NON_SYNC_FLAGS = 0x02000000, 0x01010000
+
+
 def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
              entry: bytes, boxes: bytes = b"", ctts: list[int] | None = None,
              media_time: int | None = None,
              sync: list[int] | None = None,
-             edits: list[tuple[int, int, int]] | None = None) -> bytes:
+             edits: list[tuple[int, int, int]] | None = None,
+             matrix: tuple | None = None, movie_matrix: tuple | None = None,
+             version: int = 0, chunk: list[int] | None = None,
+             audio: dict | None = None,
+             fragments: list[int] | None = None, moov_samples: int = 0,
+             mehd: bool = False, base_offset: bool = False) -> bytes:
     """An MP4 of one video track: `packets` as its samples (one chunk,
     1/fps apart in decode order) under the visual sample entry `entry`
     (a fourcc) holding the extension `boxes`; `ctts`, each sample's
@@ -506,63 +678,388 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
     ffmpeg's muxer writes for streams with B-frames; `edits`, an edit
     list of (segment duration, media time, rate in 16.16) entries in
     frames instead (media time -1: an empty edit); `sync`, the sync
-    samples (0-based; None: every sample, no stss box)."""
+    samples (0-based; None: every sample, no stss box).
+
+    `matrix` and `movie_matrix`, tkhd's and mvhd's display matrices (see
+    display_matrix; None: the identity); `version` 1 writes mvhd, tkhd
+    and mdhd with 64-bit times. `chunk`, the video samples of each chunk
+    in turn (cycled: several stsc runs), each followed (or, with the
+    audio track first, preceded) by a chunk of the audio of its frames;
+    `audio`, a sound track (audio_track: PCM as `sowt`, one sample a PCM
+    frame; aac_track: AAC as `mp4a` with its esds and the edit list that
+    hides the encoder's priming, as ffmpeg's muxer writes it) whose trak
+    comes before the video's when its "first" is true.
+
+    `fragments`, the video samples of each movie fragment (a moof with
+    mfhd, a traf per track with tfhd, tfdt and trun, then an mdat, as
+    ffmpeg's `-movflags frag_keyframe` writes them) after the first
+    `moov_samples`, which moov's own tables hold (0: `empty_moov`, every
+    table empty); moov then holds mvex with a trex per track and, with
+    `mehd`, the fragments' duration; a fragment's audio is one trun
+    entry a PCM frame's block or an AAC packet. A fragment's tfhd bases
+    its trun's data offsets at the moof (default-base-is-moof), or, with
+    `base_offset`, gives the mdat's payload as its base-data-offset; a
+    trun of version 1 when a composition offset is negative."""
     n = len(packets)
     if media_time is not None:
         edits = [(n, media_time, 0x10000)]
-    matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
-                         0x40000000)
+
+    def pack_matrix(m):
+        return struct.pack(">9i", *(IDENTITY if m is None else m))
+
     sample_entry = _box(entry, bytes(6), struct.pack(
         ">HHH12xHHIIIH32sHh", 1, 0, 0, w, h, 0x480000, 0x480000, 0, 1,
         b"", 24, -1), boxes)
+    fragmented = fragments is not None
+    in_moov = moov_samples if fragmented else n
     extra = b""
     if ctts is not None:
         runs: list[list[int]] = []
-        for off in ctts:
+        for off in ctts[:in_moov]:
             if runs and runs[-1][1] == off:
                 runs[-1][0] += 1
             else:
                 runs.append([1, off])
         extra += _full_box(b"ctts", 0, struct.pack(">I", len(runs)),
-                           *(struct.pack(">II", c, o) for c, o in runs))
+                           *(struct.pack(">Ii", c, o) for c, o in runs))
     if sync is not None:
-        extra += _full_box(b"stss", 0, struct.pack(">I", len(sync)),
-                           *(struct.pack(">I", i + 1) for i in sync))
+        s = [i for i in sync if i < in_moov]
+        extra += _full_box(b"stss", 0, struct.pack(">I", len(s)),
+                           *(struct.pack(">I", i + 1) for i in s))
     edts = b""
     if edits is not None:
         edts = _box(b"edts", _full_box(b"elst", 0, struct.pack(
             ">I", len(edits)), *(struct.pack(">IiI", d, t, r)
                                  for d, t, r in edits)))
+    # Chunks of the video samples in moov's tables: (first, end).
+    sizes = chunk or [max(in_moov, 1)]
+    spans, at, k = [], 0, 0
+    while at < in_moov:
+        spans.append((at, min(at + sizes[k % len(sizes)], in_moov)))
+        at, k = spans[-1][1], k + 1
+    audio_first = bool(audio and audio["first"])
+    aac = bool(audio and "aac" in audio)
+    if aac:
+        # Each AAC packet with the video frame its decode time falls in.
+        rate = audio["rate"]
+        frame_of = [min(1024 * i * fps // rate, n - 1)
+                    for i in range(len(audio["aac"]))]
 
-    def moov(mdat_at: int) -> bytes:
+    def audio_samples(a: int, b: int) -> list[bytes]:
+        """The audio of video frames a..b as MP4 samples: AAC packets, or
+        each frame's PCM block."""
+        if aac:
+            last = b >= n
+            return [p for p, f in zip(audio["aac"], frame_of)
+                    if a <= f and (f < b or last)]
+        return audio["frames"][a:b]
+
+    def stsc(counts: list[int]) -> bytes:
+        runs = []
+        for i, c in enumerate(counts):
+            if not runs or runs[-1][1] != c:
+                runs.append((i + 1, c))
+        return _full_box(b"stsc", 0, struct.pack(">I", len(runs)),
+                         *(struct.pack(">III", f, c, 1) for f, c in runs))
+
+    def times(kind: bytes, scale: int, duration: int, tail: bytes) -> bytes:
+        if version == 1:
+            return _full_box(kind, 1 << 24, struct.pack(
+                ">QQIQ", 0, 0, scale, duration), tail)
+        return _full_box(kind, 0, struct.pack(">IIII", 0, 0, scale,
+                                              duration), tail)
+
+    def video_trak(offsets: list[int]) -> bytes:
+        counts = [b - a for a, b in spans]
+        if len(spans) <= 1 and not fragmented:
+            table = _full_box(b"stsc", 0, struct.pack(">IIII", 1, 1, n, 1))
+        else:
+            table = stsc(counts)
         stbl = _box(
             b"stbl",
             _full_box(b"stsd", 0, struct.pack(">I", 1), sample_entry),
-            _full_box(b"stts", 0, struct.pack(">III", 1, n, 1)), extra,
-            _full_box(b"stsc", 0, struct.pack(">IIII", 1, 1, n, 1)),
-            _full_box(b"stsz", 0, struct.pack(">II", 0, n),
-                      *(struct.pack(">I", len(p)) for p in packets)),
-            _full_box(b"stco", 0, struct.pack(">II", 1, mdat_at)))
+            _full_box(b"stts", 0, *([struct.pack(">III", 1, in_moov, 1)]
+                                    if in_moov else [struct.pack(">I", 0)])),
+            extra, table,
+            _full_box(b"stsz", 0, struct.pack(">II", 0, in_moov),
+                      *(struct.pack(">I", len(p))
+                        for p in packets[:in_moov])),
+            _full_box(b"stco", 0, struct.pack(">I", len(offsets)),
+                      *(struct.pack(">I", o) for o in offsets)))
         minf = _box(b"minf", _full_box(b"vmhd", 1, bytes(8)),
                     _box(b"dinf", _full_box(b"dref", 0, struct.pack(
                         ">I", 1), _full_box(b"url ", 1))), stbl)
         mdia = _box(
             b"mdia",
-            _full_box(b"mdhd", 0, struct.pack(">IIIIHH", 0, 0, fps, n,
-                                              0x55C4, 0)),
+            times(b"mdhd", fps, in_moov, struct.pack(">HH", 0x55C4, 0)),
             _full_box(b"hdlr", 0, struct.pack(">I4s12x", 0, b"vide"),
                       b"VideoHandler\0"), minf)
-        tkhd = _full_box(b"tkhd", 3, struct.pack(">IIIII8xHHHH", 0, 0, 1,
-                                                 0, n, 0, 0, 0, 0),
-                         matrix, struct.pack(">II", w << 16, h << 16))
-        mvhd = _full_box(b"mvhd", 0, struct.pack(">IIIIIH10x", 0, 0, fps,
-                                                 n, 0x10000, 0x100),
-                         matrix, bytes(24), struct.pack(">I", 2))
-        return _box(b"moov", mvhd, _box(b"trak", tkhd, edts, mdia))
+        track_id = 2 if audio_first else 1
+        if version == 1:
+            head = struct.pack(">QQIIQ8xHHHH", 0, 0, track_id, 0, in_moov,
+                               0, 0, 0, 0)
+        else:
+            head = struct.pack(">IIIII8xHHHH", 0, 0, track_id, 0, in_moov,
+                               0, 0, 0, 0)
+        tkhd = _full_box(b"tkhd", (version << 24) | 3, head,
+                         pack_matrix(matrix),
+                         struct.pack(">II", w << 16, h << 16))
+        return _box(b"trak", tkhd, edts, mdia)
+
+    def audio_trak(offsets: list[int]) -> bytes:
+        rate = audio["rate"]
+        chunks = [audio_samples(a, b) for a, b in spans]
+        sound = struct.pack(">HHH4xHHHHI", 1, 0, 0, 1, 16, 0, 0, rate << 16)
+        if aac:
+            entry_box = _box(b"mp4a", bytes(6), sound,
+                             esds_box(audio["config"], 0x40, 0x15))
+            counts = [len(c) for c in chunks]
+            total = sum(counts)
+            table = _full_box(b"stsz", 0, struct.pack(">II", 0, total),
+                              *(struct.pack(">I", len(p))
+                                for c in chunks for p in c))
+            media = total * 1024
+            # ffmpeg's edit list for AAC: the priming samples hidden.
+            shown = audio["samples"] * fps // rate
+            edit = _box(b"edts", _full_box(b"elst", 0, struct.pack(
+                ">IIiI", 1, shown, 1024, 0x10000)))
+        else:
+            entry_box = _box(b"sowt", bytes(6), sound)
+            counts = [len(b"".join(c)) // 2 for c in chunks]
+            total = sum(counts)
+            table = _full_box(b"stsz", 0, struct.pack(">II", 2, total))
+            media, edit = total, b""
+        stbl = _box(
+            b"stbl", _full_box(b"stsd", 0, struct.pack(">I", 1), entry_box),
+            _full_box(b"stts", 0, *([struct.pack(
+                ">III", 1, total, 1024 if aac else 1)]
+                if total else [struct.pack(">I", 0)])),
+            stsc(counts), table,
+            _full_box(b"stco", 0, struct.pack(">I", len(offsets)),
+                      *(struct.pack(">I", o) for o in offsets)))
+        minf = _box(b"minf", _full_box(b"smhd", 0, bytes(4)),
+                    _box(b"dinf", _full_box(b"dref", 0, struct.pack(
+                        ">I", 1), _full_box(b"url ", 1))), stbl)
+        mdia = _box(b"mdia", times(b"mdhd", rate, media,
+                                   struct.pack(">HH", 0x55C4, 0)),
+                    _full_box(b"hdlr", 0, struct.pack(">I4s12x", 0, b"soun"),
+                              b"SoundHandler\0"), minf)
+        track_id = 1 if audio_first else 2
+        tkhd = _full_box(b"tkhd", 3, struct.pack(
+            ">IIIII8xHHHH", 0, 0, track_id, 0, media * fps // rate, 0, 0,
+            0x100, 0), pack_matrix(None), struct.pack(">II", 0, 0))
+        return _box(b"trak", tkhd, edit, mdia)
+
+    def moov(video_offsets: list[int], audio_offsets: list[int]) -> bytes:
+        mvhd = times(b"mvhd", fps, in_moov, struct.pack(">IH10x", 0x10000,
+                                                       0x100)
+                     + pack_matrix(movie_matrix) + bytes(24)
+                     + struct.pack(">I", 3 if audio else 2))
+        traks = [video_trak(video_offsets)]
+        if audio:
+            traks.insert(0 if audio_first else 1, audio_trak(audio_offsets))
+        mvex = b""
+        if fragmented:
+            ids = [1, 2] if audio else [1]
+            mvex = _box(b"mvex", *([_full_box(b"mehd", 0, struct.pack(
+                ">I", n))] if mehd else []), *(_full_box(
+                    b"trex", 0, struct.pack(">IIIII", i, 1, 0, 0, 0))
+                    for i in ids))
+        return _box(b"moov", mvhd, *traks, mvex)
+
+    def payload(video_at: int) -> tuple[bytes, list[int], list[int]]:
+        """moov's chunks from file offset `video_at`: the bytes and each
+        chunk's offset, video and audio."""
+        out, vo, ao = b"", [], []
+        for a, b in spans:
+            parts = [(b"v", b"".join(packets[a:b]))]
+            if audio:
+                parts.insert(0 if audio_first else 1,
+                             (b"a", b"".join(audio_samples(a, b))))
+            for kind, data in parts:
+                (vo if kind == b"v" else ao).append(video_at + len(out))
+                out += data
+        return out, vo, ao
 
     ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 0x200), b"isomiso2mp41")
-    head = ftyp + moov(0)
-    return ftyp + moov(len(head) + 8) + _box(b"mdat", *packets)
+    if not fragmented and not chunk and not audio:
+        head = ftyp + moov([0], [])
+        return ftyp + moov([len(head) + 8], []) + _box(b"mdat", *packets)
+    data, vo, ao = payload(0)
+    head = ftyp + moov(vo, ao)
+    data, vo, ao = payload(len(head) + 8)
+    out = ftyp + moov(vo, ao) + _box(b"mdat", data)
+    if not fragmented:
+        return out
+    # The fragments: the video's, then the audio's samples in each mdat.
+    first = in_moov
+    for seq, count in enumerate(fragments):
+        idx = range(first, first + count)
+        vdata = b"".join(packets[i] for i in idx)
+        asamples = audio_samples(first, first + count) if audio else []
+        adata = b"".join(asamples)
+        offs = ctts or [0] * n
+        negative = any(offs[i] < 0 for i in idx)
+        keys = [sync is None or i in sync for i in idx]
+        first_only = keys[0] and not any(keys[1:])
+        flags = 0x001 | 0x200 | (0x800 if ctts is not None else 0) | (
+            0x004 if first_only else 0x400)
+
+        def traf(moof_len: int, mdat_at: int) -> bytes:
+            vbase = mdat_at + 8 if base_offset else 0
+            vdo = 0 if base_offset else moof_len + 8
+            tf = 0x08 | 0x20 | (0x01 if base_offset else 0x020000)
+            base = [struct.pack(">Q", vbase)] if base_offset else []
+            v = _box(b"traf", _full_box(
+                b"tfhd", tf, struct.pack(">I", 2 if audio_first else 1),
+                *base, struct.pack(">II", 1, NON_SYNC_FLAGS)),
+                _full_box(b"tfdt", 1 << 24, struct.pack(">Q", first)),
+                _full_box(b"trun", (int(negative) << 24) | flags,
+                          struct.pack(">Ii", count, vdo),
+                          *([struct.pack(">I", SYNC_FLAGS)]
+                            if first_only else []),
+                          *(struct.pack(">I", len(packets[i]))
+                            + (b"" if first_only else struct.pack(
+                                ">I", SYNC_FLAGS if k else NON_SYNC_FLAGS))
+                            + (struct.pack(">i", offs[i])
+                               if ctts is not None else b"")
+                            for i, k in zip(idx, keys))))
+            if not audio:
+                return v
+            before = audio_samples(0, first)
+            if aac:
+                # Each packet its own size, 1024 samples long.
+                t0 = 1024 * len(before)
+                head = struct.pack(">II", 1024, SYNC_FLAGS)
+                tf_a, run = 0x08 | 0x20, (0x201, b"".join(
+                    struct.pack(">I", len(p)) for p in asamples))
+            else:
+                t0 = len(b"".join(before)) // 2
+                per = len(audio["frames"][0])
+                head = struct.pack(">III", per // 2, per, SYNC_FLAGS)
+                tf_a, run = 0x08 | 0x10 | 0x20, (0x001, b"")
+            a = _box(b"traf", _full_box(
+                b"tfhd", tf_a | (0x01 if base_offset else 0x020000),
+                struct.pack(">I", 1 if audio_first else 2), *base, head),
+                _full_box(b"tfdt", 1 << 24, struct.pack(">Q", t0)),
+                _full_box(b"trun", run[0], struct.pack(
+                    ">Ii", len(asamples), vdo + len(vdata)), run[1]))
+            return a + v if audio_first else v + a
+
+        at = len(out)
+        mfhd = _full_box(b"mfhd", 0, struct.pack(">I", seq + 1))
+        probe = _box(b"moof", mfhd, traf(0, 0))
+        moof = _box(b"moof", mfhd, traf(len(probe), at + len(probe)))
+        out += moof + _box(b"mdat", vdata, adata)
+        first += count
+    return out
+
+
+def audio_track(frames: int, fps: int, rate: int = 16000,
+                first: bool = True, seed: int = 0) -> dict:
+    """A mono 16-bit PCM sound track (little-endian: MP4 `sowt`, Matroska
+    A_PCM/INT/LIT, AVI WAVE_FORMAT_PCM) of `frames` video frames at
+    `fps`: a tone with a little noise, split into each frame's samples
+    ("frames"); `first`, whether the muxers put it before the video."""
+    rng = np.random.default_rng(seed)
+    per = rate // fps
+    t = np.arange(frames * per) / rate
+    x = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.01 * rng.standard_normal(t.size)
+    pcm = np.round(x * 32767).astype("<i2").tobytes()
+    return {"frames": [pcm[2 * per * i:2 * per * (i + 1)]
+                       for i in range(frames)],
+            "rate": rate, "first": first}
+
+
+def aac_track(frames: int, fps: int, rate: int = 16000,
+              first: bool = True) -> dict:
+    """audio_track's tone as AAC-LC, mono, from the system's libavcodec 59
+    through ctypes (its native `aac` encoder, 32 kb/s, one thread): the
+    packets in decode order ("aac", 1024 samples each, the first the
+    encoder's priming), its AudioSpecificConfig ("config") and the
+    samples of the tone ("samples"), for mp4_file."""
+    import ctypes
+
+    av = ctypes.CDLL("libavcodec.so.59")
+    au = ctypes.CDLL("libavutil.so.57")
+    # The structure offsets below are libavutil 57's and libavcodec 59's.
+    assert av.avcodec_version() >> 16 == 59 and au.avutil_version() >> 16 == 57
+    vp = ctypes.c_void_p
+    for lib, name, res, args in (
+            (av, "avcodec_find_encoder_by_name", vp, [ctypes.c_char_p]),
+            (av, "avcodec_alloc_context3", vp, [vp]),
+            (av, "avcodec_open2", ctypes.c_int, [vp, vp, vp]),
+            (av, "avcodec_send_frame", ctypes.c_int, [vp, vp]),
+            (av, "avcodec_receive_packet", ctypes.c_int, [vp, vp]),
+            (av, "avcodec_free_context", None, [vp]),
+            (av, "av_packet_alloc", vp, []),
+            (av, "av_packet_unref", None, [vp]),
+            (av, "av_packet_free", None, [vp]),
+            (au, "av_opt_set", ctypes.c_int,
+             [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
+            (au, "av_frame_alloc", vp, []),
+            (au, "av_frame_get_buffer", ctypes.c_int, [vp, ctypes.c_int]),
+            (au, "av_frame_make_writable", ctypes.c_int, [vp]),
+            (au, "av_frame_free", None, [vp])):
+        getattr(lib, name).restype = res
+        getattr(lib, name).argtypes = args
+    codec = av.avcodec_find_encoder_by_name(b"aac")
+    if not codec:
+        raise RuntimeError("libavcodec: no aac encoder")
+    ctx = av.avcodec_alloc_context3(codec)
+    for k, v in {"ar": str(rate), "ac": "1", "ch_layout": "mono",
+                 "time_base": f"1/{rate}", "threads": "1",
+                 "b": "32000"}.items():
+        if au.av_opt_set(ctx, k.encode(), v.encode(), 1):
+            raise RuntimeError(f"libavcodec: option {k}={v} refused")
+    ctypes.c_int.from_address(ctx + 360).value = 8   # sample_fmt FLTP
+    if av.avcodec_open2(ctx, codec, None) < 0:
+        raise RuntimeError("libavcodec: aac does not open")
+    frame = au.av_frame_alloc()
+    # nb_samples, format; sample_rate, channel_layout, channels; ch_layout
+    struct.pack_into("<ii", (ctypes.c_char * 8).from_address(frame + 112),
+                     0, 1024, 8)
+    ctypes.c_int.from_address(frame + 208).value = rate
+    ctypes.c_uint64.from_address(frame + 216).value = 4   # front centre
+    ctypes.c_int.from_address(frame + 380).value = 1
+    struct.pack_into("<iiQ", (ctypes.c_char * 16).from_address(frame + 448),
+                     0, 1, 1, 4)
+    if au.av_frame_get_buffer(frame, 0) < 0:
+        raise RuntimeError("libavutil: no frame buffer")
+    pcm = np.frombuffer(b"".join(audio_track(frames, fps, rate)["frames"]),
+                        "<i2").astype(np.float32) / 32767
+    pcm = np.concatenate([pcm, np.zeros(-len(pcm) % 1024, np.float32)])
+    pkt = av.av_packet_alloc()
+    out = []
+
+    def drain():
+        while av.avcodec_receive_packet(ctx, pkt) == 0:
+            out.append(ctypes.string_at(
+                ctypes.c_void_p.from_address(pkt + 24).value,
+                ctypes.c_int.from_address(pkt + 32).value))
+            av.av_packet_unref(pkt)
+
+    for i in range(len(pcm) // 1024):
+        if au.av_frame_make_writable(frame) < 0:
+            raise RuntimeError("libavutil: frame not writable")
+        block = np.ascontiguousarray(pcm[1024 * i:1024 * (i + 1)])
+        ctypes.memmove(ctypes.c_void_p.from_address(frame).value,
+                       block.ctypes.data, 4096)
+        ctypes.c_int64.from_address(frame + 136).value = 1024 * i   # pts
+        if av.avcodec_send_frame(ctx, frame) < 0:
+            raise RuntimeError(f"libavcodec: aac refused frame {i}")
+        drain()
+    av.avcodec_send_frame(ctx, None)
+    drain()
+    for p in (pkt, frame, ctx):
+        box = ctypes.c_void_p(p)
+        (av.av_packet_free if p == pkt else au.av_frame_free if p == frame
+         else av.avcodec_free_context)(ctypes.byref(box))
+    index = {96000: 0, 88200: 1, 64000: 2, 48000: 3, 44100: 4, 32000: 5,
+             24000: 6, 22050: 7, 16000: 8, 12000: 9, 11025: 10, 8000: 11}
+    config = struct.pack(">H", (2 << 11) | (index[rate] << 7) | (1 << 3))
+    return {"aac": out, "config": config, "rate": rate, "first": first,
+            "samples": frames * (rate // fps)}
 
 
 def _ebml(eid: int, *parts: bytes) -> bytes:
@@ -579,38 +1076,109 @@ def _ebml_uint(eid: int, v: int) -> bytes:
     return _ebml(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
 
 
+def _lace(frames: list[bytes], kind: int) -> tuple[int, bytes]:
+    """A block's lacing flags and its laced payload: `kind` 1 Xiph, 2
+    fixed (equal sizes), 3 EBML (the first size, then signed
+    differences)."""
+    head = bytes([len(frames) - 1])
+    if kind == 1:
+        for f in frames[:-1]:
+            head += b"\xff" * (len(f) // 255) + bytes([len(f) % 255])
+    elif kind == 3:
+        def vint(v: int, k: int) -> bytes:
+            return ((1 << (7 * k)) | v).to_bytes(k, "big")
+
+        head += vint(len(frames[0]), 2)
+        for a, b in zip(frames, frames[1:-1]):
+            head += vint(len(b) - len(a) + 63, 1)
+    return kind << 1, head + b"".join(frames)
+
+
 def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
              codec_private: bytes = b"", pts: list[int] | None = None,
-             keys: list[int] | None = None) -> bytes:
+             keys: list[int] | None = None, default_duration: bool = True,
+             times: list[int] | None = None, duration: float | None = None,
+             projection: dict | None = None, audio: dict | None = None,
+             cluster: int | None = None) -> bytes:
     """A Matroska file of one video track: `packets` as SimpleBlocks of
     one cluster in decode order, at the presentation times `pts` (in
     frames; None: decode order), keyframes at `keys` (None: every
     packet); the track's CodecID, CodecPrivate and DefaultDuration, a
     segment Duration of len(packets) frames, no SegmentUID (so a rerun
-    writes the same bytes)."""
+    writes the same bytes).
+
+    `default_duration` False leaves DefaultDuration out; `times`, the
+    blocks' timestamps in ms instead of pts · 1000 // fps, and
+    `duration` the segment's Duration in ms; `cluster`, the blocks of
+    each cluster (each with its own Timestamp) instead of one;
+    `projection`, the Video element's Projection: "type"
+    (ProjectionType), "yaw", "pitch", "roll" (ProjectionPose*, degrees);
+    `audio`, a sound track (audio_track) as A_PCM/INT/LIT, track 1 with
+    the video as track 2 (when its "first" is true, else after it): the
+    audio of three frames a block before their first video block, laced
+    in turn by Xiph, fixed and EBML lacing or unlaced in a BlockGroup."""
     n = len(packets)
     pts = list(range(n)) if pts is None else pts
     keys = set(range(n)) if keys is None else set(keys)
     ms = 1000 // fps
+    times = [p * ms for p in pts] if times is None else times
     header = _ebml(0x1A45DFA3, _ebml_uint(0x4286, 1), _ebml_uint(0x42F7, 1),
                    _ebml_uint(0x42F2, 4), _ebml_uint(0x42F3, 8),
                    _ebml(0x4282, b"matroska"), _ebml_uint(0x4287, 4),
                    _ebml_uint(0x4285, 2))
     info = _ebml(0x1549A966, _ebml_uint(0x2AD7B1, 1000000),
-                 _ebml(0x4489, struct.pack(">d", float(n * ms))),
+                 _ebml(0x4489, struct.pack(
+                     ">d", float(n * ms) if duration is None else duration)),
                  _ebml(0x4D80, b"tests"), _ebml(0x5741, b"tests"))
-    video = _ebml(0xE0, _ebml_uint(0xB0, w), _ebml_uint(0xBA, h))
-    entry = _ebml(0xAE, _ebml_uint(0xD7, 1), _ebml_uint(0x73C5, 1),
+    proj = b""
+    if projection is not None:
+        proj = _ebml(0x7670, _ebml_uint(0x7671, projection.get("type", 0)),
+                     *(_ebml(eid, struct.pack(">f", projection[k]))
+                       for eid, k in ((0x7673, "yaw"), (0x7674, "pitch"),
+                                      (0x7675, "roll")) if k in projection))
+    video = _ebml(0xE0, _ebml_uint(0xB0, w), _ebml_uint(0xBA, h), proj)
+    vnum = 2 if audio and audio["first"] else 1
+    entry = _ebml(0xAE, _ebml_uint(0xD7, vnum), _ebml_uint(0x73C5, vnum),
                   _ebml_uint(0x83, 1), _ebml(0x86, codec_id.encode()),
                   *([_ebml(0x63A2, codec_private)] if codec_private else []),
-                  _ebml_uint(0x23E383, 1000000000 // fps), video)
-    blocks = b"".join(
-        _ebml(0xA3, b"\x81", struct.pack(">hB", pts[i] * ms,
-                                          0x80 if i in keys else 0), p)
-        for i, p in enumerate(packets))
-    cluster = _ebml(0x1F43B675, _ebml_uint(0xE7, 0), blocks)
-    return header + _ebml(0x18538067, info, _ebml(0x1654AE6B, entry),
-                          cluster)
+                  *([_ebml_uint(0x23E383, 1000000000 // fps)]
+                    if default_duration else []), video)
+    entries = [entry]
+    if audio:
+        anum = 3 - vnum
+        aentry = _ebml(0xAE, _ebml_uint(0xD7, anum), _ebml_uint(0x73C5, anum),
+                       _ebml_uint(0x83, 2), _ebml(0x86, b"A_PCM/INT/LIT"),
+                       _ebml(0xE1, _ebml(0xB5, struct.pack(
+                           ">d", float(audio["rate"]))),
+                           _ebml_uint(0x9F, 1), _ebml_uint(0x6264, 16)))
+        entries.insert(0 if audio["first"] else 1, aentry)
+
+    def blocks(lo: int, hi: int, base: int) -> bytes:
+        out = b""
+        for i in range(lo, hi):
+            if audio and i % 3 == 0:
+                group = audio["frames"][i:i + 3]
+                kind = (i // 3) % 4
+                stamp = struct.pack(">h", i * ms - base)
+                if kind == 3:
+                    out += _ebml(0xA0, _ebml(0xA1, bytes([0x80 | (3 - vnum)]),
+                                             stamp, b"\0", b"".join(group)))
+                else:
+                    flags, body = _lace(group, kind + 1)
+                    out += _ebml(0xA3, bytes([0x80 | (3 - vnum)]), stamp,
+                                 bytes([0x80 | flags]), body)
+            out += _ebml(0xA3, bytes([0x80 | vnum]), struct.pack(
+                ">hB", times[i] - base, 0x80 if i in keys else 0), packets[i])
+        return out
+
+    step = cluster or max(n, 1)
+    clusters = b""
+    for lo in range(0, n, step):
+        base = 0 if cluster is None else times[lo]
+        clusters += _ebml(0x1F43B675, _ebml_uint(0xE7, base),
+                          blocks(lo, min(lo + step, n), base))
+    return header + _ebml(0x18538067, info, _ebml(0x1654AE6B, *entries),
+                          clusters)
 
 
 def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
@@ -1009,14 +1577,15 @@ def mpeg4_headers(packet: bytes) -> bytes:
     return packet[:min(ends)]
 
 
-def esds_box(config: bytes) -> bytes:
+def esds_box(config: bytes, oti: int = 0x20, stream: int = 0x11) -> bytes:
     """An esds box (ES_Descriptor, MPEG-4 Visual, objectTypeIndication
-    0x20) whose DecoderSpecificInfo is `config`."""
+    0x20; `oti` 0x40 and `stream` 0x15 for AAC audio) whose
+    DecoderSpecificInfo is `config`."""
     def desc(tag: int, body: bytes) -> bytes:
         return bytes([tag, 0x80, 0x80, 0x80, len(body)]) + body
 
     dsi = desc(5, config)
-    dcd = desc(4, bytes([0x20, 0x11]) + bytes(3) + struct.pack(
+    dcd = desc(4, bytes([oti, stream]) + bytes(3) + struct.pack(
         ">II", 0, 0) + dsi)
     return _full_box(b"esds", 0, desc(3, struct.pack(">HB", 1, 0) + dcd
                                        + desc(6, b"\x02")))
@@ -1313,11 +1882,14 @@ def patch_vp8(data: bytes, packets: list[bytes], change: str) -> bytes:
 
 
 def cv2_packets(path: str) -> list[bytes]:
-    """The packets cv2 demuxes (CAP_PROP_FORMAT -1), in decode order."""
+    """The packets cv2 demuxes (CAP_PROP_FORMAT -1), in decode order (not
+    turned: OpenCV turns a raw packet's 1×n row as it would a picture,
+    which reverses it at 180 and 270 degrees)."""
     import cv2
 
     cap = cv2.VideoCapture(path)
     cap.set(cv2.CAP_PROP_FORMAT, -1)
+    cap.set(cv2.CAP_PROP_ORIENTATION_AUTO, 0)
     out = []
     while True:
         ok, p = cap.read()
@@ -1325,6 +1897,48 @@ def cv2_packets(path: str) -> list[bytes]:
             break
         out.append(p.ravel().tobytes())
     cap.release()
+    return out
+
+
+def mp4toannexb(track) -> list[bytes]:
+    """The packets of an H.264 track in MP4 or Matroska (length-prefixed
+    NAL units, avcC record) as libavcodec's h264_mp4toannexb gives them
+    to cv2: start codes of 4 bytes before a parameter set or a packet's
+    first unit, else 3; the record's SPS and PPS before the first IDR
+    slice of each IDR picture that carries none."""
+    cfg = track.config
+    nal_len = (cfg[4] & 3) + 1
+    sets, p = [], 5
+    for count_mask in (31, 255):
+        n = cfg[p] & count_mask
+        p += 1
+        for _ in range(n):
+            size = int.from_bytes(cfg[p:p + 2], "big")
+            sets.append(cfg[p + 2:p + 2 + size])
+            p += 2 + size
+    extradata = b"".join(b"\0\0\0\1" + u for u in sets)
+    out, new_idr = [], True
+    for data, _ in track.packets:
+        pkt, sps_seen, pps_seen, q = b"", False, False, 0
+        while q < len(data):
+            size = int.from_bytes(data[q:q + nal_len], "big")
+            unit = data[q + nal_len:q + nal_len + size]
+            q += nal_len + size
+            kind = unit[0] & 31
+            if kind == 7:
+                sps_seen = new_idr = True
+            elif kind == 8:
+                pps_seen = new_idr = True
+            if kind == 5 and unit[1] & 0x80:        # first_mb_in_slice 0
+                new_idr = True
+            if new_idr and kind == 5 and not sps_seen and not pps_seen:
+                pkt += extradata
+                new_idr = False
+            pkt += (b"\0\0\0\1" if kind in (7, 8) or not pkt else
+                    b"\0\0\1") + unit
+            if not new_idr and kind == 1:
+                new_idr, sps_seen, pps_seen = True, False, False
+        out.append(pkt)
     return out
 
 
@@ -1440,12 +2054,103 @@ def lavc_file(packets: list[bytes], times: list[tuple[int, int]], w: int,
                     pts=[p for p, _ in times])
 
 
+def container_packets(stream: str, frames=None):
+    """A CONTAINER_CASES stream (or libx264's of `frames`, BGR): (packets,
+    keyframes, (w, h), the sample entry's box or CodecPrivate, and H.264's
+    (pts, dts) in frames, else None)."""
+    import tempfile
+
+    if stream == "h264":
+        if frames is None:
+            frames = moving_frames(sum(map(ord, "h264_high_mp4")), 30)
+        aus = x264_encode(frames, keyint=12 if len(frames) > 16 else 8)
+        samples, sps, pps = avc_samples([a for a, _, _ in aus])
+        keys = [i for i, (a, _, _) in enumerate(aus)
+                if any(u[0] & 31 == 5 for u in nal_units(a))]
+        h, w = frames.shape[1:3]
+        return samples, keys, (w, h), avcc_box(sps, pps), \
+            [(p, d) for _, p, d in aus]
+    if stream == "mjpeg":
+        frames = moving_frames(sum(map(ord, "mjpeg_odml_avi")), 12)
+        return jpegs_of(frames, "4:2:2"), list(range(12)), (W, H), b"", None
+    name = {"mpeg4": "mpeg4_avi", "vp8": "vp8_webm"}[stream]
+    ext, fourcc, fps, t = CASES[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "src." + ext)
+        write_cv2(src, fourcc, fps, moving_frames(sum(map(ord, name)), t))
+        packets = cv2_packets(src)
+    if stream == "vp8":
+        return packets, [i for i, p in enumerate(packets) if not p[0] & 1], \
+            (W, H), b"", None
+    keys = [i for i, p in enumerate(packets)
+            if (p[p.index(b"\0\0\1\xb6") + 4] >> 6) == 0]
+    return packets, keys, (W, H), esds_box(mpeg4_headers(packets[0])), None
+
+
+def container_file(name: str, opts: dict, stream: str, frames=None) -> bytes:
+    """A CONTAINER_CASES or PHONE_CLIPS file: `stream`'s packets under
+    `opts` in the container the name ends with."""
+    packets, keys, (w, h), config, times = container_packets(stream, frames)
+    opts = dict(opts)
+    ext = name.rsplit("_", 1)[1]
+    n = len(packets)
+    audio = opts.pop("audio", None)
+    if audio:
+        first = not audio.endswith("after")
+        audio = aac_track(n, 25, first=first) if audio.startswith("aac") \
+            else audio_track(n, 25, 8000, first=first)
+    if ext == "avi":
+        split = opts.pop("split", None)
+        fourcc = {"mpeg4": b"FMP4", "mjpeg": b"MJPG"}[stream]
+        if split:
+            return avi_odml_file(packets, w, h, 25, split, fourcc,
+                                 audio=audio)
+        return avi_file(packets, w, h, 25, n, fourcc, audio=audio)
+    if ext == "mkv":
+        rate = opts.pop("rate", None)
+        if rate:
+            opts.update(default_duration=False, duration=n * 1000 / rate,
+                        times=[int(round(i * 1000 / rate)) for i in range(n)])
+        return mkv_file(packets, w, h, 25, "V_VP8", audio=audio, **opts)
+    for k in ("matrix", "movie_matrix"):
+        if k in opts:
+            v = opts[k]
+            opts[k] = display_matrix(0, 2.0) if v == "scale2" else \
+                display_matrix(v, w=w, h=h)
+    frag = opts.pop("fragments", None)
+    if frag == "sample":
+        opts["fragments"] = [1] * (n - opts.get("moov_samples", 0))
+    elif frag == "key":
+        starts = [k for k in keys if k >= opts.get("moov_samples", 0)] + [n]
+        opts["fragments"] = [b - a for a, b in zip(starts, starts[1:])]
+    if stream == "h264":
+        dts0 = times[0][1]
+        if opts.pop("negative", False):
+            opts["ctts"] = [p - (d - dts0) for p, d in times]
+        else:
+            opts.update(ctts=[p - d for p, d in times], media_time=-dts0)
+    entry = {"h264": b"avc1", "mpeg4": b"mp4v"}[stream]
+    return mp4_file(packets, w, h, 25, entry, config, sync=keys, audio=audio,
+                    **opts)
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in CONTAINER_CASES or name in PHONE_CLIPS:
+        if name in PHONE_CLIPS:
+            stream, opts = "h264", PHONE_CLIPS[name]
+            data = container_file(name, opts, stream,
+                                  clip_frames_bgr()[:16, 32:192])
+        else:
+            stream, opts = CONTAINER_CASES[name]
+            data = container_file(name, opts, stream)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
     if name in LAVC_CASES or name in LAVC_UNREAD or name in LAVC_CLIPS:
         if name in LAVC_CLIPS:
             (enc, opts), user = LAVC_CLIPS[name], None
@@ -1591,15 +2296,24 @@ def write_case(name: str, out: str = FIXTURES) -> str:
 
 def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
-    for name in names or (*DECODED, *CLIP_CASES, *LAVC_UNREAD):
+    for name in names or (*HELD, *CLIP_CASES, *LAVC_UNREAD, *PHONE_CLIPS):
         path = write_case(name, out)
-        if name not in DECODED:
+        if name not in HELD:
             continue
         frames, count = cv2_view(path)
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
+        extra = {}
+        if name in CONTAINER_CASES:
+            import cv2
+
+            cap = cv2.VideoCapture(path)
+            extra["orientation"] = np.int64(
+                cap.get(cv2.CAP_PROP_ORIENTATION_META))
+            cap.release()
         np.savez_compressed(os.path.join(out, name + ".npz"),
                             frames=frames[index], index=index,
-                            n=np.int64(len(frames)), count=np.int64(count))
+                            n=np.int64(len(frames)), count=np.int64(count),
+                            **extra)
 
 
 if __name__ == "__main__":

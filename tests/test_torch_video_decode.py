@@ -37,12 +37,12 @@ chip_smoke.py trains from or times) go through:
     applies), its frame count against
     `CAP_PROP_FRAME_COUNT`, and its codec against the one the case's
     name says;
-  * `native.decode_video` against `cap.read()`: the bound is 1 level for
-    MJPEG, 2 for MPEG-4 (P-frame drift) and 0 for VP8 (exact by RFC 6386),
-    VP9 and H.264 (exact by their specifications) over every byte of
-    every frame;
-    the measured maximum is 0 for every clip here (the decoders compute
-    what libavcodec and swscale compute);
+  * `native.decode_video` against `cap.read()`: the bound is 0 levels
+    over every byte of every frame, for VP8 (exact by RFC 6386), VP9 and
+    H.264 (exact by their specifications) and for MJPEG and MPEG-4, whose
+    decoders compute what libavcodec and swscale compute (0 on every
+    committed clip here, on the card and on random MPEG-4 streams:
+    tests/_torch_video_sweep.py);
   * `native.load_video_frames` and the port's `data.av.load_frames_for`
     against the JAX package's over several windows at 16 frames and at
     40 (more than any clip has: the `set` case), sizes 64 and 32: the
@@ -96,9 +96,9 @@ cv2 = pytest.importorskip("cv2")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_make_videos as mk  # noqa: E402
 
-# levels of 255 at full size; VP8, VP9 and H.264 are exact by
-# specification
-TOL = {"mjpeg": 1, "mpeg4": 2, "vp8": 0, "vp9": 0, "h264": 0}
+# levels of 255 at full size: VP8, VP9 and H.264 are exact by
+# specification, MJPEG and MPEG-4 by copying libavcodec's arithmetic
+TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0}
 CASES = list(mk.DECODED)
 FILES = {c: mk.path_of(c) for c in (*CASES, *mk.CLIP_CASES)}
 ALL = [*CASES, *mk.CLIP_CASES]
@@ -109,46 +109,7 @@ def _codec(name):
     return native.video_track(FILES[name], packets=False).codec
 
 
-def _mp4toannexb(track):
-    """The packets of an H.264 track in MP4 or Matroska (length-prefixed
-    NAL units, avcC record) as libavcodec's h264_mp4toannexb gives them
-    to cv2: start codes of 4 bytes before a parameter set or a packet's
-    first unit, else 3; the record's SPS and PPS before the first IDR
-    slice of each IDR picture that carries none."""
-    cfg = track.config
-    nal_len = (cfg[4] & 3) + 1
-    sets, p = [], 5
-    for count_mask in (31, 255):
-        n = cfg[p] & count_mask
-        p += 1
-        for _ in range(n):
-            size = int.from_bytes(cfg[p:p + 2], "big")
-            sets.append(cfg[p + 2:p + 2 + size])
-            p += 2 + size
-    extradata = b"".join(b"\0\0\0\1" + u for u in sets)
-    out, new_idr = [], True
-    for data, _ in track.packets:
-        pkt, sps_seen, pps_seen, q = b"", False, False, 0
-        while q < len(data):
-            size = int.from_bytes(data[q:q + nal_len], "big")
-            unit = data[q + nal_len:q + nal_len + size]
-            q += nal_len + size
-            kind = unit[0] & 31
-            if kind == 7:
-                sps_seen = new_idr = True
-            elif kind == 8:
-                pps_seen = new_idr = True
-            if kind == 5 and unit[1] & 0x80:        # first_mb_in_slice 0
-                new_idr = True
-            if new_idr and kind == 5 and not sps_seen and not pps_seen:
-                pkt += extradata
-                new_idr = False
-            pkt += (b"\0\0\0\1" if kind in (7, 8) or not pkt else
-                    b"\0\0\1") + unit
-            if not new_idr and kind == 1:
-                new_idr, sps_seen, pps_seen = True, False, False
-        out.append(pkt)
-    return out
+_mp4toannexb = mk.mp4toannexb
 
 
 @pytest.mark.parametrize("name", ALL)

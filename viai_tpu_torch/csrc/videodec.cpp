@@ -14,17 +14,26 @@
 //     included), ISO-BMFF (.mp4/.mov: the first `vide` track's sample
 //     tables, an edit list of one edit as libavformat's mov_fix_index
 //     applies it: the samples from the keyframe before the edit on, the
-//     frames presented outside it decoded and dropped) and Matroska/WebM (EBML,
+//     frames presented outside it decoded and dropped; then its movie
+//     fragments' samples, moof/traf/tfhd/tfdt/trun with mvex's trex
+//     defaults) and Matroska/WebM (EBML,
 //     unknown-size elements, SimpleBlock and BlockGroup with Xiph, EBML
 //     and fixed lacing; VP8 and VP9 in MP4 under their vp08/vp09 sample
 //     entries and vpcC boxes; H.264 under avc1/avc3 with its avcC box,
 //     V_MPEG4/ISO/AVC with its avcC CodecPrivate, and Annex B in AVI).
 //     Each gives the track's packets in decode order, byte for byte as
 //     libavformat gives them (H.264 in MP4 and Matroska before cv2's
-//     h264_mp4toannexb), and the frame count that cv2's
+//     h264_mp4toannexb), the frame count that cv2's
 //     CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the sample
-//     count, Matroska round(duration · fps) with libavformat's duration
-//     and av_reduce'd DefaultDuration.
+//     count (of a fragmented file without samples in moov, round(duration
+//     · fps) over its streams' spans, see mp4_count), Matroska
+//     round(duration · fps) with libavformat's duration and av_reduce'd
+//     DefaultDuration (without it, libavformat's estimate from the block
+//     times, see rfps_estimate); and the orientation cv2 reports
+//     (CAP_PROP_ORIENTATION_META) from MP4's display matrices (tkhd's
+//     times mvhd's) or a Matroska Projection's roll, by which the frames
+//     are turned as cv2 turns them (90, 180 or 270 degrees). Other
+//     tracks (sound, ...) are skipped.
 //   * MJPEG: imagedec.cpp's entropy decoder (annex K tables until a DHT,
 //     the AVI1 convention), ffmpeg's simple IDCT into the planes of the
 //     layout libavcodec picks (yuvj420p, yuvj422p, yuvj444p, yuvj440p,
@@ -35,6 +44,8 @@
 //     the matrix's coefficients, full range for yuvj, limited else,
 //     saturated to 0..255), grey copied to B, G, R, and its generic
 //     bicubic scaler for the rest (see `sws`).
+//   * cv2.rotate of the BGR frame by the track's orientation (see
+//     turn_bgr);
 //   * cv2.resize(frame, (size, size)) at INTER_LINEAR on the BGR frame:
 //     11-bit weights from float32 positions, a horizontal pass in int32,
 //     the vertical one as OpenCV's SIMD does it (each row >> 4, ·β >> 16,
@@ -134,9 +145,33 @@ struct Track {
                                 // H.264's avcC record
   std::vector<Packet> packets;
   int64_t count = 0;            // cv2's CAP_PROP_FRAME_COUNT
+  // cv2's CAP_PROP_ORIENTATION_META: the clockwise turn, 0..359, of the
+  // container's display matrix; cv2 turns the picture when it is 90,
+  // 180 or 270 (CAP_PROP_ORIENTATION_AUTO, on by default).
+  int orientation = 0;
 };
 
 namespace {
+
+// libavutil's av_display_rotation_get over a display matrix (a, b, u,
+// c, d, v, x, y, w; 16.16 but u, v, w), then OpenCV's angle: its
+// negation rounded (cvRound, half to even) into 0..359. A matrix with a
+// mirror (cv2 would turn the picture instead: a horizontal mirror by 180
+// degrees, the transpose by 90) or a zero column (no angle) raises.
+int cv2_orientation(const int32_t m[9], const std::string& where) {
+  const double kPi = 3.14159265358979323846;
+  if (int64_t(m[0]) * m[4] - int64_t(m[1]) * m[3] < 0)
+    unsupported(where + " display matrix with a mirror (cv2 would turn "
+                "the picture instead of mirroring it)");
+  auto fp = [](int32_t x) { return double(x) / 65536.0; };
+  double s0 = std::hypot(fp(m[0]), fp(m[3]));
+  double s1 = std::hypot(fp(m[1]), fp(m[4]));
+  if (s0 == 0.0 || s1 == 0.0)
+    unsupported(where + " display matrix with a zero column (no angle)");
+  double r = -(std::atan2(fp(m[1]) / s1, fp(m[0]) / s0) * 180 / kPi);
+  int angle = -int(std::nearbyint(r));
+  return angle < 0 ? angle + 360 : angle;
+}
 
 // libavformat's riff tags (upper-cased, as its AVI demuxer retries) and
 // the codecs they name.
@@ -324,9 +359,57 @@ void demux_avi(Track& t) {
 
 // ---------------------------------------------------------------- MP4
 
+int64_t gcd64(int64_t a, int64_t b) {
+  while (b) {
+    int64_t t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// libavutil's av_reduce: the closest num/den with both at most `max`.
+void av_reduce(int64_t& dn, int64_t& dd, int64_t num, int64_t den,
+               int64_t max) {
+  int64_t a0n = 0, a0d = 1, a1n = 1, a1d = 0;
+  int64_t g = gcd64(num, den);
+  if (g) {
+    num /= g;
+    den /= g;
+  }
+  if (num <= max && den <= max) {
+    a1n = num;
+    a1d = den;
+    den = 0;
+  }
+  while (den) {
+    uint64_t x = uint64_t(num / den);
+    int64_t next_den = num - den * int64_t(x);
+    int64_t a2n = int64_t(x) * a1n + a0n, a2d = int64_t(x) * a1d + a0d;
+    if (a2n > max || a2d > max) {
+      if (a1n) x = uint64_t((max - a0n) / a1n);
+      if (a1d) x = std::min<uint64_t>(x, uint64_t((max - a0d) / a1d));
+      if (den * (2 * int64_t(x) * a1d + a0d) > num * a1d) {
+        a1n = int64_t(x) * a1n + a0n;
+        a1d = int64_t(x) * a1d + a0d;
+      }
+      break;
+    }
+    a0n = a1n;
+    a0d = a1d;
+    a1n = a2n;
+    a1d = a2d;
+    num = den;
+    den = next_den;
+  }
+  dn = a1n;
+  dd = a1d;
+}
+
 struct Box {
   size_t body, end;
   std::string type;
+  size_t start;                 // its header's first byte
 };
 
 // The boxes in [p, end).
@@ -345,7 +428,7 @@ std::vector<Box> boxes(const std::vector<uint8_t>& f, size_t p, size_t end) {
     }
     if (sz < hdr || p + sz > end) broken("MP4 box '" + type + "' runs past "
                                          "its parent");
-    out.push_back({p + hdr, size_t(p + sz), type});
+    out.push_back({p + hdr, size_t(p + sz), type, p});
     p += sz;
   }
   return out;
@@ -465,229 +548,531 @@ int64_t timescale(const std::vector<uint8_t>& f, const Box* b) {
   return be32(&f[b->body + (f[b->body] == 1 ? 20 : 12)]);
 }
 
+// A track of an MP4 file as libavformat makes it a stream: what cv2's
+// frame count of a fragmented file needs (see mp4_fragments).
+struct Mp4Stream {
+  uint32_t id = 0;
+  std::string handler;          // hdlr's type: vide, soun, ...
+  int64_t timescale = 0;        // mdhd's
+  int64_t duration = 0;         // mdhd's, then the fragments' end if later
+  int64_t moov_samples = 0;     // stts's sample count
+  int64_t moov_duration = 0;    // and their duration
+  // The edit list's shift of the timestamps (libavformat's time_offset:
+  // the media time of the first edit after an empty one, less that
+  // empty edit's duration) and AAC's start padding (that media time).
+  int64_t time_offset = 0, aac_pad = 0;
+  bool aac = false;
+  // trex's defaults: sample description, duration, size, flags.
+  uint32_t trex[4] = {1, 0, 0, 0};
+  // Its fragments' samples: whether any, the first one's decode time and
+  // composition offset, the largest negative offset (libavformat's
+  // dts_shift), where the next fragment starts without a tfdt, and the
+  // sample count and duration (the average frame rate's).
+  bool any = false;
+  int64_t first_dts = 0, first_cts = 0, dts_shift = 0, next_dts = 0;
+  int64_t frames = 0, frames_duration = 0;
+};
+
+// The edit list of a trak as libavformat's mov_build_index reads it for
+// the timestamps (`s.time_offset`), and for the chosen track also as
+// mov_fix_index applies it (`edited`, the one edit's media time and
+// duration in the movie's timescale).
+void mp4_edits(const std::vector<uint8_t>& f, const std::vector<Box>& tb,
+               int64_t movie, Mp4Stream& s, bool& edited, int64_t& edit_time,
+               int64_t& edit_duration, bool check) {
+  const Box* edts = child(tb, "edts");
+  if (!edts) return;
+  int64_t empty = 0, start = 0;
+  int first_edit = 0, k_all = 0;
+  for (const Box& elst : boxes(f, edts->body, edts->end)) {
+    if (elst.type != "elst" || elst.body + 8 > elst.end) continue;
+    int version = f[elst.body];
+    uint32_t entries = be32(&f[elst.body + 4]);
+    size_t w = version == 1 ? 20 : 12;
+    if (elst.body + 8 + w * entries > elst.end)
+      broken("MP4 edit list cut short");
+    for (uint32_t k = 0; k < entries; ++k, ++k_all) {
+      const uint8_t* e = &f[elst.body + 8 + w * k];
+      int64_t duration = version == 1 ? int64_t(be64(e)) : be32(e);
+      int64_t media_time = version == 1 ? int64_t(be64(e + 8))
+                                        : int32_t(be32(e + 4));
+      uint32_t rate = be32(e + (version == 1 ? 16 : 8));
+      if (k_all == 0 && media_time == -1) {
+        empty = duration;
+        first_edit = 1;
+      } else if (k_all == first_edit && media_time >= 0) {
+        start = media_time;
+      }
+      if (!check) continue;
+      // The edit list, as libavformat reads it (mov_fix_index): an empty
+      // edit (media time -1) first only delays presentation; one edit at
+      // rate 1 then keeps the samples from the last keyframe presented at
+      // or before its media time, marking those presented before it or
+      // past its end to be decoded and dropped.
+      if (media_time == -1 && k_all == 0) continue;
+      if (edited || media_time < 0)
+        unsupported("MP4 edit list of several edits (libavformat's "
+                    "advanced edit lists)");
+      if (rate != 0x10000) {
+        char b[96];
+        std::snprintf(b, sizeof(b), "MP4 edit at rate %.4f (not 1)",
+                      rate / 65536.0);
+        unsupported(b);
+      }
+      if (duration == 0) unsupported("MP4 edit of duration 0");
+      edited = true;
+      edit_time = media_time;
+      edit_duration = duration;
+    }
+  }
+  if ((empty || start) && movie > 0) {
+    if (empty) empty = (empty * s.timescale + movie / 2) / movie;
+    s.time_offset = start - empty;
+    if (s.aac && start > 0 && k_all <= first_edit + 1) s.aac_pad = start;
+  }
+}
+
+// The frames of the chosen video trak's own sample tables (`tb`, its
+// boxes; `mb`, its mdia's) into t.packets, from the keyframe before an
+// edit on (see mp4_edits; libavformat applies none to a track whose
+// samples all lie in fragments).
+void mp4_samples(Track& t, const std::vector<Box>& tb,
+                 const std::vector<Box>& mb, int64_t movie, Mp4Stream& st) {
+  const std::vector<uint8_t>& f = t.file;
+  bool edited = false;
+  int64_t edit_time = 0, edit_duration = 0;
+  mp4_edits(f, tb, movie, st, edited, edit_time, edit_duration,
+            st.moov_samples > 0);
+  const Box* minf = child(mb, "minf");
+  if (!minf) broken("MP4 video track without minf");
+  std::vector<Box> nb = boxes(f, minf->body, minf->end);
+  const Box* stbl = child(nb, "stbl");
+  if (!stbl) broken("MP4 video track without stbl");
+  std::vector<Box> sb = boxes(f, stbl->body, stbl->end);
+  const Box* stsd = child(sb, "stsd");
+  if (!stsd || stsd->body + 16 > stsd->end)
+    broken("MP4 video track without a sample description");
+  size_t entry = stsd->body + 8;
+  uint32_t esz = be32(&f[entry]);
+  if (esz < 86 || entry + esz > stsd->end)
+    broken("MP4 visual sample entry cut short");
+  t.tag = fourcc_str(le32(&f[entry + 4]));
+  t.width = (f[entry + 32] << 8) | f[entry + 33];
+  t.height = (f[entry + 34] << 8) | f[entry + 35];
+  if (t.tag == "jpeg" || t.tag == "mjpa" || t.tag == "MJPG") {
+    t.codec = Codec::kMjpeg;
+  } else if (t.tag == "avc1" || t.tag == "avc3") {
+    std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
+    const Box* avcc = child(eb, "avcC");
+    if (!avcc) broken("MP4 '" + t.tag + "' sample entry without its avcC box");
+    t.config.assign(f.begin() + avcc->body, f.begin() + avcc->end);
+    t.codec = Codec::kH264;
+  } else if (t.tag == "vp08" || t.tag == "vp09") {
+    read_vpcc(t, boxes(f, entry + 86, entry + esz));
+  } else if (t.tag == "mp4v") {
+    const Box* esds = nullptr;
+    std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
+    esds = child(eb, "esds");
+    if (!esds) broken("MP4 'mp4v' sample entry without esds");
+    int oti = -1;
+    read_esds(t, *esds, oti);
+    if (oti == 0x20) {
+      t.codec = Codec::kMpeg4;
+    } else if (oti == 0x6C) {
+      t.codec = Codec::kMjpeg;
+      t.config.clear();
+    } else {
+      char b[64];
+      std::snprintf(b, sizeof(b), "mp4v objectTypeIndication 0x%02X", oti);
+      t.tag = b;
+    }
+  }
+  // Sample table → packets.
+  const Box* stsz = child(sb, "stsz");
+  const Box* stz2 = child(sb, "stz2");
+  const Box* stsc = child(sb, "stsc");
+  const Box* stco = child(sb, "stco");
+  const Box* co64 = child(sb, "co64");
+  const Box* stss = child(sb, "stss");
+  if ((!stsz && !stz2) || !stsc || (!stco && !co64))
+    broken("MP4 video track without its sample tables");
+  std::vector<uint32_t> sizes;
+  if (stsz) {
+    if (stsz->body + 12 > stsz->end) broken("MP4 stsz cut short");
+    uint32_t fixed = be32(&f[stsz->body + 4]);
+    uint32_t count = be32(&f[stsz->body + 8]);
+    if (!fixed && stsz->body + 12 + 4 * size_t(count) > stsz->end)
+      broken("MP4 stsz cut short");
+    sizes.resize(count, fixed);
+    for (uint32_t i = 0; i < count && !fixed; ++i)
+      sizes[i] = be32(&f[stsz->body + 12 + 4 * i]);
+  } else {
+    if (stz2->body + 12 > stz2->end) broken("MP4 stz2 cut short");
+    int bits = f[stz2->body + 7];
+    uint32_t count = be32(&f[stz2->body + 8]);
+    if (bits != 4 && bits != 8 && bits != 16) broken("MP4 stz2 field size");
+    if (stz2->body + 12 + (size_t(count) * bits + 7) / 8 > stz2->end)
+      broken("MP4 stz2 cut short");
+    sizes.resize(count);
+    const uint8_t* q = &f[stz2->body + 12];
+    for (uint32_t i = 0; i < count; ++i)
+      sizes[i] = bits == 16 ? (q[2 * i] << 8) | q[2 * i + 1]
+                 : bits == 8 ? q[i]
+                             : (i & 1 ? q[i / 2] & 15 : q[i / 2] >> 4);
+  }
+  std::vector<uint64_t> chunks;
+  const Box* co = stco ? stco : co64;
+  if (co->body + 8 > co->end) broken("MP4 chunk offsets cut short");
+  uint32_t nchunks = be32(&f[co->body + 4]);
+  size_t w = stco ? 4 : 8;
+  if (co->body + 8 + w * nchunks > co->end)
+    broken("MP4 chunk offsets cut short");
+  for (uint32_t i = 0; i < nchunks; ++i)
+    chunks.push_back(stco ? be32(&f[co->body + 8 + 4 * i])
+                          : be64(&f[co->body + 8 + 8 * i]));
+  if (stsc->body + 8 > stsc->end) broken("MP4 stsc cut short");
+  uint32_t runs = be32(&f[stsc->body + 4]);
+  if (stsc->body + 8 + 12 * size_t(runs) > stsc->end)
+    broken("MP4 stsc cut short");
+  std::vector<bool> key(sizes.size(), stss == nullptr);
+  if (stss) {
+    if (stss->body + 8 > stss->end) broken("MP4 stss cut short");
+    uint32_t k = be32(&f[stss->body + 4]);
+    if (stss->body + 8 + 4 * size_t(k) > stss->end)
+      broken("MP4 stss cut short");
+    for (uint32_t i = 0; i < k; ++i) {
+      uint32_t s = be32(&f[stss->body + 8 + 4 * i]);
+      if (s >= 1 && s <= key.size()) key[s - 1] = true;
+    }
+  }
+  std::vector<size_t> offs(sizes.size(), 0);
+  size_t sample = 0;
+  for (uint32_t r = 0; r < runs && sample < sizes.size(); ++r) {
+    const uint8_t* e = &f[stsc->body + 8 + 12 * r];
+    uint32_t first = be32(e), per = be32(e + 4);
+    uint32_t last = r + 1 < runs ? be32(e + 12) : nchunks + 1;
+    if (first < 1 || last < first) broken("MP4 stsc is not ordered");
+    for (uint32_t c = first; c < last && sample < sizes.size(); ++c) {
+      if (c > nchunks) broken("MP4 stsc names a chunk past stco");
+      uint64_t off = chunks[c - 1];
+      for (uint32_t k = 0; k < per && sample < sizes.size(); ++k) {
+        if (off + sizes[sample] > f.size())
+          broken("MP4 sample runs past the file");
+        offs[sample] = size_t(off);
+        off += sizes[sample++];
+      }
+    }
+  }
+  const size_t n = sizes.size(), stored = sample;   // stsc may stop short
+  size_t first = 0, last = n;                  // the samples read
+  std::vector<bool> discard(n, false);
+  if (edited && n) {
+    std::vector<int64_t> dts, cts;
+    sample_times(f, sb, n, dts, cts);
+    // The edit's duration, in the movie's timescale, in the media's.
+    int64_t media = timescale(f, child(mb, "mdhd"));
+    if (movie <= 0 || media <= 0) broken("MP4 timescale of 0");
+    int64_t dur = (edit_duration * media + movie / 2) / movie;
+    int64_t end = edit_time + dur;
+    // find_prev_closest_index: the last keyframe decoded at or before
+    // the media time and, with ctts, presented at or before it; else
+    // the first sample.
+    bool with_ctts = child(sb, "ctts") != nullptr;
+    auto search = [&](bool any) {
+      int64_t k = -1;
+      for (size_t i = 0; i < n && dts[i] <= edit_time; ++i)
+        if (any || key[i]) k = int64_t(i);
+      while (with_ctts && k >= 0 &&
+             !(cts[size_t(k)] <= edit_time && key[size_t(k)]))
+        --k;
+      return k;
+    };
+    int64_t k = search(false);
+    if (k < 0) k = search(true);
+    first = k < 0 ? 0 : size_t(k);
+    bool seen_key_after = false;
+    for (size_t i = first; i < n; ++i) {
+      discard[i] = cts[i] < edit_time || cts[i] >= end;
+      last = i + 1;
+      int64_t frame = i + 1 < n ? dts[i + 1] - dts[i] : dur;
+      if (cts[i] + frame >= end && key[i]) {
+        // With ctts, the keyframe after the next one: B-frames after
+        // the first may still belong to the edit.
+        if (!with_ctts || seen_key_after) break;
+        seen_key_after = true;
+      }
+    }
+  }
+  for (size_t i = first; i < last && i < stored; ++i)
+    if (sizes[i])
+      t.packets.push_back({offs[i], sizes[i], key[i], discard[i]});
+  t.count = int64_t(n);
+}
+
+// cv2's view of an MP4 file's movie fragments (libavformat's mov_read_moof,
+// mov_read_tfhd, mov_read_tfdt, mov_read_trun, which read every fragment
+// when the file opens): the chosen track's samples appended to
+// t.packets in file order, after those of moov's tables; a sample is a
+// keyframe when its flags mark it neither sample_is_non_sync_sample nor
+// depending on others. libavformat applies no edit list to them (only as
+// a shift of their timestamps). Every track's timestamps go into
+// cv2's frame count (see mp4_count).
+void mp4_fragments(Track& t, const std::vector<Box>& top,
+                   std::vector<Mp4Stream>& streams, size_t chosen) {
+  const std::vector<uint8_t>& f = t.file;
+  for (const Box& moof : top) {
+    if (moof.type != "moof") continue;
+    size_t implicit = moof.start;
+    for (const Box& traf : boxes(f, moof.body, moof.end)) {
+      if (traf.type != "traf") continue;
+      std::vector<Box> fb = boxes(f, traf.body, traf.end);
+      const Box* tfhd = child(fb, "tfhd");
+      if (!tfhd || tfhd->body + 8 > tfhd->end)
+        broken("MP4 track fragment without its tfhd");
+      uint32_t flags = be32(&f[tfhd->body]) & 0xFFFFFF;
+      uint32_t id = be32(&f[tfhd->body + 4]);
+      size_t k = 0;
+      while (k < streams.size() && streams[k].id != id) ++k;
+      if (k == streams.size()) continue;         // no such track: skipped
+      Mp4Stream& s = streams[k];
+      size_t q = tfhd->body + 8;
+      auto field = [&](int bytes) -> uint64_t {
+        if (q + bytes > tfhd->end) broken("MP4 tfhd cut short");
+        uint64_t v = bytes == 8 ? be64(&f[q]) : be32(&f[q]);
+        q += bytes;
+        return v;
+      };
+      uint64_t base = flags & 0x01 ? field(8)
+                      : flags & 0x020000 ? moof.start : implicit;
+      uint32_t desc = flags & 0x02 ? uint32_t(field(4)) : s.trex[0];
+      uint32_t dflt_duration = flags & 0x08 ? uint32_t(field(4)) : s.trex[1];
+      uint32_t dflt_size = flags & 0x10 ? uint32_t(field(4)) : s.trex[2];
+      uint32_t dflt_flags = flags & 0x20 ? uint32_t(field(4)) : s.trex[3];
+      if (k == chosen && desc != 1)
+        unsupported("MP4 fragment of sample description " +
+                    std::to_string(desc) + " (only the first is read)");
+      int64_t dts = s.next_dts;
+      if (const Box* tfdt = child(fb, "tfdt")) {
+        if (tfdt->body + 8 > tfdt->end) broken("MP4 tfdt cut short");
+        bool v1 = f[tfdt->body] == 1;
+        if (v1 && tfdt->body + 12 > tfdt->end) broken("MP4 tfdt cut short");
+        dts = v1 ? int64_t(be64(&f[tfdt->body + 4]))
+                 : int64_t(be32(&f[tfdt->body + 4]));
+        if (k == chosen && dts < s.next_dts)
+          broken("MP4 fragment that begins before the one before it ends");
+      }
+      uint64_t off = base;
+      int runs = 0;
+      for (const Box& trun : fb) {
+        if (trun.type != "trun") continue;
+        if (trun.body + 8 > trun.end) broken("MP4 trun cut short");
+        uint32_t tf = be32(&f[trun.body]) & 0xFFFFFF;
+        uint32_t entries = be32(&f[trun.body + 4]);
+        size_t r = trun.body + 8;
+        auto word = [&]() -> uint32_t {
+          if (r + 4 > trun.end) broken("MP4 trun cut short");
+          uint32_t v = be32(&f[r]);
+          r += 4;
+          return v;
+        };
+        if (tf & 0x001) {
+          off = base + uint64_t(int64_t(int32_t(word())));
+        } else if (runs) {
+          // libavformat starts it at the base again, the standard after
+          // the run before.
+          unsupported("MP4 track run without its data offset after "
+                      "another in one track fragment");
+        }
+        uint32_t first_flags = tf & 0x004 ? word() : dflt_flags;
+        for (uint32_t i = 0; i < entries; ++i) {
+          uint32_t duration = tf & 0x100 ? word() : dflt_duration;
+          uint32_t size = tf & 0x200 ? word() : dflt_size;
+          uint32_t sflags = tf & 0x400 ? word() : i ? dflt_flags
+                                                    : first_flags;
+          int64_t cts = tf & 0x800 ? int64_t(int32_t(word())) : 0;
+          if (k == chosen) {
+            if (off + size > f.size())
+              broken("MP4 fragment sample runs past the file");
+            if (size)
+              t.packets.push_back({size_t(off), size,
+                                   !(sflags & (0x10000 | 0x1000000))});
+            s.frames += 1;
+            s.frames_duration += duration;
+          }
+          if (!s.any) {
+            s.any = true;
+            s.first_dts = dts;
+            s.first_cts = cts;
+          }
+          s.dts_shift = std::max(s.dts_shift, -cts);
+          dts += duration;
+          off += size;
+        }
+        s.duration = std::max(s.duration, dts);
+        ++runs;
+      }
+      s.next_dts = dts;
+      implicit = size_t(off);
+    }
+  }
+}
+
+// cv2's CAP_PROP_FRAME_COUNT of an MP4 file whose video track's samples
+// all lie in fragments (moov's tables empty; else it is their sample
+// count): OpenCV's round(duration · fps) with libavformat's average frame
+// rate (the fragments' samples over their duration) and its duration of
+// the file, the longest of each stream's duration (mdhd's, or its last
+// fragment's end if later) and the span from the earliest stream's start
+// (its first sample's presentation time, the edit list's shift and the
+// largest negative composition offset applied) to the latest stream's
+// start plus duration.
+int64_t mp4_count(const std::vector<Mp4Stream>& streams, size_t chosen) {
+  auto us = [](int64_t v, int64_t scale) {       // av_rescale_q, to µs
+    int64_t a = v < 0 ? -v : v;
+    int64_t r = (a * 1000000 + scale / 2) / scale;
+    return v < 0 ? -r : r;
+  };
+  int64_t lo = INT64_MAX, hi = INT64_MIN, longest = INT64_MIN;
+  for (const Mp4Stream& s : streams) {
+    if (s.handler != "vide" && s.handler != "soun")
+      unsupported("fragmented MP4 with a '" + s.handler + "' track (cv2's "
+                  "frame count would depend on it)");
+    if (s.timescale <= 0) broken("MP4 timescale of 0");
+    if (s.moov_samples)
+      unsupported("fragmented MP4 with a track whose samples begin in "
+                  "moov, the video's in fragments");
+    longest = std::max(longest, us(s.duration, s.timescale));
+    if (!s.any) continue;
+    int64_t start = s.first_dts - s.time_offset + s.dts_shift + s.first_cts +
+                    (s.handler == "soun" ? s.aac_pad : 0);
+    int64_t start_us = us(start, s.timescale);
+    lo = std::min(lo, start_us);
+    hi = std::max(hi, start_us + us(s.duration, s.timescale));
+  }
+  int64_t duration = lo == INT64_MAX ? longest : std::max(longest, hi - lo);
+  const Mp4Stream& v = streams[chosen];
+  if (!v.frames_duration) return 0;
+  int64_t fn = 0, fd = 1;
+  av_reduce(fn, fd, v.timescale * v.frames, v.frames_duration, 0x7FFFFFFF);
+  double fps = fd ? double(fn) / double(fd) : 0.0;
+  return int64_t(std::floor(double(duration) / 1000000.0 * fps + 0.5));
+}
+
 void demux_mp4(Track& t) {
   const std::vector<uint8_t>& f = t.file;
   t.container = "MP4";
   std::vector<Box> top = boxes(f, 0, f.size());
   const Box* moov = child(top, "moov");
   if (!moov) broken("MP4 file without a moov box");
-  for (const Box& trak : boxes(f, moov->body, moov->end)) {
+  std::vector<Box> mv = boxes(f, moov->body, moov->end);
+  // mvhd's timescale and display matrix, which libavformat's
+  // mov_read_tkhd multiplies into each track's.
+  const Box* mvhd = child(mv, "mvhd");
+  int64_t movie = 0;
+  int32_t movie_m[9] = {0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000};
+  if (mvhd && mvhd->body + 4 <= mvhd->end) {
+    size_t at = mvhd->body + (f[mvhd->body] == 1 ? 48 : 36);
+    if (at + 36 <= mvhd->end) {
+      movie = timescale(f, mvhd);
+      for (int i = 0; i < 9; ++i) movie_m[i] = int32_t(be32(&f[at + 4 * i]));
+    }
+  }
+  std::vector<Mp4Stream> streams;
+  size_t chosen = SIZE_MAX;
+  for (const Box& trak : mv) {
     if (trak.type != "trak") continue;
     std::vector<Box> tb = boxes(f, trak.body, trak.end);
     const Box* mdia = child(tb, "mdia");
     if (!mdia) continue;
     std::vector<Box> mb = boxes(f, mdia->body, mdia->end);
     const Box* hdlr = child(mb, "hdlr");
-    if (!hdlr || hdlr->body + 12 > hdlr->end ||
-        std::memcmp(&f[hdlr->body + 8], "vide", 4) != 0)
-      continue;
-    // The edit list, as libavformat reads it (mov_fix_index): an empty
-    // edit (media time -1) first only delays presentation; one edit at
-    // rate 1 then keeps the samples from the last keyframe presented at
-    // or before its media time, marking those presented before it or
-    // past its end to be decoded and dropped.
+    if (!hdlr || hdlr->body + 12 > hdlr->end) continue;
+    Mp4Stream s;
+    s.handler.assign(reinterpret_cast<const char*>(&f[hdlr->body + 8]), 4);
+    const Box* tkhd = child(tb, "tkhd");
+    bool v1 = tkhd && tkhd->body < tkhd->end && f[tkhd->body] == 1;
+    if (!tkhd || tkhd->body + (v1 ? 88 : 76) > tkhd->end)
+      broken("MP4 track without its tkhd");
+    s.id = be32(&f[tkhd->body + (v1 ? 20 : 12)]);
+    if (const Box* mdhd = child(mb, "mdhd")) {
+      bool m1 = mdhd->body < mdhd->end && f[mdhd->body] == 1;
+      if (mdhd->body + (m1 ? 32 : 20) <= mdhd->end) {
+        s.timescale = timescale(f, mdhd);
+        s.duration = m1 ? int64_t(be64(&f[mdhd->body + 24]))
+                        : int64_t(be32(&f[mdhd->body + 16]));
+      }
+    }
+    // stts's samples, and whether an audio track is AAC (mp4a, OTI 0x40).
+    if (const Box* minf = child(mb, "minf")) {
+      std::vector<Box> nb = boxes(f, minf->body, minf->end);
+      if (const Box* stbl = child(nb, "stbl")) {
+        std::vector<Box> sb = boxes(f, stbl->body, stbl->end);
+        const Box* stts = child(sb, "stts");
+        if (stts && stts->body + 8 <= stts->end) {
+          uint32_t runs = be32(&f[stts->body + 4]);
+          if (stts->body + 8 + 8 * size_t(runs) > stts->end)
+            broken("MP4 stts cut short");
+          for (uint32_t r = 0; r < runs; ++r) {
+            uint32_t cnt = be32(&f[stts->body + 8 + 8 * r]);
+            s.moov_samples += cnt;
+            s.moov_duration += int64_t(cnt) * be32(&f[stts->body + 12 + 8 * r]);
+          }
+        }
+        const Box* stsd = child(sb, "stsd");
+        if (s.handler == "soun" && stsd && stsd->body + 16 <= stsd->end &&
+            std::memcmp(&f[stsd->body + 12], "mp4a", 4) == 0) {
+          size_t entry = stsd->body + 8, esz = be32(&f[entry]);
+          if (esz >= 36 && entry + esz <= stsd->end) {
+            Track probe;
+            probe.file = f;
+            std::vector<Box> eb = boxes(f, entry + 36, entry + esz);
+            int oti = -1;
+            if (const Box* esds = child(eb, "esds")) read_esds(probe, *esds, oti);
+            s.aac = oti == 0x40;
+          }
+        }
+      }
+    }
+    s.next_dts = s.moov_duration;
     bool edited = false;
     int64_t edit_time = 0, edit_duration = 0;
-    if (const Box* edts = child(tb, "edts")) {
-      for (const Box& elst : boxes(f, edts->body, edts->end)) {
-        if (elst.type != "elst" || elst.body + 8 > elst.end) continue;
-        int version = f[elst.body];
-        uint32_t entries = be32(&f[elst.body + 4]);
-        size_t w = version == 1 ? 20 : 12;
-        if (elst.body + 8 + w * entries > elst.end)
-          broken("MP4 edit list cut short");
-        for (uint32_t k = 0; k < entries; ++k) {
-          const uint8_t* e = &f[elst.body + 8 + w * k];
-          int64_t duration = version == 1 ? int64_t(be64(e)) : be32(e);
-          int64_t media_time = version == 1 ? int64_t(be64(e + 8))
-                                            : int32_t(be32(e + 4));
-          uint32_t rate = be32(e + (version == 1 ? 16 : 8));
-          if (media_time == -1 && k == 0) continue;
-          if (edited || media_time < 0)
-            unsupported("MP4 edit list of several edits (libavformat's "
-                        "advanced edit lists)");
-          if (rate != 0x10000) {
-            char b[96];
-            std::snprintf(b, sizeof(b), "MP4 edit at rate %.4f (not 1)",
-                          rate / 65536.0);
-            unsupported(b);
-          }
-          if (duration == 0) unsupported("MP4 edit of duration 0");
-          edited = true;
-          edit_time = media_time;
-          edit_duration = duration;
-        }
+    if (chosen != SIZE_MAX || s.handler != "vide") {
+      mp4_edits(f, tb, movie, s, edited, edit_time, edit_duration, false);
+      streams.push_back(s);
+      continue;
+    }
+    chosen = streams.size();
+    mp4_samples(t, tb, mb, movie, s);
+    streams.push_back(s);
+    // The display matrix: tkhd's times mvhd's, each product shifted as
+    // mov_read_tkhd shifts it (16, 16, 30 by the row of mvhd's).
+    int32_t m[9], r[9];
+    size_t at = tkhd->body + (v1 ? 52 : 40);
+    for (int i = 0; i < 9; ++i) m[i] = int32_t(be32(&f[at + 4 * i]));
+    const int shift[3] = {16, 16, 30};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        int64_t v = 0;
+        for (int e = 0; e < 3; ++e)
+          v += (int64_t(m[3 * i + e]) * movie_m[3 * e + j]) >> shift[e];
+        r[3 * i + j] = int32_t(v);
       }
-    }
-    const Box* minf = child(mb, "minf");
-    if (!minf) broken("MP4 video track without minf");
-    std::vector<Box> nb = boxes(f, minf->body, minf->end);
-    const Box* stbl = child(nb, "stbl");
-    if (!stbl) broken("MP4 video track without stbl");
-    std::vector<Box> sb = boxes(f, stbl->body, stbl->end);
-    const Box* stsd = child(sb, "stsd");
-    if (!stsd || stsd->body + 16 > stsd->end)
-      broken("MP4 video track without a sample description");
-    size_t entry = stsd->body + 8;
-    uint32_t esz = be32(&f[entry]);
-    if (esz < 86 || entry + esz > stsd->end)
-      broken("MP4 visual sample entry cut short");
-    t.tag = fourcc_str(le32(&f[entry + 4]));
-    t.width = (f[entry + 32] << 8) | f[entry + 33];
-    t.height = (f[entry + 34] << 8) | f[entry + 35];
-    if (t.tag == "jpeg" || t.tag == "mjpa" || t.tag == "MJPG") {
-      t.codec = Codec::kMjpeg;
-    } else if (t.tag == "avc1" || t.tag == "avc3") {
-      std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
-      const Box* avcc = child(eb, "avcC");
-      if (!avcc) broken("MP4 '" + t.tag + "' sample entry without its avcC box");
-      t.config.assign(f.begin() + avcc->body, f.begin() + avcc->end);
-      t.codec = Codec::kH264;
-    } else if (t.tag == "vp08" || t.tag == "vp09") {
-      read_vpcc(t, boxes(f, entry + 86, entry + esz));
-    } else if (t.tag == "mp4v") {
-      const Box* esds = nullptr;
-      std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
-      esds = child(eb, "esds");
-      if (!esds) broken("MP4 'mp4v' sample entry without esds");
-      int oti = -1;
-      read_esds(t, *esds, oti);
-      if (oti == 0x20) {
-        t.codec = Codec::kMpeg4;
-      } else if (oti == 0x6C) {
-        t.codec = Codec::kMjpeg;
-        t.config.clear();
-      } else {
-        char b[64];
-        std::snprintf(b, sizeof(b), "mp4v objectTypeIndication 0x%02X", oti);
-        t.tag = b;
-      }
-    }
-    // Sample table → packets.
-    const Box* stsz = child(sb, "stsz");
-    const Box* stz2 = child(sb, "stz2");
-    const Box* stsc = child(sb, "stsc");
-    const Box* stco = child(sb, "stco");
-    const Box* co64 = child(sb, "co64");
-    const Box* stss = child(sb, "stss");
-    if ((!stsz && !stz2) || !stsc || (!stco && !co64))
-      broken("MP4 video track without its sample tables");
-    std::vector<uint32_t> sizes;
-    if (stsz) {
-      if (stsz->body + 12 > stsz->end) broken("MP4 stsz cut short");
-      uint32_t fixed = be32(&f[stsz->body + 4]);
-      uint32_t count = be32(&f[stsz->body + 8]);
-      if (!fixed && stsz->body + 12 + 4 * size_t(count) > stsz->end)
-        broken("MP4 stsz cut short");
-      sizes.resize(count, fixed);
-      for (uint32_t i = 0; i < count && !fixed; ++i)
-        sizes[i] = be32(&f[stsz->body + 12 + 4 * i]);
-    } else {
-      if (stz2->body + 12 > stz2->end) broken("MP4 stz2 cut short");
-      int bits = f[stz2->body + 7];
-      uint32_t count = be32(&f[stz2->body + 8]);
-      if (bits != 4 && bits != 8 && bits != 16) broken("MP4 stz2 field size");
-      if (stz2->body + 12 + (size_t(count) * bits + 7) / 8 > stz2->end)
-        broken("MP4 stz2 cut short");
-      sizes.resize(count);
-      const uint8_t* q = &f[stz2->body + 12];
-      for (uint32_t i = 0; i < count; ++i)
-        sizes[i] = bits == 16 ? (q[2 * i] << 8) | q[2 * i + 1]
-                   : bits == 8 ? q[i]
-                               : (i & 1 ? q[i / 2] & 15 : q[i / 2] >> 4);
-    }
-    std::vector<uint64_t> chunks;
-    const Box* co = stco ? stco : co64;
-    if (co->body + 8 > co->end) broken("MP4 chunk offsets cut short");
-    uint32_t nchunks = be32(&f[co->body + 4]);
-    size_t w = stco ? 4 : 8;
-    if (co->body + 8 + w * nchunks > co->end)
-      broken("MP4 chunk offsets cut short");
-    for (uint32_t i = 0; i < nchunks; ++i)
-      chunks.push_back(stco ? be32(&f[co->body + 8 + 4 * i])
-                            : be64(&f[co->body + 8 + 8 * i]));
-    if (stsc->body + 8 > stsc->end) broken("MP4 stsc cut short");
-    uint32_t runs = be32(&f[stsc->body + 4]);
-    if (stsc->body + 8 + 12 * size_t(runs) > stsc->end)
-      broken("MP4 stsc cut short");
-    std::vector<bool> key(sizes.size(), stss == nullptr);
-    if (stss) {
-      if (stss->body + 8 > stss->end) broken("MP4 stss cut short");
-      uint32_t k = be32(&f[stss->body + 4]);
-      if (stss->body + 8 + 4 * size_t(k) > stss->end)
-        broken("MP4 stss cut short");
-      for (uint32_t i = 0; i < k; ++i) {
-        uint32_t s = be32(&f[stss->body + 8 + 4 * i]);
-        if (s >= 1 && s <= key.size()) key[s - 1] = true;
-      }
-    }
-    std::vector<size_t> offs(sizes.size(), 0);
-    size_t sample = 0;
-    for (uint32_t r = 0; r < runs && sample < sizes.size(); ++r) {
-      const uint8_t* e = &f[stsc->body + 8 + 12 * r];
-      uint32_t first = be32(e), per = be32(e + 4);
-      uint32_t last = r + 1 < runs ? be32(e + 12) : nchunks + 1;
-      if (first < 1 || last < first) broken("MP4 stsc is not ordered");
-      for (uint32_t c = first; c < last && sample < sizes.size(); ++c) {
-        if (c > nchunks) broken("MP4 stsc names a chunk past stco");
-        uint64_t off = chunks[c - 1];
-        for (uint32_t k = 0; k < per && sample < sizes.size(); ++k) {
-          if (off + sizes[sample] > f.size())
-            broken("MP4 sample runs past the file");
-          offs[sample] = size_t(off);
-          off += sizes[sample++];
-        }
-      }
-    }
-    const size_t n = sizes.size(), stored = sample;   // stsc may stop short
-    size_t first = 0, last = n;                  // the samples read
-    std::vector<bool> discard(n, false);
-    if (edited && n) {
-      std::vector<int64_t> dts, cts;
-      sample_times(f, sb, n, dts, cts);
-      // The edit's duration, in the movie's timescale, in the media's.
-      std::vector<Box> top_moov = boxes(f, moov->body, moov->end);
-      int64_t movie = timescale(f, child(top_moov, "mvhd"));
-      int64_t media = timescale(f, child(mb, "mdhd"));
-      if (movie <= 0 || media <= 0) broken("MP4 timescale of 0");
-      int64_t dur = (edit_duration * media + movie / 2) / movie;
-      int64_t end = edit_time + dur;
-      // find_prev_closest_index: the last keyframe decoded at or before
-      // the media time and, with ctts, presented at or before it; else
-      // the first sample.
-      bool with_ctts = child(sb, "ctts") != nullptr;
-      auto search = [&](bool any) {
-        int64_t k = -1;
-        for (size_t i = 0; i < n && dts[i] <= edit_time; ++i)
-          if (any || key[i]) k = int64_t(i);
-        while (with_ctts && k >= 0 &&
-               !(cts[size_t(k)] <= edit_time && key[size_t(k)]))
-          --k;
-        return k;
-      };
-      int64_t k = search(false);
-      if (k < 0) k = search(true);
-      first = k < 0 ? 0 : size_t(k);
-      bool seen_key_after = false;
-      for (size_t i = first; i < n; ++i) {
-        discard[i] = cts[i] < edit_time || cts[i] >= end;
-        last = i + 1;
-        int64_t frame = i + 1 < n ? dts[i + 1] - dts[i] : dur;
-        if (cts[i] + frame >= end && key[i]) {
-          // With ctts, the keyframe after the next one: B-frames after
-          // the first may still belong to the edit.
-          if (!with_ctts || seen_key_after) break;
-          seen_key_after = true;
-        }
-      }
-    }
-    for (size_t i = first; i < last && i < stored; ++i)
-      if (sizes[i])
-        t.packets.push_back({offs[i], sizes[i], key[i], discard[i]});
-    t.count = int64_t(n);
-    return;
+    const int32_t identity[9] = {0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                                 0x40000000};
+    if (!std::equal(r, r + 9, identity)) t.orientation = cv2_orientation(r, "MP4");
   }
-  broken("MP4 file without a video track");
+  if (chosen == SIZE_MAX) broken("MP4 file without a video track");
+  if (const Box* mvex = child(mv, "mvex")) {
+    for (const Box& trex : boxes(f, mvex->body, mvex->end)) {
+      if (trex.type != "trex") continue;
+      if (trex.body + 24 > trex.end) broken("MP4 trex cut short");
+      for (Mp4Stream& s : streams)
+        if (s.id == be32(&f[trex.body + 4]))
+          for (int i = 0; i < 4; ++i) s.trex[i] = be32(&f[trex.body + 8 + 4 * i]);
+    }
+    mp4_fragments(t, top, streams, chosen);
+    if (!streams[chosen].moov_samples) t.count = mp4_count(streams, chosen);
+  }
 }
 
 // ----------------------------------------------------------- Matroska
@@ -755,62 +1140,22 @@ bool mkv_top_level(uint32_t id) {
          id == 0x1549A966 || id == 0x1654AE6B || id == 0x18538067;
 }
 
-// libavutil's av_reduce: the closest num/den with both at most `max`.
-void av_reduce(int64_t& dn, int64_t& dd, int64_t num, int64_t den,
-               int64_t max) {
-  int64_t a0n = 0, a0d = 1, a1n = 1, a1d = 0;
-  auto gcd = [](int64_t a, int64_t b) {
-    while (b) {
-      int64_t t = a % b;
-      a = b;
-      b = t;
-    }
-    return a;
-  };
-  int64_t g = gcd(num, den);
-  if (g) {
-    num /= g;
-    den /= g;
-  }
-  if (num <= max && den <= max) {
-    a1n = num;
-    a1d = den;
-    den = 0;
-  }
-  while (den) {
-    uint64_t x = uint64_t(num / den);
-    int64_t next_den = num - den * int64_t(x);
-    int64_t a2n = int64_t(x) * a1n + a0n, a2d = int64_t(x) * a1d + a0d;
-    if (a2n > max || a2d > max) {
-      if (a1n) x = uint64_t((max - a0n) / a1n);
-      if (a1d) x = std::min<uint64_t>(x, uint64_t((max - a0d) / a1d));
-      if (den * (2 * int64_t(x) * a1d + a0d) > num * a1d) {
-        a1n = int64_t(x) * a1n + a0n;
-        a1d = int64_t(x) * a1d + a0d;
-      }
-      break;
-    }
-    a0n = a1n;
-    a0d = a1d;
-    a1n = a2n;
-    a1d = a2d;
-    num = den;
-    den = next_den;
-  }
-  dn = a1n;
-  dd = a1d;
-}
-
+// A block of `track` into t.packets; its timestamp (the cluster's plus
+// the block's signed offset, in TimestampScale units) onto `stamps`,
+// `laced` set when it holds several frames.
 void mkv_block(Track& t, size_t p, size_t end, uint64_t track, bool simple,
-               bool referenced) {
+               bool referenced, int64_t cluster, std::vector<int64_t>& stamps,
+               bool& laced) {
   const std::vector<uint8_t>& f = t.file;
   uint64_t num = ebml_vint(f, p, end);
   if (num != track) return;
   if (p + 3 > end) broken("Matroska block cut short");
   uint8_t flags = f[p + 2];
+  stamps.push_back(cluster + int16_t((f[p] << 8) | f[p + 1]));
   p += 3;
   bool key = simple ? (flags & 0x80) != 0 : !referenced;
   int lacing = (flags >> 1) & 3;
+  laced = laced || lacing != 0;
   if (lacing == 0) {
     if (end > p) t.packets.push_back({p, uint32_t(end - p), key});
     return;
@@ -854,6 +1199,158 @@ void mkv_block(Track& t, size_t p, size_t end, uint64_t track, bool simple,
   }
 }
 
+// cv2's orientation of a Matroska video track's Projection (libavformat's
+// mkv_create_display_matrix): a rectangular one (ProjectionType 0) with
+// a roll alone is av_display_rotation_set(-roll); with a yaw of 180 it
+// is mirrored (raises, as in MP4); with another yaw or a pitch, and for
+// the spherical types (1 equirectangular, 3 mesh), cv2 shows the picture
+// as coded; a cubemap (2) it opens only with its layout, six faces.
+int mkv_orientation(uint64_t type, double yaw, double pitch, double roll) {
+  const double kPi = 3.14159265358979323846;
+  if (type == 2)
+    unsupported("Matroska cubemap projection (ProjectionType 2: six faces, "
+                "not one picture)");
+  if (type != 0 || (pitch == 0.0 && yaw == 0.0 && roll == 0.0)) return 0;
+  if (pitch != 0.0 || (yaw != 0.0 && yaw != 180.0 && yaw != -180.0) ||
+      std::isnan(roll))
+    return 0;
+  if (yaw != 0.0)
+    unsupported("Matroska projection with a mirror (ProjectionPoseYaw 180; "
+                "cv2 would turn the picture instead of mirroring it)");
+  double radians = roll * kPi / 180.0f;        // -(-roll) · π / 180
+  double c = std::cos(radians), s = std::sin(radians);
+  const int32_t m[9] = {int32_t(c * 65536), int32_t(-s * 65536), 0,
+                        int32_t(s * 65536), int32_t(c * 65536), 0, 0, 0,
+                        1 << 30};
+  return cv2_orientation(m, "Matroska");
+}
+
+// libavformat's frame rate of a video stream whose container gives none
+// (a Matroska track without DefaultDuration; its codec none either: VP8,
+// VP9, MJPEG): ff_rfps_add_frame over the decode times `ts` of the
+// packets avformat_find_stream_info reads (in the time base tb_num /
+// tb_den; until 20 durations, 40 for a time base coarser than 0.5 ms,
+// are counted, 5 s of them analysed or 5 MB read), ff_rfps_calculate
+// (their common divisor, else the standard rate (1/12 steps to 30 fps,
+// then 31..60, 80, 120, 240, 24, 30, 60, 12, 15, 48 at ·1000/1001 or
+// not) whose phase error varies least), as r_frame_rate, which
+// av_guess_frame_rate and OpenCV's get_fps give cv2. → (num, den), or
+// (0, 1) when it settles on none and libavformat falls back to the time
+// base (a variable rate).
+void rfps_estimate(const std::vector<int64_t>& ts,
+                   const std::vector<uint32_t>& sizes, int64_t tb_num,
+                   int64_t tb_den, int64_t& num, int64_t& den) {
+  constexpr int kStd = 30 * 12 + 30 + 3 + 6;
+  auto std_rate = [](int i) -> int64_t {          // get_std_framerate
+    if (i < 30 * 12) return int64_t(i + 1) * 1001;
+    i -= 30 * 12;
+    if (i < 30) return int64_t(i + 31) * 1001 * 12;
+    i -= 30;
+    if (i < 3) return int64_t((const int[]){80, 120, 240}[i]) * 1001 * 12;
+    i -= 3;
+    return int64_t((const int[]){24, 30, 60, 12, 15, 48}[i]) * 1000 * 12;
+  };
+  const double tbq = double(tb_num) / double(tb_den);
+  // tb_unreliable: a time base finer than 1/101 s or coarser than 1/5 s.
+  bool unreliable = tb_den >= 101 * tb_num || tb_den < 5 * tb_num;
+  num = 0;
+  den = 1;
+  if (!unreliable) {                 // no estimate: the time base's rate
+    num = tb_den;
+    den = tb_num;
+    return;
+  }
+  const int framecount = tbq > 0.0005 ? 40 : 20;
+  std::vector<double> errors(2 * 2 * kStd, 0.0);
+  auto err = [&](int j, int k, int i) -> double& {
+    return errors[size_t((2 * j + k) * kStd + i)];
+  };
+  int64_t last = INT64_MIN, sum = 0, divisor = 0, bytes = 0;
+  int count = 0;
+  int64_t fps_first = INT64_MIN, fps_last = INT64_MIN;
+  int first_idx = 0, last_idx = 0;
+  for (size_t k = 0; k < ts.size(); ++k) {
+    // The loop's checks before it reads a packet: every stream done (the
+    // other streams of a file done first), or 5 MB read.
+    if (count >= framecount || bytes >= 5000000) break;
+    bytes += sizes[k];
+    const int64_t dts = ts[k];
+    if (k > 1) {
+      if (fps_last != INT64_MIN && fps_last >= dts)        // not increasing
+        fps_first = fps_last = INT64_MIN;
+      if (fps_last != INT64_MIN && last_idx > first_idx &&
+          int64_t(uint64_t(dts - fps_last) / 1000) >
+              (fps_last - fps_first) / (last_idx - first_idx))
+        fps_first = fps_last = INT64_MIN;                    // a jump
+      if (fps_first == INT64_MIN) {
+        fps_first = dts;
+        first_idx = int(k);
+      }
+      fps_last = dts;
+      last_idx = int(k);
+      // max_analyze_duration (5 s), timed by the decode times past 30.
+      if (k > 30 && fps_first != INT64_MIN) {
+        double us = double(fps_last - fps_first) * tb_num * 1000000.0 / tb_den;
+        if (std::floor(us + 0.5) >= 5000000) break;
+      }
+    }
+    // ff_rfps_add_frame
+    if (last != INT64_MIN && dts > last) {
+      double t = double(dts) * tbq;
+      int64_t duration = dts - last;
+      for (int i = 0; i < kStd; ++i) {
+        if (err(0, 1, i) >= 1e10) continue;
+        double sdts = t * double(std_rate(i)) / (1001 * 12);
+        for (int j = 0; j < 2; ++j) {
+          int64_t ticks = std::llrint(sdts + j * 0.5);
+          double e = sdts - double(ticks) + j * 0.5;
+          err(j, 0, i) += e;
+          err(j, 1, i) += e * e;
+        }
+      }
+      ++count;
+      sum += duration;
+      if (count % 10 == 0) {
+        for (int i = 0; i < kStd; ++i) {
+          if (err(0, 1, i) >= 1e10) continue;
+          double a0 = err(0, 0, i) / count;
+          double e0 = err(0, 1, i) / count - a0 * a0;
+          double a1 = err(1, 0, i) / count;
+          double e1 = err(1, 1, i) / count - a1 * a1;
+          if (e0 > 0.04 && e1 > 0.04) err(0, 1, i) = err(1, 1, i) = 2e10;
+        }
+      }
+      if (count > 3) divisor = gcd64(divisor, duration);
+    }
+    last = dts;
+  }
+  // ff_rfps_calculate
+  if (count > 15 && divisor > std::max<int64_t>(1, tb_den / (500 * tb_num))) {
+    av_reduce(num, den, tb_den, tb_num * divisor, 0x7FFFFFFF);
+    return;
+  }
+  if (count > 1) {
+    int64_t best = 0;
+    double best_error = 0.01;
+    for (int j = 0; j < kStd; ++j) {
+      if (std_rate(j) < 1001 * 12) continue;
+      if (tbq * double(sum) / count < (1001 * 12.0 * 0.8) / std_rate(j))
+        continue;
+      for (int k = 0; k < 2; ++k) {
+        double a = err(k, 0, j) / count;
+        double e = err(k, 1, j) / count - a * a;
+        if (e < best_error && best_error > 0.000000001) {
+          best_error = e;
+          best = std_rate(j);
+        }
+      }
+    }
+    // At most 1% above the time base's rate.
+    if (best && double(best) / (12 * 1001) < 1.01 * tb_den / tb_num)
+      av_reduce(num, den, best, 12 * 1001, 0x7FFFFFFF);
+  }
+}
+
 void demux_mkv(Track& t) {
   const std::vector<uint8_t>& f = t.file;
   t.container = "Matroska";
@@ -869,6 +1366,9 @@ void demux_mkv(Track& t) {
   uint64_t scale = 1000000, track = 0, default_duration = 0;
   double duration = 0.0;
   bool have_track = false;
+  int64_t cluster = 0;              // the cluster's Timestamp
+  std::vector<int64_t> stamps;      // the video blocks' timestamps
+  bool laced = false;
   // Elements whose children are read: Segment's masters, then clusters.
   struct Level {
     size_t end;
@@ -881,7 +1381,8 @@ void demux_mkv(Track& t) {
     Level& lv = levels.back();
     if (e.p >= lv.end) {
       if (lv.id == 0xA0 && block)                 // end of a BlockGroup
-        mkv_block(t, block, block_end, track, false, referenced);
+        mkv_block(t, block, block_end, track, false, referenced, cluster,
+                  stamps, laced);
       if (lv.id == 0xA0) in_group = false;
       e.p = std::max(e.p, lv.end);
       levels.pop_back();
@@ -918,7 +1419,9 @@ void demux_mkv(Track& t) {
           std::string codec;
           std::vector<uint8_t> priv;
           int w = 0, h = 0;
-          bool encoded = false;
+          bool encoded = false, projected = false;
+          uint64_t projection = 0;
+          double yaw = 0.0, pitch = 0.0, roll = 0.0;
           std::vector<std::pair<size_t, size_t>> st = {{body, end}};
           while (!st.empty()) {
             auto [q, qe] = st.back();
@@ -942,6 +1445,13 @@ void demux_mkv(Track& t) {
               else if (cid == 0xBA) h = int(ebml_uint(f, cb, cs));
               else if (cid == 0x6D80) encoded = true;
               else if (cid == 0xE0) st.push_back({cb, cb + cs});
+              else if (cid == 0x7670) {                 // Projection
+                projected = true;
+                st.push_back({cb, cb + cs});
+              } else if (cid == 0x7671) projection = ebml_uint(f, cb, cs);
+              else if (cid == 0x7673) yaw = ebml_float(f, cb, cs);
+              else if (cid == 0x7674) pitch = ebml_float(f, cb, cs);
+              else if (cid == 0x7675) roll = ebml_float(f, cb, cs);
             }
           }
           while (!codec.empty() && codec.back() == '\0') codec.pop_back();
@@ -952,6 +1462,8 @@ void demux_mkv(Track& t) {
             have_track = true;
             track = number;
             default_duration = dd;
+            if (projected)
+              t.orientation = mkv_orientation(projection, yaw, pitch, roll);
             t.width = w;
             t.height = h;
             t.tag = codec;
@@ -995,7 +1507,10 @@ void demux_mkv(Track& t) {
         continue;
       case 0xA3:                                  // SimpleBlock
         if (!have_track) broken("Matroska block before its track");
-        mkv_block(t, body, end, track, true, false);
+        mkv_block(t, body, end, track, true, false, cluster, stamps, laced);
+        break;
+      case 0xE7:                                  // a cluster's Timestamp
+        cluster = int64_t(ebml_uint(f, body, sz));
         break;
       case 0xA0:                                  // BlockGroup
         in_group = true;
@@ -1020,15 +1535,33 @@ void demux_mkv(Track& t) {
   }
   if (!have_track) broken("Matroska file without a video track");
   // cv2: round(duration_sec · fps), duration from the segment's Info as
-  // libavformat converts it to microseconds, fps its avg_frame_rate.
-  if (!default_duration)
-    unsupported("Matroska video track without DefaultDuration "
-                "(cv2's frame count would come from its timestamps)");
+  // libavformat converts it to microseconds, fps its avg_frame_rate: the
+  // av_reduce'd DefaultDuration, else libavformat's estimate from the
+  // blocks' timestamps (rfps_estimate).
   if (duration <= 0.0)
     unsupported("Matroska segment without a Duration");
   int64_t dur_us = int64_t(duration * double(scale) * 1000.0 / 1000000.0);
   int64_t fn = 0, fd = 1;
-  av_reduce(fn, fd, 1000000000, int64_t(default_duration), 30000);
+  if (default_duration) {
+    av_reduce(fn, fd, 1000000000, int64_t(default_duration), 30000);
+  } else {
+    if (t.codec == Codec::kH264 || t.codec == Codec::kMpeg4)
+      unsupported(std::string("Matroska ") +
+                  (t.codec == Codec::kH264 ? "H.264" : "MPEG-4 Part 2") +
+                  " track without DefaultDuration (cv2's rate would come "
+                  "from the stream's own timing)");
+    if (laced)
+      unsupported("laced Matroska video blocks without DefaultDuration");
+    std::vector<uint32_t> sizes;
+    for (const Packet& p : t.packets) sizes.push_back(p.size);
+    int64_t tn = 0, td = 1;
+    av_reduce(tn, td, int64_t(scale), 1000000000, 0x7FFFFFFF);
+    rfps_estimate(stamps, sizes, tn, td, fn, fd);
+    if (!fn)
+      unsupported("Matroska track without DefaultDuration at a variable "
+                  "frame rate (cv2 counts frames at its time base's rate, "
+                  "and the JAX package would read the first frame only)");
+  }
   double fps = fd ? double(fn) / double(fd) : 0.0;
   t.count = int64_t(std::floor(double(dur_us) / 1000000.0 * fps + 0.5));
 }
@@ -1844,6 +2377,26 @@ Taps linear_taps(int n_in, int n_out, bool clamp) {
   return t;
 }
 
+// cv2.rotate of a BGR picture (h, w) by cv2's orientation: 90 degrees
+// clockwise, 180 or 270 (90 counter-clockwise), as OpenCV turns what it
+// reads; any other angle leaves it as it is. h and w become the turned
+// picture's.
+void turn_bgr(std::vector<uint8_t>& bgr, int& h, int& w, int angle) {
+  if (angle != 90 && angle != 180 && angle != 270) return;
+  const int oh = angle == 180 ? h : w, ow = angle == 180 ? w : h;
+  std::vector<uint8_t> out(bgr.size());
+  for (int y = 0; y < oh; ++y)
+    for (int x = 0; x < ow; ++x) {
+      int sy = angle == 90 ? h - 1 - x : angle == 270 ? x : h - 1 - y;
+      int sx = angle == 90 ? y : angle == 270 ? w - 1 - y : w - 1 - x;
+      std::memcpy(&out[(size_t(y) * ow + x) * 3],
+                  &bgr[(size_t(sy) * w + sx) * 3], 3);
+    }
+  bgr.swap(out);
+  h = oh;
+  w = ow;
+}
+
 // cv2.resize(bgr, (size, size)) → float32 RGB / 255 into `out`.
 void resize_rgb(const uint8_t* bgr, int h, int w, int size, float* out) {
   Taps tx = linear_taps(w, size, true), ty = linear_taps(h, size, false);
@@ -1992,8 +2545,8 @@ void* viai_video_open(const char* path, int32_t* code, char* err,
 void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 
 // info = (width, height, cv2's frame count, packets, config bytes,
-// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 another);
-// tag and container names.
+// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 another,
+// cv2's orientation); tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
   const Track& t = static_cast<Handle*>(hp)->track;
@@ -2003,6 +2556,7 @@ void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
   info[3] = int64_t(t.packets.size());
   info[4] = int64_t(t.config.size());
   info[5] = int64_t(t.codec);
+  info[6] = t.orientation;
   set_error(tag, len, t.tag);
   set_error(container, len, t.container);
 }
@@ -2021,7 +2575,8 @@ const uint8_t* viai_video_config(void* hp) {
   return static_cast<Handle*>(hp)->track.config.data();
 }
 
-// Every picture of the track as (T, h, w, 3) BGR24 → a malloc'd buffer
+// Every picture of the track as (T, h, w, 3) BGR24, turned by cv2's
+// orientation (90, 180 or 270) → a malloc'd buffer
 // (free it with viai_video_free), shape in thw; nullptr on failure with
 // *code and err set.
 uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
@@ -2034,10 +2589,12 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
     Picture pic;
     auto take = [&]() {
       std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
-      if (frames && (pic.w != w || pic.h != h))
+      int ph = pic.h, pw = pic.w;
+      viai_video::turn_bgr(bgr, ph, pw, t.orientation);
+      if (frames && (pw != w || ph != h))
         viai_video::unsupported("a picture size that changes mid-stream");
-      w = pic.w;
-      h = pic.h;
+      w = pw;
+      h = ph;
       all.insert(all.end(), bgr.begin(), bgr.end());
       ++frames;
     };
@@ -2069,7 +2626,8 @@ void viai_video_free(uint8_t* p) { std::free(p); }
 // viai_tpu/data/av.py::_load_frames_video → out (n_frames, size, size, 3)
 // float32 RGB in [0, 1]: the indices of cv2's frame count over the
 // window (float64 rule) as a set; the frames found among them, each
-// resized as cv2.resize at INTER_LINEAR on BGR, flipped to RGB, / 255;
+// turned by cv2's orientation, resized as cv2.resize at INTER_LINEAR on
+// BGR, flipped to RGB, / 255;
 // then re-picked by the window rule over (0, 1) when their number is
 // not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
 // last I-VOP at or before the first pick to the last pick, VP8 and VP9
@@ -2094,8 +2652,10 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     Picture pic;
     auto keep = [&]() {
       std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
+      int h = pic.h, w = pic.w;
+      viai_video::turn_bgr(bgr, h, w, t.orientation);
       got.resize(got.size() + size_t(fsz));
-      viai_video::resize_rgb(bgr.data(), pic.h, pic.w, size,
+      viai_video::resize_rgb(bgr.data(), h, w, size,
                              &got[got.size() - size_t(fsz)]);
     };
     auto wanted = [&](int64_t f) {

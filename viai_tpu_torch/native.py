@@ -10,7 +10,8 @@ the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
 (`load_frame_dir`), whose plain twin is `data/image.py`; and where it
 calls cv2, the compressed video reader: the demuxers (`video_track`),
 the MJPEG, MPEG-4 Part 2, VP8, VP9 and H.264 decoders with swscale's
-conversion to BGR (`decode_video`) and the frame path
+conversion to BGR and cv2's turn by the display orientation
+(`decode_video`) and the frame path
 of `_load_frames_video` (`load_video_frames`).
 `_build.py` compiles the library with g++ at first use; a failed build
 raises, and there is no flag to go without it (the JAX module falls
@@ -235,9 +236,14 @@ class VideoTrack:
     container gives, the frame count cv2's CAP_PROP_FRAME_COUNT reports,
     the MPEG-4 headers or H.264 avcC record the container holds (`config`)
     and the packets libavformat gives cv2 in decode order (under an MP4
-    edit, from the keyframe it starts from), each (bytes, the container's
-    keyframe flag): H.264's as the container holds them (length-prefixed
-    NAL units in MP4 and Matroska, Annex B in AVI)."""
+    edit, from the keyframe it starts from; an MP4's movie fragments after
+    moov's own samples), each (bytes, the container's keyframe flag):
+    H.264's as the container holds them (length-prefixed NAL units in MP4
+    and Matroska, Annex B in AVI); `orientation`, cv2's
+    CAP_PROP_ORIENTATION_META, the clockwise turn of the display matrix
+    (MP4: tkhd's times mvhd's; Matroska: a Projection's roll), which
+    decode_video and load_video_frames apply as cv2 does when it is 90,
+    180 or 270."""
     container: str
     tag: str
     codec: str
@@ -246,6 +252,7 @@ class VideoTrack:
     count: int
     config: bytes
     packets: list
+    orientation: int = 0
 
 
 def _open_video(path: str):
@@ -263,14 +270,20 @@ def video_track(path: str, packets: bool = True) -> VideoTrack:
     """Demux `path` (AVI, MP4/MOV, Matroska/WebM). Raises ValueError for
     a broken file, NotImplementedError for a container feature that is
     not read (an MP4 edit at another rate than 1, of duration 0, or
-    several non-empty edits; Matroska content encodings). AVI's OpenDML
-    index and `RIFF AVIX` extensions are read; an MP4 edit list of one
+    several non-empty edits; a display matrix with a mirror; Matroska
+    content encodings, a mirrored or cubemap Projection; a Matroska
+    track without DefaultDuration at a variable rate, or of H.264 or
+    MPEG-4 Part 2, whose own timing cv2 would read). AVI's OpenDML index
+    and `RIFF AVIX` extensions are read; an MP4 edit list of one
     edit (after an empty one or not) is read as libavformat reads it:
     the packets from the keyframe before the edit on, those presented
-    outside it marked to be decoded and dropped."""
+    outside it marked to be decoded and dropped; MP4 movie fragments are
+    read after moov's samples (libavformat applies no edit to them).
+    Sound and other tracks are skipped; their timestamps enter a
+    fragmented file's count as they enter cv2's."""
     lib, h = _open_video(path)
     try:
-        info = (ctypes.c_int64 * 6)()
+        info = (ctypes.c_int64 * 7)()
         tag = ctypes.create_string_buffer(_ERR_LEN)
         container = ctypes.create_string_buffer(_ERR_LEN)
         lib.viai_video_info(h, info, tag, container, _ERR_LEN)
@@ -284,7 +297,7 @@ def video_track(path: str, packets: bool = True) -> VideoTrack:
             pkts.append((ctypes.string_at(ptr, size.value), bool(key.value)))
         return VideoTrack(container.value.decode(), tag.value.decode(),
                           VIDEO_CODECS[info[5]], int(info[0]), int(info[1]),
-                          int(info[2]), config, pkts)
+                          int(info[2]), config, pkts, int(info[6]))
     finally:
         lib.viai_video_close(h)
 
@@ -299,8 +312,11 @@ def decode_video(path: str) -> np.ndarray:
     VP8 and VP9 (profile 0: their shown frames), H.264
     (progressive 8-bit 4:2:0: Baseline, Main and High, in libavcodec's
     output order); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
-    list's dropped frames left out), converted to BGR24 as swscale does
-    (its scaler for odd heights and 4:4:4/4:4:0). Raises ValueError for
+    list's dropped frames left out; fragmented too), converted to BGR24
+    as swscale does (its scaler for odd heights and 4:4:4/4:4:0) and
+    turned as cv2 turns them by the track's orientation (90, 180 or 270
+    degrees: the MP4 display matrix, a Matroska Projection's roll).
+    Raises ValueError for
     a broken file or one without frames, NotImplementedError naming the
     codec (HEVC, AV1, FFV1, ...) or the MJPEG, MPEG-4, VP8, VP9, H.264
     or container feature it does not read."""
@@ -331,8 +347,9 @@ def load_video_frames(path: str, n_frames: int, size: int,
     cv2: the indices round(linspace(w0·(T−1), w1·(T−1), n_frames)) in
     float64 of cv2's frame count T over the fractional `window` (all of
     it by default), as a set; the frames decoded at those indices (an
-    index past the last frame is never reached), each resized by
-    cv2.resize at INTER_LINEAR on BGR, flipped to RGB, / 255; those
+    index past the last frame is never reached), each turned as cv2 turns
+    it, resized by cv2.resize at INTER_LINEAR on BGR, flipped to RGB,
+    / 255; those
     frames re-picked by the same rule over all of them when they are
     not n_frames. Raises as decode_video."""
     if n_frames < 1 or size < 1:
