@@ -347,7 +347,13 @@ FRAMES_WARMUP = 3
 # B-VOPs, 4MV, AC prediction), clip_phone.mp4 (High at 224x160 under a
 # 90 degree tkhd matrix, AAC in interleaved chunks: a phone held upright)
 # and clip_frag.mp4 (the same stream fragmented, one fragment a
-# keyframe, AAC in trafs of its own). Decoded
+# keyframe, AAC in trafs of its own), clip_xavc.mp4 (High 4:2:2 at 10
+# bits with B-frames: an XAVC S 4:2:2 10-bit camera's long GOP) and
+# clip_avchd.mkv (progressive frames of an interlace-capable High stream
+# with B-frames, its bitstream_restriction cleared: AVCHD at 25p as
+# `ffmpeg -c copy` remuxes it), beside the H.264 that cameras and other
+# encoders write (CAMERA_FIXTURES: 10-bit, 4:2:2, monochrome, PsF,
+# reorder depths libavcodec guesses, B sub-8x8 partitions). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -365,7 +371,16 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
                  "xvid": ("clip_xvid.avi", "clip_dx50.mp4"),
-                 "phone": ("clip_phone.mp4", "clip_frag.mp4")}
+                 "phone": ("clip_phone.mp4", "clip_frag.mp4"),
+                 "camera": ("clip_xavc.mp4", "clip_avchd.mkv")}
+# the committed fixtures of H.264 as cameras and other encoders write it
+# (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
+CAMERA_FIXTURES = (
+    "h264_42210_mp4", "h264_42210intra_mkv", "h264_42210cavlc_avi",
+    "h264_42010_avi", "h264_4228_mkv", "h264_mono8_avi", "h264_mono10_mp4",
+    "h264_pcm10_avi", "h264_psf_mp4", "h264_psfcrop_mkv", "h264_psfsei_avi",
+    "h264_norestrict_avi", "h264_norestrict_mp4", "h264_novui_mkv",
+    "h264_deep_avi", "h264_sub8x8_avi")
 VIDEO_REPS = 3
 TURN_ROUNDS = 7         # [video]: turned and unturned decodes, in turns
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
@@ -1915,11 +1930,14 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
     H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
     Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4),
-    then phone clips (H.264 turned 90 degrees with AAC, and fragmented);
+    then phone clips (H.264 turned 90 degrees with AAC, and fragmented),
+    then camera clips (High 4:2:2 10-bit in MP4, PsF without
+    bitstream_restriction in Matroska);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a turned frame's against the same file's
-    unturned, a clip's read, the loader's wait share of a step from each
-    folder. Returns the GL kernel's launches."""
+    unturned, a 10-bit frame's conversion share, a clip's read, the
+    loader's wait share of a step from each folder. Returns the GL
+    kernel's launches."""
     from viai_tpu_torch import native
 
     # (a) the decoders against cv2's committed decodes
@@ -1927,7 +1945,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     n_frames = {c: 0 for c in VIDEO_TOL}
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
-    per_mpeg4, per_container, turned = [], [], 0
+    per_mpeg4, per_container, per_camera, turned = [], [], [], 0
     for npz in cases:
         path = next(p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                     if p.suffix != ".npz")
@@ -1945,6 +1963,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
         worst[track.codec] = max(worst[track.codec], err)
         if track.codec == "mpeg4":
             per_mpeg4.append(f"{npz.stem} {err}")
+        if npz.stem in CAMERA_FIXTURES:
+            per_camera.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} (cv2 "
+                f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
         if "orientation" in ref:
             require(track.orientation == int(ref["orientation"]),
                     f"[video] {path.name}: orientation {track.orientation}, "
@@ -1965,6 +1987,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     log(f"[video] phones and muxers ({len(per_container)} fixtures, "
         f"{turned} turned): " + "; ".join(per_container))
     require(per_container, "[video] no fixture of phones and muxers")
+    log(f"[video] H.264 as cameras and encoders write it "
+        f"({len(per_camera)} fixtures): " + "; ".join(per_camera))
+    require(len(per_camera) == len(CAMERA_FIXTURES),
+            f"[video] {len(per_camera)} camera fixtures of "
+            f"{len(CAMERA_FIXTURES)}")
     require(all(n_files.values()), f"[video] a codec without fixtures: "
             f"{n_files}")
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
@@ -2016,7 +2043,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_dx50.mp4",
                         "MPEG-4 ASP: B-VOPs, 4MV, AC prediction"),
                        ("clip_phone.mp4", "H.264 High, turned 90, AAC"),
-                       ("clip_frag.mp4", "H.264 High, fragmented, AAC")):
+                       ("clip_frag.mp4", "H.264 High, fragmented, AAC"),
+                       ("clip_xavc.mp4", "H.264 High 4:2:2, 10-bit, B"),
+                       ("clip_avchd.mkv",
+                        "H.264 High, PsF, B, no bitstream_restriction")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2027,6 +2057,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             f"{read:.3f} ms to read {FRAMES[0]} frames at {FRAMES[1]}x"
             f"{FRAMES[2]} (load_video_frames, one thread); {card}")
     video_turn_cost(best_ms, card)
+    video_conversion_cost(best_ms, card)
     for folder, root in roots.items():
         video_wait_share(folder, root, ckpt, dev, card)
     return total
@@ -2069,6 +2100,27 @@ def video_turn_cost(best_ms, card: str):
         f"turns, one thread; the rounds' median difference {diff:+.3f} "
         f"ms, {diff / u:+.1%}); read {FRAMES[0]} frames "
         f"{read['turned']:.3f} / {read['unturned']:.3f} ms; {card}")
+
+
+def video_conversion_cost(best_ms, card: str):
+    """[video] (d): the share of a 10-bit frame's decode that its
+    conversion to BGR takes (swscale's scaler with the 16-bit horizontal
+    pass, H.264's left-sited chroma): clip_xavc.mp4's decode a frame
+    against native.yuv_to_bgr of planes of its layout (yuv422p10)."""
+    from viai_tpu_torch import native
+
+    path = str(VIDEO_FIXTURES / "clip_xavc.mp4")
+    n, h, w = native.decode_video(path).shape[:3]
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 1024, (h, w)).astype(np.uint16)
+    u, v = (rng.integers(0, 1024, (h, w // 2)).astype(np.uint16)
+            for _ in range(2))
+    dec = best_ms(lambda: native.decode_video(path)) / n
+    conv = best_ms(lambda: native.yuv_to_bgr(y, u, v, (1, 0), 10,
+                                             chroma_loc=1))
+    log(f"[video] clip_xavc.mp4 ({w}x{h} 4:2:2 10-bit): conversion to BGR "
+        f"{conv:.3f} ms of the {dec:.3f} ms a frame's decode takes "
+        f"({conv / dec:.1%}; swscale's scaler, one thread); {card}")
 
 
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,

@@ -392,13 +392,68 @@ CONTAINER_CASES = {
 # keyframe, AAC in trafs of its own), with CONTAINER_CASES' options
 PHONE_CLIPS = {"clip_phone_mp4": dict(matrix=90, audio="aac", chunk=[5, 3]),
                "clip_frag_mp4": dict(fragments="key", audio="aac after")}
+# name: libx264 settings (x264_encode's, with `frames`, else 12, and
+# `size` (h, w), else 48x64, of moving_frames) for H.264 as cameras and
+# other encoders write it, held by tests/test_torch_video_camera.py, in
+# the container its name ends with (h264_file): High 4:2:2 and High 10
+# at 10 bits (B-frames, intra only, CAVLC), 4:2:2 at 8 bits, monochrome
+# at 8 and 10 bits (I_PCM at 10 bits), progressive frames of an
+# interlace-capable stream (x264's fake-interlaced: frame_mbs_only_flag 0)
+# with B-frames, at a height of 8 modulo 16 lines (cropped in 4-row
+# units) and under picture timing SEI (pic_struct 0). `edit` rewrites
+# the Annex B stream: "no restriction" clears the VUI's
+# bitstream_restriction (patch_h264), "no vui" drops the VUI
+# (strip_vui), "sub8x8" writes its B slices (sub8x8_b_slices); "deep",
+# after `frames` P frames, appends an IDR picture and 16 frames of
+# B-pyramid, so that the reorder depth grows past what libavformat's
+# probe saw (cv2 drops a frame).
+CAMERA_CASES = {
+    "h264_42210_mp4": dict(csp=6, bitdepth=10, profile="high422",
+                           bframes=3),
+    "h264_42210intra_mkv": dict(csp=6, bitdepth=10, profile="high422",
+                                keyint=1, frames=8),
+    "h264_42210cavlc_avi": dict(csp=6, bitdepth=10, profile="high422",
+                                cabac=0, bframes=2, weightp=2),
+    "h264_42010_avi": dict(bitdepth=10, profile="high10", bframes=3),
+    "h264_4228_mkv": dict(csp=6, profile="high422", bframes=2),
+    "h264_mono8_avi": dict(csp=1),
+    "h264_mono10_mp4": dict(csp=1, bitdepth=10, profile="high10",
+                            cabac=0),
+    "h264_pcm10_avi": dict(bitdepth=10, profile="high10", qp=1,
+                           psy_rd="0:0", subme=10, noise=60, frames=6),
+    "h264_psf_mp4": dict(fake_interlaced=1, bframes=3),
+    "h264_psfcrop_mkv": dict(fake_interlaced=1, bframes=2, size=(56, 64)),
+    "h264_psfsei_avi": dict(fake_interlaced=1, pic_struct=1,
+                            picture_struct=1),
+    "h264_norestrict_avi": dict(bframes=3, b_pyramid="normal", frames=30,
+                                edit="no restriction"),
+    "h264_norestrict_mp4": dict(bframes=3, b_pyramid="normal", frames=30,
+                                edit="no restriction"),
+    "h264_novui_mkv": dict(bframes=2, edit="no vui"),
+    "h264_deep_avi": dict(bframes=0, frames=8, edit="deep"),
+    "h264_sub8x8_avi": dict(cabac=0, bframes=1, b_adapt=0,
+                            b_pyramid="none", weightb=0, direct="spatial",
+                            edit="sub8x8"),
+}
+# the camera clips chip_smoke.py trains from, libx264 of the committed
+# 224x224 clip's first 16 frames: High 4:2:2 at 10 bits with B-frames
+# (an XAVC S 4:2:2 10-bit camera's long GOP) in MP4, and progressive
+# frames of an interlace-capable High stream with B-frames and its
+# bitstream_restriction cleared (AVCHD at 25p remuxed as `ffmpeg -c
+# copy` leaves it) in Matroska; CAMERA_CASES' keys
+CAMERA_CLIPS = {
+    "clip_xavc_mp4": dict(csp=6, bitdepth=10, profile="high422",
+                          bframes=3, keyint=12),
+    "clip_avchd_mkv": dict(fake_interlaced=1, bframes=2, keyint=12,
+                           edit="no restriction"),
+}
 # Every case with an .npz of cv2's view
-HELD = (*DECODED, *CONTAINER_CASES)
+HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
-    if name in PHONE_CLIPS:
+    if name in PHONE_CLIPS or name in CAMERA_CLIPS:
         return "h264"
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
@@ -409,7 +464,7 @@ def codec_of(name: str) -> str:
 
 
 def path_of(name: str) -> str:
-    if name in PHONE_CLIPS:
+    if name in PHONE_CLIPS or name in CAMERA_CLIPS:
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -1332,18 +1387,41 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
     return run(0)
 
 
+def planes_of(bgr: np.ndarray, csp: int = 2) -> list[np.ndarray]:
+    """A BGR frame's YCbCr planes as `i420` converts it, for an x264
+    colour space (1 I400, 2 I420, 6 I422, 12 I444): I422 and I444 are
+    i420 of the frame with its rows (I422) or rows and columns (I444)
+    doubled, whose chroma is then the frame's at that sampling."""
+    h, w = bgr.shape[:2]
+    big = {1: (1, 1), 2: (1, 1), 6: (2, 1), 12: (2, 2)}[csp]
+    f = bgr.repeat(big[0], axis=0).repeat(big[1], axis=1)
+    yuv = np.frombuffer(i420(f), np.uint8)
+    fh, fw = f.shape[:2]
+    n0 = fh * fw
+    y = yuv[:n0].reshape(fh, fw)[::big[0], ::big[1]]
+    if csp == 1:
+        return [y]
+    c = [yuv[n0 + k * n0 // 4:n0 + (k + 1) * n0 // 4].reshape(fh // 2, fw // 2)
+         for k in range(2)]
+    return [y, *c]
+
+
 def x264_encode(frames, fps: int = 25, preset: str = "medium",
                 profile: str | None = "high", csp: int = 2,
-                bitdepth: int = 8, **opts) -> list[tuple[bytes, int, int]]:
+                bitdepth: int = 8, picture_struct: int | None = None,
+                **opts) -> list[tuple[bytes, int, int]]:
     """H.264 access units of `frames` (BGR) from libx264's API (the
     system's libx264, API build 164, through ctypes): the preset, then
     one thread and no macroblock tree, each of `opts` through
     x264_param_parse (`_` for `-` in the names, True for "1"), then the
     profile (None: the preset's);
     `csp` and `bitdepth` set x264_param_t's i_csp (1 I400, 2 I420, 6
-    I422, 12 I444) and i_bitdepth; frames other than 8-bit I420 are
-    coded as a flat grey. → (Annex B bytes, pts, dts) in decode order,
-    SPS and PPS before every keyframe (x264's repeat-headers)."""
+    I422, 12 I444) and i_bitdepth; the planes are `planes_of`'s (at 10
+    bits, the 8-bit samples shifted up by 2); `picture_struct`, when
+    given, is each picture's i_pic_struct (x264's PIC_STRUCT_*: 1
+    PROGRESSIVE, 4 TOP_BOTTOM; written with the option pic_struct=1).
+    → (Annex B bytes, pts, dts) in decode order, SPS and PPS before
+    every keyframe (x264's repeat-headers)."""
     import ctypes
 
     lib = ctypes.CDLL("libx264.so.164")
@@ -1380,15 +1458,17 @@ def x264_encode(frames, fps: int = 25, preset: str = "medium",
     lib.x264_picture_init(pic)
     shift = {1: None, 2: (1, 1), 6: (1, 0), 12: (0, 0)}[csp]   # (x, y)
     wide = 2 if bitdepth > 8 else 1
-    grey = np.uint8(128 if wide == 1 else 0)
-    planes = [np.full((h >> (shift[1] if i else 0),
-                       (w >> (shift[0] if i else 0)) * wide), grey)
+    planes = [np.zeros((h >> (shift[1] if i else 0),
+                        w >> (shift[0] if i else 0)),
+                       np.uint8 if wide == 1 else "<u2")
               for i in range(1 if shift is None else 3)]
     struct.pack_into("<i", pic, 40, csp | (0x2000 if wide > 1 else 0))
     struct.pack_into("<i", pic, 44, len(planes))
     for i, pl in enumerate(planes):
-        struct.pack_into("<i", pic, 48 + 4 * i, pl.shape[1])
+        struct.pack_into("<i", pic, 48 + 4 * i, pl.shape[1] * wide)
         struct.pack_into("<Q", pic, 64 + 8 * i, pl.ctypes.data)
+    if picture_struct is not None:
+        struct.pack_into("<i", pic, 8, picture_struct)
     nal, n_nal = ctypes.c_void_p(), ctypes.c_int()
     out = []
 
@@ -1404,12 +1484,8 @@ def x264_encode(frames, fps: int = 25, preset: str = "medium",
         out.append((au, pts, dts))
 
     for i, f in enumerate(frames):
-        if csp == 2 and wide == 1:
-            yuv = np.frombuffer(i420(f), np.uint8)
-            n0 = w * h
-            planes[0][:] = yuv[:n0].reshape(h, w)
-            planes[1][:] = yuv[n0:n0 + n0 // 4].reshape(h // 2, w // 2)
-            planes[2][:] = yuv[n0 + n0 // 4:].reshape(h // 2, w // 2)
+        for pl, src in zip(planes, planes_of(f, csp)):
+            pl[:] = src if wide == 1 else src.astype("<u2") << (bitdepth - 8)
         struct.pack_into("<q", pic, 16, i)
         collect(lib.x264_encoder_encode(enc, ctypes.byref(nal),
                                         ctypes.byref(n_nal), pic, pic_out))
@@ -1640,6 +1716,10 @@ def ue_bits(v: int) -> str:
     return "0" * ((v + 1).bit_length() - 1) + format(v + 1, "b")
 
 
+def se_bits(v: int) -> str:
+    return ue_bits(2 * v - 1 if v > 0 else -2 * v)
+
+
 class BitReader:
     """Exp-Golomb reads over a bit string, noting where fields begin."""
 
@@ -1668,16 +1748,21 @@ class BitReader:
 
 def sps_fields(bits: str) -> BitReader:
     """Where an SPS's fields begin (x264's SPS: no scaling lists, no
-    HRD), with `log2_max_frame_num`, `poc_type` and `log2_max_poc_lsb`."""
+    HRD), with `log2_max_frame_num`, `poc_type`, `log2_max_poc_lsb`,
+    `frame_mbs_only`, `chroma_format_idc` and `bit_depth`."""
     r = BitReader(bits)
     profile = r.u(8)
     r.u(16)
     r.ue()
+    r.chroma_format_idc, r.bit_depth = 1, 8
     if profile in (100, 110, 122, 244):
         r.mark("chroma_format_idc")
-        if r.ue() == 3:
+        r.chroma_format_idc = r.ue()
+        if r.chroma_format_idc == 3:
             r.u(1)
-        r.ue()
+        r.mark("bit_depth_luma")
+        r.bit_depth = r.ue() + 8
+        r.mark("bit_depth_chroma")
         r.ue()
         r.u(1)
         assert r.u(1) == 0                      # no scaling lists
@@ -1688,17 +1773,22 @@ def sps_fields(bits: str) -> BitReader:
     assert r.poc_type in (0, 2)
     r.ue()
     r.u(1)
-    r.ue()
-    r.ue()
+    mb_w = r.ue() + 1
+    map_units = r.ue() + 1
     r.mark("frame_mbs_only")
-    assert r.u(1) == 1
+    r.frame_mbs_only = r.u(1)
+    r.mbs = mb_w * map_units * (2 - r.frame_mbs_only)
+    if not r.frame_mbs_only:
+        r.u(1)                                  # mb_adaptive_frame_field
     r.mark("direct_8x8_inference")
     r.u(1)
     if r.u(1):                                  # frame cropping
         r.mark("crop_left")
         for _ in range(4):
             r.ue()
-    assert r.u(1) == 1                          # VUI
+    r.mark("vui")
+    if not r.u(1):                              # no VUI
+        return r
     if r.u(1) and r.u(8) == 255:                # aspect ratio
         r.u(32)
     if r.u(1):
@@ -1715,7 +1805,7 @@ def sps_fields(bits: str) -> BitReader:
     assert r.u(1) == 0 and r.u(1) == 0          # no HRD
     r.u(1)
     r.mark("bitstream_restriction")
-    assert r.u(1) == 1
+    r.u(1)
     return r
 
 
@@ -1752,6 +1842,9 @@ def slice_fields(bits: str, sps: BitReader, idr: bool,
     r.ue()
     r.mark("frame_num")
     r.u(sps.log2_max_frame_num)
+    r.mark("field_pic")
+    if not sps.frame_mbs_only and r.u(1):
+        r.u(1)
     if idr:
         r.ue()
     if sps.poc_type == 0:
@@ -1804,13 +1897,98 @@ def patch_h264(packets: list[bytes], kind: int, field: str, new: str,
     return out
 
 
+def strip_vui(packets: list[bytes]) -> list[bytes]:
+    """Annex B packets whose SPSs have no VUI (vui_parameters_present_flag
+    0): no colour description, timing or bitstream_restriction."""
+    out = []
+    for p in packets:
+        units = []
+        for u in nal_units(p):
+            if u[0] & 31 == 7:
+                bits = rbsp_bits(u)
+                u = nal_unit(u[0], bits[:sps_fields(bits).at["vui"]] + "01")
+            units.append(u)
+        out.append(b"".join(b"\0\0\0\1" + u for u in units))
+    return out
+
+
+# B sub-macroblock types (table 7-18): the partitions of each and the
+# lists they predict from (1 L0, 2 L1, 3 both; 0 direct)
+SUB_B_PARTS = (4, 1, 1, 1, 2, 2, 2, 2, 2, 2, 4, 4, 4)
+SUB_B_LISTS = (0, 1, 2, 3, 1, 1, 2, 2, 3, 3, 1, 2, 3)
+
+
+def sub8x8_b_slices(packets: list[bytes], seed: int) -> list[bytes]:
+    """Annex B packets of libx264's CAVLC stream with each B picture's one
+    slice (nal_ref_idc 0, one reference a list) replaced by one written
+    here: its macroblocks B_8x8 (mb_type 22), each sub-macroblock of a
+    type 0-12 in turn (4-12 cut 8x8 into 8x4, 4x8 and 4x4 partitions,
+    which libx264 never writes), random motion vector differences
+    within 3 samples, coded_block_pattern 0; some B_Skip between them.
+    The slice header keeps the picture's frame_num and POC, spatial
+    direct prediction, the deblocking filter on."""
+    import random
+
+    rng = random.Random(seed)
+    sps = None
+    out, turn = [], 0
+    for p in packets:
+        units = []
+        for u in nal_units(p):
+            t = u[0] & 31
+            if t == 7:
+                sps = sps_fields(rbsp_bits(u))
+                n_mbs = None
+            if t == 1:
+                r = BitReader(rbsp_bits(u))
+                r.ue()
+                kind = r.ue() % 5
+                if kind == 1:
+                    assert u[0] >> 5 == 0, "B pictures must not be references"
+                    r.ue()
+                    frame_num = r.u(sps.log2_max_frame_num)
+                    poc = r.u(sps.log2_max_poc_lsb)
+                    bits = (ue_bits(0) + ue_bits(1) + ue_bits(0) +
+                            format(frame_num, f"0{sps.log2_max_frame_num}b")
+                            + format(poc, f"0{sps.log2_max_poc_lsb}b") +
+                            "1" + "1" + ue_bits(0) + ue_bits(0) + "00" +
+                            se_bits(0) + ue_bits(0) + se_bits(0) +
+                            se_bits(0))
+                    run = 0
+                    for _ in range(sps.mbs):
+                        if rng.random() < 0.15:
+                            run += 1
+                            continue
+                        bits += ue_bits(run) + ue_bits(22)
+                        run = 0
+                        subs = [(turn + j) % 13 for j in range(4)]
+                        turn += 3
+                        bits += "".join(ue_bits(s) for s in subs)
+                        for lst in (1, 2):
+                            for s in subs:
+                                if SUB_B_LISTS[s] & lst:
+                                    bits += "".join(
+                                        se_bits(rng.randint(-12, 12))
+                                        for _ in range(2 * SUB_B_PARTS[s]))
+                        bits += ue_bits(0)
+                    if run:
+                        bits += ue_bits(run)
+                    u = nal_unit(u[0], bits + "1")
+            units.append(u)
+        out.append(b"".join(b"\0\0\0\1" + u for u in units))
+    return out
+
+
 def avcc_box(sps: bytes, pps: bytes) -> bytes:
     """An avcC box (AVCDecoderConfigurationRecord) of one SPS and one
-    PPS, 4-byte NAL lengths."""
+    PPS, 4-byte NAL lengths; for the High profiles, the SPS's chroma
+    format and bit depths, no SPS extensions."""
     body = bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + struct.pack(
         ">H", len(sps)) + sps + b"\1" + struct.pack(">H", len(pps)) + pps
     if sps[1] in (100, 110, 122, 244):
-        body += bytes([0xFC | 1, 0xF8, 0xF8, 0])    # 4:2:0, 8-bit, no ext
+        f = sps_fields(rbsp_bits(sps))
+        depth = 0xF8 | (f.bit_depth - 8)
+        body += bytes([0xFC | f.chroma_format_idc, depth, depth, 0])
     return _box(b"avcC", body)
 
 
@@ -2134,12 +2312,57 @@ def container_file(name: str, opts: dict, stream: str, frames=None) -> bytes:
                     **opts)
 
 
+def camera_stream(settings: dict, frames=None,
+                  seed: int = 0) -> list[tuple[bytes, int, int]]:
+    """A CAMERA_CASES or CAMERA_CLIPS stream: x264_encode's access units
+    of `frames` (else moving_frames(seed) of the settings' size and
+    number), rewritten by the settings' `edit`."""
+    settings = dict(settings)
+    edit = settings.pop("edit", None)
+    h, w = settings.pop("size", (48, 64))
+    t = settings.pop("frames", 12)
+    noise = settings.pop("noise", 0)
+    if frames is None:
+        frames = moving_frames(seed, t + (16 if edit == "deep" else 0), h, w)
+    if noise:
+        rng = np.random.default_rng(noise)
+        frames = np.clip(frames + rng.uniform(-noise, noise, frames.shape),
+                         0, 255).astype(np.uint8)
+    if edit == "deep":
+        aus = x264_encode(frames[:t], **settings)
+        aus += [(a, p + t, d + t) for a, p, d in x264_encode(
+            frames[t:], bframes=3, b_pyramid="normal", b_adapt=0)]
+        edit = "no restriction"
+    else:
+        aus = x264_encode(frames, **settings)
+    packets = [a for a, _, _ in aus]
+    if edit == "no restriction":
+        packets = patch_h264(packets, 7, "bitstream_restriction", "0")
+    elif edit == "no vui":
+        packets = strip_vui(packets)
+    elif edit == "sub8x8":
+        packets = sub8x8_b_slices(packets, len(packets))
+    return [(p, a[1], a[2]) for p, a in zip(packets, aus)]
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in CAMERA_CASES or name in CAMERA_CLIPS:
+        if name in CAMERA_CLIPS:
+            frames = clip_frames_bgr()[:16]
+            aus = camera_stream(CAMERA_CLIPS[name], frames)
+        else:
+            frames = None
+            aus = camera_stream(CAMERA_CASES[name], seed=sum(map(ord, name)))
+        h, w = CAMERA_CASES.get(name, {}).get("size", (48, 64)) \
+            if frames is None else frames.shape[1:3]
+        with open(path, "wb") as f:
+            f.write(h264_file(aus, w, h, name.rsplit("_", 1)[1]))
+        return path
     if name in CONTAINER_CASES or name in PHONE_CLIPS:
         if name in PHONE_CLIPS:
             stream, opts = "h264", PHONE_CLIPS[name]
@@ -2296,7 +2519,8 @@ def write_case(name: str, out: str = FIXTURES) -> str:
 
 def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
-    for name in names or (*HELD, *CLIP_CASES, *LAVC_UNREAD, *PHONE_CLIPS):
+    for name in names or (*HELD, *CLIP_CASES, *LAVC_UNREAD, *PHONE_CLIPS,
+                          *CAMERA_CLIPS):
         path = write_case(name, out)
         if name not in HELD:
             continue

@@ -69,10 +69,12 @@ chip_smoke.py trains from or times) go through:
     encoder), each VP9 profile, bit depth and sampling other than
     profile 0's, sRGB, intra-only frames and reference scaling (patched
     or written headers), a vpcC box of another bit depth, and each H.264
-    feature outside 8-bit 4:2:0 progressive coding (libx264's own
-    interlaced, 10-bit, 4:2:2, 4:4:4, monochrome and lossless streams;
+    feature the decoder does not read (libx264's own MBAFF, 4:4:4 and
+    lossless streams, and frames its picture timing SEI flags interlaced;
     parameter sets, slice headers and NAL units patched bit by bit for
-    the rest), MJPEG field pairs and mixed sampling ratios, and MP4 edit
+    the rest; what cameras write beside them is read and held in
+    test_torch_video_camera.py), MJPEG field pairs and mixed sampling
+    ratios, and MP4 edit
     lists of several edits, another rate or a zero duration; ValueError
     for a broken file and for a window past the clip's last frame, as the
     JAX package raises.
@@ -927,9 +929,9 @@ def _patch_stream(tmp_path, name: str, kind: int, field: str, new: str,
      mk.ue_bits(1), 3),
     ("frame cropping on the left", "h264_baseline_avi", 7, "crop_left",
      mk.ue_bits(2), 1),
-    ("interlaced coding", "h264_baseline_avi", 7, "frame_mbs_only", "0", 1),
-    ("bitstream_restriction", "h264_opengop_avi", 7,
-     "bitstream_restriction", "0", 1),
+    ("interlaced coding", "h264_baseline_avi", 7, "frame_mbs_only", "01", 1),
+    ("different bit depths", "h264_opengop_avi", 7, "bit_depth_chroma",
+     mk.ue_bits(2), 1),
     ("slice groups (FMO)", "h264_baseline_avi", 8, "num_slice_groups",
      mk.ue_bits(1), 1),
     ("redundant pictures", "h264_baseline_avi", 8,
@@ -971,14 +973,17 @@ def test_h264_header_features_raise_naming_them(tmp_path, feature, name,
 
 @pytest.mark.parametrize("feature,settings", [
     ("interlaced coding", dict(interlaced=1)),
-    ("10-bit", dict(bitdepth=10, profile="high10")),
-    ("4:2:2", dict(csp=6, profile="high422")),
+    ("4:4:4", dict(csp=12, bitdepth=10, profile="high444")),
+    ("lossless", dict(csp=6, qp=0, profile="high444")),
     ("4:4:4", dict(csp=12, profile="high444")),
-    ("monochrome", dict(csp=1)),
+    ("flagged interlaced", dict(csp=1, fake_interlaced=1, pic_struct=1,
+                                picture_struct=4)),
     ("lossless", dict(qp=0, profile="high444")),
 ])
 def test_h264_x264_streams_out_of_scope_raise(tmp_path, feature, settings):
-    """libx264's own streams of the profiles and formats not read."""
+    """libx264's own streams of the profiles, formats and interlace not
+    read (10-bit, 4:2:2 and monochrome are read since: see
+    test_torch_video_camera.py)."""
     _x264()
     aus = mk.x264_encode(mk.moving_frames(1, 4), **settings)
     path = tmp_path / "x.avi"

@@ -1,48 +1,62 @@
 // The H.264 decoder of viai_tpu_torch's video reader (videodec.cpp):
-// progressive 8-bit 4:2:0 streams of the Baseline, Main and High
-// profiles, decoded as ITU-T H.264 (08/2021) specifies and output in
-// the order and number libavcodec's decoder gives them to cv2.
+// frame pictures of the Baseline, Main, High, High 10 and High 4:2:2
+// profiles (and their Intra profiles) at 8, 9 and 10 bits, 4:2:0, 4:2:2
+// and monochrome, progressive or as progressive frames of an
+// interlace-capable stream (frame_mbs_only_flag 0 without MBAFF),
+// decoded as ITU-T H.264 (08/2021) specifies and output in the order
+// and number libavcodec's decoder gives them to cv2.
 //
 //   * parsing: NAL units (Annex B start codes, or the length prefixes of
-//     an avcC record), emulation prevention, SPS with VUI, cropping and
+//     an avcC record), emulation prevention, SPS with VUI (HRD delay
+//     lengths, pic_struct_present_flag, chroma siting), cropping and
 //     scaling lists, PPS with transform_8x8_mode_flag and its lists
 //     (fall-back rules A and B), slice headers, pred_weight_table,
-//     dec_ref_pic_marking;
-//   * entropy decoding: CAVLC (9.2) and CABAC (9.3: the arithmetic
-//     engine bit by bit, context initialisation, every syntax element of
-//     4:2:0 frame coding, I_PCM with the engine's re-initialisation);
-//   * macroblocks: I_PCM, Intra_16x16, Intra_4x4, Intra_8x8 (reference
-//     sample filtering), P partitions down to 4x4, B partitions down to
-//     8x8, P_Skip, B_Skip and B_Direct (spatial and temporal, with and
-//     without direct_8x8_inference_flag), several reference frames,
-//     list modification, explicit weighted prediction in P slices and
-//     implicit weights in B slices; quarter-sample luma (6-tap) and
-//     eighth-sample chroma interpolation, references read clamped to the
-//     picture;
-//   * transforms: 4x4 and 8x8 inverse transforms, luma DC (Hadamard) and
-//     chroma DC, scaling with flat or custom matrices;
+//     dec_ref_pic_marking, picture timing SEI;
+//   * entropy decoding: CAVLC (9.2, chroma DC of nC -1 and -2) and CABAC
+//     (9.3: the arithmetic engine bit by bit, context initialisation,
+//     every syntax element of frame coding for ChromaArrayType 0, 1 and
+//     2, I_PCM with the engine's re-initialisation);
+//   * macroblocks: I_PCM (at the bit depth), Intra_16x16/4x4/8x8
+//     (reference sample filtering), intra chroma on 8x8 and 8x16, P and
+//     B partitions down to 4x4, P_Skip, B_Skip and B_Direct (spatial and
+//     temporal, with and without direct_8x8_inference_flag), several
+//     reference frames, list modification, explicit weighted prediction
+//     in P slices (offsets scaled to the depth) and implicit weights in B
+//     slices; quarter-sample luma (6-tap) and chroma interpolation
+//     (eighth-sample, vertically quarter-sample for 4:2:2), references
+//     read clamped to the picture;
+//   * transforms: 4x4 and 8x8 inverse transforms, luma DC (Hadamard),
+//     chroma DC 2x2 and 2x4 (4:2:2, at QP'c + 3), scaling with flat or
+//     custom matrices and QpBdOffset;
 //   * the deblocking filter (8.7) with the slice's offsets and
 //     disable_deblocking_filter_idc 0, 1 and 2, bS of 8x8-transform
-//     edges;
+//     edges, 4:2:2's chroma edges, thresholds scaled to the depth;
 //   * references: several slices a picture, POC types 0 and 2, the
 //     sliding window and memory_management_control_operation 1, IDR;
 //   * output: libavcodec's h264_select_output_frame (its reorder depth
-//     from the VUI's max_num_reorder_frames, its POC history and
-//     keyframe barriers) and, at the end of the stream, its draining;
-//     the picture cropped by the SPS's frame cropping, with the VUI's
-//     range and matrix (Picture::full_range, Picture::matrix).
+//     from the VUI's max_num_reorder_frames, else guessed from its POC
+//     history, which an IDR slice restarts, from where the caller sets
+//     it: set_delay, libavformat's probe; its keyframe barriers) and, at
+//     the end of the stream, its draining; the picture cropped by the
+//     SPS's frame cropping, with the VUI's range, matrix and chroma
+//     siting (Picture::full_range, matrix, chroma_loc), samples of 8 bits
+//     or 16 (Picture::y16...), monochrome with libavcodec's neutral
+//     chroma.
+//
+// Samples are uint8_t at 8 bits and uint16_t above; the reconstruction
+// is written once, templated on the sample type (pixels()).
 //
 // Everything else raises NotImplementedError (code 2) naming it:
-// interlaced coding (field pictures, MBAFF), profiles and formats other
-// than 8-bit 4:2:0 (High 10, 4:2:2, 4:4:4, monochrome, lossless
-// transform bypass), SP/SI slices, slice groups (FMO), arbitrary slice
-// order (ASO) and redundant pictures, data partitioning, gaps in frame_num,
-// long-term references, memory_management_control_operation 2-6, POC
-// type 1, explicit bi-predictive weights (weighted_bipred_idc 1),
-// frame cropping on the left or top, B sub-macroblock partitions below
-// 8x8 (x264 writes none), and B slices in a stream whose VUI gives no
-// bitstream_restriction (libavcodec then guesses its reorder depth). A
-// stream that breaks the syntax raises ValueError (code 1).
+// interlaced coding (field pictures, MBAFF) and frames a picture timing
+// SEI flags interlaced (libavcodec marks them so and cv2 cannot convert
+// them), 4:4:4 and separate_colour_plane_flag, depths above 10 and luma
+// and chroma of different depths, lossless transform bypass, SP/SI
+// slices, slice groups (FMO), arbitrary slice order (ASO) and redundant
+// pictures, data partitioning, gaps in frame_num, long-term references,
+// memory_management_control_operation 2-6, POC type 1, explicit
+// bi-predictive weights (weighted_bipred_idc 1) and frame cropping on
+// the left or top. A stream that breaks the syntax raises ValueError
+// (code 1).
 
 #include <algorithm>
 #include <array>
@@ -63,7 +77,6 @@ namespace {
 using namespace h264;
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
-inline uint8_t clip1(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
 inline int median3(int a, int b, int c) {
   return std::max(std::min(a, b), std::min(std::max(a, b), c));
 }
@@ -149,15 +162,26 @@ struct Sps {
   bool scaling_present = false;
   uint8_t scaling4[6][16];      // raster order, after fall-back rule A
   uint8_t scaling8[2][64];
+  int level = 0;                // level_idc
   int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
   int max_num_ref_frames = 0;
-  int mb_w = 0, mb_h = 0;
+  int mb_w = 0, mb_h = 0;       // mb_h: FrameHeightInMbs
+  int cfi = 1;                  // chroma_format_idc: 0 (4:0:0), 1, 2
+  int depth = 8;                // BitDepthY = BitDepthC
+  bool frame_mbs_only = true, mbaff = false;
   bool direct_8x8_inference = false;
   int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;
+  int crop_ux = 2, crop_uy = 2;  // CropUnitX, CropUnitY
   bool full_range = false;
   int matrix = 2;               // matrix_coefficients (2: unspecified)
+  int chroma_loc = 1;           // libavcodec's AVChromaLocation: left, or
+                                // the VUI's chroma_sample_loc_type + 1
   bool bitstream_restriction = false;
   int num_reorder_frames = 0;
+  // What a picture timing SEI holds: the HRD's delay fields (their
+  // lengths when an HRD is present), pic_struct, time_offset's length.
+  bool hrd = false, pic_struct_present = false;
+  int cpb_len = 24, dpb_len = 24, time_offset_len = 24;
 };
 
 struct Pps {
@@ -216,8 +240,9 @@ void parse_vui(Bits& b, Sps& s) {
     }
   }
   if (b.u1()) {                                   // chroma_loc_info
+    uint32_t top = b.ue();
     b.ue();
-    b.ue();
+    if (top <= 5) s.chroma_loc = int(top) + 1;
   }
   if (b.u1()) {                                   // timing_info
     b.u(32);
@@ -235,16 +260,17 @@ void parse_vui(Bits& b, Sps& s) {
       b.u1();
     }
     b.u(5);
-    b.u(5);
-    b.u(5);
-    b.u(5);
+    s.cpb_len = int(b.u(5)) + 1;
+    s.dpb_len = int(b.u(5)) + 1;
+    s.time_offset_len = int(b.u(5));
   };
   bool nal_hrd = b.u1();
   if (nal_hrd) hrd();
   bool vcl_hrd = b.u1();
   if (vcl_hrd) hrd();
-  if (nal_hrd || vcl_hrd) b.u1();                 // low_delay_hrd_flag
-  b.u1();                                         // pic_struct_present
+  s.hrd = nal_hrd || vcl_hrd;
+  if (s.hrd) b.u1();                              // low_delay_hrd_flag
+  s.pic_struct_present = b.u1();
   s.bitstream_restriction = b.u1();
   if (s.bitstream_restriction) {
     b.u1();
@@ -261,7 +287,8 @@ void parse_vui(Bits& b, Sps& s) {
 void parse_sps(Bits& b, Sps* table) {
   Sps s;
   int p = int(b.u(8));                            // profile_idc
-  b.u(16);                                        // constraints, level
+  b.u(8);                                         // constraint flags
+  s.level = int(b.u(8));
   uint32_t id = b.ue();
   if (id > 31) broken("H.264 seq_parameter_set_id above 31");
   for (int i = 0; i < 6; ++i) std::memset(s.scaling4[i], 16, 16);
@@ -270,17 +297,23 @@ void parse_sps(Bits& b, Sps* table) {
       p == 86 || p == 118 || p == 128 || p == 138 || p == 139 || p == 134 ||
       p == 135) {
     uint32_t chroma_format_idc = b.ue();
-    if (chroma_format_idc == 3) b.u1();
+    if (chroma_format_idc > 3) broken("H.264 chroma_format_idc above 3");
+    if (chroma_format_idc == 3)
+      unsupported(b.u1() ? "H.264 4:4:4 with separate_colour_plane_flag"
+                         : "H.264 4:4:4 (High 4:4:4 profile)");
     uint32_t depth_luma = b.ue() + 8, depth_chroma = b.ue() + 8;
+    if (depth_luma > 14 || depth_chroma > 14) broken("H.264 bit depth above 14");
     bool bypass = b.u1();
-    if (chroma_format_idc != 1)
-      unsupported(chroma_format_idc == 0 ? "H.264 monochrome (4:0:0)"
-                  : chroma_format_idc == 2 ? "H.264 4:2:2 (High 4:2:2 profile)"
-                                           : "H.264 4:4:4 (High 4:4:4 profile)");
-    if (depth_luma != 8 || depth_chroma != 8)
+    if (depth_luma != depth_chroma)
+      unsupported("H.264 luma and chroma of different bit depths (" +
+                  std::to_string(depth_luma) + " and " + std::to_string(depth_chroma) +
+                  "; libavcodec refuses them too)");
+    if (depth_luma > 10)
       unsupported("H.264 at " + std::to_string(depth_luma) +
-                  "-bit (High 10 and above; only 8-bit is read)");
+                  "-bit (depths above 10 are not read)");
     if (bypass) unsupported("H.264 lossless (qpprime_y_zero_transform_bypass)");
+    s.cfi = int(chroma_format_idc);
+    s.depth = int(depth_luma);
     s.scaling_present = b.u1();
     if (s.scaling_present) {
       uint8_t zz[64];
@@ -325,11 +358,18 @@ void parse_sps(Bits& b, Sps* table) {
   if (s.max_num_ref_frames > 16) broken("H.264 max_num_ref_frames above 16");
   b.u1();                                         // gaps allowed: gaps raise
   s.mb_w = int(b.ue()) + 1;
-  s.mb_h = int(b.ue()) + 1;
-  if (s.mb_w > 1024 || s.mb_h > 1024) broken("H.264 picture too large");
-  if (!b.u1()) unsupported("H.264 interlaced coding (frame_mbs_only_flag 0: "
-                           "field pictures or MBAFF)");
+  int map_units = int(b.ue()) + 1;                // PicHeightInMapUnits
+  if (s.mb_w > 1024 || map_units > 1024) broken("H.264 picture too large");
+  // frame_mbs_only_flag 0: the stream may code field pictures (which
+  // raise) or MBAFF frames (mb_adaptive_frame_field_flag: raise); frame
+  // pictures without MBAFF (progressive frames of an interlace-capable
+  // stream, "PsF") are read. Frames are then twice the map units high.
+  s.frame_mbs_only = b.u1();
+  if (!s.frame_mbs_only) s.mbaff = b.u1();
+  s.mb_h = map_units * (s.frame_mbs_only ? 1 : 2);
   s.direct_8x8_inference = b.u1();
+  s.crop_ux = s.cfi == 0 ? 1 : 2;                 // SubWidthC
+  s.crop_uy = (s.cfi == 1 ? 2 : 1) * (s.frame_mbs_only ? 1 : 2);
   if (b.u1()) {                                   // frame_cropping
     s.crop_l = int(b.ue());
     s.crop_r = int(b.ue());
@@ -337,8 +377,8 @@ void parse_sps(Bits& b, Sps* table) {
     s.crop_b = int(b.ue());
     if (s.crop_l || s.crop_t)
       unsupported("H.264 frame cropping on the left or top");
-    if (2 * (s.crop_l + s.crop_r) >= 16 * s.mb_w ||
-        2 * (s.crop_t + s.crop_b) >= 16 * s.mb_h)
+    if (int64_t(s.crop_ux) * (s.crop_l + s.crop_r) >= 16 * s.mb_w ||
+        int64_t(s.crop_uy) * (s.crop_t + s.crop_b) >= 16 * s.mb_h)
       broken("H.264 frame cropping larger than the picture");
   }
   if (b.u1()) parse_vui(b, s);
@@ -362,7 +402,7 @@ void parse_pps(Bits& b, const Sps* spss, Pps* table, size_t stop) {
     broken("H.264 num_ref_idx_default above 32");
   q.weighted_pred = b.u1();
   q.weighted_bipred_idc = int(b.u(2));
-  q.pic_init_qp = 26 + b.se();
+  q.pic_init_qp = 26 + b.se();                    // SliceQPY's base
   b.se();                                         // pic_init_qs
   q.chroma_qp_offset[0] = q.chroma_qp_offset[1] = b.se();
   q.deblocking_control = b.u1();
@@ -381,7 +421,8 @@ void parse_pps(Bits& b, const Sps* spss, Pps* table, size_t stop) {
     }
     q.chroma_qp_offset[1] = b.se();
   }
-  if (q.pic_init_qp < 0 || q.pic_init_qp > 51) broken("H.264 pic_init_qp out of range");
+  if (q.pic_init_qp < -6 * (spss[q.sps_id].depth - 8) || q.pic_init_qp > 51)
+    broken("H.264 pic_init_qp out of range");
   if (b.over()) broken("H.264 PPS cut short");
   q.valid = true;
   table[id] = q;
@@ -398,13 +439,15 @@ struct MbInfo {
   bool direct16 = false;        // B_Skip, B_Direct_16x16
   bool t8x8 = false;
   uint8_t cbp = 0;              // luma bits 0-3, chroma << 4
-  int8_t qp = 0;                // QPY (0 for I_PCM, as the deblocking filter reads it)
-  int8_t qpc[2] = {0, 0};       // QPc of Cb, Cr (deblocking)
+  // QPY and the QPc of Cb and Cr (deblocking; scaling adds QpBdOffset);
+  // I_PCM's are those of QP'Y 0, as libavcodec's deblocking reads them.
+  int8_t qp = 0;
+  int8_t qpc[2] = {0, 0};
   uint8_t chroma_mode = 0;
   uint8_t dc_cbf = 0;           // coded_block_flag of luma DC (1), Cb DC (2), Cr DC (4)
   uint8_t direct8 = 0;          // bit per 8x8: direct predicted
   int8_t ipred[16];             // Intra4x4/8x8 modes, raster 4x4 blocks
-  uint8_t nz[24];               // TotalCoeff: luma raster 0..15, Cb 16..19, Cr 20..23
+  uint8_t nz[32];               // TotalCoeff: luma raster 0..15, Cb 16.., Cr 24..
   int16_t mv[2][16][2];
   uint8_t mvd[2][16][2];        // |mvd| (CABAC contexts)
   int8_t ref[2][4];             // refIdx per 8x8, -1 not used
@@ -416,6 +459,11 @@ struct Frame {
   int id = 0;
   int64_t source = 0;           // the decode() call of its first slice
   int w = 0, h = 0;             // coded size (luma)
+  int ch = 0;                   // chroma rows (h / 2, or h for 4:2:2)
+  int cfi = 1, depth = 8;       // chroma_format_idc, bit depth
+  // The planes' samples: bytes (8-bit) or uint16_t (9, 10-bit); chroma
+  // w / 2 wide. Monochrome pictures carry neutral 4:2:0 chroma, as
+  // libavcodec outputs them.
   std::vector<uint8_t> y, u, v;
   int poc = 0, frame_num = 0;
   bool key = false;             // an IDR picture
@@ -425,7 +473,7 @@ struct Frame {
   // cropping and colour, from the SPS it was decoded with
   int out_w = 0, out_h = 0;
   bool full_range = false;
-  int matrix = 2;
+  int matrix = 2, chroma_loc = 1;
 };
 using FramePtr = std::shared_ptr<Frame>;
 
@@ -554,7 +602,22 @@ struct H264Decoder::State {
   int frame_num_offset = 0;
   bool seen_idr = false;
 
+  // the active picture format: ChromaArrayType (0, 1, 2), NumC8x8, the
+  // chroma block rows of a macroblock (MbHeightC), bit depth, its
+  // largest sample and QpBdOffset
+  int cfi = 1, nc8 = 1, mbhc = 8, depth = 8, pmax = 255, qp_bd = 0;
+
+  // libavcodec's picture timing SEI state (h264_sei.c): the payload
+  // of the packet's pic_timing message, read with the SPS of the
+  // picture it precedes; whether the last picture was flagged
+  // interlaced (1 before the first)
+  std::vector<uint8_t> pic_timing;
+  bool prev_interlaced = true;
+
   // libavcodec's output state
+  bool headers_only = false;    // order pictures without decoding them
+  bool guesses_delay = false;   // a B slice under an SPS without
+                                // bitstream_restriction was seen
   int has_b_frames = 0;
   int last_pocs[kMaxDelayed];
   int next_outputed_poc = kPocMin;
@@ -580,8 +643,8 @@ struct H264Decoder::State {
   int32_t coef[16][16];         // luma 4x4 blocks (raster block index)
   int32_t coef8[4][64];         // luma 8x8 blocks
   int32_t dc[16];               // Intra16x16 DC (scan order)
-  int32_t cdc[2][4];
-  int32_t cac[2][4][16];
+  int32_t cdc[2][8];
+  int32_t cac[2][8][16];
   bool done4[16];               // motion assigned (current MB, raster 4x4)
 
   State() {
@@ -661,35 +724,118 @@ struct H264Decoder::State {
   // --------------------------------------------------------- decoding
 
   bool decode(const uint8_t* d, size_t n, Picture& out) {
-    ++calls;
-    for_each_nal(d, n, [&](const uint8_t* u, size_t len) { nal(u, len); });
-    if (cur) finish_picture();
-    if (!next_output) return false;
+    if (!step(d, n)) return false;
     to_picture(*next_output, out);
     next_output.reset();
     return true;
+  }
+
+  // One packet: whether a picture is output after it (next_output).
+  bool step(const uint8_t* d, size_t n) {
+    ++calls;
+    pic_timing.clear();         // libavcodec forgets SEI between packets
+    for_each_nal(d, n, [&](const uint8_t* u, size_t len) { nal(u, len); });
+    if (cur) finish_picture();
+    return next_output != nullptr;
   }
 
   void nal(const uint8_t* d, size_t n) {
     if (d[0] & 0x80) broken("H.264 forbidden_zero_bit set");
     int type = d[0] & 31;
     switch (type) {
-      case 1:
       case 5:
+        // libavcodec's idr() on every IDR slice: the POC history that
+        // guesses the reorder depth starts again.
+        for (int& p : last_pocs) p = kPocMin;
+        slice(d, n);
+        break;
+      case 1:
         slice(d, n);
         break;
       case 2:
       case 3:
       case 4:
         unsupported("H.264 data partitioning (Extended profile)");
+      case 6:
+        sei(d, n);
+        break;
       case 7:
       case 8:
         if (cur) finish_picture();
         parameter_set(d, n);
         break;
-      default:                  // SEI, AUD, end of sequence, filler, ...
+      default:                  // AUD, end of sequence, filler, ...
         break;
     }
+  }
+
+  // An SEI NAL unit: a pic_timing message's payload is kept (read when
+  // the picture starts, with its SPS); the rest are skipped.
+  void sei(const uint8_t* d, size_t n) {
+    std::vector<uint8_t> r = unescape(d + 1, n - 1);
+    size_t p = 0, end = r.size();
+    while (end > 0 && r[end - 1] == 0) --end;
+    while (p + 2 <= end && !(p + 1 == end && r[p] == 0x80)) {
+      int type = 0, size = 0;
+      while (p < end && r[p] == 0xFF) type += r[p++];
+      if (p >= end) return;
+      type += r[p++];
+      while (p < end && r[p] == 0xFF) size += r[p++];
+      if (p >= end) return;
+      size += r[p++];
+      if (p + size_t(size) > end) return;    // libavcodec stops there too
+      if (type == 1) pic_timing.assign(r.begin() + long(p), r.begin() + long(p + size_t(size)));
+      p += size_t(size);
+    }
+  }
+
+  // Whether libavcodec marks the picture about to start interlaced
+  // (h264_field_start): by its picture timing SEI's pic_struct (fields,
+  // or a frame shown as two fields after an interlaced one) and clock
+  // timestamps, else by its coding (field pictures and MBAFF raise
+  // before). cv2's swscale then refuses the frame ("Cannot convert
+  // interlaced to progressive frames") and gives no picture of it.
+  bool flagged_interlaced() {
+    bool inter = false;
+    if (sps.pic_struct_present && !pic_timing.empty()) {
+      std::vector<uint8_t> r = pic_timing;
+      size_t size = r.size();
+      r.resize(size + 8, 0);
+      Bits b{r.data(), size, 0};
+      if (sps.hrd) {
+        b.u(sps.cpb_len);
+        b.u(sps.dpb_len);
+      }
+      int pic_struct = int(b.u(4));
+      static const int kClockTs[9] = {1, 1, 1, 2, 2, 3, 3, 2, 3};
+      if (pic_struct <= 8 && !b.over()) {
+        int ct_type = 0;
+        for (int i = 0; i < kClockTs[pic_struct]; ++i) {
+          if (!b.u1()) continue;                  // clock_timestamp_flag
+          ct_type |= 1 << b.u(2);
+          b.u1();                                 // nuit_field_based_flag
+          b.u(5);                                 // counting_type
+          bool full = b.u1();
+          b.u(2);                                 // discontinuity, cnt_dropped
+          b.u(8);                                 // n_frames
+          if (full) {
+            b.u(17);
+          } else if (b.u1()) {
+            b.u(6);
+            if (b.u1()) {
+              b.u(6);
+              if (b.u1()) b.u(5);
+            }
+          }
+          b.u(sps.time_offset_len);
+        }
+        if (pic_struct == 1 || pic_struct == 2) inter = true;
+        else if (pic_struct == 3 || pic_struct == 4) inter = prev_interlaced;
+        if ((ct_type & 3) && pic_struct <= 4 && (ct_type & 2)) inter = true;
+      }
+    }
+    prev_interlaced = inter;
+    return inter;
   }
 
   void slice(const uint8_t* d, size_t n) {
@@ -720,6 +866,10 @@ struct H264Decoder::State {
         broken("H.264 slices of one picture with different SPS");
     }
     h.frame_num = int(bits.u(s.log2_max_frame_num));
+    if (!s.frame_mbs_only && bits.u1())
+      unsupported("H.264 interlaced coding (field pictures: field_pic_flag 1)");
+    if (s.mbaff)
+      unsupported("H.264 interlaced coding (MBAFF frames: mb_adaptive_frame_field_flag 1)");
     if (h.nal_type == 5) bits.ue();                 // idr_pic_id
     if (s.poc_type == 0) {
       h.poc_lsb = int(bits.u(s.log2_max_poc_lsb));
@@ -752,7 +902,7 @@ struct H264Decoder::State {
       if (h.type == 1)
         unsupported("H.264 explicit bi-predictive weights (weighted_bipred_idc 1)");
       h.luma_log2 = int(bits.ue());
-      h.chroma_log2 = int(bits.ue());
+      h.chroma_log2 = s.cfi ? int(bits.ue()) : 0;
       if (h.luma_log2 > 7 || h.chroma_log2 > 7) broken("H.264 weight denominator above 7");
       for (int l = 0; l < (h.type == 1 ? 2 : 1); ++l)
         for (int i = 0; i < h.num_ref_idx[l]; ++i) {
@@ -763,7 +913,7 @@ struct H264Decoder::State {
             h.lw[l][i] = bits.se();
             h.lo[l][i] = bits.se();
           }
-          h.cw_flag[l][i] = bits.u1();
+          h.cw_flag[l][i] = s.cfi != 0 && bits.u1();
           for (int c = 0; c < 2; ++c) {
             h.cw[l][i][c] = 1 << h.chroma_log2;
             h.co[l][i][c] = 0;
@@ -799,7 +949,7 @@ struct H264Decoder::State {
       if (h.cabac_init_idc > 2) broken("H.264 cabac_init_idc above 2");
     }
     h.qp = p.pic_init_qp + bits.se();
-    if (h.qp < 0 || h.qp > 51) broken("H.264 slice QP out of range");
+    if (h.qp < -6 * (s.depth - 8) || h.qp > 51) broken("H.264 slice QP out of range");
     if (p.deblocking_control) {
       h.deblock_idc = int(bits.ue());
       if (h.deblock_idc > 2) broken("H.264 disable_deblocking_filter_idc above 2");
@@ -811,9 +961,7 @@ struct H264Decoder::State {
       }
     }
     if (bits.over()) broken("H.264 slice header cut short");
-    if (h.type == 1 && !s.bitstream_restriction)
-      unsupported("H.264 B slices without the VUI's bitstream_restriction "
-                  "(libavcodec guesses its reorder depth)");
+    if (h.type == 1 && !s.bitstream_restriction) guesses_delay = true;
     sh = h;
     // Slices in raster order, the first at macroblock 0; Baseline's
     // arbitrary slice order is not read.
@@ -826,7 +974,7 @@ struct H264Decoder::State {
     pps = p;
     if (h.first_mb >= mb_w * mb_h) broken("H.264 first_mb_in_slice past the picture");
     slice_params.push_back({h.deblock_idc, h.alpha_off, h.beta_off});
-    decode_slice(r);
+    if (!headers_only) decode_slice(r);
     ++slice_num;
   }
 
@@ -843,6 +991,16 @@ struct H264Decoder::State {
     mb_h = sps.mb_h;
     pic_w = mb_w * 16;
     pic_h = mb_h * 16;
+    cfi = sps.cfi;
+    nc8 = cfi == 2 ? 2 : 1;
+    mbhc = 8 * nc8;
+    depth = sps.depth;
+    pmax = (1 << depth) - 1;
+    qp_bd = 6 * (depth - 8);
+    if (!headers_only && flagged_interlaced())
+      unsupported("H.264 frames flagged interlaced by their picture timing SEI "
+                  "(pic_struct): libavcodec marks them interlaced, and cv2 "
+                  "cannot convert them");
     int max_frame_num = 1 << sps.log2_max_frame_num;
     if (h.nal_type == 5) {
       seen_idr = true;
@@ -859,17 +1017,31 @@ struct H264Decoder::State {
     f.source = calls - 1;
     f.w = pic_w;
     f.h = pic_h;
-    f.y.assign(size_t(pic_w) * pic_h, 0);
-    f.u.assign(size_t(pic_w / 2) * (pic_h / 2), 0);
-    f.v.assign(size_t(pic_w / 2) * (pic_h / 2), 0);
-    f.mbs.assign(size_t(mb_w) * mb_h, MbInfo());
+    f.ch = cfi == 2 ? pic_h : pic_h / 2;
+    f.cfi = cfi;
+    f.depth = depth;
+    if (!headers_only) {
+      size_t bytes = depth > 8 ? 2 : 1;
+      f.y.assign(size_t(pic_w) * pic_h * bytes, 0);
+      f.u.assign(size_t(pic_w / 2) * f.ch * bytes, 0);
+      f.v.assign(f.u.size(), 0);
+      if (cfi == 0) {                 // libavcodec's neutral chroma
+        pixels([&](auto z) {
+          using P = decltype(z);
+          std::fill_n(reinterpret_cast<P*>(f.u.data()), f.u.size() / bytes, P(1 << (depth - 1)));
+          std::fill_n(reinterpret_cast<P*>(f.v.data()), f.v.size() / bytes, P(1 << (depth - 1)));
+        });
+      }
+      f.mbs.assign(size_t(mb_w) * mb_h, MbInfo());
+    }
     f.frame_num = h.frame_num;
     f.key = h.nal_type == 5;
     f.b_type = h.type == 1;
-    f.out_w = pic_w - 2 * (sps.crop_l + sps.crop_r);
-    f.out_h = pic_h - 2 * (sps.crop_t + sps.crop_b);
+    f.out_w = pic_w - sps.crop_ux * (sps.crop_l + sps.crop_r);
+    f.out_h = pic_h - sps.crop_uy * (sps.crop_t + sps.crop_b);
     f.full_range = sps.full_range;
     f.matrix = sps.matrix;
+    f.chroma_loc = sps.chroma_loc;
     // Picture order count (8.2.1).
     if (sps.poc_type == 0) {
       if (h.nal_type == 5) {
@@ -972,7 +1144,8 @@ struct H264Decoder::State {
     Frame& f = *cur;
     for (const MbInfo& m : f.mbs)
       if (m.slice < 0) broken("H.264 picture with macroblocks missing");
-    deblock_picture();
+    if (!headers_only) pixels([&](auto z) { deblock_picture<decltype(z)>(); });
+    slice_params.clear();
     if (first_sh.nal_ref_idc) {
       // Reference marking (8.2.5).
       if (!cur_idr) {
@@ -1019,11 +1192,29 @@ struct H264Decoder::State {
     out.h = f.out_h;
     out.ystride = f.w;
     out.cstride = f.w / 2;
-    out.y = f.y;
-    out.u = f.u;
-    out.v = f.v;
+    out.xshift = 1;
+    out.yshift = f.cfi == 2 ? 0 : 1;
+    out.grey = false;
+    out.depth = f.depth;
+    if (f.depth > 8) {
+      auto words = [](const std::vector<uint8_t>& b, std::vector<uint16_t>& w) {
+        w.resize(b.size() / 2);
+        std::memcpy(w.data(), b.data(), b.size());
+      };
+      words(f.y, out.y16);
+      words(f.u, out.u16);
+      words(f.v, out.v16);
+      out.y.clear();
+      out.u.clear();
+      out.v.clear();
+    } else {
+      out.y = f.y;
+      out.u = f.u;
+      out.v = f.v;
+    }
     out.full_range = f.full_range;
     out.matrix = f.matrix;
+    out.chroma_loc = f.chroma_loc;
     out.source = f.source;
   }
 
@@ -1418,6 +1609,10 @@ struct H264Decoder::State {
   int read_cbp(bool intra) {
     if (!pps.cabac) {
       uint32_t v = bits.ue();
+      if (cfi == 0) {
+        if (v > 15) broken("H.264 coded_block_pattern above 15 (monochrome)");
+        return intra ? kIntraCbpGrey[v] : kInterCbpGrey[v];
+      }
       if (v > 47) broken("H.264 coded_block_pattern above 47");
       return intra ? kIntraCbp[v] : kInterCbp[v];
     }
@@ -1439,6 +1634,7 @@ struct H264Decoder::State {
       else cb = ((cbp >> (b8 - 2)) & 1) ? 0 : 1;
       cbp |= cabac.decision(73 + ca + 2 * cb) << b8;
     }
+    if (cfi == 0) return cbp;
     auto chroma = [&](MbInfo* m) -> int {
       if (!m) return 0;
       if (m->kind == kPcm) return 2;
@@ -1463,12 +1659,12 @@ struct H264Decoder::State {
         int ctx = 62;
         while (cabac.decision(ctx)) {
           ctx = 63;
-          if (++k > 104) broken("H.264 mb_qp_delta too long");
+          if (++k > 104 + 2 * qp_bd) broken("H.264 mb_qp_delta too long");
         }
       }
       v = (k & 1) ? (k + 1) / 2 : -(k / 2);
     }
-    if (v < -26 || v > 25) broken("H.264 mb_qp_delta out of range");
+    if (v < -(26 + qp_bd / 2) || v > 25 + qp_bd / 2) broken("H.264 mb_qp_delta out of range");
     return v;
   }
 
@@ -1522,11 +1718,16 @@ struct H264Decoder::State {
   }
 
   // CAVLC residual_block: levels into coeffLevel[start..end] of `out`
-  // (scan order, max entries), → TotalCoeff.
+  // (scan order, max entries), → TotalCoeff. nC -1 is 4:2:0's chroma DC,
+  // -2 4:2:2's.
   int cavlc_block(int32_t* out, int start, int end, int max, int nc) {
     int tc, t1;
     if (nc == -1) {
       int i = read_vlc(kChromaDcTokenLen, kChromaDcTokenBits, 20);
+      tc = i >> 2;
+      t1 = i & 3;
+    } else if (nc == -2) {
+      int i = read_vlc(kChroma422DcTokenLen, kChroma422DcTokenBits, 36);
       tc = i >> 2;
       t1 = i & 3;
     } else {
@@ -1564,6 +1765,8 @@ struct H264Decoder::State {
     if (tc < end - start + 1) {
       if (nc == -1)
         zeros = read_vlc(kChromaDcTotalZerosLen[tc - 1], kChromaDcTotalZerosBits[tc - 1], 4);
+      else if (nc == -2)
+        zeros = read_vlc(kChroma422DcTotalZerosLen[tc - 1], kChroma422DcTotalZerosBits[tc - 1], 8);
       else
         zeros = read_vlc(kTotalZerosLen[tc - 1], kTotalZerosBits[tc - 1], 16);
     }
@@ -1602,10 +1805,10 @@ struct H264Decoder::State {
     int count = 0;
     bool last = false;
     for (int i = 0; i < max - 1 && !last; ++i) {
-      int si = cat == 5 ? kSig8x8[i] : cat == 3 ? std::min(i, 2) : i;
+      int si = cat == 5 ? kSig8x8[i] : cat == 3 ? std::min(i / nc8, 2) : i;
       if (cabac.decision(kSig[cat] + si)) {
         sig_at[count++] = i;
-        int li = cat == 5 ? kLast8x8[i] : cat == 3 ? std::min(i, 2) : i;
+        int li = cat == 5 ? kLast8x8[i] : cat == 3 ? std::min(i / nc8, 2) : i;
         last = cabac.decision(kLast[cat] + li);
       }
     }
@@ -1649,7 +1852,7 @@ struct H264Decoder::State {
       if (!m) continue;
       if (m->skip) n[k] = 0;
       else if (m->kind == kPcm) n[k] = 16;
-      else n[k] = comp == 0 ? m->nz[blk] : m->nz[16 + (comp - 1) * 4 + blk];
+      else n[k] = comp == 0 ? m->nz[blk] : m->nz[16 + (comp - 1) * 8 + blk];
     }
     if (avail[0] && avail[1]) return (n[0] + n[1] + 1) >> 1;
     if (avail[0]) return n[0];
@@ -1658,11 +1861,12 @@ struct H264Decoder::State {
   }
 
   // The macroblock holding chroma 4x4 block (x2, y2) of the current
-  // one's 2x2 grid, and its index (raster, 0..3) in it.
+  // one's grid (2 wide, 2 or 4 high), and its raster index in it.
   MbInfo* nb_chroma(int x2, int y2, int& blk) {
-    if (x2 > 1 || y2 > 1) return nullptr;
+    int rows = 2 * nc8;
+    if (x2 > 1 || y2 >= rows) return nullptr;
     int dx = x2 < 0 ? -1 : 0, dy = y2 < 0 ? -1 : 0;
-    blk = ((y2 + 2) & 1) * 2 + ((x2 + 2) & 1);
+    blk = ((y2 + rows) % rows) * 2 + ((x2 + 2) & 1);
     return nb_mb(dx, dy);
   }
 
@@ -1685,7 +1889,7 @@ struct H264Decoder::State {
       } else if (cat == 3) {
         cond = (m->cbp >> 4) ? ((m->dc_cbf >> (comp)) & 1) : 0;
       } else if (cat == 4) {
-        cond = (m->cbp >> 4) == 2 ? (m->nz[16 + (comp - 1) * 4 + blk] != 0) : 0;
+        cond = (m->cbp >> 4) == 2 ? (m->nz[16 + (comp - 1) * 8 + blk] != 0) : 0;
       } else {
         int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
         cond = ((m->cbp >> b8) & 1) ? (m->nz[blk] != 0) : 0;
@@ -1743,24 +1947,26 @@ struct H264Decoder::State {
     }
     int cc = cbp >> 4;
     if (cc) {
+      // Chroma DC: 2x2 (4:2:0) or 2x4 (4:2:2) levels in scan order.
+      int ndc = 4 * nc8;
       for (int c = 0; c < 2; ++c) {
-        int32_t tmp[4] = {0};
+        int32_t tmp[8] = {0};
         int n;
-        if (pps.cabac) n = cabac_block(tmp, 3, 4, cbf_inc(3, c + 1, 0, 0));
-        else n = cavlc_block(tmp, 0, 3, 4, -1);
+        if (pps.cabac) n = cabac_block(tmp, 3, ndc, cbf_inc(3, c + 1, 0, 0));
+        else n = cavlc_block(tmp, 0, ndc - 1, ndc, nc8 == 2 ? -2 : -1);
         std::memcpy(cdc[c], tmp, sizeof(tmp));
         if (n) mb->dc_cbf |= uint8_t(2 << c);
       }
     }
     if (cc == 2) {
       for (int c = 0; c < 2; ++c)
-        for (int b = 0; b < 4; ++b) {
+        for (int b = 0; b < 4 * nc8; ++b) {
           int x2 = b & 1, y2 = b >> 1;
           int32_t tmp[16] = {0};
           int n;
           if (pps.cabac) n = cabac_block(tmp + 1, 4, 15, cbf_inc(4, c + 1, x2, y2));
           else n = cavlc_block(tmp, 1, 15, 15, cavlc_nc(c + 1, x2, y2));
-          mb->nz[16 + c * 4 + b] = uint8_t(n);
+          mb->nz[16 + c * 8 + b] = uint8_t(n);
           for (int k = 1; k < 16; ++k) cac[c][b][kZigzag4[k]] = tmp[k];
         }
     }
@@ -1768,11 +1974,18 @@ struct H264Decoder::State {
 
   // ======================================================= macroblocks
 
+  // QPY (from −QpBdOffsetY to 51, wrapping as 7.4.5 sets it) and the
+  // macroblock's QPc (qPI clipped to −QpBdOffsetC..51, QPc = qPI below 30).
   void set_qp(int delta) {
-    qp = (qp + delta + 52) % 52;
-    mb->qp = int8_t(qp);
-    for (int c = 0; c < 2; ++c)
-      mb->qpc[c] = int8_t(kChromaQp[clip3(0, 51, qp + pps.chroma_qp_offset[c])]);
+    qp = (qp + delta + 52 + 2 * qp_bd) % (52 + qp_bd) - qp_bd;
+    mb_qps(qp);
+  }
+  void mb_qps(int qpy) {
+    mb->qp = int8_t(qpy);
+    for (int c = 0; c < 2; ++c) {
+      int qpi = clip3(-qp_bd, 51, qpy + pps.chroma_qp_offset[c]);
+      mb->qpc[c] = int8_t(qpi < 0 ? qpi : kChromaQp[qpi]);
+    }
   }
 
   void decode_skip() {
@@ -1798,13 +2011,12 @@ struct H264Decoder::State {
       }
       for (int k = 0; k < 4; ++k) set_ref(0, k, 0);
       fill_mv(0, 0, 0, 4, 4, mvx, mvy);
-      inter_pred_mb();
     } else {
       mb->direct16 = true;
       mb->direct8 = 15;
       direct_pred(15);
-      inter_pred_mb();
     }
+    pixels([&](auto z) { inter_pred_mb<decltype(z)>(); });
   }
 
   void set_ref(int l, int b8, int r) {
@@ -2027,20 +2239,18 @@ struct H264Decoder::State {
       // in its bit-serial reading). The alignment bits are skipped
       // unread, as libavcodec does: x264 may set one after a CABAC flush.
       bits.pos = (bits.pos + 7) & ~size_t(7);
-      if (bits.bits_left() < 384 * 8) broken("H.264 I_PCM samples cut short");
-      Frame& f = *cur;
-      for (int y = 0; y < 16; ++y)
-        for (int x = 0; x < 16; ++x)
-          f.y[size_t(mb_y * 16 + y) * f.w + mb_x * 16 + x] = uint8_t(bits.u(8));
-      for (int c = 0; c < 2; ++c) {
-        std::vector<uint8_t>& pl = c == 0 ? f.u : f.v;
-        for (int y = 0; y < 8; ++y)
-          for (int x = 0; x < 8; ++x)
-            pl[size_t(mb_y * 8 + y) * (f.w / 2) + mb_x * 8 + x] = uint8_t(bits.u(8));
-      }
+      int chroma = cfi == 0 ? 0 : 2 * 8 * mbhc;
+      if (bits.bits_left() < size_t(256 + chroma) * depth) broken("H.264 I_PCM samples cut short");
+      pixels([&](auto z) {
+        using P = decltype(z);
+        for (int y = 0; y < 16; ++y)
+          for (int x = 0; x < 16; ++x) ypix<P>(mb_x * 16 + x, mb_y * 16 + y)[0] = P(bits.u(depth));
+        for (int c = 0; c < (cfi ? 2 : 0); ++c)
+          for (int y = 0; y < mbhc; ++y)
+            for (int x = 0; x < 8; ++x) cpix<P>(c, mb_x * 8 + x, mb_y * mbhc + y)[0] = P(bits.u(depth));
+      });
       mb->cbp = 0x2F;
-      mb->qp = 0;
-      mb->qpc[0] = mb->qpc[1] = 0;
+      mb_qps(-qp_bd);           // libavcodec deblocks it at QP'Y 0
       std::memset(mb->nz, 16, sizeof(mb->nz));
       mb->dc_cbf = 7;
       prev_qp_delta_nz = 0;
@@ -2082,7 +2292,7 @@ struct H264Decoder::State {
         }
       }
     }
-    mb->chroma_mode = uint8_t(read_chroma_mode());
+    if (cfi) mb->chroma_mode = uint8_t(read_chroma_mode());
     if (!i16) mb->cbp = uint8_t(read_cbp(true));
     if (mb->cbp || i16) {
       int d = read_qp_delta();
@@ -2095,25 +2305,31 @@ struct H264Decoder::State {
       std::memset(coef, 0, sizeof(coef));     // no residual
       std::memset(coef8, 0, sizeof(coef8));
     }
-    // Reconstruction.
+    pixels([&](auto z) { intra_recon<decltype(z)>(i16, pred16); });
+  }
+
+  template <class P>
+  void intra_recon(bool i16, int pred16) {
     if (i16) {
-      intra16(pred16);
-      luma_i16_residual();
+      intra16<P>(pred16);
+      luma_i16_residual<P>();
     } else if (mb->kind == kI8x8) {
       for (int b8 = 0; b8 < 4; ++b8) {
         int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
-        intra8(b8, mb->ipred[(y / 4) * 4 + x / 4]);
-        add8x8(b8, true);
+        intra8<P>(b8, mb->ipred[(y / 4) * 4 + x / 4]);
+        add8x8<P>(b8, true);
       }
     } else {
       for (int k = 0; k < 16; ++k) {
         int rb = kBlkRaster[k];
-        intra4(rb, mb->ipred[rb]);
-        add4x4(rb, true);
+        intra4<P>(rb, mb->ipred[rb]);
+        add4x4<P>(rb, true);
       }
     }
-    intra_chroma(mb->chroma_mode);
-    chroma_residual(true);
+    if (cfi) {
+      intra_chroma<P>(mb->chroma_mode);
+      chroma_residual<P>(true);
+    }
   }
 
   // predIntra4x4PredMode / predIntra8x8PredMode of the block at (x4, y4).
@@ -2135,11 +2351,7 @@ struct H264Decoder::State {
     bool no_sub8x8_lt = true;
     if ((pslice && (t == 3 || t == 4)) || (!pslice && t == 22)) {
       // Sub-macroblocks.
-      for (int k = 0; k < 4; ++k) {
-        sub[k] = read_sub_type();
-        if (!pslice && sub[k] >= 4)
-          unsupported("H.264 B sub-macroblock partitions smaller than 8x8");
-      }
+      for (int k = 0; k < 4; ++k) sub[k] = read_sub_type();
       if (!pslice) {
         int mask = 0;
         for (int k = 0; k < 4; ++k)
@@ -2150,7 +2362,6 @@ struct H264Decoder::State {
           std::memset(done4, 0, sizeof(done4));
           if (!sps.direct_8x8_inference) no_sub8x8_lt = false;
         }
-
       } else {
         for (int k = 0; k < 4; ++k)
           if (sub[k] != 0) no_sub8x8_lt = false;
@@ -2174,6 +2385,7 @@ struct H264Decoder::State {
           w4[k] = kW[s];
           h4[k] = kH[s];
           use[k] = kU[s];
+          if (s != 0 && cnt[k] > 1) no_sub8x8_lt = false;
         }
       }
       bool direct[4];
@@ -2295,33 +2507,52 @@ struct H264Decoder::State {
     }
     mb->cbp = uint8_t(read_cbp(false));
     if ((mb->cbp & 15) && pps.transform_8x8 && no_sub8x8_lt) mb->t8x8 = read_t8x8();
-    inter_pred_mb();
     if (mb->cbp) {
       int d = read_qp_delta();
       set_qp(d);
       prev_qp_delta_nz = d != 0;
       residual(false);
-      if (mb->t8x8) {
-        for (int b8 = 0; b8 < 4; ++b8) add8x8(b8, false);
-      } else {
-        for (int rb = 0; rb < 16; ++rb) add4x4(rb, false);
-      }
-      chroma_residual(false);
     } else {
       set_qp(0);
       prev_qp_delta_nz = 0;
     }
+    pixels([&](auto z) { inter_recon<decltype(z)>(); });
+  }
+
+  template <class P>
+  void inter_recon() {
+    inter_pred_mb<P>();
+    if (!mb->cbp) return;
+    if (mb->t8x8) {
+      for (int b8 = 0; b8 < 4; ++b8) add8x8<P>(b8, false);
+    } else {
+      for (int rb = 0; rb < 16; ++rb) add4x4<P>(rb, false);
+    }
+    if (cfi) chroma_residual<P>(false);
   }
 
   // ===================================================== reconstruction
 
-  uint8_t* ypix(int x, int y) { return &cur->y[size_t(y) * cur->w + x]; }
-  uint8_t* cpix(int c, int x, int y) {
-    return &(c == 0 ? cur->u : cur->v)[size_t(y) * (cur->w / 2) + x];
+  // Samples of the picture being decoded (P: uint8_t at 8 bits, uint16_t
+  // above; see pixels()).
+  template <class F>
+  void pixels(F&& f) {
+    if (depth > 8) f(uint16_t());
+    else f(uint8_t());
+  }
+  int clipp(int v) const { return v < 0 ? 0 : v > pmax ? pmax : v; }
+  template <class P>
+  P* ypix(int x, int y) {
+    return reinterpret_cast<P*>(cur->y.data()) + size_t(y) * cur->w + x;
+  }
+  template <class P>
+  P* cpix(int c, int x, int y) {
+    return reinterpret_cast<P*>((c == 0 ? cur->u : cur->v).data()) + size_t(y) * (cur->w / 2) + x;
   }
 
   // Inverse 4x4 transform of d (raster, scaled) added to 4x4 pixels.
-  static void idct4_add(int32_t* d, uint8_t* dst, int stride) {
+  template <class P>
+  void idct4_add(int32_t* d, P* dst, int stride) const {
     int32_t t[16];
     for (int i = 0; i < 4; ++i) {
       int32_t* r = d + 4 * i;
@@ -2337,13 +2568,14 @@ struct H264Decoder::State {
       int e0 = g0 + g2, e1 = g0 - g2, e2 = (g1 >> 1) - g3, e3 = g1 + (g3 >> 1);
       int h[4] = {e0 + e3, e1 + e2, e1 - e2, e0 - e3};
       for (int i = 0; i < 4; ++i) {
-        uint8_t& p = dst[i * stride + j];
-        p = clip1(p + ((h[i] + 32) >> 6));
+        P& p = dst[i * stride + j];
+        p = P(clipp(p + ((h[i] + 32) >> 6)));
       }
     }
   }
 
-  static void idct8_add(int32_t* d, uint8_t* dst, int stride) {
+  template <class P>
+  void idct8_add(int32_t* d, P* dst, int stride) const {
     int32_t t[64];
     auto pass = [](const int32_t* in, int step, int32_t* o, int ostep) {
       int d0 = in[0], d1 = in[step], d2 = in[2 * step], d3 = in[3 * step];
@@ -2368,8 +2600,8 @@ struct H264Decoder::State {
     for (int j = 0; j < 8; ++j) pass(t + j, 8, r + j, 8);
     for (int i = 0; i < 8; ++i)
       for (int j = 0; j < 8; ++j) {
-        uint8_t& p = dst[i * stride + j];
-        p = clip1(p + ((r[8 * i + j] + 32) >> 6));
+        P& p = dst[i * stride + j];
+        p = P(clipp(p + ((r[8 * i + j] + 32) >> 6)));
       }
   }
 
@@ -2386,22 +2618,24 @@ struct H264Decoder::State {
     }
   }
 
+  template <class P>
   void add4x4(int rb, bool intra) {
     int32_t* c = coef[rb];
     bool any = false;
     for (int k = 0; k < 16; ++k) any |= c[k] != 0;
     if (!any) return;
-    scale4(c, intra ? 0 : 3, mb->qp, false);
+    scale4(c, intra ? 0 : 3, mb->qp + qp_bd, false);
     int x = (rb & 3) * 4, y = (rb >> 2) * 4;
-    idct4_add(c, ypix(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+    idct4_add(c, ypix<P>(mb_x * 16 + x, mb_y * 16 + y), cur->w);
   }
 
+  template <class P>
   void add8x8(int b8, bool intra) {
     int32_t* c = coef8[b8];
     bool any = false;
     for (int k = 0; k < 64; ++k) any |= c[k] != 0;
     if (!any) return;
-    int q = mb->qp, m = q % 6, s = q / 6;
+    int q = mb->qp + qp_bd, m = q % 6, s = q / 6;
     for (int k = 0; k < 64; ++k) {
       if (!c[k]) continue;
       int64_t v = int64_t(c[k]) * ls8[intra ? 0 : 1][m][k];
@@ -2410,9 +2644,10 @@ struct H264Decoder::State {
       c[k] = int32_t(v);
     }
     int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
-    idct8_add(c, ypix(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+    idct8_add(c, ypix<P>(mb_x * 16 + x, mb_y * 16 + y), cur->w);
   }
 
+  template <class P>
   void luma_i16_residual() {
     // DC: inverse scan, Hadamard, scale (8.5.10).
     int32_t c[16];
@@ -2433,7 +2668,7 @@ struct H264Decoder::State {
       f[8 + j] = b - d;
       f[12 + j] = b + d;
     }
-    int q = mb->qp, m = q % 6, s = q / 6;
+    int q = mb->qp + qp_bd, m = q % 6, s = q / 6;
     int ls = ls4[0][m][0];
     for (int k = 0; k < 16; ++k) {
       int64_t v = int64_t(f[k]) * ls;
@@ -2450,28 +2685,58 @@ struct H264Decoder::State {
       for (int k = 0; k < 16; ++k) any |= cb[k] != 0;
       if (!any) continue;
       int x = (rb & 3) * 4, y = (rb >> 2) * 4;
-      idct4_add(cb, ypix(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+      idct4_add(cb, ypix<P>(mb_x * 16 + x, mb_y * 16 + y), cur->w);
     }
   }
 
+  // Chroma DC (8.5.11: 2x2 for 4:2:0; 2x4 for 4:2:2, dequantised at
+  // QP'c + 3) and the AC blocks, added to the prediction.
+  template <class P>
   void chroma_residual(bool intra) {
     if (!(mb->cbp >> 4)) return;
     for (int c = 0; c < 2; ++c) {
-      int q = mb->qpc[c];
+      int q = mb->qpc[c] + qp_bd;
+      int list = (intra ? 1 : 4) + c;
       int32_t* d = cdc[c];
-      int f[4] = {d[0] + d[1] + d[2] + d[3], d[0] - d[1] + d[2] - d[3],
-                  d[0] + d[1] - d[2] - d[3], d[0] - d[1] - d[2] + d[3]};
-      int ls = ls4[(intra ? 1 : 4) + c][q % 6][0];
-      for (int b = 0; b < 4; ++b) {
+      int32_t dcs[8];
+      if (nc8 == 1) {
+        int f[4] = {d[0] + d[1] + d[2] + d[3], d[0] - d[1] + d[2] - d[3],
+                    d[0] + d[1] - d[2] - d[3], d[0] - d[1] - d[2] + d[3]};
+        int ls = ls4[list][q % 6][0];
+        for (int b = 0; b < 4; ++b)
+          dcs[b] = int32_t((int64_t(f[b]) * ls * (int64_t(1) << (q / 6))) >> 5);
+      } else {
+        // c (4 rows, 2 columns) from the scan: c0 c2 / c1 c5 / c3 c6 / c4 c7.
+        static const int kScan422[8] = {0, 2, 1, 5, 3, 6, 4, 7};
+        int cm[4][2], t[4][2];
+        for (int k = 0; k < 8; ++k) cm[k >> 1][k & 1] = d[kScan422[k]];
+        for (int i2 = 0; i2 < 4; ++i2) {
+          t[i2][0] = cm[i2][0] + cm[i2][1];
+          t[i2][1] = cm[i2][0] - cm[i2][1];
+        }
+        int qdc = q + 3, ls = ls4[list][qdc % 6][0];
+        for (int j2 = 0; j2 < 2; ++j2) {
+          int z0 = t[0][j2] + t[2][j2], z1 = t[0][j2] - t[2][j2];
+          int z2 = t[1][j2] - t[3][j2], z3 = t[1][j2] + t[3][j2];
+          int f[4] = {z0 + z3, z1 + z2, z1 - z2, z0 - z3};
+          for (int i2 = 0; i2 < 4; ++i2) {
+            int64_t v = int64_t(f[i2]) * ls;
+            if (qdc >= 36) v *= int64_t(1) << (qdc / 6 - 6);
+            else v = (v + (int64_t(1) << (5 - qdc / 6))) >> (6 - qdc / 6);
+            dcs[i2 * 2 + j2] = int32_t(v);
+          }
+        }
+      }
+      for (int b = 0; b < 4 * nc8; ++b) {
         int32_t* cb = cac[c][b];
         cb[0] = 0;
-        scale4(cb, (intra ? 1 : 4) + c, q, true);
-        cb[0] = int32_t((int64_t(f[b]) * ls * (int64_t(1) << (q / 6))) >> 5);
+        scale4(cb, list, q, true);
+        cb[0] = dcs[b];
         bool any = false;
         for (int k = 0; k < 16; ++k) any |= cb[k] != 0;
         if (!any) continue;
         int x = (b & 1) * 4, y = (b >> 1) * 4;
-        idct4_add(cb, cpix(c, mb_x * 8 + x, mb_y * 8 + y), cur->w / 2);
+        idct4_add(cb, cpix<P>(c, mb_x * 8 + x, mb_y * mbhc + y), cur->w / 2);
       }
     }
   }
@@ -2480,6 +2745,7 @@ struct H264Decoder::State {
 
   bool intra_avail(MbInfo* m) { return m && !(m->kind == kInter && pps.constrained_intra); }
 
+  template <class P>
   void intra4(int rb, int mode) {
     int bx = rb & 3, by = rb >> 2;
     int x0 = mb_x * 16 + bx * 4, y0 = mb_y * 16 + by * 4;
@@ -2492,18 +2758,18 @@ struct H264Decoder::State {
     bool has_tr = !(rb == 5 || rb == 7 || rb == 11 || rb == 13 || rb == 15) &&
                   intra_avail(nb4(bx + 1, by - 1, ba));
     int top[8], left[4], tl = 0;
-    uint8_t* P = ypix(x0, y0);
+    P* S = ypix<P>(x0, y0);
     int W = cur->w;
     if (has_t) {
-      for (int i = 0; i < 4; ++i) top[i] = P[-W + i];
-      for (int i = 4; i < 8; ++i) top[i] = has_tr ? P[-W + i] : top[3];
+      for (int i = 0; i < 4; ++i) top[i] = S[-W + i];
+      for (int i = 4; i < 8; ++i) top[i] = has_tr ? S[-W + i] : top[3];
     }
     if (has_l)
-      for (int i = 0; i < 4; ++i) left[i] = P[i * W - 1];
-    if (has_tl) tl = P[-W - 1];
+      for (int i = 0; i < 4; ++i) left[i] = S[i * W - 1];
+    if (has_tl) tl = S[-W - 1];
     auto T = [&](int x) { return x < 0 ? tl : top[x]; };
     auto L = [&](int y) { return y < 0 ? tl : left[y]; };
-    uint8_t pred[4][4];
+    int pred[4][4];
     for (int y = 0; y < 4; ++y)
       for (int x = 0; x < 4; ++x) {
         int v = 0;
@@ -2520,7 +2786,7 @@ struct H264Decoder::State {
             if (has_t && has_l) v = (top[0] + top[1] + top[2] + top[3] + left[0] + left[1] + left[2] + left[3] + 4) >> 3;
             else if (has_l) v = (left[0] + left[1] + left[2] + left[3] + 2) >> 2;
             else if (has_t) v = (top[0] + top[1] + top[2] + top[3] + 2) >> 2;
-            else v = 128;
+            else v = 1 << (depth - 1);
             break;
           }
           case 3:
@@ -2569,12 +2835,13 @@ struct H264Decoder::State {
           default:
             broken("H.264 intra 4x4 mode above 8");
         }
-        pred[y][x] = uint8_t(v);
+        pred[y][x] = v;
       }
     for (int y = 0; y < 4; ++y)
-      for (int x = 0; x < 4; ++x) P[y * W + x] = pred[y][x];
+      for (int x = 0; x < 4; ++x) S[y * W + x] = P(pred[y][x]);
   }
 
+  template <class P>
   void intra8(int b8, int mode) {
     int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
     int x0 = mb_x * 16 + bx * 4, y0 = mb_y * 16 + by * 4;
@@ -2583,16 +2850,16 @@ struct H264Decoder::State {
     bool has_t = intra_avail(nb4(bx, by - 1, ba));
     bool has_tl = intra_avail(nb4(bx - 1, by - 1, ba));
     bool has_tr = b8 == 3 ? false : b8 == 2 ? true : intra_avail(nb4(bx + 2, by - 1, ba));
-    uint8_t* P = ypix(x0, y0);
+    P* S = ypix<P>(x0, y0);
     int W = cur->w;
     int p_top[16], p_left[8], p_tl = 0;
     if (has_t) {
-      for (int i = 0; i < 8; ++i) p_top[i] = P[-W + i];
-      for (int i = 8; i < 16; ++i) p_top[i] = has_tr ? P[-W + i] : p_top[7];
+      for (int i = 0; i < 8; ++i) p_top[i] = S[-W + i];
+      for (int i = 8; i < 16; ++i) p_top[i] = has_tr ? S[-W + i] : p_top[7];
     }
     if (has_l)
-      for (int i = 0; i < 8; ++i) p_left[i] = P[i * W - 1];
-    if (has_tl) p_tl = P[-W - 1];
+      for (int i = 0; i < 8; ++i) p_left[i] = S[i * W - 1];
+    if (has_tl) p_tl = S[-W - 1];
     // Reference sample filtering (8.3.2.2.1).
     int top[16], left[8], tl = 0;
     if (has_t) {
@@ -2621,7 +2888,7 @@ struct H264Decoder::State {
     bool need_tl = mode == 4 || mode == 5 || mode == 6;
     if ((need_t && !has_t) || (need_l && !has_l) || (need_tl && !has_tl) || mode > 8)
       broken("H.264 intra 8x8 mode without its neighbours");
-    uint8_t pred[8][8];
+    int pred[8][8];
     for (int y = 0; y < 8; ++y)
       for (int x = 0; x < 8; ++x) {
         int v = 0;
@@ -2640,7 +2907,7 @@ struct H264Decoder::State {
               for (int i = 0; i < 8; ++i) s += top[i];
               v = (s + 4) >> 3;
             } else {
-              v = 128;
+              v = 1 << (depth - 1);
             }
             break;
           }
@@ -2682,26 +2949,27 @@ struct H264Decoder::State {
             break;
           }
         }
-        pred[y][x] = uint8_t(v);
+        pred[y][x] = v;
       }
     for (int y = 0; y < 8; ++y)
-      for (int x = 0; x < 8; ++x) P[y * W + x] = pred[y][x];
+      for (int x = 0; x < 8; ++x) S[y * W + x] = P(pred[y][x]);
   }
 
+  template <class P>
   void intra16(int mode) {
     bool has_l = intra_avail(mbA()), has_t = intra_avail(mbB()), has_tl = intra_avail(nb_mb(-1, -1));
-    uint8_t* P = ypix(mb_x * 16, mb_y * 16);
+    P* S = ypix<P>(mb_x * 16, mb_y * 16);
     int W = cur->w;
     int top[16], left[16];
     if (has_t)
-      for (int i = 0; i < 16; ++i) top[i] = P[-W + i];
+      for (int i = 0; i < 16; ++i) top[i] = S[-W + i];
     if (has_l)
-      for (int i = 0; i < 16; ++i) left[i] = P[i * W - 1];
+      for (int i = 0; i < 16; ++i) left[i] = S[i * W - 1];
     if ((mode == 0 && !has_t) || (mode == 1 && !has_l) || (mode == 3 && !(has_t && has_l && has_tl)))
       broken("H.264 intra 16x16 mode without its neighbours");
     if (mode == 0 || mode == 1) {
       for (int y = 0; y < 16; ++y)
-        for (int x = 0; x < 16; ++x) P[y * W + x] = uint8_t(mode == 0 ? top[x] : left[y]);
+        for (int x = 0; x < 16; ++x) S[y * W + x] = P(mode == 0 ? top[x] : left[y]);
     } else if (mode == 2) {
       int s = 0, v;
       if (has_t && has_l) {
@@ -2714,11 +2982,11 @@ struct H264Decoder::State {
         for (int i = 0; i < 16; ++i) s += top[i];
         v = (s + 8) >> 4;
       } else {
-        v = 128;
+        v = 1 << (depth - 1);
       }
-      for (int y = 0; y < 16; ++y) std::memset(P + y * W, v, 16);
+      for (int y = 0; y < 16; ++y) std::fill_n(S + y * W, 16, P(v));
     } else {
-      int tl = P[-W - 1];
+      int tl = S[-W - 1];
       auto T = [&](int x) { return x < 0 ? tl : top[x]; };
       auto L = [&](int y) { return y < 0 ? tl : left[y]; };
       int H = 0, V = 0;
@@ -2728,24 +2996,27 @@ struct H264Decoder::State {
       }
       int a = 16 * (left[15] + top[15]), b = (5 * H + 32) >> 6, c = (5 * V + 32) >> 6;
       for (int y = 0; y < 16; ++y)
-        for (int x = 0; x < 16; ++x) P[y * W + x] = clip1((a + b * (x - 7) + c * (y - 7) + 16) >> 5);
+        for (int x = 0; x < 16; ++x) S[y * W + x] = P(clipp((a + b * (x - 7) + c * (y - 7) + 16) >> 5));
     }
   }
 
+  // Intra chroma prediction (8.3.4) of the 8x8 (4:2:0) or 8x16 (4:2:2)
+  // blocks: DC per 4x4 block, horizontal, vertical, plane.
+  template <class P>
   void intra_chroma(int mode) {
     bool has_l = intra_avail(mbA()), has_t = intra_avail(mbB()), has_tl = intra_avail(nb_mb(-1, -1));
     if ((mode == 1 && !has_l) || (mode == 2 && !has_t) || (mode == 3 && !(has_t && has_l && has_tl)))
       broken("H.264 intra chroma mode without its neighbours");
-    int W = cur->w / 2;
+    int W = cur->w / 2, H = mbhc;
     for (int c = 0; c < 2; ++c) {
-      uint8_t* P = cpix(c, mb_x * 8, mb_y * 8);
-      int top[8], left[8];
+      P* S = cpix<P>(c, mb_x * 8, mb_y * H);
+      int top[8], left[16];
       if (has_t)
-        for (int i = 0; i < 8; ++i) top[i] = P[-W + i];
+        for (int i = 0; i < 8; ++i) top[i] = S[-W + i];
       if (has_l)
-        for (int i = 0; i < 8; ++i) left[i] = P[i * W - 1];
+        for (int i = 0; i < H; ++i) left[i] = S[i * W - 1];
       if (mode == 0) {
-        for (int b = 0; b < 4; ++b) {
+        for (int b = 0; b < 2 * H / 4; ++b) {
           int xo = (b & 1) * 4, yo = (b >> 1) * 4;
           int st = 0, sl = 0;
           if (has_t) for (int i = 0; i < 4; ++i) st += top[xo + i];
@@ -2755,33 +3026,34 @@ struct H264Decoder::State {
             if (has_t && has_l) v = (st + sl + 4) >> 3;
             else if (has_l) v = (sl + 2) >> 2;
             else if (has_t) v = (st + 2) >> 2;
-            else v = 128;
+            else v = 1 << (depth - 1);
           } else if (xo > 0) {
             if (has_t) v = (st + 2) >> 2;
             else if (has_l) v = (sl + 2) >> 2;
-            else v = 128;
+            else v = 1 << (depth - 1);
           } else {
             if (has_l) v = (sl + 2) >> 2;
             else if (has_t) v = (st + 2) >> 2;
-            else v = 128;
+            else v = 1 << (depth - 1);
           }
-          for (int y = 0; y < 4; ++y) std::memset(P + (yo + y) * W + xo, v, 4);
+          for (int y = 0; y < 4; ++y) std::fill_n(S + (yo + y) * W + xo, 4, P(v));
         }
       } else if (mode == 1 || mode == 2) {
-        for (int y = 0; y < 8; ++y)
-          for (int x = 0; x < 8; ++x) P[y * W + x] = uint8_t(mode == 1 ? left[y] : top[x]);
+        for (int y = 0; y < H; ++y)
+          for (int x = 0; x < 8; ++x) S[y * W + x] = P(mode == 1 ? left[y] : top[x]);
       } else {
-        int tl = P[-W - 1];
+        // xCF 0, yCF 4 for 4:2:2 (8-141 to 8-144).
+        int tl = S[-W - 1], ycf = H == 16 ? 4 : 0;
         auto T = [&](int x) { return x < 0 ? tl : top[x]; };
         auto L = [&](int y) { return y < 0 ? tl : left[y]; };
-        int H = 0, V = 0;
-        for (int k = 0; k < 4; ++k) {
-          H += (k + 1) * (T(4 + k) - T(2 - k));
-          V += (k + 1) * (L(4 + k) - L(2 - k));
-        }
-        int a = 16 * (left[7] + top[7]), b = (34 * H + 32) >> 6, cc = (34 * V + 32) >> 6;
-        for (int y = 0; y < 8; ++y)
-          for (int x = 0; x < 8; ++x) P[y * W + x] = clip1((a + b * (x - 3) + cc * (y - 3) + 16) >> 5);
+        int Hs = 0, V = 0;
+        for (int k = 0; k < 4; ++k) Hs += (k + 1) * (T(4 + k) - T(2 - k));
+        for (int k = 0; k < 4 + ycf; ++k) V += (k + 1) * (L(4 + ycf + k) - L(2 + ycf - k));
+        int a = 16 * (left[H - 1] + top[7]), b = (34 * Hs + 32) >> 6;
+        int cc = ((H == 16 ? 5 : 34) * V + 32) >> 6;
+        for (int y = 0; y < H; ++y)
+          for (int x = 0; x < 8; ++x)
+            S[y * W + x] = P(clipp((a + b * (x - 3) + cc * (y - 3 - ycf) + 16) >> 5));
       }
     }
   }
@@ -2793,19 +3065,21 @@ struct H264Decoder::State {
   // (stride 16). The half-sample planes a position needs are computed
   // once for the block: b (horizontal), h (vertical), j (centre, from
   // the unrounded horizontal sums).
-  static void mc_luma(const Frame& ref, int qx, int qy, int w, int h, uint8_t* dst) {
+  template <class P>
+  void mc_luma(const Frame& ref, int qx, int qy, int w, int h, uint16_t* dst) const {
     int x0 = qx >> 2, y0 = qy >> 2, fx = qx & 3, fy = qy & 3;
+    const P* plane = reinterpret_cast<const P*>(ref.y.data());
     // G(i, j) = g[(j + 2) * gs + i + 2], rows -2..h+2, columns -2..w+2.
-    uint8_t win[21 * 21];
-    const uint8_t* g;
+    P win[21 * 21];
+    const P* g;
     int gs;
     if (x0 - 2 >= 0 && y0 - 2 >= 0 && x0 + w + 3 <= ref.w && y0 + h + 3 <= ref.h) {
       gs = ref.w;
-      g = &ref.y[size_t(y0 - 2) * gs + x0 - 2];
+      g = plane + size_t(y0 - 2) * gs + x0 - 2;
     } else {
       gs = 21;
       for (int j = 0; j < h + 5; ++j) {
-        const uint8_t* row = &ref.y[size_t(clip3(0, ref.h - 1, y0 - 2 + j)) * ref.w];
+        const P* row = plane + size_t(clip3(0, ref.h - 1, y0 - 2 + j)) * ref.w;
         for (int i = 0; i < w + 5; ++i) win[j * 21 + i] = row[clip3(0, ref.w - 1, x0 - 2 + i)];
       }
       g = win;
@@ -2814,7 +3088,7 @@ struct H264Decoder::State {
     int mode = fy * 4 + fx;
     if (mode == 0) {
       for (int j = 0; j < h; ++j)
-        for (int i = 0; i < w; ++i) dst[j * 16 + i] = uint8_t(G(i, j));
+        for (int i = 0; i < w; ++i) dst[j * 16 + i] = uint16_t(G(i, j));
       return;
     }
     auto tap6 = [](int a, int b, int c, int d, int e, int f) {
@@ -2825,7 +3099,7 @@ struct H264Decoder::State {
     bool use_h = fy != 0 && !(mode == 6 || mode == 10 || mode == 14);
     // b1: unrounded horizontal sums, rows -2..h+2 (index j + 2).
     int b1[21][16];
-    uint8_t B[17][16], H[16][17], J[16][16];
+    int B[17][16], H[16][17], J[16][16];
     if (use_b || use_j) {
       int lo = use_j ? -2 : 0, hi = use_j ? h + 3 : h + 1;
       for (int j = lo; j < hi; ++j)
@@ -2833,16 +3107,16 @@ struct H264Decoder::State {
           b1[j + 2][i] = tap6(G(i - 2, j), G(i - 1, j), G(i, j), G(i + 1, j), G(i + 2, j), G(i + 3, j));
       if (use_b)
         for (int j = 0; j <= h; ++j)
-          for (int i = 0; i < w; ++i) B[j][i] = clip1((b1[j + 2][i] + 16) >> 5);
+          for (int i = 0; i < w; ++i) B[j][i] = clipp((b1[j + 2][i] + 16) >> 5);
     }
     if (use_h)
       for (int j = 0; j < h; ++j)
         for (int i = 0; i <= w; ++i)
-          H[j][i] = clip1((tap6(G(i, j - 2), G(i, j - 1), G(i, j), G(i, j + 1), G(i, j + 2), G(i, j + 3)) + 16) >> 5);
+          H[j][i] = clipp((tap6(G(i, j - 2), G(i, j - 1), G(i, j), G(i, j + 1), G(i, j + 2), G(i, j + 3)) + 16) >> 5);
     if (use_j)
       for (int j = 0; j < h; ++j)
         for (int i = 0; i < w; ++i)
-          J[j][i] = clip1((tap6(b1[j][i], b1[j + 1][i], b1[j + 2][i], b1[j + 3][i], b1[j + 4][i], b1[j + 5][i]) + 512) >> 10);
+          J[j][i] = clipp((tap6(b1[j][i], b1[j + 1][i], b1[j + 2][i], b1[j + 3][i], b1[j + 4][i], b1[j + 5][i]) + 512) >> 10);
     for (int j = 0; j < h; ++j)
       for (int i = 0; i < w; ++i) {
         int v;
@@ -2863,61 +3137,77 @@ struct H264Decoder::State {
           case 14: v = (J[j][i] + B[j + 1][i] + 1) >> 1; break;
           default: v = (H[j][i + 1] + B[j + 1][i] + 1) >> 1; break;
         }
-        dst[j * 16 + i] = uint8_t(v);
+        dst[j * 16 + i] = uint16_t(v);
       }
   }
 
-  static void mc_chroma(const Frame& ref, int c, int ex, int ey, int w, int h, uint8_t* dst) {
-    int cw = ref.w / 2, ch = ref.h / 2;
-    const std::vector<uint8_t>& pl = c == 0 ? ref.u : ref.v;
-    int x0 = ex >> 3, y0 = ey >> 3, fx = ex & 7, fy = ey & 7;
+  // Chroma samples of a w x h block at (x0 + fx / 8, y0 + fy / 8) of
+  // `ref`'s plane c, read clamped (8.4.2.2.2), into dst (stride 16).
+  template <class P>
+  static void mc_chroma(const Frame& ref, int c, int x0, int y0, int fx, int fy, int w, int h,
+                        uint16_t* dst) {
+    int cw = ref.w / 2, ch = ref.ch;
+    const P* pl = reinterpret_cast<const P*>((c == 0 ? ref.u : ref.v).data());
     for (int j = 0; j < h; ++j) {
       int ya = clip3(0, ch - 1, y0 + j), yb = clip3(0, ch - 1, y0 + j + 1);
       for (int i = 0; i < w; ++i) {
         int xa = clip3(0, cw - 1, x0 + i), xb = clip3(0, cw - 1, x0 + i + 1);
         int A = pl[size_t(ya) * cw + xa], Bv = pl[size_t(ya) * cw + xb];
         int C = pl[size_t(yb) * cw + xa], D = pl[size_t(yb) * cw + xb];
-        dst[j * 16 + i] = uint8_t(((8 - fx) * (8 - fy) * A + fx * (8 - fy) * Bv +
-                                   (8 - fx) * fy * C + fx * fy * D + 32) >> 6);
+        dst[j * 16 + i] = uint16_t(((8 - fx) * (8 - fy) * A + fx * (8 - fy) * Bv +
+                                    (8 - fx) * fy * C + fx * fy * D + 32) >> 6);
       }
     }
   }
 
   // Predicts a w4 x h4 block group at (x4, y4) with the motion stored in
   // the macroblock (both lists as used, weighted) into the picture.
+  template <class P>
   void predict_part(int x4, int y4, int w4, int h4) {
     int b8 = (y4 / 2) * 2 + x4 / 2;
     int r0 = mb->ref[0][b8], r1 = mb->ref[1][b8];
     int w = w4 * 4, h = h4 * 4;
-    uint8_t pl[2][3][256];
+    int cw = w / 2, chh = cfi == 2 ? h : h / 2;     // the chroma block
+    uint16_t pl[2][3][256];
     int blk = y4 * 4 + x4;
+    int planes = cfi ? 3 : 1;
     for (int l = 0; l < 2; ++l) {
       int r = l == 0 ? r0 : r1;
       if (r < 0) continue;
       const Frame& ref = *list[l][size_t(r)];
-      if (ref.w != cur->w || ref.h != cur->h) broken("H.264 reference picture of another size");
+      if (ref.w != cur->w || ref.h != cur->h || ref.cfi != cur->cfi || ref.depth != cur->depth)
+        broken("H.264 reference picture of another size or format");
       int mx = mb->mv[l][blk][0], my = mb->mv[l][blk][1];
       int px = mb_x * 16 + x4 * 4, py = mb_y * 16 + y4 * 4;
-      mc_luma(ref, px * 4 + mx, py * 4 + my, w, h, pl[l][0]);
-      for (int c = 0; c < 2; ++c)
-        mc_chroma(ref, c, (px / 2) * 8 + mx, (py / 2) * 8 + my, w / 2, h / 2, pl[l][1 + c]);
+      mc_luma<P>(ref, px * 4 + mx, py * 4 + my, w, h, pl[l][0]);
+      // Chroma vectors: 1/8 sample horizontally; vertically 1/8 (4:2:0)
+      // or 1/4 (4:2:2: its eighth as 2 * (my & 3)).
+      for (int c = 0; c < planes - 1; ++c) {
+        if (cfi == 2)
+          mc_chroma<P>(ref, c, px / 2 + (mx >> 3), py + (my >> 2), mx & 7, (my & 3) << 1,
+                       cw, chh, pl[l][1 + c]);
+        else
+          mc_chroma<P>(ref, c, px / 2 + (mx >> 3), py / 2 + (my >> 3), mx & 7, my & 7,
+                       cw, chh, pl[l][1 + c]);
+      }
     }
     if (r0 < 0 && r1 < 0) broken("H.264 inter block without a reference");
-    for (int comp = 0; comp < 3; ++comp) {
-      int cw = comp ? w / 2 : w, chh = comp ? h / 2 : h;
-      uint8_t* dst = comp == 0 ? ypix(mb_x * 16 + x4 * 4, mb_y * 16 + y4 * 4)
-                               : cpix(comp - 1, mb_x * 8 + x4 * 2, mb_y * 8 + y4 * 2);
+    for (int comp = 0; comp < planes; ++comp) {
+      int bw = comp ? cw : w, bh = comp ? chh : h;
+      P* dst = comp == 0 ? ypix<P>(mb_x * 16 + x4 * 4, mb_y * 16 + y4 * 4)
+                         : cpix<P>(comp - 1, mb_x * 8 + x4 * 2, mb_y * mbhc + y4 * (mbhc / 4));
       int stride = comp == 0 ? cur->w : cur->w / 2;
-      // Weights: explicit (P), implicit (B) or default.
+      // Weights: explicit (P), implicit (B) or default; explicit
+      // offsets scaled to the bit depth.
       bool explicit_w = sh.type == 0 && pps.weighted_pred;
-      for (int j = 0; j < chh; ++j)
-        for (int i = 0; i < cw; ++i) {
+      for (int j = 0; j < bh; ++j)
+        for (int i = 0; i < bw; ++i) {
           int v;
           if (r0 >= 0 && r1 >= 0) {
             int a = pl[0][comp][j * 16 + i], b = pl[1][comp][j * 16 + i];
             if (use_implicit) {
               int w0 = implicit_w[r0][r1][0], w1 = implicit_w[r0][r1][1];
-              v = clip1((a * w0 + b * w1 + 32) >> 6);
+              v = clipp((a * w0 + b * w1 + 32) >> 6);
             } else {
               v = (a + b + 1) >> 1;
             }
@@ -2928,18 +3218,19 @@ struct H264Decoder::State {
             if (explicit_w) {
               int lwd = comp ? sh.chroma_log2 : sh.luma_log2;
               int wt = comp ? sh.cw[l][r][comp - 1] : sh.lw[l][r];
-              int o = comp ? sh.co[l][r][comp - 1] : sh.lo[l][r];
-              if (lwd >= 1) v = clip1(((a * wt + (1 << (lwd - 1))) >> lwd) + o);
-              else v = clip1(a * wt + o);
+              int o = (comp ? sh.co[l][r][comp - 1] : sh.lo[l][r]) * (1 << (depth - 8));
+              if (lwd >= 1) v = clipp(((a * wt + (1 << (lwd - 1))) >> lwd) + o);
+              else v = clipp(a * wt + o);
             } else {
               v = a;
             }
           }
-          dst[j * stride + i] = uint8_t(v);
+          dst[j * stride + i] = P(v);
         }
     }
   }
 
+  template <class P>
   void inter_pred_mb() {
     // Predict in 4x4 units grouped where the motion is uniform: each 8x8
     // block as one unit when its four 4x4 blocks share their motion.
@@ -2956,9 +3247,9 @@ struct H264Decoder::State {
         }
       }
       if (same) {
-        predict_part(bx, by, 2, 2);
+        predict_part<P>(bx, by, 2, 2);
       } else {
-        for (int k = 0; k < 4; ++k) predict_part(bx + (k & 1), by + (k >> 1), 1, 1);
+        for (int k = 0; k < 4; ++k) predict_part<P>(bx + (k & 1), by + (k >> 1), 1, 1);
       }
     }
   }
@@ -3007,7 +3298,9 @@ struct H264Decoder::State {
 
   // Filters one line of samples across an edge (8.7.2.3-4): p[-k * step]
   // are p0..p3, p[k * step] q0..q3.
-  static void filter_line(uint8_t* s, int step, int bs, int alpha, int beta, int tc0, bool chroma) {
+  // alpha, beta and tc0 are scaled to the bit depth (8.7.2.2: times 2^(depth − 8)).
+  template <class P>
+  void filter_line(P* s, int step, int bs, int alpha, int beta, int tc0, bool chroma) const {
     int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
     if (!(std::abs(p0 - q0) < alpha && std::abs(p1 - p0) < beta && std::abs(q1 - q0) < beta)) return;
     if (bs < 4) {
@@ -3023,40 +3316,43 @@ struct H264Decoder::State {
         tc = tc0 + (ap < beta) + (aq < beta);
       }
       int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-      s[-step] = clip1(p0 + delta);
-      s[0] = clip1(q0 - delta);
+      s[-step] = clipp(p0 + delta);
+      s[0] = clipp(q0 - delta);
       if (!chroma) {
-        if (ap < beta) s[-2 * step] = uint8_t(p1 + clip3(-tc0, tc0, (p2 + ((p0 + q0 + 1) >> 1) - (p1 << 1)) >> 1));
-        if (aq < beta) s[step] = uint8_t(q1 + clip3(-tc0, tc0, (q2 + ((p0 + q0 + 1) >> 1) - (q1 << 1)) >> 1));
+        if (ap < beta) s[-2 * step] = P(p1 + clip3(-tc0, tc0, (p2 + ((p0 + q0 + 1) >> 1) - (p1 << 1)) >> 1));
+        if (aq < beta) s[step] = P(q1 + clip3(-tc0, tc0, (q2 + ((p0 + q0 + 1) >> 1) - (q1 << 1)) >> 1));
       }
       return;
     }
     if (chroma) {
-      s[-step] = uint8_t((2 * p1 + p0 + q1 + 2) >> 2);
-      s[0] = uint8_t((2 * q1 + q0 + p1 + 2) >> 2);
+      s[-step] = P((2 * p1 + p0 + q1 + 2) >> 2);
+      s[0] = P((2 * q1 + q0 + p1 + 2) >> 2);
       return;
     }
     int p2 = s[-3 * step], q2 = s[2 * step], p3 = s[-4 * step], q3 = s[3 * step];
     int ap = std::abs(p2 - p0), aq = std::abs(q2 - q0);
     bool strong = std::abs(p0 - q0) < ((alpha >> 2) + 2);
     if (ap < beta && strong) {
-      s[-step] = uint8_t((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
-      s[-2 * step] = uint8_t((p2 + p1 + p0 + q0 + 2) >> 2);
-      s[-3 * step] = uint8_t((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+      s[-step] = P((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+      s[-2 * step] = P((p2 + p1 + p0 + q0 + 2) >> 2);
+      s[-3 * step] = P((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
     } else {
-      s[-step] = uint8_t((2 * p1 + p0 + q1 + 2) >> 2);
+      s[-step] = P((2 * p1 + p0 + q1 + 2) >> 2);
     }
     if (aq < beta && strong) {
-      s[0] = uint8_t((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
-      s[step] = uint8_t((p0 + q0 + q1 + q2 + 2) >> 2);
-      s[2 * step] = uint8_t((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3);
+      s[0] = P((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+      s[step] = P((p0 + q0 + q1 + q2 + 2) >> 2);
+      s[2 * step] = P((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3);
     } else {
-      s[0] = uint8_t((2 * q1 + q0 + p1 + 2) >> 2);
+      s[0] = P((2 * q1 + q0 + p1 + 2) >> 2);
     }
   }
 
+  template <class P>
   void deblock_picture() {
     std::vector<MbInfo>& M = cur->mbs;
+    const int sc = 1 << (depth - 8);
+    const int W = cur->w, CW = cur->w / 2;
     // The deblocking parameters of each slice (from its header).
     for (int addr = 0; addr < mb_w * mb_h; ++addr) {
       const MbInfo& q = M[size_t(addr)];
@@ -3073,8 +3369,13 @@ struct H264Decoder::State {
             if (sp.idc == 2 && p->slice != q.slice) continue;
           } else {
             p = &q;
-            if (q.t8x8 && (e & 1)) continue;
           }
+          // Luma skips the 4x4 edges inside an 8x8 transform; chroma
+          // filters its own 4-sample edges: at luma edges 0 and 2 but
+          // for 4:2:2's horizontal ones (chroma rows 0, 4, 8, 12).
+          bool luma = mb_edge || !(q.t8x8 && (e & 1));
+          bool chroma = cfi != 0 && ((e & 1) == 0 || (cfi == 2 && dir == 1));
+          if (!luma && !chroma) continue;
           int bs[4];
           bool any = false;
           for (int k = 0; k < 4; ++k) {
@@ -3084,44 +3385,36 @@ struct H264Decoder::State {
             any |= bs[k] > 0;
           }
           if (!any) continue;
-          // Luma.
-          {
+          if (luma) {
             int qpav = (p->qp + q.qp + 1) >> 1;
             int ia = clip3(0, 51, qpav + sp.alpha), ib = clip3(0, 51, qpav + sp.beta);
-            int alpha = kAlpha[ia], beta = kBeta[ib];
+            int alpha = kAlpha[ia] * sc, beta = kBeta[ib] * sc;
             for (int k = 0; k < 16; ++k) {
               int b = bs[k >> 2];
               if (!b) continue;
               int px = x * 16 + (dir == 0 ? e * 4 : k), py = y * 16 + (dir == 0 ? k : e * 4);
-              uint8_t* s = &cur->y[size_t(py) * cur->w + px];
-              filter_line(s, dir == 0 ? 1 : cur->w, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, false);
+              filter_line(ypix<P>(px, py), dir == 0 ? 1 : W, b, alpha, beta,
+                          b < 4 ? kTc0[ia][b - 1] * sc : 0, false);
             }
           }
-          // Chroma: edges 0 and 2 of luma (chroma 0 and 4).
-          if (e & 1) continue;
+          if (!chroma) continue;
           for (int c = 0; c < 2; ++c) {
             int qpav = (p->qpc[c] + q.qpc[c] + 1) >> 1;
-            if (p->kind == kPcm || q.kind == kPcm) {
-              int qp_p = p->kind == kPcm ? kChromaQp[clip3(0, 51, pps.chroma_qp_offset[c])] : p->qpc[c];
-              int qp_q = q.kind == kPcm ? kChromaQp[clip3(0, 51, pps.chroma_qp_offset[c])] : q.qpc[c];
-              qpav = (qp_p + qp_q + 1) >> 1;
-            }
             int ia = clip3(0, 51, qpav + sp.alpha), ib = clip3(0, 51, qpav + sp.beta);
-            int alpha = kAlpha[ia], beta = kBeta[ib];
-            int W = cur->w / 2;
-            std::vector<uint8_t>& pl = c == 0 ? cur->u : cur->v;
-            for (int k = 0; k < 8; ++k) {
-              int b = bs[k >> 1];
+            int alpha = kAlpha[ia] * sc, beta = kBeta[ib] * sc;
+            int lines = dir == 0 ? mbhc : 8;
+            for (int k = 0; k < lines; ++k) {
+              int b = bs[dir == 0 ? k * 4 / mbhc : k >> 1];
               if (!b) continue;
-              int px = x * 8 + (dir == 0 ? e * 2 : k), py = y * 8 + (dir == 0 ? k : e * 2);
-              uint8_t* s = &pl[size_t(py) * W + px];
-              filter_line(s, dir == 0 ? 1 : W, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, true);
+              int px = x * 8 + (dir == 0 ? e * 2 : k);
+              int py = y * mbhc + (dir == 0 ? k : e * (mbhc / 4));
+              filter_line(cpix<P>(c, px, py), dir == 0 ? 1 : CW, b, alpha, beta,
+                          b < 4 ? kTc0[ia][b - 1] * sc : 0, true);
             }
           }
         }
       }
     }
-    slice_params.clear();
   }
 
   // Each slice's deblocking parameters, by slice number.
@@ -3130,6 +3423,39 @@ struct H264Decoder::State {
   };
   std::vector<SliceParams> slice_params;
 };
+
+// The SPS's max_num_reorder_frames as libavcodec holds it: the VUI's,
+// else (with references) inferred from the level's MaxDpbMbs
+// (h264_ps.c), capped at 15.
+int H264Decoder::num_reorder_frames() const {
+  const Sps* q = nullptr;
+  for (const Sps& c : s_->sps_table)
+    if (c.valid && !q) q = &c;
+  if (s_->cur || s_->mb_w) q = &s_->sps;
+  if (!q) return 0;
+  if (q->bitstream_restriction || !q->max_num_ref_frames) return q->num_reorder_frames;
+  static const int kMaxDpbMbs[16][2] = {
+      {10, 396}, {11, 900}, {12, 2376}, {13, 2376}, {20, 2376}, {21, 4752},
+      {22, 8100}, {30, 8100}, {31, 18000}, {32, 20480}, {40, 32768}, {41, 32768},
+      {42, 34816}, {50, 110400}, {51, 184320}, {52, 184320}};
+  int n = kMaxDelayed - 1;
+  for (const auto& l : kMaxDpbMbs)
+    if (l[0] == q->level) {
+      n = std::min(l[1] / (q->mb_w * q->mb_h), n);
+      break;
+    }
+  return n;
+}
+
+int H264Decoder::delay() const { return s_->has_b_frames; }
+void H264Decoder::set_delay(int delay) { s_->has_b_frames = std::min(std::max(delay, 0), kMaxDelayed); }
+void H264Decoder::headers_only() { s_->headers_only = true; }
+bool H264Decoder::step(const uint8_t* data, size_t n) {
+  bool out = s_->step(data, n);
+  s_->next_output.reset();
+  return out;
+}
+bool H264Decoder::guesses_delay() const { return s_->guesses_delay; }
 
 H264Decoder::H264Decoder(const std::vector<uint8_t>& config) : s_(new State()) {
   if (config.empty()) return;

@@ -30,6 +30,10 @@ struct Picture {
   int w = 0, h = 0;
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
+  // Above 8 bits (H.264's High 10 and High 4:2:2 at 9 or 10 bits): the
+  // samples are in y16, u16, v16 (y, u, v empty), strides in samples.
+  int depth = 8;
+  std::vector<uint16_t> y16, u16, v16;
   int xshift = 1, yshift = 1;
   bool grey = false;
   // The decode call (counted from 0 by the decoder that gave it) whose
@@ -40,6 +44,11 @@ struct Picture {
   // The YCbCr matrix as swscale's colour space index (SWS_CS_*): 5 is
   // BT.601 (swscale's default), 1 BT.709, 7 SMPTE 240M, 9 BT.2020.
   int matrix = 5;
+  // The chroma siting libavcodec gives the frame (AVChromaLocation):
+  // 0 unspecified (swscale's default), 1 left (H.264's default), 2
+  // centre, 3 top left, 4 top, 5 bottom left, 6 bottom. cv2's swscale
+  // places the chroma samples by it when it scales them.
+  int chroma_loc = 0;
 };
 
 // ffmpeg's "simple" integer IDCT (simple_idct_template.c, 8 bits) of a
@@ -118,8 +127,10 @@ class Vp9Decoder {
   std::unique_ptr<State> s_;
 };
 
-// The H.264 decoder (progressive 8-bit 4:2:0: Baseline, Main and High
-// profiles) for x264's streams (see h264.cpp).
+// The H.264 decoder (frame pictures, 4:2:0, 4:2:2 and monochrome at 8,
+// 9 and 10 bits: Baseline, Main, High, High 10 and High 4:2:2 with
+// their Intra profiles) for the streams of x264 and cameras (see
+// h264.cpp).
 class H264Decoder {
  public:
   // `config`: the avcC record of an MP4 avc1/avc3 sample entry or a
@@ -140,6 +151,24 @@ class H264Decoder {
   // Read one packet's NAL unit types only: 0 when it holds an IDR
   // picture, 1 another picture, -1 none.
   int peek(const uint8_t* data, size_t n);
+
+  // libavcodec's reorder depth (AVCodecContext.has_b_frames): now, and
+  // where it starts (libavformat hands cv2's decoder the depth its own
+  // probing found, AVCodecParameters.video_delay).
+  int delay() const;
+  void set_delay(int delay);
+  // The active (else the first) SPS's max_num_reorder_frames as
+  // libavcodec holds it: inferred from the level without the VUI's
+  // bitstream_restriction.
+  int num_reorder_frames() const;
+  // Order pictures from their headers without decoding their
+  // macroblocks (libavformat's probe needs only the output order).
+  void headers_only();
+  // decode() without the picture: whether one is output.
+  bool step(const uint8_t* data, size_t n);
+  // Whether a B slice came under an SPS without bitstream_restriction
+  // (the reorder depth is then libavcodec's guess).
+  bool guesses_delay() const;
 
  private:
   struct State;

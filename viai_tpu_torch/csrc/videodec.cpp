@@ -149,6 +149,9 @@ struct Track {
   // container's display matrix; cv2 turns the picture when it is 90,
   // 180 or 270 (CAP_PROP_ORIENTATION_AUTO, on by default).
   int orientation = 0;
+  // H.264 in MP4: the reorder depth libavformat's demuxer guesses from
+  // the composition times (AVCodecParameters.video_delay), else 0.
+  int video_delay = 0;
 };
 
 namespace {
@@ -541,6 +544,31 @@ void sample_times(const std::vector<uint8_t>& f, const std::vector<Box>& sb,
   if (i < n) broken("MP4 ctts shorter than the track");
 }
 
+// libavformat's mov_estimate_video_delay: each sample's composition
+// time (in decode order) sorted into a ring of the last 17 by swaps;
+// the most swaps one needs is the reorder depth.
+int guess_video_delay(const std::vector<int64_t>& cts) {
+  const int kRing = 17;                     // MAX_REORDER_DELAY + 1
+  int64_t buf[kRing];
+  for (int64_t& v : buf) v = INT64_MIN;
+  int start = 0, delay = 0;
+  for (int64_t pts : cts) {
+    int j = start;
+    start = (start + 1) % kRing;
+    buf[j] = pts;
+    int swaps = 0;
+    while (j != start) {
+      int r = j == 0 ? kRing - 1 : j - 1;
+      if (buf[j] >= buf[r]) break;
+      std::swap(buf[j], buf[r]);
+      ++swaps;
+      j = r;
+    }
+    delay = std::max(delay, swaps);
+  }
+  return delay;
+}
+
 // A full box's timescale (mvhd, mdhd: after the version's times).
 int64_t timescale(const std::vector<uint8_t>& f, const Box* b) {
   if (!b || b->body + 24 > b->end)
@@ -807,6 +835,11 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
     if (sizes[i])
       t.packets.push_back({offs[i], sizes[i], key[i], discard[i]});
   t.count = int64_t(n);
+  if (t.codec == Codec::kH264 && child(sb, "ctts") && n) {
+    std::vector<int64_t> dts, cts;
+    sample_times(f, sb, n, dts, cts);
+    t.video_delay = guess_video_delay(cts);
+  }
 }
 
 // cv2's view of an MP4 file's movie fragments (libavformat's mov_read_moof,
@@ -2137,18 +2170,21 @@ int64_t step(int src_n, int dst_n) {
   return ((int64_t(src_n) << 16) + (dst_n >> 1)) / dst_n;
 }
 
-// hScale8To15 of a plane's rows → (rows, dst_n) 15-bit samples.
-std::vector<int> hscale(const uint8_t* src, int stride, int rows,
-                        const Filter& f, int dst_n) {
+// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 or 10 bits in
+// uint16_t) of a plane's rows → (rows, dst_n) 15-bit samples.
+template <class T>
+std::vector<int> hscale(const T* src, int stride, int rows, const Filter& f,
+                        int dst_n, int depth) {
+  const int sh = depth > 8 ? depth - 1 : 7;
   std::vector<int> out(size_t(rows) * dst_n);
   for (int y = 0; y < rows; ++y) {
-    const uint8_t* s = src + size_t(y) * stride;
+    const T* s = src + size_t(y) * stride;
     for (int i = 0; i < dst_n; ++i) {
       const int* c = &f.coef[size_t(i) * f.size];
       int val = 0;
       for (int j = 0; j < f.size; ++j)
         if (c[j]) val += s[f.pos[i] + j] * c[j];
-      out[size_t(y) * dst_n + i] = std::min(val >> 7, (1 << 15) - 1);
+      out[size_t(y) * dst_n + i] = std::min(val >> sh, (1 << 15) - 1);
     }
   }
   return out;
@@ -2174,15 +2210,10 @@ struct Tables {
   int term(int64_t c, int x) const {
     return int(-(c >> 9) + ((int64_t(clip_u8(x)) * c) >> 16));
   }
-  // yuv2rgb_write for one pair: Y1, Y2 and their U, V (clipped together
-  // when any has bit 8 set, as the C output does).
+  // yuv2rgb_write for one pair: Y1, Y2 and their U, V (U and V clipped
+  // by the tables' headroom; Y read as it is: 256 from 10-bit 1022 and
+  // 1023 reads the ramp one step on, as swscale's table pointers do).
   void pair(int y1, int y2, int u, int v, uint8_t* o, bool two) const {
-    if ((y1 | y2 | u | v) & 0x100) {
-      y1 = clip_u8(y1);
-      y2 = clip_u8(y2);
-      u = clip_u8(u);
-      v = clip_u8(v);
-    }
     int r = yoffs + term(crv, v), b = yoffs + term(cbu, u);
     int g = yoffs + term(cgu, u) + term(cgv, v);
     o[0] = ramp[size_t(b + y1)];
@@ -2217,25 +2248,40 @@ inline void full_pixel(const BgrCoeffs& k, int yoff, int y, int u, int v,
   o[2] = uint8_t(r >> 22);
 }
 
-std::vector<uint8_t> scaled_bgr(const Picture& p) {
+// Samples of depth d are read as swscale's 15-bit lines: Y << (15 − d)
+// (luma at 1:1 is one tap of 1 << 14, so its horizontal pass is exact).
+template <class T>
+std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
+                                const T* pv) {
   const int w = p.w, h = p.h, xs = p.xshift, ys = p.yshift;
+  const int lsh = 15 - p.depth;
   const bool full = (xs == 0 && ys == 0) || (w & 1);
   const int dxs = full ? 0 : 1;
   const int csw = (w + (1 << xs) - 1) >> xs, csh = (h + (1 << ys) - 1) >> ys;
   const int cdw = (w + (1 << dxs) - 1) >> dxs;
+  // The source's chroma siting: av_chroma_location_enum_to_pos's x, and
+  // its y where chroma rows are halved, through get_local_pos; else
+  // swscale's default.
+  auto src_pos = [&](int shift, bool across) {
+    if (p.chroma_loc < 1 || p.chroma_loc > 6 || (!across && !shift))
+      return local_pos(shift);
+    int l = p.chroma_loc - 1;
+    int pos = across ? (l & 1) * 128 : ((l >> 1) ^ (l < 4)) * 128;
+    return (pos + 128) >> shift;
+  };
   Filter hf = init_filter(step(csw, cdw), csw, cdw, 4, 1 << 14,
-                          local_pos(xs), local_pos(dxs));
-  Filter vf = init_filter(step(csh, h), csh, h, 2, 1 << 12, local_pos(ys),
-                          local_pos(0));
-  std::vector<int> U = hscale(p.u.data(), p.cstride, csh, hf, cdw);
-  std::vector<int> V = hscale(p.v.data(), p.cstride, csh, hf, cdw);
+                          src_pos(xs, true), local_pos(dxs));
+  Filter vf = init_filter(step(csh, h), csh, h, 2, 1 << 12,
+                          src_pos(ys, false), local_pos(0));
+  std::vector<int> U = hscale(pu, p.cstride, csh, hf, cdw, p.depth);
+  std::vector<int> V = hscale(pv, p.cstride, csh, hf, cdw, p.depth);
   const BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   const int yoff_full = round16(k.oy << 9);
   const Tables tab(k, p.full_range);
   std::vector<uint8_t> out(size_t(w) * h * 3);
   const int n = vf.size;
   for (int y = 0; y < h; ++y) {
-    const uint8_t* yr = &p.y[size_t(y) * p.ystride];
+    const T* yr = py + size_t(y) * p.ystride;
     const int* c = &vf.coef[size_t(y) * n];
     const int* u0 = &U[size_t(vf.pos[y]) * cdw];
     const int* v0 = &V[size_t(vf.pos[y]) * cdw];
@@ -2253,8 +2299,11 @@ std::vector<uint8_t> scaled_bgr(const Picture& p) {
       return s;
     };
     uint8_t* o = &out[size_t(y) * w * 3];
-    // Luma at 1:1 is one tap of 1: each output's scaling of its 15-bit
-    // line (Y << 7) is exact, Y << 9 (C), Y · 8 (MMXEXT), Y (tables).
+    // Luma's vertical filter is one tap of 4096 too; each output scales
+    // its 15-bit line L: L · 4 (C, full chroma), L >> 4 (MMXEXT, plus its
+    // rounder with n taps), (L + 64) >> 7 (the C lookup tables); at 8
+    // bits Y << 9, Y · 8, Y.
+    auto L = [&](int x) { return int(yr[x]) << lsh; };
     if (full) {
       for (int x = 0; x < w; ++x) {
         int u, v;
@@ -2270,7 +2319,7 @@ std::vector<uint8_t> scaled_bgr(const Picture& p) {
           u = int(((1 << 9) - (int64_t(128) << 19) + sum(U, x)) >> 10);
           v = int(((1 << 9) - (int64_t(128) << 19) + sum(V, x)) >> 10);
         }
-        full_pixel(k, yoff_full, yr[x] << 9, u, v, o + 3 * x);
+        full_pixel(k, yoff_full, L(x) * 4, u, v, o + 3 * x);
       }
     } else if (y < h - 2) {                      // MMXEXT
       for (int i = 0; i < cdw; ++i) {
@@ -2289,7 +2338,7 @@ std::vector<uint8_t> scaled_bgr(const Picture& p) {
           }
         }
         for (int x = 2 * i; x < 2 * i + 2 && x < w; ++x)
-          simd_pixel(k, (yr[x] << 3) + (one_tap ? 0 : 4), u8, v8, o + 3 * x);
+          simd_pixel(k, (L(x) >> 4) + (one_tap ? 0 : 4), u8, v8, o + 3 * x);
       }
     } else {                                      // C, the last two lines
       for (int i = 0; i < cdw; ++i) {
@@ -2305,8 +2354,8 @@ std::vector<uint8_t> scaled_bgr(const Picture& p) {
           v = int(((1 << 18) + sum(V, i)) >> 19);
         }
         int x = 2 * i;
-        tab.pair(yr[x], x + 1 < w ? yr[x + 1] : 0, u, v, o + 3 * x,
-                 x + 1 < w);
+        tab.pair((L(x) + 64) >> 7, x + 1 < w ? (L(x + 1) + 64) >> 7 : 0, u, v,
+                 o + 3 * x, x + 1 < w);
       }
     }
   }
@@ -2315,8 +2364,12 @@ std::vector<uint8_t> scaled_bgr(const Picture& p) {
 
 }  // namespace sws
 
-// A picture → (h, w, 3) BGR24, as swscale converts it for cv2.
+// A picture → (h, w, 3) BGR24, as swscale converts it for cv2 (above 8
+// bits always through its scaler: it has no unscaled converter from
+// yuv420p10/yuv422p10 to bgr24).
 std::vector<uint8_t> to_bgr(const Picture& p) {
+  if (p.depth > 8)
+    return sws::scaled_bgr(p, p.y16.data(), p.u16.data(), p.v16.data());
   std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
   if (p.grey) {
     for (int y = 0; y < p.h; ++y)
@@ -2325,7 +2378,8 @@ std::vector<uint8_t> to_bgr(const Picture& p) {
                     p.y[size_t(y) * p.ystride + x], 3);
     return out;
   }
-  if (p.xshift != 1 || (p.h & 1)) return sws::scaled_bgr(p);
+  if (p.xshift != 1 || (p.h & 1))
+    return sws::scaled_bgr(p, p.y.data(), p.u.data(), p.v.data());
   BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   for (int y = 0; y < p.h; ++y) {
     const uint8_t* yr = &p.y[size_t(y) * p.ystride];
@@ -2434,7 +2488,32 @@ class Decoder {
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
     if (t.codec == Codec::kVp8) vp8_.reset(new Vp8Decoder());
     if (t.codec == Codec::kVp9) vp9_.reset(new Vp9Decoder());
-    if (t.codec == Codec::kH264) h264_.reset(new H264Decoder(t.config));
+    if (t.codec == Codec::kH264) {
+      h264_.reset(new H264Decoder(t.config));
+      h264_->set_delay(probe_delay(t));
+    }
+  }
+
+  // The reorder depth libavformat's avformat_find_stream_info leaves in
+  // AVCodecParameters.video_delay, where cv2's decoder starts: the MP4
+  // demuxer's guess, grown by what the probe's own decoder (one thread)
+  // finds while it decodes the first pictures, until it has output 7 of
+  // them (18 once its depth is 3, 20 from 4) or its depth is the SPS's
+  // max_num_reorder_frames (has_decode_delay_been_guessed). Only the
+  // pictures' order matters, so their macroblocks are not decoded.
+  static int probe_delay(const Track& t) {
+    H264Decoder probe(t.config);
+    probe.headers_only();
+    probe.set_delay(t.video_delay);
+    int outputs = 0;
+    auto guessed = [&]() {
+      int d = probe.delay();
+      if (d && d == probe.num_reorder_frames()) return true;
+      return outputs >= (d < 3 ? 7 : d < 4 ? 18 : 20);
+    };
+    for (size_t i = 0; i < t.packets.size() && !guessed(); ++i)
+      if (probe.step(&t.file[t.packets[i].off], t.packets[i].size)) ++outputs;
+    return probe.delay();
   }
 
   // Packet i → a picture in `out`; false when it gives none (H.264's
@@ -2623,6 +2702,62 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
 
 void viai_video_free(uint8_t* p) { std::free(p); }
 
+// Planes of (h, w) luma and chroma (h >> yshift, w >> xshift, rounded
+// up), 8-bit (depth 8: bytes) or 9, 10-bit (uint16_t), rows packed →
+// out (h, w, 3) BGR24 as to_bgr converts a decoded picture; full_range,
+// matrix (swscale's colour space) and chroma_loc as Picture's. → 0, or 1
+// with err set for a layout to_bgr has no route for.
+int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
+                        int32_t w, int32_t h, int32_t xshift, int32_t yshift,
+                        int32_t depth, int32_t full_range, int32_t matrix,
+                        int32_t chroma_loc, uint8_t* out, char* err,
+                        int32_t errlen) {
+  try {
+    if (w < 1 || h < 1 || xshift < 0 || xshift > 1 || yshift < 0 || yshift > 1 ||
+        depth < 8 || depth > 10)
+      viai_video::broken("a picture layout to_bgr does not convert");
+    Picture p;
+    p.w = w;
+    p.h = h;
+    p.xshift = xshift;
+    p.yshift = yshift;
+    p.depth = depth;
+    p.full_range = full_range != 0;
+    p.matrix = matrix;
+    p.chroma_loc = chroma_loc;
+    p.ystride = w;
+    p.cstride = (w + (1 << xshift) - 1) >> xshift;
+    const size_t ny = size_t(w) * h,
+                 nc = size_t(p.cstride) * ((h + (1 << yshift) - 1) >> yshift);
+    if (depth > 8) {
+      auto words = [](const void* s, size_t n) {
+        const uint16_t* q = static_cast<const uint16_t*>(s);
+        return std::vector<uint16_t>(q, q + n);
+      };
+      p.y16 = words(y, ny);
+      p.u16 = words(u, nc);
+      p.v16 = words(v, nc);
+    } else {
+      auto bytes = [](const void* s, size_t n) {
+        const uint8_t* q = static_cast<const uint8_t*>(s);
+        return std::vector<uint8_t>(q, q + n);
+      };
+      p.y = bytes(y, ny);
+      p.u = bytes(u, nc);
+      p.v = bytes(v, nc);
+    }
+    std::vector<uint8_t> bgr = viai_video::to_bgr(p);
+    std::memcpy(out, bgr.data(), bgr.size());
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+    return 1;
+  }
+}
+
 // viai_tpu/data/av.py::_load_frames_video → out (n_frames, size, size, 3)
 // float32 RGB in [0, 1]: the indices of cv2's frame count over the
 // window (float64 rule) as a set; the frames found among them, each
@@ -2683,16 +2818,22 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       size_t start = 0;
       if (t.codec == viai_video::Codec::kH264) {
         viai_video::H264Decoder scan(t.config);
+        scan.headers_only();
         int64_t pics = 0;
         // Pictures an MP4 edit discards are not counted.
         for (size_t i = 0; i < t.packets.size(); ++i) {
-          int kind = scan.peek(&t.file[t.packets[i].off], t.packets[i].size);
+          const uint8_t* d = &t.file[t.packets[i].off];
+          int kind = scan.peek(d, t.packets[i].size);
+          scan.step(d, t.packets[i].size);
           if (kind == 0 && pics <= want.front()) {
             start = i;
             n = pics;
           }
           if (kind >= 0 && !t.packets[i].discard) ++pics;
         }
+        // A guessed reorder depth may drop pictures (as cv2's libavcodec
+        // does) and grows as the stream goes: count from the start.
+        if (scan.guesses_delay()) start = 0, n = 0;
       }
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       bool done = false;

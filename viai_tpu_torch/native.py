@@ -85,6 +85,11 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32]
     lib.viai_video_free.restype = None
     lib.viai_video_free.argtypes = [ctypes.c_void_p]
+    lib.viai_yuv_to_bgr.restype = ctypes.c_int32
+    lib.viai_yuv_to_bgr.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int32] * 8 + [ctypes.c_void_p, ctypes.c_char_p,
+                               ctypes.c_int32]
     lib.viai_load_video_frames.restype = ctypes.c_int32
     lib.viai_load_video_frames.argtypes = [
         ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
@@ -309,11 +314,14 @@ def decode_video(path: str) -> np.ndarray:
     as libavcodec's encoder and XviD write them: B-VOPs, packed or not,
     in libavcodec's output order; quarter-pel, GMC, 4MV, AC prediction,
     MPEG quantisation, video packets, data partitioning; not interlace),
-    VP8 and VP9 (profile 0: their shown frames), H.264
-    (progressive 8-bit 4:2:0: Baseline, Main and High, in libavcodec's
-    output order); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
+    VP8 and VP9 (profile 0: their shown frames), H.264 (frame pictures
+    of Baseline, Main, High, High 10 and High 4:2:2 at 8 to 10 bits,
+    4:2:0, 4:2:2 and monochrome, progressive frames of interlace-capable
+    streams too, in libavcodec's output order and number, its guessed
+    reorder depth included); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
     list's dropped frames left out; fragmented too), converted to BGR24
-    as swscale does (its scaler for odd heights and 4:4:4/4:4:0) and
+    as swscale does (its scaler for odd heights, 4:4:4/4:4:0 and 9 or 10
+    bits, H.264's chroma sited left) and
     turned as cv2 turns them by the track's orientation (90, 180 or 270
     degrees: the MP4 display matrix, a Matroska Projection's roll).
     Raises ValueError for
@@ -337,6 +345,35 @@ def decode_video(path: str) -> np.ndarray:
             lib.viai_video_free(ptr)
     finally:
         lib.viai_video_close(h)
+
+
+def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+               shift: tuple[int, int] = (1, 1), depth: int = 8,
+               full_range: bool = False, matrix: int = 5,
+               chroma_loc: int = 0) -> np.ndarray:
+    """Planes of a decoded picture → (h, w, 3) BGR uint8, as the video
+    reader converts them (swscale's routes to BGR24, as cv2 runs them):
+    `y` (h, w), `u` and `v` (h >> yshift, w >> xshift, rounded up) for
+    `shift` = (xshift, yshift): (1, 1) 4:2:0, (1, 0) 4:2:2, (0, 0) 4:4:4,
+    (0, 1) 4:4:0; uint8 at depth 8, uint16 holding 9 or 10-bit samples;
+    limited range unless `full_range`; `matrix` swscale's colour space (5
+    BT.601, 1 BT.709); `chroma_loc` the frame's AVChromaLocation (0
+    unspecified, 1 left as H.264's frames, 2 centre, 3 top left ...),
+    where swscale's scaler places the chroma samples."""
+    h, w = y.shape
+    xs, ys = shift
+    kind = np.uint8 if depth == 8 else np.uint16
+    planes = [np.ascontiguousarray(p, kind) for p in (y, u, v)]
+    if u.shape != v.shape or u.shape != ((h + ys) >> ys, (w + xs) >> xs):
+        raise ValueError("chroma planes of another size than the layout's")
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    rc = library().viai_yuv_to_bgr(
+        *(p.ctypes.data for p in planes), w, h, xs, ys, depth,
+        int(full_range), matrix, chroma_loc, out.ctypes.data, err, _ERR_LEN)
+    if rc:
+        raise _image_error(rc, err)
+    return out
 
 
 def load_video_frames(path: str, n_frames: int, size: int,
