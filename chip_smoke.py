@@ -110,12 +110,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      Simple Profile files (XviD in AVI: packed B-VOPs, quarter-pel, 4MV,
      GMC; libavcodec's mpeg4 in MP4: B-VOPs, 4MV, AC prediction) and
      once from phone clips (H.264 turned 90 degrees with AAC, and
-     fragmented), GL launches 2 and plain 0 each; the eval CLI on a
-     musices split of each folder; each MPEG-4 fixture's max |Δ|, each
-     phone and muxer fixture's count and orientation; the decode time
-     per frame of each codec, of a turned frame against the same file
-     unturned, a clip's read of 16 frames, the loader's wait share of a
-     step from each folder and the host's cores;
+     fragmented), once from camera clips (High 4:2:2 10-bit, PsF) and
+     once from browser clips (VP9 profile 2 10-bit BT.2020, VP9
+     realtime with reference scaling and a size change), GL launches 2
+     and plain 0 each; the eval CLI on a musices split of each folder;
+     each MPEG-4 fixture's max |Δ|, each phone and muxer fixture's count
+     and orientation, each camera and browser fixture's count and
+     max |Δ|, the browser clips' reads against the JAX package's
+     committed picks; the decode time per frame of each codec, of a
+     turned frame against the same file unturned, a 10-bit frame's
+     conversion share, a picture's upscale to the first one's size, a
+     scaled-reference frame's read against an unscaled one's, a clip's
+     read of 16 frames, the loader's wait share of a step from each
+     folder and the host's cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
@@ -351,9 +358,18 @@ FRAMES_WARMUP = 3
 # bits with B-frames: an XAVC S 4:2:2 10-bit camera's long GOP) and
 # clip_avchd.mkv (progressive frames of an interlace-capable High stream
 # with B-frames, its bitstream_restriction cleared: AVCHD at 25p as
-# `ffmpeg -c copy` remuxes it), beside the H.264 that cameras and other
+# `ffmpeg -c copy` remuxes it), clip_hdr.webm (VP9 profile 2, 10-bit
+# 4:2:0, BT.2020, two-pass with alt-refs: YouTube's HDR VP9) and
+# clip_rtc.webm (VP9 realtime that drops to 112x112 by reference scaling
+# and comes back with a keyframe: a WebRTC or MediaRecorder recording;
+# its small pictures converted up to the first picture's size as cv2's
+# swscale converts them), beside the H.264 that cameras and other
 # encoders write (CAMERA_FIXTURES: 10-bit, 4:2:2, monochrome, PsF,
-# reorder depths libavcodec guesses, B sub-8x8 partitions). Decoded
+# reorder depths libavcodec guesses, B sub-8x8 partitions) and the VP9
+# that YouTube and browsers write and pictures that change size
+# mid-stream (BROWSER_FIXTURES: profiles 1-3 at 8, 10 and 12 bits in
+# 4:2:0, 4:2:2, 4:4:0, 4:4:4 and sRGB, reference scaling, SVC superframes
+# with an intra-only frame, new sizes in VP9, MJPEG and H.264). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -372,7 +388,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
                  "xvid": ("clip_xvid.avi", "clip_dx50.mp4"),
                  "phone": ("clip_phone.mp4", "clip_frag.mp4"),
-                 "camera": ("clip_xavc.mp4", "clip_avchd.mkv")}
+                 "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
+                 "browser": ("clip_hdr.webm", "clip_rtc.webm")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -381,6 +398,20 @@ CAMERA_FIXTURES = (
     "h264_pcm10_avi", "h264_psf_mp4", "h264_psfcrop_mkv", "h264_psfsei_avi",
     "h264_norestrict_avi", "h264_norestrict_mp4", "h264_novui_mkv",
     "h264_deep_avi", "h264_sub8x8_avi")
+# the committed fixtures of VP9 as YouTube and browsers write it and of
+# pictures that change size mid-stream (tests/_torch_make_videos.py's
+# BROWSER_CASES), each held and printed; and the browser folder's clips,
+# whose .npz also hold the JAX package's picks of 16 frames at 64x64 for
+# each window (levels; (-1, -1) for the whole clip)
+BROWSER_FIXTURES = (
+    "vp9_hdr10_webm", "vp9_hdr12_mp4", "vp9_444_mkv", "vp9_422_webm",
+    "vp9_440_avi", "vp9_44410_mp4", "vp9_44012_webm", "vp9_42210_mkv",
+    "vp9_srgb_webm", "vp9_srgb10_mkv", "vp9_srgb12_mp4",
+    "vp9_scaled_webm", "vp9_scaledkf_mkv",
+    "vp9_scaledaq_mp4", "vp9_scaledodd_avi", "vp9_scaled10_webm",
+    "vp9_svc_webm", "vp9_newsize_webm", "vp9_container_webm",
+    "mjpeg_newsize_avi", "h264_newsize_avi")
+BROWSER_CLIPS = ("clip_hdr_webm", "clip_rtc_webm")
 VIDEO_REPS = 3
 TURN_ROUNDS = 7         # [video]: turned and unturned decodes, in turns
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
@@ -1918,37 +1949,24 @@ def write_video_clips(root: pathlib.Path, wavs: list[str],
     return files
 
 
-def phase_video(dev, ckpt: str, card: str) -> int:
-    """Compressed video on the card ([video]): (a) native.decode_video on
-    the committed fixtures against cv2's committed decodes, frame counts
-    and orientations, an unread codec (HEVC: clip.mp4 relabelled hvc1)
-    raising;
-    (b) the av model trained 20 steps at full width through the train CLI
-    from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
-    Matroska, and a MOV through prepare_dataset extract), VP8 clips
-    (WebM, Matroska), VP9 clips (WebM, MP4), H.264 clips (MP4,
-    Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
-    H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
-    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4),
-    then phone clips (H.264 turned 90 degrees with AAC, and fragmented),
-    then camera clips (High 4:2:2 10-bit in MP4, PsF without
-    bitstream_restriction in Matroska);
-    (c) the eval CLI on a musices split of each; (d) the decode time per
-    frame of each codec, a turned frame's against the same file's
-    unturned, a 10-bit frame's conversion share, a clip's read, the
-    loader's wait share of a step from each folder. Returns the GL
-    kernel's launches."""
+def video_fixtures():
+    """[video] (a): native.decode_video on the committed fixtures against
+    cv2's committed decodes, frame counts and orientations (a clip's
+    .npz named <stem>_<ext>), the browser clips' reads against the JAX
+    package's committed picks, an unread codec (HEVC: clip.mp4 relabelled
+    hvc1) raising."""
     from viai_tpu_torch import native
 
-    # (a) the decoders against cv2's committed decodes
     worst = {c: 0 for c in VIDEO_TOL}
     n_frames = {c: 0 for c in VIDEO_TOL}
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
+    per_browser = []
     for npz in cases:
-        path = next(p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
-                    if p.suffix != ".npz")
+        path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
+                     if p.suffix != ".npz"),
+                    VIDEO_FIXTURES / ".".join(npz.stem.rsplit("_", 1)))
         ref = np.load(npz)
         track = native.video_track(str(path), packets=False)
         got = native.decode_video(str(path))
@@ -1967,6 +1985,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             per_camera.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} (cv2 "
                 f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
+        if npz.stem in BROWSER_FIXTURES or npz.stem in BROWSER_CLIPS:
+            per_browser.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
         if "orientation" in ref:
             require(track.orientation == int(ref["orientation"]),
                     f"[video] {path.name}: orientation {track.orientation}, "
@@ -1992,6 +2015,26 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     require(len(per_camera) == len(CAMERA_FIXTURES),
             f"[video] {len(per_camera)} camera fixtures of "
             f"{len(CAMERA_FIXTURES)}")
+    log(f"[video] VP9 as YouTube and browsers write it, and new sizes "
+        f"mid-stream ({len(per_browser)} fixtures): " + "; ".join(per_browser))
+    require(len(per_browser) == len(BROWSER_FIXTURES) + len(BROWSER_CLIPS),
+            f"[video] {len(per_browser)} browser fixtures of "
+            f"{len(BROWSER_FIXTURES) + len(BROWSER_CLIPS)}")
+    for name in BROWSER_CLIPS:
+        ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
+        path = str(VIDEO_FIXTURES / ".".join(name.rsplit("_", 1)))
+        picks = []
+        for k, window in enumerate(ref["picks_windows"]):
+            w = None if window[0] < 0 else tuple(float(x) for x in window)
+            got = native.load_video_frames(path, FRAMES[0], FRAMES[1], w)
+            err = float(np.abs(got - ref["picks"][k] / np.float32(255)).max())
+            require(err == 0.0, f"[video] {name} {w}: load_video_frames "
+                    f"max|Δ| {err * 255:.3f} / 255 against the committed "
+                    f"picks")
+            picks.append(f"{w}: {err * 255:.0f}")
+        log(f"[video] {name}: load_video_frames of {FRAMES[0]} frames at "
+            f"{FRAMES[1]}x{FRAMES[2]} against the JAX package's committed "
+            f"picks, max|Δ| / 255 per window: " + ", ".join(picks))
     require(all(n_files.values()), f"[video] a codec without fixtures: "
             f"{n_files}")
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
@@ -2008,6 +2051,35 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                     f"[video] HEVC raises without naming it: {e}")
             log(f"[video] clip.mp4 relabelled hvc1 raises "
                 f"NotImplementedError: {e}")
+
+
+
+def phase_video(dev, ckpt: str, card: str) -> int:
+    """Compressed video on the card ([video]): (a) native.decode_video on
+    the committed fixtures against cv2's committed decodes, frame counts
+    and orientations, an unread codec (HEVC: clip.mp4 relabelled hvc1)
+    raising;
+    (b) the av model trained 20 steps at full width through the train CLI
+    from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
+    Matroska, and a MOV through prepare_dataset extract), VP8 clips
+    (WebM, Matroska), VP9 clips (WebM, MP4), H.264 clips (MP4,
+    Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
+    H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
+    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4),
+    then phone clips (H.264 turned 90 degrees with AAC, and fragmented),
+    then camera clips (High 4:2:2 10-bit in MP4, PsF without
+    bitstream_restriction in Matroska), then browser clips (VP9 profile
+    2 10-bit BT.2020, VP9 realtime with reference scaling and a size
+    change, in WebM);
+    (c) the eval CLI on a musices split of each; (d) the decode time per
+    frame of each codec, a turned frame's against the same file's
+    unturned, a 10-bit frame's conversion share, a clip's read, the
+    loader's wait share of a step from each folder. Returns the GL
+    kernel's launches."""
+    from viai_tpu_torch import native
+
+    # (a) the decoders against cv2's committed decodes
+    video_fixtures()
 
     # (b), (c) av training and evaluation from each folder of video files
     corpus = pathlib.Path(ckpt) / "corpus"
@@ -2046,7 +2118,12 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_frag.mp4", "H.264 High, fragmented, AAC"),
                        ("clip_xavc.mp4", "H.264 High 4:2:2, 10-bit, B"),
                        ("clip_avchd.mkv",
-                        "H.264 High, PsF, B, no bitstream_restriction")):
+                        "H.264 High, PsF, B, no bitstream_restriction"),
+                       ("clip_hdr.webm",
+                        "VP9 profile 2, 10-bit, BT.2020, alt-refs"),
+                       ("clip_rtc.webm",
+                        "VP9 realtime, 6 frames at 112x112 by reference "
+                        "scaling, scaled up to 224x224")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2058,6 +2135,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
             f"{FRAMES[2]} (load_video_frames, one thread); {card}")
     video_turn_cost(best_ms, card)
     video_conversion_cost(best_ms, card)
+    video_browser_costs(best_ms, card)
     for folder, root in roots.items():
         video_wait_share(folder, root, ckpt, dev, card)
     return total
@@ -2121,6 +2199,48 @@ def video_conversion_cost(best_ms, card: str):
     log(f"[video] clip_xavc.mp4 ({w}x{h} 4:2:2 10-bit): conversion to BGR "
         f"{conv:.3f} ms of the {dec:.3f} ms a frame's decode takes "
         f"({conv / dec:.1%}; swscale's scaler, one thread); {card}")
+
+
+def video_browser_costs(best_ms, card: str):
+    """[video] (d): the share of clip_hdr.webm's 10-bit frame that its
+    conversion to BGR takes (swscale's scaler, yuv420p10, BT.2020), and
+    what a picture of another size than the stream's first costs to
+    convert (clip_rtc.webm's 112x112 pictures scaled to 224x224 by the
+    bicubic scaler) against one at its own size."""
+    from viai_tpu_torch import native
+
+    path = str(VIDEO_FIXTURES / "clip_hdr.webm")
+    n, h, w = native.decode_video(path).shape[:3]
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 1024, (h, w)).astype(np.uint16)
+    u, v = (rng.integers(0, 1024, (h // 2, w // 2)).astype(np.uint16)
+            for _ in range(2))
+    dec = best_ms(lambda: native.decode_video(path)) / n
+    conv = best_ms(lambda: native.yuv_to_bgr(y, u, v, (1, 1), 10,
+                                             matrix=9))
+    log(f"[video] clip_hdr.webm ({w}x{h} 4:2:0 10-bit): conversion to BGR "
+        f"{conv:.3f} ms of the {dec:.3f} ms a frame's decode takes "
+        f"({conv / dec:.1%}; swscale's scaler, one thread); {card}")
+    small = [rng.integers(0, 256, s).astype(np.uint8)
+             for s in ((112, 112), (56, 56), (56, 56))]
+    full = [rng.integers(0, 256, s).astype(np.uint8)
+            for s in ((224, 224), (112, 112), (112, 112))]
+    up = best_ms(lambda: native.yuv_to_bgr(*small, size=(224, 224)))
+    same = best_ms(lambda: native.yuv_to_bgr(*full))
+    log(f"[video] clip_rtc.webm's pictures to BGR at 224x224: 112x112 "
+        f"4:2:0 scaled up (swscale's bicubic scaler, as cv2 converts a "
+        f"picture of another size than the first) {up:.3f} ms, 224x224 at "
+        f"its own size (unscaled converter) {same:.3f} ms; {card}")
+    # Reads from the keyframe: frames 0-5 (224x224), then 0-11, whose
+    # frames 6-11 are 112x112 from scaled references, scaled up.
+    path = str(VIDEO_FIXTURES / "clip_rtc.webm")
+    early, both = (best_ms(lambda: native.load_video_frames(
+        path, FRAMES[0], FRAMES[1], (0.0, w1))) for w1 in (0.35, 0.74))
+    log(f"[video] clip_rtc.webm read from its keyframe: frames 0-5 "
+        f"(224x224) {early:.3f} ms, {early / 6:.3f} ms a frame; frames "
+        f"6-11 (112x112, scaled references, scaled up to 224x224) "
+        f"{both - early:.3f} ms more, {(both - early) / 6:.3f} ms a frame "
+        f"({(both - early) / early:.2f}x); {card}")
 
 
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,

@@ -68,7 +68,11 @@ which the card's machine does not have, so the fixtures are committed):
     tfhd, tfdt, trun), Matroska without DefaultDuration, and a sound track
     beside the video (`audio_track`'s PCM in AVI, MP4 and Matroska;
     `aac_track`, AAC from the system's libavcodec 59 through ctypes, in
-    MP4);
+    MP4); the files of BROWSER_CASES, VP9 as YouTube and browsers write
+    it (`libvpx_encode` at 10 and 12 bits, in 4:2:2, 4:4:0, 4:4:4 and
+    sRGB, with a size schedule for reference scaling, two SVC layers
+    with an intra-only frame) and pictures that change size mid-stream
+    in VP9, MJPEG and H.264 (`browser_file`);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); `count`, `CAP_PROP_FRAME_COUNT`; and for
@@ -83,8 +87,9 @@ which the card's machine does not have, so the fixtures are committed):
     committed 224x224 jpeg clip
     (tests/torch_frames/clip/) as video (CLIP_CASES), and `clip_phone.mp4`
     (a phone's: turned 90 degrees, AAC) and `clip_frag.mp4` (fragmented)
-    of a 224x160 crop (PHONE_CLIPS), the clips chip_smoke.py trains from
-    and times.
+    of a 224x160 crop (PHONE_CLIPS), `clip_hdr.webm` and `clip_rtc.webm`
+    (BROWSER_CLIPS, their .npz with the JAX package's picks), the clips
+    chip_smoke.py trains from and times.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
 that moves over a drifting background, so that the MPEG-4 and VP8 clips'
@@ -447,14 +452,91 @@ CAMERA_CLIPS = {
     "clip_avchd_mkv": dict(fake_interlaced=1, bframes=2, keyint=12,
                            edit="no restriction"),
 }
+# name: a stream of video as YouTube and browsers write it, held by
+# tests/test_torch_video_browser.py, in the container its name ends with
+# (browser_file: WebM/Matroska V_VP9, MP4 vp09 with its vpcC box, AVI
+# VP90). VP9 from libvpx_encode (one thread) of moving_frames at 48x64,
+# 10 frames, with these settings: profile 2 at 10 and 12 bits in BT.2020
+# (YouTube's HDR), profiles 1 and 3 in 4:4:4, 4:2:2 and 4:4:0 at 8, 10
+# and 12 bits, sRGB (GBR) in profiles 1 and 3; `sizes`, runs of (h, w, frames)
+# of moving_frames at 64x96 resized (INTER_AREA) where smaller, realtime
+# (libvpx codes a new size from the references it has: reference
+# scaling down and back up, with `keyframes` forced); `svc`, two spatial
+# layers (each packet a superframe that shows both pictures) with the
+# base layer coded intra-only at frame 6. `kind` "streams": pictures
+# that change size mid-stream (F4), two streams of `parts` (h, w, frames)
+# one after the other: libvpx's VP9 (the second from a keyframe of its
+# own size), PIL's JPEGs (MJPEG), libx264's H.264 (the second from an
+# IDR with its own SPS; B-frames and a crop when `bframes`); `container`,
+# the (w, h) the container declares instead of the first picture's.
+BROWSER_CASES = {
+    "vp9_hdr10_webm": dict(profile=2, bit_depth=10, color_space=5),
+    "vp9_hdr12_mp4": dict(profile=2, bit_depth=12, color_space=5),
+    "vp9_444_mkv": dict(profile=1, layout="444"),
+    "vp9_422_webm": dict(profile=1, layout="422"),
+    "vp9_440_avi": dict(profile=1, layout="440"),
+    "vp9_44410_mp4": dict(profile=3, bit_depth=10, layout="444"),
+    "vp9_44012_webm": dict(profile=3, bit_depth=12, layout="440"),
+    "vp9_42210_mkv": dict(profile=3, bit_depth=10, layout="422"),
+    "vp9_srgb_webm": dict(profile=1, layout="gbr", color_space=7),
+    "vp9_srgb10_mkv": dict(profile=3, bit_depth=10, layout="gbr",
+                           color_space=7),
+    "vp9_srgb12_mp4": dict(profile=3, bit_depth=12, layout="gbr",
+                           color_space=7),
+    "vp9_scaled_webm": dict(sizes=[(64, 96, 6), (32, 48, 6), (64, 96, 6)],
+                            realtime_speed=8),
+    "vp9_scaledkf_mkv": dict(sizes=[(64, 96, 6), (32, 48, 6), (64, 96, 4)],
+                             realtime_speed=8, keyframes={12}),
+    "vp9_scaledaq_mp4": dict(sizes=[(64, 96, 5), (48, 72, 6), (64, 96, 4)],
+                             realtime_speed=6, aq_mode=3,
+                             frame_parallel=False),
+    "vp9_scaledodd_avi": dict(sizes=[(64, 96, 5), (36, 60, 5), (50, 80, 4)],
+                              realtime_speed=5, frame_parallel=False),
+    "vp9_scaled10_webm": dict(sizes=[(64, 96, 5), (32, 48, 5), (64, 96, 4)],
+                              realtime_speed=8, profile=2, bit_depth=10,
+                              color_space=5),
+    "vp9_svc_webm": dict(sizes=[(64, 96, 12)], svc=dict(layers=2,
+                                                        intra_only=True),
+                         keyframes={6}),
+    "vp9_newsize_webm": dict(kind="streams", codec="vp9",
+                             parts=[(64, 96, 10), (48, 64, 10)]),
+    "vp9_container_webm": dict(kind="streams", codec="vp9",
+                               parts=[(64, 96, 6), (48, 64, 6)],
+                               container=(80, 60)),
+    "mjpeg_newsize_avi": dict(kind="streams", codec="mjpeg",
+                              parts=[(64, 96, 10), (48, 64, 10)]),
+    "h264_newsize_avi": dict(kind="streams", codec="h264",
+                             parts=[(64, 96, 8), (40, 56, 8)], bframes=2),
+}
+# the clips chip_smoke.py's `browser` folder trains from, of the committed
+# 224x224 clip's first 16 frames: YouTube's HDR VP9 (profile 2, 10-bit
+# 4:2:0, BT.2020, two-pass good quality with alt-refs) and a WebRTC or
+# MediaRecorder recording (profile 0 realtime, down to 112x112 by
+# reference scaling for frames 6-11, back at 224x224 from a keyframe);
+# BROWSER_CASES' settings; held as BROWSER_CASES are, their .npz also
+# holding the JAX package's picks of 16 frames at 64x64 for each of
+# BROWSER_PICKS (`picks`, levels: the [0, 1] frames times 255;
+# `picks_windows`, (-1, -1) for None)
+BROWSER_CLIPS = {
+    "clip_hdr_webm": dict(profile=2, bit_depth=10, color_space=5,
+                          two_pass=True, frame_parallel=False),
+    "clip_rtc_webm": dict(sizes=[(224, 224, 6), (112, 112, 6),
+                                 (224, 224, 4)],
+                          realtime_speed=8, keyframes={12}),
+}
+# the windows of BROWSER_CLIPS' committed picks (16 frames at 64x64)
+BROWSER_PICKS = (None, (0.25, 0.75), (0.5, 1.0))
 # Every case with an .npz of cv2's view
-HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES)
+HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
+        *BROWSER_CLIPS)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
     if name in PHONE_CLIPS or name in CAMERA_CLIPS:
         return "h264"
+    if name in BROWSER_CLIPS:
+        return "vp9"
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
                 "DX50": "mpeg4", "VP80": "vp8",
@@ -464,7 +546,7 @@ def codec_of(name: str) -> str:
 
 
 def path_of(name: str) -> str:
-    if name in PHONE_CLIPS or name in CAMERA_CLIPS:
+    if name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS:
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -1245,7 +1327,9 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
                   frame_parallel: bool | None = None,
                   color_range: int | None = None,
                   color_space: int | None = None,
-                  realtime_speed: int | None = None) -> list[bytes]:
+                  realtime_speed: int | None = None, bit_depth: int = 8,
+                  layout: str = "420", keyframes=(),
+                  svc: dict | None = None) -> list[bytes]:
     """VP8 or VP9 packets of `frames` (BGR) from libvpx's encoder API,
     loaded from the libvpx that cv2's wheel bundles (1.15's structure
     layouts): one thread, good quality, the given profile,
@@ -1260,7 +1344,22 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
     allows) and rows, the AQ mode, lossless, frame-parallel decoding
     (None: libvpx's default, on), colour range (1 full) and colour space
     (2 BT.709), and a realtime speed (one pass, no lag, the realtime
-    deadline)."""
+    deadline).
+
+    VP9's other formats: `bit_depth` 10 or 12 (g_bit_depth and
+    g_input_bit_depth, the high-bit-depth init flag and 16-bit images of
+    `planes_of`'s samples shifted up) and `layout` "420", "422", "444",
+    "440" (`vpx_planes`) or "gbr" (the frame's G, B and R planes as
+    4:4:4, for colour space 7, sRGB). `frames` may change size: a frame
+    of another size than the one before it reconfigures the encoder
+    (vpx_codec_enc_config_set, g_w and g_h), which codes a smaller size
+    from the references it has (reference scaling) and a size past the
+    first with a keyframe; `keyframes`, the frames forced to be
+    keyframes (VPX_EFLAG_FORCE_KF). `svc`: VP9's spatial layers
+    ("layers", each a 1/2 step down; "intra_only", the base layer's
+    frames at `keyframes` coded intra-only by VP9E_SET_SVC_SPATIAL_LAYER_
+    SYNC), realtime mode; each packet a superframe of the layers'
+    frames."""
     import ctypes
     import glob
 
@@ -1297,7 +1396,12 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
 
     h, w = frames[0].shape[:2]
     vp9 = codec == "vp9"
-    deadline = 1 if realtime_speed is not None else 1000000
+    deadline = 1 if realtime_speed is not None or svc else 1000000
+    high = bit_depth > 8
+    fmt = {"420": 0x102, "422": 0x105, "444": 0x106, "440": 0x107,
+           "gbr": 0x106}[layout] | (0x800 if high else 0)
+    lib.vpx_codec_enc_config_set.restype = ctypes.c_int
+    lib.vpx_codec_enc_config_set.argtypes = [vp, vp]
 
     def run(pass_no: int, stats: bytes = b"") -> list[bytes]:
         iface = getattr(lib, f"vpx_codec_{codec}_cx")()
@@ -1309,8 +1413,18 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
         cfg[10] = pass_no
         if two_pass:
             cfg[11] = 16                           # g_lag_in_frames
-        if realtime_speed is not None:
+        if realtime_speed is not None or svc:
             cfg[11] = 0
+        if high:
+            cfg[5] = cfg[6] = bit_depth            # g_(input_)bit_depth
+        if svc:
+            # CBR at 400 kb/s over `layers` spatial layers, one temporal
+            # layer: rc_end_usage, rc_target_bitrate, ss_number_layers,
+            # ts_number_layers, layer_target_bitrate (1.15's layout)
+            n = svc["layers"]
+            cfg[18], cfg[28], cfg[43], cfg[54] = 1, 400, n, 1
+            for k in range(n):
+                cfg[82 + k] = 400 * (k + 1) // n
         keep = ctypes.create_string_buffer(stats, len(stats) or 1)
         if pass_no == 2:                           # rc_twopass_stats_in
             ctypes.c_void_p.from_buffer(cfg, 80).value = \
@@ -1318,8 +1432,9 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
             ctypes.c_size_t.from_buffer(cfg, 88).value = len(stats)
         ctx = (ctypes.c_uint8 * 256)()
         # The ABI version the library was built with: the one it accepts.
-        if not any(lib.vpx_codec_enc_init_ver(ctx, iface, cfg,
-                                              ctypes.c_long(0), v) == 0
+        flags = ctypes.c_long(0x40000 if high else 0)   # USE_HIGHBITDEPTH
+        if not any(lib.vpx_codec_enc_init_ver(ctx, iface, cfg, flags,
+                                              v) == 0
                    for v in range(1, 100)):
             raise RuntimeError("libvpx: the encoder does not initialise")
         controls = [(16, sharpness)]
@@ -1336,9 +1451,22 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
                              (13, realtime_speed)):
                 if val is not None:
                     controls.append((cid, val))
+        if svc:
+            controls.append((39, 1))               # VP9E_SET_SVC
         for cid, val in controls:
             if lib.vpx_codec_control_(ctx, cid, ctypes.c_int(val)):
                 raise RuntimeError(f"libvpx: control {cid} refused")
+        if svc:
+            # vpx_svc_extra_cfg_t: quantiser ranges, scaling factors (1/2
+            # a layer down), speeds, temporal layering mode, loop filter
+            n = svc["layers"]
+            extra = (ctypes.c_int * (12 * 6 + 1))()
+            for k in range(n):
+                extra[k], extra[12 + k] = 56, 2
+                extra[24 + k], extra[36 + k] = 1, 1 << (n - 1 - k)
+                extra[48 + k] = 7
+            if lib.vpx_codec_control_(ctx, 41, ctypes.byref(extra)):
+                raise RuntimeError("libvpx: SVC parameters refused")
         if roi:
             blk = 8 if vp9 else 16
             rows, cols = (h + blk - 1) // blk, (w + blk - 1) // blk
@@ -1354,8 +1482,7 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
                                       ctypes.byref(m)):
                 raise RuntimeError("libvpx: ROI map refused")
         img = (ctypes.c_uint8 * 512)()             # vpx_image_t
-        buf = (ctypes.c_uint8 * (w * h + 2 * ((w + 1) // 2) * ((h + 1) // 2)))()
-        lib.vpx_img_wrap(img, 0x102, w, h, 1, buf)   # I420
+        size = (h, w)
         out = []
 
         def drain():
@@ -1369,8 +1496,24 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
                     out.append(data)
 
         for i, f in enumerate(frames):
-            ctypes.memmove(buf, i420(f), len(buf))
-            if lib.vpx_codec_encode(ctx, img, i, 1, 0, deadline):
+            if f.shape[:2] != size:
+                size = f.shape[:2]
+                cfg[3], cfg[4] = size[1], size[0]
+                if lib.vpx_codec_enc_config_set(ctx, cfg):
+                    raise RuntimeError("libvpx: the new size is refused")
+            data = b"".join(p.tobytes() for p in vpx_planes(
+                f, layout, bit_depth))
+            buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+            lib.vpx_img_wrap(img, fmt, size[1], size[0], 1, buf)
+            force = 1 if i in keyframes else 0     # VPX_EFLAG_FORCE_KF
+            if svc and i in keyframes and svc.get("intra_only"):
+                # vpx_svc_spatial_layer_sync_t: the top layers resync,
+                # the base layer intra-only
+                sync = (ctypes.c_int * 6)(*([0] + [1] * 4), 1)
+                if lib.vpx_codec_control_(ctx, 64, ctypes.byref(sync)):
+                    raise RuntimeError("libvpx: layer sync refused")
+                force = 0
+            if lib.vpx_codec_encode(ctx, img, i, 1, force, deadline):
                 raise RuntimeError("libvpx: a frame failed to encode")
             drain()
         while True:
@@ -1385,6 +1528,50 @@ def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
     if two_pass:
         return run(2, b"".join(run(1)))
     return run(0)
+
+
+def set_bits(data: bytes, pos: int, n: int, value: int) -> bytes:
+    """`data` with the n bits from bit `pos` (most significant first)
+    set to `value`."""
+    bits = "".join(f"{b:08b}" for b in data)
+    bits = bits[:pos] + format(value, f"0{n}b") + bits[pos + n:]
+    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+
+
+def vp9_header(*fields) -> bytes:
+    """A VP9 uncompressed header written from (value, bits) pairs, padded
+    with zero bytes."""
+    bits = "".join(format(v, f"0{n}b") for v, n in fields)
+    bits += "0" * (-len(bits) % 8) + "0" * 64
+    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+
+
+def vpx_planes(bgr: np.ndarray, layout: str = "420",
+               bit_depth: int = 8) -> list[np.ndarray]:
+    """A BGR frame's planes for libvpx_encode: YCbCr as `i420` converts it
+    (at any size), 4:2:2, 4:4:4 and 4:4:0 from i420 of the frame with its
+    rows, rows and columns, or columns doubled (as `planes_of`); or G, B
+    and R ("gbr"); above 8 bits the samples shifted up, little-endian
+    16-bit."""
+    def i420_planes(f):
+        h, w = f.shape[:2]
+        cw, ch = (w + 1) // 2, (h + 1) // 2
+        yuv = np.frombuffer(i420(f), np.uint8)
+        return [yuv[:h * w].reshape(h, w),
+                yuv[h * w:h * w + cw * ch].reshape(ch, cw),
+                yuv[h * w + cw * ch:].reshape(ch, cw)]
+
+    if layout == "gbr":
+        planes = [bgr[..., 1], bgr[..., 0], bgr[..., 2]]
+    else:
+        ry, rx = {"420": (1, 1), "422": (2, 1), "444": (2, 2),
+                  "440": (1, 2)}[layout]
+        y, u, v = i420_planes(bgr.repeat(ry, axis=0).repeat(rx, axis=1))
+        planes = [y[::ry, ::rx], u, v]
+    if bit_depth == 8:
+        return [np.ascontiguousarray(p) for p in planes]
+    return [np.ascontiguousarray(p).astype("<u2") << (bit_depth - 8)
+            for p in planes]
 
 
 def planes_of(bgr: np.ndarray, csp: int = 2) -> list[np.ndarray]:
@@ -2345,12 +2532,90 @@ def camera_stream(settings: dict, frames=None,
     return [(p, a[1], a[2]) for p, a in zip(packets, aus)]
 
 
+def scheduled_frames(runs, seed: int, source=None) -> list[np.ndarray]:
+    """Frames in runs of (h, w, frames): `source` (BGR frames at the
+    largest size; else moving_frames of it), resized (INTER_AREA) where a
+    run is smaller."""
+    import cv2
+
+    n = sum(r[2] for r in runs)
+    big_h, big_w = max(r[0] for r in runs), max(r[1] for r in runs)
+    src = moving_frames(seed, n, big_h, big_w) if source is None \
+        else source[:n]
+    out = []
+    for h, w, k in runs:
+        for f in src[len(out):len(out) + k]:
+            out.append(f if f.shape[:2] == (h, w) else cv2.resize(
+                f, (w, h), interpolation=cv2.INTER_AREA))
+    return out
+
+
+def browser_file(name: str, settings: dict, seed: int,
+                 source=None) -> bytes:
+    """A BROWSER_CASES or BROWSER_CLIPS file, muxed as its name says."""
+    import io
+
+    from PIL import Image
+
+    settings = dict(settings)
+    ext = name.rsplit("_", 1)[1]
+    kind = settings.pop("kind", "vp9")
+    if kind == "streams":
+        codec, parts = settings.pop("codec"), settings.pop("parts")
+        runs = [scheduled_frames([p], seed + i) for i, p in enumerate(parts)]
+        h, w = parts[0][:2]
+        cw, ch = settings.pop("container", (w, h))
+        if codec == "vp9":
+            packets = [q for r in runs for q in libvpx_encode(r, "vp9")]
+        elif codec == "mjpeg":
+            packets = []
+            for r in runs:
+                for f in r:
+                    b = io.BytesIO()
+                    Image.fromarray(f[..., ::-1]).save(b, "JPEG", quality=75)
+                    packets.append(b.getvalue())
+            return avi_file(packets, cw, ch, 25, len(packets), b"MJPG")
+        else:
+            aus, t = [], 0
+            for i, r in enumerate(runs):
+                more = x264_encode(np.stack(r), bframes=i and
+                                   settings.get("bframes", 0))
+                aus += [(a, p + t, d + t) for a, p, d in more]
+                t += len(r)
+            return h264_file(aus, cw, ch, ext)
+    else:
+        runs = settings.pop("sizes", [(48, 64, 10)] if source is None else
+                            [(*source.shape[1:3], len(source))])
+        frames = scheduled_frames(runs, seed, source)
+        packets = libvpx_encode(frames, "vp9", **settings)
+        h, w = runs[0][:2]
+        cw, ch = w, h
+    if ext in ("webm", "mkv"):
+        return mkv_file(packets, cw, ch, 25, "V_VP9")
+    if ext == "avi":
+        return avi_file(packets, cw, ch, 25, len(packets), b"VP90")
+    chroma = {"420": 1, "422": 2, "440": 1, "444": 3, "gbr": 3}[
+        settings.get("layout", "420")]
+    return mp4_file(packets, cw, ch, 25, b"vp09", vpcc_box(
+        settings.get("profile", 0), settings.get("bit_depth", 8), chroma))
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in BROWSER_CASES or name in BROWSER_CLIPS:
+        if name in BROWSER_CLIPS:
+            data = browser_file(name, BROWSER_CLIPS[name], 0,
+                                clip_frames_bgr()[:16])
+        else:
+            data = browser_file(name, BROWSER_CASES[name],
+                                sum(map(ord, name)))
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
     if name in CAMERA_CASES or name in CAMERA_CLIPS:
         if name in CAMERA_CLIPS:
             frames = clip_frames_bgr()[:16]
@@ -2534,6 +2799,18 @@ def main(out: str = FIXTURES, *names: str):
             extra["orientation"] = np.int64(
                 cap.get(cv2.CAP_PROP_ORIENTATION_META))
             cap.release()
+        if name in BROWSER_CLIPS:
+            sys.path.insert(0, os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))))
+            from viai_tpu.data import av as j_av
+
+            picks = np.stack([j_av._load_frames_video(path, 16, 64, w)
+                              for w in BROWSER_PICKS])
+            # levels / 255 in float32: kept as the levels
+            extra["picks"] = np.rint(picks * 255).astype(np.uint8)
+            assert np.array_equal(extra["picks"] / np.float32(255), picks)
+            extra["picks_windows"] = np.array(
+                [(-1.0, -1.0) if w is None else w for w in BROWSER_PICKS])
         np.savez_compressed(os.path.join(out, name + ".npz"),
                             frames=frames[index], index=index,
                             n=np.int64(len(frames)), count=np.int64(count),

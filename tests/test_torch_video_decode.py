@@ -66,9 +66,12 @@ chip_smoke.py trains from or times) go through:
     not read that a patched header or macroblock flag can show (interlace
     also from libavcodec's own interlaced stream; RVLC), each VP8 feature
     libvpx does not write (frame headers written here by a boolean
-    encoder), each VP9 profile, bit depth and sampling other than
-    profile 0's, sRGB, intra-only frames and reference scaling (patched
-    or written headers), a vpcC box of another bit depth, and each H.264
+    encoder), each VP9 colour config libavcodec refuses (sRGB in
+    profiles 0 and 2, 4:2:0 signalled in profiles 1 and 3 at 8 and 12
+    bits, also in an intra-only frame) and
+    a reference outside the scaling range (patched or written headers;
+    what browsers write is read: test_torch_video_browser.py), a VP8
+    vpcC box of another bit depth, and each H.264
     feature the decoder does not read (libx264's own MBAFF, 4:4:4 and
     lossless streams, and frames its picture timing SEI flags interlaced;
     parameter sets, slice headers and NAL units patched bit by bit for
@@ -241,18 +244,22 @@ def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
 
 
 def test_vp9_webm_raises_naming_vp9(tmp_path):
-    """cv2's VP9 webm with its keyframes patched to profile 1: the
-    profile's bit depth and sampling are named."""
+    """cv2's VP9 webm with its keyframes' colour space patched to sRGB,
+    which profile 0 cannot carry (libavcodec refuses it; every profile
+    is read since the VP9 of browsers): the feature is named."""
     data = bytearray(open(FILES["vp9_webm"], "rb").read())
     for p, key in native.video_track(FILES["vp9_webm"]).packets:
         if key:
-            data[bytes(data).index(p)] |= 0x20       # profile_low_bit
+            at = bytes(data).index(p)
+            data[at:at + len(p)] = _set_bits(p, 32, 3, 7)
     path = tmp_path / "x.webm"
     path.write_bytes(bytes(data))
     assert native.video_track(str(path)).tag == "V_VP9"
-    with pytest.raises(NotImplementedError, match="VP9 profile 1"):
+    with pytest.raises(NotImplementedError,
+                       match="VP9 colour space sRGB in profile 0"):
         native.decode_video(str(path))
-    with pytest.raises(NotImplementedError, match="VP9 profile 1"):
+    with pytest.raises(NotImplementedError,
+                       match="VP9 colour space sRGB in profile 0"):
         av.load_frames_for(str(tmp_path / "x"), 16, 64)
 
 
@@ -290,20 +297,8 @@ def _vp9_packets(name):
     return [p for p, _ in native.video_track(FILES[name]).packets]
 
 
-def _set_bits(data: bytes, pos: int, n: int, value: int) -> bytes:
-    """`data` with the n bits from bit `pos` (most significant first)
-    set to `value`."""
-    bits = "".join(f"{b:08b}" for b in data)
-    bits = bits[:pos] + format(value, f"0{n}b") + bits[pos + n:]
-    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
-
-
-def _vp9_header(*fields) -> bytes:
-    """An uncompressed header written from (value, bits) pairs, padded
-    with zero bytes."""
-    bits = "".join(format(v, f"0{n}b") for v, n in fields)
-    bits += "0" * (-len(bits) % 8) + "0" * 64
-    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+_set_bits = mk.set_bits
+_vp9_header = mk.vp9_header
 
 
 def _vp9_avi(tmp_path, packets, h=mk.H):
@@ -312,19 +307,39 @@ def _vp9_avi(tmp_path, packets, h=mk.H):
     return str(path)
 
 
+def _vp9_colour(packet: bytes, profile: int, fields) -> bytes:
+    """A profile 0 keyframe's header with its profile and colour config
+    (bits 32-35) rewritten: `fields`, (value, bits) pairs written after
+    the sync code, then the original header from its frame size on
+    (what follows no longer lines up: the decoder raises first)."""
+    bits = "".join(f"{b:08b}" for b in packet)
+    head = "10" + format(profile & 1, "b") + format(profile >> 1, "b")
+    head += "0" if profile == 3 else ""              # reserved
+    head += bits[4:32] + "".join(format(v, f"0{n}b") for v, n in fields)
+    bits = head + bits[36:]
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+
+
 # A keyframe's header bits: marker 2, profile 2, show_existing 1, type,
-# show, error_resilient 3, sync code 24, then colour space at bit 32.
-@pytest.mark.parametrize("feature,patch", [
-    ("VP9 profile 1, 8-bit 4:4:4", [(2, 1, 1)]),
-    ("VP9 profile 2, 10-bit 4:2:0", [(3, 1, 1)]),
-    ("VP9 profile 2, 12-bit 4:2:0", [(3, 1, 1), (32, 1, 1)]),
-    ("VP9 profile 3", [(2, 2, 3)]),
-    ("VP9 colour space sRGB", [(32, 3, 7)]),
+# show, error_resilient 3, sync code 24, then the colour config at bit 32
+# (profiles 2 and 3: a bit depth bit first; 1 and 3: sampling after the
+# range, sRGB with a reserved bit): what every profile carries is read,
+# what libavcodec refuses raises.
+@pytest.mark.parametrize("feature,profile,patch", [
+    ("VP9 profile 1 with 4:2:0 sampling", 1,
+     [(0, 3), (0, 1), (1, 1), (1, 1), (0, 1)]),
+    ("VP9 profile 3 with 4:2:0 sampling", 3,
+     [(0, 1), (2, 3), (0, 1), (1, 1), (1, 1), (0, 1)]),
+    ("4:2:0 sampling (libavcodec refuses it)", 3,
+     [(1, 1), (0, 3), (0, 1), (1, 1), (1, 1), (0, 1)]),
+    ("VP9 colour space sRGB in profile 2", 2, [(0, 1), (7, 3)]),
+    ("VP9 colour space sRGB in profile 0", 0, [(7, 3), (0, 1)]),
 ])
-def test_vp9_keyframe_features_raise_naming_them(tmp_path, feature, patch):
+def test_vp9_keyframe_features_raise_naming_them(tmp_path, feature, profile,
+                                                 patch):
     pk = _vp9_packets("vp9_avi")
-    for pos, n, value in patch:
-        pk[0] = _set_bits(pk[0], pos, n, value)
+    pk[0] = _vp9_colour(pk[0], profile, patch)
     path = _vp9_avi(tmp_path, pk)
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.decode_video(path)
@@ -347,18 +362,24 @@ def test_vp9_odd_height_matches_cv2(tmp_path):
                                   j_av._load_frames_video(path, 4, 32, None))
 
 
-@pytest.mark.parametrize("feature", ["VP9 reference scaling",
-                                     "VP9 intra-only frames"])
+@pytest.mark.parametrize("feature", [
+    "VP9 reference scaling beyond its range",
+    "VP9 profile 1 with 4:2:0 sampling"])
 def test_vp9_inter_header_features_raise_naming_them(tmp_path, feature):
-    """An inter frame written after cv2's keyframe: one whose size differs
-    from its references', and a hidden intra-only frame."""
+    """A frame written after cv2's keyframe: an inter frame a third of
+    its references' size (reference scaling reaches half of it), and a
+    hidden intra-only frame of profile 1 whose colour config signals
+    4:2:0 (libavcodec refuses both; reference scaling and intra-only
+    frames are read: tests/test_torch_video_browser.py)."""
     if "scaling" in feature:
         frame = _vp9_header((2, 2), (0, 2), (0, 1), (1, 1), (1, 1), (0, 1),
                             (0, 2), (0, 8), *[(0, 4)] * 3, (0, 3),
-                            (mk.W // 2 - 1, 16), (mk.H // 2 - 1, 16))
+                            (mk.W // 3 - 1, 16), (mk.H // 3 - 1, 16))
     else:
-        frame = _vp9_header((2, 2), (0, 2), (0, 1), (1, 1), (0, 1), (0, 1),
-                            (1, 1))
+        frame = _vp9_header((2, 2), (1, 1), (0, 1), (0, 1), (1, 1), (0, 1),
+                            (0, 1), (1, 1), (0, 2), (0x49, 8), (0x83, 8),
+                            (0x42, 8), (0, 3), (0, 1), (1, 1), (1, 1),
+                            (0, 1))
     path = _vp9_avi(tmp_path, [_vp9_packets("vp9_avi")[0], frame])
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.decode_video(path)

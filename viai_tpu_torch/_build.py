@@ -13,10 +13,10 @@ as it is:
     WAV decode, resampling, the threaded clip loader, the frame-stack reader, the
     JPEG and PNG decoder, the frame-directory reader and the compressed
     video reader), by the C++ compiler ($CXX, else g++), its hash over
-    `csrc/*.h` too.
+    `csrc/*.h` too: each source to an object file, then one link.
 
-Targets are compiled in parallel, one compiler process each. A failed
-build raises. The directory is read at build time (`cache_dir`):
+Targets are compiled in parallel: one compiler process a CUDA target and
+one a host source, all started together. A failed build raises. The directory is read at build time (`cache_dir`):
 `utils/compile_cache.py::enable` relocates it or gives the process a
 fresh one.
 """
@@ -128,19 +128,39 @@ def build(names: list[str] | None = None) -> dict[str, BuildResult]:
                 name, out, 0.0, log.read_text() if log.exists() else "")
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [compiler, *flags, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, out, tmp, log, time.perf_counter())
+        if name in HOST_SOURCES:
+            # Each source to an object file at once; linked when all are.
+            objs = [tmp.with_suffix(f".{s.stem}.o") for s in srcs]
+            cmds = [[compiler, *(f for f in flags if f != "-shared"), "-c",
+                     "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+            link = [compiler, *flags, "-o", str(tmp), *map(str, objs)]
+        else:
+            objs, link = [], None
+            cmds = [[compiler, *flags, "-o", str(tmp), *map(str, srcs)]]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        running[name] = (procs, objs, link, out, tmp, log,
+                         time.perf_counter())
     failed = []
     # Wait for every compiler before raising, so none is left running.
-    for name, (proc, out, tmp, log, t0) in running.items():
-        text, _ = proc.communicate()
+    for name, (procs, objs, link, out, tmp, log, t0) in running.items():
+        texts = [proc.communicate()[0] for proc in procs]
+        bad = [(p, t) for p, t in zip(procs, texts) if p.returncode != 0]
+        if not bad and link:
+            done = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            texts.append(done.stdout)
+            if done.returncode != 0:
+                bad.append((done, done.stdout))
+        for o in objs:
+            o.unlink(missing_ok=True)
         secs = time.perf_counter() - t0
-        if proc.returncode != 0:
+        text = "".join(texts)
+        if bad:
             tmp.unlink(missing_ok=True)
-            failed.append(f"{Path(proc.args[0]).name} failed for {name} "
-                          f"(exit {proc.returncode}):\n{text}")
+            failed.extend(f"{Path(p.args[0]).name} failed for {name} "
+                          f"(exit {p.returncode}):\n{t}" for p, t in bad)
             continue
         log.write_text(text)
         os.replace(tmp, out)

@@ -1083,6 +1083,10 @@ struct H264Decoder::State {
   // libavcodec's h264_select_output_frame, run as a picture starts.
   void select_output() {
     Frame& c = *cur;
+    // A new SPS's reorder depth counts once the picture's output order
+    // is placed: an IDR picture after pictures output without delay
+    // restarts the order (next_outputed_poc) first.
+    const int depth_before = has_b_frames;
     if (sps.bitstream_restriction) has_b_frames = std::max(has_b_frames, sps.num_reorder_frames);
     int i;
     for (i = 0;; ++i) {
@@ -1114,7 +1118,8 @@ struct H264Decoder::State {
         out = delayed[k];
         out_idx = k;
       }
-    if (has_b_frames == 0 && (delayed[0]->key || delayed[0]->mmco_reset))
+    if (depth_before == 0 &&
+        (delayed[0]->key || delayed[0]->mmco_reset))
       next_outputed_poc = kPocMin;
     bool ooo = out->poc < next_outputed_poc;
     if (ooo || int(pics) > has_b_frames) delayed.erase(delayed.begin() + long(out_idx));
@@ -3445,6 +3450,18 @@ int H264Decoder::num_reorder_frames() const {
       break;
     }
   return n;
+}
+
+// The cropped picture size of the active (else the first) SPS.
+bool H264Decoder::picture_size(int& w, int& h) const {
+  const Sps* q = nullptr;
+  for (const Sps& c : s_->sps_table)
+    if (c.valid && !q) q = &c;
+  if (s_->cur || s_->mb_w) q = &s_->sps;
+  if (!q) return false;
+  w = q->mb_w * 16 - q->crop_ux * (q->crop_l + q->crop_r);
+  h = q->mb_h * 16 - q->crop_uy * (q->crop_t + q->crop_b);
+  return true;
 }
 
 int H264Decoder::delay() const { return s_->has_b_frames; }

@@ -2027,6 +2027,13 @@ int Mpeg4Decoder::peek(const uint8_t* data, size_t n) {
   return s_->walk(data, n, false, nullptr, got, second);
 }
 
+bool Mpeg4Decoder::picture_size(int& w, int& h) const {
+  if (!s_->have_vol) return false;
+  w = s_->width;
+  h = s_->height;
+  return true;
+}
+
 bool Mpeg4Decoder::reorders() const {
   return s_->saw_b || (s_->have_vol && !s_->low_delay);
 }

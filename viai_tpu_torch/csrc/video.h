@@ -30,12 +30,16 @@ struct Picture {
   int w = 0, h = 0;
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
-  // Above 8 bits (H.264's High 10 and High 4:2:2 at 9 or 10 bits): the
-  // samples are in y16, u16, v16 (y, u, v empty), strides in samples.
+  // Above 8 bits (H.264's High 10 and High 4:2:2 at 9 or 10 bits, VP9's
+  // profiles 2 and 3 at 10 or 12): the samples are in y16, u16, v16 (y,
+  // u, v empty), strides in samples.
   int depth = 8;
   std::vector<uint16_t> y16, u16, v16;
   int xshift = 1, yshift = 1;
   bool grey = false;
+  // Planar GBR (VP9's sRGB, libavcodec's gbrp, gbrp10, gbrp12): G in y
+  // (y16), B in u, R in v, at full size.
+  bool rgb = false;
   // The decode call (counted from 0 by the decoder that gave it) whose
   // packet the picture was decoded from: H.264, and MPEG-4 with B-VOPs,
   // output pictures after later packets.
@@ -83,6 +87,8 @@ class Mpeg4Decoder {
   // Whether output runs one picture behind (in display order): a B-VOP
   // was seen (by peek or decode), or the VOL clears low_delay.
   bool reorders() const;
+  // The VOL's picture size; false before a VOL.
+  bool picture_size(int& w, int& h) const;
 
  private:
   struct State;
@@ -107,8 +113,8 @@ class Vp8Decoder {
   std::unique_ptr<State> s_;
 };
 
-// The VP9 decoder (profile 0: 8 bits, 4:2:0) for libvpx's streams (see
-// vp9.cpp).
+// The VP9 decoder (profiles 0-3: 8, 10 and 12 bits, 4:2:0, 4:2:2, 4:4:0,
+// 4:4:4 and sRGB) for libvpx's streams (see vp9.cpp).
 class Vp9Decoder {
  public:
   Vp9Decoder();
@@ -117,10 +123,16 @@ class Vp9Decoder {
   // `out` filled when it shows a picture (a hidden frame is decoded and
   // kept as a reference; show_existing_frame gives the slot's picture).
   bool decode(const uint8_t* data, size_t n, Picture& out);
+  // The packet's further shown pictures, in order (an SVC superframe
+  // shows one a spatial layer): true with `out` filled while one is left.
+  bool next(Picture& out);
   // Read one packet's frame headers only: 0 when it shows a picture and
   // begins with a keyframe, 1 when it shows one otherwise, -1 when it
-  // shows none.
-  static int peek(const uint8_t* data, size_t n);
+  // shows none; `pictures`, when given, the number it shows.
+  static int peek(const uint8_t* data, size_t n, int* pictures = nullptr);
+  // The frame size of a packet whose first frame is a keyframe; false
+  // otherwise.
+  static bool picture_size(const uint8_t* data, size_t n, int& w, int& h);
 
  private:
   struct State;
@@ -169,6 +181,9 @@ class H264Decoder {
   // Whether a B slice came under an SPS without bitstream_restriction
   // (the reorder depth is then libavcodec's guess).
   bool guesses_delay() const;
+  // The cropped picture size of the active (else the first) SPS; false
+  // before an SPS.
+  bool picture_size(int& w, int& h) const;
 
  private:
   struct State;

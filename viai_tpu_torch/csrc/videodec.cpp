@@ -503,7 +503,9 @@ void read_vpcc(Track& t, const std::vector<Box>& entry_boxes) {
   int profile = f[vpcc->body + 4];
   int depth = f[vpcc->body + 6] >> 4;
   int chroma = (f[vpcc->body + 6] >> 1) & 7;
-  if (depth != 8 || chroma > 1)
+  // VP9's frames carry their own depth and sampling (all its profiles
+  // are read); VP8 has 8-bit 4:2:0 only.
+  if (t.tag == "vp08" && (depth != 8 || chroma > 1))
     unsupported(std::string(name) + " profile " + std::to_string(profile) +
                 " (" + std::to_string(depth) + "-bit, " +
                 (chroma == 2 ? "4:2:2" : chroma == 3 ? "4:4:4" : "4:2:0") +
@@ -1956,16 +1958,21 @@ struct BgrCoeffs {
   int y, vr, ub, vg, ug, yoff;
 };
 
-BgrCoeffs bgr_coeffs(bool full, int matrix) {
+// ff_yuv2rgb_coeffs[matrix] (swscale's default for an unknown one).
+const int* yuv2rgb_table(int matrix) {
   static const int kTable[11][4] = {
-      {117489, 138438, 13975, 34925}, {117489, 138438, 13975, 34925},
+      {104597, 132201, 25675, 53279}, {117489, 138438, 13975, 34925},
       {104597, 132201, 25675, 53279}, {104597, 132201, 25675, 53279},
       {104448, 132798, 24759, 53109}, {104597, 132201, 25675, 53279},
       {104597, 132201, 25675, 53279}, {117579, 136230, 16907, 35559},
       {0, 0, 0, 0},                   {110013, 140363, 12277, 42626},
       {110013, 140363, 12277, 42626}};
   if (matrix < 0 || matrix > 10 || matrix == 8) matrix = 5;
-  const int* t = kTable[matrix];
+  return kTable[matrix];
+}
+
+BgrCoeffs bgr_coeffs(bool full, int matrix) {
+  const int* t = yuv2rgb_table(matrix);
   int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3];
   int64_t cy = 1 << 16, oy = 0;
   if (full) {
@@ -2170,12 +2177,13 @@ int64_t step(int src_n, int dst_n) {
   return ((int64_t(src_n) << 16) + (dst_n >> 1)) / dst_n;
 }
 
-// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 or 10 bits in
-// uint16_t) of a plane's rows → (rows, dst_n) 15-bit samples.
+// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 to 12 bits in
+// uint16_t; `depth` 0: the 14-bit lines of planar RGB input) of a plane's
+// rows → (rows, dst_n) 15-bit samples.
 template <class T>
 std::vector<int> hscale(const T* src, int stride, int rows, const Filter& f,
                         int dst_n, int depth) {
-  const int sh = depth > 8 ? depth - 1 : 7;
+  const int sh = depth == 0 ? 13 : depth > 8 ? depth - 1 : 7;
   std::vector<int> out(size_t(rows) * dst_n);
   for (int y = 0; y < rows; ++y) {
     const T* s = src + size_t(y) * stride;
@@ -2248,17 +2256,53 @@ inline void full_pixel(const BgrCoeffs& k, int yoff, int y, int u, int v,
   o[2] = uint8_t(r >> 22);
 }
 
+// swscale's RGB-to-YUV table (fill_rgb2yuv_table, at 15 bits, for
+// limited range: its RGB input always) of a colour space's YUV-to-RGB
+// coefficients; swscale's default space has its own rounded constants.
+struct Rgb2Yuv {
+  int ry, gy, by, ru, gu, bu, rv, gv, bv;
+};
+
+Rgb2Yuv rgb2yuv(int matrix) {
+  const int* t = yuv2rgb_table(matrix);
+  const int64_t one = 65536, vr = t[0], ub = t[1], ug = -t[2], vg = -t[3];
+  if (vr == 104597 && ub == 132201 && ug == -25675 && vg == -53279) {
+    auto c = [](double v) { return int(v * (1 << 15) + 0.5); };
+    return {c(0.299 * 219 / 255), c(0.587 * 219 / 255),
+            c(0.114 * 219 / 255), -c(0.169 * 224 / 255),
+            -c(0.331 * 224 / 255), c(0.500 * 224 / 255),
+            c(0.500 * 224 / 255), -c(0.419 * 224 / 255),
+            -c(0.081 * 224 / 255)};
+  }
+  const int64_t cy = one * 255 / 219;
+  const int64_t W = rounded_div(one * one * ug, ub);
+  const int64_t V = rounded_div(one * one * vg, vr);
+  const int64_t Z = one * one - W - V;
+  const int64_t Cy = rounded_div(cy * Z, one), Cu = rounded_div(ub * Z, one),
+                Cv = rounded_div(vr * Z, one);
+  const int64_t s = int64_t(1) << 15;
+  return {int(-rounded_div(s * V, Cy)), int(rounded_div(s * one * one, Cy)),
+          int(-rounded_div(s * W, Cy)), int(rounded_div(s * V, Cu)),
+          int(-rounded_div(s * one * one, Cu)), int(rounded_div(s * (Z + W), Cu)),
+          int(rounded_div(s * (V + Z), Cv)), int(-rounded_div(s * one * one, Cv)),
+          int(rounded_div(s * W, Cv))};
+}
+
 // Samples of depth d are read as swscale's 15-bit lines: Y << (15 − d)
 // (luma at 1:1 is one tap of 1 << 14, so its horizontal pass is exact).
+// The picture is scaled to dw × dh: luma through its own filters, each
+// output line through the vertical filters' 1-tap, 2-tap (bilinear, taps
+// summing to 4096) or n-tap outputs, as swscale's packed_vscale picks
+// them.
 template <class T>
 std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
-                                const T* pv) {
+                                const T* pv, int dw, int dh) {
   const int w = p.w, h = p.h, xs = p.xshift, ys = p.yshift;
   const int lsh = 15 - p.depth;
-  const bool full = (xs == 0 && ys == 0) || (w & 1);
+  const bool full = (xs == 0 && ys == 0) || (dw & 1);
   const int dxs = full ? 0 : 1;
   const int csw = (w + (1 << xs) - 1) >> xs, csh = (h + (1 << ys) - 1) >> ys;
-  const int cdw = (w + (1 << dxs) - 1) >> dxs;
+  const int cdw = (dw + (1 << dxs) - 1) >> dxs;
   // The source's chroma siting: av_chroma_location_enum_to_pos's x, and
   // its y where chroma rows are halved, through get_local_pos; else
   // swscale's default.
@@ -2269,93 +2313,165 @@ std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
     int pos = across ? (l & 1) * 128 : ((l >> 1) ^ (l < 4)) * 128;
     return (pos + 128) >> shift;
   };
+  Filter lh = init_filter(step(w, dw), w, dw, 4, 1 << 14, local_pos(0),
+                          local_pos(0));
+  Filter lv = init_filter(step(h, dh), h, dh, 2, 1 << 12, local_pos(0),
+                          local_pos(0));
   Filter hf = init_filter(step(csw, cdw), csw, cdw, 4, 1 << 14,
                           src_pos(xs, true), local_pos(dxs));
-  Filter vf = init_filter(step(csh, h), csh, h, 2, 1 << 12,
+  Filter vf = init_filter(step(csh, dh), csh, dh, 2, 1 << 12,
                           src_pos(ys, false), local_pos(0));
-  std::vector<int> U = hscale(pu, p.cstride, csh, hf, cdw, p.depth);
-  std::vector<int> V = hscale(pv, p.cstride, csh, hf, cdw, p.depth);
-  const BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
+  // swscale takes RGB input's range as limited (range_override_needed).
+  const BgrCoeffs k = bgr_coeffs(p.full_range && !p.rgb, p.matrix);
+  std::vector<int> Y, U, V;
+  if (p.rgb) {
+    // Planar G, B, R (planar_rgb_to_y/uv, planar_rgb16_to_y/uv above 8
+    // bits): 14-bit Y, U, V lines of limited range, scaled as 14-bit
+    // input (swscale takes RGB input as 16-bit).
+    const Rgb2Yuv t = rgb2yuv(p.matrix);
+    const int d = p.depth, sh = 1 + d;
+    const int yoff = (16 << (7 + d)) + (1 << d);
+    const int coff = (128 << (7 + d)) + (1 << d);
+    std::vector<uint16_t> yi(size_t(w) * h), ui(yi.size()), vi(yi.size());
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const int g = py[size_t(y) * p.ystride + x];
+        const int b = pu[size_t(y) * p.cstride + x];
+        const int r = pv[size_t(y) * p.cstride + x];
+        const size_t i = size_t(y) * w + x;
+        yi[i] = uint16_t((t.ry * r + t.gy * g + t.by * b + yoff) >> sh);
+        ui[i] = uint16_t((t.ru * r + t.gu * g + t.bu * b + coff) >> sh);
+        vi[i] = uint16_t((t.rv * r + t.gv * g + t.bv * b + coff) >> sh);
+      }
+    Y = hscale(yi.data(), w, h, lh, dw, 0);
+    U = hscale(ui.data(), w, h, hf, cdw, 0);
+    V = hscale(vi.data(), w, h, hf, cdw, 0);
+  } else {
+    if (w == dw) {                 // one tap: the samples shifted up
+      Y.resize(size_t(h) * w);
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x)
+          Y[size_t(y) * w + x] = int(py[size_t(y) * p.ystride + x]) << lsh;
+    } else {
+      Y = hscale(py, p.ystride, h, lh, dw, p.depth);
+    }
+    U = hscale(pu, p.cstride, csh, hf, cdw, p.depth);
+    V = hscale(pv, p.cstride, csh, hf, cdw, p.depth);
+  }
   const int yoff_full = round16(k.oy << 9);
   const Tables tab(k, p.full_range);
-  std::vector<uint8_t> out(size_t(w) * h * 3);
-  const int n = vf.size;
-  for (int y = 0; y < h; ++y) {
-    const T* yr = py + size_t(y) * p.ystride;
-    const int* c = &vf.coef[size_t(y) * n];
+  std::vector<uint8_t> out(size_t(dw) * dh * 3);
+  const int nl = lv.size, nc = vf.size;
+  // Taps of 4096 in all, the second at most 4096: the 1- or 2-tap outputs.
+  auto pair4096 = [](const int* c) {
+    return c[0] + c[1] == 4096 && unsigned(c[1]) <= 4096u;
+  };
+  for (int y = 0; y < dh; ++y) {
+    const int* lc = &lv.coef[size_t(y) * nl];
+    const int* cc = &vf.coef[size_t(y) * nc];
+    const int* l0 = &Y[size_t(lv.pos[y]) * dw];
+    const int* l1 = nl > 1 ? l0 + dw : l0;
     const int* u0 = &U[size_t(vf.pos[y]) * cdw];
     const int* v0 = &V[size_t(vf.pos[y]) * cdw];
-    const int* u1 = n > 1 ? u0 + cdw : u0;
-    const int* v1 = n > 1 ? v0 + cdw : v0;
-    // One tap, or two summing to 4096 (the weight of the second,
-    // `alpha`, at most 4096): the 1-tap outputs; else the n-tap ones.
-    const bool one_tap = n == 1 || (n == 2 && c[0] + c[1] == 4096 &&
-                                    unsigned(c[1]) <= 4096u);
-    const int alpha = n == 1 ? 0 : c[1];
-    auto sum = [&](const std::vector<int>& P, int x) {
+    const int* u1 = nc > 1 ? u0 + cdw : u0;
+    const int* v1 = nc > 1 ? v0 + cdw : v0;
+    const bool c_one = nc == 1 || (nc == 2 && pair4096(cc));
+    // 1: one luma tap, chroma one or two; 2: two and two; 0: n taps.
+    const int mode = nl == 1 && c_one ? 1
+                     : nl == 2 && nc == 2 && pair4096(lc) && pair4096(cc)
+                         ? 2 : 0;
+    const int ca = nc == 1 ? 0 : cc[1], la = nl == 1 ? 0 : lc[1];
+    auto lsum = [&](int x) {
       int64_t s = 0;
-      for (int j = 0; j < n; ++j)
-        s += int64_t(P[size_t(vf.pos[y] + j) * cdw + x]) * c[j];
+      for (int j = 0; j < nl; ++j) s += int64_t(l0[size_t(j) * dw + x]) * lc[j];
       return s;
     };
-    uint8_t* o = &out[size_t(y) * w * 3];
-    // Luma's vertical filter is one tap of 4096 too; each output scales
-    // its 15-bit line L: L · 4 (C, full chroma), L >> 4 (MMXEXT, plus its
-    // rounder with n taps), (L + 64) >> 7 (the C lookup tables); at 8
-    // bits Y << 9, Y · 8, Y.
-    auto L = [&](int x) { return int(yr[x]) << lsh; };
-    if (full) {
-      for (int x = 0; x < w; ++x) {
-        int u, v;
-        if (one_tap) {
-          if (alpha) {
-            u = (u0[x] * (4096 - alpha) + u1[x] * alpha - (128 << 19)) >> 10;
-            v = (v0[x] * (4096 - alpha) + v1[x] * alpha - (128 << 19)) >> 10;
+    auto csum = [&](const int* P0, int x) {
+      int64_t s = 0;
+      for (int j = 0; j < nc; ++j) s += int64_t(P0[size_t(j) * cdw + x]) * cc[j];
+      return s;
+    };
+    uint8_t* o = &out[size_t(y) * dw * 3];
+    if (full) {                                   // yuv2rgb_full_{1,2,X}_c
+      for (int x = 0; x < dw; ++x) {
+        int yy, u, v;
+        if (mode == 1) {
+          yy = l0[x] * 4;
+          if (ca) {
+            u = (u0[x] * (4096 - ca) + u1[x] * ca - (128 << 19)) >> 10;
+            v = (v0[x] * (4096 - ca) + v1[x] * ca - (128 << 19)) >> 10;
           } else {
             u = (u0[x] - (128 << 7)) * 4;
             v = (v0[x] - (128 << 7)) * 4;
           }
+        } else if (mode == 2) {
+          yy = (l0[x] * (4096 - la) + l1[x] * la) >> 10;
+          u = (u0[x] * (4096 - ca) + u1[x] * ca - (128 << 19)) >> 10;
+          v = (v0[x] * (4096 - ca) + v1[x] * ca - (128 << 19)) >> 10;
         } else {
-          u = int(((1 << 9) - (int64_t(128) << 19) + sum(U, x)) >> 10);
-          v = int(((1 << 9) - (int64_t(128) << 19) + sum(V, x)) >> 10);
+          yy = int(((1 << 9) + lsum(x)) >> 10);
+          u = int(((1 << 9) - (int64_t(128) << 19) + csum(u0, x)) >> 10);
+          v = int(((1 << 9) - (int64_t(128) << 19) + csum(v0, x)) >> 10);
         }
-        full_pixel(k, yoff_full, L(x) * 4, u, v, o + 3 * x);
+        full_pixel(k, yoff_full, yy, u, v, o + 3 * x);
       }
-    } else if (y < h - 2) {                      // MMXEXT
+    } else if (y < dh - 2) {                      // MMXEXT
       for (int i = 0; i < cdw; ++i) {
         int u8, v8;
-        if (one_tap && alpha >= 2048) {
+        if (mode == 1 && ca >= 2048) {
           u8 = ((u0[i] + u1[i]) & 0xFFFF) >> 5;
           v8 = ((v0[i] + v1[i]) & 0xFFFF) >> 5;
-        } else if (one_tap) {
+        } else if (mode == 1) {
           u8 = u0[i] >> 4;
           v8 = v0[i] >> 4;
+        } else if (mode == 2) {
+          u8 = wrap16(pmulhw(wrap16(u0[i] - u1[i]), cc[0]) + (u1[i] >> 4));
+          v8 = wrap16(pmulhw(wrap16(v0[i] - v1[i]), cc[0]) + (v1[i] >> 4));
         } else {
           u8 = v8 = 4;                           // the rounder
-          for (int j = 0; j < n; ++j) {
-            u8 = wrap16(u8 + pmulhw(U[size_t(vf.pos[y] + j) * cdw + i], c[j]));
-            v8 = wrap16(v8 + pmulhw(V[size_t(vf.pos[y] + j) * cdw + i], c[j]));
+          for (int j = 0; j < nc; ++j) {
+            u8 = wrap16(u8 + pmulhw(u0[size_t(j) * cdw + i], cc[j]));
+            v8 = wrap16(v8 + pmulhw(v0[size_t(j) * cdw + i], cc[j]));
           }
         }
-        for (int x = 2 * i; x < 2 * i + 2 && x < w; ++x)
-          simd_pixel(k, (L(x) >> 4) + (one_tap ? 0 : 4), u8, v8, o + 3 * x);
+        for (int x = 2 * i; x < 2 * i + 2 && x < dw; ++x) {
+          int y8;
+          if (mode == 1) {
+            y8 = l0[x] >> 4;
+          } else if (mode == 2) {
+            y8 = wrap16(pmulhw(wrap16(l0[x] - l1[x]), lc[0]) + (l1[x] >> 4));
+          } else {
+            y8 = 4;
+            for (int j = 0; j < nl; ++j)
+              y8 = wrap16(y8 + pmulhw(l0[size_t(j) * dw + x], lc[j]));
+          }
+          simd_pixel(k, y8, u8, v8, o + 3 * x);
+        }
       }
     } else {                                      // C, the last two lines
+      auto luma = [&](int x) {
+        if (mode == 1) return (l0[x] + 64) >> 7;
+        if (mode == 2) return (l0[x] * (4096 - la) + l1[x] * la) >> 19;
+        return int(((1 << 18) + lsum(x)) >> 19);
+      };
       for (int i = 0; i < cdw; ++i) {
         int u, v;
-        if (one_tap && alpha) {
-          u = (u0[i] * (4096 - alpha) + u1[i] * alpha + (128 << 11)) >> 19;
-          v = (v0[i] * (4096 - alpha) + v1[i] * alpha + (128 << 11)) >> 19;
-        } else if (one_tap) {
+        if (mode == 1 && ca) {
+          u = (u0[i] * (4096 - ca) + u1[i] * ca + (128 << 11)) >> 19;
+          v = (v0[i] * (4096 - ca) + v1[i] * ca + (128 << 11)) >> 19;
+        } else if (mode == 1) {
           u = (u0[i] + 64) >> 7;
           v = (v0[i] + 64) >> 7;
+        } else if (mode == 2) {
+          u = (u0[i] * (4096 - ca) + u1[i] * ca) >> 19;
+          v = (v0[i] * (4096 - ca) + v1[i] * ca) >> 19;
         } else {
-          u = int(((1 << 18) + sum(U, i)) >> 19);
-          v = int(((1 << 18) + sum(V, i)) >> 19);
+          u = int(((1 << 18) + csum(u0, i)) >> 19);
+          v = int(((1 << 18) + csum(v0, i)) >> 19);
         }
         int x = 2 * i;
-        tab.pair((L(x) + 64) >> 7, x + 1 < w ? (L(x + 1) + 64) >> 7 : 0, u, v,
-                 o + 3 * x, x + 1 < w);
+        tab.pair(luma(x), x + 1 < dw ? luma(x + 1) : 0, u, v, o + 3 * x,
+                 x + 1 < dw);
       }
     }
   }
@@ -2364,22 +2480,54 @@ std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
 
 }  // namespace sws
 
-// A picture → (h, w, 3) BGR24, as swscale converts it for cv2 (above 8
-// bits always through its scaler: it has no unscaled converter from
-// yuv420p10/yuv422p10 to bgr24).
-std::vector<uint8_t> to_bgr(const Picture& p) {
+// A picture → (dh, dw, 3) BGR24 (its own size when dw, dh are 0), as
+// swscale converts it for cv2 with SWS_BICUBIC: above 8 bits, at another
+// size and for layouts without an unscaled converter through its scaler
+// (it has none from yuv420p10/yuv422p10 to bgr24); planar GBR at 8 bits
+// by its unscaled planar-RGB converter.
+std::vector<uint8_t> to_bgr(const Picture& p, int dw = 0, int dh = 0) {
+  if (!dw || !dh) {
+    dw = p.w;
+    dh = p.h;
+  }
+  const bool same = dw == p.w && dh == p.h;
+  // swscale reads an 8-bit planar RGB picture's chroma at half its even
+  // width when it scales it to half that width or less
+  // (chrSrcHSubSample): not copied.
+  if (p.rgb && p.depth == 8 && !(p.w & 1) && dw <= p.w / 2)
+    unsupported("8-bit planar RGB (gbrp) scaled to half its width or less");
+  if (p.rgb && (p.depth > 8 || !same))
+    return p.depth > 8
+               ? sws::scaled_bgr(p, p.y16.data(), p.u16.data(), p.v16.data(),
+                                 dw, dh)
+               : sws::scaled_bgr(p, p.y.data(), p.u.data(), p.v.data(), dw,
+                                 dh);
+  if (p.rgb) {
+    std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
+    for (int y = 0; y < p.h; ++y)
+      for (int x = 0; x < p.w; ++x) {
+        uint8_t* o = &out[(size_t(y) * p.w + x) * 3];
+        o[0] = p.u[size_t(y) * p.cstride + x];
+        o[1] = p.y[size_t(y) * p.ystride + x];
+        o[2] = p.v[size_t(y) * p.cstride + x];
+      }
+    return out;
+  }
   if (p.depth > 8)
-    return sws::scaled_bgr(p, p.y16.data(), p.u16.data(), p.v16.data());
+    return sws::scaled_bgr(p, p.y16.data(), p.u16.data(), p.v16.data(), dw,
+                           dh);
   std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
   if (p.grey) {
+    if (!same)
+      unsupported("a grey picture of another size than the first");
     for (int y = 0; y < p.h; ++y)
       for (int x = 0; x < p.w; ++x)
         std::memset(&out[(size_t(y) * p.w + x) * 3],
                     p.y[size_t(y) * p.ystride + x], 3);
     return out;
   }
-  if (p.xshift != 1 || (p.h & 1))
-    return sws::scaled_bgr(p, p.y.data(), p.u.data(), p.v.data());
+  if (p.xshift != 1 || (p.h & 1) || !same)
+    return sws::scaled_bgr(p, p.y.data(), p.u.data(), p.v.data(), dw, dh);
   BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   for (int y = 0; y < p.h; ++y) {
     const uint8_t* yr = &p.y[size_t(y) * p.ystride];
@@ -2524,13 +2672,22 @@ class Decoder {
     calls_.push_back(i);
     out.source = int64_t(calls_.size()) - 1;
     if (t_.codec == Codec::kMjpeg) {
-      decode_mjpeg(d, p.size, t_.height, out);
+      // libavcodec tests the first picture alone for a field pair.
+      decode_mjpeg(d, p.size, i == 0 ? t_.height : 0, out);
       return true;
     }
     if (vp8_) return vp8_->decode(d, p.size, out);
     if (vp9_) return vp9_->decode(d, p.size, out);
     if (h264_) return h264_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
+  }
+
+  // The last decoded packet's further pictures (a VP9 SVC superframe
+  // shows one a spatial layer); false when none is left.
+  bool more(Picture& out) {
+    if (!vp9_ || !vp9_->next(out)) return false;
+    out.source = int64_t(calls_.size()) - 1;
+    return true;
   }
 
   // At the end of the track: a picture the decoder still holds back
@@ -2576,6 +2733,79 @@ class Decoder {
   std::unique_ptr<Vp9Decoder> vp9_;
   std::unique_ptr<H264Decoder> h264_;
 };
+
+// A JPEG's frame size, from its SOF segment; false without one.
+bool jpeg_size(const uint8_t* d, size_t n, int& w, int& h) {
+  for (size_t p = 2; p + 9 <= n;) {
+    if (d[p] != 0xFF || d[p + 1] == 0xFF) {
+      ++p;
+      continue;
+    }
+    const int m = d[p + 1];
+    if (m == 0xD8 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) {
+      p += 2;
+      continue;
+    }
+    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+      h = (d[p + 5] << 8) | d[p + 6];
+      w = (d[p + 7] << 8) | d[p + 8];
+      return true;
+    }
+    p += 2 + ((size_t(d[p + 2]) << 8) | d[p + 3]);
+  }
+  return false;
+}
+
+// The size of the track's first picture, before cv2's turn: the size
+// libavformat's avformat_find_stream_info leaves in the stream's
+// parameters (it decodes the first picture), which cv2 reports and to
+// which its swscale scales every picture of another size (SWS_BICUBIC,
+// from the picture's own size and chroma siting). Read from the first
+// packet's headers (a JPEG's SOF, a VP8 or VP9 keyframe's size, the
+// first SPS, the VOL); the container's size when they give none. A
+// first MJPEG picture under 3/4 of the container's height is one field
+// of a pair (libavcodec's test).
+void first_size(const Track& t, int& w, int& h) {
+  w = h = 0;
+  if (!t.packets.empty()) {
+    const Packet& p = t.packets[0];
+    const uint8_t* d = &t.file[p.off];
+    switch (t.codec) {
+      case Codec::kMjpeg:
+        if (jpeg_size(d, p.size, w, h) && t.height > 0 &&
+            h < (t.height * 3) / 4)
+          unsupported("MJPEG interlaced field pairs (AVI1)");
+        break;
+      case Codec::kVp8:
+        if (p.size >= 10 && !(d[0] & 1)) {
+          w = (d[6] | (d[7] << 8)) & 0x3FFF;
+          h = (d[8] | (d[9] << 8)) & 0x3FFF;
+        }
+        break;
+      case Codec::kVp9:
+        Vp9Decoder::picture_size(d, p.size, w, h);
+        break;
+      case Codec::kH264: {
+        H264Decoder q(t.config);
+        q.headers(d, p.size);
+        q.picture_size(w, h);
+        break;
+      }
+      case Codec::kMpeg4: {
+        Mpeg4Decoder q(t.config, t.tag);
+        q.peek(d, p.size);
+        q.picture_size(w, h);
+        break;
+      }
+      default:
+        break;
+    }
+  }
+  if (w <= 0 || h <= 0) {
+    w = t.width;
+    h = t.height;
+  }
+}
 
 }  // namespace
 
@@ -2623,14 +2853,20 @@ void* viai_video_open(const char* path, int32_t* code, char* err,
 
 void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 
-// info = (width, height, cv2's frame count, packets, config bytes,
+// info = (width, height (the first picture's, as cv2 reports them),
+// cv2's frame count, packets, config bytes,
 // codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 another,
 // cv2's orientation); tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
   const Track& t = static_cast<Handle*>(hp)->track;
-  info[0] = t.width;
-  info[1] = t.height;
+  int w = t.width, h = t.height;
+  try {
+    viai_video::first_size(t, w, h);
+  } catch (const Error&) {
+  }
+  info[0] = w;
+  info[1] = h;
   info[2] = t.count;
   info[3] = int64_t(t.packets.size());
   info[4] = int64_t(t.config.size());
@@ -2654,8 +2890,10 @@ const uint8_t* viai_video_config(void* hp) {
   return static_cast<Handle*>(hp)->track.config.data();
 }
 
-// Every picture of the track as (T, h, w, 3) BGR24, turned by cv2's
-// orientation (90, 180 or 270) → a malloc'd buffer
+// Every picture of the track as (T, h, w, 3) BGR24 at the first
+// picture's size (a picture of another size scaled to it as cv2's
+// swscale scales it), turned by cv2's orientation (90, 180 or 270) → a
+// malloc'd buffer
 // (free it with viai_video_free), shape in thw; nullptr on failure with
 // *code and err set.
 uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
@@ -2665,22 +2903,28 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
     viai_video::Decoder dec(t);
     std::vector<uint8_t> all;
     int64_t frames = 0, w = 0, h = 0;
+    int tw = 0, th = 0;               // the first picture's size
     Picture pic;
     auto take = [&]() {
-      std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
-      int ph = pic.h, pw = pic.w;
+      if (!tw) {
+        tw = pic.w;
+        th = pic.h;
+      }
+      if (!dec.shown(pic)) return;
+      std::vector<uint8_t> bgr = viai_video::to_bgr(pic, tw, th);
+      int ph = th, pw = tw;
       viai_video::turn_bgr(bgr, ph, pw, t.orientation);
-      if (frames && (pw != w || ph != h))
-        viai_video::unsupported("a picture size that changes mid-stream");
       w = pw;
       h = ph;
       all.insert(all.end(), bgr.begin(), bgr.end());
       ++frames;
     };
     for (size_t i = 0; i < t.packets.size(); ++i)
-      if (dec.decode(i, pic) && dec.shown(pic)) take();
-    while (dec.flush(pic))
-      if (dec.shown(pic)) take();
+      if (dec.decode(i, pic)) {
+        take();
+        while (dec.more(pic)) take();
+      }
+    while (dec.flush(pic)) take();
     if (!frames) viai_video::broken("no frames decoded");
     uint8_t* out = static_cast<uint8_t*>(std::malloc(all.size()));
     if (!out) viai_video::broken("out of memory");
@@ -2703,18 +2947,20 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
 void viai_video_free(uint8_t* p) { std::free(p); }
 
 // Planes of (h, w) luma and chroma (h >> yshift, w >> xshift, rounded
-// up), 8-bit (depth 8: bytes) or 9, 10-bit (uint16_t), rows packed →
-// out (h, w, 3) BGR24 as to_bgr converts a decoded picture; full_range,
-// matrix (swscale's colour space) and chroma_loc as Picture's. → 0, or 1
-// with err set for a layout to_bgr has no route for.
+// up), 8-bit (depth 8: bytes) or 9 to 12-bit (uint16_t), rows packed →
+// out (dh, dw, 3) BGR24 as to_bgr converts a decoded picture to that
+// size; full_range, matrix (swscale's colour space), chroma_loc and rgb
+// (planar G, B, R) as Picture's. → 0, or 1 with err set for a layout
+// to_bgr has no route for.
 int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
                         int32_t w, int32_t h, int32_t xshift, int32_t yshift,
                         int32_t depth, int32_t full_range, int32_t matrix,
-                        int32_t chroma_loc, uint8_t* out, char* err,
+                        int32_t chroma_loc, int32_t dw, int32_t dh,
+                        int32_t rgb, uint8_t* out, char* err,
                         int32_t errlen) {
   try {
     if (w < 1 || h < 1 || xshift < 0 || xshift > 1 || yshift < 0 || yshift > 1 ||
-        depth < 8 || depth > 10)
+        depth < 8 || depth > 12)
       viai_video::broken("a picture layout to_bgr does not convert");
     Picture p;
     p.w = w;
@@ -2725,6 +2971,7 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
     p.full_range = full_range != 0;
     p.matrix = matrix;
     p.chroma_loc = chroma_loc;
+    p.rgb = rgb != 0;
     p.ystride = w;
     p.cstride = (w + (1 << xshift) - 1) >> xshift;
     const size_t ny = size_t(w) * h,
@@ -2746,7 +2993,8 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
       p.u = bytes(u, nc);
       p.v = bytes(v, nc);
     }
-    std::vector<uint8_t> bgr = viai_video::to_bgr(p);
+    if (dw < 1 || dh < 1) viai_video::broken("an empty output size");
+    std::vector<uint8_t> bgr = viai_video::to_bgr(p, dw, dh);
     std::memcpy(out, bgr.data(), bgr.size());
     return 0;
   } catch (const Error& e) {
@@ -2760,8 +3008,10 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
 
 // viai_tpu/data/av.py::_load_frames_video → out (n_frames, size, size, 3)
 // float32 RGB in [0, 1]: the indices of cv2's frame count over the
-// window (float64 rule) as a set; the frames found among them, each
-// turned by cv2's orientation, resized as cv2.resize at INTER_LINEAR on
+// window (float64 rule) as a set; the frames found among them, each at
+// the first picture's size (first_size: a picture of another size scaled
+// to it as cv2's swscale scales it), turned by cv2's orientation,
+// resized as cv2.resize at INTER_LINEAR on
 // BGR, flipped to RGB, / 255;
 // then re-picked by the window rule over (0, 1) when their number is
 // not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
@@ -2777,6 +3027,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       viai_video::broken("n_frames and size must be positive");
     Track t = viai_video::open_track(path);
     viai_video::Decoder dec(t);
+    int tw = 0, th = 0;              // cv2's size: the first picture's
+    viai_video::first_size(t, tw, th);
     std::vector<int64_t> idx =
         viai_window::window_indices(t.count, n_frames, w0, w1);
     std::vector<int64_t> want(idx);
@@ -2786,8 +3038,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     std::vector<float> got;
     Picture pic;
     auto keep = [&]() {
-      std::vector<uint8_t> bgr = viai_video::to_bgr(pic);
-      int h = pic.h, w = pic.w;
+      std::vector<uint8_t> bgr = viai_video::to_bgr(pic, tw, th);
+      int h = th, w = tw;
       viai_video::turn_bgr(bgr, h, w, t.orientation);
       got.resize(got.size() + size_t(fsz));
       viai_video::resize_rgb(bgr.data(), h, w, size,
@@ -2848,23 +3100,33 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       if (got.empty()) viai_video::broken("no frames decoded");
     } else {
       // Frame numbers: MJPEG packet i is frame i; an MPEG-4 packet is a
-      // frame when it holds a VOP, a VP8 or VP9 packet when it shows one.
+      // frame when it holds a VOP, a VP8 or VP9 packet when it shows one
+      // (a VP9 packet that shows n pictures, frames frame_of to
+      // frame_of + n − 1).
       std::vector<int64_t> frame_of(t.packets.size(), -1);
+      std::vector<int> shows(t.packets.size(), 1);
       int64_t frames = 0;
       for (size_t i = 0; i < t.packets.size(); ++i) {
         const viai_video::Packet& p = t.packets[i];
         if (t.codec == viai_video::Codec::kVp8)
           vop[i] = viai_video::Vp8Decoder::peek(&t.file[p.off], p.size);
         if (t.codec == viai_video::Codec::kVp9)
-          vop[i] = viai_video::Vp9Decoder::peek(&t.file[p.off], p.size);
-        if (vop[i] >= 0 && !p.discard) frame_of[i] = frames++;
+          vop[i] = viai_video::Vp9Decoder::peek(&t.file[p.off], p.size,
+                                               &shows[i]);
+        if (vop[i] >= 0 && !p.discard) {
+          frame_of[i] = frames;
+          frames += shows[i];
+        }
       }
+      auto picked_in = [&](size_t i) {
+        if (frame_of[i] < 0) return false;
+        auto lo = std::lower_bound(want.begin(), want.end(), frame_of[i]);
+        return lo != want.end() && *lo < frame_of[i] + shows[i];
+      };
       size_t first = 0, last = 0;
       bool any = false;
       for (size_t i = 0; i < t.packets.size(); ++i) {
-        if (frame_of[i] < 0 ||
-            !std::binary_search(want.begin(), want.end(), frame_of[i]))
-          continue;
+        if (!picked_in(i)) continue;
         if (!any) first = i;
         last = i;
         any = true;
@@ -2876,11 +3138,13 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       // Headers (an in-band VOL) may precede that I-VOP.
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       for (size_t i = start; i <= last; ++i) {
-        bool picked = frame_of[i] >= 0 &&
-                      std::binary_search(want.begin(), want.end(), frame_of[i]);
+        bool picked = picked_in(i);
         if (t.codec == viai_video::Codec::kMjpeg && !picked) continue;
         if (!dec.decode(i, pic) || !picked) continue;
-        keep();
+        int64_t f = frame_of[i];
+        do {
+          if (wanted(f++)) keep();
+        } while (dec.more(pic));
       }
     }
     int64_t k = int64_t(got.size() / size_t(fsz));

@@ -1,55 +1,72 @@
-// VP9 video decoder of viai_tpu_torch (profile 0: 8 bits, 4:2:0), for the
-// VP9 streams that cv2 reads through libavcodec (Matroska/WebM CodecID
-// V_VP9, AVI fourcc VP90, MP4 sample entry vp09). VP9 reconstruction is
-// exact by specification (VP9 Bitstream & Decoding Process Specification
-// v0.6: integer transforms, filters and loop filter), so this decoder
-// computes what libvpx and libavcodec compute and gives their pictures:
+// VP9 video decoder of viai_tpu_torch (profiles 0-3: 8, 10 and 12 bits;
+// 4:2:0, 4:2:2, 4:4:0, 4:4:4 and sRGB), for the VP9 streams that cv2
+// reads through libavcodec (Matroska/WebM CodecID V_VP9, AVI fourcc VP90,
+// MP4 sample entry vp09). VP9 reconstruction is exact by specification
+// (VP9 Bitstream & Decoding Process Specification v0.6: integer
+// transforms, filters and loop filter), so this decoder computes what
+// libvpx and libavcodec compute and gives their pictures:
 //
 //   * the superframe index (Annex B): a packet's frames are decoded in
 //     order; a hidden frame is kept as a reference and gives no picture,
-//     and show_existing_frame gives the referenced slot's picture;
-//   * the uncompressed header (§6.2): sync code, colour config, frame
-//     size and size from a reference, the eight reference slots and their
-//     refresh flags, sign bias, high-precision MVs, the interpolation
-//     filter, the frame-context flags and setup_past_independence, loop
-//     filter deltas, quantiser (lossless included), segmentation and tile
-//     info;
+//     show_existing_frame gives the referenced slot's picture, and a
+//     packet that shows several (an SVC superframe, one a spatial layer)
+//     gives each, as libavcodec's superframe split does;
+//   * the uncompressed header (§6.2): sync code, colour config (bit depth
+//     in profiles 2 and 3, sampling in 1 and 3, sRGB), frame size and
+//     size from a reference, intra-only frames (profile 0's without a
+//     colour config: 8 bits, 4:2:0, BT.601 limited, as libavcodec sets
+//     them), the eight reference slots and their refresh flags, sign
+//     bias, high-precision MVs, the interpolation filter, the
+//     frame-context flags and setup_past_independence with
+//     reset_frame_context, loop filter deltas, quantiser (lossless
+//     included; 8, 10 and 12-bit steps), segmentation and tile info;
 //   * the boolean decoder and the compressed header (§6.3): tx mode,
 //     the coefficient, skip, mode, filter, reference, partition and MV
 //     probability updates (vp9_tables.h holds the default tables);
 //   * per 64x64 superblock: partitions and mode info with their
-//     above/left contexts, keyframe and inter-frame intra modes, sub-8x8
-//     modes, segment ids with temporal prediction, skip, tx size, single
-//     and compound references, inter modes, switchable filters, the MV
-//     candidate list (the previous frame's MVs when the spec's
-//     UsePrevFrameMvs holds) and MV reading;
-//   * tokens with their contexts, bands and scans, dequantisation (32x32
-//     halved), the integer inverse DCT/ADST at 4-32 points and the WHT of
-//     lossless frames;
-//   * intra prediction (the ten modes per transform block, 127 above the
-//     frame, 129 left of it, above-right pixels for 4x4 transforms only),
-//     inter prediction (8-tap regular, smooth, sharp and bilinear filters
-//     at 1/16 pel, compound averaging), references read clamped to their
-//     own frame size;
+//     above/left contexts, keyframe (and intra-only) and inter-frame
+//     intra modes, sub-8x8 modes, segment ids with temporal prediction,
+//     skip, tx size, single and compound references, inter modes,
+//     switchable filters, the MV candidate list (the previous frame's
+//     MVs when the spec's UsePrevFrameMvs holds) and MV reading;
+//   * tokens with their contexts, bands and scans (chroma in 4x4 units
+//     of its own sampling), CAT6 with its bd − 8 extra bits,
+//     dequantisation (32x32 halved), the integer inverse DCT/ADST at
+//     4-32 points (16-bit intermediates at 8 bits, wide ones above) and
+//     the WHT of lossless frames;
+//   * intra prediction (the ten modes per transform block, edges of
+//     2^(bd−1) ∓ 1 above and left of the frame, above-right pixels for 4x4
+//     transforms only), inter prediction (8-tap regular, smooth, sharp
+//     and bilinear filters at 1/16 pel, compound averaging, clipped to the
+//     bit depth), references read clamped to their own frame size, and
+//     from a reference of another size (reference scaling, a reference
+//     from twice the frame's size to a sixteenth of it) the positions
+//     and steps of libvpx's scaled prediction, which libavcodec copies
+//     with its rounding;
 //   * the loop filter as libvpx's frame masks build it: levels per
 //     segment, reference and mode, 4/8/16-wide filters chosen by transform
-//     size and flatness, the 4:2:0 chroma edge rules, superblock order;
+//     size and flatness, the 4:2:0 chroma edge rules (4:4:4 chroma by the
+//     luma masks, 4:2:2 and 4:4:0 by vp9_filter_block_plane_non420),
+//     superblock order; above 8 bits libavcodec's filter with its
+//     thresholds shifted by bd − 8;
 //   * backward adaptation of the coefficient, mode and MV probabilities
 //     and the four saved frame contexts; tiles (columns and rows); the
 //     segmentation features (quantiser, loop-filter level, reference,
-//     skip) and the segment map carried from frame to frame;
-//   * the picture cropped to the frame size, yuv420p with the stream's
-//     colour range and matrix, which libavcodec passes to cv2's swscale
-//     conversion (BT.601 for an unspecified space, as swscale's default).
+//     skip) and the segment map carried from frame to frame (cleared by a
+//     new frame size);
+//   * the picture cropped to the frame size in 8 or 16-bit samples with
+//     the stream's colour range and matrix and its sampling (planar GBR
+//     for sRGB), which libavcodec passes to cv2's swscale conversion
+//     (BT.601 for an unspecified space, as swscale's default).
 //
 // What the decoder does not read raises NotImplementedError (code 2)
-// naming it, read from the header: profiles 1-3 (other bit depths and
-// samplings), colour space sRGB, intra-only frames, a reference whose
-// size differs from the frame's (reference scaling), and a packet that
-// shows two pictures. Where the specification and libvpx/libavcodec
-// part, the two libraries (which agree) are followed: the loop-filter
-// deltas scale with the frame's level, and the above contexts are
-// cleared once a frame.
+// naming it, read from the header: what libavcodec refuses (sRGB in
+// profiles 0 and 2, 4:2:0 signalled in profiles 1 and 3, a reference
+// outside the scaling range or of another depth or sampling). Where the
+// specification and
+// libvpx/libavcodec part, the two libraries (which agree) are followed:
+// the loop-filter deltas scale with the frame's level, and the above
+// contexts are cleared once a frame.
 
 #include <algorithm>
 #include <array>
@@ -58,6 +75,7 @@
 #include <cstring>
 #include <memory>
 #include <string>
+#include <type_traits>
 #include <vector>
 
 #include "video.h"
@@ -166,7 +184,11 @@ const uint8_t kModeLf[14] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 1};
 inline int clampi(int v, int lo, int hi) {
   return v < lo ? lo : v > hi ? hi : v;
 }
-inline uint8_t clip8(int v) { return uint8_t(clampi(v, 0, 255)); }
+// A sample of `bd` bits, clipped (av_clip_pixel).
+template <class P>
+inline P clip_px(int v, int bd) {
+  return P(clampi(v, 0, (1 << bd) - 1));
+}
 
 // ------------------------------------------------------- frame contexts
 
@@ -371,25 +393,42 @@ struct MvRef {
   Mv mv[2];
 };
 
-// A decoded frame: planes padded to whole superblocks.
+// A decoded frame: planes padded to whole superblocks, chroma subsampled
+// by (ss_x, ss_y); 8-bit samples in `plane`, 10 and 12-bit ones in
+// `plane16`.
 struct Frame {
   int w = 0, h = 0;                 // coded size
+  int depth = 8, ss_x = 1, ss_y = 1;
   int stride[3] = {0, 0, 0};
   int pw[3] = {0, 0, 0}, ph[3] = {0, 0, 0};   // padded plane sizes
   std::vector<uint8_t> plane[3];
-  Frame(int width, int height) : w(width), h(height) {
+  std::vector<uint16_t> plane16[3];
+  Frame(int width, int height, int bits, int sx, int sy)
+      : w(width), h(height), depth(bits), ss_x(sx), ss_y(sy) {
     int aw = (w + 63) & ~63, ah = (h + 63) & ~63;
     for (int p = 0; p < 3; ++p) {
-      pw[p] = p ? aw >> 1 : aw;
-      ph[p] = p ? ah >> 1 : ah;
+      pw[p] = p ? aw >> ss_x : aw;
+      ph[p] = p ? ah >> ss_y : ah;
       stride[p] = pw[p];
-      plane[p].assign(size_t(pw[p]) * ph[p], 0);
+      if (depth > 8) plane16[p].assign(size_t(pw[p]) * ph[p], 0);
+      else plane[p].assign(size_t(pw[p]) * ph[p], 0);
     }
   }
-  int crop_w(int p) const { return p ? (w + 1) >> 1 : w; }
-  int crop_h(int p) const { return p ? (h + 1) >> 1 : h; }
-  uint8_t* at(int p, int x, int y) {
-    return &plane[p][size_t(y) * stride[p] + x];
+  int crop_w(int p) const { return p ? (w + ss_x) >> ss_x : w; }
+  int crop_h(int p) const { return p ? (h + ss_y) >> ss_y : h; }
+  template <class P>
+  P* data(int p) {
+    if constexpr (sizeof(P) == 1) return plane[p].data();
+    else return plane16[p].data();
+  }
+  template <class P>
+  const P* data(int p) const {
+    if constexpr (sizeof(P) == 1) return plane[p].data();
+    else return plane16[p].data();
+  }
+  template <class P>
+  P* at(int p, int x, int y) {
+    return data<P>(p) + size_t(y) * stride[p] + x;
   }
 };
 
@@ -400,6 +439,11 @@ struct ModeInfo {
   uint8_t sub_modes[4] = {0, 0, 0, 0};
   int8_t ref[2] = {INTRA, -1};
   Mv mv[4][2];          // per 4x4 sub-block (all four equal for >= 8x8)
+};
+
+// A loop-filter level's limits at 8 bits.
+struct Thresh {
+  uint8_t lim, mblim, hev;
 };
 
 struct Segmentation {
@@ -432,7 +476,15 @@ struct Header {
   int tile_cols_log2 = 0, tile_rows_log2 = 0;
   int header_size = 0;
   size_t uncompressed_size = 0;
+  // The colour config of a keyframe or intra-only frame (an inter frame
+  // keeps the last one's): bit depth, chroma subsampling, sRGB.
+  int depth = 8, ss_x = 1, ss_y = 1;
+  bool rgb = false;
   int color_range = 0, color_space = 0;
+  // Per reference: scaled (another frame size than this frame's), the
+  // 14-bit scale factors (x, y) and the 1/16-pel steps.
+  bool scaled[3] = {false, false, false};
+  int scale[3][2] = {}, step[3][2] = {};
 };
 
 }  // namespace
@@ -447,11 +499,17 @@ struct Vp9Decoder::State {
   bool lf_delta_enabled = false;
   int sign_bias[4] = {0, 0, 0, 0};
   int last_w = 0, last_h = 0;
-  bool last_show = false, last_key = false;
+  bool last_show = false, last_key = false, last_intra_only = false;
   bool have_key = false;
-  int color_range = 0, color_space = 0;   // from the last keyframe
+  // From the last keyframe or intra-only frame.
+  int depth = 8, ss_x = 1, ss_y = 1;
+  bool rgb = false;
+  int color_range = 0, color_space = 0;
   std::vector<MvRef> prev_mvs, cur_mvs;
   std::vector<uint8_t> seg_map_last, seg_map_cur;
+  // A packet's shown pictures after its first (next()).
+  std::vector<Picture> pending;
+  size_t next_pending = 0;
 
   // Per frame.
   Header hd;
@@ -470,12 +528,17 @@ struct Vp9Decoder::State {
   uint8_t left_nz[3][16], left_part[8];
   int tile_col_start = 0, tile_col_end = 0;
   BoolDecoder bd;
-  alignas(16) int16_t coef[32 * 32] = {};
+  // Dequantised coefficients (8 bits: wrapped to 16 as libavcodec stores
+  // them).
+  alignas(16) int32_t coef[32 * 32] = {};
+  int ssx(int p) const { return p ? hd.ss_x : 0; }
+  int ssy(int p) const { return p ? hd.ss_y : 0; }
 
   void parse_header(const uint8_t* data, size_t n);
   void read_compressed_header();
   void setup_past_independence();
   void decode_frame(const uint8_t* data, size_t n, Picture& out, bool& shown);
+  void write_picture(const Frame& f, Picture& out);
   void decode_tiles(const uint8_t* data, size_t n);
   void decode_partition(int row, int col, int bsize_sq);
   void decode_block(int row, int col, int bsize);
@@ -495,15 +558,24 @@ struct Vp9Decoder::State {
     return col > tile_col_start ? &mi[size_t(row) * mi_cols + col - 1]
                                 : nullptr;
   }
-  // reconstruction
+  // reconstruction (P: the sample type, uint8_t or uint16_t)
   int decode_coefs(int plane, int x4, int y4, int tx, int tx_type,
                    bool is_inter, int seg, int max_x4, int max_y4);
+  template <class P>
   void predict_intra(int plane, int x, int y, int tx, int mode,
                      bool have_left, bool have_above, bool have_right);
+  template <class P>
   void predict_inter(const ModeInfo& m, int row, int col);
+  template <class P>
   void reconstruct(int plane, int x, int y, int tx, int tx_type);
+  template <class P>
+  void decode_block_planes(ModeInfo& m, int row, int col, int bsize);
   // after the tiles
+  template <class P>
   void loop_filter();
+  template <class P>
+  void filter_non420(int p, int sr, int sc, const uint8_t (*lvl)[4][2],
+                     const Thresh* th);
   void adapt();
 };
 
@@ -573,30 +645,6 @@ void Vp9Decoder::State::parse_header(const uint8_t* data, size_t n) {
   h.profile = (hi << 1) | lo;
   if (h.profile == 3 && br.bit()) broken("VP9 reserved bit set");
   h.show_existing = br.bit();
-  if (h.profile != 0) {
-    // Name what the profile carries, from a keyframe's colour config.
-    std::string what;
-    if (!h.show_existing && br.bit() == 0) {          // a keyframe
-      br.f(2);                                        // show, error_res
-      br.f(24);                                       // sync code
-      int depth = h.profile >= 2 ? (br.bit() ? 12 : 10) : 8;
-      int cs = br.f(3);
-      std::string sampling = "4:2:0";
-      if (cs != 7) {
-        br.bit();                                     // colour range
-        if (h.profile & 1) {
-          int sx = br.bit(), sy = br.bit();
-          sampling = sx && sy ? "4:2:0" : sx ? "4:2:2" : sy ? "4:4:0"
-                                                            : "4:4:4";
-        }
-      } else {
-        sampling = "4:4:4 RGB";
-      }
-      what = ", " + std::to_string(depth) + "-bit " + sampling;
-    }
-    unsupported("VP9 profile " + std::to_string(h.profile) + what +
-                " (only profile 0, 8-bit 4:2:0, is read)");
-  }
   if (h.show_existing) {
     h.existing_idx = br.f(3);
     hd = h;
@@ -609,11 +657,35 @@ void Vp9Decoder::State::parse_header(const uint8_t* data, size_t n) {
     if (br.f(8) != 0x49 || br.f(8) != 0x83 || br.f(8) != 0x42)
       broken("VP9 sync code is wrong");
   };
+  // The colour config as libavcodec reads it (read_colorspace_details):
+  // 10 or 12 bits in profiles 2 and 3; sampling in profiles 1 and 3,
+  // where 4:2:0 is refused; sRGB (GBR 4:4:4, full range) in profiles 1
+  // and 3 only.
+  const std::string prof = "VP9 profile " + std::to_string(h.profile);
   auto color_config = [&] {
-    int cs = br.f(3);
-    if (cs == 7) unsupported("VP9 colour space sRGB (4:4:4 RGB)");
-    h.color_range = br.bit();
-    h.color_space = cs;
+    h.depth = h.profile >= 2 ? (br.bit() ? 12 : 10) : 8;
+    h.color_space = br.f(3);
+    if (h.color_space == 7) {
+      if (!(h.profile & 1))
+        unsupported("VP9 colour space sRGB in profile " +
+                    std::to_string(h.profile) +
+                    " (libavcodec refuses it: only profiles 1 and 3 "
+                    "carry RGB)");
+      if (br.bit()) broken("VP9 reserved bit set after sRGB");
+      h.rgb = true;
+      h.ss_x = h.ss_y = 0;
+      h.color_range = 1;
+    } else {
+      h.color_range = br.bit();
+      if (h.profile & 1) {
+        h.ss_x = br.bit();
+        h.ss_y = br.bit();
+        if (h.ss_x && h.ss_y)
+          unsupported(prof + " with 4:2:0 sampling (libavcodec refuses "
+                      "it)");
+        if (br.bit()) broken("VP9 reserved bit set in the colour config");
+      }
+    }
   };
   auto frame_size = [&] {
     h.w = br.f(16) + 1;
@@ -629,38 +701,73 @@ void Vp9Decoder::State::parse_header(const uint8_t* data, size_t n) {
     render_size();
     h.refresh_flags = 0xFF;
   } else {
-    if (!have_key) broken("VP9 inter frame before the first keyframe");
     h.intra_only = h.show ? false : br.bit();
     h.reset_context = h.error_res ? 0 : br.f(2);
-    if (h.intra_only) unsupported("VP9 intra-only frames");
-    h.refresh_flags = br.f(8);
-    for (int i = 0; i < 3; ++i) {
-      h.ref_idx[i] = br.f(3);
-      sign_bias[LAST + i] = br.bit();
-      if (!slots[h.ref_idx[i]]) broken("VP9 frame refers to an empty slot");
-    }
-    bool found = false;
-    for (int i = 0; i < 3 && !found; ++i) {
-      if (br.bit()) {
-        h.w = slots[h.ref_idx[i]]->w;
-        h.h = slots[h.ref_idx[i]]->h;
-        found = true;
+    if (h.intra_only) {
+      // Profile 0 carries no colour config: 8 bits, 4:2:0, and the
+      // colour space and range libavcodec then sets (BT.601, limited).
+      sync();
+      if (h.profile > 0) {
+        color_config();
+      } else {
+        h.color_space = 1;
+        h.color_range = 0;
       }
-    }
-    if (!found) frame_size();
-    render_size();
-    for (int i = 0; i < 3; ++i) {
-      const Frame& r = *slots[h.ref_idx[i]];
-      if (r.w != h.w || r.h != h.h)
-        unsupported("VP9 reference scaling (a reference of another frame "
-                    "size)");
-    }
-    h.allow_hp = br.bit();
-    if (br.bit()) {
-      h.filter = SWITCHABLE;
+      h.refresh_flags = br.f(8);
+      frame_size();
+      render_size();
     } else {
-      const int lit[4] = {EIGHTTAP_SMOOTH, EIGHTTAP, EIGHTTAP_SHARP, BILINEAR};
-      h.filter = lit[br.f(2)];
+      if (!have_key) broken("VP9 inter frame before the first keyframe");
+      h.depth = depth;
+      h.ss_x = ss_x;
+      h.ss_y = ss_y;
+      h.rgb = rgb;
+      h.color_space = color_space;
+      h.color_range = color_range;
+      h.refresh_flags = br.f(8);
+      for (int i = 0; i < 3; ++i) {
+        h.ref_idx[i] = br.f(3);
+        sign_bias[LAST + i] = br.bit();
+        if (!slots[h.ref_idx[i]])
+          broken("VP9 frame refers to an empty slot");
+      }
+      bool found = false;
+      for (int i = 0; i < 3 && !found; ++i) {
+        if (br.bit()) {
+          h.w = slots[h.ref_idx[i]]->w;
+          h.h = slots[h.ref_idx[i]]->h;
+          found = true;
+        }
+      }
+      if (!found) frame_size();
+      render_size();
+      // Each reference: of this frame's sampling and depth, and within
+      // the sizes the standard scales from (at most twice the frame's,
+      // at least a sixteenth of it), as libavcodec checks them all.
+      for (int i = 0; i < 3; ++i) {
+        const Frame& r = *slots[h.ref_idx[i]];
+        if (r.depth != h.depth || r.ss_x != h.ss_x || r.ss_y != h.ss_y)
+          unsupported("VP9 reference of another bit depth or sampling");
+        if (r.w == h.w && r.h == h.h) continue;
+        if (2 * h.w < r.w || 2 * h.h < r.h || h.w > 16 * r.w ||
+            h.h > 16 * r.h)
+          unsupported("VP9 reference scaling beyond its range (a "
+                      "reference more than twice the frame's size or "
+                      "less than a sixteenth of it)");
+        h.scaled[i] = true;
+        h.scale[i][0] = (r.w << 14) / h.w;
+        h.scale[i][1] = (r.h << 14) / h.h;
+        h.step[i][0] = (16 * h.scale[i][0]) >> 14;
+        h.step[i][1] = (16 * h.scale[i][1]) >> 14;
+      }
+      h.allow_hp = br.bit();
+      if (br.bit()) {
+        h.filter = SWITCHABLE;
+      } else {
+        const int lit[4] = {EIGHTTAP_SMOOTH, EIGHTTAP, EIGHTTAP_SHARP,
+                            BILINEAR};
+        h.filter = lit[br.f(2)];
+      }
     }
   }
   if (!h.error_res) {
@@ -675,11 +782,14 @@ void Vp9Decoder::State::parse_header(const uint8_t* data, size_t n) {
   mi_cols = (h.w + 7) >> 3;
   mi_rows = (h.h + 7) >> 3;
   sb_cols = (mi_cols + 7) >> 3;
-  if (seg_map_last.size() != size_t(mi_cols) * mi_rows || h.key) {
+  // A new frame size clears the segment map (libvpx's
+  // vp9_init_context_buffers), as a keyframe does.
+  if (seg_map_last.size() != size_t(mi_cols) * mi_rows || h.key ||
+      h.w != last_w || h.h != last_h) {
     seg_map_last.assign(size_t(mi_cols) * mi_rows, 0);
     seg_map_cur.assign(size_t(mi_cols) * mi_rows, 0);
   }
-  if (h.key || h.error_res) setup_past_independence();
+  if (h.key || h.intra_only || h.error_res) setup_past_independence();
   // Loop filter.
   hd.lf_level = br.f(6);
   hd.sharpness = br.f(3);
@@ -1468,7 +1578,7 @@ int Vp9Decoder::State::decode_coefs(int plane, int x4, int y4, int tx,
                                     int max_x4, int max_y4) {
   const int n4 = 1 << tx;
   uint8_t* a = &above_nz[plane][x4];
-  uint8_t* l = &left_nz[plane][y4 & (plane ? 7 : 15)];
+  uint8_t* l = &left_nz[plane][y4 & ((16 >> ssy(plane)) - 1)];
   int actx = 0, lctx = 0;
   for (int i = 0; i < n4; ++i) {
     if (x4 + i < max_x4) actx |= a[i];
@@ -1525,13 +1635,19 @@ int Vp9Decoder::State::decode_coefs(int plane, int x4, int y4, int tx,
         val = token;
       } else {
         int k = token - 5, e = 0;
+        // CAT6 above 8 bits: depth - 8 more bits first, at 255.
+        if (k == 5)
+          for (int i = 8; i < hd.depth; ++i) e = (e << 1) | bd.read(255);
         for (int i = 0; i < kCatBits[k]; ++i)
           e = (e << 1) | bd.read(kCatProbs[k][i]);
         val = kCatBase[k] + e;
       }
     }
-    int v = (val * dqv) >> shift;
-    coef[scan[c]] = int16_t(bd.read(128) ? -v : v);
+    // libavcodec: (±val · q) in 32 bits, halved toward zero at 32x32;
+    // stored in 16 bits at 8 bits.
+    int64_t v = (int64_t(val) * dqv) >> shift;
+    int32_t sv = int32_t(uint32_t(bd.read(128) ? -v : v));
+    coef[scan[c]] = hd.depth > 8 ? sv : int16_t(sv);
     cache[scan[c]] = kEnergy[token];
     ++c;
     if (c < max_eob) ctx = (1 + cache[nb[2 * c]] + cache[nb[2 * c + 1]]) >> 1;
@@ -1559,15 +1675,17 @@ const int kS1 = 5283, kS2 = 9929, kS3 = 13377, kS4 = 15212;
 
 inline int rs(int64_t x) { return int((x + (1 << 13)) >> 14); }
 // A butterfly rotation: (a·c1 − b·c2, a·c2 + b·c1), rounded.
-inline void rot(int a, int b, int c1, int c2, int16_t& o1, int16_t& o2) {
-  o1 = int16_t(rs(int64_t(a) * c1 - int64_t(b) * c2));
-  o2 = int16_t(rs(int64_t(a) * c2 + int64_t(b) * c1));
+template <class T>
+inline void rot(int64_t a, int64_t b, int c1, int c2, T& o1, T& o2) {
+  o1 = T(rs(a * c1 - b * c2));
+  o2 = T(rs(a * c2 + b * c1));
 }
 
-void idct4(const int* in, int* out) {
-  int16_t s0, s1, s2, s3;
-  s0 = int16_t(rs(int64_t(in[0] + in[2]) * kC[16]));
-  s1 = int16_t(rs(int64_t(in[0] - in[2]) * kC[16]));
+template <class T>
+void idct4(const int64_t* in, int64_t* out) {
+  T s0, s1, s2, s3;
+  s0 = T(rs(int64_t(in[0] + in[2]) * kC[16]));
+  s1 = T(rs(int64_t(in[0] - in[2]) * kC[16]));
   rot(in[1], in[3], kC[24], kC[8], s2, s3);
   out[0] = s0 + s3;
   out[1] = s1 + s2;
@@ -1575,7 +1693,7 @@ void idct4(const int* in, int* out) {
   out[3] = s0 - s3;
 }
 
-void iadst4(const int* in, int* out) {
+void iadst4(const int64_t* in, int64_t* out) {
   int64_t x0 = in[0], x1 = in[1], x2 = in[2], x3 = in[3];
   if (!(x0 | x1 | x2 | x3)) {
     out[0] = out[1] = out[2] = out[3] = 0;
@@ -1594,28 +1712,29 @@ void iadst4(const int* in, int* out) {
   out[3] = rs(s0 + s1 - s3);
 }
 
-void idct8(const int* in, int* out) {
-  int16_t s1[8], s2[8];
-  s1[0] = int16_t(in[0]);
-  s1[2] = int16_t(in[4]);
-  s1[1] = int16_t(in[2]);
-  s1[3] = int16_t(in[6]);
+template <class T>
+void idct8(const int64_t* in, int64_t* out) {
+  T s1[8], s2[8];
+  s1[0] = T(in[0]);
+  s1[2] = T(in[4]);
+  s1[1] = T(in[2]);
+  s1[3] = T(in[6]);
   rot(in[1], in[7], kC[28], kC[4], s1[4], s1[7]);
   rot(in[5], in[3], kC[12], kC[20], s1[5], s1[6]);
-  s2[0] = int16_t(rs(int64_t(s1[0] + s1[2]) * kC[16]));
-  s2[1] = int16_t(rs(int64_t(s1[0] - s1[2]) * kC[16]));
+  s2[0] = T(rs(int64_t(s1[0] + s1[2]) * kC[16]));
+  s2[1] = T(rs(int64_t(s1[0] - s1[2]) * kC[16]));
   rot(s1[1], s1[3], kC[24], kC[8], s2[2], s2[3]);
-  s2[4] = int16_t(s1[4] + s1[5]);
-  s2[5] = int16_t(s1[4] - s1[5]);
-  s2[6] = int16_t(-s1[6] + s1[7]);
-  s2[7] = int16_t(s1[6] + s1[7]);
-  s1[0] = int16_t(s2[0] + s2[3]);
-  s1[1] = int16_t(s2[1] + s2[2]);
-  s1[2] = int16_t(s2[1] - s2[2]);
-  s1[3] = int16_t(s2[0] - s2[3]);
+  s2[4] = T(s1[4] + s1[5]);
+  s2[5] = T(s1[4] - s1[5]);
+  s2[6] = T(-s1[6] + s1[7]);
+  s2[7] = T(s1[6] + s1[7]);
+  s1[0] = T(s2[0] + s2[3]);
+  s1[1] = T(s2[1] + s2[2]);
+  s1[2] = T(s2[1] - s2[2]);
+  s1[3] = T(s2[0] - s2[3]);
   s1[4] = s2[4];
-  s1[5] = int16_t(rs(int64_t(s2[6] - s2[5]) * kC[16]));
-  s1[6] = int16_t(rs(int64_t(s2[5] + s2[6]) * kC[16]));
+  s1[5] = T(rs(int64_t(s2[6] - s2[5]) * kC[16]));
+  s1[6] = T(rs(int64_t(s2[5] + s2[6]) * kC[16]));
   s1[7] = s2[7];
   for (int i = 0; i < 4; ++i) {
     out[i] = s1[i] + s1[7 - i];
@@ -1623,7 +1742,7 @@ void idct8(const int* in, int* out) {
   }
 }
 
-void iadst8(const int* in, int* out) {
+void iadst8(const int64_t* in, int64_t* out) {
   int64_t x0 = in[7], x1 = in[0], x2 = in[5], x3 = in[2], x4 = in[3],
           x5 = in[4], x6 = in[1], x7 = in[6];
   if (!(x0 | x1 | x2 | x3 | x4 | x5 | x6 | x7)) {
@@ -1676,10 +1795,11 @@ void iadst8(const int* in, int* out) {
   out[7] = int(-x1);
 }
 
-void idct16(const int* in, int* out) {
-  int16_t s1[16], s2[16];
+template <class T>
+void idct16(const int64_t* in, int64_t* out) {
+  T s1[16], s2[16];
   const int perm[16] = {0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15};
-  for (int i = 0; i < 16; ++i) s1[i] = int16_t(in[perm[i]]);
+  for (int i = 0; i < 16; ++i) s1[i] = T(in[perm[i]]);
   for (int i = 0; i < 8; ++i) s2[i] = s1[i];
   rot(s1[8], s1[15], kC[30], kC[2], s2[8], s2[15]);
   rot(s1[9], s1[14], kC[14], kC[18], s2[9], s2[14]);
@@ -1689,58 +1809,58 @@ void idct16(const int* in, int* out) {
   for (int i = 0; i < 4; ++i) s1[i] = s2[i];
   rot(s2[4], s2[7], kC[28], kC[4], s1[4], s1[7]);
   rot(s2[5], s2[6], kC[12], kC[20], s1[5], s1[6]);
-  s1[8] = int16_t(s2[8] + s2[9]);
-  s1[9] = int16_t(s2[8] - s2[9]);
-  s1[10] = int16_t(-s2[10] + s2[11]);
-  s1[11] = int16_t(s2[10] + s2[11]);
-  s1[12] = int16_t(s2[12] + s2[13]);
-  s1[13] = int16_t(s2[12] - s2[13]);
-  s1[14] = int16_t(-s2[14] + s2[15]);
-  s1[15] = int16_t(s2[14] + s2[15]);
+  s1[8] = T(s2[8] + s2[9]);
+  s1[9] = T(s2[8] - s2[9]);
+  s1[10] = T(-s2[10] + s2[11]);
+  s1[11] = T(s2[10] + s2[11]);
+  s1[12] = T(s2[12] + s2[13]);
+  s1[13] = T(s2[12] - s2[13]);
+  s1[14] = T(-s2[14] + s2[15]);
+  s1[15] = T(s2[14] + s2[15]);
   // stage 4
-  s2[0] = int16_t(rs(int64_t(s1[0] + s1[1]) * kC[16]));
-  s2[1] = int16_t(rs(int64_t(s1[0] - s1[1]) * kC[16]));
+  s2[0] = T(rs(int64_t(s1[0] + s1[1]) * kC[16]));
+  s2[1] = T(rs(int64_t(s1[0] - s1[1]) * kC[16]));
   rot(s1[2], s1[3], kC[24], kC[8], s2[2], s2[3]);
-  s2[4] = int16_t(s1[4] + s1[5]);
-  s2[5] = int16_t(s1[4] - s1[5]);
-  s2[6] = int16_t(-s1[6] + s1[7]);
-  s2[7] = int16_t(s1[6] + s1[7]);
+  s2[4] = T(s1[4] + s1[5]);
+  s2[5] = T(s1[4] - s1[5]);
+  s2[6] = T(-s1[6] + s1[7]);
+  s2[7] = T(s1[6] + s1[7]);
   s2[8] = s1[8];
   s2[15] = s1[15];
-  s2[9] = int16_t(rs(-int64_t(s1[9]) * kC[8] + int64_t(s1[14]) * kC[24]));
-  s2[14] = int16_t(rs(int64_t(s1[9]) * kC[24] + int64_t(s1[14]) * kC[8]));
-  s2[10] = int16_t(rs(-int64_t(s1[10]) * kC[24] - int64_t(s1[13]) * kC[8]));
-  s2[13] = int16_t(rs(-int64_t(s1[10]) * kC[8] + int64_t(s1[13]) * kC[24]));
+  s2[9] = T(rs(-int64_t(s1[9]) * kC[8] + int64_t(s1[14]) * kC[24]));
+  s2[14] = T(rs(int64_t(s1[9]) * kC[24] + int64_t(s1[14]) * kC[8]));
+  s2[10] = T(rs(-int64_t(s1[10]) * kC[24] - int64_t(s1[13]) * kC[8]));
+  s2[13] = T(rs(-int64_t(s1[10]) * kC[8] + int64_t(s1[13]) * kC[24]));
   s2[11] = s1[11];
   s2[12] = s1[12];
   // stage 5
-  s1[0] = int16_t(s2[0] + s2[3]);
-  s1[1] = int16_t(s2[1] + s2[2]);
-  s1[2] = int16_t(s2[1] - s2[2]);
-  s1[3] = int16_t(s2[0] - s2[3]);
+  s1[0] = T(s2[0] + s2[3]);
+  s1[1] = T(s2[1] + s2[2]);
+  s1[2] = T(s2[1] - s2[2]);
+  s1[3] = T(s2[0] - s2[3]);
   s1[4] = s2[4];
-  s1[5] = int16_t(rs(int64_t(s2[6] - s2[5]) * kC[16]));
-  s1[6] = int16_t(rs(int64_t(s2[5] + s2[6]) * kC[16]));
+  s1[5] = T(rs(int64_t(s2[6] - s2[5]) * kC[16]));
+  s1[6] = T(rs(int64_t(s2[5] + s2[6]) * kC[16]));
   s1[7] = s2[7];
-  s1[8] = int16_t(s2[8] + s2[11]);
-  s1[9] = int16_t(s2[9] + s2[10]);
-  s1[10] = int16_t(s2[9] - s2[10]);
-  s1[11] = int16_t(s2[8] - s2[11]);
-  s1[12] = int16_t(-s2[12] + s2[15]);
-  s1[13] = int16_t(-s2[13] + s2[14]);
-  s1[14] = int16_t(s2[13] + s2[14]);
-  s1[15] = int16_t(s2[12] + s2[15]);
+  s1[8] = T(s2[8] + s2[11]);
+  s1[9] = T(s2[9] + s2[10]);
+  s1[10] = T(s2[9] - s2[10]);
+  s1[11] = T(s2[8] - s2[11]);
+  s1[12] = T(-s2[12] + s2[15]);
+  s1[13] = T(-s2[13] + s2[14]);
+  s1[14] = T(s2[13] + s2[14]);
+  s1[15] = T(s2[12] + s2[15]);
   // stage 6
   for (int i = 0; i < 4; ++i) {
-    s2[i] = int16_t(s1[i] + s1[7 - i]);
-    s2[7 - i] = int16_t(s1[i] - s1[7 - i]);
+    s2[i] = T(s1[i] + s1[7 - i]);
+    s2[7 - i] = T(s1[i] - s1[7 - i]);
   }
   s2[8] = s1[8];
   s2[9] = s1[9];
-  s2[10] = int16_t(rs(int64_t(-s1[10] + s1[13]) * kC[16]));
-  s2[13] = int16_t(rs(int64_t(s1[10] + s1[13]) * kC[16]));
-  s2[11] = int16_t(rs(int64_t(-s1[11] + s1[12]) * kC[16]));
-  s2[12] = int16_t(rs(int64_t(s1[11] + s1[12]) * kC[16]));
+  s2[10] = T(rs(int64_t(-s1[10] + s1[13]) * kC[16]));
+  s2[13] = T(rs(int64_t(s1[10] + s1[13]) * kC[16]));
+  s2[11] = T(rs(int64_t(-s1[11] + s1[12]) * kC[16]));
+  s2[12] = T(rs(int64_t(s1[11] + s1[12]) * kC[16]));
   s2[14] = s1[14];
   s2[15] = s1[15];
   for (int i = 0; i < 8; ++i) {
@@ -1749,7 +1869,7 @@ void idct16(const int* in, int* out) {
   }
 }
 
-void iadst16(const int* in, int* out) {
+void iadst16(const int64_t* in, int64_t* out) {
   int64_t x[16];
   const int perm[16] = {15, 0, 13, 2, 11, 4, 9, 6, 7, 8, 5, 10, 3, 12, 1, 14};
   int64_t any = 0;
@@ -1828,11 +1948,12 @@ void iadst16(const int* in, int* out) {
   for (int i = 0; i < 16; ++i) out[i] = int(o[i]);
 }
 
-void idct32(const int* in, int* out) {
-  int16_t s1[32], s2[32];
+template <class T>
+void idct32(const int64_t* in, int64_t* out) {
+  T s1[32], s2[32];
   const int perm[16] = {0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22,
                         14, 30};
-  for (int i = 0; i < 16; ++i) s1[i] = int16_t(in[perm[i]]);
+  for (int i = 0; i < 16; ++i) s1[i] = T(in[perm[i]]);
   // stage 1: odd inputs
   rot(in[1], in[31], kC[31], kC[1], s1[16], s1[31]);
   rot(in[17], in[15], kC[15], kC[17], s1[17], s1[30]);
@@ -1849,23 +1970,23 @@ void idct32(const int* in, int* out) {
   rot(s1[10], s1[13], kC[22], kC[10], s2[10], s2[13]);
   rot(s1[11], s1[12], kC[6], kC[26], s2[11], s2[12]);
   for (int k = 16; k < 32; k += 4) {
-    s2[k] = int16_t(s1[k] + s1[k + 1]);
-    s2[k + 1] = int16_t(s1[k] - s1[k + 1]);
-    s2[k + 2] = int16_t(-s1[k + 2] + s1[k + 3]);
-    s2[k + 3] = int16_t(s1[k + 2] + s1[k + 3]);
+    s2[k] = T(s1[k] + s1[k + 1]);
+    s2[k + 1] = T(s1[k] - s1[k + 1]);
+    s2[k + 2] = T(-s1[k + 2] + s1[k + 3]);
+    s2[k + 3] = T(s1[k + 2] + s1[k + 3]);
   }
   // stage 3
   for (int i = 0; i < 4; ++i) s1[i] = s2[i];
   rot(s2[4], s2[7], kC[28], kC[4], s1[4], s1[7]);
   rot(s2[5], s2[6], kC[12], kC[20], s1[5], s1[6]);
   for (int k = 8; k < 16; k += 4) {
-    s1[k] = int16_t(s2[k] + s2[k + 1]);
-    s1[k + 1] = int16_t(s2[k] - s2[k + 1]);
-    s1[k + 2] = int16_t(-s2[k + 2] + s2[k + 3]);
-    s1[k + 3] = int16_t(s2[k + 2] + s2[k + 3]);
+    s1[k] = T(s2[k] + s2[k + 1]);
+    s1[k + 1] = T(s2[k] - s2[k + 1]);
+    s1[k + 2] = T(-s2[k + 2] + s2[k + 3]);
+    s1[k + 3] = T(s2[k + 2] + s2[k + 3]);
   }
-  auto r2 = [](int a, int b, int ca, int cb) {
-    return int16_t(rs(int64_t(a) * ca + int64_t(b) * cb));
+  auto r2 = [](int64_t a, int64_t b, int ca, int cb) {
+    return T(rs(a * ca + b * cb));
   };
   s1[16] = s2[16];
   s1[31] = s2[31];
@@ -1884,13 +2005,13 @@ void idct32(const int* in, int* out) {
   s1[27] = s2[27];
   s1[28] = s2[28];
   // stage 4
-  s2[0] = int16_t(rs(int64_t(s1[0] + s1[1]) * kC[16]));
-  s2[1] = int16_t(rs(int64_t(s1[0] - s1[1]) * kC[16]));
+  s2[0] = T(rs(int64_t(s1[0] + s1[1]) * kC[16]));
+  s2[1] = T(rs(int64_t(s1[0] - s1[1]) * kC[16]));
   rot(s1[2], s1[3], kC[24], kC[8], s2[2], s2[3]);
-  s2[4] = int16_t(s1[4] + s1[5]);
-  s2[5] = int16_t(s1[4] - s1[5]);
-  s2[6] = int16_t(-s1[6] + s1[7]);
-  s2[7] = int16_t(s1[6] + s1[7]);
+  s2[4] = T(s1[4] + s1[5]);
+  s2[5] = T(s1[4] - s1[5]);
+  s2[6] = T(-s1[6] + s1[7]);
+  s2[7] = T(s1[6] + s1[7]);
   s2[8] = s1[8];
   s2[15] = s1[15];
   s2[9] = r2(s1[9], s1[14], -kC[8], kC[24]);
@@ -1899,39 +2020,39 @@ void idct32(const int* in, int* out) {
   s2[13] = r2(s1[10], s1[13], -kC[8], kC[24]);
   s2[11] = s1[11];
   s2[12] = s1[12];
-  s2[16] = int16_t(s1[16] + s1[19]);
-  s2[17] = int16_t(s1[17] + s1[18]);
-  s2[18] = int16_t(s1[17] - s1[18]);
-  s2[19] = int16_t(s1[16] - s1[19]);
-  s2[20] = int16_t(-s1[20] + s1[23]);
-  s2[21] = int16_t(-s1[21] + s1[22]);
-  s2[22] = int16_t(s1[21] + s1[22]);
-  s2[23] = int16_t(s1[20] + s1[23]);
-  s2[24] = int16_t(s1[24] + s1[27]);
-  s2[25] = int16_t(s1[25] + s1[26]);
-  s2[26] = int16_t(s1[25] - s1[26]);
-  s2[27] = int16_t(s1[24] - s1[27]);
-  s2[28] = int16_t(-s1[28] + s1[31]);
-  s2[29] = int16_t(-s1[29] + s1[30]);
-  s2[30] = int16_t(s1[29] + s1[30]);
-  s2[31] = int16_t(s1[28] + s1[31]);
+  s2[16] = T(s1[16] + s1[19]);
+  s2[17] = T(s1[17] + s1[18]);
+  s2[18] = T(s1[17] - s1[18]);
+  s2[19] = T(s1[16] - s1[19]);
+  s2[20] = T(-s1[20] + s1[23]);
+  s2[21] = T(-s1[21] + s1[22]);
+  s2[22] = T(s1[21] + s1[22]);
+  s2[23] = T(s1[20] + s1[23]);
+  s2[24] = T(s1[24] + s1[27]);
+  s2[25] = T(s1[25] + s1[26]);
+  s2[26] = T(s1[25] - s1[26]);
+  s2[27] = T(s1[24] - s1[27]);
+  s2[28] = T(-s1[28] + s1[31]);
+  s2[29] = T(-s1[29] + s1[30]);
+  s2[30] = T(s1[29] + s1[30]);
+  s2[31] = T(s1[28] + s1[31]);
   // stage 5
-  s1[0] = int16_t(s2[0] + s2[3]);
-  s1[1] = int16_t(s2[1] + s2[2]);
-  s1[2] = int16_t(s2[1] - s2[2]);
-  s1[3] = int16_t(s2[0] - s2[3]);
+  s1[0] = T(s2[0] + s2[3]);
+  s1[1] = T(s2[1] + s2[2]);
+  s1[2] = T(s2[1] - s2[2]);
+  s1[3] = T(s2[0] - s2[3]);
   s1[4] = s2[4];
-  s1[5] = int16_t(rs(int64_t(s2[6] - s2[5]) * kC[16]));
-  s1[6] = int16_t(rs(int64_t(s2[5] + s2[6]) * kC[16]));
+  s1[5] = T(rs(int64_t(s2[6] - s2[5]) * kC[16]));
+  s1[6] = T(rs(int64_t(s2[5] + s2[6]) * kC[16]));
   s1[7] = s2[7];
-  s1[8] = int16_t(s2[8] + s2[11]);
-  s1[9] = int16_t(s2[9] + s2[10]);
-  s1[10] = int16_t(s2[9] - s2[10]);
-  s1[11] = int16_t(s2[8] - s2[11]);
-  s1[12] = int16_t(-s2[12] + s2[15]);
-  s1[13] = int16_t(-s2[13] + s2[14]);
-  s1[14] = int16_t(s2[13] + s2[14]);
-  s1[15] = int16_t(s2[12] + s2[15]);
+  s1[8] = T(s2[8] + s2[11]);
+  s1[9] = T(s2[9] + s2[10]);
+  s1[10] = T(s2[9] - s2[10]);
+  s1[11] = T(s2[8] - s2[11]);
+  s1[12] = T(-s2[12] + s2[15]);
+  s1[13] = T(-s2[13] + s2[14]);
+  s1[14] = T(s2[13] + s2[14]);
+  s1[15] = T(s2[12] + s2[15]);
   s1[16] = s2[16];
   s1[17] = s2[17];
   s1[18] = r2(s2[18], s2[29], -kC[8], kC[24]);
@@ -1950,32 +2071,32 @@ void idct32(const int* in, int* out) {
   s1[31] = s2[31];
   // stage 6
   for (int i = 0; i < 4; ++i) {
-    s2[i] = int16_t(s1[i] + s1[7 - i]);
-    s2[7 - i] = int16_t(s1[i] - s1[7 - i]);
+    s2[i] = T(s1[i] + s1[7 - i]);
+    s2[7 - i] = T(s1[i] - s1[7 - i]);
   }
   s2[8] = s1[8];
   s2[9] = s1[9];
-  s2[10] = int16_t(rs(int64_t(-s1[10] + s1[13]) * kC[16]));
-  s2[13] = int16_t(rs(int64_t(s1[10] + s1[13]) * kC[16]));
-  s2[11] = int16_t(rs(int64_t(-s1[11] + s1[12]) * kC[16]));
-  s2[12] = int16_t(rs(int64_t(s1[11] + s1[12]) * kC[16]));
+  s2[10] = T(rs(int64_t(-s1[10] + s1[13]) * kC[16]));
+  s2[13] = T(rs(int64_t(s1[10] + s1[13]) * kC[16]));
+  s2[11] = T(rs(int64_t(-s1[11] + s1[12]) * kC[16]));
+  s2[12] = T(rs(int64_t(s1[11] + s1[12]) * kC[16]));
   s2[14] = s1[14];
   s2[15] = s1[15];
   for (int i = 0; i < 4; ++i) {
-    s2[16 + i] = int16_t(s1[16 + i] + s1[23 - i]);
-    s2[23 - i] = int16_t(s1[16 + i] - s1[23 - i]);
-    s2[24 + i] = int16_t(-s1[24 + i] + s1[31 - i]);
-    s2[31 - i] = int16_t(s1[24 + i] + s1[31 - i]);
+    s2[16 + i] = T(s1[16 + i] + s1[23 - i]);
+    s2[23 - i] = T(s1[16 + i] - s1[23 - i]);
+    s2[24 + i] = T(-s1[24 + i] + s1[31 - i]);
+    s2[31 - i] = T(s1[24 + i] + s1[31 - i]);
   }
   // stage 7
   for (int i = 0; i < 8; ++i) {
-    s1[i] = int16_t(s2[i] + s2[15 - i]);
-    s1[15 - i] = int16_t(s2[i] - s2[15 - i]);
+    s1[i] = T(s2[i] + s2[15 - i]);
+    s1[15 - i] = T(s2[i] - s2[15 - i]);
   }
   for (int i = 16; i < 20; ++i) s1[i] = s2[i];
   for (int i = 0; i < 4; ++i) {
-    s1[20 + i] = int16_t(rs(int64_t(-s2[20 + i] + s2[27 - i]) * kC[16]));
-    s1[27 - i] = int16_t(rs(int64_t(s2[20 + i] + s2[27 - i]) * kC[16]));
+    s1[20 + i] = T(rs(int64_t(-s2[20 + i] + s2[27 - i]) * kC[16]));
+    s1[27 - i] = T(rs(int64_t(s2[20 + i] + s2[27 - i]) * kC[16]));
   }
   for (int i = 28; i < 32; ++i) s1[i] = s2[i];
   for (int i = 0; i < 16; ++i) {
@@ -1984,13 +2105,16 @@ void idct32(const int* in, int* out) {
   }
 }
 
-using Tx1d = void (*)(const int*, int*);
+using Tx1d = void (*)(const int64_t*, int64_t*);
 
 // Inverse transform of an n×n block of coefficients (row-major), added to
-// `dst`: rows, then columns, each output rounded by `shift` bits.
-void inverse_2d(const int16_t* coef, int n, Tx1d rows, Tx1d cols, int shift,
-                uint8_t* dst, int stride) {
-  int tmp[32 * 32], in[32], out[32];
+// `dst` and clipped to `bd` bits: rows, then columns, each output rounded
+// by `shift` bits; between the passes the rows are kept in 16 bits at 8
+// bits (libvpx's and libavcodec's int16 coefficients), else in 32.
+template <class P>
+void inverse_2d(const int32_t* coef, int n, Tx1d rows, Tx1d cols, int shift,
+                P* dst, int stride, int bd) {
+  int64_t tmp[32 * 32], in[32], out[32];
   for (int r = 0; r < n; ++r) {
     bool zero = true;
     for (int c = 0; c < n; ++c) {
@@ -2002,22 +2126,24 @@ void inverse_2d(const int16_t* coef, int n, Tx1d rows, Tx1d cols, int shift,
       continue;
     }
     rows(in, out);
-    for (int c = 0; c < n; ++c) tmp[r * n + c] = int16_t(out[c]);
+    for (int c = 0; c < n; ++c)
+      tmp[r * n + c] = bd > 8 ? int64_t(int32_t(out[c])) : int16_t(out[c]);
   }
   for (int c = 0; c < n; ++c) {
     for (int r = 0; r < n; ++r) in[r] = tmp[r * n + c];
     cols(in, out);
     for (int r = 0; r < n; ++r) {
-      uint8_t& d = dst[r * stride + c];
-      d = clip8(d + ((out[r] + (1 << (shift - 1))) >> shift));
+      P& d = dst[r * stride + c];
+      d = clip_px<P>(d + int((out[r] + (1 << (shift - 1))) >> shift), bd);
     }
   }
 }
 
-void iwht4x4(const int16_t* coef, uint8_t* dst, int stride) {
+template <class P>
+void iwht4x4(const int32_t* coef, P* dst, int stride, int bd) {
   int out[16];
   for (int i = 0; i < 4; ++i) {
-    const int16_t* ip = coef + 4 * i;
+    const int32_t* ip = coef + 4 * i;
     int a = ip[0] >> 2, c = ip[1] >> 2, d = ip[2] >> 2, b = ip[3] >> 2;
     a += c;
     d -= b;
@@ -2040,35 +2166,44 @@ void iwht4x4(const int16_t* coef, uint8_t* dst, int stride) {
     c = e - c;
     a -= b;
     d += c;
-    dst[i] = clip8(dst[i] + a);
-    dst[stride + i] = clip8(dst[stride + i] + b);
-    dst[2 * stride + i] = clip8(dst[2 * stride + i] + c);
-    dst[3 * stride + i] = clip8(dst[3 * stride + i] + d);
+    dst[i] = clip_px<P>(dst[i] + a, bd);
+    dst[stride + i] = clip_px<P>(dst[stride + i] + b, bd);
+    dst[2 * stride + i] = clip_px<P>(dst[2 * stride + i] + c, bd);
+    dst[3 * stride + i] = clip_px<P>(dst[3 * stride + i] + d, bd);
   }
 }
 
 }  // namespace
 
+template <class P>
 void Vp9Decoder::State::reconstruct(int plane, int x, int y, int tx,
                                     int tx_type) {
-  uint8_t* dst = cur->at(plane, x, y);
+  P* dst = cur->at<P>(plane, x, y);
   int stride = cur->stride[plane];
   int n = 4 << tx;
+  const int bdp = hd.depth;
+  // 16-bit intermediates at 8 bits (libvpx's), wide ones above.
+  const bool narrow = bdp == 8;
   if (hd.lossless) {
-    iwht4x4(coef, dst, stride);
+    iwht4x4(coef, dst, stride, bdp);
   } else if (tx == TX_32X32) {
-    inverse_2d(coef, 32, idct32, idct32, 6, dst, stride);
+    Tx1d t = narrow ? idct32<int16_t> : idct32<int64_t>;
+    inverse_2d(coef, 32, t, t, 6, dst, stride, bdp);
   } else {
-    static const Tx1d dct[3] = {idct4, idct8, idct16};
+    static const Tx1d dct8[3] = {idct4<int16_t>, idct8<int16_t>,
+                                 idct16<int16_t>};
+    static const Tx1d dct_wide[3] = {idct4<int64_t>, idct8<int64_t>,
+                                     idct16<int64_t>};
     static const Tx1d adst[3] = {iadst4, iadst8, iadst16};
+    const Tx1d* dct = narrow ? dct8 : dct_wide;
     // ADST_DCT: ADST on the columns (vertical), DCT on the rows.
     Tx1d cols = tx_type == ADST_DCT || tx_type == ADST_ADST ? adst[tx]
                                                             : dct[tx];
     Tx1d rows = tx_type == DCT_ADST || tx_type == ADST_ADST ? adst[tx]
                                                             : dct[tx];
-    inverse_2d(coef, n, rows, cols, 4 + tx, dst, stride);
+    inverse_2d(coef, n, rows, cols, 4 + tx, dst, stride, bdp);
   }
-  std::memset(coef, 0, sizeof(int16_t) * size_t(n) * n);
+  std::memset(coef, 0, sizeof(int32_t) * size_t(n) * n);
 }
 
 // ------------------------------------------------------------ prediction
@@ -2076,13 +2211,16 @@ void Vp9Decoder::State::reconstruct(int plane, int x, int y, int tx,
 namespace {
 
 // The ten predictors of §8.5.1.2 from the edges `a` (a[-1] the corner,
-// 2·bs pixels) and `left` (bs pixels).
-void intra_pred(int mode, int bs, const uint8_t* a, const uint8_t* left,
-                bool have_left, bool have_above, uint8_t* dst, int stride) {
-  auto P = [&](int r, int c) -> uint8_t& { return dst[r * stride + c]; };
-  auto avg2 = [](int p, int q) { return uint8_t((p + q + 1) >> 1); };
-  auto avg3 = [](int p, int q, int r) {
-    return uint8_t((p + 2 * q + r + 2) >> 2);
+// 2·bs pixels) and `left` (bs pixels), at `bd` bits (DC without edges:
+// 1 << (bd − 1)).
+template <class P>
+void intra_pred(int mode, int bs, const P* a, const P* left, bool have_left,
+                bool have_above, P* dst, int stride, int bd) {
+  auto Pt = [&](int r, int c) -> P& { return dst[r * stride + c]; };
+  auto avg2 = [](int p, int q) { return P((p + q + 1) >> 1); };
+  auto avg3 = [](int p, int q, int r) { return P((p + 2 * q + r + 2) >> 2); };
+  auto fill = [&](int r, P v) {
+    for (int c = 0; c < bs; ++c) Pt(r, c) = v;
   };
   switch (mode) {
     case DC_PRED: {
@@ -2095,37 +2233,39 @@ void intra_pred(int mode, int bs, const uint8_t* a, const uint8_t* left,
         for (int i = 0; i < bs; ++i) sum += left[i];
         cnt += bs;
       }
-      int v = cnt ? (sum + cnt / 2) / cnt : 128;
-      for (int r = 0; r < bs; ++r) std::memset(&P(r, 0), v, size_t(bs));
+      P v = P(cnt ? (sum + cnt / 2) / cnt : 1 << (bd - 1));
+      for (int r = 0; r < bs; ++r) fill(r, v);
       break;
     }
     case V_PRED:
-      for (int r = 0; r < bs; ++r) std::memcpy(&P(r, 0), a, size_t(bs));
+      for (int r = 0; r < bs; ++r)
+        std::memcpy(&Pt(r, 0), a, sizeof(P) * size_t(bs));
       break;
     case H_PRED:
-      for (int r = 0; r < bs; ++r) std::memset(&P(r, 0), left[r], size_t(bs));
+      for (int r = 0; r < bs; ++r) fill(r, left[r]);
       break;
     case TM_PRED:
       for (int r = 0; r < bs; ++r)
-        for (int c = 0; c < bs; ++c) P(r, c) = clip8(left[r] + a[c] - a[-1]);
+        for (int c = 0; c < bs; ++c)
+          Pt(r, c) = clip_px<P>(left[r] + a[c] - a[-1], bd);
       break;
     case D45_PRED:
       for (int r = 0; r < bs; ++r)
         for (int c = 0; c < bs; ++c)
-          P(r, c) = r + c + 2 < 2 * bs ? avg3(a[r + c], a[r + c + 1],
-                                              a[r + c + 2])
-                                       : a[2 * bs - 1];
+          Pt(r, c) = r + c + 2 < 2 * bs ? avg3(a[r + c], a[r + c + 1],
+                                               a[r + c + 2])
+                                        : a[2 * bs - 1];
       break;
     case D63_PRED:
       for (int r = 0; r < bs; ++r)
         for (int c = 0; c < bs; ++c) {
           int i = r / 2 + c;
-          P(r, c) = r & 1 ? avg3(a[i], a[i + 1], a[i + 2])
-                          : avg2(a[i], a[i + 1]);
+          Pt(r, c) = r & 1 ? avg3(a[i], a[i + 1], a[i + 2])
+                           : avg2(a[i], a[i + 1]);
         }
       break;
     case D207_PRED: {
-      uint8_t col0[32], col1[32];
+      P col0[32], col1[32];
       for (int r = 0; r < bs - 1; ++r) col0[r] = avg2(left[r], left[r + 1]);
       col0[bs - 1] = left[bs - 1];
       for (int r = 0; r < bs - 2; ++r)
@@ -2133,46 +2273,47 @@ void intra_pred(int mode, int bs, const uint8_t* a, const uint8_t* left,
       col1[bs - 2] = avg3(left[bs - 2], left[bs - 1], left[bs - 1]);
       col1[bs - 1] = left[bs - 1];
       for (int r = 0; r < bs; ++r) {
-        P(r, 0) = col0[r];
-        P(r, 1) = col1[r];
+        Pt(r, 0) = col0[r];
+        Pt(r, 1) = col1[r];
       }
-      for (int c = 2; c < bs; ++c) P(bs - 1, c) = left[bs - 1];
+      for (int c = 2; c < bs; ++c) Pt(bs - 1, c) = left[bs - 1];
       for (int r = bs - 2; r >= 0; --r)
-        for (int c = 2; c < bs; ++c) P(r, c) = P(r + 1, c - 2);
+        for (int c = 2; c < bs; ++c) Pt(r, c) = Pt(r + 1, c - 2);
       break;
     }
     case D135_PRED: {
-      P(0, 0) = avg3(left[0], a[-1], a[0]);
-      for (int c = 1; c < bs; ++c) P(0, c) = avg3(a[c - 2], a[c - 1], a[c]);
-      P(1, 0) = avg3(a[-1], left[0], left[1]);
+      Pt(0, 0) = avg3(left[0], a[-1], a[0]);
+      for (int c = 1; c < bs; ++c) Pt(0, c) = avg3(a[c - 2], a[c - 1], a[c]);
+      Pt(1, 0) = avg3(a[-1], left[0], left[1]);
       for (int r = 2; r < bs; ++r)
-        P(r, 0) = avg3(left[r - 2], left[r - 1], left[r]);
+        Pt(r, 0) = avg3(left[r - 2], left[r - 1], left[r]);
       for (int r = 1; r < bs; ++r)
-        for (int c = 1; c < bs; ++c) P(r, c) = P(r - 1, c - 1);
+        for (int c = 1; c < bs; ++c) Pt(r, c) = Pt(r - 1, c - 1);
       break;
     }
     case D117_PRED: {
-      P(0, 0) = avg2(a[-1], a[0]);
-      for (int c = 1; c < bs; ++c) P(0, c) = avg2(a[c - 1], a[c]);
-      P(1, 0) = avg3(left[0], a[-1], a[0]);
-      for (int c = 1; c < bs; ++c) P(1, c) = avg3(a[c - 2], a[c - 1], a[c]);
-      P(2, 0) = avg3(a[-1], left[0], left[1]);
+      Pt(0, 0) = avg2(a[-1], a[0]);
+      for (int c = 1; c < bs; ++c) Pt(0, c) = avg2(a[c - 1], a[c]);
+      Pt(1, 0) = avg3(left[0], a[-1], a[0]);
+      for (int c = 1; c < bs; ++c) Pt(1, c) = avg3(a[c - 2], a[c - 1], a[c]);
+      Pt(2, 0) = avg3(a[-1], left[0], left[1]);
       for (int r = 3; r < bs; ++r)
-        P(r, 0) = avg3(left[r - 3], left[r - 2], left[r - 1]);
+        Pt(r, 0) = avg3(left[r - 3], left[r - 2], left[r - 1]);
       for (int r = 2; r < bs; ++r)
-        for (int c = 1; c < bs; ++c) P(r, c) = P(r - 2, c - 1);
+        for (int c = 1; c < bs; ++c) Pt(r, c) = Pt(r - 2, c - 1);
       break;
     }
     case D153_PRED: {
-      P(0, 0) = avg2(left[0], a[-1]);
-      for (int r = 1; r < bs; ++r) P(r, 0) = avg2(left[r - 1], left[r]);
-      P(0, 1) = avg3(left[0], a[-1], a[0]);
-      P(1, 1) = avg3(a[-1], left[0], left[1]);
+      Pt(0, 0) = avg2(left[0], a[-1]);
+      for (int r = 1; r < bs; ++r) Pt(r, 0) = avg2(left[r - 1], left[r]);
+      Pt(0, 1) = avg3(left[0], a[-1], a[0]);
+      Pt(1, 1) = avg3(a[-1], left[0], left[1]);
       for (int r = 2; r < bs; ++r)
-        P(r, 1) = avg3(left[r - 2], left[r - 1], left[r]);
-      for (int c = 2; c < bs; ++c) P(0, c) = avg3(a[c - 3], a[c - 2], a[c - 1]);
+        Pt(r, 1) = avg3(left[r - 2], left[r - 1], left[r]);
+      for (int c = 2; c < bs; ++c)
+        Pt(0, c) = avg3(a[c - 3], a[c - 2], a[c - 1]);
       for (int r = 1; r < bs; ++r)
-        for (int c = 2; c < bs; ++c) P(r, c) = P(r - 1, c - 2);
+        for (int c = 2; c < bs; ++c) Pt(r, c) = Pt(r - 1, c - 2);
       break;
     }
   }
@@ -2182,19 +2323,22 @@ void intra_pred(int mode, int bs, const uint8_t* a, const uint8_t* left,
 
 // Intra prediction of one transform block at (x, y) of `plane` (§8.5.1 as
 // libvpx builds its edges): above row and left column from the frame
-// before the loop filter, 127 above the frame, 129 left of it; pixels past
-// the 8x8-aligned frame edge repeat the last one; above-right pixels only
-// for 4x4 transforms not in the block's last column.
+// before the loop filter, 2^(bd−1) − 1 above the frame, 2^(bd−1) + 1 left
+// of it (127 and 129 at 8 bits); pixels past the 8x8-aligned frame edge
+// repeat the last one; above-right pixels only for 4x4 transforms not in
+// the block's last column.
+template <class P>
 void Vp9Decoder::State::predict_intra(int plane, int x, int y, int tx,
                                       int mode, bool have_left,
                                       bool have_above, bool have_right) {
   const int bs = 4 << tx;
   const int stride = cur->stride[plane];
-  uint8_t* dst = cur->at(plane, x, y);
-  const int fw = (mi_cols * 8) >> (plane ? 1 : 0);
-  const int fh = (mi_rows * 8) >> (plane ? 1 : 0);
-  uint8_t above_buf[64 + 1] = {}, left[32] = {};
-  uint8_t* a = above_buf + 1;
+  P* dst = cur->at<P>(plane, x, y);
+  const int fw = (mi_cols * 8) >> ssx(plane);
+  const int fh = (mi_rows * 8) >> ssy(plane);
+  const int base = 1 << (hd.depth - 1);
+  P above_buf[64 + 1] = {}, left[32] = {};
+  P* a = above_buf + 1;
   const bool need_left = mode != V_PRED && mode != D45_PRED &&
                          mode != D63_PRED;
   const bool need_above = mode != H_PRED && mode != D207_PRED;
@@ -2205,110 +2349,206 @@ void Vp9Decoder::State::predict_intra(int plane, int x, int y, int tx,
       for (int i = 0; i < bs; ++i)
         left[i] = dst[(i < n ? i : n - 1) * stride - 1];
     } else {
-      std::memset(left, 129, size_t(bs));
+      for (int i = 0; i < bs; ++i) left[i] = P(base + 1);
     }
   }
   if (need_above || need_ar) {
     int want = need_ar ? 2 * bs : bs;
     if (have_above) {
-      const uint8_t* ar = dst - stride;
+      const P* ar = dst - stride;
       int avail = need_ar && have_right && bs == 4 ? 2 * bs : bs;
       avail = std::min(avail, fw - x);
       for (int i = 0; i < want; ++i) a[i] = ar[i < avail ? i : avail - 1];
-      a[-1] = have_left ? ar[-1] : 129;
+      a[-1] = have_left ? ar[-1] : P(base + 1);
     } else {
-      std::memset(a, 127, size_t(want));
-      a[-1] = 127;
+      for (int i = 0; i < want; ++i) a[i] = P(base - 1);
+      a[-1] = P(base - 1);
     }
   }
-  intra_pred(mode, bs, a, left, have_left, have_above, dst, stride);
+  intra_pred(mode, bs, a, left, have_left, have_above, dst, stride,
+             hd.depth);
 }
 
 namespace {
 
 // One prediction block from a reference: (x, y) and w×h in `plane`, the
 // MV in 1/16 of the plane's pixels; the source read clamped to the
-// reference's own size; the 8-tap filter horizontally (rounded, clipped),
-// then vertically; `avg` averages with what `dst` holds (the second of a
-// compound pair).
+// reference's own size; the 8-tap filter horizontally (rounded, clipped
+// to `bd` bits), then vertically; `avg` averages with what `dst` holds
+// (the second of a compound pair).
+template <class P>
 void predict_block(const Frame& ref, int plane, int x, int y, int w, int h,
-                   int mvx, int mvy, int filter, bool avg, uint8_t* dst,
-                   int dstride) {
+                   int mvx, int mvy, int filter, bool avg, P* dst,
+                   int dstride, int bd) {
   const int16_t* fx = kFilters[filter][mvx & 15];
   const int16_t* fy = kFilters[filter][mvy & 15];
   const int x0 = x + (mvx >> 4) - 3, y0 = y + (mvy >> 4) - 3;
   const int cw = ref.crop_w(plane), ch = ref.crop_h(plane);
-  const uint8_t* src = ref.plane[plane].data();
+  const P* src = ref.data<P>(plane);
   const int sstride = ref.stride[plane];
-  uint8_t mid[(64 + 7) * 64];
+  P mid[(64 + 7) * 64];
   int xs[64 + 7];
   for (int c = 0; c < w + 7; ++c) xs[c] = clampi(x0 + c, 0, cw - 1);
   for (int r = 0; r < h + 7; ++r) {
-    const uint8_t* row = src + size_t(clampi(y0 + r, 0, ch - 1)) * sstride;
+    const P* row = src + size_t(clampi(y0 + r, 0, ch - 1)) * sstride;
     for (int c = 0; c < w; ++c) {
       int s = 0;
       for (int k = 0; k < 8; ++k) s += row[xs[c + k]] * fx[k];
-      mid[r * 64 + c] = clip8((s + 64) >> 7);
+      mid[r * 64 + c] = clip_px<P>((s + 64) >> 7, bd);
     }
   }
   for (int r = 0; r < h; ++r)
     for (int c = 0; c < w; ++c) {
       int s = 0;
       for (int k = 0; k < 8; ++k) s += mid[(r + k) * 64 + c] * fy[k];
-      uint8_t v = clip8((s + 64) >> 7);
-      uint8_t& d = dst[r * dstride + c];
-      d = avg ? uint8_t((d + v + 1) >> 1) : v;
+      P v = clip_px<P>((s + 64) >> 7, bd);
+      P& d = dst[r * dstride + c];
+      d = avg ? P((d + v + 1) >> 1) : v;
     }
+}
+
+// The same from a reference of another size (libvpx's vpx_scaled_2d,
+// libavcodec's do_scaled_8tap): the block's top-left sample at (x0, y0)
+// plus (sx, sy)/16 of the reference, each next output `xs`/`ys` 1/16 on;
+// the filter always applied, reads clamped to the reference's size.
+template <class P>
+void predict_scaled(const Frame& ref, int plane, int x0, int y0, int sx,
+                    int sy, int xs, int ys, int w, int h, int filter,
+                    bool avg, P* dst, int dstride, int bd) {
+  const int cw = ref.crop_w(plane), ch = ref.crop_h(plane);
+  const P* src = ref.data<P>(plane);
+  const int sstride = ref.stride[plane];
+  const int rows = (((h - 1) * ys + sy) >> 4) + 8;
+  P mid[64 * 135];
+  for (int r = 0; r < rows; ++r) {
+    const P* row = src + size_t(clampi(y0 - 3 + r, 0, ch - 1)) * sstride;
+    for (int c = 0; c < w; ++c) {
+      int pos = sx + c * xs;
+      const int16_t* f = kFilters[filter][pos & 15];
+      int x = x0 + (pos >> 4) - 3, s = 0;
+      for (int k = 0; k < 8; ++k) s += row[clampi(x + k, 0, cw - 1)] * f[k];
+      mid[r * 64 + c] = clip_px<P>((s + 64) >> 7, bd);
+    }
+  }
+  for (int r = 0; r < h; ++r) {
+    int pos = sy + r * ys;
+    const int16_t* f = kFilters[filter][pos & 15];
+    const P* m = mid + (pos >> 4) * 64;
+    for (int c = 0; c < w; ++c) {
+      int s = 0;
+      for (int k = 0; k < 8; ++k) s += m[k * 64 + c] * f[k];
+      P v = clip_px<P>((s + 64) >> 7, bd);
+      P& d = dst[r * dstride + c];
+      d = avg ? P((d + v + 1) >> 1) : v;
+    }
+  }
+}
+
+// libavcodec's ROUNDED_DIV of a sum of MVs.
+inline int rounded_div(int a, int b) {
+  return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b;
 }
 
 }  // namespace
 
+// Inter prediction of a block from its one or two references. A block of
+// 8x8 or more is one prediction per plane; a smaller one is predicted in
+// 4x4 pieces, each with its own MV (libvpx's dec_build_inter_predictors_sb:
+// chroma pieces take the MVs of the luma pieces they cover, averaged,
+// and in 4:2:2 the lower piece the average of the second and third, as
+// libvpx does and libavcodec copies). From a scaled reference the MV is
+// clamped to 4 pixels beyond the block's reach past the frame edge and
+// the position scaled as libvpx scales it (the block's position and the
+// MV separately, libavcodec's "BUG" comment; chroma positions from the
+// luma block's).
+template <class P>
 void Vp9Decoder::State::predict_inter(const ModeInfo& m, int row, int col) {
   const int nrefs = 1 + is_comp(&m);
+  const bool sub8 = m.size < B8X8;
   for (int r = 0; r < nrefs; ++r) {
-    const Frame& ref = *slots[hd.ref_idx[m.ref[r] - 1]];
+    const int ri = m.ref[r] - 1;
+    const Frame& ref = *slots[hd.ref_idx[ri]];
+    const bool scaled = hd.scaled[ri];
     for (int p = 0; p < 3; ++p) {
-      int ss = p ? 1 : 0;
-      int x = (col * 8) >> ss, y = (row * 8) >> ss;
-      uint8_t* dst = cur->at(p, x, y);
-      int stride = cur->stride[p];
-      if (m.size < B8X8) {
-        if (p == 0) {
-          for (int k = 0; k < 4; ++k) {
-            const Mv& mv = m.mv[k][r];
-            predict_block(ref, 0, x + 4 * (k & 1), y + 4 * (k >> 1), 4, 4,
-                          mv.col * 2, mv.row * 2, m.filter, r > 0,
-                          dst + 4 * (k >> 1) * stride + 4 * (k & 1), stride);
-          }
-        } else {
-          int sr = 0, sc = 0;
-          for (int k = 0; k < 4; ++k) {
-            sr += m.mv[k][r].row;
-            sc += m.mv[k][r].col;
-          }
-          int mr = (sr < 0 ? sr - 2 : sr + 2) / 4;
-          int mc = (sc < 0 ? sc - 2 : sc + 2) / 4;
-          predict_block(ref, p, x, y, 4, 4, mc, mr, m.filter, r > 0, dst,
-                        stride);
+      const int sx = ssx(p), sy = ssy(p);
+      const int bx = (col * 8) >> sx, by = (row * 8) >> sy;   // block origin
+      const int bw = sub8 ? 8 >> sx : (kW8[m.size] * 8) >> sx;
+      const int bh = sub8 ? 8 >> sy : (kH8[m.size] * 8) >> sy;
+      const int stride = cur->stride[p];
+      // The pieces: (offset x, y, size w, h, luma 1/8-pel MV).
+      auto piece = [&](int ox, int oy, int w, int h, Mv mv) {
+        P* dst = cur->at<P>(p, bx + ox, by + oy);
+        if (!scaled) {
+          int mx = mv.col * (2 >> sx), my = mv.row * (2 >> sy);
+          predict_block(ref, p, bx + ox, by + oy, w, h, mx, my, m.filter,
+                        r > 0, dst, stride, hd.depth);
+          return;
         }
-      } else {
-        int w = (kW8[m.size] * 8) >> ss, h = (kH8[m.size] * 8) >> ss;
-        const Mv& mv = m.mv[0][r];
-        int mx = p ? mv.col : mv.col * 2, my = p ? mv.row : mv.row * 2;
-        predict_block(ref, p, x, y, w, h, mx, my, m.filter, r > 0, dst,
-                      stride);
+        // clamp_mv_to_umv_border_sb, in 1/16 of the plane's pixels.
+        const int bw8 = sub8 ? 1 : kW8[m.size], bh8 = sub8 ? 1 : kH8[m.size];
+        int mcol = mv.col * (2 >> sx), mrow = mv.row * (2 >> sy);
+        const int left = -col * 64 * (2 >> sx) - ((4 + bw) << 4);
+        const int right = (mi_cols - bw8 - col) * 64 * (2 >> sx) +
+                          ((4 + bw) << 4) - 16;
+        const int top = -row * 64 * (2 >> sy) - ((4 + bh) << 4);
+        const int bottom = (mi_rows - bh8 - row) * 64 * (2 >> sy) +
+                           ((4 + bh) << 4) - 16;
+        mcol = clampi(mcol, left, right);
+        mrow = clampi(mrow, top, bottom);
+        auto sc = [&](int64_t v, int d) {
+          return int((v * hd.scale[ri][d]) >> 14);
+        };
+        // vp9_scale_mv at the luma position plus the piece's offset.
+        const int fx = sc(mcol, 0) + (sc(int64_t(col * 8 + ox) << 4, 0) & 15);
+        const int fy = sc(mrow, 1) + (sc(int64_t(row * 8 + oy) << 4, 1) & 15);
+        const int x0 = sc(bx + ox, 0) + (fx >> 4);
+        const int y0 = sc(by + oy, 1) + (fy >> 4);
+        predict_scaled(ref, p, x0, y0, fx & 15, fy & 15, hd.step[ri][0],
+                       hd.step[ri][1], w, h, m.filter, r > 0, dst, stride,
+                       hd.depth);
+      };
+      if (!sub8) {
+        piece(0, 0, bw, bh, m.mv[0][r]);
+        continue;
       }
+      // 4x4 pieces over the plane's 8x8-block area: 2x2 in luma, fewer
+      // where chroma is subsampled.
+      const int nw = 2 >> sx, nh = 2 >> sy;
+      for (int j = 0; j < nh; ++j)
+        for (int i = 0; i < nw; ++i) {
+          const int k = j * nw + i;
+          Mv mv;
+          if (!sx && !sy) {
+            mv = m.mv[k][r];
+          } else if (sx && sy) {
+            int sr = 0, sc2 = 0;
+            for (int q = 0; q < 4; ++q) {
+              sr += m.mv[q][r].row;
+              sc2 += m.mv[q][r].col;
+            }
+            mv.row = int16_t(rounded_div(sr, 4));
+            mv.col = int16_t(rounded_div(sc2, 4));
+          } else {
+            const Mv& a = m.mv[k][r];
+            const Mv& b = m.mv[sy ? k + 2 : k + 1][r];
+            mv.row = int16_t(rounded_div(a.row + b.row, 2));
+            mv.col = int16_t(rounded_div(a.col + b.col, 2));
+          }
+          piece(4 * i, 4 * j, 4, 4, mv);
+        }
     }
   }
 }
 
 // ---------------------------------------------------------------- blocks
 
-void Vp9Decoder::State::decode_block(int row, int col, int bsize) {
-  ModeInfo m;
-  m.size = uint8_t(bsize);
-  if (hd.key) read_intra_frame_mode_info(m, row, col);
-  else read_inter_frame_mode_info(m, row, col);
+// The block's residual and prediction, plane by plane: transform blocks
+// of the luma size and of the chroma one (the largest square that the
+// plane's block holds, at most the luma one), token contexts in 4x4
+// units of each plane.
+template <class P>
+void Vp9Decoder::State::decode_block_planes(ModeInfo& m, int row, int col,
+                                            int bsize) {
   const int bw = kW8[bsize], bh = kH8[bsize];
   const int xm = std::min(bw, mi_cols - col), ym = std::min(bh, mi_rows - row);
   auto store = [&] {
@@ -2317,23 +2557,33 @@ void Vp9Decoder::State::decode_block(int row, int col, int bsize) {
   };
   store();
   const bool sub8 = bsize < B8X8;
+  const int cw4 = std::max(kW4[bsize] >> hd.ss_x, 1);
+  const int ch4 = std::max(kH4[bsize] >> hd.ss_y, 1);
   const int uv_tx = sub8 ? TX_4X4
-                         : std::min<int>(m.tx, __builtin_ctz(std::min(
-                                                   kW4[bsize], kH4[bsize])) - 1);
+                         : std::min<int>(m.tx,
+                                         __builtin_ctz(std::min(cw4, ch4)));
+  // Plane p's 4x4 units: the block's, its origin's, the frame's.
+  auto units = [&](int p, int& n4w, int& n4h, int& x4, int& y4, int& lim_x,
+                   int& lim_y) {
+    n4w = (2 * bw) >> ssx(p);
+    n4h = (2 * bh) >> ssy(p);
+    x4 = (2 * col) >> ssx(p);
+    y4 = (2 * row) >> ssy(p);
+    lim_x = (2 * mi_cols) >> ssx(p);
+    lim_y = (2 * mi_rows) >> ssy(p);
+  };
+  int n4w, n4h, x4, y4, lim_x, lim_y;
   if (m.skip) {
     for (int p = 0; p < 3; ++p) {
-      int n4w = p ? bw : 2 * bw, n4h = p ? bh : 2 * bh;
-      int x4 = p ? col : 2 * col, y4 = p ? row : 2 * row;
+      units(p, n4w, n4h, x4, y4, lim_x, lim_y);
       std::memset(&above_nz[p][x4], 0, size_t(n4w));
-      std::memset(&left_nz[p][y4 & (p ? 7 : 15)], 0, size_t(n4h));
+      std::memset(&left_nz[p][y4 & ((16 >> ssy(p)) - 1)], 0, size_t(n4h));
     }
   }
   if (!m.is_inter) {
     for (int p = 0; p < 3; ++p) {
       int tx = p ? uv_tx : m.tx, step = 1 << tx;
-      int n4w = p ? bw : 2 * bw, n4h = p ? bh : 2 * bh;
-      int x4 = p ? col : 2 * col, y4 = p ? row : 2 * row;
-      int lim_x = (p ? mi_cols : 2 * mi_cols), lim_y = (p ? mi_rows : 2 * mi_rows);
+      units(p, n4w, n4h, x4, y4, lim_x, lim_y);
       int maxw = std::min(n4w, lim_x - x4), maxh = std::min(n4h, lim_y - y4);
       for (int y = 0; y < maxh; y += step)
         for (int x = 0; x < maxw; x += step) {
@@ -2341,33 +2591,32 @@ void Vp9Decoder::State::decode_block(int row, int col, int bsize) {
           bool have_left = x > 0 || left(row, col) != nullptr;
           bool have_above = y > 0 || row > 0;
           bool have_right = x + step < n4w;
-          predict_intra(p, 4 * (x4 + x), 4 * (y4 + y), tx, mode, have_left,
-                        have_above, have_right);
+          predict_intra<P>(p, 4 * (x4 + x), 4 * (y4 + y), tx, mode,
+                           have_left, have_above, have_right);
           if (m.skip) continue;
           int tx_type = p || hd.lossless || tx == TX_32X32
                             ? int(DCT_DCT)
                             : int(kIntraTxType[mode]);
           int eob = decode_coefs(p, x4 + x, y4 + y, tx, tx_type, false, m.seg,
                                  lim_x, lim_y);
-          if (eob) reconstruct(p, 4 * (x4 + x), 4 * (y4 + y), tx, tx_type);
+          if (eob) reconstruct<P>(p, 4 * (x4 + x), 4 * (y4 + y), tx, tx_type);
         }
     }
   } else {
-    predict_inter(m, row, col);
+    predict_inter<P>(m, row, col);
     if (!m.skip) {
       int eobtotal = 0;
       for (int p = 0; p < 3; ++p) {
         int tx = p ? uv_tx : m.tx, step = 1 << tx;
-        int n4w = p ? bw : 2 * bw, n4h = p ? bh : 2 * bh;
-        int x4 = p ? col : 2 * col, y4 = p ? row : 2 * row;
-        int lim_x = (p ? mi_cols : 2 * mi_cols), lim_y = (p ? mi_rows : 2 * mi_rows);
+        units(p, n4w, n4h, x4, y4, lim_x, lim_y);
         int maxw = std::min(n4w, lim_x - x4), maxh = std::min(n4h, lim_y - y4);
         for (int y = 0; y < maxh; y += step)
           for (int x = 0; x < maxw; x += step) {
             int eob = decode_coefs(p, x4 + x, y4 + y, tx, DCT_DCT, true,
                                    m.seg, lim_x, lim_y);
             eobtotal += eob;
-            if (eob) reconstruct(p, 4 * (x4 + x), 4 * (y4 + y), tx, DCT_DCT);
+            if (eob)
+              reconstruct<P>(p, 4 * (x4 + x), 4 * (y4 + y), tx, DCT_DCT);
           }
       }
       if (!sub8 && !eobtotal) {
@@ -2376,6 +2625,17 @@ void Vp9Decoder::State::decode_block(int row, int col, int bsize) {
       }
     }
   }
+}
+
+void Vp9Decoder::State::decode_block(int row, int col, int bsize) {
+  ModeInfo m;
+  m.size = uint8_t(bsize);
+  if (hd.key || hd.intra_only) read_intra_frame_mode_info(m, row, col);
+  else read_inter_frame_mode_info(m, row, col);
+  if (hd.depth > 8) decode_block_planes<uint16_t>(m, row, col, bsize);
+  else decode_block_planes<uint8_t>(m, row, col, bsize);
+  const int bw = kW8[bsize], bh = kH8[bsize];
+  const int xm = std::min(bw, mi_cols - col), ym = std::min(bh, mi_rows - row);
   // The MVs the next frame's candidate lists read.
   for (int y = 0; y < ym; ++y)
     for (int x = 0; x < xm; ++x) {
@@ -2393,7 +2653,8 @@ void Vp9Decoder::State::decode_partition(int row, int col, int sq) {
   const bool has_rows = row + hbs < mi_rows, has_cols = col + hbs < mi_cols;
   int a = (above_part[col] >> sq) & 1, l = (left_part[row & 7] >> sq) & 1;
   int ctx = l * 2 + a + sq * 4;
-  const uint8_t* p = hd.key ? kKfPartition[ctx] : fc.partition[ctx];
+  const uint8_t* p = hd.key || hd.intra_only ? kKfPartition[ctx]
+                                              : fc.partition[ctx];
   int part;
   if (has_rows && has_cols) part = bd.tree(kPartTree, p);
   else if (has_cols) part = bd.read(p[1]) ? PART_SPLIT : PART_HORZ;
@@ -2471,80 +2732,96 @@ void Vp9Decoder::State::decode_tiles(const uint8_t* data, size_t n) {
 
 namespace {
 
-struct Thresh {
-  uint8_t lim, mblim, hev;
-};
-
 inline int8_t sclamp(int t) { return int8_t(clampi(t, -128, 127)); }
 
 // One position of an edge: p[-k·pitch] are p(k−1), p[k·pitch] q(k)
-// (libvpx's vpx_dsp/loopfilter.c, 8 bits).
-void filter_at(uint8_t* s, int pitch, int width, const Thresh& t) {
-  auto P = [&](int k) -> uint8_t& { return s[-(k + 1) * pitch]; };
-  auto Q = [&](int k) -> uint8_t& { return s[k * pitch]; };
-  int p3 = P(3), p2 = P(2), p1 = P(1), p0 = P(0);
-  int q0 = Q(0), q1 = Q(1), q2 = Q(2), q3 = Q(3);
-  if (std::abs(p3 - p2) > t.lim || std::abs(p2 - p1) > t.lim ||
-      std::abs(p1 - p0) > t.lim || std::abs(q1 - q0) > t.lim ||
-      std::abs(q2 - q1) > t.lim || std::abs(q3 - q2) > t.lim ||
-      std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 > t.mblim)
+// (libvpx's vpx_dsp/loopfilter.c at 8 bits; above, libavcodec's
+// loop_filter: the thresholds and the flatness bound shifted by bd − 8,
+// the filter clamped to bd − 1 signed bits).
+template <class P>
+void filter_at(P* s, int pitch, int width, const Thresh& t, int bd) {
+  auto Pk = [&](int k) -> P& { return s[-(k + 1) * pitch]; };
+  auto Qk = [&](int k) -> P& { return s[k * pitch]; };
+  const int sh = bd - 8, one = 1 << sh;
+  const int lim = t.lim << sh, mblim = t.mblim << sh, hevt = t.hev << sh;
+  int p3 = Pk(3), p2 = Pk(2), p1 = Pk(1), p0 = Pk(0);
+  int q0 = Qk(0), q1 = Qk(1), q2 = Qk(2), q3 = Qk(3);
+  if (std::abs(p3 - p2) > lim || std::abs(p2 - p1) > lim ||
+      std::abs(p1 - p0) > lim || std::abs(q1 - q0) > lim ||
+      std::abs(q2 - q1) > lim || std::abs(q3 - q2) > lim ||
+      std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 > mblim)
     return;
   auto flat4 = [&] {
-    return std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 &&
-           std::abs(p2 - p0) <= 1 && std::abs(q2 - q0) <= 1 &&
-           std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+    return std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one &&
+           std::abs(p2 - p0) <= one && std::abs(q2 - q0) <= one &&
+           std::abs(p3 - p0) <= one && std::abs(q3 - q0) <= one;
   };
   if (width >= 8 && flat4()) {
     bool flat2 = false;
     if (width == 16) {
       flat2 = true;
       for (int k = 4; k < 8 && flat2; ++k)
-        flat2 = std::abs(P(k) - p0) <= 1 && std::abs(Q(k) - q0) <= 1;
+        flat2 = std::abs(Pk(k) - p0) <= one && std::abs(Qk(k) - q0) <= one;
     }
     if (flat2) {
       int v[16];
       for (int k = 0; k < 8; ++k) {
-        v[7 - k] = P(k);
-        v[8 + k] = Q(k);
+        v[7 - k] = Pk(k);
+        v[8 + k] = Qk(k);
       }
       for (int i = 1; i < 15; ++i) {
         int sum = v[i];
         for (int j = i - 7; j <= i + 7; ++j) sum += v[clampi(j, 0, 15)];
-        int o = (sum + 8) >> 4;
-        if (i < 8) P(7 - i) = uint8_t(o);
-        else Q(i - 8) = uint8_t(o);
+        P o = P((sum + 8) >> 4);
+        if (i < 8) Pk(7 - i) = o;
+        else Qk(i - 8) = o;
       }
     } else {
       int v[8] = {p3, p2, p1, p0, q0, q1, q2, q3};
       for (int i = 1; i < 7; ++i) {
         int sum = v[i];
         for (int j = i - 3; j <= i + 3; ++j) sum += v[clampi(j, 0, 7)];
-        int o = (sum + 4) >> 3;
-        if (i < 4) P(3 - i) = uint8_t(o);
-        else Q(i - 4) = uint8_t(o);
+        P o = P((sum + 4) >> 3);
+        if (i < 4) Pk(3 - i) = o;
+        else Qk(i - 4) = o;
       }
     }
     return;
   }
-  int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
-  bool hev = std::abs(p1 - p0) > t.hev || std::abs(q1 - q0) > t.hev;
-  int f = hev ? sclamp(ps1 - qs1) : 0;
-  f = sclamp(f + 3 * (qs0 - ps0));
-  int f1 = sclamp(f + 4) >> 3, f2 = sclamp(f + 3) >> 3;
-  Q(0) = uint8_t(sclamp(qs0 - f1) + 128);
-  P(0) = uint8_t(sclamp(ps0 + f2) + 128);
+  const bool hev = std::abs(p1 - p0) > hevt || std::abs(q1 - q0) > hevt;
+  if (bd == 8) {
+    int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+    int f = hev ? sclamp(ps1 - qs1) : 0;
+    f = sclamp(f + 3 * (qs0 - ps0));
+    int f1 = sclamp(f + 4) >> 3, f2 = sclamp(f + 3) >> 3;
+    Qk(0) = P(sclamp(qs0 - f1) + 128);
+    Pk(0) = P(sclamp(ps0 + f2) + 128);
+    if (!hev) {
+      int g = (f1 + 1) >> 1;
+      Qk(1) = P(sclamp(qs1 - g) + 128);
+      Pk(1) = P(sclamp(ps1 + g) + 128);
+    }
+    return;
+  }
+  const int hi = (1 << (bd - 1)) - 1, lo = -(1 << (bd - 1));
+  int f = hev ? clampi(p1 - q1, lo, hi) : 0;
+  f = clampi(3 * (q0 - p0) + f, lo, hi);
+  int f1 = std::min(f + 4, hi) >> 3, f2 = std::min(f + 3, hi) >> 3;
+  Pk(0) = clip_px<P>(p0 + f2, bd);
+  Qk(0) = clip_px<P>(q0 - f1, bd);
   if (!hev) {
     int g = (f1 + 1) >> 1;
-    Q(1) = uint8_t(sclamp(qs1 - g) + 128);
-    P(1) = uint8_t(sclamp(ps1 + g) + 128);
+    Pk(1) = clip_px<P>(p1 + g, bd);
+    Qk(1) = clip_px<P>(q1 - g, bd);
   }
 }
 
 // An 8-pixel stretch of an edge: `s` at its first q0, `pitch` across the
 // edge, `along` along it.
-void filter_edge(uint8_t* s, int pitch, int along, int width,
-                 const Thresh& t) {
-  for (int i = 0; i < 8; ++i) filter_at(s + i * along, pitch, width, t);
+template <class P>
+void filter_edge(P* s, int pitch, int along, int width, const Thresh& t,
+                 int bd) {
+  for (int i = 0; i < 8; ++i) filter_at(s + i * along, pitch, width, t, bd);
 }
 
 // libvpx's LOOP_FILTER_MASK of one superblock (vp9_loopfilter.c): per
@@ -2572,8 +2849,10 @@ uint16_t rect_uv(int w, int h) {
 
 }  // namespace
 
+template <class P>
 void Vp9Decoder::State::loop_filter() {
   if (!hd.lf_level) return;
+  const int bd = hd.depth;
   // Levels by segment, reference and mode (vp9_loop_filter_frame_init).
   uint8_t lvl[8][4][2];
   const int scale = 1 << (hd.lf_level >> 5);
@@ -2711,62 +2990,163 @@ void Vp9Decoder::State::loop_filter() {
           lm.left_uv[i] &= 0xEEEE;
         }
       }
-      // Luma: vertical edges, then horizontal ones.
-      {
-        const int st = cur->stride[0];
-        uint8_t* base = cur->at(0, sc * 8, sr * 8);
+      // Luma (and 4:4:4 chroma, by the same masks): vertical edges, then
+      // horizontal ones.
+      auto filter_ss00 = [&](int p) {
+        const int st = cur->stride[p];
+        P* base = cur->at<P>(p, sc * 8, sr * 8);
         for (int r = 0; r < rows; ++r)
           for (int c = 0; c < 8; ++c) {
             uint64_t bit = uint64_t(1) << (r * 8 + c);
             const Thresh& t = th[lm.lfl_y[r * 8 + c]];
-            uint8_t* s = base + r * 8 * st + c * 8;
-            if (lm.left_y[TX_16X16] & bit) filter_edge(s, 1, st, 16, t);
-            else if (lm.left_y[TX_8X8] & bit) filter_edge(s, 1, st, 8, t);
-            else if (lm.left_y[TX_4X4] & bit) filter_edge(s, 1, st, 4, t);
-            if (lm.int4_y & bit) filter_edge(s + 4, 1, st, 4, t);
+            P* s = base + r * 8 * st + c * 8;
+            if (lm.left_y[TX_16X16] & bit) filter_edge(s, 1, st, 16, t, bd);
+            else if (lm.left_y[TX_8X8] & bit) filter_edge(s, 1, st, 8, t, bd);
+            else if (lm.left_y[TX_4X4] & bit) filter_edge(s, 1, st, 4, t, bd);
+            if (lm.int4_y & bit) filter_edge(s + 4, 1, st, 4, t, bd);
           }
         for (int r = 0; r < rows; ++r)
           for (int c = 0; c < 8; ++c) {
             uint64_t bit = uint64_t(1) << (r * 8 + c);
             const Thresh& t = th[lm.lfl_y[r * 8 + c]];
-            uint8_t* s = base + r * 8 * st + c * 8;
+            P* s = base + r * 8 * st + c * 8;
             if (sr + r > 0) {
-              if (lm.above_y[TX_16X16] & bit) filter_edge(s, st, 1, 16, t);
-              else if (lm.above_y[TX_8X8] & bit) filter_edge(s, st, 1, 8, t);
-              else if (lm.above_y[TX_4X4] & bit) filter_edge(s, st, 1, 4, t);
+              if (lm.above_y[TX_16X16] & bit) filter_edge(s, st, 1, 16, t, bd);
+              else if (lm.above_y[TX_8X8] & bit)
+                filter_edge(s, st, 1, 8, t, bd);
+              else if (lm.above_y[TX_4X4] & bit)
+                filter_edge(s, st, 1, 4, t, bd);
             }
-            if (lm.int4_y & bit) filter_edge(s + 4 * st, st, 1, 4, t);
+            if (lm.int4_y & bit) filter_edge(s + 4 * st, st, 1, 4, t, bd);
           }
+      };
+      filter_ss00(0);
+      if (!hd.ss_x && !hd.ss_y) {
+        filter_ss00(1);
+        filter_ss00(2);
+        continue;
       }
-      // Chroma: levels from the luma cell at even (row, col).
+      if (hd.ss_x != hd.ss_y) {
+        for (int p = 1; p < 3; ++p) filter_non420<P>(p, sr, sc, lvl, th);
+        continue;
+      }
+      // 4:2:0 chroma: levels from the luma cell at even (row, col).
       for (int p = 1; p < 3; ++p) {
         const int st = cur->stride[p];
-        uint8_t* base = cur->at(p, sc * 4, sr * 4);
+        P* base = cur->at<P>(p, sc * 4, sr * 4);
         for (int r = 0; r < 4; ++r)
           for (int c = 0; c < 4; ++c) {
             uint16_t bit = uint16_t(1 << (r * 4 + c));
             const Thresh& t = th[lm.lfl_y[(2 * r) * 8 + 2 * c]];
-            uint8_t* s = base + r * 8 * st + c * 8;
-            if (lm.left_uv[TX_16X16] & bit) filter_edge(s, 1, st, 16, t);
-            else if (lm.left_uv[TX_8X8] & bit) filter_edge(s, 1, st, 8, t);
-            else if (lm.left_uv[TX_4X4] & bit) filter_edge(s, 1, st, 4, t);
-            if (lm.int4_uv & bit) filter_edge(s + 4, 1, st, 4, t);
+            P* s = base + r * 8 * st + c * 8;
+            if (lm.left_uv[TX_16X16] & bit) filter_edge(s, 1, st, 16, t, bd);
+            else if (lm.left_uv[TX_8X8] & bit) filter_edge(s, 1, st, 8, t, bd);
+            else if (lm.left_uv[TX_4X4] & bit) filter_edge(s, 1, st, 4, t, bd);
+            if (lm.int4_uv & bit) filter_edge(s + 4, 1, st, 4, t, bd);
           }
         for (int r = 0; r < 4 && sr + 2 * r < mi_rows; ++r)
           for (int c = 0; c < 4; ++c) {
             uint16_t bit = uint16_t(1 << (r * 4 + c));
             const Thresh& t = th[lm.lfl_y[(2 * r) * 8 + 2 * c]];
-            uint8_t* s = base + r * 8 * st + c * 8;
+            P* s = base + r * 8 * st + c * 8;
             if (sr + 2 * r > 0) {
-              if (lm.above_uv[TX_16X16] & bit) filter_edge(s, st, 1, 16, t);
-              else if (lm.above_uv[TX_8X8] & bit) filter_edge(s, st, 1, 8, t);
-              else if (lm.above_uv[TX_4X4] & bit) filter_edge(s, st, 1, 4, t);
+              if (lm.above_uv[TX_16X16] & bit)
+                filter_edge(s, st, 1, 16, t, bd);
+              else if (lm.above_uv[TX_8X8] & bit)
+                filter_edge(s, st, 1, 8, t, bd);
+              else if (lm.above_uv[TX_4X4] & bit)
+                filter_edge(s, st, 1, 4, t, bd);
             }
             if ((lm.int4_uv & bit) && sr + 2 * r != mi_rows - 1)
-              filter_edge(s + 4 * st, st, 1, 4, t);
+              filter_edge(s + 4 * st, st, 1, 4, t, bd);
           }
       }
     }
+}
+
+// A chroma plane of 4:2:2 or 4:4:0 in the superblock at (sr, sc)
+// (libvpx's vp9_filter_block_plane_non420): per 8x8 unit of the plane,
+// the edges its block's chroma transform size and skip flag give, built
+// and filtered a row of units at a time (vertical edges), then the
+// horizontal ones; 16-wide edges become 8-wide on the frame's last odd
+// column or row of chroma.
+template <class P>
+void Vp9Decoder::State::filter_non420(int p, int sr, int sc,
+                                      const uint8_t (*lvl)[4][2],
+                                      const Thresh* th) {
+  const int sx = hd.ss_x, sy = hd.ss_y, bd = hd.depth;
+  const int st = cur->stride[p];
+  P* base = cur->at<P>(p, (sc * 8) >> sx, (sr * 8) >> sy);
+  unsigned m16[8] = {}, m8[8] = {}, m4[8] = {}, m4i[8] = {};
+  uint8_t lfl[64] = {};
+  // The vertical edges of a row of units, or the horizontal ones: each
+  // bit an 8-pixel unit.
+  auto vert = [&](P* s, unsigned a16, unsigned a8, unsigned a4, unsigned ai,
+                  const uint8_t* l) {
+    for (; a16 | a8 | a4 | ai; s += 8, ++l) {
+      const Thresh& t = th[*l];
+      if (a16 & 1) filter_edge(s, 1, st, 16, t, bd);
+      else if (a8 & 1) filter_edge(s, 1, st, 8, t, bd);
+      else if (a4 & 1) filter_edge(s, 1, st, 4, t, bd);
+      if (ai & 1) filter_edge(s + 4, 1, st, 4, t, bd);
+      a16 >>= 1, a8 >>= 1, a4 >>= 1, ai >>= 1;
+    }
+  };
+  auto horiz = [&](P* s, unsigned a16, unsigned a8, unsigned a4, unsigned ai,
+                   const uint8_t* l) {
+    for (; a16 | a8 | a4 | ai; s += 8, ++l) {
+      const Thresh& t = th[*l];
+      if (a16 & 1) filter_edge(s, st, 1, 16, t, bd);
+      else if (a8 & 1) filter_edge(s, st, 1, 8, t, bd);
+      else if (a4 & 1) filter_edge(s, st, 1, 4, t, bd);
+      if (ai & 1) filter_edge(s + 4 * st, st, 1, 4, t, bd);
+      a16 >>= 1, a8 >>= 1, a4 >>= 1, ai >>= 1;
+    }
+  };
+  for (int r = 0; r < 8 && sr + r < mi_rows; r += 1 << sy) {
+    unsigned c16 = 0, c8 = 0, c4 = 0;
+    for (int c = 0; c < 8 && sc + c < mi_cols; c += 1 << sx) {
+      const ModeInfo& m = mi[size_t(sr + r) * mi_cols + sc + c];
+      const bool skip_this = m.skip && m.is_inter;
+      const bool edge_left = kW4[m.size] > 1 ? !(c & (kW8[m.size] - 1)) : true;
+      const bool edge_above =
+          kH4[m.size] > 1 ? !(r & (kH8[m.size] - 1)) : true;
+      const bool skip_c = skip_this && !edge_left;
+      const bool skip_r = skip_this && !edge_above;
+      const int tx =
+          m.size < B8X8
+              ? int(TX_4X4)
+              : std::min<int>(m.tx, __builtin_ctz(std::min(
+                                        std::max(kW4[m.size] >> sx, 1),
+                                        std::max(kH4[m.size] >> sy, 1))));
+      const bool border_c = sx && sc + c == mi_cols - 1;
+      const bool border_r = sy && sr + r == mi_rows - 1;
+      const int cu = c >> sx, ru = r >> sy;
+      lfl[(r << 3) + cu] =
+          lvl[m.seg][m.ref[0] > 0 ? m.ref[0] : 0][kModeLf[m.mode]];
+      if (!lfl[(r << 3) + cu]) continue;
+      const unsigned bit = 1u << cu;
+      if (tx == TX_32X32 || tx == TX_16X16) {
+        const int align = tx == TX_32X32 ? 3 : 1;
+        if (!skip_c && (cu & align) == 0) (border_c ? c8 : c16) |= bit;
+        if (!skip_r && (ru & align) == 0) (border_r ? m8[r] : m16[r]) |= bit;
+      } else {
+        // 8x8 edges on 32x32 boundaries
+        if (!skip_c) (tx == TX_8X8 || (cu & 3) == 0 ? c8 : c4) |= bit;
+        if (!skip_r) (tx == TX_8X8 || (ru & 3) == 0 ? m8[r] : m4[r]) |= bit;
+        if (!skip_this && tx < TX_8X8 && !border_c) m4i[r] |= bit;
+      }
+    }
+    const unsigned border = sc == 0 ? ~1u : ~0u;
+    vert(base + (r >> sy) * 8 * st, c16 & border, c8 & border, c4 & border,
+         m4i[r], &lfl[r << 3]);
+  }
+  for (int r = 0; r < 8 && sr + r < mi_rows; r += 1 << sy) {
+    const bool border_r = sy && sr + r == mi_rows - 1;
+    const bool top = sr + r == 0;
+    horiz(base + (r >> sy) * 8 * st, top ? 0 : m16[r], top ? 0 : m8[r],
+          top ? 0 : m4[r], border_r ? 0 : m4i[r], &lfl[r << 3]);
+  }
 }
 
 // ------------------------------------------------------------ adaptation
@@ -2814,8 +3194,10 @@ unsigned merge_tree(const int8_t* tree, int i, const uint8_t* pre,
 void Vp9Decoder::State::adapt() {
   const Probs& pre = contexts[hd.context_idx];
   const Counts& n = counts;
+  // libavcodec: 112, or 128 on an inter frame after a keyframe.
+  const bool intra = hd.key || hd.intra_only;
   unsigned update = 112, sat = 24;
-  if (!hd.key && last_key) update = 128;
+  if (!intra && last_key) update = 128;
   for (int t = 0; t < 4; ++t)
     for (int i = 0; i < 2; ++i)
       for (int j = 0; j < 2; ++j)
@@ -2829,7 +3211,7 @@ void Vp9Decoder::State::adapt() {
             p[1] = merge_coef(pp[1], c[0], c[1] + c[2], sat, update);
             p[2] = merge_coef(pp[2], c[1], c[2], sat, update);
           }
-  if (hd.key) return;
+  if (intra) return;
   for (int i = 0; i < 4; ++i)
     fc.is_inter[i] = merge_mode(pre.is_inter[i], n.is_inter[i][0],
                                 n.is_inter[i][1]);
@@ -2906,8 +3288,12 @@ void Vp9Decoder::State::decode_frame(const uint8_t* data, size_t n,
     show = slots[hd.existing_idx];
     if (!show) broken("VP9 frame shows an empty slot");
   } else {
-    if (hd.key) {
-      have_key = true;
+    if (hd.key || hd.intra_only) {
+      have_key = have_key || hd.key;
+      depth = hd.depth;
+      ss_x = hd.ss_x;
+      ss_y = hd.ss_y;
+      rgb = hd.rgb;
       color_range = hd.color_range;
       color_space = hd.color_space;
     }
@@ -2917,27 +3303,34 @@ void Vp9Decoder::State::decode_frame(const uint8_t* data, size_t n,
     bd.init(data + hd.uncompressed_size, size_t(hd.header_size));
     read_compressed_header();
     std::memset(&counts, 0, sizeof(counts));
+    const int16_t* dc = hd.depth == 12 ? kDcQ12 : hd.depth == 10 ? kDcQ10
+                                                                 : kDcQ;
+    const int16_t* ac = hd.depth == 12 ? kAcQ12 : hd.depth == 10 ? kAcQ10
+                                                                 : kAcQ;
     for (int s = 0; s < 8; ++s) {
       int q = hd.base_q;
       if (seg.active(s, SEG_ALT_Q)) {
         int d = seg.data[s][SEG_ALT_Q];
         q = clampi(seg.abs_delta ? d : hd.base_q + d, 0, 255);
       }
-      dq[s][0][0] = kDcQ[clampi(q + hd.dq_y_dc, 0, 255)];
-      dq[s][0][1] = kAcQ[q];
-      dq[s][1][0] = kDcQ[clampi(q + hd.dq_uv_dc, 0, 255)];
-      dq[s][1][1] = kAcQ[clampi(q + hd.dq_uv_ac, 0, 255)];
+      dq[s][0][0] = dc[clampi(q + hd.dq_y_dc, 0, 255)];
+      dq[s][0][1] = ac[q];
+      dq[s][1][0] = dc[clampi(q + hd.dq_uv_dc, 0, 255)];
+      dq[s][1][1] = ac[clampi(q + hd.dq_uv_ac, 0, 255)];
     }
-    cur = std::make_shared<Frame>(hd.w, hd.h);
+    cur = std::make_shared<Frame>(hd.w, hd.h, hd.depth, hd.ss_x, hd.ss_y);
     mi.assign(size_t(mi_rows) * mi_cols, ModeInfo());
     cur_mvs.assign(size_t(mi_rows) * mi_cols, MvRef());
-    // UsePrevFrameMvs (intra-only frames, the spec's other condition,
-    // raise).
+    // UsePrevFrameMvs: the last frame decoded was shown, of this size and
+    // not intra-only, and this one is not error resilient (nor intra:
+    // it reads no MVs).
     use_prev_mvs = !hd.error_res && hd.w == last_w && hd.h == last_h &&
-                   last_show && prev_mvs.size() == cur_mvs.size();
+                   last_show && !last_intra_only &&
+                   prev_mvs.size() == cur_mvs.size();
     size_t start = hd.uncompressed_size + size_t(hd.header_size);
     decode_tiles(data + start, n - start);
-    loop_filter();
+    if (hd.depth > 8) loop_filter<uint16_t>();
+    else loop_filter<uint8_t>();
     if (!hd.error_res && !hd.parallel) adapt();
     if (hd.refresh_context) contexts[hd.context_idx] = fc;
     for (int i = 0; i < 8; ++i)
@@ -2947,33 +3340,66 @@ void Vp9Decoder::State::decode_frame(const uint8_t* data, size_t n,
     last_h = hd.h;
     last_show = hd.show;
     last_key = hd.key;
+    last_intra_only = hd.intra_only;
     if (seg.enabled) seg_map_last.swap(seg_map_cur);
     if (hd.show) show = cur;
   }
   if (!show) return;
-  if (shown) unsupported("VP9 packet that shows two pictures");
+  // A packet that shows more than one picture (an SVC superframe, one a
+  // spatial layer) gives each, as libavcodec's superframe split does.
+  if (shown) {
+    pending.emplace_back();
+    write_picture(*show, pending.back());
+    return;
+  }
   shown = true;
-  const Frame& f = *show;
+  write_picture(*show, out);
+}
+
+void Vp9Decoder::State::write_picture(const Frame& f, Picture& out) {
   out.w = f.w;
   out.h = f.h;
+  out.depth = f.depth;
+  out.xshift = f.ss_x;
+  out.yshift = f.ss_y;
+  out.grey = false;
+  out.rgb = rgb;
+  out.chroma_loc = 0;
   // libavcodec's colour range and space of the stream, which cv2 hands
   // to swscale: VP9's colour spaces as swscale's matrices.
-  static const int kMatrix[7] = {2, 5, 1, 6, 7, 9, 3};
+  static const int kMatrix[8] = {2, 5, 1, 6, 7, 9, 3, 0};
   out.full_range = color_range != 0;
   out.matrix = kMatrix[color_space];
+  const int cw = f.crop_w(1), ch = f.crop_h(1);
   out.ystride = f.w;
-  out.cstride = (f.w + 1) >> 1;
-  out.y.resize(size_t(f.w) * f.h);
-  out.u.resize(size_t(out.cstride) * ((f.h + 1) >> 1));
-  out.v.resize(out.u.size());
-  for (int y = 0; y < f.h; ++y)
-    std::memcpy(&out.y[size_t(y) * f.w], &f.plane[0][size_t(y) * f.stride[0]],
-                size_t(f.w));
-  for (int p = 1; p < 3; ++p) {
-    std::vector<uint8_t>& d = p == 1 ? out.u : out.v;
-    for (int y = 0; y < (f.h + 1) >> 1; ++y)
-      std::memcpy(&d[size_t(y) * out.cstride],
-                  &f.plane[p][size_t(y) * f.stride[p]], size_t(out.cstride));
+  out.cstride = cw;
+  auto copy = [&](auto* dst, int p, int w, int h) {
+    using P = std::remove_reference_t<decltype(*dst)>;
+    const P* src = f.data<P>(p);
+    for (int y = 0; y < h; ++y)
+      std::memcpy(dst + size_t(y) * w, src + size_t(y) * f.stride[p],
+                  sizeof(P) * size_t(w));
+  };
+  if (f.depth > 8) {
+    out.y.clear();
+    out.u.clear();
+    out.v.clear();
+    out.y16.resize(size_t(f.w) * f.h);
+    out.u16.resize(size_t(cw) * ch);
+    out.v16.resize(out.u16.size());
+    copy(out.y16.data(), 0, f.w, f.h);
+    copy(out.u16.data(), 1, cw, ch);
+    copy(out.v16.data(), 2, cw, ch);
+  } else {
+    out.y16.clear();
+    out.u16.clear();
+    out.v16.clear();
+    out.y.resize(size_t(f.w) * f.h);
+    out.u.resize(size_t(cw) * ch);
+    out.v.resize(out.u.size());
+    copy(out.y.data(), 0, f.w, f.h);
+    copy(out.u.data(), 1, cw, ch);
+    copy(out.v.data(), 2, cw, ch);
   }
 }
 
@@ -3015,14 +3441,47 @@ Vp9Decoder::Vp9Decoder() : s_(new State) {}
 Vp9Decoder::~Vp9Decoder() = default;
 
 bool Vp9Decoder::decode(const uint8_t* data, size_t n, Picture& out) {
+  s_->pending.clear();
+  s_->next_pending = 0;
   bool shown = false;
   for (auto [off, sz] : split_superframe(data, n))
     s_->decode_frame(data + off, sz, out, shown);
   return shown;
 }
 
-int Vp9Decoder::peek(const uint8_t* data, size_t n) {
-  bool shown = false, key = false, first = true;
+bool Vp9Decoder::picture_size(const uint8_t* data, size_t n, int& w,
+                              int& h) {
+  auto frames = split_superframe(data, n);
+  if (frames.empty()) return false;
+  BitReader br(data + frames[0].first, frames[0].second);
+  try {
+    if (br.f(2) != 2) return false;
+    int lo = br.bit(), hi = br.bit(), profile = (hi << 1) | lo;
+    if (profile == 3) br.bit();
+    if (br.bit() || br.bit()) return false;   // show_existing, not a key
+    br.f(2);                                  // show, error_res
+    br.f(24);                                 // sync code
+    if (profile >= 2) br.bit();
+    int cs = br.f(3);
+    if (cs != 7) br.bit();
+    if (profile & 1) br.f(cs != 7 ? 3 : 1);
+    w = br.f(16) + 1;
+    h = br.f(16) + 1;
+    return true;
+  } catch (const Error&) {
+    return false;
+  }
+}
+
+bool Vp9Decoder::next(Picture& out) {
+  if (s_->next_pending >= s_->pending.size()) return false;
+  out = std::move(s_->pending[s_->next_pending++]);
+  return true;
+}
+
+int Vp9Decoder::peek(const uint8_t* data, size_t n, int* pictures) {
+  bool key = false, first = true;
+  int count = 0;
   for (auto [off, sz] : split_superframe(data, n)) {
     const uint8_t* d = data + off;
     if (sz < 1 || (d[0] >> 6) != 2) broken("VP9 frame marker is not 2");
@@ -3031,14 +3490,15 @@ int Vp9Decoder::peek(const uint8_t* data, size_t n) {
     auto at = [&](int b) { return (d[b >> 3] >> (7 - (b & 7))) & 1; };
     if (sz * 8 < size_t(bit + 3)) broken("VP9 uncompressed header cut short");
     if (at(bit)) {                               // show_existing_frame
-      shown = true;
+      ++count;
     } else {
       if (first && at(bit + 1) == 0) key = true;
-      if (at(bit + 2)) shown = true;
+      if (at(bit + 2)) ++count;
     }
     first = false;
   }
-  return shown ? (key ? 0 : 1) : -1;
+  if (pictures) *pictures = count;
+  return count ? (key ? 0 : 1) : -1;
 }
 
 }  // namespace viai_video

@@ -88,8 +88,8 @@ def library() -> ctypes.CDLL:
     lib.viai_yuv_to_bgr.restype = ctypes.c_int32
     lib.viai_yuv_to_bgr.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
-        ctypes.c_int32] * 8 + [ctypes.c_void_p, ctypes.c_char_p,
-                               ctypes.c_int32]
+        ctypes.c_int32] * 11 + [ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_int32]
     lib.viai_load_video_frames.restype = ctypes.c_int32
     lib.viai_load_video_frames.argtypes = [
         ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
@@ -237,8 +237,10 @@ class VideoTrack:
     """A video file's first video track as the port's demuxer gives it:
     the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
-    ("mjpeg", "mpeg4", "vp8", "vp9", "h264" or "other"), the size the
-    container gives, the frame count cv2's CAP_PROP_FRAME_COUNT reports,
+    ("mjpeg", "mpeg4", "vp8", "vp9", "h264" or "other"), the size of
+    its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT report it
+    (from the first packet's headers; the container's when they give
+    none), the frame count cv2's CAP_PROP_FRAME_COUNT reports,
     the MPEG-4 headers or H.264 avcC record the container holds (`config`)
     and the packets libavformat gives cv2 in decode order (under an MP4
     edit, from the keyframe it starts from; an MP4's movie fragments after
@@ -314,14 +316,17 @@ def decode_video(path: str) -> np.ndarray:
     as libavcodec's encoder and XviD write them: B-VOPs, packed or not,
     in libavcodec's output order; quarter-pel, GMC, 4MV, AC prediction,
     MPEG quantisation, video packets, data partitioning; not interlace),
-    VP8 and VP9 (profile 0: their shown frames), H.264 (frame pictures
+    VP8 and VP9 (their shown frames; VP9's profiles 0-3 at 8, 10 and 12
+    bits, 4:2:0, 4:2:2, 4:4:0, 4:4:4 and sRGB, intra-only
+    frames and references of another size), H.264 (frame pictures
     of Baseline, Main, High, High 10 and High 4:2:2 at 8 to 10 bits,
     4:2:0, 4:2:2 and monochrome, progressive frames of interlace-capable
     streams too, in libavcodec's output order and number, its guessed
     reorder depth included); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
     list's dropped frames left out; fragmented too), converted to BGR24
-    as swscale does (its scaler for odd heights, 4:4:4/4:4:0 and 9 or 10
-    bits, H.264's chroma sited left) and
+    as swscale does (its scaler for odd heights, 4:4:4/4:4:0 and 9 to 12
+    bits, H.264's chroma sited left) at the first picture's size (a
+    picture of another size scaled to it, as cv2's swscale scales it) and
     turned as cv2 turns them by the track's orientation (90, 180 or 270
     degrees: the MP4 display matrix, a Matroska Projection's roll).
     Raises ValueError for
@@ -350,27 +355,33 @@ def decode_video(path: str) -> np.ndarray:
 def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                shift: tuple[int, int] = (1, 1), depth: int = 8,
                full_range: bool = False, matrix: int = 5,
-               chroma_loc: int = 0) -> np.ndarray:
+               chroma_loc: int = 0, size: tuple[int, int] | None = None,
+               rgb: bool = False) -> np.ndarray:
     """Planes of a decoded picture → (h, w, 3) BGR uint8, as the video
     reader converts them (swscale's routes to BGR24, as cv2 runs them):
     `y` (h, w), `u` and `v` (h >> yshift, w >> xshift, rounded up) for
     `shift` = (xshift, yshift): (1, 1) 4:2:0, (1, 0) 4:2:2, (0, 0) 4:4:4,
-    (0, 1) 4:4:0; uint8 at depth 8, uint16 holding 9 or 10-bit samples;
+    (0, 1) 4:4:0; uint8 at depth 8, uint16 holding 9 to 12-bit samples;
     limited range unless `full_range`; `matrix` swscale's colour space (5
-    BT.601, 1 BT.709); `chroma_loc` the frame's AVChromaLocation (0
-    unspecified, 1 left as H.264's frames, 2 centre, 3 top left ...),
-    where swscale's scaler places the chroma samples."""
+    BT.601, 1 BT.709, 9 BT.2020); `chroma_loc` the frame's
+    AVChromaLocation (0 unspecified, 1 left as H.264's frames, 2 centre,
+    3 top left ...), where swscale's scaler places the chroma samples;
+    `size` (h, w), scaled to it as swscale's bicubic scaler scales a
+    picture of another size than a stream's first; `rgb`, planar G, B, R
+    (gbrp) in y, u, v at (0, 0)."""
     h, w = y.shape
+    dh, dw = size or (h, w)
     xs, ys = shift
     kind = np.uint8 if depth == 8 else np.uint16
     planes = [np.ascontiguousarray(p, kind) for p in (y, u, v)]
     if u.shape != v.shape or u.shape != ((h + ys) >> ys, (w + xs) >> xs):
         raise ValueError("chroma planes of another size than the layout's")
-    out = np.empty((h, w, 3), np.uint8)
+    out = np.empty((dh, dw, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
     rc = library().viai_yuv_to_bgr(
         *(p.ctypes.data for p in planes), w, h, xs, ys, depth,
-        int(full_range), matrix, chroma_loc, out.ctypes.data, err, _ERR_LEN)
+        int(full_range), matrix, chroma_loc, dw, dh, int(rgb),
+        out.ctypes.data, err, _ERR_LEN)
     if rc:
         raise _image_error(rc, err)
     return out
