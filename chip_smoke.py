@@ -110,19 +110,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      Simple Profile files (XviD in AVI: packed B-VOPs, quarter-pel, 4MV,
      GMC; libavcodec's mpeg4 in MP4: B-VOPs, 4MV, AC prediction) and
      once from phone clips (H.264 turned 90 degrees with AAC, and
-     fragmented), once from camera clips (High 4:2:2 10-bit, PsF) and
+     fragmented), once from camera clips (High 4:2:2 10-bit, PsF),
      once from browser clips (VP9 profile 2 10-bit BT.2020, VP9
-     realtime with reference scaling and a size change), GL launches 2
+     realtime with reference scaling and a size change) and once from
+     screen clips (H.264 High 4:4:4 Predictive 8-bit as ffmpeg writes it
+     from images, lossless 4:2:0 as a screen capture), GL launches 2
      and plain 0 each; the eval CLI on a musices split of each folder;
      each MPEG-4 fixture's max |Δ|, each phone and muxer fixture's count
-     and orientation, each camera and browser fixture's count and
-     max |Δ|, the browser clips' reads against the JAX package's
+     and orientation, each camera, browser and screen fixture's count
+     and max |Δ|, the browser clips' reads against the JAX package's
      committed picks; the decode time per frame of each codec, of a
      turned frame against the same file unturned, a 10-bit frame's
-     conversion share, a picture's upscale to the first one's size, a
-     scaled-reference frame's read against an unscaled one's, a clip's
-     read of 16 frames, the loader's wait share of a step from each
-     folder and the host's cores;
+     conversion share, a 4:4:4 and a lossless frame's conversion share,
+     a picture's upscale to the first one's size, a scaled-reference
+     frame's read against an unscaled one's, a clip's read of 16 frames,
+     the loader's wait share of a step from each folder and the host's
+     cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
@@ -363,13 +366,19 @@ FRAMES_WARMUP = 3
 # clip_rtc.webm (VP9 realtime that drops to 112x112 by reference scaling
 # and comes back with a keyframe: a WebRTC or MediaRecorder recording;
 # its small pictures converted up to the first picture's size as cv2's
-# swscale converts them), beside the H.264 that cameras and other
-# encoders write (CAMERA_FIXTURES: 10-bit, 4:2:2, monochrome, PsF,
+# swscale converts them), clip_screen.mp4 (H.264 High 4:4:4 Predictive
+# at 8 bits, the medium preset: a clip rebuilt from frame images by
+# ffmpeg's defaults) and clip_lossless.mkv (lossless 4:2:0, the
+# ultrafast preset: a screen capture), beside the H.264 that cameras and
+# other encoders write (CAMERA_FIXTURES: 10-bit, 4:2:2, monochrome, PsF,
 # reorder depths libavcodec guesses, B sub-8x8 partitions) and the VP9
 # that YouTube and browsers write and pictures that change size
 # mid-stream (BROWSER_FIXTURES: profiles 1-3 at 8, 10 and 12 bits in
 # 4:2:0, 4:2:2, 4:4:0, 4:4:4 and sRGB, reference scaling, SVC superframes
-# with an intra-only frame, new sizes in VP9, MJPEG and H.264). Decoded
+# with an intra-only frame, new sizes in VP9, MJPEG and H.264) and the
+# H.264 that ffmpeg writes from images and screens (SCREEN_FIXTURES:
+# 4:4:4 at 8, 10 and 14 bits, GBR, lossless at every sampling, 12-bit
+# 4:2:0). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -389,7 +398,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "xvid": ("clip_xvid.avi", "clip_dx50.mp4"),
                  "phone": ("clip_phone.mp4", "clip_frag.mp4"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
-                 "browser": ("clip_hdr.webm", "clip_rtc.webm")}
+                 "browser": ("clip_hdr.webm", "clip_rtc.webm"),
+                 "screen": ("clip_screen.mp4", "clip_lossless.mkv")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -412,6 +422,16 @@ BROWSER_FIXTURES = (
     "vp9_svc_webm", "vp9_newsize_webm", "vp9_container_webm",
     "mjpeg_newsize_avi", "h264_newsize_avi")
 BROWSER_CLIPS = ("clip_hdr_webm", "clip_rtc_webm")
+# the committed fixtures of H.264 as ffmpeg writes it from images and
+# screens (tests/_torch_make_videos.py's SCREEN_CASES), each held and
+# printed
+SCREEN_FIXTURES = (
+    "h264_444_mp4", "h264_444cavlc_avi", "h264_444intra_mkv",
+    "h264_44410_mp4", "h264_444cqm_avi", "h264_444matrix_mkv",
+    "h264_444pcm_avi", "h264_444crop_mkv", "h264_gbr_mp4",
+    "h264_gbrlossless_avi", "h264_lossless_avi", "h264_losslessb_mkv",
+    "h264_lossless422_mp4", "h264_lossless444_avi", "h264_lossless10_mkv",
+    "h264_12bit_avi", "h264_14bit_mkv")
 VIDEO_REPS = 3
 TURN_ROUNDS = 7         # [video]: turned and unturned decodes, in turns
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
@@ -1962,7 +1982,7 @@ def video_fixtures():
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
-    per_browser = []
+    per_browser, per_screen = [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -1983,6 +2003,10 @@ def video_fixtures():
             per_mpeg4.append(f"{npz.stem} {err}")
         if npz.stem in CAMERA_FIXTURES:
             per_camera.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} (cv2 "
+                f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
+        if npz.stem in SCREEN_FIXTURES:
+            per_screen.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} (cv2 "
                 f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
         if npz.stem in BROWSER_FIXTURES or npz.stem in BROWSER_CLIPS:
@@ -2020,6 +2044,11 @@ def video_fixtures():
     require(len(per_browser) == len(BROWSER_FIXTURES) + len(BROWSER_CLIPS),
             f"[video] {len(per_browser)} browser fixtures of "
             f"{len(BROWSER_FIXTURES) + len(BROWSER_CLIPS)}")
+    log(f"[video] H.264 as ffmpeg writes it from images and screens "
+        f"({len(per_screen)} fixtures): " + "; ".join(per_screen))
+    require(len(per_screen) == len(SCREEN_FIXTURES),
+            f"[video] {len(per_screen)} screen fixtures of "
+            f"{len(SCREEN_FIXTURES)}")
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
         path = str(VIDEO_FIXTURES / ".".join(name.rsplit("_", 1)))
@@ -2070,12 +2099,13 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     then camera clips (High 4:2:2 10-bit in MP4, PsF without
     bitstream_restriction in Matroska), then browser clips (VP9 profile
     2 10-bit BT.2020, VP9 realtime with reference scaling and a size
-    change, in WebM);
+    change, in WebM), then screen clips (H.264 High 4:4:4 Predictive in
+    MP4, lossless 4:2:0 in Matroska);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a turned frame's against the same file's
-    unturned, a 10-bit frame's conversion share, a clip's read, the
-    loader's wait share of a step from each folder. Returns the GL
-    kernel's launches."""
+    unturned, a 10-bit, a 4:4:4 and a lossless frame's conversion share,
+    a clip's read, the loader's wait share of a step from each folder.
+    Returns the GL kernel's launches."""
     from viai_tpu_torch import native
 
     # (a) the decoders against cv2's committed decodes
@@ -2123,7 +2153,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                         "VP9 profile 2, 10-bit, BT.2020, alt-refs"),
                        ("clip_rtc.webm",
                         "VP9 realtime, 6 frames at 112x112 by reference "
-                        "scaling, scaled up to 224x224")):
+                        "scaling, scaled up to 224x224"),
+                       ("clip_screen.mp4",
+                        "H.264 High 4:4:4 Predictive, 8-bit, B"),
+                       ("clip_lossless.mkv",
+                        "H.264 lossless 4:2:0, ultrafast")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2136,6 +2170,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_turn_cost(best_ms, card)
     video_conversion_cost(best_ms, card)
     video_browser_costs(best_ms, card)
+    video_screen_costs(best_ms, card)
     for folder, root in roots.items():
         video_wait_share(folder, root, ckpt, dev, card)
     return total
@@ -2241,6 +2276,36 @@ def video_browser_costs(best_ms, card: str):
         f"6-11 (112x112, scaled references, scaled up to 224x224) "
         f"{both - early:.3f} ms more, {(both - early) / 6:.3f} ms a frame "
         f"({(both - early) / early:.2f}x); {card}")
+
+
+def video_screen_costs(best_ms, card: str):
+    """[video] (d): clip_screen.mp4's (4:4:4, 8-bit) and
+    clip_lossless.mkv's (lossless 4:2:0) decode a frame beside the same
+    run's clip_xavc.mp4 (4:2:2 10-bit), and the share of each that its
+    conversion to BGR takes (yuv444p through swscale's scaler with full
+    chroma; yuv420p through its unscaled converter; planes of their
+    layouts through native.yuv_to_bgr, H.264's left-sited chroma)."""
+    from viai_tpu_torch import native
+
+    rng = np.random.default_rng(0)
+    dec, shapes = {}, {}
+    for src in ("clip_xavc.mp4", "clip_screen.mp4", "clip_lossless.mkv"):
+        path = str(VIDEO_FIXTURES / src)
+        n, *shapes[src] = native.decode_video(path).shape[:3]
+        dec[src] = best_ms(lambda: native.decode_video(path)) / n
+    for src, shift, layout in (("clip_screen.mp4", (0, 0), "4:4:4"),
+                               ("clip_lossless.mkv", (1, 1), "4:2:0")):
+        h, w = shapes[src]
+        y = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        u, v = (rng.integers(0, 256, (h >> shift[1], w >> shift[0]))
+                .astype(np.uint8) for _ in range(2))
+        conv = best_ms(lambda: native.yuv_to_bgr(y, u, v, shift,
+                                                 chroma_loc=1))
+        log(f"[video] {src} ({w}x{h} {layout} 8-bit): decode a frame "
+            f"{dec[src]:.3f} ms ({dec[src] / dec['clip_xavc.mp4']:.2f}x "
+            f"the same run's clip_xavc.mp4, {dec['clip_xavc.mp4']:.3f} "
+            f"ms), its conversion to BGR {conv:.3f} ms "
+            f"({conv / dec[src]:.1%}; one thread); {card}")
 
 
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,

@@ -72,7 +72,13 @@ which the card's machine does not have, so the fixtures are committed):
     it (`libvpx_encode` at 10 and 12 bits, in 4:2:2, 4:4:0, 4:4:4 and
     sRGB, with a size schedule for reference scaling, two SVC layers
     with an intra-only frame) and pictures that change size mid-stream
-    in VP9, MJPEG and H.264 (`browser_file`);
+    in VP9, MJPEG and H.264 (`browser_file`); the files of SCREEN_CASES,
+    H.264 as ffmpeg writes it from images and screens (`camera_stream`:
+    libx264's High 4:4:4 Predictive at 8 and 10 bits with CABAC, CAVLC,
+    intra only, JVT and custom scaling lists, I_PCM and a crop; its GBR
+    from packed BGR input, `x264_encode(csp=14)`; lossless transform
+    bypass at 4:2:0, 4:2:2, 4:4:4 and 10 bits; 12 and 14 bits by a
+    patched SPS);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); `count`, `CAP_PROP_FRAME_COUNT`; and for
@@ -88,7 +94,9 @@ which the card's machine does not have, so the fixtures are committed):
     (tests/torch_frames/clip/) as video (CLIP_CASES), and `clip_phone.mp4`
     (a phone's: turned 90 degrees, AAC) and `clip_frag.mp4` (fragmented)
     of a 224x160 crop (PHONE_CLIPS), `clip_hdr.webm` and `clip_rtc.webm`
-    (BROWSER_CLIPS, their .npz with the JAX package's picks), the clips
+    (BROWSER_CLIPS, their .npz with the JAX package's picks),
+    `clip_screen.mp4` (4:4:4, medium preset) and `clip_lossless.mkv`
+    (lossless 4:2:0, ultrafast preset) (SCREEN_CLIPS), the clips
     chip_smoke.py trains from and times.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
@@ -526,14 +534,80 @@ BROWSER_CLIPS = {
 }
 # the windows of BROWSER_CLIPS' committed picks (16 frames at 64x64)
 BROWSER_PICKS = (None, (0.25, 0.75), (0.5, 1.0))
+# libx264's scaling lists of its own (x264_param_parse's cqm4iy ...:
+# 4x4 intra and inter of luma and chroma, 8x8 intra and inter shared by
+# the three planes), 6 to 39 in a pattern of each list's own
+X264_MATRICES = {
+    opt: ",".join(str(6 + (7 * k + 11 * t) % 34)
+                  for k in range(16 if opt.startswith("cqm4") else 64))
+    for t, opt in enumerate(("cqm4iy", "cqm4py", "cqm4ic", "cqm4pc",
+                             "cqm8i", "cqm8p"))}
+# name: H.264 as ffmpeg writes it from images and screens, held by
+# tests/test_torch_video_screen.py: camera_stream's settings, in the
+# container its name ends with (h264_file). libx264 of moving_frames at
+# 48x64, 12 frames, unless `size` and `frames` say otherwise: High 4:4:4
+# Predictive (what `ffmpeg -i %05d.png -c:v libx264` writes from RGB
+# images: yuv444p) with CABAC, B-frames and the 8x8 transform, with
+# CAVLC and weighted P prediction, intra only (High 4:4:4 Intra), at 10
+# bits, with the JVT scaling lists (twelve, the Cb and Cr 8x8 lists by
+# fall-back) and with lists of its own (X264_MATRICES), with I_PCM beside
+# 8x8 blocks (noise on the left half of each frame, `noise_cols`, at qp
+# 2), cropped to 56x72, a height and width of 8 modulo 16 (crop units of
+# 1); libx264rgb's GBR (csp 14, packed BGR input:
+# matrix_coefficients 0), lossy and lossless; lossless transform bypass
+# (`-qp 0`, OBS's lossless mode, screen captures) at 4:2:0 with the
+# ultrafast preset (CAVLC, no deblocking) and with CABAC and B-frames,
+# at 4:2:2, 4:4:4 and 10 bits; `edit` "12 bits" and "14 bits", libx264's
+# 10-bit stream with its SPS's bit depths patched (patch_h264), which
+# libavcodec reads as 12- and 14-bit samples.
+SCREEN_CASES = {
+    "h264_444_mp4": dict(csp=12, profile="high444", bframes=3),
+    "h264_444cavlc_avi": dict(csp=12, profile="high444", cabac=0,
+                              weightp=2, bframes=2),
+    "h264_444intra_mkv": dict(csp=12, profile="high444", keyint=1,
+                              frames=8),
+    "h264_44410_mp4": dict(csp=12, bitdepth=10, profile="high444",
+                           bframes=2),
+    "h264_444cqm_avi": dict(csp=12, profile="high444", cqm="jvt",
+                            bframes=2),
+    "h264_444matrix_mkv": dict(csp=12, profile="high444", bframes=2,
+                               **X264_MATRICES),
+    "h264_444pcm_avi": dict(csp=12, profile="high444", qp=2,
+                            psy_rd="0:0", subme=10, noise=80,
+                            noise_cols=0.5, size=(64, 96), frames=6),
+    "h264_444crop_mkv": dict(csp=12, profile="high444", bframes=2,
+                             size=(56, 72)),
+    "h264_gbr_mp4": dict(csp=14, profile="high444", bframes=2),
+    "h264_gbrlossless_avi": dict(csp=14, profile="high444", qp=0),
+    "h264_lossless_avi": dict(preset="ultrafast", profile="high444", qp=0),
+    "h264_losslessb_mkv": dict(profile="high444", qp=0, bframes=3),
+    "h264_lossless422_mp4": dict(csp=6, profile="high444", qp=0),
+    "h264_lossless444_avi": dict(csp=12, profile="high444", qp=0,
+                                 bframes=2),
+    "h264_lossless10_mkv": dict(bitdepth=10, profile="high444", qp=0),
+    "h264_12bit_avi": dict(bitdepth=10, profile="high10", bframes=2,
+                           edit="12 bits"),
+    "h264_14bit_mkv": dict(csp=12, bitdepth=10, profile="high444",
+                           bframes=2, edit="14 bits"),
+}
+# the screen clips chip_smoke.py trains from, libx264 of the committed
+# 224x224 clip's first 16 frames: 4:4:4 at 8 bits with the medium
+# preset (a clip rebuilt from frame images by ffmpeg's defaults) in MP4,
+# and lossless 4:2:0 with the ultrafast preset (a screen capture) in
+# Matroska; SCREEN_CASES' settings
+SCREEN_CLIPS = {
+    "clip_screen_mp4": dict(csp=12, profile="high444", keyint=12),
+    "clip_lossless_mkv": dict(preset="ultrafast", profile="high444", qp=0,
+                              keyint=12),
+}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
-        *BROWSER_CLIPS)
+        *BROWSER_CLIPS, *SCREEN_CASES)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
-    if name in PHONE_CLIPS or name in CAMERA_CLIPS:
+    if name in PHONE_CLIPS or name in CAMERA_CLIPS or name in SCREEN_CLIPS:
         return "h264"
     if name in BROWSER_CLIPS:
         return "vp9"
@@ -546,7 +620,8 @@ def codec_of(name: str) -> str:
 
 
 def path_of(name: str) -> str:
-    if name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS:
+    if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
+            or name in SCREEN_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -1578,8 +1653,11 @@ def planes_of(bgr: np.ndarray, csp: int = 2) -> list[np.ndarray]:
     """A BGR frame's YCbCr planes as `i420` converts it, for an x264
     colour space (1 I400, 2 I420, 6 I422, 12 I444): I422 and I444 are
     i420 of the frame with its rows (I422) or rows and columns (I444)
-    doubled, whose chroma is then the frame's at that sampling."""
+    doubled, whose chroma is then the frame's at that sampling; for 14
+    (packed BGR, libx264rgb's input) the frame itself, (h, 3 w)."""
     h, w = bgr.shape[:2]
+    if csp == 14:
+        return [np.ascontiguousarray(bgr).reshape(h, 3 * w)]
     big = {1: (1, 1), 2: (1, 1), 6: (2, 1), 12: (2, 2)}[csp]
     f = bgr.repeat(big[0], axis=0).repeat(big[1], axis=1)
     yuv = np.frombuffer(i420(f), np.uint8)
@@ -1603,8 +1681,9 @@ def x264_encode(frames, fps: int = 25, preset: str = "medium",
     x264_param_parse (`_` for `-` in the names, True for "1"), then the
     profile (None: the preset's);
     `csp` and `bitdepth` set x264_param_t's i_csp (1 I400, 2 I420, 6
-    I422, 12 I444) and i_bitdepth; the planes are `planes_of`'s (at 10
-    bits, the 8-bit samples shifted up by 2); `picture_struct`, when
+    I422, 12 I444, 14 packed BGR: libx264rgb's, coded as 4:4:4 GBR) and
+    i_bitdepth; the planes are `planes_of`'s (at 10 bits, the 8-bit
+    samples shifted up by 2); `picture_struct`, when
     given, is each picture's i_pic_struct (x264's PIC_STRUCT_*: 1
     PROGRESSIVE, 4 TOP_BOTTOM; written with the option pic_struct=1).
     → (Annex B bytes, pts, dts) in decode order, SPS and PPS before
@@ -1643,10 +1722,10 @@ def x264_encode(frames, fps: int = 25, preset: str = "medium",
         raise RuntimeError("libx264: the encoder does not open")
     pic, pic_out = (ctypes.c_uint8 * 1024)(), (ctypes.c_uint8 * 1024)()
     lib.x264_picture_init(pic)
-    shift = {1: None, 2: (1, 1), 6: (1, 0), 12: (0, 0)}[csp]   # (x, y)
+    shift = {1: None, 2: (1, 1), 6: (1, 0), 12: (0, 0), 14: None}[csp]
     wide = 2 if bitdepth > 8 else 1
     planes = [np.zeros((h >> (shift[1] if i else 0),
-                        w >> (shift[0] if i else 0)),
+                        (w >> (shift[0] if i else 0)) * (3 if csp == 14 else 1)),
                        np.uint8 if wide == 1 else "<u2")
               for i in range(1 if shift is None else 3)]
     struct.pack_into("<i", pic, 40, csp | (0x2000 if wide > 1 else 0))
@@ -1936,22 +2015,25 @@ class BitReader:
 def sps_fields(bits: str) -> BitReader:
     """Where an SPS's fields begin (x264's SPS: no scaling lists, no
     HRD), with `log2_max_frame_num`, `poc_type`, `log2_max_poc_lsb`,
-    `frame_mbs_only`, `chroma_format_idc` and `bit_depth`."""
+    `frame_mbs_only`, `chroma_format_idc`, `bit_depth`, `bypass`
+    (qpprime_y_zero_transform_bypass_flag) and `matrix`
+    (matrix_coefficients, 2 without a colour description)."""
     r = BitReader(bits)
     profile = r.u(8)
     r.u(16)
     r.ue()
-    r.chroma_format_idc, r.bit_depth = 1, 8
+    r.chroma_format_idc, r.bit_depth, r.bypass, r.matrix = 1, 8, False, 2
     if profile in (100, 110, 122, 244):
         r.mark("chroma_format_idc")
         r.chroma_format_idc = r.ue()
         if r.chroma_format_idc == 3:
+            r.mark("separate_colour_plane")
             r.u(1)
         r.mark("bit_depth_luma")
         r.bit_depth = r.ue() + 8
         r.mark("bit_depth_chroma")
         r.ue()
-        r.u(1)
+        r.bypass = bool(r.u(1))
         assert r.u(1) == 0                      # no scaling lists
     r.log2_max_frame_num = r.ue() + 4
     r.mark("poc_type")
@@ -1983,7 +2065,8 @@ def sps_fields(bits: str) -> BitReader:
     if r.u(1):                                  # video signal type
         r.u(4)
         if r.u(1):
-            r.u(24)
+            r.u(16)
+            r.matrix = r.u(8)
     if r.u(1):
         r.ue()
         r.ue()
@@ -2501,20 +2584,24 @@ def container_file(name: str, opts: dict, stream: str, frames=None) -> bytes:
 
 def camera_stream(settings: dict, frames=None,
                   seed: int = 0) -> list[tuple[bytes, int, int]]:
-    """A CAMERA_CASES or CAMERA_CLIPS stream: x264_encode's access units
-    of `frames` (else moving_frames(seed) of the settings' size and
-    number), rewritten by the settings' `edit`."""
+    """A CAMERA_CASES, CAMERA_CLIPS, SCREEN_CASES or SCREEN_CLIPS
+    stream: x264_encode's access units of `frames` (else
+    moving_frames(seed) of the settings' size and number), with uniform
+    `noise` (on the left `noise_cols` of each frame's columns, else on
+    all), rewritten by the settings' `edit`."""
     settings = dict(settings)
     edit = settings.pop("edit", None)
     h, w = settings.pop("size", (48, 64))
     t = settings.pop("frames", 12)
     noise = settings.pop("noise", 0)
+    cols = settings.pop("noise_cols", 1.0)
     if frames is None:
         frames = moving_frames(seed, t + (16 if edit == "deep" else 0), h, w)
     if noise:
         rng = np.random.default_rng(noise)
-        frames = np.clip(frames + rng.uniform(-noise, noise, frames.shape),
-                         0, 255).astype(np.uint8)
+        grain = rng.uniform(-noise, noise, frames.shape)
+        grain[:, :, int(frames.shape[2] * cols):] = 0
+        frames = np.clip(frames + grain, 0, 255).astype(np.uint8)
     if edit == "deep":
         aus = x264_encode(frames[:t], **settings)
         aus += [(a, p + t, d + t) for a, p, d in x264_encode(
@@ -2529,6 +2616,10 @@ def camera_stream(settings: dict, frames=None,
         packets = strip_vui(packets)
     elif edit == "sub8x8":
         packets = sub8x8_b_slices(packets, len(packets))
+    elif edit in ("12 bits", "14 bits"):
+        depth = ue_bits(int(edit.split()[0]) - 8)
+        for field in ("bit_depth_luma", "bit_depth_chroma"):
+            packets = patch_h264(packets, 7, field, depth, 3)
     return [(p, a[1], a[2]) for p, a in zip(packets, aus)]
 
 
@@ -2616,14 +2707,17 @@ def write_case(name: str, out: str = FIXTURES) -> str:
         with open(path, "wb") as f:
             f.write(data)
         return path
-    if name in CAMERA_CASES or name in CAMERA_CLIPS:
-        if name in CAMERA_CLIPS:
+    if (name in CAMERA_CASES or name in CAMERA_CLIPS or name in SCREEN_CASES
+            or name in SCREEN_CLIPS):
+        cases = {**CAMERA_CASES, **SCREEN_CASES}
+        clips = {**CAMERA_CLIPS, **SCREEN_CLIPS}
+        if name in clips:
             frames = clip_frames_bgr()[:16]
-            aus = camera_stream(CAMERA_CLIPS[name], frames)
+            aus = camera_stream(clips[name], frames)
         else:
             frames = None
-            aus = camera_stream(CAMERA_CASES[name], seed=sum(map(ord, name)))
-        h, w = CAMERA_CASES.get(name, {}).get("size", (48, 64)) \
+            aus = camera_stream(cases[name], seed=sum(map(ord, name)))
+        h, w = cases.get(name, {}).get("size", (48, 64)) \
             if frames is None else frames.shape[1:3]
         with open(path, "wb") as f:
             f.write(h264_file(aus, w, h, name.rsplit("_", 1)[1]))
@@ -2785,7 +2879,7 @@ def write_case(name: str, out: str = FIXTURES) -> str:
 def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
     for name in names or (*HELD, *CLIP_CASES, *LAVC_UNREAD, *PHONE_CLIPS,
-                          *CAMERA_CLIPS):
+                          *CAMERA_CLIPS, *SCREEN_CLIPS):
         path = write_case(name, out)
         if name not in HELD:
             continue

@@ -1,8 +1,8 @@
-"""The port's MJPEG and MPEG-4 Part 2 decoders against cv2, the reading
-behind the video reader's bounds (TOL in tests/test_torch_video_decode.py,
-VIDEO_TOL in chip_smoke.py).
+"""The port's MJPEG, MPEG-4 Part 2 and H.264 decoders against cv2, the
+reading behind the video reader's bounds (TOL in
+tests/test_torch_video_decode.py, VIDEO_TOL in chip_smoke.py).
 
-    python tests/_torch_video_sweep.py [streams [seed]]
+    python tests/_torch_video_sweep.py [streams [seed [screen]]]
 
 prints, per codec, the largest |Δ| in levels of `native.decode_video`
 against cv2's `cap.read()` over every frame of every committed clip in
@@ -11,8 +11,16 @@ Part 2 streams: libavcodec 59's mpeg4 and libxvid encoders (through
 `lavc_encode`) at random sizes (16..176 x 16..144, even), frame counts
 (2..16), quantisers and tools (B-frames, quarter-pel, 4MV, GMC, AC
 prediction, MPEG quantisation, video packets, data partitioning), each in
-an AVI. Needs cv2 and the system's libavcodec 59, which the card's machine
-does not have.
+an AVI; then over `screen` (default 0) random H.264 streams as ffmpeg
+writes them from images and screens: the system's libx264 (through
+`x264_encode`) in 4:2:0, 4:2:2, 4:4:4 and GBR (packed BGR input), at 8
+and 10 bits, lossy (qp 0..44) and lossless, with random presets,
+B-frames, CAVLC, weighted prediction, scaling lists, slices, intra only,
+no 8x8 transform, deblocking offsets, constrained intra and I_PCM (noise
+on half the picture), at sizes 32..96 x 32..80, in AVI, MP4 or
+Matroska, or as 12 or 14 bits (a lossy 10-bit stream without I_PCM, its
+SPS patched) in AVI. Needs cv2, the system's libavcodec 59 and libx264,
+which the card's machine does not have.
 """
 
 from __future__ import annotations
@@ -62,7 +70,76 @@ def random_options(rng) -> tuple[str, dict]:
     return encoder, opts
 
 
-def main(streams: int = 600, seed: int = 0):
+def random_screen_stream(rng) -> tuple[dict, int, int, int, int, bool]:
+    """libx264's settings of a random stream as ffmpeg writes it from
+    images and screens, the depth its SPS is patched to (0: none), its
+    size, frame count and whether half of each picture is noise."""
+    csp = int(rng.choice([2, 6, 12, 12, 14]))
+    depth = 8 if csp == 14 else int(rng.choice([8, 10]))
+    lossless = rng.random() < 0.35
+    st = dict(csp=csp, bitdepth=depth, profile="high444",
+              qp=0 if lossless else int(rng.integers(0, 45)),
+              preset=str(rng.choice(["ultrafast", "veryfast", "medium",
+                                     "slow"])))
+    for key, p, value in (("bframes", 0.5, int(rng.integers(0, 4))),
+                          ("cabac", 0.3, 0),
+                          ("weightp", 0.3, int(rng.integers(0, 3))),
+                          ("cqm", 0.2, "jvt"),
+                          ("slices", 0.2, int(rng.integers(2, 4))),
+                          ("keyint", 0.2, 1), ("8x8dct", 0.2, 0),
+                          ("deblock", 0.2, f"{int(rng.integers(-3, 4))}:"
+                                           f"{int(rng.integers(-3, 4))}"),
+                          ("constrained_intra", 0.15, 1)):
+        if rng.random() < p:
+            st[key] = value
+    if rng.random() < 0.2:
+        st.update(psy_rd="0:0", subme=10)
+    patch = 0
+    if depth == 10 and not lossless and st["qp"] >= 10 and rng.random() < 0.4:
+        patch = int(rng.choice([12, 14]))
+    noisy = not patch and rng.random() < 0.4
+    h = int(rng.choice([32, 48, 56, 64, 80]))
+    w = int(rng.choice([32, 48, 64, 96]))
+    return st, patch, h, w, int(rng.integers(4, 10)), noisy
+
+
+def screen_sweep(streams: int, rng, tmp: str):
+    top, refused = 0, 0
+    for k in range(streams):
+        st, patch, h, w, t, noisy = random_screen_stream(rng)
+        frames = mk.moving_frames(int(rng.integers(1 << 30)), t, h, w)
+        if noisy:
+            grain = rng.uniform(-70, 70, frames.shape)
+            grain[:, :, w // 2:] *= 0.05
+            frames = np.clip(frames + grain, 0, 255).astype(np.uint8)
+        try:
+            aus = mk.x264_encode(frames, **st)
+        except RuntimeError:
+            refused += 1                 # a setting libx264 refuses
+            continue
+        if patch:
+            packets = [a for a, _, _ in aus]
+            for field in ("bit_depth_luma", "bit_depth_chroma"):
+                packets = mk.patch_h264(packets, 7, field,
+                                        mk.ue_bits(patch - 8), 3)
+            ext = "avi"
+            data = mk.avi_file(packets, w, h, 25, len(packets), b"H264")
+        else:
+            ext = str(rng.choice(["avi", "mp4", "mkv"]))
+            data = mk.h264_file(aus, w, h, ext)
+        path = os.path.join(tmp, f"h{k}.{ext}")
+        with open(path, "wb") as f:
+            f.write(data)
+        err = worst(path)
+        if err:
+            print(f"stream {k}: {st} {w}x{h} depth {patch or st['bitdepth']}"
+                  f": max |Δ| {err}")
+        top = max(top, err)
+    print(f"{streams - refused} random H.264 streams of images and screens "
+          f"({refused} settings refused): max |Δ| {top}")
+
+
+def main(streams: int = 600, seed: int = 0, screen: int = 0):
     per = {}
     for npz in sorted(os.listdir(mk.FIXTURES)):
         if not npz.endswith(".npz"):
@@ -71,7 +148,8 @@ def main(streams: int = 600, seed: int = 0):
         path = mk.path_of(name)
         codec = native.video_track(path, packets=False).codec
         per[codec] = max(per.get(codec, 0), worst(path))
-    for name in (*mk.CLIP_CASES, *mk.PHONE_CLIPS):
+    for name in (*mk.CLIP_CASES, *mk.PHONE_CLIPS, *mk.CAMERA_CLIPS,
+                 *mk.SCREEN_CLIPS):
         path = mk.path_of(name)
         codec = native.video_track(path, packets=False).codec
         per[codec] = max(per.get(codec, 0), worst(path))
@@ -99,8 +177,9 @@ def main(streams: int = 600, seed: int = 0):
             if err:
                 print(f"stream {k}: {encoder} {opts} {w}x{h}: max |Δ| {err}")
             top = max(top, err)
-    print(f"{streams - failed} random MPEG-4 Part 2 streams (seed {seed}; "
-          f"{failed} option sets refused): max |Δ| {top}")
+        print(f"{streams - failed} random MPEG-4 Part 2 streams (seed "
+              f"{seed}; {failed} option sets refused): max |Δ| {top}")
+        screen_sweep(screen, rng, tmp)
 
 
 if __name__ == "__main__":

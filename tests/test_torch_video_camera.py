@@ -36,8 +36,10 @@ same bound. Beside them: the conversion of random 9- and 10-bit planes
 against cv2's own libswscale (through ctypes), the reorder guess on
 live streams in AVI, Matroska and MP4, and NotImplementedError naming
 what stays unread: MBAFF, field pictures, frames a picture timing SEI
-flags interlaced (cv2 cannot convert them), 4:4:4, lossless coding,
-depths above 10 and luma and chroma of different depths.
+flags interlaced (cv2 cannot convert them), and what libavcodec refuses
+too: separate_colour_plane_flag, luma and chroma of different depths,
+11 and 13 bits. (4:4:4, lossless coding and 12 and 14 bits are read:
+tests/test_torch_video_screen.py.)
 """
 
 import ctypes
@@ -234,10 +236,6 @@ def _x264_avi(tmp_path, **settings):
     ("flagged interlaced", dict(fake_interlaced=1, pic_struct=1,
                                 picture_struct=4)),
     ("flagged interlaced", dict(pic_struct=1, picture_struct=5)),
-    ("4:4:4", dict(csp=12, profile="high444")),
-    ("4:4:4", dict(csp=12, bitdepth=10, profile="high444")),
-    ("lossless", dict(qp=0, profile="high444")),
-    ("lossless", dict(csp=6, qp=0, profile="high444")),
 ])
 def test_x264_streams_still_unread_raise_naming_them(tmp_path, feature,
                                                      settings):
@@ -255,19 +253,30 @@ def test_x264_streams_still_unread_raise_naming_them(tmp_path, feature,
 @pytest.mark.parametrize("feature,patches", [
     ("field pictures", [((1, 5), "field_pic", "10", 0),
                         (7, "frame_mbs_only", "00", 1)]),
-    ("depths above 10", [(7, "bit_depth_luma", mk.ue_bits(4), 3),
-                         (7, "bit_depth_chroma", mk.ue_bits(4), 3)]),
+    ("11 and 13 bits", [(7, "bit_depth_luma", mk.ue_bits(3), 3),
+                        (7, "bit_depth_chroma", mk.ue_bits(3), 3)]),
     ("different bit depths", [(7, "bit_depth_chroma", mk.ue_bits(0), 3)]),
+    ("separate_colour_plane_flag", [(7, "separate_colour_plane", "1", 1)]),
+    ("11 and 13 bits", [(7, "bit_depth_luma", mk.ue_bits(5), 3),
+                        (7, "bit_depth_chroma", mk.ue_bits(5), 3)]),
+    ("different bit depths", [(7, "bit_depth_luma", mk.ue_bits(4), 3),
+                              (7, "bit_depth_chroma", mk.ue_bits(6), 3)]),
+    ("different bit depths", [(7, "bit_depth_luma", mk.ue_bits(0), 3)]),
 ])
 def test_patched_streams_still_unread_raise_naming_them(tmp_path, feature,
                                                         patches):
     """Headers libx264 does not write, patched into its 10-bit High
-    stream bit by bit: field pictures (frame_mbs_only_flag 0 without
-    MBAFF, a bottom field_pic_flag in every slice), 12-bit samples, and
-    8-bit chroma beside 10-bit luma (libavcodec refuses those too)."""
+    stream (High 4:4:4 Predictive for separate_colour_plane_flag) bit by
+    bit: field pictures (frame_mbs_only_flag 0 without MBAFF, a bottom
+    field_pic_flag in every slice), and what libavcodec refuses too: 11-
+    and 13-bit samples, luma and chroma of different depths (10 and 8,
+    12 and 14, 8 and 10), 4:4:4 coded as three separate planes."""
     _x264()
+    four = any(field == "separate_colour_plane" for _, field, _, _ in patches)
     aus = mk.x264_encode(mk.moving_frames(4, 4, 48, 64), bitdepth=10,
-                         profile="high10", cabac=0, bframes=0, weightp=0)
+                         profile="high444" if four else "high10",
+                         csp=12 if four else 2, cabac=0, bframes=0,
+                         weightp=0)
     packets = [a for a, _, _ in aus]
     for kinds, field, new, old in patches:
         for kind in (kinds if isinstance(kinds, tuple) else (kinds,)):
@@ -276,6 +285,9 @@ def test_patched_streams_still_unread_raise_naming_them(tmp_path, feature,
     path.write_bytes(mk.avi_file(packets, 64, 48, 25, len(packets), b"H264"))
     with pytest.raises(NotImplementedError, match=re.escape(feature)):
         native.decode_video(str(path))
+    if feature != "field pictures":
+        with pytest.raises(NotImplementedError, match="libavcodec refuses"):
+            native.decode_video(str(path))
 
 
 # ---- swscale's path from 9- and 10-bit planes ----------------------------

@@ -72,11 +72,12 @@ chip_smoke.py trains from or times) go through:
     a reference outside the scaling range (patched or written headers;
     what browsers write is read: test_torch_video_browser.py), a VP8
     vpcC box of another bit depth, and each H.264
-    feature the decoder does not read (libx264's own MBAFF, 4:4:4 and
-    lossless streams, and frames its picture timing SEI flags interlaced;
+    feature the decoder does not read (libx264's own MBAFF streams in
+    every format, and frames its picture timing SEI flags interlaced;
     parameter sets, slice headers and NAL units patched bit by bit for
     the rest; what cameras write beside them is read and held in
-    test_torch_video_camera.py), MJPEG field pairs and mixed sampling
+    test_torch_video_camera.py, what ffmpeg writes from images and
+    screens in test_torch_video_screen.py), MJPEG field pairs and mixed sampling
     ratios, and MP4 edit
     lists of several edits, another rate or a zero duration; ValueError
     for a broken file and for a window past the clip's last frame, as the
@@ -994,17 +995,21 @@ def test_h264_header_features_raise_naming_them(tmp_path, feature, name,
 
 @pytest.mark.parametrize("feature,settings", [
     ("interlaced coding", dict(interlaced=1)),
-    ("4:4:4", dict(csp=12, bitdepth=10, profile="high444")),
-    ("lossless", dict(csp=6, qp=0, profile="high444")),
-    ("4:4:4", dict(csp=12, profile="high444")),
+    ("interlaced coding", dict(interlaced=1, csp=12, bitdepth=10,
+                               profile="high444")),
+    ("interlaced coding", dict(interlaced=1, csp=6, qp=0,
+                               profile="high444")),
+    ("flagged interlaced", dict(csp=12, fake_interlaced=1, pic_struct=1,
+                                picture_struct=4, profile="high444")),
     ("flagged interlaced", dict(csp=1, fake_interlaced=1, pic_struct=1,
                                 picture_struct=4)),
-    ("lossless", dict(qp=0, profile="high444")),
+    ("interlaced coding", dict(interlaced=1, qp=0, profile="high444")),
 ])
 def test_h264_x264_streams_out_of_scope_raise(tmp_path, feature, settings):
-    """libx264's own streams of the profiles, formats and interlace not
-    read (10-bit, 4:2:2 and monochrome are read since: see
-    test_torch_video_camera.py)."""
+    """libx264's own streams of the interlace not read, in every format
+    (10-bit, 4:2:2 and monochrome are read since: see
+    test_torch_video_camera.py; 4:4:4 and lossless coding: see
+    test_torch_video_screen.py)."""
     _x264()
     aus = mk.x264_encode(mk.moving_frames(1, 4), **settings)
     path = tmp_path / "x.avi"

@@ -1,36 +1,47 @@
 // The H.264 decoder of viai_tpu_torch's video reader (videodec.cpp):
-// frame pictures of the Baseline, Main, High, High 10 and High 4:2:2
-// profiles (and their Intra profiles) at 8, 9 and 10 bits, 4:2:0, 4:2:2
-// and monochrome, progressive or as progressive frames of an
-// interlace-capable stream (frame_mbs_only_flag 0 without MBAFF),
-// decoded as ITU-T H.264 (08/2021) specifies and output in the order
-// and number libavcodec's decoder gives them to cv2.
+// frame pictures of the Baseline, Main, High, High 10, High 4:2:2 and
+// High 4:4:4 Predictive profiles (and their Intra profiles, CAVLC 4:4:4
+// Intra too) at 8, 9, 10, 12 and 14 bits, 4:2:0, 4:2:2, 4:4:4 (its GBR
+// too: matrix_coefficients 0) and monochrome, lossless coding
+// (qpprime_y_zero_transform_bypass) at every sampling, progressive or as
+// progressive frames of an interlace-capable stream (frame_mbs_only_flag
+// 0 without MBAFF), decoded as ITU-T H.264 (08/2021) specifies and
+// output in the order and number libavcodec's decoder gives them to cv2.
 //
 //   * parsing: NAL units (Annex B start codes, or the length prefixes of
 //     an avcC record), emulation prevention, SPS with VUI (HRD delay
-//     lengths, pic_struct_present_flag, chroma siting), cropping and
-//     scaling lists, PPS with transform_8x8_mode_flag and its lists
-//     (fall-back rules A and B), slice headers, pred_weight_table,
-//     dec_ref_pic_marking, picture timing SEI;
+//     lengths, pic_struct_present_flag, chroma siting), cropping (crop
+//     units of 1 in 4:4:4) and scaling lists (twelve in 4:4:4), PPS with
+//     transform_8x8_mode_flag and its lists (fall-back rules A and B),
+//     slice headers, pred_weight_table, dec_ref_pic_marking, picture
+//     timing SEI, libx264's build from its user data SEI;
 //   * entropy decoding: CAVLC (9.2, chroma DC of nC -1 and -2) and CABAC
-//     (9.3: the arithmetic engine bit by bit, context initialisation,
-//     every syntax element of frame coding for ChromaArrayType 0, 1 and
-//     2, I_PCM with the engine's re-initialisation);
-//   * macroblocks: I_PCM (at the bit depth), Intra_16x16/4x4/8x8
-//     (reference sample filtering), intra chroma on 8x8 and 8x16, P and
-//     B partitions down to 4x4, P_Skip, B_Skip and B_Direct (spatial and
+//     (9.3: the arithmetic engine bit by bit, context initialisation of
+//     the 1024 contexts, every syntax element of frame coding for
+//     ChromaArrayType 0 to 3: 4:4:4's Cb and Cr coded as luma in block
+//     categories 6-13 with their own neighbours, and the coded_block_flag
+//     of its 8x8 blocks; I_PCM with the engine's re-initialisation);
+//   * macroblocks: I_PCM (at the bit depth, three full planes in 4:4:4),
+//     Intra_16x16/4x4/8x8 (reference sample filtering; each plane coded as
+//     luma with the luma modes), intra chroma on 8x8 and 8x16, P and B
+//     partitions down to 4x4, P_Skip, B_Skip and B_Direct (spatial and
 //     temporal, with and without direct_8x8_inference_flag), several
 //     reference frames, list modification, explicit weighted prediction
 //     in P slices (offsets scaled to the depth) and implicit weights in B
 //     slices; quarter-sample luma (6-tap) and chroma interpolation
-//     (eighth-sample, vertically quarter-sample for 4:2:2), references
-//     read clamped to the picture;
+//     (eighth-sample, vertically quarter-sample for 4:2:2; 4:4:4's
+//     chroma as luma), references read clamped to the picture;
 //   * transforms: 4x4 and 8x8 inverse transforms, luma DC (Hadamard),
 //     chroma DC 2x2 and 2x4 (4:2:2, at QP'c + 3), scaling with flat or
-//     custom matrices and QpBdOffset;
+//     custom matrices and QpBdOffset; transform bypass where QP'Y is 0
+//     (the residual added as it is; the Intra_NxN, Intra_16x16 and
+//     chroma horizontal and vertical modes accumulating it, 8.3.5.1, in
+//     the High 4:4:4 Predictive profile as libavcodec does);
 //   * the deblocking filter (8.7) with the slice's offsets and
 //     disable_deblocking_filter_idc 0, 1 and 2, bS of 8x8-transform
-//     edges, 4:2:2's chroma edges, thresholds scaled to the depth;
+//     edges, 4:2:2's chroma edges, 4:4:4's chroma filtered as luma (bS
+//     from the luma coefficients, as libavcodec takes it), thresholds
+//     scaled to the depth;
 //   * references: several slices a picture, POC types 0 and 2, the
 //     sliding window and memory_management_control_operation 1, IDR;
 //   * output: libavcodec's h264_select_output_frame (its reorder depth
@@ -41,7 +52,8 @@
 //     SPS's frame cropping, with the VUI's range, matrix and chroma
 //     siting (Picture::full_range, matrix, chroma_loc), samples of 8 bits
 //     or 16 (Picture::y16...), monochrome with libavcodec's neutral
-//     chroma.
+//     chroma, 4:4:4 of matrix_coefficients 0 as planar G, B, R
+//     (Picture::rgb: libavcodec's gbrp, gbrp10 ...).
 //
 // Samples are uint8_t at 8 bits and uint16_t above; the reconstruction
 // is written once, templated on the sample type (pixels()).
@@ -49,10 +61,12 @@
 // Everything else raises NotImplementedError (code 2) naming it:
 // interlaced coding (field pictures, MBAFF) and frames a picture timing
 // SEI flags interlaced (libavcodec marks them so and cv2 cannot convert
-// them), 4:4:4 and separate_colour_plane_flag, depths above 10 and luma
-// and chroma of different depths, lossless transform bypass, SP/SI
-// slices, slice groups (FMO), arbitrary slice order (ASO) and redundant
-// pictures, data partitioning, gaps in frame_num, long-term references,
+// them), what libavcodec refuses too (separate_colour_plane_flag, luma
+// and chroma of different depths, 11 and 13 bits), 4:4:4 CABAC and
+// lossless coding with the 8x8 transform from libx264 before build 151
+// (which libavcodec reads with a workaround), SP/SI slices, slice groups
+// (FMO), arbitrary slice order (ASO) and redundant pictures, data
+// partitioning, gaps in frame_num, long-term references,
 // memory_management_control_operation 2-6, POC type 1, explicit
 // bi-predictive weights (weighted_bipred_idc 1) and frame cropping on
 // the left or top. A stream that breaks the syntax raises ValueError
@@ -61,6 +75,7 @@
 #include <algorithm>
 #include <array>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
@@ -161,13 +176,16 @@ struct Sps {
   bool valid = false;
   bool scaling_present = false;
   uint8_t scaling4[6][16];      // raster order, after fall-back rule A
-  uint8_t scaling8[2][64];
-  int level = 0;                // level_idc
+  // Intra Y, Inter Y, Intra Cb, Inter Cb, Intra Cr, Inter Cr (the
+  // chroma lists are coded in 4:4:4 only)
+  uint8_t scaling8[6][64];
+  int profile = 0, level = 0;   // profile_idc, level_idc
   int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
   int max_num_ref_frames = 0;
   int mb_w = 0, mb_h = 0;       // mb_h: FrameHeightInMbs
-  int cfi = 1;                  // chroma_format_idc: 0 (4:0:0), 1, 2
+  int cfi = 1;                  // chroma_format_idc: 0 (4:0:0), 1, 2, 3
   int depth = 8;                // BitDepthY = BitDepthC
+  bool bypass = false;          // qpprime_y_zero_transform_bypass_flag
   bool frame_mbs_only = true, mbaff = false;
   bool direct_8x8_inference = false;
   int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;
@@ -196,9 +214,9 @@ struct Pps {
   bool deblocking_control = false, constrained_intra = false;
   bool transform_8x8 = false;
   bool scaling_present = false;
-  bool list_present[8] = {};
-  bool list_default[8] = {};    // useDefaultScalingMatrixFlag
-  uint8_t lists[8][64] = {};    // as parsed, zigzag order
+  bool list_present[12] = {};
+  bool list_default[12] = {};   // useDefaultScalingMatrixFlag
+  uint8_t lists[12][64] = {};   // as parsed, zigzag order
 };
 
 // scaling_list(): into `out` (zigzag order); → useDefaultScalingMatrixFlag.
@@ -288,42 +306,42 @@ void parse_sps(Bits& b, Sps* table) {
   Sps s;
   int p = int(b.u(8));                            // profile_idc
   b.u(8);                                         // constraint flags
+  s.profile = p;
   s.level = int(b.u(8));
   uint32_t id = b.ue();
   if (id > 31) broken("H.264 seq_parameter_set_id above 31");
   for (int i = 0; i < 6; ++i) std::memset(s.scaling4[i], 16, 16);
-  for (int i = 0; i < 2; ++i) std::memset(s.scaling8[i], 16, 64);
+  for (int i = 0; i < 6; ++i) std::memset(s.scaling8[i], 16, 64);
   if (p == 100 || p == 110 || p == 122 || p == 244 || p == 44 || p == 83 ||
       p == 86 || p == 118 || p == 128 || p == 138 || p == 139 || p == 134 ||
       p == 135) {
     uint32_t chroma_format_idc = b.ue();
     if (chroma_format_idc > 3) broken("H.264 chroma_format_idc above 3");
-    if (chroma_format_idc == 3)
-      unsupported(b.u1() ? "H.264 4:4:4 with separate_colour_plane_flag"
-                         : "H.264 4:4:4 (High 4:4:4 profile)");
+    if (chroma_format_idc == 3 && b.u1())
+      unsupported("H.264 4:4:4 with separate_colour_plane_flag (libavcodec "
+                  "refuses it too)");
     uint32_t depth_luma = b.ue() + 8, depth_chroma = b.ue() + 8;
     if (depth_luma > 14 || depth_chroma > 14) broken("H.264 bit depth above 14");
-    bool bypass = b.u1();
+    s.bypass = b.u1();
     if (depth_luma != depth_chroma)
       unsupported("H.264 luma and chroma of different bit depths (" +
                   std::to_string(depth_luma) + " and " + std::to_string(depth_chroma) +
                   "; libavcodec refuses them too)");
-    if (depth_luma > 10)
+    if (depth_luma == 11 || depth_luma == 13)
       unsupported("H.264 at " + std::to_string(depth_luma) +
-                  "-bit (depths above 10 are not read)");
-    if (bypass) unsupported("H.264 lossless (qpprime_y_zero_transform_bypass)");
+                  "-bit (libavcodec refuses 11 and 13 bits too)");
     s.cfi = int(chroma_format_idc);
     s.depth = int(depth_luma);
     s.scaling_present = b.u1();
     if (s.scaling_present) {
       uint8_t zz[64];
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < (s.cfi == 3 ? 12 : 8); ++i) {
         bool present = b.u1();
         bool is4 = i < 6;
         const uint8_t* fallback = nullptr;
         uint8_t def[64];
         if (is4) to_raster4(kDefaultScaling4[i < 3 ? 0 : 1], def);
-        else to_raster8(kDefaultScaling8[i - 6], def);
+        else to_raster8(kDefaultScaling8[i % 2], def);
         if (present) {
           bool use_def = read_scaling_list(b, zz, is4 ? 16 : 64);
           if (use_def) {
@@ -334,9 +352,11 @@ void parse_sps(Bits& b, Sps* table) {
             continue;
           }
         } else {
-          // Fall-back rule A.
-          if (i == 0 || i == 3 || i >= 6) fallback = def;
-          else fallback = s.scaling4[i - 1];
+          // Fall-back rule A: Y's lists from the defaults, Cb's from Y's,
+          // Cr's from Cb's.
+          if (i == 0 || i == 3 || i == 6 || i == 7) fallback = def;
+          else if (is4) fallback = s.scaling4[i - 1];
+          else fallback = s.scaling8[i - 8];
         }
         if (is4) std::memcpy(s.scaling4[i], fallback, 16);
         else std::memcpy(s.scaling8[i - 6], fallback, 64);
@@ -368,7 +388,7 @@ void parse_sps(Bits& b, Sps* table) {
   if (!s.frame_mbs_only) s.mbaff = b.u1();
   s.mb_h = map_units * (s.frame_mbs_only ? 1 : 2);
   s.direct_8x8_inference = b.u1();
-  s.crop_ux = s.cfi == 0 ? 1 : 2;                 // SubWidthC
+  s.crop_ux = s.cfi == 0 || s.cfi == 3 ? 1 : 2;   // SubWidthC
   s.crop_uy = (s.cfi == 1 ? 2 : 1) * (s.frame_mbs_only ? 1 : 2);
   if (b.u1()) {                                   // frame_cropping
     s.crop_l = int(b.ue());
@@ -412,7 +432,7 @@ void parse_pps(Bits& b, const Sps* spss, Pps* table, size_t stop) {
     q.transform_8x8 = b.u1();
     q.scaling_present = b.u1();
     if (q.scaling_present) {
-      int lists = 6 + (q.transform_8x8 ? 2 : 0);
+      int lists = 6 + (q.transform_8x8 ? (spss[q.sps_id].cfi == 3 ? 6 : 2) : 0);
       for (int i = 0; i < lists; ++i) {
         q.list_present[i] = b.u1();
         if (q.list_present[i])
@@ -444,10 +464,14 @@ struct MbInfo {
   int8_t qp = 0;
   int8_t qpc[2] = {0, 0};
   uint8_t chroma_mode = 0;
-  uint8_t dc_cbf = 0;           // coded_block_flag of luma DC (1), Cb DC (2), Cr DC (4)
+  // coded_block_flag of the DC blocks: luma's Intra16x16 (1), Cb's (2)
+  // and Cr's (4), chroma DC in 4:2:0 and 4:2:2, Intra16x16 in 4:4:4
+  uint8_t dc_cbf = 0;
   uint8_t direct8 = 0;          // bit per 8x8: direct predicted
   int8_t ipred[16];             // Intra4x4/8x8 modes, raster 4x4 blocks
-  uint8_t nz[32];               // TotalCoeff: luma raster 0..15, Cb 16.., Cr 24..
+  // TotalCoeff of each 4x4 block: luma's in raster order at 0..15, Cb's
+  // at 16.. and Cr's at 32.. (their own raster: 4 wide in 4:4:4, else 2)
+  uint8_t nz[48];
   int16_t mv[2][16][2];
   uint8_t mvd[2][16][2];        // |mvd| (CABAC contexts)
   int8_t ref[2][4];             // refIdx per 8x8, -1 not used
@@ -459,11 +483,12 @@ struct Frame {
   int id = 0;
   int64_t source = 0;           // the decode() call of its first slice
   int w = 0, h = 0;             // coded size (luma)
-  int ch = 0;                   // chroma rows (h / 2, or h for 4:2:2)
+  int cw = 0, ch = 0;           // chroma size (w / 2 but for 4:4:4; h / 2
+                                // but for 4:2:2 and 4:4:4)
   int cfi = 1, depth = 8;       // chroma_format_idc, bit depth
-  // The planes' samples: bytes (8-bit) or uint16_t (9, 10-bit); chroma
-  // w / 2 wide. Monochrome pictures carry neutral 4:2:0 chroma, as
-  // libavcodec outputs them.
+  // The planes' samples: bytes (8-bit) or uint16_t (9 to 14-bit).
+  // Monochrome pictures carry neutral 4:2:0 chroma, as libavcodec
+  // outputs them.
   std::vector<uint8_t> y, u, v;
   int poc = 0, frame_num = 0;
   bool key = false;             // an IDR picture
@@ -474,6 +499,7 @@ struct Frame {
   int out_w = 0, out_h = 0;
   bool full_range = false;
   int matrix = 2, chroma_loc = 1;
+  bool rgb = false;             // planar G, B, R (4:4:4, matrix_coefficients 0)
 };
 using FramePtr = std::shared_ptr<Frame>;
 
@@ -482,11 +508,11 @@ using FramePtr = std::shared_ptr<Frame>;
 struct Cabac {
   Bits* b = nullptr;
   uint32_t range = 0, offset = 0;
-  uint8_t state[460];           // pStateIdx << 1 | valMPS
+  uint8_t state[1024];          // pStateIdx << 1 | valMPS
 
   void init_contexts(int slice_qp, int idc, bool islice) {
     int qp = clip3(0, 51, slice_qp);
-    for (int i = 0; i < 460; ++i) {
+    for (int i = 0; i < 1024; ++i) {
       int m = islice ? kCabacInitI[i][0] : kCabacInitPB[idc][i][0];
       int n = islice ? kCabacInitI[i][1] : kCabacInitPB[idc][i][1];
       int pre = clip3(1, 126, ((m * qp) >> 4) + n);
@@ -602,10 +628,12 @@ struct H264Decoder::State {
   int frame_num_offset = 0;
   bool seen_idr = false;
 
-  // the active picture format: ChromaArrayType (0, 1, 2), NumC8x8, the
-  // chroma block rows of a macroblock (MbHeightC), bit depth, its
-  // largest sample and QpBdOffset
-  int cfi = 1, nc8 = 1, mbhc = 8, depth = 8, pmax = 255, qp_bd = 0;
+  // the active picture format: ChromaArrayType (0 to 3), NumC8x8 (4:2:0
+  // and 4:2:2), a macroblock's chroma columns and rows (MbWidthC,
+  // MbHeightC), the coded planes (3 in 4:4:4, where Cb and Cr are coded
+  // as luma; else 1), bit depth, its largest sample and QpBdOffset
+  int cfi = 1, nc8 = 1, mbwc = 8, mbhc = 8, planes = 1, depth = 8, pmax = 255,
+      qp_bd = 0;
 
   // libavcodec's picture timing SEI state (h264_sei.c): the payload
   // of the packet's pic_timing message, read with the SPS of the
@@ -613,6 +641,11 @@ struct H264Decoder::State {
   // interlaced (1 before the first)
   std::vector<uint8_t> pic_timing;
   bool prev_interlaced = true;
+  // libx264's build from its SEI user data (libavcodec's x264_build; -1
+  // unknown): before build 151 libx264 took 4:4:4's 8x8 coded_block_flag
+  // contexts and lossless 8x8 horizontal and vertical prediction
+  // otherwise, which libavcodec reads with workarounds not copied here.
+  int x264_build = -1;
 
   // libavcodec's output state
   bool headers_only = false;    // order pictures without decoding them
@@ -630,7 +663,7 @@ struct H264Decoder::State {
   Cabac cabac;
   std::vector<FramePtr> list[2];
   int ls4[6][6][16];            // LevelScale4x4[list][qP % 6][raster]
-  int ls8[2][6][64];
+  int ls8[6][6][64];            // LevelScale8x8, lists as Sps::scaling8
   int implicit_w[32][32][2];
   bool use_implicit = false;
   int qp = 0;                   // QPY of the last macroblock decoded
@@ -639,13 +672,20 @@ struct H264Decoder::State {
   MbInfo* mb = nullptr;
   std::vector<MbInfo>* mbs = nullptr;
 
-  // the macroblock's residual (raster positions)
-  int32_t coef[16][16];         // luma 4x4 blocks (raster block index)
-  int32_t coef8[4][64];         // luma 8x8 blocks
-  int32_t dc[16];               // Intra16x16 DC (scan order)
+  // the macroblock's residual (raster positions), by plane coded as
+  // luma (Y; Cb and Cr in 4:4:4)
+  int32_t coef[3][16][16];      // 4x4 blocks (raster block index)
+  int32_t coef8[3][4][64];      // 8x8 blocks
+  int32_t dc[3][16];            // Intra16x16 DC (scan order)
   int32_t cdc[2][8];
   int32_t cac[2][8][16];
   bool done4[16];               // motion assigned (current MB, raster 4x4)
+  bool bypass = false;          // TransformBypassModeFlag of the macroblock
+  // Whether lossless intra blocks of the horizontal and vertical modes
+  // accumulate their residual (8.3.5.1): libavcodec does so in the High
+  // 4:4:4 Predictive profile only (profile_idc 244), not in CAVLC 4:4:4
+  // Intra.
+  bool lossless_pred = false;
 
   State() {
     for (int i = 0; i < kMaxDelayed; ++i) last_pocs[i] = kPocMin;
@@ -710,10 +750,12 @@ struct H264Decoder::State {
     }
   }
 
-  // An SPS or PPS NAL unit; other kinds are ignored.
+  // An SPS or PPS NAL unit (an SEI's libx264 build too); other kinds are
+  // ignored.
   void parameter_set(const uint8_t* d, size_t n) {
     if (n < 1) return;
     int type = d[0] & 31;
+    if (type == 6) return sei(d, n);
     if (type != 7 && type != 8) return;
     std::vector<uint8_t> r = unescape(d + 1, n - 1);
     Bits b{r.data(), r.size(), 0};
@@ -770,7 +812,8 @@ struct H264Decoder::State {
   }
 
   // An SEI NAL unit: a pic_timing message's payload is kept (read when
-  // the picture starts, with its SPS); the rest are skipped.
+  // the picture starts, with its SPS), libx264's build read from its user
+  // data (h264_sei.c's sscanf); the rest are skipped.
   void sei(const uint8_t* d, size_t n) {
     std::vector<uint8_t> r = unescape(d + 1, n - 1);
     size_t p = 0, end = r.size();
@@ -785,6 +828,14 @@ struct H264Decoder::State {
       size += r[p++];
       if (p + size_t(size) > end) return;    // libavcodec stops there too
       if (type == 1) pic_timing.assign(r.begin() + long(p), r.begin() + long(p + size_t(size)));
+      if (type == 5 && size >= 16) {
+        std::string text(r.begin() + long(p + 16), r.begin() + long(p + size_t(size)));
+        int build = 0;
+        if (std::sscanf(text.c_str(), "x264 - core %d", &build) == 1) {
+          if (build > 0) x264_build = build;
+          if (build == 1 && text.compare(0, 16, "x264 - core 0000") == 0) x264_build = 67;
+        }
+      }
       p += size_t(size);
     }
   }
@@ -993,10 +1044,19 @@ struct H264Decoder::State {
     pic_h = mb_h * 16;
     cfi = sps.cfi;
     nc8 = cfi == 2 ? 2 : 1;
-    mbhc = 8 * nc8;
+    mbwc = cfi == 3 ? 16 : 8;
+    mbhc = cfi == 3 ? 16 : 8 * nc8;
+    planes = cfi == 3 ? 3 : 1;
+    lossless_pred = sps.profile == 244;
     depth = sps.depth;
     pmax = (1 << depth) - 1;
     qp_bd = 6 * (depth - 8);
+    if (x264_build >= 0 && x264_build < 151 && pps.transform_8x8 &&
+        ((cfi == 3 && pps.cabac) || sps.bypass))
+      unsupported("H.264 " + std::string(sps.bypass ? "lossless" : "4:4:4 CABAC") +
+                  " with the 8x8 transform from libx264 before build 151 (core " +
+                  std::to_string(x264_build) + "; libavcodec's workaround for its "
+                  "contexts and prediction is not copied)");
     if (!headers_only && flagged_interlaced())
       unsupported("H.264 frames flagged interlaced by their picture timing SEI "
                   "(pic_struct): libavcodec marks them interlaced, and cv2 "
@@ -1017,13 +1077,14 @@ struct H264Decoder::State {
     f.source = calls - 1;
     f.w = pic_w;
     f.h = pic_h;
-    f.ch = cfi == 2 ? pic_h : pic_h / 2;
+    f.cw = cfi == 3 ? pic_w : pic_w / 2;
+    f.ch = cfi >= 2 ? pic_h : pic_h / 2;
     f.cfi = cfi;
     f.depth = depth;
     if (!headers_only) {
       size_t bytes = depth > 8 ? 2 : 1;
       f.y.assign(size_t(pic_w) * pic_h * bytes, 0);
-      f.u.assign(size_t(pic_w / 2) * f.ch * bytes, 0);
+      f.u.assign(size_t(f.cw) * f.ch * bytes, 0);
       f.v.assign(f.u.size(), 0);
       if (cfi == 0) {                 // libavcodec's neutral chroma
         pixels([&](auto z) {
@@ -1042,6 +1103,8 @@ struct H264Decoder::State {
     f.full_range = sps.full_range;
     f.matrix = sps.matrix;
     f.chroma_loc = sps.chroma_loc;
+    // libavcodec's gbrp, gbrp10 ...: G coded as Y, B as Cb, R as Cr.
+    f.rgb = cfi == 3 && sps.matrix == 0;
     // Picture order count (8.2.1).
     if (sps.poc_type == 0) {
       if (h.nal_type == 5) {
@@ -1196,10 +1259,11 @@ struct H264Decoder::State {
     out.w = f.out_w;
     out.h = f.out_h;
     out.ystride = f.w;
-    out.cstride = f.w / 2;
-    out.xshift = 1;
-    out.yshift = f.cfi == 2 ? 0 : 1;
+    out.cstride = f.cw;
+    out.xshift = f.cfi == 3 ? 0 : 1;
+    out.yshift = f.cfi >= 2 ? 0 : 1;
     out.grey = false;
+    out.rgb = f.rgb;
     out.depth = f.depth;
     if (f.depth > 8) {
       auto words = [](const std::vector<uint8_t>& b, std::vector<uint16_t>& w) {
@@ -1410,29 +1474,33 @@ struct H264Decoder::State {
   }
 
   void init_scaling() {
-    uint8_t w4[6][16], w8[2][64];
+    uint8_t w4[6][16], w8[6][64];
     std::memcpy(w4, sps.scaling4, sizeof(w4));
     std::memcpy(w8, sps.scaling8, sizeof(w8));
     if (pps.scaling_present) {
-      // Fall-back rule B after an SPS with scaling lists, else A.
-      for (int i = 0; i < 8; ++i) {
+      // Fall-back rule B after an SPS with scaling lists, else A: Y's
+      // lists from the SPS's (or the defaults), Cb's from Y's, Cr's from
+      // Cb's.
+      for (int i = 0; i < (cfi == 3 ? 12 : 8); ++i) {
         if (i >= 6 && !pps.transform_8x8) break;
         bool is4 = i < 6;
         uint8_t def[64];
         if (is4) to_raster4(kDefaultScaling4[i < 3 ? 0 : 1], def);
-        else to_raster8(kDefaultScaling8[i - 6], def);
+        else to_raster8(kDefaultScaling8[i % 2], def);
         uint8_t* dst = is4 ? w4[i] : w8[i - 6];
         size_t sz = is4 ? 16 : 64;
         if (pps.list_present[i]) {
           if (pps.list_default[i]) std::memcpy(dst, def, sz);
           else if (is4) to_raster4(pps.lists[i], dst);
           else to_raster8(pps.lists[i], dst);
-        } else if (i == 0 || i == 3 || i >= 6) {
+        } else if (i == 0 || i == 3 || i == 6 || i == 7) {
           if (!sps.scaling_present) std::memcpy(dst, def, sz);
           else if (is4) std::memcpy(dst, sps.scaling4[i], 16);
           else std::memcpy(dst, sps.scaling8[i - 6], 64);
-        } else {
+        } else if (is4) {
           std::memcpy(dst, w4[i - 1], 16);
+        } else {
+          std::memcpy(dst, w8[i - 8], 64);
         }
       }
     }
@@ -1457,7 +1525,7 @@ struct H264Decoder::State {
         else if ((i % 4 == 0 && j % 2 == 1) || (i % 2 == 1 && j % 4 == 0)) v = kNorm8[m][3];
         else if ((i % 4 == 0 && j % 4 == 2) || (i % 4 == 2 && j % 4 == 0)) v = kNorm8[m][4];
         else v = kNorm8[m][5];
-        for (int l = 0; l < 2; ++l) ls8[l][m][pos] = w8[l][pos] * v;
+        for (int l = 0; l < 6; ++l) ls8[l][m][pos] = w8[l][pos] * v;
       }
     }
   }
@@ -1614,8 +1682,8 @@ struct H264Decoder::State {
   int read_cbp(bool intra) {
     if (!pps.cabac) {
       uint32_t v = bits.ue();
-      if (cfi == 0) {
-        if (v > 15) broken("H.264 coded_block_pattern above 15 (monochrome)");
+      if (cfi == 0 || cfi == 3) {
+        if (v > 15) broken("H.264 coded_block_pattern above 15 (monochrome or 4:4:4)");
         return intra ? kIntraCbpGrey[v] : kInterCbpGrey[v];
       }
       if (v > 47) broken("H.264 coded_block_pattern above 47");
@@ -1639,7 +1707,7 @@ struct H264Decoder::State {
       else cb = ((cbp >> (b8 - 2)) & 1) ? 0 : 1;
       cbp |= cabac.decision(73 + ca + 2 * cb) << b8;
     }
-    if (cfi == 0) return cbp;
+    if (cfi == 0 || cfi == 3) return cbp;
     auto chroma = [&](MbInfo* m) -> int {
       if (!m) return 0;
       if (m->kind == kPcm) return 2;
@@ -1797,23 +1865,32 @@ struct H264Decoder::State {
     return tc;
   }
 
-  // CABAC residual_block for ctxBlockCat `cat`: levels into out[0..max)
-  // (scan order from startIdx); cbf_inc < 0 when coded_block_flag is
-  // not coded (inferred 1). → the number of non-zero levels.
+  // CABAC residual_block for ctxBlockCat `cat` (0-4 luma DC, AC, 4x4,
+  // chroma DC and AC; 5 luma 8x8; 6-9 and 10-13 Cb's and Cr's DC, AC,
+  // 4x4 and 8x8 in 4:4:4): levels into out[0..max) (scan order from
+  // startIdx); cbf_inc < 0 when coded_block_flag is not coded (inferred
+  // 1). → the number of non-zero levels.
   int cabac_block(int32_t* out, int cat, int max, int cbf_inc) {
-    static const int kCbf[5] = {0, 4, 8, 12, 16};
-    static const int kSig[6] = {105, 120, 134, 149, 152, 402};
-    static const int kLast[6] = {166, 181, 195, 210, 213, 417};
-    static const int kAbs[6] = {227, 237, 247, 257, 266, 426};
-    if (cbf_inc >= 0 && !cabac.decision(85 + kCbf[cat] + cbf_inc)) return 0;
+    // ctxIdxOffset + ctxBlockCatOffset of each category (tables 9-34 and
+    // 9-40, frame coded).
+    static const int kCbf[14] = {85, 89, 93, 97, 101, 1012, 460,
+                                 464, 468, 1016, 472, 476, 480, 1020};
+    static const int kSig[14] = {105, 120, 134, 149, 152, 402, 484,
+                                 499, 513, 660, 528, 543, 557, 718};
+    static const int kLast[14] = {166, 181, 195, 210, 213, 417, 572,
+                                  587, 601, 690, 616, 631, 645, 748};
+    static const int kAbs[14] = {227, 237, 247, 257, 266, 426, 952,
+                                 962, 972, 708, 982, 992, 1002, 766};
+    if (cbf_inc >= 0 && !cabac.decision(kCbf[cat] + cbf_inc)) return 0;
+    const bool is8x8 = cat == 5 || cat == 9 || cat == 13;
     int sig_at[64];
     int count = 0;
     bool last = false;
     for (int i = 0; i < max - 1 && !last; ++i) {
-      int si = cat == 5 ? kSig8x8[i] : cat == 3 ? std::min(i / nc8, 2) : i;
+      int si = is8x8 ? kSig8x8[i] : cat == 3 ? std::min(i / nc8, 2) : i;
       if (cabac.decision(kSig[cat] + si)) {
         sig_at[count++] = i;
-        int li = cat == 5 ? kLast8x8[i] : cat == 3 ? std::min(i / nc8, 2) : i;
+        int li = is8x8 ? kLast8x8[i] : cat == 3 ? std::min(i / nc8, 2) : i;
         last = cabac.decision(kLast[cat] + li);
       }
     }
@@ -1846,18 +1923,24 @@ struct H264Decoder::State {
     return count;
   }
 
-  // The nC of a luma (comp 0) or chroma (1, 2) 4x4 block (CAVLC).
+  // The neighbouring macroblock holding 4x4 block (x, y) of plane `comp`
+  // (0 luma, 1 Cb, 2 Cr) in the current one's grid, and its raster index
+  // there: the luma grid for luma and 4:4:4's chroma, else the chroma one.
+  MbInfo* nb_block(int comp, int x, int y, int& blk) {
+    return comp == 0 || cfi == 3 ? nb4(x, y, blk) : nb_chroma(x, y, blk);
+  }
+
+  // The nC of a 4x4 block of plane `comp` (CAVLC).
   int cavlc_nc(int comp, int x4, int y4) {
     int n[2] = {0, 0}, avail[2];
     for (int k = 0; k < 2; ++k) {
       int blk;
-      MbInfo* m = comp == 0 ? nb4(k == 0 ? x4 - 1 : x4, k == 0 ? y4 : y4 - 1, blk)
-                            : nb_chroma(k == 0 ? x4 - 1 : x4, k == 0 ? y4 : y4 - 1, blk);
+      MbInfo* m = nb_block(comp, k == 0 ? x4 - 1 : x4, k == 0 ? y4 : y4 - 1, blk);
       avail[k] = m != nullptr;
       if (!m) continue;
       if (m->skip) n[k] = 0;
       else if (m->kind == kPcm) n[k] = 16;
-      else n[k] = comp == 0 ? m->nz[blk] : m->nz[16 + (comp - 1) * 8 + blk];
+      else n[k] = m->nz[16 * comp + blk];
     }
     if (avail[0] && avail[1]) return (n[0] + n[1] + 1) >> 1;
     if (avail[0]) return n[0];
@@ -1875,58 +1958,65 @@ struct H264Decoder::State {
     return nb_mb(dx, dy);
   }
 
-  // coded_block_flag's ctxIdxInc (CABAC) for block categories 0-4.
+  // coded_block_flag's ctxIdxInc (CABAC) of a block of category `cat`
+  // (as cabac_block's) of plane `comp` at 4x4 block (x, y).
   int cbf_inc(int cat, int comp, int x, int y) {
+    const bool dc16 = cat == 0 || cat == 6 || cat == 10;
+    const bool is8x8 = cat == 5 || cat == 9 || cat == 13;
     int inc = 0;
     for (int k = 0; k < 2; ++k) {
       int blk = 0;
       MbInfo* m;
-      if (cat == 0 || cat == 3) m = k == 0 ? mbA() : mbB();
-      else if (cat == 4) m = nb_chroma(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, blk);
-      else m = nb4(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, blk);
+      if (dc16 || cat == 3) m = k == 0 ? mbA() : mbB();
+      else m = nb_block(cat == 4 ? comp : 0, k == 0 ? x - 1 : x, k == 0 ? y : y - 1, blk);
       int cond;
       if (!m) {
         cond = mb->intra() ? 1 : 0;
       } else if (m->kind == kPcm) {
         cond = 1;
-      } else if (cat == 0) {
-        cond = m->kind == kI16x16 ? (m->dc_cbf & 1) : 0;
+      } else if (is8x8 && !m->t8x8) {
+        // 4:4:4's 8x8 blocks: a neighbouring macroblock without the 8x8
+        // transform has no 8x8 block to take the flag from.
+        cond = 0;
+      } else if (dc16) {
+        cond = m->kind == kI16x16 ? ((m->dc_cbf >> comp) & 1) : 0;
       } else if (cat == 3) {
-        cond = (m->cbp >> 4) ? ((m->dc_cbf >> (comp)) & 1) : 0;
+        cond = (m->cbp >> 4) ? ((m->dc_cbf >> comp) & 1) : 0;
       } else if (cat == 4) {
-        cond = (m->cbp >> 4) == 2 ? (m->nz[16 + (comp - 1) * 8 + blk] != 0) : 0;
+        cond = (m->cbp >> 4) == 2 ? (m->nz[16 * comp + blk] != 0) : 0;
       } else {
         int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
-        cond = ((m->cbp >> b8) & 1) ? (m->nz[blk] != 0) : 0;
+        cond = ((m->cbp >> b8) & 1) ? (m->nz[16 * comp + blk] != 0) : 0;
       }
       inc += cond << k;
     }
     return inc;
   }
 
-  void residual(bool i16) {
-    std::memset(coef, 0, sizeof(coef));
-    std::memset(coef8, 0, sizeof(coef8));
-    std::memset(dc, 0, sizeof(dc));
-    std::memset(cdc, 0, sizeof(cdc));
-    std::memset(cac, 0, sizeof(cac));
+  // residual_luma() of plane `p`: luma, or 4:4:4's Cb or Cr coded as luma
+  // (ctxBlockCat 6-9 and 10-13, their own nC).
+  void residual_luma(int p, bool i16) {
+    static const int kCat[3][4] = {{0, 1, 2, 5}, {6, 7, 8, 9}, {10, 11, 12, 13}};
+    const int* cat = kCat[p];
     int cbp = mb->cbp;
     if (i16) {
       int n;
       int32_t tmp[16] = {0};
-      if (pps.cabac) n = cabac_block(tmp, 0, 16, cbf_inc(0, 0, 0, 0));
-      else n = cavlc_block(tmp, 0, 15, 16, cavlc_nc(0, 0, 0));
-      std::memcpy(dc, tmp, sizeof(tmp));
-      if (n) mb->dc_cbf |= 1;
+      if (pps.cabac) n = cabac_block(tmp, cat[0], 16, cbf_inc(cat[0], p, 0, 0));
+      else n = cavlc_block(tmp, 0, 15, 16, cavlc_nc(p, 0, 0));
+      std::memcpy(dc[p], tmp, sizeof(tmp));
+      if (n) mb->dc_cbf |= uint8_t(1 << p);
     }
+    uint8_t* nz = mb->nz + 16 * p;
     for (int b8 = 0; b8 < 4; ++b8) {
       if (!((cbp >> b8) & 1)) continue;
+      int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
       if (mb->t8x8 && pps.cabac) {
+        // coded_block_flag of an 8x8 block is coded in 4:4:4 only.
         int32_t tmp[64] = {0};
-        int n = cabac_block(tmp, 5, 64, -1);
-        for (int k = 0; k < 64; ++k) coef8[b8][kZigzag8[k]] = tmp[k];
-        int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
-        for (int k = 0; k < 4; ++k) mb->nz[(by + (k >> 1)) * 4 + bx + (k & 1)] = uint8_t(n);
+        int n = cabac_block(tmp, cat[3], 64, cfi == 3 ? cbf_inc(cat[3], p, bx, by) : -1);
+        for (int k = 0; k < 64; ++k) coef8[p][b8][kZigzag8[k]] = tmp[k];
+        for (int k = 0; k < 4; ++k) nz[(by + (k >> 1)) * 4 + bx + (k & 1)] = uint8_t(n);
         continue;
       }
       for (int i4 = 0; i4 < 4; ++i4) {
@@ -1936,21 +2026,31 @@ struct H264Decoder::State {
         int32_t tmp[16] = {0};
         int n;
         if (i16) {
-          if (pps.cabac) n = cabac_block(tmp + 1, 1, 15, cbf_inc(1, 0, x4, y4));
-          else n = cavlc_block(tmp, 1, 15, 15, cavlc_nc(0, x4, y4));
+          if (pps.cabac) n = cabac_block(tmp + 1, cat[1], 15, cbf_inc(cat[1], p, x4, y4));
+          else n = cavlc_block(tmp, 1, 15, 15, cavlc_nc(p, x4, y4));
         } else {
-          if (pps.cabac) n = cabac_block(tmp, 2, 16, cbf_inc(2, 0, x4, y4));
-          else n = cavlc_block(tmp, 0, 15, 16, cavlc_nc(0, x4, y4));
+          if (pps.cabac) n = cabac_block(tmp, cat[2], 16, cbf_inc(cat[2], p, x4, y4));
+          else n = cavlc_block(tmp, 0, 15, 16, cavlc_nc(p, x4, y4));
         }
-        mb->nz[rb] = uint8_t(n);
+        nz[rb] = uint8_t(n);
         if (mb->t8x8) {
-          for (int k = 0; k < 16; ++k) coef8[b8][kZigzag8[4 * k + i4]] = tmp[k];
+          for (int k = 0; k < 16; ++k) coef8[p][b8][kZigzag8[4 * k + i4]] = tmp[k];
         } else {
-          for (int k = 0; k < 16; ++k) coef[rb][kZigzag4[k]] = tmp[k];
+          for (int k = 0; k < 16; ++k) coef[p][rb][kZigzag4[k]] = tmp[k];
         }
       }
     }
-    int cc = cbp >> 4;
+  }
+
+  void residual(bool i16) {
+    std::memset(coef, 0, sizeof(coef));
+    std::memset(coef8, 0, sizeof(coef8));
+    std::memset(dc, 0, sizeof(dc));
+    std::memset(cdc, 0, sizeof(cdc));
+    std::memset(cac, 0, sizeof(cac));
+    for (int p = 0; p < planes; ++p) residual_luma(p, i16);
+    if (cfi != 1 && cfi != 2) return;
+    int cc = mb->cbp >> 4;
     if (cc) {
       // Chroma DC: 2x2 (4:2:0) or 2x4 (4:2:2) levels in scan order.
       int ndc = 4 * nc8;
@@ -1971,7 +2071,7 @@ struct H264Decoder::State {
           int n;
           if (pps.cabac) n = cabac_block(tmp + 1, 4, 15, cbf_inc(4, c + 1, x2, y2));
           else n = cavlc_block(tmp, 1, 15, 15, cavlc_nc(c + 1, x2, y2));
-          mb->nz[16 + c * 8 + b] = uint8_t(n);
+          mb->nz[16 * (c + 1) + b] = uint8_t(n);
           for (int k = 1; k < 16; ++k) cac[c][b][kZigzag4[k]] = tmp[k];
         }
     }
@@ -1987,6 +2087,7 @@ struct H264Decoder::State {
   }
   void mb_qps(int qpy) {
     mb->qp = int8_t(qpy);
+    bypass = sps.bypass && qpy == -qp_bd;          // QP'Y 0
     for (int c = 0; c < 2; ++c) {
       int qpi = clip3(-qp_bd, 51, qpy + pps.chroma_qp_offset[c]);
       mb->qpc[c] = int8_t(qpi < 0 ? qpi : kChromaQp[qpi]);
@@ -2244,7 +2345,7 @@ struct H264Decoder::State {
       // in its bit-serial reading). The alignment bits are skipped
       // unread, as libavcodec does: x264 may set one after a CABAC flush.
       bits.pos = (bits.pos + 7) & ~size_t(7);
-      int chroma = cfi == 0 ? 0 : 2 * 8 * mbhc;
+      int chroma = cfi == 0 ? 0 : 2 * mbwc * mbhc;
       if (bits.bits_left() < size_t(256 + chroma) * depth) broken("H.264 I_PCM samples cut short");
       pixels([&](auto z) {
         using P = decltype(z);
@@ -2252,7 +2353,8 @@ struct H264Decoder::State {
           for (int x = 0; x < 16; ++x) ypix<P>(mb_x * 16 + x, mb_y * 16 + y)[0] = P(bits.u(depth));
         for (int c = 0; c < (cfi ? 2 : 0); ++c)
           for (int y = 0; y < mbhc; ++y)
-            for (int x = 0; x < 8; ++x) cpix<P>(c, mb_x * 8 + x, mb_y * mbhc + y)[0] = P(bits.u(depth));
+            for (int x = 0; x < mbwc; ++x)
+              cpix<P>(c, mb_x * mbwc + x, mb_y * mbhc + y)[0] = P(bits.u(depth));
       });
       mb->cbp = 0x2F;
       mb_qps(-qp_bd);           // libavcodec deblocks it at QP'Y 0
@@ -2268,7 +2370,9 @@ struct H264Decoder::State {
       mb->kind = kI16x16;
       int v = itype - 1;
       pred16 = v % 4;
-      mb->cbp = uint8_t(((v / 4) % 3) << 4 | (v >= 12 ? 15 : 0));
+      // CodedBlockPatternChroma is 0 where chroma is not coded apart
+      // (4:4:4: the luma bits cover all three planes).
+      mb->cbp = uint8_t((cfi == 3 ? 0 : ((v / 4) % 3) << 4) | (v >= 12 ? 15 : 0));
     } else {
       mb->kind = kI4x4;
       if (pps.transform_8x8 && read_t8x8()) {
@@ -2297,7 +2401,7 @@ struct H264Decoder::State {
         }
       }
     }
-    if (cfi) mb->chroma_mode = uint8_t(read_chroma_mode());
+    if (cfi == 1 || cfi == 2) mb->chroma_mode = uint8_t(read_chroma_mode());
     if (!i16) mb->cbp = uint8_t(read_cbp(true));
     if (mb->cbp || i16) {
       int d = read_qp_delta();
@@ -2313,25 +2417,31 @@ struct H264Decoder::State {
     pixels([&](auto z) { intra_recon<decltype(z)>(i16, pred16); });
   }
 
+  // Each plane coded as luma (Y; in 4:4:4 Cb and Cr too) is predicted
+  // with the luma modes and gets its residual; 4:2:0's and 4:2:2's chroma
+  // has its own prediction.
   template <class P>
   void intra_recon(bool i16, int pred16) {
-    if (i16) {
-      intra16<P>(pred16);
-      luma_i16_residual<P>();
-    } else if (mb->kind == kI8x8) {
-      for (int b8 = 0; b8 < 4; ++b8) {
-        int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
-        intra8<P>(b8, mb->ipred[(y / 4) * 4 + x / 4]);
-        add8x8<P>(b8, true);
-      }
-    } else {
-      for (int k = 0; k < 16; ++k) {
-        int rb = kBlkRaster[k];
-        intra4<P>(rb, mb->ipred[rb]);
-        add4x4<P>(rb, true);
+    for (int p = 0; p < planes; ++p) {
+      if (i16) {
+        intra16<P>(p, pred16);
+        luma_i16_residual<P>(p, pred16);
+      } else if (mb->kind == kI8x8) {
+        for (int b8 = 0; b8 < 4; ++b8) {
+          int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
+          int mode = mb->ipred[(y / 4) * 4 + x / 4];
+          intra8<P>(p, b8, mode);
+          add8x8<P>(p, b8, true, mode);
+        }
+      } else {
+        for (int k = 0; k < 16; ++k) {
+          int rb = kBlkRaster[k];
+          intra4<P>(p, rb, mb->ipred[rb]);
+          add4x4<P>(p, rb, true, mb->ipred[rb]);
+        }
       }
     }
-    if (cfi) {
+    if (cfi == 1 || cfi == 2) {
       intra_chroma<P>(mb->chroma_mode);
       chroma_residual<P>(true);
     }
@@ -2528,12 +2638,14 @@ struct H264Decoder::State {
   void inter_recon() {
     inter_pred_mb<P>();
     if (!mb->cbp) return;
-    if (mb->t8x8) {
-      for (int b8 = 0; b8 < 4; ++b8) add8x8<P>(b8, false);
-    } else {
-      for (int rb = 0; rb < 16; ++rb) add4x4<P>(rb, false);
+    for (int p = 0; p < planes; ++p) {
+      if (mb->t8x8) {
+        for (int b8 = 0; b8 < 4; ++b8) add8x8<P>(p, b8, false);
+      } else {
+        for (int rb = 0; rb < 16; ++rb) add4x4<P>(p, rb, false);
+      }
     }
-    if (cfi) chroma_residual<P>(false);
+    if (cfi == 1 || cfi == 2) chroma_residual<P>(false);
   }
 
   // ===================================================== reconstruction
@@ -2552,7 +2664,34 @@ struct H264Decoder::State {
   }
   template <class P>
   P* cpix(int c, int x, int y) {
-    return reinterpret_cast<P*>((c == 0 ? cur->u : cur->v).data()) + size_t(y) * (cur->w / 2) + x;
+    return reinterpret_cast<P*>((c == 0 ? cur->u : cur->v).data()) + size_t(y) * cur->cw + x;
+  }
+  // Plane p (0 Y, 1 Cb, 2 Cr) at a sample of the luma grid (4:4:4's
+  // chroma is on it), and its row stride.
+  template <class P>
+  P* ppix(int p, int x, int y) {
+    return p == 0 ? ypix<P>(x, y) : cpix<P>(p - 1, x, y);
+  }
+  int pstride(int p) const { return p == 0 ? cur->w : cur->cw; }
+
+  // Lossless residual (TransformBypassModeFlag): r (n x n, raster, row
+  // stride n) added to the prediction as it is, after the intra
+  // horizontal or vertical modes' accumulation along their direction
+  // (8.3.5.1; libavcodec's pred*_add): `dir` 0 vertical, 1 horizontal,
+  // else none.
+  template <class P>
+  void bypass_add(int32_t* r, int w, int h, int dir, P* dst, int stride) const {
+    if (dir == 0)
+      for (int i = 1; i < h; ++i)
+        for (int j = 0; j < w; ++j) r[i * w + j] += r[(i - 1) * w + j];
+    else if (dir == 1)
+      for (int i = 0; i < h; ++i)
+        for (int j = 1; j < w; ++j) r[i * w + j] += r[i * w + j - 1];
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        P& p = dst[i * stride + j];
+        p = P(clipp(p + r[i * w + j]));
+      }
   }
 
   // Inverse 4x4 transform of d (raster, scaled) added to 4x4 pixels.
@@ -2623,40 +2762,64 @@ struct H264Decoder::State {
     }
   }
 
+  // qP of plane p (QP'Y, or 4:4:4's QP'C of Cb or Cr).
+  int plane_qp(int p) const { return (p == 0 ? mb->qp : mb->qpc[p - 1]) + qp_bd; }
+
+  // A 4x4 block of plane p: scaled and inverse transformed, or under
+  // transform bypass added as it is (`mode`: an Intra4x4 block's, whose
+  // vertical and horizontal modes accumulate it).
   template <class P>
-  void add4x4(int rb, bool intra) {
-    int32_t* c = coef[rb];
+  void add4x4(int p, int rb, bool intra, int mode = -1) {
+    int32_t* c = coef[p][rb];
     bool any = false;
     for (int k = 0; k < 16; ++k) any |= c[k] != 0;
     if (!any) return;
-    scale4(c, intra ? 0 : 3, mb->qp + qp_bd, false);
     int x = (rb & 3) * 4, y = (rb >> 2) * 4;
-    idct4_add(c, ypix<P>(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+    P* dst = ppix<P>(p, mb_x * 16 + x, mb_y * 16 + y);
+    if (bypass) return bypass_add(c, 4, 4, lossless_pred ? mode : -1, dst, pstride(p));
+    scale4(c, (intra ? 0 : 3) + p, plane_qp(p), false);
+    idct4_add(c, dst, pstride(p));
   }
 
   template <class P>
-  void add8x8(int b8, bool intra) {
-    int32_t* c = coef8[b8];
+  void add8x8(int p, int b8, bool intra, int mode = -1) {
+    int32_t* c = coef8[p][b8];
     bool any = false;
     for (int k = 0; k < 64; ++k) any |= c[k] != 0;
     if (!any) return;
-    int q = mb->qp + qp_bd, m = q % 6, s = q / 6;
+    int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
+    P* dst = ppix<P>(p, mb_x * 16 + x, mb_y * 16 + y);
+    if (bypass) return bypass_add(c, 8, 8, lossless_pred ? mode : -1, dst, pstride(p));
+    int q = plane_qp(p), m = q % 6, s = q / 6;
+    const int* ls = ls8[2 * p + (intra ? 0 : 1)][m];
     for (int k = 0; k < 64; ++k) {
       if (!c[k]) continue;
-      int64_t v = int64_t(c[k]) * ls8[intra ? 0 : 1][m][k];
+      int64_t v = int64_t(c[k]) * ls[k];
       if (q >= 36) v *= int64_t(1) << (s - 6);
       else v = (v + (1 << (5 - s))) >> (6 - s);
       c[k] = int32_t(v);
     }
-    int x = (b8 & 1) * 8, y = (b8 >> 1) * 8;
-    idct8_add(c, ypix<P>(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+    idct8_add(c, dst, pstride(p));
   }
 
   template <class P>
-  void luma_i16_residual() {
+  void luma_i16_residual(int p, int mode) {
     // DC: inverse scan, Hadamard, scale (8.5.10).
     int32_t c[16];
-    for (int k = 0; k < 16; ++k) c[kZigzag4[k]] = dc[k];
+    for (int k = 0; k < 16; ++k) c[kZigzag4[k]] = dc[p][k];
+    P* S = ppix<P>(p, mb_x * 16, mb_y * 16);
+    const int W = pstride(p);
+    if (bypass) {
+      // Each 4x4 block's DC is the level at its place; the 16x16
+      // residual accumulates under the vertical and horizontal modes.
+      int32_t r[256];
+      for (int rb = 0; rb < 16; ++rb) {
+        coef[p][rb][0] = c[rb];
+        for (int k = 0; k < 16; ++k)
+          r[((rb >> 2) * 4 + (k >> 2)) * 16 + (rb & 3) * 4 + (k & 3)] = coef[p][rb][k];
+      }
+      return bypass_add(r, 16, 16, lossless_pred ? mode : -1, S, W);
+    }
     int32_t t[16], f[16];
     for (int i = 0; i < 4; ++i) {
       int32_t* r = c + 4 * i;
@@ -2673,8 +2836,8 @@ struct H264Decoder::State {
       f[8 + j] = b - d;
       f[12 + j] = b + d;
     }
-    int q = mb->qp + qp_bd, m = q % 6, s = q / 6;
-    int ls = ls4[0][m][0];
+    int q = plane_qp(p), m = q % 6, s = q / 6;
+    int ls = ls4[p][m][0];
     for (int k = 0; k < 16; ++k) {
       int64_t v = int64_t(f[k]) * ls;
       if (q >= 36) v *= int64_t(1) << (s - 6);
@@ -2682,15 +2845,15 @@ struct H264Decoder::State {
       f[k] = int32_t(v);
     }
     for (int rb = 0; rb < 16; ++rb) {
-      int32_t* cb = coef[rb];
+      int32_t* cb = coef[p][rb];
       cb[0] = 0;
-      scale4(cb, 0, q, true);
+      scale4(cb, p, q, true);
       cb[0] = f[rb];
       bool any = false;
       for (int k = 0; k < 16; ++k) any |= cb[k] != 0;
       if (!any) continue;
       int x = (rb & 3) * 4, y = (rb >> 2) * 4;
-      idct4_add(cb, ypix<P>(mb_x * 16 + x, mb_y * 16 + y), cur->w);
+      idct4_add(cb, S + y * W + x, W);
     }
   }
 
@@ -2704,6 +2867,22 @@ struct H264Decoder::State {
       int list = (intra ? 1 : 4) + c;
       int32_t* d = cdc[c];
       int32_t dcs[8];
+      // c (4 rows, 2 columns) from 4:2:2's scan: c0 c2 / c1 c5 / c3 c6 / c4 c7.
+      static const int kScan422[8] = {0, 2, 1, 5, 3, 6, 4, 7};
+      if (bypass) {
+        // Each 4x4 block's DC is the level at its place; the residual
+        // accumulates under the horizontal (1) and vertical (2) modes.
+        int32_t r[16 * 8];
+        for (int b = 0; b < 4 * nc8; ++b) {
+          cac[c][b][0] = nc8 == 1 ? d[b] : d[kScan422[b]];
+          for (int k = 0; k < 16; ++k)
+            r[((b >> 1) * 4 + (k >> 2)) * 8 + (b & 1) * 4 + (k & 3)] = cac[c][b][k];
+        }
+        int mode = mb->chroma_mode;
+        int dir = !intra || !lossless_pred ? -1 : mode == 2 ? 0 : mode == 1 ? 1 : -1;
+        bypass_add(r, 8, mbhc, dir, cpix<P>(c, mb_x * 8, mb_y * mbhc), cur->cw);
+        continue;
+      }
       if (nc8 == 1) {
         int f[4] = {d[0] + d[1] + d[2] + d[3], d[0] - d[1] + d[2] - d[3],
                     d[0] + d[1] - d[2] - d[3], d[0] - d[1] - d[2] + d[3]};
@@ -2711,8 +2890,6 @@ struct H264Decoder::State {
         for (int b = 0; b < 4; ++b)
           dcs[b] = int32_t((int64_t(f[b]) * ls * (int64_t(1) << (q / 6))) >> 5);
       } else {
-        // c (4 rows, 2 columns) from the scan: c0 c2 / c1 c5 / c3 c6 / c4 c7.
-        static const int kScan422[8] = {0, 2, 1, 5, 3, 6, 4, 7};
         int cm[4][2], t[4][2];
         for (int k = 0; k < 8; ++k) cm[k >> 1][k & 1] = d[kScan422[k]];
         for (int i2 = 0; i2 < 4; ++i2) {
@@ -2741,7 +2918,7 @@ struct H264Decoder::State {
         for (int k = 0; k < 16; ++k) any |= cb[k] != 0;
         if (!any) continue;
         int x = (b & 1) * 4, y = (b >> 1) * 4;
-        idct4_add(cb, cpix<P>(c, mb_x * 8 + x, mb_y * mbhc + y), cur->w / 2);
+        idct4_add(cb, cpix<P>(c, mb_x * 8 + x, mb_y * mbhc + y), cur->cw);
       }
     }
   }
@@ -2750,8 +2927,10 @@ struct H264Decoder::State {
 
   bool intra_avail(MbInfo* m) { return m && !(m->kind == kInter && pps.constrained_intra); }
 
+  // Intra prediction of plane p (luma, or 4:4:4's Cb or Cr) with the
+  // luma modes.
   template <class P>
-  void intra4(int rb, int mode) {
+  void intra4(int p, int rb, int mode) {
     int bx = rb & 3, by = rb >> 2;
     int x0 = mb_x * 16 + bx * 4, y0 = mb_y * 16 + by * 4;
     int ba;
@@ -2763,8 +2942,8 @@ struct H264Decoder::State {
     bool has_tr = !(rb == 5 || rb == 7 || rb == 11 || rb == 13 || rb == 15) &&
                   intra_avail(nb4(bx + 1, by - 1, ba));
     int top[8], left[4], tl = 0;
-    P* S = ypix<P>(x0, y0);
-    int W = cur->w;
+    P* S = ppix<P>(p, x0, y0);
+    int W = pstride(p);
     if (has_t) {
       for (int i = 0; i < 4; ++i) top[i] = S[-W + i];
       for (int i = 4; i < 8; ++i) top[i] = has_tr ? S[-W + i] : top[3];
@@ -2847,7 +3026,7 @@ struct H264Decoder::State {
   }
 
   template <class P>
-  void intra8(int b8, int mode) {
+  void intra8(int p, int b8, int mode) {
     int bx = (b8 & 1) * 2, by = (b8 >> 1) * 2;
     int x0 = mb_x * 16 + bx * 4, y0 = mb_y * 16 + by * 4;
     int ba;
@@ -2855,8 +3034,8 @@ struct H264Decoder::State {
     bool has_t = intra_avail(nb4(bx, by - 1, ba));
     bool has_tl = intra_avail(nb4(bx - 1, by - 1, ba));
     bool has_tr = b8 == 3 ? false : b8 == 2 ? true : intra_avail(nb4(bx + 2, by - 1, ba));
-    P* S = ypix<P>(x0, y0);
-    int W = cur->w;
+    P* S = ppix<P>(p, x0, y0);
+    int W = pstride(p);
     int p_top[16], p_left[8], p_tl = 0;
     if (has_t) {
       for (int i = 0; i < 8; ++i) p_top[i] = S[-W + i];
@@ -2961,10 +3140,10 @@ struct H264Decoder::State {
   }
 
   template <class P>
-  void intra16(int mode) {
+  void intra16(int p, int mode) {
     bool has_l = intra_avail(mbA()), has_t = intra_avail(mbB()), has_tl = intra_avail(nb_mb(-1, -1));
-    P* S = ypix<P>(mb_x * 16, mb_y * 16);
-    int W = cur->w;
+    P* S = ppix<P>(p, mb_x * 16, mb_y * 16);
+    int W = pstride(p);
     int top[16], left[16];
     if (has_t)
       for (int i = 0; i < 16; ++i) top[i] = S[-W + i];
@@ -3012,7 +3191,7 @@ struct H264Decoder::State {
     bool has_l = intra_avail(mbA()), has_t = intra_avail(mbB()), has_tl = intra_avail(nb_mb(-1, -1));
     if ((mode == 1 && !has_l) || (mode == 2 && !has_t) || (mode == 3 && !(has_t && has_l && has_tl)))
       broken("H.264 intra chroma mode without its neighbours");
-    int W = cur->w / 2, H = mbhc;
+    int W = cur->cw, H = mbhc;
     for (int c = 0; c < 2; ++c) {
       P* S = cpix<P>(c, mb_x * 8, mb_y * H);
       int top[8], left[16];
@@ -3065,15 +3244,16 @@ struct H264Decoder::State {
 
   // ---------------------------------------------------- inter prediction
 
-  // Luma samples of a w x h block at quarter-sample position (qx, qy)
-  // of `ref` (picture coordinates), read clamped (8.4.2.2.1), into dst
-  // (stride 16). The half-sample planes a position needs are computed
-  // once for the block: b (horizontal), h (vertical), j (centre, from
-  // the unrounded horizontal sums).
+  // Luma samples (or 4:4:4's chroma: plane p of `ref`, interpolated as
+  // luma) of a w x h block at quarter-sample position (qx, qy) of `ref`
+  // (picture coordinates), read clamped (8.4.2.2.1), into dst (stride
+  // 16). The half-sample planes a position needs are computed once for
+  // the block: b (horizontal), h (vertical), j (centre, from the
+  // unrounded horizontal sums).
   template <class P>
-  void mc_luma(const Frame& ref, int qx, int qy, int w, int h, uint16_t* dst) const {
+  void mc_luma(const Frame& ref, int p, int qx, int qy, int w, int h, uint16_t* dst) const {
     int x0 = qx >> 2, y0 = qy >> 2, fx = qx & 3, fy = qy & 3;
-    const P* plane = reinterpret_cast<const P*>(ref.y.data());
+    const P* plane = reinterpret_cast<const P*>((p == 0 ? ref.y : p == 1 ? ref.u : ref.v).data());
     // G(i, j) = g[(j + 2) * gs + i + 2], rows -2..h+2, columns -2..w+2.
     P win[21 * 21];
     const P* g;
@@ -3151,7 +3331,7 @@ struct H264Decoder::State {
   template <class P>
   static void mc_chroma(const Frame& ref, int c, int x0, int y0, int fx, int fy, int w, int h,
                         uint16_t* dst) {
-    int cw = ref.w / 2, ch = ref.ch;
+    int cw = ref.cw, ch = ref.ch;
     const P* pl = reinterpret_cast<const P*>((c == 0 ? ref.u : ref.v).data());
     for (int j = 0; j < h; ++j) {
       int ya = clip3(0, ch - 1, y0 + j), yb = clip3(0, ch - 1, y0 + j + 1);
@@ -3172,10 +3352,10 @@ struct H264Decoder::State {
     int b8 = (y4 / 2) * 2 + x4 / 2;
     int r0 = mb->ref[0][b8], r1 = mb->ref[1][b8];
     int w = w4 * 4, h = h4 * 4;
-    int cw = w / 2, chh = cfi == 2 ? h : h / 2;     // the chroma block
+    int cw = w * mbwc / 16, chh = h * mbhc / 16;    // the chroma block
     uint16_t pl[2][3][256];
     int blk = y4 * 4 + x4;
-    int planes = cfi ? 3 : 1;
+    int nplanes = cfi ? 3 : 1;
     for (int l = 0; l < 2; ++l) {
       int r = l == 0 ? r0 : r1;
       if (r < 0) continue;
@@ -3184,11 +3364,14 @@ struct H264Decoder::State {
         broken("H.264 reference picture of another size or format");
       int mx = mb->mv[l][blk][0], my = mb->mv[l][blk][1];
       int px = mb_x * 16 + x4 * 4, py = mb_y * 16 + y4 * 4;
-      mc_luma<P>(ref, px * 4 + mx, py * 4 + my, w, h, pl[l][0]);
+      mc_luma<P>(ref, 0, px * 4 + mx, py * 4 + my, w, h, pl[l][0]);
       // Chroma vectors: 1/8 sample horizontally; vertically 1/8 (4:2:0)
-      // or 1/4 (4:2:2: its eighth as 2 * (my & 3)).
-      for (int c = 0; c < planes - 1; ++c) {
-        if (cfi == 2)
+      // or 1/4 (4:2:2: its eighth as 2 * (my & 3)); 4:4:4's chroma is
+      // interpolated as luma.
+      for (int c = 0; c < nplanes - 1; ++c) {
+        if (cfi == 3)
+          mc_luma<P>(ref, 1 + c, px * 4 + mx, py * 4 + my, w, h, pl[l][1 + c]);
+        else if (cfi == 2)
           mc_chroma<P>(ref, c, px / 2 + (mx >> 3), py + (my >> 2), mx & 7, (my & 3) << 1,
                        cw, chh, pl[l][1 + c]);
         else
@@ -3197,11 +3380,12 @@ struct H264Decoder::State {
       }
     }
     if (r0 < 0 && r1 < 0) broken("H.264 inter block without a reference");
-    for (int comp = 0; comp < planes; ++comp) {
+    for (int comp = 0; comp < nplanes; ++comp) {
       int bw = comp ? cw : w, bh = comp ? chh : h;
       P* dst = comp == 0 ? ypix<P>(mb_x * 16 + x4 * 4, mb_y * 16 + y4 * 4)
-                         : cpix<P>(comp - 1, mb_x * 8 + x4 * 2, mb_y * mbhc + y4 * (mbhc / 4));
-      int stride = comp == 0 ? cur->w : cur->w / 2;
+                         : cpix<P>(comp - 1, mb_x * mbwc + x4 * (mbwc / 4),
+                                   mb_y * mbhc + y4 * (mbhc / 4));
+      int stride = comp == 0 ? cur->w : cur->cw;
       // Weights: explicit (P), implicit (B) or default; explicit
       // offsets scaled to the bit depth.
       bool explicit_w = sh.type == 0 && pps.weighted_pred;
@@ -3357,7 +3541,7 @@ struct H264Decoder::State {
   void deblock_picture() {
     std::vector<MbInfo>& M = cur->mbs;
     const int sc = 1 << (depth - 8);
-    const int W = cur->w, CW = cur->w / 2;
+    const int W = cur->w, CW = cur->cw;
     // The deblocking parameters of each slice (from its header).
     for (int addr = 0; addr < mb_w * mb_h; ++addr) {
       const MbInfo& q = M[size_t(addr)];
@@ -3377,9 +3561,11 @@ struct H264Decoder::State {
           }
           // Luma skips the 4x4 edges inside an 8x8 transform; chroma
           // filters its own 4-sample edges: at luma edges 0 and 2 but
-          // for 4:2:2's horizontal ones (chroma rows 0, 4, 8, 12).
+          // for 4:2:2's horizontal ones (chroma rows 0, 4, 8, 12); 4:4:4's
+          // chroma is filtered as luma (chromaStyleFilteringFlag 0).
           bool luma = mb_edge || !(q.t8x8 && (e & 1));
-          bool chroma = cfi != 0 && ((e & 1) == 0 || (cfi == 2 && dir == 1));
+          bool chroma = cfi == 3 ? luma
+                                 : cfi != 0 && ((e & 1) == 0 || (cfi == 2 && dir == 1));
           if (!luma && !chroma) continue;
           int bs[4];
           bool any = false;
@@ -3407,14 +3593,14 @@ struct H264Decoder::State {
             int qpav = (p->qpc[c] + q.qpc[c] + 1) >> 1;
             int ia = clip3(0, 51, qpav + sp.alpha), ib = clip3(0, 51, qpav + sp.beta);
             int alpha = kAlpha[ia] * sc, beta = kBeta[ib] * sc;
-            int lines = dir == 0 ? mbhc : 8;
+            int lines = dir == 0 ? mbhc : mbwc;
             for (int k = 0; k < lines; ++k) {
-              int b = bs[dir == 0 ? k * 4 / mbhc : k >> 1];
+              int b = bs[k * 4 / lines];
               if (!b) continue;
-              int px = x * 8 + (dir == 0 ? e * 2 : k);
+              int px = x * mbwc + (dir == 0 ? e * (mbwc / 4) : k);
               int py = y * mbhc + (dir == 0 ? k : e * (mbhc / 4));
               filter_line(cpix<P>(c, px, py), dir == 0 ? 1 : CW, b, alpha, beta,
-                          b < 4 ? kTc0[ia][b - 1] * sc : 0, true);
+                          b < 4 ? kTc0[ia][b - 1] * sc : 0, cfi != 3);
             }
           }
         }

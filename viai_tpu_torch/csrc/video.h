@@ -30,14 +30,15 @@ struct Picture {
   int w = 0, h = 0;
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
-  // Above 8 bits (H.264's High 10 and High 4:2:2 at 9 or 10 bits, VP9's
-  // profiles 2 and 3 at 10 or 12): the samples are in y16, u16, v16 (y,
-  // u, v empty), strides in samples.
+  // Above 8 bits (H.264's High 10, High 4:2:2 and High 4:4:4 Predictive
+  // at 9, 10, 12 or 14 bits, VP9's profiles 2 and 3 at 10 or 12): the
+  // samples are in y16, u16, v16 (y, u, v empty), strides in samples.
   int depth = 8;
   std::vector<uint16_t> y16, u16, v16;
   int xshift = 1, yshift = 1;
   bool grey = false;
-  // Planar GBR (VP9's sRGB, libavcodec's gbrp, gbrp10, gbrp12): G in y
+  // Planar GBR (VP9's sRGB, H.264's 4:4:4 of matrix_coefficients 0 as
+  // libx264rgb writes it; libavcodec's gbrp, gbrp10 ... gbrp14): G in y
   // (y16), B in u, R in v, at full size.
   bool rgb = false;
   // The decode call (counted from 0 by the decoder that gave it) whose
@@ -139,10 +140,11 @@ class Vp9Decoder {
   std::unique_ptr<State> s_;
 };
 
-// The H.264 decoder (frame pictures, 4:2:0, 4:2:2 and monochrome at 8,
-// 9 and 10 bits: Baseline, Main, High, High 10 and High 4:2:2 with
-// their Intra profiles) for the streams of x264 and cameras (see
-// h264.cpp).
+// The H.264 decoder (frame pictures, 4:2:0, 4:2:2, 4:4:4, GBR and
+// monochrome at 8, 9, 10, 12 and 14 bits, lossless too: Baseline, Main,
+// High, High 10, High 4:2:2 and High 4:4:4 Predictive with their Intra
+// profiles) for the streams of x264, cameras and ffmpeg from images and
+// screens (see h264.cpp).
 class H264Decoder {
  public:
   // `config`: the avcC record of an MP4 avc1/avc3 sample entry or a
@@ -157,8 +159,8 @@ class H264Decoder {
   // At the end of the stream: the next picture still held back; false
   // when none is left.
   bool flush(Picture& out);
-  // Read one packet's parameter sets only (the packets before a later
-  // starting point).
+  // Read one packet's parameter sets (and libx264's build from its SEI)
+  // only: the packets before a later starting point.
   void headers(const uint8_t* data, size_t n);
   // Read one packet's NAL unit types only: 0 when it holds an IDR
   // picture, 1 another picture, -1 none.

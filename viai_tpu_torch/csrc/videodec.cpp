@@ -2177,7 +2177,7 @@ int64_t step(int src_n, int dst_n) {
   return ((int64_t(src_n) << 16) + (dst_n >> 1)) / dst_n;
 }
 
-// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 to 12 bits in
+// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 to 14 bits in
 // uint16_t; `depth` 0: the 14-bit lines of planar RGB input) of a plane's
 // rows → (rows, dst_n) 15-bit samples.
 template <class T>
@@ -2708,7 +2708,7 @@ class Decoder {
   }
 
   // Read packet i's headers only (MPEG-4: a VOL it holds is kept;
-  // H.264: its parameter sets).
+  // H.264: its parameter sets and libx264's build from its SEI).
   void skip(size_t i) {
     const uint8_t* d = &t_.file[t_.packets[i].off];
     if (mpeg4_) mpeg4_->peek(d, t_.packets[i].size);
@@ -2947,7 +2947,7 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
 void viai_video_free(uint8_t* p) { std::free(p); }
 
 // Planes of (h, w) luma and chroma (h >> yshift, w >> xshift, rounded
-// up), 8-bit (depth 8: bytes) or 9 to 12-bit (uint16_t), rows packed →
+// up), 8-bit (depth 8: bytes) or 9 to 14-bit (uint16_t), rows packed →
 // out (dh, dw, 3) BGR24 as to_bgr converts a decoded picture to that
 // size; full_range, matrix (swscale's colour space), chroma_loc and rgb
 // (planar G, B, R) as Picture's. → 0, or 1 with err set for a layout
@@ -2960,7 +2960,7 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
                         int32_t errlen) {
   try {
     if (w < 1 || h < 1 || xshift < 0 || xshift > 1 || yshift < 0 || yshift > 1 ||
-        depth < 8 || depth > 12)
+        depth < 8 || depth > 14)
       viai_video::broken("a picture layout to_bgr does not convert");
     Picture p;
     p.w = w;

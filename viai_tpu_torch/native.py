@@ -319,13 +319,15 @@ def decode_video(path: str) -> np.ndarray:
     VP8 and VP9 (their shown frames; VP9's profiles 0-3 at 8, 10 and 12
     bits, 4:2:0, 4:2:2, 4:4:0, 4:4:4 and sRGB, intra-only
     frames and references of another size), H.264 (frame pictures
-    of Baseline, Main, High, High 10 and High 4:2:2 at 8 to 10 bits,
-    4:2:0, 4:2:2 and monochrome, progressive frames of interlace-capable
-    streams too, in libavcodec's output order and number, its guessed
-    reorder depth included); in AVI (OpenDML too), Matroska/WebM and MP4 (an edit
-    list's dropped frames left out; fragmented too), converted to BGR24
-    as swscale does (its scaler for odd heights, 4:4:4/4:4:0 and 9 to 12
-    bits, H.264's chroma sited left) at the first picture's size (a
+    of Baseline, Main, High, High 10, High 4:2:2 and High 4:4:4
+    Predictive at 8 to 10, 12 and 14 bits, 4:2:0, 4:2:2, 4:4:4, GBR
+    and monochrome, lossless transform bypass too, progressive frames of
+    interlace-capable streams too, in libavcodec's output order and
+    number, its guessed reorder depth included); in AVI (OpenDML too),
+    Matroska/WebM and MP4 (an edit list's dropped frames left out;
+    fragmented too), converted to BGR24 as swscale does (its scaler for
+    odd heights, 4:4:4/4:4:0 and 9 to 14 bits, H.264's chroma sited
+    left) at the first picture's size (a
     picture of another size scaled to it, as cv2's swscale scales it) and
     turned as cv2 turns them by the track's orientation (90, 180 or 270
     degrees: the MP4 display matrix, a Matroska Projection's roll).
@@ -361,7 +363,7 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     reader converts them (swscale's routes to BGR24, as cv2 runs them):
     `y` (h, w), `u` and `v` (h >> yshift, w >> xshift, rounded up) for
     `shift` = (xshift, yshift): (1, 1) 4:2:0, (1, 0) 4:2:2, (0, 0) 4:4:4,
-    (0, 1) 4:4:0; uint8 at depth 8, uint16 holding 9 to 12-bit samples;
+    (0, 1) 4:4:0; uint8 at depth 8, uint16 holding 9 to 14-bit samples;
     limited range unless `full_range`; `matrix` swscale's colour space (5
     BT.601, 1 BT.709, 9 BT.2020); `chroma_loc` the frame's
     AVChromaLocation (0 unspecified, 1 left as H.264's frames, 2 centre,
