@@ -378,16 +378,25 @@ FRAMES_WARMUP = 3
 # with an intra-only frame, new sizes in VP9, MJPEG and H.264) and the
 # H.264 that ffmpeg writes from images and screens (SCREEN_FIXTURES:
 # 4:4:4 at 8, 10 and 14 bits, GBR, lossless at every sampling, 12-bit
-# 4:2:0). Decoded
+# 4:2:0) and the MPEG-1 and MPEG-2 that DVD rips, broadcast captures and
+# OpenCV's own writer store (DVD_FIXTURES: low_delay 0, open and closed
+# GOPs, B-15, the non-linear scale, intra_dc_precision 9-11, matrices,
+# BT.709, 4:2:2 with chroma matrices, odd sizes, soft telecine, a new
+# size, a copy cut at an open GOP, field DCT and motion in progressive
+# frames; in AVI, MP4 and
+# Matroska), beside clip_dvd.mkv (MPEG-2 at 720x480 as MakeMKV stores a
+# DVD film title: soft telecine, open GOPs of 12) and clip_pim1.avi
+# (MPEG-1 at 352x240, cv2.VideoWriter's PIM1). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
 # becomes a frame stack through prepare_dataset extract.
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
-VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0}
+VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
+             "mpeg12": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
-               "vp9": "VP9", "h264": "H.264"}
+               "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
@@ -399,7 +408,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "phone": ("clip_phone.mp4", "clip_frag.mp4"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
                  "browser": ("clip_hdr.webm", "clip_rtc.webm"),
-                 "screen": ("clip_screen.mp4", "clip_lossless.mkv")}
+                 "screen": ("clip_screen.mp4", "clip_lossless.mkv"),
+                 "dvd": ("clip_dvd.mkv", "clip_pim1.avi")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -432,8 +442,28 @@ SCREEN_FIXTURES = (
     "h264_gbrlossless_avi", "h264_lossless_avi", "h264_losslessb_mkv",
     "h264_lossless422_mp4", "h264_lossless444_avi", "h264_lossless10_mkv",
     "h264_12bit_avi", "h264_14bit_mkv")
-VIDEO_REPS = 3
-TURN_ROUNDS = 7         # [video]: turned and unturned decodes, in turns
+# the committed fixtures of MPEG-1 and MPEG-2 as DVD rips, broadcast
+# captures and OpenCV's writer store them (tests/_torch_make_videos.py's
+# DVD_CASES, each stream in AVI, MP4 and Matroska) and the dvd folder's
+# clips, each held and printed
+DVD_FIXTURES = tuple(
+    f"{stream}_{c}" for stream in (
+        "mpeg2_ip", "mpeg2_bf", "mpeg2_cgop", "mpeg2_vlc", "mpeg2_nlq",
+        "mpeg2_dc11", "mpeg2_altscan", "mpeg2_fieldpred", "mpeg2_matrix",
+        "mpeg2_bt709", "mpeg2_422", "mpeg2_422q", "mpeg2_odd",
+        "mpeg2_telecine", "mpeg2_newsize", "mpeg2_cut", "mpeg1_bf",
+        "mpeg1_odd")
+    for c in ("avi", "mp4", "mkv"))
+DVD_CLIPS = ("clip_dvd_mkv", "clip_pim1_avi")
+# [video]'s repeats, cut to make room for the dvd folder (the script
+# ran 1119.1 s of its 1200 s with them at 3 and 7, NVIDIA H100 80GB
+# HBM3 at 700 W): decodes and reads timed as the best of VIDEO_REPS;
+# turned and unturned decodes in TURN_ROUNDS turns; each folder's eval
+# CLI reads its 3 test clips in the main process (VIDEO_EVAL_THREADS:
+# --nThreads), not in 4 spawned workers
+VIDEO_REPS = 2
+TURN_ROUNDS = 4
+VIDEO_EVAL_THREADS = 0
 # [train refiner]: the refiner CLI at its defaults (batch 32, bf16 G and
 # R, lr 2e-4, EMA 0.999), 40 steps with milestones at 20 and 40, a pool
 # of 8 batches; a resume from R20_state.pt to 40 repeats the run.
@@ -1982,7 +2012,7 @@ def video_fixtures():
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
-    per_browser, per_screen = [], []
+    per_browser, per_screen, per_dvd = [], [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2009,6 +2039,11 @@ def video_fixtures():
             per_screen.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} (cv2 "
                 f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
+        if npz.stem in DVD_FIXTURES or npz.stem in DVD_CLIPS:
+            per_dvd.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
         if npz.stem in BROWSER_FIXTURES or npz.stem in BROWSER_CLIPS:
             per_browser.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
@@ -2049,6 +2084,11 @@ def video_fixtures():
     require(len(per_screen) == len(SCREEN_FIXTURES),
             f"[video] {len(per_screen)} screen fixtures of "
             f"{len(SCREEN_FIXTURES)}")
+    log(f"[video] MPEG-1/2 as DVD rips, broadcast captures and cv2's writer "
+        f"store it ({len(per_dvd)} fixtures): " + "; ".join(per_dvd))
+    require(len(per_dvd) == len(DVD_FIXTURES) + len(DVD_CLIPS),
+            f"[video] {len(per_dvd)} MPEG-1/2 fixtures of "
+            f"{len(DVD_FIXTURES) + len(DVD_CLIPS)}")
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
         path = str(VIDEO_FIXTURES / ".".join(name.rsplit("_", 1)))
@@ -2100,14 +2140,22 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     bitstream_restriction in Matroska), then browser clips (VP9 profile
     2 10-bit BT.2020, VP9 realtime with reference scaling and a size
     change, in WebM), then screen clips (H.264 High 4:4:4 Predictive in
-    MP4, lossless 4:2:0 in Matroska);
+    MP4, lossless 4:2:0 in Matroska), then DVD clips (MPEG-2 at 720x480
+    with soft telecine and open GOPs in Matroska, MPEG-1 at 352x240 from
+    cv2's writer in AVI);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a turned frame's against the same file's
     unturned, a 10-bit, a 4:4:4 and a lossless frame's conversion share,
-    a clip's read, the loader's wait share of a step from each folder.
+    a 720x480 MPEG-2 frame's decode and conversion, a clip's read, the
+    loader's wait share of a step from each folder.
     Returns the GL kernel's launches."""
     from viai_tpu_torch import native
 
+    t_video = time.perf_counter()
+    log(f"[video] cut to make room for the dvd folder: decode and read "
+        f"times the best of VIDEO_REPS {VIDEO_REPS} (was 3), TURN_ROUNDS "
+        f"{TURN_ROUNDS} (was 7), each folder's eval CLI with --nThreads "
+        f"{VIDEO_EVAL_THREADS} (was 4 spawned workers for its 3 clips)")
     # (a) the decoders against cv2's committed decodes
     video_fixtures()
 
@@ -2157,7 +2205,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_screen.mp4",
                         "H.264 High 4:4:4 Predictive, 8-bit, B"),
                        ("clip_lossless.mkv",
-                        "H.264 lossless 4:2:0, ultrafast")):
+                        "H.264 lossless 4:2:0, ultrafast"),
+                       ("clip_dvd.mkv",
+                        "MPEG-2 MP@ML, soft telecine, open GOPs of 12"),
+                       ("clip_pim1.avi", "MPEG-1, cv2.VideoWriter's PIM1")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2171,8 +2222,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_conversion_cost(best_ms, card)
     video_browser_costs(best_ms, card)
     video_screen_costs(best_ms, card)
+    video_dvd_costs(best_ms, card)
     for folder, root in roots.items():
         video_wait_share(folder, root, ckpt, dev, card)
+    log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
+        f"folders)")
     return total
 
 
@@ -2308,6 +2362,34 @@ def video_screen_costs(best_ms, card: str):
             f"({conv / dec[src]:.1%}; one thread); {card}")
 
 
+def video_dvd_costs(best_ms, card: str):
+    """[video] (d): clip_dvd.mkv's 720x480 MPEG-2 frame: its decode, the
+    share its conversion to BGR takes (yuv420p through swscale's unscaled
+    converter; planes of its layout through native.yuv_to_bgr, MPEG-2's
+    left-sited chroma), and a read of 16 frames from the second GOP (a
+    window that starts inside an open GOP: decoded from the first
+    packet) against one from the first."""
+    from viai_tpu_torch import native
+
+    path = str(VIDEO_FIXTURES / "clip_dvd.mkv")
+    n, h, w = native.decode_video(path).shape[:3]
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    u, v = (rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8)
+            for _ in range(2))
+    dec = best_ms(lambda: native.decode_video(path)) / n
+    conv = best_ms(lambda: native.yuv_to_bgr(y, u, v, (1, 1), chroma_loc=1))
+    first, second = (best_ms(lambda: native.load_video_frames(
+        path, FRAMES[0], FRAMES[1], win)) for win in ((0.0, 0.5),
+                                                     (0.75, 1.0)))
+    log(f"[video] clip_dvd.mkv ({w}x{h} 4:2:0 MPEG-2, {n} pictures): decode "
+        f"a frame {dec:.3f} ms, its conversion to BGR {conv:.3f} ms "
+        f"({conv / dec:.1%}; one thread); read {FRAMES[0]} frames at "
+        f"{FRAMES[1]}x{FRAMES[2]} of the first GOP {first:.3f} ms, of the "
+        f"second (an open GOP: from the first packet) {second:.3f} ms; "
+        f"{card}")
+
+
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
                      ckpt: str) -> int:
     """[video] (b) and (c) for one folder of VIDEO_FOLDERS: 20 av steps
@@ -2355,7 +2437,8 @@ def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
          "0", "--model", "av", "--gated", "--bottleneck_dilation", "1,2,4",
          "--dataset_mode", "musices", "--dataroot",
          str(root / "musices.json"), "--phase", "test", "--batchSize", "3",
-         "--how_many", "3", "--results_dir", os.path.join(ckpt, "results")],
+         "--how_many", "3", "--results_dir", os.path.join(ckpt, "results"),
+         "--nThreads", str(VIDEO_EVAL_THREADS)],
         3)
     require(launches > 0 and griffin_lim.calls == 0,
             f"[video] the eval CLI ({folder}): GL launches {launches}, "
@@ -3181,45 +3264,64 @@ def phase_compile_cache():
             and not fresh.exists(), "[compile cache] VIAI_NO_CACHE")
 
 
+# Seconds each phase of main() took, printed before the result lines.
+PHASE_SECONDS: dict[str, float] = {}
+T_START = time.perf_counter()
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its seconds added to PHASE_SECONDS[name]."""
+    t = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + \
+        time.perf_counter() - t
+    return out
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
-    phase_build()
-    max_err = phase_kernel(dev)
-    svc, launches_slice = phase_slice(dev)
-    phase_reference(svc, dev)
-    av, launches_av = phase_av(dev)
-    launches_options = phase_options(dev)
-    refiner, launches_refiner = phase_refiner(dev)
-    phase_refiner_reference(refiner, dev)
+    timed("build", phase_build)
+    max_err = timed("kernel", phase_kernel, dev)
+    svc, launches_slice = timed("slice", phase_slice, dev)
+    timed("reference", phase_reference, svc, dev)
+    av, launches_av = timed("av", phase_av, dev)
+    launches_options = timed("options", phase_options, dev)
+    refiner, launches_refiner = timed("refiner", phase_refiner, dev)
+    timed("refiner_reference", phase_refiner_reference, refiner, dev)
     with tempfile.TemporaryDirectory() as ckpt:
-        trains = {kind: phase_train(dev, kind, ckpt) for kind in TRAIN_MODELS}
-        launches_eval = phase_eval(dev, ckpt, "chip_audio")
-        launches_data = phase_data(dev, ckpt, card)
-        launches_frames = phase_frames(dev, ckpt, card)
-        launches_video = phase_video(dev, ckpt, card)
-        phase_train_refiner(dev, ckpt, "chip_audio")
-        launches_trained = phase_eval_trained(dev, ckpt, "chip_audio")
-    phase_train_reference(dev)
-    phase_train_refiner_reference(dev)
-    times = phase_times(svc, dev, card)
-    phase_times_av(av, dev, card)
+        trains = {kind: timed(f"train {kind}", phase_train, dev, kind, ckpt)
+                  for kind in TRAIN_MODELS}
+        launches_eval = timed("eval", phase_eval, dev, ckpt, "chip_audio")
+        launches_data = timed("data", phase_data, dev, ckpt, card)
+        launches_frames = timed("frames", phase_frames, dev, ckpt, card)
+        launches_video = timed("video", phase_video, dev, ckpt, card)
+        timed("train_refiner", phase_train_refiner, dev, ckpt, "chip_audio")
+        launches_trained = timed("eval_trained", phase_eval_trained, dev,
+                                 ckpt, "chip_audio")
+    timed("train_reference", phase_train_reference, dev)
+    timed("train_refiner_reference", phase_train_refiner_reference, dev)
+    times = timed("times", phase_times, svc, dev, card)
+    timed("times_av", phase_times_av, av, dev, card)
     for kind in TRAIN_MODELS:
-        phase_times_train(dev, card, kind)
-    phase_times_refiner(dev, card)
-    phase_times_train_refiner(dev, card)
-    phase_profile(svc, card)
-    phase_profile(av, card, "profile av")
-    launches_bench = phase_bench(dev)
-    phase_bench_reference(dev)
-    phase_profile_bench(dev, card)
-    launches_mesh = phase_mesh(dev)
+        timed("times_train", phase_times_train, dev, card, kind)
+    timed("times_refiner", phase_times_refiner, dev, card)
+    timed("times_train_refiner", phase_times_train_refiner, dev, card)
+    timed("profile", phase_profile, svc, card)
+    timed("profile_av", phase_profile, av, card, "profile av")
+    launches_bench = timed("bench", phase_bench, dev)
+    timed("bench_reference", phase_bench_reference, dev)
+    timed("profile_bench", phase_profile_bench, dev, card)
+    launches_mesh = timed("mesh", phase_mesh, dev)
     t_new = time.perf_counter()
-    launches_scripts = phase_scripts(dev, card)
-    phase_tensorboard()
-    phase_compile_cache()
+    launches_scripts = timed("scripts", phase_scripts, dev, card)
+    timed("tensorboard", phase_tensorboard)
+    timed("compile_cache", phase_compile_cache)
     log(f"[scripts] [tensorboard] [compile cache] took "
         f"{time.perf_counter() - t_new:.1f} s together")
+    log("[phases] seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; total {time.perf_counter() - T_START:.1f}")
     t = times[32]
     launches_train = sum(r["launches"] for r in trains.values())
     launches_served = sum(r["served"] for r in trains.values())

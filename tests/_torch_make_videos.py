@@ -600,9 +600,93 @@ SCREEN_CLIPS = {
     "clip_lossless_mkv": dict(preset="ultrafast", profile="high444", qp=0,
                               keyint=12),
 }
+# MPEG-1 and MPEG-2 video as DVD rips, broadcast captures, camcorders and
+# OpenCV's own writer store it: streams of the system's libavcodec 59
+# (`lavc_encode`'s mpeg2video and mpeg1video, 20 frames of moving_frames
+# at 96x64 unless `frames` or `size` (h, w) say otherwise), each in AVI
+# (fourcc mpg2 or mpg1), MP4 (mp4v; esds objectTypeIndication 0x61 Main,
+# 0x65 4:2:2 or 0x6A MPEG-1, the sequence header as DecoderSpecificInfo)
+# and Matroska (V_MPEG2 or V_MPEG1, the sequence header as CodecPrivate)
+# (`dvd_file`). The rest of each dict is lavc_encode's options, but for
+# `matrices` (its intra and inter matrices), `chroma` (chroma intra and
+# inter matrices a quant matrix extension loads after each I-picture's
+# coding extension, `mpeg12_quant_ext`), `telecine` (progressive_sequence
+# patched to 0, top_field_first and repeat_first_field to 3:2 pulldown
+# in display order, progressive_frame left at 1: soft telecine as DVDs
+# of film carry it, `patch_mpeg12`), `sizes` (a second stream at another
+# size after the first, from frame 12 on: a new sequence header
+# mid-stream), `cut` (the packets from the second GOP on, as a copy cut
+# from a title starts: an open GOP whose leading B-pictures lack their
+# older reference, which libavcodec skips), `edit` "frames"
+# (progressive_frame patched to 1 in a
+# stream libavcodec codes as interlaced: frame_pred_frame_dct 0, field
+# and frame DCT and motion by macroblock, in pictures libavcodec then
+# marks progressive; libavcodec's encoder writes the alternate scan only
+# so) and `encoder`. intra_dc_precision: `dc` 8 to 11.
+DVD_STREAMS = {
+    "mpeg2_ip": dict(),                          # I and P, low_delay 0
+    "mpeg2_bf": dict(bf=2, g=8, frames=24),      # open GOPs
+    "mpeg2_cgop": dict(bf=2, g=8, frames=24, flags="+cgop",
+                       sc_threshold=1000000000),
+    "mpeg2_vlc": dict(bf=2, intra_vlc=1, dc=10),
+    "mpeg2_nlq": dict(bf=1, non_linear_quant=1, qmax=28, dc=9),
+    "mpeg2_dc11": dict(bf=2, dc=11, qmin=1, qmax=3),
+    "mpeg2_altscan": dict(bf=2, alternate_scan=1, edit="frames"),
+    "mpeg2_fieldpred": dict(bf=2, flags="+ildct+ilme", edit="frames"),
+    "mpeg2_matrix": dict(bf=2, matrices=(
+        [8] + [9 + (i * 7) % 40 for i in range(1, 64)],
+        [10 + (i * 11) % 37 for i in range(64)])),
+    "mpeg2_bt709": dict(bf=2, seq_disp_ext=1, colorspace="bt709",
+                        color_primaries="bt709", color_trc="bt709"),
+    "mpeg2_422": dict(bf=2, pixel_format="yuv422p"),
+    "mpeg2_422q": dict(bf=2, pixel_format="yuv422p", size=(47, 90), chroma=(
+        [8] + [12 + (i * 5) % 31 for i in range(1, 64)],
+        [14 + (i * 3) % 29 for i in range(64)])),
+    "mpeg2_odd": dict(bf=2, size=(57, 89)),
+    "mpeg2_telecine": dict(bf=2, g=12, frames=24, telecine=True),
+    "mpeg2_newsize": dict(bf=2, g=6, frames=24, sizes=((64, 96), (48, 80))),
+    "mpeg2_cut": dict(bf=2, g=8, frames=32, cut=True),
+    "mpeg1_bf": dict(encoder="mpeg1video", bf=2),
+    "mpeg1_odd": dict(encoder="mpeg1video", bf=1, size=(41, 71)),
+}
+DVD_CASES = {f"{k}_{c}": v for k, v in DVD_STREAMS.items()
+             for c in ("avi", "mp4", "mkv")}
+# The clips chip_smoke.py's `dvd` folder trains from, of the committed
+# 224x224 clip's first 16 frames: MPEG-2 Main Profile at 720x480 as
+# MakeMKV stores a DVD film title (V_MPEG2, the sequence header as
+# CodecPrivate, soft telecine on progressive_sequence 0, open GOPs of 12
+# with 2 B-pictures, a sequence display extension) and MPEG-1 at 352x240
+# as cv2.VideoWriter writes it with fourcc PIM1 (in AVI).
+DVD_CLIPS = {
+    "clip_dvd_mkv": dict(bf=2, g=12, telecine=True, seq_disp_ext=1,
+                         colorspace="smpte170m", color_primaries="smpte170m",
+                         color_trc="smpte170m", b="6000000",
+                         maxrate="9800000", bufsize="1835008",
+                         size=(480, 720)),
+    "clip_pim1_avi": dict(size=(240, 352)),
+}
+# What the port does not read, each raising NotImplementedError that
+# names it (DVD_STREAMS' shape, in AVI): interlaced MPEG-2 (libavcodec's
+# field DCT and field motion: progressive_frame 0, whose frames cv2's
+# swscale refuses), field pictures (picture_structure patched to 1, a
+# top field),
+# MPEG-1 D-pictures (the second I-picture's coding type patched to 4),
+# full_pel_forward_vector (patched on in the P-pictures), a sequence
+# scalable extension, and 4:4:4 (chroma_format patched to 3).
+DVD_UNREAD = {
+    "mpeg2_interlaced_avi": (dict(bf=2, flags="+ildct+ilme"),
+                             "progressive_frame 0"),
+    "mpeg2_field_avi": (dict(edit="field"), "field pictures"),
+    "mpeg1_dpicture_avi": (dict(encoder="mpeg1video", g=6,
+                                edit="D-picture"), "D-pictures"),
+    "mpeg1_fullpel_avi": (dict(encoder="mpeg1video", edit="full_pel"),
+                          "full_pel"),
+    "mpeg2_scalable_avi": (dict(edit="scalable"), "scalable"),
+    "mpeg2_444_avi": (dict(edit="4:4:4"), "4:4:4"),
+}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
-        *BROWSER_CLIPS, *SCREEN_CASES)
+        *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS)
 
 
 def codec_of(name: str) -> str:
@@ -611,6 +695,8 @@ def codec_of(name: str) -> str:
         return "h264"
     if name in BROWSER_CLIPS:
         return "vp9"
+    if name in DVD_CASES or name in DVD_CLIPS or name in DVD_UNREAD:
+        return "mpeg12"
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
                 "DX50": "mpeg4", "VP80": "vp8",
@@ -621,7 +707,7 @@ def codec_of(name: str) -> str:
 
 def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
-            or name in SCREEN_CLIPS):
+            or name in SCREEN_CLIPS or name in DVD_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -1769,11 +1855,13 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     """Packets of `frames` (BGR) from the system's libavcodec 59
     (`libavcodec.so.59`, `libavutil.so.57`, through ctypes): the encoder
     `encoder` ("mpeg4", ffmpeg's own, or "libxvid", which wraps
-    `libxvidcore.so.4`) opened on one thread with each of `opts` set by
-    av_opt_set (`_` kept in the names: "bf", "flags", "mpeg_quant",
-    "gmc", "ps", "data_partitioning", ...), and `matrices`, the intra
-    and inter quantisation matrices (natural order) that the mpeg4
-    encoder writes into its VOL with mpeg_quant 1; fed I420 frames with
+    `libxvidcore.so.4`; "mpeg2video", "mpeg1video") opened on one thread
+    with each of `opts` set by av_opt_set (`_` kept in the names: "bf",
+    "flags", "mpeg_quant", "gmc", "ps", "data_partitioning", ...;
+    "pixel_format" "yuv422p" feeds 4:2:2 planes), and `matrices`, the
+    intra and inter quantisation matrices (natural order) that the mpeg4
+    encoder writes into its VOL with mpeg_quant 1 (and the MPEG-1/2
+    encoders into their sequence header); fed I420 (or I422) frames with
     pts 0, 1, ..., then flushed. → the packets in decode order (an
     encoder's headers travel in its first packet); `times`, when given,
     gets each packet's (pts, dts) in frames."""
@@ -1823,7 +1911,9 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     frame = au.av_frame_alloc()
     struct.pack_into("<ii", (ctypes.c_char * 8).from_address(frame + 104),
                      0, w, h)                        # width, height
-    ctypes.c_int.from_address(frame + 116).value = 0      # AV_PIX_FMT_YUV420P
+    yuv422 = settings["pixel_format"] == "yuv422p"
+    # AV_PIX_FMT_YUV420P, AV_PIX_FMT_YUV422P
+    ctypes.c_int.from_address(frame + 116).value = 4 if yuv422 else 0
     if au.av_frame_get_buffer(frame, 0) < 0:
         raise RuntimeError("libavutil: no frame buffer")
     pkt = av.av_packet_alloc()
@@ -1842,16 +1932,22 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     for i, f in enumerate(frames):
         if au.av_frame_make_writable(frame) < 0:
             raise RuntimeError("libavutil: frame not writable")
-        yuv = np.frombuffer(i420(f), np.uint8)
-        at = 0
-        for k, (ph, pw) in enumerate(((h, w), (h // 2, w // 2),
-                                      (h // 2, w // 2))):
+        # 4:2:2: i420 of the frame with its rows doubled, whose chroma is
+        # the frame's at 4:2:2.
+        src = f.repeat(2, axis=0) if yuv422 else f
+        yuv = np.frombuffer(i420(src), np.uint8)
+        sh = src.shape[0]
+        ch, cw = (sh + 1) // 2, (w + 1) // 2
+        planes = [yuv[:sh * w].reshape(sh, w)[::2 if yuv422 else 1],
+                  yuv[sh * w:sh * w + ch * cw].reshape(ch, cw),
+                  yuv[sh * w + ch * cw:].reshape(ch, cw)]
+        for k, plane in enumerate(planes):
+            plane = np.ascontiguousarray(plane)
             data = ctypes.c_void_p.from_address(frame + 8 * k).value
             stride = ctypes.c_int.from_address(frame + 64 + 4 * k).value
-            for r in range(ph):
-                ctypes.memmove(data + r * stride,
-                               yuv[at + r * pw:].ctypes.data, pw)
-            at += ph * pw
+            for r in range(plane.shape[0]):
+                ctypes.memmove(data + r * stride, plane[r].ctypes.data,
+                               plane.shape[1])
         ctypes.c_int64.from_address(frame + 136).value = i       # pts
         if av.avcodec_send_frame(ctx, frame) < 0:
             raise RuntimeError(f"libavcodec: {encoder} refused frame {i}")
@@ -1924,7 +2020,9 @@ def esds_box(config: bytes, oti: int = 0x20, stream: int = 0x11) -> bytes:
     0x20; `oti` 0x40 and `stream` 0x15 for AAC audio) whose
     DecoderSpecificInfo is `config`."""
     def desc(tag: int, body: bytes) -> bytes:
-        return bytes([tag, 0x80, 0x80, 0x80, len(body)]) + body
+        n = len(body)
+        return bytes([tag, 0x80 | (n >> 21) & 0x7F, 0x80 | (n >> 14) & 0x7F,
+                      0x80 | (n >> 7) & 0x7F, n & 0x7F]) + body
 
     dsi = desc(5, config)
     dcd = desc(4, bytes([oti, stream]) + bytes(3) + struct.pack(
@@ -2483,6 +2581,202 @@ def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
                     keys=keys)
 
 
+def mpeg12_set(body: bytearray, bit: int, n: int, value: int) -> None:
+    """Set `n` bits of `body` from bit `bit` on (MSB first) to `value`."""
+    for k in range(n):
+        i, m = divmod(bit + k, 8)
+        if (value >> (n - 1 - k)) & 1:
+            body[i] |= 0x80 >> m
+        else:
+            body[i] &= ~(0x80 >> m) & 0xFF
+
+
+# The MPEG-1/2 header fields patch_mpeg12 changes: (the header, the bit
+# after its start code (an extension's 4-bit id included), the width).
+MPEG12_BITS = {
+    "progressive_sequence": ("seq_ext", 12, 1),
+    "chroma_format": ("seq_ext", 13, 2),
+    "closed_gop": ("gop", 25, 1), "broken_link": ("gop", 26, 1),
+    "picture_coding_type": ("picture", 10, 3),
+    "full_pel_forward_vector": ("picture", 29, 1),
+    "picture_structure": ("pic_ext", 22, 2),
+    "top_field_first": ("pic_ext", 24, 1),
+    "repeat_first_field": ("pic_ext", 30, 1),
+    "progressive_frame": ("pic_ext", 32, 1),
+}
+
+
+def mpeg12_headers(packets: list[bytes]) -> list[list[tuple[str, int]]]:
+    """Each packet's headers: (kind, offset of the byte after the start
+    code), kind "seq", "seq_ext", "disp_ext", "gop", "picture",
+    "pic_ext", "slice" or the start code's value in hex."""
+    out = []
+    for p in packets:
+        found, i = [], p.find(b"\0\0\1")
+        while i >= 0 and i + 3 < len(p):
+            c, at = p[i + 3], i + 4
+            kind = {0xB3: "seq", 0xB8: "gop", 0x00: "picture"}.get(c)
+            if c == 0xB5 and at < len(p):
+                kind = {1: "seq_ext", 2: "disp_ext", 8: "pic_ext"}.get(
+                    p[at] >> 4, f"ext{p[at] >> 4}")
+            elif kind is None:
+                kind = "slice" if 1 <= c <= 0xAF else f"{c:02x}"
+            found.append((kind, at))
+            i = p.find(b"\0\0\1", at)
+        out.append(found)
+    return out
+
+
+def patch_mpeg12(packets: list[bytes], edit) -> list[bytes]:
+    """`packets` with header fields changed: `edit(packet index, header
+    index among the headers of its kind, field name)` gives each field of
+    MPEG12_BITS a new value, or None to keep it."""
+    out, seen = [], {}
+    for i, (p, heads) in enumerate(zip(packets, mpeg12_headers(packets))):
+        body = bytearray(p)
+        for kind, at in heads:
+            k = seen.get(kind, 0)
+            seen[kind] = k + 1
+            for field, (where, bit, n) in MPEG12_BITS.items():
+                if where != kind:
+                    continue
+                v = edit(i, k, field)
+                if v is not None:
+                    view = bytearray(body[at:at + 8])
+                    mpeg12_set(view, bit, n, v)
+                    body[at:at + 8] = view
+        out.append(bytes(body))
+    return out
+
+
+def mpeg12_quant_ext(packets: list[bytes], chroma_intra: list[int],
+                     chroma_inter: list[int]) -> list[bytes]:
+    """`packets` with a quant matrix extension after the coding extension
+    of each picture whose packet holds a sequence header: no luma
+    matrices, the chroma intra and inter matrices `chroma_intra` and
+    `chroma_inter` (natural order; 8 bits each in zigzag order)."""
+    zz = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
+          26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49,
+          56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
+          45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+    bits = "0011" + "0" + "0" + "1" + "".join(
+        f"{chroma_intra[j]:08b}" for j in zz) + "1" + "".join(
+        f"{chroma_inter[j]:08b}" for j in zz)
+    bits += "0" * (-len(bits) % 8)
+    ext = b"\0\0\1\xb5" + bytes(int(bits[i:i + 8], 2)
+                                    for i in range(0, len(bits), 8))
+    out = []
+    for p, heads in zip(packets, mpeg12_headers(packets)):
+        kinds = [k for k, _ in heads]
+        if "seq" in kinds and "pic_ext" in kinds:
+            at = heads[kinds.index("pic_ext") + 1][1] - 4
+            p = p[:at] + ext + p[at:]
+        out.append(p)
+    return out
+
+
+def mpeg12_config(packet: bytes) -> bytes:
+    """The sequence header and its extensions that begin an MPEG-1/2
+    packet: its bytes before the first GOP or picture start code."""
+    ends = [i for i in (packet.find(b"\0\0\1\xb8"),
+                        packet.find(b"\0\0\1\0")) if i >= 0]
+    return packet[:min(ends)]
+
+
+def dvd_stream(settings: dict, frames=None, seed: int = 0):
+    """A DVD_STREAMS (or DVD_CLIPS, DVD_UNREAD) stream: (packets, their
+    (pts, dts) in frames, (w, h) of the first picture)."""
+    opts = dict(settings)
+    enc = opts.pop("encoder", "mpeg2video")
+    t = opts.pop("frames", 20)
+    h, w = opts.pop("size", (64, 96))
+    sizes = opts.pop("sizes", None)
+    chroma = opts.pop("chroma", None)
+    telecine = opts.pop("telecine", False)
+    cut = opts.pop("cut", False)
+    edit = opts.pop("edit", None)
+    if frames is None:
+        frames = moving_frames(seed, t, h, w)
+    elif frames.shape[1:3] != (h, w):
+        import cv2
+
+        frames = np.stack([cv2.resize(f, (w, h), interpolation=cv2.INTER_AREA)
+                           for f in frames])
+    if edit in ("D-picture", "full_pel") and "bf" not in opts:
+        opts["bf"] = 0
+    times: list = []
+    if sizes:
+        packets = []
+        for k, (sh, sw) in enumerate(sizes):
+            part = moving_frames(seed + k, 12, sh, sw)
+            tk: list = []
+            packets += lavc_encode(part, enc, times=tk, **opts)
+            times += [(p + 12 * k, d + 12 * k) for p, d in tk]
+        h, w = sizes[0]
+    else:
+        packets = lavc_encode(frames, enc, times=times, **opts)
+    if cut:
+        at = [i for i, p in enumerate(packets) if b"\0\0\1\xb8" in p][1]
+        d0 = times[at][1]
+        packets = packets[at:]
+        times = [(p - d0, d - d0) for p, d in times[at:]]
+    if chroma:
+        packets = mpeg12_quant_ext(packets, *chroma)
+    if telecine:
+        # 3:2 pulldown in display order: (top_field_first,
+        # repeat_first_field) of each picture by its pts.
+        cadence = [(1, 1), (0, 0), (0, 1), (1, 0)]
+        pts = [p for p, _ in times]
+        packets = patch_mpeg12(packets, lambda i, k, f: {
+            "progressive_sequence": 0,
+            "top_field_first": cadence[pts[i] % 4][0],
+            "repeat_first_field": cadence[pts[i] % 4][1]}.get(f))
+    if edit == "frames":
+        packets = patch_mpeg12(packets, lambda i, k, f:
+                               1 if f == "progressive_frame" else None)
+    elif edit == "field":
+        packets = patch_mpeg12(packets, lambda i, k, f: {
+            "progressive_sequence": 0, "picture_structure": 1,
+            "progressive_frame": 0}.get(f))
+    elif edit == "D-picture":
+        kinds = [(p[p.find(b"\0\0\1\0") + 5] >> 3) & 7 for p in packets]
+        packets = patch_mpeg12(packets, lambda i, k, f: 4 if (
+            f == "picture_coding_type" and kinds[i] == 1 and i) else None)
+    elif edit == "full_pel":
+        kinds = [(p[p.find(b"\0\0\1\0") + 5] >> 3) & 7 for p in packets]
+        packets = patch_mpeg12(packets, lambda i, k, f: 1 if (
+            f == "full_pel_forward_vector" and kinds[i] == 2) else None)
+    elif edit == "scalable":
+        packets = [p.replace(b"\0\0\1\xb8", b"\0\0\1\xb5\x50\0\0\0\0\1\xb8", 1)
+                   for p in packets]
+    elif edit == "4:4:4":
+        packets = patch_mpeg12(packets, lambda i, k, f:
+                               3 if f == "chroma_format" else None)
+    return packets, times, (w, h)
+
+
+def dvd_file(packets: list[bytes], times: list[tuple[int, int]], w: int,
+             h: int, container: str, mpeg1: bool = False, oti: int = 0x61,
+             fps: int = 25) -> bytes:
+    """dvd_stream's packets muxed as "avi" (fourcc mpg2, or mpg1), "mp4"
+    (mp4v with the first packet's sequence header as the esds's
+    DecoderSpecificInfo, objectTypeIndication `oti` (0x6A for MPEG-1),
+    ctts and the edit list from the first presented sample) or "mkv"
+    (V_MPEG2 or V_MPEG1, the sequence header as CodecPrivate,
+    presentation times); the packets keep their in-band headers."""
+    if container == "avi":
+        return avi_file(packets, w, h, fps, len(packets),
+                        b"mpg1" if mpeg1 else b"mpg2")
+    config = mpeg12_config(packets[0])
+    if container == "mp4":
+        return mp4_file(packets, w, h, fps, b"mp4v",
+                        esds_box(config, oti=0x6A if mpeg1 else oti),
+                        ctts=[p - d for p, d in times],
+                        media_time=-times[0][1])
+    return mkv_file(packets, w, h, fps, "V_MPEG1" if mpeg1 else "V_MPEG2",
+                    config, pts=[p for p, _ in times])
+
+
 def lavc_file(packets: list[bytes], times: list[tuple[int, int]], w: int,
               h: int, fourcc: bytes, container: str, fps: int = 25) -> bytes:
     """lavc_encode's MPEG-4 Part 2 packets and their (pts, dts) muxed as
@@ -2697,6 +2991,30 @@ def write_case(name: str, out: str = FIXTURES) -> str:
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name == "clip_pim1_avi":
+        import cv2
+
+        h, w = DVD_CLIPS[name]["size"]
+        write_cv2(path, "PIM1", 25, [cv2.resize(f, (w, h), interpolation=cv2.
+                                                INTER_AREA)
+                                     for f in clip_frames_bgr()[:16]])
+        return path
+    if name in DVD_CASES or name in DVD_CLIPS or name in DVD_UNREAD:
+        if name in DVD_CLIPS:
+            settings = DVD_CLIPS[name]
+            frames = clip_frames_bgr()[:16]
+        else:
+            settings = {**DVD_CASES, **DVD_UNREAD}[name]
+            if name in DVD_UNREAD:
+                settings = settings[0]
+            frames = None
+        packets, times, (w, h) = dvd_stream(settings, frames,
+                                            seed=sum(map(ord, name[:-4])))
+        with open(path, "wb") as f:
+            f.write(dvd_file(packets, times, w, h, name.rsplit("_", 1)[1],
+                             mpeg1=name.startswith("mpeg1"),
+                             oti=0x65 if "_422" in name else 0x61))
+        return path
     if name in BROWSER_CASES or name in BROWSER_CLIPS:
         if name in BROWSER_CLIPS:
             data = browser_file(name, BROWSER_CLIPS[name], 0,
@@ -2880,11 +3198,15 @@ def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
     for name in names or (*HELD, *CLIP_CASES, *LAVC_UNREAD, *PHONE_CLIPS,
                           *CAMERA_CLIPS, *SCREEN_CLIPS):
+        if name in DVD_UNREAD:          # written by the test itself
+            continue
         path = write_case(name, out)
         if name not in HELD:
             continue
         frames, count = cv2_view(path)
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
+        if name == "clip_dvd_mkv":      # 720x480: the first and last only
+            index = np.array([0, len(frames) - 1])
         extra = {}
         if name in CONTAINER_CASES:
             import cv2

@@ -1,8 +1,8 @@
-"""The port's MJPEG, MPEG-4 Part 2 and H.264 decoders against cv2, the
-reading behind the video reader's bounds (TOL in
+"""The port's MJPEG, MPEG-4 Part 2, H.264 and MPEG-1/2 decoders against
+cv2, the reading behind the video reader's bounds (TOL in
 tests/test_torch_video_decode.py, VIDEO_TOL in chip_smoke.py).
 
-    python tests/_torch_video_sweep.py [streams [seed [screen]]]
+    python tests/_torch_video_sweep.py [streams [seed [screen [dvd]]]]
 
 prints, per codec, the largest |Δ| in levels of `native.decode_video`
 against cv2's `cap.read()` over every frame of every committed clip in
@@ -19,8 +19,15 @@ B-frames, CAVLC, weighted prediction, scaling lists, slices, intra only,
 no 8x8 transform, deblocking offsets, constrained intra and I_PCM (noise
 on half the picture), at sizes 32..96 x 32..80, in AVI, MP4 or
 Matroska, or as 12 or 14 bits (a lossy 10-bit stream without I_PCM, its
-SPS patched) in AVI. Needs cv2, the system's libavcodec 59 and libx264,
-which the card's machine does not have.
+SPS patched) in AVI; then over `dvd` (default 0) random MPEG-1 and
+MPEG-2 streams: libavcodec 59's mpeg1video and mpeg2video (through
+`dvd_stream`) at random sizes (16..200 x 16..160, odd ones too), frame
+counts, GOP sizes, B-pictures, closed GOPs, quantisers, loaded matrices,
+intra_vlc_format, intra_dc_precision, the non-linear scale, 4:2:2 with
+chroma matrices, soft telecine, frame_pred_frame_dct 0 in progressive
+frames (the alternate scan, field DCT and motion) and BT.709, in AVI, MP4
+or Matroska. Needs cv2, the system's libavcodec 59 and libx264, which the
+card's machine does not have.
 """
 
 from __future__ import annotations
@@ -139,7 +146,72 @@ def screen_sweep(streams: int, rng, tmp: str):
           f"({refused} settings refused): max |Δ| {top}")
 
 
-def main(streams: int = 600, seed: int = 0, screen: int = 0):
+def random_dvd_stream(rng) -> tuple[str, dict]:
+    """dvd_stream's settings of a random MPEG-1 or MPEG-2 stream and the
+    container it goes in."""
+    mpeg1 = rng.random() < 0.3
+    h, w = int(rng.integers(16, 161)), int(rng.integers(16, 201))
+    q = int(rng.integers(1, 20))
+    st = dict(encoder="mpeg1video" if mpeg1 else "mpeg2video",
+              size=(h, w), frames=int(rng.integers(2, 25)),
+              g=int(rng.integers(1, 16)), bf=int(rng.integers(0, 4)),
+              qmin=q, qmax=int(rng.integers(q, 29)))
+    if rng.random() < 0.25:
+        st["flags"] = "+cgop"
+        st["sc_threshold"] = 1000000000
+    if rng.random() < 0.25:
+        st["matrices"] = (
+            [8] + [int(v) for v in rng.integers(8, 120, 63)],
+            [int(v) for v in rng.integers(8, 120, 64)])
+    if not mpeg1:
+        if rng.random() < 0.3:
+            st["intra_vlc"] = 1
+        if rng.random() < 0.5:
+            st["dc"] = int(rng.integers(8, 12))
+        if rng.random() < 0.25:
+            st["non_linear_quant"] = 1
+        if rng.random() < 0.25:
+            st["pixel_format"] = "yuv422p"
+            if rng.random() < 0.5:
+                st["chroma"] = ([8] + [int(v) for v in rng.integers(
+                    8, 90, 63)], [int(v) for v in rng.integers(8, 90, 64)])
+        tool = rng.random()
+        if tool < 0.2 and (h + 15) // 16 % 2 == 0:
+            st["telecine"] = True        # rows of progressive_sequence 0
+        elif tool < 0.45:
+            st["edit"] = "frames"
+            st["flags"] = st.get("flags", "") + str(rng.choice(
+                ["+ildct+ilme", "+ildct", "+ilme"]))
+            if rng.random() < 0.5:
+                st["alternate_scan"] = 1
+        if rng.random() < 0.2:
+            st.update(seq_disp_ext=1, colorspace="bt709")
+    return str(rng.choice(["avi", "mp4", "mkv"])), st
+
+
+def dvd_sweep(streams: int, rng, tmp: str):
+    top, refused = 0, 0
+    for k in range(streams):
+        ext, st = random_dvd_stream(rng)
+        try:
+            packets, times, (w, h) = mk.dvd_stream(
+                st, seed=int(rng.integers(1 << 30)))
+        except RuntimeError:
+            refused += 1                 # a setting the encoder refuses
+            continue
+        path = os.path.join(tmp, f"m{k}.{ext}")
+        with open(path, "wb") as f:
+            f.write(mk.dvd_file(packets, times, w, h, ext,
+                                mpeg1=st["encoder"] == "mpeg1video"))
+        err = worst(path)
+        if err:
+            print(f"stream {k}: {st} in {ext}: max |Δ| {err}")
+        top = max(top, err)
+    print(f"{streams - refused} random MPEG-1/2 streams ({refused} settings "
+          f"refused): max |Δ| {top}")
+
+
+def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0):
     per = {}
     for npz in sorted(os.listdir(mk.FIXTURES)):
         if not npz.endswith(".npz"):
@@ -149,7 +221,7 @@ def main(streams: int = 600, seed: int = 0, screen: int = 0):
         codec = native.video_track(path, packets=False).codec
         per[codec] = max(per.get(codec, 0), worst(path))
     for name in (*mk.CLIP_CASES, *mk.PHONE_CLIPS, *mk.CAMERA_CLIPS,
-                 *mk.SCREEN_CLIPS):
+                 *mk.SCREEN_CLIPS, *mk.DVD_CLIPS):
         path = mk.path_of(name)
         codec = native.video_track(path, packets=False).codec
         per[codec] = max(per.get(codec, 0), worst(path))
@@ -180,6 +252,7 @@ def main(streams: int = 600, seed: int = 0, screen: int = 0):
         print(f"{streams - failed} random MPEG-4 Part 2 streams (seed "
               f"{seed}; {failed} option sets refused): max |Δ| {top}")
         screen_sweep(screen, rng, tmp)
+        dvd_sweep(dvd, rng, tmp)
 
 
 if __name__ == "__main__":

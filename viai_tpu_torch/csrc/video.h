@@ -1,6 +1,7 @@
 // Shared by videodec.cpp (containers, MJPEG, the frame path),
-// mpeg4.cpp (the MPEG-4 Part 2 decoder), vp8.cpp (the VP8 decoder) and
-// vp9.cpp (the VP9 decoder).
+// mpeg4.cpp (the MPEG-4 Part 2 decoder), mpeg12.cpp (the MPEG-1/2
+// decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder) and
+// h264.cpp (the H.264 decoder).
 #pragma once
 
 #include <cstddef>
@@ -90,6 +91,42 @@ class Mpeg4Decoder {
   bool reorders() const;
   // The VOL's picture size; false before a VOL.
   bool picture_size(int& w, int& h) const;
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's mpeg1video/mpeg2video decoder for progressive MPEG-1 and
+// MPEG-2 video, 4:2:0 and 4:2:2 (see mpeg12.cpp).
+class Mpeg12Decoder {
+ public:
+  // `config`: the headers the container holds (an MP4 esds's
+  // DecoderSpecificInfo, a Matroska CodecPrivate), possibly empty; `tag`
+  // names the stream in messages.
+  Mpeg12Decoder(const std::vector<uint8_t>& config, const std::string& tag);
+  ~Mpeg12Decoder();
+  // Decode one packet; true with `out` filled when libavcodec outputs a
+  // picture after it: behind low_delay 0 the older reference, a
+  // B-picture at once; a packet that is a sequence end code alone gives
+  // the reference still held.
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // At the end of the stream: the reference still held back; false when
+  // none is left.
+  bool flush(Picture& out);
+  // Read one packet's sequence-level headers only (the packets before a
+  // later starting point).
+  void headers(const uint8_t* data, size_t n);
+  // Order pictures from their headers without decoding their slices.
+  void headers_only();
+  // Whether the sequence extension sets low_delay (no picture held back).
+  bool low_delay() const;
+  // The last sequence header's picture size; false before one.
+  bool picture_size(int& w, int& h) const;
+  // A packet's first picture's coding type: 0 I, 1 P, 2 B, 3 D; −1 when
+  // it holds none. `closed`: whether it is an I-picture after a GOP
+  // header with closed_gop in the same packet.
+  static int peek(const uint8_t* data, size_t n, bool* closed = nullptr);
 
  private:
   struct State;

@@ -126,7 +126,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // Containers
 // =====================================================================
 
-enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kH264, kOther };
+enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kOther };
 
 struct Packet {
   size_t off = 0;
@@ -141,8 +141,8 @@ struct Track {
   std::string tag;              // fourcc or CodecID, for messages
   std::string container;
   int width = 0, height = 0;    // as the container gives them
-  std::vector<uint8_t> config;  // MPEG-4 headers (esds, CodecPrivate, strf);
-                                // H.264's avcC record
+  std::vector<uint8_t> config;  // MPEG-4 and MPEG-1/2 headers (esds,
+                                // CodecPrivate, strf); H.264's avcC record
   std::vector<Packet> packets;
   int64_t count = 0;            // cv2's CAP_PROP_FRAME_COUNT
   // cv2's CAP_PROP_ORIENTATION_META: the clockwise turn, 0..359, of the
@@ -176,6 +176,23 @@ int cv2_orientation(const int32_t m[9], const std::string& where) {
   return angle < 0 ? angle + 360 : angle;
 }
 
+// libavformat's QuickTime tags of MPEG-1 and MPEG-2 video (isom.c's
+// ff_codec_movvideo_tags: HDV, XDCAM, IMX ...), which its MP4 demuxer
+// reads as sample entries and its AVI demuxer after the riff tags.
+bool mov_mpeg12(const std::string& tag) {
+  static const char* kTags[] = {
+      "m1v1", "m1v ", "mp1v", "mpeg", "m2v1", "mp2v", "mmes", "AVmp",
+      "hdv1", "hdv2", "hdv3", "hdv4", "hdv5", "hdv6", "hdv7", "hdv8",
+      "hdv9", "hdva", "mx5n", "mx5p", "mx4n", "mx4p", "mx3n", "mx3p",
+      "xd51", "xd54", "xd55", "xd59", "xd5a", "xd5b", "xd5c", "xd5d",
+      "xd5e", "xd5f", "xdv1", "xdv2", "xdv3", "xdv4", "xdv5", "xdv6",
+      "xdv7", "xdv8", "xdv9", "xdva", "xdvb", "xdvc", "xdvd", "xdve",
+      "xdvf", "xdhd", "xdh2"};
+  for (const char* t : kTags)
+    if (tag == t) return true;
+  return false;
+}
+
 // libavformat's riff tags (upper-cased, as its AVI demuxer retries) and
 // the codecs they name.
 Codec riff_codec(const std::string& tag) {
@@ -192,6 +209,15 @@ Codec riff_codec(const std::string& tag) {
   if (u == "VP90") return Codec::kVp9;
   if (u == "H264" || u == "X264" || u == "AVC1" || u == "DAVC")
     return Codec::kH264;
+  // MPEG-1 and MPEG-2 video (libavformat's ff_codec_bmp_tags; VCR2 and
+  // SLIF, which libavcodec decodes with their own quirks, are not read).
+  static const char* kMpeg12[] = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2",
+                                  "MPGV", "EM2V", "MMES", "LMP2", "DVR ",
+                                  "BW10", "XMPG", "M701", "M702", "M703",
+                                  "M704", "M705"};
+  for (const char* t : kMpeg12)
+    if (u == t) return Codec::kMpeg12;
+  if (mov_mpeg12(tag)) return Codec::kMpeg12;
   return Codec::kOther;
 }
 
@@ -699,6 +725,8 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
     t.codec = Codec::kH264;
   } else if (t.tag == "vp08" || t.tag == "vp09") {
     read_vpcc(t, boxes(f, entry + 86, entry + esz));
+  } else if (mov_mpeg12(t.tag)) {
+    t.codec = Codec::kMpeg12;
   } else if (t.tag == "mp4v") {
     const Box* esds = nullptr;
     std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
@@ -708,6 +736,10 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
     read_esds(t, *esds, oti);
     if (oti == 0x20) {
       t.codec = Codec::kMpeg4;
+    } else if ((oti >= 0x60 && oti <= 0x65) || oti == 0x6A) {
+      // MPEG-2 (Simple, Main, SNR, Spatial, High, 4:2:2) and MPEG-1
+      // video, the sequence header as DecoderSpecificInfo.
+      t.codec = Codec::kMpeg12;
     } else if (oti == 0x6C) {
       t.codec = Codec::kMjpeg;
       t.config.clear();
@@ -1514,6 +1546,9 @@ void demux_mkv(Track& t) {
               if (priv.empty())
                 broken("Matroska V_MPEG4/ISO/AVC track without its avcC "
                        "CodecPrivate");
+            } else if (codec == "V_MPEG1" || codec == "V_MPEG2") {
+              t.codec = Codec::kMpeg12;
+              t.config = priv;
             } else if (codec == "V_MPEG4/ISO/SP" ||
                        codec == "V_MPEG4/ISO/ASP" ||
                        codec == "V_MPEG4/ISO/AP") {
@@ -1580,9 +1615,12 @@ void demux_mkv(Track& t) {
   if (default_duration) {
     av_reduce(fn, fd, 1000000000, int64_t(default_duration), 30000);
   } else {
-    if (t.codec == Codec::kH264 || t.codec == Codec::kMpeg4)
+    if (t.codec == Codec::kH264 || t.codec == Codec::kMpeg4 ||
+        t.codec == Codec::kMpeg12)
       unsupported(std::string("Matroska ") +
-                  (t.codec == Codec::kH264 ? "H.264" : "MPEG-4 Part 2") +
+                  (t.codec == Codec::kH264    ? "H.264"
+                   : t.codec == Codec::kMpeg4 ? "MPEG-4 Part 2"
+                                              : "MPEG-1/2") +
                   " track without DefaultDuration (cv2's rate would come "
                   "from the stream's own timing)");
     if (laced)
@@ -2634,6 +2672,8 @@ class Decoder {
                   codec_name(t.tag) + ")");
     if (t.codec == Codec::kMpeg4)
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
+    if (t.codec == Codec::kMpeg12)
+      mpeg12_.reset(new Mpeg12Decoder(t.config, t.tag));
     if (t.codec == Codec::kVp8) vp8_.reset(new Vp8Decoder());
     if (t.codec == Codec::kVp9) vp9_.reset(new Vp9Decoder());
     if (t.codec == Codec::kH264) {
@@ -2679,6 +2719,7 @@ class Decoder {
     if (vp8_) return vp8_->decode(d, p.size, out);
     if (vp9_) return vp9_->decode(d, p.size, out);
     if (h264_) return h264_->decode(d, p.size, out);
+    if (mpeg12_) return mpeg12_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
@@ -2691,9 +2732,11 @@ class Decoder {
   }
 
   // At the end of the track: a picture the decoder still holds back
-  // (H.264's reorder delay, MPEG-4's B-VOPs); false when none is left.
+  // (H.264's reorder delay, MPEG-4's B-VOPs, MPEG-1/2's reference);
+  // false when none is left.
   bool flush(Picture& out) {
-    return (h264_ && h264_->flush(out)) || (mpeg4_ && mpeg4_->flush(out));
+    return (h264_ && h264_->flush(out)) || (mpeg4_ && mpeg4_->flush(out)) ||
+           (mpeg12_ && mpeg12_->flush(out));
   }
 
   // The packet a picture of decode() or flush() was decoded from.
@@ -2708,11 +2751,13 @@ class Decoder {
   }
 
   // Read packet i's headers only (MPEG-4: a VOL it holds is kept;
-  // H.264: its parameter sets and libx264's build from its SEI).
+  // H.264: its parameter sets and libx264's build from its SEI; MPEG-1/2:
+  // its sequence headers and extensions).
   void skip(size_t i) {
     const uint8_t* d = &t_.file[t_.packets[i].off];
     if (mpeg4_) mpeg4_->peek(d, t_.packets[i].size);
     if (h264_) h264_->headers(d, t_.packets[i].size);
+    if (mpeg12_) mpeg12_->headers(d, t_.packets[i].size);
   }
 
   static std::string codec_name(const std::string& tag) {
@@ -2722,6 +2767,8 @@ class Decoder {
       return "HEVC, not read";
     if (has("AV1") || has("AV01")) return "AV1, not read";
     if (has("FFV1")) return "FFV1, not read";
+    if (u == "VCR2" || u == "SLIF")
+      return "an MPEG-1/2 variant with its own quirks, not read";
     return "a codec that is not read";
   }
 
@@ -2732,6 +2779,7 @@ class Decoder {
   std::unique_ptr<Vp8Decoder> vp8_;
   std::unique_ptr<Vp9Decoder> vp9_;
   std::unique_ptr<H264Decoder> h264_;
+  std::unique_ptr<Mpeg12Decoder> mpeg12_;
 };
 
 // A JPEG's frame size, from its SOF segment; false without one.
@@ -2762,7 +2810,8 @@ bool jpeg_size(const uint8_t* d, size_t n, int& w, int& h) {
 // which its swscale scales every picture of another size (SWS_BICUBIC,
 // from the picture's own size and chroma siting). Read from the first
 // packet's headers (a JPEG's SOF, a VP8 or VP9 keyframe's size, the
-// first SPS, the VOL); the container's size when they give none. A
+// first SPS, the VOL, the sequence header); the container's size when
+// they give none. A
 // first MJPEG picture under 3/4 of the container's height is one field
 // of a pair (libavcodec's test).
 void first_size(const Track& t, int& w, int& h) {
@@ -2794,6 +2843,12 @@ void first_size(const Track& t, int& w, int& h) {
       case Codec::kMpeg4: {
         Mpeg4Decoder q(t.config, t.tag);
         q.peek(d, p.size);
+        q.picture_size(w, h);
+        break;
+      }
+      case Codec::kMpeg12: {
+        Mpeg12Decoder q(t.config, t.tag);
+        q.headers(d, p.size);
         q.picture_size(w, h);
         break;
       }
@@ -2855,7 +2910,8 @@ void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 
 // info = (width, height (the first picture's, as cv2 reports them),
 // cv2's frame count, packets, config bytes,
-// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 another,
+// codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 MPEG-1/2,
+// 6 another,
 // cv2's orientation); tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
@@ -3018,7 +3074,9 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
 // last I-VOP at or before the first pick to the last pick, VP8 and VP9
 // from the last shown keyframe at or before it, H.264 (whose frames count
 // in output order) from the last IDR picture at or before it until the
-// last pick is output. → 0, or 1 broken / 2 unsupported with err set.
+// last pick is output, MPEG-1/2 (in output order too) from the last
+// I-picture of a closed GOP whose first output is at or before it. → 0,
+// or 1 broken / 2 unsupported with err set.
 int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                int32_t size, double w0, double w1,
                                float* out, char* err, int32_t errlen) {
@@ -3051,7 +3109,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     // MPEG-4's VOP kinds (a packet holding none gives no frame); B-VOPs
     // reorder its output.
     std::vector<int> vop(t.packets.size(), 0);
-    bool reorder = t.codec == viai_video::Codec::kH264;
+    bool reorder = t.codec == viai_video::Codec::kH264 ||
+                   t.codec == viai_video::Codec::kMpeg12;
     if (t.codec == viai_video::Codec::kMpeg4) {
       viai_video::Mpeg4Decoder scan(t.config, t.tag);
       for (size_t i = 0; i < t.packets.size(); ++i)
@@ -3086,6 +3145,37 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
         // A guessed reorder depth may drop pictures (as cv2's libavcodec
         // does) and grows as the stream goes: count from the start.
         if (scan.guesses_delay()) start = 0, n = 0;
+      } else if (t.codec == viai_video::Codec::kMpeg12) {
+        // MPEG-1/2: libavcodec outputs one picture behind unless
+        // low_delay, skips an open GOP's B-pictures that lack their
+        // forward reference and drops the held references at a new size,
+        // so a pass over the headers counts each packet's outputs. A
+        // closed GOP's B-pictures predict from its I-picture alone: a
+        // fresh decoder started there outputs what the whole decode
+        // outputs from that packet on, but for the older reference the
+        // whole decode outputs at it (low_delay 0). An open GOP's
+        // I-picture is no such start (its leading B-pictures would be
+        // skipped).
+        viai_video::Mpeg12Decoder scan(t.config, t.tag);
+        scan.headers_only();
+        int64_t outs = 0;
+        Picture q;
+        for (size_t i = 0; i < t.packets.size(); ++i) {
+          const uint8_t* d = &t.file[t.packets[i].off];
+          const uint32_t sz = t.packets[i].size;
+          bool closed = false;
+          int kind = viai_video::Mpeg12Decoder::peek(d, sz, &closed);
+          bool got = scan.decode(d, sz, q) &&
+                     !t.packets[size_t(q.source)].discard;
+          if (got) ++outs;
+          if (kind == 0 && closed) {
+            int64_t first = scan.low_delay() && got ? outs - 1 : outs;
+            if (first <= want.front()) {
+              start = i;
+              n = first;
+            }
+          }
+        }
       }
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       bool done = false;

@@ -1,6 +1,7 @@
 """ctypes bindings of the port's native host library (csrc/wavio.cpp,
 csrc/framestack.cpp, csrc/imagedec.cpp, csrc/videodec.cpp,
-csrc/mpeg4.cpp).
+csrc/mpeg4.cpp, csrc/mpeg12.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
+csrc/h264.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
@@ -9,8 +10,8 @@ the threaded random-crop clip loader; where the JAX package calls PIL,
 the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
 (`load_frame_dir`), whose plain twin is `data/image.py`; and where it
 calls cv2, the compressed video reader: the demuxers (`video_track`),
-the MJPEG, MPEG-4 Part 2, VP8, VP9 and H.264 decoders with swscale's
-conversion to BGR and cv2's turn by the display orientation
+the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9 and H.264 decoders with
+swscale's conversion to BGR and cv2's turn by the display orientation
 (`decode_video`) and the frame path
 of `_load_frames_video` (`load_video_frames`).
 `_build.py` compiles the library with g++ at first use; a failed build
@@ -227,7 +228,7 @@ def load_frame_dir(path: str, n_frames: int, size: int,
 
 
 # videodec.cpp's codecs (VideoTrack.codec).
-VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "other")
+VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "other")
 # The AVI video formats of data/avi.py, which load_frames reads.
 RAW_AVI_TAGS = ("RGBA", "BI_RGB")
 
@@ -237,11 +238,13 @@ class VideoTrack:
     """A video file's first video track as the port's demuxer gives it:
     the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
-    ("mjpeg", "mpeg4", "vp8", "vp9", "h264" or "other"), the size of
-    its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT report it
+    ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12" or "other"), the
+    size of its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT
+    report it
     (from the first packet's headers; the container's when they give
     none), the frame count cv2's CAP_PROP_FRAME_COUNT reports,
-    the MPEG-4 headers or H.264 avcC record the container holds (`config`)
+    the MPEG-4 or MPEG-1/2 headers or H.264 avcC record the container
+    holds (`config`)
     and the packets libavformat gives cv2 in decode order (under an MP4
     edit, from the keyframe it starts from; an MP4's movie fragments after
     moov's own samples), each (bytes, the container's keyframe flag):
