@@ -92,9 +92,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      as PNG) through the train CLI, GL launches 2 and plain 0; the eval
      CLI on a musices split of them; the loader's wait share over 10
      steps, the decode time per frame and the host's cores;
- 13. compressed video ([video]): the native demuxers and decoders
-     (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
-     csrc/h264.cpp) on the committed fixtures of tests/torch_videos/
+ 13. compressed and uncompressed video ([video]): the native demuxers
+     and decoders (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/mpeg12.cpp,
+     csrc/vp8.cpp, csrc/vp9.cpp, csrc/h264.cpp, csrc/rawvideo.cpp) on
+     the committed fixtures of tests/torch_videos/
      against cv2's committed decodes, frame counts and, for video as
      phones and muxers write it (turned, fragmented, without
      DefaultDuration, with sound), orientations (every codec exact), an
@@ -114,16 +115,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      once from browser clips (VP9 profile 2 10-bit BT.2020, VP9
      realtime with reference scaling and a size change) and once from
      screen clips (H.264 High 4:4:4 Predictive 8-bit as ffmpeg writes it
-     from images, lossless 4:2:0 as a screen capture), GL launches 2
-     and plain 0 each; the eval CLI on a musices split of each folder;
+     from images, lossless 4:2:0 as a screen capture), once from DVD
+     clips (MPEG-2, MPEG-1) and once from uncompressed clips (cv2's
+     writer's I420, a capture tool's YUY2), GL launches 2 and plain 0
+     each; the eval CLI on a musices split of each folder;
      each MPEG-4 fixture's max |Δ|, each phone and muxer fixture's count
      and orientation, each camera, browser and screen fixture's count
      and max |Δ|, the browser clips' reads against the JAX package's
-     committed picks; the decode time per frame of each codec, of a
+     committed picks, each uncompressed fixture's count and max |Δ|;
+     the decode time per frame of each codec, of a
      turned frame against the same file unturned, a 10-bit frame's
      conversion share, a 4:4:4 and a lossless frame's conversion share,
      a picture's upscale to the first one's size, a scaled-reference
      frame's read against an unscaled one's, a clip's read of 16 frames,
+     a 224x224 I420 and a 720x480 YUY2 frame's read and conversion,
      the loader's wait share of a step from each folder and the host's
      cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
@@ -145,7 +150,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches counted; [bench reference] holds each preset's bf16 chain
      on the card against its float32 chain on the CPU (same weights,
      clips, masks and injected noise, GL×1; bucket 8, the complex
-     presets 2 clips); [profile bench] profiles one default call at
+     presets 2 clips), the CPU chains computed by a process of the
+     script's own started with it (no card, nice 19) and joined there;
+     [profile bench] profiles one default call at
      batch 128 (busy share, kernel rows, elementwise share);
  16. the mesh: [mesh] starts a 1-rank NCCL group from a file store;
      make_mesh() is 1x1, a tiny SGD step through make_train_step(mesh=)
@@ -201,7 +208,8 @@ from viai_tpu_torch.nn.refiner import FiLM
 from viai_tpu_torch.signal import gl_cuda, griffin_lim, stft
 from viai_tpu_torch.signal.gl_cuda import griffin_lim_cuda
 from viai_tpu_torch.signal.mask import sample_batch_masks
-from viai_tpu_torch.train.diffusion import (complex_refiner_channels,
+from viai_tpu_torch.train.diffusion import (RefineNoise,
+                                            complex_refiner_channels,
                                             draw_noise,
                                             make_complex_refiner_infer_fn)
 from viai_tpu_torch.utils.cost import conv_gflop, gl_bytes, gl_ops
@@ -244,6 +252,15 @@ BF16_BOUND = 2e-2
 # prints the float32 chain on the card beside each (the floor).
 BENCH_REF_BOUNDS = {"default": BF16_BOUND, "refiner_mag": 5e-2,
                     "refiner_complex": BF16_BOUND, "hybrid": BF16_BOUND}
+# [bench reference]'s float32 CPU chains (and the weights, clips and
+# noise they share with the card) are computed by a process of their own,
+# started with the script (bench_reference_cpu: no card, nice 19,
+# BENCH_REF_THREADS torch threads, so that it takes cores the phases
+# before leave idle) and joined in the phase, which took 98.0 s of PR
+# 20's final run with them inline (NVIDIA H100 80GB HBM3, 700 W).
+BENCH_REF_THREADS = 2
+BENCH_REF_SEED = 5
+BENCH_REF_FLAG = "--bench-reference-cpu"
 OPTIONS = (
     ("bottleneck_attn=2", dict(bottleneck_attn=2), {}, False, 1e-3),
     ("phase_head (init=)", dict(output_nc=3), dict(phase_head=True), False,
@@ -386,7 +403,13 @@ FRAMES_WARMUP = 3
 # frames; in AVI, MP4 and
 # Matroska), beside clip_dvd.mkv (MPEG-2 at 720x480 as MakeMKV stores a
 # DVD film title: soft telecine, open GOPs of 12) and clip_pim1.avi
-# (MPEG-1 at 352x240, cv2.VideoWriter's PIM1). Decoded
+# (MPEG-1 at 352x240, cv2.VideoWriter's PIM1), and the uncompressed video
+# that OpenCV's writer, capture tools and ffmpeg store (raw_*: planar,
+# semi-planar and packed YUV, grey, v210, BI_RGB at 8, 16 and 32 bits in
+# AVI at 64x48 and 45x29, V_UNCOMPRESSED Matroska, cv2's own files for
+# fourcc 0, I420, IYUV, YV12, NV12, Y800, GREY and RGBA), beside
+# clip_i420.avi (cv2.VideoWriter's fourcc 0) and clip_yuy2.avi (YUY2 as
+# `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -394,9 +417,10 @@ FRAMES_WARMUP = 3
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
-             "mpeg12": 0}
+             "mpeg12": 0, "raw": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
-               "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2"}
+               "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
+               "raw": "uncompressed"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
@@ -409,7 +433,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
                  "browser": ("clip_hdr.webm", "clip_rtc.webm"),
                  "screen": ("clip_screen.mp4", "clip_lossless.mkv"),
-                 "dvd": ("clip_dvd.mkv", "clip_pim1.avi")}
+                 "dvd": ("clip_dvd.mkv", "clip_pim1.avi"),
+                 "raw": ("clip_i420.avi", "clip_yuy2.avi")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -455,6 +480,11 @@ DVD_FIXTURES = tuple(
         "mpeg1_odd")
     for c in ("avi", "mp4", "mkv"))
 DVD_CLIPS = ("clip_dvd_mkv", "clip_pim1_avi")
+# the uncompressed video of tests/_torch_make_videos.py's RAW_CASES (every
+# committed raw_*.npz) and the raw folder's clips, each held and printed
+RAW_CLIPS = ("clip_i420_avi", "clip_yuy2_avi")
+# [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
+RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
 # [video]'s repeats, cut to make room for the dvd folder (the script
 # ran 1119.1 s of its 1200 s with them at 3 and 7, NVIDIA H100 80GB
 # HBM3 at 700 W): decodes and reads timed as the best of VIDEO_REPS;
@@ -2012,7 +2042,7 @@ def video_fixtures():
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
-    per_browser, per_screen, per_dvd = [], [], []
+    per_browser, per_screen, per_dvd, per_raw = [], [], [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2041,6 +2071,11 @@ def video_fixtures():
                 f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
         if npz.stem in DVD_FIXTURES or npz.stem in DVD_CLIPS:
             per_dvd.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
+        if npz.stem.startswith("raw_") or npz.stem in RAW_CLIPS:
+            per_raw.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
                 f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
                 f"{int(ref['count'])}) max|Δ| {err}")
@@ -2089,6 +2124,11 @@ def video_fixtures():
     require(len(per_dvd) == len(DVD_FIXTURES) + len(DVD_CLIPS),
             f"[video] {len(per_dvd)} MPEG-1/2 fixtures of "
             f"{len(DVD_FIXTURES) + len(DVD_CLIPS)}")
+    n_raw = len(list(VIDEO_FIXTURES.glob("raw_*.npz"))) + len(RAW_CLIPS)
+    log(f"[video] uncompressed video as OpenCV's writer, capture tools and "
+        f"ffmpeg store it ({len(per_raw)} fixtures): " + "; ".join(per_raw))
+    require(len(per_raw) == n_raw and n_raw > len(RAW_CLIPS),
+            f"[video] {len(per_raw)} uncompressed fixtures of {n_raw}")
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
         path = str(VIDEO_FIXTURES / ".".join(name.rsplit("_", 1)))
@@ -2142,11 +2182,13 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     change, in WebM), then screen clips (H.264 High 4:4:4 Predictive in
     MP4, lossless 4:2:0 in Matroska), then DVD clips (MPEG-2 at 720x480
     with soft telecine and open GOPs in Matroska, MPEG-1 at 352x240 from
-    cv2's writer in AVI);
+    cv2's writer in AVI), then uncompressed clips (cv2's writer's I420,
+    a capture tool's YUY2, in AVI);
     (c) the eval CLI on a musices split of each; (d) the decode time per
     frame of each codec, a turned frame's against the same file's
     unturned, a 10-bit, a 4:4:4 and a lossless frame's conversion share,
-    a 720x480 MPEG-2 frame's decode and conversion, a clip's read, the
+    a 720x480 MPEG-2 frame's decode and conversion, a 224x224 I420 and a
+    720x480 YUY2 frame's read and conversion, a clip's read, the
     loader's wait share of a step from each folder.
     Returns the GL kernel's launches."""
     from viai_tpu_torch import native
@@ -2208,7 +2250,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                         "H.264 lossless 4:2:0, ultrafast"),
                        ("clip_dvd.mkv",
                         "MPEG-2 MP@ML, soft telecine, open GOPs of 12"),
-                       ("clip_pim1.avi", "MPEG-1, cv2.VideoWriter's PIM1")):
+                       ("clip_pim1.avi", "MPEG-1, cv2.VideoWriter's PIM1"),
+                       ("clip_i420.avi",
+                        "uncompressed I420, cv2.VideoWriter's fourcc 0"),
+                       ("clip_yuy2.avi", "uncompressed YUY2, a capture")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2223,6 +2268,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_browser_costs(best_ms, card)
     video_screen_costs(best_ms, card)
     video_dvd_costs(best_ms, card)
+    video_raw_costs(best_ms, card)
     for folder, root in roots.items():
         video_wait_share(folder, root, ckpt, dev, card)
     log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
@@ -2388,6 +2434,40 @@ def video_dvd_costs(best_ms, card: str):
         f"{FRAMES[1]}x{FRAMES[2]} of the first GOP {first:.3f} ms, of the "
         f"second (an open GOP: from the first packet) {second:.3f} ms; "
         f"{card}")
+
+
+def video_raw_costs(best_ms, card: str):
+    """[video] (d): the time to read and convert one frame of uncompressed
+    video: clip_i420.avi's 224x224 I420 (swscale's unscaled yuv420p
+    converter) and a 720x480 YUY2 capture written here (random bytes,
+    hand-muxed as tests/_torch_make_videos.py's avi_file; swscale's
+    scaler, for which it has no unscaled route), each the best of
+    VIDEO_REPS decodes of the whole file over its frames."""
+    from viai_tpu_torch import native
+
+    sys.path.insert(0, str(VIDEO_FIXTURES.parent))
+    import _torch_make_videos as mk
+
+    h, w = RAW_CAPTURE
+    rng = np.random.default_rng(0)
+    packets = [rng.integers(0, 256, h * w * 2, np.uint8).tobytes()
+               for _ in range(RAW_CAPTURE_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        capture = os.path.join(tmp, "capture_yuy2.avi")
+        with open(capture, "wb") as f:
+            f.write(mk.avi_file(packets, w, h, 30, len(packets), b"YUY2",
+                                bits=16))
+        res = []
+        for path, what in ((str(VIDEO_FIXTURES / "clip_i420.avi"),
+                            "clip_i420.avi (I420)"),
+                           (capture, "a capture (YUY2)")):
+            frames = native.decode_video(path)
+            n, fh, fw = frames.shape[:3]
+            ms = best_ms(lambda: native.decode_video(path)) / n
+            res.append(f"{what} at {fw}x{fh}: {ms:.3f} ms a frame")
+    log("[video] uncompressed, read and converted to BGR (demux, the raw "
+        "decoder, swscale's route; one thread): " + "; ".join(res)
+        + f"; {card}")
 
 
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
@@ -2765,60 +2845,120 @@ def phase_bench(dev) -> int:
     return launches
 
 
-def phase_bench_reference(dev):
-    """Each preset's bf16 chain on the card against its float32 chain on
-    the CPU: the same weights (R with its zero-init layers drawn), clips,
-    gap masks (one CPU generator) and injected refiner noise, GL×1,
-    bounded by BENCH_REF_BOUNDS. The complex presets (16 steps × 8
-    samples of full-width R on the CPU) at 2 clips, the others at bucket
-    8. The card also runs the float32 chain and, for the refiner
-    presets, bf16 G with float32 R and float32 G with bf16 R, printed
-    beside (not bounded)."""
+def bench_reference_cpu(out: str) -> int:
+    """[bench reference]'s CPU half, run by a process of its own (the
+    script with BENCH_REF_FLAG): for each preset the float32 weights (R
+    with its zero-init layers drawn), clips and injected refiner noise,
+    and the float32 chain on the CPU at GL×1, saved to out/<preset>.pt.
+    The complex presets (16 steps × 8 samples of full-width R) at 2
+    clips, the others at bucket 8."""
     from viai_tpu_torch import bench
-    from viai_tpu_torch.train.diffusion import RefineNoise
 
+    os.nice(19)
+    torch.set_num_threads(BENCH_REF_THREADS)
+    torch.manual_seed(BENCH_REF_SEED)
     cfg = TrainConfig()
     for preset in bench.PRESETS:
+        t0 = time.perf_counter()
         n = 8 if preset in ("default", "refiner_mag") else 2
         args = bench.parse_args(["--preset", preset, "--gl_iters", "1",
                                  "--device", "cpu"])
-        g32 = define_G(device="cpu")
-        r32 = noise = None
+        G = define_G(device="cpu")
+        R, noise, (r_in, r_out) = None, None, (0, 0)
         if preset != "default":
             r_in, r_out = ((4, 1) if preset == "refiner_mag"
                            else complex_refiner_channels(2))
-            r32 = perturbed_R(r_in, r_out)
+            R = perturbed_R(r_in, r_out)
             k = 1 if preset == "refiner_mag" else 8
             g = torch.Generator().manual_seed(11)
-            noise = [RefineNoise(torch.randn((n, r_out, 256, 256),
-                                             generator=g))
+            noise = [torch.randn((n, r_out, 256, 256), generator=g)
                      for _ in range(k)]
         wav = tones(n, seed=21, device="cpu")
+        ref = bench.build_infer(preset, G, R, cfg, args)(
+            wav, torch.Generator().manual_seed(0),
+            noise=None if noise is None else
+            [RefineNoise(e) for e in noise]).cpu()
+        torch.save({"G": G.state_dict(),
+                    "R": None if R is None else R.state_dict(),
+                    "r_channels": (r_in, r_out), "noise": noise,
+                    "wav": wav, "ref": ref},
+                   os.path.join(out, f"{preset}.pt"))
+        print(f"[bench reference cpu] {preset}: {n} clips in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+def start_bench_reference() -> tuple[subprocess.Popen, str]:
+    """Start bench_reference_cpu in a process that sees no card; → the
+    process and its directory (its log in cpu.log)."""
+    out = tempfile.mkdtemp(prefix="bench_reference_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(os.path.join(out, "cpu.log"), "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             BENCH_REF_FLAG, out], env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def phase_bench_reference(dev, proc: subprocess.Popen, out: str):
+    """Each preset's bf16 chain on the card against its float32 chain on
+    the CPU (bench_reference_cpu, joined here): the same weights (R with
+    its zero-init layers drawn), clips, gap masks (one CPU generator) and
+    injected refiner noise, GL×1, bounded by BENCH_REF_BOUNDS. The complex
+    presets at 2 clips, the others at bucket 8. The card also runs the
+    float32 chain and, for the refiner presets, bf16 G with float32 R and
+    float32 G with bf16 R, printed beside (not bounded)."""
+    from viai_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    with open(os.path.join(out, "cpu.log")) as f:
+        cpu_log = f.read()
+    log(f"[bench reference] joined the CPU references' process (started "
+        f"with the script: no card, nice 19, {BENCH_REF_THREADS} threads) "
+        f"after waiting {time.perf_counter() - t0:.1f} s; exit {rc}; "
+        + "; ".join(line.split("] ", 1)[-1]
+                    for line in cpu_log.splitlines()
+                    if line.startswith("[bench reference cpu]")))
+    require(rc == 0, f"[bench reference] the CPU process failed: "
+            f"{cpu_log[-2000:]}")
+    cfg = TrainConfig()
+    for preset in bench.PRESETS:
+        saved = torch.load(os.path.join(out, f"{preset}.pt"),
+                           weights_only=True)
+        args = bench.parse_args(["--preset", preset, "--gl_iters", "1",
+                                 "--device", "cpu"])
+        r_in, r_out = saved["r_channels"]
+        wav, ref = saved["wav"], saved["ref"]
+        n = wav.shape[0]
+        noise = None if saved["noise"] is None else \
+            [RefineNoise(e) for e in saved["noise"]]
 
         def run(g_dtype, r_dtype, where):
             G = define_G(dtype=g_dtype, device=where)
-            G.load_state_dict(g32.state_dict())
+            G.load_state_dict(saved["G"])
             R = None
-            if r32 is not None:
+            if saved["R"] is not None:
                 R = define_R(r_in, 64, dtype=r_dtype, out_channels=r_out,
                              device=where)
-                R.load_state_dict(r32.state_dict())
+                R.load_state_dict(saved["R"])
             return bench.build_infer(preset, G, R, cfg, args)(
                 wav.to(where), torch.Generator().manual_seed(0),
                 noise=noise).cpu()
 
-        ref = run("float32", "float32", "cpu")
         arms = [("bf16", "bfloat16", "bfloat16"),
                 ("float32", "float32", "float32")]
-        if r32 is not None:
+        if saved["R"] is not None:
             arms += [("bf16 G, float32 R", "bfloat16", "float32"),
                      ("float32 G, bf16 R", "float32", "bfloat16")]
         bound = BENCH_REF_BOUNDS[preset]
         for name, g_dtype, r_dtype in arms:
-            out = run(g_dtype, r_dtype, dev)
-            require(bool(torch.isfinite(out).all()), f"[bench reference] "
-                    f"{preset}: non-finite output")
-            err = float((out - ref).abs().max()) / float(ref.abs().max())
+            out_card = run(g_dtype, r_dtype, dev)
+            require(bool(torch.isfinite(out_card).all()),
+                    f"[bench reference] {preset}: non-finite output")
+            err = float((out_card - ref).abs().max()) / \
+                float(ref.abs().max())
             if name == "bf16":
                 log(f"[bench reference] {preset}: bf16 chain on the card vs "
                     f"float32 on the CPU, {n} clips GL×1: max|Δ|/max|ref| "
@@ -3280,6 +3420,17 @@ def timed(name: str, fn, *args):
 
 def main():
     card = phase_device()
+    bench_ref, bench_ref_dir = start_bench_reference()
+    try:
+        return run_phases(card, bench_ref, bench_ref_dir)
+    finally:
+        if bench_ref.poll() is None:
+            bench_ref.kill()
+            bench_ref.wait()
+        shutil.rmtree(bench_ref_dir, ignore_errors=True)
+
+
+def run_phases(card: str, bench_ref: subprocess.Popen, bench_ref_dir: str):
     dev = torch.device("cuda")
     timed("build", phase_build)
     max_err = timed("kernel", phase_kernel, dev)
@@ -3310,7 +3461,8 @@ def main():
     timed("profile", phase_profile, svc, card)
     timed("profile_av", phase_profile, av, card, "profile av")
     launches_bench = timed("bench", phase_bench, dev)
-    timed("bench_reference", phase_bench_reference, dev)
+    timed("bench_reference", phase_bench_reference, dev, bench_ref,
+          bench_ref_dir)
     timed("profile_bench", phase_profile_bench, dev, card)
     launches_mesh = timed("mesh", phase_mesh, dev)
     t_new = time.perf_counter()
@@ -3360,4 +3512,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == BENCH_REF_FLAG:
+        sys.exit(bench_reference_cpu(sys.argv[2]))
     sys.exit(main())

@@ -78,7 +78,10 @@ which the card's machine does not have, so the fixtures are committed):
     intra only, JVT and custom scaling lists, I_PCM and a crop; its GBR
     from packed BGR input, `x264_encode(csp=14)`; lossless transform
     bypass at 4:2:0, 4:2:2, 4:4:4 and 10 bits; 12 and 14 bits by a
-    patched SPS);
+    patched SPS); the files of RAW_CASES, uncompressed video
+    (`raw_packets` hand-muxed by `avi_file` and `mkv_file`, and
+    cv2.VideoWriter's own files for fourcc 0, I420, IYUV, YV12, NV12,
+    Y800, GREY and RGBA);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); `count`, `CAP_PROP_FRAME_COUNT`; and for
@@ -96,8 +99,10 @@ which the card's machine does not have, so the fixtures are committed):
     of a 224x160 crop (PHONE_CLIPS), `clip_hdr.webm` and `clip_rtc.webm`
     (BROWSER_CLIPS, their .npz with the JAX package's picks),
     `clip_screen.mp4` (4:4:4, medium preset) and `clip_lossless.mkv`
-    (lossless 4:2:0, ultrafast preset) (SCREEN_CLIPS), the clips
-    chip_smoke.py trains from and times.
+    (lossless 4:2:0, ultrafast preset) (SCREEN_CLIPS), `clip_dvd.mkv`
+    and `clip_pim1.avi` (DVD_CLIPS), `clip_i420.avi` (cv2's fourcc 0)
+    and `clip_yuy2.avi` (RAW_CLIPS), the clips chip_smoke.py trains from
+    and times.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
 that moves over a drifting background, so that the MPEG-4 and VP8 clips'
@@ -684,9 +689,65 @@ DVD_UNREAD = {
     "mpeg2_scalable_avi": (dict(edit="scalable"), "scalable"),
     "mpeg2_444_avi": (dict(edit="4:4:4"), "4:4:4"),
 }
+# Uncompressed video as OpenCV's writer, capture tools and ffmpeg store
+# it. Hand-muxed here (`raw_packets` in `avi_file` or `mkv_file`), at
+# 64x48 and at an odd 45x29 ("odd"), RAW_FRAMES frames of moving_frames:
+# each AVI fourcc of RAW_AVI_TAGS (libavformat's raw layouts: planar,
+# semi-planar and packed YUV, grey, v210), BI_RGB at 8 bits with a
+# colour table and without one, 16 bits and 32 bits bottom-up and
+# top-down (strf's height negative), and V_UNCOMPRESSED Matroska tracks
+# by their ColourSpace; and written by cv2.VideoWriter at 64x48,
+# RAW_CV2_FRAMES frames, for each fourcc it stores uncompressed, in AVI
+# and Matroska ("" for fourcc 0, which stores I420; it stores yuv420p
+# bytes under every YUV fourcc, and rounds odd sizes down, which is why
+# odd sizes come from hand-muxed files only).
+# name: (container or "cv2", fourcc or "BI_RGB", layout of the bytes or
+# cv2's container, options)
+RAW_AVI_TAGS = {
+    "I420": "i420", "IYUV": "i420", "YV12": "yv12", "NV12": "nv12",
+    "NV21": "nv21", "Y800": "grey", "GREY": "grey", "Y8  ": "grey",
+    "YUY2": "yuyv", "YUYV": "yuyv", "YUNV": "yuyv", "V422": "yuyv",
+    "Y422": "yuyv", "UYVY": "uyvy", "HDYC": "uyvy", "UYNV": "uyvy",
+    "2vuy": "uyvy", "YVYU": "yvyu", "YV16": "yv16", "Y42B": "y42b",
+    "YV24": "yv24", "Y41B": "y41b", "v210": "v210"}
+RAW_DIBS = {"rgb8": dict(bits=8, palette=True),
+            "rgb8nopal": dict(bits=8),
+            "rgb16": dict(bits=16),
+            "rgb32": dict(bits=32),
+            "rgb32td": dict(bits=32, top_down=True)}
+RAW_SIZES = {"": (48, 64), "odd": (29, 45)}
+RAW_CASES = {
+    **{f"raw_{t.strip().lower()}{k}_avi": ("avi", t, lay, dict(size=hw))
+       for t, lay in RAW_AVI_TAGS.items() for k, hw in RAW_SIZES.items()},
+    **{f"raw_{n}{k}_avi": ("avi", "BI_RGB", "dib", dict(o, size=hw))
+       for n, o in RAW_DIBS.items() for k, hw in RAW_SIZES.items()},
+    # a capture tool's bit count of 12 for YUY2: libavcodec scales each
+    # 16-bit word x to x << 4 | x >> 8 (rawdec's is_lt_16bpp)
+    "raw_yuy2b12_avi": ("avi", "YUY2", "yuyv", dict(size=(48, 64), bits=12)),
+    "raw_i420odd_mkv": ("mkv", "I420", "i420", dict(size=(29, 45))),
+    "raw_yuy2_mkv": ("mkv", "YUY2", "yuyv", dict(size=(48, 64))),
+    "raw_uyvyodd_mkv": ("mkv", "UYVY", "uyvy", dict(size=(29, 45))),
+    "raw_rgb24_mkv": ("mkv", "RGB\x18", "rgb24", dict(size=(48, 64))),
+    "raw_bgr24odd_mkv": ("mkv", "BGR\x18", "bgr24", dict(size=(29, 45))),
+    "raw_bgra_mkv": ("mkv", "BGRA", "bgra", dict(size=(48, 64))),
+    **{f"raw_cv2{t.lower() or 'zero'}_{c}": ("cv2", t, c, {})
+       for t in ("", "I420", "IYUV", "YV12", "NV12", "Y800", "GREY", "RGBA")
+       for c in ("avi", "mkv")},
+}
+RAW_CV2_SIZE, RAW_FRAMES, RAW_CV2_FRAMES = (48, 64), 6, 8
+# strf's bit count of each layout, as capture tools write it
+RAW_BITS = {"i420": 12, "yv12": 12, "nv12": 12, "nv21": 12, "y41b": 12,
+            "grey": 8, "yuyv": 16, "uyvy": 16, "yvyu": 16, "y42b": 16,
+            "yv16": 16, "yv24": 24, "v210": 20}
+# The clips chip_smoke.py's `raw` folder trains from, of the committed
+# 224x224 clip's first 8 frames: cv2.VideoWriter's fourcc 0 (an I420
+# AVI), and YUY2 as `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames.
+RAW_CLIPS = {"clip_i420_avi": ("cv2", "", "avi", {}),
+             "clip_yuy2_avi": ("avi", "YUY2", "yuyv", {})}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
-        *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS)
+        *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
+        *RAW_CLIPS)
 
 
 def codec_of(name: str) -> str:
@@ -697,6 +758,8 @@ def codec_of(name: str) -> str:
         return "vp9"
     if name in DVD_CASES or name in DVD_CLIPS or name in DVD_UNREAD:
         return "mpeg12"
+    if name in RAW_CLIPS:
+        return "raw"
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
                 "DX50": "mpeg4", "VP80": "vp8",
@@ -707,7 +770,7 @@ def codec_of(name: str) -> str:
 
 def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
-            or name in SCREEN_CLIPS or name in DVD_CLIPS):
+            or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -739,10 +802,13 @@ def moving_frames(seed: int, t: int, h: int = H, w: int = W) -> np.ndarray:
 
 
 def write_cv2(path: str, fourcc: str, fps: float, frames) -> None:
+    """cv2.VideoWriter with `fourcc` ("" for 0, OpenCV's "no compression"
+    choice)."""
     import cv2
 
     h, w = frames[0].shape[:2]
-    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc) if fourcc
+                         else 0, fps, (w, h))
     if not wr.isOpened():
         raise RuntimeError(f"cv2 cannot write {fourcc} to {path}")
     for f in frames:
@@ -801,21 +867,26 @@ def _avi_chunks(packets: list[bytes], audio: dict | None, lo: int, hi: int,
 
 
 def avi_file(packets: list[bytes], w: int, h: int, fps: int, count: int,
-             fourcc: bytes = b"MJPG", audio: dict | None = None) -> bytes:
+             fourcc: bytes = b"MJPG", audio: dict | None = None,
+             bits: int = 24, top_down: bool = False,
+             extradata: bytes = b"") -> bytes:
     """An AVI of video packets (stream 0 'vids' `fourcc`, `00dc` chunks,
     an idx1 index with every packet a keyframe) whose avih and strh say
     `count` frames; `audio`, a sound track (audio_track) as a second
     stream, `auds` WAVE_FORMAT_PCM, stream 0 when its "first" is true
     (the video stream 1, `01dc`), its `##wb` chunks interleaved with the
-    video's, one a frame, in movi and idx1."""
+    video's, one a frame, in movi and idx1. strf (BITMAPINFOHEADER): the
+    bit count `bits`, the height negative when `top_down` (a top-down
+    DIB), `extradata` after its 40 bytes (a BI_RGB colour table of B, G,
+    R, 0 entries); fourcc b"\\0\\0\\0\\0" is BI_RGB."""
     vid = 1 if audio and audio["first"] else 0
     avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, count, 0,
                        2 if audio else 1, 0, w, h, 0, 0, 0, 0)
     strh = (b"vids" + fourcc + struct.pack(
         "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, count, 0, 0xFFFFFFFF, 0,
         0, 0, w, h))
-    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
-                       0, 0, 0, 0)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, -h if top_down else h, 1,
+                       bits, fourcc, w * h * 3, 0, 0, 0, 0) + extradata
     strls = [_list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))]
     if audio:
         strls.insert(1 - vid, _avi_audio_strl(audio))
@@ -1397,7 +1468,8 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
              keys: list[int] | None = None, default_duration: bool = True,
              times: list[int] | None = None, duration: float | None = None,
              projection: dict | None = None, audio: dict | None = None,
-             cluster: int | None = None) -> bytes:
+             cluster: int | None = None,
+             colour_space: bytes | None = None) -> bytes:
     """A Matroska file of one video track: `packets` as SimpleBlocks of
     one cluster in decode order, at the presentation times `pts` (in
     frames; None: decode order), keyframes at `keys` (None: every
@@ -1414,7 +1486,9 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
     `audio`, a sound track (audio_track) as A_PCM/INT/LIT, track 1 with
     the video as track 2 (when its "first" is true, else after it): the
     audio of three frames a block before their first video block, laced
-    in turn by Xiph, fixed and EBML lacing or unlaced in a BlockGroup."""
+    in turn by Xiph, fixed and EBML lacing or unlaced in a BlockGroup;
+    `colour_space`, the Video element's ColourSpace (a V_UNCOMPRESSED
+    track's fourcc)."""
     n = len(packets)
     pts = list(range(n)) if pts is None else pts
     keys = set(range(n)) if keys is None else set(keys)
@@ -1434,7 +1508,8 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
                      *(_ebml(eid, struct.pack(">f", projection[k]))
                        for eid, k in ((0x7673, "yaw"), (0x7674, "pitch"),
                                       (0x7675, "roll")) if k in projection))
-    video = _ebml(0xE0, _ebml_uint(0xB0, w), _ebml_uint(0xBA, h), proj)
+    video = _ebml(0xE0, _ebml_uint(0xB0, w), _ebml_uint(0xBA, h), proj,
+                  *([_ebml(0x2EB524, colour_space)] if colour_space else []))
     vnum = 2 if audio and audio["first"] else 1
     entry = _ebml(0xAE, _ebml_uint(0xD7, vnum), _ebml_uint(0x73C5, vnum),
                   _ebml_uint(0x83, 1), _ebml(0x86, codec_id.encode()),
@@ -2985,12 +3060,177 @@ def browser_file(name: str, settings: dict, seed: int,
         settings.get("profile", 0), settings.get("bit_depth", 8), chroma))
 
 
+def _yuv_planes(frames: np.ndarray) -> list[np.ndarray]:
+    """BGR frames (t, h, w, 3) → Y, U, V (t, h, w) uint8 at BT.601's
+    limited range."""
+    f = frames.astype(np.float64)
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + (65.481 * r + 128.553 * g + 24.966 * b) / 255
+    u = 128 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255
+    v = 128 + (112.0 * r - 93.786 * g - 18.214 * b) / 255
+    return [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in (y, u, v)]
+
+
+def _subsample(p: np.ndarray, xs: int, ys: int) -> np.ndarray:
+    """(t, h, w) → (t, ⌈h / 2^ys⌉, ⌈w / 2^xs⌉), each sample the mean of
+    the ones it covers."""
+    t, h, w = p.shape
+    hh, ww = -(-h // (1 << ys)), -(-w // (1 << xs))
+    acc, n = np.zeros((t, hh, ww)), np.zeros((hh, ww))
+    for dy in range(1 << ys):
+        for dx in range(1 << xs):
+            q = p[:, dy::1 << ys, dx::1 << xs]
+            acc[:, :q.shape[1], :q.shape[2]] += q
+            n[:q.shape[1], :q.shape[2]] += 1
+    return np.rint(acc / n).astype(np.uint8)
+
+
+def _v210_row(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> bytes:
+    """One row of 10-bit 4:2:2 samples as v210: per 6 pixels four
+    little-endian words of three samples (Cb Y Cr, Y Cb Y, Cr Y Cb,
+    Y Cr Y), the row padded to ⌈w/48⌉·128 bytes."""
+    w = len(y)
+    n6 = -(-w // 6)
+    yy = np.zeros(6 * n6, np.uint32)
+    uu = np.zeros(3 * n6, np.uint32)
+    vv = np.zeros(3 * n6, np.uint32)
+    yy[:w], uu[:len(u)], vv[:len(v)] = y, u, v
+    order = [(uu, 0, yy, 0, vv, 0), (yy, 1, uu, 1, yy, 2),
+             (vv, 1, yy, 3, uu, 2), (yy, 4, vv, 2, yy, 5)]
+    words = np.zeros((n6, 4), np.uint32)
+    for k, (a, i, b, j, c, m) in enumerate(order):
+        sa = 6 if a is yy else 3
+        sb = 6 if b is yy else 3
+        sc = 6 if c is yy else 3
+        words[:, k] = (a[i::sa][:n6] | (b[j::sb][:n6] << 10)
+                       | (c[m::sc][:n6] << 20))
+    row = words.astype("<u4").tobytes()
+    return row + bytes(((w + 47) // 48) * 128 - len(row))
+
+
+def raw_packets(layout: str, frames: np.ndarray, seed: int = 0,
+                bits: int = 24, top_down: bool = False) -> list[bytes]:
+    """BGR frames as uncompressed video packets of `layout`: "i420",
+    "yv12" (V before U), "nv12", "nv21", "grey", "yuyv", "uyvy", "yvyu",
+    "y42b" / "yv16" (4:2:2 planar, U or V first), "i444" / "yv24"
+    (4:4:4, U or V first), "i440" (4:4:0), "y41b" (4:1:1), "v210"
+    (10-bit: the 8-bit samples · 4 plus random low bits), "rgb24",
+    "bgr24", "rgba", "bgra"; "dib", a BI_RGB DIB of
+    `bits` 8 (an index of the green and red levels), 16 (RGB555), 24 or
+    32 (B, G, R, 0x7F), its rows padded to 4 bytes, bottom-up unless
+    `top_down`. Planes at av_image_fill_arrays' sizes (chroma rounded up,
+    rows unpadded)."""
+    t, h, w = frames.shape[:3]
+    y, u, v = _yuv_planes(frames)
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(t):
+        f, yk = frames[k], y[k]
+        if layout in ("i420", "yv12", "nv12", "nv21"):
+            uk, vk = _subsample(u, 1, 1)[k], _subsample(v, 1, 1)[k]
+            if layout == "nv12" or layout == "nv21":
+                pair = [uk, vk] if layout == "nv12" else [vk, uk]
+                d = yk.tobytes() + np.stack(pair, -1).tobytes()
+            else:
+                first, second = (uk, vk) if layout == "i420" else (vk, uk)
+                d = yk.tobytes() + first.tobytes() + second.tobytes()
+        elif layout == "grey":
+            d = yk.tobytes()
+        elif layout in ("yuyv", "uyvy", "yvyu"):
+            uk, vk = _subsample(u, 1, 0)[k], _subsample(v, 1, 0)[k]
+            ys = np.zeros((h, 2 * uk.shape[1]), np.uint8)
+            ys[:, :w] = yk
+            y0, y1 = ys[:, 0::2], ys[:, 1::2]
+            d = np.stack({"yuyv": (y0, uk, y1, vk), "uyvy": (uk, y0, vk, y1),
+                          "yvyu": (y0, vk, y1, uk)}[layout], -1).tobytes()
+        elif layout in ("y42b", "yv16", "y41b", "i444", "yv24", "i440"):
+            xs = {"y41b": 2, "yv24": 0, "i444": 0, "i440": 0}.get(layout, 1)
+            ys = 1 if layout == "i440" else 0
+            uk, vk = _subsample(u, xs, ys)[k], _subsample(v, xs, ys)[k]
+            if layout in ("yv16", "yv24"):
+                uk, vk = vk, uk
+            d = yk.tobytes() + uk.tobytes() + vk.tobytes()
+        elif layout == "v210":
+            uk = _subsample(u, 1, 0)[k].astype(np.uint32) * 4
+            vk = _subsample(v, 1, 0)[k].astype(np.uint32) * 4
+            yl = yk.astype(np.uint32) * 4
+            yl, uk, vk = (p + rng.integers(0, 4, p.shape, np.uint32)
+                          for p in (yl, uk, vk))
+            d = b"".join(_v210_row(yl[r], uk[r], vk[r]) for r in range(h))
+        elif layout in ("rgb24", "bgr24", "rgba", "bgra"):
+            px = f if layout[0] == "b" else f[..., ::-1]
+            if layout.endswith("a"):
+                px = np.concatenate([px, np.full((h, w, 1), 0x7F, np.uint8)],
+                                    -1)
+            d = np.ascontiguousarray(px).tobytes()
+        elif layout == "dib":
+            if bits == 8:
+                rows = ((f[..., 1].astype(int) * 7 + f[..., 2] * 3) // 10
+                        ).astype(np.uint8)
+            elif bits == 16:
+                c = (f >> 3).astype(np.uint16)
+                rows = ((c[..., 2] << 10) | (c[..., 1] << 5) | c[..., 0]
+                        | ((f[..., 0] & 1).astype(np.uint16) << 15))
+                rows = rows.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+            elif bits == 24:
+                rows = f
+            else:
+                rows = np.concatenate(
+                    [f, np.full((h, w, 1), 0x7F, np.uint8)], -1)
+            rows = rows.reshape(h, -1)
+            rows = np.pad(rows, ((0, 0), (0, -rows.shape[1] % 4)))
+            d = np.ascontiguousarray(rows if top_down else rows[::-1]
+                                     ).tobytes()
+        else:
+            raise ValueError(f"no raw layout {layout!r}")
+        out.append(d)
+    return out
+
+
+# A BI_RGB colour table of 256 entries (B, G, R, 0)
+RAW_PALETTE = bytes(b for i in range(256) for b in (
+    (37 * i) & 255, 255 - i, (i * i) & 255, 0))
+
+
+def raw_file(name: str) -> bytes:
+    """A hand-muxed case of RAW_CASES or RAW_CLIPS."""
+    mux, tag, layout, opts = {**RAW_CASES, **RAW_CLIPS}[name]
+    if name in RAW_CLIPS:
+        frames = clip_frames_bgr()[:8]
+    else:
+        frames = moving_frames(sum(map(ord, name)), RAW_FRAMES,
+                               *opts["size"])
+    h, w = frames.shape[1:3]
+    packets = raw_packets(layout, frames, seed=len(name),
+                          bits=opts.get("bits", 24),
+                          top_down=opts.get("top_down", False))
+    if mux == "mkv":
+        return mkv_file(packets, w, h, 25, "V_UNCOMPRESSED",
+                        colour_space=tag.encode("latin-1"))
+    fourcc = b"\0\0\0\0" if tag == "BI_RGB" else tag.encode()
+    return avi_file(packets, w, h, 25, len(packets), fourcc,
+                    bits=opts.get("bits", RAW_BITS.get(layout, 24)),
+                    top_down=opts.get("top_down", False),
+                    extradata=RAW_PALETTE if opts.get("palette") else b"")
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in RAW_CASES or name in RAW_CLIPS:
+        mux, tag, container, _ = {**RAW_CASES, **RAW_CLIPS}[name]
+        if mux == "cv2":
+            frames = clip_frames_bgr()[:8] if name in RAW_CLIPS else \
+                moving_frames(sum(map(ord, name)), RAW_CV2_FRAMES,
+                              *RAW_CV2_SIZE)
+            write_cv2(path, tag, 25, frames)
+        else:
+            with open(path, "wb") as f:
+                f.write(raw_file(name))
+        return path
     if name == "clip_pim1_avi":
         import cv2
 
@@ -3205,8 +3445,8 @@ def main(out: str = FIXTURES, *names: str):
             continue
         frames, count = cv2_view(path)
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
-        if name == "clip_dvd_mkv":      # 720x480: the first and last only
-            index = np.array([0, len(frames) - 1])
+        if name == "clip_dvd_mkv" or name in RAW_CLIPS:
+            index = np.array([0, len(frames) - 1])      # the first and last
         extra = {}
         if name in CONTAINER_CASES:
             import cv2

@@ -1,7 +1,7 @@
 // Shared by videodec.cpp (containers, MJPEG, the frame path),
 // mpeg4.cpp (the MPEG-4 Part 2 decoder), mpeg12.cpp (the MPEG-1/2
-// decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder) and
-// h264.cpp (the H.264 decoder).
+// decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder),
+// h264.cpp (the H.264 decoder) and rawvideo.cpp (uncompressed video).
 #pragma once
 
 #include <cstddef>
@@ -55,6 +55,14 @@ struct Picture {
   // centre, 3 top left, 4 top, 5 bottom left, 6 bottom. cv2's swscale
   // places the chroma samples by it when it scales them.
   int chroma_loc = 0;
+  // The source was semi-planar or packed (rawvideo's nv12, nv21,
+  // yuyv422, uyvy422, yvyu422): swscale has no unscaled converter from
+  // it to BGR24, so cv2's conversion runs its scaler at any size.
+  bool scaler_only = false;
+  // The source was RGB (rawvideo's rgb24, bgr24, rgba, bgra, rgb555le,
+  // pal8): the picture as BGR24 (h, w, 3), what swscale's unscaled
+  // converters give at its own size; no planes.
+  std::vector<uint8_t> bgr;
 };
 
 // ffmpeg's "simple" integer IDCT (simple_idct_template.c, 8 bits) of a
@@ -223,6 +231,35 @@ class H264Decoder {
   // The cropped picture size of the active (else the first) SPS; false
   // before an SPS.
   bool picture_size(int& w, int& h) const;
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's rawvideo and v210 decoders for uncompressed video (see
+// rawvideo.cpp): planar, semi-planar and packed YUV, grey, v210 and RGB.
+class RawDecoder {
+ public:
+  // `tag`: the fourcc (AVI strf's compression, 0 for BI_RGB; a Matroska
+  // track's ColourSpace); `bits`, strf's bit count (BI_RGB's layout);
+  // `bottom_up`, a BI_RGB DIB of positive height; `extradata`, strf's
+  // bytes after the BITMAPINFOHEADER (pal8's colour table); `where`
+  // names the container in messages.
+  RawDecoder(uint32_t tag, int bits, int w, int h, bool bottom_up,
+             const std::vector<uint8_t>& extradata, const std::string& where);
+  ~RawDecoder();
+  // Decode one packet; false when libavcodec refuses it (shorter than a
+  // frame): cv2 reads no further, so every later packet is refused too.
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // Whether libavcodec takes a packet of n bytes.
+  bool accepts(size_t n) const;
+  // Whether libavformat's AVI demuxer reads an AVI of the fourcc as
+  // rawvideo or v210 (0: BI_RGB) in a layout this decoder reads.
+  static bool avi_raw(uint32_t tag);
+  // A raw layout's fourcc that the AVI demuxer names no codec for (cv2
+  // reads no frame).
+  static bool avi_unnamed(uint32_t tag);
 
  private:
   struct State;

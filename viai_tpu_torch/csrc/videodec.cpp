@@ -1,7 +1,8 @@
 // Compressed video reader of viai_tpu_torch: the containers, the MJPEG
 // decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
 // (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
-// vp8.cpp VP8, vp9.cpp VP9, h264.cpp H.264).
+// mpeg12.cpp MPEG-1/2, vp8.cpp VP8, vp9.cpp VP9, h264.cpp H.264,
+// rawvideo.cpp uncompressed video).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -20,7 +21,10 @@
 //     unknown-size elements, SimpleBlock and BlockGroup with Xiph, EBML
 //     and fixed lacing; VP8 and VP9 in MP4 under their vp08/vp09 sample
 //     entries and vpcC boxes; H.264 under avc1/avc3 with its avcC box,
-//     V_MPEG4/ISO/AVC with its avcC CodecPrivate, and Annex B in AVI).
+//     V_MPEG4/ISO/AVC with its avcC CodecPrivate, and Annex B in AVI;
+//     uncompressed video by its fourcc: an AVI's strf compression, bit
+//     count, height sign and colour table, a Matroska V_UNCOMPRESSED
+//     track's ColourSpace).
 //     Each gives the track's packets in decode order, byte for byte as
 //     libavformat gives them (H.264 in MP4 and Matroska before cv2's
 //     h264_mp4toannexb), the frame count that cv2's
@@ -56,7 +60,8 @@
 //     the frames found re-picked by the window rule over (0, 1). A
 //     frame is a packet that gives a picture: every MJPEG packet, an
 //     MPEG-4 packet with a coded VOP, a VP8 packet whose frame tag has
-//     show_frame set, a VP9 packet one of whose frames is shown; H.264
+//     show_frame set, a VP9 packet one of whose frames is shown, an
+//     uncompressed packet before the first one libavcodec refuses; H.264
 //     frames count in the decoder's output order.
 //
 // Errors: a broken file gives code 1 (ValueError), a codec, container or
@@ -126,7 +131,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // Containers
 // =====================================================================
 
-enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kOther };
+enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kOther };
 
 struct Packet {
   size_t off = 0;
@@ -152,6 +157,16 @@ struct Track {
   // H.264 in MP4: the reorder depth libavformat's demuxer guesses from
   // the composition times (AVCodecParameters.video_delay), else 0.
   int video_delay = 0;
+  // Uncompressed video (kRaw): the layout's fourcc (AVI strf's
+  // compression, 0 for BI_RGB; a Matroska track's ColourSpace, which
+  // `raw_tagged` says it has), strf's bit count, whether a BI_RGB DIB is
+  // bottom-up (a positive height) and strf's extradata as libavformat
+  // takes it (the chunk after its first 40 bytes: pal8's colour table).
+  uint32_t raw_tag = 0;
+  bool raw_tagged = false;
+  int bits = 0;
+  bool bottom_up = false;
+  std::vector<uint8_t> extradata;
 };
 
 namespace {
@@ -315,11 +330,26 @@ void demux_avi(Track& t) {
                  t.tag.empty()) {
         if (sz < 40) broken("AVI video format (strf) cut short");
         t.width = int32_t(le32(&f[body + 4]));
-        t.height = std::abs(int32_t(le32(&f[body + 8])));
+        const int32_t height = int32_t(le32(&f[body + 8]));
+        t.height = std::abs(height);
         uint32_t comp = le32(&f[body + 16]);
         t.tag = fourcc_str(comp);
-        if (comp == 0 || comp == 3)
-          t.tag = comp == 0 ? "BI_RGB" : "BI_BITFIELDS";
+        if (comp <= 3) {
+          static const char* kDib[] = {"BI_RGB", "BI_RLE8", "BI_RLE4",
+                                       "BI_BITFIELDS"};
+          t.tag = kDib[comp];
+        }
+        t.raw_tag = comp;
+        t.raw_tagged = true;
+        t.bits = f[body + 14] | (f[body + 15] << 8);
+        // libavformat flips a BI_RGB DIB of positive height ("BottomUp").
+        t.bottom_up = comp == 0 && height > 0;
+        // Its extradata: the chunk after 40 bytes (biSize less 40 where
+        // biSize is odd and one short of the chunk).
+        const size_t esize = le32(&f[body]);
+        const size_t ext = esize == sz - 1 && (esize & 1) ? esize - 40
+                                                          : sz - 40;
+        t.extradata.assign(f.begin() + body + 40, f.begin() + body + 40 + ext);
         size_t bisize = std::min<size_t>(le32(&f[body]), sz);
         if (bisize > 40 && bisize <= sz)
           t.config.assign(f.begin() + body + 40, f.begin() + body + bisize);
@@ -337,6 +367,8 @@ void demux_avi(Track& t) {
   if (movis.empty()) broken("AVI file without a movi list");
   std::sort(movis.begin(), movis.end());
   t.codec = riff_codec(t.tag);
+  if (t.codec == Codec::kOther && RawDecoder::avi_raw(t.raw_tag))
+    t.codec = Codec::kRaw;
   char id[3];
   std::snprintf(id, sizeof(id), "%02d", stream % 100);
   auto ours = [&](const uint8_t* ck) {
@@ -1488,6 +1520,7 @@ void demux_mkv(Track& t) {
           int w = 0, h = 0;
           bool encoded = false, projected = false;
           uint64_t projection = 0;
+          std::vector<uint8_t> colour_space;
           double yaw = 0.0, pitch = 0.0, roll = 0.0;
           std::vector<std::pair<size_t, size_t>> st = {{body, end}};
           while (!st.empty()) {
@@ -1519,6 +1552,8 @@ void demux_mkv(Track& t) {
               else if (cid == 0x7673) yaw = ebml_float(f, cb, cs);
               else if (cid == 0x7674) pitch = ebml_float(f, cb, cs);
               else if (cid == 0x7675) roll = ebml_float(f, cb, cs);
+              else if (cid == 0x2EB524)                 // ColourSpace
+                colour_space.assign(f.begin() + cb, f.begin() + cb + cs);
             }
           }
           while (!codec.empty() && codec.back() == '\0') codec.pop_back();
@@ -1546,6 +1581,14 @@ void demux_mkv(Track& t) {
               if (priv.empty())
                 broken("Matroska V_MPEG4/ISO/AVC track without its avcC "
                        "CodecPrivate");
+            } else if (codec == "V_UNCOMPRESSED") {
+              // libavformat takes the layout from ColourSpace's fourcc.
+              t.codec = Codec::kRaw;
+              if (colour_space.size() == 4) {
+                t.raw_tag = le32(colour_space.data());
+                t.raw_tagged = true;
+                t.tag = codec + " " + fourcc_str(t.raw_tag);
+              }
             } else if (codec == "V_MPEG1" || codec == "V_MPEG2") {
               t.codec = Codec::kMpeg12;
               t.config = priv;
@@ -2529,6 +2572,10 @@ std::vector<uint8_t> to_bgr(const Picture& p, int dw = 0, int dh = 0) {
     dh = p.h;
   }
   const bool same = dw == p.w && dh == p.h;
+  if (!p.bgr.empty()) {
+    if (!same) unsupported("an RGB picture of another size than the first");
+    return p.bgr;
+  }
   // swscale reads an 8-bit planar RGB picture's chroma at half its even
   // width when it scales it to half that width or less
   // (chrSrcHSubSample): not copied.
@@ -2564,7 +2611,7 @@ std::vector<uint8_t> to_bgr(const Picture& p, int dw = 0, int dh = 0) {
                     p.y[size_t(y) * p.ystride + x], 3);
     return out;
   }
-  if (p.xshift != 1 || (p.h & 1) || !same)
+  if (p.xshift != 1 || (p.h & 1) || !same || p.scaler_only)
     return sws::scaled_bgr(p, p.y.data(), p.u.data(), p.v.data(), dw, dh);
   BgrCoeffs k = bgr_coeffs(p.full_range, p.matrix);
   for (int y = 0; y < p.h; ++y) {
@@ -2667,9 +2714,20 @@ void resize_rgb(const uint8_t* bgr, int h, int w, int size, float* out) {
 class Decoder {
  public:
   explicit Decoder(const Track& t) : t_(t) {
+    if (t.codec == Codec::kOther && t.container == "AVI" &&
+        RawDecoder::avi_unnamed(t.raw_tag))
+      broken("AVI video tagged '" + t.tag + "': libavformat's AVI demuxer "
+             "names no codec for it, so cv2 reads no frame");
     if (t.codec == Codec::kOther)
       unsupported(t.container + " video coded as '" + t.tag + "' (" +
                   codec_name(t.tag) + ")");
+    if (t.codec == Codec::kRaw) {
+      if (!t.raw_tagged)
+        broken("Matroska V_UNCOMPRESSED track without a ColourSpace: "
+               "libavcodec finds no pixel format, so cv2 reads no frame");
+      raw_.reset(new RawDecoder(t.raw_tag, t.bits, t.width, t.height,
+                                t.bottom_up, t.extradata, t.container));
+    }
     if (t.codec == Codec::kMpeg4)
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
     if (t.codec == Codec::kMpeg12)
@@ -2716,6 +2774,7 @@ class Decoder {
       decode_mjpeg(d, p.size, i == 0 ? t_.height : 0, out);
       return true;
     }
+    if (raw_) return raw_->decode(d, p.size, out);
     if (vp8_) return vp8_->decode(d, p.size, out);
     if (vp9_) return vp9_->decode(d, p.size, out);
     if (h264_) return h264_->decode(d, p.size, out);
@@ -2760,6 +2819,9 @@ class Decoder {
     if (mpeg12_) mpeg12_->headers(d, t_.packets[i].size);
   }
 
+  // The uncompressed video decoder; null for other codecs.
+  const RawDecoder* raw() const { return raw_.get(); }
+
   static std::string codec_name(const std::string& tag) {
     std::string u = upper(tag);
     auto has = [&](const char* s) { return u.find(s) != std::string::npos; };
@@ -2780,6 +2842,7 @@ class Decoder {
   std::unique_ptr<Vp9Decoder> vp9_;
   std::unique_ptr<H264Decoder> h264_;
   std::unique_ptr<Mpeg12Decoder> mpeg12_;
+  std::unique_ptr<RawDecoder> raw_;
 };
 
 // A JPEG's frame size, from its SOF segment; false without one.
@@ -2911,8 +2974,8 @@ void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 // info = (width, height (the first picture's, as cv2 reports them),
 // cv2's frame count, packets, config bytes,
 // codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 MPEG-1/2,
-// 6 another,
-// cv2's orientation); tag and container names.
+// 6 uncompressed, 7 another,
+// cv2's orientation, an AVI strf's bit count); tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
   const Track& t = static_cast<Handle*>(hp)->track;
@@ -2928,6 +2991,7 @@ void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
   info[4] = int64_t(t.config.size());
   info[5] = int64_t(t.codec);
   info[6] = t.orientation;
+  info[7] = t.bits;
   set_error(tag, len, t.tag);
   set_error(container, len, t.container);
 }
@@ -3051,6 +3115,35 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
     }
     if (dw < 1 || dh < 1) viai_video::broken("an empty output size");
     std::vector<uint8_t> bgr = viai_video::to_bgr(p, dw, dh);
+    std::memcpy(out, bgr.data(), bgr.size());
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+    return 1;
+  }
+}
+
+// One packet of uncompressed video → out (h, w, 3) BGR24, as cv2 reads
+// it: libavcodec's rawvideo (or v210) decoder for the fourcc `tag` (0:
+// BI_RGB of `bits` a pixel, bottom-up when `bottom_up`, `extradata`
+// strf's bytes after 40 with pal8's colour table), then swscale's route
+// to BGR24. → 0, or 1 broken (a packet libavcodec refuses) / 2 a layout
+// that is not read, with err set.
+int32_t viai_raw_to_bgr(const uint8_t* data, int64_t n, uint32_t tag,
+                        int32_t bits, int32_t w, int32_t h, int32_t bottom_up,
+                        const uint8_t* extradata, int64_t next, uint8_t* out,
+                        char* err, int32_t errlen) {
+  try {
+    viai_video::RawDecoder dec(
+        tag, bits, w, h, bottom_up != 0,
+        std::vector<uint8_t>(extradata, extradata + next), "raw");
+    Picture p;
+    if (!dec.decode(data, size_t(n), p))
+      viai_video::broken("a packet shorter than its frame");
+    std::vector<uint8_t> bgr = viai_video::to_bgr(p);
     std::memcpy(out, bgr.data(), bgr.size());
     return 0;
   } catch (const Error& e) {
@@ -3196,8 +3289,15 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       std::vector<int64_t> frame_of(t.packets.size(), -1);
       std::vector<int> shows(t.packets.size(), 1);
       int64_t frames = 0;
+      bool refused = false;
       for (size_t i = 0; i < t.packets.size(); ++i) {
         const viai_video::Packet& p = t.packets[i];
+        // Uncompressed: cv2 reads no frame from the first packet
+        // libavcodec refuses on.
+        if (dec.raw() && (refused || !dec.raw()->accepts(p.size))) {
+          refused = true;
+          vop[i] = -1;
+        }
         if (t.codec == viai_video::Codec::kVp8)
           vop[i] = viai_video::Vp8Decoder::peek(&t.file[p.off], p.size);
         if (t.codec == viai_video::Codec::kVp9)
@@ -3229,7 +3329,9 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       for (size_t i = start; i <= last; ++i) {
         bool picked = picked_in(i);
-        if (t.codec == viai_video::Codec::kMjpeg && !picked) continue;
+        if ((t.codec == viai_video::Codec::kMjpeg ||
+             t.codec == viai_video::Codec::kRaw) && !picked)
+          continue;
         if (!dec.decode(i, pic) || !picked) continue;
         int64_t f = frame_of[i];
         do {

@@ -16,21 +16,27 @@ The port's copy of `viai_tpu/data/av.py`. The frames of a clip
     decoder, csrc/imagedec.cpp, what PIL gives; Pillow's 8-bit BILINEAR
     resize; [0, 1] float32; data/image.py is its plain twin);
   * a video file, the first of `<stem>.mp4`, `.avi`, `.mkv`, `.webm`
-    (the JAX package's order): an uncompressed AVI ('RGBA' 32-bit or
-    BI_RGB 24-bit bottom-up, as data/avi.py writes and reads) through
-    the frame-stack reader, any other through the port's video reader
-    (native.load_video_frames: csrc/videodec.cpp's demuxers for AVI,
-    MP4/MOV and Matroska/WebM (OpenDML AVI and MP4 edit lists too), its
-    MJPEG decoder (4:2:0, 4:2:2, 4:4:4, 4:4:0, grey), csrc/mpeg4.cpp's
-    MPEG-4 Part 2 decoder, csrc/vp8.cpp's VP8 decoder, csrc/vp9.cpp's
-    VP9 decoder and csrc/h264.cpp's H.264 decoder, VP8 and VP9 in MP4
-    too), what the JAX package's cv2 path gives: the frames of cv2's
-    count over the window as a set, cv2's INTER_LINEAR resize on BGR,
-    RGB / 255, re-picked over the frames found. Another codec (HEVC,
-    AV1, FFV1), a VP9 profile other than 0, H.264 other than 8-bit
-    4:2:0 progressive, MJPEG of another sampling or field pairs, or an
-    MP4 edit list of several edits or another rate raises
-    NotImplementedError naming it.
+    (the JAX package's order): an AVI the JAX package's own readers take
+    (native.reads_frame_stack: strf compression 'RGBA' at 32 bits, or
+    BI_RGB at 24, as data/avi.py writes and reads; a top-down one raises)
+    through the frame-stack reader, any other through the port's video
+    reader (native.load_video_frames: csrc/videodec.cpp's demuxers for
+    AVI, MP4/MOV and Matroska/WebM (OpenDML AVI and MP4 edit lists too),
+    its MJPEG decoder (4:2:0, 4:2:2, 4:4:4, 4:4:0, grey),
+    csrc/mpeg4.cpp's MPEG-4 Part 2 decoder, csrc/mpeg12.cpp's MPEG-1/2
+    decoder, csrc/vp8.cpp's VP8 decoder, csrc/vp9.cpp's VP9 decoder,
+    csrc/h264.cpp's H.264 decoder and csrc/rawvideo.cpp's uncompressed
+    video: planar, semi-planar and packed YUV, grey, v210 and BI_RGB at
+    8/16/32 bits in AVI, V_UNCOMPRESSED in Matroska, as OpenCV's writer
+    and capture tools store them), what the JAX package's cv2 path
+    gives: the frames of cv2's count over the window as a set, cv2's
+    INTER_LINEAR resize on BGR, RGB / 255, re-picked over the frames
+    found. Another codec (HEVC, AV1, FFV1), an uncompressed layout that
+    is not read, a feature of a codec that is not read (MPEG-4
+    interlace, H.264 MBAFF, ...), or an MP4 edit list of several edits
+    or another rate raises NotImplementedError naming it; what cv2 reads
+    no frame from (cv2's own YUY2 and UYVY AVIs) raises ValueError, as
+    the JAX package does.
 A MUSICES-style JSON manifest {split: [{"audio": ..., "frames": ...}]}
 is read by MusicesManifest.
 """
@@ -175,8 +181,8 @@ def load_frames_for(stem: str, n_frames: int, size: int,
         path = stem + ext
         if not os.path.exists(path):
             continue
-        if ext == ".avi" and native.video_track(
-                path, packets=False).tag in native.RAW_AVI_TAGS:
+        if ext == ".avi" and native.reads_frame_stack(
+                native.video_track(path, packets=False)):
             return native.load_frames(path, n_frames, size, window)
         return native.load_video_frames(path, n_frames, size, window)
     raise FileNotFoundError(f"no frame source for {stem}")

@@ -1,7 +1,7 @@
 """ctypes bindings of the port's native host library (csrc/wavio.cpp,
 csrc/framestack.cpp, csrc/imagedec.cpp, csrc/videodec.cpp,
 csrc/mpeg4.cpp, csrc/mpeg12.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
-csrc/h264.cpp).
+csrc/h264.cpp, csrc/rawvideo.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
@@ -10,9 +10,10 @@ the threaded random-crop clip loader; where the JAX package calls PIL,
 the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
 (`load_frame_dir`), whose plain twin is `data/image.py`; and where it
 calls cv2, the compressed video reader: the demuxers (`video_track`),
-the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9 and H.264 decoders with
+the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9 and H.264 decoders and
+libavcodec's rawvideo and v210 decoders for uncompressed video, with
 swscale's conversion to BGR and cv2's turn by the display orientation
-(`decode_video`) and the frame path
+(`decode_video`, `raw_to_bgr`) and the frame path
 of `_load_frames_video` (`load_video_frames`).
 `_build.py` compiles the library with g++ at first use; a failed build
 raises, and there is no flag to go without it (the JAX module falls
@@ -91,6 +92,12 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
         ctypes.c_int32] * 11 + [ctypes.c_void_p, ctypes.c_char_p,
                                 ctypes.c_int32]
+    lib.viai_raw_to_bgr.restype = ctypes.c_int32
+    lib.viai_raw_to_bgr.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32] + [
+        ctypes.c_int32] * 4 + [ctypes.c_char_p, ctypes.c_int64,
+                               ctypes.c_void_p, ctypes.c_char_p,
+                               ctypes.c_int32]
     lib.viai_load_video_frames.restype = ctypes.c_int32
     lib.viai_load_video_frames.argtypes = [
         ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
@@ -227,10 +234,10 @@ def load_frame_dir(path: str, n_frames: int, size: int,
     return out
 
 
-# videodec.cpp's codecs (VideoTrack.codec).
-VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "other")
-# The AVI video formats of data/avi.py, which load_frames reads.
-RAW_AVI_TAGS = ("RGBA", "BI_RGB")
+# videodec.cpp's codecs (VideoTrack.codec): "raw" is uncompressed video
+# (csrc/rawvideo.cpp).
+VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw",
+                "other")
 
 
 @dataclasses.dataclass
@@ -244,7 +251,7 @@ class VideoTrack:
     (from the first packet's headers; the container's when they give
     none), the frame count cv2's CAP_PROP_FRAME_COUNT reports,
     the MPEG-4 or MPEG-1/2 headers or H.264 avcC record the container
-    holds (`config`)
+    holds (`config`), an AVI strf's bit count (`bits`; 0 elsewhere)
     and the packets libavformat gives cv2 in decode order (under an MP4
     edit, from the keyframe it starts from; an MP4's movie fragments after
     moov's own samples), each (bytes, the container's keyframe flag):
@@ -253,7 +260,9 @@ class VideoTrack:
     CAP_PROP_ORIENTATION_META, the clockwise turn of the display matrix
     (MP4: tkhd's times mvhd's; Matroska: a Projection's roll), which
     decode_video and load_video_frames apply as cv2 does when it is 90,
-    180 or 270."""
+    180 or 270. Uncompressed video is codec "raw" under its fourcc: an
+    AVI's strf compression ("BI_RGB" for 0), a Matroska track's
+    "V_UNCOMPRESSED" and its ColourSpace (e.g. "V_UNCOMPRESSED I420")."""
     container: str
     tag: str
     codec: str
@@ -263,6 +272,18 @@ class VideoTrack:
     config: bytes
     packets: list
     orientation: int = 0
+    bits: int = 0
+
+
+def reads_frame_stack(track: VideoTrack) -> bool:
+    """Whether `load_frames` (the frame-stack reader) is the reader of a
+    video file, as in the JAX package, whose own AVI readers take
+    exactly these: an AVI of strf compression `RGBA` at 32 bits, or of
+    BI_RGB (compression 0) at 24 bits (load_frames raises for a top-down
+    one, whose JAX reading is all zeros). Every other file goes to
+    `load_video_frames`, as the JAX package sends it to cv2."""
+    return track.container == "AVI" and (track.tag, track.bits) in (
+        ("RGBA", 32), ("BI_RGB", 24))
 
 
 def _open_video(path: str):
@@ -293,7 +314,7 @@ def video_track(path: str, packets: bool = True) -> VideoTrack:
     fragmented file's count as they enter cv2's."""
     lib, h = _open_video(path)
     try:
-        info = (ctypes.c_int64 * 7)()
+        info = (ctypes.c_int64 * 8)()
         tag = ctypes.create_string_buffer(_ERR_LEN)
         container = ctypes.create_string_buffer(_ERR_LEN)
         lib.viai_video_info(h, info, tag, container, _ERR_LEN)
@@ -307,7 +328,8 @@ def video_track(path: str, packets: bool = True) -> VideoTrack:
             pkts.append((ctypes.string_at(ptr, size.value), bool(key.value)))
         return VideoTrack(container.value.decode(), tag.value.decode(),
                           VIDEO_CODECS[info[5]], int(info[0]), int(info[1]),
-                          int(info[2]), config, pkts, int(info[6]))
+                          int(info[2]), config, pkts, int(info[6]),
+                          int(info[7]))
     finally:
         lib.viai_video_close(h)
 
@@ -333,11 +355,22 @@ def decode_video(path: str) -> np.ndarray:
     left) at the first picture's size (a
     picture of another size scaled to it, as cv2's swscale scales it) and
     turned as cv2 turns them by the track's orientation (90, 180 or 270
-    degrees: the MP4 display matrix, a Matroska Projection's roll).
+    degrees: the MP4 display matrix, a Matroska Projection's roll);
+    uncompressed video in AVI and Matroska (V_UNCOMPRESSED) as
+    libavcodec's rawvideo and v210 decoders read it (`raw_to_bgr`): planar
+    4:2:0, 4:2:2, 4:4:4, 4:4:0 and 4:1:1 YUV (I420, IYUV, YV12, Y42B,
+    YV16, YV24, Y41B ...), NV12 and NV21, grey (Y800, GREY, Y8),
+    packed 4:2:2 (YUY2, UYVY, HDYC, 2vuy, YVYU ...), v210, BI_RGB at 8,
+    16, 24 and 32 bits and RGBA/BGRA/RGB24/BGR24, up to the first packet
+    shorter than a frame (cv2 reads no further).
     Raises ValueError for
-    a broken file or one without frames, NotImplementedError naming the
-    codec (HEVC, AV1, FFV1, ...) or the MJPEG, MPEG-4, VP8, VP9, H.264
-    or container feature it does not read."""
+    a broken file or one without frames (cv2's own YUY2 and UYVY files,
+    whose packets hold 1.5 bytes a pixel; an AVI tagged 444P, P010,
+    BGR24 or RGB24, which libavformat names no codec for; a
+    V_UNCOMPRESSED track without a ColourSpace), NotImplementedError
+    naming the codec (HEVC, AV1, FFV1, ...), the uncompressed layout or
+    the MJPEG, MPEG-4, VP8, VP9, H.264 or container feature it does not
+    read."""
     lib, h = _open_video(path)
     try:
         thw = (ctypes.c_int64 * 3)()
@@ -392,17 +425,46 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     return out
 
 
+def raw_to_bgr(data: bytes, tag: str | bytes, width: int, height: int,
+               bits: int = 0, bottom_up: bool = False,
+               extradata: bytes = b"") -> np.ndarray:
+    """One frame of uncompressed video → (height, width, 3) BGR uint8, as
+    cv2 reads it: libavcodec's rawvideo (or v210) decoder for the fourcc
+    `tag` (4 bytes, e.g. "I420", "YUY2", "v210"; "BI_RGB" for a DIB
+    of `bits` a pixel, bottom-up when `bottom_up`, its pal8 colour table
+    at the end of `extradata`), then swscale's route to BGR24. Raises
+    ValueError for a packet shorter than a frame, NotImplementedError for
+    a layout that is not read."""
+    if tag == "BI_RGB":
+        code = 0
+    else:
+        raw = tag.encode("latin-1") if isinstance(tag, str) else bytes(tag)
+        if len(raw) != 4:
+            raise ValueError(f"a fourcc is 4 bytes, not {tag!r}")
+        code = int.from_bytes(raw, "little")
+    out = np.empty((height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    rc = library().viai_raw_to_bgr(
+        bytes(data), len(data), code, bits, width, height, int(bottom_up),
+        bytes(extradata), len(extradata), out.ctypes.data, err, _ERR_LEN)
+    if rc:
+        raise _image_error(rc, err)
+    return out
+
+
 def load_video_frames(path: str, n_frames: int, size: int,
                       window: tuple[float, float] | None = None
                       ) -> np.ndarray:
-    """A compressed video → (n_frames, size, size, 3) float32 RGB in
+    """A video file, compressed or uncompressed (every format of
+    decode_video) → (n_frames, size, size, 3) float32 RGB in
     [0, 1], what `viai_tpu/data/av.py::_load_frames_video` computes with
     cv2: the indices round(linspace(w0·(T−1), w1·(T−1), n_frames)) in
     float64 of cv2's frame count T over the fractional `window` (all of
     it by default), as a set; the frames decoded at those indices (an
-    index past the last frame is never reached), each turned as cv2 turns
-    it, resized by cv2.resize at INTER_LINEAR on BGR, flipped to RGB,
-    / 255; those
+    index past the last frame, or of an uncompressed packet at or after
+    the first one shorter than a frame, is never reached), each turned
+    as cv2 turns it, resized by cv2.resize at INTER_LINEAR on BGR,
+    flipped to RGB, / 255; those
     frames re-picked by the same rule over all of them when they are
     not n_frames. Raises as decode_video."""
     if n_frames < 1 or size < 1:
