@@ -94,13 +94,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps, the decode time per frame and the host's cores;
  13. compressed and uncompressed video ([video]): the native demuxers
      and decoders (csrc/videodec.cpp, csrc/mpeg4.cpp, csrc/mpeg12.cpp,
-     csrc/vp8.cpp, csrc/vp9.cpp, csrc/h264.cpp, csrc/rawvideo.cpp) on
-     the committed fixtures of tests/torch_videos/
+     csrc/vp8.cpp, csrc/vp9.cpp, csrc/h264.cpp, csrc/hevc.cpp,
+     csrc/rawvideo.cpp) on the committed fixtures of tests/torch_videos/
      against cv2's committed decodes, frame counts and, for video as
      phones and muxers write it (turned, fragmented, without
-     DefaultDuration, with sound), orientations (every codec exact), an
-     HEVC
-     sample entry raising NotImplementedError; the av model (the
+     DefaultDuration, with sound), orientations (every codec exact), a
+     1080p HEVC clip against cv2's SHA-256 of each frame, an AV1 sample
+     entry and HEVC 4:2:2 (x265's SPS patched) raising
+     NotImplementedError; the av model (the
      README's recipe) trained 20 steps at batch 16 from [data]'s av clips
      given the committed 224x224 video files as frames, once from MJPEG
      and MPEG-4 files (.avi, .mp4, .mkv, and a MOV made a stack by
@@ -116,9 +117,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      realtime with reference scaling and a size change) and once from
      screen clips (H.264 High 4:4:4 Predictive 8-bit as ffmpeg writes it
      from images, lossless 4:2:0 as a screen capture), once from DVD
-     clips (MPEG-2, MPEG-1) and once from uncompressed clips (cv2's
-     writer's I420, a capture tool's YUY2), GL launches 2 and plain 0
-     each; the eval CLI on a musices split of each folder;
+     clips (MPEG-2, MPEG-1), once from uncompressed clips (cv2's
+     writer's I420, a capture tool's YUY2) and once from HEVC clips (a
+     phone's hvc1 MP4 turned 90 degrees with AAC, open GOPs of 8; its
+     Matroska copy), GL launches 2 and plain 0 each; the eval CLI on a
+     musices split of each folder; each folder's time split (writing its
+     corpus, the train CLI, the eval CLI) and its loader's wait share,
+     measured in its training run;
      each MPEG-4 fixture's max |Δ|, each phone and muxer fixture's count
      and orientation, each camera, browser and screen fixture's count
      and max |Δ|, the browser clips' reads against the JAX package's
@@ -129,8 +134,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      a picture's upscale to the first one's size, a scaled-reference
      frame's read against an unscaled one's, a clip's read of 16 frames,
      a 224x224 I420 and a 720x480 YUY2 frame's read and conversion,
-     the loader's wait share of a step from each folder and the host's
-     cores;
+     a 224x224 and a 1920x1080 HEVC frame's decode (one thread), and the
+     host's cores;
  14. refiner training: [train refiner] runs the refiner CLI at its
      defaults (batch 32, bf16 G and R) for 40 steps in each domain on
      [train]'s audio checkpoint, resumes the magnitude run from
@@ -187,6 +192,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import pathlib
@@ -352,7 +358,8 @@ FRAMES_JPEG_TOL = 1
 FRAMES_TWIN = (8, 64, (0.25, 0.75))    # frames, size, window of the twin
 FRAMES_WARMUP = 3
 # [video]: the committed fixtures of tests/torch_videos/ (written with cv2,
-# libvpx, libx264, and libavcodec 59's mpeg4 and libxvid encoders by
+# libvpx, libx264, libx265, and libavcodec 59's mpeg4 and libxvid
+# encoders by
 # tests/_torch_make_videos.py, which the card's machine cannot run): MJPEG,
 # MPEG-4 Part 2 (Simple and Advanced Simple Profile: B-VOPs packed and
 # not, quarter-pel, GMC, 4MV, AC prediction, MPEG quantisation, video
@@ -409,7 +416,10 @@ FRAMES_WARMUP = 3
 # AVI at 64x48 and 45x29, V_UNCOMPRESSED Matroska, cv2's own files for
 # fourcc 0, I420, IYUV, YV12, NV12, Y800, GREY and RGBA), beside
 # clip_i420.avi (cv2.VideoWriter's fourcc 0) and clip_yuy2.avi (YUY2 as
-# `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames). Decoded
+# `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames), and the HEVC that
+# phones, cameras and x265 write (HEVC_FIXTURES, libx265 through
+# libavcodec 59), beside clip_hevc.mp4 (a phone's hvc1 turned 90 degrees
+# with AAC, open GOPs of 8) and clip_hevc.mkv. Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -417,10 +427,10 @@ FRAMES_WARMUP = 3
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
-             "mpeg12": 0, "raw": 0}
+             "mpeg12": 0, "raw": 0, "hevc": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
-               "raw": "uncompressed"}
+               "raw": "uncompressed", "hevc": "HEVC"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
@@ -434,7 +444,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "browser": ("clip_hdr.webm", "clip_rtc.webm"),
                  "screen": ("clip_screen.mp4", "clip_lossless.mkv"),
                  "dvd": ("clip_dvd.mkv", "clip_pim1.avi"),
-                 "raw": ("clip_i420.avi", "clip_yuy2.avi")}
+                 "raw": ("clip_i420.avi", "clip_yuy2.avi"),
+                 "hevc": ("clip_hevc.mp4", "clip_hevc.mkv")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -483,6 +494,22 @@ DVD_CLIPS = ("clip_dvd_mkv", "clip_pim1_avi")
 # the uncompressed video of tests/_torch_make_videos.py's RAW_CASES (every
 # committed raw_*.npz) and the raw folder's clips, each held and printed
 RAW_CLIPS = ("clip_i420_avi", "clip_yuy2_avi")
+# the committed fixtures of HEVC as phones, cameras and x265 write it
+# (tests/_torch_make_videos.py's HEVC_CASES: x265's settings one by one,
+# Main 10, a CRA cut; in MP4, Matroska and AVI) and the hevc folder's
+# clips, each held and printed; and the 1080p clip (4 frames, libx265's
+# defaults in MP4) whose frames are held against cv2's SHA-256 and timed
+HEVC_FIXTURES = (
+    "hevc_default_mp4", "hevc_hev1_mp4", "hevc_nowpp_mkv", "hevc_slices_avi",
+    "hevc_wpp16_avi", "hevc_tskip_mkv", "hevc_amp_mp4", "hevc_weightb_avi", "hevc_scaling_mkv",
+    "hevc_ctu32_avi", "hevc_ctu16_mp4", "hevc_opengop_mkv", "hevc_radl_avi",
+    "hevc_irefresh_mp4", "hevc_cintra_mkv", "hevc_tlayers_avi",
+    "hevc_bframes8_mp4", "hevc_nosign_mkv", "hevc_tu8_avi",
+    "hevc_lossless_mp4", "hevc_culossless_mkv", "hevc_still_avi",
+    "hevc_crop_mkv", "hevc_main10_mp4", "hevc_main10gop_mkv",
+    "hevc_cracut_mp4", "hevc_cracut_mkv")
+HEVC_CLIPS = ("clip_hevc_mp4", "clip_hevc_mkv")
+HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
 # [video]'s repeats, cut to make room for the dvd folder (the script
@@ -2042,7 +2069,7 @@ def video_fixtures():
     n_files = {c: 0 for c in VIDEO_TOL}
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
-    per_browser, per_screen, per_dvd, per_raw = [], [], [], []
+    per_browser, per_screen, per_dvd, per_raw, per_hevc = [], [], [], [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2071,6 +2098,11 @@ def video_fixtures():
                 f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
         if npz.stem in DVD_FIXTURES or npz.stem in DVD_CLIPS:
             per_dvd.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
+        if npz.stem in HEVC_FIXTURES or npz.stem in HEVC_CLIPS:
+            per_hevc.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
                 f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
                 f"{int(ref['count'])}) max|Δ| {err}")
@@ -2129,6 +2161,12 @@ def video_fixtures():
         f"ffmpeg store it ({len(per_raw)} fixtures): " + "; ".join(per_raw))
     require(len(per_raw) == n_raw and n_raw > len(RAW_CLIPS),
             f"[video] {len(per_raw)} uncompressed fixtures of {n_raw}")
+    log(f"[video] HEVC as phones, cameras and x265 write it "
+        f"({len(per_hevc)} fixtures): " + "; ".join(per_hevc))
+    require(len(per_hevc) == len(HEVC_FIXTURES) + len(HEVC_CLIPS),
+            f"[video] {len(per_hevc)} HEVC fixtures of "
+            f"{len(HEVC_FIXTURES) + len(HEVC_CLIPS)}")
+    video_hevc_1080p()
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
         path = str(VIDEO_FIXTURES / ".".join(name.rsplit("_", 1)))
@@ -2149,25 +2187,61 @@ def video_fixtures():
     require(all(worst[c] <= VIDEO_TOL[c] for c in worst),
             "[video] the native decoders disagree with cv2")
     with tempfile.TemporaryDirectory() as tmp:
-        hevc = pathlib.Path(tmp) / "clip_hvc1.mp4"
-        hevc.write_bytes((VIDEO_FIXTURES / "clip.mp4").read_bytes()
-                         .replace(b"mp4v", b"hvc1", 1))
-        try:
-            native.decode_video(str(hevc))
-            require(False, "[video] an hvc1 sample entry decoded")
-        except NotImplementedError as e:
-            require("HEVC" in str(e),
-                    f"[video] HEVC raises without naming it: {e}")
-            log(f"[video] clip.mp4 relabelled hvc1 raises "
-                f"NotImplementedError: {e}")
+        av1 = pathlib.Path(tmp) / "clip_av01.mp4"
+        av1.write_bytes((VIDEO_FIXTURES / "clip.mp4").read_bytes()
+                        .replace(b"mp4v", b"av01", 1))
+        # x265's SPS with chroma_format_idc 2 (4:2:2, RExt) for its 1:
+        # ue(1) "010" becomes ue(2) "011" after sps_seq_parameter_set_id
+        data = (VIDEO_FIXTURES / "hevc_slices_avi.avi").read_bytes()
+        at, n, zeros = data.index(b"\x42\x01") + 2, 0, 0
+        while n < 13 or (zeros >= 2 and data[at] == 3):
+            if zeros >= 2 and data[at] == 3:     # emulation prevention
+                zeros = 0
+            else:
+                zeros = zeros + 1 if data[at] == 0 else 0
+                n += 1
+            at += 1                              # → the RBSP's 14th byte
+        require(data[at] >> 4 == 0b1010,
+                f"[video] hevc_slices_avi.avi's SPS byte {data[at]:#x}")
+        rext = pathlib.Path(tmp) / "hevc_422.avi"
+        rext.write_bytes(data[:at] + bytes([data[at] | 0x10])
+                         + data[at + 1:])
+        for path, name in ((av1, "AV1"), (rext, "HEVC 4:2:2")):
+            try:
+                native.decode_video(str(path))
+                require(False, f"[video] {path.name} decoded")
+            except NotImplementedError as e:
+                require(name in str(e),
+                        f"[video] {path.name} raises without naming "
+                        f"{name}: {e}")
+                log(f"[video] {path.name} raises NotImplementedError: {e}")
+
+
+def video_hevc_1080p():
+    """[video] (a): the 1080p HEVC clip's frames against cv2's committed
+    SHA-256 of each frame's BGR bytes."""
+    from viai_tpu_torch import native
+
+    with open(VIDEO_FIXTURES / HEVC_1080P_SHA) as f:
+        ref = json.load(f)
+    got = native.decode_video(str(VIDEO_FIXTURES / HEVC_1080P))
+    sha = [hashlib.sha256(g.tobytes()).hexdigest() for g in got]
+    require(list(got.shape) == ref["shape"] and sha == ref["sha256"],
+            f"[video] {HEVC_1080P}: {got.shape}, SHA-256 "
+            f"{sum(a == b for a, b in zip(sha, ref['sha256']))} of "
+            f"{ref['n']} equal cv2's")
+    log(f"[video] {HEVC_1080P} ({got.shape[0]} frames of {got.shape[2]}x"
+        f"{got.shape[1]}, HEVC Main): every frame's SHA-256 equals cv2's "
+        f"committed one")
 
 
 
 def phase_video(dev, ckpt: str, card: str) -> int:
     """Compressed video on the card ([video]): (a) native.decode_video on
     the committed fixtures against cv2's committed decodes, frame counts
-    and orientations, an unread codec (HEVC: clip.mp4 relabelled hvc1)
-    raising;
+    and orientations, the 1080p HEVC clip against cv2's SHA-256 of each
+    frame, an unread codec (AV1: clip.mp4 relabelled av01) and HEVC 4:2:2
+    (x265's SPS patched) raising;
     (b) the av model trained 20 steps at full width through the train CLI
     from each folder of VIDEO_FOLDERS: MJPEG and MPEG-4 clips (AVI, MP4,
     Matroska, and a MOV through prepare_dataset extract), VP8 clips
@@ -2183,13 +2257,16 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     MP4, lossless 4:2:0 in Matroska), then DVD clips (MPEG-2 at 720x480
     with soft telecine and open GOPs in Matroska, MPEG-1 at 352x240 from
     cv2's writer in AVI), then uncompressed clips (cv2's writer's I420,
-    a capture tool's YUY2, in AVI);
-    (c) the eval CLI on a musices split of each; (d) the decode time per
+    a capture tool's YUY2, in AVI), then HEVC clips (a phone's hvc1 MP4
+    turned 90 degrees with AAC, open GOPs of 8; its Matroska copy);
+    (c) the eval CLI on a musices split of each, each folder's time split
+    (its corpus, the train CLI, the eval CLI); (d) the decode time per
     frame of each codec, a turned frame's against the same file's
     unturned, a 10-bit, a 4:4:4 and a lossless frame's conversion share,
     a 720x480 MPEG-2 frame's decode and conversion, a 224x224 I420 and a
-    720x480 YUY2 frame's read and conversion, a clip's read, the
-    loader's wait share of a step from each folder.
+    720x480 YUY2 frame's read and conversion, a clip's read, a 224x224
+    and a 1920x1080 HEVC frame's decode, the loader's wait share of a step
+    from each folder (in its training run).
     Returns the GL kernel's launches."""
     from viai_tpu_torch import native
 
@@ -2197,7 +2274,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     log(f"[video] cut to make room for the dvd folder: decode and read "
         f"times the best of VIDEO_REPS {VIDEO_REPS} (was 3), TURN_ROUNDS "
         f"{TURN_ROUNDS} (was 7), each folder's eval CLI with --nThreads "
-        f"{VIDEO_EVAL_THREADS} (was 4 spawned workers for its 3 clips)")
+        f"{VIDEO_EVAL_THREADS} (was 4 spawned workers for its 3 clips); "
+        f"cut to make room for the hevc folder: each folder's loader wait "
+        f"measured in its training run (was a second loader run of "
+        f"{FRAMES_WARMUP} + {TRAIN_TIMED_STEPS} steps a folder)")
     # (a) the decoders against cv2's committed decodes
     video_fixtures()
 
@@ -2210,7 +2290,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     for folder in VIDEO_FOLDERS:
         roots[folder] = root = \
             pathlib.Path(ckpt) / f"video_corpus_{folder}" / "av"
-        total += video_train_eval(folder, root, corpus, ckpt)
+        total += video_train_eval(folder, root, corpus, ckpt, card)
 
     # (d) decode and read times, the loader's wait share
     def best_ms(fn) -> float:
@@ -2253,7 +2333,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_pim1.avi", "MPEG-1, cv2.VideoWriter's PIM1"),
                        ("clip_i420.avi",
                         "uncompressed I420, cv2.VideoWriter's fourcc 0"),
-                       ("clip_yuy2.avi", "uncompressed YUY2, a capture")):
+                       ("clip_yuy2.avi", "uncompressed YUY2, a capture"),
+                       ("clip_hevc.mp4",
+                        "HEVC Main, turned 90, AAC, open GOPs of 8"),
+                       ("clip_hevc.mkv", "HEVC Main, open GOPs of 8")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2269,8 +2352,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_screen_costs(best_ms, card)
     video_dvd_costs(best_ms, card)
     video_raw_costs(best_ms, card)
-    for folder, root in roots.items():
-        video_wait_share(folder, root, ckpt, dev, card)
+    video_hevc_costs(best_ms, card)
     log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
         f"folders)")
     return total
@@ -2470,15 +2552,54 @@ def video_raw_costs(best_ms, card: str):
         + f"; {card}")
 
 
-def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
-                     ckpt: str) -> int:
-    """[video] (b) and (c) for one folder of VIDEO_FOLDERS: 20 av steps
-    through the train CLI from [data]'s clips with these frame files,
-    then the eval CLI on their musices test split. → GL launches."""
-    from viai_tpu_torch.cli.train import main as train_main
+class TimedBatches:
+    """The train CLI's batches (data/prefetch.py's device_prefetch) with
+    the host's wait in each request and the time it returns."""
 
+    def __init__(self, inner, record: list):
+        self.inner, self.record = inner, record
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t = time.perf_counter()
+        batch = next(self.inner)
+        done = time.perf_counter()
+        self.record.append((done - t, done))
+        return batch
+
+
+def video_hevc_costs(best_ms, card: str):
+    """[video] (d): a 224x224 HEVC frame's decode (clip_hevc.mkv, open
+    GOPs of 8) and a 1920x1080 one's (the 1080p clip: 4 frames, libx265's
+    defaults), each the best of VIDEO_REPS decodes of the whole file over
+    its frames, on one thread."""
+    from viai_tpu_torch import native
+
+    res = []
+    for src in ("clip_hevc.mkv", HEVC_1080P):
+        path = str(VIDEO_FIXTURES / src)
+        n, h, w = native.decode_video(path).shape[:3]
+        ms = best_ms(lambda: native.decode_video(path)) / n
+        res.append(f"{src} at {w}x{h}: {ms:.3f} ms a frame")
+    log("[video] HEVC Main decode (demux, decode, BGR; one thread): "
+        + "; ".join(res) + f"; {card}")
+
+
+def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
+                     ckpt: str, card: str) -> int:
+    """[video] (b), (c) and the loader's wait for one folder of
+    VIDEO_FOLDERS: 20 av steps through the train CLI from [data]'s clips
+    with these frame files, the loader's wait share measured in that run
+    (each batch request timed on the host's clock), then the eval CLI on
+    their musices test split; the folder's time split. → GL launches."""
+    from viai_tpu_torch.cli import train as train_cli
+
+    t_write = time.perf_counter()
     files = write_video_clips(
         root, sorted(str(p) for p in (corpus / "av").glob("*.wav")), folder)
+    t_write = time.perf_counter() - t_write
     kinds = {}
     for f in files:
         kinds[pathlib.Path(f).suffix] = kinds.get(pathlib.Path(f).suffix,
@@ -2490,9 +2611,17 @@ def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
             if folder == "mjpeg_mpeg4" else "")) + "), musices.json")
     name = f"chip_video_{folder}"
     args = video_args(folder, root, ckpt)
+    record = []
+    prefetch = train_cli.device_prefetch
+    train_cli.device_prefetch = \
+        lambda it, device, depth=2: TimedBatches(prefetch(it, device, depth),
+                                                 record)
     zero_counts()
     t0 = time.perf_counter()
-    model = train_main(args)
+    try:
+        model = train_cli.main(args)
+    finally:
+        train_cli.device_prefetch = prefetch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = griffin_lim_cuda.launches, griffin_lim.calls
@@ -2508,9 +2637,11 @@ def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
     require(launches == TRAIN_STEPS // TRAIN_DISPLAY and plain == 0,
             f"[video] train av ({folder}): GL launches {launches}, plain "
             f"{plain}")
+    video_wait_share(folder, record, card)
     total = launches
     del model
     zero_counts()
+    t_eval = time.perf_counter()
     _, launches = eval_arm(
         f"(video) {name} on the musices test split of {folder} clips",
         ["--name", name, "--checkpoints_dir", ckpt, "--gpu_ids",
@@ -2523,8 +2654,12 @@ def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,
     require(launches > 0 and griffin_lim.calls == 0,
             f"[video] the eval CLI ({folder}): GL launches {launches}, "
             f"plain {griffin_lim.calls}")
+    t_eval = time.perf_counter() - t_eval
     log(f"[video] eval {folder}: griffin_lim_cuda launches {launches}, "
         f"plain {griffin_lim.calls}")
+    log(f"[video] {folder} split: writing its corpus {t_write:.1f} s, the "
+        f"train CLI {wall:.1f} s (its loader's wait share measured in "
+        f"that run), the eval CLI {t_eval:.1f} s; {card}")
     return total + launches
 
 
@@ -2536,43 +2671,26 @@ def video_args(folder: str, root: pathlib.Path, ckpt: str) -> list[str]:
     return args
 
 
-def video_wait_share(folder: str, root: pathlib.Path, ckpt: str, dev,
-                     card: str):
-    """[video] (d): the loader's wait over TRAIN_TIMED_STEPS av steps
-    after FRAMES_WARMUP from one folder of video files."""
-    from viai_tpu_torch.data import create_dataloader, device_prefetch
-    from viai_tpu_torch.model import VIAIModel
-
-    opt = parse_quietly(video_args(folder, root, ckpt))
-    model = VIAIModel(opt)
-    loader = create_dataloader(
-        opt.dataset_mode, opt.dataroot, opt.batchSize, CLIP, SR,
-        opt.nThreads, opt.n_video_frames, opt.frame_size, seed=opt.seed)
-    batches = device_prefetch(iter(loader), dev)
-    for _ in range(FRAMES_WARMUP):
-        model.set_input(next(batches))
-        model.optimize_parameters()
-    torch.cuda.synchronize()
-    wait = 0.0
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED_STEPS):
-        tw = time.perf_counter()
-        batch = next(batches)
-        wait += time.perf_counter() - tw
-        model.set_input(batch)
-        model.optimize_parameters()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+def video_wait_share(folder: str, record: list, card: str):
+    """[video] (d): the loader's wait share of a step in one folder's
+    training run: the batch requests after FRAMES_WARMUP steps up to the
+    last, but for those that follow a display step (GL on the batch),
+    each step the host's time from one request's return to the next."""
+    waits = [w for w, _ in record]
+    ends = [t for _, t in record]
+    steps = [k for k in range(FRAMES_WARMUP, len(record) - 1)
+             if (k + 1) % TRAIN_DISPLAY]
+    require(len(record) == TRAIN_STEPS and steps,
+            f"[video] {folder}: {len(record)} batch requests")
+    wait = sum(waits[k + 1] for k in steps)
+    wall = sum(ends[k + 1] - ends[k] for k in steps)
     cores = len(os.sched_getaffinity(0))
-    log(f"[video] av from {folder} files ({type(loader).__name__}, "
-        f"{opt.nThreads} workers, prefetch depth 2): loader wait "
-        f"{wait * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall over "
-        f"{TRAIN_TIMED_STEPS} steps after {FRAMES_WARMUP} "
-        f"({wait / wall:.1%}), {wall * 1e3 / TRAIN_TIMED_STEPS:.1f} ms a "
-        f"step; host {cores} cores (os.cpu_count {os.cpu_count()}); {card}")
-    del batches, model
-    if hasattr(loader, "close"):
-        loader.close()
+    log(f"[video] av from {folder} files (the train CLI's loader, prefetch "
+        f"depth 2): loader wait {wait * 1e3:.1f} ms of {wall * 1e3:.1f} ms "
+        f"over {len(steps)} steps after {FRAMES_WARMUP} ({wait / wall:.1%}),"
+        f" {wall * 1e3 / len(steps):.1f} ms a step, in its training run "
+        f"(host clock); host {cores} cores (os.cpu_count "
+        f"{os.cpu_count()}); {card}")
 
 
 # ---------------------------------------------------------------------------

@@ -744,10 +744,78 @@ RAW_BITS = {"i420": 12, "yv12": 12, "nv12": 12, "nv21": 12, "y41b": 12,
 # AVI), and YUY2 as `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames.
 RAW_CLIPS = {"clip_i420_avi": ("cv2", "", "avi", {}),
              "clip_yuy2_avi": ("avi", "YUY2", "yuyv", {})}
+# HEVC as phones, cameras and x265 write it: streams of the system's
+# libx265 (lavc_encode's "libx265", one thread; x265 turns WPP off
+# without a thread pool, so the cases that keep its WPP, as its preset
+# does, give it a pool of one, HEVC_WPP), HEVC_FRAMES frames of
+# moving_frames at HEVC_SIZE (h, w) unless `size` or `frames` say
+# otherwise, in the container the name ends with (hevc_file: MP4 `hvc1`
+# with its hvcC, ctts and ffmpeg's edit list, or `hev1` with `entry`;
+# Matroska V_MPEGH/ISO/HEVC; AVI `HEVC`, Annex B). `params`, the
+# x265-params of one setting of the medium preset's defaults (WPP, sign
+# hiding, TMVP, SAO, deblocking, a b-pyramid of 4 B-frames, 3 refs,
+# weightp, strong intra smoothing); `pixel_format` yuv420p10le for Main
+# 10 and `profile` libx265's; `cut`, the packets from the first CRA on
+# (an `-c copy` cut of an open-GOP archive: its RASL picture's
+# references are gone, so libavcodec drops it and cv2 reads one frame
+# fewer than the container counts).
+HEVC_FRAMES, HEVC_SIZE = 16, (64, 96)
+HEVC_CRA = ("keyint=8:min-keyint=8:open-gop=1:bframes=3:b-adapt=0:"
+            "scenecut=0")
+HEVC_WPP = "pools=1:wpp=1"
+HEVC_CASES = {
+    "hevc_default_mp4": dict(params=HEVC_WPP, size=(128, 192)),
+    "hevc_hev1_mp4": dict(params="repeat-headers=1", entry="hev1"),
+    "hevc_nowpp_mkv": dict(params="no-wpp=1"),
+    "hevc_slices_avi": dict(params=HEVC_WPP + ":slices=2",
+                            size=(128, 192)),
+    "hevc_wpp16_avi": dict(params=HEVC_WPP + ":ctu=16"),
+    "hevc_tskip_mkv": dict(params="tskip=1"),
+    "hevc_amp_mp4": dict(params="amp=1:rect=1"),
+    "hevc_weightb_avi": dict(params="weightb=1"),
+    "hevc_scaling_mkv": dict(params="scaling-list=default"),
+    "hevc_ctu32_avi": dict(params="ctu=32:min-cu-size=8"),
+    "hevc_ctu16_mp4": dict(params="ctu=16:no-sao=1:no-deblock=1"),
+    "hevc_opengop_mkv": dict(params=HEVC_CRA),
+    "hevc_radl_avi": dict(params="open-gop=0:radl=2"),
+    "hevc_irefresh_mp4": dict(params="intra-refresh=1"),
+    "hevc_cintra_mkv": dict(params="constrained-intra=1"),
+    "hevc_tlayers_avi": dict(params="temporal-layers=1"),
+    "hevc_bframes8_mp4": dict(params="bframes=8:b-pyramid=1:ref=6"),
+    "hevc_nosign_mkv": dict(params="signhide=0:temporal-mvp=0"),
+    "hevc_tu8_avi": dict(params="max-tu-size=8"),
+    "hevc_lossless_mp4": dict(params="lossless=1"),
+    "hevc_culossless_mkv": dict(params="cu-lossless=1"),
+    "hevc_still_avi": dict(params="keyint=1", profile="mainstillpicture"),
+    "hevc_crop_mkv": dict(params="", size=(62, 98)),
+    "hevc_main10_mp4": dict(params="", pixel_format="yuv420p10le"),
+    "hevc_main10gop_mkv": dict(params=HEVC_CRA,
+                               pixel_format="yuv420p10le"),
+    "hevc_cracut_mp4": dict(params=HEVC_CRA + ":repeat-headers=1",
+                            frames=24, cut=True),
+    "hevc_cracut_mkv": dict(params=HEVC_CRA + ":repeat-headers=1",
+                            frames=24, cut=True),
+}
+# the hevc folder's clips chip_smoke.py trains from, libx265 of the
+# committed 224x224 clip's first 16 frames in open GOPs of 8: a phone's
+# (hvc1 MP4 turned 90 degrees with AAC beside it) and its Matroska copy;
+# HEVC_CASES' settings
+HEVC_CLIPS = {
+    "clip_hevc_mp4": dict(params=HEVC_WPP + ":" + HEVC_CRA, matrix=90,
+                          audio=True),
+    "clip_hevc_mkv": dict(params=HEVC_WPP + ":" + HEVC_CRA),
+}
+# 4 frames at 1920x1080 (a phone's record size; the committed clip's
+# first frames resized), libx265's defaults (WPP too), in MP4:
+# chip_smoke.py times
+# a frame's decode and holds each frame against cv2's SHA-256 of its BGR
+# bytes (HEVC_1080P_SHA, committed instead of the frames)
+HEVC_1080P = "hevc_1080p.mp4"
+HEVC_1080P_SHA = "hevc_1080p_sha256.json"
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
-        *RAW_CLIPS)
+        *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS)
 
 
 def codec_of(name: str) -> str:
@@ -760,6 +828,8 @@ def codec_of(name: str) -> str:
         return "mpeg12"
     if name in RAW_CLIPS:
         return "raw"
+    if name in HEVC_CLIPS:
+        return "hevc"
     if name in CLIP_CASES:
         return {"MJPG": "mjpeg", "mp4v": "mpeg4", "XVID": "mpeg4",
                 "DX50": "mpeg4", "VP80": "vp8",
@@ -770,7 +840,8 @@ def codec_of(name: str) -> str:
 
 def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
-            or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS):
+            or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
+            or name in HEVC_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -1930,10 +2001,14 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     """Packets of `frames` (BGR) from the system's libavcodec 59
     (`libavcodec.so.59`, `libavutil.so.57`, through ctypes): the encoder
     `encoder` ("mpeg4", ffmpeg's own, or "libxvid", which wraps
-    `libxvidcore.so.4`; "mpeg2video", "mpeg1video") opened on one thread
-    with each of `opts` set by av_opt_set (`_` kept in the names: "bf",
-    "flags", "mpeg_quant", "gmc", "ps", "data_partitioning", ...;
-    "pixel_format" "yuv422p" feeds 4:2:2 planes), and `matrices`, the
+    `libxvidcore.so.4`; "mpeg2video", "mpeg1video"; "libx265", which
+    wraps `libx265.so.199`, always with its "x265-params"
+    "pools=none:frame-threads=1": one thread, the same bytes on every
+    run) opened on one thread with each of `opts` set by av_opt_set (`_`
+    kept in the names: "bf", "flags", "mpeg_quant", "gmc", "ps",
+    "data_partitioning", "x265-params", ...; "pixel_format" "yuv422p"
+    feeds 4:2:2 planes, "yuv420p10le" 10-bit 4:2:0 planes, each 8-bit
+    sample v as (v << 2) | (v >> 6)), and `matrices`, the
     intra and inter quantisation matrices (natural order) that the mpeg4
     encoder writes into its VOL with mpeg_quant 1 (and the MPEG-1/2
     encoders into their sequence header); fed I420 (or I422) frames with
@@ -1960,6 +2035,7 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
             (au, "av_opt_set", ctypes.c_int,
              [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
             (au, "av_frame_alloc", vp, []),
+            (au, "av_get_pix_fmt", ctypes.c_int, [ctypes.c_char_p]),
             (au, "av_mallocz", vp, [ctypes.c_size_t]),
             (au, "av_frame_get_buffer", ctypes.c_int, [vp, ctypes.c_int]),
             (au, "av_frame_make_writable", ctypes.c_int, [vp]),
@@ -1974,6 +2050,10 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     settings = {"video_size": f"{w}x{h}", "pixel_format": "yuv420p",
                 "time_base": f"1/{fps}", "threads": "1"}
     settings.update({k: str(v) for k, v in opts.items()})
+    if encoder == "libx265":
+        params = settings.get("x265-params", "")
+        settings["x265-params"] = "pools=none:frame-threads=1" + (
+            ":" + params if params else "")
     for k, v in settings.items():
         if au.av_opt_set(ctx, k.encode(), v.encode(), 1):  # SEARCH_CHILDREN
             raise RuntimeError(f"libavcodec: option {k}={v} refused")
@@ -1987,8 +2067,9 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     struct.pack_into("<ii", (ctypes.c_char * 8).from_address(frame + 104),
                      0, w, h)                        # width, height
     yuv422 = settings["pixel_format"] == "yuv422p"
-    # AV_PIX_FMT_YUV420P, AV_PIX_FMT_YUV422P
-    ctypes.c_int.from_address(frame + 116).value = 4 if yuv422 else 0
+    deep = settings["pixel_format"] == "yuv420p10le"
+    ctypes.c_int.from_address(frame + 116).value = au.av_get_pix_fmt(
+        settings["pixel_format"].encode())
     if au.av_frame_get_buffer(frame, 0) < 0:
         raise RuntimeError("libavutil: no frame buffer")
     pkt = av.av_packet_alloc()
@@ -2017,12 +2098,15 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
                   yuv[sh * w:sh * w + ch * cw].reshape(ch, cw),
                   yuv[sh * w + ch * cw:].reshape(ch, cw)]
         for k, plane in enumerate(planes):
+            if deep:
+                plane = plane.astype(np.uint16)
+                plane = (plane << 2) | (plane >> 6)
             plane = np.ascontiguousarray(plane)
             data = ctypes.c_void_p.from_address(frame + 8 * k).value
             stride = ctypes.c_int.from_address(frame + 64 + 4 * k).value
             for r in range(plane.shape[0]):
                 ctypes.memmove(data + r * stride, plane[r].ctypes.data,
-                               plane.shape[1])
+                               plane.nbytes // plane.shape[0])
         ctypes.c_int64.from_address(frame + 136).value = i       # pts
         if av.avcodec_send_frame(ctx, frame) < 0:
             raise RuntimeError(f"libavcodec: {encoder} refused frame {i}")
@@ -2656,6 +2740,108 @@ def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
                     keys=keys)
 
 
+def hevc_rbsp(unit: bytes) -> bytes:
+    """An HEVC NAL unit's payload after its 2-byte header, emulation
+    prevention removed."""
+    out, zeros = bytearray(), 0
+    for b in unit[2:]:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def hevc_type(unit: bytes) -> int:
+    return (unit[0] >> 1) & 63
+
+
+def hvcc_box(vps: bytes, sps: bytes, pps: bytes, depth: int = 8) -> bytes:
+    """An hvcC box (HEVCDecoderConfigurationRecord) of one VPS, SPS and
+    PPS (complete arrays), 4-byte NAL lengths: the SPS's general profile,
+    tier, compatibility, constraint and level bytes, 4:2:0 at `depth`
+    bits, its sub-layers, no frame rate."""
+    r = hevc_rbsp(sps)
+    layers = ((r[0] >> 1) & 7) + 1
+    body = bytes([1]) + r[1:13] + struct.pack(
+        ">HBBBBHB", 0xF000, 0xFC, 0xFD, 0xF8 | (depth - 8),
+        0xF8 | (depth - 8), 0, (layers << 3) | (r[0] & 1) << 2 | 3)
+    body += bytes([3])
+    for unit in (vps, sps, pps):
+        body += bytes([0x80 | hevc_type(unit)]) + struct.pack(
+            ">HH", 1, len(unit)) + unit
+    return _box(b"hvcC", body)
+
+
+def hevc_stream(settings: dict, frames=None,
+                seed: int = 0) -> list[tuple[bytes, int, int]]:
+    """An HEVC_CASES or HEVC_CLIPS stream: libx265's access units of
+    `frames` (else moving_frames(seed) of the settings' size and number)
+    as (Annex B bytes, pts, dts) in frames; from the first CRA on when
+    the settings `cut`."""
+    settings = dict(settings)
+    h, w = settings.pop("size", HEVC_SIZE)
+    t = settings.pop("frames", HEVC_FRAMES)
+    cut = settings.pop("cut", False)
+    params = settings.pop("params", "")
+    for k in ("entry", "matrix", "audio"):
+        settings.pop(k, None)
+    if frames is None:
+        frames = moving_frames(seed, t, h, w)
+    times = []
+    packets = lavc_encode(frames, "libx265", times=times,
+                          **{"x265-params": params}, **settings)
+    aus = [(p, pts, dts) for p, (pts, dts) in zip(packets, times)]
+    if cut:
+        first = next(i for i, (p, _, _) in enumerate(aus)
+                     if any(hevc_type(u) == 21 for u in nal_units(p)))
+        aus = aus[first:]
+    return aus
+
+
+def hevc_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
+              container: str, entry: str = "hvc1", matrix: int = 0,
+              audio: bool = False, depth: int = 8) -> bytes:
+    """hevc_stream's access units muxed as a file: "avi" (Annex B under
+    the fourcc HEVC), "mp4" (4-byte length-prefixed samples under the
+    sample entry `entry`: "hvc1" with the parameter sets in its hvcC
+    only, "hev1" with them in-band too; IRAP pictures as sync samples,
+    ctts and the edit list ffmpeg's muxer writes from the first presented
+    sample; `matrix`, tkhd's turn in degrees; `audio`, aac_track's AAC
+    beside it) or "mkv" (V_MPEGH/ISO/HEVC with the hvcC record as its
+    CodecPrivate, the parameter sets out of the blocks, presentation
+    times)."""
+    packets = [a for a, _, _ in aus]
+    if container == "avi":
+        return avi_file(packets, w, h, 25, len(packets), b"HEVC")
+    sets, samples, keys = {}, [], []
+    for i, au in enumerate(packets):
+        sample = b""
+        for u in nal_units(au):
+            kind = hevc_type(u)
+            if 32 <= kind <= 34:
+                sets.setdefault(kind, u)
+                if not (container == "mp4" and entry == "hev1"):
+                    continue
+            if 16 <= kind <= 23 and (not keys or keys[-1] != i):
+                keys.append(i)
+            sample += struct.pack(">I", len(u)) + u
+        samples.append(sample)
+    hvcc = hvcc_box(sets[32], sets[33], sets[34], depth)
+    dts0 = aus[0][2]
+    first = min(p for _, p, _ in aus) - dts0
+    if container == "mp4":
+        return mp4_file(samples, w, h, 25, entry.encode(), hvcc,
+                        ctts=[p - d for _, p, d in aus], media_time=first,
+                        sync=keys,
+                        matrix=display_matrix(matrix) if matrix else None,
+                        audio=aac_track(len(samples), 25) if audio else None)
+    return mkv_file(samples, w, h, 25, "V_MPEGH/ISO/HEVC", hvcc[8:],
+                    pts=[p - min(q for _, q, _ in aus) for _, p, _ in aus],
+                    keys=keys)
+
+
 def mpeg12_set(body: bytearray, bit: int, n: int, value: int) -> None:
     """Set `n` bits of `body` from bit `bit` on (MSB first) to `value`."""
     for k in range(n):
@@ -3280,6 +3466,21 @@ def write_case(name: str, out: str = FIXTURES) -> str:
         with open(path, "wb") as f:
             f.write(h264_file(aus, w, h, name.rsplit("_", 1)[1]))
         return path
+    if name in HEVC_CASES or name in HEVC_CLIPS:
+        settings = {**HEVC_CASES, **HEVC_CLIPS}[name]
+        frames = clip_frames_bgr()[:16] if name in HEVC_CLIPS else None
+        aus = hevc_stream(settings, frames, seed=sum(map(ord, name)))
+        h, w = settings.get("size", HEVC_SIZE) if frames is None else \
+            frames.shape[1:3]
+        with open(path, "wb") as f:
+            f.write(hevc_file(
+                aus, w, h, name.rsplit("_", 1)[1],
+                entry=settings.get("entry", "hvc1"),
+                matrix=settings.get("matrix", 0),
+                audio=settings.get("audio", False),
+                depth=10 if settings.get("pixel_format") == "yuv420p10le"
+                else 8))
+        return path
     if name in CONTAINER_CASES or name in PHONE_CLIPS:
         if name in PHONE_CLIPS:
             stream, opts = "h264", PHONE_CLIPS[name]
@@ -3434,11 +3635,35 @@ def write_case(name: str, out: str = FIXTURES) -> str:
     return path
 
 
+def write_1080p(out: str = FIXTURES):
+    """HEVC_1080P and cv2's SHA-256 of each of its frames' BGR bytes
+    (HEVC_1080P_SHA)."""
+    import cv2
+    import hashlib
+    import json
+
+    frames = np.stack([cv2.resize(f, (1920, 1080),
+                                  interpolation=cv2.INTER_CUBIC)
+                       for f in clip_frames_bgr()[:4]])
+    path = os.path.join(out, HEVC_1080P)
+    with open(path, "wb") as f:                  # libx265's defaults, MP4
+        f.write(hevc_file(hevc_stream(dict(params=HEVC_WPP), frames),
+                          1920, 1080, "mp4"))
+    got, count = cv2_view(path)
+    with open(os.path.join(out, HEVC_1080P_SHA), "w") as f:
+        json.dump({"n": len(got), "count": count, "shape": list(got.shape),
+                   "sha256": [hashlib.sha256(g.tobytes()).hexdigest()
+                              for g in got]}, f, indent=1)
+
+
 def main(out: str = FIXTURES, *names: str):
     os.makedirs(out, exist_ok=True)
     for name in names or (*HELD, *CLIP_CASES, *LAVC_UNREAD, *PHONE_CLIPS,
-                          *CAMERA_CLIPS, *SCREEN_CLIPS):
+                          *CAMERA_CLIPS, *SCREEN_CLIPS, HEVC_1080P):
         if name in DVD_UNREAD:          # written by the test itself
+            continue
+        if name == HEVC_1080P:
+            write_1080p(out)
             continue
         path = write_case(name, out)
         if name not in HELD:

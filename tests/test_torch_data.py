@@ -280,10 +280,11 @@ def test_device_prefetch_on_the_cpu(corpus):
 
 
 def test_unsupported_layouts_raise(tmp_path):
-    """A video file of a codec the port does not read (HEVC) raises
+    """A video file of a codec the port does not read (AV1) raises
     NotImplementedError naming it, a broken one (an empty .mp4, an AVI
-    that claims MJPEG or H.264 over raw pixels) ValueError; a frame directory
-    without frames and a missing source raise FileNotFoundError."""
+    that claims MJPEG, H.264 or HEVC over raw pixels) ValueError; a frame
+    directory without frames and a missing source raise
+    FileNotFoundError."""
     stem = str(tmp_path / "clip")
     os.makedirs(stem)
     with pytest.raises(FileNotFoundError, match="no frames"):
@@ -304,9 +305,13 @@ def test_unsupported_layouts_raise(tmp_path):
         f.write(data.replace(b"RGBA", b"H264"))
     with pytest.raises(ValueError, match="H.264"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
-    with open(stem + ".avi", "wb") as f:     # claim HEVC (not read)
+    with open(stem + ".avi", "wb") as f:     # claim HEVC (read: broken)
         f.write(data.replace(b"RGBA", b"HEVC"))
-    with pytest.raises(NotImplementedError, match="HEVC"):
+    with pytest.raises(ValueError, match="no frames decoded"):
+        av.load_frames_for(stem, N_FRAMES, SIZE)
+    with open(stem + ".avi", "wb") as f:     # claim AV1 (not read)
+        f.write(data.replace(b"RGBA", b"AV01"))
+    with pytest.raises(NotImplementedError, match="AV1"):
         av.load_frames_for(stem, N_FRAMES, SIZE)
     with pytest.raises(FileNotFoundError):
         av.load_frames_for(str(tmp_path / "none"), N_FRAMES, SIZE)

@@ -379,9 +379,9 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                                                capsys):
     """frames and extract over mp4v, MJPEG, .mov, VP8, VP9 and H.264
     clips beside a raw AVI give the JAX script's .npy stacks and wavs; an
-    MP4 whose sample entry names HEVC (an mp4v clip relabelled hvc1) the
-    JAX script reads with cv2, the port lists it as skipped with the
-    reason."""
+    MP4 whose sample entry names AV1 (an mp4v clip relabelled av01) the
+    JAX script reads with cv2 (libavformat takes the codec from its
+    esds), the port lists it as skipped with the reason."""
     pytest.importorskip("cv2")
     raw = tmp_path / "raw"
     (raw / "sub").mkdir(parents=True)
@@ -393,7 +393,7 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
                      ("h264_high_mp4.mp4", "i.mp4")):
         shutil.copy(os.path.join(VIDEOS, src), raw / dst)
     data = open(os.path.join(VIDEOS, "mpeg4_mp4.mp4"), "rb").read()
-    (raw / "h.mp4").write_bytes(data.replace(b"mp4v", b"hvc1", 1))
+    (raw / "h.mp4").write_bytes(data.replace(b"mp4v", b"av01", 1))
     args = dict(root=str(raw), sample_rate=16000, n_frames=16,
                 frame_size=64, require_audio=False)
     rec = prepare_dataset.main(["extract", "--root", str(raw), "--out",
@@ -413,13 +413,13 @@ def test_prepare_reads_compressed_video_as_jax(j_pd, tmp_path,
         else:
             assert ours[name] == ref[name]
     assert (rec["clips"], rec["frames_only"], rec["skipped"]) == (1, 7, 1)
-    assert re.search(r"skipped .*h\.mp4: .*HEVC, not read", out)
+    assert re.search(r"skipped .*h\.mp4: .*AV1, not read", out)
     # frames: .mp4/.avi/.mkv/.webm beside the videos, .mov left alone.
     jraw = tmp_path / "jraw"
     shutil.copytree(raw, jraw)
     rec = prepare_dataset.main(["frames", "--root", str(raw),
                                 "--results_dir", str(tmp_path / "res")])
-    assert "HEVC, not read" in capsys.readouterr().out
+    assert "AV1, not read" in capsys.readouterr().out
     (jraw / "h.mp4").unlink()           # cv2 reads it; the port does not
     j_pd.cmd_frames(argparse.Namespace(root=str(jraw), n_frames=16,
                                        frame_size=64))

@@ -61,8 +61,10 @@ chip_smoke.py trains from or times) go through:
     patched stream (MPEG quantisation, quarter-pel and video packets in
     the VOL, AC prediction, XviD and DivX user data, two VOPs in one
     packet) or the encoders' own (B-VOPs, GMC, data partitioning);
-  * NotImplementedError naming the codec for HEVC, AV1 and FFV1
-    (their fourccs put into a clip's header), naming each MPEG-4 feature
+  * NotImplementedError naming the codec for AV1 and FFV1 (their
+    fourccs put into a clip's header) and HEVC's 4:2:2 (x265's SPS
+    patched; what else HEVC leaves unread:
+    tests/test_torch_video_hevc.py), naming each MPEG-4 feature
     not read that a patched header or macroblock flag can show (interlace
     also from libavcodec's own interlaced stream; RVLC), each VP8 feature
     libvpx does not write (frame headers written here by a boolean
@@ -228,15 +230,41 @@ def _patched(src, dst, old: bytes, new: bytes, count=1):
     return str(dst)
 
 
+def _hevc_422(path: str) -> tuple[bytes, bytes]:
+    """The SPS of an x265 file and the same with chroma_format_idc 2
+    (4:2:2, a RExt sampling) for its 1: ue(1) "010" becomes ue(2) "011"
+    after sps_seq_parameter_set_id ue(0) (same length, no new emulation
+    prevention)."""
+    data = open(path, "rb").read()
+    at = data.index(b"\x42\x01")                # nal_unit_type 33, TID 0
+    sps = mk.nal_units(b"\0\0\1" + data[at:at + 64])[0][:40]
+    bits = "".join(f"{b:08b}" for b in mk.hevc_rbsp(sps))
+    k = 4 + 3 + 1 + 96                           # after profile_tier_level
+    assert bits[k:k + 4] == "1010"
+    bits = bits[:k + 3] + "1" + bits[k + 4:]
+    new = sps[:1] + mk.nal_unit(sps[1], bits)[:len(sps) - 1]
+    assert len(new) == len(sps) and new != sps
+    return sps, new
+
+
 @pytest.mark.parametrize("fourcc,name", [
     (b"HEVC", "HEVC"), (b"AV01", "AV1"), (b"FFV1", "FFV1")])
 def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
-    tag = native.video_track(FILES["mpeg4_avi"], packets=False).tag.encode()
-    avi = _patched(FILES["mpeg4_avi"], tmp_path / "x.avi", tag, fourcc,
-                   count=2)
-    mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v",
-                   {b"HEVC": b"hvc1", b"AV01": b"av01",
-                    b"FFV1": b"FFV1"}[fourcc])
+    """Codecs that are not read, and HEVC as it is not read (4:2:2, a RExt
+    sampling: x265's SPS patched, in AVI and in an hvc1 MP4's hvcC)."""
+    if fourcc == b"HEVC":
+        avi, mp4 = (mk.path_of(c) for c in ("hevc_slices_avi",
+                                            "hevc_default_mp4"))
+        avi = _patched(avi, tmp_path / "x.avi", *_hevc_422(avi))
+        mp4 = _patched(mp4, tmp_path / "x.mp4", *_hevc_422(mp4))
+        name = "HEVC 4:2:2"
+    else:
+        tag = native.video_track(FILES["mpeg4_avi"],
+                                 packets=False).tag.encode()
+        avi = _patched(FILES["mpeg4_avi"], tmp_path / "x.avi", tag, fourcc,
+                       count=2)
+        mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v",
+                       {b"AV01": b"av01", b"FFV1": b"FFV1"}[fourcc])
     for path in (avi, mp4):
         with pytest.raises(NotImplementedError, match=re.escape(name)):
             native.decode_video(path)

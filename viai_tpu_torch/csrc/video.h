@@ -1,7 +1,8 @@
 // Shared by videodec.cpp (containers, MJPEG, the frame path),
 // mpeg4.cpp (the MPEG-4 Part 2 decoder), mpeg12.cpp (the MPEG-1/2
 // decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder),
-// h264.cpp (the H.264 decoder) and rawvideo.cpp (uncompressed video).
+// h264.cpp (the H.264 decoder), hevc.cpp (the HEVC decoder) and
+// rawvideo.cpp (uncompressed video).
 #pragma once
 
 #include <cstddef>
@@ -228,6 +229,44 @@ class H264Decoder {
   // Whether a B slice came under an SPS without bitstream_restriction
   // (the reorder depth is then libavcodec's guess).
   bool guesses_delay() const;
+  // The cropped picture size of the active (else the first) SPS; false
+  // before an SPS.
+  bool picture_size(int& w, int& h) const;
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// The HEVC decoder (Main, Main 10 and Main Still Picture: 4:2:0 at 8 and
+// 10 bits) for the streams of x265, phones and cameras (see hevc.cpp).
+class HevcDecoder {
+ public:
+  // `config`: the hvcC record of an MP4 hvc1/hev1 sample entry or a
+  // Matroska V_MPEGH/ISO/HEVC track, whose packets carry length-prefixed
+  // NAL units (its parameter sets are read first); empty for Annex B
+  // packets (start codes, as in AVI).
+  explicit HevcDecoder(const std::vector<uint8_t>& config);
+  ~HevcDecoder();
+  // Decode one packet (an access unit); true with `out` filled when
+  // libavcodec outputs a picture after it (in its output order, bumped by
+  // the SPS's reorder depth and buffering; an IRAP picture that begins a
+  // sequence outputs every picture before it).
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // The last decoded packet's further pictures, in order: true with
+  // `out` filled while one is left.
+  bool next(Picture& out);
+  // At the end of the stream: the next picture still held back; false
+  // when none is left.
+  bool flush(Picture& out);
+  // Read one packet's parameter sets only (the packets before a later
+  // starting point).
+  void headers(const uint8_t* data, size_t n);
+  // Order pictures from their slice headers without decoding their CTUs.
+  void headers_only();
+  // The nal_unit_type of the packet's first slice segment that begins a
+  // picture; -1 when it holds none.
+  int peek(const uint8_t* data, size_t n) const;
   // The cropped picture size of the active (else the first) SPS; false
   // before an SPS.
   bool picture_size(int& w, int& h) const;

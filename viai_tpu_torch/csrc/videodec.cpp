@@ -2,7 +2,7 @@
 // decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
 // (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
 // mpeg12.cpp MPEG-1/2, vp8.cpp VP8, vp9.cpp VP9, h264.cpp H.264,
-// rawvideo.cpp uncompressed video).
+// hevc.cpp HEVC, rawvideo.cpp uncompressed video).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -22,13 +22,16 @@
 //     and fixed lacing; VP8 and VP9 in MP4 under their vp08/vp09 sample
 //     entries and vpcC boxes; H.264 under avc1/avc3 with its avcC box,
 //     V_MPEG4/ISO/AVC with its avcC CodecPrivate, and Annex B in AVI;
+//     HEVC under hvc1/hev1 with its hvcC box, V_MPEGH/ISO/HEVC with its
+//     hvcC CodecPrivate, and Annex B in AVI under HEVC or H265;
 //     uncompressed video by its fourcc: an AVI's strf compression, bit
 //     count, height sign and colour table, a Matroska V_UNCOMPRESSED
 //     track's ColourSpace).
 //     Each gives the track's packets in decode order, byte for byte as
-//     libavformat gives them (H.264 in MP4 and Matroska before cv2's
-//     h264_mp4toannexb), the frame count that cv2's
-//     CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the sample
+//     libavformat gives them (H.264 and HEVC in MP4 and Matroska before
+//     cv2's h264_mp4toannexb and hevc_mp4toannexb), the frame count
+//     that cv2's CAP_PROP_FRAME_COUNT reports: AVI strh dwLength, MP4 the
+//     sample
 //     count (of a fragmented file without samples in moov, round(duration
 //     · fps) over its streams' spans, see mp4_count), Matroska
 //     round(duration · fps) with libavformat's duration and av_reduce'd
@@ -131,7 +134,9 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // Containers
 // =====================================================================
 
-enum class Codec { kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kOther };
+enum class Codec {
+  kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kHevc, kOther
+};
 
 struct Packet {
   size_t off = 0;
@@ -224,6 +229,7 @@ Codec riff_codec(const std::string& tag) {
   if (u == "VP90") return Codec::kVp9;
   if (u == "H264" || u == "X264" || u == "AVC1" || u == "DAVC")
     return Codec::kH264;
+  if (u == "HEVC" || u == "H265") return Codec::kHevc;
   // MPEG-1 and MPEG-2 video (libavformat's ff_codec_bmp_tags; VCR2 and
   // SLIF, which libavcodec decodes with their own quirks, are not read).
   static const char* kMpeg12[] = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2",
@@ -755,6 +761,12 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
     if (!avcc) broken("MP4 '" + t.tag + "' sample entry without its avcC box");
     t.config.assign(f.begin() + avcc->body, f.begin() + avcc->end);
     t.codec = Codec::kH264;
+  } else if (t.tag == "hvc1" || t.tag == "hev1") {
+    std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
+    const Box* hvcc = child(eb, "hvcC");
+    if (!hvcc) broken("MP4 '" + t.tag + "' sample entry without its hvcC box");
+    t.config.assign(f.begin() + hvcc->body, f.begin() + hvcc->end);
+    t.codec = Codec::kHevc;
   } else if (t.tag == "vp08" || t.tag == "vp09") {
     read_vpcc(t, boxes(f, entry + 86, entry + esz));
   } else if (mov_mpeg12(t.tag)) {
@@ -1581,6 +1593,12 @@ void demux_mkv(Track& t) {
               if (priv.empty())
                 broken("Matroska V_MPEG4/ISO/AVC track without its avcC "
                        "CodecPrivate");
+            } else if (codec == "V_MPEGH/ISO/HEVC") {
+              t.codec = Codec::kHevc;
+              t.config = priv;
+              if (priv.empty())
+                broken("Matroska V_MPEGH/ISO/HEVC track without its hvcC "
+                       "CodecPrivate");
             } else if (codec == "V_UNCOMPRESSED") {
               // libavformat takes the layout from ColourSpace's fourcc.
               t.codec = Codec::kRaw;
@@ -1659,9 +1677,10 @@ void demux_mkv(Track& t) {
     av_reduce(fn, fd, 1000000000, int64_t(default_duration), 30000);
   } else {
     if (t.codec == Codec::kH264 || t.codec == Codec::kMpeg4 ||
-        t.codec == Codec::kMpeg12)
+        t.codec == Codec::kMpeg12 || t.codec == Codec::kHevc)
       unsupported(std::string("Matroska ") +
                   (t.codec == Codec::kH264    ? "H.264"
+                   : t.codec == Codec::kHevc  ? "HEVC"
                    : t.codec == Codec::kMpeg4 ? "MPEG-4 Part 2"
                                               : "MPEG-1/2") +
                   " track without DefaultDuration (cv2's rate would come "
@@ -2738,6 +2757,7 @@ class Decoder {
       h264_.reset(new H264Decoder(t.config));
       h264_->set_delay(probe_delay(t));
     }
+    if (t.codec == Codec::kHevc) hevc_.reset(new HevcDecoder(t.config));
   }
 
   // The reorder depth libavformat's avformat_find_stream_info leaves in
@@ -2778,13 +2798,16 @@ class Decoder {
     if (vp8_) return vp8_->decode(d, p.size, out);
     if (vp9_) return vp9_->decode(d, p.size, out);
     if (h264_) return h264_->decode(d, p.size, out);
+    if (hevc_) return hevc_->decode(d, p.size, out);
     if (mpeg12_) return mpeg12_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
   // The last decoded packet's further pictures (a VP9 SVC superframe
-  // shows one a spatial layer); false when none is left.
+  // shows one a spatial layer; HEVC outputs every picture held at an
+  // IRAP picture that begins a sequence); false when none is left.
   bool more(Picture& out) {
+    if (hevc_) return hevc_->next(out);
     if (!vp9_ || !vp9_->next(out)) return false;
     out.source = int64_t(calls_.size()) - 1;
     return true;
@@ -2794,8 +2817,8 @@ class Decoder {
   // (H.264's reorder delay, MPEG-4's B-VOPs, MPEG-1/2's reference);
   // false when none is left.
   bool flush(Picture& out) {
-    return (h264_ && h264_->flush(out)) || (mpeg4_ && mpeg4_->flush(out)) ||
-           (mpeg12_ && mpeg12_->flush(out));
+    return (h264_ && h264_->flush(out)) || (hevc_ && hevc_->flush(out)) ||
+           (mpeg4_ && mpeg4_->flush(out)) || (mpeg12_ && mpeg12_->flush(out));
   }
 
   // The packet a picture of decode() or flush() was decoded from.
@@ -2816,6 +2839,7 @@ class Decoder {
     const uint8_t* d = &t_.file[t_.packets[i].off];
     if (mpeg4_) mpeg4_->peek(d, t_.packets[i].size);
     if (h264_) h264_->headers(d, t_.packets[i].size);
+    if (hevc_) hevc_->headers(d, t_.packets[i].size);
     if (mpeg12_) mpeg12_->headers(d, t_.packets[i].size);
   }
 
@@ -2825,8 +2849,6 @@ class Decoder {
   static std::string codec_name(const std::string& tag) {
     std::string u = upper(tag);
     auto has = [&](const char* s) { return u.find(s) != std::string::npos; };
-    if (has("HEVC") || has("HVC1") || has("HEV1") || has("H265"))
-      return "HEVC, not read";
     if (has("AV1") || has("AV01")) return "AV1, not read";
     if (has("FFV1")) return "FFV1, not read";
     if (u == "VCR2" || u == "SLIF")
@@ -2841,6 +2863,7 @@ class Decoder {
   std::unique_ptr<Vp8Decoder> vp8_;
   std::unique_ptr<Vp9Decoder> vp9_;
   std::unique_ptr<H264Decoder> h264_;
+  std::unique_ptr<HevcDecoder> hevc_;
   std::unique_ptr<Mpeg12Decoder> mpeg12_;
   std::unique_ptr<RawDecoder> raw_;
 };
@@ -2903,6 +2926,12 @@ void first_size(const Track& t, int& w, int& h) {
         q.picture_size(w, h);
         break;
       }
+      case Codec::kHevc: {
+        HevcDecoder q(t.config);
+        q.headers(d, p.size);
+        q.picture_size(w, h);
+        break;
+      }
       case Codec::kMpeg4: {
         Mpeg4Decoder q(t.config, t.tag);
         q.peek(d, p.size);
@@ -2923,6 +2952,55 @@ void first_size(const Track& t, int& w, int& h) {
     w = t.width;
     h = t.height;
   }
+}
+
+// Where a window's HEVC decode may start: the last IRAP packet whose
+// fresh decode outputs exactly the whole decode's pictures from some
+// point on (their number before it in `first`), that point at or before
+// frame `pick`; packet 0 otherwise. A fresh decoder drops the RASL
+// pictures of a CRA it starts at (NoRaslOutputFlag), so a CRA is such a
+// start only for picks that follow its leading pictures in output
+// order; an IDR or a BLA picture outputs every picture before it. The
+// whole decode's order comes from a pass over the slice headers.
+size_t hevc_start(const Track& t, int64_t pick, int64_t& first) {
+  const size_t np = t.packets.size();
+  HevcDecoder scan(t.config);
+  scan.headers_only();
+  std::vector<int> kind(np, -1);
+  std::vector<size_t> order;                // the packet of each output
+  Picture q;
+  for (size_t i = 0; i < np; ++i) {
+    const uint8_t* d = &t.file[t.packets[i].off];
+    kind[i] = scan.peek(d, t.packets[i].size);
+    if (scan.decode(d, t.packets[i].size, q)) {
+      order.push_back(size_t(q.source));
+      while (scan.next(q)) order.push_back(size_t(q.source));
+    }
+  }
+  while (scan.flush(q)) order.push_back(size_t(q.source));
+  auto irap = [&](size_t i) { return kind[i] >= 16 && kind[i] <= 23; };
+  size_t best = 0;
+  first = 0;
+  std::vector<char> in(np);
+  for (size_t s = 1; s < np; ++s) {
+    if (!irap(s)) continue;
+    std::fill(in.begin(), in.end(), 0);
+    for (size_t j = s; j < np; ++j) in[j] = 1;
+    if (kind[s] == 21)                        // CRA: its RASL pictures
+      for (size_t j = s + 1; j < np && !irap(j); ++j)
+        if (kind[j] == 8 || kind[j] == 9) in[j] = 0;
+    size_t k = 0;
+    while (k < order.size() && !in[order[k]]) ++k;
+    bool suffix = true;
+    for (size_t m = k; m < order.size() && suffix; ++m) suffix = in[order[m]];
+    if (!suffix) continue;
+    int64_t before = 0;
+    for (size_t m = 0; m < k; ++m) before += !t.packets[order[m]].discard;
+    if (before > pick) break;
+    best = s;
+    first = before;
+  }
+  return best;
 }
 
 }  // namespace
@@ -2974,7 +3052,7 @@ void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 // info = (width, height (the first picture's, as cv2 reports them),
 // cv2's frame count, packets, config bytes,
 // codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 MPEG-1/2,
-// 6 uncompressed, 7 another,
+// 6 uncompressed, 7 HEVC, 8 another,
 // cv2's orientation, an AVI strf's bit count); tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
@@ -3168,8 +3246,11 @@ int32_t viai_raw_to_bgr(const uint8_t* data, int64_t n, uint32_t tag,
 // from the last shown keyframe at or before it, H.264 (whose frames count
 // in output order) from the last IDR picture at or before it until the
 // last pick is output, MPEG-1/2 (in output order too) from the last
-// I-picture of a closed GOP whose first output is at or before it. → 0,
-// or 1 broken / 2 unsupported with err set.
+// I-picture of a closed GOP whose first output is at or before it, HEVC
+// from the last IRAP picture whose fresh decode outputs the whole
+// decode's pictures from some point at or before it (hevc_start: a CRA
+// only for picks after its leading pictures). → 0, or 1 broken / 2
+// unsupported with err set.
 int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                int32_t size, double w0, double w1,
                                float* out, char* err, int32_t errlen) {
@@ -3203,7 +3284,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     // reorder its output.
     std::vector<int> vop(t.packets.size(), 0);
     bool reorder = t.codec == viai_video::Codec::kH264 ||
-                   t.codec == viai_video::Codec::kMpeg12;
+                   t.codec == viai_video::Codec::kMpeg12 ||
+                   t.codec == viai_video::Codec::kHevc;
     if (t.codec == viai_video::Codec::kMpeg4) {
       viai_video::Mpeg4Decoder scan(t.config, t.tag);
       for (size_t i = 0; i < t.packets.size(); ++i)
@@ -3269,6 +3351,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
             }
           }
         }
+      } else if (t.codec == viai_video::Codec::kHevc) {
+        start = viai_video::hevc_start(t, want.front(), n);
       }
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       bool done = false;
@@ -3278,7 +3362,10 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
         done = ++n > want.back();
       };
       for (size_t i = start; i < t.packets.size() && !done; ++i)
-        if (dec.decode(i, pic)) next();
+        if (dec.decode(i, pic)) {
+          next();
+          while (!done && dec.more(pic)) next();
+        }
       while (!done && dec.flush(pic)) next();
       if (got.empty()) viai_video::broken("no frames decoded");
     } else {

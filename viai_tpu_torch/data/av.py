@@ -25,18 +25,20 @@ The port's copy of `viai_tpu/data/av.py`. The frames of a clip
     its MJPEG decoder (4:2:0, 4:2:2, 4:4:4, 4:4:0, grey),
     csrc/mpeg4.cpp's MPEG-4 Part 2 decoder, csrc/mpeg12.cpp's MPEG-1/2
     decoder, csrc/vp8.cpp's VP8 decoder, csrc/vp9.cpp's VP9 decoder,
-    csrc/h264.cpp's H.264 decoder and csrc/rawvideo.cpp's uncompressed
-    video: planar, semi-planar and packed YUV, grey, v210 and BI_RGB at
-    8/16/32 bits in AVI, V_UNCOMPRESSED in Matroska, as OpenCV's writer
-    and capture tools store them), what the JAX package's cv2 path
-    gives: the frames of cv2's count over the window as a set, cv2's
+    csrc/h264.cpp's H.264 decoder, csrc/hevc.cpp's HEVC decoder (Main,
+    Main 10: phones', cameras' and x265's) and csrc/rawvideo.cpp's
+    uncompressed video: planar, semi-planar and packed YUV, grey, v210
+    and BI_RGB at 8/16/32 bits in AVI, V_UNCOMPRESSED in Matroska, as
+    OpenCV's writer and capture tools store them), what the JAX
+    package's cv2 path gives: the frames of cv2's count over the window
+    as a set, cv2's
     INTER_LINEAR resize on BGR, RGB / 255, re-picked over the frames
-    found. Another codec (HEVC, AV1, FFV1), an uncompressed layout that
+    found. Another codec (AV1, FFV1), an uncompressed layout that
     is not read, a feature of a codec that is not read (MPEG-4
-    interlace, H.264 MBAFF, ...), or an MP4 edit list of several edits
-    or another rate raises NotImplementedError naming it; what cv2 reads
-    no frame from (cv2's own YUY2 and UYVY AVIs) raises ValueError, as
-    the JAX package does.
+    interlace, H.264 MBAFF, HEVC tiles, ...), or an MP4 edit list of
+    several edits or another rate raises NotImplementedError naming it;
+    what cv2 reads no frame from (cv2's own YUY2 and UYVY AVIs) raises
+    ValueError, as the JAX package does.
 A MUSICES-style JSON manifest {split: [{"audio": ..., "frames": ...}]}
 is read by MusicesManifest.
 """

@@ -1,7 +1,7 @@
 """ctypes bindings of the port's native host library (csrc/wavio.cpp,
 csrc/framestack.cpp, csrc/imagedec.cpp, csrc/videodec.cpp,
 csrc/mpeg4.cpp, csrc/mpeg12.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
-csrc/h264.cpp, csrc/rawvideo.cpp).
+csrc/h264.cpp, csrc/hevc.cpp, csrc/rawvideo.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
@@ -10,7 +10,7 @@ the threaded random-crop clip loader; where the JAX package calls PIL,
 the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
 (`load_frame_dir`), whose plain twin is `data/image.py`; and where it
 calls cv2, the compressed video reader: the demuxers (`video_track`),
-the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9 and H.264 decoders and
+the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.264 and HEVC decoders and
 libavcodec's rawvideo and v210 decoders for uncompressed video, with
 swscale's conversion to BGR and cv2's turn by the display orientation
 (`decode_video`, `raw_to_bgr`) and the frame path
@@ -237,7 +237,7 @@ def load_frame_dir(path: str, n_frames: int, size: int,
 # videodec.cpp's codecs (VideoTrack.codec): "raw" is uncompressed video
 # (csrc/rawvideo.cpp).
 VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw",
-                "other")
+                "hevc", "other")
 
 
 @dataclasses.dataclass
@@ -245,18 +245,20 @@ class VideoTrack:
     """A video file's first video track as the port's demuxer gives it:
     the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
-    ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12" or "other"), the
+    ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw", "hevc" or
+    "other"), the
     size of its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT
     report it
     (from the first packet's headers; the container's when they give
     none), the frame count cv2's CAP_PROP_FRAME_COUNT reports,
-    the MPEG-4 or MPEG-1/2 headers or H.264 avcC record the container
+    the MPEG-4 or MPEG-1/2 headers or H.264 avcC or HEVC hvcC record the
+    container
     holds (`config`), an AVI strf's bit count (`bits`; 0 elsewhere)
     and the packets libavformat gives cv2 in decode order (under an MP4
     edit, from the keyframe it starts from; an MP4's movie fragments after
     moov's own samples), each (bytes, the container's keyframe flag):
-    H.264's as the container holds them (length-prefixed NAL units in MP4
-    and Matroska, Annex B in AVI); `orientation`, cv2's
+    H.264's and HEVC's as the container holds them (length-prefixed NAL
+    units in MP4 and Matroska, Annex B in AVI); `orientation`, cv2's
     CAP_PROP_ORIENTATION_META, the clockwise turn of the display matrix
     (MP4: tkhd's times mvhd's; Matroska: a Projection's roll), which
     decode_video and load_video_frames apply as cv2 does when it is 90,
@@ -348,7 +350,11 @@ def decode_video(path: str) -> np.ndarray:
     Predictive at 8 to 10, 12 and 14 bits, 4:2:0, 4:2:2, 4:4:4, GBR
     and monochrome, lossless transform bypass too, progressive frames of
     interlace-capable streams too, in libavcodec's output order and
-    number, its guessed reorder depth included); in AVI (OpenDML too),
+    number, its guessed reorder depth included), HEVC (Main, Main 10 and
+    Main Still Picture as x265, phones and cameras write them: WPP,
+    slices, AMP, transform skip, scaling lists, lossless, open GOPs, in
+    libavcodec's output order and number, the RASL pictures of a CRA
+    that begins the stream dropped); in AVI (OpenDML too),
     Matroska/WebM and MP4 (an edit list's dropped frames left out;
     fragmented too), converted to BGR24 as swscale does (its scaler for
     odd heights, 4:4:4/4:4:0 and 9 to 14 bits, H.264's chroma sited
@@ -368,9 +374,9 @@ def decode_video(path: str) -> np.ndarray:
     whose packets hold 1.5 bytes a pixel; an AVI tagged 444P, P010,
     BGR24 or RGB24, which libavformat names no codec for; a
     V_UNCOMPRESSED track without a ColourSpace), NotImplementedError
-    naming the codec (HEVC, AV1, FFV1, ...), the uncompressed layout or
-    the MJPEG, MPEG-4, VP8, VP9, H.264 or container feature it does not
-    read."""
+    naming the codec (AV1, FFV1, ...), the uncompressed layout or
+    the MJPEG, MPEG-4, VP8, VP9, H.264, HEVC or container feature it
+    does not read."""
     lib, h = _open_video(path)
     try:
         thw = (ctypes.c_int64 * 3)()

@@ -22,9 +22,9 @@ Port of `scripts/prepare_dataset.py`, with its modes and flags:
   manifest  — a MUSICES.json-style manifest of a prepared tree;
   synthetic — N synthetic wav clips (+ frame stacks) for demos.
 
-Video the port does not read (HEVC, AV1, FFV1, which the JAX package
-decodes with cv2; a VP8 feature libvpx does not write; a VP9 profile
-other than 0; H.264 other than 8-bit 4:2:0 progressive; MJPEG field
+Video the port does not read (AV1, FFV1, which the JAX package
+decodes with cv2; a VP8 feature libvpx does not write; what VP9, H.264
+and HEVC leave unread, such as interlace or HEVC's tiles; MJPEG field
 pairs or mixed sampling ratios; an MP4 edit list of several edits; a
 broken file)
 is listed by extract
