@@ -419,7 +419,10 @@ FRAMES_WARMUP = 3
 # `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames), and the HEVC that
 # phones, cameras and x265 write (HEVC_FIXTURES, libx265 through
 # libavcodec 59), beside clip_hevc.mp4 (a phone's hvc1 turned 90 degrees
-# with AAC, open GOPs of 8) and clip_hevc.mkv. Decoded
+# with AAC, open GOPs of 8) and clip_hevc.mkv, and the H.264 that does
+# not start at an IDR picture or uses tools libx264 never writes
+# (TOOLS_FIXTURES), beside clip_gopcut.mkv (open GOPs cut at a recovery
+# point, with a sound track). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -445,7 +448,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "screen": ("clip_screen.mp4", "clip_lossless.mkv"),
                  "dvd": ("clip_dvd.mkv", "clip_pim1.avi"),
                  "raw": ("clip_i420.avi", "clip_yuy2.avi"),
-                 "hevc": ("clip_hevc.mp4", "clip_hevc.mkv")}
+                 "hevc": ("clip_hevc.mp4", "clip_hevc.mkv"),
+                 "cuts": ("clip_gopcut.mkv",)}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -509,6 +513,26 @@ HEVC_FIXTURES = (
     "hevc_crop_mkv", "hevc_main10_mp4", "hevc_main10gop_mkv",
     "hevc_cracut_mp4", "hevc_cracut_mkv")
 HEVC_CLIPS = ("clip_hevc_mp4", "clip_hevc_mkv")
+# the committed fixtures of H.264 that does not start at an IDR picture or
+# uses tools libx264 never writes (tests/_torch_make_videos.py's
+# H264_TOOLS: copy cuts at recovery points and P pictures, left and top
+# crops, POC type 1, gaps in frame_num, explicit B weights, long-term
+# references and MMCO 1-6) and the cuts folder's clip, each held and
+# printed
+TOOLS_FIXTURES = (
+    "h264_gopcut_avi", "h264_gopcut_mkv", "h264_gopcut_mp4",
+    "h264_leadcut_mkv", "h264_leadcut_mp4", "h264_noseicut_mkv",
+    "h264_refcut_avi", "h264_refcut_mkv", "h264_refcut_mp4",
+    "h264_midcut_mkv", "h264_pcut_mkv", "h264_pcut_avi", "h264_crop84_avi",
+    "h264_crop2_avi", "h264_crop32_mkv", "h264_croptop_avi",
+    "h264_crop444_avi", "h264_crop10_mkv", "h264_crop422_mp4",
+    "h264_poc1_avi", "h264_poc1d_avi", "h264_poc1b_mkv", "h264_poc1c_mp4",
+    "h264_gaps_avi", "h264_gapsoff_avi", "h264_gapsb_mkv",
+    "h264_gapsboff_mkv", "h264_bipred_avi", "h264_bipredc_mkv",
+    "h264_ltr_avi", "h264_ltr5_mkv", "h264_ltrc5_avi", "h264_ltrt_avi",
+    "h264_ltrt5_mkv", "h264_ltrs_mp4", "h264_ltrs5_avi", "h264_ltrt5p_mp4",
+    "h264_graycut_mkv")
+TOOLS_CLIPS = ("clip_gopcut_mkv",)
 HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
@@ -2070,6 +2094,7 @@ def video_fixtures():
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
     per_browser, per_screen, per_dvd, per_raw, per_hevc = [], [], [], [], []
+    per_tools = []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2098,6 +2123,11 @@ def video_fixtures():
                 f"{int(ref['n'])} of {int(ref['count'])}) max|Δ| {err}")
         if npz.stem in DVD_FIXTURES or npz.stem in DVD_CLIPS:
             per_dvd.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
+        if npz.stem in TOOLS_FIXTURES or npz.stem in TOOLS_CLIPS:
+            per_tools.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
                 f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
                 f"{int(ref['count'])}) max|Δ| {err}")
@@ -2166,6 +2196,11 @@ def video_fixtures():
     require(len(per_hevc) == len(HEVC_FIXTURES) + len(HEVC_CLIPS),
             f"[video] {len(per_hevc)} HEVC fixtures of "
             f"{len(HEVC_FIXTURES) + len(HEVC_CLIPS)}")
+    log(f"[video] H.264 cut anywhere or with tools libx264 never writes "
+        f"({len(per_tools)} fixtures): " + "; ".join(per_tools))
+    require(len(per_tools) == len(TOOLS_FIXTURES) + len(TOOLS_CLIPS),
+            f"[video] {len(per_tools)} H.264 tools fixtures of "
+            f"{len(TOOLS_FIXTURES) + len(TOOLS_CLIPS)}")
     video_hevc_1080p()
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
@@ -2258,7 +2293,10 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     with soft telecine and open GOPs in Matroska, MPEG-1 at 352x240 from
     cv2's writer in AVI), then uncompressed clips (cv2's writer's I420,
     a capture tool's YUY2, in AVI), then HEVC clips (a phone's hvc1 MP4
-    turned 90 degrees with AAC, open GOPs of 8; its Matroska copy);
+    turned 90 degrees with AAC, open GOPs of 8; its Matroska copy), then
+    a cut clip (H.264 open GOPs with leading B-pictures cut at a recovery
+    point in Matroska with a sound track, its first leading pictures
+    dropped);
     (c) the eval CLI on a musices split of each, each folder's time split
     (its corpus, the train CLI, the eval CLI); (d) the decode time per
     frame of each codec, a turned frame's against the same file's
@@ -2336,7 +2374,9 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_yuy2.avi", "uncompressed YUY2, a capture"),
                        ("clip_hevc.mp4",
                         "HEVC Main, turned 90, AAC, open GOPs of 8"),
-                       ("clip_hevc.mkv", "HEVC Main, open GOPs of 8")):
+                       ("clip_hevc.mkv", "HEVC Main, open GOPs of 8"),
+                       ("clip_gopcut.mkv",
+                        "H.264 High, open GOPs cut at a recovery point")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n

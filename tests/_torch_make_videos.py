@@ -812,15 +812,155 @@ HEVC_CLIPS = {
 # bytes (HEVC_1080P_SHA, committed instead of the frames)
 HEVC_1080P = "hevc_1080p.mp4"
 HEVC_1080P_SHA = "hevc_1080p_sha256.json"
+# H.264 that does not start at an IDR picture or uses tools libx264 never
+# writes, 72x56 at 25 fps (moving_frames of the name's seed), each a
+# libx264 stream (x264_encode's settings, `frames` of them) then:
+#   * "cut": the packets from packet `cut` on (an `ffmpeg -ss ... -c
+#     copy` cut), `strip_sei` leaving the recovery point SEI out
+#     (`seed`: moving_frames' seed instead of the name's);
+#   * "crop": libx264's own crop_rect (left, top, right, bottom);
+#   * "patch": headers rewritten by rewrite_h264 (`poc1`: POC type 1 of
+#     to_poc_type1's arguments; `gaps`: the reference P pictures at
+#     those packets dropped under gaps_in_frame_num_value_allowed_flag
+#     `flag`; `bipred`: explicit B weights (explicit_bipred); `ltr`: the
+#     long-term plan of LTR_PLANS and its MMCO 5 packet);
+# muxed by h264_cut_file in the container the name ends with.
+TOOLS_CUT_GOP = dict(frames=40, open_gop=1, keyint=10)
+TOOLS_CUT_LEAD = dict(frames=40, open_gop=1, keyint=10, b_adapt=0,
+                      scenecut=0)
+TOOLS_CUT_REFRESH = dict(frames=40, intra_refresh=1, keyint=10, cabac=0)
+TOOLS_LTR_P = dict(frames=30, keyint=30, bframes=0, ref=3)
+TOOLS_LTR_B = dict(frames=30, keyint=30, bframes=2, b_pyramid="none",
+                   ref=3, weightb=1, b_adapt=0)
+H264_TOOLS = {
+    # open GOPs cut at a recovery point: no leading pictures (CABAC,
+    # medium), then leading B-pictures in a B-pyramid (the first's
+    # reference is gone: dropped); without the SEI (libavcodec's I-picture
+    # heuristic, one reference); intra refresh (outputs from the SEI's
+    # recovery frame on); a cut among B-pictures before a recovery point;
+    # closed GOPs cut at a plain P picture (AVI: no parameter sets until
+    # the next IDR picture)
+    "h264_gopcut_avi": dict(kind="cut", x264=TOOLS_CUT_GOP, cut=10),
+    "h264_gopcut_mkv": dict(kind="cut", x264=TOOLS_CUT_GOP, cut=10),
+    "h264_gopcut_mp4": dict(kind="cut", x264=TOOLS_CUT_GOP, cut=10),
+    "h264_leadcut_mkv": dict(kind="cut", x264=TOOLS_CUT_LEAD, cut=9),
+    "h264_leadcut_mp4": dict(kind="cut", x264=TOOLS_CUT_LEAD, cut=9),
+    "h264_noseicut_mkv": dict(kind="cut", x264={**TOOLS_CUT_LEAD, "ref": 1},
+                              cut=9, strip_sei=True),
+    "h264_refcut_avi": dict(kind="cut", x264=TOOLS_CUT_REFRESH, cut=10,
+                           seed=3),
+    "h264_refcut_mkv": dict(kind="cut", x264=TOOLS_CUT_REFRESH, cut=10,
+                           seed=3),
+    "h264_refcut_mp4": dict(kind="cut", x264=TOOLS_CUT_REFRESH, cut=10,
+                           seed=3),
+    "h264_midcut_mkv": dict(kind="cut", x264=TOOLS_CUT_LEAD, cut=13),
+    "h264_pcut_mkv": dict(kind="cut", x264=dict(frames=40, keyint=10),
+                          cut=13),
+    "h264_pcut_avi": dict(kind="cut", x264=dict(frames=40, keyint=10),
+                          cut=11),
+    # left and top crops (cv2's picture is libavcodec's aligned crop,
+    # scaled to the cropped size by its swscale)
+    "h264_crop84_avi": dict(kind="crop", crop="8,4,0,0"),
+    "h264_crop2_avi": dict(kind="crop", crop="2,2,2,2"),
+    "h264_crop32_mkv": dict(kind="crop", crop="32,0,0,16"),
+    "h264_croptop_avi": dict(kind="crop", crop="0,6,0,0"),
+    "h264_crop444_avi": dict(kind="crop", crop="3,0,0,0",
+                             x264=dict(csp=12, profile="high444")),
+    "h264_crop10_mkv": dict(kind="crop", crop="8,2,0,0",
+                            x264=dict(bitdepth=10, profile="high10")),
+    "h264_crop422_mp4": dict(kind="crop", crop="4,0,0,0",
+                             x264=dict(csp=6, profile="high422")),
+    # POC type 1: Baseline (POC 2 a frame, delta_pic_order_always_zero)
+    # and with its deltas; B-pyramids in CABAC and B-frames in CAVLC
+    "h264_poc1_avi": dict(kind="patch", x264=dict(profile="baseline"),
+                          poc1=dict(always_zero=True)),
+    "h264_poc1d_avi": dict(kind="patch", x264=dict(profile="baseline"),
+                           poc1=dict(non_ref=-3, cycle=(1, 3))),
+    "h264_poc1b_mkv": dict(kind="patch", x264=dict(keyint=30), poc1={}),
+    "h264_poc1c_mp4": dict(kind="patch", x264=dict(keyint=30, cabac=0,
+                                                   b_pyramid="none"),
+                           poc1=dict(non_ref=-1, cycle=(2, 2))),
+    # gaps in frame_num: reference P pictures dropped, with the SPS's flag
+    # and without it, Baseline and B-frames
+    "h264_gaps_avi": dict(kind="patch", x264=dict(profile="baseline"),
+                          gaps=((5, 11, 12), 1)),
+    "h264_gapsoff_avi": dict(kind="patch", x264=dict(profile="baseline"),
+                             gaps=((5, 11, 12), 0)),
+    "h264_gapsb_mkv": dict(kind="patch", x264=dict(keyint=30),
+                           gaps=((5, 7), 1)),
+    "h264_gapsboff_mkv": dict(kind="patch", x264=dict(keyint=30),
+                              gaps=((5, 7), 0)),
+    # explicit bi-predictive weights (weighted_bipred_idc 1), CABAC and
+    # CAVLC
+    "h264_bipred_avi": dict(kind="patch", x264=dict(keyint=30, weightb=1),
+                            bipred=0),
+    "h264_bipredc_mkv": dict(kind="patch", x264=dict(
+        keyint=30, weightb=1, cabac=0, b_pyramid="none"), bipred=1),
+    # long-term references: an IDR picture's long_term_reference_flag,
+    # MMCO 1-4 and 6, list modification idc 2; P pictures in CABAC and
+    # CAVLC, B pictures (implicit weights) under temporal and spatial
+    # direct prediction; each also with an MMCO 5
+    "h264_ltr_avi": dict(kind="patch", x264=TOOLS_LTR_P, ltr="p"),
+    "h264_ltr5_mkv": dict(kind="patch", x264=TOOLS_LTR_P, ltr="p", reset=20),
+    "h264_ltrc5_avi": dict(kind="patch", x264={**TOOLS_LTR_P, "cabac": 0},
+                           ltr="p", reset=18),
+    "h264_ltrt_avi": dict(kind="patch", x264={**TOOLS_LTR_B,
+                                              "direct": "temporal"},
+                          ltr="b"),
+    "h264_ltrt5_mkv": dict(kind="patch", x264={**TOOLS_LTR_B,
+                                               "direct": "temporal"},
+                           ltr="b", reset="P6"),
+    "h264_ltrs_mp4": dict(kind="patch", x264={**TOOLS_LTR_B,
+                                              "direct": "spatial"},
+                          ltr="b"),
+    "h264_ltrs5_avi": dict(kind="patch", x264={**TOOLS_LTR_B,
+                                               "direct": "spatial"},
+                           ltr="b", reset="P6"),
+    "h264_ltrt5p_mp4": dict(kind="patch", x264={**TOOLS_LTR_B,
+                                                "direct": "temporal"},
+                            ltr="b", reset="P4", rebase_poc=False),
+    # an open-GOP cut whose first P picture puts a grey gap frame first in
+    # its list (modification idc 0): libavcodec's noref_gray takes the I
+    # picture in its place
+    "h264_graycut_mkv": dict(kind="cut", x264=TOOLS_CUT_GOP, cut=10,
+                             ltr="gray"),
+}
+# the long-term plans of H264_TOOLS: picture (a packet, or "P<k>", "B<k>",
+# "I<k>": the k-th of its kind) → slice header edits, each a valid
+# marking (max_num_ref_frames 3 is never exceeded)
+LTR_PLANS = {
+    "p": {0: dict(long_term=1),
+          3: dict(mmco=[(1, 1), (4, 2), (3, 0, 1)]),
+          5: dict(mods0=[(2, 1), (2, 0)]),
+          6: dict(mods0=[(0, 0), (2, 0)]),
+          8: dict(mmco=[(2, 0)]),
+          10: dict(mmco=[(1, 1), (6, 0)]),
+          13: dict(mmco=[(4, 1)]),
+          16: dict(mmco=[(6, 2)])},
+    "b": {"I0": dict(long_term=1),
+          "P2": dict(mmco=[(4, 2), (3, 0, 1)]),
+          **{f"B{k}": dict(mods1=[(2, 0)]) for k in (2, 4, 6)},
+          **{f"B{k}": dict(mods0=[(2, 1)], mods1=[(2, 1)]) for k in (3, 5, 7)},
+          "P5": dict(mmco=[(2, 0)]),
+          "P7": dict(mmco=[(1, 0), (6, 0)])},
+    "gray": {"P0": dict(mods0=[(0, 1)])},
+}
+# the cuts folder's clip chip_smoke.py trains from: the committed 224x224
+# clip's first 24 frames in open GOPs of 8 with leading B-pictures (CABAC,
+# B-pyramid), cut at the first recovery point (packet 5: 19 packets, of
+# which libavcodec outputs 16), with a sound track
+TOOLS_CLIPS = {"clip_gopcut_mkv": dict(kind="cut", x264=dict(
+    frames=24, open_gop=1, keyint=8, b_adapt=0, scenecut=0), cut=5)}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
-        *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS)
+        *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
-    if name in PHONE_CLIPS or name in CAMERA_CLIPS or name in SCREEN_CLIPS:
+    if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in SCREEN_CLIPS
+            or name in TOOLS_CLIPS):
         return "h264"
     if name in BROWSER_CLIPS:
         return "vp9"
@@ -841,7 +981,7 @@ def codec_of(name: str) -> str:
 def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
             or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
-            or name in HEVC_CLIPS):
+            or name in HEVC_CLIPS or name in TOOLS_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -2296,8 +2436,16 @@ def sps_fields(bits: str) -> BitReader:
     r.mark("poc_type")
     r.poc_type = r.ue()
     r.log2_max_poc_lsb = r.ue() + 4 if r.poc_type == 0 else 0
-    assert r.poc_type in (0, 2)
-    r.ue()
+    r.delta_always_zero, r.poc_offsets = True, (0, 0, [])
+    if r.poc_type == 1:
+        r.delta_always_zero = bool(r.u(1))
+        non_ref, top_bottom = r.se(), r.se()
+        r.poc_offsets = (non_ref, top_bottom,
+                         [r.se() for _ in range(r.ue())])
+    assert r.poc_type in (0, 1, 2)
+    r.mark("max_num_ref_frames")
+    r.max_num_ref_frames = r.ue()
+    r.mark("gaps")
     r.u(1)
     mb_w = r.ue() + 1
     map_units = r.ue() + 1
@@ -2337,23 +2485,28 @@ def sps_fields(bits: str) -> BitReader:
 
 
 def pps_fields(bits: str) -> BitReader:
+    """A PPS's fields, where those patch_h264 changes begin
+    (`num_slice_groups`, `weighted_bipred_idc`,
+    `redundant_pic_cnt_present`) and the values the slice header depends
+    on: `pps_id`, `cabac`, `bottom_field_pic_order`, `num_ref_idx` (the
+    defaults), `weighted_pred`, `weighted_bipred_idc`,
+    `deblocking_control`, `redundant`."""
     r = BitReader(bits)
-    r.ue()
-    r.ue()
-    r.u(2)
+    r.pps_id, r.sps_id = r.ue(), r.ue()
+    r.cabac, r.bottom_field_pic_order = bool(r.u(1)), bool(r.u(1))
     r.mark("num_slice_groups")
-    r.ue()
-    r.ue()
-    r.ue()
-    r.u(1)
+    r.slice_groups = r.ue() + 1
+    r.num_ref_idx = [r.ue() + 1, r.ue() + 1]
+    r.weighted_pred = bool(r.u(1))
     r.mark("weighted_bipred_idc")
-    r.u(2)
+    r.weighted_bipred_idc = r.u(2)
     r.se()
     r.se()
     r.se()
-    r.u(2)
-    r.mark("redundant_pic_cnt_present")
+    r.deblocking_control = bool(r.u(1))
     r.u(1)
+    r.mark("redundant_pic_cnt_present")
+    r.redundant = bool(r.u(1))
     return r
 
 
@@ -2422,6 +2575,445 @@ def patch_h264(packets: list[bytes], kind: int, field: str, new: str,
             units.append(u)
         out.append(b"".join(b"\0\0\0\1" + u for u in units))
     return out
+
+
+def read_slice_header(bits: str, nal: int, sps: BitReader,
+                      pps: BitReader) -> dict:
+    """A slice header (7.3.3, frame pictures) as a dict of its fields,
+    with `data`: the slice data's bits (CAVLC) or bytes as a bit string
+    after the cabac_alignment_one_bits (CABAC)."""
+    r = BitReader(bits)
+    h = {"nal": nal, "first_mb": r.ue(), "slice_type": r.ue(),
+         "pps_id": r.ue()}
+    kind = h["slice_type"] % 5
+    h["frame_num"] = r.u(sps.log2_max_frame_num)
+    assert sps.frame_mbs_only and pps.slice_groups == 1
+    idr = nal & 31 == 5
+    if idr:
+        h["idr_pic_id"] = r.ue()
+    if sps.poc_type == 0:
+        h["poc_lsb"] = r.u(sps.log2_max_poc_lsb)
+        if pps.bottom_field_pic_order:
+            h["delta_poc_bottom"] = r.se()
+    if sps.poc_type == 1 and not sps.delta_always_zero:
+        h["delta_poc"] = [r.se()]
+        if pps.bottom_field_pic_order:
+            h["delta_poc"].append(r.se())
+    assert not pps.redundant
+    if kind == 1:
+        h["direct_spatial"] = r.u(1)
+    h["num_ref_idx"] = None
+    if kind in (0, 1) and r.u(1):
+        h["num_ref_idx"] = [r.ue() + 1] + ([r.ue() + 1] if kind == 1 else [])
+    h["mods"] = [None, None]
+    for lst in range(2 if kind == 1 else 1 if kind == 0 else 0):
+        if r.u(1):
+            mods = []
+            while True:
+                idc = r.ue()
+                if idc == 3:
+                    break
+                mods.append((idc, r.ue()))
+            h["mods"][lst] = mods
+    n_ref = h["num_ref_idx"] or pps.num_ref_idx
+    h["weights"] = None
+    if (pps.weighted_pred and kind == 0) or (pps.weighted_bipred_idc == 1
+                                             and kind == 1):
+        chroma = sps.chroma_format_idc != 0
+        w = {"luma_log2": r.ue(), "chroma_log2": r.ue() if chroma else 0,
+             "lists": []}
+        for lst in range(2 if kind == 1 else 1):
+            entries = []
+            for _ in range(n_ref[lst]):
+                luma = (r.se(), r.se()) if r.u(1) else None
+                cw = None
+                if chroma and r.u(1):
+                    cw = [(r.se(), r.se()) for _ in range(2)]
+                entries.append((luma, cw))
+            w["lists"].append(entries)
+        h["weights"] = w
+    if nal >> 5:
+        if idr:
+            h["no_output"], h["long_term"] = r.u(1), r.u(1)
+        else:
+            h["mmco"] = None
+            if r.u(1):
+                ops = []
+                while True:
+                    op = r.ue()
+                    if op == 0:
+                        break
+                    args = []
+                    if op in (1, 3):
+                        args.append(r.ue())
+                    if op == 2:
+                        args.append(r.ue())
+                    if op in (3, 6, 4):
+                        args.append(r.ue())
+                    ops.append((op, *args))
+                h["mmco"] = ops
+    if pps.cabac and kind != 2:
+        h["cabac_init_idc"] = r.ue()
+    h["qp_delta"] = r.se()
+    if pps.deblocking_control:
+        h["deblock"] = [r.ue()]
+        if h["deblock"][0] != 1:
+            h["deblock"] += [r.se(), r.se()]
+    if pps.cabac:
+        while r.p % 8:
+            assert r.u(1) == 1
+    h["data"] = bits[r.p:]
+    return h
+
+
+def slice_header_bits(h: dict, sps: BitReader, pps: BitReader) -> str:
+    """read_slice_header's dict → the slice's RBSP bits (its data after
+    the header; CABAC's re-aligned with cabac_alignment_one_bits)."""
+    kind = h["slice_type"] % 5
+    idr = h["nal"] & 31 == 5
+    b = ue_bits(h["first_mb"]) + ue_bits(h["slice_type"]) + ue_bits(
+        h["pps_id"]) + format(h["frame_num"] % (1 << sps.log2_max_frame_num),
+                              f"0{sps.log2_max_frame_num}b")
+    if idr:
+        b += ue_bits(h["idr_pic_id"])
+    if sps.poc_type == 0:
+        b += format(h["poc_lsb"] % (1 << sps.log2_max_poc_lsb),
+                    f"0{sps.log2_max_poc_lsb}b")
+        if pps.bottom_field_pic_order:
+            b += se_bits(h.get("delta_poc_bottom", 0))
+    if sps.poc_type == 1 and not sps.delta_always_zero:
+        d = h.get("delta_poc", [0, 0])
+        b += se_bits(d[0])
+        if pps.bottom_field_pic_order:
+            b += se_bits(d[1] if len(d) > 1 else 0)
+    if kind == 1:
+        b += str(h["direct_spatial"])
+    if kind in (0, 1):
+        if h["num_ref_idx"]:
+            b += "1" + "".join(ue_bits(n - 1) for n in h["num_ref_idx"])
+        else:
+            b += "0"
+    for lst in range(2 if kind == 1 else 1 if kind == 0 else 0):
+        mods = h["mods"][lst]
+        if mods is None:
+            b += "0"
+        else:
+            b += "1" + "".join(ue_bits(i) + ue_bits(v) for i, v in mods) + \
+                ue_bits(3)
+    if (pps.weighted_pred and kind == 0) or (pps.weighted_bipred_idc == 1
+                                             and kind == 1):
+        w = h["weights"]
+        b += ue_bits(w["luma_log2"])
+        if sps.chroma_format_idc:
+            b += ue_bits(w["chroma_log2"])
+        for entries in w["lists"]:
+            for luma, cw in entries:
+                b += "0" if luma is None else "1" + se_bits(luma[0]) + \
+                    se_bits(luma[1])
+                if sps.chroma_format_idc:
+                    b += "0" if cw is None else "1" + "".join(
+                        se_bits(x) + se_bits(y) for x, y in cw)
+    if h["nal"] >> 5:
+        if idr:
+            b += str(h["no_output"]) + str(h["long_term"])
+        elif h["mmco"] is None:
+            b += "0"
+        else:
+            b += "1" + "".join("".join(ue_bits(x) for x in op)
+                               for op in h["mmco"]) + ue_bits(0)
+    if pps.cabac and kind != 2:
+        b += ue_bits(h["cabac_init_idc"])
+    b += se_bits(h["qp_delta"])
+    if pps.deblocking_control:
+        b += ue_bits(h["deblock"][0])
+        if h["deblock"][0] != 1:
+            b += se_bits(h["deblock"][1]) + se_bits(h["deblock"][2])
+    if pps.cabac:
+        b += "1" * (-len(b) % 8)
+    return b + h["data"]
+
+
+def rewrite_h264(aus, slices=None, sps_edit=None, pps_edit=None,
+                 drop=None):
+    """x264_encode's access units with their headers rewritten:
+    `sps_edit(bits, reader)` and `pps_edit(bits, reader)` → a parameter
+    set's new RBSP bits; `slices(i, header, sps, pps)` edits packet i's
+    slice headers (read_slice_header's dicts) in place, CAVLC or CABAC
+    (the alignment bits are written anew); `drop(i)` leaves packet i
+    out. → (Annex B bytes, pts, dts) as x264_encode gives them."""
+    old, new, out = {}, {}, []          # parameter sets as read and written
+    for i, (au, pts, dts) in enumerate(aus):
+        if drop and drop(i):
+            continue
+        units = []
+        for u in nal_units(au):
+            t = u[0] & 31
+            bits = rbsp_bits(u)
+            if t == 7:
+                old[7] = sps_fields(bits)
+                if sps_edit:
+                    u = nal_unit(u[0], sps_edit(bits, old[7]))
+                new[7] = sps_fields(rbsp_bits(u))
+            elif t == 8:
+                r = pps_fields(bits)
+                old[r.pps_id] = r
+                if pps_edit:
+                    u = nal_unit(u[0], pps_edit(bits, r))
+                new[r.pps_id] = pps_fields(rbsp_bits(u))
+            elif t in (1, 5) and slices:
+                pid = _slice_pps(bits)
+                h = read_slice_header(bits, u[0], old[7], old[pid])
+                slices(i, h, new[7], new[pid])
+                u = nal_unit(u[0], slice_header_bits(h, new[7], new[pid]))
+            units.append(u)
+        out.append((b"".join(b"\0\0\0\1" + u for u in units), pts, dts))
+    return out
+
+
+def _slice_pps(bits: str) -> int:
+    r = BitReader(bits)
+    r.ue()
+    r.ue()
+    return r.ue()
+
+
+def _first_slices(aus):
+    """Each access unit's first slice header (read_slice_header's dict,
+    its SPS beside it); (None, None) for one without a slice or whose
+    slices come before their parameter sets."""
+    sps, ppss, out = None, {}, []
+    for au, _, _ in aus:
+        first = (None, None)
+        for u in nal_units(au):
+            t = u[0] & 31
+            bits = rbsp_bits(u)
+            if t == 7:
+                sps = sps_fields(bits)
+            elif t == 8:
+                r = pps_fields(bits)
+                ppss[r.pps_id] = r
+            elif t in (1, 5) and first[0] is None and \
+                    _slice_pps(bits) in ppss:
+                first = (read_slice_header(bits, u[0], sps,
+                                           ppss[_slice_pps(bits)]), sps)
+        out.append(first)
+    return out
+
+
+def picture_orders(aus) -> list[int]:
+    """Each access unit's picture order count: POC type 0's from its
+    lsb (8.2.1.1), else 2 · (pts − the last IDR picture's pts) (what
+    libx264 writes)."""
+    prev_msb = prev_lsb = idr_pts = 0
+    out = []
+    for (au, pts, _), first in zip(aus, _first_slices(aus)):
+        h, sps = first
+        if h["nal"] & 31 == 5:
+            prev_msb = prev_lsb = 0
+            idr_pts = pts
+        if sps.poc_type != 0:
+            out.append(2 * (pts - idr_pts))
+            continue
+        mx, lsb = 1 << sps.log2_max_poc_lsb, h["poc_lsb"]
+        if lsb < prev_lsb and prev_lsb - lsb >= mx // 2:
+            msb = prev_msb + mx
+        elif lsb > prev_lsb and lsb - prev_lsb > mx // 2:
+            msb = prev_msb - mx
+        else:
+            msb = prev_msb
+        out.append(msb + lsb)
+        if h["nal"] >> 5:
+            prev_msb, prev_lsb = msb, lsb
+    return out
+
+
+def to_poc_type1(aus, non_ref: int = -1, top_bottom: int = 0,
+                 cycle=(2,), always_zero: bool = False):
+    """The stream under POC type 1 (8.2.1.2): its SPS's POC fields
+    replaced by offset_for_non_ref_pic `non_ref`,
+    offset_for_top_to_bottom_field `top_bottom` and the cycle of
+    offset_for_ref_frame; each slice's delta_pic_order_cnt[0] set so the
+    pictures keep their order counts (none under `always_zero`:
+    delta_pic_order_always_zero_flag, the counts the cycle gives)."""
+    pocs = picture_orders(aus)
+
+    def sps_edit(bits, r):
+        return (bits[:r.at["poc_type"]] + ue_bits(1) +
+                ("1" if always_zero else "0") + se_bits(non_ref) +
+                se_bits(top_bottom) + ue_bits(len(cycle)) +
+                "".join(se_bits(c) for c in cycle) +
+                bits[r.at["max_num_ref_frames"]:])
+
+    state = {"fn": 0, "offset": 0, "delta": 0}
+
+    def slices(i, h, sps, pps):
+        if h["first_mb"] == 0:
+            idr = h["nal"] & 31 == 5
+            offset = 0 if idr else state["offset"] + (
+                1 << sps.log2_max_frame_num if h["frame_num"] < state["fn"]
+                else 0)
+            n = offset + h["frame_num"]
+            ref = h["nal"] >> 5
+            if not ref and n > 0:
+                n -= 1
+            expected = 0
+            if n > 0:
+                c, k = divmod(n - 1, len(cycle))
+                expected = c * sum(cycle) + sum(cycle[:k + 1])
+            if not ref:
+                expected += non_ref
+            state.update(fn=h["frame_num"], offset=offset,
+                         delta=pocs[i] - expected)
+        h.pop("poc_lsb", None)
+        h.pop("delta_poc_bottom", None)
+        if not always_zero:
+            h["delta_poc"] = [state["delta"]]
+
+    return rewrite_h264(aus, slices=slices, sps_edit=sps_edit)
+
+
+def explicit_bipred(aus, seed: int = 0):
+    """The stream with weighted_bipred_idc 1: each B slice given a
+    pred_weight_table of random weights (denominators 2^5, most entries
+    with luma weights, some with chroma ones) and offsets."""
+    import random
+
+    rng = random.Random(seed)
+
+    def pps_edit(bits, r):
+        at = r.at["weighted_bipred_idc"]
+        return bits[:at] + "01" + bits[at + 2:]
+
+    def slices(i, h, sps, pps):
+        if h["slice_type"] % 5 != 1:
+            return
+        n = h["num_ref_idx"] or pps.num_ref_idx
+        h["weights"] = {"luma_log2": 5, "chroma_log2": 5, "lists": [[(
+            (rng.randint(20, 44), rng.randint(-6, 6))
+            if rng.random() < 0.8 else None,
+            [(rng.randint(20, 44), rng.randint(-4, 4)) for _ in range(2)]
+            if rng.random() < 0.6 else None) for _ in range(n[lst])]
+            for lst in range(2)]}
+
+    return rewrite_h264(aus, slices=slices, pps_edit=pps_edit)
+
+
+def long_term_refs(aus, plan: dict, reset: int | None = None,
+                   rebase_poc: bool = True):
+    """The stream with `plan`'s slice header edits (packet → dict of
+    `long_term` an IDR picture's long_term_reference_flag, `mmco` the
+    memory_management_control_operations as (op, args...), `mods0` and
+    `mods1` the lists' modifications as (idc, value)); an MMCO 5 added
+    at packet `reset`, the later pictures' frame_num and (unless not
+    `rebase_poc`: libavcodec's POC then runs on from the reset picture's
+    own) POC lsb counted from it (8.2.1)."""
+    pocs = picture_orders(aus)
+    first = _first_slices(aus)
+
+    def slices(i, h, sps, pps):
+        p = plan.get(i, {})
+        if "long_term" in p:
+            h["long_term"] = p["long_term"]
+        if "mmco" in p:
+            h["mmco"] = p["mmco"]
+        if "mods0" in p:
+            h["mods"][0] = p["mods0"]
+        if "mods1" in p:
+            h["mods"][1] = p["mods1"]
+        if reset is not None and i == reset:
+            h["mmco"] = (h["mmco"] or []) + [(5,)]
+        if reset is not None and i > reset:
+            h["frame_num"] -= first[reset][0]["frame_num"]
+            if "poc_lsb" in h and rebase_poc:
+                h["poc_lsb"] = (pocs[i] - pocs[reset]) % (
+                    1 << sps.log2_max_poc_lsb)
+
+    return rewrite_h264(aus, slices=slices)
+
+
+def _packet_of(aus, key):
+    """The packet of `key`: a packet number, or "P<k>", "B<k>" or "I<k>"
+    the k-th P, B or I picture."""
+    if isinstance(key, int):
+        return key
+    seen = {0: 0, 1: 0, 2: 0}
+    for i, (h, _) in enumerate(_first_slices(aus)):
+        kind = h["slice_type"] % 5
+        if "PBI"[kind] + str(seen[kind]) == key:
+            return i
+        seen[kind] += 1
+    raise KeyError(key)
+
+
+def strip_sei(aus):
+    """The access units without their SEI NAL units."""
+    return [(b"".join(b"\0\0\0\1" + u for u in nal_units(au)
+                      if u[0] & 31 != 6), pts, dts) for au, pts, dts in aus]
+
+
+def tools_stream(name: str):
+    """An H264_TOOLS or TOOLS_CLIPS stream: its access units and (h, w)."""
+    spec = {**H264_TOOLS, **TOOLS_CLIPS}[name]
+    x264 = dict(spec.get("x264", {}))
+    t = x264.pop("frames", 30)
+    if name in TOOLS_CLIPS:
+        frames = clip_frames_bgr()[:t]
+    else:
+        frames = moving_frames(spec.get("seed", sum(map(ord, name))), t)
+    if spec["kind"] == "crop":
+        x264["crop_rect"] = spec["crop"]
+    aus = x264_encode(frames, **x264)
+    if spec["kind"] == "cut":
+        aus = aus[spec["cut"]:]
+        if spec.get("strip_sei"):
+            aus = strip_sei(aus)
+    if "poc1" in spec:
+        aus = to_poc_type1(aus, **spec["poc1"])
+    if "gaps" in spec:
+        dropped, flag = spec["gaps"]
+
+        def gaps(bits, r):
+            return bits[:r.at["gaps"]] + str(flag) + bits[r.at["gaps"] + 1:]
+
+        aus = rewrite_h264(aus, sps_edit=gaps, drop=lambda i: i in dropped)
+    if "bipred" in spec:
+        aus = explicit_bipred(aus, spec["bipred"])
+    if "ltr" in spec:
+        plan = {_packet_of(aus, k): v for k, v in LTR_PLANS[spec["ltr"]].items()}
+        reset = spec.get("reset")
+        aus = long_term_refs(aus, plan, None if reset is None else
+                             _packet_of(aus, reset),
+                             spec.get("rebase_poc", True))
+    return aus, frames.shape[1:3]
+
+
+def h264_cut_file(aus, w: int, h: int, container: str,
+                  audio: bool = False) -> bytes:
+    """Access units that may begin anywhere (a copy cut) muxed as
+    h264_file muxes them, the times counted from the first: its
+    keyframes the IDR pictures and the I pictures with a recovery point
+    SEI (the first packet one too, as ffmpeg's cut starts at one), MP4's
+    edit list from the first presented sample (ffmpeg's muxer after
+    `-ss ... -c copy`), Matroska's times from 0; `audio`, audio_track's
+    sound beside it (Matroska)."""
+    packets = [a for a, _, _ in aus]
+    if container == "avi":
+        return avi_file(packets, w, h, 25, len(packets), b"H264")
+    keys = [0] + [i for i, (f, _) in enumerate(_first_slices(aus))
+                  if i and f and (f["nal"] & 31 == 5 or (
+                      f["slice_type"] % 5 == 2 and any(
+                          u[0] & 31 == 6 and u[1] == 6
+                          for u in nal_units(packets[i]))))]
+    samples, sps, pps = avc_samples(packets)
+    dts0, pts0 = aus[0][2], min(p for _, p, _ in aus)
+    if container == "mp4":
+        return mp4_file(samples, w, h, 25, b"avc1", avcc_box(sps, pps),
+                        ctts=[p - d for _, p, d in aus],
+                        media_time=pts0 - dts0, sync=keys)
+    return mkv_file(samples, w, h, 25, "V_MPEG4/ISO/AVC",
+                    avcc_box(sps, pps)[8:], pts=[p - pts0 for _, p, _ in aus],
+                    keys=keys, audio=audio_track(len(samples), 25)
+                    if audio else None)
 
 
 def strip_vui(packets: list[bytes]) -> list[bytes]:
@@ -3553,6 +4145,12 @@ def write_case(name: str, out: str = FIXTURES) -> str:
         h, w = frames.shape[1:3]
         with open(path, "wb") as f:
             f.write(h264_file(aus, w, h, "mp4", edits=edits))
+        return path
+    if name in H264_TOOLS or name in TOOLS_CLIPS:
+        aus, (h, w) = tools_stream(name)
+        with open(path, "wb") as f:
+            f.write(h264_cut_file(aus, w, h, name.rsplit("_", 1)[1],
+                                  audio=name in TOOLS_CLIPS))
         return path
     if name in X264_CASES or name in X264_CLIPS:
         if name in X264_CLIPS:

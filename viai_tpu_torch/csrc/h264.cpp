@@ -26,9 +26,11 @@
 //     luma with the luma modes), intra chroma on 8x8 and 8x16, P and B
 //     partitions down to 4x4, P_Skip, B_Skip and B_Direct (spatial and
 //     temporal, with and without direct_8x8_inference_flag), several
-//     reference frames, list modification, explicit weighted prediction
-//     in P slices (offsets scaled to the depth) and implicit weights in B
-//     slices; quarter-sample luma (6-tap) and chroma interpolation
+//     reference frames, list modification (long-term pictures too),
+//     explicit weighted prediction in P and B slices (offsets scaled to
+//     the depth; libavcodec's rounding of B's) and implicit weights in B
+//     slices (equal for a long-term reference), direct prediction with a
+//     long-term reference; quarter-sample luma (6-tap) and chroma interpolation
 //     (eighth-sample, vertically quarter-sample for 4:2:2; 4:4:4's
 //     chroma as luma), references read clamped to the picture;
 //   * transforms: 4x4 and 8x8 inverse transforms, luma DC (Hadamard),
@@ -42,15 +44,27 @@
 //     edges, 4:2:2's chroma edges, 4:4:4's chroma filtered as luma (bS
 //     from the luma coefficients, as libavcodec takes it), thresholds
 //     scaled to the depth;
-//   * references: several slices a picture, POC types 0 and 2, the
-//     sliding window and memory_management_control_operation 1, IDR;
+//   * references: several slices a picture, POC types 0, 1 and 2, the
+//     sliding window, long-term references (an IDR picture's
+//     long_term_reference_flag) and memory_management_control_operation
+//     1 to 6 (MMCO 5 with libavcodec's POC and output barrier), IDR;
+//     gaps in frame_num filled as libavcodec fills them (copies of the
+//     newest reference, mid-grey before a recovered picture), with the
+//     SPS's flag or without it; streams that start elsewhere than at an
+//     IDR picture (copy cuts), their pictures before a recovery point
+//     (its SEI, or libavcodec's heuristic for an I picture) dropped as
+//     libavcodec drops them, a missing reference replaced by its list's
+//     first (libavcodec's default_ref);
 //   * output: libavcodec's h264_select_output_frame (its reorder depth
 //     from the VUI's max_num_reorder_frames, else guessed from its POC
 //     history, which an IDR slice restarts, from where the caller sets
-//     it: set_delay, libavformat's probe; its keyframe barriers) and, at
+//     it: set_delay, libavformat's probe; its keyframe barriers: IDR
+//     pictures and I pictures with a recovery point SEI) and, at
 //     the end of the stream, its draining; the picture cropped by the
 //     SPS's frame cropping, with the VUI's range, matrix and chroma
-//     siting (Picture::full_range, matrix, chroma_loc), samples of 8 bits
+//     siting (Picture::full_range, matrix, chroma_loc; a left crop as
+//     libavcodec aligns it, the picture then scaled to the cropped size as
+//     cv2's swscale scales it: Picture::shown_w), samples of 8 bits
 //     or 16 (Picture::y16...), monochrome with libavcodec's neutral
 //     chroma, 4:4:4 of matrix_coefficients 0 as planar G, B, R
 //     (Picture::rgb: libavcodec's gbrp, gbrp10 ...).
@@ -66,11 +80,10 @@
 // lossless coding with the 8x8 transform from libx264 before build 151
 // (which libavcodec reads with a workaround), SP/SI slices, slice groups
 // (FMO), arbitrary slice order (ASO) and redundant pictures, data
-// partitioning, gaps in frame_num, long-term references,
-// memory_management_control_operation 2-6, POC type 1, explicit
-// bi-predictive weights (weighted_bipred_idc 1) and frame cropping on
-// the left or top. A stream that breaks the syntax raises ValueError
-// (code 1).
+// partitioning, and a picture output whose slices lost their references
+// (libavcodec conceals it; its error concealment is not copied). A stream
+// that breaks the syntax raises ValueError (code 1); libavcodec conceals
+// such slices too.
 
 #include <algorithm>
 #include <array>
@@ -181,7 +194,13 @@ struct Sps {
   uint8_t scaling8[6][64];
   int profile = 0, level = 0;   // profile_idc, level_idc
   int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
+  // POC type 1: delta_pic_order_always_zero_flag, offset_for_non_ref_pic,
+  // offset_for_top_to_bottom_field and the cycle of offset_for_ref_frame
+  bool delta_always_zero = false;
+  int offset_non_ref = 0, offset_top_bottom = 0;
+  std::vector<int> offset_ref;
   int max_num_ref_frames = 0;
+  bool gaps_allowed = false;    // gaps_in_frame_num_value_allowed_flag
   int mb_w = 0, mb_h = 0;       // mb_h: FrameHeightInMbs
   int cfi = 1;                  // chroma_format_idc: 0 (4:0:0), 1, 2, 3
   int depth = 8;                // BitDepthY = BitDepthC
@@ -370,13 +389,20 @@ void parse_sps(Bits& b, Sps* table) {
     s.log2_max_poc_lsb = int(b.ue()) + 4;
     if (s.log2_max_poc_lsb > 16) broken("H.264 log2_max_pic_order_cnt_lsb above 16");
   } else if (s.poc_type == 1) {
-    unsupported("H.264 pic_order_cnt_type 1");
+    s.delta_always_zero = b.u1();
+    s.offset_non_ref = b.se();
+    s.offset_top_bottom = b.se();
+    uint32_t cycle = b.ue();
+    if (cycle > 255) broken("H.264 num_ref_frames_in_pic_order_cnt_cycle above 255");
+    for (uint32_t i = 0; i < cycle; ++i) s.offset_ref.push_back(b.se());
   } else if (s.poc_type != 2) {
     broken("H.264 pic_order_cnt_type above 2");
   }
   s.max_num_ref_frames = int(b.ue());
   if (s.max_num_ref_frames > 16) broken("H.264 max_num_ref_frames above 16");
-  b.u1();                                         // gaps allowed: gaps raise
+  // Gaps in frame_num are filled with frames that are never output,
+  // with the flag or without it (as libavcodec conceals them).
+  s.gaps_allowed = b.u1();
   s.mb_w = int(b.ue()) + 1;
   int map_units = int(b.ue()) + 1;                // PicHeightInMapUnits
   if (s.mb_w > 1024 || map_units > 1024) broken("H.264 picture too large");
@@ -395,8 +421,6 @@ void parse_sps(Bits& b, Sps* table) {
     s.crop_r = int(b.ue());
     s.crop_t = int(b.ue());
     s.crop_b = int(b.ue());
-    if (s.crop_l || s.crop_t)
-      unsupported("H.264 frame cropping on the left or top");
     if (int64_t(s.crop_ux) * (s.crop_l + s.crop_r) >= 16 * s.mb_w ||
         int64_t(s.crop_uy) * (s.crop_t + s.crop_b) >= 16 * s.mb_h)
       broken("H.264 frame cropping larger than the picture");
@@ -475,12 +499,14 @@ struct MbInfo {
   int16_t mv[2][16][2];
   uint8_t mvd[2][16][2];        // |mvd| (CABAC contexts)
   int8_t ref[2][4];             // refIdx per 8x8, -1 not used
-  int32_t refid[2][4];          // the referenced frame's id, -1
+  int32_t refid[2][4];          // the referenced frame's uid, -1
+  int32_t dbk[2][4];            // and its dbk_id (deblocking)
   bool intra() const { return kind != kInter; }
 };
 
 struct Frame {
-  int id = 0;
+  int id = 0;                   // its buffer (a gap frame's copy shares it)
+  int uid = 0;                  // the picture
   int64_t source = 0;           // the decode() call of its first slice
   int w = 0, h = 0;             // coded size (luma)
   int cw = 0, ch = 0;           // chroma size (w / 2 but for 4:4:4; h / 2
@@ -491,12 +517,24 @@ struct Frame {
   // outputs them.
   std::vector<uint8_t> y, u, v;
   int poc = 0, frame_num = 0;
-  bool key = false;             // an IDR picture
+  bool key = false;             // an IDR picture or a recovery point
   bool mmco_reset = false;
-  bool b_type = false;          // its first slice is a B slice
+  int pic_type = -1;            // its first slice's type (0 P, 1 B, 2 I);
+                                // -1 a frame filling a gap in frame_num
+  // libavcodec's H264Picture::recovered: 1 an IDR picture, 2 its
+  // recovery point (SEI) reached, 4 an I picture its heuristic takes for
+  // one; pictures output without it are dropped
+  int recovered = 0;
+  bool gray = false;            // a gap frame filled with mid-grey
+  bool invalid_gap = false;     // a gap frame without the SPS's flag
+  bool long_term = false;       // a long-term reference
+  int long_idx = -1;            // its LongTermFrameIdx
+  bool failed = false;          // a slice lost its references: not decoded
   std::vector<MbInfo> mbs;      // motion of the picture (temporal direct)
-  // cropping and colour, from the SPS it was decoded with
-  int out_w = 0, out_h = 0;
+  // cropping and colour, from the SPS it was decoded with: the output's
+  // size and its top left corner in the decoded picture
+  int out_w = 0, out_h = 0, out_x = 0, out_y = 0;
+  int shown_w = 0;              // the SPS's cropped width (cv2's size)
   bool full_range = false;
   int matrix = 2, chroma_loc = 1;
   bool rgb = false;             // planar G, B, R (4:4:4, matrix_coefficients 0)
@@ -575,6 +613,7 @@ struct SliceHeader {
   int first_mb = 0, type = 0;   // 0 P, 1 B, 2 I
   int pps_id = 0, frame_num = 0;
   int poc_lsb = 0, delta_poc_bottom = 0;
+  int delta_poc[2] = {0, 0};    // POC type 1: delta_pic_order_cnt[0..1]
   bool direct_spatial = false;
   int num_ref_idx[2] = {0, 0};
   struct Mod {
@@ -585,18 +624,50 @@ struct SliceHeader {
   int lw[2][32] = {}, lo[2][32] = {}, cw[2][32][2] = {}, co[2][32][2] = {};
   bool lw_flag[2][32] = {}, cw_flag[2][32] = {};
   bool adaptive_marking = false;
-  std::vector<std::pair<int, int>> mmco;   // (op, difference_of_pic_nums_minus1)
+  bool long_term_ref = false;   // an IDR picture's long_term_reference_flag
+  // memory_management_control_operation and its arguments: a the
+  // picture number (difference_of_pic_nums_minus1 of 1 and 3,
+  // long_term_pic_num of 2), b the long-term index (long_term_frame_idx
+  // of 3 and 6, max_long_term_frame_idx_plus1 of 4)
+  struct Mmco {
+    int op, a, b;
+  };
+  std::vector<Mmco> mmco;
   int cabac_init_idc = 0;
   int qp = 26;
   int deblock_idc = 0, alpha_off = 0, beta_off = 0;
 };
 
 constexpr int kMaxDelayed = 16;   // libavcodec's MAX_DELAYED_PIC_COUNT
+constexpr int32_t kUnknownRef = 0x7FFFFF00;   // see build_lists
 constexpr int kPocMin = -0x7FFFFFFF - 1;
 
 // Luma 4x4 block index (z-order, luma4x4BlkIdx) → raster index.
 constexpr int kBlkRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7,
                                 8, 9, 12, 13, 10, 11, 14, 15};
+
+// The left edge of the picture cv2 is handed: the SPS's left crop as
+// libavcodec's av_frame_apply_cropping aligns it (cv2's decoder does not
+// set AV_CODEC_FLAG_UNALIGNED). The planes' offsets are
+// crop_top * linesize + (crop_left >> SubWidth) * bytes a sample; with
+// linesizes of 32 bytes or more, the fewest trailing zero bits m of the
+// offsets' column parts decide: below 5, crop_left is rounded down to a
+// multiple of 2^(5 + ctz(crop_left) - m). The output keeps the cropped
+// width, so it then starts left of the crop and ends short of the right
+// edge. cv2 converts from the frame's data pointers at avctx's (fully
+// cropped) size.
+int crop_x(const Sps& s) {
+  int left = s.crop_ux * s.crop_l;
+  if (left == 0) return 0;
+  const int bytes = s.depth > 8 ? 2 : 1;
+  int m = __builtin_ctz(unsigned(left * bytes));
+  if (s.cfi == 1 || s.cfi == 2) {
+    int c = (left >> 1) * bytes;
+    if (c) m = std::min(m, __builtin_ctz(unsigned(c)));
+  }
+  if (m < 5) left &= ~((1 << (5 + __builtin_ctz(unsigned(left)) - m)) - 1);
+  return left;
+}
 
 }  // namespace
 
@@ -621,12 +692,33 @@ struct H264Decoder::State {
   SliceHeader first_sh;         // the picture's first slice header
   int pic_w = 0, pic_h = 0, mb_w = 0, mb_h = 0;
 
-  // references and POC state
-  std::vector<FramePtr> refs;   // short-term references
-  int prev_poc_msb = 0, prev_poc_lsb = 0;
-  int prev_frame_num_offset = 0, prev_frame_num = 0, prev_ref_frame_num = 0;
+  // references and POC state, as libavcodec keeps them (h264_refs.c,
+  // h264_parse.c): the short-term references oldest first (libavcodec's
+  // short_ref backwards), the long-term ones by LongTermFrameIdx; the
+  // POC's previous values (a fresh decoder's prev_poc_msb is 1 << 16 and
+  // its prev_frame_num -1, so a stream that starts at a later frame_num
+  // begins with a gap)
+  std::vector<FramePtr> refs;
+  FramePtr long_refs[16];
+  int long_count = 0;
+  int poc_msb = 0, poc_lsb = 0, prev_poc_msb = 1 << 16, prev_poc_lsb = 0;
+  int prev_frame_num_offset = 0, prev_frame_num = -1;
   int frame_num_offset = 0;
-  bool seen_idr = false;
+  int frame_num = 0;            // h->poc.frame_num: 0 after an MMCO 5
+  bool mmco_reset_next = false; // h->mmco_reset: flags the next picture
+  // Recovery (h264_field_start, h264_select_output_frame): the packet's
+  // recovery point SEI (its recovery_frame_cnt, -1 none), the frame_num
+  // it names, whether the stream has had a valid one, and
+  // frame_recovered (1 an IDR picture seen, 2 a recovered picture
+  // output).
+  int sei_recovery = -1;
+  int recovery_frame = -1;
+  bool valid_recovery_point = false;
+  int frame_recovered = 0;
+  bool non_gray = false;        // an I picture came after the grey gap frames
+  // The slice's first entries of its initial lists (libavcodec's
+  // default_ref: what stands in for a missing reference).
+  FramePtr default_ref[2];
 
   // the active picture format: ChromaArrayType (0 to 3), NumC8x8 (4:2:0
   // and 4:2:2), a macroblock's chroma columns and rows (MbWidthC,
@@ -662,6 +754,9 @@ struct H264Decoder::State {
   Bits bits;
   Cabac cabac;
   std::vector<FramePtr> list[2];
+  bool lists_ok = true;         // the slice's lists have every picture
+  int32_t dbk_id[2][32];        // their entries as the deblocking filter
+                                // tells them apart
   int ls4[6][6][16];            // LevelScale4x4[list][qP % 6][raster]
   int ls8[6][6][64];            // LevelScale8x8, lists as Sps::scaling8
   int implicit_w[32][32][2];
@@ -767,6 +862,7 @@ struct H264Decoder::State {
 
   bool decode(const uint8_t* d, size_t n, Picture& out) {
     if (!step(d, n)) return false;
+    check_whole(*next_output);
     to_picture(*next_output, out);
     next_output.reset();
     return true;
@@ -776,6 +872,7 @@ struct H264Decoder::State {
   bool step(const uint8_t* d, size_t n) {
     ++calls;
     pic_timing.clear();         // libavcodec forgets SEI between packets
+    sei_recovery = -1;
     for_each_nal(d, n, [&](const uint8_t* u, size_t len) { nal(u, len); });
     if (cur) finish_picture();
     return next_output != nullptr;
@@ -786,9 +883,21 @@ struct H264Decoder::State {
     int type = d[0] & 31;
     switch (type) {
       case 5:
-        // libavcodec's idr() on every IDR slice: the POC history that
-        // guesses the reorder depth starts again.
+        // libavcodec's idr() on every IDR slice: the references go, the
+        // POC state and the history that guesses the reorder depth start
+        // again.
         for (int& p : last_pocs) p = kPocMin;
+        if (cur && n > 1 && (d[1] & 0x80)) finish_picture();   // first_mb_in_slice 0
+        if (!cur) {
+          refs.clear();
+          for (auto& l : long_refs) l.reset();
+          long_count = 0;
+          default_ref[0].reset();
+          default_ref[1].reset();
+          prev_frame_num = prev_frame_num_offset = 0;
+          prev_poc_msb = 1 << 16;
+          prev_poc_lsb = -1;
+        }
         slice(d, n);
         break;
       case 1:
@@ -828,6 +937,17 @@ struct H264Decoder::State {
       size += r[p++];
       if (p + size_t(size) > end) return;    // libavcodec stops there too
       if (type == 1) pic_timing.assign(r.begin() + long(p), r.begin() + long(p + size_t(size)));
+      if (type == 6) {                      // recovery point
+        std::vector<uint8_t> q(r.begin() + long(p), r.begin() + long(p + size_t(size)));
+        size_t qn = q.size();
+        q.resize(qn + 8, 0);
+        Bits b{q.data(), qn, 0};
+        uint32_t w = b.peek32();
+        if (w) {
+          uint32_t cnt = b.ue();
+          if (cnt < 65536 && !b.over()) sei_recovery = int(cnt);
+        }
+      }
       if (type == 5 && size >= 16) {
         std::string text(r.begin() + long(p + 16), r.begin() + long(p + size_t(size)));
         int build = 0;
@@ -904,7 +1024,10 @@ struct H264Decoder::State {
     if (st == 3 || st == 4) unsupported("H.264 SP and SI slices (Extended profile)");
     h.type = int(st);
     h.pps_id = int(bits.ue());
-    if (h.pps_id > 255 || !pps_table[h.pps_id].valid) broken("H.264 slice refers to a missing PPS");
+    if (h.pps_id > 255) broken("H.264 pic_parameter_set_id above 255");
+    // A slice before its PPS (a stream cut after its parameter sets):
+    // libavcodec drops it.
+    if (!pps_table[h.pps_id].valid) return;
     const Pps& p = pps_table[h.pps_id];
     const Sps& s = sps_table[p.sps_id];
     if (h.first_mb == 0 && cur) finish_picture();
@@ -926,6 +1049,10 @@ struct H264Decoder::State {
       h.poc_lsb = int(bits.u(s.log2_max_poc_lsb));
       if (p.bottom_field_pic_order) h.delta_poc_bottom = bits.se();
     }
+    if (s.poc_type == 1 && !s.delta_always_zero) {
+      h.delta_poc[0] = bits.se();
+      if (p.bottom_field_pic_order) h.delta_poc[1] = bits.se();
+    }
     if (h.type == 1) h.direct_spatial = bits.u1();
     if (h.type != 2) {
       h.num_ref_idx[0] = p.num_ref_idx_default[0];
@@ -941,7 +1068,6 @@ struct H264Decoder::State {
         for (;;) {
           int idc = int(bits.ue());
           if (idc == 3) break;
-          if (idc == 2) unsupported("H.264 long-term references (list modification)");
           if (idc > 5) broken("H.264 modification_of_pic_nums_idc above 5");
           if (idc > 2) unsupported("H.264 MVC list modification");
           h.mods[l].push_back({idc, int(bits.ue())});
@@ -950,8 +1076,6 @@ struct H264Decoder::State {
       }
     }
     if ((p.weighted_pred && h.type == 0) || (p.weighted_bipred_idc == 1 && h.type == 1)) {
-      if (h.type == 1)
-        unsupported("H.264 explicit bi-predictive weights (weighted_bipred_idc 1)");
       h.luma_log2 = int(bits.ue());
       h.chroma_log2 = s.cfi ? int(bits.ue()) : 0;
       if (h.luma_log2 > 7 || h.chroma_log2 > 7) broken("H.264 weight denominator above 7");
@@ -978,7 +1102,7 @@ struct H264Decoder::State {
     if (h.nal_ref_idc) {
       if (h.nal_type == 5) {
         bits.u1();                                // no_output_of_prior_pics
-        if (bits.u1()) unsupported("H.264 long-term references (long_term_reference_flag)");
+        h.long_term_ref = bits.u1();
       } else {
         h.adaptive_marking = bits.u1();
         if (h.adaptive_marking) {
@@ -986,10 +1110,14 @@ struct H264Decoder::State {
             int op = int(bits.ue());
             if (op == 0) break;
             if (op > 6) broken("H.264 memory_management_control_operation above 6");
-            if (op != 1)
-              unsupported("H.264 memory_management_control_operation " +
-                          std::to_string(op) + (op == 5 ? " (reset)" : " (long-term references)"));
-            h.mmco.push_back({op, int(bits.ue())});
+            SliceHeader::Mmco m{op, 0, 0};
+            if (op == 1 || op == 3) m.a = int(bits.ue());
+            if (op == 2) m.a = int(bits.ue());
+            if (op == 3 || op == 6 || op == 4) m.b = int(bits.ue());
+            // libavcodec's limits (ff_h264_decode_ref_pic_marking)
+            if (m.b > 16 || (m.b == 16 && op != 4) || (op == 2 && m.a >= 16) || m.a > 65535)
+              broken("H.264 long-term index out of range");
+            h.mmco.push_back(m);
             if (h.mmco.size() > 66) broken("H.264 too many MMCOs");
           }
         }
@@ -1025,19 +1153,112 @@ struct H264Decoder::State {
     pps = p;
     if (h.first_mb >= mb_w * mb_h) broken("H.264 first_mb_in_slice past the picture");
     slice_params.push_back({h.deblock_idc, h.alpha_off, h.beta_off});
+    list[0].clear();
+    list[1].clear();
+    lists_ok = sh.type == 2 || build_lists();
     if (!headers_only) decode_slice(r);
     ++slice_num;
   }
 
   // ---------------------------------------------------------- pictures
 
+  // A new picture of the active SPS's size and format (its planes when
+  // decoding).
+  FramePtr new_frame() {
+    FramePtr p = std::make_shared<Frame>();
+    Frame& f = *p;
+    f.id = f.uid = next_id++;
+    f.source = calls - 1;
+    f.w = pic_w;
+    f.h = pic_h;
+    f.cw = cfi == 3 ? pic_w : pic_w / 2;
+    f.ch = cfi >= 2 ? pic_h : pic_h / 2;
+    f.cfi = cfi;
+    f.depth = depth;
+    if (!headers_only) {
+      size_t bytes = depth > 8 ? 2 : 1;
+      f.y.assign(size_t(pic_w) * pic_h * bytes, 0);
+      f.u.assign(size_t(f.cw) * f.ch * bytes, 0);
+      f.v.assign(f.u.size(), 0);
+      if (cfi == 0) {                 // libavcodec's neutral chroma
+        pixels([&](auto z) {
+          using P = decltype(z);
+          std::fill_n(reinterpret_cast<P*>(f.u.data()), f.u.size() / bytes, P(1 << (depth - 1)));
+          std::fill_n(reinterpret_cast<P*>(f.v.data()), f.v.size() / bytes, P(1 << (depth - 1)));
+        });
+      }
+      f.mbs.assign(size_t(mb_w) * mb_h, MbInfo());
+    }
+    f.out_x = crop_x(sps);
+    f.out_w = pic_w - f.out_x - sps.crop_ux * sps.crop_r;
+    f.out_h = pic_h - sps.crop_uy * (sps.crop_t + sps.crop_b);
+    f.shown_w = pic_w - sps.crop_ux * (sps.crop_l + sps.crop_r);
+    f.out_y = sps.crop_uy * sps.crop_t;
+    f.full_range = sps.full_range;
+    f.matrix = sps.matrix;
+    f.chroma_loc = sps.chroma_loc;
+    // libavcodec's gbrp, gbrp10 ...: G coded as Y, B as Cb, R as Cr.
+    f.rgb = cfi == 3 && sps.matrix == 0;
+    return p;
+  }
+
+  // libavcodec's gap filling (h264_field_start): a frame_num that skips
+  // from the previous picture's gets "non-existing" frames for the
+  // frame_nums between (at most max_num_ref_frames of them, the last
+  // ones), each marked by the sliding window and never output. Each is
+  // a copy of the newest short-term reference before it (sharing its
+  // buffer, POC 2 above it) or, before any picture was recovered and
+  // with no reference left, mid-grey (POC 0). Without the SPS's
+  // gaps_in_frame_num_value_allowed_flag the same happens, the POC
+  // history is cleared at each, and the sliding window's marking removes
+  // them once they are more than max_num_ref_frames behind.
+  void fill_gaps(const SliceHeader& h) {
+    const int max_frame_num = 1 << sps.log2_max_frame_num;
+    if (h.frame_num != prev_frame_num) {
+      int unwrap = prev_frame_num;
+      if (unwrap > h.frame_num) unwrap -= max_frame_num;
+      if (h.frame_num - unwrap > sps.max_num_ref_frames) {
+        unwrap = h.frame_num - sps.max_num_ref_frames - 1;
+        if (unwrap < 0) unwrap += max_frame_num;
+        prev_frame_num = unwrap;
+      }
+    }
+    while (h.frame_num != prev_frame_num &&
+           h.frame_num != (prev_frame_num + 1) % max_frame_num) {
+      FramePtr prev = refs.empty() ? nullptr : refs.back();
+      if (!sps.gaps_allowed)
+        for (int& p : last_pocs) p = kPocMin;
+      FramePtr g = new_frame();
+      prev_frame_num = (prev_frame_num + 1) % max_frame_num;
+      g->frame_num = prev_frame_num;
+      g->invalid_gap = !sps.gaps_allowed;
+      mark(*g, g, nullptr);
+      if (!refs.empty() && refs.back() == g) {
+        if (prev && prev->w == g->w && prev->h == g->h && prev->cfi == g->cfi &&
+            prev->depth == g->depth) {
+          g->id = prev->id;
+          g->y = prev->y;
+          g->u = prev->u;
+          g->v = prev->v;
+          g->poc = prev->poc + 2;
+          g->gray = prev->gray;
+        } else if (!frame_recovered) {
+          if (!headers_only) {
+            size_t bytes = depth > 8 ? 2 : 1;
+            pixels([&](auto z) {
+              using P = decltype(z);
+              for (auto* pl : {&g->y, &g->u, &g->v})
+                std::fill_n(reinterpret_cast<P*>(pl->data()), pl->size() / bytes, P(1 << (depth - 1)));
+            });
+          }
+          g->gray = true;
+        }
+      }
+    }
+  }
+
   void start_picture() {
     const SliceHeader& h = sh;
-    if (h.nal_type != 5 && !seen_idr) {
-      // libavcodec outputs nothing before a recovery point; streams here
-      // start with an IDR picture.
-      unsupported("H.264 stream that does not begin with an IDR picture");
-    }
     mb_w = sps.mb_w;
     mb_h = sps.mb_h;
     pic_w = mb_w * 16;
@@ -1061,91 +1282,95 @@ struct H264Decoder::State {
       unsupported("H.264 frames flagged interlaced by their picture timing SEI "
                   "(pic_struct): libavcodec marks them interlaced, and cv2 "
                   "cannot convert them");
-    int max_frame_num = 1 << sps.log2_max_frame_num;
-    if (h.nal_type == 5) {
-      seen_idr = true;
-      refs.clear();
-      prev_ref_frame_num = 0;
-      if (h.frame_num != 0) broken("H.264 IDR picture with frame_num other than 0");
-    } else if (h.frame_num != prev_ref_frame_num &&
-               h.frame_num != (prev_ref_frame_num + 1) % max_frame_num) {
-      unsupported("H.264 gaps in frame_num");
-    }
-    cur = std::make_shared<Frame>();
+    const int max_frame_num = 1 << sps.log2_max_frame_num;
+    if (h.nal_type == 5 && h.frame_num != 0)
+      broken("H.264 IDR picture with frame_num other than 0");
+    frame_num = h.frame_num;
+    fill_gaps(h);
+    cur = new_frame();
     Frame& f = *cur;
-    f.id = next_id++;
-    f.source = calls - 1;
-    f.w = pic_w;
-    f.h = pic_h;
-    f.cw = cfi == 3 ? pic_w : pic_w / 2;
-    f.ch = cfi >= 2 ? pic_h : pic_h / 2;
-    f.cfi = cfi;
-    f.depth = depth;
-    if (!headers_only) {
-      size_t bytes = depth > 8 ? 2 : 1;
-      f.y.assign(size_t(pic_w) * pic_h * bytes, 0);
-      f.u.assign(size_t(f.cw) * f.ch * bytes, 0);
-      f.v.assign(f.u.size(), 0);
-      if (cfi == 0) {                 // libavcodec's neutral chroma
-        pixels([&](auto z) {
-          using P = decltype(z);
-          std::fill_n(reinterpret_cast<P*>(f.u.data()), f.u.size() / bytes, P(1 << (depth - 1)));
-          std::fill_n(reinterpret_cast<P*>(f.v.data()), f.v.size() / bytes, P(1 << (depth - 1)));
-        });
-      }
-      f.mbs.assign(size_t(mb_w) * mb_h, MbInfo());
-    }
     f.frame_num = h.frame_num;
     f.key = h.nal_type == 5;
-    f.b_type = h.type == 1;
-    f.out_w = pic_w - sps.crop_ux * (sps.crop_l + sps.crop_r);
-    f.out_h = pic_h - sps.crop_uy * (sps.crop_t + sps.crop_b);
-    f.full_range = sps.full_range;
-    f.matrix = sps.matrix;
-    f.chroma_loc = sps.chroma_loc;
-    // libavcodec's gbrp, gbrp10 ...: G coded as Y, B as Cb, R as Cr.
-    f.rgb = cfi == 3 && sps.matrix == 0;
-    // Picture order count (8.2.1).
+    f.pic_type = h.type;
+    // Picture order count as libavcodec's ff_h264_init_poc derives it
+    // (8.2.1; after an MMCO 5 from the reset picture's own values).
+    frame_num_offset = prev_frame_num_offset;
+    if (h.frame_num < prev_frame_num) frame_num_offset += max_frame_num;
+    int64_t top, bottom;
     if (sps.poc_type == 0) {
-      if (h.nal_type == 5) {
-        prev_poc_msb = 0;
-        prev_poc_lsb = 0;
-      }
       int max_lsb = 1 << sps.log2_max_poc_lsb;
-      int msb;
       if (h.poc_lsb < prev_poc_lsb && prev_poc_lsb - h.poc_lsb >= max_lsb / 2)
-        msb = prev_poc_msb + max_lsb;
-      else if (h.poc_lsb > prev_poc_lsb && h.poc_lsb - prev_poc_lsb > max_lsb / 2)
-        msb = prev_poc_msb - max_lsb;
+        poc_msb = prev_poc_msb + max_lsb;
+      else if (h.poc_lsb > prev_poc_lsb && prev_poc_lsb - h.poc_lsb < -max_lsb / 2)
+        poc_msb = prev_poc_msb - max_lsb;
       else
-        msb = prev_poc_msb;
-      int top = msb + h.poc_lsb;
-      int bottom = top + h.delta_poc_bottom;
-      f.poc = std::min(top, bottom);
-      if (h.nal_ref_idc) {
-        prev_poc_msb = msb;
-        prev_poc_lsb = h.poc_lsb;
+        poc_msb = prev_poc_msb;
+      poc_lsb = h.poc_lsb;
+      top = int64_t(poc_msb) + h.poc_lsb;
+      bottom = top + h.delta_poc_bottom;
+    } else if (sps.poc_type == 1) {
+      const int cycle = int(sps.offset_ref.size());
+      int64_t abs_frame_num = cycle ? int64_t(frame_num_offset) + h.frame_num : 0;
+      if (h.nal_ref_idc == 0 && abs_frame_num > 0) --abs_frame_num;
+      int64_t per_cycle = 0;
+      for (int o : sps.offset_ref) per_cycle += o;
+      int64_t expected = 0;
+      if (abs_frame_num > 0) {
+        int64_t cycles = (abs_frame_num - 1) / cycle, in_cycle = (abs_frame_num - 1) % cycle;
+        expected = cycles * per_cycle;
+        for (int64_t i = 0; i <= in_cycle; ++i) expected += sps.offset_ref[size_t(i)];
       }
+      if (h.nal_ref_idc == 0) expected += sps.offset_non_ref;
+      top = expected + h.delta_poc[0];
+      bottom = top + sps.offset_top_bottom + h.delta_poc[1];
     } else {
-      if (h.nal_type == 5) frame_num_offset = 0;
-      else if (prev_frame_num > h.frame_num) frame_num_offset = prev_frame_num_offset + max_frame_num;
-      else frame_num_offset = prev_frame_num_offset;
-      if (h.nal_type == 5) f.poc = 0;
-      else if (h.nal_ref_idc == 0) f.poc = 2 * (frame_num_offset + h.frame_num) - 1;
-      else f.poc = 2 * (frame_num_offset + h.frame_num);
-      prev_frame_num_offset = frame_num_offset;
+      top = bottom = 2 * (int64_t(frame_num_offset) + h.frame_num) - (h.nal_ref_idc ? 0 : 1);
     }
-    prev_frame_num = h.frame_num;
+    if (top != int32_t(top) || bottom != int32_t(bottom))
+      broken("H.264 picture order count out of range");
+    f.poc = int(std::min(top, bottom));
     first_sh = h;
     cur_idr = h.nal_type == 5;
     slice_num = 0;
     mbs = &f.mbs;
+    // Recovery (libavcodec's h264_field_start): a recovery point SEI
+    // names the frame_num from which pictures are whole; the reference
+    // picture of that frame_num, or an IDR picture, is recovered, and so
+    // is every picture decoded after an IDR picture or after a recovered
+    // picture was output (select_output).
+    if (sei_recovery >= 0) {
+      if (h.frame_num != sei_recovery || h.type != 2) valid_recovery_point = true;
+      if (recovery_frame < 0 ||
+          ((recovery_frame - h.frame_num) & (max_frame_num - 1)) > sei_recovery) {
+        recovery_frame = (h.frame_num + sei_recovery) & (max_frame_num - 1);
+        if (!valid_recovery_point) recovery_frame = h.frame_num;
+      }
+    }
+    if (cur_idr) {
+      f.recovered |= 1;
+      frame_recovered |= 1;
+    }
+    if (recovery_frame == h.frame_num && h.nal_ref_idc) {
+      // libavcodec flags this picture a keyframe too: a barrier of the
+      // output order as an IDR picture is.
+      recovery_frame = -1;
+      f.recovered |= 2;
+    }
+    // libavcodec flags an I picture with a recovery point SEI a keyframe,
+    // as an IDR picture: a barrier of the output order (found on cv2).
+    if (sei_recovery >= 0 && h.type == 2) f.key = true;
+    f.recovered |= frame_recovered;
+    if (h.type == 2) non_gray = true;
     select_output();
   }
 
   // libavcodec's h264_select_output_frame, run as a picture starts.
   void select_output() {
     Frame& c = *cur;
+    // An MMCO 5 flags the picture after it (h->mmco_reset) as well as
+    // itself (at its marking).
+    c.mmco_reset = mmco_reset_next;
+    mmco_reset_next = false;
     // A new SPS's reorder depth counts once the picture's output order
     // is placed: an IDR picture after pictures output without delay
     // restarts the order (next_outputed_poc) first.
@@ -1161,7 +1386,7 @@ struct H264Decoder::State {
       }
     }
     int out_of_order = kMaxDelayed - i;
-    if (c.b_type || (last_pocs[kMaxDelayed - 2] > kPocMin &&
+    if (c.pic_type == 1 || (last_pocs[kMaxDelayed - 2] > kPocMin &&
                      int64_t(last_pocs[kMaxDelayed - 1]) - last_pocs[kMaxDelayed - 2] > 2))
       out_of_order = std::max(out_of_order, 1);
     if (out_of_order == kMaxDelayed) {
@@ -1192,72 +1417,190 @@ struct H264Decoder::State {
         next_outputed_poc = kPocMin;
       else
         next_outputed_poc = out->poc;
+      // A recovered picture output: the pictures decoded from now on are
+      // whole, and after an IDR picture or a recovery point SEI's also
+      // those output from now on (not after the heuristic's I picture:
+      // the pictures decoded before its output but output after it are
+      // still dropped). An unrecovered one is dropped (cv2's decoder does
+      // not set AV_CODEC_FLAG_OUTPUT_CORRUPT).
+      frame_recovered |= out->recovered;
+      out->recovered |= frame_recovered & 2;
+      if (!out->recovered) next_output.reset();
     }
   }
 
+  // A picture output whose slices lost their references: libavcodec
+  // conceals its macroblocks (error resilience), which is not copied.
+  void check_whole(const Frame& f) const {
+    if (f.failed)
+      unsupported("H.264 picture output with references missing (libavcodec's "
+                  "error concealment is not copied)");
+  }
+
   // libavcodec's draining at the end of the stream.
+  // (send_next_delayed_frame: unrecovered pictures are dropped).
   bool flush(Picture& out) {
     if (cur) finish_picture();
-    if (delayed.empty()) return false;
-    size_t out_idx = 0;
-    for (size_t k = 1; k < delayed.size() && !(delayed[k]->key || delayed[k]->mmco_reset); ++k)
-      if (delayed[k]->poc < delayed[out_idx]->poc) out_idx = k;
-    FramePtr f = delayed[out_idx];
-    delayed.erase(delayed.begin() + long(out_idx));
-    to_picture(*f, out);
-    return true;
+    while (!delayed.empty()) {
+      size_t out_idx = 0;
+      for (size_t k = 1; k < delayed.size() && !(delayed[k]->key || delayed[k]->mmco_reset); ++k)
+        if (delayed[k]->poc < delayed[out_idx]->poc) out_idx = k;
+      FramePtr f = delayed[out_idx];
+      delayed.erase(delayed.begin() + long(out_idx));
+      frame_recovered |= f->recovered;
+      f->recovered |= frame_recovered & 2;
+      if (!f->recovered) continue;
+      check_whole(*f);
+      to_picture(*f, out);
+      return true;
+    }
+    return false;
   }
 
   void finish_picture() {
     Frame& f = *cur;
     for (const MbInfo& m : f.mbs)
-      if (m.slice < 0) broken("H.264 picture with macroblocks missing");
-    if (!headers_only) pixels([&](auto z) { deblock_picture<decltype(z)>(); });
+      if (m.slice < 0 && !f.failed) broken("H.264 picture with macroblocks missing");
+    if (!headers_only && !f.failed) pixels([&](auto z) { deblock_picture<decltype(z)>(); });
     slice_params.clear();
     if (first_sh.nal_ref_idc) {
-      // Reference marking (8.2.5).
-      if (!cur_idr) {
-        int max_frame_num = 1 << sps.log2_max_frame_num;
-        if (first_sh.adaptive_marking) {
-          for (auto& op : first_sh.mmco) {
-            int pic_num = f.frame_num - (op.second + 1);
-            for (size_t k = 0; k < refs.size(); ++k) {
-              int fn = refs[k]->frame_num;
-              int wrap = fn > f.frame_num ? fn - max_frame_num : fn;
-              if (wrap == pic_num) {
-                refs.erase(refs.begin() + long(k));
-                break;
-              }
-            }
-          }
-        } else {
-          while (!refs.empty() &&
-                 int(refs.size()) >= std::max(sps.max_num_ref_frames, 1)) {
-            size_t oldest = 0;
-            int best = 0x7FFFFFFF;
-            for (size_t k = 0; k < refs.size(); ++k) {
-              int fn = refs[k]->frame_num;
-              int wrap = fn > f.frame_num ? fn - max_frame_num : fn;
-              if (wrap < best) {
-                best = wrap;
-                oldest = k;
-              }
-            }
-            refs.erase(refs.begin() + long(oldest));
-          }
+      mark(f, cur, &first_sh);
+      prev_poc_msb = poc_msb;
+      prev_poc_lsb = poc_lsb;
+    }
+    prev_frame_num_offset = frame_num_offset;
+    prev_frame_num = frame_num;
+    cur.reset();
+  }
+
+  // Reference marking as libavcodec's ff_h264_execute_ref_pic_marking
+  // does it (8.2.5): `h` the picture's first slice header (null: a gap
+  // frame, marked by the sliding window). The sliding window removes the
+  // oldest short-term reference once short and long-term ones reach
+  // max_num_ref_frames; more references than that (a broken stream)
+  // lose the oldest. An I picture with no long-term references, at most
+  // two short-term ones (or PPSs of one reference a list) and PPSs of one
+  // list-0 reference is taken for a recovery point.
+  void mark(Frame& f, const FramePtr& fp, const SliceHeader* h) {
+    const int max_frame_num = 1 << sps.log2_max_frame_num;
+    bool err = false, assigned = false;
+    auto remove_long = [&](int i) {
+      if (!long_refs[i]) return;
+      long_refs[i]->long_term = false;
+      long_refs[i]->long_idx = -1;
+      long_refs[i].reset();
+      --long_count;
+    };
+    auto find_short = [&](int fn) -> int {
+      for (size_t k = refs.size(); k-- > 0;)
+        if (refs[k]->frame_num == fn) return int(k);
+      return -1;
+    };
+    std::vector<SliceHeader::Mmco> ops;
+    if (h && h->nal_type == 5) {
+      if (h->long_term_ref) ops.push_back({6, 0, 0});
+    } else if (h && h->adaptive_marking) {
+      ops = h->mmco;
+    } else if (!refs.empty() && long_count + int(refs.size()) >= sps.max_num_ref_frames) {
+      ops.push_back({1, -1, 0});            // the oldest short-term one
+    }
+    for (const auto& m : ops) {
+      int k = -1;
+      if (m.op == 1 || m.op == 3) {
+        int fn = m.a < 0 ? refs.front()->frame_num
+                         : (f.frame_num - m.a - 1) & (max_frame_num - 1);
+        k = find_short(fn);
+        if (k < 0) {
+          if (m.op != 3 || !long_refs[m.b] || long_refs[m.b]->frame_num != fn) err = true;
+          continue;
         }
       }
-      refs.push_back(cur);
-      if (int(refs.size()) > std::max(sps.max_num_ref_frames, 1))
-        broken("H.264 more reference frames than max_num_ref_frames");
-      prev_ref_frame_num = f.frame_num;
+      switch (m.op) {
+        case 1:
+          refs.erase(refs.begin() + k);
+          break;
+        case 2:
+          if (long_refs[m.a]) remove_long(m.a);
+          break;
+        case 3: {
+          FramePtr pic = refs[size_t(k)];
+          if (long_refs[m.b] != pic) remove_long(m.b);
+          refs.erase(refs.begin() + k);
+          long_refs[m.b] = pic;
+          pic->long_term = true;
+          pic->long_idx = m.b;
+          ++long_count;
+          break;
+        }
+        case 4:
+          for (int j = m.b; j < 16; ++j) remove_long(j);
+          break;
+        case 5:
+          refs.clear();
+          for (int j = 0; j < 16; ++j) remove_long(j);
+          frame_num = f.frame_num = 0;
+          mmco_reset_next = true;
+          f.mmco_reset = true;
+          for (int& p : last_pocs) p = kPocMin;
+          break;
+        case 6:
+          if (!refs.empty() && refs.back() == fp) refs.pop_back();
+          if (f.long_term)
+            for (int j = 0; j < 16; ++j)
+              if (long_refs[j] == fp) remove_long(j);
+          if (long_refs[m.b] != fp) {
+            remove_long(m.b);
+            long_refs[m.b] = fp;
+            f.long_term = true;
+            f.long_idx = m.b;
+            ++long_count;
+          }
+          assigned = true;
+          break;
+      }
     }
-    cur.reset();
+    if (!assigned) {
+      int k = find_short(f.frame_num);
+      if (k >= 0) {
+        refs.erase(refs.begin() + k);
+        err = true;
+      }
+      refs.push_back(fp);
+    }
+    if (long_count + int(refs.size()) > std::max(sps.max_num_ref_frames, 1)) {
+      err = true;
+      if (long_count && refs.empty()) {
+        for (int j = 0; j < 16; ++j)
+          if (long_refs[j]) {
+            remove_long(j);
+            break;
+          }
+      } else {
+        refs.erase(refs.begin());
+      }
+    }
+    for (size_t k = refs.size(); k-- > 0;) {
+      const Frame& r = *refs[k];
+      if (r.invalid_gap &&
+          ((f.frame_num - r.frame_num) & (max_frame_num - 1)) > sps.max_num_ref_frames)
+        refs.erase(refs.begin() + long(k));
+    }
+    int pps_refs[2] = {0, 0};
+    for (const Pps& q : pps_table)
+      if (q.valid)
+        for (int l = 0; l < 2; ++l) pps_refs[l] = std::max(pps_refs[l], q.num_ref_idx_default[l]);
+    if (!err && long_count == 0 &&
+        (refs.size() <= 2 || (pps_refs[0] <= 1 && pps_refs[1] <= 1)) && pps_refs[0] <= 1 &&
+        f.pic_type == 2) {
+      f.recovered |= 4;
+      if (!has_b_frames) frame_recovered |= 2;
+    }
   }
 
   void to_picture(const Frame& f, Picture& out) {
     out.w = f.out_w;
     out.h = f.out_h;
+    out.shown_w = f.shown_w;
     out.ystride = f.w;
     out.cstride = f.cw;
     out.xshift = f.cfi == 3 ? 0 : 1;
@@ -1265,21 +1608,38 @@ struct H264Decoder::State {
     out.grey = false;
     out.rgb = f.rgb;
     out.depth = f.depth;
+    // The planes from the output's corner on (the chroma's at its
+    // subsampled position), rows of the decoded picture's stride.
+    const size_t bytes = f.depth > 8 ? 2 : 1;
+    const int cx = f.out_x >> (f.cfi == 3 ? 0 : 1);
+    const int cy = f.out_y >> (f.cfi >= 2 ? 0 : 1);
+    auto from = [&](const std::vector<uint8_t>& b, int x, int y, int stride) {
+      size_t off = (size_t(y) * stride + size_t(x)) * bytes;
+      return std::vector<uint8_t>(b.begin() + long(std::min(off, b.size())), b.end());
+    };
+    std::vector<uint8_t> y = from(f.y, f.out_x, f.out_y, f.w);
+    std::vector<uint8_t> u = from(f.u, cx, cy, f.cw);
+    std::vector<uint8_t> v = from(f.v, cx, cy, f.cw);
+    // Rows of the last line past the decoded width: padded with zeros.
+    y.resize(size_t(f.out_h) * f.w * bytes, 0);
+    size_t crows = size_t(f.cfi >= 2 ? f.out_h : (f.out_h + 1) / 2);
+    u.resize(crows * f.cw * bytes, 0);
+    v.resize(crows * f.cw * bytes, 0);
     if (f.depth > 8) {
       auto words = [](const std::vector<uint8_t>& b, std::vector<uint16_t>& w) {
         w.resize(b.size() / 2);
         std::memcpy(w.data(), b.data(), b.size());
       };
-      words(f.y, out.y16);
-      words(f.u, out.u16);
-      words(f.v, out.v16);
+      words(y, out.y16);
+      words(u, out.u16);
+      words(v, out.v16);
       out.y.clear();
       out.u.clear();
       out.v.clear();
     } else {
-      out.y = f.y;
-      out.u = f.u;
-      out.v = f.v;
+      out.y = std::move(y);
+      out.u = std::move(u);
+      out.v = std::move(v);
     }
     out.full_range = f.full_range;
     out.matrix = f.matrix;
@@ -1291,9 +1651,10 @@ struct H264Decoder::State {
 
   void decode_slice(const std::vector<uint8_t>& r) {
     // Reference lists (8.2.4) and weights.
-    list[0].clear();
-    list[1].clear();
-    if (sh.type != 2) build_lists();
+    if (sh.type != 2 && !lists_ok) {
+      cur->failed = true;
+      return;
+    }
     init_scaling();
     use_implicit = sh.type == 1 && pps.weighted_bipred_idc == 2;
     if (use_implicit) init_implicit();
@@ -1358,7 +1719,7 @@ struct H264Decoder::State {
     std::memset(mb->mvd, 0, sizeof(mb->mvd));
     std::memset(mb->ref, -1, sizeof(mb->ref));
     for (int l = 0; l < 2; ++l)
-      for (int k = 0; k < 4; ++k) mb->refid[l][k] = -1;
+      for (int k = 0; k < 4; ++k) mb->refid[l][k] = mb->dbk[l][k] = -1;
     std::memset(done4, 0, sizeof(done4));
   }
 
@@ -1389,68 +1750,113 @@ struct H264Decoder::State {
 
   // ------------------------------------------------ reference lists
 
-  int pic_num(const Frame& f) const {
-    int fn = f.frame_num;
-    return fn > sh.frame_num ? fn - (1 << sps.log2_max_frame_num) : fn;
-  }
-
-  void build_lists() {
-    std::vector<FramePtr> st = refs;
-    if (sh.type == 0) {
-      std::sort(st.begin(), st.end(), [&](const FramePtr& a, const FramePtr& b) {
-        return pic_num(*a) > pic_num(*b);
-      });
-      list[0] = st;
-    } else {
-      int poc = cur->poc;
-      std::vector<FramePtr> before, after;
-      for (auto& f : st) (f->poc < poc ? before : after).push_back(f);
-      std::sort(before.begin(), before.end(),
-                [](const FramePtr& a, const FramePtr& b) { return a->poc > b->poc; });
-      std::sort(after.begin(), after.end(),
-                [](const FramePtr& a, const FramePtr& b) { return a->poc < b->poc; });
-      list[0] = before;
-      list[0].insert(list[0].end(), after.begin(), after.end());
-      list[1] = after;
-      list[1].insert(list[1].end(), before.begin(), before.end());
-      if (list[1].size() > 1 && list[0] == list[1]) std::swap(list[1][0], list[1][1]);
-    }
-    int max_pic_num = 1 << sps.log2_max_frame_num;
-    for (int l = 0; l < (sh.type == 1 ? 2 : 1); ++l) {
-      std::vector<FramePtr>& L = list[l];
-      int n = sh.num_ref_idx[l];
-      L.resize(size_t(n));      // entries past the initial list: none
-      int pred = sh.frame_num, idx = 0;
-      for (auto& m : sh.mods[l]) {
-        int abs_diff = m.val + 1;
-        if (abs_diff > max_pic_num) broken("H.264 abs_diff_pic_num out of range");
-        int nowrap;
-        if (m.idc == 0) {
-          nowrap = pred - abs_diff;
-          if (nowrap < 0) nowrap += max_pic_num;
-        } else {
-          nowrap = pred + abs_diff;
-          if (nowrap >= max_pic_num) nowrap -= max_pic_num;
+  // The reference lists as libavcodec builds them (h264_refs.c): P
+  // slices take the short-term references newest first, B slices those
+  // of POC at or below the picture's (descending) then above it
+  // (ascending) for list 0 and the other way for list 1 (one picture of
+  // each POC), a list 1 equal to list 0 with its first two swapped; the
+  // long-term ones follow by LongTermFrameIdx. The modifications then
+  // insert pictures by number; an entry left empty takes its list's
+  // first initial entry (default_ref; a grey gap frame the other list's
+  // if that one is not grey), and with none the slice is lost (false).
+  bool build_lists() {
+    const int max_pic_num = 1 << sps.log2_max_frame_num;
+    for (int l = 0; l < 2; ++l) list[l].clear();
+    const int nl = sh.type == 1 ? 2 : 1;
+    if (sh.type == 1) {
+      auto add_sorted = [&](std::vector<FramePtr>& out, int limit, bool down) {
+        for (;;) {
+          FramePtr best;
+          for (size_t k = refs.size(); k-- > 0;) {      // newest first
+            int poc = refs[k]->poc;
+            if (down ? (poc <= limit && (!best || poc >= best->poc))
+                     : (poc > limit && (!best || poc < best->poc)))
+              best = refs[k];
+          }
+          if (!best) return;
+          out.push_back(best);
+          limit = best->poc - (down ? 1 : 0);
         }
-        pred = nowrap;
-        int pn = nowrap > sh.frame_num ? nowrap - max_pic_num : nowrap;
-        FramePtr pic;
-        for (auto& f : refs)
-          if (pic_num(*f) == pn) pic = f;
-        if (!pic) broken("H.264 list modification names a missing picture");
-        if (idx >= n) broken("H.264 too many list modifications");
-        L.insert(L.begin() + idx, pic);
-        ++idx;
-        int k = idx;
-        for (int c = idx; c < int(L.size()); ++c)
-          if (L[size_t(c)] != pic) L[size_t(k++)] = L[size_t(c)];
-        L.resize(size_t(n));
+      };
+      for (int l = 0; l < 2; ++l) {
+        add_sorted(list[l], cur->poc, l == 0);
+        add_sorted(list[l], cur->poc, l != 0);
       }
-      for (auto& f : L)
-        if (!f) f = L[0] ? L[0] : (refs.empty() ? nullptr : refs.back());
+    } else {
+      list[0].assign(refs.rbegin(), refs.rend());
     }
-    if (list[0].empty() || !list[0][0] || (sh.type == 1 && (list[1].empty() || !list[1][0])))
-      broken("H.264 inter slice without reference pictures");
+    for (int l = 0; l < nl; ++l)
+      for (auto& r : long_refs)
+        if (r) list[l].push_back(r);
+    if (sh.type == 1 && list[0].size() == list[1].size() && list[1].size() > 1) {
+      bool same = true;
+      for (size_t k = 0; k < list[0].size(); ++k) same = same && list[0][k]->id == list[1][k]->id;
+      if (same) std::swap(list[1][0], list[1][1]);
+    }
+    for (int l = 0; l < nl; ++l) {
+      list[l].resize(size_t(sh.num_ref_idx[l]));
+      default_ref[l] = list[l][0];
+    }
+    for (int l = 0; l < nl; ++l) {
+      std::vector<FramePtr>& L = list[l];
+      const int n = sh.num_ref_idx[l];
+      int pred = sh.frame_num;
+      for (size_t index = 0; index < sh.mods[l].size(); ++index) {
+        const auto& m = sh.mods[l][index];
+        FramePtr ref;
+        if (m.idc < 2) {
+          int abs_diff = m.val + 1;
+          if (abs_diff > max_pic_num) broken("H.264 abs_diff_pic_num out of range");
+          pred = (m.idc == 0 ? pred - abs_diff : pred + abs_diff) & (max_pic_num - 1);
+          for (auto& f : refs)                          // oldest first
+            if (f->frame_num == pred) {
+              ref = f;
+              break;
+            }
+        } else {
+          if (m.val > 31) broken("H.264 long_term_pic_num out of range");
+          if (m.val < 16) ref = long_refs[m.val];
+        }
+        if (int(index) >= n) broken("H.264 too many list modifications");
+        if (!ref) {                     // libavcodec leaves the entry empty
+          L[index] = nullptr;
+          continue;
+        }
+        int i = int(index);
+        for (; i + 1 < n; ++i)
+          if (L[size_t(i)] && L[size_t(i)]->long_term == ref->long_term &&
+              (ref->long_term ? L[size_t(i)]->long_idx == ref->long_idx
+                              : L[size_t(i)]->frame_num == ref->frame_num))
+            break;
+        for (; i > int(index); --i) L[size_t(i)] = L[size_t(i) - 1];
+        L[index] = ref;
+      }
+    }
+    for (int l = 0; l < nl; ++l)
+      for (auto& f : list[l]) {
+        if (!f) {
+          for (int& p : last_pocs) p = kPocMin;
+          if (!default_ref[l]) return false;
+          f = default_ref[l];
+        }
+        if (f->gray && non_gray)
+          for (int j = 0; j < nl; ++j) {
+            const FramePtr& d = default_ref[(l + j) & 1];
+            if (d && !d->gray) {
+              f = d;
+              break;
+            }
+          }
+      }
+    // What the deblocking filter compares (libavcodec's ref2frm): the
+    // picture's buffer, but a long-term reference whose LongTermFrameIdx
+    // is not below their count is an unknown picture (60) to it.
+    for (int l = 0; l < nl; ++l)
+      for (int i = 0; i < sh.num_ref_idx[l]; ++i) {
+        const Frame& f = *list[l][size_t(i)];
+        dbk_id[l][i] = f.long_term && f.long_idx >= long_count ? kUnknownRef : f.id;
+      }
+    return true;
   }
 
   void init_implicit() {
@@ -1460,7 +1866,8 @@ struct H264Decoder::State {
         int p0 = list[0][size_t(i)]->poc, p1 = list[1][size_t(j)]->poc;
         int tb = clip3(-128, 127, poc - p0), td = clip3(-128, 127, p1 - p0);
         int w0 = 32, w1 = 32;
-        if (td != 0) {
+        // Equal weights for a long-term reference in either list.
+        if (td != 0 && !list[0][size_t(i)]->long_term && !list[1][size_t(j)]->long_term) {
           int tx = (16384 + std::abs(td / 2)) / td;
           int dsf = clip3(-1024, 1023, (tb * tx + 32) >> 6);
           if (!((dsf >> 2) < -64 || (dsf >> 2) > 128)) {
@@ -2127,7 +2534,8 @@ struct H264Decoder::State {
 
   void set_ref(int l, int b8, int r) {
     mb->ref[l][b8] = int8_t(r);
-    mb->refid[l][b8] = r >= 0 ? list[l][size_t(r)]->id : -1;
+    mb->refid[l][b8] = r >= 0 ? list[l][size_t(r)]->uid : -1;
+    mb->dbk[l][b8] = r >= 0 ? dbk_id[l][r] : -1;
   }
 
   void fill_mv(int l, int x4, int y4, int w4, int h4, int mx, int my) {
@@ -2264,8 +2672,9 @@ struct H264Decoder::State {
           int r, cx, cy;
           int32_t rid;
           col_of(blk, r, cx, cy, rid);
-          // RefPicList1[0] is a short-term reference (long-term ones raise).
-          bool colzero = r == 0 && cx >= -1 && cx <= 1 && cy >= -1 && cy <= 1;
+          // colZeroFlag: RefPicList1[0] a short-term reference.
+          bool colzero = !list[1][0]->long_term && r == 0 && cx >= -1 && cx <= 1 &&
+                         cy >= -1 && cy <= 1;
           for (int l = 0; l < 2; ++l) {
             int mx = 0, my = 0;
             if (refs[l] >= 0 && !zero && !(refs[l] == 0 && colzero)) {
@@ -2294,7 +2703,7 @@ struct H264Decoder::State {
         if (r >= 0) {
           r0 = -1;
           for (int i = 0; i < sh.num_ref_idx[0]; ++i)
-            if (list[0][size_t(i)]->id == rid) {
+            if (list[0][size_t(i)]->uid == rid) {
               r0 = i;
               break;
             }
@@ -2305,7 +2714,8 @@ struct H264Decoder::State {
         int poc0 = list[0][size_t(r0)]->poc, poc1 = list[1][0]->poc;
         int tb = clip3(-128, 127, cur->poc - poc0), td = clip3(-128, 127, poc1 - poc0);
         int m0x, m0y, m1x, m1y;
-        if (td == 0) {
+        // A long-term list-0 reference: mvCol unscaled, mvL1 0.
+        if (td == 0 || list[0][size_t(r0)]->long_term) {
           m0x = cx;
           m0y = cy;
           m1x = m1y = 0;
@@ -3386,9 +3796,9 @@ struct H264Decoder::State {
                          : cpix<P>(comp - 1, mb_x * mbwc + x4 * (mbwc / 4),
                                    mb_y * mbhc + y4 * (mbhc / 4));
       int stride = comp == 0 ? cur->w : cur->cw;
-      // Weights: explicit (P), implicit (B) or default; explicit
-      // offsets scaled to the bit depth.
-      bool explicit_w = sh.type == 0 && pps.weighted_pred;
+      // Weights: explicit (P, and B of weighted_bipred_idc 1), implicit
+      // (B) or default; explicit offsets scaled to the bit depth.
+      bool explicit_w = sh.type == 0 ? pps.weighted_pred : pps.weighted_bipred_idc == 1;
       for (int j = 0; j < bh; ++j)
         for (int i = 0; i < bw; ++i) {
           int v;
@@ -3397,6 +3807,15 @@ struct H264Decoder::State {
             if (use_implicit) {
               int w0 = implicit_w[r0][r1][0], w1 = implicit_w[r0][r1][1];
               v = clipp((a * w0 + b * w1 + 32) >> 6);
+            } else if (explicit_w) {
+              // libavcodec's biweight: the offsets' sum scaled, then
+              // ((o + 1) | 1) << logWD (the rounding and (o0 + o1 + 1) >> 1).
+              int lwd = comp ? sh.chroma_log2 : sh.luma_log2;
+              int w0 = comp ? sh.cw[0][r0][comp - 1] : sh.lw[0][r0];
+              int w1 = comp ? sh.cw[1][r1][comp - 1] : sh.lw[1][r1];
+              int o = (comp ? sh.co[0][r0][comp - 1] + sh.co[1][r1][comp - 1]
+                            : sh.lo[0][r0] + sh.lo[1][r1]) * (1 << (depth - 8));
+              v = clipp((a * w0 + b * w1 + (((o + 1) | 1) << lwd)) >> (lwd + 1));
             } else {
               v = (a + b + 1) >> 1;
             }
@@ -3460,8 +3879,8 @@ struct H264Decoder::State {
     };
     if (nz(mp, bp) || nz(mq, bq)) return 2;
     int p8 = ((bp >> 3) << 1) | ((bp & 3) >> 1), q8 = ((bq >> 3) << 1) | ((bq & 3) >> 1);
-    int pr[2] = {mp.ref[0][p8] >= 0 ? mp.refid[0][p8] : -1, mp.ref[1][p8] >= 0 ? mp.refid[1][p8] : -1};
-    int qr[2] = {mq.ref[0][q8] >= 0 ? mq.refid[0][q8] : -1, mq.ref[1][q8] >= 0 ? mq.refid[1][q8] : -1};
+    int pr[2] = {mp.ref[0][p8] >= 0 ? mp.dbk[0][p8] : -1, mp.ref[1][p8] >= 0 ? mp.dbk[1][p8] : -1};
+    int qr[2] = {mq.ref[0][q8] >= 0 ? mq.dbk[0][q8] : -1, mq.ref[1][q8] >= 0 ? mq.dbk[1][q8] : -1};
     int np = (pr[0] >= 0) + (pr[1] >= 0), nq = (qr[0] >= 0) + (qr[1] >= 0);
     if (np != nq) return 1;
     auto far = [](const int16_t* a, const int16_t* b) {

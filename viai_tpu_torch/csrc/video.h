@@ -30,6 +30,9 @@ struct Error {
 // chroma planes (ffmpeg's gray).
 struct Picture {
   int w = 0, h = 0;
+  // The width cv2 reports and scales the picture to when it is not w
+  // (H.264's left crop, which libavcodec aligns); 0: w.
+  int shown_w = 0;
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
   // Above 8 bits (H.264's High 10, High 4:2:2 and High 4:4:4 Predictive

@@ -3105,7 +3105,7 @@ uint8_t* viai_video_decode(void* hp, int64_t* thw, int32_t* code, char* err,
     Picture pic;
     auto take = [&]() {
       if (!tw) {
-        tw = pic.w;
+        tw = pic.shown_w ? pic.shown_w : pic.w;
         th = pic.h;
       }
       if (!dec.shown(pic)) return;
@@ -3245,7 +3245,8 @@ int32_t viai_raw_to_bgr(const uint8_t* data, int64_t n, uint32_t tag,
 // last I-VOP at or before the first pick to the last pick, VP8 and VP9
 // from the last shown keyframe at or before it, H.264 (whose frames count
 // in output order) from the last IDR picture at or before it until the
-// last pick is output, MPEG-1/2 (in output order too) from the last
+// last pick is output (from the first packet when the stream does not
+// begin with an IDR picture), MPEG-1/2 (in output order too) from the last
 // I-picture of a closed GOP whose first output is at or before it, HEVC
 // from the last IRAP picture whose fresh decode outputs the whole
 // decode's pictures from some point at or before it (hevc_start: a CRA
@@ -3295,9 +3296,11 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
     if (reorder) {
       // Frames count in output order, which B-frames make differ from
       // packet order. H.264: every picture before an IDR picture is
-      // output before it, so an IDR packet's frame number is the count of
-      // pictures before it: decode from the last IDR at or before the
-      // first pick until the last pick is output. MPEG-4 with B-VOPs:
+      // output before it, so in a stream that begins with one an IDR
+      // packet's frame number is the count of pictures before it: decode
+      // from the last IDR at or before the first pick until the last pick
+      // is output (from the first packet in a stream that begins
+      // elsewhere). MPEG-4 with B-VOPs:
       // from the first packet (libavcodec skips a B-VOP whose older
       // reference it has not decoded).
       int64_t n = 0;
@@ -3306,11 +3309,13 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
         viai_video::H264Decoder scan(t.config);
         scan.headers_only();
         int64_t pics = 0;
+        int first_kind = -1;
         // Pictures an MP4 edit discards are not counted.
         for (size_t i = 0; i < t.packets.size(); ++i) {
           const uint8_t* d = &t.file[t.packets[i].off];
           int kind = scan.peek(d, t.packets[i].size);
           scan.step(d, t.packets[i].size);
+          if (first_kind < 0) first_kind = kind;
           if (kind == 0 && pics <= want.front()) {
             start = i;
             n = pics;
@@ -3318,8 +3323,14 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
           if (kind >= 0 && !t.packets[i].discard) ++pics;
         }
         // A guessed reorder depth may drop pictures (as cv2's libavcodec
-        // does) and grows as the stream goes: count from the start.
-        if (scan.guesses_delay()) start = 0, n = 0;
+        // does) and grows as the stream goes; a stream that does not
+        // begin with an IDR picture (a copy cut) has pictures dropped
+        // before its recovery point, which the count above does not
+        // know: both count from the start. That is the simplest rule that
+        // gives the whole decode's pictures: a fresh decode from a later
+        // recovery point would drop that point's leading pictures, which
+        // the whole decode outputs, and fills its gaps with other frames.
+        if (scan.guesses_delay() || first_kind != 0) start = 0, n = 0;
       } else if (t.codec == viai_video::Codec::kMpeg12) {
         // MPEG-1/2: libavcodec outputs one picture behind unless
         // low_delay, skips an open GOP's B-pictures that lack their

@@ -350,7 +350,11 @@ def decode_video(path: str) -> np.ndarray:
     Predictive at 8 to 10, 12 and 14 bits, 4:2:0, 4:2:2, 4:4:4, GBR
     and monochrome, lossless transform bypass too, progressive frames of
     interlace-capable streams too, in libavcodec's output order and
-    number, its guessed reorder depth included), HEVC (Main, Main 10 and
+    number, its guessed reorder depth included; streams cut elsewhere
+    than at an IDR picture, their pictures before a recovery point
+    dropped as libavcodec drops them; long-term references, every MMCO,
+    POC type 1, gaps in frame_num, explicit B weights, left and top
+    crops), HEVC (Main, Main 10 and
     Main Still Picture as x265, phones and cameras write them: WPP,
     slices, AMP, transform skip, scaling lists, lossless, open GOPs, in
     libavcodec's output order and number, the RASL pictures of a CRA
