@@ -422,7 +422,15 @@ FRAMES_WARMUP = 3
 # with AAC, open GOPs of 8) and clip_hevc.mkv, and the H.264 that does
 # not start at an IDR picture or uses tools libx264 never writes
 # (TOOLS_FIXTURES), beside clip_gopcut.mkv (open GOPs cut at a recovery
-# point, with a sound track). Decoded
+# point, with a sound track), and the lossless video that capture tools,
+# archives and OpenCV's writer store (LOSSLESS_PREFIXES: FFV1 versions 0
+# to 3 with both coders, slices with CRCs, non-key frames, 4:2:0 to 4:1:0,
+# 10 and 16 bits, grey, alpha and RGB; UT Video's eight classic layouts;
+# HuffYUV 1.x with the classic tables, HuffYUV 2.x and FFVHuff up to 16
+# bits; PNG at 8 and 16 bits and with a palette; in AVI and Matroska, and
+# cv2's own files), beside clip_ffv1.mkv (FFV1 level 3, 10-bit 4:2:2, 4
+# slices with CRCs, as archives keep it) and clip_utvideo.avi (UT Video
+# ULY0 as OBS's lossless preset records it). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -430,10 +438,13 @@ FRAMES_WARMUP = 3
 VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
-             "mpeg12": 0, "raw": 0, "hevc": 0}
+             "mpeg12": 0, "raw": 0, "hevc": 0, "ffv1": 0, "utvideo": 0,
+             "huffyuv": 0, "png": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
-               "raw": "uncompressed", "hevc": "HEVC"}
+               "raw": "uncompressed", "hevc": "HEVC", "ffv1": "FFV1",
+               "utvideo": "UT Video", "huffyuv": "HuffYUV/FFVHuff",
+               "png": "PNG"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
@@ -449,7 +460,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "dvd": ("clip_dvd.mkv", "clip_pim1.avi"),
                  "raw": ("clip_i420.avi", "clip_yuy2.avi"),
                  "hevc": ("clip_hevc.mp4", "clip_hevc.mkv"),
-                 "cuts": ("clip_gopcut.mkv",)}
+                 "cuts": ("clip_gopcut.mkv",),
+                 "lossless": ("clip_ffv1.mkv", "clip_utvideo.avi")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -533,6 +545,12 @@ TOOLS_FIXTURES = (
     "h264_ltrt5_mkv", "h264_ltrs_mp4", "h264_ltrs5_avi", "h264_ltrt5p_mp4",
     "h264_graycut_mkv")
 TOOLS_CLIPS = ("clip_gopcut_mkv",)
+# the committed fixtures of lossless video (tests/_torch_make_videos.py's
+# LOSSLESS_CASES: every .npz of these prefixes) and the lossless folder's
+# clips, each held and printed
+LOSSLESS_PREFIXES = ("ffv1_", "ut_", "hfyu_", "ffvh_", "png_",
+                     "lossless_cv2")
+LOSSLESS_CLIPS = ("clip_ffv1_mkv", "clip_utvideo_avi")
 HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
@@ -2094,7 +2112,7 @@ def video_fixtures():
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
     per_browser, per_screen, per_dvd, per_raw, per_hevc = [], [], [], [], []
-    per_tools = []
+    per_tools, per_lossless = [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2133,6 +2151,12 @@ def video_fixtures():
                 f"{int(ref['count'])}) max|Δ| {err}")
         if npz.stem in HEVC_FIXTURES or npz.stem in HEVC_CLIPS:
             per_hevc.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
+        if (npz.stem.startswith(LOSSLESS_PREFIXES)
+                or npz.stem in LOSSLESS_CLIPS):
+            per_lossless.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
                 f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
                 f"{int(ref['count'])}) max|Δ| {err}")
@@ -2201,6 +2225,14 @@ def video_fixtures():
     require(len(per_tools) == len(TOOLS_FIXTURES) + len(TOOLS_CLIPS),
             f"[video] {len(per_tools)} H.264 tools fixtures of "
             f"{len(TOOLS_FIXTURES) + len(TOOLS_CLIPS)}")
+    n_lossless = sum(len(list(VIDEO_FIXTURES.glob(f"{p}*.npz")))
+                     for p in LOSSLESS_PREFIXES) + len(LOSSLESS_CLIPS)
+    log(f"[video] lossless video as capture tools, archives and cv2's "
+        f"writer store it ({len(per_lossless)} fixtures): "
+        + "; ".join(per_lossless))
+    require(len(per_lossless) == n_lossless
+            and n_lossless > len(LOSSLESS_CLIPS),
+            f"[video] {len(per_lossless)} lossless fixtures of {n_lossless}")
     video_hevc_1080p()
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
@@ -2296,15 +2328,17 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     turned 90 degrees with AAC, open GOPs of 8; its Matroska copy), then
     a cut clip (H.264 open GOPs with leading B-pictures cut at a recovery
     point in Matroska with a sound track, its first leading pictures
-    dropped);
+    dropped), then lossless clips (FFV1 level 3 10-bit 4:2:2 with slice
+    CRCs in Matroska, UT Video ULY0 in AVI);
     (c) the eval CLI on a musices split of each, each folder's time split
     (its corpus, the train CLI, the eval CLI); (d) the decode time per
     frame of each codec, a turned frame's against the same file's
     unturned, a 10-bit, a 4:4:4 and a lossless frame's conversion share,
     a 720x480 MPEG-2 frame's decode and conversion, a 224x224 I420 and a
     720x480 YUY2 frame's read and conversion, a clip's read, a 224x224
-    and a 1920x1080 HEVC frame's decode, the loader's wait share of a step
-    from each folder (in its training run).
+    and a 1920x1080 HEVC frame's decode, a 224x224 FFV1 and UT Video
+    frame's decode, the loader's wait share of a step from each folder
+    (in its training run).
     Returns the GL kernel's launches."""
     from viai_tpu_torch import native
 
@@ -2376,7 +2410,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                         "HEVC Main, turned 90, AAC, open GOPs of 8"),
                        ("clip_hevc.mkv", "HEVC Main, open GOPs of 8"),
                        ("clip_gopcut.mkv",
-                        "H.264 High, open GOPs cut at a recovery point")):
+                        "H.264 High, open GOPs cut at a recovery point"),
+                       ("clip_ffv1.mkv",
+                        "FFV1 level 3, 10-bit 4:2:2, 4 slices with CRCs"),
+                       ("clip_utvideo.avi",
+                        "UT Video ULY0, left prediction")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2393,6 +2431,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_dvd_costs(best_ms, card)
     video_raw_costs(best_ms, card)
     video_hevc_costs(best_ms, card)
+    video_lossless_costs(best_ms, card)
     log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
         f"folders)")
     return total
@@ -2624,6 +2663,25 @@ def video_hevc_costs(best_ms, card: str):
         ms = best_ms(lambda: native.decode_video(path)) / n
         res.append(f"{src} at {w}x{h}: {ms:.3f} ms a frame")
     log("[video] HEVC Main decode (demux, decode, BGR; one thread): "
+        + "; ".join(res) + f"; {card}")
+
+
+def video_lossless_costs(best_ms, card: str):
+    """[video] (d): a 224x224 lossless frame's decode and conversion to
+    BGR: clip_ffv1.mkv (FFV1 level 3, 10-bit 4:2:2: the range coder over 4
+    slices with their CRCs, swscale's scaler) and clip_utvideo.avi (UT
+    Video ULY0: Huffman codes, left prediction, swscale's unscaled
+    yuv420p route), each the best of VIDEO_REPS decodes of the whole file
+    over its frames, on one thread."""
+    from viai_tpu_torch import native
+
+    res = []
+    for src in ("clip_ffv1.mkv", "clip_utvideo.avi"):
+        path = str(VIDEO_FIXTURES / src)
+        n, h, w = native.decode_video(path).shape[:3]
+        ms = best_ms(lambda: native.decode_video(path)) / n
+        res.append(f"{src} at {w}x{h}: {ms:.3f} ms a frame")
+    log("[video] lossless decode (demux, decode, BGR; one thread): "
         + "; ".join(res) + f"; {card}")
 
 

@@ -744,6 +744,107 @@ RAW_BITS = {"i420": 12, "yv12": 12, "nv12": 12, "nv21": 12, "y41b": 12,
 # AVI), and YUY2 as `ffmpeg -f v4l2 -c:v copy` stores a webcam's frames.
 RAW_CLIPS = {"clip_i420_avi": ("cv2", "", "avi", {}),
              "clip_yuy2_avi": ("avi", "YUY2", "yuyv", {})}
+# Lossless video as capture tools, archives and OpenCV's writer store it
+# (tests/test_torch_video_lossless.py): LOSSLESS_FRAMES frames of
+# moving_frames at LOSSLESS_SIZE (h, w) unless `size`/`frames` say
+# otherwise, from the system's libavcodec 59 (lavc_encode with
+# `pixel_format` and the encoder's options; its extradata and bit count
+# into the strf), in the container the name ends with: AVI (avi_file),
+# Matroska V_FFV1 with the configuration record as CodecPrivate, else
+# V_MS/VFW/FOURCC with a BITMAPINFOHEADER and the extradata after it.
+# name: (encoder, pixel format, options); "classic" is HuffYUV 1.x
+# written here (classic_huffyuv: no extradata, the classic tables, the
+# predictor in strf's bit count); "cv2" cv2.VideoWriter with that fourcc.
+# `tag` the fourcc (PNG's three), `gradient` a UT Video stream of no
+# prediction relabelled gradient (its encoder writes none); "flags"
+# "+ilme" sets HuffYUV's interlace bit (libavcodec's encoder writes it
+# clear otherwise, at any height).
+LOSSLESS_FRAMES, LOSSLESS_SIZE = 5, (48, 64)
+LOSSLESS_CASES = {
+    "ffv1_v0_avi": ("ffv1", "yuv420p", dict(level=0, coder=0)),
+    "ffv1_v0range_mkv": ("ffv1", "yuv420p", dict(level=0, coder=1)),
+    "ffv1_v1gop_avi": ("ffv1", "yuv422p", dict(level=1, coder=1, g=3)),
+    "ffv1_v1gray_avi": ("ffv1", "gray", dict(level=1)),
+    "ffv1_v1rgb_avi": ("ffv1", "bgr0", dict(level=1, coder=0)),
+    "ffv1_v2_avi": ("ffv1", "yuv420p", dict(level=2, strict=-2, slices=4)),
+    "ffv1_v3_avi": ("ffv1", "yuv420p", dict(level=3, slices=4, slicecrc=1)),
+    "ffv1_v3golomb_avi": ("ffv1", "yuv420p", dict(level=3, coder=0, slices=4,
+                                                  g=2, size=(29, 45))),
+    "ffv1_v3def_mkv": ("ffv1", "yuv444p", dict(level=3, coder=-2,
+                                               slicecrc=1)),
+    "ffv1_v3ctx_avi": ("ffv1", "yuv420p10le", dict(level=3, context=1,
+                                                   slices=6, slicecrc=1)),
+    "ffv1_v3p10_mkv": ("ffv1", "yuv422p10le", dict(level=3, slices=4,
+                                                   slicecrc=1, g=4)),
+    "ffv1_v3p444_avi": ("ffv1", "yuv444p10le", dict(level=3)),
+    "ffv1_v3rgb10_avi": ("ffv1", "gbrp10le", dict(level=3, slicecrc=1)),
+    "ffv1_v3rgb16_mkv": ("ffv1", "gbrp16le", dict(level=3, size=(29, 45))),
+    "ffv1_v3rgba_avi": ("ffv1", "bgra", dict(level=3, slices=4,
+                                              size=(29, 45))),
+    "ffv1_v3yuva_avi": ("ffv1", "yuva420p", dict(level=3)),
+    "ffv1_v3gray16_avi": ("ffv1", "gray16le", dict(level=3)),
+    "ffv1_v3ya_mkv": ("ffv1", "ya8", dict(level=3)),
+    "ffv1_v3p411_avi": ("ffv1", "yuv411p", dict(level=3)),
+    "ffv1_v3p410_avi": ("ffv1", "yuv410p", dict(level=3, size=(29, 45))),
+    "ffv1_v3odd_avi": ("ffv1", "yuv420p", dict(level=3, slices=4, slicecrc=1,
+                                               size=(29, 45))),
+    "ut_ulrg_avi": ("utvideo", "gbrp", dict(pred="left")),
+    "ut_ulra_avi": ("utvideo", "gbrap", dict(pred="median")),
+    "ut_uly0_avi": ("utvideo", "yuv420p", dict(pred="median", slices=3)),
+    "ut_uly2_mkv": ("utvideo", "yuv422p", dict(pred="none")),
+    "ut_uly4_avi": ("utvideo", "yuv444p", dict(pred="left")),
+    "ut_ulh0_avi": ("utvideo", "yuv420p", dict(pred="median",
+                                               colorspace="bt709")),
+    "ut_ulh2_avi": ("utvideo", "yuv422p", dict(pred="left",
+                                               colorspace="bt709")),
+    "ut_ulh4_mkv": ("utvideo", "yuv444p", dict(pred="none", size=(29, 45),
+                                               colorspace="bt709")),
+    "ut_gradient_avi": ("utvideo", "yuv420p", dict(pred="none",
+                                                   gradient=True)),
+    "ut_rgbgrad_avi": ("utvideo", "gbrp", dict(pred="none", gradient=True,
+                                               slices=2, size=(29, 46))),
+    "hfyu_v1_avi": ("classic", "yuv422p", dict(bits=17)),
+    "hfyu_v1plane_avi": ("classic", "yuv422p", dict(bits=19)),
+    "hfyu_v1rgb_avi": ("classic", "bgr24", dict(bits=26)),
+    "hfyu_v2_avi": ("huffyuv", "yuv422p", dict(pred="left")),
+    "hfyu_median_mkv": ("huffyuv", "yuv422p", dict(pred="median")),
+    "hfyu_rgb_avi": ("huffyuv", "rgb24", dict(pred="plane")),
+    "hfyu_rgba_avi": ("huffyuv", "bgra", dict(pred="left", size=(29, 45))),
+    "hfyu_tall_avi": ("huffyuv", "yuv422p", dict(pred="median", flags="+ilme",
+                                                 size=(300, 64), frames=2)),
+    "ffvh_420_avi": ("ffvhuff", "yuv420p", dict(pred="median")),
+    "ffvh_ctx_avi": ("ffvhuff", "yuv420p", dict(pred="plane", context=1)),
+    "ffvh_il_avi": ("ffvhuff", "yuv420p", dict(pred="median", flags="+ilme",
+                                               size=(40, 64))),
+    "ffvh_444_avi": ("ffvhuff", "yuv444p", dict(pred="plane")),
+    "ffvh_p10_mkv": ("ffvhuff", "yuv422p10le", dict(pred="median")),
+    "ffvh_p16_avi": ("ffvhuff", "yuv420p16le", dict(pred="left",
+                                                    size=(30, 46))),
+    "ffvh_gray_avi": ("ffvhuff", "gray", dict(pred="median")),
+    "ffvh_gbrap_avi": ("ffvhuff", "gbrap", dict(pred="median",
+                                                size=(29, 45))),
+    "png_rgb_avi": ("png", "rgb24", dict(tag="MPNG")),
+    "png_rgba_mkv": ("png", "rgba", dict(tag="MPNG", pred="mixed")),
+    "png_gray_avi": ("png", "gray", dict(tag="PNG1")),
+    "png_ya8_avi": ("png", "ya8", dict(tag="png ")),
+    "png_pal8_avi": ("png", "pal8", dict(tag="MPNG")),
+    "png_rgb48_avi": ("png", "rgb48be", dict(tag="MPNG", size=(29, 45))),
+    "png_rgba64_mkv": ("png", "rgba64be", dict(tag="MPNG", size=(29, 45))),
+    "png_gray16_avi": ("png", "gray16be", dict(tag="MPNG")),
+    "png_ya16_avi": ("png", "ya16be", dict(tag="MPNG", size=(29, 45))),
+    **{f"lossless_cv2{t.strip().lower()}_{c}": ("cv2", t, {})
+       for t in ("FFV1", "HFYU", "FFVH", "ULY0", "MPNG")
+       for c in ("avi", "mkv")},
+}
+# The clips chip_smoke.py's `lossless` folder trains from, of the
+# committed 224x224 clip's first 16 frames: FFV1 as archives keep it
+# (`-level 3 -slices 4 -slicecrc 1`, 10-bit 4:2:2) and UT Video as OBS's
+# lossless preset records it (ULY0, libavcodec's default left
+# prediction).
+LOSSLESS_CLIPS = {
+    "clip_ffv1_mkv": ("ffv1", "yuv422p10le", dict(level=3, slices=4,
+                                                  slicecrc=1)),
+    "clip_utvideo_avi": ("utvideo", "yuv420p", dict(pred="left"))}
 # HEVC as phones, cameras and x265 write it: streams of the system's
 # libx265 (lavc_encode's "libx265", one thread; x265 turns WPP off
 # without a thread pool, so the cases that keep its WPP, as its preset
@@ -954,7 +1055,8 @@ TOOLS_CLIPS = {"clip_gopcut_mkv": dict(kind="cut", x264=dict(
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
-        *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS)
+        *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS,
+        *LOSSLESS_CASES, *LOSSLESS_CLIPS)
 
 
 def codec_of(name: str) -> str:
@@ -968,6 +1070,12 @@ def codec_of(name: str) -> str:
         return "mpeg12"
     if name in RAW_CLIPS:
         return "raw"
+    if name in LOSSLESS_CASES or name in LOSSLESS_CLIPS:
+        enc, kind, _ = {**LOSSLESS_CASES, **LOSSLESS_CLIPS}[name]
+        if enc == "cv2":
+            enc = {"FFV1": "ffv1", "ULY0": "utvideo", "MPNG": "png"}.get(
+                kind, "huffyuv")
+        return {"classic": "huffyuv", "ffvhuff": "huffyuv"}.get(enc, enc)
     if name in HEVC_CLIPS:
         return "hevc"
     if name in CLIP_CASES:
@@ -981,7 +1089,8 @@ def codec_of(name: str) -> str:
 def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
             or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
-            or name in HEVC_CLIPS or name in TOOLS_CLIPS):
+            or name in HEVC_CLIPS or name in TOOLS_CLIPS
+            or name in LOSSLESS_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -2134,10 +2243,74 @@ def x264_encode(frames, fps: int = 25, preset: str = "medium",
     return out
 
 
+def lavc_frame_bytes(f: np.ndarray, fmt: str) -> bytes:
+    """One BGR frame (h, w, 3) → libavutil's pixel format `fmt` laid out
+    as av_image_fill_arrays lays it at alignment 1: planar YUV (yuv420p,
+    yuv422p10le, yuva420p, yuv411p, yuv410p ...: BT.601 limited range,
+    chroma averaged over the samples it covers, each 8-bit sample v at
+    depth d as (v << (d − 8)) | (v >> (16 − d))), gray/grayNNle/grayNNbe,
+    ya8, ya16be, planar G, B, R (gbrp, gbrap, gbrpNNle ...), packed bgr0,
+    bgra, rgba, rgb24, rgb48be, rgba64be, and pal8 (G's top 6 bits
+    as the index into a fixed palette whose alphas fall from 255, its
+    1 KiB after the indices). Alpha planes hold a pattern of their own."""
+    import re
+
+    h, w = f.shape[:2]
+    y, u, v = (p[0] for p in _yuv_planes(f[None]))
+    alpha = ((y.astype(np.int64) * 7 + np.arange(w)[None]) % 256).astype(
+        np.uint8)
+
+    def deep(p, d, order="<"):
+        if d == 8:
+            return np.ascontiguousarray(p, np.uint8).tobytes()
+        q = p.astype(np.uint16)
+        return ((q << (d - 8)) | (q >> (16 - d))).astype(order + "u2").tobytes()
+
+    def depth_of(tail: str) -> int:
+        m = re.search(r"(\d+)(le|be)$", tail)
+        return int(m.group(1)) if m else 8
+
+    if fmt.startswith("yuv"):
+        body = fmt[4:] if fmt.startswith("yuva") else fmt[3:]
+        xs, ys = {"444": (0, 0), "422": (1, 0), "420": (1, 1), "440": (0, 1),
+                  "411": (2, 0), "410": (2, 2)}[body[:3]]
+        d = depth_of(body[4:])
+        cu, cv = (_subsample(c[None], xs, ys)[0] for c in (u, v))
+        out = deep(y, d) + deep(cu, d) + deep(cv, d)
+        return out + deep(alpha, d) if fmt.startswith("yuva") else out
+    if fmt.startswith("gbr"):
+        d = depth_of(fmt)
+        out = deep(f[..., 1], d) + deep(f[..., 0], d) + deep(f[..., 2], d)
+        return out + deep(alpha, d) if fmt.startswith("gbrap") else out
+    if fmt.startswith("gray"):
+        return deep(y, depth_of(fmt), ">" if fmt.endswith("be") else "<")
+    packed = {
+        "ya8": lambda: np.stack([y, alpha], -1),
+        "ya16be": lambda: (np.stack([y, alpha], -1).astype(np.uint16) *
+                           257).astype(">u2"),
+        "bgr0": lambda: np.concatenate([f, np.zeros_like(f[..., :1])], -1),
+        "bgra": lambda: np.concatenate([f, alpha[..., None]], -1),
+        "rgba": lambda: np.concatenate([f[..., ::-1], alpha[..., None]], -1),
+        "rgb24": lambda: f[..., ::-1],
+        "rgb48be": lambda: (f[..., ::-1].astype(np.uint16) * 257 +
+                            np.arange(w)[None, :, None] % 7).astype(">u2"),
+        "rgba64be": lambda: (np.concatenate(
+            [f[..., ::-1], alpha[..., None]], -1).astype(np.uint16) *
+            257).astype(">u2")}
+    if fmt in packed:
+        return np.ascontiguousarray(packed[fmt]()).tobytes()
+    if fmt == "pal8":
+        k = np.arange(256)
+        pal = np.stack([k, 255 - k, (k * 3) % 256, 255 - k // 4], -1)
+        return (f[..., 1] // 4 * 4).astype(np.uint8).tobytes() + \
+            pal.astype(np.uint8).tobytes()             # B, G, R, A
+    raise ValueError(f"no layout for {fmt}")
+
+
 def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
                 matrices: tuple[list[int], list[int]] | None = None,
                 times: list[tuple[int, int]] | None = None,
-                **opts) -> list[bytes]:
+                info: dict | None = None, **opts) -> list[bytes]:
     """Packets of `frames` (BGR) from the system's libavcodec 59
     (`libavcodec.so.59`, `libavutil.so.57`, through ctypes): the encoder
     `encoder` ("mpeg4", ffmpeg's own, or "libxvid", which wraps
@@ -2154,7 +2327,13 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
     encoders into their sequence header); fed I420 (or I422) frames with
     pts 0, 1, ..., then flushed. → the packets in decode order (an
     encoder's headers travel in its first packet); `times`, when given,
-    gets each packet's (pts, dts) in frames."""
+    gets each packet's (pts, dts) in frames. Any other "pixel_format" is
+    fed as lavc_frame_bytes lays it out (the lossless encoders: "ffv1",
+    "utvideo", "huffyuv", "ffvhuff", "png"; "strict" -2 lets ffv1 write
+    its version 2); `info`, when given, gets the encoder's "extradata"
+    (FFV1's configuration record, HuffYUV's tables, UT Video's 16 bytes),
+    "bits" (bits_per_coded_sample, the AVI strf's bit count) and "tag"
+    (its codec_tag as a fourcc) from avcodec_parameters_from_context."""
     import ctypes
 
     av = ctypes.CDLL("libavcodec.so.59")
@@ -2172,6 +2351,11 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
             (av, "av_packet_alloc", vp, []),
             (av, "av_packet_unref", None, [vp]),
             (av, "av_packet_free", None, [vp]),
+            (av, "avcodec_parameters_alloc", vp, []),
+            (av, "avcodec_parameters_from_context", ctypes.c_int, [vp, vp]),
+            (av, "avcodec_parameters_free", None, [vp]),
+            (au, "av_image_fill_arrays", ctypes.c_int,
+             [vp, vp, vp] + [ctypes.c_int] * 4),
             (au, "av_opt_set", ctypes.c_int,
              [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
             (au, "av_frame_alloc", vp, []),
@@ -2203,13 +2387,26 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
         ctypes.c_void_p.from_address(ctx + at).value = buf
     if av.avcodec_open2(ctx, codec, None) < 0:
         raise RuntimeError(f"libavcodec: {encoder} does not open")
+    if info is not None:              # AVCodecParameters of libavcodec 59
+        par = av.avcodec_parameters_alloc()
+        av.avcodec_parameters_from_context(par, ctx)
+        size = ctypes.c_int.from_address(par + 24).value
+        info["extradata"] = ctypes.string_at(
+            ctypes.c_void_p.from_address(par + 16).value, size) if size \
+            else b""
+        info["bits"] = ctypes.c_int.from_address(par + 40).value
+        info["tag"] = struct.pack("<I", ctypes.c_uint.from_address(
+            par + 8).value)
+        av.avcodec_parameters_free(ctypes.byref(ctypes.c_void_p(par)))
     frame = au.av_frame_alloc()
     struct.pack_into("<ii", (ctypes.c_char * 8).from_address(frame + 104),
                      0, w, h)                        # width, height
     yuv422 = settings["pixel_format"] == "yuv422p"
     deep = settings["pixel_format"] == "yuv420p10le"
-    ctypes.c_int.from_address(frame + 116).value = au.av_get_pix_fmt(
-        settings["pixel_format"].encode())
+    generic = settings["pixel_format"] not in ("yuv420p", "yuv422p",
+                                               "yuv420p10le")
+    pix = au.av_get_pix_fmt(settings["pixel_format"].encode())
+    ctypes.c_int.from_address(frame + 116).value = pix
     if au.av_frame_get_buffer(frame, 0) < 0:
         raise RuntimeError("libavutil: no frame buffer")
     pkt = av.av_packet_alloc()
@@ -2225,9 +2422,34 @@ def lavc_encode(frames, encoder: str = "mpeg4", fps: int = 25,
                     "<qq", (ctypes.c_char * 16).from_address(pkt + 8)))
             av.av_packet_unref(pkt)
 
+    def feed_generic(f):
+        raw = np.frombuffer(lavc_frame_bytes(f, settings["pixel_format"]),
+                            np.uint8).copy()
+        src, lines = (ctypes.c_void_p * 4)(), (ctypes.c_int * 4)()
+        au.av_image_fill_arrays(src, lines, raw.ctypes.data, pix, w, h, 1)
+        ends = [a for a in src[1:] if a] + [raw.ctypes.data + raw.size]
+        for k in range(4):
+            if not src[k]:
+                break
+            data = ctypes.c_void_p.from_address(frame + 8 * k).value
+            stride = ctypes.c_int.from_address(frame + 64 + 4 * k).value
+            if lines[k] == 0:                    # pal8's palette
+                ctypes.memmove(data, src[k], ends[k] - src[k])
+                continue
+            for r in range((ends[k] - src[k]) // lines[k]):
+                ctypes.memmove(data + r * stride, src[k] + r * lines[k],
+                               lines[k])
+
     for i, f in enumerate(frames):
         if au.av_frame_make_writable(frame) < 0:
             raise RuntimeError("libavutil: frame not writable")
+        if generic:
+            feed_generic(f)
+            ctypes.c_int64.from_address(frame + 136).value = i   # pts
+            if av.avcodec_send_frame(ctx, frame) < 0:
+                raise RuntimeError(f"libavcodec: {encoder} refused frame {i}")
+            drain()
+            continue
         # 4:2:2: i420 of the frame with its rows doubled, whose chroma is
         # the frame's at 4:2:2.
         src = f.repeat(2, axis=0) if yuv422 else f
@@ -3992,12 +4214,140 @@ def raw_file(name: str) -> bytes:
                     extradata=RAW_PALETTE if opts.get("palette") else b"")
 
 
+def huffyuv_classic_tables() -> tuple[list[list[int]], list[list[int]]]:
+    """HuffYUV 1.x's classic tables as csrc/huffyuv_tables.h holds them
+    (libavcodec's): (code lengths, codes) of luma and chroma."""
+    import re
+
+    with open(os.path.join(os.path.dirname(FIXTURES), os.pardir,
+                           "viai_tpu_torch", "csrc", "huffyuv_tables.h")) as f:
+        text = f.read()
+    tabs = {m.group(1): [int(x) for x in re.findall(r"\d+", m.group(2))]
+            for m in re.finditer(r"const uint8_t (\w+)\[\d+\] = \{([^}]*)\}",
+                                 text)}
+    lens = []
+    for name in ("kClassicShiftLuma", "kClassicShiftChroma"):
+        bits = "".join(f"{b:08b}" for b in tabs[name])
+        out, p = [], 0
+        while len(out) < 256:
+            rep, val = int(bits[p:p + 3], 2), int(bits[p + 3:p + 8], 2)
+            p += 8
+            if rep == 0:
+                rep, p = int(bits[p:p + 8], 2), p + 8
+            out += [val] * rep
+        lens.append(out)
+    return lens, [tabs["kClassicAddLuma"], tabs["kClassicAddChroma"]]
+
+
+def _words(bits: list[str]) -> bytes:
+    """Bits, padded to 32, as little-endian words read from their top."""
+    s = "".join(bits)
+    s += "0" * (-len(s) % 32)
+    words = [int(s[k:k + 32], 2) for k in range(0, len(s), 32)]
+    return struct.pack(f"<{len(words)}I", *words)
+
+
+def classic_huffyuv(frames: np.ndarray, plane: bool,
+                    rgb: bool = False) -> list[bytes]:
+    """HuffYUV 1.x packets of BGR frames at 4:2:2 (yuv422p of
+    lavc_frame_bytes; even width, at most 288 rows): the left predictor,
+    or the plane predictor (`plane`: each row's difference from the row
+    above, left-predicted), coded with the classic tables; 32-bit words
+    little-endian, each read from its top bit. `rgb`: RGB24 instead,
+    bottom-up, left-predicted with G, B − G and R − G coded (the luma
+    table for all three)."""
+    lens, codes = huffyuv_classic_tables()
+    out = []
+    for f in frames:
+        h, w = f.shape[:2]
+        if rgb:
+            px = f[::-1].reshape(-1, 3).astype(int)      # bottom-up B, G, R
+            bits = [f"{px[0, 2]:08b}{px[0, 1]:08b}{px[0, 0]:08b}00000000"]
+            for k in range(1, len(px)):
+                db, dg, dr = ((px[k] - px[k - 1]) % 256)
+                for r in (dg, (db - dg) % 256, (dr - dg) % 256):
+                    bits.append(format(codes[0][r], f"0{lens[0][r]}b"))
+            out.append(_words(bits))
+            continue
+        raw = np.frombuffer(lavc_frame_bytes(f, "yuv422p"), np.uint8)
+        y = raw[:h * w].reshape(h, w).astype(int)
+        u = raw[h * w:h * w + h * w // 2].reshape(h, w // 2).astype(int)
+        v = raw[h * w + h * w // 2:].reshape(h, w // 2).astype(int)
+        if plane:                                 # rows less the row above
+            for p in (y, u, v):
+                p[1:] = (p[1:] - p[:-1]) % 256
+        bits = [f"{v[0, 0]:08b}{y[0, 1]:08b}{u[0, 0]:08b}{y[0, 0]:08b}"]
+        acc = {"y": y[0, 1], "u": u[0, 0], "v": v[0, 0]}
+
+        def put(key, value, table):
+            r = (int(value) - acc[key]) % 256
+            acc[key] = int(value)
+            bits.append(format(codes[table][r], f"0{lens[table][r]}b"))
+
+        for r in range(h):
+            for i in range(1 if r == 0 else 0, w // 2):
+                put("y", y[r, 2 * i], 0)
+                put("u", u[r, i], 1)
+                put("y", y[r, 2 * i + 1], 0)
+                put("v", v[r, i], 1)
+        out.append(_words(bits))
+    return out
+
+
+def lossless_file(name: str) -> bytes:
+    """A case of LOSSLESS_CASES or LOSSLESS_CLIPS muxed here."""
+    enc, fmt, opts = {**LOSSLESS_CASES, **LOSSLESS_CLIPS}[name]
+    opts = dict(opts)
+    if name in LOSSLESS_CLIPS:
+        frames = clip_frames_bgr()[:16]
+    else:
+        frames = moving_frames(sum(map(ord, name)),
+                               opts.pop("frames", LOSSLESS_FRAMES),
+                               *opts.pop("size", LOSSLESS_SIZE))
+    h, w = frames.shape[1:3]
+    tag, gradient = opts.pop("tag", None), opts.pop("gradient", False)
+    info = {"extradata": b"", "bits": opts.get("bits", 24), "tag": b""}
+    if enc == "classic":
+        packets = classic_huffyuv(frames, plane=opts["bits"] & 7 == 3,
+                                  rgb=fmt == "bgr24")
+        tag = "HFYU"
+    else:
+        packets = lavc_encode(frames, enc, info=info, pixel_format=fmt,
+                              **opts)
+        tag = tag or {"ffv1": "FFV1", "huffyuv": "HFYU",
+                      "ffvhuff": "FFVH"}.get(enc) or info["tag"].decode()
+    if gradient:                       # the frame information's prediction
+        packets = [p[:-4] + struct.pack("<I", struct.unpack(
+            "<I", p[-4:])[0] | 0x200) for p in packets]
+    bits = info["bits"] or 24
+    mux = name.rsplit("_", 1)[1]
+    if mux == "avi":
+        return avi_file(packets, w, h, 25, len(packets), tag.encode(),
+                        bits=bits, extradata=info["extradata"])
+    if enc == "ffv1":
+        return mkv_file(packets, w, h, 25, "V_FFV1",
+                        codec_private=info["extradata"])
+    bih = struct.pack("<IiiHH4sIiiII", 40 + len(info["extradata"]), w, h, 1,
+                      bits, tag.encode(), w * h * 3, 0, 0, 0, 0)
+    return mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                    codec_private=bih + info["extradata"])
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in LOSSLESS_CASES or name in LOSSLESS_CLIPS:
+        enc, kind, _ = {**LOSSLESS_CASES, **LOSSLESS_CLIPS}[name]
+        if enc == "cv2":
+            write_cv2(path, kind, 25, moving_frames(
+                sum(map(ord, name)), LOSSLESS_FRAMES, *LOSSLESS_SIZE))
+        else:
+            with open(path, "wb") as f:
+                f.write(lossless_file(name))
+        return path
     if name in RAW_CASES or name in RAW_CLIPS:
         mux, tag, container, _ = {**RAW_CASES, **RAW_CLIPS}[name]
         if mux == "cv2":
@@ -4268,7 +4618,8 @@ def main(out: str = FIXTURES, *names: str):
             continue
         frames, count = cv2_view(path)
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
-        if name == "clip_dvd_mkv" or name in RAW_CLIPS:
+        if (name == "clip_dvd_mkv" or name in RAW_CLIPS
+                or name in LOSSLESS_CASES or name in LOSSLESS_CLIPS):
             index = np.array([0, len(frames) - 1])      # the first and last
         extra = {}
         if name in CONTAINER_CASES:

@@ -55,6 +55,7 @@
 #include <vector>
 
 #include "jpeg.h"
+#include "png.h"
 #include "window.h"
 
 namespace {
@@ -1154,19 +1155,22 @@ void unfilter(uint8_t* data, int rows, int rowbytes, int bpp) {
   }
 }
 
-Rgb decode_png(const uint8_t* data, size_t n) {
+// The chunks, inflate, the row filters and Adam7 → the samples as the
+// file packs them, rows of the whole image.
+viai_png::Image parse_png(const uint8_t* data, size_t n, bool check_crc) {
+  if (n < 8 || std::memcmp(data, "\x89PNG\r\n\x1a\n", 8) != 0)
+    broken("PNG signature missing");
   size_t o = 8;
+  viai_png::Image img;
   int w = 0, h = 0, depth = 0, ctype = 0, interlace = 0;
   bool ihdr = false, iend = false;
   std::vector<uint8_t> idat;
-  uint8_t pal[256 * 3];
-  int npal = -1;
   while (o + 12 <= n) {
     uint32_t len = be32(data + o);
     if (len > n - o - 12) broken("PNG chunk runs past the file");
     const uint8_t* type = data + o + 4;
     const uint8_t* d = data + o + 8;
-    if (crc32(type, len + 4) != be32(d + len))
+    if (check_crc && crc32(type, len + 4) != be32(d + len))
       broken(std::string("PNG chunk ") + std::string((const char*)type, 4) +
              " fails its CRC");
     if (!ihdr && std::memcmp(type, "IHDR", 4) != 0)
@@ -1191,8 +1195,10 @@ Rgb decode_png(const uint8_t* data, size_t n) {
       ihdr = true;
     } else if (std::memcmp(type, "PLTE", 4) == 0) {
       if (len % 3 || len > 768) broken("PNG palette has a bad length");
-      npal = int(len / 3);
-      std::memcpy(pal, d, len);
+      img.npal = int(len / 3);
+      std::memcpy(img.pal, d, len);
+    } else if (std::memcmp(type, "tRNS", 4) == 0) {
+      img.trns.assign(d, d + len);
     } else if (std::memcmp(type, "IDAT", 4) == 0) {
       idat.insert(idat.end(), d, d + len);
     } else if (std::memcmp(type, "IEND", 4) == 0) {
@@ -1202,7 +1208,6 @@ Rgb decode_png(const uint8_t* data, size_t n) {
     o += 12 + len;
   }
   if (!ihdr || !iend) broken("PNG ends before IEND");
-  if (ctype == 3 && npal < 0) broken("PNG palette missing");
   int channels = ctype == 0 || ctype == 3 ? 1 : ctype == 4 ? 2
                  : ctype == 2 ? 3 : 4;
   int bitspp = channels * depth;
@@ -1228,49 +1233,87 @@ Rgb decode_png(const uint8_t* data, size_t n) {
     passes.push_back(ps);
   }
   std::vector<uint8_t> raw = inflate_zlib(idat, size_t(want));
-  auto lookup = [&](uint8_t* op, int s) {   // past the palette: black
-    for (int c = 0; c < 3; ++c) op[c] = s < npal ? pal[3 * s + c] : 0;
-  };
-  Rgb img;
   img.w = w;
   img.h = h;
-  img.px.resize(int64_t(w) * h * 3);
+  img.depth = depth;
+  img.ctype = ctype;
+  img.interlaced = interlace != 0;
+  img.rowbytes = (int64_t(w) * bitspp + 7) / 8;
+  img.rows.assign(size_t(img.rowbytes * h), 0);
   for (const Pass& ps : passes) {
     if (!ps.pw || !ps.ph) continue;
     uint8_t* block = raw.data() + ps.off;
     unfilter(block, ps.ph, int(ps.rowbytes), bpp);
     for (int y = 0; y < ps.ph; ++y) {
       const uint8_t* r = block + int64_t(y) * (ps.rowbytes + 1) + 1;
-      uint8_t* orow = &img.px[int64_t(ps.y0 + y * ps.dy) * w * 3];
+      uint8_t* orow = &img.rows[size_t(int64_t(ps.y0 + y * ps.dy) *
+                                       img.rowbytes)];
+      if (!interlace) {
+        std::memcpy(orow, r, size_t(ps.rowbytes));
+        continue;
+      }
       for (int x = 0; x < ps.pw; ++x) {
-        uint8_t* op = orow + int64_t(ps.x0 + x * ps.dx) * 3;
+        const int64_t ox = ps.x0 + int64_t(x) * ps.dx;
         if (depth < 8) {
-          int64_t bit = int64_t(x) * depth;
-          int s = (r[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
-          if (ctype == 3) {
-            lookup(op, s);
-          } else {
-            int scale = depth == 1 ? 255 : depth == 2 ? 0x55 : 0x11;
-            op[0] = op[1] = op[2] = uint8_t(s * scale);
-          }
-          continue;
+          const int64_t sb = int64_t(x) * depth, db = ox * depth;
+          const int s = (r[sb >> 3] >> (8 - depth - (sb & 7))) &
+                        ((1 << depth) - 1);
+          orow[db >> 3] = uint8_t(orow[db >> 3] |
+                                  (s << (8 - depth - (db & 7))));
+        } else {
+          std::memcpy(orow + ox * (bitspp / 8), r + int64_t(x) * (bitspp / 8),
+                      size_t(bitspp / 8));
         }
-        const uint8_t* sp = r + int64_t(x) * channels * (depth / 8);
-        int step = depth / 8;                          // high byte first
-        switch (ctype) {
-          case 0:
-            op[0] = op[1] = op[2] =
-                depth == 8 ? sp[0] : uint8_t(sp[0] ? 255 : sp[1]);
-            break;
-          case 3:
-            lookup(op, sp[0]);
-            break;
-          case 4:
-            op[0] = op[1] = op[2] = sp[0];
-            break;
-          default:                                     // 2 and 6
-            op[0] = sp[0]; op[1] = sp[step]; op[2] = sp[2 * step];
+      }
+    }
+  }
+  return img;
+}
+
+Rgb decode_png(const uint8_t* data, size_t n) {
+  const viai_png::Image png = parse_png(data, n, true);
+  const int w = png.w, h = png.h, depth = png.depth, ctype = png.ctype;
+  if (ctype == 3 && png.npal < 0) broken("PNG palette missing");
+  const int channels = ctype == 0 || ctype == 3 ? 1 : ctype == 4 ? 2
+                       : ctype == 2 ? 3 : 4;
+  auto lookup = [&](uint8_t* op, int s) {   // past the palette: black
+    for (int c = 0; c < 3; ++c) op[c] = s < png.npal ? png.pal[3 * s + c] : 0;
+  };
+  Rgb img;
+  img.w = w;
+  img.h = h;
+  img.px.resize(int64_t(w) * h * 3);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* r = &png.rows[size_t(int64_t(y) * png.rowbytes)];
+    uint8_t* orow = &img.px[int64_t(y) * w * 3];
+    for (int x = 0; x < w; ++x) {
+      uint8_t* op = orow + int64_t(x) * 3;
+      if (depth < 8) {
+        int64_t bit = int64_t(x) * depth;
+        int s = (r[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
+        if (ctype == 3) {
+          lookup(op, s);
+        } else {
+          int scale = depth == 1 ? 255 : depth == 2 ? 0x55 : 0x11;
+          op[0] = op[1] = op[2] = uint8_t(s * scale);
         }
+        continue;
+      }
+      const uint8_t* sp = r + int64_t(x) * channels * (depth / 8);
+      int step = depth / 8;                            // high byte first
+      switch (ctype) {
+        case 0:
+          op[0] = op[1] = op[2] =
+              depth == 8 ? sp[0] : uint8_t(sp[0] ? 255 : sp[1]);
+          break;
+        case 3:
+          lookup(op, sp[0]);
+          break;
+        case 4:
+          op[0] = op[1] = op[2] = sp[0];
+          break;
+        default:                                       // 2 and 6
+          op[0] = sp[0]; op[1] = sp[step]; op[2] = sp[2 * step];
       }
     }
   }
@@ -1453,6 +1496,18 @@ Coefficients decode_coefficients(const uint8_t* data, size_t n,
 }
 
 }  // namespace viai_jpeg
+
+namespace viai_png {
+
+Image parse(const uint8_t* data, size_t n, bool check_crc) {
+  try {
+    return parse_png(data, n, check_crc);
+  } catch (const DecodeError& e) {
+    throw Error{e.code, e.msg};
+  }
+}
+
+}  // namespace viai_png
 
 extern "C" {
 

@@ -1,8 +1,10 @@
 // Shared by videodec.cpp (containers, MJPEG, the frame path),
 // mpeg4.cpp (the MPEG-4 Part 2 decoder), mpeg12.cpp (the MPEG-1/2
 // decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder),
-// h264.cpp (the H.264 decoder), hevc.cpp (the HEVC decoder) and
-// rawvideo.cpp (uncompressed video).
+// h264.cpp (the H.264 decoder), hevc.cpp (the HEVC decoder),
+// rawvideo.cpp (uncompressed video), ffv1.cpp (FFV1), utvideo.cpp (UT
+// Video), huffyuv.cpp (HuffYUV and FFVHuff) and imagedec.cpp (PNG in
+// AVI and Matroska).
 #pragma once
 
 #include <cstddef>
@@ -36,8 +38,13 @@ struct Picture {
   int ystride = 0, cstride = 0;
   std::vector<uint8_t> y, u, v;
   // Above 8 bits (H.264's High 10, High 4:2:2 and High 4:4:4 Predictive
-  // at 9, 10, 12 or 14 bits, VP9's profiles 2 and 3 at 10 or 12): the
-  // samples are in y16, u16, v16 (y, u, v empty), strides in samples.
+  // at 9, 10, 12 or 14 bits, VP9's profiles 2 and 3 at 10 or 12, the
+  // lossless codecs' 9 to 16): the samples are in y16, u16, v16 (y, u, v
+  // empty), strides in samples. Chroma shifts run to 2 (4:1:1, 4:1:0).
+  // The lossless decoders hand over alpha dropped (swscale drops it on
+  // the way to BGR24), grey above 8 bits and grey with alpha as
+  // full-range 4:4:4 with mid chroma (what cv2's swscale makes of them)
+  // and 16-bit packed RGB as planar G, B, R.
   int depth = 8;
   std::vector<uint16_t> y16, u16, v16;
   int xshift = 1, yshift = 1;
@@ -307,5 +314,66 @@ class RawDecoder {
   struct State;
   std::unique_ptr<State> s_;
 };
+
+// The lossless intra codecs: each packet one picture, none held back.
+// FFV1's non-key frames keep the context states of the frame before
+// them, so its decode of a packet needs every packet from the key frame
+// before it.
+
+// libavcodec's ffv1 decoder, versions 0 to 3 (see ffv1.cpp).
+class Ffv1Decoder {
+ public:
+  // `extradata`: the configuration record (versions 2 and 3; empty for 0
+  // and 1); w, h: the container's picture size; `where` names the
+  // container in messages.
+  Ffv1Decoder(const std::vector<uint8_t>& extradata, int w, int h,
+              const std::string& where);
+  ~Ffv1Decoder();
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // 0 for a key frame's packet, 1 another.
+  static int peek(const uint8_t* data, size_t n);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's utvideo decoder for the classic 8-bit layouts (see
+// utvideo.cpp).
+class UtVideoDecoder {
+ public:
+  // `tag`: the fourcc (ULRG, ULRA, ULY0, ULY2, ULY4, ULH0, ULH2, ULH4);
+  // `extradata`: the 16 bytes after the BITMAPINFOHEADER.
+  UtVideoDecoder(const std::string& tag, const std::vector<uint8_t>& extradata,
+                 int w, int h);
+  ~UtVideoDecoder();
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // Whether libavcodec's decoder takes the fourcc (its 8-bit layouts).
+  static bool reads(const std::string& tag);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's huffyuv and ffvhuff decoders (see huffyuv.cpp).
+class HuffyuvDecoder {
+ public:
+  // `bits`: the strf's bit count (the layout of a stream without
+  // extradata); `extradata`: the tables of version 2 and FFVHuff.
+  HuffyuvDecoder(int bits, const std::vector<uint8_t>& extradata, int w,
+                 int h);
+  ~HuffyuvDecoder();
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// One PNG image of a video packet (libavcodec's png decoder: MPNG, PNG1,
+// "png ") → the picture as libavcodec gives it and swscale converts it
+// (see imagedec.cpp).
+void decode_png_picture(const uint8_t* data, size_t n, Picture& out);
 
 }  // namespace viai_video

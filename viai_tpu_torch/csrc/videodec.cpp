@@ -2,7 +2,9 @@
 // decoder and the frame path of `viai_tpu/data/av.py::_load_frames_video`
 // (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
 // mpeg12.cpp MPEG-1/2, vp8.cpp VP8, vp9.cpp VP9, h264.cpp H.264,
-// hevc.cpp HEVC, rawvideo.cpp uncompressed video).
+// hevc.cpp HEVC, rawvideo.cpp uncompressed video, ffv1.cpp FFV1,
+// utvideo.cpp UT Video, huffyuv.cpp HuffYUV and FFVHuff; PNG pictures
+// through imagedec.cpp's reader, png.h).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -26,7 +28,10 @@
 //     hvcC CodecPrivate, and Annex B in AVI under HEVC or H265;
 //     uncompressed video by its fourcc: an AVI's strf compression, bit
 //     count, height sign and colour table, a Matroska V_UNCOMPRESSED
-//     track's ColourSpace).
+//     track's ColourSpace; the lossless codecs by their fourcc, an AVI
+//     strf's tail or a Matroska V_MS/VFW/FOURCC CodecPrivate after its
+//     BITMAPINFOHEADER as their extradata, V_FFV1 with its configuration
+//     record).
 //     Each gives the track's packets in decode order, byte for byte as
 //     libavformat gives them (H.264 and HEVC in MP4 and Matroska before
 //     cv2's h264_mp4toannexb and hevc_mp4toannexb), the frame count
@@ -64,7 +69,9 @@
 //     frame is a packet that gives a picture: every MJPEG packet, an
 //     MPEG-4 packet with a coded VOP, a VP8 packet whose frame tag has
 //     show_frame set, a VP9 packet one of whose frames is shown, an
-//     uncompressed packet before the first one libavcodec refuses; H.264
+//     uncompressed packet before the first one libavcodec refuses, every
+//     FFV1, UT Video, HuffYUV and PNG packet (FFV1 decoded from the key
+//     frame before the first pick: its context states carry over); H.264
 //     frames count in the decoder's output order.
 //
 // Errors: a broken file gives code 1 (ValueError), a codec, container or
@@ -76,10 +83,12 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <initializer_list>
 #include <string>
 #include <vector>
 
 #include "jpeg.h"
+#include "png.h"
 #include "video.h"
 #include "window.h"
 
@@ -135,7 +144,8 @@ std::vector<uint8_t> read_file(const std::string& path) {
 // =====================================================================
 
 enum class Codec {
-  kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kHevc, kOther
+  kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kHevc, kFfv1, kUtvideo,
+  kHuffyuv, kPng, kOther
 };
 
 struct Packet {
@@ -166,7 +176,10 @@ struct Track {
   // compression, 0 for BI_RGB; a Matroska track's ColourSpace, which
   // `raw_tagged` says it has), strf's bit count, whether a BI_RGB DIB is
   // bottom-up (a positive height) and strf's extradata as libavformat
-  // takes it (the chunk after its first 40 bytes: pal8's colour table).
+  // takes it (the chunk after its first 40 bytes: pal8's colour table;
+  // FFV1's configuration record, HuffYUV's tables, UT Video's 16 bytes;
+  // a Matroska V_MS/VFW/FOURCC CodecPrivate after its 40 bytes, a V_FFV1
+  // CodecPrivate whole).
   uint32_t raw_tag = 0;
   bool raw_tagged = false;
   int bits = 0;
@@ -230,6 +243,18 @@ Codec riff_codec(const std::string& tag) {
   if (u == "H264" || u == "X264" || u == "AVC1" || u == "DAVC")
     return Codec::kH264;
   if (u == "HEVC" || u == "H265") return Codec::kHevc;
+  // The lossless intra codecs (ff_codec_bmp_tags): FFV1, HuffYUV and
+  // FFVHuff, UT Video (its 10-bit UQ** and pack-mode UM** tags too, which
+  // the decoder raises for by name), PNG.
+  if (u == "FFV1") return Codec::kFfv1;
+  if (u == "HFYU" || u == "FFVH") return Codec::kHuffyuv;
+  static const char* kUt[] = {"ULRA", "ULRG", "ULY0", "ULY2", "ULY4",
+                              "ULH0", "ULH2", "ULH4", "UQY0", "UQY2",
+                              "UQRA", "UQRG", "UMY2", "UMH2", "UMY4",
+                              "UMH4", "UMRG", "UMRA"};
+  for (const char* t : kUt)
+    if (u == t) return Codec::kUtvideo;
+  if (u == "MPNG" || u == "PNG1" || u == "PNG ") return Codec::kPng;
   // MPEG-1 and MPEG-2 video (libavformat's ff_codec_bmp_tags; VCR2 and
   // SLIF, which libavcodec decodes with their own quirks, are not read).
   static const char* kMpeg12[] = {"MPG1", "MPG2", "MPEG", "PIM1", "PIM2",
@@ -1622,6 +1647,13 @@ void demux_mkv(Track& t) {
               t.tag = codec + " " + fourcc_str(le32(&priv[16]));
               t.codec = riff_codec(fourcc_str(le32(&priv[16])));
               t.config.assign(priv.begin() + 40, priv.end());
+              // libavformat's ff_get_bmp_header: the bit count, the rest
+              // the extradata.
+              t.bits = priv[14] | (priv[15] << 8);
+              t.extradata = t.config;
+            } else if (codec == "V_FFV1") {
+              t.codec = Codec::kFfv1;
+              t.extradata = priv;
             }
           }
         }
@@ -2277,9 +2309,9 @@ int64_t step(int src_n, int dst_n) {
   return ((int64_t(src_n) << 16) + (dst_n >> 1)) / dst_n;
 }
 
-// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 to 14 bits in
-// uint16_t; `depth` 0: the 14-bit lines of planar RGB input) of a plane's
-// rows → (rows, dst_n) 15-bit samples.
+// hScale8To15 (8-bit samples) or hScale16To15 (`depth` 9 to 16 bits in
+// uint16_t; `depth` 0: the 14-bit lines of planar RGB input below 16
+// bits) of a plane's rows → (rows, dst_n) 15-bit samples.
 template <class T>
 std::vector<int> hscale(const T* src, int stride, int rows, const Filter& f,
                         int dst_n, int depth) {
@@ -2427,11 +2459,12 @@ std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
   if (p.rgb) {
     // Planar G, B, R (planar_rgb_to_y/uv, planar_rgb16_to_y/uv above 8
     // bits): 14-bit Y, U, V lines of limited range, scaled as 14-bit
-    // input (swscale takes RGB input as 16-bit).
+    // input (swscale takes RGB input as 16-bit); at 16 bits 16-bit lines
+    // scaled as such.
     const Rgb2Yuv t = rgb2yuv(p.matrix);
-    const int d = p.depth, sh = 1 + d;
-    const int yoff = (16 << (7 + d)) + (1 << d);
-    const int coff = (128 << (7 + d)) + (1 << d);
+    const int d = p.depth, shift = d < 16 ? d : 14, sh = 1 + shift;
+    const int64_t yoff = (int64_t(16) << (7 + d)) + (1 << shift);
+    const int64_t coff = (int64_t(128) << (7 + d)) + (1 << shift);
     std::vector<uint16_t> yi(size_t(w) * h), ui(yi.size()), vi(yi.size());
     for (int y = 0; y < h; ++y)
       for (int x = 0; x < w; ++x) {
@@ -2439,19 +2472,25 @@ std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
         const int b = pu[size_t(y) * p.cstride + x];
         const int r = pv[size_t(y) * p.cstride + x];
         const size_t i = size_t(y) * w + x;
-        yi[i] = uint16_t((t.ry * r + t.gy * g + t.by * b + yoff) >> sh);
-        ui[i] = uint16_t((t.ru * r + t.gu * g + t.bu * b + coff) >> sh);
-        vi[i] = uint16_t((t.rv * r + t.gv * g + t.bv * b + coff) >> sh);
+        yi[i] = uint16_t((int64_t(t.ry) * r + int64_t(t.gy) * g +
+                          int64_t(t.by) * b + yoff) >> sh);
+        ui[i] = uint16_t((int64_t(t.ru) * r + int64_t(t.gu) * g +
+                          int64_t(t.bu) * b + coff) >> sh);
+        vi[i] = uint16_t((int64_t(t.rv) * r + int64_t(t.gv) * g +
+                          int64_t(t.bv) * b + coff) >> sh);
       }
-    Y = hscale(yi.data(), w, h, lh, dw, 0);
-    U = hscale(ui.data(), w, h, hf, cdw, 0);
-    V = hscale(vi.data(), w, h, hf, cdw, 0);
+    const int line = d < 16 ? 0 : 16;
+    Y = hscale(yi.data(), w, h, lh, dw, line);
+    U = hscale(ui.data(), w, h, hf, cdw, line);
+    V = hscale(vi.data(), w, h, hf, cdw, line);
   } else {
     if (w == dw) {                 // one tap: the samples shifted up
       Y.resize(size_t(h) * w);
       for (int y = 0; y < h; ++y)
         for (int x = 0; x < w; ++x)
-          Y[size_t(y) * w + x] = int(py[size_t(y) * p.ystride + x]) << lsh;
+          Y[size_t(y) * w + x] = lsh >= 0
+                                     ? int(py[size_t(y) * p.ystride + x]) << lsh
+                                     : int(py[size_t(y) * p.ystride + x]) >> -lsh;
     } else {
       Y = hscale(py, p.ystride, h, lh, dw, p.depth);
     }
@@ -2758,6 +2797,34 @@ class Decoder {
       h264_->set_delay(probe_delay(t));
     }
     if (t.codec == Codec::kHevc) hevc_.reset(new HevcDecoder(t.config));
+    if (t.codec == Codec::kFfv1)
+      ffv1_.reset(new Ffv1Decoder(t.extradata, t.width, t.height,
+                                  t.container));
+    if (t.codec == Codec::kUtvideo) {
+      const std::string tag = fourcc_of(t);
+      if (!UtVideoDecoder::reads(tag))
+        unsupported(t.container + " video coded as '" + t.tag + "' (" +
+                    codec_name(tag) + ")");
+      ut_.reset(new UtVideoDecoder(tag, t.extradata, t.width, t.height));
+    }
+    if (t.codec == Codec::kHuffyuv)
+      huffyuv_.reset(
+          new HuffyuvDecoder(t.bits, t.extradata, t.width, t.height));
+  }
+
+  // The fourcc of an AVI track or a Matroska V_MS/VFW/FOURCC one.
+  static std::string fourcc_of(const Track& t) {
+    const std::string vfw = "V_MS/VFW/FOURCC ";
+    return t.tag.compare(0, vfw.size(), vfw) == 0 ? t.tag.substr(vfw.size())
+                                                  : t.tag;
+  }
+
+  // Whether each packet is one picture decoded on its own (MJPEG,
+  // uncompressed video, UT Video, HuffYUV, PNG; FFV1's key frames only).
+  bool intra() const {
+    return t_.codec == Codec::kMjpeg || t_.codec == Codec::kRaw ||
+           t_.codec == Codec::kUtvideo || t_.codec == Codec::kHuffyuv ||
+           t_.codec == Codec::kPng;
   }
 
   // The reorder depth libavformat's avformat_find_stream_info leaves in
@@ -2795,6 +2862,14 @@ class Decoder {
       return true;
     }
     if (raw_) return raw_->decode(d, p.size, out);
+    if (ffv1_ || ut_ || huffyuv_ || t_.codec == Codec::kPng) {
+      if (ffv1_) ffv1_->decode(d, p.size, out);
+      if (ut_) ut_->decode(d, p.size, out);
+      if (huffyuv_) huffyuv_->decode(d, p.size, out);
+      if (t_.codec == Codec::kPng) decode_png_picture(d, p.size, out);
+      out.source = int64_t(calls_.size()) - 1;
+      return true;
+    }
     if (vp8_) return vp8_->decode(d, p.size, out);
     if (vp9_) return vp9_->decode(d, p.size, out);
     if (h264_) return h264_->decode(d, p.size, out);
@@ -2853,6 +2928,29 @@ class Decoder {
     if (has("FFV1")) return "FFV1, not read";
     if (u == "VCR2" || u == "SLIF")
       return "an MPEG-1/2 variant with its own quirks, not read";
+    auto in = [&](std::initializer_list<const char*> tags) {
+      for (const char* t : tags)
+        if (u == t) return true;
+      return false;
+    };
+    if (in({"MAGY", "M8RG", "M8RA", "M8G0", "M8Y0", "M8Y2", "M8Y4", "M8YA",
+            "M0RA", "M0RG", "M0G0", "M0Y0", "M0Y2", "M0Y4", "M2RA", "M2RG"}))
+      return "MagicYUV, not read";
+    if (in({"UQY0", "UQY2", "UQRA", "UQRG"}))
+      return "UT Video 10-bit (UQ**), not read";
+    if (in({"UMY2", "UMH2", "UMY4", "UMH4", "UMRG", "UMRA"}))
+      return "UT Video pack mode (UM**), not read";
+    if (in({"MPG4", "MP41", "DIV1"})) return "MS-MPEG4 v1, not read";
+    if (in({"MP42", "DIV2"})) return "MS-MPEG4 v2, not read";
+    if (in({"MP43", "DIV3", "MPG3", "DIV4", "DIV5", "DIV6", "AP41", "COL1",
+            "COL0"}))
+      return "MS-MPEG4 v3, not read";
+    if (in({"WMV1", "WMV2"})) return "WMV7/8 (" + u + "), not read";
+    if (u == "FLV1") return "Sorenson H.263 (FLV1), not read";
+    if (in({"MJ2C", "MJP2", "LJ2C", "LJ2K", "IPJ2", "AVJ2"}))
+      return "JPEG 2000, not read";
+    if (u == "SNOW") return "Snow, not read";
+    if (in({"ASV1", "ASV2"})) return "ASUS " + u + ", not read";
     return "a codec that is not read";
   }
 
@@ -2866,6 +2964,9 @@ class Decoder {
   std::unique_ptr<HevcDecoder> hevc_;
   std::unique_ptr<Mpeg12Decoder> mpeg12_;
   std::unique_ptr<RawDecoder> raw_;
+  std::unique_ptr<Ffv1Decoder> ffv1_;
+  std::unique_ptr<UtVideoDecoder> ut_;
+  std::unique_ptr<HuffyuvDecoder> huffyuv_;
 };
 
 // A JPEG's frame size, from its SOF segment; false without one.
@@ -2944,6 +3045,12 @@ void first_size(const Track& t, int& w, int& h) {
         q.picture_size(w, h);
         break;
       }
+      case Codec::kPng:                   // IHDR's size
+        if (p.size >= 24 && std::memcmp(d + 12, "IHDR", 4) == 0) {
+          w = int(std::min<uint32_t>(be32(d + 16), 0x7FFFFFFF));
+          h = int(std::min<uint32_t>(be32(d + 20), 0x7FFFFFFF));
+        }
+        break;
       default:
         break;
     }
@@ -3005,6 +3112,118 @@ size_t hevc_start(const Track& t, int64_t pick, int64_t& first) {
 
 }  // namespace
 
+// libavcodec's png decoder's picture, as swscale converts it: rgb24 and
+// rgba (tRNS or not), pal8 (indices past the palette black; alpha
+// dropped) and 1/2/4-bit palette indices as BGR24; gray8 (2 and 4-bit
+// grey scaled up, as handle_small_bpp does) as grey; ya8 (grey with
+// alpha or tRNS) as full-range 4:4:4 with mid chroma, as cv2's swscale
+// converts it; rgb48be and rgba64be as 16-bit planar RGB, gray16be and
+// ya16be as full-range 16-bit 4:4:4 with mid chroma (the same bytes
+// through swscale).
+void decode_png_picture(const uint8_t* data, size_t n, Picture& out) {
+  viai_png::Image png;
+  try {
+    png = viai_png::parse(data, n, false);
+  } catch (const viai_png::Error& e) {
+    throw Error{e.code, e.msg};
+  }
+  if (png.interlaced)
+    unsupported("PNG interlaced (Adam7): libavcodec marks the frame "
+                "interlaced and cv2's swscale converts no such frame");
+  const int w = png.w, h = png.h, d = png.depth, ct = png.ctype;
+  const bool trns = !png.trns.empty();
+  out = Picture();
+  out.w = w;
+  out.h = h;
+  out.ystride = w;
+  const size_t np = size_t(w) * h;
+  auto row = [&](int y) { return &png.rows[size_t(int64_t(y) * png.rowbytes)]; };
+  auto sample = [&](const uint8_t* r, int x) {      // depths below 8
+    const int64_t bit = int64_t(x) * d;
+    return (r[bit >> 3] >> (8 - d - (bit & 7))) & ((1 << d) - 1);
+  };
+  if (ct == 3) {
+    if (png.npal < 0) broken("PNG palette missing");
+    out.bgr.resize(np * 3);
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const int s = d == 8 ? row(y)[x] : sample(row(y), x);
+        uint8_t* o = &out.bgr[(size_t(y) * w + x) * 3];
+        for (int c = 0; c < 3; ++c)
+          o[2 - c] = s < png.npal ? png.pal[3 * s + c] : 0;
+      }
+    return;
+  }
+  if ((ct == 2 || ct == 6) && d == 8) {
+    const int ch = ct == 2 ? 3 : 4;
+    out.bgr.resize(np * 3);
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const uint8_t* s = row(y) + size_t(x) * ch;
+        uint8_t* o = &out.bgr[(size_t(y) * w + x) * 3];
+        o[0] = s[2];
+        o[1] = s[1];
+        o[2] = s[0];
+      }
+    return;
+  }
+  if (d == 16) {
+    const int ch = ct == 0 ? 1 : ct == 4 ? 2 : ct == 2 ? 3 : 4;
+    auto be = [&](int y, int x, int c) {
+      const uint8_t* s = row(y) + (size_t(x) * ch + size_t(c)) * 2;
+      return uint16_t((s[0] << 8) | s[1]);
+    };
+    out.depth = 16;
+    out.xshift = out.yshift = 0;
+    out.cstride = w;
+    out.y16.resize(np);
+    out.u16.resize(np);
+    out.v16.resize(np);
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const size_t i = size_t(y) * w + x;
+        if (ct == 0 || ct == 4) {
+          out.y16[i] = be(y, x, 0);
+          out.u16[i] = out.v16[i] = 0x8000;
+        } else {
+          out.y16[i] = be(y, x, 1);            // G, B, R
+          out.u16[i] = be(y, x, 2);
+          out.v16[i] = be(y, x, 0);
+        }
+      }
+    out.rgb = ct == 2 || ct == 6;
+    out.full_range = !out.rgb;          // cv2 converts grey at full range
+    return;
+  }
+  // grey at 8 bits and below, grey with alpha at 8
+  if (ct == 0 && d == 1)
+    unsupported("1-bit grey PNG (libavcodec's monoblack)");
+  if (ct == 0 && d < 8 && trns)
+    unsupported("PNG grey below 8 bits with tRNS");
+  std::vector<uint8_t> Y(np);
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x) {
+      const size_t i = size_t(y) * w + x;
+      if (ct == 4)
+        Y[i] = row(y)[size_t(x) * 2];
+      else if (d == 8)
+        Y[i] = row(y)[x];
+      else
+        Y[i] = uint8_t(sample(row(y), x) * (d == 2 ? 0x55 : 0x11));
+    }
+  if (ct == 0 && !trns) {
+    out.grey = true;
+    out.y = std::move(Y);
+    return;
+  }
+  out.xshift = out.yshift = 0;
+  out.cstride = w;
+  out.full_range = true;
+  out.y = std::move(Y);
+  out.u.assign(np, 128);
+  out.v.assign(np, 128);
+}
+
 }  // namespace viai_video
 
 // =====================================================================
@@ -3052,7 +3271,8 @@ void viai_video_close(void* h) { delete static_cast<Handle*>(h); }
 // info = (width, height (the first picture's, as cv2 reports them),
 // cv2's frame count, packets, config bytes,
 // codec: 0 MJPEG, 1 MPEG-4 Part 2, 2 VP8, 3 VP9, 4 H.264, 5 MPEG-1/2,
-// 6 uncompressed, 7 HEVC, 8 another,
+// 6 uncompressed, 7 HEVC, 8 FFV1, 9 UT Video, 10 HuffYUV/FFVHuff, 11 PNG,
+// 12 another,
 // cv2's orientation, an AVI strf's bit count); tag and container names.
 void viai_video_info(void* hp, int64_t* info, char* tag, char* container,
                      int32_t len) {
@@ -3157,8 +3377,8 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
                         int32_t rgb, uint8_t* out, char* err,
                         int32_t errlen) {
   try {
-    if (w < 1 || h < 1 || xshift < 0 || xshift > 1 || yshift < 0 || yshift > 1 ||
-        depth < 8 || depth > 14)
+    if (w < 1 || h < 1 || xshift < 0 || xshift > 2 || yshift < 0 || yshift > 2 ||
+        depth < 8 || depth > 16)
       viai_video::broken("a picture layout to_bgr does not convert");
     Picture p;
     p.w = w;
@@ -3241,7 +3461,9 @@ int32_t viai_raw_to_bgr(const uint8_t* data, int64_t n, uint32_t tag,
 // resized as cv2.resize at INTER_LINEAR on
 // BGR, flipped to RGB, / 255;
 // then re-picked by the window rule over (0, 1) when their number is
-// not n_frames. MJPEG decodes only the picked packets; MPEG-4 from the
+// not n_frames. MJPEG, uncompressed video, UT Video, HuffYUV and PNG
+// decode only the picked packets, FFV1 from the key frame at or before
+// the first pick (its context states carry over); MPEG-4 from the
 // last I-VOP at or before the first pick to the last pick, VP8 and VP9
 // from the last shown keyframe at or before it, H.264 (whose frames count
 // in output order) from the last IDR picture at or before it until the
@@ -3401,6 +3623,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
         if (t.codec == viai_video::Codec::kVp9)
           vop[i] = viai_video::Vp9Decoder::peek(&t.file[p.off], p.size,
                                                &shows[i]);
+        if (t.codec == viai_video::Codec::kFfv1)
+          vop[i] = viai_video::Ffv1Decoder::peek(&t.file[p.off], p.size);
         if (vop[i] >= 0 && !p.discard) {
           frame_of[i] = frames;
           frames += shows[i];
@@ -3421,15 +3645,13 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       }
       if (!any) viai_video::broken("no frames decoded");
       size_t start = first;
-      if (t.codec != viai_video::Codec::kMjpeg)
+      if (!dec.intra())
         while (start > 0 && vop[start] != 0) --start;
       // Headers (an in-band VOL) may precede that I-VOP.
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       for (size_t i = start; i <= last; ++i) {
         bool picked = picked_in(i);
-        if ((t.codec == viai_video::Codec::kMjpeg ||
-             t.codec == viai_video::Codec::kRaw) && !picked)
-          continue;
+        if (dec.intra() && !picked) continue;
         if (!dec.decode(i, pic) || !picked) continue;
         int64_t f = frame_of[i];
         do {

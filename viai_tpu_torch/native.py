@@ -1,7 +1,8 @@
 """ctypes bindings of the port's native host library (csrc/wavio.cpp,
 csrc/framestack.cpp, csrc/imagedec.cpp, csrc/videodec.cpp,
 csrc/mpeg4.cpp, csrc/mpeg12.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
-csrc/h264.cpp, csrc/hevc.cpp, csrc/rawvideo.cpp).
+csrc/h264.cpp, csrc/hevc.cpp, csrc/rawvideo.cpp, csrc/ffv1.cpp,
+csrc/utvideo.cpp, csrc/huffyuv.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
@@ -10,8 +11,9 @@ the threaded random-crop clip loader; where the JAX package calls PIL,
 the JPEG and PNG decoder (`decode_image`) and the frame-directory reader
 (`load_frame_dir`), whose plain twin is `data/image.py`; and where it
 calls cv2, the compressed video reader: the demuxers (`video_track`),
-the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.264 and HEVC decoders and
-libavcodec's rawvideo and v210 decoders for uncompressed video, with
+the MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.264 and HEVC decoders,
+libavcodec's rawvideo and v210 decoders for uncompressed video and its
+lossless FFV1, UT Video, HuffYUV/FFVHuff and PNG decoders, with
 swscale's conversion to BGR and cv2's turn by the display orientation
 (`decode_video`, `raw_to_bgr`) and the frame path
 of `_load_frames_video` (`load_video_frames`).
@@ -235,9 +237,10 @@ def load_frame_dir(path: str, n_frames: int, size: int,
 
 
 # videodec.cpp's codecs (VideoTrack.codec): "raw" is uncompressed video
-# (csrc/rawvideo.cpp).
+# (csrc/rawvideo.cpp); "ffv1", "utvideo", "huffyuv" (HuffYUV and FFVHuff)
+# and "png" the lossless codecs.
 VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw",
-                "hevc", "other")
+                "hevc", "ffv1", "utvideo", "huffyuv", "png", "other")
 
 
 @dataclasses.dataclass
@@ -245,8 +248,8 @@ class VideoTrack:
     """A video file's first video track as the port's demuxer gives it:
     the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
-    ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw", "hevc" or
-    "other"), the
+    ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw", "hevc",
+    "ffv1", "utvideo", "huffyuv", "png" or "other"), the
     size of its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT
     report it
     (from the first packet's headers; the container's when they give
@@ -409,7 +412,8 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     reader converts them (swscale's routes to BGR24, as cv2 runs them):
     `y` (h, w), `u` and `v` (h >> yshift, w >> xshift, rounded up) for
     `shift` = (xshift, yshift): (1, 1) 4:2:0, (1, 0) 4:2:2, (0, 0) 4:4:4,
-    (0, 1) 4:4:0; uint8 at depth 8, uint16 holding 9 to 14-bit samples;
+    (0, 1) 4:4:0, (2, 0) 4:1:1, (2, 2) 4:1:0; uint8 at depth 8, uint16
+    holding 9 to 16-bit samples;
     limited range unless `full_range`; `matrix` swscale's colour space (5
     BT.601, 1 BT.709, 9 BT.2020); `chroma_loc` the frame's
     AVChromaLocation (0 unspecified, 1 left as H.264's frames, 2 centre,
@@ -422,7 +426,7 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     xs, ys = shift
     kind = np.uint8 if depth == 8 else np.uint16
     planes = [np.ascontiguousarray(p, kind) for p in (y, u, v)]
-    if u.shape != v.shape or u.shape != ((h + ys) >> ys, (w + xs) >> xs):
+    if u.shape != v.shape or u.shape != (-(-h >> ys), -(-w >> xs)):
         raise ValueError("chroma planes of another size than the layout's")
     out = np.empty((dh, dw, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
