@@ -111,8 +111,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      AVI, H.264 under a trimming MP4 edit) and once from MPEG-4 Advanced
      Simple Profile files (XviD in AVI: packed B-VOPs, quarter-pel, 4MV,
      GMC; libavcodec's mpeg4 in MP4: B-VOPs, 4MV, AC prediction) and
-     once from phone clips (H.264 turned 90 degrees with AAC, and
-     fragmented), once from camera clips (High 4:2:2 10-bit, PsF),
+     once from phone clips (H.264 turned 90 degrees with AAC,
+     fragmented, and header-stripped in Matroska as mkvmerge wrote it;
+     HEVC in Matroska without DefaultDuration), once from camera clips
+     (High 4:2:2 10-bit, PsF),
      once from browser clips (VP9 profile 2 10-bit BT.2020, VP9
      realtime with reference scaling and a size change) and once from
      screen clips (H.264 High 4:4:4 Predictive 8-bit as ffmpeg writes it
@@ -127,8 +129,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      each MPEG-4 fixture's max |Δ|, each phone and muxer fixture's count
      and orientation, each camera, browser and screen fixture's count
      and max |Δ|, the browser clips' reads against the JAX package's
-     committed picks, each uncompressed fixture's count and max |Δ|;
-     the decode time per frame of each codec, of a
+     committed picks, each uncompressed fixture's count and max |Δ|,
+     each fixture of video as mkvmerge and other muxers store it
+     (content encodings, rates without DefaultDuration, laced blocks,
+     fragmented MP4's tails, MJPEG field pairs and 4:1:1, grey and GBR
+     scaled) with its count and max |Δ|;
+     the decode time per frame of each codec, a header-stripped frame's
+     against its plain twin's, of a
      turned frame against the same file unturned, a 10-bit frame's
      conversion share, a 4:4:4 and a lossless frame's conversion share,
      a picture's upscale to the first one's size, a scaled-reference
@@ -439,12 +446,12 @@ VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
              "mpeg12": 0, "raw": 0, "hevc": 0, "ffv1": 0, "utvideo": 0,
-             "huffyuv": 0, "png": 0}
+             "huffyuv": 0, "png": 0, "muxers": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
                "raw": "uncompressed", "hevc": "HEVC", "ffv1": "FFV1",
                "utvideo": "UT Video", "huffyuv": "HuffYUV/FFVHuff",
-               "png": "PNG"}
+               "png": "PNG", "muxers": "muxers' tails (every codec)"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
@@ -453,7 +460,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
                  "xvid": ("clip_xvid.avi", "clip_dx50.mp4"),
-                 "phone": ("clip_phone.mp4", "clip_frag.mp4"),
+                 "phone": ("clip_phone.mp4", "clip_frag.mp4",
+                           "clip_strip.mkv", "clip_nodd.mkv"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
                  "browser": ("clip_hdr.webm", "clip_rtc.webm"),
                  "screen": ("clip_screen.mp4", "clip_lossless.mkv"),
@@ -551,6 +559,28 @@ TOOLS_CLIPS = ("clip_gopcut_mkv",)
 LOSSLESS_PREFIXES = ("ffv1_", "ut_", "hfyu_", "ffvh_", "png_",
                      "lossless_cv2")
 LOSSLESS_CLIPS = ("clip_ffv1_mkv", "clip_utvideo_avi")
+# the committed fixtures of video as mkvmerge and other muxers store it
+# (tests/_torch_make_videos.py's MUXER_CASES: Matroska header stripping,
+# zlib and LZO; rates without DefaultDuration from the streams' own
+# timing; laced blocks; fragmented MP4 with timecode and text tracks and a
+# second sample entry; MJPEG field pairs and 4:1:1; grey and GBR scaled)
+# and the phone folder's clip_strip.mkv and clip_nodd.mkv, each held and
+# printed
+MUXER_FIXTURES = (
+    "h264_strip_mkv", "h264_zlib_mkv", "h264_lzo_mkv", "hevc_strip_mkv",
+    "hevc_zlib_mkv", "mpeg4_strip_mkv", "mpeg2_strip_mkv", "vp8_zlib_mkv",
+    "mjpeg_strip_mkv", "raw_zlib_mkv", "hfyu_zlib_mkv", "hfyu_lzo_mkv",
+    "h264_nodd30_mkv", "h264_nodd50_mkv", "h264_vui2997_mkv",
+    "h264_vui60_mkv", "hevc_nodd24_mkv", "hevc_vui15_mkv", "mpeg4_vol30_mkv",
+    "mpeg4_vol120_mkv", "mpeg4_vol1000_mkv", "mpeg2_nodd24_mkv",
+    "mpeg1_nodd25_mkv", "mpeg1_nodd60_mkv", "vp8_lace2_mkv", "vp8_lace3_mkv",
+    "mjpeg_lace3_mkv", "raw_lace4_mkv", "h264_lace2_mkv",
+    "h264_striplace_mkv", "mpeg4_fragtmcd_mp4", "h264_fragtext_mp4",
+    "h264_fragtmcd_mp4", "h264_fragdesc_mp4", "mjpeg_411_avi",
+    "mjpeg_411odd_avi", "mjpeg_fields_avi", "mjpeg_fieldsodd_avi",
+    "mjpeg_fields_mkv", "mjpeg_fieldsavrn_avi", "mjpeg_greyresize_avi",
+    "h264_gbrhalf_avi")
+MUXER_CLIPS = ("clip_strip_mkv", "clip_nodd_mkv")
 HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
@@ -2112,7 +2142,7 @@ def video_fixtures():
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
     per_browser, per_screen, per_dvd, per_raw, per_hevc = [], [], [], [], []
-    per_tools, per_lossless = [], []
+    per_tools, per_lossless, per_muxers = [], [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2160,6 +2190,14 @@ def video_fixtures():
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
                 f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
                 f"{int(ref['count'])}) max|Δ| {err}")
+        if npz.stem in MUXER_FIXTURES or npz.stem in MUXER_CLIPS:
+            per_muxers.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
+            worst["muxers"] = max(worst["muxers"], err)
+            n_frames["muxers"] += len(ref["index"])
+            n_files["muxers"] += 1
         if npz.stem.startswith("raw_") or npz.stem in RAW_CLIPS:
             per_raw.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
@@ -2233,6 +2271,11 @@ def video_fixtures():
     require(len(per_lossless) == n_lossless
             and n_lossless > len(LOSSLESS_CLIPS),
             f"[video] {len(per_lossless)} lossless fixtures of {n_lossless}")
+    log(f"[video] video as mkvmerge and other muxers store it "
+        f"({len(per_muxers)} fixtures): " + "; ".join(per_muxers))
+    require(len(per_muxers) == len(MUXER_FIXTURES) + len(MUXER_CLIPS),
+            f"[video] {len(per_muxers)} muxer fixtures of "
+            f"{len(MUXER_FIXTURES) + len(MUXER_CLIPS)}")
     video_hevc_1080p()
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
@@ -2316,8 +2359,9 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
     H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
     Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4),
-    then phone clips (H.264 turned 90 degrees with AAC, and fragmented),
-    then camera clips (High 4:2:2 10-bit in MP4, PsF without
+    then phone clips (H.264 turned 90 degrees with AAC, fragmented, and
+    header-stripped in Matroska; HEVC in Matroska without
+    DefaultDuration), then camera clips (High 4:2:2 10-bit in MP4, PsF without
     bitstream_restriction in Matroska), then browser clips (VP9 profile
     2 10-bit BT.2020, VP9 realtime with reference scaling and a size
     change, in WebM), then screen clips (H.264 High 4:4:4 Predictive in
@@ -2414,7 +2458,11 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_ffv1.mkv",
                         "FFV1 level 3, 10-bit 4:2:2, 4 slices with CRCs"),
                        ("clip_utvideo.avi",
-                        "UT Video ULY0, left prediction")):
+                        "UT Video ULY0, left prediction"),
+                       ("clip_strip.mkv",
+                        "H.264 High, header-stripped as mkvmerge wrote it"),
+                       ("clip_nodd.mkv",
+                        "HEVC Main without DefaultDuration")):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2432,6 +2480,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_raw_costs(best_ms, card)
     video_hevc_costs(best_ms, card)
     video_lossless_costs(best_ms, card)
+    video_strip_cost(best_ms, card)
     log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
         f"folders)")
     return total
@@ -2683,6 +2732,74 @@ def video_lossless_costs(best_ms, card: str):
         res.append(f"{src} at {w}x{h}: {ms:.3f} ms a frame")
     log("[video] lossless decode (demux, decode, BGR; one thread): "
         + "; ".join(res) + f"; {card}")
+
+
+def plain_mkv(track, fps: int = 25) -> bytes:
+    """A Matroska file of a read track's packets as they are (no content
+    encoding; blocks in decode order, DefaultDuration 1/fps, the
+    segment's Duration of its count): what the port reads from it is the
+    track's pictures again."""
+    def element(eid: int, *parts: bytes) -> bytes:
+        body = b"".join(parts)
+        k = 1
+        while len(body) >= (1 << (7 * k)) - 1:
+            k += 1
+        return (eid.to_bytes((eid.bit_length() + 7) // 8, "big")
+                + ((1 << (7 * k)) | len(body)).to_bytes(k, "big") + body)
+
+    def uint(eid: int, v: int) -> bytes:
+        return element(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8),
+                                       "big"))
+
+    ms = 1000 // fps
+    head = element(0x1A45DFA3, element(0x4282, b"matroska"))
+    info = element(0x1549A966, uint(0x2AD7B1, 1000000), element(
+        0x4489, struct.pack(">d", float(track.count * ms))))
+    entry = element(0xAE, uint(0xD7, 1), uint(0x83, 1),
+                    element(0x86, b"V_MPEG4/ISO/AVC"),
+                    element(0x63A2, track.config),
+                    uint(0x23E383, 1000000000 // fps),
+                    element(0xE0, uint(0xB0, track.width),
+                            uint(0xBA, track.height)))
+    blocks = b"".join(element(0xA3, b"\x81", struct.pack(
+        ">hB", i * ms, 0x80 if key else 0), data)
+        for i, (data, key) in enumerate(track.packets))
+    return head + element(0x18538067, info, element(0x1654AE6B, entry),
+                          element(0x1F43B675, uint(0xE7, 0), blocks))
+
+
+def video_strip_cost(best_ms, card: str):
+    """[video] (d): what header stripping costs: clip_strip.mkv's 224x160
+    frames (H.264 High, ContentCompSettings 00 00 before every frame)
+    against the same packets written plain (plain_mkv), each decoded whole
+    (the best of VIDEO_REPS; demux, decode, BGR) and demuxed alone
+    (video_track), in turns, on one thread; both decodes equal."""
+    from viai_tpu_torch import native
+
+    src = str(VIDEO_FIXTURES / "clip_strip.mkv")
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = os.path.join(tmp, "clip_plain.mkv")
+        with open(plain, "wb") as f:
+            f.write(plain_mkv(native.video_track(src)))
+        a, b = native.decode_video(src), native.decode_video(plain)
+        require(a.shape == b.shape and np.array_equal(a, b),
+                "[video] clip_strip.mkv decodes unlike its plain twin")
+        n = a.shape[0]
+        dec = {src: [], plain: []}
+        dmx = {src: [], plain: []}
+        for _ in range(TURN_ROUNDS):
+            for path in (src, plain):
+                dec[path].append(best_ms(
+                    lambda: native.decode_video(path)) / n)
+                dmx[path].append(best_ms(
+                    lambda: native.video_track(path)))
+    d_s, d_p = min(dec[src]), min(dec[plain])
+    m_s, m_p = min(dmx[src]), min(dmx[plain])
+    log(f"[video] clip_strip.mkv ({n} frames of {a.shape[2]}x{a.shape[1]}, "
+        f"header-stripped) against its plain twin: decode {d_s:.3f} and "
+        f"{d_p:.3f} ms a frame ({(d_s - d_p) / d_p * 100:+.2f}%), demux "
+        f"{m_s:.3f} and {m_p:.3f} ms the file (the stripped bytes put back: "
+        f"{(m_s - m_p) / n * 1000:.1f} µs a frame); {card}")
 
 
 def video_train_eval(folder: str, root: pathlib.Path, corpus: pathlib.Path,

@@ -81,7 +81,12 @@ which the card's machine does not have, so the fixtures are committed):
     patched SPS); the files of RAW_CASES, uncompressed video
     (`raw_packets` hand-muxed by `avi_file` and `mkv_file`, and
     cv2.VideoWriter's own files for fourcc 0, I420, IYUV, YV12, NV12,
-    Y800, GREY and RGBA);
+    Y800, GREY and RGBA); the files of MUXER_CASES, video as mkvmerge
+    and other muxers store it (`muxer_file`: Matroska content encodings,
+    `content_encodings`, LZO by `lzo1x_compress`; rates without
+    DefaultDuration; laced blocks; fragmented MP4 with a timecode or text
+    track and a second sample entry; MJPEG field pairs and 4:1:1; grey
+    and GBR at a new size);
   * `<case>.npz`: cv2's view of it: `n`, the frames `cap.read()` gives;
     `frames`, the first, the middle and the last of them ((3, H, W, 3)
     BGR uint8, at `index`); `count`, `CAP_PROP_FRAME_COUNT`; and for
@@ -101,8 +106,9 @@ which the card's machine does not have, so the fixtures are committed):
     `clip_screen.mp4` (4:4:4, medium preset) and `clip_lossless.mkv`
     (lossless 4:2:0, ultrafast preset) (SCREEN_CLIPS), `clip_dvd.mkv`
     and `clip_pim1.avi` (DVD_CLIPS), `clip_i420.avi` (cv2's fourcc 0)
-    and `clip_yuy2.avi` (RAW_CLIPS), the clips chip_smoke.py trains from
-    and times.
+    and `clip_yuy2.avi` (RAW_CLIPS), `clip_strip.mkv` (H.264 High
+    header-stripped) and `clip_nodd.mkv` (HEVC without DefaultDuration)
+    (MUXER_CLIPS), the clips chip_smoke.py trains from and times.
 
 The small cases are 72x56 (not a multiple of 16) with a textured square
 that moves over a drifting background, so that the MPEG-4 and VP8 clips'
@@ -1052,15 +1058,101 @@ LTR_PLANS = {
 # which libavcodec outputs 16), with a sound track
 TOOLS_CLIPS = {"clip_gopcut_mkv": dict(kind="cut", x264=dict(
     frames=24, open_gop=1, keyint=8, b_adapt=0, scenecut=0), cut=5)}
+# Video as mkvmerge and other muxers store it, held by
+# tests/test_torch_video_muxers.py; written by muxer_file from `stream`
+# (muxer_stream): "h264", libx264's High with B-frames at `fps` (its
+# VUI's rate; `vui` False drops the VUI); "h264gbr", libx264rgb's GBR of
+# `sizes` (h, w) in turn (8 frames, then 4 each: libavformat's probe
+# takes the size of the SPS active at the 7th picture it decodes), a new
+# SPS at each; "hevc", libx265's Main at `fps` (`params`, its
+# x265-params); "mpeg4", libavcodec's mpeg4 with B-VOPs (`bf`) at `fps`
+# (its VOL's rate); "mpeg2"/"mpeg1", libavcodec's mpeg2video/mpeg1video
+# at `fps` (frame_rate_code); "vp8", cv2's VP8; "mjpeg", PIL's JPEGs in
+# `layout` ("fields ...": AVI1 field pairs, two JPEGs a packet at half
+# the height; "4:1:1" from cv2's imencode; "grey resize": grey at
+# `sizes` in turn); "raw", V_UNCOMPRESSED I420; "huffyuv", libavcodec's
+# under V_MS/VFW/FOURCC. MUXER_FRAMES frames of moving_frames (or
+# `frames`), in the container the name ends with: an AVI under `fourcc`
+# (else MJPG or H264); Matroska with `enc`, mkv_file's content encodings
+# ("strip", header stripping of up to 4 bytes every packet begins with;
+# "zlib"; "lzo", by lzo1x_compress; on the frames, with "priv" on the
+# CodecPrivate too), `rate`, the blocks' rate without DefaultDuration,
+# `lace`, (frames a block, 1 Xiph, 2 fixed or 3 EBML lacing); MP4
+# fragmented at every keyframe, with `data`, a tmcd or text track
+# (mp4_file's), and `desc`, a second sample entry of the first's bytes
+# that the fragments after the first name.
+MUXER_FRAMES = 12
+MUXER_CASES = {
+    "h264_strip_mkv": dict(stream="h264", enc="strip"),
+    "h264_zlib_mkv": dict(stream="h264", enc="zlib priv"),
+    "h264_lzo_mkv": dict(stream="h264", enc="lzo"),
+    "hevc_strip_mkv": dict(stream="hevc", enc="strip"),
+    "hevc_zlib_mkv": dict(stream="hevc", enc="zlib priv"),
+    "mpeg4_strip_mkv": dict(stream="mpeg4", enc="strip"),
+    "mpeg2_strip_mkv": dict(stream="mpeg2", enc="strip priv"),
+    "vp8_zlib_mkv": dict(stream="vp8", enc="zlib"),
+    "mjpeg_strip_mkv": dict(stream="mjpeg", layout="4:2:2", enc="strip"),
+    "raw_zlib_mkv": dict(stream="raw", enc="zlib"),
+    "hfyu_zlib_mkv": dict(stream="huffyuv", enc="zlib priv"),
+    "hfyu_lzo_mkv": dict(stream="huffyuv", enc="lzo"),
+    "h264_nodd30_mkv": dict(stream="h264", rate=30),
+    "h264_nodd50_mkv": dict(stream="h264", rate=50),
+    "h264_vui2997_mkv": dict(stream="h264", fps="30000/1001", rate=25),
+    "h264_vui60_mkv": dict(stream="h264", fps="60", rate=25),
+    "hevc_nodd24_mkv": dict(stream="hevc", rate=24),
+    "hevc_vui15_mkv": dict(stream="hevc", fps=15, rate=25),
+    "mpeg4_vol30_mkv": dict(stream="mpeg4", fps=30, rate=25),
+    "mpeg4_vol120_mkv": dict(stream="mpeg4", fps=120, rate=25),
+    "mpeg4_vol1000_mkv": dict(stream="mpeg4", fps=1000, bf=0, rate=30),
+    "mpeg2_nodd24_mkv": dict(stream="mpeg2", fps=24, rate=25),
+    "mpeg1_nodd25_mkv": dict(stream="mpeg1", rate=25),
+    "mpeg1_nodd60_mkv": dict(stream="mpeg1", fps=60, rate=30),
+    "vp8_lace2_mkv": dict(stream="vp8", lace=(2, 1), rate=25),
+    "vp8_lace3_mkv": dict(stream="vp8", lace=(3, 3), rate=30),
+    "mjpeg_lace3_mkv": dict(stream="mjpeg", layout="4:2:0", lace=(3, 1),
+                            rate=25),
+    "raw_lace4_mkv": dict(stream="raw", lace=(4, 2), rate=25),
+    "h264_lace2_mkv": dict(stream="h264", lace=(2, 3), rate=25),
+    "h264_striplace_mkv": dict(stream="h264", enc="strip", lace=(3, 1)),
+    "mpeg4_fragtmcd_mp4": dict(stream="mpeg4", data=dict(kind="tmcd")),
+    "h264_fragtext_mp4": dict(stream="h264", data=dict(kind="text",
+                                                       shift=5)),
+    "h264_fragtmcd_mp4": dict(stream="h264", data=dict(kind="tmcd",
+                                                       duration=40),
+                              audio=True),
+    "h264_fragdesc_mp4": dict(stream="h264", desc=True),
+    "mjpeg_411_avi": dict(stream="mjpeg", layout="4:1:1"),
+    "mjpeg_411odd_avi": dict(stream="mjpeg", layout="4:1:1",
+                             size=(29, 45)),
+    "mjpeg_fields_avi": dict(stream="mjpeg", layout="fields 4:2:2"),
+    "mjpeg_fieldsodd_avi": dict(stream="mjpeg", layout="fields 4:2:0",
+                                size=(30, 45)),
+    "mjpeg_fields_mkv": dict(stream="mjpeg", layout="fields 4:2:0"),
+    "mjpeg_fieldsavrn_avi": dict(stream="mjpeg", layout="fields 4:2:2",
+                                 fourcc=b"AVRn"),
+    "mjpeg_greyresize_avi": dict(stream="mjpeg", layout="grey resize",
+                                 sizes=[(56, 72), (40, 100)]),
+    "h264_gbrhalf_avi": dict(stream="h264gbr", sizes=[(32, 24), (56, 72)]),
+}
+# The clips chip_smoke.py's `phone` folder trains from beside the phone
+# clips, of a 224x160 crop of the committed clip's first 16 frames: H.264
+# High header-stripped as older mkvmerge wrote it, and HEVC Main without
+# DefaultDuration (its rate from its VUI).
+MUXER_CLIPS = {"clip_strip_mkv": dict(stream="h264", enc="strip"),
+               "clip_nodd_mkv": dict(stream="hevc", rate=25)}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
         *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS,
-        *LOSSLESS_CASES, *LOSSLESS_CLIPS)
+        *LOSSLESS_CASES, *LOSSLESS_CLIPS, *MUXER_CASES, *MUXER_CLIPS)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
+    if name in MUXER_CASES or name in MUXER_CLIPS:
+        kind = {**MUXER_CASES, **MUXER_CLIPS}[name]["stream"]
+        return {"h264gbr": "h264", "mpeg2": "mpeg12", "mpeg1": "mpeg12",
+                "hfyu": "huffyuv"}.get(kind, kind)
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in SCREEN_CLIPS
             or name in TOOLS_CLIPS):
         return "h264"
@@ -1090,7 +1182,7 @@ def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
             or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
             or name in HEVC_CLIPS or name in TOOLS_CLIPS
-            or name in LOSSLESS_CLIPS):
+            or name in LOSSLESS_CLIPS or name in MUXER_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -1358,7 +1450,10 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
              version: int = 0, chunk: list[int] | None = None,
              audio: dict | None = None,
              fragments: list[int] | None = None, moov_samples: int = 0,
-             mehd: bool = False, base_offset: bool = False) -> bytes:
+             mehd: bool = False, base_offset: bool = False,
+             data_track: dict | None = None, run_samples: int | None = None,
+             entries: list[bytes] | None = None,
+             descriptions: list[int] | None = None) -> bytes:
     """An MP4 of one video track: `packets` as its samples (one chunk,
     1/fps apart in decode order) under the visual sample entry `entry`
     (a fourcc) holding the extension `boxes`; `ctts`, each sample's
@@ -1388,7 +1483,21 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
     entry a PCM frame's block or an AAC packet. A fragment's tfhd bases
     its trun's data offsets at the moof (default-base-is-moof), or, with
     `base_offset`, gives the mdat's payload as its base-data-offset; a
-    trun of version 1 when a composition offset is negative."""
+    trun of version 1 when a composition offset is negative.
+
+    With fragments, `data_track` adds a timecode or text track after the
+    others ("kind" "tmcd": a QuickTime tmcd sample entry at `fps`, each
+    sample the 4-byte frame number; "text": a tx3g entry under the
+    `text` handler, each sample a 2-byte length and "t"): one sample a
+    fragment spanning its video frames, its tfdt `shift` frames later
+    (default 0), its mdhd duration `duration` frames (default 0), its
+    bytes after the fragment's others in its mdat. `run_samples`, the
+    video samples of each trun of a fragment's traf, the runs after the
+    first without a data offset (their samples the standard places after
+    the run before; libavformat reads them from the traf's base again).
+    `entries`, more video sample entries after `entry`'s in stsd (whole
+    boxes), and `descriptions`, each fragment's sample_description_index
+    in its tfhd (1 is `entry`)."""
     n = len(packets)
     if media_time is not None:
         edits = [(n, media_time, 0x10000)]
@@ -1466,7 +1575,8 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
             table = stsc(counts)
         stbl = _box(
             b"stbl",
-            _full_box(b"stsd", 0, struct.pack(">I", 1), sample_entry),
+            _full_box(b"stsd", 0, struct.pack(">I", 1 + len(entries or [])),
+                      sample_entry, *(entries or [])),
             _full_box(b"stts", 0, *([struct.pack(">III", 1, in_moov, 1)]
                                     if in_moov else [struct.pack(">I", 0)])),
             extra, table,
@@ -1539,6 +1649,39 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
             0x100, 0), pack_matrix(None), struct.pack(">II", 0, 0))
         return _box(b"trak", tkhd, edit, mdia)
 
+    data_id = 3 if audio else 2
+
+    def data_trak() -> bytes:
+        if data_track["kind"] == "tmcd":
+            entry_box = _box(b"tmcd", bytes(6), struct.pack(
+                ">HIIIIBB", 1, 0, 0, fps, 1, fps, 0))
+            head, handler = _box(b"gmhd"), b"tmcd"
+        else:
+            entry_box = _box(b"tx3g", bytes(6), struct.pack(">H", 1),
+                             bytes(30))
+            head, handler = _full_box(b"nmhd", 0), b"text"
+        stbl = _box(
+            b"stbl", _full_box(b"stsd", 0, struct.pack(">I", 1), entry_box),
+            _full_box(b"stts", 0, struct.pack(">I", 0)),
+            _full_box(b"stsc", 0, struct.pack(">I", 0)),
+            _full_box(b"stsz", 0, struct.pack(">II", 0, 0)),
+            _full_box(b"stco", 0, struct.pack(">I", 0)))
+        minf = _box(b"minf", head, _box(b"dinf", _full_box(
+            b"dref", 0, struct.pack(">I", 1), _full_box(b"url ", 1))), stbl)
+        mdia = _box(b"mdia", times(b"mdhd", fps, data_track.get("duration", 0),
+                                   struct.pack(">HH", 0x55C4, 0)),
+                    _full_box(b"hdlr", 0, struct.pack(">I4s12x", 0, handler),
+                              b"DataHandler\0"), minf)
+        tkhd = _full_box(b"tkhd", 3, struct.pack(
+            ">IIIII8xHHHH", 0, 0, data_id, 0, 0, 0, 0, 0, 0),
+            pack_matrix(None), struct.pack(">II", 0, 0))
+        return _box(b"trak", tkhd, mdia)
+
+    def data_sample(first: int) -> bytes:
+        if data_track["kind"] == "tmcd":
+            return struct.pack(">I", first)
+        return b"\0\1t"
+
     def moov(video_offsets: list[int], audio_offsets: list[int]) -> bytes:
         mvhd = times(b"mvhd", fps, in_moov, struct.pack(">IH10x", 0x10000,
                                                        0x100)
@@ -1547,9 +1690,12 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
         traks = [video_trak(video_offsets)]
         if audio:
             traks.insert(0 if audio_first else 1, audio_trak(audio_offsets))
+        if data_track:
+            traks.append(data_trak())
         mvex = b""
         if fragmented:
-            ids = [1, 2] if audio else [1]
+            ids = ([1, 2] if audio else [1]) + (
+                [data_id] if data_track else [])
             mvex = _box(b"mvex", *([_full_box(b"mehd", 0, struct.pack(
                 ">I", n))] if mehd else []), *(_full_box(
                     b"trex", 0, struct.pack(">IIIII", i, 1, 0, 0, 0))
@@ -1597,22 +1743,47 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
         def traf(moof_len: int, mdat_at: int) -> bytes:
             vbase = mdat_at + 8 if base_offset else 0
             vdo = 0 if base_offset else moof_len + 8
-            tf = 0x08 | 0x20 | (0x01 if base_offset else 0x020000)
+            tf = 0x08 | 0x20 | (0x01 if base_offset else 0x020000) | (
+                0x02 if descriptions else 0)
             base = [struct.pack(">Q", vbase)] if base_offset else []
+            desc = [struct.pack(">I", descriptions[seq])] \
+                if descriptions else []
+            step = run_samples or count
+            truns = []
+            for r in range(0, count, step):
+                ridx = list(zip(idx, keys))[r:r + step]
+                rf = flags & ~(0x001 if r else 0)
+                if r and first_only:
+                    rf = (rf & ~0x004) | 0x400
+                one = rf & 0x004
+                truns.append(_full_box(
+                    b"trun", (int(negative) << 24) | rf,
+                    struct.pack(">I", len(ridx)),
+                    *([] if r else [struct.pack(">i", vdo)]),
+                    *([struct.pack(">I", SYNC_FLAGS)] if one else []),
+                    *(struct.pack(">I", len(packets[i]))
+                      + (b"" if one else struct.pack(
+                          ">I", SYNC_FLAGS if k else NON_SYNC_FLAGS))
+                      + (struct.pack(">i", offs[i])
+                         if ctts is not None else b"")
+                      for i, k in ridx)))
             v = _box(b"traf", _full_box(
                 b"tfhd", tf, struct.pack(">I", 2 if audio_first else 1),
-                *base, struct.pack(">II", 1, NON_SYNC_FLAGS)),
+                *base, *desc, struct.pack(">II", 1, NON_SYNC_FLAGS)),
                 _full_box(b"tfdt", 1 << 24, struct.pack(">Q", first)),
-                _full_box(b"trun", (int(negative) << 24) | flags,
-                          struct.pack(">Ii", count, vdo),
-                          *([struct.pack(">I", SYNC_FLAGS)]
-                            if first_only else []),
-                          *(struct.pack(">I", len(packets[i]))
-                            + (b"" if first_only else struct.pack(
-                                ">I", SYNC_FLAGS if k else NON_SYNC_FLAGS))
-                            + (struct.pack(">i", offs[i])
-                               if ctts is not None else b"")
-                            for i, k in zip(idx, keys))))
+                *truns)
+            if data_track:
+                sample = data_sample(first)
+                d = _box(b"traf", _full_box(
+                    b"tfhd", 0x020000, struct.pack(">I", data_id)),
+                    _full_box(b"tfdt", 1 << 24, struct.pack(
+                        ">Q", first + data_track.get("shift", 0))),
+                    _full_box(b"trun", 0x001 | 0x100 | 0x200 | 0x400,
+                              struct.pack(">Ii", 1, vdo + len(vdata)
+                                          + len(adata)),
+                              struct.pack(">III", count, len(sample),
+                                          SYNC_FLAGS)))
+                v += d
             if not audio:
                 return v
             before = audio_samples(0, first)
@@ -1639,7 +1810,8 @@ def mp4_file(packets: list[bytes], w: int, h: int, fps: int,
         mfhd = _full_box(b"mfhd", 0, struct.pack(">I", seq + 1))
         probe = _box(b"moof", mfhd, traf(0, 0))
         moof = _box(b"moof", mfhd, traf(len(probe), at + len(probe)))
-        out += moof + _box(b"mdat", vdata, adata)
+        out += moof + _box(b"mdat", vdata, adata,
+                           data_sample(first) if data_track else b"")
         first += count
     return out
 
@@ -1777,9 +1949,11 @@ def _lace(frames: list[bytes], kind: int) -> tuple[int, bytes]:
         def vint(v: int, k: int) -> bytes:
             return ((1 << (7 * k)) | v).to_bytes(k, "big")
 
-        head += vint(len(frames[0]), 2)
+        head += vint(len(frames[0]), 3 if len(frames[0]) > 16382 else 2)
         for a, b in zip(frames, frames[1:-1]):
-            head += vint(len(b) - len(a) + 63, 1)
+            d = len(b) - len(a)
+            k = 1 if abs(d) < 63 else 2 if abs(d) < 8191 else 3
+            head += vint(d + (1 << (7 * k - 1)) - 1, k)
     return kind << 1, head + b"".join(frames)
 
 
@@ -1789,7 +1963,9 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
              times: list[int] | None = None, duration: float | None = None,
              projection: dict | None = None, audio: dict | None = None,
              cluster: int | None = None,
-             colour_space: bytes | None = None) -> bytes:
+             colour_space: bytes | None = None,
+             encodings: list[dict] | None = None,
+             lace: tuple[int, int] | None = None) -> bytes:
     """A Matroska file of one video track: `packets` as SimpleBlocks of
     one cluster in decode order, at the presentation times `pts` (in
     frames; None: decode order), keyframes at `keys` (None: every
@@ -1808,8 +1984,18 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
     audio of three frames a block before their first video block, laced
     in turn by Xiph, fixed and EBML lacing or unlaced in a BlockGroup;
     `colour_space`, the Video element's ColourSpace (a V_UNCOMPRESSED
-    track's fourcc)."""
+    track's fourcc).
+
+    `encodings`, the track's ContentEncodings (see content_encodings),
+    applied to the packets and CodecPrivate of their scope; `lace`,
+    (frames, kind): that many packets a SimpleBlock, laced by `kind` (1
+    Xiph, 2 fixed, 3 EBML), each block at its first packet's timestamp
+    and key flag."""
     n = len(packets)
+    encoding = b""
+    if encodings:
+        packets, codec_private, encoding = content_encodings(
+            encodings, packets, codec_private)
     pts = list(range(n)) if pts is None else pts
     keys = set(range(n)) if keys is None else set(keys)
     ms = 1000 // fps
@@ -1835,7 +2021,7 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
                   _ebml_uint(0x83, 1), _ebml(0x86, codec_id.encode()),
                   *([_ebml(0x63A2, codec_private)] if codec_private else []),
                   *([_ebml_uint(0x23E383, 1000000000 // fps)]
-                    if default_duration else []), video)
+                    if default_duration else []), video, encoding)
     entries = [entry]
     if audio:
         anum = 3 - vnum
@@ -1860,8 +2046,17 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
                     flags, body = _lace(group, kind + 1)
                     out += _ebml(0xA3, bytes([0x80 | (3 - vnum)]), stamp,
                                  bytes([0x80 | flags]), body)
-            out += _ebml(0xA3, bytes([0x80 | vnum]), struct.pack(
-                ">hB", times[i] - base, 0x80 if i in keys else 0), packets[i])
+            if lace is None:
+                out += _ebml(0xA3, bytes([0x80 | vnum]), struct.pack(
+                    ">hB", times[i] - base, 0x80 if i in keys else 0),
+                    packets[i])
+            elif (i - lo) % lace[0] == 0:
+                group = packets[i:min(i + lace[0], hi)]
+                flags, body = _lace(group, lace[1]) if len(group) > 1 \
+                    else (0, group[0])
+                out += _ebml(0xA3, bytes([0x80 | vnum]), struct.pack(
+                    ">hB", times[i] - base,
+                    (0x80 if i in keys else 0) | flags), body)
         return out
 
     step = cluster or max(n, 1)
@@ -1872,6 +2067,58 @@ def mkv_file(packets: list[bytes], w: int, h: int, fps: int, codec_id: str,
                           blocks(lo, min(lo + step, n), base))
     return header + _ebml(0x18538067, info, _ebml(0x1654AE6B, *entries),
                           clusters)
+
+
+def content_encodings(specs: list[dict], packets: list[bytes],
+                      private: bytes) -> tuple[list[bytes], bytes, bytes]:
+    """A Matroska track's ContentEncodings element of `specs`, each a
+    ContentEncoding's "algo" (ContentCompAlgo: 0 zlib, 1 bzlib, 2 LZO, 3
+    header stripping; default 3), "settings" (ContentCompSettings: the
+    stripped bytes), "scope" (ContentEncodingScope: 1 the frames, 2 the
+    CodecPrivate; default 1), "order" (ContentEncodingOrder; default
+    their place) and "type" (ContentEncodingType: 1 encryption, which
+    leaves the bytes as they are); → the packets and the CodecPrivate
+    encoded as a muxer writes them (lowest order first: a demuxer undoes
+    the highest first), and the element. Header stripping asserts that
+    each packet begins with its bytes; zlib and bzlib compress at their
+    defaults."""
+    import bz2
+    import zlib
+
+    def encode(data: bytes, spec: dict) -> bytes:
+        if spec.get("type", 0):
+            return data
+        algo = spec.get("algo", 3)
+        if algo == 3:
+            head = spec.get("settings", b"")
+            assert data.startswith(head)
+            return data[len(head):]
+        return {0: zlib.compress, 1: bz2.compress,
+                2: lzo1x_compress}[algo](data)
+
+    elements = []
+    order = sorted(range(len(specs)),
+                   key=lambda k: specs[k].get("order", k))
+    for k in order:
+        spec = specs[k]
+        scope = spec.get("scope", 1)
+        if scope & 1:
+            packets = [encode(p, spec) for p in packets]
+        if scope & 2 and private:
+            private = encode(private, spec)
+    for k, spec in enumerate(specs):
+        if spec.get("type", 0):
+            body = _ebml(0x5035, _ebml_uint(0x47E1, 5),
+                         _ebml(0x47E2, b"key0"))
+        else:
+            body = _ebml(0x5034, _ebml_uint(0x4254, spec.get("algo", 3)),
+                         *([_ebml(0x4255, spec["settings"])]
+                           if "settings" in spec else []))
+        elements.append(_ebml(
+            0x6240, _ebml_uint(0x5031, spec.get("order", k)),
+            _ebml_uint(0x5032, spec.get("scope", 1)),
+            _ebml_uint(0x5033, spec.get("type", 0)), body))
+    return packets, private, _ebml(0x6D80, *elements)
 
 
 def libvpx_encode(frames, codec: str = "vp8", fps: int = 25,
@@ -4333,12 +4580,251 @@ def lossless_file(name: str) -> bytes:
                     codec_private=bih + info["extradata"])
 
 
+def lzo1x_compress(data: bytes) -> bytes:
+    """An LZO1X stream of `data`, as libavutil's av_lzo1x_decode reads it:
+    greedy matches of 3 bytes or more at most 16384 back (M3
+    instructions, up to 3 literals after each in its state bits), runs of
+    4 literals or more between them (the first run of up to 238 in its
+    short form), then the end marker."""
+    n, pos, start = len(data), 0, 0
+    table: dict[bytes, int] = {}
+    tokens: list[tuple[bytes, tuple[int, int] | None]] = []
+    while pos + 3 <= n:
+        key = data[pos:pos + 3]
+        cand = table.get(key)
+        table[key] = pos
+        if cand is None or pos - cand > 16384 or pos == 0:
+            pos += 1
+            continue
+        length = 3
+        while pos + length < n and length < 1000 and \
+                data[cand + length] == data[pos + length]:
+            length += 1
+        tokens.append((data[start:pos], (pos - cand, length)))
+        for k in range(pos + 1, min(pos + length, n - 2)):
+            table[data[k:k + 3]] = k
+        pos += length
+        start = pos
+    tokens.append((data[start:], None))
+
+    def length_bytes(cnt: int, mask: int, base: int) -> bytes:
+        if cnt <= mask:
+            return bytes([base | cnt])
+        rest, out = cnt - mask, bytearray([base])
+        while rest > 255:
+            out.append(0)
+            rest -= 255
+        return bytes(out + bytes([rest]))
+
+    out = bytearray()
+    state_at = -1                      # the last match's state byte
+    for i, (lits, match) in enumerate(tokens):
+        if i == 0 and 0 < len(lits) <= 238:
+            out.append(len(lits) + 17)
+        elif 0 < len(lits) <= 3 and i:
+            out[state_at] |= len(lits)
+        elif lits:
+            out += length_bytes(len(lits) - 3, 15, 0)
+        out += lits
+        if match is None:
+            out += b"\x11\x00\x00"
+            break
+        back, length = match
+        out += length_bytes(length - 2, 31, 32)
+        state_at = len(out)
+        out += bytes([((back - 1) & 63) << 2, (back - 1) >> 6])
+    return bytes(out)
+
+
+def _muxer_encodings(spec: dict, packets: list[bytes],
+                     private: bytes) -> list[dict]:
+    """mkv_file's content encodings for MUXER_CASES' `enc`."""
+    kind = spec.get("enc", "")
+    scope = 3 if "priv" in kind and private else 1
+    if kind.startswith("strip"):
+        head = packets[0]
+        for p in packets[1:]:
+            while not p.startswith(head):
+                head = head[:-1]
+        return [dict(algo=3, settings=head[:4], scope=scope)]
+    if kind.startswith("zlib"):
+        return [dict(algo=0, scope=scope)]
+    return [dict(algo=2, scope=scope)]
+
+
+def muxer_stream(spec: dict, frames: np.ndarray):
+    """A MUXER_CASES stream of `frames` (BGR): (packets in decode order,
+    their (pts, dts) in frames, keyframes, (w, h), the Matroska CodecID,
+    its CodecPrivate, the MP4 sample entry and its boxes)."""
+    kind = spec["stream"]
+    h, w = frames.shape[1:3]
+    fps = spec.get("fps", 25)
+    plain = [(i, i) for i in range(len(frames))]
+    if kind in ("h264", "h264gbr"):
+        if kind == "h264gbr":
+            import cv2
+
+            aus = []
+            for k, (sh, sw) in enumerate(spec["sizes"]):
+                at = 8 * k - 4 * (k > 1)          # 8 frames, then 4 each
+                part = [cv2.resize(f, (sw, sh), interpolation=cv2.INTER_AREA)
+                        for f in frames[at:at + (8 if k == 0 else 4)]]
+                aus += [(a, p + at, d + at) for a, p, d in x264_encode(
+                    np.stack(part), csp=14, profile="high444", bframes=0,
+                    keyint=8)]
+            h, w = spec["sizes"][0]
+        else:
+            aus = x264_encode(frames, fps=str(fps), keyint=8)
+        packets = [a for a, _, _ in aus]
+        if spec.get("vui") is False:
+            packets = strip_vui(packets)
+        samples, sps, pps = avc_samples(packets)
+        keys = [i for i, a in enumerate(packets)
+                if any(u[0] & 31 == 5 for u in nal_units(a))]
+        box = avcc_box(sps, pps)
+        return (packets if kind == "h264gbr" else samples), \
+            [(p, d) for _, p, d in aus], keys, (w, h), "V_MPEG4/ISO/AVC", \
+            box[8:], b"avc1", box
+    if kind == "hevc":
+        aus = hevc_stream(dict(params=spec.get(
+            "params", "keyint=8:min-keyint=8"), fps=fps), frames)
+        sets, samples, keys = {}, [], []
+        for i, (au, _, _) in enumerate(aus):
+            sample = b""
+            for u in nal_units(au):
+                t = hevc_type(u)
+                if 32 <= t <= 34:
+                    sets.setdefault(t, u)
+                    continue
+                if 16 <= t <= 23 and (not keys or keys[-1] != i):
+                    keys.append(i)
+                sample += struct.pack(">I", len(u)) + u
+            samples.append(sample)
+        hvcc = hvcc_box(sets[32], sets[33], sets[34])
+        return samples, [(p, d) for _, p, d in aus], keys, (w, h), \
+            "V_MPEGH/ISO/HEVC", hvcc[8:], b"hvc1", hvcc
+    if kind in ("mpeg4", "mpeg2", "mpeg1"):
+        times: list = []
+        enc = {"mpeg4": "mpeg4", "mpeg2": "mpeg2video",
+               "mpeg1": "mpeg1video"}[kind]
+        packets = lavc_encode(frames, enc, fps=fps, times=times,
+                              bf=spec.get("bf", 2), g=8,
+                              **({"strict": "-1"} if kind == "mpeg1" else {}))
+        if kind == "mpeg4":
+            keys = [i for i, p in enumerate(packets)
+                    if (p[p.index(b"\0\0\1\xb6") + 4] >> 6) == 0]
+            config = mpeg4_headers(packets[0])
+            return packets, times, keys, (w, h), "V_MPEG4/ISO/ASP", config, \
+                b"mp4v", esds_box(config)
+        keys = [i for i, p in enumerate(packets) if b"\0\0\1\xb3" in p]
+        return packets, times, keys, (w, h), \
+            "V_MPEG2" if kind == "mpeg2" else "V_MPEG1", \
+            mpeg12_config(packets[0]), b"mp4v", b""
+    if kind == "vp8":
+        packets, keys, (w, h), _, _ = container_packets("vp8")
+        return packets, [(i, i) for i in range(len(packets))], keys, \
+            (w, h), "V_VP8", b"", b"vp08", vpcc_box()
+    every = list(range(len(frames)))
+    if kind == "mjpeg":
+        layout = spec["layout"]
+        if layout == "4:1:1":
+            import cv2
+
+            packets = [cv2.imencode(".jpg", f, [
+                cv2.IMWRITE_JPEG_QUALITY, 80,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x411111])[1].tobytes()
+                for f in frames]
+        elif layout.startswith("fields"):
+            sub = 1 if layout.endswith("4:2:2") else 2
+
+            def avi1(jpeg: bytes) -> bytes:   # AVI1 APP0, polarity 0
+                return jpeg[:2] + b"\xff\xe0" + struct.pack(
+                    ">H4sBBII", 16, b"AVI1", 0, 0, len(jpeg), len(jpeg)) + \
+                    jpeg[2:]
+
+            packets = [b"".join(avi1(pil_jpegs(
+                [np.ascontiguousarray(f[k::2])], subsampling=sub)[0])
+                for k in (0, 1)) for f in frames]
+        elif layout == "grey resize":
+            import cv2
+
+            packets = []
+            for k, (sh, sw) in enumerate(spec["sizes"]):
+                part = [cv2.resize(f, (sw, sh), interpolation=cv2.INTER_AREA)
+                        for f in frames[6 * k:6 * k + 6]]
+                packets += pil_jpegs(part, grey=True)
+            h, w = spec["sizes"][0]
+        else:
+            packets = jpegs_of(frames, layout)
+        return packets, plain, every, (w, h), "V_MJPEG", b"", b"jpeg", b""
+    if kind == "raw":
+        return [i420(f) for f in frames], plain, every, (w, h), \
+            "V_UNCOMPRESSED", b"", b"", b""
+    info = {"extradata": b"", "bits": 16, "tag": b""}
+    packets = lavc_encode(frames, "huffyuv", info=info,
+                          pixel_format="yuv422p")
+    bih = struct.pack("<IiiHH4sIiiII", 40 + len(info["extradata"]), w, h, 1,
+                      info["bits"] or 16, b"HFYU", w * h * 2, 0, 0, 0, 0)
+    return packets, plain, every, (w, h), "V_MS/VFW/FOURCC", \
+        bih + info["extradata"], b"", b""
+
+
+def muxer_file(name: str, spec: dict, frames=None) -> bytes:
+    """A MUXER_CASES or MUXER_CLIPS file (see MUXER_CASES), of `frames`
+    (BGR; None: moving_frames of the case's `size`)."""
+    if frames is None:
+        frames = moving_frames(sum(map(ord, name)), MUXER_FRAMES,
+                               *spec.get("size", (H, W)))
+    packets, times, keys, (w, h), codec_id, private, entry, boxes = \
+        muxer_stream(spec, frames)
+    n = len(packets)
+    ext = name.rsplit("_", 1)[1]
+    if ext == "avi":
+        return avi_file(packets, w, h, 25, n, spec.get("fourcc") or {
+            "mjpeg": b"MJPG", "h264gbr": b"H264"}[spec["stream"]])
+    if ext == "mp4":
+        # a fragment at each keyframe
+        starts = [k for k in keys if k] + [n]
+        frags = [b - a for a, b in zip([0] + starts[:-1], starts)]
+        dts0 = times[0][1]
+        opts = dict(ctts=[p - d for p, d in times], media_time=-dts0)
+        if spec.get("desc"):
+            sample_entry = _box(entry, bytes(6), struct.pack(
+                ">HHH12xHHIIIH32sHh", 1, 0, 0, w, h, 0x480000, 0x480000, 0,
+                1, b"", 24, -1), boxes)
+            opts.update(entries=[sample_entry],
+                        descriptions=[1] + [2] * (len(frags) - 1))
+        return mp4_file(packets, w, h, 25, entry, boxes, sync=keys,
+                        fragments=frags, data_track=spec.get("data"),
+                        audio=audio_track(n, 25, 8000)
+                        if spec.get("audio") else None, **opts)
+    pts = [p - min(q for q, _ in times) for p, _ in times]
+    rate = spec.get("rate")
+    opts = {}
+    if rate:
+        opts = dict(default_duration=False, duration=n * 1000 / rate,
+                    times=[int(round(p * 1000 / rate)) for p in pts])
+    if spec.get("enc"):
+        opts["encodings"] = _muxer_encodings(spec, packets, private)
+    return mkv_file(packets, w, h, 25, codec_id, private, pts=pts,
+                    keys=keys, lace=spec.get("lace"),
+                    colour_space=b"I420" if spec["stream"] == "raw" else None,
+                    **opts)
+
+
 def write_case(name: str, out: str = FIXTURES) -> str:
     """Write one case (not its .npz) into `out`; return its path."""
     import re
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in MUXER_CASES or name in MUXER_CLIPS:
+        frames = clip_frames_bgr()[:16, 32:192] if name in MUXER_CLIPS \
+            else None
+        with open(path, "wb") as f:
+            f.write(muxer_file(name, {**MUXER_CASES, **MUXER_CLIPS}[name],
+                               frames))
+        return path
     if name in LOSSLESS_CASES or name in LOSSLESS_CLIPS:
         enc, kind, _ = {**LOSSLESS_CASES, **LOSSLESS_CLIPS}[name]
         if enc == "cv2":
@@ -4619,7 +5105,8 @@ def main(out: str = FIXTURES, *names: str):
         frames, count = cv2_view(path)
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
         if (name == "clip_dvd_mkv" or name in RAW_CLIPS
-                or name in LOSSLESS_CASES or name in LOSSLESS_CLIPS):
+                or name in LOSSLESS_CASES or name in LOSSLESS_CLIPS
+                or name in MUXER_CASES or name in MUXER_CLIPS):
             index = np.array([0, len(frames) - 1])      # the first and last
         extra = {}
         if name in CONTAINER_CASES:

@@ -373,8 +373,9 @@ def test_gbrp_conversion_matches_cv2_swscale(depth):
     0, and full range, which swscale takes as limited for RGB input): at
     8 bits and its own size swscale's unscaled planar-RGB converter,
     else its scaler from the RGB-to-YUV lines of planar_rgb16_to_y/uv;
-    an 8-bit picture of even width scaled to half of it or less raises
-    naming it (swscale reads its chroma at half width)."""
+    an 8-bit picture of even width scaled to half of it or less as
+    swscale scales it (its chroma read at half width, each sample from a
+    pair of pixels)."""
     au, sw = _swscale()
     rng = np.random.default_rng(depth)
     kind = np.uint8 if depth == 8 else np.uint16
@@ -392,7 +393,12 @@ def test_gbrp_conversion_matches_cv2_swscale(depth):
                                 size=size, rgb=True)
         assert np.array_equal(got, ref), (w, h, size, full, matrix)
     if depth == 8:
-        g = b = r = np.zeros((4, 8), np.uint8)
-        with pytest.raises(NotImplementedError, match="planar RGB"):
-            native.yuv_to_bgr(g, b, r, (0, 0), 8, True, rgb=True,
-                              size=(4, 4))
+        for w in (2, 8, 30):
+            g, b, r = (rng.integers(0, 256, (4, w)).astype(np.uint8)
+                       for _ in range(3))
+            for size in ((4, w // 2), (3, 1)):
+                ref = _cv2_swscale(au, sw, (g, b, r), fmt, size, True, 0,
+                                   (-513, -513))
+                got = native.yuv_to_bgr(g, b, r, (0, 0), 8, True, 0,
+                                        size=size, rgb=True)
+                assert np.array_equal(got, ref), (w, size)

@@ -426,10 +426,11 @@ def _fragments_patched(tmp_path, fn) -> str:
 
 
 def test_fragment_features_not_read_raise(tmp_path):
-    """A second trun without its data offset (libavformat starts it at the
-    base again, the standard after the run before), a fragment of another
-    sample description, a fragmented file with a track that is neither
-    video nor sound (its timestamps would enter cv2's count)."""
+    """A second trun without its data offset: libavformat starts it at the
+    base again (the standard: after the run before), and the port's
+    packets are those bytes, as cv2's, while decoding raises; a fragment
+    of a sample description the file lacks raises; a fragmented file with
+    a timecode track beside the video counts as cv2 counts it."""
     def two_runs(d):
         # The first fragment's trun split into two of 6, the second
         # without its data offset.
@@ -457,9 +458,12 @@ def test_fragment_features_not_read_raise(tmp_path):
                          struct.unpack_from(">i", d, at + 12)[0] + grow)
         return bytes(d)
 
+    path = _fragments_patched(tmp_path, two_runs)
+    track = native.video_track(path)
+    assert [p for p, _ in track.packets] == mk.cv2_packets(path)
     with pytest.raises(NotImplementedError,
                        match="without its data offset after another"):
-        native.video_track(_fragments_patched(tmp_path, two_runs))
+        native.decode_video(path)
 
     def description(d):
         at = d.find(b"tfhd")
@@ -485,8 +489,8 @@ def test_fragment_features_not_read_raise(tmp_path):
                        audio=mk.audio_track(len(pk), 25, 8000, first=False))
     path = tmp_path / "tmcd.mp4"
     path.write_bytes(data.replace(b"soun", b"tmcd", 1))
-    with pytest.raises(NotImplementedError, match="'tmcd' track"):
-        native.video_track(str(path))
+    assert native.video_track(str(path)).count == \
+        _cv2_info(str(path))["FRAME_COUNT"]
 
 
 # ---- Matroska without DefaultDuration ---------------------------------------
@@ -605,15 +609,13 @@ def test_variable_rate_without_default_duration_raises(tmp_path):
 def test_matroska_codecs_timing_their_own_rate_raise(tmp_path, codec, name):
     """H.264 (its VUI timing) and MPEG-4 Part 2 (its VOL's) give cv2 their
     own rate when the container gives none: at 30 fps block times cv2
-    reads these streams' 25 and counts 25 of 30 frames. The port raises
-    naming the codec."""
+    reads these streams' 25 and counts 25 of 30 frames. The port counts
+    as cv2 does."""
     t = [int(round(i * 1000 / 30)) for i in range(30)]
     path = _nodd(tmp_path, t, codec)
-    assert _cv2_info(path)["FPS"] == 25
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"Matroska {name} track without "
-                                       f"DefaultDuration")):
-        native.video_track(path)
+    info = _cv2_info(path)
+    assert info["FPS"] == 25 and int(info["FRAME_COUNT"]) == 25
+    assert native.video_track(path).count == 25, name
 
 
 def test_matroska_without_duration_still_raises(tmp_path):

@@ -215,6 +215,9 @@ struct Sps {
                                 // the VUI's chroma_sample_loc_type + 1
   bool bitstream_restriction = false;
   int num_reorder_frames = 0;
+  // The VUI's timing_info (0 without it, or with a field of 0, which
+  // libavcodec ignores).
+  uint32_t num_units_in_tick = 0, time_scale = 0;
   // What a picture timing SEI holds: the HRD's delay fields (their
   // lengths when an HRD is present), pic_struct, time_offset's length.
   bool hrd = false, pic_struct_present = false;
@@ -282,8 +285,10 @@ void parse_vui(Bits& b, Sps& s) {
     if (top <= 5) s.chroma_loc = int(top) + 1;
   }
   if (b.u1()) {                                   // timing_info
-    b.u(32);
-    b.u(32);
+    s.num_units_in_tick = b.u(32);
+    s.time_scale = b.u(32);
+    if (!s.num_units_in_tick || !s.time_scale)
+      s.num_units_in_tick = s.time_scale = 0;
     b.u1();
   }
   auto hrd = [&]() {
@@ -4066,6 +4071,17 @@ bool H264Decoder::picture_size(int& w, int& h) const {
   if (!q) return false;
   w = q->mb_w * 16 - q->crop_ux * (q->crop_l + q->crop_r);
   h = q->mb_h * 16 - q->crop_uy * (q->crop_t + q->crop_b);
+  return true;
+}
+
+bool H264Decoder::frame_rate(int64_t& num, int64_t& den) const {
+  const Sps* q = nullptr;
+  for (const Sps& c : s_->sps_table)
+    if (c.valid && !q) q = &c;
+  if (s_->cur || s_->mb_w) q = &s_->sps;
+  if (!q || !q->time_scale) return false;
+  num = q->time_scale;
+  den = int64_t(q->num_units_in_tick) * 2;
   return true;
 }
 

@@ -566,6 +566,8 @@ struct Sps {
   int chroma_loc = 1;          // libavcodec's AVChromaLocation: left, or
                                // the VUI's chroma_sample_loc_type + 1
   bool field_seq = false;
+  // The VUI's timing (0 without it, or with a field of 0).
+  uint32_t num_units_in_tick = 0, time_scale = 0;
   // derived
   int ctb_size = 16, ctb_w = 0, ctb_h = 0;
 };
@@ -602,8 +604,10 @@ void vui_parameters(Bits& b, Sps& s) {
     b.ue();
   }
   if (b.u1()) {                                  // vui_timing_info
-    b.u(32);
-    b.u(32);
+    s.num_units_in_tick = b.u(32);
+    s.time_scale = b.u(32);
+    if (!s.num_units_in_tick || !s.time_scale)
+      s.num_units_in_tick = s.time_scale = 0;
     if (b.u1()) b.ue();
     if (b.u1()) hrd_parameters(b, true, s.max_sub_layers - 1);
   }
@@ -3199,6 +3203,16 @@ int HevcDecoder::peek(const uint8_t* data, size_t n) const {
     if ((t <= 9 || (t >= 16 && t <= 21)) && (p[2] & 0x80)) kind = t;
   });
   return kind;
+}
+
+bool HevcDecoder::frame_rate(int64_t& num, int64_t& den) const {
+  const State& s = *s_;
+  const Sps* sps = s.in_picture || s.sp.w ? &s.sp : nullptr;
+  if (!sps && s.first_sps >= 0) sps = s.spss[s.first_sps].get();
+  if (!sps || !sps->time_scale) return false;
+  num = sps->time_scale;
+  den = sps->num_units_in_tick;
+  return true;
 }
 
 bool HevcDecoder::picture_size(int& w, int& h) const {

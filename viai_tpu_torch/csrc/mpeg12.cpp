@@ -280,6 +280,9 @@ struct Mpeg12Decoder::State {
   int width = 0, height = 0, aspect = 0;
   bool progressive_seq = true, low_delay = false;
   int chroma_format = 1;
+  // frame_rate_code, and the sequence extension's frame_rate_extension_n
+  // and _d.
+  int rate_code = 0, rate_n = 0, rate_d = 0;
   int colorspace = 2;          // matrix_coefficients (2: unspecified)
   int pan_w = 0, pan_h = 0;    // the sequence display extension's size
   uint16_t intra_m[64], inter_m[64], cintra_m[64], cinter_m[64];
@@ -345,7 +348,9 @@ struct Mpeg12Decoder::State {
   void sequence_header(Bits& q) {
     int w = int(q.get(12)), h = int(q.get(12));
     int ar = int(q.get(4));
-    q.skip(4 + 18);                           // frame rate, bit rate
+    rate_code = int(q.get(4));
+    rate_n = rate_d = 0;
+    q.skip(18);                               // bit rate
     if (!q.get1()) bad("sequence header without its marker bit");
     q.skip(10 + 1);                           // vbv_buffer_size, constrained
     if (q.get1()) {
@@ -384,6 +389,8 @@ struct Mpeg12Decoder::State {
       height |= int(q.get(2)) << 12;
       q.skip(12 + 1 + 8);                     // bit rate, marker, vbv
       low_delay = q.get1();
+      rate_n = int(q.get(2));
+      rate_d = int(q.get(5));
       mpeg2 = true;
       if (chroma_format == 3) no("4:4:4 (chroma_format 3)");
     } else if (id == 2) {
@@ -1111,6 +1118,25 @@ void Mpeg12Decoder::headers(const uint8_t* data, size_t n) {
 void Mpeg12Decoder::headers_only() { s_->headers_only = true; }
 
 bool Mpeg12Decoder::low_delay() const { return s_->low_delay; }
+
+bool Mpeg12Decoder::frame_rate(int64_t& num, int64_t& den, bool& mpeg2) const {
+  // ff_mpeg12_frame_rate_tab: the standard's codes 1-8, Xing's 15 fps
+  // (9) and libmpeg3's economy rates (10-13).
+  static const int kRates[16][2] = {
+      {0, 0},  {24000, 1001}, {24, 1}, {25, 1}, {30000, 1001}, {30, 1},
+      {50, 1}, {60000, 1001}, {60, 1}, {15, 1}, {5, 1},         {10, 1},
+      {12, 1}, {15, 1},       {0, 0},  {0, 0}};
+  const State& s = *s_;
+  if (!s.have_seq || !kRates[s.rate_code][0]) return false;
+  num = kRates[s.rate_code][0];
+  den = kRates[s.rate_code][1];
+  if (s.mpeg2) {
+    num *= s.rate_n + 1;
+    den *= s.rate_d + 1;
+  }
+  mpeg2 = s.mpeg2;
+  return true;
+}
 
 bool Mpeg12Decoder::picture_size(int& w, int& h) const {
   if (!s_->have_seq) return false;

@@ -473,6 +473,9 @@ struct Mpeg4Decoder::State {
   bool have_vol = false;
   int width = 0, height = 0, mbw = 0, mbh = 0;
   int time_bits = 1, time_res = 1;
+  // The VOL's fixed_vop_time_increment (libavcodec's framerate.den: 1
+  // without fixed_vop_rate).
+  int time_inc = 1;
   int vo_type = 0;
   bool vol_control = false, low_delay = false;
   int sprite_usage = 0, warp_points = 0, warp_accuracy = 0;
@@ -572,7 +575,7 @@ struct Mpeg4Decoder::State {
     int bits = 0;
     while ((1 << bits) < res) ++bits;         // av_log2(res − 1) + 1
     time_bits = std::max(bits, 1);
-    if (b.get1()) b.skip(time_bits);          // fixed_vop_rate
+    time_inc = b.get1() ? int(b.get(time_bits)) : 1;   // fixed_vop_rate
     b.skip(1);
     width = int(b.get(13));
     b.skip(1);
@@ -1978,6 +1981,13 @@ bool Mpeg4Decoder::picture_size(int& w, int& h) const {
   if (!s_->have_vol) return false;
   w = s_->width;
   h = s_->height;
+  return true;
+}
+
+bool Mpeg4Decoder::frame_rate(int64_t& num, int64_t& den) const {
+  if (!s_->have_vol || !s_->time_inc) return false;
+  num = s_->time_res;
+  den = s_->time_inc;
   return true;
 }
 

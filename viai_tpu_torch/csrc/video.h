@@ -110,6 +110,10 @@ class Mpeg4Decoder {
   bool reorders() const;
   // The VOL's picture size; false before a VOL.
   bool picture_size(int& w, int& h) const;
+  // libavcodec's frame rate (AVCodecContext.framerate) from the VOL:
+  // vop_time_increment_resolution over fixed_vop_time_increment (1
+  // without fixed_vop_rate); false before a VOL.
+  bool frame_rate(int64_t& num, int64_t& den) const;
 
  private:
   struct State;
@@ -142,6 +146,11 @@ class Mpeg12Decoder {
   bool low_delay() const;
   // The last sequence header's picture size; false before one.
   bool picture_size(int& w, int& h) const;
+  // libavcodec's frame rate from the last sequence header's
+  // frame_rate_code (times the sequence extension's
+  // frame_rate_extension_n + 1 over _d + 1), and whether that extension
+  // made it MPEG-2; false before one or for a forbidden code.
+  bool frame_rate(int64_t& num, int64_t& den, bool& mpeg2) const;
   // A packet's first picture's coding type: 0 I, 1 P, 2 B, 3 D; −1 when
   // it holds none. `closed`: whether it is an I-picture after a GOP
   // header with closed_gop in the same packet.
@@ -242,6 +251,9 @@ class H264Decoder {
   // The cropped picture size of the active (else the first) SPS; false
   // before an SPS.
   bool picture_size(int& w, int& h) const;
+  // libavcodec's frame rate from that SPS's VUI timing_info: time_scale
+  // over 2 · num_units_in_tick; false without it.
+  bool frame_rate(int64_t& num, int64_t& den) const;
 
  private:
   struct State;
@@ -280,6 +292,10 @@ class HevcDecoder {
   // The cropped picture size of the active (else the first) SPS; false
   // before an SPS.
   bool picture_size(int& w, int& h) const;
+  // libavcodec's frame rate from that SPS's VUI timing: vui_time_scale
+  // over vui_num_units_in_tick; false without it (the VPS's timing is
+  // not read).
+  bool frame_rate(int64_t& num, int64_t& den) const;
 
  private:
   struct State;

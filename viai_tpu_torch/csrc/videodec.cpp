@@ -87,6 +87,7 @@
 #include <string>
 #include <vector>
 
+#include "inflate.h"
 #include "jpeg.h"
 #include "png.h"
 #include "video.h"
@@ -185,6 +186,10 @@ struct Track {
   int bits = 0;
   bool bottom_up = false;
   std::vector<uint8_t> extradata;
+  // MP4: a track run without its data offset after another in one track
+  // fragment, whose samples libavformat reads from the fragment's base
+  // again (the packets are those bytes; decoding raises).
+  bool rebased_runs = false;
 };
 
 namespace {
@@ -690,6 +695,8 @@ struct Mp4Stream {
   bool any = false;
   int64_t first_dts = 0, first_cts = 0, dts_shift = 0, next_dts = 0;
   int64_t frames = 0, frames_duration = 0;
+  // The chosen track's sample entries (stsd's boxes): where each lies.
+  std::vector<std::pair<size_t, size_t>> entries;
 };
 
 // The edit list of a trak as libavformat's mov_build_index reads it for
@@ -775,6 +782,9 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
   uint32_t esz = be32(&f[entry]);
   if (esz < 86 || entry + esz > stsd->end)
     broken("MP4 visual sample entry cut short");
+  for (size_t e = entry; e + 8 <= stsd->end && be32(&f[e]) >= 8;
+       e += be32(&f[e]))
+    st.entries.push_back({e, std::min<size_t>(e + be32(&f[e]), stsd->end)});
   t.tag = fourcc_str(le32(&f[entry + 4]));
   t.width = (f[entry + 32] << 8) | f[entry + 33];
   t.height = (f[entry + 34] << 8) | f[entry + 35];
@@ -984,9 +994,23 @@ void mp4_fragments(Track& t, const std::vector<Box>& top,
       uint32_t dflt_duration = flags & 0x08 ? uint32_t(field(4)) : s.trex[1];
       uint32_t dflt_size = flags & 0x10 ? uint32_t(field(4)) : s.trex[2];
       uint32_t dflt_flags = flags & 0x20 ? uint32_t(field(4)) : s.trex[3];
-      if (k == chosen && desc != 1)
-        unsupported("MP4 fragment of sample description " +
-                    std::to_string(desc) + " (only the first is read)");
+      // libavformat decodes every fragment with the first sample
+      // description's parameters, whichever the tfhd names: one whose
+      // entry is the first's bytes reads as it; another breaks cv2's
+      // pictures from that fragment on.
+      if (k == chosen && desc != 1) {
+        const auto& en = s.entries;
+        bool same = desc >= 1 && desc <= en.size() &&
+                    en[desc - 1].second - en[desc - 1].first ==
+                        en[0].second - en[0].first &&
+                    std::equal(f.begin() + en[0].first + 8,
+                               f.begin() + en[0].second,
+                               f.begin() + en[desc - 1].first + 8);
+        if (!same)
+          unsupported("MP4 fragment of sample description " +
+                      std::to_string(desc) + " (libavformat decodes it "
+                      "with the first one's parameters)");
+      }
       int64_t dts = s.next_dts;
       if (const Box* tfdt = child(fb, "tfdt")) {
         if (tfdt->body + 8 > tfdt->end) broken("MP4 tfdt cut short");
@@ -1016,8 +1040,8 @@ void mp4_fragments(Track& t, const std::vector<Box>& top,
         } else if (runs) {
           // libavformat starts it at the base again, the standard after
           // the run before.
-          unsupported("MP4 track run without its data offset after "
-                      "another in one track fragment");
+          off = base;
+          if (k == chosen) t.rebased_runs = true;
         }
         uint32_t first_flags = tf & 0x004 ? word() : dflt_flags;
         for (uint32_t i = 0; i < entries; ++i) {
@@ -1061,31 +1085,50 @@ void mp4_fragments(Track& t, const std::vector<Box>& top,
 // fragment's end if later) and the span from the earliest stream's start
 // (its first sample's presentation time, the edit list's shift and the
 // largest negative composition offset applied) to the latest stream's
-// start plus duration.
+// start plus duration; of a timecode (tmcd) or text track, as
+// libavformat's update_stream_timings takes a data or subtitle stream,
+// only where it lies within a second of those of the video and sound.
 int64_t mp4_count(const std::vector<Mp4Stream>& streams, size_t chosen) {
   auto us = [](int64_t v, int64_t scale) {       // av_rescale_q, to µs
     int64_t a = v < 0 ? -v : v;
     int64_t r = (a * 1000000 + scale / 2) / scale;
     return v < 0 ? -r : r;
   };
-  int64_t lo = INT64_MAX, hi = INT64_MIN, longest = INT64_MIN;
+  // [0] the video and sound streams', [1] the timecode and text
+  // tracks' (update_stream_timings' non-primary streams)
+  int64_t lo[2] = {INT64_MAX, INT64_MAX}, hi[2] = {INT64_MIN, INT64_MIN};
+  int64_t longest[2] = {INT64_MIN, INT64_MIN};
   for (const Mp4Stream& s : streams) {
-    if (s.handler != "vide" && s.handler != "soun")
+    if (s.handler != "vide" && s.handler != "soun" && s.handler != "tmcd" &&
+        s.handler != "text")
       unsupported("fragmented MP4 with a '" + s.handler + "' track (cv2's "
                   "frame count would depend on it)");
     if (s.timescale <= 0) broken("MP4 timescale of 0");
     if (s.moov_samples)
       unsupported("fragmented MP4 with a track whose samples begin in "
                   "moov, the video's in fragments");
-    longest = std::max(longest, us(s.duration, s.timescale));
+    const int k = s.handler == "tmcd" || s.handler == "text";
+    longest[k] = std::max(longest[k], us(s.duration, s.timescale));
     if (!s.any) continue;
     int64_t start = s.first_dts - s.time_offset + s.dts_shift + s.first_cts +
                     (s.handler == "soun" ? s.aac_pad : 0);
     int64_t start_us = us(start, s.timescale);
-    lo = std::min(lo, start_us);
-    hi = std::max(hi, start_us + us(s.duration, s.timescale));
+    lo[k] = std::min(lo[k], start_us);
+    hi[k] = std::max(hi[k], start_us + us(s.duration, s.timescale));
   }
-  int64_t duration = lo == INT64_MAX ? longest : std::max(longest, hi - lo);
+  // A non-primary stream's start, end and duration count when no
+  // primary stream gives one, or within a second of the primary's.
+  constexpr int64_t kSecond = 1000000;
+  if (lo[0] == INT64_MAX || (lo[0] > lo[1] && lo[0] - lo[1] < kSecond))
+    lo[0] = lo[1];
+  if (hi[0] == INT64_MIN || (hi[0] < hi[1] && hi[1] - hi[0] < kSecond))
+    hi[0] = hi[1];
+  if (longest[0] == INT64_MIN ||
+      (longest[0] < longest[1] && longest[1] - longest[0] < kSecond))
+    longest[0] = longest[1];
+  int64_t duration = lo[0] == INT64_MAX || hi[0] == INT64_MIN
+                         ? longest[0]
+                         : std::max(longest[0], hi[0] - lo[0]);
   const Mp4Stream& v = streams[chosen];
   if (!v.frames_duration) return 0;
   int64_t fn = 0, fd = 1;
@@ -1276,24 +1319,212 @@ bool mkv_top_level(uint32_t id) {
          id == 0x1549A966 || id == 0x1654AE6B || id == 0x18538067;
 }
 
-// A block of `track` into t.packets; its timestamp (the cluster's plus
-// the block's signed offset, in TimestampScale units) onto `stamps`,
-// `laced` set when it holds several frames.
+// A track's ContentEncoding (libavformat's MatroskaTrackEncoding).
+struct MkvEncoding {
+  uint64_t order = 0, scope = 1, type = 0, algo = 0;
+  std::vector<uint8_t> settings;        // ContentCompSettings
+};
+
+// The ContentEncoding elements of a ContentEncodings body.
+std::vector<MkvEncoding> mkv_encodings(const std::vector<uint8_t>& f,
+                                       size_t p, size_t end) {
+  std::vector<MkvEncoding> out;
+  std::vector<std::pair<size_t, size_t>> st = {{p, end}};
+  while (!st.empty()) {
+    auto [q, qe] = st.back();
+    st.pop_back();
+    Ebml c{f, q, qe};
+    while (c.p < qe) {
+      uint32_t id = ebml_id(c);
+      uint64_t n = ebml_vint(f, c.p, qe);
+      if (n == kUnknown || c.p + n > qe)
+        broken("Matroska content encoding is bad");
+      size_t b = c.p;
+      c.p += n;
+      if (id == 0x6240) {                           // ContentEncoding
+        out.emplace_back();
+        st.push_back({b, b + n});
+        continue;
+      }
+      if (out.empty()) continue;
+      MkvEncoding& e = out.back();
+      if (id == 0x5031) e.order = ebml_uint(f, b, n);
+      else if (id == 0x5032) e.scope = ebml_uint(f, b, n);
+      else if (id == 0x5033) e.type = ebml_uint(f, b, n);
+      else if (id == 0x5034) st.push_back({b, b + n});   // ContentCompression
+      else if (id == 0x4254) e.algo = ebml_uint(f, b, n);
+      else if (id == 0x4255)
+        e.settings.assign(f.begin() + b, f.begin() + b + n);
+    }
+  }
+  return out;
+}
+
+// libavutil's av_lzo1x_decode of a whole LZO1X stream (its end marker
+// reached; bytes after it ignored) → the bytes, as libavformat's
+// Matroska demuxer decodes a frame of ContentCompAlgo 2.
+std::vector<uint8_t> lzo1x_decode(const uint8_t* in, size_t n) {
+  std::vector<uint8_t> out;
+  size_t i = 0;
+  auto next = [&]() -> int {
+    if (i >= n) broken("Matroska LZO frame ends early");
+    return in[i++];
+  };
+  auto literals = [&](size_t cnt) {
+    if (cnt > n - i) broken("Matroska LZO frame ends early");
+    out.insert(out.end(), in + i, in + i + cnt);
+    i += cnt;
+  };
+  auto length = [&](int x, int mask) {        // get_len
+    size_t cnt = size_t(x & mask);
+    if (!cnt) {
+      while (!(x = next())) cnt += 255;
+      cnt += size_t(mask + x);
+    }
+    return cnt;
+  };
+  auto match = [&](size_t back, size_t cnt) {  // copy_backptr
+    if (back > out.size()) broken("Matroska LZO frame points back too far");
+    size_t from = out.size() - back;
+    for (size_t k = 0; k < cnt; ++k) {
+      uint8_t b = out[from + k];
+      out.push_back(b);
+    }
+  };
+  int state = 0;
+  int x = next();
+  if (x > 17) {
+    literals(size_t(x - 17));
+    x = next();
+    if (x < 16) broken("Matroska LZO frame is bad");
+  }
+  while (true) {
+    size_t cnt, back;
+    if (x > 15) {
+      if (x > 63) {
+        cnt = size_t((x >> 5) - 1);
+        back = (size_t(next()) << 3) + size_t((x >> 2) & 7) + 1;
+      } else if (x > 31) {
+        cnt = length(x, 31);
+        x = next();
+        back = (size_t(next()) << 6) + size_t(x >> 2) + 1;
+      } else {
+        cnt = length(x, 7);
+        back = (size_t(1) << 14) + (size_t(x & 8) << 11);
+        x = next();
+        back += (size_t(next()) << 6) + size_t(x >> 2);
+        if (back == (size_t(1) << 14)) {          // the end marker
+          if (cnt != 1) broken("Matroska LZO frame is bad");
+          return out;
+        }
+      }
+    } else if (!state) {
+      cnt = length(x, 15);
+      literals(cnt + 3);
+      x = next();
+      if (x > 15) continue;
+      cnt = 1;
+      back = (size_t(1) << 11) + (size_t(next()) << 2) + size_t(x >> 2) + 1;
+    } else {
+      cnt = 0;
+      back = (size_t(next()) << 2) + size_t(x >> 2) + 1;
+    }
+    match(back, cnt + 2);
+    state = x & 3;
+    literals(size_t(state));
+    x = next();
+  }
+}
+
+// libavformat's matroska_decode_buffer: a frame (or the CodecPrivate)
+// under its track's one content encoding of compression (ContentCompAlgo
+// 0 zlib, 2 LZO, 3 header stripping: ContentCompSettings before it).
+std::vector<uint8_t> mkv_decode(const MkvEncoding& e, const uint8_t* d,
+                                size_t n) {
+  if (e.algo == 3) {
+    std::vector<uint8_t> out(e.settings);
+    out.insert(out.end(), d, d + n);
+    return out;
+  }
+  if (e.algo == 2) return lzo1x_decode(d, n);
+  try {
+    return viai_inflate::inflate_zlib(d, n, viai_inflate::kAll);
+  } catch (const viai_inflate::Error& err) {
+    broken("Matroska zlib-compressed frame " + err.msg);
+  }
+}
+
+// libavformat's reading of a video track's ContentEncodings → its
+// CodecPrivate: one encoding of compression is undone, on the
+// CodecPrivate under scope 2 (here) and on every frame under scope 1
+// (mkv_block); of several it undoes none, and bzlib (algo 1: not in
+// cv2's build) and unknown algorithms it ignores, so their frames stay
+// compressed and cv2 decodes none (ValueError, as the JAX package then
+// raises). Encryption raises.
+std::vector<uint8_t> mkv_private(const std::vector<MkvEncoding>& encs,
+                                 const std::vector<uint8_t>& priv) {
+  if (encs.empty()) return priv;
+  if (encs.size() > 1) {
+    for (const MkvEncoding& e : encs)
+      if (!e.type && (e.scope & 1) && !(e.algo == 3 && e.settings.empty()))
+        broken("Matroska track with " + std::to_string(encs.size()) +
+               " content encodings (libavformat undoes none of them, so "
+               "cv2 decodes no frame)");
+    unsupported("Matroska track with " + std::to_string(encs.size()) +
+                " content encodings");
+  }
+  const MkvEncoding& e = encs[0];
+  if (e.type)
+    unsupported("Matroska track with encrypted content (ContentEncodingType "
+                + std::to_string(e.type) + ")");
+  if (e.algo == 1 || e.algo > 3) {
+    if (e.scope & 3)
+      broken("Matroska track compressed by " +
+             std::string(e.algo == 1 ? "bzlib" : "an unknown algorithm") +
+             " (ContentCompAlgo " + std::to_string(e.algo) + ": "
+             "libavformat leaves it compressed, so cv2 decodes no frame)");
+    return priv;
+  }
+  if ((e.scope & 2) && !priv.empty())
+    return mkv_decode(e, priv.data(), priv.size());
+  return priv;
+}
+
+// No timestamp: a laced frame after its block's first.
+constexpr int64_t kNoTs = INT64_MIN;
+
+// A block of `track` into t.packets; each frame's timestamp onto
+// `stamps`: the block's (the cluster's plus its signed offset, in
+// TimestampScale units) for its first, kNoTs for the rest of a lace, as
+// libavformat gives them without DefaultDuration. `enc`, the track's
+// frame compression: each frame decoded and appended to t.file, its
+// packet there.
 void mkv_block(Track& t, size_t p, size_t end, uint64_t track, bool simple,
                bool referenced, int64_t cluster, std::vector<int64_t>& stamps,
-               bool& laced) {
+               const MkvEncoding* enc) {
   const std::vector<uint8_t>& f = t.file;
   uint64_t num = ebml_vint(f, p, end);
   if (num != track) return;
   if (p + 3 > end) broken("Matroska block cut short");
   uint8_t flags = f[p + 2];
-  stamps.push_back(cluster + int16_t((f[p] << 8) | f[p + 1]));
+  int64_t stamp = cluster + int16_t((f[p] << 8) | f[p + 1]);
   p += 3;
   bool key = simple ? (flags & 0x80) != 0 : !referenced;
   int lacing = (flags >> 1) & 3;
-  laced = laced || lacing != 0;
+  auto frame = [&](size_t at, uint64_t size, bool k) {
+    if (enc) {
+      std::vector<uint8_t> d = mkv_decode(*enc, &f[at], size_t(size));
+      at = t.file.size();
+      size = d.size();
+      t.file.insert(t.file.end(), d.begin(), d.end());
+    }
+    if (!size) return;
+    stamps.push_back(stamp);
+    stamp = kNoTs;
+    t.packets.push_back({at, uint32_t(size), k});
+  };
   if (lacing == 0) {
-    if (end > p) t.packets.push_back({p, uint32_t(end - p), key});
+    if (end > p) frame(p, end - p, key);
     return;
   }
   if (p >= end) broken("Matroska laced block cut short");
@@ -1330,7 +1561,7 @@ void mkv_block(Track& t, size_t p, size_t end, uint64_t track, bool simple,
   if (used > end - p) broken("Matroska lacing runs past its block");
   sizes[frames - 1] = (end - p) - used;
   for (int i = 0; i < frames; ++i) {
-    if (sizes[i]) t.packets.push_back({p, uint32_t(sizes[i]), key && i == 0});
+    if (sizes[i]) frame(p, sizes[i], key && i == 0);
     p += sizes[i];
   }
 }
@@ -1361,31 +1592,36 @@ int mkv_orientation(uint64_t type, double yaw, double pitch, double roll) {
   return cv2_orientation(m, "Matroska");
 }
 
+// libavformat's standard frame rates (get_std_framerate), in 1/(12 · 1001)
+// fps: 1/12 steps to 30 fps, then 31..60, 80, 120, 240, and 24, 30, 60,
+// 12, 15, 48 at ·1000/1001.
+constexpr int kStdRates = 30 * 12 + 30 + 3 + 6;
+int64_t std_rate(int i) {
+  if (i < 30 * 12) return int64_t(i + 1) * 1001;
+  i -= 30 * 12;
+  if (i < 30) return int64_t(i + 31) * 1001 * 12;
+  i -= 30;
+  if (i < 3) return int64_t((const int[]){80, 120, 240}[i]) * 1001 * 12;
+  i -= 3;
+  return int64_t((const int[]){24, 30, 60, 12, 15, 48}[i]) * 1000 * 12;
+}
+
 // libavformat's frame rate of a video stream whose container gives none
 // (a Matroska track without DefaultDuration; its codec none either: VP8,
-// VP9, MJPEG): ff_rfps_add_frame over the decode times `ts` of the
-// packets avformat_find_stream_info reads (in the time base tb_num /
-// tb_den; until 20 durations, 40 for a time base coarser than 0.5 ms,
-// are counted, 5 s of them analysed or 5 MB read), ff_rfps_calculate
-// (their common divisor, else the standard rate (1/12 steps to 30 fps,
-// then 31..60, 80, 120, 240, 24, 30, 60, 12, 15, 48 at ·1000/1001 or
-// not) whose phase error varies least), as r_frame_rate, which
-// av_guess_frame_rate and OpenCV's get_fps give cv2. → (num, den), or
-// (0, 1) when it settles on none and libavformat falls back to the time
-// base (a variable rate).
+// VP9, MJPEG; see mkv_stream_rate for the rest): ff_rfps_add_frame over
+// the decode times `ts` of the packets avformat_find_stream_info reads
+// (kNoTs for a packet without one, a laced frame after its block's
+// first: counted, not timed; in the time base tb_num / tb_den; until 20
+// durations, 40 for a time base coarser than 0.5 ms, are counted, 5 s of
+// them analysed or 5 MB read), ff_rfps_calculate (their common divisor,
+// else the standard rate whose phase error varies least), as
+// r_frame_rate, which av_guess_frame_rate and OpenCV's get_fps give cv2.
+// → (num, den), or (0, 1) when it settles on none and libavformat falls
+// back to the time base (a variable rate).
 void rfps_estimate(const std::vector<int64_t>& ts,
                    const std::vector<uint32_t>& sizes, int64_t tb_num,
                    int64_t tb_den, int64_t& num, int64_t& den) {
-  constexpr int kStd = 30 * 12 + 30 + 3 + 6;
-  auto std_rate = [](int i) -> int64_t {          // get_std_framerate
-    if (i < 30 * 12) return int64_t(i + 1) * 1001;
-    i -= 30 * 12;
-    if (i < 30) return int64_t(i + 31) * 1001 * 12;
-    i -= 30;
-    if (i < 3) return int64_t((const int[]){80, 120, 240}[i]) * 1001 * 12;
-    i -= 3;
-    return int64_t((const int[]){24, 30, 60, 12, 15, 48}[i]) * 1000 * 12;
-  };
+  constexpr int kStd = kStdRates;
   const double tbq = double(tb_num) / double(tb_den);
   // tb_unreliable: a time base finer than 1/101 s or coarser than 1/5 s.
   bool unreliable = tb_den >= 101 * tb_num || tb_den < 5 * tb_num;
@@ -1411,7 +1647,12 @@ void rfps_estimate(const std::vector<int64_t>& ts,
     if (count >= framecount || bytes >= 5000000) break;
     bytes += sizes[k];
     const int64_t dts = ts[k];
-    if (k > 1) {
+    if (k > 1 && dts == kNoTs) {
+      if (k > 30 && fps_first != INT64_MIN) {
+        double us = double(fps_last - fps_first) * tb_num * 1000000.0 / tb_den;
+        if (std::floor(us + 0.5) >= 5000000) break;
+      }
+    } else if (k > 1) {
       if (fps_last != INT64_MIN && fps_last >= dts)        // not increasing
         fps_first = fps_last = INT64_MIN;
       if (fps_last != INT64_MIN && last_idx > first_idx &&
@@ -1430,6 +1671,7 @@ void rfps_estimate(const std::vector<int64_t>& ts,
         if (std::floor(us + 0.5) >= 5000000) break;
       }
     }
+    if (dts == kNoTs) continue;
     // ff_rfps_add_frame
     if (last != INT64_MIN && dts > last) {
       double t = double(dts) * tbq;
@@ -1487,6 +1729,102 @@ void rfps_estimate(const std::vector<int64_t>& ts,
   }
 }
 
+const char* codec_label(Codec c) {
+  return c == Codec::kH264    ? "H.264"
+         : c == Codec::kHevc  ? "HEVC"
+         : c == Codec::kMpeg4 ? "MPEG-4 Part 2"
+                              : "MPEG-1/2";
+}
+
+// The frame rate cv2 reports for a Matroska track without
+// DefaultDuration whose codec gives one (found by probing cv2 5.0's
+// libavformat 62 and held by tests/test_torch_video_muxers.py):
+// libavcodec's rate F from the stream's headers (H.264's and HEVC's VUI
+// timing, MPEG-4's VOL, MPEG-1/2's frame_rate_code). MPEG-4 and MPEG-1,
+// whose rate libavformat trusts when F (MPEG-1: 2F, its fields) lies in
+// [5, 101) fps, report it; otherwise, and always for H.264, HEVC and
+// MPEG-2 (tb_unreliable), cv2 reports libavformat's average rate: every
+// packet the duration floor(1/F) in time-base ticks
+// (compute_frame_duration; none from F ≥ 1000 fps), one over it rounded
+// to a standard rate (get_std_framerate) within 1%. Where no packet gets
+// a duration, libavformat's estimate from the blocks' timestamps
+// (false, for rfps_estimate) serves MPEG-4 and MPEG-1/2; H.264 and HEVC
+// then raise, as without timing in their headers (libavformat estimates
+// from timestamps it reorders and leaves out, which is not copied).
+bool mkv_stream_rate(const Track& t, int64_t tn, int64_t td, int64_t& num,
+                     int64_t& den) {
+  if (t.codec != Codec::kH264 && t.codec != Codec::kHevc &&
+      t.codec != Codec::kMpeg4 && t.codec != Codec::kMpeg12)
+    return false;
+  // The headers of the CodecPrivate, then of each packet, until a rate.
+  int64_t cn = 0, cd = 1;
+  bool have = false, mpeg2 = false;
+  auto packets = [&](auto read, auto rate) {
+    for (size_t i = 0; !(have = rate()) && i < t.packets.size(); ++i)
+      read(&t.file[t.packets[i].off], t.packets[i].size);
+  };
+  if (t.codec == Codec::kH264) {
+    H264Decoder q(t.config);
+    packets([&](const uint8_t* d, size_t n) { q.headers(d, n); },
+            [&] { return q.frame_rate(cn, cd); });
+  } else if (t.codec == Codec::kHevc) {
+    HevcDecoder q(t.config);
+    packets([&](const uint8_t* d, size_t n) { q.headers(d, n); },
+            [&] { return q.frame_rate(cn, cd); });
+  } else if (t.codec == Codec::kMpeg4) {
+    Mpeg4Decoder q(t.config, t.tag);
+    packets([&](const uint8_t* d, size_t n) { q.peek(d, n); },
+            [&] { return q.frame_rate(cn, cd); });
+  } else {
+    Mpeg12Decoder q(t.config, t.tag);
+    packets([&](const uint8_t* d, size_t n) { q.headers(d, n); },
+            [&] { return q.frame_rate(cn, cd, mpeg2); });
+  }
+  bool h26x = t.codec == Codec::kH264 || t.codec == Codec::kHevc;
+  if (!have && h26x)
+    unsupported(std::string("Matroska ") + codec_label(t.codec) +
+                " track without DefaultDuration or timing in its " +
+                (t.codec == Codec::kH264 ? "VUI" : "SPS's VUI") +
+                " (cv2's rate would be libavformat's estimate from "
+                "timestamps it reorders)");
+  if (!have) return false;
+  if (t.codec == Codec::kMpeg4 || (t.codec == Codec::kMpeg12 && !mpeg2)) {
+    int64_t mul = t.codec == Codec::kMpeg4 ? 1 : 2;
+    if (cn * mul < 101 * cd && cn * mul >= 5 * cd) {
+      av_reduce(num, den, cn * mul, cd, 0x7FFFFFFF);
+      // av_cmp_q(time_base, 1 / rate) > 0: the time base's rate
+      if (tn * num > td * den) av_reduce(num, den, td, tn, 0x7FFFFFFF);
+      return true;
+    }
+  }
+  // compute_frame_duration → the packets' duration in ticks
+  int64_t ticks = 0;
+  if (tn * 1000 > td) ticks = 1;
+  else if (cd * 1000 > cn)
+    ticks = int64_t(__int128(cd) * td / (__int128(cn) * tn));
+  if (ticks <= 0) {
+    if (h26x)
+      unsupported(std::string("Matroska ") + codec_label(t.codec) +
+                  " track without DefaultDuration at a stream rate of "
+                  "1000 fps or more (cv2's rate would be libavformat's "
+                  "estimate from timestamps it reorders)");
+    return false;
+  }
+  av_reduce(num, den, td, ticks * tn, 60000);
+  // Rounded to a standard rate within 1%.
+  double avg = double(num) / double(den), best_error = 0.01;
+  int64_t best = 0;
+  for (int j = 0; j < kStdRates; ++j) {
+    double error = std::fabs(avg * (12 * 1001) / double(std_rate(j)) - 1);
+    if (error < best_error) {
+      best_error = error;
+      best = std_rate(j);
+    }
+  }
+  if (best) av_reduce(num, den, best, 12 * 1001, 0x7FFFFFFF);
+  return true;
+}
+
 void demux_mkv(Track& t) {
   const std::vector<uint8_t>& f = t.file;
   t.container = "Matroska";
@@ -1503,8 +1841,9 @@ void demux_mkv(Track& t) {
   double duration = 0.0;
   bool have_track = false;
   int64_t cluster = 0;              // the cluster's Timestamp
-  std::vector<int64_t> stamps;      // the video blocks' timestamps
-  bool laced = false;
+  std::vector<int64_t> stamps;      // the video frames' timestamps
+  std::vector<MkvEncoding> encodings;
+  const MkvEncoding* frame_enc = nullptr;   // undone on every frame
   // Elements whose children are read: Segment's masters, then clusters.
   struct Level {
     size_t end;
@@ -1518,7 +1857,7 @@ void demux_mkv(Track& t) {
     if (e.p >= lv.end) {
       if (lv.id == 0xA0 && block)                 // end of a BlockGroup
         mkv_block(t, block, block_end, track, false, referenced, cluster,
-                  stamps, laced);
+                  stamps, frame_enc);
       if (lv.id == 0xA0) in_group = false;
       e.p = std::max(e.p, lv.end);
       levels.pop_back();
@@ -1555,7 +1894,8 @@ void demux_mkv(Track& t) {
           std::string codec;
           std::vector<uint8_t> priv;
           int w = 0, h = 0;
-          bool encoded = false, projected = false;
+          bool projected = false;
+          std::vector<MkvEncoding> encs;
           uint64_t projection = 0;
           std::vector<uint8_t> colour_space;
           double yaw = 0.0, pitch = 0.0, roll = 0.0;
@@ -1580,7 +1920,7 @@ void demux_mkv(Track& t) {
               else if (cid == 0x23E383) dd = ebml_uint(f, cb, cs);
               else if (cid == 0xB0) w = int(ebml_uint(f, cb, cs));
               else if (cid == 0xBA) h = int(ebml_uint(f, cb, cs));
-              else if (cid == 0x6D80) encoded = true;
+              else if (cid == 0x6D80) encs = mkv_encodings(f, cb, cb + cs);
               else if (cid == 0xE0) st.push_back({cb, cb + cs});
               else if (cid == 0x7670) {                 // Projection
                 projected = true;
@@ -1595,9 +1935,11 @@ void demux_mkv(Track& t) {
           }
           while (!codec.empty() && codec.back() == '\0') codec.pop_back();
           if (type == 1) {
-            if (encoded)
-              unsupported("Matroska track with content encodings "
-                          "(compression or encryption)");
+            encodings = encs;
+            priv = mkv_private(encodings, priv);
+            if (!encodings.empty() && (encodings[0].scope & 1) &&
+                !(encodings[0].algo == 3 && encodings[0].settings.empty()))
+              frame_enc = &encodings[0];
             have_track = true;
             track = number;
             default_duration = dd;
@@ -1670,7 +2012,8 @@ void demux_mkv(Track& t) {
         continue;
       case 0xA3:                                  // SimpleBlock
         if (!have_track) broken("Matroska block before its track");
-        mkv_block(t, body, end, track, true, false, cluster, stamps, laced);
+        mkv_block(t, body, end, track, true, false, cluster, stamps,
+                  frame_enc);
         break;
       case 0xE7:                                  // a cluster's Timestamp
         cluster = int64_t(ebml_uint(f, body, sz));
@@ -1698,31 +2041,29 @@ void demux_mkv(Track& t) {
   }
   if (!have_track) broken("Matroska file without a video track");
   // cv2: round(duration_sec · fps), duration from the segment's Info as
-  // libavformat converts it to microseconds, fps its avg_frame_rate: the
-  // av_reduce'd DefaultDuration, else libavformat's estimate from the
-  // blocks' timestamps (rfps_estimate).
+  // libavformat converts it to microseconds, fps the av_reduce'd
+  // DefaultDuration, else the stream's own rate as cv2 reports it
+  // (mkv_stream_rate), else libavformat's estimate from the blocks'
+  // timestamps (rfps_estimate).
   if (duration <= 0.0)
     unsupported("Matroska segment without a Duration");
   int64_t dur_us = int64_t(duration * double(scale) * 1000.0 / 1000000.0);
   int64_t fn = 0, fd = 1;
+  int64_t tn = 0, td = 1;                      // the time base
+  av_reduce(tn, td, int64_t(scale), 1000000000, 0x7FFFFFFF);
   if (default_duration) {
     av_reduce(fn, fd, 1000000000, int64_t(default_duration), 30000);
-  } else {
-    if (t.codec == Codec::kH264 || t.codec == Codec::kMpeg4 ||
-        t.codec == Codec::kMpeg12 || t.codec == Codec::kHevc)
-      unsupported(std::string("Matroska ") +
-                  (t.codec == Codec::kH264    ? "H.264"
-                   : t.codec == Codec::kHevc  ? "HEVC"
-                   : t.codec == Codec::kMpeg4 ? "MPEG-4 Part 2"
-                                              : "MPEG-1/2") +
-                  " track without DefaultDuration (cv2's rate would come "
-                  "from the stream's own timing)");
-    if (laced)
-      unsupported("laced Matroska video blocks without DefaultDuration");
+  } else if (!mkv_stream_rate(t, tn, td, fn, fd)) {
     std::vector<uint32_t> sizes;
     for (const Packet& p : t.packets) sizes.push_back(p.size);
-    int64_t tn = 0, td = 1;
-    av_reduce(tn, td, int64_t(scale), 1000000000, 0x7FFFFFFF);
+    if (t.codec == Codec::kMpeg4 || t.codec == Codec::kMpeg12)
+      for (size_t k = 1; k < stamps.size(); ++k)
+        if (stamps[k] != kNoTs && stamps[k - 1] != kNoTs &&
+            stamps[k] <= stamps[k - 1])
+          unsupported(std::string("Matroska ") + codec_label(t.codec) +
+                      " track without DefaultDuration whose blocks are "
+                      "not in presentation order, at a rate libavformat "
+                      "estimates from its timestamps");
     rfps_estimate(stamps, sizes, tn, td, fn, fd);
     if (!fn)
       unsupported("Matroska track without DefaultDuration at a variable "
@@ -1996,22 +2337,90 @@ bool itu601_comment(const uint8_t* d, size_t n) {
   return false;
 }
 
+// Where a JPEG ends: after its EOI marker (its entropy-coded data
+// skipped, stuffed and restart markers in it), else n.
+size_t jpeg_end(const uint8_t* d, size_t n) {
+  size_t p = 2;
+  while (p + 1 < n) {
+    if (d[p] != 0xFF) {
+      ++p;
+      continue;
+    }
+    const int m = d[p + 1];
+    if (m == 0xFF) {
+      ++p;
+      continue;
+    }
+    if (m == 0xD9) return p + 2;
+    if (m == 0x01 || m == 0x00 || (m >= 0xD0 && m <= 0xD8)) {
+      p += 2;
+      continue;
+    }
+    if (p + 4 > n) break;
+    p += 2 + ((size_t(d[p + 2]) << 8) | d[p + 3]);
+    if (m != 0xDA) continue;
+    while (p + 1 < n && !(d[p] == 0xFF && d[p + 1] != 0 &&
+                          !(d[p + 1] >= 0xD0 && d[p + 1] <= 0xD7)))
+      ++p;
+  }
+  return n;
+}
+
 // One MJPEG packet → planes in the layout libavcodec's MJPEG decoder
 // gives it (its sampling factors halved where all are even, as it does):
-// Y 2x2 with Cb, Cr 1x1 is 4:2:0, Y 2x1 4:2:2, Y 1x2 4:4:0, all 1x1
-// 4:4:4, one component grey; full range unless a CS=ITU601 comment says
-// limited. `container_h`: the height the container gives (a picture
-// under 3/4 of it is one field of a pair).
-void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
-                  Picture& out) {
+// Y 2x2 with Cb, Cr 1x1 is 4:2:0, Y 2x1 4:2:2, Y 1x2 4:4:0, Y 4x1 4:1:1,
+// all 1x1 4:4:4, one component grey; full range unless a CS=ITU601
+// comment says limited. `fields`: the stream's first picture was under
+// 3/4 of the container's height, so libavcodec reads every packet as a
+// field pair (AVI1: two JPEGs, whatever polarity their APP0 gives), the
+// first field's rows the even lines of each plane and the second's the
+// odd, woven at twice their height; `bottom_first` the other way round
+// (libavcodec's interlace_polarity, which it sets for the codec tag
+// MJPG). cv2 converts the frame as progressive.
+void decode_mjpeg(const uint8_t* data, size_t n, bool fields,
+                  bool bottom_first, Picture& out) {
+  if (fields) {
+    size_t end = jpeg_end(data, n), next = end;
+    while (next + 1 < n && !(data[next] == 0xFF && data[next + 1] == 0xD8))
+      ++next;
+    if (next + 1 >= n)
+      unsupported("MJPEG field pairs (AVI1) with one field in a packet");
+    Picture a, b;
+    decode_mjpeg(data, end, false, false, a);
+    decode_mjpeg(data + next, n - next, false, false, b);
+    if (bottom_first) std::swap(a, b);
+    if (a.w != b.w || a.h != b.h || a.grey != b.grey ||
+        a.xshift != b.xshift || a.yshift != b.yshift ||
+        a.full_range != b.full_range || a.ystride != b.ystride ||
+        a.cstride != b.cstride || a.y.size() != b.y.size() ||
+        a.u.size() != b.u.size())
+      unsupported("MJPEG field pairs (AVI1) of unlike fields");
+    auto weave = [](const std::vector<uint8_t>& top,
+                    const std::vector<uint8_t>& bottom, int stride,
+                    std::vector<uint8_t>& dst) {
+      size_t rows = stride ? top.size() / size_t(stride) : 0;
+      dst.resize(2 * top.size());
+      for (size_t r = 0; r < rows; ++r) {
+        std::memcpy(&dst[2 * r * stride], &top[r * stride], size_t(stride));
+        std::memcpy(&dst[(2 * r + 1) * stride], &bottom[r * stride],
+                    size_t(stride));
+      }
+    };
+    out = a;
+    out.h = 2 * a.h;
+    weave(a.y, b.y, a.ystride, out.y);
+    if (!a.grey) {
+      weave(a.u, b.u, a.cstride, out.u);
+      weave(a.v, b.v, a.cstride, out.v);
+    }
+    return;
+  }
   viai_jpeg::Coefficients c;
   try {
     c = viai_jpeg::decode_coefficients(data, n, true);
   } catch (const viai_jpeg::Error& e) {
     throw Error{e.code, "MJPEG: " + e.msg};
   }
-  if (container_h > 0 && c.height < (container_h * 3) / 4)
-    unsupported("MJPEG interlaced field pairs (AVI1)");
   // libavcodec's pix_fmt_id: (h, v) of each component, a nibble each.
   uint32_t id = 0;
   for (int i = 0; i < c.ncomp && i < 4; ++i)
@@ -2028,6 +2437,7 @@ void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
     else if (id == 0x21111100) xs = 1, ys = 0;
     else if (id == 0x11111100) xs = ys = 0;
     else if (id == 0x12111100) xs = 0, ys = 1;
+    else if (id == 0x41111100) xs = 2, ys = 0;
     else id = 0;
   } else {
     id = 0;
@@ -2039,7 +2449,8 @@ void decode_mjpeg(const uint8_t* data, size_t n, int container_h,
            std::to_string(c.comp[i].v);
     unsupported("MJPEG of " + std::to_string(c.ncomp) + " components "
                 "sampled " + f + " (libavcodec converts or refuses it; "
-                "4:2:0, 4:2:2, 4:4:4, 4:4:0 YCbCr and grey are read)");
+                "4:2:0, 4:2:2, 4:4:4, 4:4:0, 4:1:1 YCbCr and grey are "
+                "read)");
   }
   out.w = c.width;
   out.h = c.height;
@@ -2426,20 +2837,28 @@ Rgb2Yuv rgb2yuv(int matrix) {
 // output line through the vertical filters' 1-tap, 2-tap (bilinear, taps
 // summing to 4096) or n-tap outputs, as swscale's packed_vscale picks
 // them.
+//
+// 8-bit planar GBR of even width scaled to half that width or less:
+// swscale reads its chroma at half the width (chrSrcHSubSample), each
+// sample from a pair of pixels summed (as its rgb24ToUV_half), and
+// scales those columns to the output's (still full chroma: found by
+// holding random planes against cv2's libswscale).
 template <class T>
 std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
                                 const T* pv, int dw, int dh) {
-  const int w = p.w, h = p.h, xs = p.xshift, ys = p.yshift;
+  const bool half = p.rgb && p.depth == 8 && !(p.w & 1) && dw <= p.w / 2;
+  const int w = p.w, h = p.h, xs = half ? 1 : p.xshift, ys = p.yshift;
   const int lsh = 15 - p.depth;
-  const bool full = (xs == 0 && ys == 0) || (dw & 1);
+  const bool full = (p.xshift == 0 && ys == 0) || (dw & 1);
   const int dxs = full ? 0 : 1;
   const int csw = (w + (1 << xs) - 1) >> xs, csh = (h + (1 << ys) - 1) >> ys;
   const int cdw = (dw + (1 << dxs) - 1) >> dxs;
   // The source's chroma siting: av_chroma_location_enum_to_pos's x, and
   // its y where chroma rows are halved, through get_local_pos; else
   // swscale's default.
+  // Planar RGB at swscale's default (its chroma siting is not passed on).
   auto src_pos = [&](int shift, bool across) {
-    if (p.chroma_loc < 1 || p.chroma_loc > 6 || (!across && !shift))
+    if (p.chroma_loc < 1 || p.chroma_loc > 6 || (!across && !shift) || p.rgb)
       return local_pos(shift);
     int l = p.chroma_loc - 1;
     int pos = across ? (l & 1) * 128 : ((l >> 1) ^ (l < 4)) * 128;
@@ -2465,15 +2884,30 @@ std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
     const int d = p.depth, shift = d < 16 ? d : 14, sh = 1 + shift;
     const int64_t yoff = (int64_t(16) << (7 + d)) + (1 << shift);
     const int64_t coff = (int64_t(128) << (7 + d)) + (1 << shift);
-    std::vector<uint16_t> yi(size_t(w) * h), ui(yi.size()), vi(yi.size());
+    std::vector<uint16_t> yi(size_t(w) * h), ui(size_t(csw) * h),
+        vi(ui.size());
     for (int y = 0; y < h; ++y)
       for (int x = 0; x < w; ++x) {
         const int g = py[size_t(y) * p.ystride + x];
         const int b = pu[size_t(y) * p.cstride + x];
         const int r = pv[size_t(y) * p.cstride + x];
-        const size_t i = size_t(y) * w + x;
-        yi[i] = uint16_t((int64_t(t.ry) * r + int64_t(t.gy) * g +
-                          int64_t(t.by) * b + yoff) >> sh);
+        yi[size_t(y) * w + x] = uint16_t((int64_t(t.ry) * r +
+                                          int64_t(t.gy) * g +
+                                          int64_t(t.by) * b + yoff) >> sh);
+        if (half) {                     // each pair of pixels summed
+          if (x & 1) continue;
+          const size_t at = size_t(y) * p.ystride + x + 1;
+          const size_t ct = size_t(y) * p.cstride + x + 1;
+          const int g2 = g + py[at], b2 = b + pu[ct], r2 = r + pv[ct];
+          const size_t i = size_t(y) * csw + (x >> 1);
+          ui[i] = uint16_t((int64_t(t.ru) * r2 + int64_t(t.gu) * g2 +
+                            int64_t(t.bu) * b2 + 2 * coff) >> (sh + 1));
+          vi[i] = uint16_t((int64_t(t.rv) * r2 + int64_t(t.gv) * g2 +
+                            int64_t(t.bv) * b2 + 2 * coff) >> (sh + 1));
+          continue;
+        }
+        if (x >= csw) continue;
+        const size_t i = size_t(y) * csw + x;
         ui[i] = uint16_t((int64_t(t.ru) * r + int64_t(t.gu) * g +
                           int64_t(t.bu) * b + coff) >> sh);
         vi[i] = uint16_t((int64_t(t.rv) * r + int64_t(t.gv) * g +
@@ -2481,8 +2915,8 @@ std::vector<uint8_t> scaled_bgr(const Picture& p, const T* py, const T* pu,
       }
     const int line = d < 16 ? 0 : 16;
     Y = hscale(yi.data(), w, h, lh, dw, line);
-    U = hscale(ui.data(), w, h, hf, cdw, line);
-    V = hscale(vi.data(), w, h, hf, cdw, line);
+    U = hscale(ui.data(), csw, h, hf, cdw, line);
+    V = hscale(vi.data(), csw, h, hf, cdw, line);
   } else {
     if (w == dw) {                 // one tap: the samples shifted up
       Y.resize(size_t(h) * w);
@@ -2634,11 +3068,6 @@ std::vector<uint8_t> to_bgr(const Picture& p, int dw = 0, int dh = 0) {
     if (!same) unsupported("an RGB picture of another size than the first");
     return p.bgr;
   }
-  // swscale reads an 8-bit planar RGB picture's chroma at half its even
-  // width when it scales it to half that width or less
-  // (chrSrcHSubSample): not copied.
-  if (p.rgb && p.depth == 8 && !(p.w & 1) && dw <= p.w / 2)
-    unsupported("8-bit planar RGB (gbrp) scaled to half its width or less");
   if (p.rgb && (p.depth > 8 || !same))
     return p.depth > 8
                ? sws::scaled_bgr(p, p.y16.data(), p.u16.data(), p.v16.data(),
@@ -2660,9 +3089,20 @@ std::vector<uint8_t> to_bgr(const Picture& p, int dw = 0, int dh = 0) {
     return sws::scaled_bgr(p, p.y16.data(), p.u16.data(), p.v16.data(), dw,
                            dh);
   std::vector<uint8_t> out(size_t(p.w) * p.h * 3);
+  if (p.grey && !same) {
+    // swscale's scaler takes grey as full range with mid chroma lines
+    // (its no-chroma input), as 4:4:4 of constant chroma.
+    Picture q;
+    q.w = p.w;
+    q.h = p.h;
+    q.xshift = q.yshift = 0;
+    q.ystride = q.cstride = p.ystride;
+    q.full_range = true;
+    q.matrix = p.matrix;
+    q.u.assign(p.y.size(), 128);
+    return sws::scaled_bgr(q, p.y.data(), q.u.data(), q.u.data(), dw, dh);
+  }
   if (p.grey) {
-    if (!same)
-      unsupported("a grey picture of another size than the first");
     for (int y = 0; y < p.h; ++y)
       for (int x = 0; x < p.w; ++x)
         std::memset(&out[(size_t(y) * p.w + x) * 3],
@@ -2768,10 +3208,18 @@ void resize_rgb(const uint8_t* bgr, int h, int w, int size, float* out) {
   }
 }
 
+bool mjpeg_fields(const Track& t);
+
 // Decodes a track's pictures in order.
 class Decoder {
  public:
   explicit Decoder(const Track& t) : t_(t) {
+    if (t.rebased_runs)
+      unsupported("MP4 track run without its data offset after another in "
+                  "one track fragment (libavformat reads its samples from "
+                  "the fragment's base again, the moof's or the first run's "
+                  "bytes, and cv2 stops at the first packet libavcodec "
+                  "refuses)");
     if (t.codec == Codec::kOther && t.container == "AVI" &&
         RawDecoder::avi_unnamed(t.raw_tag))
       broken("AVI video tagged '" + t.tag + "': libavformat's AVI demuxer "
@@ -2786,6 +3234,7 @@ class Decoder {
       raw_.reset(new RawDecoder(t.raw_tag, t.bits, t.width, t.height,
                                 t.bottom_up, t.extradata, t.container));
     }
+    if (t.codec == Codec::kMjpeg) fields_ = mjpeg_fields(t);
     if (t.codec == Codec::kMpeg4)
       mpeg4_.reset(new Mpeg4Decoder(t.config, t.tag));
     if (t.codec == Codec::kMpeg12)
@@ -2857,8 +3306,8 @@ class Decoder {
     calls_.push_back(i);
     out.source = int64_t(calls_.size()) - 1;
     if (t_.codec == Codec::kMjpeg) {
-      // libavcodec tests the first picture alone for a field pair.
-      decode_mjpeg(d, p.size, i == 0 ? t_.height : 0, out);
+      decode_mjpeg(d, p.size, fields_,
+                   t_.tag == "MJPG" || t_.tag == "V_MS/VFW/FOURCC MJPG", out);
       return true;
     }
     if (raw_) return raw_->decode(d, p.size, out);
@@ -2957,6 +3406,7 @@ class Decoder {
  private:
   const Track& t_;
   std::vector<size_t> calls_;     // the packet of each decode() call
+  bool fields_ = false;           // MJPEG field pairs (mjpeg_fields)
   std::unique_ptr<Mpeg4Decoder> mpeg4_;
   std::unique_ptr<Vp8Decoder> vp8_;
   std::unique_ptr<Vp9Decoder> vp9_;
@@ -2991,6 +3441,16 @@ bool jpeg_size(const uint8_t* d, size_t n, int& w, int& h) {
   return false;
 }
 
+// Whether libavcodec reads an MJPEG track as field pairs: its first
+// picture under 3/4 of the container's height (the test it makes of
+// the first picture alone).
+bool mjpeg_fields(const Track& t) {
+  int w = 0, h = 0;
+  return !t.packets.empty() && t.height > 0 &&
+         jpeg_size(&t.file[t.packets[0].off], t.packets[0].size, w, h) &&
+         h < (t.height * 3) / 4;
+}
+
 // The size of the track's first picture, before cv2's turn: the size
 // libavformat's avformat_find_stream_info leaves in the stream's
 // parameters (it decodes the first picture), which cv2 reports and to
@@ -3008,9 +3468,7 @@ void first_size(const Track& t, int& w, int& h) {
     const uint8_t* d = &t.file[p.off];
     switch (t.codec) {
       case Codec::kMjpeg:
-        if (jpeg_size(d, p.size, w, h) && t.height > 0 &&
-            h < (t.height * 3) / 4)
-          unsupported("MJPEG interlaced field pairs (AVI1)");
+        if (jpeg_size(d, p.size, w, h) && mjpeg_fields(t)) h *= 2;
         break;
       case Codec::kVp8:
         if (p.size >= 10 && !(d[0] & 1)) {
@@ -3367,9 +3825,9 @@ void viai_video_free(uint8_t* p) { std::free(p); }
 // Planes of (h, w) luma and chroma (h >> yshift, w >> xshift, rounded
 // up), 8-bit (depth 8: bytes) or 9 to 14-bit (uint16_t), rows packed →
 // out (dh, dw, 3) BGR24 as to_bgr converts a decoded picture to that
-// size; full_range, matrix (swscale's colour space), chroma_loc and rgb
-// (planar G, B, R) as Picture's. → 0, or 1 with err set for a layout
-// to_bgr has no route for.
+// size; full_range, matrix (swscale's colour space) and chroma_loc as
+// Picture's; rgb 1: planar G, B, R, 2: grey (y alone, 8 bits). → 0, or 1
+// with err set for a layout to_bgr has no route for.
 int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
                         int32_t w, int32_t h, int32_t xshift, int32_t yshift,
                         int32_t depth, int32_t full_range, int32_t matrix,
@@ -3389,7 +3847,8 @@ int32_t viai_yuv_to_bgr(const void* y, const void* u, const void* v,
     p.full_range = full_range != 0;
     p.matrix = matrix;
     p.chroma_loc = chroma_loc;
-    p.rgb = rgb != 0;
+    p.rgb = rgb == 1;
+    p.grey = rgb == 2;
     p.ystride = w;
     p.cstride = (w + (1 << xshift) - 1) >> xshift;
     const size_t ny = size_t(w) * h,

@@ -407,7 +407,7 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                shift: tuple[int, int] = (1, 1), depth: int = 8,
                full_range: bool = False, matrix: int = 5,
                chroma_loc: int = 0, size: tuple[int, int] | None = None,
-               rgb: bool = False) -> np.ndarray:
+               rgb: bool = False, grey: bool = False) -> np.ndarray:
     """Planes of a decoded picture → (h, w, 3) BGR uint8, as the video
     reader converts them (swscale's routes to BGR24, as cv2 runs them):
     `y` (h, w), `u` and `v` (h >> yshift, w >> xshift, rounded up) for
@@ -420,7 +420,8 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     3 top left ...), where swscale's scaler places the chroma samples;
     `size` (h, w), scaled to it as swscale's bicubic scaler scales a
     picture of another size than a stream's first; `rgb`, planar G, B, R
-    (gbrp) in y, u, v at (0, 0)."""
+    (gbrp) in y, u, v at (0, 0); `grey`, 8-bit grey in y (u and v, at
+    (0, 0), not read)."""
     h, w = y.shape
     dh, dw = size or (h, w)
     xs, ys = shift
@@ -432,7 +433,7 @@ def yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     err = ctypes.create_string_buffer(_ERR_LEN)
     rc = library().viai_yuv_to_bgr(
         *(p.ctypes.data for p in planes), w, h, xs, ys, depth,
-        int(full_range), matrix, chroma_loc, dw, dh, int(rgb),
+        int(full_range), matrix, chroma_loc, dw, dh, 1 if rgb else 2 * grey,
         out.ctypes.data, err, _ERR_LEN)
     if rc:
         raise _image_error(rc, err)
