@@ -446,12 +446,14 @@ VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
              "mpeg12": 0, "raw": 0, "hevc": 0, "ffv1": 0, "utvideo": 0,
-             "huffyuv": 0, "png": 0, "muxers": 0}
+             "huffyuv": 0, "png": 0, "h263": 0, "muxers": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
                "raw": "uncompressed", "hevc": "HEVC", "ffv1": "FFV1",
                "utvideo": "UT Video", "huffyuv": "HuffYUV/FFVHuff",
-               "png": "PNG", "muxers": "muxers' tails (every codec)"}
+               "png": "PNG",
+               "h263": "H.263 family (MS-MPEG4 v2/v3, WMV1/2, FLV1)",
+               "muxers": "muxers' tails (every codec)"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
 VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
@@ -459,7 +461,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "vp9": ("clip_vp9.webm", "clip_vp9.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
-                 "xvid": ("clip_xvid.avi", "clip_dx50.mp4"),
+                 "xvid": ("clip_xvid.avi", "clip_dx50.mp4", "clip_div3.avi",
+                          "clip_wmv2.avi"),
                  "phone": ("clip_phone.mp4", "clip_frag.mp4",
                            "clip_strip.mkv", "clip_nodd.mkv"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
@@ -527,7 +530,8 @@ HEVC_FIXTURES = (
     "hevc_default_mp4", "hevc_hev1_mp4", "hevc_nowpp_mkv", "hevc_slices_avi",
     "hevc_wpp16_avi", "hevc_tskip_mkv", "hevc_amp_mp4", "hevc_weightb_avi", "hevc_scaling_mkv",
     "hevc_ctu32_avi", "hevc_ctu16_mp4", "hevc_opengop_mkv", "hevc_radl_avi",
-    "hevc_irefresh_mp4", "hevc_cintra_mkv", "hevc_tlayers_avi",
+    "hevc_irefresh_mp4", "hevc_cintra_mkv", "hevc_cintra16_avi",
+    "hevc_cintra4_mp4", "hevc_cintra32_mkv", "hevc_tlayers_avi",
     "hevc_bframes8_mp4", "hevc_nosign_mkv", "hevc_tu8_avi",
     "hevc_lossless_mp4", "hevc_culossless_mkv", "hevc_still_avi",
     "hevc_crop_mkv", "hevc_main10_mp4", "hevc_main10gop_mkv",
@@ -581,6 +585,20 @@ MUXER_FIXTURES = (
     "mjpeg_fields_mkv", "mjpeg_fieldsavrn_avi", "mjpeg_greyresize_avi",
     "h264_gbrhalf_avi")
 MUXER_CLIPS = ("clip_strip_mkv", "clip_nodd_mkv")
+# the committed fixtures of the H.263 family as old AVIs and OpenCV's
+# writer store it (tests/_torch_make_videos.py's LEGACY_CASES: MS-MPEG4 v2
+# and v3 under their tags and Matroska's V_MPEG4/MS/V3, WMV1 with
+# inter-intra prediction, WMV2 with its loop filter, coded block pattern
+# tables and skip maps, FLV1 with disposable pictures, slices written in,
+# cv2's own files; every .npz of these prefixes) and its 224x224 clips
+# (clip_div3.avi and clip_wmv2.avi train in the xvid folder), each held
+# and printed, and a frame of each codec timed
+LEGACY_PREFIXES = ("msmpeg4", "wmv1_", "wmv2_", "flv_", "cv2_")
+LEGACY_CLIPS = {"clip_div3.avi": "MS-MPEG4 v3 (DivX 3), GOPs of 12",
+                "clip_mp42.avi": "MS-MPEG4 v2, GOPs of 12",
+                "clip_wmv1.avi": "WMV1 (WMV7), GOPs of 12",
+                "clip_wmv2.avi": "WMV2 (WMV8), GOPs of 12",
+                "clip_flv1.avi": "Sorenson H.263 (FLV1), GOPs of 12"}
 HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
@@ -2087,6 +2105,22 @@ def phase_frames(dev, ckpt: str, card: str) -> int:
 
 # ---------------------------------------------------------------------------
 # Compressed video
+def video_legacy_costs(best_ms, card: str):
+    """[video] (d): a 224x224 frame's decode of each codec of the H.263
+    family (LEGACY_CLIPS: MS-MPEG4 v2 and v3, WMV1, WMV2, FLV1, GOPs of
+    12), each the best of VIDEO_REPS decodes of the whole file over its
+    frames, on one thread."""
+    from viai_tpu_torch import native
+
+    res = []
+    for src, what in LEGACY_CLIPS.items():
+        path = str(VIDEO_FIXTURES / src)
+        n, h, w = native.decode_video(path).shape[:3]
+        ms = best_ms(lambda: native.decode_video(path)) / n
+        res.append(f"{what} ({src}) at {w}x{h}: {ms:.3f} ms a frame")
+    log("[video] H.263-family decode (demux, decode, BGR; one thread): "
+        + "; ".join(res) + f"; {card}")
+
 # ---------------------------------------------------------------------------
 
 def write_video_clips(root: pathlib.Path, wavs: list[str],
@@ -2142,7 +2176,7 @@ def video_fixtures():
     cases = sorted(VIDEO_FIXTURES.glob("*.npz"))
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
     per_browser, per_screen, per_dvd, per_raw, per_hevc = [], [], [], [], []
-    per_tools, per_lossless, per_muxers = [], [], []
+    per_tools, per_lossless, per_muxers, per_legacy = [], [], [], []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2198,6 +2232,14 @@ def video_fixtures():
             worst["muxers"] = max(worst["muxers"], err)
             n_frames["muxers"] += len(ref["index"])
             n_files["muxers"] += 1
+        if track.codec == "h263":
+            require(npz.stem.startswith(LEGACY_PREFIXES) or
+                    path.name in LEGACY_CLIPS,
+                    f"[video] {path.name}: an H.263-family file unlisted")
+            per_legacy.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
         if npz.stem.startswith("raw_") or npz.stem in RAW_CLIPS:
             per_raw.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
@@ -2276,6 +2318,13 @@ def video_fixtures():
     require(len(per_muxers) == len(MUXER_FIXTURES) + len(MUXER_CLIPS),
             f"[video] {len(per_muxers)} muxer fixtures of "
             f"{len(MUXER_FIXTURES) + len(MUXER_CLIPS)}")
+    n_legacy = sum(len(list(VIDEO_FIXTURES.glob(f"{p}*.npz")))
+                   for p in LEGACY_PREFIXES) + len(LEGACY_CLIPS)
+    log(f"[video] the H.263 family as old AVIs and cv2's writer store it "
+        f"({len(per_legacy)} fixtures): " + "; ".join(per_legacy))
+    require(len(per_legacy) == n_legacy and n_legacy > len(LEGACY_CLIPS),
+            f"[video] {len(per_legacy)} H.263-family fixtures of "
+            f"{n_legacy}")
     video_hevc_1080p()
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
@@ -2358,7 +2407,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     (WebM, Matroska), VP9 clips (WebM, MP4), H.264 clips (MP4,
     Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
     H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
-    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4),
+    Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4)
+    with DivX 3 and WMV8 AVIs beside them,
     then phone clips (H.264 turned 90 degrees with AAC, fragmented, and
     header-stripped in Matroska; HEVC in Matroska without
     DefaultDuration), then camera clips (High 4:2:2 10-bit in MP4, PsF without
@@ -2381,7 +2431,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     a 720x480 MPEG-2 frame's decode and conversion, a 224x224 I420 and a
     720x480 YUY2 frame's read and conversion, a clip's read, a 224x224
     and a 1920x1080 HEVC frame's decode, a 224x224 FFV1 and UT Video
-    frame's decode, the loader's wait share of a step from each folder
+    frame's decode, a 224x224 frame's of each H.263-family codec, the
+    loader's wait share of a step from each folder
     (in its training run).
     Returns the GL kernel's launches."""
     from viai_tpu_torch import native
@@ -2462,7 +2513,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                        ("clip_strip.mkv",
                         "H.264 High, header-stripped as mkvmerge wrote it"),
                        ("clip_nodd.mkv",
-                        "HEVC Main without DefaultDuration")):
+                        "HEVC Main without DefaultDuration"),
+                       *LEGACY_CLIPS.items()):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2480,6 +2532,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_raw_costs(best_ms, card)
     video_hevc_costs(best_ms, card)
     video_lossless_costs(best_ms, card)
+    video_legacy_costs(best_ms, card)
     video_strip_cost(best_ms, card)
     log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
         f"folders)")

@@ -309,6 +309,8 @@ LAVC_CASES = {
                         b"XviD0001"),
     "xvid_gmc1_avi": ("libxvid", {"bf": 2, "flags": "+qpel+mv4", "gmc": 1,
                                   "mpeg_quant": 1}, b"XVID", None),
+    "mpeg4_saturated_avi": ("mpeg4", {"qmin": 31, "qmax": 31,
+                                      "flags": "+mv4"}, b"DX50", None),
 }
 # the cases of LAVC_CASES at another size than 96x64, (h, w): an early
 # XviD build's stream (user data XviD0001: libavcodec's quarter-pel chroma,
@@ -320,6 +322,11 @@ LAVC_GMC1 = {"xvid_gmc1_avi"}
 # the cases of LAVC_CASES that encode a 96x64 crop of the 224x224 clip's
 # first frames (moving_frames' content gives libxvid no GMC macroblock)
 LAVC_CROP = {"xvid_gmc_avi", "xvid_gmc1_avi"}
+# the cases of LAVC_CASES of saturated colours (moving_frames' samples
+# made 0 or 255): P-VOPs of rounding type 1 whose chroma references hold
+# 0, where libavcodec's 8-wide no-round half-pel averaging is approximate
+# (mpeg_bits.h's hpel)
+LAVC_SATURATED = {"mpeg4_saturated_avi"}
 # the cases of LAVC_CASES encoded with these intra and inter matrices
 LAVC_MATRICES = {"mpeg4_matrices_avi": (
     [8] + [10 + i // 3 for i in range(1, 64)],
@@ -827,6 +834,25 @@ LOSSLESS_CASES = {
     "ffvh_p16_avi": ("ffvhuff", "yuv420p16le", dict(pred="left",
                                                     size=(30, 46))),
     "ffvh_gray_avi": ("ffvhuff", "gray", dict(pred="median")),
+    # F8: alpha with 4:2:0 / 4:2:2 chroma at an odd width (a last chroma
+    # column the bitstream does not code) and one row high (a 4:2:0 chroma
+    # line coded for a plane of none); an odd height beside them.
+    "ffvh_a420odd_avi": ("ffvhuff", "yuva420p", dict(pred="left",
+                                                     size=(77, 77))),
+    "ffvh_a420oddw_mkv": ("ffvhuff", "yuva420p", dict(pred="median",
+                                                      size=(64, 77))),
+    "ffvh_a420row_avi": ("ffvhuff", "yuva420p", dict(pred="left",
+                                                     size=(1, 24))),
+    "ffvh_a420rowmed_mkv": ("ffvhuff", "yuva420p", dict(pred="median",
+                                                        size=(1, 24))),
+    "ffvh_a420tall_avi": ("ffvhuff", "yuva420p", dict(pred="plane",
+                                                      size=(77, 64))),
+    "ffvh_a422odd_mkv": ("ffvhuff", "yuva422p", dict(pred="median",
+                                                     size=(77, 77))),
+    "ffvh_a422oddw_avi": ("ffvhuff", "yuva422p", dict(pred="left",
+                                                      size=(64, 77))),
+    "ffvh_a422row_avi": ("ffvhuff", "yuva422p", dict(pred="median",
+                                                     size=(1, 24))),
     "ffvh_gbrap_avi": ("ffvhuff", "gbrap", dict(pred="median",
                                                 size=(29, 45))),
     "png_rgb_avi": ("png", "rgb24", dict(tag="MPNG")),
@@ -887,6 +913,18 @@ HEVC_CASES = {
     "hevc_radl_avi": dict(params="open-gop=0:radl=2"),
     "hevc_irefresh_mp4": dict(params="intra-refresh=1"),
     "hevc_cintra_mkv": dict(params="constrained-intra=1"),
+    # F7: libavcodec's own reference samples under constrained intra
+    # prediction (csrc/hevc.cpp's cip_refs), intra-only and with P and B
+    # pictures, on moving_frames(13) (`seed`) at 192x128
+    "hevc_cintra16_avi": dict(
+        params="constrained-intra=1:ctu=16:min-cu-size=16:tu-intra-depth=3:"
+        "keyint=1", size=(128, 192), frames=3, seed=13),
+    "hevc_cintra4_mp4": dict(
+        params="constrained-intra=1:min-cu-size=16:max-tu-size=4:keyint=1",
+        size=(128, 192), frames=3, seed=13),
+    "hevc_cintra32_mkv": dict(
+        params="constrained-intra=1:min-cu-size=32:max-tu-size=4",
+        size=(128, 192), frames=3, seed=13),
     "hevc_tlayers_avi": dict(params="temporal-layers=1"),
     "hevc_bframes8_mp4": dict(params="bframes=8:b-pyramid=1:ref=6"),
     "hevc_nosign_mkv": dict(params="signhide=0:temporal-mvp=0"),
@@ -1140,15 +1178,130 @@ MUXER_CASES = {
 # DefaultDuration (its rate from its VUI).
 MUXER_CLIPS = {"clip_strip_mkv": dict(stream="h264", enc="strip"),
                "clip_nodd_mkv": dict(stream="hevc", rate=25)}
+# The H.263 family as old AVIs and OpenCV's writer store it
+# (tests/test_torch_video_legacy.py): LEGACY_FRAMES frames of
+# moving_frames at LEGACY_SIZE (h, w) unless `size`/`frames` say
+# otherwise (`noise`: uniform noise of that amplitude added, so that
+# fine quantisers reach the escapes and the high-motion tables), from
+# the system's libavcodec 59 (lavc_encode's "msmpeg4v2", "msmpeg4" (v3),
+# "wmv1", "wmv2", "flv" with the options given; WMV2's 4-byte extradata
+# into the strf), in the container the name ends with: AVI under `tag`
+# (avi_file) or Matroska, V_MS/VFW/FOURCC with a BITMAPINFOHEADER (and
+# the extradata after it), V_MPEG4/MS/V3 where `v3id`. "cv2" is
+# cv2.VideoWriter under the fourcc `tag`. `edit` rewrites the stream
+# (legacy_edit): "slices N" the I pictures' slice code (v3, WMV1: N
+# slices) or WMV2's extradata's; "skipmap T" WMV2's P pictures with a
+# skip map of type T that skips nothing; "skipall" WMV2's P pictures 4
+# and 8 skipping every macroblock (no picture, as libavcodec's
+# FRAME_SKIPPED); "disposable" FLV1's odd P pictures made disposable.
+# The encoders write one slice, the DC and vector tables 1, WMV2's ABT
+# type 0 and no mspel, skip map or top-left prediction; v3's and
+# WMV1's run-level tables follow the quantiser and content (0: q 31,
+# 1: the defaults, 2: noise at a high rate), WMV2's coded block pattern
+# tables the quantiser (0 to 10, 11 to 20, 21 to 31); WMV1 codes
+# inter-intra prediction below 320x240 at 128 kbit/s or less; "+loop"
+# sets WMV2's loop filter; FLV1 at q 1 on noise reaches its 11-bit
+# escape. `saturate`: moving_frames' samples made 0 or 255 (chroma
+# references at 0, where libavcodec's 8-wide no-round averaging is
+# approximate). "syntax" is msmpeg4_syntax's random pictures of `variant`
+# (what the encoders never write: every run-level, DC and vector table
+# by picture, escapes of every kind, per-macroblock tables, inter-intra
+# prediction, WMV2's mspel, ABT, top-left prediction and skip maps),
+# `frames` of them (an I picture every 4), seeded by the name.
+LEGACY_FRAMES, LEGACY_SIZE = 10, (48, 64)
+LEGACY_CASES = {
+    "msmpeg4v2_avi": ("msmpeg4v2", "MP42", dict(g=4)),
+    "msmpeg4v2_q2_mkv": ("msmpeg4v2", "DIV2", dict(g=5, qmin=2, qmax=2,
+                                                    noise=40)),
+    "msmpeg4v2_odd_avi": ("msmpeg4v2", "MP42", dict(g=4, size=(45, 77))),
+    "msmpeg4_avi": ("msmpeg4", "MP43", dict(g=4)),
+    "msmpeg4_div3_avi": ("msmpeg4", "DIV3", dict(g=12, b=3000000,
+                                                  noise=120)),
+    "msmpeg4_q31_avi": ("msmpeg4", "MPG3", dict(g=12, qmin=31, qmax=31)),
+    "msmpeg4_q2_mkv": ("msmpeg4", "DIV4", dict(g=6, qmin=2, qmax=2,
+                                                noise=60)),
+    "msmpeg4_v3id_mkv": ("msmpeg4", "MP43", dict(g=5, v3id=True)),
+    "msmpeg4_odd_avi": ("msmpeg4", "DIV5", dict(g=4, size=(45, 77))),
+    "msmpeg4_slices_avi": ("msmpeg4", "DIV6", dict(
+        g=4, size=(96, 64), edit="slices 3")),
+    "msmpeg4_slices2_mkv": ("msmpeg4", "AP41", dict(
+        g=6, size=(112, 48), edit="slices 2", noise=30)),
+    "msmpeg4_col1_avi": ("msmpeg4", "COL1", dict(g=300, b=60000)),
+    "wmv1_avi": ("wmv1", "WMV1", dict(g=4)),
+    "wmv1_ii_avi": ("wmv1", "WMV1", dict(g=6, b=100000)),
+    "wmv1_noise_mkv": ("wmv1", "WMV1", dict(g=12, b=3000000, noise=120)),
+    "wmv1_q31_avi": ("wmv1", "WMV1", dict(g=12, qmin=31, qmax=31)),
+    "wmv1_q2_avi": ("wmv1", "WMV1", dict(g=5, qmin=2, qmax=2, noise=60)),
+    "wmv1_odd_avi": ("wmv1", "WMV1", dict(g=4, size=(45, 64))),
+    "wmv1_slices_avi": ("wmv1", "WMV1", dict(g=4, size=(96, 64),
+                                             edit="slices 2")),
+    "wmv2_avi": ("wmv2", "WMV2", dict(g=4)),
+    "wmv2_q15_mkv": ("wmv2", "WMV2", dict(g=6, qmin=15, qmax=15)),
+    "wmv2_q31_avi": ("wmv2", "WMV2", dict(g=6, qmin=31, qmax=31)),
+    "wmv2_noise_avi": ("wmv2", "WMV2", dict(g=12, qmin=2, qmax=2,
+                                            noise=60)),
+    "wmv2_loop_avi": ("wmv2", "WMV2", dict(g=5, flags="+loop", qmin=12,
+                                           qmax=12)),
+    "wmv2_loop_mkv": ("wmv2", "WMV2", dict(g=300, flags="+loop",
+                                           size=(45, 64))),
+    "wmv2_slices_avi": ("wmv2", "WMV2", dict(g=4, size=(96, 64),
+                                             edit="slices 3")),
+    "wmv2_skipmap1_avi": ("wmv2", "WMV2", dict(g=4, edit="skipmap 1")),
+    "wmv2_skipmap2_avi": ("wmv2", "WMV2", dict(g=4, edit="skipmap 2")),
+    "wmv2_skipmap3_mkv": ("wmv2", "WMV2", dict(g=4, edit="skipmap 3")),
+    "wmv2_skipall_avi": ("wmv2", "WMV2", dict(g=12, edit="skipall")),
+    "flv_avi": ("flv", "FLV1", dict(g=4)),
+    "flv_q1_mkv": ("flv", "FLV1", dict(g=5, qmin=1, qmax=1, noise=120)),
+    "flv_odd_avi": ("flv", "FLV1", dict(g=4, size=(45, 77))),
+    "flv_large_avi": ("flv", "FLV1", dict(g=3, size=(16, 272))),
+    "flv_disposable_avi": ("flv", "FLV1", dict(g=12, edit="disposable")),
+    "msmpeg4_sat_avi": ("msmpeg4", "DIV3", dict(g=12, qmin=31, qmax=31,
+                                                 saturate=True)),
+    "wmv2_sat_mkv": ("wmv2", "WMV2", dict(g=12, qmin=31, qmax=31,
+                                          saturate=True)),
+    "msmpeg4_syntax_avi": ("syntax", "DIV3", dict(variant="v3", q=5,
+                                                  slices=2, size=(64, 96))),
+    "msmpeg4_syntaxq_mkv": ("syntax", "MP43", dict(variant="v3", q=20)),
+    "wmv1_syntax_avi": ("syntax", "WMV1", dict(variant="wmv1", q=6)),
+    "wmv1_syntaxii_avi": ("syntax", "WMV1", dict(variant="wmv1", q=12,
+                                                 bitrate=100 * 1024)),
+    "wmv1_syntaxlow_mkv": ("syntax", "WMV1", dict(variant="wmv1", q=9,
+                                                  bitrate=30 * 1024)),
+    "wmv2_syntax_avi": ("syntax", "WMV2", dict(variant="wmv2", q=4)),
+    "wmv2_syntaxq_mkv": ("syntax", "WMV2", dict(variant="wmv2", q=16,
+                                                loop=1, slices=2,
+                                                size=(64, 96))),
+    "wmv2_syntaxnoabt_avi": ("syntax", "WMV2", dict(variant="wmv2", q=24,
+                                                    abt=0, top_left=0)),
+    "cv2_mp42_avi": ("cv2", "MP42", {}),
+    "cv2_mp43_avi": ("cv2", "MP43", {}),
+    "cv2_div3_mkv": ("cv2", "DIV3", {}),
+    "cv2_wmv1_avi": ("cv2", "WMV1", {}),
+    "cv2_wmv2_avi": ("cv2", "WMV2", {}),
+    "cv2_wmv2_mkv": ("cv2", "WMV2", {}),
+    "cv2_flv1_avi": ("cv2", "FLV1", {}),
+}
+# The clips chip_smoke.py's `xvid` folder also trains from, of the
+# committed 224x224 clip's first 16 frames: DivX 3 as its AVIs hold it,
+# WMV8 as Windows Media's AVI exports do; and the family's other codecs
+# at that size, which it times a frame of.
+LEGACY_CLIPS = {"clip_div3_avi": ("msmpeg4", "DIV3", dict(g=12)),
+                "clip_wmv2_avi": ("wmv2", "WMV2", dict(g=12)),
+                "clip_mp42_avi": ("msmpeg4v2", "MP42", dict(g=12)),
+                "clip_wmv1_avi": ("wmv1", "WMV1", dict(g=12)),
+                "clip_flv1_avi": ("flv", "FLV1", dict(g=12))}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
         *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS,
-        *LOSSLESS_CASES, *LOSSLESS_CLIPS, *MUXER_CASES, *MUXER_CLIPS)
+        *LOSSLESS_CASES, *LOSSLESS_CLIPS, *MUXER_CASES, *MUXER_CLIPS,
+        *LEGACY_CASES, *LEGACY_CLIPS)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
+    if name in LEGACY_CASES or name in LEGACY_CLIPS:
+        return "h263"
     if name in MUXER_CASES or name in MUXER_CLIPS:
         kind = {**MUXER_CASES, **MUXER_CLIPS}[name]["stream"]
         return {"h264gbr": "h264", "mpeg2": "mpeg12", "mpeg1": "mpeg12",
@@ -1182,7 +1335,8 @@ def path_of(name: str) -> str:
     if (name in PHONE_CLIPS or name in CAMERA_CLIPS or name in BROWSER_CLIPS
             or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
             or name in HEVC_CLIPS or name in TOOLS_CLIPS
-            or name in LOSSLESS_CLIPS or name in MUXER_CLIPS):
+            or name in LOSSLESS_CLIPS or name in MUXER_CLIPS
+            or name in LEGACY_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -3773,6 +3927,16 @@ def cv2_view(path: str) -> tuple[np.ndarray, int]:
     return np.stack(frames), count
 
 
+def relabel(src: str, dst: str, old: bytes, new: bytes) -> str:
+    """A copy of the AVI `src` at `dst` with its strh and strf fourccs
+    `old` rewritten `new`."""
+    data = open(src, "rb").read()
+    assert data.count(old) >= 2, (src, old)
+    with open(dst, "wb") as f:
+        f.write(data.replace(old, new))
+    return dst
+
+
 def h264_file(aus: list[tuple[bytes, int, int]], w: int, h: int,
               container: str, fps: int = 25,
               edits: list[tuple[int, int | None]] | None = None) -> bytes:
@@ -3846,7 +4010,7 @@ def hevc_stream(settings: dict, frames=None,
     t = settings.pop("frames", HEVC_FRAMES)
     cut = settings.pop("cut", False)
     params = settings.pop("params", "")
-    for k in ("entry", "matrix", "audio"):
+    for k in ("entry", "matrix", "audio", "seed"):
         settings.pop(k, None)
     if frames is None:
         frames = moving_frames(seed, t, h, w)
@@ -4580,6 +4744,567 @@ def lossless_file(name: str) -> bytes:
                     codec_private=bih + info["extradata"])
 
 
+def _bits(data: bytes) -> str:
+    return "".join(f"{b:08b}" for b in data)
+
+
+def _bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def legacy_edit(edit: str, packets: list[bytes], extradata: bytes,
+                enc: str, w: int, h: int) -> tuple[list[bytes], bytes]:
+    """A LEGACY_CASES edit of an H.263-family stream (its packets and
+    extradata), bit by bit at the picture headers."""
+    kind, _, arg = edit.partition(" ")
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    out = []
+    if kind == "slices" and enc == "wmv2":
+        bits = _bits(extradata)                 # the 3-bit slice code
+        return packets, _bytes(bits[:22] + f"{int(arg):03b}" + bits[25:])
+    for k, p in enumerate(packets):
+        bits = _bits(p)
+        if kind == "slices" and bits[:2] == "00":
+            # v3 / WMV1 I pictures: 2-bit type, 5-bit quantiser, then 0x16
+            # plus the number of slices.
+            bits = bits[:7] + f"{0x16 + int(arg):05b}" + bits[12:]
+        elif kind == "skipmap" and bits[0] == "1":
+            # WMV2 P pictures: type, quantiser, then skip type 0 → T and a
+            # map that skips nothing.
+            t = int(arg)
+            skip = {1: "0" * (mbw * mbh), 2: ("0" + "0" * mbw) * mbh,
+                    3: ("0" + "0" * mbh) * mbw}[t]
+            bits = bits[:6] + f"{t:02b}" + skip + bits[8:]
+        elif kind == "skipall" and k in (4, 8):
+            assert bits[0] == "1"               # a P picture, skipped
+            bits = bits[:6] + "10" + "1" * mbh
+        elif kind == "disposable" and k % 2:
+            f = int(bits[30:33], 2)             # FLV1's size format
+            at = 33 + {0: 16, 1: 32}.get(f, 0)
+            assert bits[at:at + 2] == "01"
+            bits = bits[:at] + "10" + bits[at + 2:]
+        out.append(_bytes(bits))
+    return out, extradata
+
+
+_MSMP4_TABLES: dict = {}
+
+
+def msmpeg4_tables() -> dict:
+    """The arrays of viai_tpu_torch/csrc/msmpeg4_tables.h (read from
+    libavcodec's static library), by name, flattened."""
+    import re
+
+    if not _MSMP4_TABLES:
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "viai_tpu_torch", "csrc",
+            "msmpeg4_tables.h")
+        text = open(path).read()
+        for m in re.finditer(r"(?:const|constexpr) \w+ (k\w+)(?:\[\d+\])+ = "
+                             r"\{([^}]*)\}", text):
+            _MSMP4_TABLES[m.group(1)] = [int(v) for v in m.group(2).replace(
+                "\n", " ").split(",") if v.strip()]
+    return _MSMP4_TABLES
+
+
+class _BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def put(self, n: int, v: int):
+        self.bits.append(format(v & ((1 << n) - 1), f"0{n}b") if n else "")
+
+    def code(self, table: list[int], sym: int):
+        """(code, length) pair `sym` of a flattened [n][2] table."""
+        self.put(table[2 * sym + 1], table[2 * sym])
+
+    def d012(self, v: int):
+        self.put(*((1, 0) if v == 0 else (2, 1 + v)))
+
+    def bytes(self) -> bytes:
+        return _bytes("".join(self.bits))
+
+
+def msmpeg4_syntax(variant: str, w: int, h: int, frames: int, seed: int,
+                   q: int = 8, gop: int = 100, **modes) -> tuple[list[bytes],
+                                                                 bytes]:
+    """Random but valid MS-MPEG4 v3 ("v3"), WMV1 or WMV2 pictures of
+    (w, h), `frames` of them (an I picture every `gop`), written symbol by
+    symbol with the tables of csrc/msmpeg4_tables.h: every macroblock
+    type, coded block pattern, DC difference (escapes too), vector
+    (escapes too) and coefficient a seeded generator picks, each
+    coefficient by a plain code, the first, second or third escape. What
+    libavcodec 59's encoders never write is chosen per picture here: the
+    run-level, DC and vector tables (`tables`: fixed (rl, rl_chroma, dc,
+    mv), else random), `slices`, the skip code, WMV1's per-macroblock
+    tables (`bitrate` over 50 kbit/s) and inter-intra prediction
+    (`bitrate` up to 128 kbit/s), WMV2's extradata flags (`mspel`,
+    `abt`, `top_left`, `per_mb_rl`, `loop`), skip maps (random partial
+    maps of the four types) and ABT block types. → (packets, WMV2's
+    extradata)."""
+    rng = np.random.default_rng(seed)
+    T = msmpeg4_tables()
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    wmv = variant in ("wmv1", "wmv2")
+    bitrate = modes.get("bitrate", 200 * 1024)
+    flags = {k: modes.get(k, 1) for k in ("mspel", "abt", "top_left",
+                                          "per_mb_rl")}
+    loop = modes.get("loop", 0)
+    slices = modes.get("slices", 1)
+    extradata = b""
+    if variant == "wmv2":
+        x = _BitWriter()
+        x.put(5, 25)
+        x.put(11, bitrate // 1024)
+        for k in ("mspel",):
+            x.put(1, flags[k])
+        x.put(1, loop)
+        x.put(1, flags["abt"])
+        x.put(1, 1)                                   # j_type_bit
+        x.put(1, flags["top_left"])
+        x.put(1, flags["per_mb_rl"])
+        x.put(3, slices)
+        extradata = x.bytes()[:4]
+    rl_tabs = [(T[f"kRl{k}Vlc"], T[f"kRl{k}Run"], T[f"kRl{k}Level"],
+                T["kRlN"][k], T["kRlLast"][k]) for k in range(6)]
+
+    def maxes(k):
+        _, run, level, n, last = rl_tabs[k]
+        ml = [[0] * 65 for _ in range(2)]
+        mr = [[0] * 65 for _ in range(2)]
+        for i in range(n):
+            lst = int(i >= last)
+            ml[lst][run[i]] = max(ml[lst][run[i]], level[i])
+            mr[lst][level[i]] = max(mr[lst][level[i]], run[i])
+        return ml, mr
+
+    rl_max = [maxes(k) for k in range(6)]
+    packets = []
+    mvs = np.zeros((mbh, mbw, 2), int)          # WMV2's vector prediction
+    for f in range(frames):
+        b = _BitWriter()
+        intra_pic = f % gop == 0
+        tab = modes.get("tables") or (int(rng.integers(3)),
+                                      int(rng.integers(3)),
+                                      int(rng.integers(2)),
+                                      int(rng.integers(2)))
+        rl, rlc, dc_t, mv_t = tab
+        per_mb_rl = False
+        inter_intra = False
+        use_skip = bool(rng.integers(2))
+        skip = np.zeros((mbh, mbw), bool)
+        cbp_t, mspel, per_mb_abt, abt_type = 3, 0, 0, 0
+        if variant == "wmv2":
+            b.put(1, 0 if intra_pic else 1)
+            if intra_pic:
+                b.put(7, 0)
+            b.put(5, q)
+            if intra_pic:
+                b.put(1, 0)                           # j_type
+                per_mb_rl = bool(flags["per_mb_rl"] and rng.integers(2))
+                if flags["per_mb_rl"]:
+                    b.put(1, per_mb_rl)
+                if not per_mb_rl:
+                    b.d012(rlc)
+                    b.d012(rl)
+                b.put(1, dc_t)
+            else:
+                stype = int(rng.integers(4))
+                b.put(2, stype)
+                if stype:
+                    skip = rng.random((mbh, mbw)) < 0.3
+                    if stype == 2:
+                        skip[rng.random(mbh) < 0.2] = True
+                    if stype == 3:
+                        skip[:, rng.random(mbw) < 0.2] = True
+                    skip[int(rng.integers(mbh)), int(rng.integers(mbw))] = \
+                        False                  # a picture, not FRAME_SKIPPED
+                    lines = {1: [skip.ravel()], 2: list(skip),
+                             3: list(skip.T)}[stype]
+                    for line in lines:
+                        if stype > 1 and line.all():
+                            b.put(1, 1)
+                            continue
+                        if stype > 1:
+                            b.put(1, 0)
+                        for v in line:
+                            b.put(1, int(v))
+                ci = int(rng.integers(3))
+                b.d012(ci)
+                cbp_t = [[0, 2, 1], [1, 0, 2], [2, 1, 0]][
+                    (q > 10) + (q > 20)][ci]
+                if flags["mspel"]:
+                    mspel = int(rng.integers(2))
+                    b.put(1, mspel)
+                if flags["abt"]:
+                    per_mb_abt = int(rng.integers(2))
+                    b.put(1, per_mb_abt ^ 1)
+                    if not per_mb_abt:
+                        abt_type = int(rng.integers(3))
+                        b.d012(abt_type)
+                per_mb_rl = bool(flags["per_mb_rl"] and rng.integers(2))
+                if flags["per_mb_rl"]:
+                    b.put(1, per_mb_rl)
+                if not per_mb_rl:
+                    b.d012(rl)
+                    rlc = rl
+                b.put(1, dc_t)
+                b.put(1, mv_t)
+        else:
+            b.put(2, 0 if intra_pic else 1)
+            b.put(5, q)
+            if intra_pic:
+                b.put(5, 0x16 + slices)
+                if variant == "v3":
+                    b.d012(rlc)
+                    b.d012(rl)
+                else:
+                    b.put(5, 25)
+                    b.put(11, bitrate // 1024)
+                    b.put(1, 1)                       # flip-flop rounding
+                    if bitrate > 50 * 1024:
+                        per_mb_rl = bool(rng.integers(2))
+                        b.put(1, per_mb_rl)
+                    if not per_mb_rl:
+                        b.d012(rlc)
+                        b.d012(rl)
+                b.put(1, dc_t)
+            else:
+                b.put(1, use_skip)
+                if variant == "wmv1" and bitrate > 50 * 1024:
+                    per_mb_rl = bool(rng.integers(2))
+                    b.put(1, per_mb_rl)
+                if not per_mb_rl:
+                    b.d012(rl)
+                    rlc = rl
+                b.put(1, dc_t)
+                b.put(1, mv_t)
+                inter_intra = (variant == "wmv1" and w * h < 320 * 240
+                               and bitrate <= 128 * 1024)
+        esc3 = {}                                     # WMV's lengths
+        coded = np.zeros((2 * mbh + 1, 2 * mbw + 2), int)
+
+        def coefficients(k: int, start: int, limit: int = 64):
+            """One coded block's coefficients of run-level table k: at
+            least one, positions from `start` below `limit` (a coefficient
+            that is not the last below limit − 1: libavcodec ends a block
+            at 63 otherwise)."""
+            vlc, run, level, n, last = rl_tabs[k]
+            ml, mr = rl_max[k]
+            run_diff = 1 if wmv else (0 if start == 1 else 1)
+            i = start - 1
+
+            def esc3_code(final: bool, r: int, lvl: int):
+                b.code(vlc, n)
+                b.put(2, 0)
+                b.put(1, int(final))
+                if not wmv:
+                    b.put(6, r)
+                    b.put(8, lvl)
+                    return
+                if not esc3:
+                    ll = int(rng.integers(6, 9))
+                    rl_len = int(rng.integers(3, 7))
+                    if q < 8:
+                        b.put(3, ll if ll < 8 else 0)
+                        if ll >= 8:
+                            b.put(1, ll - 8)
+                    else:
+                        b.put(ll - 2, 0)
+                        if ll < 8:
+                            b.put(1, 1)
+                    b.put(2, rl_len - 3)
+                    esc3.update(ll=ll, run=rl_len)
+                b.put(esc3["run"], r)
+                b.put(1, int(lvl < 0))
+                b.put(esc3["ll"], abs(lvl))
+
+            # |level| · 2q + q at most 400: no row of the IDCT leaves 16
+            # bits (cv2's SSE2 simple IDCT saturates there, libavcodec's C
+            # one, which the port copies, wraps; encoders stay far below)
+            top = max(1, (400 - q) // (2 * q))
+            count = int(rng.integers(1, 8))
+            for c in range(count):
+                final = c == count - 1
+                room = limit - (0 if final else 1)   # positions below it
+                for _ in range(32):
+                    mode = int(rng.choice(4, p=[0.55, 0.15, 0.15, 0.15]))
+                    if mode == 3:
+                        r = int(rng.integers(0, 4))
+                        if i + r + 1 >= room:
+                            continue
+                        esc3_code(final, r, int(rng.integers(1, top + 1)) * (
+                            1 if rng.integers(2) else -1))
+                        i += r + 1
+                        break
+                    sym = int(rng.integers(n))
+                    lst = int(sym >= last)
+                    if lst != int(final) or level[sym] + (
+                            ml[lst][run[sym]] if mode == 1 else 0) > top:
+                        continue
+                    adv = run[sym] + 1 + (mr[lst][level[sym]] + run_diff
+                                          if mode == 2 else 0)
+                    if i + adv >= room:
+                        continue
+                    b.code(vlc, n) if mode else None
+                    if mode == 1:
+                        b.put(1, 1)
+                    elif mode == 2:
+                        b.put(2, 1)
+                    b.code(vlc, sym)
+                    b.put(1, int(rng.integers(2)))
+                    i += adv
+                    break
+                else:
+                    # nothing else fits: end the block at the next position
+                    esc3_code(True, 0, 1)
+                    return
+
+        # The DC predictors (level · scale; 1024 outside the picture and
+        # where no intra block is), as ff_msmpeg4_pred_dc reads them, so
+        # that each block's DC level stays in the picture's range.
+        dcs = [np.full((2 * mbh + 1, 2 * mbw + 2), 1024),
+               np.full((mbh + 1, mbw + 2), 1024),
+               np.full((mbh + 1, mbw + 2), 1024)]
+        qs = min(max(q, 1), 31)
+        if variant == "v3":
+            scales = (T["kOldYDcScale"][qs], T["kWmv1CDcScale"][qs])
+        else:
+            scales = (T["kWmv1YDcScale"][qs], T["kWmv1CDcScale"][qs])
+        at = {}
+
+        def dc(n: int, mx: int, my: int, first_line: bool, free: bool):
+            """Block n's DC difference: a level near its prediction (now
+            and then far from it, through the escape); 0 under
+            inter-intra prediction (`free` False), whose prediction from
+            decoded pixels is not simulated here."""
+            tabdc = T[f"kDc{'Lum' if n < 4 else 'Chroma'}{dc_t}"]
+            scale = scales[n >= 4]
+            arr = dcs[0 if n < 4 else n - 3]
+            y, x = ((2 * my + (n >> 1) + 1, 2 * mx + (n & 1) + 1) if n < 4
+                    else (my + 1, mx + 1))
+            a, bb, c = arr[y, x - 1], arr[y - 1, x - 1], arr[y - 1, x]
+            if first_line and not n & 2 and not wmv:
+                bb = c = 1024
+            a, bb, c = ((v + (scale >> 1)) // scale for v in (a, bb, c))
+            if wmv:
+                pred = c if abs(a - bb) < abs(bb - c) else a
+            else:
+                pred = c if abs(a - bb) <= abs(bb - c) else a
+            v = 0
+            if free:
+                top = 2000 // scale
+                target = int(rng.integers(1, top)) if rng.random() < 0.1 \
+                    else min(max(pred + int(rng.integers(-8, 9)), 1), top)
+                v = target - pred
+            arr[y, x] = (pred + v) * scale
+            a_ = abs(v)
+            if a_ >= 119:
+                b.code(tabdc, 119)
+                b.put(8, a_)
+                b.put(1, int(v < 0))
+            else:
+                b.code(tabdc, a_)
+                if a_:
+                    b.put(1, int(v < 0))
+
+        def no_intra(mx: int, my: int):
+            """ff_clean_intra_table_entries: a macroblock not intra."""
+            dcs[0][2 * my + 1:2 * my + 3, 2 * mx + 1:2 * mx + 3] = 1024
+            dcs[1][my + 1, mx + 1] = dcs[2][my + 1, mx + 1] = 1024
+
+        def intra_blocks(cbp: int, k_l: int, k_c: int, mx: int, my: int,
+                         first_line: bool, free: bool = True):
+            for n in range(6):
+                dc(n, mx, my, first_line, free)
+                if (cbp >> (5 - n)) & 1:
+                    coefficients(k_l if n < 4 else 3 + k_c, 1)
+
+        mb_rl = rl
+        for my in range(mbh):
+            first_line = my % max(1, mbh // slices) == 0
+            for mx in range(mbw):
+                if intra_pic:
+                    sym = int(rng.integers(64))
+                    b.code(T["kMbI"], sym)
+                    cbp = 0
+                    for n in range(6):
+                        val = (sym >> (5 - n)) & 1
+                        if n < 4:
+                            y, x = 2 * my + (n >> 1) + 1, 2 * mx + (n & 1) + 1
+                            a, bb, c = coded[y, x - 1], coded[y - 1, x - 1], \
+                                coded[y - 1, x]
+                            val ^= a if bb == c else c
+                            coded[y, x] = val
+                        cbp |= val << (5 - n)
+                    b.put(1, int(rng.random() < 0.2))   # ac_pred
+                    if per_mb_rl and cbp:
+                        mb_rl = int(rng.integers(3))
+                        b.d012(mb_rl)
+                    intra_blocks(cbp, mb_rl if per_mb_rl else rl,
+                                 mb_rl if per_mb_rl else rlc, mx, my,
+                                 first_line)
+                    mvs[my, mx] = 0
+                    continue
+                if variant == "wmv2" and skip[my, mx]:
+                    mvs[my, mx] = 0
+                    no_intra(mx, my)
+                    continue
+                if variant != "wmv2" and use_skip:
+                    if rng.random() < 0.2:
+                        b.put(1, 1)
+                        no_intra(mx, my)
+                        mvs[my, mx] = 0
+                        continue
+                    b.put(1, 0)
+                zero = np.zeros(2, int)
+                A = mvs[my, mx - 1] if mx else zero
+                B = mvs[my - 1, mx] if my else zero
+                C = mvs[my - 1, mx + 1] if my and mx + 1 < mbw else zero
+                t_left = 2
+                if variant == "wmv2":
+                    # wmv2_pred_motion, with its top-left choice
+                    d_tl = 0
+                    if mx and not first_line and not mspel and \
+                            flags["top_left"]:
+                        d_tl = max(abs(A - B))
+                    t_left = int(rng.integers(2)) if d_tl >= 8 else 2
+                    pred = A if t_left == 0 else B if t_left == 1 else \
+                        A if first_line else np.median([A, B, C], axis=0)
+                else:                        # ff_h263_pred_motion
+                    pred = A if first_line else np.median([A, B, C], axis=0)
+                pred = [int(v) for v in pred]
+                # a vector whose blocks stay inside the picture (1 sample
+                # from its edges; libavcodec's reads past them depend on
+                # its buffers' padding), reached from the prediction
+                target = []
+                for k, (pos, size) in enumerate(((mx, mbw), (my, mbh))):
+                    lo = max(2 * (1 - 16 * pos), -63)
+                    hi = min(2 * (16 * size - 18 - 16 * pos) + 1, 63)
+                    opts = [v for v in range(pred[k] - 32, pred[k] + 32)
+                            if lo <= v <= hi]
+                    target.append(int(rng.choice(opts)) if opts else None)
+                sym = int(rng.integers(128))
+                if None in target:
+                    sym &= 63                # intra: no vector to reach
+                b.code(T[f"kMbNonIntra{cbp_t}"], sym)
+                cbp, intra = sym & 63, not sym & 64
+                if intra:
+                    b.put(1, int(rng.random() < 0.2))   # ac_pred
+                    if inter_intra:
+                        b.code(T["kInterIntra"], int(rng.integers(4)))
+                    if per_mb_rl and cbp:
+                        mb_rl = int(rng.integers(3))
+                        b.d012(mb_rl)
+                    k = mb_rl if per_mb_rl else rl
+                    intra_blocks(cbp, k, k, mx, my, first_line,
+                                 not inter_intra)
+                    mvs[my, mx] = 0
+                    continue
+                no_intra(mx, my)
+                if variant == "wmv2":
+                    if t_left < 2:
+                        b.put(1, t_left)
+                    if cbp:
+                        if per_mb_rl:
+                            mb_rl = int(rng.integers(3))
+                            b.d012(mb_rl)
+                        per_block = False
+                        if flags["abt"] and per_mb_abt:
+                            per_block = bool(rng.integers(2))
+                            b.put(1, int(per_block))
+                            if not per_block:
+                                abt_type = int(rng.integers(3))
+                                b.d012(abt_type)
+                elif variant != "wmv2" and per_mb_rl and cbp:
+                    mb_rl = int(rng.integers(3))
+                    b.d012(mb_rl)
+                dx, dy = target[0] - pred[0] + 32, target[1] - pred[1] + 32
+                codes = [i for i in range(1099) if T[f"kMv{mv_t}X"][i] == dx
+                         and T[f"kMv{mv_t}Y"][i] == dy]
+                if codes and rng.random() < 0.9:
+                    b.put(T[f"kMv{mv_t}Bits"][codes[0]],
+                          T[f"kMv{mv_t}Code"][codes[0]])
+                else:
+                    b.put(T[f"kMv{mv_t}Bits"][1099], T[f"kMv{mv_t}Code"][1099])
+                    b.put(6, dx)
+                    b.put(6, dy)
+                mvx, mvy = target
+                mvs[my, mx] = (mvx, mvy)
+                if variant == "wmv2" and mspel and (mvx | mvy) & 1:
+                    b.put(1, int(rng.integers(2)))      # hshift
+                k = mb_rl if per_mb_rl else rl
+                for n in range(6):
+                    if not (cbp >> (5 - n)) & 1:
+                        continue
+                    if variant == "wmv2" and flags["abt"]:
+                        if per_mb_abt and per_block:
+                            abt_type = int(rng.integers(3))
+                            b.d012(abt_type)
+                        if abt_type:
+                            sub = int(rng.integers(3))
+                            b.d012(sub)
+                            for part in (1, 2):
+                                if [2, 3, 1][sub] & part:
+                                    coefficients(3 + k, 0, 32)
+                            continue
+                    coefficients(3 + k, 0)
+        if intra_pic and variant == "v3":
+            b.put(5, 25)
+            b.put(11, bitrate // 1024)
+            b.put(1, 1)                               # flip-flop rounding
+        packets.append(b.bytes())
+    return packets, extradata
+
+
+def legacy_file(name: str) -> bytes:
+    """A case of LEGACY_CASES or LEGACY_CLIPS muxed here."""
+    enc, tag, opts = {**LEGACY_CASES, **LEGACY_CLIPS}[name]
+    opts = dict(opts)
+    if name in LEGACY_CLIPS:
+        frames = clip_frames_bgr()[:16]
+    else:
+        frames = moving_frames(sum(map(ord, name)),
+                               opts.pop("frames", LEGACY_FRAMES),
+                               *opts.pop("size", LEGACY_SIZE))
+    noise = opts.pop("noise", 0)
+    if opts.pop("saturate", False):
+        frames = np.where(frames > 128, 255, 0).astype(np.uint8)
+    if enc == "syntax":
+        h, w = frames.shape[1:3]
+        packets, extra = msmpeg4_syntax(
+            opts.pop("variant"), w, h, len(frames), sum(map(ord, name)),
+            gop=4, **opts)
+        if name.endswith("_avi"):
+            return avi_file(packets, w, h, 25, len(packets), tag.encode(),
+                            extradata=extra)
+        bih = struct.pack("<IiiHH4sIiiII", 40 + len(extra), w, h, 1, 24,
+                          tag.encode(), w * h * 3, 0, 0, 0, 0)
+        return mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                        codec_private=bih + extra)
+    if noise:
+        rng = np.random.default_rng(len(name))
+        frames = np.clip(frames.astype(int) + rng.integers(
+            -noise, noise + 1, frames.shape), 0, 255).astype(np.uint8)
+    edit, v3id = opts.pop("edit", None), opts.pop("v3id", False)
+    h, w = frames.shape[1:3]
+    info = {"extradata": b""}
+    packets = lavc_encode(frames, enc, info=info, **opts)
+    extra = info["extradata"]
+    if edit:
+        packets, extra = legacy_edit(edit, packets, extra, enc, w, h)
+    if name.endswith("_avi"):
+        return avi_file(packets, w, h, 25, len(packets), tag.encode(),
+                        extradata=extra)
+    if v3id:
+        return mkv_file(packets, w, h, 25, "V_MPEG4/MS/V3")
+    bih = struct.pack("<IiiHH4sIiiII", 40 + len(extra), w, h, 1, 24,
+                      tag.encode(), w * h * 3, 0, 0, 0, 0)
+    return mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                    codec_private=bih + extra)
+
+
 def lzo1x_compress(data: bytes) -> bytes:
     """An LZO1X stream of `data`, as libavutil's av_lzo1x_decode reads it:
     greedy matches of 3 bytes or more at most 16384 back (M3
@@ -4818,6 +5543,15 @@ def write_case(name: str, out: str = FIXTURES) -> str:
     import tempfile
 
     path = os.path.join(out, os.path.basename(path_of(name)))
+    if name in LEGACY_CASES or name in LEGACY_CLIPS:
+        enc, tag, _ = {**LEGACY_CASES, **LEGACY_CLIPS}[name]
+        if enc == "cv2":
+            write_cv2(path, tag, 25, moving_frames(
+                sum(map(ord, name)), LEGACY_FRAMES, *LEGACY_SIZE))
+        else:
+            with open(path, "wb") as f:
+                f.write(legacy_file(name))
+        return path
     if name in MUXER_CASES or name in MUXER_CLIPS:
         frames = clip_frames_bgr()[:16, 32:192] if name in MUXER_CLIPS \
             else None
@@ -4897,7 +5631,8 @@ def write_case(name: str, out: str = FIXTURES) -> str:
     if name in HEVC_CASES or name in HEVC_CLIPS:
         settings = {**HEVC_CASES, **HEVC_CLIPS}[name]
         frames = clip_frames_bgr()[:16] if name in HEVC_CLIPS else None
-        aus = hevc_stream(settings, frames, seed=sum(map(ord, name)))
+        aus = hevc_stream(settings, frames, seed=settings.get(
+            "seed", sum(map(ord, name))))
         h, w = settings.get("size", HEVC_SIZE) if frames is None else \
             frames.shape[1:3]
         with open(path, "wb") as f:
@@ -4933,6 +5668,8 @@ def write_case(name: str, out: str = FIXTURES) -> str:
                       if name in LAVC_CROP else
                       moving_frames(sum(map(ord, name)), 12,
                                     *LAVC_SIZES.get(name, (64, 96))))
+            if name in LAVC_SATURATED:
+                frames = np.where(frames > 128, 255, 0).astype(np.uint8)
         times: list[tuple[int, int]] = []
         packets = lavc_encode(frames, enc, matrices=LAVC_MATRICES.get(name),
                               times=times, **opts)
@@ -5106,7 +5843,8 @@ def main(out: str = FIXTURES, *names: str):
         index = np.array(sorted({0, len(frames) // 2, len(frames) - 1}))
         if (name == "clip_dvd_mkv" or name in RAW_CLIPS
                 or name in LOSSLESS_CASES or name in LOSSLESS_CLIPS
-                or name in MUXER_CASES or name in MUXER_CLIPS):
+                or name in MUXER_CASES or name in MUXER_CLIPS
+                or name in LEGACY_CASES or name in LEGACY_CLIPS):
             index = np.array([0, len(frames) - 1])      # the first and last
         extra = {}
         if name in CONTAINER_CASES:

@@ -2,7 +2,8 @@
 cv2, the reading behind the video reader's bounds (TOL in
 tests/test_torch_video_decode.py, VIDEO_TOL in chip_smoke.py).
 
-    python tests/_torch_video_sweep.py [streams [seed [screen [dvd]]]]
+    python tests/_torch_video_sweep.py [streams [seed [screen [dvd [hevc
+        [legacy]]]]]]
 
 prints, per codec, the largest |Δ| in levels of `native.decode_video`
 against cv2's `cap.read()` over every frame of every committed clip in
@@ -26,8 +27,22 @@ counts, GOP sizes, B-pictures, closed GOPs, quantisers, loaded matrices,
 intra_vlc_format, intra_dc_precision, the non-linear scale, 4:2:2 with
 chroma matrices, soft telecine, frame_pred_frame_dct 0 in progressive
 frames (the alternate scan, field DCT and motion) and BT.709, in AVI, MP4
-or Matroska. Needs cv2, the system's libavcodec 59 and libx264, which the
-card's machine does not have.
+or Matroska; then over `hevc` (default 0) random HEVC streams: the
+system's libx265 (through `hevc_stream`) with constrained intra
+prediction (csrc/hevc.cpp's cip_refs) under random CTU, CU and TU sizes,
+GOPs, B-frames, quantisers and strong intra smoothing, 8 and 10-bit, on
+smooth and noisy pictures at sizes 64..192 x 64..128, in AVI; then over
+`legacy` (default 0) random H.263-family streams: libavcodec 59's
+msmpeg4v2, msmpeg4 (v3), wmv1, wmv2 and flv encoders at random sizes
+(16..176 x 16..144; odd where the encoder takes them), GOPs, quantisers
+or rates, macroblock decisions, trellis and WMV2's loop filter, on
+smooth and noisy pictures, in AVI or Matroska, and as many v3, WMV1 and
+WMV2 streams written symbol by symbol (`msmpeg4_syntax`: random tables,
+escapes, slices, WMV1's per-macroblock tables and inter-intra
+prediction, WMV2's mspel, ABT, top-left prediction, skip maps and loop
+filter) at sizes down to 14x14. Needs cv2, the system's
+libavcodec 59, libx264 and libx265, which the card's machine does not
+have.
 """
 
 from __future__ import annotations
@@ -211,7 +226,127 @@ def dvd_sweep(streams: int, rng, tmp: str):
           f"refused): max |Δ| {top}")
 
 
-def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0):
+def hevc_sweep(streams: int, rng, tmp: str):
+    top, refused = 0, 0
+    for k in range(streams):
+        ctu = int(rng.choice([16, 32, 64]))
+        parts = ["constrained-intra=1", f"ctu={ctu}",
+                 f"min-cu-size={min(ctu, int(rng.choice([8, 16, 32])))}",
+                 f"max-tu-size={int(rng.choice([4, 8, 16, 32]))}",
+                 f"tu-intra-depth={int(rng.integers(1, 5))}",
+                 f"keyint={int(rng.choice([1, 4, 30]))}",
+                 f"bframes={int(rng.choice([0, 2, 4]))}"]
+        if rng.random() < 0.3:
+            parts.append(f"qp={int(rng.choice([10, 22, 35, 45]))}")
+        if rng.random() < 0.3:
+            parts.append("no-strong-intra-smoothing=1")
+        h, w = (int(v) for v in rng.choice(
+            [(64, 96), (128, 192), (72, 88), (96, 64), (120, 136)]))
+        frames = mk.moving_frames(int(rng.integers(1 << 30)),
+                                  int(rng.choice([3, 6, 9])), h, w)
+        if rng.random() < 0.4:
+            frames = np.clip(frames.astype(int) + rng.integers(
+                -30, 31, frames.shape), 0, 255).astype(np.uint8)
+        settings = {"params": ":".join(parts)}
+        if rng.random() < 0.25:
+            settings["pixel_format"] = "yuv420p10le"
+        try:
+            aus = mk.hevc_stream(settings, frames)
+        except RuntimeError:
+            refused += 1                 # a setting libx265 refuses
+            continue
+        path = os.path.join(tmp, f"h{k}.avi")
+        with open(path, "wb") as f:
+            f.write(mk.hevc_file(aus, w, h, "avi"))
+        err = worst(path)
+        if err:
+            print(f"stream {k}: {settings} {w}x{h}: max |Δ| {err}")
+        top = max(top, err)
+    print(f"{streams - refused} random constrained-intra HEVC streams "
+          f"({refused} settings refused): max |Δ| {top}")
+
+
+LEGACY_ENCODERS = (("msmpeg4v2", b"MP42"), ("msmpeg4", b"DIV3"),
+                   ("wmv1", b"WMV1"), ("wmv2", b"WMV2"), ("flv", b"FLV1"))
+
+
+def legacy_sweep(streams: int, rng, tmp: str):
+    top, refused = 0, 0
+    for k in range(streams):
+        enc, tag = LEGACY_ENCODERS[int(rng.integers(len(LEGACY_ENCODERS)))]
+        h, w = int(rng.integers(16, 145)), int(rng.integers(16, 177))
+        frames = mk.moving_frames(int(rng.integers(1 << 30)),
+                                  int(rng.integers(2, 17)), h, w)
+        if rng.random() < 0.3:
+            frames = np.clip(frames.astype(int) + rng.integers(
+                -40, 41, frames.shape), 0, 255).astype(np.uint8)
+        opts = {"g": int(rng.choice([1, 3, 12, 300]))}
+        if rng.random() < 0.4:
+            q = int(rng.integers(1, 32))
+            opts.update(qmin=q, qmax=q)
+        elif rng.random() < 0.6:
+            opts["b"] = int(rng.choice([20000, 100000, 200000, 3000000]))
+        if rng.random() < 0.3:
+            opts["mbd"] = int(rng.integers(0, 3))
+        if rng.random() < 0.2:
+            opts["trellis"] = 1
+        if enc == "wmv2" and rng.random() < 0.4:
+            opts["flags"] = "+loop"
+        info = {}
+        try:
+            packets = mk.lavc_encode(frames, enc, info=info, **opts)
+        except RuntimeError:
+            refused += 1                 # an odd size the encoder refuses
+            continue
+        ext = "avi" if rng.random() < 0.6 else "mkv"
+        path = os.path.join(tmp, f"l{k}.{ext}")
+        extra = info["extradata"]
+        if ext == "avi":
+            data = mk.avi_file(packets, w, h, 25, len(packets), tag,
+                               extradata=extra)
+        else:
+            bih = mk.struct.pack("<IiiHH4sIiiII", 40 + len(extra), w, h, 1,
+                                 24, tag, w * h * 3, 0, 0, 0, 0)
+            data = mk.mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                               codec_private=bih + extra)
+        with open(path, "wb") as f:
+            f.write(data)
+        err = worst(path)
+        if err:
+            print(f"stream {k}: {enc} {opts} {w}x{h} {ext}: max |Δ| {err}")
+        top = max(top, err)
+    print(f"{streams - refused} random H.263-family streams ({refused} "
+          f"sizes refused): max |Δ| {top}")
+    top = 0
+    for k in range(streams):
+        variant, tag = (("v3", b"DIV3"), ("wmv1", b"WMV1"),
+                        ("wmv2", b"WMV2"))[k % 3]
+        w = 16 * int(rng.integers(1, 9)) - 2 * int(rng.integers(0, 4))
+        h = 16 * int(rng.integers(1, 7)) - 2 * int(rng.integers(0, 4))
+        modes = {"q": int(rng.integers(1, 32)),
+                 "slices": int(rng.integers(1, (h + 15) // 16 + 1)),
+                 "loop": int(rng.integers(2)),
+                 "bitrate": int(rng.choice([30, 100, 200])) * 1024}
+        for flag in ("mspel", "abt", "top_left", "per_mb_rl"):
+            modes[flag] = int(rng.integers(2))
+        packets, extra = mk.msmpeg4_syntax(
+            variant, w, h, int(rng.integers(2, 9)), int(rng.integers(1 << 30)),
+            gop=int(rng.integers(1, 5)), **modes)
+        path = os.path.join(tmp, f"y{k}.avi")
+        with open(path, "wb") as f:
+            f.write(mk.avi_file(packets, w, h, 25, len(packets), tag,
+                                extradata=extra))
+        err = worst(path)
+        if err:
+            print(f"syntax stream {k}: {variant} {modes} {w}x{h}: max |Δ| "
+                  f"{err}")
+        top = max(top, err)
+    print(f"{streams} random pictures written symbol by symbol "
+          f"(msmpeg4_syntax: v3, WMV1, WMV2): max |Δ| {top}")
+
+
+def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0,
+         hevc: int = 0, legacy: int = 0):
     per = {}
     for npz in sorted(os.listdir(mk.FIXTURES)):
         if not npz.endswith(".npz"):
@@ -253,6 +388,8 @@ def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0):
               f"{seed}; {failed} option sets refused): max |Δ| {top}")
         screen_sweep(screen, rng, tmp)
         dvd_sweep(dvd, rng, tmp)
+        hevc_sweep(hevc, rng, tmp)
+        legacy_sweep(legacy, rng, tmp)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,13 @@ native frame reader matches numpy's within 1e-6 (float32 sums in
 another order).
 """
 
+import ctypes
 import json
 import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -336,3 +341,51 @@ def test_failed_native_build_raises(monkeypatch, cxx):
     monkeypatch.setenv("CXX", cxx)
     with pytest.raises(RuntimeError, match="not found|failed"):
         _build.build(["native"])
+
+
+# One process of the build: a one-source host target in its own source
+# and cache directories, built once the file `go` exists; prints whether
+# this process compiled it, and the library's path.
+_BUILD_WORKER = """
+import sys, time
+from pathlib import Path
+import viai_tpu_torch._build as b
+src, cache, ready, go = map(Path, sys.argv[1:5])
+b.CSRC = src
+b.HOST_SOURCES = {"tiny": ("tiny.cpp",)}
+b.set_cache_dir(cache)
+ready.touch()
+while not go.exists():
+    time.sleep(0.002)
+r = b.build(["tiny"])["tiny"]
+print(int(r.seconds > 0.0), r.path)
+"""
+
+
+def test_concurrent_builds_compile_once(tmp_path):
+    """Processes that build one target into a fresh cache together wait
+    for one compiler (the target's lock) and load its library."""
+    src, cache = tmp_path / "src", tmp_path / "cache"
+    src.mkdir()
+    (src / "tiny.cpp").write_text(
+        '#include <map>\n#include <string>\n'
+        'extern "C" int viai_tiny() {\n'
+        '  std::map<std::string, int> m{{"a", 3}, {"b", 4}};\n'
+        '  return m["a"] + m["b"];\n}\n')
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILD_WORKER, str(src), str(cache),
+         str(tmp_path / f"ready{k}"), str(tmp_path / "go")],
+        cwd=root, stdout=subprocess.PIPE, text=True) for k in range(3)]
+    deadline = time.time() + 120
+    while not all((tmp_path / f"ready{k}").exists() for k in range(3)):
+        assert time.time() < deadline and all(
+            p.poll() is None for p in procs)
+        time.sleep(0.01)
+    (tmp_path / "go").touch()
+    outs = [p.communicate(timeout=120)[0].split() for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert sum(int(o[0]) for o in outs) == 1
+    assert len({o[1] for o in outs}) == 1
+    assert ctypes.CDLL(outs[0][1]).viai_tiny() == 7
+    assert not list(cache.glob("*.tmp.so"))

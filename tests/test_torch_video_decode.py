@@ -267,10 +267,10 @@ def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
         mp4 = _patched(FILES["mpeg4_mp4"], tmp_path / "x.mp4", b"mp4v",
                        {b"AV01": b"av01", b"FFV1": b"FFV1"}[fourcc])
     for path in (avi, mp4):
-        # FFV1 in AVI is read (csrc/ffv1.cpp): MPEG-4 bytes under its tag
-        # are a broken FFV1 stream; FFV1 in MP4 is not read.
-        error = (ValueError if fourcc == b"FFV1" and path == avi
-                 else NotImplementedError)
+        # FFV1 is read (csrc/ffv1.cpp; in MP4 under its FFV1 sample entry
+        # since cv2's writer stores it there): MPEG-4 bytes under its tag
+        # are a broken FFV1 stream.
+        error = ValueError if fourcc == b"FFV1" else NotImplementedError
         with pytest.raises(error, match=re.escape(name)):
             native.decode_video(path)
         with pytest.raises(error, match=re.escape(name)):
@@ -1187,3 +1187,42 @@ def test_h264_corrupted_streams_raise_or_decode(tmp_path):
         except (ValueError, NotImplementedError):
             raised += 1
     assert decoded + raised == 40 and raised > 0
+
+
+# libavformat's riff tags of MPEG-4 Part 2 (ff_codec_bmp_tags) beyond FMP4,
+# DIVX, DX50, XVID, mp4v ...: XVIX (libavcodec's FF_BUG_XVID_ILACE, which
+# acts on interlaced streams only), ZMP4 and SIPP (decoded as XviD's).
+MPEG4_TAGS = ["WV1F", "SEDG", "XVIX", "BLZ0", "SIPP", "ZMP4", "DM4V", "EPHV",
+              "M4CC", "VIDM"]
+
+
+@pytest.mark.parametrize("tag", MPEG4_TAGS)
+def test_mpeg4_riff_tags_read_as_cv2_reads_them(tmp_path, tag):
+    """Each tag on libxvid's stream and on libavcodec's with B-VOPs."""
+    for src in ("xvid_avi", "mpeg4_bframes_avi"):
+        old = open(mk.path_of(src), "rb").read()[112:116]   # strh's fourcc
+        path = mk.relabel(mk.path_of(src), str(tmp_path / f"{src}.avi"),
+                          old, tag.encode())
+        track = native.video_track(path, packets=False)
+        assert track.codec == "mpeg4" and track.tag == tag
+        got, (ref, _) = native.decode_video(path), mk.cv2_view(path)
+        assert got.shape == ref.shape
+        assert int(np.abs(got.astype(int) - ref).max()) == 0, src
+
+
+def test_mpeg4_tag_workarounds_raise(tmp_path):
+    """GEOV, whose pictures libavcodec hands over bottom-up (cv2's frames
+    are the stream's flipped), and an interlaced XVIX stream (XviD's
+    interlace workaround; interlace raises) raise by name."""
+    path = mk.relabel(mk.path_of("xvid_avi"), str(tmp_path / "g.avi"),
+                      b"XVID", b"GEOV")
+    ref, _ = mk.cv2_view(path)
+    plain = native.decode_video(mk.path_of("xvid_avi"))
+    assert int(np.abs(plain[:, ::-1].astype(int) - ref).max()) == 0
+    with pytest.raises(NotImplementedError, match="GEOV"):
+        native.decode_video(path)
+    src = mk.path_of("mpeg4_interlaced_avi")
+    old = open(src, "rb").read()[112:116]           # strh's fourcc
+    path = mk.relabel(src, str(tmp_path / "x.avi"), old, b"XVIX")
+    with pytest.raises(NotImplementedError, match="interlace"):
+        native.decode_video(path)

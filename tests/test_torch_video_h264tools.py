@@ -385,3 +385,20 @@ def test_h264_header_features_read_as_cv2_reads_them(tmp_path, capfd,
         return
     got = native.load_video_frames(path, 8, 32)
     assert float(np.abs(got - ref).max()) == 0.0
+
+
+# libavformat's riff tags of H.264 (ff_codec_bmp_tags) beyond H264, X264,
+# avc1 and DAVC.
+H264_TAGS = ["SMV2", "VSSH", "Q264", "V264", "GAVC", "UMSV", "tshd", "INMC",
+             "ai55"]
+
+
+@pytest.mark.parametrize("tag", H264_TAGS)
+def test_h264_riff_tags_read_as_cv2_reads_them(tmp_path, tag):
+    path = mk.relabel(mk.path_of("h264_baseline_avi"), str(tmp_path / "t.avi"),
+                      b"H264", tag.encode())
+    track = native.video_track(path, packets=False)
+    assert track.codec == "h264" and track.tag == tag
+    got, (ref, _) = native.decode_video(path), mk.cv2_view(path)
+    assert got.shape == ref.shape
+    assert int(np.abs(got.astype(int) - ref).max()) == 0

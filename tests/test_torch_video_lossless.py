@@ -256,6 +256,13 @@ def test_ulh_reads_in_bt709(tmp_path):
     assert int(np.abs(ulh.astype(int) - uly).max()) > 8
 
 
+# The H.263 family's fourccs of the case list below: the variant of each
+# that still raises (relabelled to, or patched in) and what it names.
+_FAMILY = {"MP42": ("MPG4", "MS-MPEG4 v1"), "MP43": ("MP41", "MS-MPEG4 v1"),
+           "DIV3": ("DIV1", "MS-MPEG4 v1"), "WMV1": (None, None),
+           "WMV2": ("J-frame", "J-frame"), "FLV1": ("size", "another size")}
+
+
 @pytest.mark.parametrize("fourcc,name", [
     ("M8Y0", "MagicYUV"), ("MAGY", "MagicYUV"), ("MP42", "MS-MPEG4 v2"),
     ("MP43", "MS-MPEG4 v3"), ("DIV3", "MS-MPEG4 v3"), ("WMV1", "WMV1"),
@@ -266,9 +273,38 @@ def test_ulh_reads_in_bt709(tmp_path):
 def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
     """What cv2 writes or reads and the port does not: cv2.VideoWriter's
     own AVIs (it stores MagicYUV as M8Y0 whatever is asked), UT Video's
-    10-bit and pack-mode layouts by their fourcc put on a ULY0 AVI."""
+    10-bit and pack-mode layouts by their fourcc put on a ULY0 AVI. The
+    H.263 family's fourccs, read since csrc/msmpeg4.cpp: cv2's AVI of each
+    is held against cv2, and what of the family stays unread raises
+    (MS-MPEG4 v1's tags on it, a WMV2 J-frame, a FLV1 picture of another
+    size; WMV1 has no unread variant)."""
     path = str(tmp_path / "t.avi")
     frames = mk.moving_frames(len(fourcc), 3, 16, 24)
+    if fourcc in _FAMILY:
+        mk.write_cv2(path, fourcc, 25, frames)
+        got = native.decode_video(path)
+        ref, _ = mk.cv2_view(path)
+        assert got.shape == ref.shape == (3, 16, 24, 3)
+        assert int(np.abs(got.astype(int) - ref).max()) == 0
+        unread, match = _FAMILY[fourcc]
+        if unread is None:
+            return
+        if unread == "J-frame":
+            data = bytearray(open(path, "rb").read())
+            at = data.index(native.video_track(path).packets[0][0])
+            assert data[at] >> 7 == 0 and (data[at + 1] >> 2) & 1 == 0
+            data[at + 1] |= 0x04                       # j_type (bit 13)
+            open(path, "wb").write(bytes(data))
+        elif unread == "size":
+            a = mk.lavc_encode(frames, "flv")
+            b = mk.lavc_encode(mk.moving_frames(1, 2, 32, 48), "flv")
+            open(path, "wb").write(mk.avi_file(a + b, 24, 16, 25, 5, b"FLV1"))
+        else:
+            path = _relabel(path, str(tmp_path / "v1.avi"), fourcc.encode(),
+                            unread.encode())
+        with pytest.raises(NotImplementedError, match=match):
+            native.decode_video(path)
+        return
     if fourcc.startswith("UQ") or fourcc.startswith("UM"):
         mk.write_cv2(str(tmp_path / "u.avi"), "ULY0", 25, frames)
         _relabel(str(tmp_path / "u.avi"), path, b"ULY0", fourcc.encode())
@@ -348,3 +384,35 @@ def test_broken_streams_raise(tmp_path):
         extradata=info["extradata"]))
     with pytest.raises(ValueError, match="UT Video"):
         native.decode_video(path)
+
+
+@pytest.mark.parametrize("fourcc", ["FFV1", "MPNG", "PNG "])
+def test_cv2_mp4_lossless_sample_entries(tmp_path, fourcc):
+    """cv2's writer stores FFV1 in MP4 under an FFV1 sample entry (its
+    configuration record in a glbl box) and PNG under mp4v with
+    objectTypeIndication 0x6D; the JAX package opens .mp4 first. (The
+    writer rounds an odd size down to even.)"""
+    for size in ((48, 64), (45, 77)):
+        path = str(tmp_path / "t.mp4")
+        mk.write_cv2(path, fourcc, 25, mk.moving_frames(len(fourcc), 4, *size))
+        want = "ffv1" if fourcc == "FFV1" else "png"
+        assert _held(path, want).shape == (4, size[0] & ~1, size[1] & ~1, 3)
+
+
+@pytest.mark.parametrize("pred", ["left", "median"])
+@pytest.mark.parametrize("fmt", ["yuva420p", "yuva422p"])
+def test_ffvhuff_alpha_at_odd_sizes_live(tmp_path, fmt, pred):
+    """F8: FFVHuff with alpha and 4:2:0 / 4:2:2 chroma at odd widths and
+    one row high (the chroma column the bitstream does not code; a chroma
+    line coded for a plane of no row) and the sizes that read 0 before
+    (odd heights, even sizes; yuv444p at 77x64), in AVI, against cv2."""
+    sizes = [(77, 77), (64, 77), (1, 24), (77, 64), (78, 78), (65, 96)]
+    cases = [(fmt, s) for s in sizes] + [("yuv444p", (64, 77))]
+    for f, (h, w) in cases:
+        info = {}
+        packets = mk.lavc_encode(mk.moving_frames(h + w, 3, h, w), "ffvhuff",
+                                 info=info, pixel_format=f, pred=pred)
+        path = _write(tmp_path, "f.avi", mk.avi_file(
+            packets, w, h, 25, 3, b"FFVH", bits=info["bits"] or 24,
+            extradata=info["extradata"]))
+        assert _held(path, "huffyuv").shape == (3, h, w, 3), (f, h, w)

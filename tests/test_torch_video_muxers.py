@@ -394,3 +394,37 @@ def test_fixture_script_rewrites_the_committed_files(tmp_path):
         path = mk.write_case(name, str(tmp_path))
         with open(path, "rb") as f, open(FILES[name], "rb") as g:
             assert f.read() == g.read(), name
+
+
+# libavformat's riff tags of MJPEG (ff_codec_bmp_tags) beyond MJPG, AVRn,
+# JPGL, dmb1 and mjpa; MJLS names its JPEG-LS decoder, which reads
+# baseline JPEG as the MJPEG one does.
+MJPEG_TAGS = ["jpeg", "LJPG", "IJPG", "ACDV", "QIVG", "SLMJ", "CJPG", "IJLV",
+              "MVJP", "AVI1", "AVI2", "ZJPG", "MJLS", "MMJP"]
+
+
+@pytest.mark.parametrize("tag", MJPEG_TAGS)
+def test_mjpeg_riff_tags_read_as_cv2_reads_them(tmp_path, tag):
+    """Each tag on a frame AVI and on an AVI1 field-pair AVI: cv2's
+    frames, the field pairs woven first-field-even as for every tag but
+    MJPG (trap (ah))."""
+    for src in ("mjpeg_avi", "mjpeg_fields_avi"):
+        path = mk.relabel(mk.path_of(src), str(tmp_path / f"{src}.avi"),
+                          b"MJPG", tag.encode())
+        track = native.video_track(path, packets=False)
+        assert track.codec == "mjpeg" and track.tag == tag
+        got, (ref, _) = native.decode_video(path), mk.cv2_view(path)
+        assert got.shape == ref.shape
+        assert int(np.abs(got.astype(int) - ref).max()) == 0, src
+
+
+def test_mtsj_raises_naming_it(tmp_path):
+    """MTSJ, which libavcodec decodes otherwise than plain MJPEG (cv2's
+    frames of the same JPEGs differ), raises by name."""
+    path = mk.relabel(mk.path_of("mjpeg_avi"), str(tmp_path / "m.avi"),
+                      b"MJPG", b"MTSJ")
+    ref, _ = mk.cv2_view(path)
+    plain = native.decode_video(mk.path_of("mjpeg_avi"))
+    assert int(np.abs(plain.astype(int) - ref).max()) > 100
+    with pytest.raises(NotImplementedError, match="MTSJ"):
+        native.decode_video(path)

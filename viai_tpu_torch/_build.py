@@ -11,14 +11,20 @@ as it is:
     `csrc/framestack.cpp`, `csrc/imagedec.cpp`, `csrc/videodec.cpp`,
     `csrc/mpeg4.cpp`, `csrc/mpeg12.cpp`, `csrc/vp8.cpp`, `csrc/vp9.cpp`,
     `csrc/h264.cpp`, `csrc/hevc.cpp`, `csrc/rawvideo.cpp`,
-    `csrc/ffv1.cpp`, `csrc/utvideo.cpp`, `csrc/huffyuv.cpp`:
+    `csrc/ffv1.cpp`, `csrc/utvideo.cpp`, `csrc/huffyuv.cpp`,
+    `csrc/msmpeg4.cpp`:
     WAV decode, resampling, the threaded clip loader, the frame-stack reader, the
     JPEG and PNG decoder, the frame-directory reader and the compressed
     video reader), by the C++ compiler ($CXX, else g++), its hash over
     `csrc/*.h` too: each source to an object file, then one link.
 
 Targets are compiled in parallel: one compiler process a CUDA target and
-one a host source, all started together. A failed build raises. The directory is read at build time (`cache_dir`):
+one a host source, all started together. A failed build raises. Each
+target's build holds an exclusive `fcntl` lock on `<name>-<hash>.lock`
+from the check for its library to the library's rename into place, so
+processes that build the same target together (pytest's workers) wait
+for one compiler and load its library. The directory is read at build
+time (`cache_dir`):
 `utils/compile_cache.py::enable` relocates it or gives the process a
 fresh one.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -47,7 +54,7 @@ HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp", "imagedec.cpp",
                            "videodec.cpp", "mpeg4.cpp", "mpeg12.cpp",
                            "vp8.cpp", "vp9.cpp", "h264.cpp", "hevc.cpp",
                            "rawvideo.cpp", "ffv1.cpp", "utvideo.cpp",
-                           "huffyuv.cpp")}
+                           "huffyuv.cpp", "msmpeg4.cpp")}
 _cache_dir: Path | None = None      # set_cache_dir; BUILD_DIR when unset
 
 
@@ -121,31 +128,53 @@ def build(names: list[str] | None = None) -> dict[str, BuildResult]:
     for their current hash yet, in parallel; raise if any build fails."""
     names = sources() if names is None else names
     cache_dir().mkdir(parents=True, exist_ok=True)
-    results, running = {}, {}
-    for name in names:
-        srcs, find, flags = _recipe(name)
-        compiler = find()
-        out = _target(name, srcs, compiler, flags)
-        log = out.with_suffix(".log")
-        if out.exists():
-            results[name] = BuildResult(
-                name, out, 0.0, log.read_text() if log.exists() else "")
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        if name in HOST_SOURCES:
-            # Each source to an object file at once; linked when all are.
-            objs = [tmp.with_suffix(f".{s.stem}.o") for s in srcs]
-            cmds = [[compiler, *(f for f in flags if f != "-shared"), "-c",
-                     "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
-            link = [compiler, *flags, "-o", str(tmp), *map(str, objs)]
-        else:
-            objs, link = [], None
-            cmds = [[compiler, *flags, "-o", str(tmp), *map(str, srcs)]]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for c in cmds]
-        running[name] = (procs, objs, link, out, tmp, log,
-                         time.perf_counter())
+    results, running, locks = {}, {}, {}
+    try:
+        # Locks are taken in one order, so processes cannot deadlock.
+        for name in sorted(set(names)):
+            srcs, find, flags = _recipe(name)
+            compiler = find()
+            out = _target(name, srcs, compiler, flags)
+            lock = open(out.with_suffix(".lock"), "w")
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            locks[name] = lock
+            log = out.with_suffix(".log")
+            if out.exists():
+                results[name] = BuildResult(
+                    name, out, 0.0, log.read_text() if log.exists() else "")
+                lock.close()
+                del locks[name]
+                continue
+            running[name] = _start(name, srcs, compiler, flags, out, log)
+        _finish(running, results)
+    finally:
+        for lock in locks.values():
+            lock.close()                # releases the lock
+    return results
+
+
+def _start(name: str, srcs: list[Path], compiler: str, flags, out: Path,
+           log: Path) -> tuple:
+    """Start a target's compilers; what `_finish` waits for."""
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    if name in HOST_SOURCES:
+        # Each source to an object file at once; linked when all are.
+        objs = [tmp.with_suffix(f".{s.stem}.o") for s in srcs]
+        cmds = [[compiler, *(f for f in flags if f != "-shared"), "-c",
+                 "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+        link = [compiler, *flags, "-o", str(tmp), *map(str, objs)]
+    else:
+        objs, link = [], None
+        cmds = [[compiler, *flags, "-o", str(tmp), *map(str, srcs)]]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return (procs, objs, link, out, tmp, log, time.perf_counter())
+
+
+def _finish(running: dict, results: dict[str, BuildResult]):
+    """Wait for the started builds, move each library into place and
+    record it in `results`; raise if any failed."""
     failed = []
     # Wait for every compiler before raising, so none is left running.
     for name, (procs, objs, link, out, tmp, log, t0) in running.items():
@@ -171,7 +200,6 @@ def build(names: list[str] | None = None) -> dict[str, BuildResult]:
         results[name] = BuildResult(name, out, secs, text)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return results
 
 
 @functools.lru_cache(maxsize=None)

@@ -2710,6 +2710,192 @@ struct HevcDecoder::State {
 
   // ------------------------------------------------------ intra prediction
 
+  // libavcodec's reference samples under constrained_intra_pred_flag
+  // (hevcpred_template.c's intra_pred), which differ from 8.4.4.2.2: the
+  // neighbours' intra test on the minimum PU grid (every other PU of a
+  // side, none for a side shorter than a PU), substitution in runs of 4
+  // samples from the left column up and along the top, a left column
+  // zeroed at the picture's left edge before the general inference, and
+  // the unavailable samples' 128 (0x8080 above 8 bits). Component c's
+  // block at (x0, y0), n wide: left[y + 1] = p[-1][y], top[x + 1] =
+  // p[x][-1], both [0] the corner.
+  void cip_refs(int c, int x0, int y0, int n, int* left_out, int* top_out) {
+    const int sh = c ? 1 : 0;
+    const uint16_t* d = cur->pl[c].data();
+    const int st = cur->stride[c];
+    const int xl = x0 << sh, yl = y0 << sh;       // luma
+    const int lpu = sp.log2_min_cb - 1;
+    const int pu_w = W >> lpu, pu_h = H >> lpu;
+    auto PU = [&](int v) { return v >> lpu; };
+    // tab_mvf[px + py * pu_w].pred_flag == PF_INTRA, flat as libavcodec
+    // reads it (a column left of the picture is the row above's last).
+    auto intra_pu = [&](int px, int py) {
+      long f = long(px) + long(py) * pu_w;
+      if (f < 0 || f >= long(pu_w) * pu_h) return false;
+      int x = int(f % pu_w), y = int(f / pu_w);
+      return mode4[at4(x << lpu, y << lpu)] == 1;
+    };
+    auto is_intra = [&](int x, int y) {
+      return intra_pu(PU(xl + x * (1 << sh)), PU(yl + y * (1 << sh)));
+    };
+    auto pos = [&](int x, int y) {
+      return int(d[size_t(y0 + y) * st + size_t(x0 + x)]);
+    };
+    const int size_l = n << sh;
+    bool cand_up = avail(xl, yl, xl, yl - 1);
+    bool cand_left = avail(xl, yl, xl - 1, yl);
+    bool cand_up_left = avail(xl, yl, xl - 1, yl - 1);
+    bool cand_up_right = avail(xl, yl, xl + size_l, yl - 1);
+    bool cand_bottom_left = avail(xl, yl, xl - 1, yl + size_l);
+    const int bl_size = (std::min(yl + 2 * size_l, H) - (yl + size_l)) >> sh;
+    const int tr_size = (std::min(xl + 2 * size_l, W) - (xl + size_l)) >> sh;
+    int left_a[2 * 64 + 1 + 4], top_a[2 * 64 + 1 + 4];
+    int* left = left_a + 1;
+    int* top = top_a + 1;
+    auto extend = [&](int* p, int val, int len) {
+      for (int i = 0; i < len; i += 4)
+        for (int k = 0; k < 4; ++k) p[i + k] = val;
+    };
+    {
+      int pu_v = PU(size_l), pu_h_ = PU(size_l);
+      bool edge_x = !(xl & ((1 << lpu) - 1)), edge_y = !(yl & ((1 << lpu) - 1));
+      if (!pu_h_) pu_h_ = 1;
+      if (cand_bottom_left && edge_x) {
+        int xp = PU(xl - 1), yp = PU(yl + size_l);
+        int mx = std::min(pu_v, pu_h - yp);
+        cand_bottom_left = false;
+        for (int i = 0; i < mx; i += 2) cand_bottom_left |= intra_pu(xp, yp + i);
+      }
+      if (cand_left && edge_x) {
+        int xp = PU(xl - 1), yp = PU(yl);
+        int mx = std::min(pu_v, pu_h - yp);
+        cand_left = false;
+        for (int i = 0; i < mx; i += 2) cand_left |= intra_pu(xp, yp + i);
+      }
+      if (cand_up_left) cand_up_left = intra_pu(PU(xl - 1), PU(yl - 1));
+      if (cand_up && edge_y) {
+        int xp = PU(xl), yp = PU(yl - 1);
+        int mx = std::min(pu_h_, pu_w - xp);
+        cand_up = false;
+        for (int i = 0; i < mx; i += 2) cand_up |= intra_pu(xp + i, yp);
+      }
+      if (cand_up_right && edge_y) {
+        int yp = PU(yl - 1), xp = PU(xl + size_l);
+        int mx = std::min(pu_h_, pu_w - xp);
+        cand_up_right = false;
+        for (int i = 0; i < mx; i += 2) cand_up_right |= intra_pu(xp + i, yp);
+      }
+      const int unset = bd > 8 ? 0x8080 : 128;
+      for (int i = 0; i < 2 * 64; ++i) left[i] = top[i] = unset;
+      top[-1] = 128;
+    }
+    if (cand_up_left) top[-1] = left[-1] = pos(-1, -1);
+    if (cand_up)
+      for (int i = 0; i < n; ++i) top[i] = pos(i, -1);
+    if (cand_up_right) {
+      for (int i = n; i < 2 * n; ++i) top[i] = pos(i, -1);
+      extend(top + n + tr_size, pos(n + tr_size - 1, -1), n - tr_size);
+    }
+    if (cand_left)
+      for (int i = 0; i < n; ++i) left[i] = pos(-1, i);
+    if (cand_bottom_left) {
+      for (int i = n; i < n + bl_size; ++i) left[i] = pos(-1, i);
+      extend(left + n + bl_size, pos(-1, n + bl_size - 1), n - bl_size);
+    }
+    if (cand_bottom_left || cand_left || cand_up_left || cand_up ||
+        cand_up_right) {
+      int max_x = xl + ((2 * n) << sh) < W ? 2 * n : (W - xl) >> sh;
+      int max_y = yl + ((2 * n) << sh) < H ? 2 * n : (H - yl) >> sh;
+      int j = n + (cand_bottom_left ? bl_size : 0) - 1;
+      if (!cand_up_right) max_x = xl + (n << sh) < W ? n : (W - xl) >> sh;
+      if (!cand_bottom_left) max_y = yl + (n << sh) < H ? n : (H - yl) >> sh;
+      auto extend_left_cip = [&](int* p, int start, int length) {
+        for (int i = start; i > start - length; --i)
+          if (!is_intra(i - 1, -1)) p[i - 1] = p[i];
+      };
+      if (cand_bottom_left || cand_left || cand_up_left) {
+        while (j > -1 && !is_intra(-1, j)) --j;
+        if (!is_intra(-1, j)) {
+          j = 0;
+          while (j < max_x && !is_intra(j, -1)) ++j;
+          extend_left_cip(top, j, j + 1);
+          left[-1] = top[-1];
+        }
+      } else {
+        j = 0;
+        while (j < max_x && !is_intra(j, -1)) ++j;
+        if (j > 0) {
+          extend_left_cip(top, j, j);
+          top[-1] = top[0];
+        }
+        left[-1] = top[-1];
+      }
+      left[-1] = top[-1];
+      int a;
+      if (cand_bottom_left || cand_left) {
+        a = left[-1];
+        for (int i = 0; i < max_y; i += 4)
+          if (!is_intra(-1, i)) extend(left + i, a, 4);
+          else a = left[i + 3];
+      }
+      if (!cand_left) extend(left, left[-1], n);
+      if (!cand_bottom_left) extend(left + n, left[n - 1], n);
+      auto extend_up_cip = [&](int start, int length) {
+        for (int i = start; i > start - length; i -= 4)
+          if (!is_intra(-1, i - 3)) extend(left + i - 3, a, 4);
+          else a = left[i - 3];
+      };
+      if (xl != 0 && yl != 0) {
+        a = left[max_y - 1];
+        extend_up_cip(max_y - 1, max_y);
+        if (!is_intra(-1, -1)) left[-1] = left[0];
+      } else if (xl == 0) {
+        extend(left, 0, max_y);
+      } else {
+        a = left[max_y - 1];
+        extend_up_cip(max_y - 1, max_y);
+      }
+      top[-1] = left[-1];
+      if (yl != 0) {
+        a = left[-1];
+        for (int i = 0; i < max_x; i += 4)
+          if (!is_intra(i, -1)) extend(top + i, a, 4);
+          else a = top[i + 3];
+      }
+    }
+    // The inference of the samples still unavailable.
+    if (!cand_bottom_left) {
+      if (cand_left) {
+        extend(left + n, left[n - 1], n);
+      } else if (cand_up_left) {
+        extend(left, left[-1], 2 * n);
+        cand_left = true;
+      } else if (cand_up) {
+        left[-1] = top[0];
+        extend(left, left[-1], 2 * n);
+        cand_up_left = cand_left = true;
+      } else if (cand_up_right) {
+        extend(top, top[n], n);
+        left[-1] = top[n];
+        extend(left, left[-1], 2 * n);
+        cand_up = cand_up_left = cand_left = true;
+      } else {
+        left[-1] = 1 << (bd - 1);
+        extend(top, left[-1], 2 * n);
+        extend(left, left[-1], 2 * n);
+      }
+    }
+    if (!cand_left) extend(left, left[n], n);
+    if (!cand_up_left) left[-1] = left[0];
+    if (!cand_up) extend(top, left[-1], n);
+    if (!cand_up_right) extend(top + n, top[n - 1], n);
+    top[-1] = left[-1];
+    for (int i = -1; i < 2 * n; ++i) {
+      left_out[i + 1] = left[i];
+      top_out[i + 1] = top[i];
+    }
+  }
+
   // 8.4.4.2: component c's block at (x0, y0) (its own samples), 1 << log2
   // wide, predicted in place.
   void intra_pred(int c, int x0, int y0, int log2, int mode) {
@@ -2717,14 +2903,17 @@ struct HevcDecoder::State {
     uint16_t* d = cur->pl[c].data();
     const int st = cur->stride[c];
     const int xt = x0 << sh1, yt = y0 << sh1;
+    // left[y + 1] = p[-1][y], top[x + 1] = p[x][-1], both [0] the corner
+    int left[2 * 64 + 1], top[2 * 64 + 1];
+    if (pp.constrained_intra) {
+      cip_refs(c, x0, y0, n, left, top);
+    } else {
     // L: p[-1][2n-1] .. p[-1][-1], then p[0][-1] .. p[2n-1][-1]
     int L[4 * 64 + 1];
     bool av[4 * 64 + 1];
     int any = 0;
     auto ok = [&](int xs, int ys) {
-      int xl = xs << sh1, yl = ys << sh1;
-      if (!avail(xt, yt, xl, yl)) return false;
-      return !pp.constrained_intra || mode4[at4(xl, yl)] == 1;
+      return avail(xt, yt, xs << sh1, ys << sh1);
     };
     for (int y = 0; y < 2 * n; y += unit) {
       bool a = ok(x0 - 1, y0 + y);
@@ -2762,11 +2951,10 @@ struct HevcDecoder::State {
       for (int i = 1; i < total; ++i)
         if (!av[i]) L[i] = L[i - 1];
     }
-    // left[y + 1] = p[-1][y], top[x + 1] = p[x][-1], both [0] the corner
-    int left[2 * 64 + 1], top[2 * 64 + 1];
     left[0] = top[0] = L[2 * n];
     for (int y = 0; y < 2 * n; ++y) left[y + 1] = L[2 * n - 1 - y];
     for (int x = 0; x < 2 * n; ++x) top[x + 1] = L[2 * n + 1 + x];
+    }
     // filtering (8.4.4.2.3), luma only
     if (c == 0 && mode != 1 && n != 4) {
       int dist = std::min(std::abs(mode - 26), std::abs(mode - 10));

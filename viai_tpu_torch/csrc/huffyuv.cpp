@@ -95,6 +95,10 @@ struct HuffyuvDecoder::State {
   int decorrelate = 0, predictor = kLeft, bitstream_bpp = 0;
   int context = 0, interlaced = 0;
   PrefixCode code[4];
+  // Version 3's line of residuals (libavcodec's temp[0]): kept across
+  // lines, planes and pictures, since what a chroma line of an odd width
+  // leaves past its end shows (decode_v3).
+  std::vector<int> tmp;
 
   int read_tables(SwappedBits& gb);
   void read_old_tables();
@@ -443,7 +447,7 @@ void HuffyuvDecoder::State::decode_v3(SwappedBits& gb, Picture& out) {
   const unsigned mask = unsigned(n - 1);
   const int cw = (w + (1 << hs) - 1) >> hs, chh = (h + (1 << vs) - 1) >> vs;
   std::vector<uint16_t> pl[4];
-  std::vector<int> tmp(size_t(w) + 8);
+  if (tmp.size() < size_t(w) + 8) tmp.resize(size_t(w) + 8, 0);
   for (int p = 0; p < nplanes; ++p) {
     int pw = w, ph = h, stride = w;
     if (chroma && (p == 1 || p == 2)) {
@@ -465,17 +469,34 @@ void HuffyuvDecoder::State::decode_v3(SwappedBits& gb, Picture& out) {
       }
       if (gb.left() < 0) broken("FFVHuff packet runs out of bits");
     };
+    // libavcodec's SIMD add_left_pred runs on past the line's end in its
+    // blocks of 16 or 32, over the residuals still in temp[0] from longer
+    // lines: a chroma plane's last column at an odd width, which the
+    // bitstream does not code and cv2 converts, holds that running sum.
     auto left_pred = [&](uint16_t* dst, unsigned acc) {
       for (int i = 0; i < pw; ++i) {
         acc += unsigned(tmp[size_t(i)]);
         acc &= mask;
         dst[i] = uint16_t(acc);
       }
+      for (unsigned run = acc, i = unsigned(pw); bps <= 8 && i < unsigned(stride);
+           ++i) {
+        run = (run + unsigned(tmp[i])) & mask;
+        dst[i] = uint16_t(run);
+      }
       return acc;
     };
     auto median = [&](uint16_t* dst, const uint16_t* top, int& l_, int& lt_) {
       int l = l_, lt = lt_;
-      for (int i = 0; i < pw; ++i) {
+      // libavcodec's SIMD add_median_pred runs on past the line's end too
+      // (8 bits), over the row above's such column; the state it hands
+      // back is the line's last pixel's.
+      const int end = bps <= 8 ? stride : pw;
+      for (int i = 0; i < end; ++i) {
+        if (i == pw) {
+          l_ = l;
+          lt_ = lt;
+        }
         if (bps <= 8)
           l = (median3(l & 0xFF, top[i], (l + top[i] - lt) & 0xFF) +
                tmp[size_t(i)]) & 0xFF;
@@ -486,10 +507,13 @@ void HuffyuvDecoder::State::decode_v3(SwappedBits& gb, Picture& out) {
         lt = top[i];
         dst[i] = uint16_t(l);
       }
-      l_ = l;
-      lt_ = lt;
+      if (end == pw) {
+        l_ = l;
+        lt_ = lt;
+      }
     };
-    if (ph <= 0 || pw <= 0) continue;
+    // The first line is coded even where the plane has none (a 4:2:0
+    // picture one row high): libavcodec reads it into the row it has.
     if (predictor == kLeft || predictor == kPlane) {
       line();
       unsigned left = left_pred(base, 0);

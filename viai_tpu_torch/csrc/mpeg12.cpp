@@ -67,7 +67,7 @@ using mpeg::Vlc;
 // |motion_code| 0..16; coded_block_pattern by value; the DC sizes 0..11;
 // tables B-14 and B-15 (the 111 (run, level) rows of kRun and kLevel,
 // escape, end of block); macroblock_type of P- and B-pictures (the rows
-// of kPFlags and kBFlags). kAltScan: the alternate (vertical) scan;
+// of kPFlags and kBFlags); the alternate scan is mpeg::kAltVertical;
 // kIntraDefault: MPEG's default intra matrix in natural order;
 // kNonLinear: q_scale_type 1's quantiser scale by code.
 const uint8_t kMbIncr[36][2] = {
@@ -160,11 +160,6 @@ const uint8_t kPType[7][2] = {
 const uint8_t kBType[11][2] = {
     {0x3, 5}, {0x2, 3}, {0x3, 3}, {0x2, 4}, {0x3, 4}, {0x2, 2},
     {0x3, 2}, {0x1, 6}, {0x2, 6}, {0x3, 6}, {0x2, 5}};
-const uint8_t kAltScan[64] = {
-    0, 8, 16, 24, 1, 9, 2, 10, 17, 25, 32, 40, 48, 56, 57, 49,
-    41, 33, 26, 18, 3, 11, 4, 12, 19, 27, 34, 42, 50, 58, 35, 43,
-    51, 59, 20, 28, 5, 13, 6, 14, 21, 29, 36, 44, 52, 60, 37, 45,
-    53, 61, 22, 30, 7, 15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
 const uint8_t kIntraDefault[64] = {
     8, 16, 19, 22, 26, 27, 29, 34, 16, 16, 22, 24, 27, 29, 34, 37,
     19, 22, 26, 27, 29, 34, 34, 38, 22, 22, 26, 27, 29, 34, 37, 40,
@@ -593,7 +588,7 @@ struct Mpeg12Decoder::State {
     return true;
   }
 
-  const uint8_t* scan() const { return alt_scan ? kAltScan : kZigzag; }
+  const uint8_t* scan() const { return alt_scan ? mpeg::kAltVertical : kZigzag; }
 
   // The end of a non-intra block, or of an MPEG-1 intra block: "10".
   bool at_eob() const { return b->peek(2) == 2; }

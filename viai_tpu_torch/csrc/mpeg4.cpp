@@ -35,8 +35,8 @@
 // OBMC, arbitrary shapes, scalability, newpred, reduced resolution,
 // complexity estimation, bit depths other than 8, and streams that
 // libavcodec decodes with workarounds not copied (libavcodec builds
-// before 4714 or with its IEDGE bug, DivX 5.00 build 413 GMC, XVIX,
-// UMP4).
+// before 4714 or with its IEDGE bug, DivX 5.00 build 413 GMC, UMP4, GEOV's
+// bottom-up pictures; XVIX's workaround is for interlace, which raises).
 
 #include <algorithm>
 #include <cstdint>
@@ -54,6 +54,10 @@ namespace viai_video {
 namespace {
 
 using mpeg::Bits;
+using mpeg::kAltHorizontal;
+using mpeg::kAltVertical;
+using mpeg::hpel;
+using mpeg::Plane;
 using mpeg::kZigzag;
 using mpeg::Vlc;
 
@@ -172,19 +176,7 @@ const uint8_t kDcChroma[13][2] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4},
                                   {1, 5}, {1, 6}, {1, 7}, {1, 8}, {1, 9},
                                   {1, 10}, {1, 11}, {1, 12}};
 
-// ffmpeg's alternate scans (AC prediction from the left: vertical; from
-// above: horizontal) and MPEG-4's default quantisation matrices, natural
-// order.
-const uint8_t kAltVertical[64] = {
-    0,  8,  16, 24, 1,  9,  2,  10, 17, 25, 32, 40, 48, 56, 57, 49,
-    41, 33, 26, 18, 3,  11, 4,  12, 19, 27, 34, 42, 50, 58, 35, 43,
-    51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44, 52, 60, 37, 45,
-    53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
-const uint8_t kAltHorizontal[64] = {
-    0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14,
-    13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
-    30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
-    46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
+// MPEG-4's default quantisation matrices, natural order.
 const uint8_t kDefaultIntra[64] = {
     8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
     20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
@@ -318,40 +310,11 @@ enum Bug : unsigned {
   kBugDcClip = 8            // FF_BUG_DC_CLIP: DC not clipped at 2047
 };
 
-// A reference plane: its pixels and the edge its reads clamp to.
-struct Plane {
-  const uint8_t* p;
-  int stride, w, h;
-  int at(int x, int y) const {
-    return p[size_t(clip(y, 0, h - 1)) * stride + clip(x, 0, w - 1)];
-  }
-};
 
 // The (n + 1)² pixels at (sx, sy), edges replicated (emulated_edge_mc).
 void fetch(const Plane& r, int sx, int sy, int n, uint8_t* o) {
   for (int y = 0; y <= n; ++y)
     for (int x = 0; x <= n; ++x) o[y * 17 + x] = uint8_t(r.at(sx + x, sy + y));
-}
-
-// Half-pel put (or average into dst, `avg`) of a (bw, bh) block read at
-// integer (sx, sy) with half-pel flags dxy (1 x, 2 y); `no_rnd` rounds
-// the interpolation down (put_no_rnd_pixels).
-void hpel(const Plane& r, int sx, int sy, int dxy, int no_rnd, bool avg,
-          uint8_t* dst, int ds, int bw, int bh) {
-  for (int y = 0; y < bh; ++y)
-    for (int x = 0; x < bw; ++x) {
-      int a = r.at(sx + x, sy + y), v;
-      switch (dxy) {
-        case 0: v = a; break;
-        case 1: v = (a + r.at(sx + x + 1, sy + y) + 1 - no_rnd) >> 1; break;
-        case 2: v = (a + r.at(sx + x, sy + y + 1) + 1 - no_rnd) >> 1; break;
-        default:
-          v = (a + r.at(sx + x + 1, sy + y) + r.at(sx + x, sy + y + 1) +
-               r.at(sx + x + 1, sy + y + 1) + 2 - no_rnd) >> 2;
-      }
-      uint8_t& d = dst[size_t(y) * ds + x];
-      d = uint8_t(avg ? (d + v + 1) >> 1 : v);
-    }
 }
 
 // MPEG-4's quarter-pel lowpass (qpeldsp.c): the half-sample between s[i]
@@ -661,8 +624,9 @@ struct Mpeg4Decoder::State {
         is("DIVX") && vo_type == 0 && !vol_control)
       divx_version = 400;
     if (xvid_build >= 0 && divx_version >= 0) divx_version = divx_build = -1;
-    if (is("XVIX")) no("XVIX interlace workarounds");
     if (is("UMP4")) no("UMP4 streams (decoded with bug workarounds)");
+    if (is("GEOV"))
+      no("GEOV streams (libavcodec hands their pictures over bottom-up)");
     unsigned xb = unsigned(xvid_build), lb = unsigned(lavc_build);
     unsigned dv = unsigned(divx_version);
     bugs = 0;

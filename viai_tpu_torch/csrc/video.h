@@ -2,6 +2,7 @@
 // mpeg4.cpp (the MPEG-4 Part 2 decoder), mpeg12.cpp (the MPEG-1/2
 // decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder),
 // h264.cpp (the H.264 decoder), hevc.cpp (the HEVC decoder),
+// msmpeg4.cpp (the H.263 family),
 // rawvideo.cpp (uncompressed video), ffv1.cpp (FFV1), utvideo.cpp (UT
 // Video), huffyuv.cpp (HuffYUV and FFVHuff) and imagedec.cpp (PNG in
 // AVI and Matroska).
@@ -86,6 +87,11 @@ void idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
 // streams.
 void xvid_idct_put(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
 void xvid_idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
+// The simple IDCT's 8x4 and 4x8 forms (ff_simple_idct84_add, rows of 8
+// then columns of 4; ff_simple_idct48_add, rows of 4 then columns of 8),
+// added to dst: WMV2's ABT blocks.
+void idct84_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
+void idct48_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride);
 
 // ffmpeg's mpeg4 decoder for what its encoder writes (see mpeg4.cpp).
 class Mpeg4Decoder {
@@ -381,6 +387,34 @@ class HuffyuvDecoder {
                  int h);
   ~HuffyuvDecoder();
   bool decode(const uint8_t* data, size_t n, Picture& out);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's H.263-family decoders (see msmpeg4.cpp): Sorenson H.263
+// (FLV1), MS-MPEG4 v2 and v3, WMV1 (WMV7) and WMV2 (WMV8). No picture is
+// held back; an I picture decodes on its own.
+class H263Decoder {
+ public:
+  // `tag`: the fourcc (Matroska's V_MPEG4/MS/V3 as "MP43"); w, h: the
+  // container's picture size (FLV1's pictures carry their own);
+  // `extradata`: WMV2's 4-byte header. MS-MPEG4 v1's tags raise.
+  H263Decoder(const std::string& tag, int w, int h,
+              const std::vector<uint8_t>& extradata);
+  ~H263Decoder();
+  // Decode one packet; true with `out` filled, false when libavcodec
+  // gives no picture for it (an empty packet, a WMV2 picture that skips
+  // every macroblock, a skipped disposable FLV1 picture).
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // Read one packet's picture type only: 0 an I picture, 1 a P picture,
+  // −1 none (a disposable FLV1 picture before the second reference is
+  // skipped: peek the packets before the first decoded one in order).
+  int peek(const uint8_t* data, size_t n);
+  // Which decoder a fourcc names: 1 FLV1, 2 MS-MPEG4 v2, 3 v3, 4 WMV1,
+  // 5 WMV2; −1 MS-MPEG4 v1 (not read); 0 none.
+  static int variant(const std::string& tag);
 
  private:
   struct State;

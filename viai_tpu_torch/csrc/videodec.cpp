@@ -146,7 +146,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 
 enum class Codec {
   kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kHevc, kFfv1, kUtvideo,
-  kHuffyuv, kPng, kOther
+  kHuffyuv, kPng, kH263, kOther
 };
 
 struct Packet {
@@ -234,10 +234,14 @@ bool mov_mpeg12(const std::string& tag) {
 // libavformat's riff tags (upper-cased, as its AVI demuxer retries) and
 // the codecs they name.
 Codec riff_codec(const std::string& tag) {
-  static const char* kMjpeg[] = {"MJPG", "AVRN", "JPGL", "DMB1", "MJPA"};
-  static const char* kMpeg4[] = {"FMP4", "DIVX", "DX50", "XVID", "MP4V",
-                                 "MP4S", "M4S2", "3IV2", "RMP4", "UMP4",
-                                 "SMP4", "DXGM", "FVFW", "FFDS", "DCOD"};
+  static const char* kMjpeg[] = {
+      "MJPG", "AVRN", "JPGL", "DMB1", "MJPA", "JPEG", "LJPG", "IJPG", "ACDV",
+      "QIVG", "SLMJ", "CJPG", "IJLV", "MVJP", "AVI1", "AVI2", "ZJPG", "MJLS",
+      "MMJP"};
+  static const char* kMpeg4[] = {
+      "FMP4", "DIVX", "DX50", "XVID", "MP4V", "MP4S", "M4S2", "3IV2", "RMP4",
+      "UMP4", "SMP4", "DXGM", "FVFW", "FFDS", "DCOD", "WV1F", "SEDG", "XVIX",
+      "BLZ0", "GEOV", "SIPP", "ZMP4", "DM4V", "EPHV", "M4CC", "VIDM"};
   std::string u = upper(tag);
   for (const char* t : kMjpeg)
     if (u == t) return Codec::kMjpeg;
@@ -245,8 +249,11 @@ Codec riff_codec(const std::string& tag) {
     if (u == t) return Codec::kMpeg4;
   if (u == "VP80") return Codec::kVp8;
   if (u == "VP90") return Codec::kVp9;
-  if (u == "H264" || u == "X264" || u == "AVC1" || u == "DAVC")
-    return Codec::kH264;
+  static const char* kH264[] = {"H264", "X264", "AVC1", "DAVC", "SMV2",
+                                "VSSH", "Q264", "V264", "GAVC", "UMSV",
+                                "TSHD", "INMC", "AI55"};
+  for (const char* t : kH264)
+    if (u == t) return Codec::kH264;
   if (u == "HEVC" || u == "H265") return Codec::kHevc;
   // The lossless intra codecs (ff_codec_bmp_tags): FFV1, HuffYUV and
   // FFVHuff, UT Video (its 10-bit UQ** and pack-mode UM** tags too, which
@@ -269,6 +276,9 @@ Codec riff_codec(const std::string& tag) {
   for (const char* t : kMpeg12)
     if (u == t) return Codec::kMpeg12;
   if (mov_mpeg12(tag)) return Codec::kMpeg12;
+  // The H.263 family: FLV1, MS-MPEG4 v2 and v3, WMV1, WMV2 (MS-MPEG4 v1's
+  // tags, which are not read, stay kOther).
+  if (H263Decoder::variant(tag) > 0) return Codec::kH263;
   return Codec::kOther;
 }
 
@@ -806,6 +816,13 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
     read_vpcc(t, boxes(f, entry + 86, entry + esz));
   } else if (mov_mpeg12(t.tag)) {
     t.codec = Codec::kMpeg12;
+  } else if (t.tag == "FFV1") {
+    // FFV1's configuration record (versions 2 and 3) in a glbl box, which
+    // libavformat takes as the extradata.
+    t.codec = Codec::kFfv1;
+    std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
+    if (const Box* glbl = child(eb, "glbl"))
+      t.extradata.assign(f.begin() + glbl->body, f.begin() + glbl->end);
   } else if (t.tag == "mp4v") {
     const Box* esds = nullptr;
     std::vector<Box> eb = boxes(f, entry + 86, entry + esz);
@@ -821,6 +838,9 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
       t.codec = Codec::kMpeg12;
     } else if (oti == 0x6C) {
       t.codec = Codec::kMjpeg;
+      t.config.clear();
+    } else if (oti == 0x6D) {              // PNG, as cv2's writer stores it
+      t.codec = Codec::kPng;
       t.config.clear();
     } else {
       char b[64];
@@ -1982,6 +2002,8 @@ void demux_mkv(Track& t) {
                        codec == "V_MPEG4/ISO/AP") {
               t.codec = Codec::kMpeg4;
               t.config = priv;
+            } else if (codec == "V_MPEG4/MS/V3") {
+              t.codec = Codec::kH263;
             } else if (codec == "V_MS/VFW/FOURCC") {
               if (priv.size() < 40)
                 broken("Matroska V_MS/VFW/FOURCC without its "
@@ -2302,6 +2324,47 @@ void xvid_idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
 void idct_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
   for (int r = 0; r < 8; ++r) idct_row(blk + 8 * r);
   for (int c = 0; c < 8; ++c) {
+    int o[8];
+    idct_col(blk + c, o);
+    for (int r = 0; r < 8; ++r)
+      dst[r * stride + c] = clip_u8(dst[r * stride + c] + o[r]);
+  }
+}
+
+// The 4-point IDCT of simple_idct.c (the 2-4-8 and 8x4/4x8 forms):
+// its constants sqrt(2) · cos(k·pi/8) at 2^15 in rows (idct4row) and
+// 2^12 in columns (idct4col).
+void idct84_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
+  constexpr int C1 = 3784, C2 = 1567, C3 = 2896, kShift = 17;
+  for (int r = 0; r < 4; ++r) idct_row(blk + 8 * r);
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* col = blk + c;
+    int c0 = (col[0] + col[16]) * C3 + (1 << (kShift - 1));
+    int c2 = (col[0] - col[16]) * C3 + (1 << (kShift - 1));
+    int c1 = col[8] * C1 + col[24] * C2;
+    int c3 = col[8] * C2 - col[24] * C1;
+    const int o[4] = {(c0 + c1) >> kShift, (c2 + c3) >> kShift,
+                      (c2 - c3) >> kShift, (c0 - c1) >> kShift};
+    for (int r = 0; r < 4; ++r)
+      dst[r * stride + c] = clip_u8(dst[r * stride + c] + o[r]);
+  }
+}
+
+void idct48_add(int16_t* blk, uint8_t* dst, ptrdiff_t stride) {
+  constexpr int R1 = 30274, R2 = 12540, R3 = 23170, kShift = 11;
+  for (int r = 0; r < 8; ++r) {
+    int16_t* row = blk + 8 * r;
+    int a0 = row[0], a1 = row[1], a2 = row[2], a3 = row[3];
+    int c0 = (a0 + a2) * R3 + (1 << (kShift - 1));
+    int c2 = (a0 - a2) * R3 + (1 << (kShift - 1));
+    int c1 = a1 * R1 + a3 * R2;
+    int c3 = a1 * R2 - a3 * R1;
+    row[0] = int16_t((c0 + c1) >> kShift);
+    row[1] = int16_t((c2 + c3) >> kShift);
+    row[2] = int16_t((c2 - c3) >> kShift);
+    row[3] = int16_t((c0 - c1) >> kShift);
+  }
+  for (int c = 0; c < 4; ++c) {
     int o[8];
     idct_col(blk + c, o);
     for (int r = 0; r < 8; ++r)
@@ -3259,6 +3322,15 @@ class Decoder {
     if (t.codec == Codec::kHuffyuv)
       huffyuv_.reset(
           new HuffyuvDecoder(t.bits, t.extradata, t.width, t.height));
+    if (t.codec == Codec::kH263) h263_ = h263_of(t);
+  }
+
+  // The H.263-family decoder of a track (Matroska's V_MPEG4/MS/V3 is
+  // MS-MPEG4 v3).
+  static std::unique_ptr<H263Decoder> h263_of(const Track& t) {
+    std::string tag = t.tag == "V_MPEG4/MS/V3" ? "MP43" : fourcc_of(t);
+    return std::unique_ptr<H263Decoder>(
+        new H263Decoder(tag, t.width, t.height, t.extradata));
   }
 
   // The fourcc of an AVI track or a Matroska V_MS/VFW/FOURCC one.
@@ -3324,6 +3396,7 @@ class Decoder {
     if (h264_) return h264_->decode(d, p.size, out);
     if (hevc_) return hevc_->decode(d, p.size, out);
     if (mpeg12_) return mpeg12_->decode(d, p.size, out);
+    if (h263_) return h263_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
@@ -3365,6 +3438,7 @@ class Decoder {
     if (h264_) h264_->headers(d, t_.packets[i].size);
     if (hevc_) hevc_->headers(d, t_.packets[i].size);
     if (mpeg12_) mpeg12_->headers(d, t_.packets[i].size);
+    if (h263_) h263_->peek(d, t_.packets[i].size);
   }
 
   // The uncompressed video decoder; null for other codecs.
@@ -3390,12 +3464,8 @@ class Decoder {
     if (in({"UMY2", "UMH2", "UMY4", "UMH4", "UMRG", "UMRA"}))
       return "UT Video pack mode (UM**), not read";
     if (in({"MPG4", "MP41", "DIV1"})) return "MS-MPEG4 v1, not read";
-    if (in({"MP42", "DIV2"})) return "MS-MPEG4 v2, not read";
-    if (in({"MP43", "DIV3", "MPG3", "DIV4", "DIV5", "DIV6", "AP41", "COL1",
-            "COL0"}))
-      return "MS-MPEG4 v3, not read";
-    if (in({"WMV1", "WMV2"})) return "WMV7/8 (" + u + "), not read";
-    if (u == "FLV1") return "Sorenson H.263 (FLV1), not read";
+    if (u == "MTSJ")
+      return "MJPEG that libavcodec decodes with MTSJ's own quirk, not read";
     if (in({"MJ2C", "MJP2", "LJ2C", "LJ2K", "IPJ2", "AVJ2"}))
       return "JPEG 2000, not read";
     if (u == "SNOW") return "Snow, not read";
@@ -3417,6 +3487,7 @@ class Decoder {
   std::unique_ptr<Ffv1Decoder> ffv1_;
   std::unique_ptr<UtVideoDecoder> ut_;
   std::unique_ptr<HuffyuvDecoder> huffyuv_;
+  std::unique_ptr<H263Decoder> h263_;
 };
 
 // A JPEG's frame size, from its SOF segment; false without one.
@@ -4067,6 +4138,9 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       // frame_of + n − 1).
       std::vector<int64_t> frame_of(t.packets.size(), -1);
       std::vector<int> shows(t.packets.size(), 1);
+      std::unique_ptr<viai_video::H263Decoder> h263;
+      if (t.codec == viai_video::Codec::kH263)
+        h263 = viai_video::Decoder::h263_of(t);
       int64_t frames = 0;
       bool refused = false;
       for (size_t i = 0; i < t.packets.size(); ++i) {
@@ -4084,6 +4158,7 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                                &shows[i]);
         if (t.codec == viai_video::Codec::kFfv1)
           vop[i] = viai_video::Ffv1Decoder::peek(&t.file[p.off], p.size);
+        if (h263) vop[i] = h263->peek(&t.file[p.off], p.size);
         if (vop[i] >= 0 && !p.discard) {
           frame_of[i] = frames;
           frames += shows[i];

@@ -240,7 +240,7 @@ def load_frame_dir(path: str, n_frames: int, size: int,
 # (csrc/rawvideo.cpp); "ffv1", "utvideo", "huffyuv" (HuffYUV and FFVHuff)
 # and "png" the lossless codecs.
 VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw",
-                "hevc", "ffv1", "utvideo", "huffyuv", "png", "other")
+                "hevc", "ffv1", "utvideo", "huffyuv", "png", "h263", "other")
 
 
 @dataclasses.dataclass
@@ -249,7 +249,8 @@ class VideoTrack:
     the container ("AVI", "MP4" for .mp4/.mov, "Matroska" for .mkv and
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
     ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw", "hevc",
-    "ffv1", "utvideo", "huffyuv", "png" or "other"), the
+    "ffv1", "utvideo", "huffyuv", "png", "h263" for the H.263 family or
+    "other"), the
     size of its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT
     report it
     (from the first packet's headers; the container's when they give
