@@ -446,13 +446,15 @@ VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
              "mpeg12": 0, "raw": 0, "hevc": 0, "ffv1": 0, "utvideo": 0,
-             "huffyuv": 0, "png": 0, "h263": 0, "muxers": 0}
+             "huffyuv": 0, "png": 0, "h263": 0, "h261": 0, "muxers": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
                "raw": "uncompressed", "hevc": "HEVC", "ffv1": "FFV1",
                "utvideo": "UT Video", "huffyuv": "HuffYUV/FFVHuff",
                "png": "PNG",
-               "h263": "H.263 family (MS-MPEG4 v2/v3, WMV1/2, FLV1)",
+               "h263": "H.263 family (MS-MPEG4 v2/v3, WMV1/2, FLV1, ITU "
+                       "H.263 and H.263+)",
+               "h261": "H.261",
                "muxers": "muxers' tails (every codec)"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
@@ -462,7 +464,7 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
                  "xvid": ("clip_xvid.avi", "clip_dx50.mp4", "clip_div3.avi",
-                          "clip_wmv2.avi"),
+                          "clip_wmv2.avi", "clip_h263p.mp4"),
                  "phone": ("clip_phone.mp4", "clip_frag.mp4",
                            "clip_strip.mkv", "clip_nodd.mkv"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
@@ -590,15 +592,24 @@ MUXER_CLIPS = ("clip_strip_mkv", "clip_nodd_mkv")
 # and v3 under their tags and Matroska's V_MPEG4/MS/V3, WMV1 with
 # inter-intra prediction, WMV2 with its loop filter, coded block pattern
 # tables and skip maps, FLV1 with disposable pictures, slices written in,
-# cv2's own files; every .npz of these prefixes) and its 224x224 clips
-# (clip_div3.avi and clip_wmv2.avi train in the xvid folder), each held
+# cv2's own files) and of ITU video telephony as OpenCV's writer and old
+# phones store it (ITU_CASES: H.263 baseline with 4MV, OBMC, GOB headers
+# and DQUANT, H.263+ with Annexes D, I, J, K, S and T, H.261; AVI,
+# Matroska and MP4's s263; every .npz of these prefixes) and their clips
+# (224x224 but clip_h263.avi and clip_h261.avi at CIF; clip_div3.avi,
+# clip_wmv2.avi and clip_h263p.mp4 train in the xvid folder), each held
 # and printed, and a frame of each codec timed
-LEGACY_PREFIXES = ("msmpeg4", "wmv1_", "wmv2_", "flv_", "cv2_")
+LEGACY_PREFIXES = ("msmpeg4", "wmv1_", "wmv2_", "flv_", "cv2_", "h263_",
+                   "h263p_", "h261_")
 LEGACY_CLIPS = {"clip_div3.avi": "MS-MPEG4 v3 (DivX 3), GOPs of 12",
                 "clip_mp42.avi": "MS-MPEG4 v2, GOPs of 12",
                 "clip_wmv1.avi": "WMV1 (WMV7), GOPs of 12",
                 "clip_wmv2.avi": "WMV2 (WMV8), GOPs of 12",
-                "clip_flv1.avi": "Sorenson H.263 (FLV1), GOPs of 12"}
+                "clip_flv1.avi": "Sorenson H.263 (FLV1), GOPs of 12",
+                "clip_h263p.mp4": "H.263+ in an s263 MP4 (Annexes D, F, I, "
+                                  "J, K, S, T), GOPs of 12",
+                "clip_h263.avi": "H.263 baseline (4MV, OBMC), GOPs of 12",
+                "clip_h261.avi": "H.261, GOPs of 12"}
 HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
@@ -2106,10 +2117,11 @@ def phase_frames(dev, ckpt: str, card: str) -> int:
 # ---------------------------------------------------------------------------
 # Compressed video
 def video_legacy_costs(best_ms, card: str):
-    """[video] (d): a 224x224 frame's decode of each codec of the H.263
-    family (LEGACY_CLIPS: MS-MPEG4 v2 and v3, WMV1, WMV2, FLV1, GOPs of
-    12), each the best of VIDEO_REPS decodes of the whole file over its
-    frames, on one thread."""
+    """[video] (d): a frame's decode of each codec of the H.263 family and
+    of H.261 (LEGACY_CLIPS: MS-MPEG4 v2 and v3, WMV1, WMV2, FLV1, H.263+
+    at 224x224; H.263 and H.261 at 352x288; GOPs of 12), each the best of
+    VIDEO_REPS decodes of the whole file over its frames, on one
+    thread."""
     from viai_tpu_torch import native
 
     res = []
@@ -2118,7 +2130,8 @@ def video_legacy_costs(best_ms, card: str):
         n, h, w = native.decode_video(path).shape[:3]
         ms = best_ms(lambda: native.decode_video(path)) / n
         res.append(f"{what} ({src}) at {w}x{h}: {ms:.3f} ms a frame")
-    log("[video] H.263-family decode (demux, decode, BGR; one thread): "
+    log("[video] H.263-family and H.261 decode (demux, decode, BGR; one "
+        "thread): "
         + "; ".join(res) + f"; {card}")
 
 # ---------------------------------------------------------------------------
@@ -2232,7 +2245,7 @@ def video_fixtures():
             worst["muxers"] = max(worst["muxers"], err)
             n_frames["muxers"] += len(ref["index"])
             n_files["muxers"] += 1
-        if track.codec == "h263":
+        if track.codec in ("h263", "h261"):
             require(npz.stem.startswith(LEGACY_PREFIXES) or
                     path.name in LEGACY_CLIPS,
                     f"[video] {path.name}: an H.263-family file unlisted")
@@ -2320,7 +2333,8 @@ def video_fixtures():
             f"{len(MUXER_FIXTURES) + len(MUXER_CLIPS)}")
     n_legacy = sum(len(list(VIDEO_FIXTURES.glob(f"{p}*.npz")))
                    for p in LEGACY_PREFIXES) + len(LEGACY_CLIPS)
-    log(f"[video] the H.263 family as old AVIs and cv2's writer store it "
+    log(f"[video] the H.263 family as old AVIs and cv2's writer store it, "
+        f"ITU video telephony as cv2's writer and old phones store it "
         f"({len(per_legacy)} fixtures): " + "; ".join(per_legacy))
     require(len(per_legacy) == n_legacy and n_legacy > len(LEGACY_CLIPS),
             f"[video] {len(per_legacy)} H.263-family fixtures of "
@@ -2408,7 +2422,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     Matroska), then camera and cut clips (MJPEG 4:2:2 in OpenDML AVI,
     H.264 in MP4 under a trimming edit), then MPEG-4 Advanced Simple
     Profile clips (XviD in AVI, libavcodec's mpeg4 with B-VOPs in MP4)
-    with DivX 3 and WMV8 AVIs beside them,
+    with DivX 3 and WMV8 AVIs and a phone's H.263+ s263 MP4 beside them,
     then phone clips (H.264 turned 90 degrees with AAC, fragmented, and
     header-stripped in Matroska; HEVC in Matroska without
     DefaultDuration), then camera clips (High 4:2:2 10-bit in MP4, PsF without
@@ -2431,7 +2445,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     a 720x480 MPEG-2 frame's decode and conversion, a 224x224 I420 and a
     720x480 YUY2 frame's read and conversion, a clip's read, a 224x224
     and a 1920x1080 HEVC frame's decode, a 224x224 FFV1 and UT Video
-    frame's decode, a 224x224 frame's of each H.263-family codec, the
+    frame's decode, a frame's of each H.263-family codec and of H.261, the
     loader's wait share of a step from each folder
     (in its training run).
     Returns the GL kernel's launches."""

@@ -1290,18 +1290,113 @@ LEGACY_CLIPS = {"clip_div3_avi": ("msmpeg4", "DIV3", dict(g=12)),
                 "clip_mp42_avi": ("msmpeg4v2", "MP42", dict(g=12)),
                 "clip_wmv1_avi": ("wmv1", "WMV1", dict(g=12)),
                 "clip_flv1_avi": ("flv", "FLV1", dict(g=12))}
+# ITU video telephony as OpenCV's writer and old phones store it
+# (tests/test_torch_video_itu.py): ITU_FRAMES frames of moving_frames at
+# the case's `size` (h, w; QCIF unless given) from the system's
+# libavcodec 59 (lavc_encode's "h263", "h263p" and "h261" with the
+# options given: "+mv4" 4MV and "obmc" OBMC (Annex F), "ps" a payload
+# size that makes GOB headers (or, with "structured_slices", Annex K's
+# slices), "umv" (Annex D), "aiv" (Annex S), "+aic" (Annex I, which
+# turns on Annex T), "+loop" (Annex J; H.261's loop filter, FIL),
+# "scplx_mask" DQUANT; `noise`
+# as in LEGACY_CASES), in the container the name ends with: AVI under
+# `tag`, Matroska V_MS/VFW/FOURCC with a BITMAPINFOHEADER, or MP4 under
+# the sample entry `tag` (s263 or h263, with a d263 box where `d263`).
+# "cv2" is cv2.VideoWriter under the fourcc `tag`. `edit` rewrites the
+# stream (itu_edit): "longvec" sets baseline's Annex D bit in every
+# picture header (the vectors stay in range, so the pictures read the
+# same); "ufep0" drops the P pictures' OPPTYPE (UFEP 0: the I picture's
+# modes kept); "mq" writes Annex T's DQUANT (a step and an absolute
+# quantiser) into the I pictures' intra macroblocks. The baseline
+# encoder writes no loop filter (Annex J is H.263+'s): "+loop" leaves
+# its stream as it is. libavcodec 59's h263p writes Annex I with Annex T
+# and DQUANT that cv2's libavcodec 62 misreads ("cbpy damaged"), so
+# Annex T's DQUANT is written in by "mq".
+ITU_FRAMES = 8
+_CIF, _SQCIF = (288, 352), (96, 128)
+ITU_CASES = {
+    "h263_avi": ("h263", "H263", dict(g=4)),
+    "h263_sqcif_mkv": ("h263", "X263", dict(g=5, size=_SQCIF)),
+    "h263_cif_avi": ("h263", "M263", dict(g=8, size=_CIF, frames=4)),
+    "h263_mv4_avi": ("h263", "H263", dict(g=8, flags="+mv4")),
+    "h263_obmc_avi": ("h263", "H263", dict(g=8, flags="+mv4", obmc=1)),
+    "h263_obmcq_mkv": ("h263", "VX1K", dict(g=8, flags="+mv4", obmc=1,
+                                            qmin=20, qmax=20)),
+    "h263_gob_avi": ("h263", "T263", dict(g=4, ps=200)),
+    "h263_q2_avi": ("h263", "L263", dict(g=5, qmin=2, qmax=2, noise=20,
+                                          frames=4)),
+    "h263_q31_mkv": ("h263", "H263", dict(g=8, qmin=31, qmax=31)),
+    "h263_dquant_avi": ("h263", "lsvm", dict(g=8, scplx_mask=0.5)),
+    "h263_longvec_avi": ("h263", "H263", dict(g=4, flags="+mv4", obmc=1,
+                                              edit="longvec")),
+    "h263_loopflag_avi": ("h263", "H263", dict(g=4, flags="+loop")),
+    "h263_s263_mp4": ("h263", "s263", dict(g=4, d263=True)),
+    "h263_nod263_mp4": ("h263", "s263", dict(g=4)),
+    "h263_h263_mp4": ("h263", "h263", dict(g=4, d263=True)),
+    "h263p_avi": ("h263p", "U263", dict(g=4, size=(224, 224), frames=4)),
+    "h263p_odd_mp4": ("h263p", "s263", dict(g=4, size=(100, 124), umv=1,
+                                            d263=True)),
+    "h263p_umv_avi": ("h263p", "U263", dict(g=8, umv=1)),
+    "h263p_aiv_mkv": ("h263p", "U263", dict(g=8, aiv=1, qmin=4, qmax=4,
+                                            noise=30, frames=4)),
+    "h263p_aic_avi": ("h263p", "U263", dict(g=4, flags="+aic")),
+    "h263p_aicq1_avi": ("h263p", "U263", dict(g=4, flags="+aic", qmin=1,
+                                              qmax=1, noise=30, frames=2)),
+    "h263p_loop_avi": ("h263p", "U263", dict(g=8, flags="+loop", qmin=12,
+                                             qmax=12)),
+    "h263p_slices_avi": ("h263p", "U263", dict(g=4, structured_slices=1,
+                                               ps=300)),
+    "h263p_mq_avi": ("h263p", "U263", dict(g=4, flags="+aic+loop",
+                                           qmin=10, qmax=10, edit="mq")),
+    "h263p_dquant_mkv": ("h263p", "U263", dict(g=8, scplx_mask=0.5,
+                                               tcplx_mask=0.5)),
+    "h263p_ufep0_avi": ("h263p", "U263", dict(g=8, edit="ufep0")),
+    "h263p_all_avi": ("h263p", "U263", dict(
+        g=8, size=(160, 224), umv=1, aiv=1, flags="+aic+loop+mv4", obmc=1,
+        structured_slices=1)),
+    "h263p_all_mp4": ("h263p", "s263", dict(
+        g=8, size=(160, 224), umv=1, aiv=1, flags="+aic+loop+mv4", obmc=1,
+        structured_slices=1, ps=400, d263=True)),
+    "h263p_allq_mkv": ("h263p", "U263", dict(
+        g=8, umv=1, aiv=1, flags="+aic+loop+mv4", obmc=1,
+        structured_slices=1, qmin=3, qmax=3, noise=20, frames=4)),
+    "h261_avi": ("h261", "H261", dict(g=4)),
+    "h261_cif_avi": ("h261", "H261", dict(g=8, size=_CIF, frames=4,
+                                          flags="+loop")),
+    "h261_q2_mkv": ("h261", "H261", dict(g=8, qmin=2, qmax=2, noise=20,
+                                         frames=4, flags="+loop")),
+    "h261_q31_avi": ("h261", "H261", dict(g=8, qmin=31, qmax=31,
+                                          flags="+loop")),
+    "h263_cv2_avi": ("cv2", "H263", {}),
+    "h263p_cv2_mkv": ("cv2", "U263", {}),
+    "h261_cv2_avi": ("cv2", "H261", {}),
+}
+# The clips chip_smoke.py holds and times a frame of, of the committed
+# 224x224 clip's first 16 frames (resized to CIF with cv2.INTER_AREA):
+# H.263+ with every annex of the tentpole in an s263 MP4 as a phone's
+# (trained from in chip_smoke.py's xvid folder), H.263 baseline with 4MV
+# and OBMC, H.261 with its loop filter.
+ITU_CLIPS = {"clip_h263p_mp4": ("h263p", "s263", dict(
+                 g=12, umv=1, aiv=1, flags="+aic+loop+mv4", obmc=1,
+                 structured_slices=1, d263=True)),
+             "clip_h263_avi": ("h263", "H263", dict(g=12, flags="+mv4",
+                                                    obmc=1, size=_CIF)),
+             "clip_h261_avi": ("h261", "H261", dict(g=12, size=_CIF,
+                                                    flags="+loop"))}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
         *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS,
         *LOSSLESS_CASES, *LOSSLESS_CLIPS, *MUXER_CASES, *MUXER_CLIPS,
-        *LEGACY_CASES, *LEGACY_CLIPS)
+        *LEGACY_CASES, *LEGACY_CLIPS, *ITU_CASES, *ITU_CLIPS)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
     if name in LEGACY_CASES or name in LEGACY_CLIPS:
         return "h263"
+    if name in ITU_CASES or name in ITU_CLIPS:
+        return "h261" if name.startswith(("h261", "clip_h261")) else "h263"
     if name in MUXER_CASES or name in MUXER_CLIPS:
         kind = {**MUXER_CASES, **MUXER_CLIPS}[name]["stream"]
         return {"h264gbr": "h264", "mpeg2": "mpeg12", "mpeg1": "mpeg12",
@@ -1336,7 +1431,7 @@ def path_of(name: str) -> str:
             or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
             or name in HEVC_CLIPS or name in TOOLS_CLIPS
             or name in LOSSLESS_CLIPS or name in MUXER_CLIPS
-            or name in LEGACY_CLIPS):
+            or name in LEGACY_CLIPS or name in ITU_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -5305,6 +5400,156 @@ def legacy_file(name: str) -> bytes:
                     codec_private=bih + extra)
 
 
+def d263_box() -> bytes:
+    """3GPP's H263SpecificBox as ffmpeg's muxer writes it: vendor,
+    decoder version, level 10, profile 0."""
+    return _box(b"d263", b"FFMP", bytes([0, 10, 0]))
+
+
+def h263_picture_end(bits: str) -> int:
+    """The bit after an H.263+ I picture's header (PQUANT and PEI; no CPM,
+    no slices)."""
+    assert bits[35:38] == "111" and bits[38:41] == "001"
+    fmt, pcf, umv = int(bits[41:44], 2), bits[44] == "1", bits[45] == "1"
+    assert bits[50] == "0" and bits[68] == "0"       # no slices, no CPM
+    pos = 69 + (23 if fmt == 6 else 0) + (8 if pcf else 0) + (2 if pcf
+                                                              else 0)
+    if umv:
+        pos += 1 if bits[pos] == "1" else 2
+    pos += 5
+    while bits[pos] == "1":
+        pos += 9
+    return pos + 1
+
+
+def _vlc(pairs: list[int]) -> dict:
+    return {(pairs[2 * i + 1], pairs[2 * i]): i for i in range(len(pairs) // 2)
+            if pairs[2 * i + 1]}
+
+
+def _read(bits: str, pos: int, table: dict) -> tuple[int, int]:
+    for n in range(1, 17):
+        sym = table.get((n, int(bits[pos:pos + n] or "0", 2)))
+        if sym is not None:
+            return sym, pos + n
+    raise ValueError(f"no code at bit {pos}")
+
+
+def h263_intra_mbs(bits: str, mbs: int,
+                   escapes: list | None = None) -> list[tuple[int, int, int,
+                                                             int]]:
+    """The macroblocks of an H.263+ I picture with Annex I (and no GOB or
+    slice headers): each one's MCBPC (start, end), its MCBPC symbol and
+    the bit after its CBPY (where DQUANT goes); `escapes`, when given,
+    gets each escape's level (−128: Annex T's extended escape)."""
+    t = msmpeg4_tables()
+    mcbpc = {(t["kIntraMcbpcBits"][i], t["kIntraMcbpcCode"][i]): i
+             for i in range(9)}
+    cbpy, aic = _vlc(t["kCbpyTab"]), _vlc(t["kAicVlc"])
+    pos, out = h263_picture_end(bits), []
+    for _ in range(mbs):
+        while True:
+            start = pos
+            cbpc, pos = _read(bits, pos, mcbpc)
+            if cbpc != 8:
+                break
+        end = pos
+        pos += 2 if bits[pos] == "1" else 1          # AC prediction, dir
+        y, pos = _read(bits, pos, cbpy)
+        after = pos
+        if cbpc & 4:
+            pos += 2 if bits[pos] == "1" else 6
+        cbp = (cbpc & 3) | (y << 2)
+        for n in range(6):
+            if not (cbp >> (5 - n)) & 1:
+                continue
+            while True:
+                sym, pos = _read(bits, pos, aic)
+                if sym == 102:                        # the escape
+                    last = bits[pos] == "1"
+                    level = int(bits[pos + 7:pos + 15], 2)
+                    pos += 15 + (11 if level == 128 else 0)
+                    if escapes is not None:
+                        escapes.append(level - 256 if level > 127 else level)
+                else:
+                    last = sym >= 58
+                    pos += 1
+                if last:
+                    break
+        out.append((start, end, cbpc, after))
+    return out
+
+
+def itu_edit(edit: str, packets: list[bytes], w: int,
+             h: int) -> list[bytes]:
+    """An ITU_CASES edit of an H.263 stream, bit by bit at the picture
+    headers (and, for "mq", at the I pictures' macroblocks)."""
+    out = []
+    t = msmpeg4_tables()
+    for p in packets:
+        bits = _bits(p)
+        if edit == "longvec":                         # baseline's PTYPE
+            assert bits[35:38] != "111"
+            bits = bits[:39] + "1" + bits[40:]
+        elif edit == "ufep0" and bits[59:62] == "001":
+            # a P picture: OPPTYPE and the clock (CPCFC) dropped
+            assert bits[38:41] == "001" and bits[41:44] != "110"
+            assert bits[44] == "1" and bits[45] == "0" and bits[50] == "0"
+            bits = bits[:38] + "000" + bits[59:69] + bits[77:]
+        elif edit == "mq" and bits[59:62] == "000":
+            mbs = h263_intra_mbs(bits, ((w + 15) // 16) * ((h + 15) // 16))
+            # steps up and down and absolute quantisers near the
+            # picture's 10 (the levels stay in the IDCT's range), chroma
+            # at Annex T's quantisers
+            forms = ["11", "10", "0" + f"{14:05b}", "10", "0" + f"{9:05b}"]
+            picked = [m for m in mbs[3::7] if m[2] < 4]
+            for k, (start, end, cbpc, after) in reversed(list(enumerate(
+                    picked))):
+                code = t["kIntraMcbpcCode"][cbpc + 4]
+                length = t["kIntraMcbpcBits"][cbpc + 4]
+                bits = (bits[:start] + f"{code:0{length}b}" + bits[end:after]
+                        + forms[k % len(forms)] + bits[after:])
+        out.append(_bytes(bits))
+    return out
+
+
+def itu_file(name: str) -> bytes:
+    """A case of ITU_CASES or ITU_CLIPS muxed here."""
+    enc, tag, opts = {**ITU_CASES, **ITU_CLIPS}[name]
+    opts = dict(opts)
+    size = opts.pop("size", None)
+    if name in ITU_CLIPS:
+        import cv2
+
+        frames = clip_frames_bgr()[:16]
+        if size:
+            frames = np.stack([cv2.resize(f, size[::-1],
+                                          interpolation=cv2.INTER_AREA)
+                               for f in frames])
+    else:
+        frames = moving_frames(sum(map(ord, name)),
+                               opts.pop("frames", ITU_FRAMES),
+                               *(size or (144, 176)))
+    noise = opts.pop("noise", 0)
+    if noise:
+        rng = np.random.default_rng(len(name))
+        frames = np.clip(frames.astype(int) + rng.integers(
+            -noise, noise + 1, frames.shape), 0, 255).astype(np.uint8)
+    edit, d263 = opts.pop("edit", None), opts.pop("d263", False)
+    h, w = frames.shape[1:3]
+    packets = lavc_encode(frames, enc, **opts)
+    if edit:
+        packets = itu_edit(edit, packets, w, h)
+    if name.endswith("_avi"):
+        return avi_file(packets, w, h, 25, len(packets), tag.encode())
+    if name.endswith("_mp4"):
+        return mp4_file(packets, w, h, 25, tag.encode(),
+                        d263_box() if d263 else b"")
+    bih = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, tag.encode(),
+                      w * h * 3, 0, 0, 0, 0)
+    return mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC", codec_private=bih)
+
+
 def lzo1x_compress(data: bytes) -> bytes:
     """An LZO1X stream of `data`, as libavutil's av_lzo1x_decode reads it:
     greedy matches of 3 bytes or more at most 16384 back (M3
@@ -5551,6 +5796,15 @@ def write_case(name: str, out: str = FIXTURES) -> str:
         else:
             with open(path, "wb") as f:
                 f.write(legacy_file(name))
+        return path
+    if name in ITU_CASES or name in ITU_CLIPS:
+        enc, tag, _ = {**ITU_CASES, **ITU_CLIPS}[name]
+        if enc == "cv2":
+            write_cv2(path, tag, 25, moving_frames(sum(map(ord, name)),
+                                                   ITU_FRAMES, 144, 176))
+        else:
+            with open(path, "wb") as f:
+                f.write(itu_file(name))
         return path
     if name in MUXER_CASES or name in MUXER_CLIPS:
         frames = clip_frames_bgr()[:16, 32:192] if name in MUXER_CLIPS \
@@ -5846,6 +6100,8 @@ def main(out: str = FIXTURES, *names: str):
                 or name in MUXER_CASES or name in MUXER_CLIPS
                 or name in LEGACY_CASES or name in LEGACY_CLIPS):
             index = np.array([0, len(frames) - 1])      # the first and last
+        if name in ITU_CASES or name in ITU_CLIPS:
+            index = np.array([len(frames) - 1])         # the last
         extra = {}
         if name in CONTAINER_CASES:
             import cv2

@@ -3,7 +3,7 @@ cv2, the reading behind the video reader's bounds (TOL in
 tests/test_torch_video_decode.py, VIDEO_TOL in chip_smoke.py).
 
     python tests/_torch_video_sweep.py [streams [seed [screen [dvd [hevc
-        [legacy]]]]]]
+        [legacy [itu]]]]]]]
 
 prints, per codec, the largest |Δ| in levels of `native.decode_video`
 against cv2's `cap.read()` over every frame of every committed clip in
@@ -40,7 +40,14 @@ smooth and noisy pictures, in AVI or Matroska, and as many v3, WMV1 and
 WMV2 streams written symbol by symbol (`msmpeg4_syntax`: random tables,
 escapes, slices, WMV1's per-macroblock tables and inter-intra
 prediction, WMV2's mspel, ABT, top-left prediction, skip maps and loop
-filter) at sizes down to 14x14. Needs cv2, the system's
+filter) at sizes down to 14x14; then over `itu` (default 0) random
+ITU streams: libavcodec 59's h263 at sub-QCIF, QCIF and CIF (4MV,
+OBMC, GOB headers, quantisers, DQUANT), h263p at sizes 32..352 x
+32..288 in steps of 4 (Annexes D, F, I with T, J, K with and without a
+payload size, S, quantisers, DQUANT where Annex I is off: libavcodec
+59 writes DQUANT with Annex I that cv2's libavcodec misreads) and h261
+at QCIF and CIF, on smooth and noisy pictures, in AVI, Matroska or (H.263)
+an s263 MP4. Needs cv2, the system's
 libavcodec 59, libx264 and libx265, which the card's machine does not
 have.
 """
@@ -345,8 +352,76 @@ def legacy_sweep(streams: int, rng, tmp: str):
           f"(msmpeg4_syntax: v3, WMV1, WMV2): max |Δ| {top}")
 
 
+def itu_sweep(streams: int, rng, tmp: str):
+    top, refused, exact = 0, 0, 0
+    for k in range(streams):
+        enc = ("h263", "h263p", "h261")[k % 3]
+        if enc == "h263":
+            h, w = ((96, 128), (144, 176), (288, 352))[int(rng.integers(3))]
+        elif enc == "h261":
+            h, w = ((144, 176), (288, 352))[int(rng.integers(2))]
+        else:
+            h, w = 4 * int(rng.integers(8, 73)), 4 * int(rng.integers(8, 89))
+        frames = mk.moving_frames(int(rng.integers(1 << 30)),
+                                  int(rng.integers(2, 11)), h, w)
+        if rng.random() < 0.3:
+            frames = np.clip(frames.astype(int) + rng.integers(
+                -30, 31, frames.shape), 0, 255).astype(np.uint8)
+        opts = {"g": int(rng.choice([1, 3, 12, 300]))}
+        if rng.random() < 0.4:
+            q = int(rng.integers(1 if enc == "h263p" else 2, 32))
+            opts.update(qmin=q, qmax=q)
+        flags = []
+        if enc != "h261":
+            if rng.random() < 0.5:
+                flags.append("+mv4")
+            if rng.random() < 0.4:
+                opts["obmc"] = 1
+            if rng.random() < 0.3:
+                opts["ps"] = int(rng.integers(100, 1000))
+        if enc == "h263p":
+            for opt in ("umv", "aiv", "structured_slices"):
+                if rng.random() < 0.5:
+                    opts[opt] = 1
+            for flag in ("+aic", "+loop"):
+                if rng.random() < 0.5:
+                    flags.append(flag)
+        if "+aic" not in flags and "qmin" not in opts and rng.random() < 0.3:
+            opts["scplx_mask"] = 0.5
+        if flags:
+            opts["flags"] = "".join(flags)
+        try:
+            packets = mk.lavc_encode(frames, enc, **opts)
+        except RuntimeError:
+            refused += 1
+            continue
+        kinds = ("avi", "mkv") if enc == "h261" else ("avi", "mkv", "mp4")
+        ext = kinds[int(rng.integers(len(kinds)))]
+        tag = {"h263": b"H263", "h263p": b"U263", "h261": b"H261"}[enc]
+        path = os.path.join(tmp, f"i{k}.{ext}")
+        if ext == "avi":
+            data = mk.avi_file(packets, w, h, 25, len(packets), tag)
+        elif ext == "mp4":
+            data = mk.mp4_file(packets, w, h, 25, b"s263", mk.d263_box())
+        else:
+            bih = mk.struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, tag,
+                                 w * h * 3, 0, 0, 0, 0)
+            data = mk.mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                               codec_private=bih)
+        with open(path, "wb") as f:
+            f.write(data)
+        err = worst(path)
+        if err:
+            print(f"itu stream {k}: {enc} {opts} {w}x{h} {ext}: max |Δ| "
+                  f"{err}")
+        exact += err == 0
+        top = max(top, err)
+    print(f"{streams - refused} random ITU streams (H.263, H.263+, H.261; "
+          f"{refused} option sets refused): {exact} exact, max |Δ| {top}")
+
+
 def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0,
-         hevc: int = 0, legacy: int = 0):
+         hevc: int = 0, legacy: int = 0, itu: int = 0):
     per = {}
     for npz in sorted(os.listdir(mk.FIXTURES)):
         if not npz.endswith(".npz"):
@@ -390,6 +465,7 @@ def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0,
         dvd_sweep(dvd, rng, tmp)
         hevc_sweep(hevc, rng, tmp)
         legacy_sweep(legacy, rng, tmp)
+        itu_sweep(itu, rng, tmp)
 
 
 if __name__ == "__main__":

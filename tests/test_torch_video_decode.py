@@ -825,6 +825,24 @@ def test_mpeg4_stream_features_raise_naming_them(tmp_path, feature):
     _against_cv2(_write(tmp_path, pk))
 
 
+@pytest.mark.parametrize("tag", [b"XVID", b"FMP4"])
+def test_h263_pictures_under_mpeg4_tags_stay_refused(tmp_path, tag):
+    """Real H.263 pictures (libavcodec 59's h263 encoder) under MPEG-4
+    tags, where the short-header route would read them: cv2 reads no
+    frame of them, the JAX package raises ValueError and the port
+    NotImplementedError naming the short header."""
+    pk = mk.lavc_encode(mk.moving_frames(5, 4, 144, 176), "h263")
+    path = tmp_path / "sh.avi"
+    path.write_bytes(mk.avi_file(pk, 176, 144, 25, len(pk), tag))
+    cap = cv2.VideoCapture(str(path))
+    assert not cap.read()[0]
+    cap.release()
+    with pytest.raises(NotImplementedError, match="short-header"):
+        native.decode_video(str(path))
+    with pytest.raises(ValueError, match="no frames"):
+        j_av._load_frames_video(str(path), 4, 16)
+
+
 @pytest.mark.parametrize("name,feature", [
     ("mpeg4_interlaced_avi", "interlace")])
 def test_mpeg4_unread_tools_raise_naming_them(name, feature):

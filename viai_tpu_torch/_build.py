@@ -12,7 +12,7 @@ as it is:
     `csrc/mpeg4.cpp`, `csrc/mpeg12.cpp`, `csrc/vp8.cpp`, `csrc/vp9.cpp`,
     `csrc/h264.cpp`, `csrc/hevc.cpp`, `csrc/rawvideo.cpp`,
     `csrc/ffv1.cpp`, `csrc/utvideo.cpp`, `csrc/huffyuv.cpp`,
-    `csrc/msmpeg4.cpp`:
+    `csrc/msmpeg4.cpp`, `csrc/h261.cpp`:
     WAV decode, resampling, the threaded clip loader, the frame-stack reader, the
     JPEG and PNG decoder, the frame-directory reader and the compressed
     video reader), by the C++ compiler ($CXX, else g++), its hash over
@@ -54,7 +54,7 @@ HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp", "imagedec.cpp",
                            "videodec.cpp", "mpeg4.cpp", "mpeg12.cpp",
                            "vp8.cpp", "vp9.cpp", "h264.cpp", "hevc.cpp",
                            "rawvideo.cpp", "ffv1.cpp", "utvideo.cpp",
-                           "huffyuv.cpp", "msmpeg4.cpp")}
+                           "huffyuv.cpp", "msmpeg4.cpp", "h261.cpp")}
 _cache_dir: Path | None = None      # set_cache_dir; BUILD_DIR when unset
 
 

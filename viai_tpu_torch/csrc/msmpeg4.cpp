@@ -1,7 +1,20 @@
 // The H.263 family of viai_tpu_torch, decoded as libavcodec decodes it
-// (h263dec.c's frame and slice loop, ituh263dec.c, flvdec.c,
-// msmpeg4dec.c, msmpeg4.c, wmv2dec.c, wmv2.c, wmv2dsp.c):
+// (h263dec.c's frame and slice loop, ituh263dec.c, h263.c, flvdec.c,
+// msmpeg4dec.c, msmpeg4.c, wmv2dec.c, wmv2.c, wmv2dsp.c,
+// mpegvideo_motion.c's OBMC):
 //
+//   * ITU H.263 (H263, X263, T263, L263, VX1K, M263, lsvm, U263; MP4's
+//     s263 and h263): the picture header's five source
+//     formats, GOB headers (GN, GFID, GQUANT) and the slice loop's end
+//     and resync; Annex D's long vectors, Annex F's 4MV (H.263's vector
+//     prediction, chroma rounding) and OBMC, with libavcodec's preview
+//     of the next macroblock's vectors (zero where it previews none);
+//     H.263+'s PLUSPTYPE
+//     (UFEP, OPPTYPE, MPPTYPE, custom sizes and clock), Annex D's
+//     reversible vector codes, Annex I's AC/DC prediction, Annex J's
+//     loop filter, Annex K's slices, Annex S's second inter table,
+//     Annex T's DQUANT, chroma quantiser and extended escape, the
+//     rounding type;
 //   * Sorenson H.263 (FLV1): its picture header (sizes, disposable P
 //     pictures), H.263 baseline macroblocks (MCBPC, CBPY, DQUANT, 16x16
 //     median-predicted vectors, the 8-bit intra DC, H.263's inter
@@ -28,8 +41,10 @@
 //     with H.263's chroma rounding and libavcodec's edge emulation.
 //
 // Each feature that is not read raises NotImplementedError (code 2)
-// naming it: MS-MPEG4 v1 (MPG4, MP41, DIV1), WMV2 J-frames (IntraX8) and
-// a FLV1 picture of another size.
+// naming it: MS-MPEG4 v1 (MPG4, MP41, DIV1), WMV2 J-frames (IntraX8), a
+// FLV1 or H.263 picture of another size, and H.263's Annex E (SAC), G
+// and M (PB-frames), N (RPS), O (B, EI and EP pictures), P and Q (RPR,
+// RRU), R (independent segments), rectangular and unordered slices.
 
 #include <algorithm>
 #include <cstdlib>
@@ -223,6 +238,11 @@ const Vlc& cbpy_vlc() {
   static const Vlc v = pairs_vlc(t::kCbpyTab, 16, 6);
   return v;
 }
+// Annex I's intra table (and Annex S's second inter table).
+const Rl& aic_rl() {
+  static const Rl r(t::kAicVlc, t::kAicRun, t::kAicLevel, 102, 58);
+  return r;
+}
 const Vlc& h263_mv_vlc() {
   static const Vlc v = pairs_vlc(t::kMvtab, 33, 12);
   return v;
@@ -239,7 +259,7 @@ const Vlc& intra_mcbpc_vlc() {
 const Vlc& inter_mcbpc_vlc() {
   static const Vlc v = [] {
     Vlc v(9);
-    for (int i = 0; i < 25; ++i)
+    for (int i = 0; i < 28; ++i)
       v.add(t::kInterMcbpcCode[i], t::kInterMcbpcBits[i], i);
     return v;
   }();
@@ -394,7 +414,120 @@ void h263_edge(uint8_t* src, ptrdiff_t step, ptrdiff_t along, int qscale) {
 
 // ---------------------------------------------------------- variants
 
-enum Variant { kFlv1 = 1, kV2, kV3, kWmv1, kWmv2 };
+enum Variant { kFlv1 = 1, kV2, kV3, kWmv1, kWmv2, kH263 };
+
+// ff_h263_round_chroma: the chroma vector of a macroblock's four luma
+// vectors' sum.
+inline int round_chroma(int x) {
+  static const uint8_t kTab[16] = {0, 0, 0, 1, 1, 1, 1, 1,
+                                   1, 1, 1, 1, 1, 1, 2, 2};
+  return kTab[x & 0xF] + ((x >> 3) & ~1);
+}
+
+// Annex F's OBMC weights (eighths) of the block's own prediction and of
+// its neighbours' vectors: above (rows 0-3) or below (4-7), left
+// (columns 0-3) or right (4-7).
+constexpr uint8_t kObmcMid[8][8] = {
+    {4, 5, 5, 5, 5, 5, 5, 4}, {5, 5, 5, 5, 5, 5, 5, 5},
+    {5, 5, 6, 6, 6, 6, 5, 5}, {5, 5, 6, 6, 6, 6, 5, 5},
+    {5, 5, 6, 6, 6, 6, 5, 5}, {5, 5, 6, 6, 6, 6, 5, 5},
+    {5, 5, 5, 5, 5, 5, 5, 5}, {4, 5, 5, 5, 5, 5, 5, 4}};
+constexpr uint8_t kObmcVert[8][8] = {
+    {2, 2, 2, 2, 2, 2, 2, 2}, {1, 1, 2, 2, 2, 2, 1, 1},
+    {1, 1, 1, 1, 1, 1, 1, 1}, {1, 1, 1, 1, 1, 1, 1, 1},
+    {1, 1, 1, 1, 1, 1, 1, 1}, {1, 1, 1, 1, 1, 1, 1, 1},
+    {1, 1, 2, 2, 2, 2, 1, 1}, {2, 2, 2, 2, 2, 2, 2, 2}};
+constexpr uint8_t kObmcHorz[8][8] = {
+    {2, 1, 1, 1, 1, 1, 1, 2}, {2, 2, 1, 1, 1, 1, 2, 2},
+    {2, 2, 1, 1, 1, 1, 2, 2}, {2, 2, 1, 1, 1, 1, 2, 2},
+    {2, 2, 1, 1, 1, 1, 2, 2}, {2, 2, 1, 1, 1, 1, 2, 2},
+    {2, 2, 1, 1, 1, 1, 2, 2}, {2, 1, 1, 1, 1, 1, 1, 2}};
+
+// H.263's source formats (ff_h263_format): sub-QCIF to 16CIF.
+bool h263_format(int f, int& w, int& h) {
+  w = t::kH263Format[f][0];
+  h = t::kH263Format[f][1];
+  return w > 0;
+}
+
+// An ITU H.263 picture header from its start code through PTYPE and,
+// under PLUSPTYPE, UFEP, OPPTYPE, MPPTYPE and the custom picture format.
+struct ItuPtype {
+  bool plus = false;                // PLUSPTYPE (H.263+)
+  int ufep = 1;                     // 1: the header gives the size and modes
+  int format = 0;                   // 1-5 ff_h263_format's, 6 custom
+  int w = 0, h = 0;                 // the size, where the header gives it
+  // 0 I, 1 P; PLUSPTYPE's 2 improved PB, 3-5 B, EI, EP, 7 I (ZyGo's)
+  int type = 0;
+  bool long_vectors = false, pb = false;                   // PTYPE's
+  bool custom_pcf = false, umvplus = false, aic = false;   // OPPTYPE's
+  bool loop_filter = false, slice_structured = false, rps = false;
+  bool isd = false, alt_inter_vlc = false, modified_quant = false;
+  bool sac = false, obmc = false;                          // both
+  bool rpr = false, rru = false, no_rounding = false;      // MPPTYPE's
+};
+
+// The start code searched for as ff_h263_decode_picture_header searches;
+// → what is wrong with the header, else null.
+const char* read_ptype(Bits& b, ItuPtype& p) {
+  uint32_t sc = b.get(14);
+  for (long i = b.left(); i > 24; i -= 8) {
+    sc = ((sc << 8) | b.get(8)) & 0x3FFFFF;
+    if (sc == 0x20) break;
+  }
+  if (sc != 0x20) return "bad picture start code";
+  b.skip(8);                        // temporal reference
+  if (!b.get1()) return "bad marker in PTYPE";
+  if (b.get1()) return "bad H.263 id";
+  b.skip(3);                        // split screen, camera, freeze release
+  p.format = int(b.get(3));
+  if (p.format != 7 && p.format != 6) {
+    if (!h263_format(p.format, p.w, p.h)) return "invalid source format";
+    p.type = b.get1();
+    p.long_vectors = b.get1();
+    p.sac = b.get1();
+    p.obmc = b.get1();
+    p.pb = b.get1();
+    return nullptr;
+  }
+  p.plus = true;
+  p.ufep = int(b.get(3));
+  if (p.ufep == 1) {
+    p.format = int(b.get(3));
+    p.custom_pcf = b.get1();
+    p.umvplus = b.get1();
+    p.sac = b.get1();
+    p.obmc = b.get1();
+    p.aic = b.get1();
+    p.loop_filter = b.get1();
+    p.slice_structured = b.get1();
+    p.rps = b.get1();
+    p.isd = b.get1();
+    p.alt_inter_vlc = b.get1();
+    p.modified_quant = b.get1();
+    b.skip(4);                      // marker, reserved
+  } else if (p.ufep != 0) {
+    return "bad UFEP";
+  }
+  p.type = int(b.get(3));
+  p.rpr = b.get1();
+  p.rru = b.get1();
+  p.no_rounding = b.get1();
+  b.skip(4);                        // reserved, marker, CPM
+  if (p.ufep) {
+    if (p.format == 6) {
+      int aspect = int(b.get(4));
+      p.w = (int(b.get(9)) + 1) * 4;
+      b.skip(1);
+      p.h = int(b.get(9)) * 4;
+      if (aspect == 15) b.skip(16);   // extended pixel aspect ratio
+    } else if (!h263_format(p.format, p.w, p.h)) {
+      return "invalid source format";
+    }
+    if (p.w <= 0 || p.h <= 0) return "invalid picture size";
+  }
+  return nullptr;
+}
 
 std::string upper(const std::string& s) {
   std::string u = s;
@@ -409,7 +542,7 @@ constexpr int kMbacBitrate = 50 * 1024, kIiBitrate = 128 * 1024;
 
 int H263Decoder::variant(const std::string& tag) {
   std::string u = upper(tag);
-  if (u == "FLV1") return kFlv1;
+  if (u == "FLV1" || u == "S263") return kFlv1;     // S263: Sorenson's
   if (u == "MP42" || u == "DIV2") return kV2;
   for (const char* v3 : {"MP43", "DIV3", "MPG3", "DIV4", "DIV5", "DIV6",
                          "DVX3", "AP41", "COL1", "COL0"})
@@ -417,6 +550,13 @@ int H263Decoder::variant(const std::string& tag) {
   if (u == "WMV1") return kWmv1;
   if (u == "WMV2") return kWmv2;
   if (u == "MPG4" || u == "MP41" || u == "DIV1") return -1;
+  // libavformat's riff tags of H.263 and H.263+, upper-cased as
+  // ff_codec_get_id matches them at last (so h263 in an AVI too). ZyGo's
+  // is not read: libavcodec reads 759 bits of ZyGo's own after the
+  // header of each of its I pictures.
+  for (const char* e : {"H263", "X263", "T263", "L263", "VX1K", "M263",
+                        "LSVM", "U263"})
+    if (u == e) return kH263;
   return 0;
 }
 
@@ -458,6 +598,25 @@ struct H263Decoder::State {
   bool mspel = false, per_mb_abt = false, per_block_abt = false;
   int abt_type = 0;
   std::vector<uint8_t> skip;        // WMV2's skip map, a macroblock
+  // ITU H.263's picture header modes (kept from picture to picture as
+  // libavcodec keeps them; H.263+ updates them where UFEP is 1)
+  bool umvplus = false, aic = false, slice_structured = false;
+  bool alt_inter_vlc = false, modified_quant = false, obmc = false;
+  bool long_vectors = false, custom_pcf = false;
+  int gob_index = 1, resync_mb_x = 0;
+  int chroma_qscale = 1;
+  const uint8_t* chroma_table = nullptr;   // null: the identity
+  // Which macroblocks of this picture are intra, and its 8x8 vectors
+  // (libavcodec's mb_type and motion_val; every variant predicts from
+  // the vector grid. ITU H.263 zeroes both at each picture: OBMC reads
+  // the next macroblock's before it is decoded, where the macroblock it
+  // blends is skipped, and finds zero vectors, not intra).
+  std::vector<uint8_t> intra_at;
+  std::vector<int16_t> mv8s;
+  int b8s = 0;                      // the vector grid's stride, 2 mbw + 1
+  int16_t* mv8 = nullptr;           // mv8s at its entry (b8s + 1)
+  bool mv8x8 = false;
+  int mv4[4][2];                    // this macroblock's 8x8 vectors
 
   // Per macroblock
   std::vector<uint8_t> skipped;     // this picture's skipped macroblocks
@@ -473,12 +632,11 @@ struct H263Decoder::State {
 
   // Predictors: DC (level · scale, 1024 where not intra), AC (16 a
   // block: left column 1..7, top row 9..15) and coded-block flags (v3,
-  // WMV), by 8x8 block with a border row above and columns at both sides;
-  // the 16x16 vectors by macroblock.
+  // WMV), by 8x8 block with a border row above and columns at both sides.
   int lw = 0, cwid = 0;
   std::vector<int16_t> dc[3], ac[3];
   std::vector<uint8_t> coded;
-  std::vector<int16_t> mvs;
+  std::vector<uint8_t> mbq;         // each macroblock's quantiser
 
   [[noreturn]] void bad(const std::string& m) const {
     broken(tag + " video: " + m + " at macroblock (" + std::to_string(mb_x) +
@@ -486,6 +644,8 @@ struct H263Decoder::State {
   }
 
   bool wmv() const { return variant >= kWmv1; }
+  // H.263's macroblock layer (FLV1 and ITU H.263)
+  bool itu() const { return variant == kFlv1 || variant == kH263; }
   int version() const {             // libavcodec's msmpeg4_version
     return variant == kV2 ? 2 : variant == kV3 ? 3 : variant == kWmv1 ? 4
            : variant == kWmv2 ? 5 : 0;
@@ -512,15 +672,23 @@ struct H263Decoder::State {
       ac[k].assign(dc[k].size() * 16, 0);
     }
     coded.assign(dc[0].size(), 0);
-    mvs.assign(size_t(mbw) * mbh * 2, 0);
     skip.assign(size_t(mbw) * mbh, 0);
     skipped.assign(size_t(mbw) * mbh, 0);
+    mbq.assign(size_t(mbw) * mbh, 0);
     slice_height = mbh;
+    b8s = 2 * mbw + 1;
+    intra_at.assign(size_t(mbw) * mbh, 0);
+    mv8s.assign((size_t(2 * mbh + 1) * b8s + 2) * 2, 0);
+    mv8 = mv8s.data() + size_t(b8s + 1) * 2;
   }
 
   void set_qscale(int q) {
     qscale = clip(q, 1, 31);
-    if (variant == kFlv1 || variant == kV2) {
+    chroma_qscale = chroma_table ? chroma_table[qscale] : qscale;
+    if (variant == kH263) {
+      y_dc_scale = aic ? t::kAicDcScale[qscale] : 8;
+      c_dc_scale = aic ? t::kAicDcScale[chroma_qscale] : 8;
+    } else if (variant == kFlv1 || variant == kV2) {
       y_dc_scale = c_dc_scale = 8;
     } else if (variant == kV3) {
       // FF_BUG_AUTODETECT (cv2's default) picks the old luma scales.
@@ -732,13 +900,7 @@ struct H263Decoder::State {
       default: w = h = 0;
     }
     if (w <= 0 || h <= 0) bad("invalid picture size");
-    if (w != width || h != height) {
-      if (width && picture_number)
-        unsupported(tag + " picture of another size (" + std::to_string(w) +
-                    "x" + std::to_string(h) + " after " +
-                    std::to_string(width) + "x" + std::to_string(height) + ")");
-      set_size(w, h);
-    }
+    resize(w, h);
     pict_type = 1 + int(b.get(2));
     droppable = pict_type > 2;
     if (droppable) pict_type = 2;
@@ -746,6 +908,160 @@ struct H263Decoder::State {
     qscale = int(b.get(5));
     if (!qscale) bad("invalid quantiser");
     while (b.get1()) b.skip(8);     // PEI
+  }
+
+  // A picture of another size raises (libavcodec reinitialises).
+  void resize(int w, int h) {
+    if (w == width && h == height) return;
+    if (width && picture_number)
+      unsupported(tag + " picture of another size (" + std::to_string(w) +
+                  "x" + std::to_string(h) + " after " + std::to_string(width) +
+                  "x" + std::to_string(height) + ")");
+    set_size(w, h);
+  }
+
+  // ff_h263_decode_picture_header: H.263 (PTYPE) and H.263+ (PLUSPTYPE)
+  // pictures; false where libavcodec refuses the packet as too short for
+  // its size (no picture). What libavcodec ignores (it reads such a
+  // picture as if the bit were clear) raises as what it refuses does.
+  bool itu_header(Bits& b) {
+    ItuPtype p;
+    if (const char* e = read_ptype(b, p)) bad(e);
+    const std::string h263 = tag + " (H.263) ";
+    if (p.sac)
+      unsupported(h263 + "syntax-based arithmetic coding (Annex E), which "
+                  "libavcodec " + (p.plus ? "ignores" : "refuses") +
+                  " and no encoder here writes");
+    if (p.pb)
+      unsupported(h263 + "PB-frames (Annex G), which no encoder here writes");
+    if (p.rps)
+      unsupported(h263 + "reference picture selection (Annex N), which "
+                  "libavcodec ignores and no encoder here writes");
+    if (p.isd)
+      unsupported(h263 + "independent segment decoding (Annex R), which "
+                  "libavcodec ignores and no encoder here writes");
+    if (p.type == 2)
+      unsupported(h263 + "improved PB-frames (Annex M), which no encoder "
+                  "here writes");
+    if (p.type >= 3 && p.type <= 5)
+      unsupported(h263 + "B, EI or EP picture (Annex O), which no encoder "
+                  "here writes");
+    if (p.type == 6) bad("invalid picture type");
+    if (p.rpr)
+      unsupported(h263 + "reference picture resampling (Annex P), which "
+                  "libavcodec ignores and no encoder here writes");
+    if (p.rru)
+      unsupported(h263 + "reduced-resolution update (Annex Q), which "
+                  "libavcodec ignores and no encoder here writes");
+    pict_type = p.type == 1 ? 2 : 1;
+    if (!p.plus) {
+      long_vectors = p.long_vectors;
+      obmc = p.obmc;
+      qscale = int(b.get(5));
+      b.skip(1);                    // continuous presence multipoint
+      resize(p.w, p.h);
+    } else {
+      if (p.ufep) {
+        custom_pcf = p.custom_pcf;
+        umvplus = p.umvplus;
+        obmc = p.obmc;
+        aic = p.aic;
+        loop_filter = p.loop_filter;
+        slice_structured = p.slice_structured;
+        alt_inter_vlc = p.alt_inter_vlc;
+        modified_quant = p.modified_quant;
+        if (modified_quant) chroma_table = t::kH263ChromaQscale;
+        resize(p.w, p.h);
+        if (custom_pcf) {
+          b.skip(1);
+          if (!b.get(7)) bad("zero frame rate");
+        }
+      }
+      no_rounding = p.no_rounding;
+      if (!width) bad("H.263+ picture without its size (UFEP 0 first)");
+      if (custom_pcf) b.skip(2);    // extended temporal reference
+      if (p.ufep) {
+        if (umvplus && !b.get1()) b.skip(1);   // UUI
+        if (slice_structured) {
+          if (b.get1())
+            unsupported(h263 + "rectangular slices (Annex K), which "
+                        "libavcodec ignores");
+          if (b.get1())
+            unsupported(h263 + "arbitrarily ordered slices (Annex K), "
+                        "which libavcodec ignores");
+        }
+      }
+      qscale = int(b.get(5));
+    }
+    if (width * height / 256 / 8 > b.left()) return false;
+    while (b.get1()) b.skip(8);     // PEI
+    if (slice_structured) {
+      if (!b.get1()) bad("bad SEPB1 marker");
+      mba(b);
+      if (!b.get1()) bad("bad SEPB2 marker");
+    }
+    gob_index = height <= 400 ? 1 : height <= 800 ? 2 : 4;
+    return true;
+  }
+
+  // ff_h263_decode_mba: Annex K's macroblock address.
+  void mba(Bits& b) {
+    int i = 0;
+    while (i < 5 && mbw * mbh - 1 > t::kMbaMax[i]) ++i;
+    int pos = int(b.get(t::kMbaLength[i]));
+    mb_x = pos % mbw;
+    mb_y = pos / mbw;
+  }
+
+  // h263_decode_gob_header: a GOB or (Annex K) slice header; false where
+  // libavcodec takes it for none.
+  bool gob_header(Bits& b) {
+    if (b.peek(16)) return false;
+    b.skip(16);
+    long left = std::min<long>(b.left(), 32);
+    for (; left > 13; --left)
+      if (b.get1()) break;
+    if (left <= 13) return false;
+    if (slice_structured) {
+      if (!b.get1()) return false;
+      mba(b);
+      if (mbw * mbh > 1583 && !b.get1()) return false;
+      qscale = int(b.get(5));
+      if (!b.get1()) return false;
+      b.skip(2);                    // GFID
+    } else {
+      int gn = int(b.get(5));
+      mb_x = 0;
+      mb_y = gob_index * gn;
+      b.skip(2);                    // GFID
+      qscale = int(b.get(5));
+    }
+    return mb_y < mbh && qscale != 0;
+  }
+
+  // ff_h263_resync: the next GOB or slice header, where the slice ended,
+  // else searched for byte by byte from the slice's start.
+  bool resync(Bits& b, size_t slice_start) {
+    if (b.peek(16) == 0) {
+      Bits c = b;
+      if (gob_header(c)) {
+        b = c;
+        return true;
+      }
+    }
+    Bits c = b;
+    c.pos = (slice_start + 7) & ~size_t(7);
+    for (long left = c.left(); left > 16 + 1 + 5 + 5; left -= 8) {
+      if (c.peek(16) == 0) {
+        Bits d = c;
+        if (gob_header(d)) {
+          b = d;
+          return true;
+        }
+      }
+      c.skip(8);
+    }
+    return false;
   }
 
   // -------------------------------------------------------- prediction
@@ -909,39 +1225,12 @@ struct H263Decoder::State {
     }
   }
 
-  int16_t* mv_at(int x, int y) { return &mvs[(size_t(y) * mbw + x) * 2]; }
-
-  // ff_h263_pred_motion of a 16x16 macroblock.
-  void pred_motion(int& px, int& py) {
-    int a[2] = {0, 0}, b[2] = {0, 0}, c[2] = {0, 0};
-    if (mb_x > 0) a[0] = mv_at(mb_x - 1, mb_y)[0], a[1] = mv_at(mb_x - 1, mb_y)[1];
-    if (first_slice_line) {
-      px = mb_x == 0 ? 0 : a[0];
-      py = mb_x == 0 ? 0 : a[1];
-      return;
-    }
-    b[0] = mv_at(mb_x, mb_y - 1)[0];
-    b[1] = mv_at(mb_x, mb_y - 1)[1];
-    if (mb_x + 1 < mbw) {
-      c[0] = mv_at(mb_x + 1, mb_y - 1)[0];
-      c[1] = mv_at(mb_x + 1, mb_y - 1)[1];
-    }
-    px = mid_pred(a[0], b[0], c[0]);
-    py = mid_pred(a[1], b[1], c[1]);
-  }
-
-  // wmv2_pred_motion
+  // wmv2_pred_motion (the grid's row above the picture and its column
+  // past the right edge are never written: zero vectors there)
   void wmv2_pred_motion(Bits& bits, int& px, int& py) {
-    int a[2] = {0, 0}, b[2] = {0, 0}, c[2] = {0, 0};
-    if (mb_x > 0) a[0] = mv_at(mb_x - 1, mb_y)[0], a[1] = mv_at(mb_x - 1, mb_y)[1];
-    if (mb_y > 0) {
-      b[0] = mv_at(mb_x, mb_y - 1)[0];
-      b[1] = mv_at(mb_x, mb_y - 1)[1];
-      if (mb_x + 1 < mbw) {
-        c[0] = mv_at(mb_x + 1, mb_y - 1)[0];
-        c[1] = mv_at(mb_x + 1, mb_y - 1)[1];
-      }
-    }
+    const long i = b8_index(0);
+    const int16_t *a = mv8_at(i - 1), *b = mv8_at(i - b8s),
+                  *c = mv8_at(i + 2 - b8s);
     int diff = 0;
     if (mb_x && !first_slice_line && !mspel && top_left_mv_flag)
       diff = std::max(std::abs(a[0] - b[0]), std::abs(a[1] - b[1]));
@@ -984,10 +1273,14 @@ struct H263Decoder::State {
   }
 
   // msmpeg4v2_decode_motion (v2; f_code 1) and ff_h263_decode_motion
-  // (FLV1) of one component.
-  int h263_motion(Bits& b, int pred) {
+  // (FLV1, H.263; Annex D's long vectors) of one component. `lenient`:
+  // an illegal code gives 0xFFFF, as OBMC's preview takes it.
+  int h263_motion(Bits& b, int pred, bool lenient = false) {
     int code = h263_mv_vlc().read(b);
-    if (code < 0) bad("illegal motion vector code");
+    if (code < 0) {
+      if (lenient) return 0xFFFF;
+      bad("illegal motion vector code");
+    }
     if (code == 0) return pred;
     int val = b.get1() ? -code : code;
     val += pred;
@@ -996,7 +1289,75 @@ struct H263Decoder::State {
       else if (val >= 64) val -= 64;
       return val;
     }
+    if (long_vectors) {
+      if (pred < -31 && val < -63) val += 64;
+      if (pred > 32 && val > 63) val -= 64;
+      return val;
+    }
     return ((val + 32) & 63) - 32;  // sign_extend(val, 6)
+  }
+
+  // h263p_decode_umotion: Annex D's reversible vector code (UMV in
+  // H.263+).
+  int umotion(Bits& b, int pred, bool lenient = false) {
+    if (b.get1()) return pred;
+    int code = 2 + b.get1();
+    while (b.get1()) {
+      code = (code << 1) + b.get1();
+      if (code >= 32768) {
+        if (lenient) return 0xFFFF;
+        bad("huge motion vector difference");
+      }
+    }
+    return code & 1 ? pred - (code >> 1) : pred + (code >> 1);
+  }
+
+  // One vector component of an ITU H.263 macroblock.
+  int itu_motion(Bits& b, int pred, bool lenient = false) {
+    return umvplus ? umotion(b, pred, lenient) : h263_motion(b, pred, lenient);
+  }
+
+  // The 8x8 vector grid of this picture (libavcodec's motion_val: a row
+  // of 2 mbw + 1, the last entry shared by the row's right and the next
+  // row's left, never written), by linear index.
+  int16_t* mv8_at(long i) { return mv8 + 2 * i; }
+  long b8_index(int block) const {
+    return long(2 * mb_y + (block >> 1)) * b8s + 2 * mb_x + (block & 1);
+  }
+
+  // ff_h263_pred_motion of block `block` (0-3) of macroblock (mb_x,
+  // mb_y): its median predictor; → its vector's entry.
+  int16_t* pred_mv(int block, int& px, int& py) {
+    static const int off[4] = {2, 1, 1, -1};
+    const long i = b8_index(block);
+    int16_t* A = mv8_at(i - 1);
+    if (first_slice_line && block < 3) {
+      if (block == 0 && mb_x == resync_mb_x) {
+        px = py = 0;
+      } else if (block < 2) {
+        px = A[0];
+        py = A[1];
+      } else {
+        const int16_t* B = mv8_at(i - b8s);
+        const int16_t* C = mv8_at(i + off[block] - b8s);
+        if (mb_x == resync_mb_x) A[0] = A[1] = 0;
+        px = mid_pred(A[0], B[0], C[0]);
+        py = mid_pred(A[1], B[1], C[1]);
+      }
+    } else {
+      const int16_t* B = mv8_at(i - b8s);
+      const int16_t* C = mv8_at(i + off[block] - b8s);
+      px = mid_pred(A[0], B[0], C[0]);
+      py = mid_pred(A[1], B[1], C[1]);
+    }
+    return mv8_at(i);
+  }
+
+  void set_mv16(long i, int x, int y) {
+    for (long k : {i, i + 1, i + b8s, i + b8s + 1}) {
+      mv8_at(k)[0] = int16_t(x);
+      mv8_at(k)[1] = int16_t(y);
+    }
   }
 
   // ---------------------------------------------------------- blocks
@@ -1130,57 +1491,6 @@ struct H263Decoder::State {
     last_index[n] = i;
   }
 
-  // h263_decode_block (FLV1): raw levels in natural order.
-  void h263_block(Bits& b, int16_t* blk, int n, bool coded_) {
-    int i = 0;
-    if (mb_intra) {
-      int level = int(b.get(8));
-      if (level == 255) level = 128;
-      blk[0] = int16_t(level);
-      i = 1;
-    }
-    if (!coded_) {
-      last_index[n] = i - 1;
-      return;
-    }
-    const Rl& rl = rl_table(5);
-    --i;
-    for (;;) {
-      int sym = rl.vlc.read(b);
-      if (sym < 0) bad("illegal AC code");
-      int level, run;
-      bool last;
-      if (sym == rl.n) {
-        if (flv > 1) {
-          bool is11 = b.get1();     // an 11-bit level, else 7 bits
-          last = b.get1();
-          run = int(b.get(6)) + 1;
-          int v = int(b.get(is11 ? 11 : 7));
-          level = v >= (is11 ? 1024 : 64) ? v - (is11 ? 2048 : 128) : v;
-        } else {
-          last = b.get1();
-          run = int(b.get(6)) + 1;
-          level = int(int8_t(b.get(8)));
-          if (level == -128) {
-            int lo = int(b.get(5));
-            int hi = int(b.get(6));
-            level = lo | ((hi >= 32 ? hi - 64 : hi) * 32);
-          }
-        }
-      } else {
-        run = rl.run[sym] + 1;
-        level = rl.level[sym];
-        last = sym >= rl.last;
-        if (b.get1()) level = -level;
-      }
-      i += run;
-      if (i >= 64) bad("run overflow");
-      blk[kZigzag[i]] = int16_t(level);
-      if (last) break;
-    }
-    last_index[n] = i;
-  }
-
   // --------------------------------------------------------- macroblocks
 
   // msmpeg4v12_decode_mb (v2)
@@ -1206,7 +1516,7 @@ struct H263Decoder::State {
       cbp |= cbpy << 2;
       if ((cbp & 3) != 3) cbp ^= 0x3C;
       int mx, my;
-      pred_motion(mx, my);
+      pred_mv(0, mx, my);
       mv[0] = h263_motion(b, mx);
       mv[1] = h263_motion(b, my);
     } else {
@@ -1240,7 +1550,7 @@ struct H263Decoder::State {
       if (per_mb_rl_table && cbp)
         rl_table_index = rl_chroma_table_index = decode012(b);
       int mx, my;
-      pred_motion(mx, my);
+      pred_mv(0, mx, my);
       msmpeg4_motion(b, mx, my);
       mv[0] = mx;
       mv[1] = my;
@@ -1346,50 +1656,263 @@ struct H263Decoder::State {
     }
   }
 
-  // ff_h263_decode_mb for FLV1's baseline macroblocks.
-  void mb_h263(Bits& b) {
+  // h263_decode_dquant (Annex T's steps where modified_quant is set).
+  void itu_dquant(Bits& b) {
     static const int kQuantTab[4] = {-1, -2, 1, 2};
-    int cbpc;
+    if (!modified_quant) set_qscale(qscale + kQuantTab[b.get(2)]);
+    else if (b.get1()) set_qscale(t::kModifiedQuant[b.get1()][qscale]);
+    else set_qscale(int(b.get(5)));
+  }
+
+  // ff_h263_decode_mb of an FLV1 or ITU H.263 macroblock (its vectors
+  // into this picture's grid, whether it is intra into intra_at); →
+  // whether its slice ends after it (the next 16 bits, or what is left of
+  // them, all zero).
+  bool mb_itu(Bits& b) {
+    const int xy = mb_y * mbw + mb_x;
+    int cbpc, cbp;
+    bool dquant;
     if (pict_type == 2) {
       do {
         if (b.get1()) {
           skip_mb();
-          return;
+          skipped[size_t(xy)] = 1;
+          goto end;
         }
         cbpc = inter_mcbpc_vlc().read(b);
         if (cbpc < 0) bad("damaged MCBPC");
       } while (cbpc == 20);
-      if (cbpc > 20 || (cbpc & 16)) bad("4MV macroblock (not in FLV1)");
+      if (variant == kFlv1 && (cbpc & 16))
+        bad("4MV macroblock (not in FLV1)");
+      dquant = cbpc & 8;
       mb_intra = (cbpc & 4) != 0;
+      if (!mb_intra) {
+        int cbpy = cbpy_vlc().read(b);
+        if (cbpy < 0) bad("damaged CBPY");
+        if (!alt_inter_vlc || (cbpc & 3) != 3) cbpy ^= 0xF;
+        cbp = (cbpc & 3) | (cbpy << 2);
+        if (dquant) itu_dquant(b);
+        int px, py;
+        if (!(cbpc & 16)) {
+          pred_mv(0, px, py);
+          mv[0] = itu_motion(b, px);
+          mv[1] = itu_motion(b, py);
+          if (umvplus && mv[0] - px == 1 && mv[1] - py == 1) b.skip(1);
+        } else {
+          mv8x8 = true;
+          for (int i = 0; i < 4; ++i) {
+            int16_t* m = pred_mv(i, px, py);
+            mv4[i][0] = itu_motion(b, px);
+            mv4[i][1] = itu_motion(b, py);
+            if (umvplus && mv4[i][0] - px == 1 && mv4[i][1] - py == 1)
+              b.skip(1);
+            m[0] = int16_t(mv4[i][0]);
+            m[1] = int16_t(mv4[i][1]);
+          }
+        }
+      }
     } else {
       do {
         cbpc = intra_mcbpc_vlc().read(b);
         if (cbpc < 0) bad("damaged MCBPC");
       } while (cbpc == 8);
+      dquant = cbpc & 4;
       mb_intra = true;
     }
-    bool dquant = mb_intra && pict_type == 1 ? (cbpc & 4) : (cbpc & 8);
-    int cbpy = cbpy_vlc().read(b);
-    if (cbpy < 0) bad("damaged CBPY");
-    if (!mb_intra) cbpy ^= 0xF;
-    int cbp = (cbpc & 3) | (cbpy << 2);
-    if (dquant) set_qscale(qscale + kQuantTab[b.get(2)]);
-    if (!mb_intra) {
-      int px, py;
-      pred_motion(px, py);
-      mv[0] = h263_motion(b, px);
-      mv[1] = h263_motion(b, py);
+    if (mb_intra) {
+      if (aic) {
+        ac_pred = b.get1();
+        if (ac_pred) aic_dir = b.get1();
+      }
+      int cbpy = cbpy_vlc().read(b);
+      if (cbpy < 0) bad("damaged CBPY");
+      cbp = (cbpc & 3) | (cbpy << 2);
+      if (dquant) itu_dquant(b);
     }
-    for (int i = 0; i < 6; ++i) h263_block(b, block[i], i, (cbp >> (5 - i)) & 1);
+    for (int i = 0; i < 6; ++i)
+      itu_block(b, block[i], i, (cbp >> (5 - i)) & 1);
+    if (obmc && !mb_intra && pict_type == 2 && mb_x + 1 < mbw)
+      preview_obmc(b);
+  end:
+    intra_at[size_t(xy)] = mb_intra;
+    if (b.over()) bad("packet ends inside the macroblock");
+    uint32_t v = b.peek(16);
+    if (b.left() < 16) v >>= 16 - b.left();
+    return v == 0;
+  }
+
+  // preview_obmc: the next macroblock's type and vectors, read ahead
+  // (from a copy of the reader) for this one's OBMC (not for a skipped
+  // one, which finds the next macroblock's zeroed).
+  void preview_obmc(Bits b) {
+    ++mb_x;
+    const int xy = mb_y * mbw + mb_x;
+    const long i0 = b8_index(0);
+    int cbpc, px, py;
+    do {
+      if (b.get1()) {
+        set_mv16(i0, 0, 0);
+        intra_at[size_t(xy)] = 0;
+        --mb_x;
+        return;
+      }
+      cbpc = inter_mcbpc_vlc().read(b);
+    } while (cbpc == 20);
+    intra_at[size_t(xy)] = (cbpc & 4) != 0;   // intra, or a bad code
+    if (!(cbpc & 4)) {
+      cbpy_vlc().read(b);
+      if (cbpc & 8) {
+        if (!modified_quant) b.skip(2);
+        else b.skip(b.get1() ? 1 : 5);
+      }
+      if (!(cbpc & 16)) {
+        pred_mv(0, px, py);
+        int mx = itu_motion(b, px, true);
+        int my = itu_motion(b, py, true);
+        set_mv16(i0, mx, my);
+      } else {
+        for (int i = 0; i < 4; ++i) {
+          int16_t* m = pred_mv(i, px, py);
+          int mx = itu_motion(b, px, true);
+          int my = itu_motion(b, py, true);
+          if (umvplus && mx - px == 1 && my - py == 1) b.skip(1);
+          m[0] = int16_t(mx);
+          m[1] = int16_t(my);
+        }
+      }
+    }
+    --mb_x;
+  }
+
+  // h263_decode_block of an FLV1 or ITU H.263 block: levels raw, in
+  // natural order; Annex I's intra blocks (their DC among the levels)
+  // predicted by pred_acdc; Annex S's inter blocks read again with Annex
+  // I's table where H.263's overruns the block.
+  void itu_block(Bits& b, int16_t* blk, int n, bool coded_) {
+    const Rl* rl = &rl_table(5);
+    const uint8_t* scan = kZigzag;
+    int i = 0;
+    const Bits start = b;
+    if (aic && mb_intra) {
+      rl = &aic_rl();
+      if (ac_pred) scan = aic_dir ? kAltVertical : kAltHorizontal;
+    } else if (mb_intra) {
+      int level = int(b.get(8));
+      if (level == 255) level = 128;
+      blk[0] = int16_t(level);
+      i = 1;
+    }
+    if (!coded_) {
+      if (!(mb_intra && aic)) {
+        last_index[n] = i - 1;
+        return;
+      }
+    } else {
+    retry:
+      --i;
+      for (;;) {
+        int sym = rl->vlc.read(b);
+        if (sym < 0) bad("illegal AC code");
+        int level, run;
+        bool last;
+        if (sym == rl->n && flv > 1) {
+          bool is11 = b.get1();     // Sorenson's: an 11-bit level, else 7
+          last = b.get1();
+          run = int(b.get(6)) + 1;
+          int v = int(b.get(is11 ? 11 : 7));
+          level = v >= (is11 ? 1024 : 64) ? v - (is11 ? 2048 : 128) : v;
+        } else if (sym == rl->n) {
+          last = b.get1();
+          run = int(b.get(6)) + 1;
+          level = int(int8_t(b.get(8)));
+          if (level == -128) {      // Annex T's extended escape
+            int lo = int(b.get(5));
+            int hi = int(b.get(6));
+            level = lo | ((hi >= 32 ? hi - 64 : hi) * 32);
+          }
+        } else {
+          run = rl->run[sym] + 1;
+          level = rl->level[sym];
+          last = sym >= rl->last;
+          if (b.get1()) level = -level;
+        }
+        i += run;
+        if (i >= 64) {
+          if (alt_inter_vlc && rl == &rl_table(5) && !mb_intra) {
+            rl = &aic_rl();
+            i = 0;
+            b = start;
+            std::memset(blk, 0, 64 * sizeof(int16_t));
+            goto retry;
+          }
+          bad("run overflow");
+        }
+        blk[scan[i]] = int16_t(level);
+        if (last) break;
+      }
+    }
+    if (mb_intra && aic) {
+      pred_acdc(blk, n);
+      i = 63;
+    }
+    last_index[n] = i;
+  }
+
+  // ff_h263_pred_acdc (Annex I): the DC from the left or above (their
+  // mean without AC prediction), the first row or column of levels from
+  // the block the direction names; none across the slice's first row.
+  void pred_acdc(int16_t* blk, int n) {
+    const int k = plane_of(n), wrap = pwrap(n);
+    const size_t at = pidx(n);
+    std::vector<int16_t>& d = dc[k];
+    int16_t* acv = &ac[k][at * 16];
+    int a = d[at - 1], c = d[at - wrap];
+    if (first_slice_line && n != 3) {
+      if (n != 2) c = 1024;
+      if (n != 1 && mb_x == resync_mb_x) a = 1024;
+    }
+    int pred = 1024;
+    if (ac_pred) {
+      if (aic_dir) {
+        if (a != 1024) {
+          const int16_t* l = acv - 16;
+          for (int j = 1; j < 8; ++j)
+            blk[j << 3] = int16_t(blk[j << 3] + l[j]);
+          pred = a;
+        }
+      } else if (c != 1024) {
+        const int16_t* u = acv - 16 * wrap;
+        for (int j = 1; j < 8; ++j) blk[j] = int16_t(blk[j] + u[j + 8]);
+        pred = c;
+      }
+    } else if (a != 1024 && c != 1024) {
+      pred = (a + c) >> 1;
+    } else if (a != 1024) {
+      pred = a;
+    } else {
+      pred = c;
+    }
+    int dcv = blk[0] * (n < 4 ? y_dc_scale : c_dc_scale) + pred;
+    dcv = dcv < 0 ? 0 : dcv | 1;
+    blk[0] = int16_t(dcv);
+    d[at] = int16_t(dcv);
+    for (int j = 1; j < 8; ++j) acv[j] = blk[j << 3];
+    for (int j = 1; j < 8; ++j) acv[8 + j] = blk[j];
   }
 
   // ----------------------------------------------------- reconstruction
 
-  // dct_unquantize_h263_intra / _inter of block n.
+  // dct_unquantize_h263_intra / _inter of block n (chroma at the chroma
+  // quantiser; Annex I's intra blocks without the rounding offset, their
+  // DC as predicted).
   void unquant(int16_t* blk, int n, bool intra) {
-    int qmul = qscale << 1, qadd = (qscale - 1) | 1;
+    const int q = n < 4 ? qscale : chroma_qscale;
+    int qmul = q << 1, qadd = (q - 1) | 1;
     int start = 0;
-    if (intra) {
+    if (intra && variant == kH263 && aic) {
+      qadd = 0;
+      start = 1;
+    } else if (intra) {
       blk[0] = int16_t(blk[0] * (n < 4 ? y_dc_scale : c_dc_scale));
       start = 1;
     }
@@ -1407,11 +1930,128 @@ struct H263Decoder::State {
     return &(n == 4 ? cur.u : cur.v)[size_t(8 * mb_y) * (cw / 2) + 8 * mb_x];
   }
 
+  // hpel_motion of the 8x8 luma block at (x0, y0) with vector (mx, my)
+  // into dst.
+  void hpel8(const Plane& p, int x0, int y0, int mx, int my, uint8_t* dst,
+             int ds) {
+    int dxy = 0;
+    int sx = clip(x0 + (mx >> 1), -16, width);
+    if (sx != width) dxy |= mx & 1;
+    int sy = clip(y0 + (my >> 1), -16, height);
+    if (sy != height) dxy |= (my & 1) << 1;
+    hpel(p, sx, sy, dxy, no_rounding, false, dst, ds, 8, 8);
+  }
+
+  // chroma_4mv_motion: both chroma blocks from the sum of the four luma
+  // vectors, rounded by ff_h263_round_chroma.
+  void chroma4mv(const Plane& pu, const Plane& pv, int mx, int my) {
+    const int cs = mbw * 8;
+    mx = round_chroma(mx);
+    my = round_chroma(my);
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    int sx = clip(8 * mb_x + (mx >> 1), -8, width >> 1);
+    if (sx == (width >> 1)) dxy &= ~1;
+    int sy = clip(8 * mb_y + (my >> 1), -8, height >> 1);
+    if (sy == (height >> 1)) dxy &= ~2;
+    hpel(pu, sx, sy, dxy, no_rounding, false, dest(4), cs, 8, 8);
+    hpel(pv, sx, sy, dxy, no_rounding, false, dest(5), cs, 8, 8);
+  }
+
+  // Annex F's OBMC (mpv_motion_internal): each 8x8 luma block blended
+  // from its own vector's prediction and its neighbours' (the
+  // macroblock above and to the left as decoded, to the right as
+  // preview_obmc read it or zero; an intra neighbour or the picture's
+  // edge lends the block's own); chroma from the four vectors.
+  void obmc_motion(const Plane& py, const Plane& pu, const Plane& pv) {
+    int16_t cache[4][4][2];
+    const long i0 = b8_index(0);
+    auto put = [&](int r, int c, long i) {
+      cache[r][c][0] = mv8_at(i)[0];
+      cache[r][c][1] = mv8_at(i)[1];
+    };
+    auto same = [&](int r, int c, int r2, int c2) {
+      cache[r][c][0] = cache[r2][c2][0];
+      cache[r][c][1] = cache[r2][c2][1];
+    };
+    const int xy = mb_y * mbw + mb_x;
+    put(1, 1, i0);
+    put(1, 2, i0 + 1);
+    put(2, 1, i0 + b8s);
+    put(2, 2, i0 + b8s + 1);
+    same(3, 1, 2, 1);
+    same(3, 2, 2, 2);
+    if (mb_y == 0 || intra_at[size_t(xy - mbw)]) {
+      same(0, 1, 1, 1);
+      same(0, 2, 1, 2);
+    } else {
+      put(0, 1, i0 - b8s);
+      put(0, 2, i0 - b8s + 1);
+    }
+    if (mb_x == 0 || intra_at[size_t(xy - 1)]) {
+      same(1, 0, 1, 1);
+      same(2, 0, 2, 1);
+    } else {
+      put(1, 0, i0 - 1);
+      put(2, 0, i0 - 1 + b8s);
+    }
+    if (mb_x + 1 >= mbw || intra_at[size_t(xy + 1)]) {
+      same(1, 3, 1, 2);
+      same(2, 3, 2, 2);
+    } else {
+      put(1, 3, i0 + 2);
+      put(2, 3, i0 + 2 + b8s);
+    }
+    const int cw = mbw * 16;
+    int sx = 0, sy = 0;
+    for (int i = 0; i < 4; ++i) {
+      const int x = (i & 1) + 1, y = (i >> 1) + 1;
+      const int16_t* v[5] = {cache[y][x], cache[y - 1][x], cache[y][x - 1],
+                             cache[y][x + 1], cache[y + 1][x]};
+      uint8_t pred[5][64];
+      const int x0 = 16 * mb_x + 8 * (i & 1), y0 = 16 * mb_y + 8 * (i >> 1);
+      for (int k = 0; k < 5; ++k) {
+        if (k && v[k][0] == v[0][0] && v[k][1] == v[0][1])
+          std::memcpy(pred[k], pred[0], 64);
+        else
+          hpel8(py, x0, y0, v[k][0], v[k][1], pred[k], 8);
+      }
+      uint8_t* d = dest(0) + 8 * (i & 1) + size_t(8 * (i >> 1)) * cw;
+      for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c) {
+          const int j = 8 * r + c;
+          const int tb = kObmcVert[r][c], lr = kObmcHorz[r][c];
+          int sum = kObmcMid[r][c] * pred[0][j] + 4;
+          sum += tb * (r < 4 ? pred[1][j] : pred[4][j]);
+          sum += lr * (c < 4 ? pred[2][j] : pred[3][j]);
+          d[size_t(r) * cw + c] = uint8_t(sum >> 3);
+        }
+      sx += v[0][0];
+      sy += v[0][1];
+    }
+    chroma4mv(pu, pv, sx, sy);
+  }
+
   void motion() {
     int cw = mbw * 16, cs = cw / 2;
     Plane py{ref.y.data(), cw, cw, mbh * 16};
     Plane pu{ref.u.data(), cs, cs, mbh * 8};
     Plane pv{ref.v.data(), cs, cs, mbh * 8};
+    if (variant == kH263 && obmc) {
+      obmc_motion(py, pu, pv);
+      return;
+    }
+    if (variant == kH263 && mv8x8) {
+      int sx = 0, sy = 0;
+      for (int i = 0; i < 4; ++i) {
+        hpel8(py, 16 * mb_x + 8 * (i & 1), 16 * mb_y + 8 * (i >> 1),
+              mv4[i][0], mv4[i][1],
+              dest(0) + 8 * (i & 1) + size_t(8 * (i >> 1)) * cw, cw);
+        sx += mv4[i][0];
+        sy += mv4[i][1];
+      }
+      chroma4mv(pu, pv, sx, sy);
+      return;
+    }
     int vx = mv[0], vy = mv[1];
     if (variant == kWmv2 && mspel) {
       // ff_mspel_motion
@@ -1458,7 +2098,7 @@ struct H263Decoder::State {
       if (last_index[n] < 0) continue;
       int16_t* blk = block[n];
       ptrdiff_t st = n < 4 ? cw : cw / 2;
-      if (variant == kFlv1) unquant(blk, n, false);
+      if (itu()) unquant(blk, n, false);
       if (variant != kWmv2) {
         idct_add(blk, dest(n), st);
       } else if (abt_types[n] == 0) {
@@ -1473,38 +2113,46 @@ struct H263Decoder::State {
     }
   }
 
-  // One macroblock: its syntax, its vectors kept, its pixels.
-  void macroblock(Bits& b) {
+  // One macroblock: its syntax, its vectors kept, its pixels; → whether
+  // an ITU H.263 slice ends after it.
+  bool macroblock(Bits& b) {
     std::memset(block, 0, sizeof(block));
     std::memset(abt2, 0, sizeof(abt2));
     for (int& a : abt_types) a = 0;
     mv[0] = mv[1] = 0;
+    mv8x8 = false;
     ac_pred = false;
+    bool end = false;
     switch (variant) {
-      case kFlv1: mb_h263(b); break;
+      case kFlv1:
+      case kH263: end = mb_itu(b); break;
       case kV2: mb_v2(b); break;
       case kWmv2: mb_wmv2(b); break;
       default: mb_v34(b);
     }
     if (b.over()) bad("packet ends inside the macroblock");
-    int16_t* m = mv_at(mb_x, mb_y);
-    m[0] = int16_t(mb_intra ? 0 : mv[0]);
-    m[1] = int16_t(mb_intra ? 0 : mv[1]);
+    const int mx = mb_intra ? 0 : mv[0], my = mb_intra ? 0 : mv[1];
+    // ff_h263_update_motion_val (an 8x8 macroblock's were kept as read)
+    if (!mv8x8) set_mv16(b8_index(0), mx, my);
+    mbq[size_t(mb_y) * mbw + mb_x] = uint8_t(qscale);
     if (!mb_intra && variant != kFlv1) clean_intra();
     if (!mb_intra && !have_ref) bad("P picture without a reference");
     reconstruct();
     if (loop_filter) loop_filter_mb();
+    return end;
   }
 
-  // ff_h263_loop_filter after macroblock (mb_x, mb_y) (one quantiser a
-  // picture; a skipped macroblock's edges are filtered by its
-  // neighbours').
+  // ff_h263_loop_filter after macroblock (mb_x, mb_y) (each macroblock
+  // at its own quantiser, chroma at Annex T's chroma quantiser; a
+  // skipped macroblock's edges are filtered by its neighbours').
   void loop_filter_mb() {
     int cw = mbw * 16, cs = cw / 2;
     uint8_t *y = dest(0), *cb = dest(4), *cr = dest(5);
     auto q_of = [&](int x, int yy) {
-      return skipped[size_t(yy) * mbw + x] ? 0 : qscale;
+      const size_t i = size_t(yy) * mbw + x;
+      return skipped[i] ? 0 : int(mbq[i]);
     };
+    auto cq = [&](int q) { return chroma_table ? int(chroma_table[q]) : q; };
     int qp_c = q_of(mb_x, mb_y);
     if (qp_c) {
       h263_edge(y + 8 * cw, cw, 1, qp_c);
@@ -1516,8 +2164,8 @@ struct H263Decoder::State {
       if (qp_tc) {
         h263_edge(y, cw, 1, qp_tc);
         h263_edge(y + 8, cw, 1, qp_tc);
-        h263_edge(cb, cs, 1, qp_tc);
-        h263_edge(cr, cs, 1, qp_tc);
+        h263_edge(cb, cs, 1, cq(qp_tc));
+        h263_edge(cr, cs, 1, cq(qp_tc));
       }
       if (qp_tt) h263_edge(y - 8 * cw + 8, 1, cw, qp_tt);
       if (mb_x) {
@@ -1526,8 +2174,8 @@ struct H263Decoder::State {
                         : q_of(mb_x - 1, mb_y - 1);
         if (qp_dt) {
           h263_edge(y - 8 * cw, 1, cw, qp_dt);
-          h263_edge(cb - 8 * cs, 1, cs, qp_dt);
-          h263_edge(cr - 8 * cs, 1, cs, qp_dt);
+          h263_edge(cb - 8 * cs, 1, cs, cq(qp_dt));
+          h263_edge(cr - 8 * cs, 1, cs, cq(qp_dt));
         }
       }
     }
@@ -1543,8 +2191,8 @@ struct H263Decoder::State {
         h263_edge(y, 1, cw, qp_lc);
         if (mb_y + 1 == mbh) {
           h263_edge(y + 8 * cw, 1, cw, qp_lc);
-          h263_edge(cb, 1, cs, qp_lc);
-          h263_edge(cr, 1, cs, qp_lc);
+          h263_edge(cb, 1, cs, cq(qp_lc));
+          h263_edge(cr, 1, cs, cq(qp_lc));
         }
       }
     }
@@ -1571,6 +2219,51 @@ struct H263Decoder::State {
     }
   }
 
+  // ff_h263_decode_frame's slice loop over an ITU H.263 picture:
+  // decode_slice from (0, 0), then from each GOB or slice header
+  // (ff_h263_resync) until the last macroblock. Where a header is missing
+  // or names another macroblock than the next, libavcodec conceals the
+  // macroblocks it leaves out, and the port raises.
+  void picture_itu(Bits& b) {
+    mb_x = mb_y = 0;
+    size_t start = b.pos;
+    slice_itu(b, start);
+    while (mb_y < mbh) {
+      const int next = mb_y * mbw + mb_x;
+      if (!resync(b, start))
+        bad("no GOB or slice header where a slice ends (libavcodec "
+            "conceals the rest)");
+      if (mb_y * mbw + mb_x != next)
+        bad("a GOB or slice header where macroblock " + std::to_string(next) +
+            " is next (libavcodec conceals the macroblocks left out)");
+      slice_itu(b, start);
+    }
+  }
+
+  // decode_slice: macroblocks from (mb_x, mb_y) until one whose slice
+  // ends; the predictors' borders at the slice's first row.
+  void slice_itu(Bits& b, size_t& start) {
+    start = b.pos;
+    first_slice_line = true;
+    resync_mb_x = mb_x;
+    resync_mb_y = mb_y;
+    set_qscale(qscale);
+    for (; mb_y < mbh; ++mb_y) {
+      for (; mb_x < mbw; ++mb_x) {
+        if (mb_x == resync_mb_x && mb_y == resync_mb_y + 1)
+          first_slice_line = false;
+        if (macroblock(b)) {
+          if (++mb_x >= mbw) {
+            mb_x = 0;
+            ++mb_y;
+          }
+          return;
+        }
+      }
+      mb_x = 0;
+    }
+  }
+
   void output(Picture& out) const {
     int cw = mbw * 16;
     out.w = width;
@@ -1587,6 +2280,19 @@ struct H263Decoder::State {
   bool decode(const uint8_t* d, size_t n, Picture& out) {
     if (!n) return false;
     Bits b{d, n};
+    if (variant == kH263) {
+      if (!itu_header(b)) return false;
+      if (pict_type == 2 && !have_ref) bad("P picture without a reference");
+      std::fill(intra_at.begin(), intra_at.end(), 0);
+      std::fill(mv8s.begin(), mv8s.end(), 0);
+      std::fill(skipped.begin(), skipped.end(), 0);
+      picture_itu(b);
+      ++picture_number;
+      output(out);
+      std::swap(cur, ref);
+      have_ref = true;
+      return true;
+    }
     if (variant == kFlv1) {
       flv_header(b);
     } else if (variant == kWmv2) {
@@ -1623,7 +2329,7 @@ H263Decoder::H263Decoder(const std::string& tag, int w, int h,
   if (s_->variant < 0)
     unsupported("MS-MPEG4 v1 ('" + tag + "'), which no encoder here writes");
   if (s_->variant == 0) unsupported("'" + tag + "' is not of the H.263 family");
-  if (s_->variant != kFlv1) {
+  if (s_->variant != kFlv1 && s_->variant != kH263) {
     if (w <= 0 || h <= 0) broken(tag + " video without a picture size");
     s_->set_size(w, h);
   }
@@ -1664,9 +2370,25 @@ int H263Decoder::peek(const uint8_t* d, size_t n) {
       }
       return 1;
     }
+    case kH263: {
+      ItuPtype p;
+      if (read_ptype(b, p)) return -1;
+      return p.type == 0 || p.type == 7 ? 0 : 1;
+    }
     default:
       return b.get(2) == 0 ? 0 : 1;
   }
+}
+
+bool H263Decoder::picture_size(const std::string& tag, const uint8_t* d,
+                               size_t n, int& w, int& h) {
+  if (variant(tag) != kH263 || !n) return false;
+  Bits b{d, n};
+  ItuPtype p;
+  if (read_ptype(b, p) || !p.w) return false;
+  w = p.w;
+  h = p.h;
+  return true;
 }
 
 }  // namespace viai_video

@@ -394,13 +394,14 @@ class HuffyuvDecoder {
 };
 
 // libavcodec's H.263-family decoders (see msmpeg4.cpp): Sorenson H.263
-// (FLV1), MS-MPEG4 v2 and v3, WMV1 (WMV7) and WMV2 (WMV8). No picture is
-// held back; an I picture decodes on its own.
+// (FLV1), MS-MPEG4 v2 and v3, WMV1 (WMV7), WMV2 (WMV8) and ITU H.263 and
+// H.263+. No picture is held back; an I picture decodes on its own.
 class H263Decoder {
  public:
-  // `tag`: the fourcc (Matroska's V_MPEG4/MS/V3 as "MP43"); w, h: the
-  // container's picture size (FLV1's pictures carry their own);
-  // `extradata`: WMV2's 4-byte header. MS-MPEG4 v1's tags raise.
+  // `tag`: the fourcc (Matroska's V_MPEG4/MS/V3 as "MP43", MP4's s263
+  // and h263 as "H263"); w, h: the container's picture size (FLV1's and
+  // H.263's pictures carry their own); `extradata`: WMV2's 4-byte
+  // header. MS-MPEG4 v1's tags raise.
   H263Decoder(const std::string& tag, int w, int h,
               const std::vector<uint8_t>& extradata);
   ~H263Decoder();
@@ -413,8 +414,29 @@ class H263Decoder {
   // skipped: peek the packets before the first decoded one in order).
   int peek(const uint8_t* data, size_t n);
   // Which decoder a fourcc names: 1 FLV1, 2 MS-MPEG4 v2, 3 v3, 4 WMV1,
-  // 5 WMV2; −1 MS-MPEG4 v1 (not read); 0 none.
+  // 5 WMV2, 6 ITU H.263; −1 MS-MPEG4 v1 (not read); 0 none.
   static int variant(const std::string& tag);
+  // An ITU H.263 picture's size from its header; false for other tags
+  // and where the header gives none (H.263+ with UFEP 0).
+  static bool picture_size(const std::string& tag, const uint8_t* data,
+                           size_t n, int& w, int& h);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's H.261 decoder (see h261.cpp): QCIF and CIF pictures, all
+// P pictures (the first is all intra as encoders write it; a picture
+// before any reference predicts from mid-grey, as libavcodec's dummy).
+class H261Decoder {
+ public:
+  H261Decoder();
+  ~H261Decoder();
+  // Decode one packet; true with `out` filled, false for an empty one.
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // A picture's size from its header; false without a picture start.
+  static bool picture_size(const uint8_t* data, size_t n, int& w, int& h);
 
  private:
   struct State;

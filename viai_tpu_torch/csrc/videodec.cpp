@@ -146,7 +146,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 
 enum class Codec {
   kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kHevc, kFfv1, kUtvideo,
-  kHuffyuv, kPng, kH263, kOther
+  kHuffyuv, kPng, kH263, kH261, kOther
 };
 
 struct Packet {
@@ -276,9 +276,10 @@ Codec riff_codec(const std::string& tag) {
   for (const char* t : kMpeg12)
     if (u == t) return Codec::kMpeg12;
   if (mov_mpeg12(tag)) return Codec::kMpeg12;
-  // The H.263 family: FLV1, MS-MPEG4 v2 and v3, WMV1, WMV2 (MS-MPEG4 v1's
-  // tags, which are not read, stay kOther).
+  // The H.263 family: FLV1, MS-MPEG4 v2 and v3, WMV1, WMV2, ITU H.263 and
+  // H.263+ (MS-MPEG4 v1's tags, which are not read, stay kOther).
   if (H263Decoder::variant(tag) > 0) return Codec::kH263;
+  if (u == "H261") return Codec::kH261;
   return Codec::kOther;
 }
 
@@ -816,6 +817,10 @@ void mp4_samples(Track& t, const std::vector<Box>& tb,
     read_vpcc(t, boxes(f, entry + 86, entry + esz));
   } else if (mov_mpeg12(t.tag)) {
     t.codec = Codec::kMpeg12;
+  } else if (t.tag == "s263" || t.tag == "h263") {
+    // H.263 as 3GPP phones store it (a d263 box, which the decoder does
+    // not read, or none).
+    t.codec = Codec::kH263;
   } else if (t.tag == "FFV1") {
     // FFV1's configuration record (versions 2 and 3) in a glbl box, which
     // libavformat takes as the extradata.
@@ -3289,7 +3294,7 @@ class Decoder {
              "names no codec for it, so cv2 reads no frame");
     if (t.codec == Codec::kOther)
       unsupported(t.container + " video coded as '" + t.tag + "' (" +
-                  codec_name(t.tag) + ")");
+                  codec_name(fourcc_of(t)) + ")");
     if (t.codec == Codec::kRaw) {
       if (!t.raw_tagged)
         broken("Matroska V_UNCOMPRESSED track without a ColourSpace: "
@@ -3323,14 +3328,21 @@ class Decoder {
       huffyuv_.reset(
           new HuffyuvDecoder(t.bits, t.extradata, t.width, t.height));
     if (t.codec == Codec::kH263) h263_ = h263_of(t);
+    if (t.codec == Codec::kH261) h261_.reset(new H261Decoder());
   }
 
-  // The H.263-family decoder of a track (Matroska's V_MPEG4/MS/V3 is
-  // MS-MPEG4 v3).
+  // The fourcc an H.263-family track's decoder is named by (Matroska's
+  // V_MPEG4/MS/V3 is MS-MPEG4 v3, MP4's s263 and h263 are H.263).
+  static std::string h263_tag(const Track& t) {
+    if (t.tag == "V_MPEG4/MS/V3") return "MP43";
+    if (t.container == "MP4") return "H263";
+    return fourcc_of(t);
+  }
+
+  // The H.263-family decoder of a track.
   static std::unique_ptr<H263Decoder> h263_of(const Track& t) {
-    std::string tag = t.tag == "V_MPEG4/MS/V3" ? "MP43" : fourcc_of(t);
     return std::unique_ptr<H263Decoder>(
-        new H263Decoder(tag, t.width, t.height, t.extradata));
+        new H263Decoder(h263_tag(t), t.width, t.height, t.extradata));
   }
 
   // The fourcc of an AVI track or a Matroska V_MS/VFW/FOURCC one.
@@ -3397,6 +3409,7 @@ class Decoder {
     if (hevc_) return hevc_->decode(d, p.size, out);
     if (mpeg12_) return mpeg12_->decode(d, p.size, out);
     if (h263_) return h263_->decode(d, p.size, out);
+    if (h261_) return h261_->decode(d, p.size, out);
     return mpeg4_->decode(d, p.size, out);
   }
 
@@ -3444,6 +3457,10 @@ class Decoder {
   // The uncompressed video decoder; null for other codecs.
   const RawDecoder* raw() const { return raw_.get(); }
 
+  // Whether a decode may start at a keyframe: not H.261's (libavcodec
+  // takes every picture for a P picture), which starts at the first.
+  bool seekable() const { return !h261_; }
+
   static std::string codec_name(const std::string& tag) {
     std::string u = upper(tag);
     auto has = [&](const char* s) { return u.find(s) != std::string::npos; };
@@ -3469,6 +3486,20 @@ class Decoder {
     if (in({"MJ2C", "MJP2", "LJ2C", "LJ2K", "IPJ2", "AVJ2"}))
       return "JPEG 2000, not read";
     if (u == "SNOW") return "Snow, not read";
+    if (u == "ZYGO")
+      return "ZyGo's H.263, not read: libavcodec reads 759 bits of ZyGo's "
+             "own after each I picture's header, so cv2 reads the pictures "
+             "that other H.263 tags hold wrongly";
+    if (u == "I263") return "Intel H.263, not read";
+    // DV (libavformat's riff and QuickTime tags of dvvideo): libavcodec
+    // marks every DV frame interlaced and cv2's swscale converts none of
+    // them (each frame it reads is black).
+    if (in({"DVSD", "DV25", "DV50", "DVHD", "DVSL", "CDVC", "CDVH", "CDV5",
+            "DVC ", "DVCS", "DVH1", "DVIS", "PDVC", "SL25", "SLDV", "AVD1",
+            "DVCP", "DVPP", "DV5N", "DV5P", "AVDV", "DVHQ", "DVHP", "DVH2",
+            "DVH3", "DVH4", "DVH5", "DVH6", "DV1N", "DV1P"}))
+      return "DV, not read: cv2 converts no DV frame, since libavcodec "
+             "marks DV frames interlaced and cv2's swscale then gives black";
     if (in({"ASV1", "ASV2"})) return "ASUS " + u + ", not read";
     return "a codec that is not read";
   }
@@ -3488,6 +3519,7 @@ class Decoder {
   std::unique_ptr<UtVideoDecoder> ut_;
   std::unique_ptr<HuffyuvDecoder> huffyuv_;
   std::unique_ptr<H263Decoder> h263_;
+  std::unique_ptr<H261Decoder> h261_;
 };
 
 // A JPEG's frame size, from its SOF segment; false without one.
@@ -3574,6 +3606,12 @@ void first_size(const Track& t, int& w, int& h) {
         q.picture_size(w, h);
         break;
       }
+      case Codec::kH263:                  // ITU H.263's picture header
+        H263Decoder::picture_size(Decoder::h263_tag(t), d, p.size, w, h);
+        break;
+      case Codec::kH261:
+        H261Decoder::picture_size(d, p.size, w, h);
+        break;
       case Codec::kPng:                   // IHDR's size
         if (p.size >= 24 && std::memcmp(d + 12, "IHDR", 4) == 0) {
           w = int(std::min<uint32_t>(be32(d + 16), 0x7FFFFFFF));
@@ -4181,6 +4219,7 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
       size_t start = first;
       if (!dec.intra())
         while (start > 0 && vop[start] != 0) --start;
+      if (!dec.seekable()) start = 0;
       // Headers (an in-band VOL) may precede that I-VOP.
       for (size_t i = 0; i < start; ++i) dec.skip(i);
       for (size_t i = start; i <= last; ++i) {
