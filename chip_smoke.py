@@ -437,7 +437,10 @@ FRAMES_WARMUP = 3
 # bits; PNG at 8 and 16 bits and with a palette; in AVI and Matroska, and
 # cv2's own files), beside clip_ffv1.mkv (FFV1 level 3, 10-bit 4:2:2, 4
 # slices with CRCs, as archives keep it) and clip_utvideo.avi (UT Video
-# ULY0 as OBS's lossless preset records it). Decoded
+# ULY0 as OBS's lossless preset records it), and the codecs OpenCV's
+# writer writes that the port reads (OPENCV_PREFIXES:
+# MagicYUV at 8 to 14 bits, ASV1, ASV2, Snow) beside their clips
+# (OPENCV_CLIPS: cv2's MAGY, ASV2 and SNOW at 224x224). Decoded
 # against cv2 within VIDEO_TOL levels (measured 0 on the CPU). [data]'s
 # av clips get these files as their frames (VIDEO_FOLDERS); the .mov,
 # which load_frames_for does not look for (as in the JAX package),
@@ -446,7 +449,8 @@ VIDEO_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "torch_videos"
 VIDEO_TOL = {"mjpeg": 0, "mpeg4": 0, "vp8": 0, "vp9": 0, "h264": 0,
              "mpeg12": 0, "raw": 0, "hevc": 0, "ffv1": 0, "utvideo": 0,
-             "huffyuv": 0, "png": 0, "h263": 0, "h261": 0, "muxers": 0}
+             "huffyuv": 0, "png": 0, "h263": 0, "h261": 0, "magicyuv": 0,
+             "asv": 0, "snow": 0, "muxers": 0}
 VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "vp9": "VP9", "h264": "H.264", "mpeg12": "MPEG-1/2",
                "raw": "uncompressed", "hevc": "HEVC", "ffv1": "FFV1",
@@ -454,7 +458,8 @@ VIDEO_NAMES = {"mjpeg": "MJPEG", "mpeg4": "MPEG-4 Part 2", "vp8": "VP8",
                "png": "PNG",
                "h263": "H.263 family (MS-MPEG4 v2/v3, WMV1/2, FLV1, ITU "
                        "H.263 and H.263+)",
-               "h261": "H.261",
+               "h261": "H.261", "magicyuv": "MagicYUV (8 to 14 bits)",
+               "asv": "ASUS ASV1/ASV2", "snow": "Snow",
                "muxers": "muxers' tails (every codec)"}
 # folder: the frame files of its clips in turn; "clip.mov" (last) through
 # prepare_dataset extract, "clip.mkv" for the one before it.
@@ -464,7 +469,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "h264": ("clip_h264.mp4", "clip_h264.mkv"),
                  "cam_cut": ("clip_cam.avi", "clip_cut.mp4"),
                  "xvid": ("clip_xvid.avi", "clip_dx50.mp4", "clip_div3.avi",
-                          "clip_wmv2.avi", "clip_h263p.mp4"),
+                          "clip_wmv2.avi", "clip_h263p.mp4", "clip_snow.avi",
+                          "clip_asv2.mkv"),
                  "phone": ("clip_phone.mp4", "clip_frag.mp4",
                            "clip_strip.mkv", "clip_nodd.mkv"),
                  "camera": ("clip_xavc.mp4", "clip_avchd.mkv"),
@@ -474,7 +480,8 @@ VIDEO_FOLDERS = {"mjpeg_mpeg4": ("clip.avi", "clip.mp4"),
                  "raw": ("clip_i420.avi", "clip_yuy2.avi"),
                  "hevc": ("clip_hevc.mp4", "clip_hevc.mkv"),
                  "cuts": ("clip_gopcut.mkv",),
-                 "lossless": ("clip_ffv1.mkv", "clip_utvideo.avi")}
+                 "lossless": ("clip_ffv1.mkv", "clip_utvideo.avi",
+                              "clip_magy.avi")}
 # the committed fixtures of H.264 as cameras and other encoders write it
 # (tests/_torch_make_videos.py's CAMERA_CASES), each held and printed
 CAMERA_FIXTURES = (
@@ -610,6 +617,22 @@ LEGACY_CLIPS = {"clip_div3.avi": "MS-MPEG4 v3 (DivX 3), GOPs of 12",
                                   "J, K, S, T), GOPs of 12",
                 "clip_h263.avi": "H.263 baseline (4MV, OBMC), GOPs of 12",
                 "clip_h261.avi": "H.261, GOPs of 12"}
+# the committed fixtures of the codecs OpenCV's writer writes that the
+# port reads since csrc/magicyuv.cpp, csrc/asv.cpp and csrc/snow.cpp
+# (tests/_torch_make_videos.py's OPENCV_CASES: MagicYUV's 8-bit layouts
+# from libavcodec's encoder under each predictor and its 10, 12 and
+# 14-bit layouts, slices, raw slices and the interlace flag written by
+# hand; ASV1 and ASV2 at every quantiser kind; Snow with both wavelets,
+# lossless, qpel, 4MV, 2-4 references, 4:4:4, 4:1:0, grey; cv2's own
+# files; every .npz of these prefixes) and their 224x224 clips as
+# cv2.VideoWriter writes them (clip_magy.avi trains in the lossless
+# folder, clip_snow.avi and clip_asv2.mkv in the xvid folder), each held
+# and printed, and a frame of each codec timed
+OPENCV_PREFIXES = ("magy", "asv1_", "asv2_", "snow_")
+OPENCV_CLIPS = {"clip_magy.avi": "MagicYUV M8Y0 (cv2's writer, left "
+                                 "prediction)",
+                "clip_asv2.mkv": "ASUS ASV2 (cv2's writer)",
+                "clip_snow.avi": "Snow 9/7, GOPs of 12 (cv2's writer)"}
 HEVC_1080P, HEVC_1080P_SHA = "hevc_1080p.mp4", "hevc_1080p_sha256.json"
 # [video]'s 720x480 YUY2 capture (random bytes, RAW_CAPTURE_FRAMES frames)
 RAW_CAPTURE, RAW_CAPTURE_FRAMES = (480, 720), 8
@@ -2116,22 +2139,21 @@ def phase_frames(dev, ckpt: str, card: str) -> int:
 
 # ---------------------------------------------------------------------------
 # Compressed video
-def video_legacy_costs(best_ms, card: str):
-    """[video] (d): a frame's decode of each codec of the H.263 family and
-    of H.261 (LEGACY_CLIPS: MS-MPEG4 v2 and v3, WMV1, WMV2, FLV1, H.263+
-    at 224x224; H.263 and H.261 at 352x288; GOPs of 12), each the best of
-    VIDEO_REPS decodes of the whole file over its frames, on one
-    thread."""
+def video_clip_costs(best_ms, card: str, clips: dict, title: str):
+    """[video] (d): a frame's decode of each clip of `clips` (file → what
+    it holds: LEGACY_CLIPS, the H.263 family at 224x224 and H.263 and
+    H.261 at 352x288, GOPs of 12; OPENCV_CLIPS, MagicYUV, ASV2 and Snow
+    at 224x224 as cv2's writer writes them), each the best of VIDEO_REPS
+    decodes of the whole file over its frames, on one thread."""
     from viai_tpu_torch import native
 
     res = []
-    for src, what in LEGACY_CLIPS.items():
+    for src, what in clips.items():
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         ms = best_ms(lambda: native.decode_video(path)) / n
         res.append(f"{what} ({src}) at {w}x{h}: {ms:.3f} ms a frame")
-    log("[video] H.263-family and H.261 decode (demux, decode, BGR; one "
-        "thread): "
+    log(f"[video] {title} decode (demux, decode, BGR; one thread): "
         + "; ".join(res) + f"; {card}")
 
 # ---------------------------------------------------------------------------
@@ -2190,6 +2212,7 @@ def video_fixtures():
     per_mpeg4, per_container, per_camera, turned = [], [], [], 0
     per_browser, per_screen, per_dvd, per_raw, per_hevc = [], [], [], [], []
     per_tools, per_lossless, per_muxers, per_legacy = [], [], [], []
+    per_opencv = []
     for npz in cases:
         path = next((p for p in VIDEO_FIXTURES.glob(npz.stem + ".*")
                      if p.suffix != ".npz"),
@@ -2250,6 +2273,15 @@ def video_fixtures():
                     path.name in LEGACY_CLIPS,
                     f"[video] {path.name}: an H.263-family file unlisted")
             per_legacy.append(
+                f"{npz.stem} {got.shape[0]} of count {track.count} at "
+                f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
+                f"{int(ref['count'])}) max|Δ| {err}")
+        if track.codec in ("magicyuv", "asv", "snow"):
+            require(npz.stem.startswith(OPENCV_PREFIXES) or
+                    path.name in OPENCV_CLIPS,
+                    f"[video] {path.name}: a MagicYUV, ASV or Snow file "
+                    f"unlisted")
+            per_opencv.append(
                 f"{npz.stem} {got.shape[0]} of count {track.count} at "
                 f"{got.shape[2]}x{got.shape[1]} (cv2 {int(ref['n'])} of "
                 f"{int(ref['count'])}) max|Δ| {err}")
@@ -2339,6 +2371,13 @@ def video_fixtures():
     require(len(per_legacy) == n_legacy and n_legacy > len(LEGACY_CLIPS),
             f"[video] {len(per_legacy)} H.263-family fixtures of "
             f"{n_legacy}")
+    n_opencv = sum(len(list(VIDEO_FIXTURES.glob(f"{p}*.npz")))
+                   for p in OPENCV_PREFIXES) + len(OPENCV_CLIPS)
+    log(f"[video] MagicYUV, ASV and Snow as cv2's writer and capture tools "
+        f"store them ({len(per_opencv)} fixtures): " + "; ".join(per_opencv))
+    require(len(per_opencv) == n_opencv and n_opencv > len(OPENCV_CLIPS),
+            f"[video] {len(per_opencv)} MagicYUV, ASV and Snow fixtures of "
+            f"{n_opencv}")
     video_hevc_1080p()
     for name in BROWSER_CLIPS:
         ref = np.load(VIDEO_FIXTURES / f"{name}.npz")
@@ -2528,7 +2567,7 @@ def phase_video(dev, ckpt: str, card: str) -> int:
                         "H.264 High, header-stripped as mkvmerge wrote it"),
                        ("clip_nodd.mkv",
                         "HEVC Main without DefaultDuration"),
-                       *LEGACY_CLIPS.items()):
+                       *LEGACY_CLIPS.items(), *OPENCV_CLIPS.items()):
         path = str(VIDEO_FIXTURES / src)
         n, h, w = native.decode_video(path).shape[:3]
         dec = best_ms(lambda: native.decode_video(path)) / n
@@ -2546,7 +2585,8 @@ def phase_video(dev, ckpt: str, card: str) -> int:
     video_raw_costs(best_ms, card)
     video_hevc_costs(best_ms, card)
     video_lossless_costs(best_ms, card)
-    video_legacy_costs(best_ms, card)
+    video_clip_costs(best_ms, card, LEGACY_CLIPS, "H.263-family and H.261")
+    video_clip_costs(best_ms, card, OPENCV_CLIPS, "MagicYUV, ASV and Snow")
     video_strip_cost(best_ms, card)
     log(f"[video] took {time.perf_counter() - t_video:.1f} s ({len(roots)} "
         f"folders)")

@@ -1383,16 +1383,154 @@ ITU_CLIPS = {"clip_h263p_mp4": ("h263p", "s263", dict(
                                                     obmc=1, size=_CIF)),
              "clip_h261_avi": ("h261", "H261", dict(g=12, size=_CIF,
                                                     flags="+loop"))}
+# The codecs OpenCV's writer writes that the port reads since
+# csrc/magicyuv.cpp, csrc/asv.cpp and csrc/snow.cpp
+# (tests/test_torch_video_opencv.py): OPENCV_FRAMES frames of
+# moving_frames at OPENCV_SIZE (h, w) unless `size`/`frames` say
+# otherwise, in the container the name ends with (AVI under `tag`, or
+# Matroska V_MS/VFW/FOURCC with a BITMAPINFOHEADER, the extradata after
+# it). "magicyuv", "asv1", "asv2", "snow": libavcodec 59's encoders
+# through lavc_encode with the options given ("pixel_format", "pred", the
+# quantiser as "global_quality" under "+qscale", "flags" "+qpel"/"+mv4",
+# "refs", "g"); `noise` adds ±noise to the frames; `noextra` drops the
+# extradata (ASV's quantiser). "magyhand": magicyuv_packet's packets in
+# layout `fmt` (10, 12 and 14 bits, which libavcodec 59 does not write,
+# several slices, raw slices, the interlace flag, full range, the colour
+# matrix). "snowhand": snow_hand_packets' streams (SnowWriter: header
+# fields libavcodec 59's encoder never writes: the half-pel filter's own
+# taps, diag_mc 0, mv_scale 1 and 2 with them, spatial_scalability, up
+# to 8 references, split blocks, grey with its own taps; `key` and
+# `inter` its options). "cv2": cv2.VideoWriter under the fourcc `tag` (it
+# stores MagicYUV as M8Y0).
+OPENCV_FRAMES, OPENCV_SIZE, OPENCV_ODD = 8, (64, 96), (61, 97)
+OPENCV_CASES = {
+    "magy_rgleft_avi": ("magicyuv", "M8RG", dict(pixel_format="gbrp",
+                                                 pred="left")),
+    "magy_rggrad_mkv": ("magicyuv", "M8RG", dict(
+        pixel_format="gbrp", pred="gradient", size=OPENCV_ODD)),
+    "magy_ramedian_avi": ("magicyuv", "M8RA", dict(pixel_format="gbrap",
+                                                   pred="median")),
+    "magy_g0grad_avi": ("magicyuv", "M8G0", dict(
+        pixel_format="gray", pred="gradient", size=OPENCV_ODD)),
+    "magy_y0median_avi": ("magicyuv", "M8Y0", dict(pixel_format="yuv420p",
+                                                   pred="median")),
+    "magy_y0left_mkv": ("magicyuv", "M8Y0", dict(
+        pixel_format="yuv420p", pred="left", size=OPENCV_ODD)),
+    "magy_y2grad_avi": ("magicyuv", "M8Y2", dict(
+        pixel_format="yuv422p", pred="gradient", size=OPENCV_ODD)),
+    "magy_y4median_mkv": ("magicyuv", "M8Y4", dict(pixel_format="yuv444p",
+                                                   pred="median")),
+    "magy_yaleft_avi": ("magicyuv", "M8YA", dict(pixel_format="yuva444p",
+                                                 pred="left")),
+    "magy_magy_avi": ("magicyuv", "MAGY", dict(pixel_format="yuv420p",
+                                               pred="gradient")),
+    "magy10_rgmedian_avi": ("magyhand", "M0RG", dict(fmt="gbrp10le", pred=3)),
+    "magy10_ragrad_mkv": ("magyhand", "M0RA", dict(
+        fmt="gbrap10le", pred=2, size=OPENCV_ODD)),
+    "magy10_g0left_avi": ("magyhand", "M0G0", dict(fmt="gray10le", pred=1)),
+    "magy10_y0median_avi": ("magyhand", "M0Y0", dict(
+        fmt="yuv420p10le", pred=3, size=OPENCV_ODD)),
+    "magy10_y2grad_avi": ("magyhand", "M0Y2", dict(fmt="yuv422p10le",
+                                                    pred=2)),
+    "magy10_y4left_mkv": ("magyhand", "M0Y4", dict(fmt="yuv444p10le",
+                                                    pred=1)),
+    "magy12_rgmedian_avi": ("magyhand", "M2RG", dict(
+        fmt="gbrp12le", pred=3, size=OPENCV_ODD)),
+    "magy12_raleft_avi": ("magyhand", "M2RA", dict(fmt="gbrap12le", pred=1)),
+    "magy14_rggrad_mkv": ("magyhand", "M2RG", dict(fmt="gbrp14le", pred=2)),
+    "magy_slices_avi": ("magyhand", "M8Y0", dict(
+        fmt="yuv420p", pred=3, slice_height=16, raw={1})),
+    "magy_slices10_mkv": ("magyhand", "M0RG", dict(
+        fmt="gbrp10le", pred=3, slice_height=8, raw={0, 2},
+        size=OPENCV_ODD)),
+    "magy_rows_avi": ("magyhand", "M8Y0", dict(fmt="yuv420p", pred=3,
+                                                slice_height=2)),
+    "magy_interlaced_avi": ("magyhand", "M8Y2", dict(
+        fmt="yuv422p", pred=2, slice_height=32, interlaced=True)),
+    "magy_interlaced10_avi": ("magyhand", "M0Y0", dict(
+        fmt="yuv420p10le", pred=3, interlaced=True, size=OPENCV_ODD)),
+    "magy_range_avi": ("magyhand", "M8Y0", dict(
+        fmt="yuv420p", pred=1, full_range=True, matrix=2)),
+    "magy_bt709_mkv": ("magyhand", "M0Y4", dict(fmt="yuv444p10le", pred=3,
+                                                 matrix=2)),
+    "asv1_avi": ("asv1", "ASV1", {}),
+    "asv1_odd_mkv": ("asv1", "ASV1", dict(size=OPENCV_ODD)),
+    "asv1_q1_avi": ("asv1", "ASV1", dict(global_quality=118, flags="+qscale",
+                                         noise=40)),
+    "asv1_q31_avi": ("asv1", "ASV1", dict(global_quality=118 * 31,
+                                          flags="+qscale")),
+    "asv1_noextra_avi": ("asv1", "ASV1", dict(noextra=True)),
+    "asv2_avi": ("asv2", "ASV2", {}),
+    "asv2_odd_avi": ("asv2", "ASV2", dict(size=OPENCV_ODD)),
+    "asv2_q1_mkv": ("asv2", "ASV2", dict(global_quality=118, flags="+qscale",
+                                         noise=40)),
+    "asv2_q31_avi": ("asv2", "ASV2", dict(global_quality=118 * 31,
+                                          flags="+qscale")),
+    "asv2_noextra_mkv": ("asv2", "ASV2", dict(noextra=True,
+                                              size=OPENCV_ODD)),
+    "snow_avi": ("snow", "SNOW", {}),
+    "snow_g3_avi": ("snow", "SNOW", dict(g=3)),
+    "snow_53_mkv": ("snow", "SNOW", dict(pred=1, g=4)),
+    "snow_lossless_avi": ("snow", "SNOW", dict(pred=1, global_quality=0,
+                                               flags="+qscale", frames=4)),
+    "snow_q_avi": ("snow", "SNOW", dict(global_quality=118 * 8,
+                                        flags="+qscale")),
+    "snow_qpel_avi": ("snow", "SNOW", dict(flags="+qpel")),
+    "snow_mv4_mkv": ("snow", "SNOW", dict(flags="+mv4")),
+    "snow_qpelmv4_avi": ("snow", "SNOW", dict(flags="+qpel+mv4",
+                                              size=OPENCV_ODD)),
+    "snow_refs2_avi": ("snow", "SNOW", dict(refs=2)),
+    "snow_refs4_mkv": ("snow", "SNOW", dict(refs=4, flags="+qpel")),
+    "snow_444_avi": ("snow", "SNOW", dict(pixel_format="yuv444p")),
+    "snow_410_avi": ("snow", "SNOW", dict(pixel_format="yuv410p", g=4)),
+    "snow_gray_mkv": ("snow", "SNOW", dict(pixel_format="gray")),
+    "snow_odd_avi": ("snow", "SNOW", dict(size=OPENCV_ODD, g=5)),
+    "snow_odd53_mkv": ("snow", "SNOW", dict(size=OPENCV_ODD, pred=1,
+                                            flags="+mv4")),
+    "snow_taps_avi": ("snowhand", "SNOW", dict(key={}, inter=dict(
+        taps=[(1, 6, [0, -12, 3, 0]), (1, 4, [0, -6, 1, 0])], mv=4))),
+    "snow_taps2_mkv": ("snowhand", "SNOW", dict(
+        key=dict(wavelet=0), inter=dict(taps=[(1, 2, [0, -5, 0, 0]),
+                                             (0, 6, [0, -10, 2, 0])], mv=4))),
+    "snow_tapsqpel_avi": ("snowhand", "SNOW", dict(
+        key=dict(mv_scale=2), keyint=4,
+        inter=dict(taps=[(1, 6, [0, -12, 3, 0])] * 2, mv=5))),
+    "snow_scal_avi": ("snowhand", "SNOW", dict(
+        key=dict(spatial_scalability=1, depth=1, max_refs=3, count=3),
+        inter=dict(taps=[(1, 6, [40, -10, 2, 0])] * 2, mv=4),
+        size=OPENCV_ODD)),
+    "snow_refs8_mkv": ("snowhand", "SNOW", dict(
+        key=dict(max_refs=8, mv_scale=1), frames=10,
+        inter=dict(taps=[(1, 6, [40, -10, 2, 0])] * 2, mv=7))),
+    "snow_tapsgray_avi": ("snowhand", "SNOW", dict(
+        key=dict(colorspace=1, shifts=(0, 0)), inter=dict(
+            taps=[(0, 4, [0, -7, 2, 0])], mv=4))),
+    **{f"{c}_cv2_{m}": ("cv2", t, {}) for c, t in (
+        ("magy", "MAGY"), ("asv1", "ASV1"), ("asv2", "ASV2"),
+        ("snow", "SNOW")) for m in ("avi", "mkv")},
+}
+# The clips chip_smoke.py holds, times a frame of and trains from, of the
+# committed 224x224 clip's first 16 frames as cv2.VideoWriter writes
+# them: MagicYUV (M8Y0; the `lossless` folder), Snow and ASV2 (the
+# `xvid` folder).
+OPENCV_CLIPS = {"clip_magy_avi": ("cv2", "MAGY", {}),
+                "clip_snow_avi": ("cv2", "SNOW", {}),
+                "clip_asv2_mkv": ("cv2", "ASV2", {})}
 # Every case with an .npz of cv2's view
 HELD = (*DECODED, *CONTAINER_CASES, *CAMERA_CASES, *BROWSER_CASES,
         *BROWSER_CLIPS, *SCREEN_CASES, *DVD_CASES, *DVD_CLIPS, *RAW_CASES,
         *RAW_CLIPS, *HEVC_CASES, *HEVC_CLIPS, *H264_TOOLS, *TOOLS_CLIPS,
         *LOSSLESS_CASES, *LOSSLESS_CLIPS, *MUXER_CASES, *MUXER_CLIPS,
-        *LEGACY_CASES, *LEGACY_CLIPS, *ITU_CASES, *ITU_CLIPS)
+        *LEGACY_CASES, *LEGACY_CLIPS, *ITU_CASES, *ITU_CLIPS,
+        *OPENCV_CASES, *OPENCV_CLIPS)
 
 
 def codec_of(name: str) -> str:
     """The codec a case holds, by its name."""
+    if name in OPENCV_CASES or name in OPENCV_CLIPS:
+        stem = name.split("_")[1] if name.startswith("clip_") else name
+        return ("magicyuv" if stem.startswith("magy") else
+                "asv" if stem.startswith("asv") else "snow")
     if name in LEGACY_CASES or name in LEGACY_CLIPS:
         return "h263"
     if name in ITU_CASES or name in ITU_CLIPS:
@@ -1431,7 +1569,8 @@ def path_of(name: str) -> str:
             or name in SCREEN_CLIPS or name in DVD_CLIPS or name in RAW_CLIPS
             or name in HEVC_CLIPS or name in TOOLS_CLIPS
             or name in LOSSLESS_CLIPS or name in MUXER_CLIPS
-            or name in LEGACY_CLIPS or name in ITU_CLIPS):
+            or name in LEGACY_CLIPS or name in ITU_CLIPS
+            or name in OPENCV_CLIPS):
         return os.path.join(FIXTURES, ".".join(name.rsplit("_", 1)))
     if name in CLIP_CASES:
         return os.path.join(FIXTURES, name.rsplit("_", 1)[0] + "." +
@@ -4839,6 +4978,607 @@ def lossless_file(name: str) -> bytes:
                     codec_private=bih + info["extradata"])
 
 
+# MagicYUV's layouts as libavcodec's decoder names them: (the format
+# byte, bits a sample, RGB, the chroma shifts, planes coded), and the
+# riff tag of each.
+MAGY_LAYOUTS = {
+    "gbrp": (0x65, 8, True, (0, 0), 3), "gbrap": (0x66, 8, True, (0, 0), 4),
+    "yuv444p": (0x67, 8, False, (0, 0), 3),
+    "yuv422p": (0x68, 8, False, (1, 0), 3),
+    "yuv420p": (0x69, 8, False, (1, 1), 3),
+    "yuva444p": (0x6A, 8, False, (0, 0), 4), "gray": (0x6B, 8, False, None, 1),
+    "yuv422p10le": (0x6C, 10, False, (1, 0), 3),
+    "gbrp10le": (0x6D, 10, True, (0, 0), 3),
+    "gbrap10le": (0x6E, 10, True, (0, 0), 4),
+    "gbrp12le": (0x6F, 12, True, (0, 0), 3),
+    "gbrap12le": (0x70, 12, True, (0, 0), 4),
+    "gbrp14le": (0x71, 14, True, (0, 0), 3),
+    "gbrap14le": (0x72, 14, True, (0, 0), 4),
+    "gray10le": (0x73, 10, False, None, 1),
+    "yuv444p10le": (0x76, 10, False, (0, 0), 3),
+    "yuv420p10le": (0x7B, 10, False, (1, 1), 3)}
+MAGY_TAGS = {"gbrp": "M8RG", "gbrap": "M8RA", "yuv444p": "M8Y4",
+             "yuv422p": "M8Y2", "yuv420p": "M8Y0", "yuva444p": "M8YA",
+             "gray": "M8G0", "yuv422p10le": "M0Y2", "gbrp10le": "M0RG",
+             "gbrap10le": "M0RA", "gbrp12le": "M2RG", "gbrap12le": "M2RA",
+             "gbrp14le": "M2RG", "gbrap14le": "M2RA", "gray10le": "M0G0",
+             "yuv444p10le": "M0Y4", "yuv420p10le": "M0Y0"}
+
+
+def magicyuv_planes(frame: np.ndarray, fmt: str) -> list[np.ndarray]:
+    """One BGR frame → the planes of MagicYUV layout `fmt` in coded order
+    (B, G, R and alpha for RGB; Y, U, V and alpha), as lavc_frame_bytes
+    lays the pixel format out."""
+    h, w = frame.shape[:2]
+    _, bps, rgb, shifts, planes = MAGY_LAYOUTS[fmt]
+    raw = np.frombuffer(lavc_frame_bytes(frame, fmt), np.uint8 if bps == 8
+                        else "<u2")
+    sizes = [(h, w)] * planes
+    if shifts and not rgb:
+        xs, ys = shifts
+        c = (-(-h // (1 << ys)), -(-w // (1 << xs)))
+        sizes = [(h, w), c, c] + [(h, w)] * (planes - 3)
+    out, at = [], 0
+    for ph, pw in sizes:
+        out.append(raw[at:at + ph * pw].reshape(ph, pw).astype(np.int64))
+        at += ph * pw
+    if rgb:                                    # G, B, R → B, G, R
+        out[0], out[1] = out[1], out[0]
+    return out
+
+
+def _huffman_lengths(counts: np.ndarray) -> np.ndarray:
+    """Huffman code lengths of every symbol (each counted at least once)."""
+    import heapq
+
+    heap = [(int(c) + 1, i, [i]) for i, c in enumerate(counts)]
+    heapq.heapify(heap)
+    lengths = np.zeros(len(counts), np.int64)
+    tie = len(counts)
+    while len(heap) > 1:
+        a, _, sa = heapq.heappop(heap)
+        b, _, sb = heapq.heappop(heap)
+        lengths[sa + sb] += 1
+        heapq.heappush(heap, (a + b, tie, sa + sb))
+        tie += 1
+    assert lengths.max() <= 32
+    return lengths
+
+
+def magicyuv_packet(frame: np.ndarray, fmt: str, pred: int = 2,
+                    slice_height: int | None = None, raw=(),
+                    interlaced: bool = False, full_range: bool = False,
+                    matrix: int = 0) -> bytes:
+    """One MagicYUV packet (version 7) of a BGR frame in layout `fmt`,
+    written as libavcodec's decoder reads it: the header (the format
+    byte, `matrix`, the flags: 2 `interlaced`, 4 `full_range`), slices
+    of `slice_height` rows (default: one), each plane's slices predicted
+    by `pred` (1 left, 2 gradient, 3 median, whose gradient term libavcodec
+    wraps at 8 bits only; each slice's first line, two when interlaced,
+    from the left alone; RGB as B − G, G, R − G) and
+    Huffman-coded under per-plane code lengths stored run-length coded,
+    or stored raw for the slice numbers in `raw`."""
+    h, w = frame.shape[:2]
+    code, bps, rgb, shifts, nplanes = MAGY_LAYOUTS[fmt]
+    mask = (1 << bps) - 1
+    sh = slice_height or h
+    nslices = -(-h // sh)
+    planes = magicyuv_planes(frame, fmt)
+    if rgb:
+        planes[0] = (planes[0] - planes[1]) & mask
+        planes[2] = (planes[2] - planes[1]) & mask
+    step = 2 if interlaced else 1
+
+    def residuals(p: np.ndarray) -> np.ndarray:
+        r = np.empty_like(p)
+        left = np.concatenate([np.zeros((p.shape[0], 1), np.int64),
+                               p[:, :-1]], 1)
+        r[:step] = p[:step] - left[:step]
+        top, tl = p[:-step], np.concatenate(
+            [np.zeros((p.shape[0] - step, 1), np.int64), p[:-step, :-1]], 1)
+        cur, lf = p[step:], left[step:]
+        if pred == 1:
+            guess = lf.copy()
+        elif pred == 2:
+            guess = lf + top - tl
+        else:                  # above 8 bits the gradient is not wrapped
+            grad = lf + top - tl if bps > 8 else (lf + top - tl) & mask
+            guess = np.maximum(np.minimum(lf, top),
+                               np.minimum(np.maximum(lf, top), grad))
+        guess[:, 0] = top[:, 0]
+        r[step:] = cur - guess
+        return r & mask
+
+    coded = []                                 # per plane: slices' residuals
+    for i, p in enumerate(planes):
+        vs = shifts[1] if shifts and not rgb and i in (1, 2) else 0
+        csh = -(-sh // (1 << vs))
+        ph = p.shape[0]
+        coded.append([residuals(p[j * csh:min((j + 1) * csh, ph)])
+                      for j in range(nslices)])
+    tables, codes = b"", []
+    for sl in coded:
+        counts = np.bincount(np.concatenate([r.ravel() for r in sl]),
+                             minlength=1 << bps)
+        lengths = _huffman_lengths(counts)
+        order = sorted(range(1 << bps), key=lambda s: (-lengths[s], s))
+        value, nxt = {}, 0
+        for sym in order:
+            value[sym] = nxt >> (32 - lengths[sym])
+            nxt += 1 << (32 - lengths[sym])
+        codes.append((lengths, value))
+        k = 0
+        while k < len(lengths):                # runs of one length
+            run = 1
+            while (k + run < len(lengths) and run < 256
+                   and lengths[k + run] == lengths[k]):
+                run += 1
+            tables += bytes([lengths[k]]) if run == 1 else bytes(
+                [0x80 | lengths[k], run - 1])
+            k += run
+    bodies = []
+    for i, sl in enumerate(coded):
+        lengths, value = codes[i]
+        for j, r in enumerate(sl):
+            if j in raw:
+                bits = "".join(format(int(v), f"0{bps}b") for v in r.ravel())
+            else:
+                bits = "".join(format(value[int(v)], f"0{lengths[int(v)]}b")
+                               for v in r.ravel())
+            bits += "0" * (-len(bits) % 32)
+            bodies.append(bytes([1 if j in raw else 0, pred]) +
+                          int(bits or "0", 2).to_bytes(len(bits) // 8, "big")
+                          + bytes(4))
+    head_len = 36 + 4 * nplanes * nslices + 1 + nplanes * nslices
+    first = head_len + len(tables) - 32
+    offsets, at = [], first
+    for body in bodies:
+        offsets.append(at)
+        at += len(body)
+    flags = (2 if interlaced else 0) | (4 if full_range else 0)
+    head = b"MAGY" + struct.pack("<IBBBBB3B4I4x", 32, 7, code, 12, matrix,
+                                 flags, 0, 32, 0, w, h, w, sh)
+    head += struct.pack(f"<{len(offsets)}I", *offsets)
+    head += bytes([nplanes]) + bytes(i for i in range(nplanes)
+                                     for _ in range(nslices))
+    return head + tables + b"".join(bodies)
+
+
+def _rac_states() -> tuple[list[int], list[int]]:
+    """rangecoder.c's ff_build_rac_states(c, 0.05 · 2^32, 256 − 8): the
+    zero and one state transitions FFV1 and Snow use."""
+    one_, factor, max_p = 1 << 32, int(0.05 * (1 << 32)), 256 - 8
+    zero, one = [0] * 256, [0] * 256
+    last_p8, p = 0, one_ // 2
+    for _ in range(128):
+        p8 = (256 * p + one_ // 2) >> 32
+        if p8 <= last_p8:
+            p8 = last_p8 + 1
+        if last_p8 and last_p8 < 256 and p8 <= max_p:
+            one[last_p8] = p8
+        p += ((one_ - p) * factor + one_ // 2) >> 32
+        last_p8 = p8
+    for i in range(256 - max_p, max_p + 1):
+        if one[i]:
+            continue
+        p = (i * one_ + 128) >> 8
+        p += ((one_ - p) * factor + one_ // 2) >> 32
+        p8 = (256 * p + one_ // 2) >> 32
+        p8 = min(max(p8, i + 1), max_p)
+        one[i] = p8
+    for i in range(1, 255):
+        zero[i] = 256 - one[256 - i]
+    return zero, one
+
+
+class RangeWriter:
+    """rangecoder.c's encoder (put_rac, renorm_encoder, ff_rac_terminate)
+    with _rac_states' transitions; states are (bytearray, index)."""
+
+    ZERO, ONE = _rac_states()
+
+    def __init__(self):
+        self.low, self.range = 0, 0xFF00
+        self.outstanding_count, self.outstanding_byte = 0, -1
+        self.out = bytearray()
+
+    def _renorm(self):
+        while self.range < 0x100:
+            if self.outstanding_byte < 0:
+                self.outstanding_byte = self.low >> 8
+            elif self.low <= 0xFF00:
+                self.out.append(self.outstanding_byte)
+                self.out += b"\xff" * self.outstanding_count
+                self.outstanding_count = 0
+                self.outstanding_byte = self.low >> 8
+            elif self.low >= 0x10000:
+                self.out.append(self.outstanding_byte + 1)
+                self.out += b"\x00" * self.outstanding_count
+                self.outstanding_count = 0
+                self.outstanding_byte = (self.low >> 8) - 0x100
+            else:
+                self.outstanding_count += 1
+            self.low = (self.low & 0xFF) << 8
+            self.range <<= 8
+
+    def bit(self, st: bytearray, i: int, bit: int):
+        r1 = (self.range * st[i]) >> 8
+        if not bit:
+            self.range -= r1
+            st[i] = self.ZERO[st[i]]
+        else:
+            self.low += self.range - r1
+            self.range = r1
+            st[i] = self.ONE[st[i]]
+        self._renorm()
+
+    def symbol(self, st: bytearray, at: int, v: int, signed: bool):
+        """put_symbol, as get_symbol reads it."""
+        if not v:
+            self.bit(st, at, 1)
+            return
+        a = abs(v)
+        e = a.bit_length() - 1
+        self.bit(st, at, 0)
+        for i in range(e):
+            self.bit(st, at + 1 + min(i, 9), 1)
+        self.bit(st, at + 1 + min(e, 9), 0)
+        for i in range(e - 1, -1, -1):
+            self.bit(st, at + 22 + min(i, 9), (a >> i) & 1)
+        if signed:
+            self.bit(st, at + 11 + min(e, 10), int(v < 0))
+
+    def symbol2(self, st: bytearray, at: int, v: int, log2: int):
+        """put_symbol2 (snow.h's get_symbol2 reads it)."""
+        r = 1 << log2 if log2 >= 0 else 1
+        while v >= r:
+            self.bit(st, at + 4 + log2, 1)
+            v -= r
+            log2 += 1
+            if log2 > 0:
+                r += r
+        self.bit(st, at + 4 + log2, 0)
+        for i in range(log2 - 1, -1, -1):
+            self.bit(st, at + 31 - i, (v >> i) & 1)
+
+    def terminate(self) -> bytes:
+        self.range = 0xFF
+        self.low += 0xFF
+        self._renorm()
+        self.range = 0xFF
+        self._renorm()
+        return bytes(self.out)
+
+
+class SnowWriter:
+    """Snow packets written field by field as libavcodec's snow decoder
+    reads them, for what libavcodec 59's encoder never writes: a keyframe
+    (the header with `colorspace`, `shifts`, `count` decompositions,
+    `spatial_scalability`, `max_refs`, `wavelet` 0 9/7 or 1 5/3, `mv_scale`
+    and `depth` (block_max_depth); the LL band of each plane given, DPCM
+    coded as correlate undoes it, every other band zero; lossless qlog, so
+    a plane's samples are 128 + its wavelet's output), then inter frames
+    (the half-pel filter's `taps` (htaps and hcoeff, diag_mc) sent where
+    given; each block's (intra colour, or vector and reference) chosen by
+    a seeded generator; no residual). The context states carry across
+    packets as the decoder's do; each packet is padded with 8 zero bytes
+    (the decoder takes none of them)."""
+
+    def __init__(self, w: int, h: int):
+        self.w, self.h = w, h
+        self.header = bytearray(b"\x80" * 32)
+        self.block_state = bytearray(b"\x80" * (128 + 32 * 128))
+        self.bands = {}
+        self.refs_available = 0
+
+    def _band_state(self, key) -> bytearray:
+        return self.bands.setdefault(key, bytearray(b"\x80" * (519 * 32)))
+
+    def _plane_size(self, pi: int) -> tuple[int, int]:
+        if not pi:
+            return self.w, self.h
+        xs, ys = self.shifts
+        return -(-self.w >> xs), -(-self.h >> ys)
+
+    def _bands_of(self, pi: int) -> dict:
+        """(level, orientation) → (width, height)."""
+        pw, ph = self._plane_size(pi)
+        out = {}
+        for level in range(self.count - 1, -1, -1):
+            for o in range(0 if level == 0 else 1, 4):
+                out[level, o] = ((pw + (not o & 1)) >> 1,
+                                 (ph + (not o > 1)) >> 1)
+            pw, ph = (pw + 1) >> 1, (ph + 1) >> 1
+        return out
+
+    def _code_band(self, rc: RangeWriter, st: bytearray, vals: np.ndarray,
+                   parent: np.ndarray | None):
+        """unpack_coeffs' coding of a band's coefficients (v-form: 2·|q| +
+        sign), contexts from the left, top-left, top, top-right and
+        parent."""
+        h, w = vals.shape
+
+        def at(a, y, x):
+            if a is None or y < 0 or x < 0 or y >= a.shape[0] or \
+                    x >= a.shape[1]:
+                return 0
+            return int(a[y, x])
+
+        q3 = [0, 0] + [1 if i % 2 == 0 else -1 for i in range(2, 256)]
+        ctx, zero_pos = [], []
+        for y in range(h):
+            for x in range(w):
+                n = (at(vals, y, x - 1), at(vals, y - 1, x - 1),
+                     at(vals, y - 1, x), at(vals, y - 1, x + 1),
+                     at(parent, y >> 1, x >> 1))
+                ctx.append(n)
+                if not any(n):
+                    zero_pos.append(int(vals[y, x]))
+        runs, run = [], 0
+        for v in zero_pos:
+            if v:
+                runs.append(run)
+                run = 0
+            else:
+                run += 1
+        rc.symbol2(st, 30 * 32, len(runs), 0)
+        ri = 0
+        if runs:
+            rc.symbol2(st, 32, runs[0], 3)
+            ri = 1
+        k = 0
+        for y in range(h):
+            for x in range(w):
+                v = int(vals[y, x])
+                l, lt, t, rt, p = ctx[k]
+                k += 1
+                if l | lt | t | rt | p:
+                    c = (3 * (l >> 1) + (lt >> 1) + (t & ~1) + (rt >> 1) +
+                         (p >> 1)).bit_length() - 1
+                    c = max(c, 0)
+                    rc.bit(st, c, int(v != 0))
+                    if v:
+                        rc.symbol2(st, (c + 2) * 32, (v >> 1) - 1, c - 4)
+                        rc.bit(st, 20 + q3[l & 0xFF] + 3 * q3[t & 0xFF], v & 1)
+                elif v:
+                    if ri < len(runs):
+                        rc.symbol2(st, 32, runs[ri], 3)
+                        ri += 1
+                    rc.symbol2(st, 2 * 32, (v >> 1) - 1, -4)
+                    rc.bit(st, 20, v & 1)
+
+    def _deltas(self, rc: RangeWriter, key: bool):
+        hs = self.header
+        rc.symbol(hs, 0, self.wavelet if key else 0, True)
+        rc.symbol(hs, 0, -128 if key else 0, True)            # qlog
+        rc.symbol(hs, 0, self.mv_scale if key else 0, True)
+        rc.symbol(hs, 0, 0, True)                             # qbias
+        rc.symbol(hs, 0, self.depth if key else 0, True)
+
+    def keyframe(self, ll: list[np.ndarray], colorspace: int = 0,
+                 shifts=(1, 1), count: int = 2, spatial_scalability: int = 0,
+                 max_refs: int = 1, wavelet: int = 1, mv_scale: int = 4,
+                 depth: int = 0) -> bytes:
+        self.header = bytearray(b"\x80" * 32)
+        self.block_state = bytearray(b"\x80" * (128 + 32 * 128))
+        self.bands = {}
+        self.shifts = (0, 0) if colorspace == 1 else shifts
+        self.nb = 1 if colorspace == 1 else 3
+        self.count, self.wavelet, self.mv_scale = count, wavelet, mv_scale
+        self.depth, self.max_refs = depth, max_refs
+        self.taps = [(1, 6, [40, -10, 2, 0])] * 3
+        rc, hs = RangeWriter(), self.header
+        rc.bit(bytearray(b"\x80"), 0, 1)                    # keyframe
+        rc.symbol(hs, 0, 0, False)                          # version
+        rc.bit(hs, 0, 0)                                    # always_reduce
+        rc.symbol(hs, 0, 0, False)
+        rc.symbol(hs, 0, 0, False)
+        rc.symbol(hs, 0, count, False)
+        rc.symbol(hs, 0, colorspace, False)
+        if colorspace == 0:
+            rc.symbol(hs, 0, shifts[0], False)
+            rc.symbol(hs, 0, shifts[1], False)
+        rc.bit(hs, 0, spatial_scalability)
+        rc.symbol(hs, 0, max_refs - 1, False)
+        for pi in range(min(self.nb, 2)):                   # the qlogs
+            for level in range(count):
+                for o in range(0 if level == 0 else 1, 4):
+                    if o != 2:
+                        rc.symbol(hs, 0, 0, True)
+        self._deltas(rc, True)
+        for pi in range(self.nb):
+            sizes = self._bands_of(pi)
+            for (level, o), (bw, bh) in sorted(sizes.items()):
+                vals = np.zeros((bh, bw), np.int64)
+                if (level, o) == (0, 0):
+                    band = np.asarray(ll[pi], np.int64)[:bh, :bw]
+                    band = np.pad(band, ((0, bh - band.shape[0]),
+                                         (0, bw - band.shape[1])), "edge")
+                    res = band.copy()              # correlate's inverse
+                    for y in range(bh):
+                        for x in range(bw):
+                            if x and y:
+                                a, b = band[y, x - 1], band[y - 1, x]
+                                c = a + b - band[y - 1, x - 1]
+                                pred = sorted((a, b, c))[1]
+                            elif x:
+                                pred = band[y, x - 1]
+                            elif y:
+                                pred = band[y - 1, x]
+                            else:
+                                pred = 0
+                            res[y, x] = band[y, x] - pred
+                    vals = 2 * np.abs(res) + (res < 0)
+                self._code_band(rc, self._band_state((pi, level, o)), vals,
+                                None)
+        self.refs_available = 1
+        return rc.terminate() + bytes(8)
+
+    def inter(self, seed: int, taps=None, intra: float = 0.1,
+              mv: int = 6) -> bytes:
+        """An inter frame: `taps` a (diag_mc, htaps, hcoeff) for planes 0
+        and 1 (and 2, which copies 1) when sent."""
+        rng = np.random.default_rng(seed)
+        rc, hs = RangeWriter(), self.header
+        rc.bit(bytearray(b"\x80"), 0, 0)                    # not a keyframe
+        rc.bit(hs, 0, int(taps is not None))
+        if taps is not None:
+            for pi in range(min(self.nb, 2)):
+                diag, htaps, hcoeff = taps[pi]
+                rc.bit(hs, 0, diag)
+                rc.symbol(hs, 0, htaps // 2 - 1, False)
+                for i in range(htaps // 2, 0, -1):
+                    rc.symbol(hs, 0, abs(hcoeff[i]), False)
+        rc.bit(hs, 0, 0)                                    # same count
+        self._deltas(rc, False)
+        refs = min(self.refs_available, self.max_refs)
+        bw0, bh0 = -(-self.w // 16), -(-self.h // 16)
+        bw = bw0 << self.depth
+        blocks = {}
+        null = dict(mx=0, my=0, ref=0, color=(128, 128, 128), type=0,
+                    level=0)
+        scale = [[256 * (i + 1) // (j + 1) for j in range(8)]
+                 for i in range(8)]
+
+        def med(a, b, c):
+            return sorted((a, b, c))[1]
+
+        def pred_mv(ref, left, top, tr):
+            if refs == 1:
+                return (med(left["mx"], top["mx"], tr["mx"]),
+                        med(left["my"], top["my"], tr["my"]))
+            sc = scale[ref]
+            f = [lambda n, k=k: (n[k] * sc[n["ref"]] + 128) >> 8
+                 for k in ("mx", "my")]
+            return (med(f[0](left), f[0](top), f[0](tr)),
+                    med(f[1](left), f[1](top), f[1](tr)))
+
+        def log2(v):
+            return max(int(v).bit_length() - 1, 0)
+
+        def branch(level, x, y):
+            rem = self.depth - level
+            index = (x + y * bw) << rem
+            trx = (x + 1) << rem
+            left = blocks[index - 1] if x else null
+            top = blocks[index - bw] if y else null
+            tl = blocks[index - bw - 1] if x and y else left
+            tr = (blocks[index - bw + (1 << rem)]
+                  if y and trx < bw and ((x & 1) == 0 or level == 0) else tl)
+            s_ctx = 2 * left["level"] + 2 * top["level"] + tl["level"] + \
+                tr["level"]
+            if level != self.depth:
+                split = int(rng.random() < 0.5)
+                rc.bit(self.block_state, 4 + s_ctx, 1 - split)
+                if split:
+                    for dy in (0, 1):
+                        for dx in (0, 1):
+                            branch(level + 1, 2 * x + dx, 2 * y + dy)
+                    return
+            is_intra = rng.random() < intra
+            rc.bit(self.block_state, 1 + left["type"] + top["type"],
+                   int(is_intra))
+            node = dict(level=level, type=int(is_intra), ref=0)
+            if is_intra:
+                mx, my = pred_mv(0, left, top, tr)
+                col = [int(rng.integers(16, 240)) for _ in range(3)]
+                for k, at in zip(range(3 if self.nb > 2 else 1),
+                                 (32, 64, 96)):
+                    rc.symbol(self.block_state, at,
+                              col[k] - left["color"][k], True)
+                if self.nb <= 2:
+                    col[1:] = left["color"][1:]
+                node.update(mx=mx, my=my, color=tuple(col))
+            else:
+                ref = int(rng.integers(refs))
+                if refs > 1:
+                    ctx = log2(2 * left["ref"]) + log2(2 * top["ref"])
+                    rc.symbol(self.block_state, 128 + 1024 + 32 * ctx, ref,
+                              False)
+                px, py = pred_mv(ref, left, top, tr)
+                mx = px + int(rng.integers(-mv, mv + 1))
+                my = py + int(rng.integers(-mv, mv + 1))
+                mxc = log2(2 * abs(left["mx"] - top["mx"]))
+                myc = log2(2 * abs(left["my"] - top["my"]))
+                rc.symbol(self.block_state, 128 + 32 * (mxc + 16 * (ref > 0)),
+                          mx - px, True)
+                rc.symbol(self.block_state, 128 + 32 * (myc + 16 * (ref > 0)),
+                          my - py, True)
+                node.update(mx=mx, my=my, ref=ref, color=left["color"])
+            for j in range(1 << rem):
+                for i in range(1 << rem):
+                    blocks[index + i + j * bw] = node
+
+        for y in range(bh0):
+            for x in range(bw0):
+                branch(0, x, y)
+        for pi in range(self.nb):
+            for key in sorted(self._bands_of(pi)):
+                rc.symbol2(self._band_state((pi, *key)), 30 * 32, 0, 0)
+        self.refs_available += 1
+        return rc.terminate() + bytes(8)
+
+
+def snow_hand_packets(frames: np.ndarray, key: dict, inter: dict,
+                      keyint: int = 0) -> list[bytes]:
+    """SnowWriter's packets for `frames`: a keyframe (every `keyint`
+    frames when given) whose LL bands hold each frame's planes (BT.601,
+    subsampled to its chroma shifts) sampled at the coarsest level, less
+    128; inter frames with the options `inter` (each seeded by its index)."""
+    h, w = frames.shape[1:3]
+    sw = SnowWriter(w, h)
+    count = key.get("count", 2)
+    shifts = (0, 0) if key.get("colorspace") == 1 else key.get("shifts",
+                                                                (1, 1))
+    out = []
+    for i, f in enumerate(frames):
+        if i == 0 or (keyint and i % keyint == 0):
+            planes = [p[0].astype(np.int64) for p in _yuv_planes(f[None])]
+            ll = []
+            for k, pl in enumerate(planes):
+                if k and shifts != (0, 0):
+                    pl = _subsample(pl[None], *shifts)[0].astype(np.int64)
+                ll.append(pl[::1 << count, ::1 << count] - 128)
+            out.append(sw.keyframe(ll, **key))
+        else:
+            out.append(sw.inter(i, **inter))
+    return out
+
+
+def opencv_file(name: str) -> bytes:
+    """A case of OPENCV_CASES (not cv2's writer's) muxed here."""
+    enc, tag, opts = OPENCV_CASES[name]
+    opts = dict(opts)
+    frames = moving_frames(sum(map(ord, name)),
+                           opts.pop("frames", OPENCV_FRAMES),
+                           *opts.pop("size", OPENCV_SIZE))
+    noise = opts.pop("noise", 0)
+    if noise:
+        rng = np.random.default_rng(len(name))
+        frames = np.clip(frames.astype(int) + rng.integers(
+            -noise, noise + 1, frames.shape), 0, 255).astype(np.uint8)
+    h, w = frames.shape[1:3]
+    info = {"extradata": b"", "bits": 24}
+    if enc == "magyhand":
+        fmt = opts.pop("fmt")
+        packets = [magicyuv_packet(f, fmt, **opts) for f in frames]
+    elif enc == "snowhand":
+        packets = snow_hand_packets(frames, **opts)
+    else:
+        noextra = opts.pop("noextra", False)
+        packets = lavc_encode(frames, enc, info=info, **opts)
+        if noextra:
+            info["extradata"] = b""
+    bits = info["bits"] or 24
+    if name.endswith("_avi"):
+        return avi_file(packets, w, h, 25, len(packets), tag.encode(),
+                        bits=bits, extradata=info["extradata"])
+    bih = struct.pack("<IiiHH4sIiiII", 40 + len(info["extradata"]), w, h, 1,
+                      bits, tag.encode(), w * h * 3, 0, 0, 0, 0)
+    return mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                    codec_private=bih + info["extradata"])
+
+
 def _bits(data: bytes) -> str:
     return "".join(f"{b:08b}" for b in data)
 
@@ -5813,6 +6553,17 @@ def write_case(name: str, out: str = FIXTURES) -> str:
             f.write(muxer_file(name, {**MUXER_CASES, **MUXER_CLIPS}[name],
                                frames))
         return path
+    if name in OPENCV_CASES or name in OPENCV_CLIPS:
+        enc, tag, _ = {**OPENCV_CASES, **OPENCV_CLIPS}[name]
+        if name in OPENCV_CLIPS:
+            write_cv2(path, tag, 25, clip_frames_bgr()[:16])
+        elif enc == "cv2":
+            write_cv2(path, tag, 25, moving_frames(
+                sum(map(ord, name)), OPENCV_FRAMES, *OPENCV_SIZE))
+        else:
+            with open(path, "wb") as f:
+                f.write(opencv_file(name))
+        return path
     if name in LOSSLESS_CASES or name in LOSSLESS_CLIPS:
         enc, kind, _ = {**LOSSLESS_CASES, **LOSSLESS_CLIPS}[name]
         if enc == "cv2":
@@ -6098,7 +6849,8 @@ def main(out: str = FIXTURES, *names: str):
         if (name == "clip_dvd_mkv" or name in RAW_CLIPS
                 or name in LOSSLESS_CASES or name in LOSSLESS_CLIPS
                 or name in MUXER_CASES or name in MUXER_CLIPS
-                or name in LEGACY_CASES or name in LEGACY_CLIPS):
+                or name in LEGACY_CASES or name in LEGACY_CLIPS
+                or name in OPENCV_CASES or name in OPENCV_CLIPS):
             index = np.array([0, len(frames) - 1])      # the first and last
         if name in ITU_CASES or name in ITU_CLIPS:
             index = np.array([len(frames) - 1])         # the last

@@ -3,7 +3,7 @@ cv2, the reading behind the video reader's bounds (TOL in
 tests/test_torch_video_decode.py, VIDEO_TOL in chip_smoke.py).
 
     python tests/_torch_video_sweep.py [streams [seed [screen [dvd [hevc
-        [legacy [itu]]]]]]]
+        [legacy [itu [magicyuv [asv [snow]]]]]]]]]]
 
 prints, per codec, the largest |Δ| in levels of `native.decode_video`
 against cv2's `cap.read()` over every frame of every committed clip in
@@ -47,9 +47,18 @@ OBMC, GOB headers, quantisers, DQUANT), h263p at sizes 32..352 x
 payload size, S, quantisers, DQUANT where Annex I is off: libavcodec
 59 writes DQUANT with Annex I that cv2's libavcodec misreads) and h261
 at QCIF and CIF, on smooth and noisy pictures, in AVI, Matroska or (H.263)
-an s263 MP4. Needs cv2, the system's
-libavcodec 59, libx264 and libx265, which the card's machine does not
-have.
+an s263 MP4; then over `magicyuv`, `asv` and `snow` (default 0 each)
+random streams of the codecs OpenCV's writer writes: MagicYUV from
+libavcodec 59's encoder (its 8-bit layouts, each predictor) and from
+`magicyuv_packet` (every layout to 14 bits, slices of random even
+height, raw slices, the interlace flag, full range, the colour matrix),
+at sizes 1..160 x 1..120; ASV1 and ASV2 at every quantiser, on smooth
+and noisy pictures, with and without extradata, at sizes 8..200 x
+8..160; Snow in 4:2:0, 4:4:4, 4:1:0 and grey with either wavelet,
+lossless, quantisers, quarter-pel, 4MV, 1-4 references and keyframe
+intervals, at sizes 32..200 x 32..160; each in AVI or Matroska. Needs
+cv2, the system's libavcodec 59, libx264 and libx265, which the card's
+machine does not have.
 """
 
 from __future__ import annotations
@@ -420,8 +429,119 @@ def itu_sweep(streams: int, rng, tmp: str):
           f"{refused} option sets refused): {exact} exact, max |Δ| {top}")
 
 
+def _mux(packets: list[bytes], w: int, h: int, tag: bytes, ext: str,
+         path: str, extradata: bytes = b"", bits: int = 24) -> str:
+    """Packets of a fourcc codec in an AVI or a Matroska V_MS/VFW/FOURCC
+    track, written to `path`."""
+    if ext == "avi":
+        data = mk.avi_file(packets, w, h, 25, len(packets), tag, bits=bits,
+                           extradata=extradata)
+    else:
+        bih = mk.struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1,
+                             bits, tag, w * h * 3, 0, 0, 0, 0)
+        data = mk.mkv_file(packets, w, h, 25, "V_MS/VFW/FOURCC",
+                           codec_private=bih + extradata)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def opencv_sweep(kind: str, streams: int, rng, tmp: str):
+    """Random MagicYUV, ASV or Snow streams against cv2."""
+    top, refused, exact, unread = 0, 0, 0, 0
+    for k in range(streams):
+        ext = ("avi", "mkv")[int(rng.integers(2))]
+        info, opts = {"extradata": b"", "bits": 24}, {}
+        if kind == "magicyuv":
+            h, w = int(rng.integers(1, 121)), int(rng.integers(1, 161))
+        elif kind == "asv":
+            h, w = int(rng.integers(8, 161)), int(rng.integers(8, 201))
+        else:
+            h, w = int(rng.integers(32, 161)), int(rng.integers(32, 201))
+        frames = mk.moving_frames(int(rng.integers(1 << 30)),
+                                  int(rng.integers(1, 11)), h, w)
+        if rng.random() < 0.3:
+            frames = np.clip(frames.astype(int) + rng.integers(
+                -40, 41, frames.shape), 0, 255).astype(np.uint8)
+        try:
+            if kind == "magicyuv" and rng.random() < 0.5:
+                fmt = str(rng.choice(list(mk.MAGY_LAYOUTS)))
+                shifts = mk.MAGY_LAYOUTS[fmt][3]
+                vs = shifts[1] if shifts else 0
+                sh = h
+                if rng.random() < 0.6:
+                    sh = int(rng.integers(1, h + 1)) << vs
+                interlaced = rng.random() < 0.2 and (sh >> vs) >= 2 and (
+                    h % sh == 0 or ((h % sh) >> vs) >= 2)
+                opts = dict(fmt=fmt, pred=int(rng.integers(1, 4)),
+                            slice_height=sh, interlaced=interlaced,
+                            full_range=bool(rng.random() < 0.3),
+                            matrix=int(rng.integers(0, 3)),
+                            raw={j for j in range(-(-h // sh))
+                                 if rng.random() < 0.2})
+                packets = [mk.magicyuv_packet(f, **opts) for f in frames]
+                tag = mk.MAGY_TAGS[fmt].encode()
+            elif kind == "magicyuv":
+                opts = dict(pixel_format=str(rng.choice(
+                    ["gbrp", "gbrap", "gray", "yuv420p", "yuv422p", "yuv444p",
+                     "yuva444p"])), pred=str(rng.choice(
+                         ["left", "gradient", "median"])))
+                packets = mk.lavc_encode(frames, "magicyuv", info=info, **opts)
+                tag = info["tag"]
+            elif kind == "asv":
+                enc = ("asv1", "asv2")[k % 2]
+                opts = dict(global_quality=118 * int(rng.integers(1, 32)),
+                            flags="+qscale")
+                packets = mk.lavc_encode(frames, enc, info=info, **opts)
+                if rng.random() < 0.2:
+                    info["extradata"] = b""
+                tag = enc.upper().encode()
+            else:
+                fmt = str(rng.choice(["yuv420p", "yuv444p", "yuv410p",
+                                      "gray"]))
+                opts = dict(pixel_format=fmt, pred=int(rng.integers(0, 2)),
+                            g=int(rng.choice([1, 2, 3, 5, 12])),
+                            refs=int(rng.integers(1, 5)))
+                if rng.random() < 0.5:
+                    q = int(rng.integers(0, 32))
+                    if q == 0:
+                        opts["pred"] = 1
+                    opts.update(global_quality=118 * q, flags="+qscale")
+                extra = [f for f in ("+qpel", "+mv4") if rng.random() < 0.4]
+                if extra:
+                    opts["flags"] = opts.get("flags", "") + "".join(extra)
+                packets = mk.lavc_encode(frames, "snow", **opts)
+                tag = b"SNOW"
+        except RuntimeError:
+            refused += 1
+            continue
+        path = _mux(packets, w, h, tag, ext, os.path.join(tmp, f"o{k}.{ext}"),
+                    info["extradata"], info["bits"] or 24)
+        try:
+            err = worst(path)
+        except NotImplementedError as e:
+            print(f"{kind} stream {k}: {opts} {w}x{h} {ext}: {e}")
+            unread += 1
+            continue
+        except ValueError:                 # cv2 reads no frame: nor the port
+            try:
+                native.decode_video(path)
+                err = 256
+            except ValueError:
+                err = 0
+        if err:
+            print(f"{kind} stream {k}: {opts} {w}x{h} {ext}: max |Δ| {err}")
+        exact += err == 0
+        top = max(top, err)
+    done = streams - refused
+    print(f"{done} random {kind} streams ({refused} option sets refused, "
+          f"{unread} raising NotImplementedError): {exact} exact, max |Δ| "
+          f"{top}")
+
+
 def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0,
-         hevc: int = 0, legacy: int = 0, itu: int = 0):
+         hevc: int = 0, legacy: int = 0, itu: int = 0, magicyuv: int = 0,
+         asv: int = 0, snow: int = 0):
     per = {}
     for npz in sorted(os.listdir(mk.FIXTURES)):
         if not npz.endswith(".npz"):
@@ -466,6 +586,9 @@ def main(streams: int = 600, seed: int = 0, screen: int = 0, dvd: int = 0,
         hevc_sweep(hevc, rng, tmp)
         legacy_sweep(legacy, rng, tmp)
         itu_sweep(itu, rng, tmp)
+        opencv_sweep("magicyuv", magicyuv, rng, tmp)
+        opencv_sweep("asv", asv, rng, tmp)
+        opencv_sweep("snow", snow, rng, tmp)
 
 
 if __name__ == "__main__":

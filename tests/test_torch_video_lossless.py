@@ -256,11 +256,16 @@ def test_ulh_reads_in_bt709(tmp_path):
     assert int(np.abs(ulh.astype(int) - uly).max()) > 8
 
 
-# The H.263 family's fourccs of the case list below: the variant of each
-# that still raises (relabelled to, or patched in) and what it names.
+# The fourccs of the case list below that the port reads since (the
+# H.263 family: csrc/msmpeg4.cpp; MagicYUV, ASV, Snow: csrc/magicyuv.cpp,
+# csrc/asv.cpp, csrc/snow.cpp): the variant of each that still raises
+# (relabelled to, or patched in) and what it names.
 _FAMILY = {"MP42": ("MPG4", "MS-MPEG4 v1"), "MP43": ("MP41", "MS-MPEG4 v1"),
            "DIV3": ("DIV1", "MS-MPEG4 v1"), "WMV1": (None, None),
-           "WMV2": ("J-frame", "J-frame"), "FLV1": ("size", "another size")}
+           "WMV2": ("J-frame", "J-frame"), "FLV1": ("size", "another size"),
+           "M8Y0": ("version", "MagicYUV version"),
+           "MAGY": ("version", "MagicYUV version"), "SNOW": (None, None),
+           "ASV1": (None, None), "ASV2": (None, None)}
 
 
 @pytest.mark.parametrize("fourcc,name", [
@@ -272,12 +277,14 @@ _FAMILY = {"MP42": ("MPG4", "MS-MPEG4 v1"), "MP43": ("MP41", "MS-MPEG4 v1"),
     ("UMRG", "UT Video pack mode")])
 def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
     """What cv2 writes or reads and the port does not: cv2.VideoWriter's
-    own AVIs (it stores MagicYUV as M8Y0 whatever is asked), UT Video's
-    10-bit and pack-mode layouts by their fourcc put on a ULY0 AVI. The
-    H.263 family's fourccs, read since csrc/msmpeg4.cpp: cv2's AVI of each
-    is held against cv2, and what of the family stays unread raises
-    (MS-MPEG4 v1's tags on it, a WMV2 J-frame, a FLV1 picture of another
-    size; WMV1 has no unread variant)."""
+    own AVIs, UT Video's 10-bit and pack-mode layouts by their fourcc put
+    on a ULY0 AVI. The H.263 family's fourccs, read since
+    csrc/msmpeg4.cpp, and MagicYUV's (cv2 stores it as M8Y0 whatever is
+    asked), Snow's and ASV's, read since csrc/magicyuv.cpp, csrc/snow.cpp
+    and csrc/asv.cpp: cv2's AVI of each is held against cv2, and what
+    stays unread raises (MS-MPEG4 v1's tags on it, a WMV2 J-frame, a FLV1
+    picture of another size, a MagicYUV packet of another version than 7;
+    WMV1, Snow and ASV have no unread variant)."""
     path = str(tmp_path / "t.avi")
     frames = mk.moving_frames(len(fourcc), 3, 16, 24)
     if fourcc in _FAMILY:
@@ -294,6 +301,13 @@ def test_unread_codecs_raise_naming_them(tmp_path, fourcc, name):
             at = data.index(native.video_track(path).packets[0][0])
             assert data[at] >> 7 == 0 and (data[at + 1] >> 2) & 1 == 0
             data[at + 1] |= 0x04                       # j_type (bit 13)
+            open(path, "wb").write(bytes(data))
+        elif unread == "version":
+            data = bytearray(open(path, "rb").read())
+            for pkt, _ in native.video_track(path).packets:
+                at = data.index(pkt)
+                assert data[at:at + 4] == b"MAGY" and data[at + 8] == 7
+                data[at + 8] = 6
             open(path, "wb").write(bytes(data))
         elif unread == "size":
             a = mk.lavc_encode(frames, "flv")

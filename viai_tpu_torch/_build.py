@@ -54,7 +54,8 @@ HOST_SOURCES = {"native": ("wavio.cpp", "framestack.cpp", "imagedec.cpp",
                            "videodec.cpp", "mpeg4.cpp", "mpeg12.cpp",
                            "vp8.cpp", "vp9.cpp", "h264.cpp", "hevc.cpp",
                            "rawvideo.cpp", "ffv1.cpp", "utvideo.cpp",
-                           "huffyuv.cpp", "msmpeg4.cpp", "h261.cpp")}
+                           "huffyuv.cpp", "msmpeg4.cpp", "h261.cpp",
+                           "magicyuv.cpp", "asv.cpp", "snow.cpp")}
 _cache_dir: Path | None = None      # set_cache_dir; BUILD_DIR when unset
 
 

@@ -2,9 +2,10 @@
 // mpeg4.cpp (the MPEG-4 Part 2 decoder), mpeg12.cpp (the MPEG-1/2
 // decoder), vp8.cpp (the VP8 decoder), vp9.cpp (the VP9 decoder),
 // h264.cpp (the H.264 decoder), hevc.cpp (the HEVC decoder),
-// msmpeg4.cpp (the H.263 family),
+// msmpeg4.cpp (the H.263 family), h261.cpp (H.261),
 // rawvideo.cpp (uncompressed video), ffv1.cpp (FFV1), utvideo.cpp (UT
-// Video), huffyuv.cpp (HuffYUV and FFVHuff) and imagedec.cpp (PNG in
+// Video), huffyuv.cpp (HuffYUV and FFVHuff), magicyuv.cpp (MagicYUV),
+// asv.cpp (ASUS ASV1 and ASV2), snow.cpp (Snow) and imagedec.cpp (PNG in
 // AVI and Matroska).
 #pragma once
 
@@ -24,6 +25,15 @@ struct Error {
 [[noreturn]] inline void broken(const std::string& m) { throw Error{1, m}; }
 [[noreturn]] inline void unsupported(const std::string& m) {
   throw Error{2, m};
+}
+
+// libavutil's av_image_check_size: a picture libavcodec allocates at all
+// (each side positive, (w + 128)(h + 128) under INT_MAX / 8).
+inline void check_size(int w, int h, const std::string& what) {
+  if (w <= 0 || h <= 0 ||
+      int64_t(w + 128) * int64_t(h + 128) >= int64_t(0x7FFFFFFF / 8))
+    broken(what + " picture size " + std::to_string(w) + "x" +
+           std::to_string(h) + " out of range");
 }
 
 // A decoded picture: luma (h, w); chroma (h >> yshift, w >> xshift),
@@ -437,6 +447,55 @@ class H261Decoder {
   bool decode(const uint8_t* data, size_t n, Picture& out);
   // A picture's size from its header; false without a picture start.
   static bool picture_size(const uint8_t* data, size_t n, int& w, int& h);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's magicyuv decoder (see magicyuv.cpp): each packet one
+// picture, which carries its own size and layout.
+class MagicyuvDecoder {
+ public:
+  MagicyuvDecoder();
+  ~MagicyuvDecoder();
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // A packet's picture size from its header; false without one.
+  static bool picture_size(const uint8_t* data, size_t n, int& w, int& h);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's asv1 and asv2 decoders (see asv.cpp): each packet one
+// intra picture of 4:2:0.
+class AsvDecoder {
+ public:
+  // `version`: 1 (ASV1) or 2 (ASV2); `extradata`: the bytes after the
+  // BITMAPINFOHEADER (the encoder's quantiser first); w, h: the
+  // container's picture size.
+  AsvDecoder(int version, const std::vector<uint8_t>& extradata, int w,
+             int h);
+  ~AsvDecoder();
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+
+ private:
+  struct State;
+  std::unique_ptr<State> s_;
+};
+
+// libavcodec's snow decoder (see snow.cpp): a keyframe decodes on its
+// own, other frames predict from up to 8 pictures before them back to
+// the last keyframe; no picture is held back.
+class SnowDecoder {
+ public:
+  // w, h: the container's picture size (Snow's packets carry none).
+  SnowDecoder(int w, int h);
+  ~SnowDecoder();
+  bool decode(const uint8_t* data, size_t n, Picture& out);
+  // 0 for a keyframe's packet, 1 another.
+  static int peek(const uint8_t* data, size_t n);
 
  private:
   struct State;

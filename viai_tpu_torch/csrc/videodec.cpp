@@ -3,8 +3,10 @@
 // (viai_tpu_torch/native.py binds it; mpeg4.cpp decodes MPEG-4 Part 2,
 // mpeg12.cpp MPEG-1/2, vp8.cpp VP8, vp9.cpp VP9, h264.cpp H.264,
 // hevc.cpp HEVC, rawvideo.cpp uncompressed video, ffv1.cpp FFV1,
-// utvideo.cpp UT Video, huffyuv.cpp HuffYUV and FFVHuff; PNG pictures
-// through imagedec.cpp's reader, png.h).
+// utvideo.cpp UT Video, huffyuv.cpp HuffYUV and FFVHuff, msmpeg4.cpp the
+// H.263 family, h261.cpp H.261, magicyuv.cpp MagicYUV, asv.cpp ASV1 and
+// ASV2, snow.cpp Snow; PNG pictures through imagedec.cpp's reader,
+// png.h).
 //
 // The JAX package reads `.mp4/.avi/.mkv/.webm` clips with cv2, whose
 // FFmpeg backend demuxes with libavformat, decodes with libavcodec and
@@ -31,7 +33,8 @@
 //     track's ColourSpace; the lossless codecs by their fourcc, an AVI
 //     strf's tail or a Matroska V_MS/VFW/FOURCC CodecPrivate after its
 //     BITMAPINFOHEADER as their extradata, V_FFV1 with its configuration
-//     record).
+//     record; MagicYUV, ASV1/ASV2 and Snow by their fourcc, Snow as
+//     Matroska's V_SNOW too).
 //     Each gives the track's packets in decode order, byte for byte as
 //     libavformat gives them (H.264 and HEVC in MP4 and Matroska before
 //     cv2's h264_mp4toannexb and hevc_mp4toannexb), the frame count
@@ -70,9 +73,11 @@
 //     MPEG-4 packet with a coded VOP, a VP8 packet whose frame tag has
 //     show_frame set, a VP9 packet one of whose frames is shown, an
 //     uncompressed packet before the first one libavcodec refuses, every
-//     FFV1, UT Video, HuffYUV and PNG packet (FFV1 decoded from the key
-//     frame before the first pick: its context states carry over); H.264
-//     frames count in the decoder's output order.
+//     FFV1, UT Video, HuffYUV, PNG, MagicYUV, ASV and Snow packet (FFV1
+//     decoded from the key frame before the first pick: its context
+//     states carry over; Snow from the keyframe before it: its other
+//     frames predict from the pictures before them); H.264 frames count
+//     in the decoder's output order.
 //
 // Errors: a broken file gives code 1 (ValueError), a codec, container or
 // feature that is not read code 2 (NotImplementedError), naming it.
@@ -146,7 +151,7 @@ std::vector<uint8_t> read_file(const std::string& path) {
 
 enum class Codec {
   kMjpeg, kMpeg4, kVp8, kVp9, kH264, kMpeg12, kRaw, kHevc, kFfv1, kUtvideo,
-  kHuffyuv, kPng, kH263, kH261, kOther
+  kHuffyuv, kPng, kH263, kH261, kMagicyuv, kAsv, kSnow, kOther
 };
 
 struct Packet {
@@ -280,6 +285,15 @@ Codec riff_codec(const std::string& tag) {
   // H.263+ (MS-MPEG4 v1's tags, which are not read, stay kOther).
   if (H263Decoder::variant(tag) > 0) return Codec::kH263;
   if (u == "H261") return Codec::kH261;
+  // MagicYUV (every tag libavformat maps to it), ASUS ASV1/ASV2, Snow.
+  static const char* kMagy[] = {"MAGY", "M8RG", "M8RA", "M8G0", "M8Y0",
+                                "M8Y2", "M8Y4", "M8YA", "M0RA", "M0RG",
+                                "M0G0", "M0Y0", "M0Y2", "M0Y4", "M2RA",
+                                "M2RG"};
+  for (const char* t : kMagy)
+    if (u == t) return Codec::kMagicyuv;
+  if (u == "ASV1" || u == "ASV2") return Codec::kAsv;
+  if (u == "SNOW") return Codec::kSnow;
   return Codec::kOther;
 }
 
@@ -2023,6 +2037,8 @@ void demux_mkv(Track& t) {
             } else if (codec == "V_FFV1") {
               t.codec = Codec::kFfv1;
               t.extradata = priv;
+            } else if (codec == "V_SNOW") {       // cv2's writer's Snow
+              t.codec = Codec::kSnow;
             }
           }
         }
@@ -3329,6 +3345,12 @@ class Decoder {
           new HuffyuvDecoder(t.bits, t.extradata, t.width, t.height));
     if (t.codec == Codec::kH263) h263_ = h263_of(t);
     if (t.codec == Codec::kH261) h261_.reset(new H261Decoder());
+    if (t.codec == Codec::kMagicyuv) magicyuv_.reset(new MagicyuvDecoder());
+    if (t.codec == Codec::kAsv)
+      asv_.reset(new AsvDecoder(upper(fourcc_of(t)) == "ASV1" ? 1 : 2,
+                                t.extradata, t.width, t.height));
+    if (t.codec == Codec::kSnow)
+      snow_.reset(new SnowDecoder(t.width, t.height));
   }
 
   // The fourcc an H.263-family track's decoder is named by (Matroska's
@@ -3353,11 +3375,13 @@ class Decoder {
   }
 
   // Whether each packet is one picture decoded on its own (MJPEG,
-  // uncompressed video, UT Video, HuffYUV, PNG; FFV1's key frames only).
+  // uncompressed video, UT Video, HuffYUV, PNG, MagicYUV, ASV; FFV1's and
+  // Snow's key frames only).
   bool intra() const {
     return t_.codec == Codec::kMjpeg || t_.codec == Codec::kRaw ||
            t_.codec == Codec::kUtvideo || t_.codec == Codec::kHuffyuv ||
-           t_.codec == Codec::kPng;
+           t_.codec == Codec::kPng || t_.codec == Codec::kMagicyuv ||
+           t_.codec == Codec::kAsv;
   }
 
   // The reorder depth libavformat's avformat_find_stream_info leaves in
@@ -3395,10 +3419,14 @@ class Decoder {
       return true;
     }
     if (raw_) return raw_->decode(d, p.size, out);
-    if (ffv1_ || ut_ || huffyuv_ || t_.codec == Codec::kPng) {
+    if (ffv1_ || ut_ || huffyuv_ || magicyuv_ || asv_ || snow_ ||
+        t_.codec == Codec::kPng) {
       if (ffv1_) ffv1_->decode(d, p.size, out);
       if (ut_) ut_->decode(d, p.size, out);
       if (huffyuv_) huffyuv_->decode(d, p.size, out);
+      if (magicyuv_) magicyuv_->decode(d, p.size, out);
+      if (asv_) asv_->decode(d, p.size, out);
+      if (snow_) snow_->decode(d, p.size, out);
       if (t_.codec == Codec::kPng) decode_png_picture(d, p.size, out);
       out.source = int64_t(calls_.size()) - 1;
       return true;
@@ -3473,9 +3501,6 @@ class Decoder {
         if (u == t) return true;
       return false;
     };
-    if (in({"MAGY", "M8RG", "M8RA", "M8G0", "M8Y0", "M8Y2", "M8Y4", "M8YA",
-            "M0RA", "M0RG", "M0G0", "M0Y0", "M0Y2", "M0Y4", "M2RA", "M2RG"}))
-      return "MagicYUV, not read";
     if (in({"UQY0", "UQY2", "UQRA", "UQRG"}))
       return "UT Video 10-bit (UQ**), not read";
     if (in({"UMY2", "UMH2", "UMY4", "UMH4", "UMRG", "UMRA"}))
@@ -3485,7 +3510,6 @@ class Decoder {
       return "MJPEG that libavcodec decodes with MTSJ's own quirk, not read";
     if (in({"MJ2C", "MJP2", "LJ2C", "LJ2K", "IPJ2", "AVJ2"}))
       return "JPEG 2000, not read";
-    if (u == "SNOW") return "Snow, not read";
     if (u == "ZYGO")
       return "ZyGo's H.263, not read: libavcodec reads 759 bits of ZyGo's "
              "own after each I picture's header, so cv2 reads the pictures "
@@ -3500,7 +3524,6 @@ class Decoder {
             "DVH3", "DVH4", "DVH5", "DVH6", "DV1N", "DV1P"}))
       return "DV, not read: cv2 converts no DV frame, since libavcodec "
              "marks DV frames interlaced and cv2's swscale then gives black";
-    if (in({"ASV1", "ASV2"})) return "ASUS " + u + ", not read";
     return "a codec that is not read";
   }
 
@@ -3520,6 +3543,9 @@ class Decoder {
   std::unique_ptr<HuffyuvDecoder> huffyuv_;
   std::unique_ptr<H263Decoder> h263_;
   std::unique_ptr<H261Decoder> h261_;
+  std::unique_ptr<MagicyuvDecoder> magicyuv_;
+  std::unique_ptr<AsvDecoder> asv_;
+  std::unique_ptr<SnowDecoder> snow_;
 };
 
 // A JPEG's frame size, from its SOF segment; false without one.
@@ -3611,6 +3637,9 @@ void first_size(const Track& t, int& w, int& h) {
         break;
       case Codec::kH261:
         H261Decoder::picture_size(d, p.size, w, h);
+        break;
+      case Codec::kMagicyuv:              // the packet header's size
+        MagicyuvDecoder::picture_size(d, p.size, w, h);
         break;
       case Codec::kPng:                   // IHDR's size
         if (p.size >= 24 && std::memcmp(d + 12, "IHDR", 4) == 0) {
@@ -4029,9 +4058,10 @@ int32_t viai_raw_to_bgr(const uint8_t* data, int64_t n, uint32_t tag,
 // resized as cv2.resize at INTER_LINEAR on
 // BGR, flipped to RGB, / 255;
 // then re-picked by the window rule over (0, 1) when their number is
-// not n_frames. MJPEG, uncompressed video, UT Video, HuffYUV and PNG
-// decode only the picked packets, FFV1 from the key frame at or before
-// the first pick (its context states carry over); MPEG-4 from the
+// not n_frames. MJPEG, uncompressed video, UT Video, HuffYUV, PNG,
+// MagicYUV and ASV decode only the picked packets, FFV1 and Snow from the
+// key frame at or before the first pick (FFV1's context states carry
+// over, Snow's pictures are references); MPEG-4 from the
 // last I-VOP at or before the first pick to the last pick, VP8 and VP9
 // from the last shown keyframe at or before it, H.264 (whose frames count
 // in output order) from the last IDR picture at or before it until the
@@ -4196,6 +4226,8 @@ int32_t viai_load_video_frames(const char* path, int32_t n_frames,
                                                &shows[i]);
         if (t.codec == viai_video::Codec::kFfv1)
           vop[i] = viai_video::Ffv1Decoder::peek(&t.file[p.off], p.size);
+        if (t.codec == viai_video::Codec::kSnow)
+          vop[i] = viai_video::SnowDecoder::peek(&t.file[p.off], p.size);
         if (h263) vop[i] = h263->peek(&t.file[p.off], p.size);
         if (vop[i] >= 0 && !p.discard) {
           frame_of[i] = frames;

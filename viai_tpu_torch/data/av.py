@@ -30,15 +30,19 @@ The port's copy of `viai_tpu/data/av.py`. The frames of a clip
     uncompressed video: planar, semi-planar and packed YUV, grey, v210
     and BI_RGB at 8/16/32 bits in AVI, V_UNCOMPRESSED in Matroska, as
     OpenCV's writer and capture tools store them, and the lossless
-    codecs of csrc/ffv1.cpp, csrc/utvideo.cpp, csrc/huffyuv.cpp and PNG
-    through csrc/imagedec.cpp's reader: FFV1, UT Video, HuffYUV/FFVHuff
-    and PNG in AVI and Matroska), what the JAX
+    codecs of csrc/ffv1.cpp, csrc/utvideo.cpp, csrc/huffyuv.cpp,
+    csrc/magicyuv.cpp and PNG through csrc/imagedec.cpp's reader: FFV1,
+    UT Video, HuffYUV/FFVHuff, MagicYUV (8 to 14 bits) and PNG in AVI and
+    Matroska; the H.263 family of csrc/msmpeg4.cpp, csrc/h261.cpp's
+    H.261, csrc/asv.cpp's ASUS ASV1/ASV2 and csrc/snow.cpp's Snow, as
+    OpenCV's writer stores them), what the JAX
     package's cv2 path gives: the frames of cv2's count over the window
     as a set, cv2's
     INTER_LINEAR resize on BGR, RGB / 255, re-picked over the frames
-    found. Another codec (AV1, MagicYUV, MS-MPEG4, ...), an uncompressed layout that
-    is not read, a feature of a codec that is not read (MPEG-4
-    interlace, H.264 MBAFF, HEVC tiles, ...), or an MP4 edit list of
+    found. Another codec (AV1, JPEG 2000, MS-MPEG4 v1, ...), an
+    uncompressed layout that is not read, a feature of a codec that is
+    not read (MPEG-4 interlace, H.264 MBAFF, HEVC tiles, ...), or an MP4
+    edit list of
     several edits or another rate raises NotImplementedError naming it;
     what cv2 reads no frame from (cv2's own YUY2 and UYVY AVIs) raises
     ValueError, as the JAX package does.

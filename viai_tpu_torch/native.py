@@ -2,7 +2,8 @@
 csrc/framestack.cpp, csrc/imagedec.cpp, csrc/videodec.cpp,
 csrc/mpeg4.cpp, csrc/mpeg12.cpp, csrc/vp8.cpp, csrc/vp9.cpp,
 csrc/h264.cpp, csrc/hevc.cpp, csrc/rawvideo.cpp, csrc/ffv1.cpp,
-csrc/utvideo.cpp, csrc/huffyuv.cpp, csrc/msmpeg4.cpp, csrc/h261.cpp).
+csrc/utvideo.cpp, csrc/huffyuv.cpp, csrc/msmpeg4.cpp, csrc/h261.cpp,
+csrc/magicyuv.cpp, csrc/asv.cpp, csrc/snow.cpp).
 
 The port's copy of `viai_tpu/native/__init__.py`: WAV decode and linear
 resampling, the frame-stack reader (npy uint8 stacks and uncompressed
@@ -240,10 +241,11 @@ def load_frame_dir(path: str, n_frames: int, size: int,
 # (csrc/rawvideo.cpp); "ffv1", "utvideo", "huffyuv" (HuffYUV and FFVHuff)
 # and "png" the lossless codecs; "h263" the H.263 family (csrc/msmpeg4.cpp:
 # FLV1, MS-MPEG4, WMV, ITU H.263 and H.263+), "h261" H.261
-# (csrc/h261.cpp).
+# (csrc/h261.cpp); "magicyuv" MagicYUV (csrc/magicyuv.cpp), "asv" ASUS
+# ASV1 and ASV2 (csrc/asv.cpp), "snow" Snow (csrc/snow.cpp).
 VIDEO_CODECS = ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw",
                 "hevc", "ffv1", "utvideo", "huffyuv", "png", "h263", "h261",
-                "other")
+                "magicyuv", "asv", "snow", "other")
 
 
 @dataclasses.dataclass
@@ -253,7 +255,7 @@ class VideoTrack:
     .webm), the fourcc or Matroska CodecID (`tag`), the codec
     ("mjpeg", "mpeg4", "vp8", "vp9", "h264", "mpeg12", "raw", "hevc",
     "ffv1", "utvideo", "huffyuv", "png", "h263" for the H.263 family,
-    "h261" or "other"), the
+    "h261", "magicyuv", "asv", "snow" or "other"), the
     size of its first picture as cv2's CAP_PROP_FRAME_WIDTH and HEIGHT
     report it
     (from the first packet's headers; the container's when they give
